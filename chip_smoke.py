@@ -1,43 +1,61 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
-It builds the port's CUDA kernels from the checkout, holds each kernel
-against its plain PyTorch version at the main path's shapes, runs the
-single-card slab plan at 512^3 under ``Config(fft_backend="pallas")``
-(``exec_r2c`` then ``exec_c2r``), checks the result against ``torch.fft``
-and the roundtrip against the input, shows from the launch counts that the
-plan went through every kernel, and times each kernel, its plain version,
-the same function through ``torch.fft``, and both plans.
+It builds the port's CUDA kernels from the checkout (``csrc/*.cu``, all at
+once, before any rank is spawned) and then, under
+``Config(fft_backend="pallas")``:
+
+1. holds each kernel against its plain PyTorch version at the main paths'
+   shapes: the fused kernels 6-8 at 512^3, the per-axis kernels 1-5 at the
+   shapes of the 512^3 two-rank plan and of the 1024^3 four-step;
+2. runs a small cube against numpy, then the single-card slab plan at
+   512^3 (fused kernels) and at 1024^3 (per-axis four-step kernels):
+   ``exec_r2c`` then ``exec_c2r``, checked against ``torch.fft`` and the
+   input, with the launch counts of every kernel;
+3. runs the distributed slab plan at 512^3 as two ranks sharing the card
+   over a gloo group (``torch.multiprocessing.spawn``; the exchange is
+   staged through the host by gloo), each rank checking its launches,
+   rank 0 the gathered result;
+4. times each kernel, its plain version and the same function through
+   ``torch.fft`` (cuFFT), and the plans under "pallas" and "xla".
 
 Phases print JSON lines. Before the last line come one ``{"kernels": ...}``
 line and the card's name and power limit as ``nvidia-smi`` gives them; the
 last line is ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the script exits non-zero with no result line; so does a machine without a
-CUDA device, or a directory without the port.
+CUDA device, or a directory without the port. Takes about a minute on an
+H100, the kernels' build included.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 SEED = 20261016
-N = 512            # the cube: the largest size on the fused single-card path
+N = 512            # the fused single-card cube and the two-rank cube
+NBIG = 1024        # the per-axis single-card cube (four-step on every axis)
+RANKS = 2
 TOL = 5e-4         # max relative error, the JAX package's per-stage bound
 SMALL = (6, 12, 15)
 REPS = 10
 WARMUP = 2
+REPS_BIG = 3       # repetitions of a 1024^3 plan direction (~0.3 s each)
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate.
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
+PALLAS = "distributedfft_tpu/ops/pallas_fft.py"
 
 
 def emit(**kw) -> None:
@@ -54,14 +72,14 @@ def rel_err(got, ref):
     return abs_err, abs_err / max(float(ref.abs().max()), 1e-30)
 
 
-def median_ms(torch, fn) -> float:
-    """Median over REPS runs of fn's device time (CUDA events), after
-    WARMUP runs."""
-    for _ in range(WARMUP):
+def median_ms(torch, fn, reps: int = REPS, warmup: int = WARMUP) -> float:
+    """Median over ``reps`` runs of fn's device time (CUDA events), after
+    ``warmup`` runs."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -70,6 +88,230 @@ def median_ms(torch, fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float):
+    """(bound ms, what bounds it) on the data sheet's peaks."""
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def expect(hf, **counts):
+    """The full launch-count dict with the given kernels, zero elsewhere."""
+    return {k: counts.get(k, 0) for k in hf.LAUNCHES}
+
+
+@contextlib.contextmanager
+def kernel_events(torch, hf):
+    """Record a CUDA event pair around every kernel launch; yields a list
+    of (kernel name, start, end), the name being the counter the wrapper
+    passes to ``_launch``. Measurement only: the port is unchanged and the
+    counts still rise in ``_launch``."""
+    orig, log = hf._launch, []
+
+    def launch(kernel, fn, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        orig(kernel, fn, *args)
+        end.record()
+        log.append((kernel, start, end))
+
+    hf._launch = launch
+    try:
+        yield log
+    finally:
+        hf._launch = orig
+
+
+def kernel_share(torch, hf, fn):
+    """Run fn once with kernel events: (total ms, {kernel: ms summed})."""
+    torch.cuda.synchronize()
+    with kernel_events(torch, hf) as log:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    per = {}
+    for name, s, e in log:
+        per[name] = per.get(name, 0.0) + s.elapsed_time(e)
+    return start.elapsed_time(end), per
+
+
+# ---------------------------------------------------------------------------
+# The two ranks of the distributed phase (spawned; they import the port only)
+# ---------------------------------------------------------------------------
+
+
+def rank_main(rank: int, addr: str, outdir: str) -> None:
+    import torch
+    import torch.distributed as dist
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.parallel import multihost
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.maybe_initialize(addr, RANKS, rank, backend="gloo",
+                               timeout_s=300)
+    dev = torch.device("cuda")
+    plan = dft.SlabFFTPlan(dft.GlobalSize(N, N, N), dft.SlabPartition(RANKS),
+                           dft.Config(fft_backend="pallas"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn((N, N, N), generator=gen, device=dev)
+    xl = plan.pad_input(x)
+
+    hf.reset_launches()
+    c = plan.exec_r2c(xl)
+    torch.cuda.synchronize()
+    fwd = dict(hf.LAUNCHES)
+    hf.reset_launches()
+    back = plan.exec_c2r(c)
+    torch.cuda.synchronize()
+    inv = dict(hf.LAUNCHES)
+    if fwd != expect(hf, rmatmul=1, cmatmul=2) or \
+            inv != expect(hf, cmatmul=2, c2r=1):
+        fail(f"rank {rank}: the two-rank plan did not launch the per-axis "
+             f"kernels as expected: forward {fwd}, inverse {inv}")
+    ref = torch.fft.rfftn(x)
+    _, local_rel = rel_err(c, ref[plan.local_slices(output=True)])
+    _, local_rt = rel_err(back / float(N ** 3), xl)
+    if not (local_rel <= TOL and local_rt <= TOL):
+        fail(f"rank {rank}: local block wrong: forward rel {local_rel:.3e}, "
+             f"roundtrip rel {local_rt:.3e}")
+    full = torch.from_numpy(plan.crop_spectral(c))       # gathered, host
+    rt = torch.from_numpy(plan.crop_real(back))
+    out = {"rank": rank, "launches_forward": fwd, "launches_inverse": inv,
+           "local_forward_rel": local_rel, "local_roundtrip_rel": local_rt,
+           "local_input_shape": list(plan.local_input_shape),
+           "local_output_shape": list(plan.local_output_shape)}
+    if rank == 0:
+        _, out["forward_vs_torch_fft"] = rel_err(full, ref.cpu())
+        _, out["roundtrip_vs_input"] = rel_err(rt / float(N ** 3), x.cpu())
+        if not (out["forward_vs_torch_fft"] <= TOL
+                and out["roundtrip_vs_input"] <= TOL):
+            fail(f"two-rank plan wrong: {out}")
+    del full, rt, ref
+
+    def wall_ms(fn, reps=5):
+        """Median host wall time of fn on both ranks at once: both start
+        after a barrier, each ends on its own synchronize."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    first, xpose, _ = plan._fwd_parts()
+    ifirst, ixpose, _ = plan._inv_parts()
+    a, b = first(xl), ifirst(c)
+    out.update(forward_ms=wall_ms(lambda: plan.exec_r2c(xl)),
+               inverse_ms=wall_ms(lambda: plan.exec_c2r(c)),
+               exchange_forward_ms=wall_ms(lambda: xpose(a)),
+               exchange_inverse_ms=wall_ms(lambda: ixpose(b)),
+               exchange_bytes=a.numel() * a.element_size())
+    # This rank's kernel time inside one run of each direction (CUDA events
+    # around each launch; the other rank's work shares the card meanwhile).
+    for name, fn in (("forward", lambda: plan.exec_r2c(xl)),
+                     ("inverse", lambda: plan.exec_c2r(c))):
+        _, per = kernel_share(torch, hf, fn)
+        out[f"{name}_kernel_ms"] = per
+        out[f"{name}_kernel_total_ms"] = sum(per.values())
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    multihost.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The parent
+# ---------------------------------------------------------------------------
+
+
+def stage_cases(torch, hf, dev, gen):
+    """Kernels 1-5 at the main paths' shapes: (entry, make inputs)."""
+    def rr(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def cr(*shape):
+        return torch.complex(rr(*shape), rr(*shape))
+
+    def planes(kind, n, inverse=False):
+        return hf._planes(kind, n, inverse, dev)
+
+    rows_r = (N // RANKS) * N                 # z-R2C rows of a rank's slab
+    rows_c = (N // RANKS) * (N // 2 + 1)      # y and x C2C rows of a rank
+    big_tw = NBIG * (NBIG // 2 + 1) * 2       # 1024^3 y/x first stage rows
+    big_rtw = NBIG * NBIG * 2                 # 1024^3 z first stage rows
+    big_n2 = NBIG * NBIG * NBIG // 2          # 1024^3 z second stage rows
+    k_r = N // 2 + 1
+    return [
+        dict(name="rmatmul", replaces=f"{PALLAS}:182",
+             shape=dict(M=rows_r, n=N, k=k_r),
+             make=lambda: dict(x=rr(rows_r, N), F=planes("rdft", N)),
+             run=lambda t: hf.stage(t["x"], *t["F"]),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
+             library=lambda t: torch.fft.rfft(t["x"]), library_call="rfft",
+             flops=4 * rows_r * N * k_r,
+             bytes=4 * rows_r * N + 8 * rows_r * k_r + 8 * N * k_r),
+        dict(name="cmatmul", replaces=f"{PALLAS}:164",
+             shape=dict(M=rows_c, n=N, k=N),
+             make=lambda: dict(x=cr(rows_c, N), F=planes("dft", N)),
+             run=lambda t: hf.stage(t["x"], *t["F"]),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
+             library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
+             flops=8 * rows_c * N * N,
+             bytes=16 * rows_c * N + 8 * N * N),
+        dict(name="cmatmul", variant="n2_stage_1024", replaces=f"{PALLAS}:164",
+             shape=dict(M=big_n2, n=2, k=2),
+             make=lambda: dict(x=cr(big_n2, 2), F=planes("dft", 2)),
+             run=lambda t: hf.stage(t["x"], *t["F"]),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
+             library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
+             flops=8 * big_n2 * 2 * 2, bytes=32 * big_n2 + 32),
+        dict(name="c2r", replaces=f"{PALLAS}:156",
+             shape=dict(M=rows_r, n_in=k_r, n=N),
+             make=lambda: dict(x=cr(rows_r, k_r), C=planes("c2r", N)),
+             run=lambda t: hf.c2r(t["x"], *t["C"]),
+             plain=lambda t: hf.c2r_plain(t["x"], *t["C"]),
+             library=lambda t: torch.fft.irfft(t["x"], n=N, norm="forward"),
+             library_call="irfft(norm='forward')",
+             flops=4 * rows_r * k_r * N,
+             bytes=8 * rows_r * k_r + 4 * rows_r * N + 8 * k_r * N),
+        dict(name="cmatmul_tw", replaces=f"{PALLAS}:171",
+             shape=dict(M=big_tw, n=N, k=N, n1=2),
+             make=lambda: dict(x=cr(big_tw, N), F=planes("dft", N),
+                               T=hf._twiddle_planes(2, N, False, dev),
+                               z=cr(big_tw // 2, NBIG)),
+             run=lambda t: hf.stage(t["x"], *t["F"], (2, N, False)),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
+             pair=lambda t: hf._fft_last(t["z"], False),
+             library=lambda t: torch.fft.fft(t["z"]),
+             library_call="fft of the whole 1024-point axis",
+             flops=8 * big_tw * N * N,
+             bytes=16 * big_tw * N + 8 * N * N + 16 * N),
+        dict(name="rmatmul_tw", replaces=f"{PALLAS}:188",
+             shape=dict(M=big_rtw, n=N, k=N, n1=2),
+             make=lambda: dict(x=rr(big_rtw, N), F=planes("dft", N),
+                               T=hf._twiddle_planes(2, N, False, dev),
+                               z=rr(big_rtw // 2, NBIG)),
+             run=lambda t: hf.stage(t["x"], *t["F"], (2, N, False)),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
+             pair=lambda t: hf._rfft_last(t["z"]),
+             library=lambda t: torch.fft.rfft(t["z"]),
+             library_call="rfft of the whole 1024-point axis",
+             flops=4 * big_rtw * N * N,
+             bytes=12 * big_rtw * N + 8 * N * N + 16 * N),
+    ]
 
 
 def main() -> int:
@@ -81,10 +323,12 @@ def main() -> int:
         import distributedfft_tpu_torch as dft
         from distributedfft_tpu_torch.ops import _build
         from distributedfft_tpu_torch.ops import hopper_fft as hf
+        from distributedfft_tpu_torch.parallel import multihost
     except ImportError as err:
         print(f"chip_smoke: the port is not importable ({err}); run from the "
               "root of a checkout", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
 
     # -- 1. device -----------------------------------------------------------
     smi = subprocess.run(
@@ -99,14 +343,14 @@ def main() -> int:
          count=torch.cuda.device_count(), nvidia_smi=card,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # -- 2. build ------------------------------------------------------------
+    # -- 2. build: every source at once, before any rank is spawned ----------
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     per_lib = _build.build(sources)
     emit(phase="build", sources=sources, seconds=time.perf_counter() - t0,
          per_library_s=per_lib)
 
-    # -- 3. each kernel against its plain version at the 512^3 shapes -------
+    # -- 3. fused kernels 6-8 against their plain versions at 512^3 ----------
     gen = torch.Generator(device=dev).manual_seed(SEED)
     Zo = N // 2 + 1
 
@@ -123,27 +367,30 @@ def main() -> int:
     cr, ci = hf._planes("c2r", N, False, dev)
     pc = torch.complex(pr, pi)
     X = Y = Z = N
-    kernels = [
-        dict(name="zy_fwd", replaces="distributedfft_tpu/ops/pallas_fft.py:427",
+    fused = [
+        dict(name="zy_fwd", replaces=f"{PALLAS}:427",
              run=lambda: hf.zy_fwd(x),
              plain=lambda: hf.zy_fwd_plain(x, fzr, fzi, fyr, fyi),
-             library=lambda: torch.fft.rfft2(x),
+             library=lambda: torch.fft.rfft2(x), library_call="rfft2",
              flops=4 * X * Y * Z * Zo + 8 * X * Y * Y * Zo,
              bytes=4 * (X * Y * Z + 2 * Z * Zo + 2 * Y * Y + 2 * X * Y * Zo)),
-        dict(name="x_c2c", replaces="distributedfft_tpu/ops/pallas_fft.py:443",
+        dict(name="x_c2c", replaces=f"{PALLAS}:443",
              run=lambda: hf.x_c2c(pr, pi, inverse=True),
              plain=lambda: hf.x_c2c_plain(pr, pi, fxr, fxi),
              library=lambda: torch.fft.ifft(pc, dim=0, norm="forward"),
+             library_call="ifft(dim=0)",
              flops=8 * X * X * Y * Zo,
              bytes=4 * (4 * X * Y * Zo + 2 * X * X)),
-        dict(name="yz_inv", replaces="distributedfft_tpu/ops/pallas_fft.py:452",
+        dict(name="yz_inv", replaces=f"{PALLAS}:452",
              run=lambda: hf.yz_inv(pr, pi, Z),
              plain=lambda: hf.yz_inv_plain(pr, pi, fyir, fyii, cr, ci),
              library=lambda: torch.fft.irfft2(pc, s=(Y, Z), norm="forward"),
+             library_call="irfft2",
              flops=8 * X * Y * Y * Zo + 4 * X * Y * Zo * Z,
              bytes=4 * (2 * X * Y * Zo + 2 * Y * Y + 2 * Zo * Z + X * Y * Z)),
     ]
-    for k in kernels:
+    for k in fused:
+        k["source"] = "distributedfft_tpu_torch/csrc/fused3d.cu"
         got, ref = k["run"](), k["plain"]()
         torch.cuda.synchronize()
         if not isinstance(got, tuple):
@@ -159,9 +406,8 @@ def main() -> int:
                  f"rel {k['max_rel_err']:.3e} > {TOL}")
         del got, ref
 
-    # -- 4. the main path ----------------------------------------------------
+    # -- 4. the 512^3 fused plan and a small cube against numpy --------------
     pallas = dft.Config(fft_backend="pallas")
-    # A small cube on the card against numpy's float64 transform.
     small = dft.SlabFFTPlan(dft.GlobalSize(*SMALL), dft.SlabPartition(1),
                             pallas)
     xs = torch.randn(SMALL, generator=gen, device=dev, dtype=torch.float32)
@@ -180,11 +426,12 @@ def main() -> int:
     fwd = dict(hf.LAUNCHES)
     back = plan.exec_c2r(c)
     torch.cuda.synchronize()
-    launches = dict(hf.LAUNCHES)
-    inv = {k: launches[k] - fwd[k] for k in launches}
-    emit(phase="main_path", launches_forward=fwd, launches_inverse=inv)
-    if fwd != {"zy_fwd": 1, "x_c2c": 1, "yz_inv": 0} or \
-            inv != {"zy_fwd": 0, "x_c2c": 1, "yz_inv": 1}:
+    launches = {"fused_512": dict(hf.LAUNCHES)}
+    inv = {k: launches["fused_512"][k] - fwd[k] for k in fwd}
+    emit(phase="main_path", path="fused_512", launches_forward=fwd,
+         launches_inverse=inv)
+    if fwd != expect(hf, zy_fwd=1, x_c2c=1) or \
+            inv != expect(hf, x_c2c=1, yz_inv=1):
         fail(f"main path did not launch each kernel as expected: forward "
              f"{fwd}, inverse {inv}")
     if tuple(c.shape) != (N, N, Zo) or c.dtype != torch.complex64 or \
@@ -195,21 +442,19 @@ def main() -> int:
         fail("non-finite values on the main path")
     _, fwd_rel = rel_err(c, torch.fft.rfftn(x))
     _, rt_rel = rel_err(back / float(N ** 3), x)
-    emit(phase="main_path_check", forward_vs_torch_fft=fwd_rel,
+    emit(phase="main_path_check", path="fused_512", forward_vs_torch_fft=fwd_rel,
          roundtrip_vs_input=rt_rel, tol=TOL)
     if not (fwd_rel <= TOL and rt_rel <= TOL):
         fail(f"main path wrong: forward rel {fwd_rel:.3e}, roundtrip rel "
              f"{rt_rel:.3e} (tol {TOL})")
     del c, back
 
-    # -- 5. timing -----------------------------------------------------------
-    for k in kernels:
+    # -- 5. timing of the fused kernels and the 512^3 plans ------------------
+    for k in fused:
         k["kernel_ms"] = median_ms(torch, k["run"])
         k["plain_ms"] = median_ms(torch, k["plain"])
         k["library_ms"] = median_ms(torch, k["library"])
-        t_ops, t_bytes = k["flops"] / FP32_FLOPS, k["bytes"] / HBM_BYTES
-        k["bound_ms"] = 1e3 * max(t_ops, t_bytes)
-        k["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
         emit(phase="kernel_time", name=k["name"], kernel_ms=k["kernel_ms"],
              plain_ms=k["plain_ms"], library_ms=k["library_ms"],
              bound_ms=k["bound_ms"])
@@ -221,20 +466,153 @@ def main() -> int:
          pallas_inverse_ms=median_ms(torch, lambda: plan.exec_c2r(cp)),
          xla_forward_ms=median_ms(torch, lambda: xla.exec_r2c(x)),
          xla_inverse_ms=median_ms(torch, lambda: xla.exec_c2r(cx)))
+    del x, pr, pi, pc, cp, cx, plan, xla
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": k["name"], "route": "cuda",
-        "source": "distributedfft_tpu_torch/csrc/fused3d.cu",
-        "replaces": k["replaces"], "launches": launches[k["name"]],
-        "max_abs_err": k["max_abs_err"], "max_rel_err": k["max_rel_err"],
-        "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
-        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-        "flops": k["flops"], "bytes": k["bytes"]} for k in kernels]}))
+    # -- 6. per-axis kernels 1-5: check against plain, then time -------------
+    staged = stage_cases(torch, hf, dev, gen)
+    for k in staged:
+        k["source"] = "distributedfft_tpu_torch/csrc/stage.cu"
+        t = k["make"]()
+        got, ref = k["run"](t), k["plain"](t)
+        torch.cuda.synchronize()
+        k["max_abs_err"], k["max_rel_err"] = rel_err(got, ref)
+        del got, ref
+        emit(phase="kernel_check", name=k["name"], variant=k.get("variant"),
+             shape=k["shape"], max_abs_err=k["max_abs_err"],
+             max_rel_err=k["max_rel_err"], tol=TOL)
+        if not k["max_rel_err"] <= TOL:
+            fail(f"kernel {k['name']} {k['shape']} disagrees with its plain "
+                 f"version: rel {k['max_rel_err']:.3e} > {TOL}")
+        k["kernel_ms"] = median_ms(torch, lambda: k["run"](t))
+        k["plain_ms"] = median_ms(torch, lambda: k["plain"](t))
+        k["library_ms"] = median_ms(torch, lambda: k["library"](t))
+        if "pair" in k:
+            k["pair_ms"] = median_ms(torch, lambda: k["pair"](t))
+        k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
+        emit(phase="kernel_time", name=k["name"], variant=k.get("variant"),
+             kernel_ms=k["kernel_ms"], plain_ms=k["plain_ms"],
+             library_ms=k["library_ms"], library_call=k["library_call"],
+             pair_ms=k.get("pair_ms"), bound_ms=k["bound_ms"],
+             bound_by=k["bound_by"])
+        del t
+        torch.cuda.empty_cache()
+
+    # -- 7. the 1024^3 single-card plan: per-axis four-step kernels ----------
+    torch.cuda.reset_peak_memory_stats()
+    xb = torch.randn((NBIG,) * 3, generator=gen, device=dev)
+    big = dft.SlabFFTPlan(dft.GlobalSize(NBIG, NBIG, NBIG),
+                          dft.SlabPartition(1), pallas)
+    hf.reset_launches()
+    cb = big.exec_r2c(xb)
+    torch.cuda.synchronize()
+    fwd = dict(hf.LAUNCHES)
+    hf.reset_launches()
+    bb = big.exec_c2r(cb)
+    torch.cuda.synchronize()
+    inv = dict(hf.LAUNCHES)
+    launches["per_axis_1024"] = {k: fwd[k] + inv[k] for k in fwd}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit(phase="main_path", path="per_axis_1024", launches_forward=fwd,
+         launches_inverse=inv, peak_memory_gb=peak_gb)
+    if fwd != expect(hf, rmatmul_tw=1, cmatmul_tw=2, cmatmul=3) or \
+            inv != expect(hf, cmatmul_tw=3, cmatmul=3):
+        fail(f"1024^3 plan did not launch the four-step kernels as "
+             f"expected: forward {fwd}, inverse {inv}")
+    if tuple(cb.shape) != (NBIG, NBIG, NBIG // 2 + 1) or \
+            tuple(bb.shape) != (NBIG,) * 3:
+        fail(f"unexpected 1024^3 outputs {tuple(cb.shape)}, {tuple(bb.shape)}")
+    _, fwd_rel = rel_err(cb, torch.fft.rfftn(xb))
+    bb /= float(NBIG) ** 3
+    _, rt_rel = rel_err(bb, xb)
+    emit(phase="main_path_check", path="per_axis_1024",
+         forward_vs_torch_fft=fwd_rel, roundtrip_vs_input=rt_rel, tol=TOL)
+    if not (fwd_rel <= TOL and rt_rel <= TOL):
+        fail(f"1024^3 plan wrong: forward rel {fwd_rel:.3e}, roundtrip rel "
+             f"{rt_rel:.3e} (tol {TOL})")
+    del bb
+    torch.cuda.empty_cache()
+    xla_big = dft.SlabFFTPlan(dft.GlobalSize(NBIG, NBIG, NBIG),
+                              dft.SlabPartition(1), dft.Config())
+    plan_big = dict(
+        shape=[NBIG] * 3, reps=REPS_BIG,
+        pallas_forward_ms=median_ms(torch, lambda: big.exec_r2c(xb),
+                                    REPS_BIG, 1),
+        pallas_inverse_ms=median_ms(torch, lambda: big.exec_c2r(cb),
+                                    REPS_BIG, 1))
+    cxb = xla_big.exec_r2c(xb)
+    plan_big.update(
+        xla_forward_ms=median_ms(torch, lambda: xla_big.exec_r2c(xb),
+                                 REPS_BIG, 1),
+        xla_inverse_ms=median_ms(torch, lambda: xla_big.exec_c2r(cxb),
+                                 REPS_BIG, 1))
+    del cxb
+    torch.cuda.empty_cache()
+    # Kernel time inside one run of each direction; the rest is the axis
+    # moves and four-step swaps (copies) and the Hermitian extension.
+    for name, fn in (("forward", lambda: big.exec_r2c(xb)),
+                     ("inverse", lambda: big.exec_c2r(cb))):
+        total, per = kernel_share(torch, hf, fn)
+        plan_big[f"{name}_events_ms"] = total
+        plan_big[f"{name}_kernel_ms"] = per
+        plan_big[f"{name}_rest_ms"] = total - sum(per.values())
+    emit(phase="plan_time", **plan_big)
+    del xb, cb, big, xla_big
+    torch.cuda.empty_cache()
+
+    # -- 8. the 512^3 plan as two ranks sharing the card over gloo -----------
+    import torch.multiprocessing as tmp
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    t0 = time.perf_counter()
+    tmp.spawn(rank_main, args=(multihost.local_coordinator(), outdir),
+              nprocs=RANKS, join=True)
+    ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    launches["distributed_512_rank0"] = {
+        k: r0["launches_forward"][k] + r0["launches_inverse"][k]
+        for k in r0["launches_forward"]}
+    emit(phase="main_path", path="distributed_512", ranks=RANKS,
+         exchange="gloo, host-staged, 2 ranks on 1 card",
+         seconds=time.perf_counter() - t0, per_rank=ranks)
+
+    # -- 9. the kernels line, the card, the result ---------------------------
+    def total_launches(name):
+        return sum(v.get(name, 0) for v in launches.values())
+
+    rows = []
+    for k in fused + [k for k in staged if "variant" not in k]:
+        row = {"name": k["name"], "route": "cuda", "source": k["source"],
+               "replaces": k["replaces"], "launches": total_launches(k["name"]),
+               "launches_by_path": {p: v[k["name"]] for p, v in
+                                    launches.items()},
+               "max_abs_err": k["max_abs_err"],
+               "max_rel_err": k["max_rel_err"], "ms": k["kernel_ms"],
+               "kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+               "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+               "library_ms": k["library_ms"],
+               "library_call": k["library_call"], "flops": k["flops"],
+               "bytes": k["bytes"], "shape": k.get("shape")}
+        if "pair_ms" in k:
+            row["pair_ms"] = k["pair_ms"]
+        for v in staged:
+            if v.get("variant") and v["name"] == k["name"]:
+                row[v["variant"]] = {
+                    f: v[f] for f in ("shape", "max_abs_err", "max_rel_err",
+                                      "kernel_ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "flops",
+                                      "bytes")}
+        rows.append(row)
+    if any(r["launches"] < 1 for r in rows):
+        fail(f"a kernel never launched on the main paths: {launches}")
+    emit(phase="done", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

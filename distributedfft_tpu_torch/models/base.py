@@ -3,9 +3,11 @@
 
 Construct with a global size, a partition and a Config; query the shapes;
 execute forward and inverse transforms on tensors of the plan's device.
-This slice has the single-device path only (the reference's
+With one rank a plan takes the single-device path (the reference's
 ``fft3d = (pcnt == 1)`` fallback, ``src/mpicufft.cpp:65``): one local 3D
-transform per direction through ``ops/fft.py``.
+transform per direction through ``ops/fft.py``, or per-axis transforms
+over leading-axis chunks under ``Config.fft3d_chunk``. The distributed
+pipelines live in the subclasses.
 
 A plan's pipelines run as built. The JAX package wraps them in a fallback
 ladder that demotes the backend on failure; on the card that would hide a
@@ -56,6 +58,9 @@ class DistFFTPlan:
             self.config.double_prec)
         # Single-process path, exactly the reference's fft3d = (pcnt == 1).
         self.fft3d = partition.num_ranks == 1
+        # The process group the exchanges run over (None: the world group,
+        # or no exchange on one rank).
+        self.group = None
         self._r2c: Optional[Pipeline] = None
         self._c2r: Optional[Pipeline] = None
 
@@ -114,10 +119,6 @@ class DistFFTPlan:
         if nx % ck:
             raise ValueError(f"fft3d_chunk {ck} must divide the x extent "
                              f"{nx}")
-        if self.config.fft_backend == "pallas":
-            raise NotImplementedError(
-                "fft3d_chunk with fft_backend='pallas' runs the per-axis "
-                "kernels, which are not ported yet (ROADMAP Queue 1, item 2)")
         return ck
 
     def _fft3d_r2c(self) -> Pipeline:

@@ -1,16 +1,25 @@
-"""Hand-written Hopper kernels of the fused single-device 3D FFT path.
+"""Hand-written Hopper kernels of the ``"pallas"`` FFT backend.
 
-The counterpart of the fused-3D section of the JAX package's
-``ops/pallas_fft.py``. At direct sizes (every axis in [2, 512]) a 3D R2C
-is two kernel passes and its C2R inverse two more:
+The counterpart of the JAX package's ``ops/pallas_fft.py``, at two
+granularities:
 
-* forward: ``zy_fwd`` (z-R2C then y-C2C per x-row, intermediate on chip),
-  then ``x_c2c`` (C2C along x);
-* inverse: ``x_c2c`` (inverse C2C along x), then ``yz_inv`` (y-C2C
-  inverse then the half-spectrum z-C2R per x-row).
+* **fused 3D path** (``csrc/fused3d.cu``): at direct sizes (every axis in
+  [2, 512]) a single-device 3D R2C is two kernel passes and its C2R
+  inverse two more — forward ``zy_fwd`` (z-R2C then y-C2C per x-row) then
+  ``x_c2c``; inverse ``x_c2c`` then ``yz_inv`` (y-C2C inverse then the
+  half-spectrum z-C2R). Complex data crosses these kernels as split
+  float32 (real, imag) planes.
+* **per-axis path** (``csrc/stage.cu``): one kernel launch is one DFT
+  stage along the last axis, ``y = x @ F`` on rows of interleaved complex
+  (or real) data, optionally with the four-step twiddle fused into its
+  epilogue, plus the half-spectrum C2R. ``fft``/``ifft``/``rfft``/
+  ``irfft`` move the axis last and dispatch as ``pallas_fft._fft_last`` /
+  ``_rfft_last`` do: one direct stage up to 512 points (and for a prime
+  up to 1024), else the four-step split of ``mxu_fft._split_for``. This
+  path carries every distributed plan and every single-device cube the
+  fused path does not take.
 
-Complex data crosses the kernels as split float32 (real, imag) planes.
-Each kernel (``csrc/fused3d.cu``) has here:
+Each kernel has here:
 
 * a wrapper, which checks device, dtype, shape and contiguity, allocates
   the outputs with ``torch.empty`` and launches on the current stream;
@@ -18,12 +27,16 @@ Each kernel (``csrc/fused3d.cu``) has here:
   products. The wrapper takes it only for tensors on the CPU; for a CUDA
   tensor it launches the kernel or raises;
 * a launch count in ``LAUNCHES``, raised by one per kernel launch.
+
+Double precision, and a prime axis above ``mxu_fft.N_MAX``, go to the
+matmul backend in the JAX package; that backend is not ported, so they
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,11 +46,19 @@ from . import _build
 from . import mxu_fft as mx
 
 # Kernel launches since the last ``reset_launches()``.
-LAUNCHES: Dict[str, int] = {"zy_fwd": 0, "x_c2c": 0, "yz_inv": 0}
+LAUNCHES: Dict[str, int] = {
+    "zy_fwd": 0, "x_c2c": 0, "yz_inv": 0,                   # fused3d.cu
+    "rmatmul": 0, "cmatmul": 0, "c2r": 0, "cmatmul_tw": 0,  # stage.cu
+    "rmatmul_tw": 0}
 
-# Entry points of csrc/fused3d.cu: (pointer arguments, int arguments).
-_SIGNATURES = {"dfft_zy_fwd": (7, 3), "dfft_x_c2c": (6, 2),
-               "dfft_yz_inv": (7, 3)}
+# Entry points: library (csrc/<name>.cu), (pointer arguments, int arguments).
+_ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
+            "dfft_x_c2c": ("fused3d", (6, 2)),
+            "dfft_yz_inv": ("fused3d", (7, 3)),
+            "dfft_stage": ("stage", (6, 6))}
+
+# Roadmap item of what the JAX package sends to the matmul backend.
+_MATMUL_ITEM = "ROADMAP Queue 1, item 3 (the mxu_fft matmul backend)"
 
 
 def reset_launches() -> None:
@@ -70,6 +91,24 @@ def _planes(kind: str, n: int, inverse: bool,
         return (torch.from_numpy(cr).to(device), torch.from_numpy(ci).to(device))
     return (torch.from_numpy(np.ascontiguousarray(m.real)).to(device),
             torch.from_numpy(np.ascontiguousarray(m.imag)).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddle_planes(n1: int, n2: int, inverse: bool,
+                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Four-step twiddle T[r, k2] (n1, n2) as float32 planes. The kernel
+    indexes it by ``row % n1`` directly, so it is not tiled to a row block
+    as the TPU kernel's is (``pallas_fft._tiled_twiddle``)."""
+    t = mx._twiddle_np(n1, n2, inverse, False)
+    return (torch.from_numpy(np.ascontiguousarray(t.real)).to(device),
+            torch.from_numpy(np.ascontiguousarray(t.imag)).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddle(n1: int, n2: int, inverse: bool,
+             device: torch.device) -> torch.Tensor:
+    """The same twiddle as one complex64 tensor (the unfused branch)."""
+    return torch.from_numpy(mx._twiddle_np(n1, n2, inverse, False)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -120,13 +159,17 @@ def _check(name: str, *ts: torch.Tensor) -> bool:
     return dev.type == "cpu"
 
 
-def _launch(fn: str, *args) -> None:
-    """Call one entry point of csrc/fused3d.cu on the current stream:
-    tensors go as data pointers, ints as ints."""
-    lib = _build.load("fused3d", _SIGNATURES)
+def _launch(kernel: str, fn: str, *args) -> None:
+    """Launch ``kernel`` through entry point ``fn`` of a csrc/*.cu library on
+    the current stream and count it in ``LAUNCHES[kernel]``: tensors go as
+    data pointers, None as a null pointer, ints as ints."""
+    name = _ENTRIES[fn][0]
+    lib = _build.load(name, {f: sig for f, (lib_name, sig) in _ENTRIES.items()
+                             if lib_name == name})
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream().cuda_stream
     _build.check(lib, fn, getattr(lib, fn)(*conv, stream))
+    LAUNCHES[kernel] += 1
 
 
 def zy_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -141,8 +184,7 @@ def zy_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     Zo = Z // 2 + 1
     yr = torch.empty((X, Y, Zo), dtype=torch.float32, device=x.device)
     yi = torch.empty_like(yr)
-    _launch("dfft_zy_fwd", x, fzr, fzi, fyr, fyi, yr, yi, X, Y, Z)
-    LAUNCHES["zy_fwd"] += 1
+    _launch("zy_fwd", "dfft_zy_fwd", x, fzr, fzi, fyr, fyi, yr, yi, X, Y, Z)
     return yr, yi
 
 
@@ -159,8 +201,7 @@ def x_c2c(ar: torch.Tensor, ai: torch.Tensor,
     if cpu:
         return x_c2c_plain(ar, ai, fr, fi)
     zr, zi = torch.empty_like(ar), torch.empty_like(ai)
-    _launch("dfft_x_c2c", ar, ai, fr, fi, zr, zi, X, ar[0].numel())
-    LAUNCHES["x_c2c"] += 1
+    _launch("x_c2c", "dfft_x_c2c", ar, ai, fr, fi, zr, zi, X, ar[0].numel())
     return zr, zi
 
 
@@ -179,8 +220,7 @@ def yz_inv(er: torch.Tensor, ei: torch.Tensor, z: int) -> torch.Tensor:
     if cpu:
         return yz_inv_plain(er, ei, fyr, fyi, cr, ci)
     y = torch.empty((X, Y, z), dtype=torch.float32, device=er.device)
-    _launch("dfft_yz_inv", er, ei, fyr, fyi, cr, ci, y, X, Y, z)
-    LAUNCHES["yz_inv"] += 1
+    _launch("yz_inv", "dfft_yz_inv", er, ei, fyr, fyi, cr, ci, y, X, Y, z)
     return y
 
 
@@ -207,27 +247,297 @@ def irfftn3d_fused(c: torch.Tensor, shape_3d) -> torch.Tensor:
     return yz_inv(er, ei, Z)
 
 
-def _require_fused(shape3, dtype) -> None:
-    if not fused3d_applicable(shape3, dtype):
-        raise NotImplementedError(
-            f"the hand-written kernels cover 3D single-precision transforms "
-            f"with every axis in [2, {mx.DIRECT_MAX}] (got shape "
-            f"{tuple(shape3)}, {dtype}); the per-axis kernels for the rest "
-            f"are the next slice of the port (ROADMAP Queue 1, item 2)")
-
-
 def rfftn_3d(x: torch.Tensor, norm: FFTNorm = FFTNorm.NONE) -> torch.Tensor:
-    _require_fused(x.shape, x.dtype)
-    s = 1.0
-    for n in x.shape:
-        s *= mx._fwd_scale(n, norm)
-    return mx._scaled(rfftn3d_fused(x.to(torch.float32)), s)
+    """3D R2C over the trailing three axes: the fused kernels at direct
+    sizes, else the per-axis path (``pallas_fft.rfftn_3d``)."""
+    _require_3d(x)
+    if x.ndim == 3 and fused3d_applicable(x.shape, x.dtype):
+        s = 1.0
+        for n in x.shape:
+            s *= mx._fwd_scale(n, norm)
+        return mx._scaled(rfftn3d_fused(x.to(torch.float32)), s)
+    c = rfft(x, axis=-1, norm=norm)
+    c = fft(c, axis=-2, norm=norm)
+    return fft(c, axis=-3, norm=norm)
 
 
 def irfftn_3d(x: torch.Tensor, shape_3d: Tuple[int, int, int],
               norm: FFTNorm = FFTNorm.NONE) -> torch.Tensor:
-    _require_fused(tuple(shape_3d) if x.ndim == 3 else x.shape, x.dtype)
-    s = 1.0
-    for n in shape_3d:
-        s *= mx._inv_scale(n, norm)
-    return mx._scaled(irfftn3d_fused(x, tuple(shape_3d)), s)
+    """3D C2R to ``shape_3d``; the spectrum is cropped or zero-padded to
+    (X, Y, Z//2+1) first (numpy's ``s=``)."""
+    _require_3d(x)
+    if x.ndim == 3 and fused3d_applicable(tuple(shape_3d), x.dtype):
+        s = 1.0
+        for n in shape_3d:
+            s *= mx._inv_scale(n, norm)
+        return mx._scaled(irfftn3d_fused(x, tuple(shape_3d)), s)
+    c = ifft(mx._fit_axis(x, -3, shape_3d[-3]), axis=-3, norm=norm)
+    c = ifft(mx._fit_axis(c, -2, shape_3d[-2]), axis=-2, norm=norm)
+    return irfft(c, n=shape_3d[-1], axis=-1, norm=norm)
+
+
+def _require_3d(x: torch.Tensor) -> None:
+    if x.ndim < 3:
+        raise ValueError(f"a 3D transform needs at least 3 axes, got shape "
+                         f"{tuple(x.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# Per-axis path: one DFT stage per launch (kernels 1-5, csrc/stage.cu)
+# ---------------------------------------------------------------------------
+
+# dfft_stage modes.
+_MODES = {"cmatmul": 0, "rmatmul": 1, "c2r": 2}
+_INT_MAX = 2 ** 31 - 1
+
+
+def stage_plain(x2: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
+                tr: Optional[torch.Tensor] = None,
+                ti: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernels 1, 2, 4, 5 as dense products: ``(x2 @ F) [* T[row % n1]]``."""
+    if x2.is_complex():
+        xr, xi = x2.real, x2.imag
+        yr, yi = xr @ fr - xi @ fi, xr @ fi + xi @ fr
+    else:
+        yr, yi = x2 @ fr, x2 @ fi
+    if tr is not None:
+        rows = torch.arange(x2.shape[0], device=x2.device) % tr.shape[0]
+        wr, wi = tr[rows], ti[rows]
+        yr, yi = yr * wr - yi * wi, yr * wi + yi * wr
+    return torch.complex(yr, yi)
+
+
+def c2r_plain(c2: torch.Tensor, cr: torch.Tensor,
+              ci: torch.Tensor) -> torch.Tensor:
+    """Kernel 3 as dense products: ``Re(c) @ CR - Im(c) @ CI``."""
+    return c2.real @ cr - c2.imag @ ci
+
+
+def _check_rows(name: str, x2: torch.Tensor, dtype: torch.dtype,
+                *consts: torch.Tensor) -> bool:
+    """Validate the operands of a stage launch; True for CPU tensors (plain
+    version), False for CUDA (kernel). Anything else raises."""
+    if x2.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype} rows, got {x2.dtype}")
+    if x2.ndim != 2:
+        raise ValueError(f"{name}: expected 2D rows, got shape "
+                         f"{tuple(x2.shape)}")
+    dev = x2.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in (x2,) + consts:
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    for t in consts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: constants must be float32 planes")
+    if x2.shape[0] > _INT_MAX:
+        raise ValueError(f"{name}: {x2.shape[0]} rows exceed one launch")
+    return dev.type == "cpu"
+
+
+def stage(x2: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
+          twiddle: Optional[Tuple[int, int, bool]] = None) -> torch.Tensor:
+    """One DFT stage on rows: ``y = (x2 @ F) [* T]`` (``_call_stage``).
+
+    x2: (M, n) complex64, or float32 for the real-input stage; F: (n, k)
+    float32 planes; twiddle: (n1, n2, inverse) with k == n2 and the rows of
+    x2 cycling through n1. Returns (M, k) complex64. Kernel 2
+    (``cmatmul``), 1 (``rmatmul``), 4 (``cmatmul_tw``) or 5
+    (``rmatmul_tw``)."""
+    real = not x2.is_complex()
+    name = ("rmatmul" if real else "cmatmul") + ("_tw" if twiddle else "")
+    if fr.shape != fi.shape or fr.ndim != 2 or x2.ndim != 2 \
+            or fr.shape[0] != x2.shape[1]:
+        raise ValueError(f"{name}: rows {tuple(x2.shape)} do not fit F "
+                         f"{tuple(fr.shape)}, {tuple(fi.shape)}")
+    M, n = x2.shape
+    k = fr.shape[1]
+    tr = ti = None
+    n1 = 1
+    if twiddle is not None:
+        n1, n2, inv = twiddle
+        if n2 != k:
+            raise ValueError(f"{name}: twiddle width {n2} != {k} columns")
+        tr, ti = _twiddle_planes(n1, n2, inv, x2.device)
+    tw_planes = () if tr is None else (tr, ti)
+    cpu = _check_rows(name, x2, torch.float32 if real else torch.complex64,
+                      fr, fi, *tw_planes)
+    if cpu:
+        return stage_plain(x2, fr, fi, tr, ti)
+    y = torch.empty((M, k), dtype=torch.complex64, device=x2.device)
+    if M:
+        _launch(name, "dfft_stage", x2, fr, fi, tr, ti, y, M, n, k, n1,
+                _MODES["rmatmul" if real else "cmatmul"],
+                int(twiddle is not None))
+    return y
+
+
+def c2r(c2: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
+    """Half-spectrum C2R on rows: (M, n//2+1) complex64 -> (M, n) float32,
+    ``Re(c) @ CR - Im(c) @ CI``, unnormalized (kernel 3, ``_c2r_kernel``)."""
+    if cr.shape != ci.shape or cr.ndim != 2 or c2.ndim != 2 \
+            or cr.shape[0] != c2.shape[1]:
+        raise ValueError(f"c2r: rows {tuple(c2.shape)} do not fit CR/CI "
+                         f"{tuple(cr.shape)}, {tuple(ci.shape)}")
+    if _check_rows("c2r", c2, torch.complex64, cr, ci):
+        return c2r_plain(c2, cr, ci)
+    M, n_in = c2.shape
+    n = cr.shape[1]
+    y = torch.empty((M, n), dtype=torch.float32, device=c2.device)
+    if M:
+        _launch("c2r", "dfft_stage", c2, cr, ci, None, None, y, M, n_in, n,
+                1, _MODES["c2r"], 0)
+    return y
+
+
+def _stage(x: torch.Tensor, F: Tuple[torch.Tensor, torch.Tensor],
+           twiddle: Optional[Tuple[int, int, bool]] = None) -> torch.Tensor:
+    """DFT stage along the LAST axis of an nd tensor (rows = flattened rest)."""
+    lead = x.shape[:-1]
+    y2 = stage(x.reshape(-1, x.shape[-1]).contiguous(), *F, twiddle)
+    return y2.reshape(lead + (F[0].shape[1],))
+
+
+def _c2r_stage(c: torch.Tensor, n: int) -> torch.Tensor:
+    """Half-spectrum C2R along the last axis (n//2+1 -> n, real)."""
+    lead = c.shape[:-1]
+    c2 = c.reshape(-1, c.shape[-1]).to(torch.complex64).contiguous()
+    y2 = c2r(c2, *_planes("c2r", n, False, c.device))
+    return y2.reshape(lead + (n,))
+
+
+def _require_single(dtype: torch.dtype, what: str) -> None:
+    if mx._is_double(dtype):
+        raise NotImplementedError(
+            f"{what} in double precision under fft_backend='pallas' runs "
+            f"the matmul backend in the JAX package; it is not ported yet "
+            f"({_MATMUL_ITEM})")
+
+
+def _prime_too_long(n: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"a prime axis of {n} > {mx.N_MAX} points runs the matmul backend "
+        f"in the JAX package; it is not ported yet ({_MATMUL_ITEM})")
+
+
+def _swap_last(x: torch.Tensor) -> torch.Tensor:
+    """Swap the two last axes into a new contiguous tensor."""
+    return x.transpose(-1, -2).contiguous()
+
+
+def _fft_last(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Unnormalized C2C along the last axis of a contiguous complex64
+    tensor (``pallas_fft._fft_last``)."""
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    dev = x.device
+    if n <= mx.DIRECT_MAX:
+        return _stage(x, _planes("dft", n, inverse, dev))
+    n1, n2 = mx._split_for(n, mx.DIRECT_MAX)
+    if n1 == 1:  # prime length
+        if n <= mx.N_MAX:
+            return _stage(x, _planes("dft", n, inverse, dev))
+        raise _prime_too_long(n)
+    a = _swap_last(x.reshape(lead + (n2, n1)))                    # (.., n1, n2)
+    if n2 <= mx.DIRECT_MAX:
+        # Fused: DFT over s and the twiddle epilogue in one kernel pass.
+        c = _stage(a, _planes("dft", n2, inverse, dev),
+                   twiddle=(n1, n2, inverse))
+    else:
+        c = _fft_last(a, inverse) * _twiddle(n1, n2, inverse, dev)
+    del a
+    c = _swap_last(c)                                             # (.., n2, n1)
+    d = _fft_last(c, inverse)
+    del c
+    return d.transpose(-1, -2).reshape(lead + (n,))
+
+
+def _rfft_last(x: torch.Tensor) -> torch.Tensor:
+    """Unnormalized R2C along the last axis of a contiguous float32 tensor
+    (``pallas_fft._rfft_last``): (.., n) -> (.., n//2+1)."""
+    n = x.shape[-1]
+    n_out = n // 2 + 1
+    lead = x.shape[:-1]
+    dev = x.device
+    if n <= mx.DIRECT_MAX:
+        return _stage(x, _planes("rdft", n, False, dev))
+    n1, n2 = mx._split_for(n, mx.DIRECT_MAX)
+    if n1 == 1:
+        if n <= mx.N_MAX:
+            return _stage(x, _planes("rdft", n, False, dev))
+        raise _prime_too_long(n)
+    a = _swap_last(x.reshape(lead + (n2, n1)))
+    if n2 <= mx.DIRECT_MAX:
+        # Real-input fused stage: the full n2-point DFT plus the twiddle.
+        c = _stage(a, _planes("dft", n2, False, dev), twiddle=(n1, n2, False))
+    else:
+        c = _fft_last(a.to(torch.complex64), False) * _twiddle(n1, n2, False,
+                                                               dev)
+    del a
+    c = _swap_last(c)
+    d = _fft_last(c, False)
+    del c
+    full = d.transpose(-1, -2).reshape(lead + (n,))
+    return full[..., :n_out]
+
+
+# ---------------------------------------------------------------------------
+# Public per-axis API (``pallas_fft.fft`` ...; same FFTNorm semantics).
+# Results keep the input's axis order; a transformed axis that is not the
+# last comes back as a strided view of the kernel's output.
+# ---------------------------------------------------------------------------
+
+
+def fft(x: torch.Tensor, axis: int, norm: FFTNorm = FFTNorm.NONE
+        ) -> torch.Tensor:
+    _require_single(x.dtype, "fft")
+    x = x.movedim(axis, -1).to(torch.complex64).contiguous()
+    y = mx._scaled(_fft_last(x, False), mx._fwd_scale(x.shape[-1], norm))
+    return y.movedim(-1, axis)
+
+
+def ifft(x: torch.Tensor, axis: int, norm: FFTNorm = FFTNorm.NONE
+         ) -> torch.Tensor:
+    _require_single(x.dtype, "ifft")
+    x = x.movedim(axis, -1).to(torch.complex64).contiguous()
+    y = mx._scaled(_fft_last(x, True), mx._inv_scale(x.shape[-1], norm))
+    return y.movedim(-1, axis)
+
+
+def rfft(x: torch.Tensor, axis: int, norm: FFTNorm = FFTNorm.NONE
+         ) -> torch.Tensor:
+    _require_single(x.dtype, "rfft")
+    x = x.movedim(axis, -1).to(torch.float32).contiguous()
+    y = mx._scaled(_rfft_last(x), mx._fwd_scale(x.shape[-1], norm))
+    return y.movedim(-1, axis)
+
+
+def irfft(x: torch.Tensor, n: int, axis: int,
+          norm: FFTNorm = FFTNorm.NONE) -> torch.Tensor:
+    _require_single(x.dtype, "irfft")
+    c = mx._fit_axis(x.movedim(axis, -1).to(torch.complex64), -1, n // 2 + 1)
+    if n > mx.DIRECT_MAX:
+        # No half-spectrum kernel past the direct size: invert the
+        # Hermitian-extended spectrum as a complex transform.
+        full = mx._hermitian_extend(c, n).contiguous()
+        y = _fft_last(full, True).real.contiguous()
+    else:
+        y = _c2r_stage(c, n)
+    return mx._scaled(y, mx._inv_scale(n, norm)).movedim(-1, axis)
+
+
+def fftn(x: torch.Tensor, axes: Sequence[int],
+         norm: FFTNorm = FFTNorm.NONE) -> torch.Tensor:
+    for a in axes:
+        x = fft(x, axis=a, norm=norm)
+    return x
+
+
+def ifftn(x: torch.Tensor, axes: Sequence[int],
+          norm: FFTNorm = FFTNorm.NONE) -> torch.Tensor:
+    for a in axes:
+        x = ifft(x, axis=a, norm=norm)
+    return x

@@ -1,9 +1,11 @@
-"""DFT constants and norm helpers shared by the port's FFT backends.
+"""DFT constants, the four-step factorisation and norm helpers shared by
+the port's FFT backends.
 
-Copies of the constant builders of the JAX package's ``ops/mxu_fft.py``:
-the numpy constants are built by the same expressions, so they are
-bit-identical to the reference's, and the tensor helpers follow its jnp
-ones. The matmul backend itself is not ported yet.
+Copies of the constant builders and the factor choice of the JAX
+package's ``ops/mxu_fft.py``: the numpy constants are built by the same
+expressions, so they are bit-identical to the reference's, the factor
+pairs are the same, and the tensor helpers follow its jnp ones. The matmul
+backend itself is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,10 @@ from ..params import FFTNorm
 
 # Largest length transformed by a single direct DFT matmul.
 DIRECT_MAX = 512
+
+# Largest prime length the per-axis kernels take as one direct DFT stage
+# (``pallas_fft._N_MAX``); a longer prime axis needs the matmul backend.
+N_MAX = 1024
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,6 +62,39 @@ def _c2r_np(n: int, double: bool) -> Tuple[np.ndarray, np.ndarray]:
     if n % 2 == 0:
         a[n // 2] = 1.0
     return (a * np.cos(ang)).astype(dt), (a * np.sin(ang)).astype(dt)
+
+
+@functools.lru_cache(maxsize=None)
+def _split(n: int) -> Tuple[int, int]:
+    """Balanced factorization n = n1*n2 with n1 <= n2, n1 maximal; (1, n)
+    for primes."""
+    r = int(math.isqrt(n))
+    for n1 in range(r, 1, -1):
+        if n % n1 == 0:
+            return n1, n // n1
+    return 1, n
+
+
+@functools.lru_cache(maxsize=None)
+def _split_wide(n: int, direct_max: int) -> Tuple[int, int]:
+    """n = n1*n2 with n2 the largest divisor of n not above ``direct_max``;
+    (1, n) when no divisor > 1 qualifies."""
+    for n2 in range(min(int(direct_max), n - 1), 1, -1):
+        if n % n2 == 0:
+            return n // n2, n2
+    return 1, n
+
+
+@functools.lru_cache(maxsize=None)
+def _split_for(n: int, direct_max: int) -> Tuple[int, int]:
+    """The (n1, n2) the four-step dispatch uses for an axis of length
+    ``n > direct_max``: the deep split of ``_split_wide`` when its n1 is a
+    direct size too (1024 -> 2x512, 2048 -> 4x512), else the balanced
+    ``_split``."""
+    n1, n2 = _split_wide(n, direct_max)
+    if 1 < n1 <= direct_max:
+        return n1, n2
+    return _split(n)
 
 
 def _is_double(dtype) -> bool:

@@ -6,7 +6,8 @@ Marked ``cuda``: every test skips without a CUDA device. On a GPU machine
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Shapes cover the ragged edges of each kernel's tiling: odd and tiny axes,
-axes that are not a multiple of any tile, and the 512 limit. Tolerance:
+axes that are not a multiple of any tile, the 512 limit of the fused path,
+and the per-axis path's four-step sizes and 1024-point prime limit. Tolerance:
 rel <= 5e-4, the JAX package's per-stage bound; kernel and plain version
 both compute in float32, with sums taken in another order.
 """
@@ -87,6 +88,80 @@ def test_pallas_plan_matches_torch_fft(cuda, shape):
     c = plan.exec_r2c(x)
     back = plan.exec_c2r(c)
     torch.cuda.synchronize()
-    assert hf.LAUNCHES == {"zy_fwd": 1, "x_c2c": 2, "yz_inv": 1}
+    assert hf.LAUNCHES == {**dict.fromkeys(hf.LAUNCHES, 0),
+                           "zy_fwd": 1, "x_c2c": 2, "yz_inv": 1}
     assert _rel(c, torch.fft.rfftn(x)) <= 5e-4
     assert _rel(back / float(np.prod(shape)), x) <= 5e-4
+
+
+# Per-axis kernels 1-5 (csrc/stage.cu): (rows M, points n), from one row
+# to more than a grid row of tiles, every n from the row path (n <= 16) to
+# ragged tiles (13, 257, 521) and the 1024-point direct prime limit.
+ROWS = [(1, 1), (3, 2), (7, 8), (65, 13), (129, 16), (300, 96), (70, 257),
+        (4099, 512), (33, 521), (5, 1021)]
+
+
+def _crandn(shape, seed, device):
+    return torch.complex(_randn(shape, seed, device),
+                         _randn(shape, seed + 1, device))
+
+
+@pytest.mark.parametrize("M, n", ROWS)
+def test_cmatmul_and_rmatmul_kernels(cuda, M, n):
+    x = _crandn((M, n), 7, cuda)
+    F = hf._planes("dft", n, True, cuda)
+    before = dict(hf.LAUNCHES)
+    y = hf.stage(x, *F)
+    xr = _randn((M, n), 9, cuda)
+    Fr = hf._planes("rdft", n, False, cuda)
+    yr = hf.stage(xr, *Fr)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["cmatmul"] == before["cmatmul"] + 1
+    assert hf.LAUNCHES["rmatmul"] == before["rmatmul"] + 1
+    assert _rel(y, hf.stage_plain(x, *F)) <= 5e-4
+    assert _rel(yr, hf.stage_plain(xr, *Fr)) <= 5e-4
+
+
+@pytest.mark.parametrize("M, n", [r for r in ROWS if r[1] >= 2])
+def test_c2r_kernel(cuda, M, n):
+    c = _crandn((M, n // 2 + 1), 11, cuda)
+    C = hf._planes("c2r", n, False, cuda)
+    y = hf.c2r(c, *C)
+    torch.cuda.synchronize()
+    assert tuple(y.shape) == (M, n)
+    assert _rel(y, hf.c2r_plain(c, *C)) <= 5e-4
+
+
+@pytest.mark.parametrize("n1, n2, lines", [(2, 512, 3), (2, 320, 33),
+                                          (5, 206, 7), (4, 512, 2),
+                                          (8, 16, 5), (3, 171, 9)])
+@pytest.mark.parametrize("real", [False, True])
+def test_twiddle_kernels(cuda, n1, n2, lines, real):
+    """Kernels 4 and 5: rows cycle through n1 (M = lines * n1)."""
+    M = lines * n1
+    x = _randn((M, n2), 13, cuda) if real else _crandn((M, n2), 13, cuda)
+    F = hf._planes("dft", n2, not real, cuda)
+    tw = (n1, n2, not real)
+    name = "rmatmul_tw" if real else "cmatmul_tw"
+    before = hf.LAUNCHES[name]
+    y = hf.stage(x, *F, tw)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES[name] == before + 1
+    ref = hf.stage_plain(x, *F, *hf._twiddle_planes(*tw, cuda))
+    assert _rel(y, ref) <= 5e-4
+
+
+@pytest.mark.parametrize("shape", [(4, 6, 1024), (3, 640, 10), (1024, 2, 3),
+                                   (5, 8, 1042), (8, 1, 8)])
+def test_per_axis_plan_matches_torch_fft(cuda, shape):
+    x = _randn(shape, 15, cuda)
+    plan = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                           dft.Config(fft_backend="pallas"))
+    hf.reset_launches()
+    c = plan.exec_r2c(x)
+    back = plan.exec_c2r(c)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["zy_fwd"] == hf.LAUNCHES["yz_inv"] == 0
+    tol = 2e-3 if 1042 in shape else 5e-4
+    assert _rel(c, torch.fft.rfftn(x)) <= tol
+    assert _rel(back / float(np.prod(shape)), x) <= tol

@@ -115,7 +115,7 @@ def test_cpu_tensors_take_the_plain_versions():
     hf.reset_launches()
     c = hf.rfftn_3d(torch.from_numpy(_real((8, 8, 8))))
     hf.irfftn_3d(c, (8, 8, 8))
-    assert hf.LAUNCHES == {"zy_fwd": 0, "x_c2c": 0, "yz_inv": 0}
+    assert all(v == 0 for v in hf.LAUNCHES.values()), hf.LAUNCHES
 
 
 @pytest.mark.parametrize("bad, err", [
@@ -130,9 +130,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
         hf.zy_fwd(bad)
 
 
+@pytest.mark.parametrize("shape", [(8, 8, 513), (1, 8, 8)])
+def test_outside_the_fused_path_matches_the_per_axis_path(shape):
+    """A cube with an axis above 512 or below 2 takes the per-axis kernels,
+    as ``pallas_fft.rfftn_3d`` / ``irfftn_3d`` do."""
+    assert not hf.fused3d_applicable(shape, torch.float32)
+    assert not pallas_fft.fused3d_applicable(shape, np.float32)
+    x = _real(shape, 3)
+    ref = np.asarray(pallas_fft.rfftn_3d(x))
+    got = hf.rfftn_3d(torch.from_numpy(x))
+    assert tuple(got.shape) == ref.shape and _rel(got.numpy(), ref) < 5e-4
+    back = hf.irfftn_3d(got, shape)
+    assert _rel(back.numpy(), pallas_fft.irfftn_3d(ref, shape)) < 5e-4
+
+
 @pytest.mark.parametrize("shape, dtype", [
-    ((8, 8, 513), torch.float32), ((1, 8, 8), torch.float32),
-    ((8, 8, 8), torch.float64), ((8, 8), torch.float32)])
+    ((8, 8, 8), torch.float64), ((8, 8, 513), torch.float64)])
 def test_outside_the_fused_path_raises_not_implemented(shape, dtype):
+    """Double precision runs the matmul backend in the JAX package, which
+    is not ported yet."""
     with pytest.raises(NotImplementedError):
         hf.rfftn_3d(torch.zeros(shape, dtype=dtype))
+
+
+def test_3d_transforms_need_three_axes():
+    with pytest.raises(ValueError):
+        hf.rfftn_3d(torch.zeros((8, 8)))
+    with pytest.raises(ValueError):
+        hf.irfftn_3d(torch.zeros((8, 5), dtype=torch.complex64), (8, 8, 8))

@@ -18,6 +18,7 @@ import torch
 import distributedfft_tpu as jdfft
 import distributedfft_tpu_torch as tdfft
 from distributedfft_tpu_torch.ops import hopper_fft as hf
+from distributedfft_tpu_torch.params import CommMethod, SendMethod
 
 TOL = {"pallas": 5e-4, "xla": 1e-5}
 SHAPE = (6, 12, 15)
@@ -135,15 +136,17 @@ def _port_plan(shape=(8, 8, 8), p=1, transform="r2c", **kw):
 
 
 @pytest.mark.parametrize("build, run", [
-    (lambda: _port_plan(p=2), None),
     (lambda: _port_plan(fft_backend="auto"), None),
     (lambda: _port_plan(fft_backend="matmul"), "r2c"),
     (lambda: _port_plan(fft_backend="bluestein"), "r2c"),
-    (lambda: _port_plan((4, 4, 513), fft_backend="pallas"), "r2c"),
-    (lambda: _port_plan((1, 8, 8), fft_backend="pallas"), "r2c"),
     (lambda: _port_plan(fft_backend="pallas", double_prec=True), "r2c"),
-    (lambda: _port_plan(fft_backend="pallas", fft3d_chunk=2), "r2c"),
-    (lambda: _port_plan(fft_backend="pallas", transform="c2c"), "c2c"),
+    (lambda: tdfft.SlabFFTPlan(tdfft.GlobalSize(8, 8, 8),
+                               tdfft.SlabPartition(1), sequence="Z_Then_YX",
+                               device="cpu"), None),
+    (lambda: _port_plan(p=2, opt=1), None),
+    (lambda: _port_plan(p=2, comm_method=CommMethod.PEER2PEER), None),
+    (lambda: _port_plan(p=2, send_method=SendMethod.RING), None),
+    (lambda: _port_plan(p=2, wire_dtype="bf16"), None),
 ])
 def test_not_ported_boundaries_raise(build, run):
     """What the next slices port raises NotImplementedError instead of
@@ -152,12 +155,42 @@ def test_not_ported_boundaries_raise(build, run):
         plan = build()
         if run == "r2c":
             plan.exec_r2c(np.zeros(plan.input_shape, np.float32))
-        elif run == "c2c":
-            plan.exec_c2c(np.zeros(plan.input_shape, np.complex64))
+
+
+@pytest.mark.parametrize("shape, transform, cfg_kw", [
+    ((4, 4, 513), "r2c", {}),
+    ((1, 8, 8), "r2c", {}),
+    ((8, 8, 8), "r2c", {"fft3d_chunk": 2}),
+    ((6, 12, 15), "c2c", {"norm": jdfft.FFTNorm.ORTHO}),
+])
+def test_pallas_per_axis_cases_match_reference(shape, transform, cfg_kw):
+    """Single-device "pallas" plans outside the fused path (an axis above
+    512 or below 2, the chunked path, C2C) run the per-axis kernels, as
+    the JAX plan does."""
+    jplan, tplan = _plans(shape, transform=transform, fft_backend="pallas",
+                          **cfg_kw)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if transform == "c2c":
+        x = (x + 1j * rng.standard_normal(shape)).astype(np.complex64)
+        jc, tc = np.asarray(jplan.exec_c2c(x)), tplan.exec_c2c(x)
+        jb, tb = jplan.exec_c2c_inv(jc), tplan.exec_c2c_inv(tc)
+    else:
+        jc, tc = np.asarray(jplan.exec_r2c(x)), tplan.exec_r2c(x)
+        jb, tb = jplan.exec_c2r(jc), tplan.exec_c2r(tc)
+    assert tuple(tc.shape) == jc.shape == jplan.output_shape
+    assert _rel(tc.numpy(), jc) <= TOL["pallas"]
+    assert tuple(tb.shape) == shape
+    assert _rel(tb.numpy(), np.asarray(jb)) <= TOL["pallas"]
+
+
+def test_distributed_plan_needs_a_process_group():
+    with pytest.raises(RuntimeError, match="maybe_initialize"):
+        _port_plan(p=2)
 
 
 def test_pallas_plan_on_cpu_launches_no_kernel():
     plan = _port_plan(fft_backend="pallas")
     hf.reset_launches()
     plan.exec_c2r(plan.exec_r2c(np.ones((8, 8, 8), np.float32)))
-    assert hf.LAUNCHES == {"zy_fwd": 0, "x_c2c": 0, "yz_inv": 0}
+    assert all(v == 0 for v in hf.LAUNCHES.values()), hf.LAUNCHES
