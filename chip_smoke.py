@@ -10,17 +10,23 @@ once, before any rank is spawned) and then, under
 
 1. holds each kernel against its plain PyTorch version at the main paths'
    shapes: the fused kernels 6-8 at 512^3, the per-axis kernels 1-5 at the
-   shapes of the 512^3 two-rank plan and of the 1024^3 four-step;
+   shapes of the 512^3 two-rank plan and of the 1024^3 four-step, the
+   fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan over
+   four ranks (9 and 10 bit for bit, NaN and Inf included);
 2. runs a small cube against numpy, then the single-card slab plan at
    512^3 (fused kernels) and at 1024^3 (per-axis four-step kernels):
    ``exec_r2c`` then ``exec_c2r``, checked against ``torch.fft`` and the
    input, with the launch counts of every kernel;
 3. runs the distributed slab plan at 512^3 as two ranks sharing the card
-   over a gloo group (``torch.multiprocessing.spawn``; the exchange is
-   staged through the host by gloo), each rank checking its launches,
-   rank 0 the gathered result;
-4. times each kernel, its plain version and the same function through
-   ``torch.fft`` (cuFFT), and the plans under "pallas" and "xla".
+   over a gloo group (``torch.multiprocessing.spawn``; gloo stages the
+   exchange through the host): the all-to-all, then the ring renderings
+   (RING, RING_OVERLAP with the bf16 wire, without and with the fused wire
+   of kernels 9-11, at depth 3 with two sub-blocks, and ``Z_Then_YX``),
+   each rank checking its launches per direction and each plan against
+   ``torch.fft`` and against the plans it must equal;
+4. times each kernel, its plain version and one PyTorch call of the same
+   function, the plans under "pallas" and "xla", and the exchange of each
+   rendering with its wire bytes.
 
 Phases print JSON lines. Before the last line come one ``{"kernels": ...}``
 line and the card's name and power limit as ``nvidia-smi`` gives them; the
@@ -48,6 +54,7 @@ N = 512            # the fused single-card cube and the two-rank cube
 NBIG = 1024        # the per-axis single-card cube (four-step on every axis)
 RANKS = 2
 TOL = 5e-4         # max relative error, the JAX package's per-stage bound
+WIRE16_TOL = 2e-2  # the bf16 wire's documented bound (DEFAULT_WIRE_ERROR_BUDGET)
 SMALL = (6, 12, 15)
 REPS = 10
 WARMUP = 2
@@ -226,10 +233,125 @@ def rank_main(rank: int, addr: str, outdir: str) -> None:
         _, per = kernel_share(torch, hf, fn)
         out[f"{name}_kernel_ms"] = per
         out[f"{name}_kernel_total_ms"] = sum(per.values())
+    out["ring"] = ring_paths(rank, x, xl, c, back, wall_ms)
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
     multihost.shutdown()
+
+
+# The ring renderings of the two-rank phase: id -> (Config fields,
+# sequence, launches forward, launches inverse). Two ranks make one ring
+# step, so each direction sends one block (two with two sub-blocks).
+_RO = {"send_method": "RingOverlap", "wire_dtype": "bf16"}
+RING_PATHS = {
+    "ring_native": ({"send_method": "Ring"}, "ZY_Then_X",
+                    dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1)),
+    "ring_overlap_wire16": (_RO, "ZY_Then_X",
+                            dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1)),
+    "ring_overlap_wire16_fused": (
+        {**_RO, "fused_wire": True}, "ZY_Then_X",
+        dict(rmatmul=1, cmatmul=2, enc_pack=1, dec_unpack=1),
+        dict(cmatmul=2, enc_pack=1, dec_unpack=1, c2r=1)),
+    "ring_overlap_wire16_fused_d3_s2": (
+        {**_RO, "fused_wire": True, "overlap_depth": 3,
+         "overlap_subblocks": 2}, "ZY_Then_X",
+        dict(rmatmul=1, cmatmul=2, enc_pack=2, dec_unpack=2),
+        dict(cmatmul=2, enc_pack=2, dec_unpack=2, c2r=1)),
+    "z_then_yx_ring_overlap_wire16": (
+        _RO, "Z_Then_YX", dict(rmatmul=1, cmatmul=3), dict(cmatmul=2, c2r=1)),
+    "z_then_yx_ring_overlap_wire16_fused": (
+        {**_RO, "fused_wire": True}, "Z_Then_YX",
+        dict(rmatmul=1, cmatmul=2, enc_pack=1, dec_cmatmul=1),
+        dict(cmatmul=2, enc_pack=1, dec_unpack=1, c2r=1)),
+}
+# The exchange of these is timed beside the all-to-all's.
+EXCHANGE_TIMED = ("ring_native", "ring_overlap_wire16",
+                  "ring_overlap_wire16_fused")
+
+
+def ring_paths(rank, x, xl, a2a_fwd, a2a_back, wall_ms):
+    """Run every ring rendering of RING_PATHS on this rank (the same input
+    as the all-to-all plan): launch counts per direction, checks against
+    torch.fft, the bit-equalities the renderings promise, and times."""
+    import torch
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.parallel import transpose as tr
+
+    out = {"transport": "gloo, staged through pinned host memory"
+           if tr._Transport(None, x.device).staged else "device memory"}
+    ref = torch.fft.rfftn(x)
+    res = {}
+    for pid, (fields, seq, want_f, want_i) in RING_PATHS.items():
+        kw = dict(fields, send_method=dft.SendMethod(fields["send_method"]),
+                  fft_backend="pallas")
+        plan = dft.SlabFFTPlan(dft.GlobalSize(N, N, N),
+                               dft.SlabPartition(RANKS), dft.Config(**kw),
+                               sequence=seq)
+        hf.reset_launches()
+        c = plan.exec_r2c(xl)
+        torch.cuda.synchronize()
+        fwd = dict(hf.LAUNCHES)
+        hf.reset_launches()
+        back = plan.exec_c2r(c)
+        torch.cuda.synchronize()
+        inv = dict(hf.LAUNCHES)
+        if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i):
+            fail(f"rank {rank} {pid}: launches forward {fwd}, inverse {inv}; "
+                 f"expected {want_f}, {want_i}")
+        tol = WIRE16_TOL if plan.config.wire_dtype == "bf16" else TOL
+        _, f_rel = rel_err(c, plan.pad_spectral(ref))   # pad lanes are 0
+        _, rt_rel = rel_err(back / float(N ** 3), xl)
+        if not (f_rel <= tol and rt_rel <= tol):
+            fail(f"rank {rank} {pid}: forward rel {f_rel:.3e}, roundtrip rel "
+                 f"{rt_rel:.3e} (tol {tol})")
+        row = {"sequence": seq, "launches_forward": fwd,
+               "launches_inverse": inv, "forward_vs_torch_fft": f_rel,
+               "roundtrip_vs_input": rt_rel, "tol": tol,
+               "forward_ms": wall_ms(lambda: plan.exec_r2c(xl)),
+               "inverse_ms": wall_ms(lambda: plan.exec_c2r(c))}
+        if pid in EXCHANGE_TIMED:
+            first, xpose, _ = plan._fwd_parts()
+            ifirst, ixpose, _ = plan._inv_parts()
+            a, b = first(xl), ifirst(c)
+            sched = {d: tr.ring_schedule(
+                (t.shape[0] * RANKS,) + tuple(t.shape[1:]), t.dtype,
+                plan.config.wire_dtype, RANKS,
+                overlap=plan.config.send_method is dft.SendMethod.RING_OVERLAP,
+                depth=plan.config.resolved_overlap_depth(),
+                subblocks=plan.config.resolved_overlap_subblocks())
+                for d, t in (("forward", a), ("inverse", b))}
+            row.update(exchange_forward_ms=wall_ms(lambda: xpose(a)),
+                       exchange_inverse_ms=wall_ms(lambda: ixpose(b)),
+                       wire_bytes_per_rank={
+                           d: v["total_wire_bytes"] // RANKS
+                           for d, v in sched.items()},
+                       schedule_forward=sched["forward"])
+            del a, b
+        res[pid] = (c, back)
+        out[pid] = row
+        del plan
+    pairs = [("ring_native", None, "bit"),
+             ("ring_overlap_wire16_fused", "ring_overlap_wire16", "bit"),
+             ("ring_overlap_wire16_fused_d3_s2", "ring_overlap_wire16_fused",
+              "bit"),
+             ("z_then_yx_ring_overlap_wire16_fused",
+              "z_then_yx_ring_overlap_wire16", TOL)]
+    for pid, other, how in pairs:
+        got = res[pid]
+        want = (a2a_fwd, a2a_back) if other is None else res[other]
+        if how == "bit":
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+            out[f"{pid}_equals_{other or 'all_to_all'}"] = ok
+        else:
+            errs = [rel_err(g, w)[1] for g, w in zip(got, want)]
+            out[f"{pid}_vs_{other}_rel"] = max(errs)
+            ok = max(errs) <= how
+        if not ok:
+            fail(f"rank {rank}: {pid} does not match {other or 'all_to_all'}"
+                 f" ({how})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +434,75 @@ def stage_cases(torch, hf, dev, gen):
              flops=4 * big_rtw * N * N,
              bytes=12 * big_rtw * N + 8 * N * N + 16 * N),
     ]
+
+
+def wire_cases(torch, hf, dev, gen):
+    """Kernels 9-11 at the per-rank shapes of a 1024^3 plan over four
+    ranks: (entry, make inputs). ``check`` is "bit" or a tolerance."""
+    xb, zo = NBIG // 4, NBIG // 2 + 1              # 256, 513
+    m11 = xb * xb                                  # c2c inverse arrival rows
+    elems = xb * xb * zo                           # 33,619,968
+
+    def make_block():
+        full = torch.complex(torch.randn((xb, NBIG, zo), generator=gen,
+                                         device=dev),
+                             torch.randn((xb, NBIG, zo), generator=gen,
+                                         device=dev))
+        chunk = full.narrow(1, xb, xb)             # chunk 1 of y: strided
+        chunk[0, 0, :4] = torch.tensor(
+            [complex(float("nan"), 1.0), complex(float("inf"), -2.0),
+             complex(1 + 2 ** -8, -float("inf")), complex(1e-40, 3e38)],
+            dtype=torch.complex64, device=dev)
+        planes = hf.enc_pack_plain(chunk)
+        return dict(full=full, x=chunk, planes=planes,
+                    inter=torch.view_as_real(chunk).to(torch.bfloat16))
+
+    def make_arrival():
+        y = torch.randn((2, m11, NBIG), generator=gen, device=dev).to(
+            torch.bfloat16)
+        return dict(y=y, F=hf._planes("dft", NBIG, True, dev),
+                    dec=hf.dec_unpack_plain(y))
+
+    src = "distributedfft_tpu_torch/csrc/wire.cu"
+    return [
+        dict(name="enc_pack", replaces=f"{PALLAS}:725", source=src,
+             shape=dict(block=[xb, xb, zo], of=[xb, NBIG, zo]),
+             make=make_block, check="bit",
+             run=lambda t: hf.enc_pack(t["x"]),
+             plain=lambda t: hf.enc_pack_plain(t["x"]),
+             library=lambda t: torch.view_as_real(t["x"]).to(torch.bfloat16),
+             library_call="view_as_real(x).to(bfloat16) (interleaved)",
+             flops=0, bytes=12 * elems),
+        dict(name="dec_unpack", replaces=f"{PALLAS}:731", source=src,
+             shape=dict(block=[xb, xb, zo]), make=make_block, check="bit",
+             run=lambda t: hf.dec_unpack(t["planes"]),
+             plain=lambda t: hf.dec_unpack_plain(t["planes"]),
+             library=lambda t: t["inter"].to(torch.float32),
+             library_call="to(float32) of the interleaved bf16 pairs",
+             flops=0, bytes=12 * elems),
+        dict(name="dec_cmatmul", replaces=f"{PALLAS}:737", source=src,
+             shape=dict(M=m11, n=NBIG), make=make_arrival, check=TOL,
+             run=lambda t: hf.dec_cmatmul(t["y"], *t["F"]),
+             plain=lambda t: hf.dec_cmatmul_plain(t["y"], *t["F"]),
+             library=lambda t: torch.fft.ifft(t["dec"], norm="forward"),
+             library_call="ifft(norm='forward') of the decoded block",
+             flops=8 * m11 * NBIG * NBIG,
+             bytes=12 * m11 * NBIG + 8 * NBIG * NBIG),
+    ]
+
+
+def check_wire(torch, k, got, ref):
+    """(max abs error, max rel error) of kernel k against its plain version;
+    kernels 9 and 10 must be bit for bit (NaN and Inf included)."""
+    if k["check"] != "bit":
+        return rel_err(got, ref)
+    if got.is_complex():
+        got, ref = torch.view_as_real(got), torch.view_as_real(ref)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    if got.shape != ref.shape or not torch.equal(got.view(bits),
+                                                 ref.view(bits)):
+        fail(f"kernel {k['name']} is not bit-equal to its plain version")
+    return 0.0, 0.0
 
 
 def main() -> int:
@@ -498,6 +689,31 @@ def main() -> int:
         del t
         torch.cuda.empty_cache()
 
+    # -- 6b. fused-wire kernels 9-11: check against plain, then time --------
+    wired = wire_cases(torch, hf, dev, gen)
+    for k in wired:
+        t = k["make"]()
+        got, ref = k["run"](t), k["plain"](t)
+        torch.cuda.synchronize()
+        k["max_abs_err"], k["max_rel_err"] = check_wire(torch, k, got, ref)
+        del got, ref
+        emit(phase="kernel_check", name=k["name"], shape=k["shape"],
+             max_abs_err=k["max_abs_err"], max_rel_err=k["max_rel_err"],
+             tol=k["check"])
+        if k["check"] != "bit" and not k["max_rel_err"] <= k["check"]:
+            fail(f"kernel {k['name']} disagrees with its plain version: "
+                 f"rel {k['max_rel_err']:.3e} > {k['check']}")
+        k["kernel_ms"] = median_ms(torch, lambda: k["run"](t))
+        k["plain_ms"] = median_ms(torch, lambda: k["plain"](t))
+        k["library_ms"] = median_ms(torch, lambda: k["library"](t))
+        k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
+        emit(phase="kernel_time", name=k["name"], kernel_ms=k["kernel_ms"],
+             plain_ms=k["plain_ms"], library_ms=k["library_ms"],
+             library_call=k["library_call"], bound_ms=k["bound_ms"],
+             bound_by=k["bound_by"])
+        del t
+        torch.cuda.empty_cache()
+
     # -- 7. the 1024^3 single-card plan: per-axis four-step kernels ----------
     torch.cuda.reset_peak_memory_stats()
     xb = torch.randn((NBIG,) * 3, generator=gen, device=dev)
@@ -574,16 +790,37 @@ def main() -> int:
     launches["distributed_512_rank0"] = {
         k: r0["launches_forward"][k] + r0["launches_inverse"][k]
         for k in r0["launches_forward"]}
+    for pid in RING_PATHS:
+        row = r0["ring"][pid]
+        launches[f"distributed_512_{pid}_rank0"] = {
+            k: row["launches_forward"][k] + row["launches_inverse"][k]
+            for k in row["launches_forward"]}
     emit(phase="main_path", path="distributed_512", ranks=RANKS,
          exchange="gloo, host-staged, 2 ranks on 1 card",
          seconds=time.perf_counter() - t0, per_rank=ranks)
+    # The exchange alone per direction (host wall clock, median of 5, both
+    # ranks at once) and the bytes each rank sends: gloo over the host on
+    # one card, which says nothing about NCCL across cards.
+    for rk in ranks:
+        sent = rk["exchange_bytes"] * (RANKS - 1) // RANKS
+        table = {"all_to_all_native": dict(
+            forward_ms=rk["exchange_forward_ms"],
+            inverse_ms=rk["exchange_inverse_ms"],
+            wire_bytes_per_rank={"forward": sent, "inverse": sent})}
+        for pid in EXCHANGE_TIMED:
+            row = rk["ring"][pid]
+            table[pid] = dict(forward_ms=row["exchange_forward_ms"],
+                              inverse_ms=row["exchange_inverse_ms"],
+                              wire_bytes_per_rank=row["wire_bytes_per_rank"])
+        emit(phase="exchange", rank=rk["rank"],
+             transport=rk["ring"]["transport"], renderings=table)
 
     # -- 9. the kernels line, the card, the result ---------------------------
     def total_launches(name):
         return sum(v.get(name, 0) for v in launches.values())
 
     rows = []
-    for k in fused + [k for k in staged if "variant" not in k]:
+    for k in fused + [k for k in staged if "variant" not in k] + wired:
         row = {"name": k["name"], "route": "cuda", "source": k["source"],
                "replaces": k["replaces"], "launches": total_launches(k["name"]),
                "launches_by_path": {p: v[k["name"]] for p, v in

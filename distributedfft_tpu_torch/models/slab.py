@@ -1,12 +1,21 @@
 """Slab (1D) decomposition plan of the port.
 
-Sequence ``ZY_Then_X``, the reference's default
-(``src/slab/default/mpicufft_slab.cpp``), over ``torch.distributed``:
+Three per-axis sequences over ``torch.distributed`` (the JAX package's
+``_SEQS``): ``ZY_Then_X``, the reference's default
+(``src/slab/default/mpicufft_slab.cpp``), ``Z_Then_YX`` and ``Y_Then_ZX``.
+Each rank's x-slab runs the transforms before the exchange (the R2C axis,
+then the pre axes), pads the split axis to a multiple of P, and one
+exchange scatters the split axis and gathers x; then the post axes run.
+The inverse runs the same steps backwards.
 
-* forward: each rank's x-slab runs a z-R2C (a z-C2C for
-  ``transform="c2c"``) and a y-C2C, pads y to a multiple of P, and one
-  all-to-all scatters y and gathers x; then x runs a C2C;
-* inverse: the same steps backwards, ending in a z-C2R.
+The exchange is rendered as one all-to-all (ALL2ALL + SYNC) or as a ring
+of point-to-point steps (``SendMethod.RING`` / ``RING_OVERLAP``; the ring
+owns the exchange whatever ``comm_method`` says, as in the JAX package).
+On a ring, the post-exchange transforms that do not run along the gathered
+axis run on each peer block as it arrives. Either rendering takes
+``wire_dtype="bf16"``; on a ring ``fused_wire`` swaps the wire boundary
+for the kernels of ``ops/hopper_fft.py`` (encode; decode, or decode fused
+with the first per-block DFT).
 
 With one rank (``SlabPartition(1)``) the plan takes the single-device path
 instead: one local 3D transform per direction. Under
@@ -20,9 +29,9 @@ multiple of P; undecomposed axes, including an odd ``nz//2+1``, are never
 padded.
 
 * plan input : real, ``input_padded_shape`` (x padded), split over x;
-* plan output: complex, ``output_padded_shape`` (y padded), split over y;
-  pad lanes are exact zeros in the forward output and are ignored by the
-  inverse.
+* plan output: complex, ``output_padded_shape`` (the split axis padded),
+  split over the split axis (y, or z for ``Z_Then_YX``); pad lanes are
+  exact zeros in the forward output and are ignored by the inverse.
 
 Local in, local out: on P > 1 ranks ``exec_*`` take and return this rank's
 block of the padded global array (``local_input_shape`` /
@@ -35,6 +44,7 @@ on every rank, as ``np.asarray`` of a sharded array does in JAX.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -43,14 +53,33 @@ import torch.distributed as dist
 
 from .. import params as pm
 from ..ops import fft as lf
+from ..ops import hopper_fft as hf
 from ..parallel.mesh import make_slab_group
 from ..parallel.transpose import (all_to_all_transpose, pad_axis_to,
-                                  slice_axis_to)
+                                  ring_transpose, slice_axis_to)
 from ..utils.native_planner import even_shard_sizes, padded_extent
 from .base import DistFFTPlan, Pipeline
 
 _SLAB_ITEM = "ROADMAP Queue 1, item 2 (the rest of the slab plan)"
 _RENDERINGS_ITEM = "ROADMAP Queue 1, item 7 (exchange renderings)"
+_ODDITY_ITEM = "ROADMAP Queue 3 (the reference's P=1 Y_Then_ZX oddity)"
+
+
+@dataclasses.dataclass(frozen=True)
+class _SeqDef:
+    """Axis roles of one slab sequence."""
+
+    r2c_axis: int                 # axis of the real-to-complex transform
+    pre_axes: Tuple[int, ...]     # C2C axes before the exchange
+    split_axis: int               # axis scattered by the exchange
+    post_axes: Tuple[int, ...]    # C2C axes after the exchange
+
+
+_SEQS = {
+    pm.SlabSequence.ZY_THEN_X: _SeqDef(2, (1,), 1, (0,)),
+    pm.SlabSequence.Z_THEN_YX: _SeqDef(2, (), 2, (1, 0)),
+    pm.SlabSequence.Y_THEN_ZX: _SeqDef(1, (), 1, (2, 0)),
+}
 
 
 def _parse_sequence(sequence) -> pm.SlabSequence:
@@ -72,14 +101,19 @@ class SlabFFTPlan(DistFFTPlan):
         if transform not in ("r2c", "c2c"):
             raise ValueError(f"transform must be 'r2c' or 'c2c', got {transform!r}")
         sequence = _parse_sequence(sequence)
-        if sequence is not pm.SlabSequence.ZY_THEN_X:
+        P = partition.p
+        if P == 1 and sequence is pm.SlabSequence.Y_THEN_ZX:
+            # The JAX plan declares a y-halved output here but its single-
+            # device path returns the z-halved rfftn, so its own inverse
+            # rejects its forward output: nothing consistent to port.
             raise NotImplementedError(
-                f"slab sequence {sequence.value} is not ported yet "
-                f"({_SLAB_ITEM})")
+                f"slab sequence {sequence.value} on one rank is not ported "
+                f"({_ODDITY_ITEM})")
         super().__init__(global_size, partition, config, device)
         self.transform = transform
         self.sequence = sequence
-        P = self._P = partition.p
+        self._seq = s = _SEQS[sequence]
+        self._P = P
         self.rank = 0
         if P > 1:
             self._check_rendering()
@@ -96,15 +130,23 @@ class SlabFFTPlan(DistFFTPlan):
             self.group = group
             self.rank = dist.get_rank(group)
         g = global_size
-        self._spec_shape = g.shape if transform == "c2c" else (g.nx, g.ny,
-                                                               g.nz_out)
-        self._split_ext = self._spec_shape[1]
+        if transform == "c2c":
+            self._spec_shape = g.shape
+        elif s.r2c_axis == 2:
+            self._spec_shape = (g.nx, g.ny, g.nz_out)
+        else:
+            self._spec_shape = (g.nx, g.ny_out, g.nz)
+        self._split_ext = self._spec_shape[s.split_axis]
         self._nx_pad = padded_extent(g.nx, P)
         self._split_pad = padded_extent(self._split_ext, P)
 
     def _check_rendering(self) -> None:
-        """A distributed plan runs ALL2ALL + SYNC, opt 0, native wire."""
+        """The exchange renderings this slice has: a ring (RING or
+        RING_OVERLAP, with depth, sub-blocks and the fused wire), or ALL2ALL
+        + SYNC at opt 0; either with the native or the bf16 wire."""
         cfg = self.config
+        if cfg.send_method.is_ring:
+            return      # the ring owns the exchange (comm_method, opt inert)
         if cfg.opt != 0:
             raise NotImplementedError(
                 f"opt {cfg.opt} (the realigned exchange) is not ported yet "
@@ -114,14 +156,13 @@ class SlabFFTPlan(DistFFTPlan):
                  cfg.comm_method is pm.CommMethod.ALL2ALL),
                 (f"send_method {cfg.send_method.value}",
                  cfg.send_method is pm.SendMethod.SYNC),
-                (f"wire_dtype {cfg.wire_dtype!r}", cfg.wire_dtype == "native"),
                 (f"overlap_subblocks {cfg.overlap_subblocks} (the pipelined "
-                 f"all-to-all)", (cfg.overlap_subblocks or 1) <= 1)):
+                 f"all-to-all)", cfg.resolved_overlap_subblocks() <= 1)):
             if not ok:
                 raise NotImplementedError(
                     f"{what} is not ported yet ({_RENDERINGS_ITEM}); the "
-                    f"port's distributed slab runs ALL2ALL + SYNC, opt 0, "
-                    f"native wire")
+                    f"port's distributed slab runs RING / RING_OVERLAP, or "
+                    f"ALL2ALL + SYNC at opt 0")
 
     # -- shapes & size tables ---------------------------------------------
 
@@ -136,8 +177,9 @@ class SlabFFTPlan(DistFFTPlan):
 
     @property
     def output_padded_shape(self) -> Tuple[int, int, int]:
-        s = self._spec_shape
-        return (s[0], self._split_pad, s[2])
+        s = list(self._spec_shape)
+        s[self._seq.split_axis] = self._split_pad
+        return tuple(s)
 
     @property
     def local_input_shape(self) -> Tuple[int, int, int]:
@@ -147,14 +189,16 @@ class SlabFFTPlan(DistFFTPlan):
 
     @property
     def local_output_shape(self) -> Tuple[int, int, int]:
-        """This rank's block of the padded output (split over y)."""
-        s = self.output_padded_shape
-        return (s[0], s[1] // self._P, s[2])
+        """This rank's block of the padded output (split over the split
+        axis)."""
+        s = list(self.output_padded_shape)
+        s[self._seq.split_axis] //= self._P
+        return tuple(s)
 
     def local_slices(self, output: bool = False) -> Tuple[slice, ...]:
         """Where this rank's block lies in the padded global input (or
         output)."""
-        axis = 1 if output else 0
+        axis = self._seq.split_axis if output else 0
         b = (self.local_output_shape if output else self.local_input_shape)[axis]
         sl = [slice(None)] * 3
         sl[axis] = slice(self.rank * b, (self.rank + 1) * b)
@@ -166,10 +210,13 @@ class SlabFFTPlan(DistFFTPlan):
         return even_shard_sizes(self.global_size.nx, self._nx_pad, self._P)
 
     def out_sizes(self, axis: Optional[str] = None) -> List[int]:
-        """Per-rank extents of the decomposed output axis (y), logical
-        extents excluding pad lanes."""
-        if axis is not None and axis != "y":
-            raise ValueError("ZY_Then_X output is decomposed over y")
+        """Per-rank extents of the decomposed output axis (y for ZY_Then_X
+        and Y_Then_ZX, z for Z_Then_YX), logical extents excluding pad
+        lanes."""
+        expected = "xyz"[self._seq.split_axis]
+        if axis is not None and axis != expected:
+            raise ValueError(
+                f"{self.sequence.value} output is decomposed over {expected}")
         return even_shard_sizes(self._split_ext, self._split_pad, self._P)
 
     # -- logical <-> padded conversion helpers ----------------------------
@@ -185,8 +232,8 @@ class SlabFFTPlan(DistFFTPlan):
     def pad_spectral(self, c) -> torch.Tensor:
         """Logical (or padded) global spectrum -> this rank's padded output
         block on the plan's device."""
-        return self._block(c, self.complex_dtype, 1, self.output_shape,
-                           self.output_padded_shape)
+        return self._block(c, self.complex_dtype, self._seq.split_axis,
+                           self.output_shape, self.output_padded_shape)
 
     def crop_real(self, r) -> np.ndarray:
         """Inverse output block(s) -> logical (nx, ny, nz) host array."""
@@ -194,7 +241,10 @@ class SlabFFTPlan(DistFFTPlan):
 
     def crop_spectral(self, c) -> np.ndarray:
         """Forward output block(s) -> logical spectral host array."""
-        return self._host(self._gather(c, 1))[:, : self._split_ext]
+        sa = self._seq.split_axis
+        sl = [slice(None)] * 3
+        sl[sa] = slice(0, self._split_ext)
+        return self._host(self._gather(c, sa))[tuple(sl)]
 
     def _block(self, a, dtype: torch.dtype, axis: int, logical, padded
                ) -> torch.Tensor:
@@ -282,51 +332,153 @@ class SlabFFTPlan(DistFFTPlan):
 
     # -- pipelines ----------------------------------------------------------
 
-    def _fwd_parts(self):
-        """(first, xpose, last) of the distributed forward: z and y
-        transforms of the x-slab, the exchange, the x transform."""
+    def _exchange_kw(self) -> dict:
+        """The ring's schedule knobs from the Config."""
+        cfg = self.config
+        return dict(wire=cfg.wire_dtype,
+                    overlap=cfg.send_method is pm.SendMethod.RING_OVERLAP,
+                    depth=cfg.resolved_overlap_depth(),
+                    subblocks=cfg.resolved_overlap_subblocks())
+
+    def _ring_pipe(self, axes: Tuple[int, ...], inverse: bool = False):
+        """Shape-preserving per-block FFTs over ``axes`` (None when
+        empty: the ring then runs no per-block stage)."""
+        if not axes:
+            return None
         norm, be = self.config.norm, self.config.fft_backend
+        tf = lf.ifft if inverse else lf.fft
+
+        def pipe(b: torch.Tensor) -> torch.Tensor:
+            for a in axes:
+                b = tf(b, axis=a, norm=norm, backend=be)
+            return b
+
+        return pipe
+
+    def _ring_hooks(self, pipe_axes: Tuple[int, ...], inverse: bool = False):
+        """``(encode_fn, arrive_fn, pipe)`` of a ring whose arriving blocks
+        run per-block FFTs over ``pipe_axes``. Under the fused wire the
+        encode is kernel 9 and the arrival is kernel 11 (decode fused with
+        the first per-block DFT, then the remaining axes' plain pipe), or
+        kernel 10 where there is no per-block FFT; otherwise ``(None, None,
+        pipe)`` keeps the plain wire layer. ``pipe`` is always the whole
+        per-block pipeline: the local block never touches the wire."""
+        cfg = self.config
+        pipe = self._ring_pipe(pipe_axes, inverse)
+        if not cfg.fused_wire_active():
+            return None, None, pipe
+        if not pipe_axes:
+            enc_fn, arr_fn = hf.fused_ring_hooks(cfg)
+            return enc_fn, arr_fn, pipe
+        if cfg.double_prec:
+            raise NotImplementedError(
+                "the fused decode + DFT of a double-precision plan runs the "
+                "matmul backend in the JAX package; it is not ported yet "
+                "(ROADMAP Queue 1, item 3)")
+        norm = cfg.norm
+        first_ax = pipe_axes[0]
+        rest_pipe = self._ring_pipe(pipe_axes[1:], inverse)
+
+        def arrive(b: torch.Tensor) -> torch.Tensor:
+            b = hf.decode_fft_fused(b, torch.complex64, first_ax,
+                                    inverse=inverse, norm=norm)
+            return rest_pipe(b) if rest_pipe is not None else b
+
+        return hf.wire_encode_fused, arrive, pipe
+
+    def _fwd_parts(self):
+        """(first, xpose, last) of the distributed forward: the R2C (or
+        C2C) axis and the pre axes of the x-slab, the exchange, the post
+        axes. On a ring the post axes other than the gathered x run per
+        arriving block inside ``xpose``."""
+        s, cfg = self._seq, self.config
+        norm, be = cfg.norm, cfg.fft_backend
         split_pad, nx = self._split_pad, self.global_size.nx
         first_axis = lf.fft if self.transform == "c2c" else lf.rfft
-        group = self.group
+        group, sa = self.group, s.split_axis
 
         def first(xl: torch.Tensor) -> torch.Tensor:
-            c = first_axis(xl, axis=2, norm=norm, backend=be)
-            c = lf.fft(c, axis=1, norm=norm, backend=be)
-            return pad_axis_to(c, 1, split_pad)
+            c = first_axis(xl, axis=s.r2c_axis, norm=norm, backend=be)
+            for a in s.pre_axes:
+                c = lf.fft(c, axis=a, norm=norm, backend=be)
+            return pad_axis_to(c, sa, split_pad)
 
-        def xpose(cl: torch.Tensor) -> torch.Tensor:
-            return all_to_all_transpose(cl, group, 1, 0)
+        if cfg.send_method.is_ring:
+            enc_fn, arr_fn, pipe = self._ring_hooks(
+                tuple(a for a in s.post_axes if a != 0))
+            rest = tuple(a for a in s.post_axes if a == 0)
+            kw = self._exchange_kw()
+
+            def xpose(cl: torch.Tensor) -> torch.Tensor:
+                return ring_transpose(cl, group, sa, 0, pipeline_fn=pipe,
+                                      encode_fn=enc_fn, arrive_fn=arr_fn,
+                                      **kw)
+        else:
+            rest, wire = s.post_axes, cfg.wire_dtype
+
+            def xpose(cl: torch.Tensor) -> torch.Tensor:
+                return all_to_all_transpose(cl, group, sa, 0, wire=wire)
 
         def last(cl: torch.Tensor) -> torch.Tensor:
             # Drop the zero pad rows of x before transforming along it.
-            return lf.fft(slice_axis_to(cl, 0, nx), axis=0, norm=norm,
-                          backend=be)
+            c = slice_axis_to(cl, 0, nx)
+            for a in rest:
+                c = lf.fft(c, axis=a, norm=norm, backend=be)
+            return c
 
         return first, xpose, last
 
     def _inv_parts(self):
-        """(first, xpose, last) of the distributed inverse."""
-        norm, be = self.config.norm, self.config.fft_backend
+        """(first, xpose, last) of the distributed inverse. On a ring the
+        pipelined set is the C2C axes of ``last`` other than the gathered
+        split axis; for ``c2c`` that includes the r2c axis, whose IFFT then
+        runs per block ahead of the split axis's, as in the JAX package."""
+        s, cfg = self._seq, self.config
+        norm, be = cfg.norm, cfg.fft_backend
         nx_pad, split_ext = self._nx_pad, self._split_ext
-        nz = self.global_size.nz
+        real_n = self.global_size.nz if s.r2c_axis == 2 else \
+            self.global_size.ny
         c2c = self.transform == "c2c"
-        group = self.group
+        group, sa = self.group, s.split_axis
 
         def first(cl: torch.Tensor) -> torch.Tensor:
-            return pad_axis_to(lf.ifft(cl, axis=0, norm=norm, backend=be), 0,
-                               nx_pad)
+            c = cl
+            for a in reversed(s.post_axes):
+                c = lf.ifft(c, axis=a, norm=norm, backend=be)
+            return pad_axis_to(c, 0, nx_pad)
 
-        def xpose(cl: torch.Tensor) -> torch.Tensor:
-            return all_to_all_transpose(cl, group, 0, 1)
+        if cfg.send_method.is_ring:
+            pipe_axes = tuple(a for a in reversed(s.pre_axes) if a != sa)
+            if c2c and s.r2c_axis != sa:
+                pipe_axes += (s.r2c_axis,)
+            enc_fn, arr_fn, pipe = self._ring_hooks(pipe_axes, inverse=True)
+            after = tuple(a for a in reversed(s.pre_axes) if a == sa)
+            r2c_last = not c2c or s.r2c_axis == sa
+            kw = self._exchange_kw()
+
+            def xpose(cl: torch.Tensor) -> torch.Tensor:
+                return ring_transpose(cl, group, 0, sa, pipeline_fn=pipe,
+                                      encode_fn=enc_fn, arrive_fn=arr_fn,
+                                      **kw)
+        else:
+            after, r2c_last = tuple(reversed(s.pre_axes)), True
+            wire = cfg.wire_dtype
+
+            def xpose(cl: torch.Tensor) -> torch.Tensor:
+                return all_to_all_transpose(cl, group, 0, sa, wire=wire)
 
         def last(cl: torch.Tensor) -> torch.Tensor:
-            # Drop the pad lanes of y before inverting along it.
-            c = lf.ifft(slice_axis_to(cl, 1, split_ext), axis=1, norm=norm,
-                        backend=be)
+            # Drop the pad lanes of the split axis before inverting along
+            # the remaining axes.
+            c = slice_axis_to(cl, sa, split_ext)
+            for a in after:
+                c = lf.ifft(c, axis=a, norm=norm, backend=be)
+            if not r2c_last:
+                return c
             if c2c:
-                return lf.ifft(c, axis=2, norm=norm, backend=be)
-            return lf.irfft(c, n=nz, axis=2, norm=norm, backend=be)
+                return lf.ifft(c, axis=s.r2c_axis, norm=norm, backend=be)
+            return lf.irfft(c, n=real_n, axis=s.r2c_axis, norm=norm,
+                            backend=be)
 
         return first, xpose, last
 

@@ -5,8 +5,9 @@ into its own shared library with a plain C interface, and loaded with
 ``ctypes``. No PyTorch header is included, so a build takes seconds.
 
 * A library is built at first use, under ``build/kernels/`` at the root of
-  the checkout, named by a hash of its source and the flags: a changed
-  source builds anew, an unchanged one is reused.
+  the checkout, named by a hash of its source, the shared headers
+  (``csrc/*.cuh``) and the flags: a changed source builds anew, an
+  unchanged one is reused.
 * ``build()`` starts one ``nvcc`` per missing library, all at once.
 * A missing ``nvcc`` or a failed build raises. There is no fallback.
 * Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -45,8 +46,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source,
+    every shared header (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -18,6 +18,12 @@ granularities:
   up to 1024), else the four-step split of ``mxu_fft._split_for``. This
   path carries every distributed plan and every single-device cube the
   fused path does not take.
+* **fused wire** (``csrc/wire.cu``): the bf16 wire of the ring exchanges
+  (``parallel/transpose.ring_transpose``) as kernels — ``enc_pack``
+  encodes a travelling block, ``dec_unpack`` decodes an arrived one, and
+  ``dec_cmatmul`` decodes it straight into the first per-block DFT stage
+  (the tile loop of ``stage.cu`` with a bfloat16 A-loader). The hooks
+  ``fused_ring_hooks`` / ``decode_fft_fused`` plug them into a ring.
 
 Each kernel has here:
 
@@ -49,13 +55,17 @@ from . import mxu_fft as mx
 LAUNCHES: Dict[str, int] = {
     "zy_fwd": 0, "x_c2c": 0, "yz_inv": 0,                   # fused3d.cu
     "rmatmul": 0, "cmatmul": 0, "c2r": 0, "cmatmul_tw": 0,  # stage.cu
-    "rmatmul_tw": 0}
+    "rmatmul_tw": 0,
+    "enc_pack": 0, "dec_unpack": 0, "dec_cmatmul": 0}       # wire.cu
 
 # Entry points: library (csrc/<name>.cu), (pointer arguments, int arguments).
 _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
             "dfft_x_c2c": ("fused3d", (6, 2)),
             "dfft_yz_inv": ("fused3d", (7, 3)),
-            "dfft_stage": ("stage", (6, 6))}
+            "dfft_stage": ("stage", (6, 6)),
+            "dfft_enc_pack": ("wire", (2, 6)),
+            "dfft_dec_unpack": ("wire", (2, 1)),
+            "dfft_dec_cmatmul": ("wire", (4, 2))}
 
 # Roadmap item of what the JAX package sends to the matmul backend.
 _MATMUL_ITEM = "ROADMAP Queue 1, item 3 (the mxu_fft matmul backend)"
@@ -541,3 +551,177 @@ def ifftn(x: torch.Tensor, axes: Sequence[int],
     for a in axes:
         x = ifft(x, axis=a, norm=norm)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Fused wire: kernels 9-11 (csrc/wire.cu) and the ring hooks
+# (``pallas_fft.wire_encode_fused`` / ``wire_decode_fused`` /
+# ``decode_fft_fused`` / ``fused_ring_hooks``)
+# ---------------------------------------------------------------------------
+
+
+def enc_pack_plain(x: torch.Tensor) -> torch.Tensor:
+    """Kernel 9's function: complex -> planar (real, imag) bfloat16 pair,
+    round to nearest even (``transpose.wire_encode``'s formula)."""
+    return torch.stack([x.real, x.imag]).to(torch.bfloat16)
+
+
+def dec_unpack_plain(y: torch.Tensor) -> torch.Tensor:
+    """Kernel 10's function: planar bfloat16 pair -> complex64, exact."""
+    z = y.to(torch.float32)
+    return torch.complex(z[0], z[1])
+
+
+def dec_cmatmul_plain(y2: torch.Tensor, fr: torch.Tensor,
+                      fi: torch.Tensor) -> torch.Tensor:
+    """Kernel 11's function: decode (2, M, n) planes, then the dense
+    float32 DFT product ``(M, n) @ F``."""
+    return stage_plain(dec_unpack_plain(y2), fr, fi)
+
+
+def _check_wire(name: str, t: torch.Tensor, dtype: torch.dtype) -> bool:
+    """Validate a wire kernel's data operand; True on the CPU (plain
+    version), False on CUDA (kernel). Anything else raises."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    if t.numel() > _INT_MAX:
+        raise ValueError(f"{name}: {t.numel()} elements exceed one launch")
+    return t.device.type == "cpu"
+
+
+def _planes_of(name: str, y: torch.Tensor) -> None:
+    if y.ndim < 2 or y.shape[0] != 2:
+        raise ValueError(f"{name}: expected (2, ...) planes, got shape "
+                         f"{tuple(y.shape)}")
+    if not y.is_contiguous():
+        raise ValueError(f"{name}: planes must be contiguous")
+
+
+def enc_pack(x: torch.Tensor) -> torch.Tensor:
+    """complex64 block of up to 3 dims, any strides -> contiguous
+    ``(2,) + x.shape`` bfloat16 planes (kernel 9, ``_enc_pack_kernel``).
+    The block is read in place: a chunk of the plan's array needs no
+    contiguous copy first."""
+    cpu = _check_wire("enc_pack", x, torch.complex64)
+    if x.ndim > 3:
+        raise ValueError(f"enc_pack: at most 3 dims, got {x.ndim}")
+    if cpu:
+        return enc_pack_plain(x)
+    y = torch.empty((2,) + tuple(x.shape), dtype=torch.bfloat16,
+                    device=x.device)
+    if x.numel():
+        dims = (1,) * (3 - x.ndim) + tuple(x.shape)
+        strides = (0,) * (3 - x.ndim) + tuple(x.stride())
+        if max(strides) > _INT_MAX:
+            raise ValueError(f"enc_pack: stride {max(strides)} exceeds a "
+                             f"C int")
+        _launch("enc_pack", "dfft_enc_pack", x, y, *dims, *strides)
+    return y
+
+
+def dec_unpack(y: torch.Tensor) -> torch.Tensor:
+    """Contiguous ``(2, ...)`` bfloat16 planes -> complex64 of shape
+    ``y.shape[1:]`` (kernel 10, ``_dec_unpack_kernel``); exact."""
+    cpu = _check_wire("dec_unpack", y, torch.bfloat16)
+    _planes_of("dec_unpack", y)
+    if cpu:
+        return dec_unpack_plain(y)
+    out = torch.empty(tuple(y.shape[1:]), dtype=torch.complex64,
+                      device=y.device)
+    if out.numel():
+        _launch("dec_unpack", "dfft_dec_unpack", y, out, out.numel())
+    return out
+
+
+def dec_cmatmul(y2: torch.Tensor, fr: torch.Tensor,
+                fi: torch.Tensor) -> torch.Tensor:
+    """(2, M, n) bfloat16 planes and (n, n) float32 DFT planes -> (M, n)
+    complex64 ``decode(y2) @ F`` (kernel 11, ``_dec_cmatmul_kernel``): the
+    planes widen to float32 as they are loaded, so the decoded block never
+    reaches device memory."""
+    cpu = _check_wire("dec_cmatmul", y2, torch.bfloat16)
+    _planes_of("dec_cmatmul", y2)
+    if y2.ndim != 3 or fr.shape != fi.shape or fr.ndim != 2 \
+            or fr.shape != (y2.shape[2], y2.shape[2]):
+        raise ValueError(f"dec_cmatmul: planes {tuple(y2.shape)} do not fit "
+                         f"F {tuple(fr.shape)}, {tuple(fi.shape)}")
+    for t in (fr, fi):
+        if t.dtype != torch.float32 or t.device != y2.device \
+                or not t.is_contiguous():
+            raise ValueError("dec_cmatmul: F must be contiguous float32 "
+                             "planes on the planes' device")
+    if cpu:
+        return dec_cmatmul_plain(y2, fr, fi)
+    _, M, n = y2.shape
+    out = torch.empty((M, n), dtype=torch.complex64, device=y2.device)
+    if M:
+        _launch("dec_cmatmul", "dfft_dec_cmatmul", y2, fr, fi, out, M, n)
+    return out
+
+
+def _wire_kernel_usable(dtype: torch.dtype) -> bool:
+    """The wire kernels take single precision only: a double-precision
+    payload takes the plain wire formulas (``pallas_fft._wire_kernel_usable``
+    routes by dtype the same way)."""
+    return not mx._is_double(dtype)
+
+
+def wire_encode_fused(x: torch.Tensor) -> torch.Tensor:
+    """A travelling ring block -> its bfloat16 wire planes in one pass."""
+    if not _wire_kernel_usable(x.dtype):
+        return enc_pack_plain(x)
+    return enc_pack(x)
+
+
+def wire_decode_fused(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An arrived ring block's planes -> complex ``dtype`` in one pass."""
+    if not _wire_kernel_usable(dtype):
+        z = y.to(torch.float64)
+        return torch.complex(z[0], z[1])
+    return dec_unpack(y)
+
+
+def decode_fft_fused(y: torch.Tensor, dtype: torch.dtype, axis: int,
+                     inverse: bool = False,
+                     norm: FFTNorm = FFTNorm.NONE) -> torch.Tensor:
+    """Decode an arrived block's ``(2,) + block`` planes and run the direct
+    DFT along ``axis`` of the block, in one kernel (11) whatever the plan's
+    ``fft_backend``, as the JAX package's fused arrival does. The axis
+    moves last on the bfloat16 planes (half the bytes of a float32 move);
+    the norm scale is applied after the kernel, as in the JAX package.
+    A double-precision target or an axis above ``mx.N_MAX`` points runs the
+    matmul backend there, which is not ported: ``NotImplementedError``."""
+    block_ndim = y.ndim - 1
+    axis %= block_ndim
+    n = y.shape[1 + axis]
+    if not _wire_kernel_usable(dtype):
+        raise NotImplementedError(
+            f"decode + DFT into {dtype} runs the matmul backend in the JAX "
+            f"package; it is not ported yet ({_MATMUL_ITEM})")
+    if n > mx.N_MAX:
+        raise NotImplementedError(
+            f"decode + DFT of a {n}-point axis (> {mx.N_MAX}) runs the "
+            f"matmul backend in the JAX package; it is not ported yet "
+            f"({_MATMUL_ITEM})")
+    planes = y.movedim(1 + axis, -1).contiguous()
+    shape = planes.shape[1:]
+    out = dec_cmatmul(planes.reshape(2, -1, n),
+                      *_planes("dft", n, inverse, y.device))
+    scale = mx._inv_scale(n, norm) if inverse else mx._fwd_scale(n, norm)
+    return mx._scaled(out.reshape(shape), scale).movedim(-1, axis)
+
+
+def fused_ring_hooks(config, snd=None):
+    """``(encode_fn, arrive_fn)`` of a ring whose arriving blocks run no
+    per-block FFT: the one-pass encode and the unpack-only arrival, or
+    ``(None, None)`` — the plain wire layer — when the fused wire is off
+    for this exchange (``Config.fused_wire_for``) or the plan is double
+    precision (the wire kernels take single precision only)."""
+    active = (config.fused_wire_for(snd) if snd is not None
+              else config.fused_wire_active())
+    if not active or config.double_prec:
+        return None, None
+    return wire_encode_fused, (
+        lambda b: wire_decode_fused(b, torch.complex64))

@@ -29,6 +29,10 @@ AUTO = "auto"
 
 _WIRE_DTYPES = ("native", "bf16", AUTO)
 
+# Max relative error the wire race accepts from a compressed wire when
+# ``Config.wire_error_budget`` is None (the bf16 wire's documented bound).
+DEFAULT_WIRE_ERROR_BUDGET = 2e-2
+
 
 def parse_guards(s: str) -> str:
     """Canonical guard-mode name (case-insensitive)."""
@@ -67,6 +71,11 @@ class SendMethod(enum.Enum):
     MPI_TYPE = "MPI_Type"
     RING = "Ring"
     RING_OVERLAP = "RingOverlap"
+
+    @property
+    def is_ring(self) -> bool:
+        """Both ring renderings: RING and its overlapped schedule."""
+        return self in (SendMethod.RING, SendMethod.RING_OVERLAP)
 
 
 class FFTNorm(enum.Enum):
@@ -280,6 +289,37 @@ class Config:
         marker (the JAX package's ``wisdom.unresolved``)."""
         return AUTO in (self.fft_backend, self.comm_method,
                         self.comm_method2, self.wire_dtype)
+
+    def resolved_snd2(self) -> SendMethod:
+        return (self.send_method2 if self.send_method2 is not None
+                else self.send_method)
+
+    def resolved_overlap_depth(self) -> int:
+        """Revolving receive-buffer depth of the overlapped ring
+        (``"auto"`` -> 2, the double-buffered schedule)."""
+        return 2 if self.overlap_depth == AUTO else int(self.overlap_depth)
+
+    def resolved_overlap_subblocks(self) -> int:
+        """Sub-blocks each travelling ring block is split into (None -> 1)."""
+        return (self.overlap_subblocks
+                if self.overlap_subblocks is not None else 1)
+
+    def fused_wire_for(self, snd: SendMethod) -> bool:
+        """The fused wire is on for an exchange rendered by ``snd``: opt-in
+        ``fused_wire`` on a ring with the bf16 wire, inert elsewhere."""
+        return bool(self.fused_wire and snd.is_ring
+                    and self.wire_dtype == "bf16")
+
+    def fused_wire_active(self, second: bool = False) -> bool:
+        """``fused_wire_for`` of this plan's first (or second) transpose."""
+        return self.fused_wire_for(self.resolved_snd2() if second
+                                   else self.send_method)
+
+    def resolved_wire_budget(self) -> float:
+        """Max rel error accepted from a compressed wire (None ->
+        ``DEFAULT_WIRE_ERROR_BUDGET``)."""
+        return (self.wire_error_budget if self.wire_error_budget is not None
+                else DEFAULT_WIRE_ERROR_BUDGET)
 
 
 # Enum-typed Config fields and their enum classes.

@@ -165,3 +165,99 @@ def test_per_axis_plan_matches_torch_fft(cuda, shape):
     tol = 2e-3 if 1042 in shape else 5e-4
     assert _rel(c, torch.fft.rfftn(x)) <= tol
     assert _rel(back / float(np.prod(shape)), x) <= tol
+
+
+# Fused-wire kernels 9-11 (csrc/wire.cu).
+
+
+def _with_edges(x):
+    """Plant NaN, +-Inf, a bf16 rounding tie and a subnormal in x."""
+    flat = torch.view_as_real(x).reshape(-1)
+    edges = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                          1 + 2 ** -8, -(1 + 3 * 2 ** -9), 1e-40],
+                         device=x.device)
+    k = min(edges.numel(), flat.numel())
+    flat[:k] = edges[:k]
+    return x
+
+
+@pytest.mark.parametrize("shape, axis, chunk", [
+    ((1, 1, 1), None, None), ((3, 17, 33), None, None),
+    ((4, 12, 513), 1, (6, 3)), ((8, 5, 7), 0, (4, 2)), ((2, 9, 11), 2, (3, 5)),
+    ((6, 40), None, None)])
+def test_enc_pack_kernel_bit_equal(cuda, shape, axis, chunk):
+    """Kernel 9 against Tensor.to(torch.bfloat16) bit for bit, NaN and Inf
+    included, on a contiguous block or a strided chunk of one."""
+    x = _with_edges(_crandn(shape, 17, cuda))
+    if axis is not None:
+        x = x.narrow(axis, *chunk)
+    before = hf.LAUNCHES["enc_pack"]
+    got = hf.enc_pack(x)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["enc_pack"] == before + 1
+    want = hf.enc_pack_plain(x)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("shape", [(1,), (3, 17, 33), (256, 513), (5, 7, 9)])
+def test_dec_unpack_kernel_bit_equal(cuda, shape):
+    bits = torch.from_numpy(np.random.default_rng(19).integers(
+        -2 ** 15, 2 ** 15, size=(2,) + shape, dtype=np.int16)).to(cuda)
+    y = bits.view(torch.bfloat16)
+    before = hf.LAUNCHES["dec_unpack"]
+    got = hf.dec_unpack(y)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["dec_unpack"] == before + 1
+    want = hf.dec_unpack_plain(y)
+    assert got.dtype == torch.complex64 and got.shape == want.shape
+    assert torch.equal(torch.view_as_real(got).view(torch.int32),
+                       torch.view_as_real(want).view(torch.int32))
+
+
+@pytest.mark.parametrize("M, n", ROWS)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_dec_cmatmul_kernel(cuda, M, n, inverse):
+    y = hf.enc_pack_plain(_crandn((M, n), 21, cuda))
+    F = hf._planes("dft", n, inverse, cuda)
+    before = hf.LAUNCHES["dec_cmatmul"]
+    got = hf.dec_cmatmul(y, *F)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["dec_cmatmul"] == before + 1
+    assert _rel(got, hf.dec_cmatmul_plain(y, *F)) <= 5e-4
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_decode_fft_fused_matches_torch_fft(cuda, axis):
+    x = _crandn((6, 20, 33), 23, cuda)
+    y = hf.enc_pack_plain(x)
+    got = hf.decode_fft_fused(y, torch.complex64, axis, inverse=True,
+                              norm=dft.FFTNorm.BACKWARD)
+    want = torch.fft.ifft(hf.dec_unpack_plain(y), dim=axis)
+    assert _rel(got, want) <= 5e-4
+
+
+def test_wire_kernels_reject_bad_operands(cuda):
+    y = hf.enc_pack_plain(_crandn((4, 8), 25, cuda))
+    F = hf._planes("dft", 8, False, cuda)
+    with pytest.raises(TypeError):
+        hf.enc_pack(_randn((4, 8), 1, cuda))                 # not complex
+    with pytest.raises(TypeError):
+        hf.dec_unpack(y.float())
+    with pytest.raises(ValueError):
+        hf.dec_unpack(y[:1])                                 # not 2 planes
+    with pytest.raises(ValueError):
+        hf.dec_cmatmul(y, *hf._planes("dft", 8, False, torch.device("cpu")))
+    with pytest.raises(ValueError):
+        hf.dec_cmatmul(y, *hf._planes("dft", 4, False, cuda))
+    with pytest.raises(ValueError):
+        hf.dec_cmatmul(y.transpose(1, 2), *F)                # not contiguous
+
+
+def test_failed_build_raises(cuda, tmp_path, monkeypatch):
+    from distributedfft_tpu_torch.ops import _build
+    (tmp_path / "broken.cu").write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
+    with pytest.raises(RuntimeError, match="build failed"):
+        _build.build(["broken"])

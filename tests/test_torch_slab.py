@@ -29,16 +29,17 @@ def _rel(a, b):
     return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30)
 
 
-def _plans(shape, transform="r2c", **cfg_kw):
+def _plans(shape, transform="r2c", sequence="ZY_Then_X", **cfg_kw):
     """(JAX plan, port plan) built from the same JAX objects."""
     g, part = jdfft.GlobalSize(*shape), jdfft.SlabPartition(1)
     cfg = jdfft.Config(**cfg_kw)
-    jplan = jdfft.SlabFFTPlan(g, part, cfg, transform=transform)
+    jplan = jdfft.SlabFFTPlan(g, part, cfg, transform=transform,
+                              sequence=sequence)
     tplan = tdfft.SlabFFTPlan(
         tdfft.global_size_from_reference(dataclasses.asdict(g)),
         tdfft.slab_partition_from_reference(dataclasses.asdict(part)),
         tdfft.config_from_reference(dataclasses.asdict(cfg)),
-        transform=transform, device="cpu")
+        transform=transform, device="cpu", sequence=sequence)
     return jplan, tplan
 
 
@@ -141,12 +142,12 @@ def _port_plan(shape=(8, 8, 8), p=1, transform="r2c", **kw):
     (lambda: _port_plan(fft_backend="bluestein"), "r2c"),
     (lambda: _port_plan(fft_backend="pallas", double_prec=True), "r2c"),
     (lambda: tdfft.SlabFFTPlan(tdfft.GlobalSize(8, 8, 8),
-                               tdfft.SlabPartition(1), sequence="Z_Then_YX",
+                               tdfft.SlabPartition(1), sequence="Y_Then_ZX",
                                device="cpu"), None),
     (lambda: _port_plan(p=2, opt=1), None),
     (lambda: _port_plan(p=2, comm_method=CommMethod.PEER2PEER), None),
-    (lambda: _port_plan(p=2, send_method=SendMethod.RING), None),
-    (lambda: _port_plan(p=2, wire_dtype="bf16"), None),
+    (lambda: _port_plan(p=2, send_method=SendMethod.STREAMS), None),
+    (lambda: _port_plan(p=2, overlap_subblocks=2), None),
 ])
 def test_not_ported_boundaries_raise(build, run):
     """What the next slices port raises NotImplementedError instead of
@@ -182,6 +183,21 @@ def test_pallas_per_axis_cases_match_reference(shape, transform, cfg_kw):
     assert _rel(tc.numpy(), jc) <= TOL["pallas"]
     assert tuple(tb.shape) == shape
     assert _rel(tb.numpy(), np.asarray(jb)) <= TOL["pallas"]
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_single_device_z_then_yx_matches_reference(backend):
+    """One rank of ``Z_Then_YX`` is the z-halved 3D transform, output
+    decomposed over z, as in the JAX plan."""
+    jplan, tplan = _plans(SHAPE, sequence="Z_Then_YX", fft_backend=backend)
+    for attr in ("output_shape", "output_padded_shape"):
+        assert getattr(tplan, attr) == getattr(jplan, attr), attr
+    assert tplan.out_sizes("z") == jplan.out_sizes("z")
+    x = np.random.default_rng(12).standard_normal(SHAPE).astype(np.float32)
+    jc, tc = np.asarray(jplan.exec_r2c(x)), tplan.exec_r2c(x)
+    assert _rel(tc.numpy(), jc) <= TOL[backend]
+    assert _rel(tplan.exec_c2r(tc).numpy(),
+                np.asarray(jplan.exec_c2r(jc))) <= TOL[backend]
 
 
 def test_distributed_plan_needs_a_process_group():
