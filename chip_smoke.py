@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -97,11 +98,37 @@ def median_ms(torch, fn, reps: int = REPS, warmup: int = WARMUP) -> float:
     return statistics.median(times)
 
 
+def fft_flops(rows: int, n: int, real: bool = False) -> float:
+    """The function's work: the FFT's nominal 5 n log2 n flop per complex
+    row of n points, 2.5 n log2 n with real input or output (PERF.md §2's
+    GFLOP/s metric)."""
+    return (2.5 if real else 5.0) * rows * n * math.log2(n)
+
+
 def bound(flops: float, nbytes: float):
     """(bound ms, what bounds it) on the data sheet's peaks."""
     t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+# Kernels whose body is a pure function of the row length
+# (hopper_fft._fft_body): the row FFT engine or the dense tile loop.
+ROUTED = ("rmatmul_tw", "dec_cmatmul")
+
+
+def body_of(hf, k) -> str:
+    """The body a kernel row runs: _fft_body of its row length for the
+    routed kernels 5 and 11 ("fft" at the main paths' shapes, "tile" for
+    the variants), else the one body the kernel has."""
+    if k["name"] in ROUTED:
+        body = hf._fft_body(k["shape"]["n"])
+        if body != ("tile" if k.get("variant") else "fft"):
+            fail(f"kernel {k['name']} {k['shape']} routes to the {body} body")
+        return body
+    if k["name"] in ("enc_pack", "dec_unpack"):
+        return "elementwise"
+    return "dense"
 
 
 def expect(hf, **counts):
@@ -375,6 +402,7 @@ def stage_cases(torch, hf, dev, gen):
     big_tw = NBIG * (NBIG // 2 + 1) * 2       # 1024^3 y/x first stage rows
     big_rtw = NBIG * NBIG * 2                 # 1024^3 z first stage rows
     big_n2 = NBIG * NBIG * NBIG // 2          # 1024^3 z second stage rows
+    rows_640 = 640 * 640 * 2                  # 640^3 z first stage rows
     k_r = N // 2 + 1
     return [
         dict(name="rmatmul", replaces=f"{PALLAS}:182",
@@ -383,7 +411,8 @@ def stage_cases(torch, hf, dev, gen):
              run=lambda t: hf.stage(t["x"], *t["F"]),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
              library=lambda t: torch.fft.rfft(t["x"]), library_call="rfft",
-             flops=4 * rows_r * N * k_r,
+             flops=fft_flops(rows_r, N, real=True),
+             gemm_flops=4 * rows_r * N * k_r,
              bytes=4 * rows_r * N + 8 * rows_r * k_r + 8 * N * k_r),
         dict(name="cmatmul", replaces=f"{PALLAS}:164",
              shape=dict(M=rows_c, n=N, k=N),
@@ -391,7 +420,7 @@ def stage_cases(torch, hf, dev, gen):
              run=lambda t: hf.stage(t["x"], *t["F"]),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
              library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
-             flops=8 * rows_c * N * N,
+             flops=fft_flops(rows_c, N), gemm_flops=8 * rows_c * N * N,
              bytes=16 * rows_c * N + 8 * N * N),
         dict(name="cmatmul", variant="n2_stage_1024", replaces=f"{PALLAS}:164",
              shape=dict(M=big_n2, n=2, k=2),
@@ -399,7 +428,8 @@ def stage_cases(torch, hf, dev, gen):
              run=lambda t: hf.stage(t["x"], *t["F"]),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
              library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
-             flops=8 * big_n2 * 2 * 2, bytes=32 * big_n2 + 32),
+             flops=fft_flops(big_n2, 2), gemm_flops=8 * big_n2 * 2 * 2,
+             bytes=32 * big_n2 + 32),
         dict(name="c2r", replaces=f"{PALLAS}:156",
              shape=dict(M=rows_r, n_in=k_r, n=N),
              make=lambda: dict(x=cr(rows_r, k_r), C=planes("c2r", N)),
@@ -407,7 +437,8 @@ def stage_cases(torch, hf, dev, gen):
              plain=lambda t: hf.c2r_plain(t["x"], *t["C"]),
              library=lambda t: torch.fft.irfft(t["x"], n=N, norm="forward"),
              library_call="irfft(norm='forward')",
-             flops=4 * rows_r * k_r * N,
+             flops=fft_flops(rows_r, N, real=True),
+             gemm_flops=4 * rows_r * k_r * N,
              bytes=8 * rows_r * k_r + 4 * rows_r * N + 8 * k_r * N),
         dict(name="cmatmul_tw", replaces=f"{PALLAS}:171",
              shape=dict(M=big_tw, n=N, k=N, n1=2),
@@ -419,20 +450,36 @@ def stage_cases(torch, hf, dev, gen):
              pair=lambda t: hf._fft_last(t["z"], False),
              library=lambda t: torch.fft.fft(t["z"]),
              library_call="fft of the whole 1024-point axis",
-             flops=8 * big_tw * N * N,
+             flops=fft_flops(big_tw, N) + 6 * big_tw * N,
+             gemm_flops=8 * big_tw * N * N,
              bytes=16 * big_tw * N + 8 * N * N + 16 * N),
+        # Kernel 5 takes no F: rdft_tw picks its body by n2 (the FFT body
+        # at 512, the tile body at 320, the 640-point axis's 2 x 320).
         dict(name="rmatmul_tw", replaces=f"{PALLAS}:188",
              shape=dict(M=big_rtw, n=N, k=N, n1=2),
              make=lambda: dict(x=rr(big_rtw, N), F=planes("dft", N),
                                T=hf._twiddle_planes(2, N, False, dev),
                                z=rr(big_rtw // 2, NBIG)),
-             run=lambda t: hf.stage(t["x"], *t["F"], (2, N, False)),
+             run=lambda t: hf.rdft_tw(t["x"], 2),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
              pair=lambda t: hf._rfft_last(t["z"]),
              library=lambda t: torch.fft.rfft(t["z"]),
              library_call="rfft of the whole 1024-point axis",
-             flops=4 * big_rtw * N * N,
-             bytes=12 * big_rtw * N + 8 * N * N + 16 * N),
+             flops=fft_flops(big_rtw, N, real=True) + 6 * big_rtw * N,
+             gemm_flops=4 * big_rtw * N * N,
+             bytes=12 * big_rtw * N + 8 * 2 * N),
+        dict(name="rmatmul_tw", variant="tile_n2_320", replaces=f"{PALLAS}:188",
+             shape=dict(M=rows_640, n=320, k=320, n1=2),
+             make=lambda: dict(x=rr(rows_640, 320), F=planes("dft", 320),
+                               T=hf._twiddle_planes(2, 320, False, dev),
+                               z=rr(rows_640 // 2, 640)),
+             run=lambda t: hf.rdft_tw(t["x"], 2),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
+             library=lambda t: torch.fft.rfft(t["z"]),
+             library_call="rfft of the whole 640-point axis",
+             flops=fft_flops(rows_640, 320, real=True) + 6 * rows_640 * 320,
+             gemm_flops=4 * rows_640 * 320 * 320,
+             bytes=12 * rows_640 * 320 + 8 * 320 * 320 + 8 * 2 * 320),
     ]
 
 
@@ -457,10 +504,10 @@ def wire_cases(torch, hf, dev, gen):
         return dict(full=full, x=chunk, planes=planes,
                     inter=torch.view_as_real(chunk).to(torch.bfloat16))
 
-    def make_arrival():
-        y = torch.randn((2, m11, NBIG), generator=gen, device=dev).to(
+    def make_arrival(n):
+        y = torch.randn((2, m11, n), generator=gen, device=dev).to(
             torch.bfloat16)
-        return dict(y=y, F=hf._planes("dft", NBIG, True, dev),
+        return dict(y=y, F=hf._planes("dft", n, True, dev),
                     dec=hf.dec_unpack_plain(y))
 
     src = "distributedfft_tpu_torch/csrc/wire.cu"
@@ -472,22 +519,33 @@ def wire_cases(torch, hf, dev, gen):
              plain=lambda t: hf.enc_pack_plain(t["x"]),
              library=lambda t: torch.view_as_real(t["x"]).to(torch.bfloat16),
              library_call="view_as_real(x).to(bfloat16) (interleaved)",
-             flops=0, bytes=12 * elems),
+             flops=0, gemm_flops=0, bytes=12 * elems),
         dict(name="dec_unpack", replaces=f"{PALLAS}:731", source=src,
              shape=dict(block=[xb, xb, zo]), make=make_block, check="bit",
              run=lambda t: hf.dec_unpack(t["planes"]),
              plain=lambda t: hf.dec_unpack_plain(t["planes"]),
              library=lambda t: t["inter"].to(torch.float32),
              library_call="to(float32) of the interleaved bf16 pairs",
-             flops=0, bytes=12 * elems),
+             flops=0, gemm_flops=0, bytes=12 * elems),
+        # Kernel 11 takes no F: dec_cmatmul picks its body by n (the FFT
+        # body at 1024, the tile body at 520).
         dict(name="dec_cmatmul", replaces=f"{PALLAS}:737", source=src,
-             shape=dict(M=m11, n=NBIG), make=make_arrival, check=TOL,
-             run=lambda t: hf.dec_cmatmul(t["y"], *t["F"]),
+             shape=dict(M=m11, n=NBIG), make=lambda: make_arrival(NBIG),
+             check=TOL, run=lambda t: hf.dec_cmatmul(t["y"], True),
              plain=lambda t: hf.dec_cmatmul_plain(t["y"], *t["F"]),
              library=lambda t: torch.fft.ifft(t["dec"], norm="forward"),
              library_call="ifft(norm='forward') of the decoded block",
-             flops=8 * m11 * NBIG * NBIG,
-             bytes=12 * m11 * NBIG + 8 * NBIG * NBIG),
+             flops=fft_flops(m11, NBIG), gemm_flops=8 * m11 * NBIG * NBIG,
+             bytes=12 * m11 * NBIG),
+        dict(name="dec_cmatmul", variant="tile_n_520", replaces=f"{PALLAS}:737",
+             source=src, shape=dict(M=m11, n=520),
+             make=lambda: make_arrival(520), check=TOL,
+             run=lambda t: hf.dec_cmatmul(t["y"], True),
+             plain=lambda t: hf.dec_cmatmul_plain(t["y"], *t["F"]),
+             library=lambda t: torch.fft.ifft(t["dec"], norm="forward"),
+             library_call="ifft(norm='forward') of the decoded block",
+             flops=fft_flops(m11, 520), gemm_flops=8 * m11 * 520 * 520,
+             bytes=12 * m11 * 520 + 8 * 520 * 520),
     ]
 
 
@@ -563,25 +621,28 @@ def main() -> int:
              run=lambda: hf.zy_fwd(x),
              plain=lambda: hf.zy_fwd_plain(x, fzr, fzi, fyr, fyi),
              library=lambda: torch.fft.rfft2(x), library_call="rfft2",
-             flops=4 * X * Y * Z * Zo + 8 * X * Y * Y * Zo,
+             flops=fft_flops(X * Y, Z, real=True) + fft_flops(X * Zo, Y),
+             gemm_flops=4 * X * Y * Z * Zo + 8 * X * Y * Y * Zo,
              bytes=4 * (X * Y * Z + 2 * Z * Zo + 2 * Y * Y + 2 * X * Y * Zo)),
         dict(name="x_c2c", replaces=f"{PALLAS}:443",
              run=lambda: hf.x_c2c(pr, pi, inverse=True),
              plain=lambda: hf.x_c2c_plain(pr, pi, fxr, fxi),
              library=lambda: torch.fft.ifft(pc, dim=0, norm="forward"),
              library_call="ifft(dim=0)",
-             flops=8 * X * X * Y * Zo,
+             flops=fft_flops(Y * Zo, X), gemm_flops=8 * X * X * Y * Zo,
              bytes=4 * (4 * X * Y * Zo + 2 * X * X)),
         dict(name="yz_inv", replaces=f"{PALLAS}:452",
              run=lambda: hf.yz_inv(pr, pi, Z),
              plain=lambda: hf.yz_inv_plain(pr, pi, fyir, fyii, cr, ci),
              library=lambda: torch.fft.irfft2(pc, s=(Y, Z), norm="forward"),
              library_call="irfft2",
-             flops=8 * X * Y * Y * Zo + 4 * X * Y * Zo * Z,
+             flops=fft_flops(X * Zo, Y) + fft_flops(X * Y, Z, real=True),
+             gemm_flops=8 * X * Y * Y * Zo + 4 * X * Y * Zo * Z,
              bytes=4 * (2 * X * Y * Zo + 2 * Y * Y + 2 * Zo * Z + X * Y * Z)),
     ]
     for k in fused:
         k["source"] = "distributedfft_tpu_torch/csrc/fused3d.cu"
+        k["body"] = body_of(hf, k)
         got, ref = k["run"](), k["plain"]()
         torch.cuda.synchronize()
         if not isinstance(got, tuple):
@@ -664,13 +725,14 @@ def main() -> int:
     staged = stage_cases(torch, hf, dev, gen)
     for k in staged:
         k["source"] = "distributedfft_tpu_torch/csrc/stage.cu"
+        k["body"] = body_of(hf, k)
         t = k["make"]()
         got, ref = k["run"](t), k["plain"](t)
         torch.cuda.synchronize()
         k["max_abs_err"], k["max_rel_err"] = rel_err(got, ref)
         del got, ref
         emit(phase="kernel_check", name=k["name"], variant=k.get("variant"),
-             shape=k["shape"], max_abs_err=k["max_abs_err"],
+             body=k["body"], shape=k["shape"], max_abs_err=k["max_abs_err"],
              max_rel_err=k["max_rel_err"], tol=TOL)
         if not k["max_rel_err"] <= TOL:
             fail(f"kernel {k['name']} {k['shape']} disagrees with its plain "
@@ -692,14 +754,15 @@ def main() -> int:
     # -- 6b. fused-wire kernels 9-11: check against plain, then time --------
     wired = wire_cases(torch, hf, dev, gen)
     for k in wired:
+        k["body"] = body_of(hf, k)
         t = k["make"]()
         got, ref = k["run"](t), k["plain"](t)
         torch.cuda.synchronize()
         k["max_abs_err"], k["max_rel_err"] = check_wire(torch, k, got, ref)
         del got, ref
-        emit(phase="kernel_check", name=k["name"], shape=k["shape"],
-             max_abs_err=k["max_abs_err"], max_rel_err=k["max_rel_err"],
-             tol=k["check"])
+        emit(phase="kernel_check", name=k["name"], variant=k.get("variant"),
+             body=k["body"], shape=k["shape"], max_abs_err=k["max_abs_err"],
+             max_rel_err=k["max_rel_err"], tol=k["check"])
         if k["check"] != "bit" and not k["max_rel_err"] <= k["check"]:
             fail(f"kernel {k['name']} disagrees with its plain version: "
                  f"rel {k['max_rel_err']:.3e} > {k['check']}")
@@ -707,10 +770,10 @@ def main() -> int:
         k["plain_ms"] = median_ms(torch, lambda: k["plain"](t))
         k["library_ms"] = median_ms(torch, lambda: k["library"](t))
         k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
-        emit(phase="kernel_time", name=k["name"], kernel_ms=k["kernel_ms"],
-             plain_ms=k["plain_ms"], library_ms=k["library_ms"],
-             library_call=k["library_call"], bound_ms=k["bound_ms"],
-             bound_by=k["bound_by"])
+        emit(phase="kernel_time", name=k["name"], variant=k.get("variant"),
+             kernel_ms=k["kernel_ms"], plain_ms=k["plain_ms"],
+             library_ms=k["library_ms"], library_call=k["library_call"],
+             bound_ms=k["bound_ms"], bound_by=k["bound_by"])
         del t
         torch.cuda.empty_cache()
 
@@ -820,9 +883,10 @@ def main() -> int:
         return sum(v.get(name, 0) for v in launches.values())
 
     rows = []
-    for k in fused + [k for k in staged if "variant" not in k] + wired:
+    for k in fused + [k for k in staged + wired if "variant" not in k]:
         row = {"name": k["name"], "route": "cuda", "source": k["source"],
-               "replaces": k["replaces"], "launches": total_launches(k["name"]),
+               "replaces": k["replaces"], "body": k["body"],
+               "launches": total_launches(k["name"]),
                "launches_by_path": {p: v[k["name"]] for p, v in
                                     launches.items()},
                "max_abs_err": k["max_abs_err"],
@@ -831,16 +895,18 @@ def main() -> int:
                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                "library_ms": k["library_ms"],
                "library_call": k["library_call"], "flops": k["flops"],
-               "bytes": k["bytes"], "shape": k.get("shape")}
+               "gemm_flops": k["gemm_flops"], "bytes": k["bytes"],
+               "shape": k.get("shape")}
         if "pair_ms" in k:
             row["pair_ms"] = k["pair_ms"]
-        for v in staged:
+        for v in staged + wired:
             if v.get("variant") and v["name"] == k["name"]:
                 row[v["variant"]] = {
-                    f: v[f] for f in ("shape", "max_abs_err", "max_rel_err",
-                                      "kernel_ms", "plain_ms", "library_ms",
+                    f: v[f] for f in ("body", "shape", "max_abs_err",
+                                      "max_rel_err", "kernel_ms", "plain_ms",
+                                      "library_ms", "library_call",
                                       "bound_ms", "bound_by", "flops",
-                                      "bytes")}
+                                      "gemm_flops", "bytes")}
         rows.append(row)
     if any(r["launches"] < 1 for r in rows):
         fail(f"a kernel never launched on the main paths: {launches}")

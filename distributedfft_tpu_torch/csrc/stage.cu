@@ -11,7 +11,7 @@
 // data per stage. Computed in float32 FFMA on the CUDA cores; no tensor
 // cores yet.
 //
-// Each instantiation replaces one Pallas TPU kernel of
+// Each body replaces one Pallas TPU kernel of
 // distributedfft_tpu/ops/pallas_fft.py, all reached through _call_stage /
 // _c2r_stage:
 //
@@ -19,41 +19,53 @@
 //   MODE_RMATMUL             <- _rmatmul_kernel     (kernel 1, real rows)
 //   MODE_C2R                 <- _c2r_kernel         (kernel 3, real output)
 //   MODE_CMATMUL + twiddle   <- _cmatmul_tw_kernel  (kernel 4)
-//   MODE_RMATMUL + twiddle   <- _rmatmul_tw_kernel  (kernel 5)
+//   fft_rows_kernel<L, RealTwiddleRows>
+//                            <- _rmatmul_tw_kernel  (kernel 5, FFT body:
+//                               power-of-two n2 in [8, 1024])
+//   MODE_RMATMUL + twiddle   <- _rmatmul_tw_kernel  (kernel 5, tile body:
+//                               any other n2, e.g. 320 or 171)
 //
 // Kernel 3 computes y = Re(c) @ CR - Im(c) @ CI. Read as real numbers, a row
 // of interleaved complex input is [re0, im0, re1, im1, ...], so the C2R is
 // one real product of depth 2 * n_in whose B operand row 2j is CR[j] and row
 // 2j + 1 is -CI[j]: the same tile loop as kernel 1, with a real output.
 //
-// Bound on an H100 SXM (float32 outside the tensor cores 67 TFLOP/s, HBM3
-// 3.35 TB/s; FLOP as the JAX wrappers' pl.CostEstimate counts them, bytes
-// each input read once and each output written once):
+// Bound on an H100 SXM (HBM3 3.35 TB/s, float32 outside the tensor cores
+// 67 TFLOP/s): bytes each input read once and each output written once
+// (the F planes included for the dense bodies); flop the function's work,
+// the FFT's nominal 5 n log2 n a complex row (2.5 for real input or output)
+// plus 6 a point for a twiddle. Every stage is bound by bytes:
 //
-//   kernel 1, 512^3 over 2 ranks (M 131072, n 512, k 257):
-//       6.90e10 FLOP -> 1.03 ms;   0.54 GB -> 0.16 ms   (operations)
-//   kernel 2, same plan (M 65792, n = k = 512):
-//       1.38e11 FLOP -> 2.06 ms;   0.54 GB -> 0.16 ms   (operations)
+//   kernel 1, 512^3 over 2 ranks (M 131072, n 512, k 257):   0.54 GB -> 0.16 ms
+//   kernel 2, same plan (M 65792, n = k = 512):              0.54 GB -> 0.16 ms
 //   kernel 2, second four-step stage at 1024^3 (M 5.37e8, n = k = 2):
-//       1.72e10 FLOP -> 0.26 ms;   17.2 GB -> 5.1 ms    (bytes)
-//   kernel 3, 512^3 over 2 ranks (M 131072, n_in 257, n 512):
-//       6.90e10 FLOP -> 1.03 ms;   0.54 GB -> 0.16 ms   (operations)
-//   kernel 4, 1024^3 x/y forward (M 1050624, n = k = 512):
-//       2.20e12 FLOP -> 32.9 ms;   8.6 GB -> 2.6 ms     (operations)
-//   kernel 5, 1024^3 z forward (M 2097152, n = k = 512):
-//       2.20e12 FLOP -> 32.8 ms;   12.9 GB -> 3.8 ms    (operations)
+//                                                            17.2 GB -> 5.1 ms
+//   kernel 3, same plan (M 131072, n_in 257, n 512):         0.54 GB -> 0.16 ms
+//   kernel 4, 1024^3 x/y forward (M 1050624, n = k = 512):    8.6 GB -> 2.6 ms
+//   kernel 5, 1024^3 z forward (M 2097152, n = k = 512):     12.9 GB -> 3.85 ms
+//
+// The dense bodies do 8 n k flop a complex row, 8 n / (5 log2 n) times an
+// FFT's work at k = n, which makes kernels 1-4 bound by operations as
+// written.
 //
 // What the design does about those bounds:
-// - Wide stages (operations bound) take the tile path of stage_tile.cuh:
+// - Kernel 5's FFT body is the row engine of fft_rows.cuh: each batch of
+//   real rows arrives by one bulk copy, the first pass packs rows 2c and
+//   2c + 1 as one complex row, and the epilogue splits the spectrum,
+//   X_a[k] = (Z[k] + conj Z[n-k]) / 2 and X_b[k] = (Z[k] - conj Z[n-k]) / 2i,
+//   multiplies by the twiddle row T[r % n1] and stores interleaved complex64;
+//   an odd last row is paired with zeros. It reads each input byte once and
+//   does 2.5 n log2 n flop a row where the dense product did 4 n^2.
+// - Wide dense stages take the tile path of stage_tile.cuh:
 //   64 x 64 output tiles, depth 16, 256 threads each holding a 4 x 4
 //   complex register tile, as x_c2c_kernel in fused3d.cu does; an operand
 //   fetched from shared memory feeds 4 (real) to 16 (complex) FMAs. The
 //   twiddle is applied in registers before the store, so a four-step first
 //   stage costs no extra pass.
 // - Narrow stages (n and k of a few points: the 2-point second stage of the
-//   1024 four-step, bound by bytes) take the row path: one thread per row,
-//   the row held in registers, F in shared memory, so each byte of X and Y
-//   crosses HBM once and no lane of a 64-wide tile idles.
+//   1024 four-step) take the row path: one thread per row, the row held in
+//   registers, F in shared memory, so each byte of X and Y crosses HBM once
+//   and no lane of a 64-wide tile idles.
 // - Ragged edges (k = 257, n_in = 257, any M) are masked element by
 //   element; no vector load crosses a row.
 // - Offsets are 64-bit: one interleaved plane at 1024^3 holds 2.15e9
@@ -63,6 +75,7 @@
 
 #include <cuda_runtime.h>
 
+#include "fft_rows.cuh"
 #include "stage_tile.cuh"
 
 namespace {
@@ -168,6 +181,77 @@ cudaError_t launch(const float* x, const float* fr, const float* fi,
   return cudaGetLastError();
 }
 
+// Kernel 5's rows for the FFT engine: (M, n) float32 rows in, two to a
+// complex row; (M, n) interleaved complex64 out, the full spectrum of each
+// row times the four-step twiddle row T[r % n1] ((n1, n) float32 planes).
+struct RealTwiddleRows {
+  const float* x;
+  const float* tr;
+  const float* ti;
+  float* out;
+  int M;
+  int n1;
+
+  template <int L>
+  __host__ __device__ int batches() const {
+    constexpr int ROWS2 = 2 * fft_rows::Geometry<L>::ROWS;
+    return (M + ROWS2 - 1) / ROWS2;
+  }
+  template <int L>
+  __host__ __device__ static constexpr int stage_bytes() {
+    return 8 * fft_rows::Geometry<L>::POINTS;
+  }
+  // Real rows in batch b.
+  template <int L>
+  __device__ int rows_in(int b) const {
+    constexpr int ROWS2 = 2 * fft_rows::Geometry<L>::ROWS;
+    const int left = M - b * ROWS2;
+    return left < ROWS2 ? left : ROWS2;
+  }
+  template <int L>
+  __device__ void issue(unsigned char* buf, int b, uint64_t* bar) const {
+    using G = fft_rows::Geometry<L>;
+    const uint32_t bytes = 4u * rows_in<L>(b) * G::N;
+    fft_rows::mbar_expect_tx(bar, bytes);
+    fft_rows::bulk_load(buf, x + (size_t)b * 2 * G::POINTS, bytes, bar);
+  }
+  // Point i of complex row c: real rows 2c and 2c + 1 (zero past the end).
+  template <int L>
+  __device__ float2 load(const unsigned char* buf, int b, int c,
+                         int i) const {
+    using G = fft_rows::Geometry<L>;
+    const float* p = reinterpret_cast<const float*>(buf) + 2 * c * G::N + i;
+    return make_float2(p[0], 2 * c + 1 < rows_in<L>(b) ? p[G::N] : 0.f);
+  }
+  template <int L>
+  __device__ void store(const float* re, const float* im, int b) const {
+    using G = fft_rows::Geometry<L>;
+    constexpr int N = G::N;
+    const int count = rows_in<L>(b) * N;
+    const int row0 = b * 2 * G::ROWS;
+    float4* o = reinterpret_cast<float4*>(out + (size_t)b * G::POINTS * 4);
+    for (int e = 2 * threadIdx.x; e < count; e += 2 * fft_rows::THREADS) {
+      const int q = e >> L, k = e & (N - 1);
+      const int z = (q >> 1) * N;  // complex row c = q / 2
+      const size_t t = (size_t)((row0 + q) % n1) * N + k;
+      float v[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = fft_rows::pad(z + k + h);
+        const int i2 = fft_rows::pad(z + ((N - k - h) & (N - 1)));
+        const float zr = re[i], zi = im[i], nr = re[i2], ni = im[i2];
+        // X_a = (Z[k] + conj Z[n-k]) / 2, X_b = (Z[k] - conj Z[n-k]) / 2i.
+        const float xr = (q & 1) ? 0.5f * (zi + ni) : 0.5f * (zr + nr);
+        const float xi = (q & 1) ? 0.5f * (nr - zr) : 0.5f * (zi - ni);
+        const float wr = __ldg(tr + t + h), wi = __ldg(ti + t + h);
+        v[2 * h] = xr * wr - xi * wi;
+        v[2 * h + 1] = xr * wi + xi * wr;
+      }
+      o[e / 2] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -202,6 +286,20 @@ int dfft_stage(const float* x, const float* fr, const float* fi,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Kernel 5, FFT body. x: (M, n) float32, n a power of two in [8, 1024],
+// 16-byte aligned; table, schedule: ops/hopper_fft.fft_plan(n, False);
+// tr, ti: (n1, n) float32 twiddle planes; out: (M, n) complex64.
+int dfft_rdft_tw(const float* x, const float* table, const float* tr,
+                 const float* ti, float* out, int M, int n, int n1,
+                 int schedule, void* stream) {
+  if (M < 1 || n1 < 1 || !tr || !ti) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(x) || fft_rows::misaligned(out))
+    return cudaErrorMisalignedAddress;
+  const RealTwiddleRows body{x, tr, ti, out, M, n1};
+  return fft_rows::launch(n, schedule, body, table, 0,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -15,15 +15,19 @@ granularities:
   epilogue, plus the half-spectrum C2R. ``fft``/``ifft``/``rfft``/
   ``irfft`` move the axis last and dispatch as ``pallas_fft._fft_last`` /
   ``_rfft_last`` do: one direct stage up to 512 points (and for a prime
-  up to 1024), else the four-step split of ``mxu_fft._split_for``. This
-  path carries every distributed plan and every single-device cube the
-  fused path does not take.
+  up to 1024), else the four-step split of ``mxu_fft._split_for``, whose
+  real-input first stage is ``rdft_tw``. This path carries every
+  distributed plan and every single-device cube the fused path does not
+  take.
 * **fused wire** (``csrc/wire.cu``): the bf16 wire of the ring exchanges
   (``parallel/transpose.ring_transpose``) as kernels — ``enc_pack``
   encodes a travelling block, ``dec_unpack`` decodes an arrived one, and
-  ``dec_cmatmul`` decodes it straight into the first per-block DFT stage
-  (the tile loop of ``stage.cu`` with a bfloat16 A-loader). The hooks
-  ``fused_ring_hooks`` / ``decode_fft_fused`` plug them into a ring.
+  ``dec_cmatmul`` decodes it straight into the first per-block DFT. The
+  hooks ``fused_ring_hooks`` / ``decode_fft_fused`` plug them into a ring.
+* **row FFT engine** (``csrc/fft_rows.cuh``): the body of ``rdft_tw``
+  (kernel 5) and ``dec_cmatmul`` (kernel 11) on rows of a power of two in
+  [8, 1024] (``_fft_body``); other lengths take the dense tile loop of
+  ``stage.cu``. ``fft_plan`` is its host side.
 
 Each kernel has here:
 
@@ -42,7 +46,7 @@ raise ``NotImplementedError``.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,9 +67,11 @@ _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
             "dfft_x_c2c": ("fused3d", (6, 2)),
             "dfft_yz_inv": ("fused3d", (7, 3)),
             "dfft_stage": ("stage", (6, 6)),
+            "dfft_rdft_tw": ("stage", (5, 4)),
             "dfft_enc_pack": ("wire", (2, 6)),
             "dfft_dec_unpack": ("wire", (2, 1)),
-            "dfft_dec_cmatmul": ("wire", (4, 2))}
+            "dfft_dec_cmatmul": ("wire", (4, 2)),
+            "dfft_dec_fft": ("wire", (3, 4))}
 
 # Roadmap item of what the JAX package sends to the matmul backend.
 _MATMUL_ITEM = "ROADMAP Queue 1, item 3 (the mxu_fft matmul backend)"
@@ -119,6 +125,142 @@ def _twiddle(n1: int, n2: int, inverse: bool,
              device: torch.device) -> torch.Tensor:
     """The same twiddle as one complex64 tensor (the unfused branch)."""
     return torch.from_numpy(mx._twiddle_np(n1, n2, inverse, False)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# The row FFT engine of kernels 5 and 11 (csrc/fft_rows.cuh): its host side
+# ---------------------------------------------------------------------------
+
+# Row lengths the engine takes: the powers of two in [FFT_MIN, FFT_MAX].
+FFT_MIN, FFT_MAX = 8, 1024
+
+
+def _fft_body(n: int) -> str:
+    """The body kernels 5 and 11 run on rows of n points: ``"fft"`` (the
+    row FFT engine) for a power of two in [FFT_MIN, FFT_MAX], else
+    ``"tile"`` (the dense tile loop of ``stage_tile.cuh``)."""
+    return "fft" if FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0 else "tile"
+
+
+class FFTPlan(NamedTuple):
+    """What the engine runs on rows of n points.
+
+    radices: the Stockham passes in order, ceil(log2 n / 4) of them, the
+        log2 n bits split as evenly as possible, larger radices first
+        (1024 = 16 * 8 * 8, 512 = 8 * 8 * 8);
+    schedule: the radices packed as the kernel checks them, log2 of pass
+        p in bits 4p .. 4p + 3;
+    table: (2, n - radices[0]) float32 (real, imag) twiddles, built in
+        float64: for each pass p > 0 in order, with NS the product of the
+        radices before it and r its radix, a block of (r - 1) x NS entries
+        exp(-+ 2 pi i m k / (NS r)) at [m - 1, k] (sign + for the inverse),
+        so that neighbouring threads (neighbouring k) read neighbouring
+        entries."""
+    radices: Tuple[int, ...]
+    schedule: int
+    table: np.ndarray
+
+
+@functools.lru_cache(maxsize=None)
+def fft_plan(n: int, inverse: bool) -> FFTPlan:
+    if _fft_body(n) != "fft":
+        raise ValueError(f"the row FFT engine takes a power of two in "
+                         f"[{FFT_MIN}, {FFT_MAX}], not {n}")
+    bits = n.bit_length() - 1
+    passes = (bits + 3) // 4
+    radices = tuple(1 << (bits // passes + (p < bits % passes))
+                    for p in range(passes))
+    schedule = sum((r.bit_length() - 1) << (4 * p)
+                   for p, r in enumerate(radices))
+    sign = 1.0 if inverse else -1.0
+    blocks, ns = [np.zeros(0)], radices[0]
+    for r in radices[1:]:
+        mk = np.outer(np.arange(1, r), np.arange(ns))
+        blocks.append(np.exp(sign * 2j * np.pi * mk / (ns * r)).ravel())
+        ns *= r
+    w = np.concatenate(blocks)
+    table = np.ascontiguousarray(np.stack([w.real, w.imag]), np.float32)
+    return FFTPlan(radices, schedule, table)
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_table(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(fft_plan(n, inverse).table).to(device)
+
+
+# cos and sin of 2 pi m / 16 in float32: the constants of the kernel's
+# in-register radix-2 networks (``cos16`` / ``sin16`` in fft_rows.cuh).
+_C16 = np.cos(2 * np.pi * np.arange(8) / 16).astype(np.float32)
+_S16 = np.sin(2 * np.pi * np.arange(8) / 16).astype(np.float32)
+
+
+def _dft_regs_mirror(a: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The kernel's radix-r DFT along dim 1 of (M, r, B) complex64: the
+    radix-2 network on bit-reversed input (``dft_regs``)."""
+    r = a.shape[1]
+    bits = r.bit_length() - 1
+    rev = [int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+           for i in range(r)]
+    b = list(a[:, rev].unbind(1))
+    half = 1
+    while half < r:
+        for i in range(0, r, 2 * half):
+            for k in range(half):
+                m = k * (8 // half)
+                v = b[i + k + half]
+                if m:
+                    s = _S16[m] if inverse else -_S16[m]
+                    v = v * complex(_C16[m], s)
+                u = b[i + k]
+                b[i + k], b[i + k + half] = u + v, u - v
+        half *= 2
+    return torch.stack(b, 1)
+
+
+def fft_rows_mirror(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The engine's passes in plain PyTorch, from ``fft_plan``: (M, n)
+    complex -> (M, n) complex64, the unnormalized DFT of each row. Pass p
+    (radix r, NS the product of the radices before it) takes inputs
+    j + m n / r of butterfly j, twiddles input m by the table's
+    [m - 1, j mod NS], runs the radix-r DFT and writes output m to
+    (j - k) r + k + m NS, k = j mod NS. For tests: the port runs the
+    kernel, its plain version the dense product."""
+    M, n = z.shape
+    plan = fft_plan(n, inverse)
+    table = torch.from_numpy(plan.table)
+    w = torch.complex(table[0], table[1])
+    x = z.to(torch.complex64)
+    ns = 1
+    for r in plan.radices:
+        j = torch.arange(n // r)
+        m = torch.arange(r)[:, None]
+        k = j % ns
+        a = x[:, j + m * (n // r)]                         # (M, r, n / r)
+        if ns > 1:
+            t = ns - plan.radices[0] + (m[1:] - 1) * ns + k
+            a = torch.cat([a[:, :1], a[:, 1:] * w[t]], 1)
+        a = _dft_regs_mirror(a, inverse)
+        y = torch.empty_like(x)
+        y[:, (j - k) * r + k + m * ns] = a
+        x, ns = y, ns * r
+    return x
+
+
+def rdft_tw_mirror(x2: torch.Tensor, n1: int) -> torch.Tensor:
+    """Kernel 5's FFT body in plain PyTorch: real rows 2c and 2c + 1 packed
+    as one complex row (an odd last row paired with zeros), the engine, the
+    split X_a[k] = (Z[k] + conj Z[n-k]) / 2, X_b[k] = (Z[k] - conj Z[n-k])
+    / 2i, and the twiddle row T[r % n1]."""
+    M, n = x2.shape
+    x = x2.to(torch.float32)
+    if M % 2:
+        x = torch.cat([x, x.new_zeros((1, n))])
+    z = fft_rows_mirror(torch.complex(x[0::2], x[1::2]), False)
+    zn = z[:, (-torch.arange(n)) % n].conj()
+    out = torch.stack([(z + zn) / 2, (z - zn) / 2j], 1).reshape(-1, n)[:M]
+    tr, ti = _twiddle_planes(n1, n, False, x2.device)
+    rows = torch.arange(M) % n1
+    return out * torch.complex(tr[rows], ti[rows])
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +527,32 @@ def stage(x2: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
     return y
 
 
+def rdft_tw(x2: torch.Tensor, n1: int) -> torch.Tensor:
+    """Real rows to the four-step first stage: (M, n2) float32 -> (M, n2)
+    complex64, the full n2-point DFT of each row times the twiddle row
+    T[r % n1] (kernel 5, ``_rmatmul_tw_kernel``). The body is
+    ``_fft_body(n2)``: the row FFT engine for a power of two in [8, 1024],
+    else the dense tile loop of ``stage`` with the DFT planes; both count
+    as ``rmatmul_tw``."""
+    if x2.ndim != 2:
+        raise ValueError(f"rmatmul_tw: expected 2D rows, got shape "
+                         f"{tuple(x2.shape)}")
+    if n1 < 1:
+        raise ValueError(f"rmatmul_tw: n1 = {n1} < 1")
+    M, n2 = x2.shape
+    dev = x2.device
+    if dev.type == "cpu" or _fft_body(n2) == "tile":
+        return stage(x2, *_planes("dft", n2, False, dev), (n1, n2, False))
+    tr, ti = _twiddle_planes(n1, n2, False, dev)
+    _check_rows("rmatmul_tw", x2, torch.float32, tr, ti)
+    y = torch.empty((M, n2), dtype=torch.complex64, device=dev)
+    if M:
+        _require_aligned("rmatmul_tw", x2, y)
+        _launch("rmatmul_tw", "dfft_rdft_tw", x2, _fft_table(n2, False, dev),
+                tr, ti, y, M, n2, n1, fft_plan(n2, False).schedule)
+    return y
+
+
 def c2r(c2: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
     """Half-spectrum C2R on rows: (M, n//2+1) complex64 -> (M, n) float32,
     ``Re(c) @ CR - Im(c) @ CI``, unnormalized (kernel 3, ``_c2r_kernel``)."""
@@ -482,7 +650,7 @@ def _rfft_last(x: torch.Tensor) -> torch.Tensor:
     a = _swap_last(x.reshape(lead + (n2, n1)))
     if n2 <= mx.DIRECT_MAX:
         # Real-input fused stage: the full n2-point DFT plus the twiddle.
-        c = _stage(a, _planes("dft", n2, False, dev), twiddle=(n1, n2, False))
+        c = rdft_tw(a.reshape(-1, n2), n1).reshape(a.shape)
     else:
         c = _fft_last(a.to(torch.complex64), False) * _twiddle(n1, n2, False,
                                                                dev)
@@ -635,29 +803,40 @@ def dec_unpack(y: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def dec_cmatmul(y2: torch.Tensor, fr: torch.Tensor,
-                fi: torch.Tensor) -> torch.Tensor:
-    """(2, M, n) bfloat16 planes and (n, n) float32 DFT planes -> (M, n)
-    complex64 ``decode(y2) @ F`` (kernel 11, ``_dec_cmatmul_kernel``): the
-    planes widen to float32 as they are loaded, so the decoded block never
-    reaches device memory."""
+def _require_aligned(name: str, *ts: torch.Tensor) -> None:
+    """The FFT body moves rows with bulk copies: 16-byte aligned operands."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operand at {t.data_ptr():#x} is not "
+                             f"16-byte aligned (the bulk copies need it)")
+
+
+def dec_cmatmul(y2: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """(2, M, n) bfloat16 planes -> (M, n) complex64, the unnormalized DFT
+    (inverse DFT) of each decoded row (kernel 11, ``_dec_cmatmul_kernel``).
+    The planes widen to float32 as they are loaded, so the decoded block
+    never reaches device memory. The body is ``_fft_body(n)``: the row FFT
+    engine for a power of two in [8, 1024], else the dense tile loop with
+    the DFT planes; both count as ``dec_cmatmul``."""
     cpu = _check_wire("dec_cmatmul", y2, torch.bfloat16)
     _planes_of("dec_cmatmul", y2)
-    if y2.ndim != 3 or fr.shape != fi.shape or fr.ndim != 2 \
-            or fr.shape != (y2.shape[2], y2.shape[2]):
-        raise ValueError(f"dec_cmatmul: planes {tuple(y2.shape)} do not fit "
-                         f"F {tuple(fr.shape)}, {tuple(fi.shape)}")
-    for t in (fr, fi):
-        if t.dtype != torch.float32 or t.device != y2.device \
-                or not t.is_contiguous():
-            raise ValueError("dec_cmatmul: F must be contiguous float32 "
-                             "planes on the planes' device")
-    if cpu:
-        return dec_cmatmul_plain(y2, fr, fi)
+    if y2.ndim != 3 or y2.shape[2] < 1:
+        raise ValueError(f"dec_cmatmul: expected (2, M, n) planes, got shape "
+                         f"{tuple(y2.shape)}")
     _, M, n = y2.shape
-    out = torch.empty((M, n), dtype=torch.complex64, device=y2.device)
-    if M:
-        _launch("dec_cmatmul", "dfft_dec_cmatmul", y2, fr, fi, out, M, n)
+    dev = y2.device
+    if cpu:
+        return dec_cmatmul_plain(y2, *_planes("dft", n, inverse, dev))
+    out = torch.empty((M, n), dtype=torch.complex64, device=dev)
+    if not M:
+        return out
+    if _fft_body(n) == "fft":
+        _require_aligned("dec_cmatmul", y2, out)
+        _launch("dec_cmatmul", "dfft_dec_fft", y2, _fft_table(n, inverse, dev),
+                out, M, n, fft_plan(n, inverse).schedule, int(inverse))
+    else:
+        _launch("dec_cmatmul", "dfft_dec_cmatmul", y2,
+                *_planes("dft", n, inverse, dev), out, M, n)
     return out
 
 
@@ -707,8 +886,7 @@ def decode_fft_fused(y: torch.Tensor, dtype: torch.dtype, axis: int,
             f"({_MATMUL_ITEM})")
     planes = y.movedim(1 + axis, -1).contiguous()
     shape = planes.shape[1:]
-    out = dec_cmatmul(planes.reshape(2, -1, n),
-                      *_planes("dft", n, inverse, y.device))
+    out = dec_cmatmul(planes.reshape(2, -1, n), inverse)
     scale = mx._inv_scale(n, norm) if inverse else mx._fwd_scale(n, norm)
     return mx._scaled(out.reshape(shape), scale).movedim(-1, axis)
 

@@ -132,19 +132,27 @@ def test_c2r_kernel(cuda, M, n):
     assert _rel(y, hf.c2r_plain(c, *C)) <= 5e-4
 
 
-@pytest.mark.parametrize("n1, n2, lines", [(2, 512, 3), (2, 320, 33),
-                                          (5, 206, 7), (4, 512, 2),
-                                          (8, 16, 5), (3, 171, 9)])
+# Kernel 5's two bodies (hf._fft_body): the row FFT engine for a
+# power-of-two n2 in [8, 1024] (M = 1, odd M, and M above one persistent
+# wave of the grid), else the tile loop (320, 206, 171).
+TWIDDLE_ROWS = [(2, 512, 3), (2, 320, 33), (5, 206, 7), (4, 512, 2),
+                (8, 16, 5), (3, 171, 9), (1, 1024, 1), (3, 64, 5),
+                (2, 512, 2000), (2, 8, 110001), (4, 32, 33), (2, 128, 17),
+                (8, 256, 3)]
+
+
+@pytest.mark.parametrize("n1, n2, lines", TWIDDLE_ROWS)
 @pytest.mark.parametrize("real", [False, True])
 def test_twiddle_kernels(cuda, n1, n2, lines, real):
-    """Kernels 4 and 5: rows cycle through n1 (M = lines * n1)."""
+    """Kernels 4 and 5: rows cycle through n1 (M = lines * n1). Kernel 5
+    takes no F: ``rdft_tw`` picks its body by n2."""
     M = lines * n1
     x = _randn((M, n2), 13, cuda) if real else _crandn((M, n2), 13, cuda)
     F = hf._planes("dft", n2, not real, cuda)
     tw = (n1, n2, not real)
     name = "rmatmul_tw" if real else "cmatmul_tw"
     before = hf.LAUNCHES[name]
-    y = hf.stage(x, *F, tw)
+    y = hf.rdft_tw(x, n1) if real else hf.stage(x, *F, tw)
     torch.cuda.synchronize()
     assert hf.LAUNCHES[name] == before + 1
     ref = hf.stage_plain(x, *F, *hf._twiddle_planes(*tw, cuda))
@@ -215,16 +223,36 @@ def test_dec_unpack_kernel_bit_equal(cuda, shape):
                        torch.view_as_real(want).view(torch.int32))
 
 
-@pytest.mark.parametrize("M, n", ROWS)
+# Kernel 11's FFT body (powers of two in [8, 1024]: M = 1, odd M, and M
+# above one persistent wave of the grid) beside the tile body of ROWS.
+FFT_ROWS = [(1, 1024), (1, 8), (33, 32), (257, 64), (3, 128), (1000, 256),
+            (40001, 1024), (200001, 8), (5, 16), (99, 512)]
+
+
+@pytest.mark.parametrize("M, n", ROWS + FFT_ROWS)
 @pytest.mark.parametrize("inverse", [False, True])
 def test_dec_cmatmul_kernel(cuda, M, n, inverse):
     y = hf.enc_pack_plain(_crandn((M, n), 21, cuda))
     F = hf._planes("dft", n, inverse, cuda)
     before = hf.LAUNCHES["dec_cmatmul"]
-    got = hf.dec_cmatmul(y, *F)
+    got = hf.dec_cmatmul(y, inverse)
     torch.cuda.synchronize()
     assert hf.LAUNCHES["dec_cmatmul"] == before + 1
     assert _rel(got, hf.dec_cmatmul_plain(y, *F)) <= 5e-4
+
+
+def test_fft_body_rejects_misaligned_views(cuda):
+    """The FFT body's bulk copies need 16-byte aligned rows: a contiguous
+    view that starts one element in raises instead of launching."""
+    M, n = 4, 64
+    raw = torch.zeros(2 * M * n + 1, dtype=torch.bfloat16, device=cuda)
+    before = dict(hf.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hf.dec_cmatmul(raw[1:].view(2, M, n), False)
+    real = torch.zeros(M * n + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hf.rdft_tw(real[1:].view(M, n), 2)
+    assert hf.LAUNCHES == before
 
 
 @pytest.mark.parametrize("axis", [0, 1, 2])
@@ -239,7 +267,6 @@ def test_decode_fft_fused_matches_torch_fft(cuda, axis):
 
 def test_wire_kernels_reject_bad_operands(cuda):
     y = hf.enc_pack_plain(_crandn((4, 8), 25, cuda))
-    F = hf._planes("dft", 8, False, cuda)
     with pytest.raises(TypeError):
         hf.enc_pack(_randn((4, 8), 1, cuda))                 # not complex
     with pytest.raises(TypeError):
@@ -247,11 +274,11 @@ def test_wire_kernels_reject_bad_operands(cuda):
     with pytest.raises(ValueError):
         hf.dec_unpack(y[:1])                                 # not 2 planes
     with pytest.raises(ValueError):
-        hf.dec_cmatmul(y, *hf._planes("dft", 8, False, torch.device("cpu")))
+        hf.dec_cmatmul(y[0], False)                          # not 2 planes
     with pytest.raises(ValueError):
-        hf.dec_cmatmul(y, *hf._planes("dft", 4, False, cuda))
+        hf.dec_cmatmul(y.reshape(2, 32), False)              # not (2, M, n)
     with pytest.raises(ValueError):
-        hf.dec_cmatmul(y.transpose(1, 2), *F)                # not contiguous
+        hf.dec_cmatmul(y.transpose(1, 2), False)             # not contiguous
 
 
 def test_failed_build_raises(cuda, tmp_path, monkeypatch):

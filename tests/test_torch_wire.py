@@ -118,8 +118,7 @@ def test_decode_dft_kernel11_plain_matches_jax(axis, inverse, norm):
 def test_kernel11_plain_is_decode_then_dense_dft():
     planes = torch.from_numpy(_f32(jtr.wire_encode(
         jnp.asarray(_complex_block(5, (7, 6))), "bf16"))).to(torch.bfloat16)
-    fr, fi = hf._planes("dft", 6, False, torch.device("cpu"))
-    got = hf.dec_cmatmul(planes, fr, fi)
+    got = hf.dec_cmatmul(planes, False)
     want = np.fft.fft(hf.dec_unpack_plain(planes).numpy().astype(np.complex128),
                       axis=-1)
     assert np.max(np.abs(got.numpy() - want)) / np.max(np.abs(want)) <= 1e-5
@@ -127,7 +126,6 @@ def test_kernel11_plain_is_decode_then_dense_dft():
 
 def test_wire_wrappers_reject_what_the_kernels_do_not_take():
     planes = torch.zeros((2, 4, 6), dtype=torch.bfloat16)
-    f = torch.zeros((6, 6))
     with pytest.raises(TypeError):
         hf.enc_pack(torch.zeros(4, 6))                       # not complex
     with pytest.raises(ValueError):
@@ -137,9 +135,9 @@ def test_wire_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         hf.dec_unpack(torch.zeros((3, 4), dtype=torch.bfloat16))
     with pytest.raises(ValueError):
-        hf.dec_cmatmul(planes, torch.zeros((5, 5)), torch.zeros((5, 5)))
+        hf.dec_cmatmul(planes.reshape(2, 24), False)         # not (2, M, n)
     with pytest.raises(ValueError):
-        hf.dec_cmatmul(planes, f.double(), f.double())
+        hf.dec_cmatmul(planes[:, :, :0], False)              # n = 0
     with pytest.raises(ValueError):
         hf.dec_unpack(planes.transpose(1, 2))                # not contiguous
 
