@@ -12,11 +12,14 @@ once, before any rank is spawned) and then, under
    shapes: the fused kernels 6-8 at 512^3, the per-axis kernels 1-5 at the
    shapes of the 512^3 two-rank plan and of the 1024^3 four-step, the
    fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan over
-   four ranks (9 and 10 bit for bit, NaN and Inf included);
+   four ranks (9 and 10 bit for bit, NaN and Inf included); kernels 4, 5,
+   6 and 11 also on their other body (dense or tile) at a shape whose
+   axes are not powers of two;
 2. runs a small cube against numpy, then the single-card slab plan at
    512^3 (fused kernels) and at 1024^3 (per-axis four-step kernels):
    ``exec_r2c`` then ``exec_c2r``, checked against ``torch.fft`` and the
-   input, with the launch counts of every kernel;
+   input, with the launch counts of every kernel and the entry point (the
+   body) of every launch;
 3. runs the distributed slab plan at 512^3 as two ranks sharing the card
    over a gloo group (``torch.multiprocessing.spawn``; gloo stages the
    exchange through the host): the all-to-all, then the ring renderings
@@ -112,18 +115,23 @@ def bound(flops: float, nbytes: float):
                                        else "bytes")
 
 
-# Kernels whose body is a pure function of the row length
-# (hopper_fft._fft_body): the row FFT engine or the dense tile loop.
-ROUTED = ("rmatmul_tw", "dec_cmatmul")
+# Kernels whose body is a pure function of their shape: the row FFT engine
+# or the dense tile loop (hopper_fft._fft_body of the row length), or, for
+# kernel 6, the engine or the dense kernel (hopper_fft._zy_body(Y, Z)).
+ROUTED = ("rmatmul_tw", "dec_cmatmul", "cmatmul_tw", "zy_fwd")
 
 
 def body_of(hf, k) -> str:
-    """The body a kernel row runs: _fft_body of its row length for the
-    routed kernels 5 and 11 ("fft" at the main paths' shapes, "tile" for
-    the variants), else the one body the kernel has."""
+    """The body a kernel row runs: for the routed kernels 4, 5, 6 and 11
+    the body of its shape ("fft" at the main paths' shapes, "tile" or
+    "dense" for the variants), else the one body the kernel has."""
     if k["name"] in ROUTED:
-        body = hf._fft_body(k["shape"]["n"])
-        if body != ("tile" if k.get("variant") else "fft"):
+        sh = k["shape"]
+        if k["name"] == "zy_fwd":
+            body, other = hf._zy_body(sh["Y"], sh["Z"]), "dense"
+        else:
+            body, other = hf._fft_body(sh["n"]), "tile"
+        if body != (other if k.get("variant") else "fft"):
             fail(f"kernel {k['name']} {k['shape']} routes to the {body} body")
         return body
     if k["name"] in ("enc_pack", "dec_unpack"):
@@ -139,9 +147,9 @@ def expect(hf, **counts):
 @contextlib.contextmanager
 def kernel_events(torch, hf):
     """Record a CUDA event pair around every kernel launch; yields a list
-    of (kernel name, start, end), the name being the counter the wrapper
-    passes to ``_launch``. Measurement only: the port is unchanged and the
-    counts still rise in ``_launch``."""
+    of (kernel name, C entry point, start, end), the name being the counter
+    the wrapper passes to ``_launch``. Measurement only: the port is
+    unchanged and the counts still rise in ``_launch``."""
     orig, log = hf._launch, []
 
     def launch(kernel, fn, *args):
@@ -150,7 +158,7 @@ def kernel_events(torch, hf):
         start.record()
         orig(kernel, fn, *args)
         end.record()
-        log.append((kernel, start, end))
+        log.append((kernel, fn, start, end))
 
     hf._launch = launch
     try:
@@ -159,8 +167,27 @@ def kernel_events(torch, hf):
         hf._launch = orig
 
 
-def kernel_share(torch, hf, fn):
-    """Run fn once with kernel events: (total ms, {kernel: ms summed})."""
+@contextlib.contextmanager
+def entry_counts(hf):
+    """Count the launches of each C entry point (so the body each kernel
+    ran) while the block runs; yields the dict. Measurement only: the
+    counts in ``LAUNCHES`` still rise in ``_launch``."""
+    orig, seen = hf._launch, {}
+
+    def launch(kernel, fn, *args):
+        orig(kernel, fn, *args)
+        seen[fn] = seen.get(fn, 0) + 1
+
+    hf._launch = launch
+    try:
+        yield seen
+    finally:
+        hf._launch = orig
+
+
+def kernel_share(torch, hf, fn, by_entry=False):
+    """Run fn once with kernel events: (total ms, {kernel: ms summed}), or
+    {C entry point: ms summed} with ``by_entry``."""
     torch.cuda.synchronize()
     with kernel_events(torch, hf) as log:
         start = torch.cuda.Event(enable_timing=True)
@@ -170,9 +197,18 @@ def kernel_share(torch, hf, fn):
         end.record()
         end.synchronize()
     per = {}
-    for name, s, e in log:
-        per[name] = per.get(name, 0.0) + s.elapsed_time(e)
+    for name, entry, s, e in log:
+        key = entry if by_entry else name
+        per[key] = per.get(key, 0.0) + s.elapsed_time(e)
     return start.elapsed_time(end), per
+
+
+def entry_ms(torch, hf, fn, reps: int = REPS):
+    """Median over ``reps`` runs of fn of each C entry point's device ms
+    (the passes of a kernel with more than one launch), after one run."""
+    fn()
+    runs = [kernel_share(torch, hf, fn, by_entry=True)[1] for _ in range(reps)]
+    return {e: statistics.median(r[e] for r in runs) for e in runs[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -403,6 +439,7 @@ def stage_cases(torch, hf, dev, gen):
     big_rtw = NBIG * NBIG * 2                 # 1024^3 z first stage rows
     big_n2 = NBIG * NBIG * NBIG // 2          # 1024^3 z second stage rows
     rows_640 = 640 * 640 * 2                  # 640^3 z first stage rows
+    rows_640c = 640 * 321 * 2                 # 640^3 y/x first stage rows
     k_r = N // 2 + 1
     return [
         dict(name="rmatmul", replaces=f"{PALLAS}:182",
@@ -440,19 +477,37 @@ def stage_cases(torch, hf, dev, gen):
              flops=fft_flops(rows_r, N, real=True),
              gemm_flops=4 * rows_r * k_r * N,
              bytes=8 * rows_r * k_r + 4 * rows_r * N + 8 * k_r * N),
+        # Kernel 4 takes no F: cdft_tw picks its body by n2 (the FFT body
+        # at 512, the tile body at 320, the 640-point axis's 2 x 320).
+        # "rows": torch.fft.fft of the same rows, the stage without its
+        # twiddle, the nearer yardstick beside the whole axis.
         dict(name="cmatmul_tw", replaces=f"{PALLAS}:171",
              shape=dict(M=big_tw, n=N, k=N, n1=2),
              make=lambda: dict(x=cr(big_tw, N), F=planes("dft", N),
                                T=hf._twiddle_planes(2, N, False, dev),
                                z=cr(big_tw // 2, NBIG)),
-             run=lambda t: hf.stage(t["x"], *t["F"], (2, N, False)),
+             run=lambda t: hf.cdft_tw(t["x"], 2, False),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
              pair=lambda t: hf._fft_last(t["z"], False),
+             rows=lambda t: torch.fft.fft(t["x"]),
              library=lambda t: torch.fft.fft(t["z"]),
              library_call="fft of the whole 1024-point axis",
              flops=fft_flops(big_tw, N) + 6 * big_tw * N,
              gemm_flops=8 * big_tw * N * N,
-             bytes=16 * big_tw * N + 8 * N * N + 16 * N),
+             bytes=16 * big_tw * N + 8 * 2 * N),
+        dict(name="cmatmul_tw", variant="tile_n2_320", replaces=f"{PALLAS}:171",
+             shape=dict(M=rows_640c, n=320, k=320, n1=2),
+             make=lambda: dict(x=cr(rows_640c, 320), F=planes("dft", 320),
+                               T=hf._twiddle_planes(2, 320, False, dev),
+                               z=cr(rows_640c // 2, 640)),
+             run=lambda t: hf.cdft_tw(t["x"], 2, False),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
+             rows=lambda t: torch.fft.fft(t["x"]),
+             library=lambda t: torch.fft.fft(t["z"]),
+             library_call="fft of the whole 640-point axis",
+             flops=fft_flops(rows_640c, 320) + 6 * rows_640c * 320,
+             gemm_flops=8 * rows_640c * 320 * 320,
+             bytes=16 * rows_640c * 320 + 8 * 320 * 320 + 8 * 2 * 320),
         # Kernel 5 takes no F: rdft_tw picks its body by n2 (the FFT body
         # at 512, the tile body at 320, the 640-point axis's 2 x 320).
         dict(name="rmatmul_tw", replaces=f"{PALLAS}:188",
@@ -608,6 +663,7 @@ def main() -> int:
                            dtype=torch.float32)
 
     x = randn(N, N, N)
+    x480 = randn(N, 480, 480)     # kernel 6's dense body (not powers of two)
     pr, pi = randn(N, N, Zo), randn(N, N, Zo)
     fzr, fzi = hf._planes("rdft", N, False, dev)
     fyr, fyi = hf._planes("dft", N, False, dev)
@@ -616,15 +672,29 @@ def main() -> int:
     cr, ci = hf._planes("c2r", N, False, dev)
     pc = torch.complex(pr, pi)
     X = Y = Z = N
+    f480 = (hf._planes("rdft", 480, False, dev) + hf._planes("dft", 480, False,
+                                                             dev))
+    Z4 = 480 // 2 + 1
     fused = [
         dict(name="zy_fwd", replaces=f"{PALLAS}:427",
+             shape=dict(X=X, Y=Y, Z=Z),
              run=lambda: hf.zy_fwd(x),
              plain=lambda: hf.zy_fwd_plain(x, fzr, fzi, fyr, fyi),
              library=lambda: torch.fft.rfft2(x), library_call="rfft2",
              flops=fft_flops(X * Y, Z, real=True) + fft_flops(X * Zo, Y),
              gemm_flops=4 * X * Y * Z * Zo + 8 * X * Y * Y * Zo,
-             bytes=4 * (X * Y * Z + 2 * Z * Zo + 2 * Y * Y + 2 * X * Y * Zo)),
+             bytes=4 * (X * Y * Z + 2 * X * Y * Zo)),
+        dict(name="zy_fwd", variant="dense_480", replaces=f"{PALLAS}:427",
+             shape=dict(X=X, Y=480, Z=480),
+             run=lambda: hf.zy_fwd(x480),
+             plain=lambda: hf.zy_fwd_plain(x480, *f480),
+             library=lambda: torch.fft.rfft2(x480), library_call="rfft2",
+             flops=fft_flops(X * 480, 480, real=True) + fft_flops(X * Z4, 480),
+             gemm_flops=4 * X * 480 * 480 * Z4 + 8 * X * 480 * 480 * Z4,
+             bytes=4 * (X * 480 * 480 + 2 * 480 * Z4 + 2 * 480 * 480
+                        + 2 * X * 480 * Z4)),
         dict(name="x_c2c", replaces=f"{PALLAS}:443",
+             shape=dict(X=X, Y=Y, Zo=Zo),
              run=lambda: hf.x_c2c(pr, pi, inverse=True),
              plain=lambda: hf.x_c2c_plain(pr, pi, fxr, fxi),
              library=lambda: torch.fft.ifft(pc, dim=0, norm="forward"),
@@ -632,6 +702,7 @@ def main() -> int:
              flops=fft_flops(Y * Zo, X), gemm_flops=8 * X * X * Y * Zo,
              bytes=4 * (4 * X * Y * Zo + 2 * X * X)),
         dict(name="yz_inv", replaces=f"{PALLAS}:452",
+             shape=dict(X=X, Y=Y, Z=Z),
              run=lambda: hf.yz_inv(pr, pi, Z),
              plain=lambda: hf.yz_inv_plain(pr, pi, fyir, fyii, cr, ci),
              library=lambda: torch.fft.irfft2(pc, s=(Y, Z), norm="forward"),
@@ -650,12 +721,12 @@ def main() -> int:
         errs = [rel_err(g, r) for g, r in zip(got, ref)]
         k["max_abs_err"] = max(e[0] for e in errs)
         k["max_rel_err"] = max(e[1] for e in errs)
-        emit(phase="kernel_check", name=k["name"],
-             max_abs_err=k["max_abs_err"], max_rel_err=k["max_rel_err"],
-             tol=TOL)
+        emit(phase="kernel_check", name=k["name"], variant=k.get("variant"),
+             body=k["body"], shape=k["shape"], max_abs_err=k["max_abs_err"],
+             max_rel_err=k["max_rel_err"], tol=TOL)
         if not k["max_rel_err"] <= TOL:
-            fail(f"kernel {k['name']} disagrees with its plain version: "
-                 f"rel {k['max_rel_err']:.3e} > {TOL}")
+            fail(f"kernel {k['name']} {k['shape']} disagrees with its plain "
+                 f"version: rel {k['max_rel_err']:.3e} > {TOL}")
         del got, ref
 
     # -- 4. the 512^3 fused plan and a small cube against numpy --------------
@@ -672,20 +743,27 @@ def main() -> int:
 
     plan = dft.SlabFFTPlan(dft.GlobalSize(N, N, N), dft.SlabPartition(1),
                            pallas)
-    hf.reset_launches()
-    c = plan.exec_r2c(x)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launches()
+    with entry_counts(hf) as entries:
+        c = plan.exec_r2c(x)
+        torch.cuda.synchronize()
     fwd = dict(hf.LAUNCHES)
     back = plan.exec_c2r(c)
     torch.cuda.synchronize()
     launches = {"fused_512": dict(hf.LAUNCHES)}
     inv = {k: launches["fused_512"][k] - fwd[k] for k in fwd}
     emit(phase="main_path", path="fused_512", launches_forward=fwd,
-         launches_inverse=inv)
-    if fwd != expect(hf, zy_fwd=1, x_c2c=1) or \
-            inv != expect(hf, x_c2c=1, yz_inv=1):
+         launches_inverse=inv, entries_forward=entries,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # Kernel 6 on its FFT body: passes A, B and C, the dense kernel never.
+    if fwd != expect(hf, zy_fwd=3, x_c2c=1) or \
+            inv != expect(hf, x_c2c=1, yz_inv=1) or \
+            entries != {"dfft_zy_rows": 1, "dfft_zy_cols": 1,
+                        "dfft_zy_planes": 1, "dfft_x_c2c": 1}:
         fail(f"main path did not launch each kernel as expected: forward "
-             f"{fwd}, inverse {inv}")
+             f"{fwd} (entries {entries}), inverse {inv}")
     if tuple(c.shape) != (N, N, Zo) or c.dtype != torch.complex64 or \
             tuple(back.shape) != (N, N, N) or back.dtype != torch.float32:
         fail(f"unexpected outputs {tuple(c.shape)} {c.dtype}, "
@@ -707,9 +785,12 @@ def main() -> int:
         k["plain_ms"] = median_ms(torch, k["plain"])
         k["library_ms"] = median_ms(torch, k["library"])
         k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
-        emit(phase="kernel_time", name=k["name"], kernel_ms=k["kernel_ms"],
-             plain_ms=k["plain_ms"], library_ms=k["library_ms"],
-             bound_ms=k["bound_ms"])
+        if k["body"] == "fft":   # kernel 6: its three passes apart
+            k["pass_ms"] = entry_ms(torch, hf, k["run"])
+        emit(phase="kernel_time", name=k["name"], variant=k.get("variant"),
+             kernel_ms=k["kernel_ms"], plain_ms=k["plain_ms"],
+             library_ms=k["library_ms"], bound_ms=k["bound_ms"],
+             bound_by=k["bound_by"], pass_ms=k.get("pass_ms"))
     xla = dft.SlabFFTPlan(dft.GlobalSize(N, N, N), dft.SlabPartition(1),
                           dft.Config())
     cp, cx = plan.exec_r2c(x), xla.exec_r2c(x)
@@ -718,7 +799,7 @@ def main() -> int:
          pallas_inverse_ms=median_ms(torch, lambda: plan.exec_c2r(cp)),
          xla_forward_ms=median_ms(torch, lambda: xla.exec_r2c(x)),
          xla_inverse_ms=median_ms(torch, lambda: xla.exec_c2r(cx)))
-    del x, pr, pi, pc, cp, cx, plan, xla
+    del x, x480, pr, pi, pc, cp, cx, plan, xla
     torch.cuda.empty_cache()
 
     # -- 6. per-axis kernels 1-5: check against plain, then time -------------
@@ -742,12 +823,15 @@ def main() -> int:
         k["library_ms"] = median_ms(torch, lambda: k["library"](t))
         if "pair" in k:
             k["pair_ms"] = median_ms(torch, lambda: k["pair"](t))
+        if "rows" in k:
+            k["library_rows_ms"] = median_ms(torch, lambda: k["rows"](t))
         k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
         emit(phase="kernel_time", name=k["name"], variant=k.get("variant"),
              kernel_ms=k["kernel_ms"], plain_ms=k["plain_ms"],
              library_ms=k["library_ms"], library_call=k["library_call"],
-             pair_ms=k.get("pair_ms"), bound_ms=k["bound_ms"],
-             bound_by=k["bound_by"])
+             pair_ms=k.get("pair_ms"),
+             library_rows_ms=k.get("library_rows_ms"),
+             bound_ms=k["bound_ms"], bound_by=k["bound_by"])
         del t
         torch.cuda.empty_cache()
 
@@ -783,21 +867,29 @@ def main() -> int:
     big = dft.SlabFFTPlan(dft.GlobalSize(NBIG, NBIG, NBIG),
                           dft.SlabPartition(1), pallas)
     hf.reset_launches()
-    cb = big.exec_r2c(xb)
-    torch.cuda.synchronize()
+    with entry_counts(hf) as ent_f:
+        cb = big.exec_r2c(xb)
+        torch.cuda.synchronize()
     fwd = dict(hf.LAUNCHES)
     hf.reset_launches()
-    bb = big.exec_c2r(cb)
-    torch.cuda.synchronize()
+    with entry_counts(hf) as ent_i:
+        bb = big.exec_c2r(cb)
+        torch.cuda.synchronize()
     inv = dict(hf.LAUNCHES)
     launches["per_axis_1024"] = {k: fwd[k] + inv[k] for k in fwd}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit(phase="main_path", path="per_axis_1024", launches_forward=fwd,
-         launches_inverse=inv, peak_memory_gb=peak_gb)
+         launches_inverse=inv, entries_forward=ent_f, entries_inverse=ent_i,
+         peak_memory_gb=peak_gb)
+    # Kernels 4 and 5 on their FFT bodies (dfft_cdft_tw, dfft_rdft_tw);
+    # the 2-point second stage on dfft_stage's row path.
     if fwd != expect(hf, rmatmul_tw=1, cmatmul_tw=2, cmatmul=3) or \
-            inv != expect(hf, cmatmul_tw=3, cmatmul=3):
+            inv != expect(hf, cmatmul_tw=3, cmatmul=3) or \
+            ent_f != {"dfft_rdft_tw": 1, "dfft_cdft_tw": 2, "dfft_stage": 3} \
+            or ent_i != {"dfft_cdft_tw": 3, "dfft_stage": 3}:
         fail(f"1024^3 plan did not launch the four-step kernels as "
-             f"expected: forward {fwd}, inverse {inv}")
+             f"expected: forward {fwd} (entries {ent_f}), inverse {inv} "
+             f"(entries {ent_i})")
     if tuple(cb.shape) != (NBIG, NBIG, NBIG // 2 + 1) or \
             tuple(bb.shape) != (NBIG,) * 3:
         fail(f"unexpected 1024^3 outputs {tuple(cb.shape)}, {tuple(bb.shape)}")
@@ -883,7 +975,8 @@ def main() -> int:
         return sum(v.get(name, 0) for v in launches.values())
 
     rows = []
-    for k in fused + [k for k in staged + wired if "variant" not in k]:
+    every = fused + staged + wired
+    for k in [k for k in every if "variant" not in k]:
         row = {"name": k["name"], "route": "cuda", "source": k["source"],
                "replaces": k["replaces"], "body": k["body"],
                "launches": total_launches(k["name"]),
@@ -897,16 +990,18 @@ def main() -> int:
                "library_call": k["library_call"], "flops": k["flops"],
                "gemm_flops": k["gemm_flops"], "bytes": k["bytes"],
                "shape": k.get("shape")}
-        if "pair_ms" in k:
-            row["pair_ms"] = k["pair_ms"]
-        for v in staged + wired:
+        for f in ("pair_ms", "library_rows_ms", "pass_ms"):
+            if f in k:
+                row[f] = k[f]
+        for v in every:
             if v.get("variant") and v["name"] == k["name"]:
                 row[v["variant"]] = {
                     f: v[f] for f in ("body", "shape", "max_abs_err",
                                       "max_rel_err", "kernel_ms", "plain_ms",
                                       "library_ms", "library_call",
-                                      "bound_ms", "bound_by", "flops",
-                                      "gemm_flops", "bytes")}
+                                      "library_rows_ms", "bound_ms",
+                                      "bound_by", "flops", "gemm_flops",
+                                      "bytes") if f in v}
         rows.append(row)
     if any(r["launches"] < 1 for r in rows):
         fail(f"a kernel never launched on the main paths: {launches}")
@@ -915,7 +1010,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

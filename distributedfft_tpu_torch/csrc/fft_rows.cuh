@@ -1,11 +1,13 @@
-// The row FFT engine for Hopper (sm_90a), shared by wire.cu (kernel 11) and
-// stage.cu (kernel 5): the DFT of every row of a batch of power-of-two rows,
-// 8 <= n <= 1024, in shared memory and registers.
+// The row FFT engine for Hopper (sm_90a), shared by wire.cu (kernel 11),
+// stage.cu (kernels 4 and 5) and fused3d.cu (kernel 6): the DFT of every
+// row of a batch of power-of-two rows, 8 <= n <= 1024, in shared memory and
+// registers.
 //
-// It replaces the dense DFT product of two Pallas TPU kernels of
+// It replaces the dense DFT product of four Pallas TPU kernels of
 // distributedfft_tpu/ops/pallas_fft.py (_dec_cmatmul_kernel :737, kernel
-// 11, and _rmatmul_tw_kernel :188, kernel 5). The TPU had only a matrix
-// unit, so there a row DFT is a product with the (n, n) DFT matrix:
+// 11, _cmatmul_tw_kernel :171, kernel 4, _rmatmul_tw_kernel :188, kernel 5,
+// and _zy_fwd_kernel :427, kernel 6, as two passes). The TPU had only a
+// matrix unit, so there a row DFT is a product with the (n, n) DFT matrix:
 // n / (5 log2 n) times an FFT's arithmetic (20x at n = 1024). Here the
 // function is bound by bytes: an FFT costs 5 n log2 n flop per row, 50 flop
 // per point at n = 1024, against 12 bytes per point moved (kernel 11: 4 in
@@ -393,6 +395,75 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
     default: return cudaErrorInvalidValue;
   }
 }
+
+// ---------------------------------------------------------------------------
+// A Body on complex rows, shared by stage.cu (kernel 4, TW) and fused3d.cu
+// (kernel 6's y pass, no twiddle): (M, n) interleaved complex64 in and out,
+// the n-point DFT of each row, times the four-step twiddle row T[r % n1]
+// ((n1, n) float32 planes) when TW. out may be x: each batch's rows are
+// read whole (its bulk copy has landed) before they are written, and no
+// other batch reads them.
+// ---------------------------------------------------------------------------
+template <bool TW>
+struct ComplexTwiddleRows {
+  const float* x;
+  const float* tr;
+  const float* ti;
+  float* out;
+  int M;
+  int n1;
+
+  template <int L>
+  __host__ __device__ int batches() const {
+    constexpr int ROWS = Geometry<L>::ROWS;
+    return (M + ROWS - 1) / ROWS;
+  }
+  template <int L>
+  __host__ __device__ static constexpr int stage_bytes() {
+    return 8 * Geometry<L>::POINTS;
+  }
+  template <int L>
+  __device__ int rows_in(int b) const {
+    constexpr int ROWS = Geometry<L>::ROWS;
+    const int left = M - b * ROWS;
+    return left < ROWS ? left : ROWS;
+  }
+  template <int L>
+  __device__ void issue(unsigned char* buf, int b, uint64_t* bar) const {
+    using G = Geometry<L>;
+    const uint32_t bytes = 8u * rows_in<L>(b) * G::N;
+    mbar_expect_tx(bar, bytes);
+    bulk_load(buf, x + (size_t)b * 2 * G::POINTS, bytes, bar);
+  }
+  template <int L>
+  __device__ float2 load(const unsigned char* buf, int, int row,
+                         int i) const {
+    return reinterpret_cast<const float2*>(buf)[row * Geometry<L>::N + i];
+  }
+  template <int L>
+  __device__ void store(const float* re, const float* im, int b) const {
+    using G = Geometry<L>;
+    constexpr int N = G::N;
+    const int count = rows_in<L>(b) * N;
+    const int row0 = b * G::ROWS;
+    float4* o = reinterpret_cast<float4*>(out + (size_t)b * G::POINTS * 2);
+    for (int e = 2 * threadIdx.x; e < count; e += 2 * THREADS) {
+      const int i = pad(e);  // e even: e + 1 pads to i + 1
+      float v[4] = {re[i], im[i], re[i + 1], im[i + 1]};
+      if constexpr (TW) {
+        const size_t t = (size_t)((row0 + (e >> L)) % n1) * N + (e & (N - 1));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float wr = __ldg(tr + t + h), wi = __ldg(ti + t + h);
+          const float xr = v[2 * h], xi = v[2 * h + 1];
+          v[2 * h] = xr * wr - xi * wi;
+          v[2 * h + 1] = xr * wi + xi * wr;
+        }
+      }
+      o[e / 2] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+};
 
 inline bool misaligned(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) != 0;

@@ -8,7 +8,12 @@
 // Three kernels, each replacing one Pallas TPU kernel of
 // distributedfft_tpu/ops/pallas_fft.py:
 //
-//   zy_fwd_kernel  <- _zy_fwd_kernel  (z-R2C, then y-C2C, per x-row)
+//   zy_fwd_kernel  <- _zy_fwd_kernel  (z-R2C, then y-C2C, per x-row; the
+//                                      dense body, for Y or Z not a power
+//                                      of two in [8, 512])
+//   fft_rows_kernel<L, ZRows>, fft_rows_kernel<L, ComplexTwiddleRows<false>>
+//   then zy_planes_kernel
+//                  <- _zy_fwd_kernel  (the FFT body: three launches)
 //   x_c2c_kernel   <- _x_c2c_kernel   (C2C along x, both directions)
 //   yz_inv_kernel  <- _yz_inv_kernel  (y-C2C inverse, then half-spectrum C2R)
 //
@@ -27,9 +32,38 @@
 // feeds 4 to 16 FMAs. The DFT matrices are re-read per block from L2. Tensor
 // cores (3xTF32 or split bf16) and TMA pipelines are the later steps.
 //
+// zy_fwd's FFT body (Y and Z powers of two in [8, 512]) does no dense
+// product: it runs the row FFT engine of fft_rows.cuh twice and a
+// transpose. Its bound at 512^3 is the function's bytes, one read of x and
+// one write of the two planes, 1.08 GB -> 0.32 ms. One fused pass does
+// not fit: an FFT needs whole rows and whole columns, and one x-plane's
+// half spectrum (512 x 257 x 8 B = 1.05 MB) does not fit in 227 KB of
+// shared memory. What sets the pace instead is how the planes are
+// written: their rows are Zo = 257 floats, so a pass whose blocks each
+// hold a few zo-columns (a y-FFT batch of the engine holds 4 at Y = 512)
+// writes 16-byte strips of rows 1028 bytes apart, which on the H100 costs
+// several times a write of whole rows. So no pass writes such strips:
+//
+// - Pass A (ZRows): the z-R2C of every (x, y) row, two real rows packed as
+//   one complex row exactly as kernel 5's body in stage.cu does, the
+//   spectrum split in the epilogue and k in [0, Z/2] kept, no twiddle,
+//   into a complex64 scratch laid out (X, Zo, Y): column zo of plane x is
+//   one contiguous row. A batch holds consecutive y, so the epilogue
+//   writes aligned 64-byte pieces (8 y at Z = 512), whole sectors.
+// - Pass B (ComplexTwiddleRows<false>): the y-C2C of each scratch row, in
+//   place: contiguous rows in, contiguous rows out.
+// - Pass C (zy_planes_kernel): the transpose into the two (X, Y, Zo)
+//   planes through shared memory, 8 whole plane rows per block, read as
+//   aligned 64-byte pieces of 8 y and written as contiguous runs.
+//
+// The three passes move three times the function's bytes (3.2 GB at
+// 512^3), so their ceiling is about a third of the bound (~0.97 ms).
+//
 // Every extern "C" entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
+
+#include "fft_rows.cuh"
 
 namespace {
 
@@ -424,6 +458,122 @@ yz_inv_kernel(const float* __restrict__ er, const float* __restrict__ ei,
   }
 }
 
+// ---------------------------------------------------------------------------
+// zy_fwd, FFT body: pass A (ZRows), pass B (the engine on the scratch's
+// rows) and pass C (zy_planes_kernel)
+// ---------------------------------------------------------------------------
+
+// Pass A: (X * Y, Z) float32 rows in, two to a complex row; the half
+// spectrum of each row out into the (X, Zo, Y) complex64 scratch.
+struct ZRows {
+  const float* x;
+  float* s;
+  int M;     // X * Y real rows (even: Y is)
+  int ylog;  // log2 Y
+
+  template <int L>
+  __host__ __device__ int batches() const {
+    constexpr int ROWS2 = 2 * fft_rows::Geometry<L>::ROWS;
+    return (M + ROWS2 - 1) / ROWS2;
+  }
+  template <int L>
+  __host__ __device__ static constexpr int stage_bytes() {
+    return 8 * fft_rows::Geometry<L>::POINTS;
+  }
+  template <int L>
+  __device__ int rows_in(int b) const {
+    constexpr int ROWS2 = 2 * fft_rows::Geometry<L>::ROWS;
+    const int left = M - b * ROWS2;
+    return left < ROWS2 ? left : ROWS2;
+  }
+  template <int L>
+  __device__ void issue(unsigned char* buf, int b, uint64_t* bar) const {
+    using G = fft_rows::Geometry<L>;
+    const uint32_t bytes = 4u * rows_in<L>(b) * G::N;
+    fft_rows::mbar_expect_tx(bar, bytes);
+    fft_rows::bulk_load(buf, x + (size_t)b * 2 * G::POINTS, bytes, bar);
+  }
+  // Point i of complex row c: real rows 2c and 2c + 1 (M is even, so a
+  // batch never ends inside a pair).
+  template <int L>
+  __device__ float2 load(const unsigned char* buf, int, int c, int i) const {
+    const float* p =
+        reinterpret_cast<const float*>(buf) + 2 * c * fft_rows::Geometry<L>::N;
+    return make_float2(p[i], p[fft_rows::Geometry<L>::N + i]);
+  }
+  // Thread e writes bin k = e / ROWS of complex row c = e mod ROWS, that is
+  // real rows 2c and 2c + 1: neighbouring y, one 16-byte vector; the
+  // batch's vectors of one k are consecutive in the scratch.
+  template <int L>
+  __device__ void store(const float* re, const float* im, int b) const {
+    using G = fft_rows::Geometry<L>;
+    constexpr int N = G::N, ROWS = G::ROWS, ZO = N / 2 + 1;
+    const int pairs = rows_in<L>(b) / 2;
+    const int ymask = (1 << ylog) - 1;
+    float4* o = reinterpret_cast<float4*>(s);
+    for (int e = threadIdx.x; e < ZO * ROWS; e += fft_rows::THREADS) {
+      const int c = e & (ROWS - 1), k = e / ROWS;
+      if (c >= pairs) continue;
+      const int i = fft_rows::pad(c * N + k);
+      const int i2 = fft_rows::pad(c * N + ((N - k) & (N - 1)));
+      const float zr = re[i], zi = im[i], nr = re[i2], ni = im[i2];
+      // X_a = (Z[k] + conj Z[n-k]) / 2, X_b = (Z[k] - conj Z[n-k]) / 2i.
+      const float4 v = make_float4(0.5f * (zr + nr), 0.5f * (zi - ni),
+                                   0.5f * (zi + ni), 0.5f * (nr - zr));
+      const int r = b * 2 * ROWS + 2 * c;  // even: r + 1 is the next y
+      o[(((size_t)(r >> ylog) * ZO + k) << (ylog - 1)) + ((r & ymask) >> 1)] =
+          v;
+    }
+  }
+};
+
+// Pass C: the (X, Zo, Y) complex64 scratch, transposed into the two
+// (X, Y, Zo) float32 planes. Block (ky-tile, x) stages PLANE_ROWS rows of
+// both planes in shared memory; LD makes the staging writes of 4 threads a
+// zo (one 64-byte piece of 8 y) land in 32 distinct banks.
+constexpr int PLANE_ROWS = 8;
+constexpr int PLANE_THREADS = 256;
+constexpr int PLANE_LD = AXIS_MAX / 2 + 4;  // >= Zo, = 4 (mod 16)
+
+__global__ void __launch_bounds__(PLANE_THREADS)
+zy_planes_kernel(const float4* __restrict__ s, float* __restrict__ yr,
+                 float* __restrict__ yi, int Y, int Zo) {
+  __shared__ float tr[PLANE_ROWS * PLANE_LD];
+  __shared__ float ti[PLANE_ROWS * PLANE_LD];
+  const int ky0 = blockIdx.x * PLANE_ROWS;
+  const size_t x = blockIdx.y;
+  // Row (x, zo) of the scratch holds Y / 2 vectors of two y.
+  const float4* src = s + (x * Zo * Y + ky0) / 2;
+  for (int e = threadIdx.x; e < Zo * PLANE_ROWS / 2; e += PLANE_THREADS) {
+    const int zo = e / (PLANE_ROWS / 2), h = e % (PLANE_ROWS / 2);
+    const float4 v = src[(size_t)zo * (Y / 2) + h];
+    tr[2 * h * PLANE_LD + zo] = v.x;
+    ti[2 * h * PLANE_LD + zo] = v.y;
+    tr[(2 * h + 1) * PLANE_LD + zo] = v.z;
+    ti[(2 * h + 1) * PLANE_LD + zo] = v.w;
+  }
+  __syncthreads();
+  // The block's rows of each plane are one contiguous run.
+  const size_t o = (x * Y + ky0) * Zo;
+  for (int e = threadIdx.x; e < PLANE_ROWS * Zo; e += PLANE_THREADS) {
+    const int r = e / Zo, zo = e - r * Zo;
+    yr[o + e] = tr[r * PLANE_LD + zo];
+    yi[o + e] = ti[r * PLANE_LD + zo];
+  }
+}
+
+// Y and Z powers of two in [8, AXIS_MAX]: the FFT body's shapes.
+bool zy_fft_ok(int X, int Y, int Z) {
+  auto pow2 = [](int n) { return n >= 8 && n <= AXIS_MAX && !(n & (n - 1)); };
+  return X >= 2 && X <= AXIS_MAX && pow2(Y) && pow2(Z);
+}
+
+int log2i(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
 bool axes_ok(int X, int Y, int Z) {
   return X >= 2 && Y >= 2 && Z >= 2 && X <= AXIS_MAX && Y <= AXIS_MAX &&
          Z <= AXIS_MAX;
@@ -450,6 +600,44 @@ int dfft_zy_fwd(const float* x, const float* fzr, const float* fzi,
   const dim3 grid((Zo + ZY_TZ - 1) / ZY_TZ, X);
   zy_fwd_kernel<<<grid, ZY_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       x, fzr, fzi, fyr, fyi, yr, yi, Y, Z);
+  return cudaGetLastError();
+}
+
+// zy_fwd FFT body, pass A. x: (X, Y, Z) float32, 16-byte aligned; table,
+// schedule: ops/hopper_fft.fft_plan(Z, False); s: (X, Z/2 + 1, Y)
+// complex64 scratch, 16-byte aligned.
+int dfft_zy_rows(const float* x, const float* table, float* s, int X, int Y,
+                 int Z, int schedule, void* stream) {
+  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(x) || fft_rows::misaligned(s))
+    return cudaErrorMisalignedAddress;
+  const ZRows body{x, s, X * Y, log2i(Y)};
+  return fft_rows::launch(Z, schedule, body, table, 0,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// zy_fwd FFT body, pass B. s: pass A's scratch, transformed in place along
+// y; table, schedule: ops/hopper_fft.fft_plan(Y, False).
+int dfft_zy_cols(float* s, const float* table, int X, int Y, int Z,
+                 int schedule, void* stream) {
+  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(s)) return cudaErrorMisalignedAddress;
+  const fft_rows::ComplexTwiddleRows<false> body{s, nullptr, nullptr, s,
+                                                 X * (Z / 2 + 1), 1};
+  return fft_rows::launch(Y, schedule, body, table, 0,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// zy_fwd FFT body, pass C. s: pass B's (X, Z/2 + 1, Y) complex64 result,
+// 16-byte aligned; yr, yi: (X, Y, Z/2 + 1) float32 planes.
+int dfft_zy_planes(const float* s, float* yr, float* yi, int X, int Y, int Z,
+                   void* stream) {
+  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(s)) return cudaErrorMisalignedAddress;
+  const dim3 grid(Y / PLANE_ROWS, X);
+  zy_planes_kernel<<<grid, PLANE_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(s), yr, yi, Y, Z / 2 + 1);
   return cudaGetLastError();
 }
 

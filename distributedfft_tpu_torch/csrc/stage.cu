@@ -18,7 +18,11 @@
 //   MODE_CMATMUL             <- _cmatmul_kernel     (kernel 2, complex rows)
 //   MODE_RMATMUL             <- _rmatmul_kernel     (kernel 1, real rows)
 //   MODE_C2R                 <- _c2r_kernel         (kernel 3, real output)
-//   MODE_CMATMUL + twiddle   <- _cmatmul_tw_kernel  (kernel 4)
+//   fft_rows_kernel<L, ComplexTwiddleRows<true>>
+//                            <- _cmatmul_tw_kernel  (kernel 4, FFT body:
+//                               power-of-two n2 in [8, 1024])
+//   MODE_CMATMUL + twiddle   <- _cmatmul_tw_kernel  (kernel 4, tile body:
+//                               any other n2, e.g. 320)
 //   fft_rows_kernel<L, RealTwiddleRows>
 //                            <- _rmatmul_tw_kernel  (kernel 5, FFT body:
 //                               power-of-two n2 in [8, 1024])
@@ -49,6 +53,14 @@
 // written.
 //
 // What the design does about those bounds:
+// - Kernel 4's FFT body is the row engine of fft_rows.cuh on complex rows:
+//   each batch of interleaved complex64 rows arrives by one bulk copy, the
+//   first pass reads it as it lies, and the epilogue multiplies by the
+//   twiddle row T[r % n1] and stores interleaved complex64. It reads and
+//   writes each byte once and does 5 n log2 n flop a row where the dense
+//   product did 8 n^2. The twiddle is a compile-time flag of the Body
+//   (in fft_rows.cuh; ComplexTwiddleRows<false> is the plain row DFT,
+//   which kernel 6's y pass runs and kernel 2 can take).
 // - Kernel 5's FFT body is the row engine of fft_rows.cuh: each batch of
 //   real rows arrives by one bulk copy, the first pass packs rows 2c and
 //   2c + 1 as one complex row, and the epilogue splits the spectrum,
@@ -299,6 +311,20 @@ int dfft_rdft_tw(const float* x, const float* table, const float* tr,
     return cudaErrorMisalignedAddress;
   const RealTwiddleRows body{x, tr, ti, out, M, n1};
   return fft_rows::launch(n, schedule, body, table, 0,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 4, FFT body. x: (M, n) complex64, n a power of two in [8, 1024],
+// 16-byte aligned; table, schedule: ops/hopper_fft.fft_plan(n, inverse);
+// tr, ti: (n1, n) float32 twiddle planes; out: (M, n) complex64.
+int dfft_cdft_tw(const float* x, const float* table, const float* tr,
+                 const float* ti, float* out, int M, int n, int n1,
+                 int schedule, int inverse, void* stream) {
+  if (M < 1 || n1 < 1 || !tr || !ti) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(x) || fft_rows::misaligned(out))
+    return cudaErrorMisalignedAddress;
+  const fft_rows::ComplexTwiddleRows<true> body{x, tr, ti, out, M, n1};
+  return fft_rows::launch(n, schedule, body, table, inverse,
                           static_cast<cudaStream_t>(stream));
 }
 

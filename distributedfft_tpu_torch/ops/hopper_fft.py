@@ -4,11 +4,15 @@ The counterpart of the JAX package's ``ops/pallas_fft.py``, at two
 granularities:
 
 * **fused 3D path** (``csrc/fused3d.cu``): at direct sizes (every axis in
-  [2, 512]) a single-device 3D R2C is two kernel passes and its C2R
-  inverse two more — forward ``zy_fwd`` (z-R2C then y-C2C per x-row) then
+  [2, 512]) a single-device 3D R2C is two kernels and its C2R inverse two
+  more — forward ``zy_fwd`` (z-R2C then y-C2C per x-row) then
   ``x_c2c``; inverse ``x_c2c`` then ``yz_inv`` (y-C2C inverse then the
   half-spectrum z-C2R). Complex data crosses these kernels as split
-  float32 (real, imag) planes.
+  float32 (real, imag) planes. ``zy_fwd`` picks its body by
+  ``_zy_body(Y, Z)``: when Y and Z are powers of two in [8, 512], three
+  launches (the row FFT engine on the z rows into a complex64 scratch,
+  the engine on the scratch's y rows in place, a transpose into the
+  planes), else the dense kernel.
 * **per-axis path** (``csrc/stage.cu``): one kernel launch is one DFT
   stage along the last axis, ``y = x @ F`` on rows of interleaved complex
   (or real) data, optionally with the four-step twiddle fused into its
@@ -24,10 +28,11 @@ granularities:
   encodes a travelling block, ``dec_unpack`` decodes an arrived one, and
   ``dec_cmatmul`` decodes it straight into the first per-block DFT. The
   hooks ``fused_ring_hooks`` / ``decode_fft_fused`` plug them into a ring.
-* **row FFT engine** (``csrc/fft_rows.cuh``): the body of ``rdft_tw``
-  (kernel 5) and ``dec_cmatmul`` (kernel 11) on rows of a power of two in
-  [8, 1024] (``_fft_body``); other lengths take the dense tile loop of
-  ``stage.cu``. ``fft_plan`` is its host side.
+* **row FFT engine** (``csrc/fft_rows.cuh``): the body of ``cdft_tw``
+  (kernel 4), ``rdft_tw`` (kernel 5) and ``dec_cmatmul`` (kernel 11) on
+  rows of a power of two in [8, 1024] (``_fft_body``); other lengths take
+  the dense tile loop of ``stage.cu``. It also runs the two FFT passes
+  of ``zy_fwd``'s FFT body (kernel 6). ``fft_plan`` is its host side.
 
 Each kernel has here:
 
@@ -64,10 +69,14 @@ LAUNCHES: Dict[str, int] = {
 
 # Entry points: library (csrc/<name>.cu), (pointer arguments, int arguments).
 _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
+            "dfft_zy_rows": ("fused3d", (3, 4)),
+            "dfft_zy_cols": ("fused3d", (2, 4)),
+            "dfft_zy_planes": ("fused3d", (3, 3)),
             "dfft_x_c2c": ("fused3d", (6, 2)),
             "dfft_yz_inv": ("fused3d", (7, 3)),
             "dfft_stage": ("stage", (6, 6)),
             "dfft_rdft_tw": ("stage", (5, 4)),
+            "dfft_cdft_tw": ("stage", (5, 5)),
             "dfft_enc_pack": ("wire", (2, 6)),
             "dfft_dec_unpack": ("wire", (2, 1)),
             "dfft_dec_cmatmul": ("wire", (4, 2)),
@@ -128,7 +137,8 @@ def _twiddle(n1: int, n2: int, inverse: bool,
 
 
 # ---------------------------------------------------------------------------
-# The row FFT engine of kernels 5 and 11 (csrc/fft_rows.cuh): its host side
+# The row FFT engine of kernels 4, 5, 6 and 11 (csrc/fft_rows.cuh): its
+# host side
 # ---------------------------------------------------------------------------
 
 # Row lengths the engine takes: the powers of two in [FFT_MIN, FFT_MAX].
@@ -136,10 +146,26 @@ FFT_MIN, FFT_MAX = 8, 1024
 
 
 def _fft_body(n: int) -> str:
-    """The body kernels 5 and 11 run on rows of n points: ``"fft"`` (the
+    """The body kernels 4, 5 and 11 run on rows of n points: ``"fft"`` (the
     row FFT engine) for a power of two in [FFT_MIN, FFT_MAX], else
     ``"tile"`` (the dense tile loop of ``stage_tile.cuh``)."""
     return "fft" if FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0 else "tile"
+
+
+def _zy_body(Y: int, Z: int) -> str:
+    """The body kernel 6 runs on (X, Y, Z): ``"fft"`` (two launches of the
+    row FFT engine and a transpose) when Y and Z are both powers of two in
+    [FFT_MIN, ``mx.DIRECT_MAX``], else ``"dense"`` (the dense-product
+    ``zy_fwd_kernel``)."""
+    return ("fft" if all(_fft_body(n) == "fft" and n <= mx.DIRECT_MAX
+                         for n in (Y, Z)) else "dense")
+
+
+def _zy_scratch_shape(X: int, Y: int, Z: int) -> Tuple[int, int, int]:
+    """The complex64 scratch of kernel 6's FFT body: (X, Z // 2 + 1, Y),
+    column zo of plane x one contiguous row, so the y pass runs on rows and
+    the transpose writes whole plane rows."""
+    return (X, Z // 2 + 1, Y)
 
 
 class FFTPlan(NamedTuple):
@@ -263,6 +289,43 @@ def rdft_tw_mirror(x2: torch.Tensor, n1: int) -> torch.Tensor:
     return out * torch.complex(tr[rows], ti[rows])
 
 
+def cdft_tw_mirror(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
+    """Kernel 4's FFT body in plain PyTorch: the engine on each complex row,
+    then the twiddle row T[r % n1] in the epilogue."""
+    M, n = x2.shape
+    y = fft_rows_mirror(x2, inverse)
+    tr, ti = _twiddle_planes(n1, n, inverse, x2.device)
+    rows = torch.arange(M) % n1
+    return y * torch.complex(tr[rows], ti[rows])
+
+
+def zy_rows_mirror(x: torch.Tensor) -> torch.Tensor:
+    """Kernel 6's pass A in plain PyTorch: real z-rows 2c and 2c + 1 packed
+    as one complex row, the engine, the split, k in [0, Z/2] kept, laid
+    out as the scratch of ``_zy_scratch_shape``."""
+    X, Y, Z = x.shape
+    rows = x.reshape(-1, Z).to(torch.float32)
+    z = fft_rows_mirror(torch.complex(rows[0::2], rows[1::2]), False)
+    zn = z[:, (-torch.arange(Z)) % Z].conj()
+    half = torch.stack([(z + zn) / 2, (z - zn) / 2j], 1).reshape(-1, Z)
+    return half[:, :Z // 2 + 1].reshape(X, Y, -1).transpose(1, 2).contiguous()
+
+
+def zy_cols_mirror(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 6's passes B and C in plain PyTorch: the engine on each
+    (x, zo) row of the scratch (the y-C2C), then the transpose into the two
+    (X, Y, Zo) planes."""
+    X, Zo, Y = s.shape
+    f = fft_rows_mirror(s.reshape(-1, Y), False).reshape(X, Zo, Y)
+    f = f.transpose(1, 2)
+    return f.real.contiguous(), f.imag.contiguous()
+
+
+def zy_fwd_mirror(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 6's FFT body in plain PyTorch: pass A, then passes B and C."""
+    return zy_cols_mirror(zy_rows_mirror(x))
+
+
 # ---------------------------------------------------------------------------
 # Plain versions (the kernels' arithmetic as dense float32 products)
 # ---------------------------------------------------------------------------
@@ -326,17 +389,34 @@ def _launch(kernel: str, fn: str, *args) -> None:
 
 def zy_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(X, Y, Z) float32 -> (X, Y, Z//2+1) planes: z-R2C then y-C2C,
-    unnormalized forward (kernel 6, ``_zy_fwd_kernel``)."""
+    unnormalized forward (kernel 6, ``_zy_fwd_kernel``). The body is
+    ``_zy_body(Y, Z)``: on ``"fft"`` three launches through a complex64
+    scratch of ``_zy_scratch_shape`` (x and the scratch 16-byte aligned):
+    the row FFT engine on the z rows, the engine on the scratch's y rows in
+    place, the transpose into the planes; else one launch of the dense
+    kernel. Every launch counts as ``zy_fwd``."""
     cpu = _check("zy_fwd", x)
     X, Y, Z = x.shape
-    fzr, fzi = _planes("rdft", Z, False, x.device)
-    fyr, fyi = _planes("dft", Y, False, x.device)
+    dev = x.device
+    fzr, fzi = _planes("rdft", Z, False, dev)
+    fyr, fyi = _planes("dft", Y, False, dev)
     if cpu:
         return zy_fwd_plain(x, fzr, fzi, fyr, fyi)
     Zo = Z // 2 + 1
-    yr = torch.empty((X, Y, Zo), dtype=torch.float32, device=x.device)
+    yr = torch.empty((X, Y, Zo), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    _launch("zy_fwd", "dfft_zy_fwd", x, fzr, fzi, fyr, fyi, yr, yi, X, Y, Z)
+    if _zy_body(Y, Z) == "dense":
+        _launch("zy_fwd", "dfft_zy_fwd", x, fzr, fzi, fyr, fyi, yr, yi, X, Y,
+                Z)
+        return yr, yi
+    s = torch.empty(_zy_scratch_shape(X, Y, Z), dtype=torch.complex64,
+                    device=dev)
+    _require_aligned("zy_fwd", x, s)
+    _launch("zy_fwd", "dfft_zy_rows", x, _fft_table(Z, False, dev), s, X, Y,
+            Z, fft_plan(Z, False).schedule)
+    _launch("zy_fwd", "dfft_zy_cols", s, _fft_table(Y, False, dev), X, Y, Z,
+            fft_plan(Y, False).schedule)
+    _launch("zy_fwd", "dfft_zy_planes", s, yr, yi, X, Y, Z)
     return yr, yi
 
 
@@ -553,6 +633,37 @@ def rdft_tw(x2: torch.Tensor, n1: int) -> torch.Tensor:
     return y
 
 
+def cdft_tw(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
+    """Complex rows to the four-step first stage: (M, n2) complex64 ->
+    (M, n2) complex64, the n2-point DFT (inverse DFT when ``inverse``) of
+    each row times the twiddle row T[r % n1] (kernel 4,
+    ``_cmatmul_tw_kernel``). The body is ``_fft_body(n2)``: the row FFT
+    engine for a power of two in [8, 1024], else the dense tile loop of
+    ``stage`` with the DFT planes; both count as ``cmatmul_tw``."""
+    if x2.ndim != 2:
+        raise ValueError(f"cmatmul_tw: expected 2D rows, got shape "
+                         f"{tuple(x2.shape)}")
+    if n1 < 1:
+        raise ValueError(f"cmatmul_tw: n1 = {n1} < 1")
+    if x2.dtype != torch.complex64:
+        raise TypeError(f"cmatmul_tw: expected complex64 rows, got "
+                        f"{x2.dtype}")
+    M, n2 = x2.shape
+    dev = x2.device
+    if dev.type == "cpu" or _fft_body(n2) == "tile":
+        return stage(x2, *_planes("dft", n2, inverse, dev),
+                     (n1, n2, inverse))
+    tr, ti = _twiddle_planes(n1, n2, inverse, dev)
+    _check_rows("cmatmul_tw", x2, torch.complex64, tr, ti)
+    y = torch.empty((M, n2), dtype=torch.complex64, device=dev)
+    if M:
+        _require_aligned("cmatmul_tw", x2, y)
+        _launch("cmatmul_tw", "dfft_cdft_tw", x2,
+                _fft_table(n2, inverse, dev), tr, ti, y, M, n2, n1,
+                fft_plan(n2, inverse).schedule, int(inverse))
+    return y
+
+
 def c2r(c2: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
     """Half-spectrum C2R on rows: (M, n//2+1) complex64 -> (M, n) float32,
     ``Re(c) @ CR - Im(c) @ CI``, unnormalized (kernel 3, ``_c2r_kernel``)."""
@@ -622,8 +733,7 @@ def _fft_last(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     a = _swap_last(x.reshape(lead + (n2, n1)))                    # (.., n1, n2)
     if n2 <= mx.DIRECT_MAX:
         # Fused: DFT over s and the twiddle epilogue in one kernel pass.
-        c = _stage(a, _planes("dft", n2, inverse, dev),
-                   twiddle=(n1, n2, inverse))
+        c = cdft_tw(a.reshape(-1, n2), n1, inverse).reshape(a.shape)
     else:
         c = _fft_last(a, inverse) * _twiddle(n1, n2, inverse, dev)
     del a

@@ -23,6 +23,12 @@ pytestmark = pytest.mark.cuda
 
 SHAPES = [(2, 2, 2), (8, 8, 8), (6, 12, 15), (16, 10, 12), (3, 17, 33),
           (65, 129, 66), (7, 512, 512), (512, 9, 511)]
+# Kernel 6's FFT body (hf._zy_body: Y and Z powers of two in [8, 512]):
+# every engine geometry of both passes, batches that straddle x-planes
+# (small Y or Z), and a last batch that is partial.
+ZY_FFT_SHAPES = [(2, 8, 8), (3, 8, 16), (5, 16, 8), (2, 32, 64),
+                 (3, 64, 32), (9, 128, 16), (2, 16, 256), (4, 256, 128),
+                 (3, 512, 8), (2, 8, 512), (5, 512, 512), (512, 16, 32)]
 
 
 @pytest.fixture()
@@ -43,14 +49,16 @@ def _randn(shape, seed, device):
                             ).to(device)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + ZY_FFT_SHAPES)
 def test_zy_fwd_kernel(cuda, shape):
+    """Both bodies of kernel 6: three launches on the FFT body, one dense."""
     x = _randn(shape, 1, cuda)
     X, Y, Z = shape
     before = hf.LAUNCHES["zy_fwd"]
     yr, yi = hf.zy_fwd(x)
     torch.cuda.synchronize()
-    assert hf.LAUNCHES["zy_fwd"] == before + 1
+    assert hf.LAUNCHES["zy_fwd"] == before + (
+        3 if hf._zy_body(Y, Z) == "fft" else 1)
     pr, pi = hf.zy_fwd_plain(x, *hf._planes("rdft", Z, False, cuda),
                              *hf._planes("dft", Y, False, cuda))
     assert _rel(yr, pr) <= 5e-4 and _rel(yi, pi) <= 5e-4
@@ -88,8 +96,9 @@ def test_pallas_plan_matches_torch_fft(cuda, shape):
     c = plan.exec_r2c(x)
     back = plan.exec_c2r(c)
     torch.cuda.synchronize()
+    zy = 3 if hf._zy_body(*shape[1:]) == "fft" else 1
     assert hf.LAUNCHES == {**dict.fromkeys(hf.LAUNCHES, 0),
-                           "zy_fwd": 1, "x_c2c": 2, "yz_inv": 1}
+                           "zy_fwd": zy, "x_c2c": 2, "yz_inv": 1}
     assert _rel(c, torch.fft.rfftn(x)) <= 5e-4
     assert _rel(back / float(np.prod(shape)), x) <= 5e-4
 
@@ -156,6 +165,23 @@ def test_twiddle_kernels(cuda, n1, n2, lines, real):
     torch.cuda.synchronize()
     assert hf.LAUNCHES[name] == before + 1
     ref = hf.stage_plain(x, *F, *hf._twiddle_planes(*tw, cuda))
+    assert _rel(y, ref) <= 5e-4
+
+
+@pytest.mark.parametrize("n1, n2, lines", TWIDDLE_ROWS)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cdft_tw_kernel(cuda, n1, n2, lines, inverse):
+    """Kernel 4 through ``cdft_tw``, both bodies (``_fft_body(n2)``), both
+    directions: rows cycle through n1 (M = lines * n1)."""
+    M = lines * n1
+    x = _crandn((M, n2), 27, cuda)
+    before = hf.LAUNCHES["cmatmul_tw"]
+    y = hf.cdft_tw(x, n1, inverse)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["cmatmul_tw"] == before + 1
+    tw = (n1, n2, inverse)
+    ref = hf.stage_plain(x, *hf._planes("dft", n2, inverse, cuda),
+                         *hf._twiddle_planes(*tw, cuda))
     assert _rel(y, ref) <= 5e-4
 
 
@@ -252,6 +278,11 @@ def test_fft_body_rejects_misaligned_views(cuda):
     real = torch.zeros(M * n + 1, device=cuda)
     with pytest.raises(ValueError, match="16-byte aligned"):
         hf.rdft_tw(real[1:].view(M, n), 2)
+    cplx = torch.zeros(M * n + 1, dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hf.cdft_tw(cplx[1:].view(M, n), 2, True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hf.zy_fwd(real[1:].view(M, 8, 8))
     assert hf.LAUNCHES == before
 
 

@@ -1,4 +1,4 @@
-"""The host side of the row FFT engine of kernels 5 and 11
+"""The host side of the row FFT engine of kernels 4, 5 and 11
 (``csrc/fft_rows.cuh``), on the CPU.
 
 * ``fft_plan(n, inverse)``: the pass schedule and the twiddle table the
@@ -11,6 +11,10 @@
 * Kernel 5's real-row path (``rdft_tw_mirror``: pair packing, the split,
   an odd M, the twiddle by ``r % n1``) against ``stage_plain`` and the JAX
   ``_call_stage`` with the twiddle.
+* Kernel 4's complex-row path (``cdft_tw_mirror``: the engine, then the
+  twiddle by ``r % n1``), both directions, against ``stage_plain`` and the
+  JAX ``_call_stage`` with the twiddle; ``fft`` of a 1024-point axis
+  reaching ``cdft_tw``.
 * ``_fft_body``'s routing and the new wrappers' argument checks.
 """
 
@@ -136,6 +140,26 @@ def test_kernel5_real_rows_path(n1, M, n2):
     assert _rel(got.numpy(), want) <= 5e-4
 
 
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("n1, M, n2", [(2, 7, 512), (3, 9, 64), (4, 5, 16),
+                                       (2, 1, 1024), (3, 13, 8),
+                                       (4, 11, 128)])
+def test_kernel4_complex_rows_path(n1, M, n2, inverse):
+    """The engine on complex rows and the twiddle by ``r % n1`` (odd M)
+    against ``stage_plain`` and JAX's ``_call_stage`` with the twiddle."""
+    x = _complex((M, n2), 10 * n1 + M + inverse)
+    got = hf.cdft_tw_mirror(torch.from_numpy(x), n1, inverse)
+    assert got.dtype == torch.complex64 and got.shape == (M, n2)
+    plain = hf.stage_plain(torch.from_numpy(x),
+                           *hf._planes("dft", n2, inverse, CPU),
+                           *hf._twiddle_planes(n1, n2, inverse, CPU))
+    assert _rel(got.numpy(), plain.numpy()) <= 1e-5
+    assert torch.equal(hf.cdft_tw(torch.from_numpy(x), n1, inverse), plain)
+    want = np.asarray(pallas_fft._call_stage(
+        x, jmx._dft_np(n2, inverse, False), (n1, n2, inverse)))
+    assert _rel(got.numpy(), want) <= 5e-4
+
+
 def test_fft_body_routing():
     fft = [n for n in range(1, 2100) if hf._fft_body(n) == "fft"]
     assert fft == POW2
@@ -154,6 +178,17 @@ def test_wrappers_check_their_arguments():
         hf.rdft_tw(torch.zeros((8, 4)).t(), 2)              # not contiguous
     with pytest.raises(ValueError):
         hf.rdft_tw(torch.zeros((4, 8), device="meta"), 2)   # no kernel
+    cplx = torch.zeros((4, 8), dtype=torch.complex64)
+    with pytest.raises(ValueError):
+        hf.cdft_tw(cplx[None], 2, False)                    # not 2D rows
+    with pytest.raises(ValueError):
+        hf.cdft_tw(cplx, 0, False)                          # n1 < 1
+    with pytest.raises(TypeError):
+        hf.cdft_tw(cplx.real.contiguous(), 2, False)        # not complex
+    with pytest.raises(ValueError):
+        hf.cdft_tw(torch.zeros((8, 4), dtype=torch.complex64).t(), 2, True)
+    with pytest.raises(ValueError):
+        hf.cdft_tw(cplx.to("meta"), 2, False)               # no kernel
     planes = torch.zeros((2, 4, 8), dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         hf.dec_cmatmul(planes.float(), False)
@@ -171,6 +206,7 @@ def test_cpu_wrappers_take_plain_versions_and_launch_nothing():
     hf.rdft_tw(x, 3)
     hf.dec_cmatmul(hf.enc_pack_plain(torch.from_numpy(_complex((3, 64), 4))),
                    True)
+    hf.cdft_tw(torch.from_numpy(_complex((6, 64), 5)), 2, True)
     assert all(v == 0 for v in hf.LAUNCHES.values()), hf.LAUNCHES
 
 
@@ -189,3 +225,27 @@ def test_rfft_last_takes_kernel5_through_rdft_tw(monkeypatch):
     got = hf.rfft(torch.from_numpy(x), axis=-1).numpy()
     assert calls == [((6, 512), 2)]
     assert _rel(got, pallas_fft.rfft(x, axis=-1)) < 5e-4
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+def test_fft_last_takes_kernel4_through_cdft_tw(monkeypatch, inverse):
+    """The 1024-point C2C's first four-step stage goes through ``cdft_tw``
+    with (rows, 512) and n1 = 2, and the whole axis still matches the JAX
+    package."""
+    calls = []
+    orig = hf.cdft_tw
+
+    def counted(x2, n1, inv):
+        calls.append((tuple(x2.shape), n1, inv))
+        return orig(x2, n1, inv)
+
+    monkeypatch.setattr(hf, "cdft_tw", counted)
+    x = _complex((3, 1024), 6 + inverse)
+    if inverse:
+        got = hf.ifft(torch.from_numpy(x), axis=-1).numpy()
+        want = np.asarray(pallas_fft.ifft(x, axis=-1))
+    else:
+        got = hf.fft(torch.from_numpy(x), axis=-1).numpy()
+        want = np.asarray(pallas_fft.fft(x, axis=-1))
+    assert calls == [((6, 512), 2, inverse)]
+    assert _rel(got, want) < 5e-4
