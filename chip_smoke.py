@@ -10,16 +10,20 @@ once, before any rank is spawned) and then, under
 
 1. holds each kernel against its plain PyTorch version at the main paths'
    shapes: the fused kernels 6-8 at 512^3, the per-axis kernels 1-5 at the
-   shapes of the 512^3 two-rank plan and of the 1024^3 four-step, the
+   shapes of the 512^3 two-rank plan, of the 1024^3 plan (kernels 1 and 2
+   on 1024-point rows) and of the 2048 x 256 x 2048 four-step (kernels 4
+   and 5, and kernel 2's 4-point second stage on its row body), the
    fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan over
    four ranks (9 and 10 bit for bit, NaN and Inf included); kernels 4, 5,
    6 and 11 also on their other body (dense or tile) at a shape whose
    axes are not powers of two;
 2. runs a small cube against numpy, then the single-card slab plan at
-   512^3 (fused kernels) and at 1024^3 (per-axis four-step kernels):
-   ``exec_r2c`` then ``exec_c2r``, checked against ``torch.fft`` and the
-   input, with the launch counts of every kernel and the entry point (the
-   body) of every launch;
+   512^3 (fused kernels), at 1024^3 (per-axis kernels 1 and 2, every axis
+   one launch of the row FFT engine) and at 2048 x 256 x 2048 (x and z
+   split four-step, 4 x 512: kernels 4, 5 and 2): ``exec_r2c`` then
+   ``exec_c2r``, checked against ``torch.fft`` and the input, with the
+   launch counts of every kernel and the entry point (the body) of every
+   launch;
 3. runs the distributed slab plan at 512^3 as two ranks sharing the card
    over a gloo group (``torch.multiprocessing.spawn``; gloo stages the
    exchange through the host): the all-to-all, then the ring renderings
@@ -29,7 +33,9 @@ once, before any rank is spawned) and then, under
    ``torch.fft`` and against the plans it must equal;
 4. times each kernel, its plain version and one PyTorch call of the same
    function, the plans under "pallas" and "xla", and the exchange of each
-   rendering with its wire bytes.
+   rendering with its wire bytes; one run of each direction of the
+   per-axis plans under ``torch.profiler`` names the device time op by op
+   and gives the device's idle share.
 
 Phases print JSON lines. Before the last line come one ``{"kernels": ...}``
 line and the card's name and power limit as ``nvidia-smi`` gives them; the
@@ -55,14 +61,15 @@ import numpy as np
 
 SEED = 20261016
 N = 512            # the fused single-card cube and the two-rank cube
-NBIG = 1024        # the per-axis single-card cube (four-step on every axis)
+NBIG = 1024        # the per-axis single-card cube (one launch an axis)
+SPLIT = (2048, 256, 2048)  # per-axis, x and z split four-step (4 x 512)
 RANKS = 2
 TOL = 5e-4         # max relative error, the JAX package's per-stage bound
 WIRE16_TOL = 2e-2  # the bf16 wire's documented bound (DEFAULT_WIRE_ERROR_BUDGET)
 SMALL = (6, 12, 15)
 REPS = 10
 WARMUP = 2
-REPS_BIG = 3       # repetitions of a 1024^3 plan direction (~0.3 s each)
+REPS_BIG = 3       # repetitions of a per-axis plan direction (~0.1 s each)
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate.
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
@@ -116,22 +123,26 @@ def bound(flops: float, nbytes: float):
 
 
 # Kernels whose body is a pure function of their shape: the row FFT engine
-# or the dense tile loop (hopper_fft._fft_body of the row length), or, for
-# kernel 6, the engine or the dense kernel (hopper_fft._zy_body(Y, Z)).
-ROUTED = ("rmatmul_tw", "dec_cmatmul", "cmatmul_tw", "zy_fwd")
+# or the dense tile loop (hopper_fft._fft_body of the row length; for
+# kernel 2 on rows of at most 16 points the row path of stage.cu's launch),
+# or, for kernel 6, the engine or the dense kernel (hopper_fft._zy_body).
+ROUTED = ("rmatmul", "cmatmul", "rmatmul_tw", "dec_cmatmul", "cmatmul_tw",
+          "zy_fwd")
 
 
 def body_of(hf, k) -> str:
-    """The body a kernel row runs: for the routed kernels 4, 5, 6 and 11
-    the body of its shape ("fft" at the main paths' shapes, "tile" or
-    "dense" for the variants), else the one body the kernel has."""
+    """The body a kernel row runs: for the routed kernels 1, 2, 4, 5, 6
+    and 11 the body of its shape, which must be the row's ``body`` ("fft"
+    unless the row names another), else the one body the kernel has."""
     if k["name"] in ROUTED:
         sh = k["shape"]
         if k["name"] == "zy_fwd":
-            body, other = hf._zy_body(sh["Y"], sh["Z"]), "dense"
+            body = hf._zy_body(sh["Y"], sh["Z"])
         else:
-            body, other = hf._fft_body(sh["n"]), "tile"
-        if body != (other if k.get("variant") else "fft"):
+            body = hf._fft_body(sh["n"])
+            if body == "tile" and k["name"] == "cmatmul" and sh["n"] <= 16:
+                body = "row"
+        if body != k.get("body", "fft"):
             fail(f"kernel {k['name']} {k['shape']} routes to the {body} body")
         return body
     if k["name"] in ("enc_pack", "dec_unpack"):
@@ -209,6 +220,40 @@ def entry_ms(torch, hf, fn, reps: int = REPS):
     fn()
     runs = [kernel_share(torch, hf, fn, by_entry=True)[1] for _ in range(reps)]
     return {e: statistics.median(r[e] for r in runs) for e in runs[0]}
+
+
+def device_profile(torch, fn, top: int = 8):
+    """One run of fn under ``torch.profiler``: the device ms of the largest
+    kernels and of each aten op that launched kernels (the copies of the
+    dispatch), the kernels' summed ms ("busy") and the device's idle share
+    of the run's CUDA-event window (the profiler's own overhead inside it).
+    Where the trace holds no device time: "not measured". Measurement
+    only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    window = start.elapsed_time(end)
+    kernels, ops = {}, {}
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if ms > 0 and e.device_type == DeviceType.CUDA:
+            name = e.key[:90]          # kernels whose names share it add up
+            kernels[name] = kernels.get(name, 0.0) + ms
+        elif ms > 0 and e.key.startswith("aten::"):
+            ops[e.key] = ms
+    busy = sum(kernels.values())
+    largest = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:top])
+    return {"window_ms": window, "busy_ms": busy if busy else "not measured",
+            "idle_share": 1 - busy / window if busy else "not measured",
+            "aten_ops_ms": ops, "kernels_ms": largest}
 
 
 # ---------------------------------------------------------------------------
@@ -435,38 +480,72 @@ def stage_cases(torch, hf, dev, gen):
 
     rows_r = (N // RANKS) * N                 # z-R2C rows of a rank's slab
     rows_c = (N // RANKS) * (N // 2 + 1)      # y and x C2C rows of a rank
-    big_tw = NBIG * (NBIG // 2 + 1) * 2       # 1024^3 y/x first stage rows
-    big_rtw = NBIG * NBIG * 2                 # 1024^3 z first stage rows
-    big_n2 = NBIG * NBIG * NBIG // 2          # 1024^3 z second stage rows
+    big_c = NBIG * (NBIG // 2 + 1)            # 1024^3 y/x forward rows
+    big_r = NBIG * NBIG                       # 1024^3 z rows (R2C, C2C inverse)
+    sx, sy, sz = SPLIT
+    big_tw = sy * (sz // 2 + 1) * 4           # SPLIT x forward first stage rows
+    big_rtw = sx * sy * 4                     # SPLIT z forward first stage rows
+    big_n1 = sy * (sz // 2 + 1) * 512         # SPLIT x forward 4-point stage rows
     rows_640 = 640 * 640 * 2                  # 640^3 z first stage rows
     rows_640c = 640 * 321 * 2                 # 640^3 y/x first stage rows
     k_r = N // 2 + 1
+    kb = NBIG // 2 + 1
+    # Kernels 1 and 2 take no F: rdft / cdft pick their body by n (the FFT
+    # body at 512 and 1024, the row body at 4). An FFT body's bytes count
+    # no DFT matrix.
     return [
         dict(name="rmatmul", replaces=f"{PALLAS}:182",
              shape=dict(M=rows_r, n=N, k=k_r),
              make=lambda: dict(x=rr(rows_r, N), F=planes("rdft", N)),
-             run=lambda t: hf.stage(t["x"], *t["F"]),
+             run=lambda t: hf.rdft(t["x"]),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
              library=lambda t: torch.fft.rfft(t["x"]), library_call="rfft",
              flops=fft_flops(rows_r, N, real=True),
              gemm_flops=4 * rows_r * N * k_r,
-             bytes=4 * rows_r * N + 8 * rows_r * k_r + 8 * N * k_r),
+             bytes=4 * rows_r * N + 8 * rows_r * k_r),
+        dict(name="rmatmul", variant="fft_1024", replaces=f"{PALLAS}:182",
+             shape=dict(M=big_r, n=NBIG, k=kb),
+             make=lambda: dict(x=rr(big_r, NBIG), F=planes("rdft", NBIG)),
+             run=lambda t: hf.rdft(t["x"]),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
+             library=lambda t: torch.fft.rfft(t["x"]), library_call="rfft",
+             flops=fft_flops(big_r, NBIG, real=True),
+             gemm_flops=4 * big_r * NBIG * kb,
+             bytes=4 * big_r * NBIG + 8 * big_r * kb),
         dict(name="cmatmul", replaces=f"{PALLAS}:164",
              shape=dict(M=rows_c, n=N, k=N),
              make=lambda: dict(x=cr(rows_c, N), F=planes("dft", N)),
-             run=lambda t: hf.stage(t["x"], *t["F"]),
+             run=lambda t: hf.cdft(t["x"], False),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
              library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
              flops=fft_flops(rows_c, N), gemm_flops=8 * rows_c * N * N,
-             bytes=16 * rows_c * N + 8 * N * N),
-        dict(name="cmatmul", variant="n2_stage_1024", replaces=f"{PALLAS}:164",
-             shape=dict(M=big_n2, n=2, k=2),
-             make=lambda: dict(x=cr(big_n2, 2), F=planes("dft", 2)),
-             run=lambda t: hf.stage(t["x"], *t["F"]),
+             bytes=16 * rows_c * N),
+        dict(name="cmatmul", variant="fft_1024", replaces=f"{PALLAS}:164",
+             shape=dict(M=big_c, n=NBIG, k=NBIG),
+             make=lambda: dict(x=cr(big_c, NBIG), F=planes("dft", NBIG)),
+             run=lambda t: hf.cdft(t["x"], False),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
              library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
-             flops=fft_flops(big_n2, 2), gemm_flops=8 * big_n2 * 2 * 2,
-             bytes=32 * big_n2 + 32),
+             flops=fft_flops(big_c, NBIG), gemm_flops=8 * big_c * NBIG * NBIG,
+             bytes=16 * big_c * NBIG),
+        dict(name="cmatmul", variant="fft_1024_inverse_z",
+             replaces=f"{PALLAS}:164", shape=dict(M=big_r, n=NBIG, k=NBIG),
+             make=lambda: dict(x=cr(big_r, NBIG),
+                               F=planes("dft", NBIG, True)),
+             run=lambda t: hf.cdft(t["x"], True),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
+             library=lambda t: torch.fft.ifft(t["x"], norm="forward"),
+             library_call="ifft(norm='forward')",
+             flops=fft_flops(big_r, NBIG), gemm_flops=8 * big_r * NBIG * NBIG,
+             bytes=16 * big_r * NBIG),
+        dict(name="cmatmul", variant="row_n4_stage_2048", body="row",
+             replaces=f"{PALLAS}:164", shape=dict(M=big_n1, n=4, k=4),
+             make=lambda: dict(x=cr(big_n1, 4), F=planes("dft", 4)),
+             run=lambda t: hf.cdft(t["x"], False),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
+             library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
+             flops=fft_flops(big_n1, 4), gemm_flops=8 * big_n1 * 4 * 4,
+             bytes=64 * big_n1 + 8 * 4 * 4),
         dict(name="c2r", replaces=f"{PALLAS}:156",
              shape=dict(M=rows_r, n_in=k_r, n=N),
              make=lambda: dict(x=cr(rows_r, k_r), C=planes("c2r", N)),
@@ -478,24 +557,26 @@ def stage_cases(torch, hf, dev, gen):
              gemm_flops=4 * rows_r * k_r * N,
              bytes=8 * rows_r * k_r + 4 * rows_r * N + 8 * k_r * N),
         # Kernel 4 takes no F: cdft_tw picks its body by n2 (the FFT body
-        # at 512, the tile body at 320, the 640-point axis's 2 x 320).
-        # "rows": torch.fft.fft of the same rows, the stage without its
-        # twiddle, the nearer yardstick beside the whole axis.
+        # at 512, the 2048-point axis's 4 x 512; the tile body at 320, the
+        # 640-point axis's 2 x 320). "rows": torch.fft.fft of the same
+        # rows, the stage without its twiddle, the nearer yardstick beside
+        # the whole axis.
         dict(name="cmatmul_tw", replaces=f"{PALLAS}:171",
-             shape=dict(M=big_tw, n=N, k=N, n1=2),
+             shape=dict(M=big_tw, n=N, k=N, n1=4),
              make=lambda: dict(x=cr(big_tw, N), F=planes("dft", N),
-                               T=hf._twiddle_planes(2, N, False, dev),
-                               z=cr(big_tw // 2, NBIG)),
-             run=lambda t: hf.cdft_tw(t["x"], 2, False),
+                               T=hf._twiddle_planes(4, N, False, dev),
+                               z=cr(big_tw // 4, 4 * N)),
+             run=lambda t: hf.cdft_tw(t["x"], 4, False),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
              pair=lambda t: hf._fft_last(t["z"], False),
              rows=lambda t: torch.fft.fft(t["x"]),
              library=lambda t: torch.fft.fft(t["z"]),
-             library_call="fft of the whole 1024-point axis",
+             library_call="fft of the whole 2048-point axis",
              flops=fft_flops(big_tw, N) + 6 * big_tw * N,
              gemm_flops=8 * big_tw * N * N,
-             bytes=16 * big_tw * N + 8 * 2 * N),
-        dict(name="cmatmul_tw", variant="tile_n2_320", replaces=f"{PALLAS}:171",
+             bytes=16 * big_tw * N + 8 * 4 * N),
+        dict(name="cmatmul_tw", variant="tile_n2_320", body="tile",
+             replaces=f"{PALLAS}:171",
              shape=dict(M=rows_640c, n=320, k=320, n1=2),
              make=lambda: dict(x=cr(rows_640c, 320), F=planes("dft", 320),
                                T=hf._twiddle_planes(2, 320, False, dev),
@@ -509,21 +590,23 @@ def stage_cases(torch, hf, dev, gen):
              gemm_flops=8 * rows_640c * 320 * 320,
              bytes=16 * rows_640c * 320 + 8 * 320 * 320 + 8 * 2 * 320),
         # Kernel 5 takes no F: rdft_tw picks its body by n2 (the FFT body
-        # at 512, the tile body at 320, the 640-point axis's 2 x 320).
+        # at 512, the 2048-point axis's 4 x 512; the tile body at 320, the
+        # 640-point axis's 2 x 320).
         dict(name="rmatmul_tw", replaces=f"{PALLAS}:188",
-             shape=dict(M=big_rtw, n=N, k=N, n1=2),
+             shape=dict(M=big_rtw, n=N, k=N, n1=4),
              make=lambda: dict(x=rr(big_rtw, N), F=planes("dft", N),
-                               T=hf._twiddle_planes(2, N, False, dev),
-                               z=rr(big_rtw // 2, NBIG)),
-             run=lambda t: hf.rdft_tw(t["x"], 2),
+                               T=hf._twiddle_planes(4, N, False, dev),
+                               z=rr(big_rtw // 4, 4 * N)),
+             run=lambda t: hf.rdft_tw(t["x"], 4),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
              pair=lambda t: hf._rfft_last(t["z"]),
              library=lambda t: torch.fft.rfft(t["z"]),
-             library_call="rfft of the whole 1024-point axis",
+             library_call="rfft of the whole 2048-point axis",
              flops=fft_flops(big_rtw, N, real=True) + 6 * big_rtw * N,
              gemm_flops=4 * big_rtw * N * N,
-             bytes=12 * big_rtw * N + 8 * 2 * N),
-        dict(name="rmatmul_tw", variant="tile_n2_320", replaces=f"{PALLAS}:188",
+             bytes=12 * big_rtw * N + 8 * 4 * N),
+        dict(name="rmatmul_tw", variant="tile_n2_320", body="tile",
+             replaces=f"{PALLAS}:188",
              shape=dict(M=rows_640, n=320, k=320, n1=2),
              make=lambda: dict(x=rr(rows_640, 320), F=planes("dft", 320),
                                T=hf._twiddle_planes(2, 320, False, dev),
@@ -592,7 +675,8 @@ def wire_cases(torch, hf, dev, gen):
              library_call="ifft(norm='forward') of the decoded block",
              flops=fft_flops(m11, NBIG), gemm_flops=8 * m11 * NBIG * NBIG,
              bytes=12 * m11 * NBIG),
-        dict(name="dec_cmatmul", variant="tile_n_520", replaces=f"{PALLAS}:737",
+        dict(name="dec_cmatmul", variant="tile_n_520", body="tile",
+             replaces=f"{PALLAS}:737",
              source=src, shape=dict(M=m11, n=520),
              make=lambda: make_arrival(520), check=TOL,
              run=lambda t: hf.dec_cmatmul(t["y"], True),
@@ -616,6 +700,98 @@ def check_wire(torch, k, got, ref):
                                                  ref.view(bits)):
         fail(f"kernel {k['name']} is not bit-equal to its plain version")
     return 0.0, 0.0
+
+
+# The single-card per-axis paths under "pallas": id -> (shape, launches
+# forward, launches inverse, C entry points forward, inverse). At 1024^3
+# every axis is one launch of the row FFT engine (kernels 1 and 2); at
+# 2048 x 256 x 2048 the x and z axes split 4 x 512 (kernels 5 and 4, then
+# kernel 2's 4-point second stage on the row body of dfft_stage) and y is
+# one engine launch. The inverse C2R of an axis past 512 points inverts the
+# Hermitian-extended spectrum as a complex transform.
+PER_AXIS_PATHS = {
+    "per_axis_1024": (
+        (NBIG,) * 3, dict(rmatmul=1, cmatmul=2), dict(cmatmul=3),
+        {"dfft_rdft": 1, "dfft_cdft": 2}, {"dfft_cdft": 3}),
+    "per_axis_2048x256x2048": (
+        SPLIT, dict(rmatmul_tw=1, cmatmul_tw=1, cmatmul=3),
+        dict(cmatmul_tw=2, cmatmul=3),
+        {"dfft_rdft_tw": 1, "dfft_cdft_tw": 1, "dfft_cdft": 1, "dfft_stage": 2},
+        {"dfft_cdft_tw": 2, "dfft_cdft": 1, "dfft_stage": 2}),
+}
+
+
+def per_axis_path(torch, dft, hf, gen, pid, shape, want_f, want_i, ent_f_want,
+                  ent_i_want):
+    """Run one single-card per-axis plan: launches and entry points per
+    direction, forward against torch.fft.rfftn and the roundtrip against
+    the input, then times under "pallas" and "xla" and the kernel share of
+    each direction. Returns the launches of the roundtrip."""
+    torch.cuda.reset_peak_memory_stats()
+    xb = torch.randn(shape, generator=gen, device="cuda")
+    big = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                          dft.Config(fft_backend="pallas"))
+    hf.reset_launches()
+    with entry_counts(hf) as ent_f:
+        cb = big.exec_r2c(xb)
+        torch.cuda.synchronize()
+    fwd = dict(hf.LAUNCHES)
+    hf.reset_launches()
+    with entry_counts(hf) as ent_i:
+        bb = big.exec_c2r(cb)
+        torch.cuda.synchronize()
+    inv = dict(hf.LAUNCHES)
+    emit(phase="main_path", path=pid, shape=list(shape), launches_forward=fwd,
+         launches_inverse=inv, entries_forward=ent_f, entries_inverse=ent_i,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i) or \
+            ent_f != ent_f_want or ent_i != ent_i_want:
+        fail(f"{pid} plan did not launch the per-axis kernels as expected: "
+             f"forward {fwd} (entries {ent_f}), inverse {inv} (entries "
+             f"{ent_i})")
+    spectral = tuple(shape[:2]) + (shape[2] // 2 + 1,)
+    if tuple(cb.shape) != spectral or tuple(bb.shape) != tuple(shape):
+        fail(f"unexpected {pid} outputs {tuple(cb.shape)}, {tuple(bb.shape)}")
+    _, fwd_rel = rel_err(cb, torch.fft.rfftn(xb))
+    bb /= float(math.prod(shape))
+    _, rt_rel = rel_err(bb, xb)
+    emit(phase="main_path_check", path=pid, forward_vs_torch_fft=fwd_rel,
+         roundtrip_vs_input=rt_rel, tol=TOL)
+    if not (fwd_rel <= TOL and rt_rel <= TOL):
+        fail(f"{pid} plan wrong: forward rel {fwd_rel:.3e}, roundtrip rel "
+             f"{rt_rel:.3e} (tol {TOL})")
+    del bb
+    torch.cuda.empty_cache()
+    xla_big = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                              dft.Config())
+    timed = dict(
+        path=pid, shape=list(shape), reps=REPS_BIG,
+        pallas_forward_ms=median_ms(torch, lambda: big.exec_r2c(xb),
+                                    REPS_BIG, 1),
+        pallas_inverse_ms=median_ms(torch, lambda: big.exec_c2r(cb),
+                                    REPS_BIG, 1))
+    cxb = xla_big.exec_r2c(xb)
+    timed.update(
+        xla_forward_ms=median_ms(torch, lambda: xla_big.exec_r2c(xb),
+                                 REPS_BIG, 1),
+        xla_inverse_ms=median_ms(torch, lambda: xla_big.exec_c2r(cxb),
+                                 REPS_BIG, 1))
+    del cxb
+    torch.cuda.empty_cache()
+    # Kernel time inside one run of each direction; the rest is the axis
+    # moves, the four-step swaps of a split axis (copies) and the Hermitian
+    # extension, which one profiled run names op by op.
+    for name, fn in (("forward", lambda: big.exec_r2c(xb)),
+                     ("inverse", lambda: big.exec_c2r(cb))):
+        total, per = kernel_share(torch, hf, fn)
+        timed[f"{name}_events_ms"] = total
+        timed[f"{name}_kernel_ms"] = per
+        timed[f"{name}_rest_ms"] = total - sum(per.values())
+        timed[f"{name}_profile"] = device_profile(torch, fn)
+    emit(phase="plan_time", **timed)
+    del xb, cb, big, xla_big
+    torch.cuda.empty_cache()
+    return {k: fwd[k] + inv[k] for k in fwd}
 
 
 def main() -> int:
@@ -684,7 +860,8 @@ def main() -> int:
              flops=fft_flops(X * Y, Z, real=True) + fft_flops(X * Zo, Y),
              gemm_flops=4 * X * Y * Z * Zo + 8 * X * Y * Y * Zo,
              bytes=4 * (X * Y * Z + 2 * X * Y * Zo)),
-        dict(name="zy_fwd", variant="dense_480", replaces=f"{PALLAS}:427",
+        dict(name="zy_fwd", variant="dense_480", body="dense",
+             replaces=f"{PALLAS}:427",
              shape=dict(X=X, Y=480, Z=480),
              run=lambda: hf.zy_fwd(x480),
              plain=lambda: hf.zy_fwd_plain(x480, *f480),
@@ -861,75 +1038,9 @@ def main() -> int:
         del t
         torch.cuda.empty_cache()
 
-    # -- 7. the 1024^3 single-card plan: per-axis four-step kernels ----------
-    torch.cuda.reset_peak_memory_stats()
-    xb = torch.randn((NBIG,) * 3, generator=gen, device=dev)
-    big = dft.SlabFFTPlan(dft.GlobalSize(NBIG, NBIG, NBIG),
-                          dft.SlabPartition(1), pallas)
-    hf.reset_launches()
-    with entry_counts(hf) as ent_f:
-        cb = big.exec_r2c(xb)
-        torch.cuda.synchronize()
-    fwd = dict(hf.LAUNCHES)
-    hf.reset_launches()
-    with entry_counts(hf) as ent_i:
-        bb = big.exec_c2r(cb)
-        torch.cuda.synchronize()
-    inv = dict(hf.LAUNCHES)
-    launches["per_axis_1024"] = {k: fwd[k] + inv[k] for k in fwd}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    emit(phase="main_path", path="per_axis_1024", launches_forward=fwd,
-         launches_inverse=inv, entries_forward=ent_f, entries_inverse=ent_i,
-         peak_memory_gb=peak_gb)
-    # Kernels 4 and 5 on their FFT bodies (dfft_cdft_tw, dfft_rdft_tw);
-    # the 2-point second stage on dfft_stage's row path.
-    if fwd != expect(hf, rmatmul_tw=1, cmatmul_tw=2, cmatmul=3) or \
-            inv != expect(hf, cmatmul_tw=3, cmatmul=3) or \
-            ent_f != {"dfft_rdft_tw": 1, "dfft_cdft_tw": 2, "dfft_stage": 3} \
-            or ent_i != {"dfft_cdft_tw": 3, "dfft_stage": 3}:
-        fail(f"1024^3 plan did not launch the four-step kernels as "
-             f"expected: forward {fwd} (entries {ent_f}), inverse {inv} "
-             f"(entries {ent_i})")
-    if tuple(cb.shape) != (NBIG, NBIG, NBIG // 2 + 1) or \
-            tuple(bb.shape) != (NBIG,) * 3:
-        fail(f"unexpected 1024^3 outputs {tuple(cb.shape)}, {tuple(bb.shape)}")
-    _, fwd_rel = rel_err(cb, torch.fft.rfftn(xb))
-    bb /= float(NBIG) ** 3
-    _, rt_rel = rel_err(bb, xb)
-    emit(phase="main_path_check", path="per_axis_1024",
-         forward_vs_torch_fft=fwd_rel, roundtrip_vs_input=rt_rel, tol=TOL)
-    if not (fwd_rel <= TOL and rt_rel <= TOL):
-        fail(f"1024^3 plan wrong: forward rel {fwd_rel:.3e}, roundtrip rel "
-             f"{rt_rel:.3e} (tol {TOL})")
-    del bb
-    torch.cuda.empty_cache()
-    xla_big = dft.SlabFFTPlan(dft.GlobalSize(NBIG, NBIG, NBIG),
-                              dft.SlabPartition(1), dft.Config())
-    plan_big = dict(
-        shape=[NBIG] * 3, reps=REPS_BIG,
-        pallas_forward_ms=median_ms(torch, lambda: big.exec_r2c(xb),
-                                    REPS_BIG, 1),
-        pallas_inverse_ms=median_ms(torch, lambda: big.exec_c2r(cb),
-                                    REPS_BIG, 1))
-    cxb = xla_big.exec_r2c(xb)
-    plan_big.update(
-        xla_forward_ms=median_ms(torch, lambda: xla_big.exec_r2c(xb),
-                                 REPS_BIG, 1),
-        xla_inverse_ms=median_ms(torch, lambda: xla_big.exec_c2r(cxb),
-                                 REPS_BIG, 1))
-    del cxb
-    torch.cuda.empty_cache()
-    # Kernel time inside one run of each direction; the rest is the axis
-    # moves and four-step swaps (copies) and the Hermitian extension.
-    for name, fn in (("forward", lambda: big.exec_r2c(xb)),
-                     ("inverse", lambda: big.exec_c2r(cb))):
-        total, per = kernel_share(torch, hf, fn)
-        plan_big[f"{name}_events_ms"] = total
-        plan_big[f"{name}_kernel_ms"] = per
-        plan_big[f"{name}_rest_ms"] = total - sum(per.values())
-    emit(phase="plan_time", **plan_big)
-    del xb, cb, big, xla_big
-    torch.cuda.empty_cache()
+    # -- 7. the single-card per-axis plans -----------------------------------
+    for pid, spec in PER_AXIS_PATHS.items():
+        launches[pid] = per_axis_path(torch, dft, hf, gen, pid, *spec)
 
     # -- 8. the 512^3 plan as two ranks sharing the card over gloo -----------
     import torch.multiprocessing as tmp

@@ -1,11 +1,12 @@
 // The row FFT engine for Hopper (sm_90a), shared by wire.cu (kernel 11),
-// stage.cu (kernels 4 and 5) and fused3d.cu (kernel 6): the DFT of every
-// row of a batch of power-of-two rows, 8 <= n <= 1024, in shared memory and
-// registers.
+// stage.cu (kernels 1, 2, 4 and 5) and fused3d.cu (kernel 6): the DFT of
+// every row of a batch of power-of-two rows, 8 <= n <= 1024, in shared
+// memory and registers.
 //
-// It replaces the dense DFT product of four Pallas TPU kernels of
+// It replaces the dense DFT product of six Pallas TPU kernels of
 // distributedfft_tpu/ops/pallas_fft.py (_dec_cmatmul_kernel :737, kernel
-// 11, _cmatmul_tw_kernel :171, kernel 4, _rmatmul_tw_kernel :188, kernel 5,
+// 11, _cmatmul_kernel :164, kernel 2, _rmatmul_kernel :182, kernel 1,
+// _cmatmul_tw_kernel :171, kernel 4, _rmatmul_tw_kernel :188, kernel 5,
 // and _zy_fwd_kernel :427, kernel 6, as two passes). The TPU had only a
 // matrix unit, so there a row DFT is a product with the (n, n) DFT matrix:
 // n / (5 log2 n) times an FFT's arithmetic (20x at n = 1024). Here the
@@ -397,12 +398,12 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
 }
 
 // ---------------------------------------------------------------------------
-// A Body on complex rows, shared by stage.cu (kernel 4, TW) and fused3d.cu
-// (kernel 6's y pass, no twiddle): (M, n) interleaved complex64 in and out,
-// the n-point DFT of each row, times the four-step twiddle row T[r % n1]
-// ((n1, n) float32 planes) when TW. out may be x: each batch's rows are
-// read whole (its bulk copy has landed) before they are written, and no
-// other batch reads them.
+// A Body on complex rows, shared by stage.cu (kernel 4, TW; kernel 2, no
+// twiddle) and fused3d.cu (kernel 6's y pass, no twiddle): (M, n)
+// interleaved complex64 in and out, the n-point DFT of each row, times the
+// four-step twiddle row T[r % n1] ((n1, n) float32 planes) when TW. out may
+// be x: each batch's rows are read whole (its bulk copy has landed) before
+// they are written, and no other batch reads them.
 // ---------------------------------------------------------------------------
 template <bool TW>
 struct ComplexTwiddleRows {

@@ -15,8 +15,17 @@
 // distributedfft_tpu/ops/pallas_fft.py, all reached through _call_stage /
 // _c2r_stage:
 //
-//   MODE_CMATMUL             <- _cmatmul_kernel     (kernel 2, complex rows)
-//   MODE_RMATMUL             <- _rmatmul_kernel     (kernel 1, real rows)
+//   fft_rows_kernel<L, ComplexTwiddleRows<false>>
+//                            <- _cmatmul_kernel     (kernel 2, FFT body:
+//                               power-of-two n in [8, 1024])
+//   MODE_CMATMUL             <- _cmatmul_kernel     (kernel 2, tile or row
+//                               body: any other n, e.g. 96, 257, or the
+//                               4-point second stage of a 2048 axis)
+//   fft_rows_kernel<L, RealRows>
+//                            <- _rmatmul_kernel     (kernel 1, FFT body:
+//                               power-of-two n in [8, 1024])
+//   MODE_RMATMUL             <- _rmatmul_kernel     (kernel 1, tile or row
+//                               body: any other n)
 //   MODE_C2R                 <- _c2r_kernel         (kernel 3, real output)
 //   fft_rows_kernel<L, ComplexTwiddleRows<true>>
 //                            <- _cmatmul_tw_kernel  (kernel 4, FFT body:
@@ -42,40 +51,42 @@
 //
 //   kernel 1, 512^3 over 2 ranks (M 131072, n 512, k 257):   0.54 GB -> 0.16 ms
 //   kernel 2, same plan (M 65792, n = k = 512):              0.54 GB -> 0.16 ms
-//   kernel 2, second four-step stage at 1024^3 (M 5.37e8, n = k = 2):
-//                                                            17.2 GB -> 5.1 ms
 //   kernel 3, same plan (M 131072, n_in 257, n 512):         0.54 GB -> 0.16 ms
-//   kernel 4, 1024^3 x/y forward (M 1050624, n = k = 512):    8.6 GB -> 2.6 ms
-//   kernel 5, 1024^3 z forward (M 2097152, n = k = 512):     12.9 GB -> 3.85 ms
+//   kernel 1, 1024^3 z forward (M 1048576, n 1024, k 513):    8.6 GB -> 2.57 ms
+//   kernel 2, 1024^3 x/y forward (M 525312, n = k = 1024):    8.6 GB -> 2.57 ms
+//   kernel 4, 2048 x 256 x 2048 x forward (M 1049600, n = k = 512):
+//                                                             8.6 GB -> 2.57 ms
+//   kernel 2, same axis, 4-point second stage (M 134348800): 8.6 GB -> 2.57 ms
+//   kernel 5, same plan, z forward (M 2097152, n = k = 512): 12.9 GB -> 3.85 ms
 //
 // The dense bodies do 8 n k flop a complex row, 8 n / (5 log2 n) times an
-// FFT's work at k = n, which makes kernels 1-4 bound by operations as
-// written.
+// FFT's work at k = n, which makes them bound by operations as written.
 //
 // What the design does about those bounds:
-// - Kernel 4's FFT body is the row engine of fft_rows.cuh on complex rows:
-//   each batch of interleaved complex64 rows arrives by one bulk copy, the
-//   first pass reads it as it lies, and the epilogue multiplies by the
-//   twiddle row T[r % n1] and stores interleaved complex64. It reads and
-//   writes each byte once and does 5 n log2 n flop a row where the dense
-//   product did 8 n^2. The twiddle is a compile-time flag of the Body
-//   (in fft_rows.cuh; ComplexTwiddleRows<false> is the plain row DFT,
-//   which kernel 6's y pass runs and kernel 2 can take).
-// - Kernel 5's FFT body is the row engine of fft_rows.cuh: each batch of
-//   real rows arrives by one bulk copy, the first pass packs rows 2c and
-//   2c + 1 as one complex row, and the epilogue splits the spectrum,
-//   X_a[k] = (Z[k] + conj Z[n-k]) / 2 and X_b[k] = (Z[k] - conj Z[n-k]) / 2i,
-//   multiplies by the twiddle row T[r % n1] and stores interleaved complex64;
-//   an odd last row is paired with zeros. It reads each input byte once and
-//   does 2.5 n log2 n flop a row where the dense product did 4 n^2.
+// - Kernels 2 and 4 have an FFT body on the row engine of fft_rows.cuh on
+//   complex rows (ComplexTwiddleRows<TW>): each batch of interleaved
+//   complex64 rows arrives by one bulk copy, the first pass reads it as it
+//   lies, and the epilogue stores interleaved complex64, times the twiddle
+//   row T[r % n1] for kernel 4. It reads and writes each byte once and does
+//   5 n log2 n flop a row where the dense product did 8 n^2.
+// - Kernels 1 and 5 have an FFT body on the same engine on real rows
+//   (RealRowPairs): each batch of real rows arrives by one bulk copy, the
+//   first pass packs rows 2c and 2c + 1 as one complex row (an odd last row
+//   paired with zeros), and the epilogue splits the spectrum,
+//   X_a[k] = (Z[k] + conj Z[n-k]) / 2 and X_b[k] = (Z[k] - conj Z[n-k]) / 2i.
+//   Kernel 5 keeps every bin and multiplies by T[r % n1]; kernel 1 keeps
+//   bins 0..n/2 (RealRows), whose rows of 8 (n/2 + 1) bytes are written as
+//   one contiguous span a batch, not row by row. Each input byte is read
+//   once, and 2.5 n log2 n flop a row are done where the dense product did
+//   4 n (n/2 + 1).
 // - Wide dense stages take the tile path of stage_tile.cuh:
 //   64 x 64 output tiles, depth 16, 256 threads each holding a 4 x 4
 //   complex register tile, as x_c2c_kernel in fused3d.cu does; an operand
 //   fetched from shared memory feeds 4 (real) to 16 (complex) FMAs. The
 //   twiddle is applied in registers before the store, so a four-step first
 //   stage costs no extra pass.
-// - Narrow stages (n and k of a few points: the 2-point second stage of the
-//   1024 four-step) take the row path: one thread per row, the row held in
+// - Narrow stages (n and k of a few points: the 4-point second stage of a
+//   2048 four-step) take the row path: one thread per row, the row held in
 //   registers, F in shared memory, so each byte of X and Y crosses HBM once
 //   and no lane of a 64-wide tile idles.
 // - Ragged edges (k = 257, n_in = 257, any M) are masked element by
@@ -193,16 +204,13 @@ cudaError_t launch(const float* x, const float* fr, const float* fi,
   return cudaGetLastError();
 }
 
-// Kernel 5's rows for the FFT engine: (M, n) float32 rows in, two to a
-// complex row; (M, n) interleaved complex64 out, the full spectrum of each
-// row times the four-step twiddle row T[r % n1] ((n1, n) float32 planes).
-struct RealTwiddleRows {
+// Real rows for the FFT engine, two to a complex row: (M, n) float32 in,
+// rows 2c and 2c + 1 of a batch packed as complex row c (an odd last row
+// paired with zeros). The loader of kernels 5 and 1; each adds its epilogue.
+struct RealRowPairs {
   const float* x;
-  const float* tr;
-  const float* ti;
   float* out;
   int M;
-  int n1;
 
   template <int L>
   __host__ __device__ int batches() const {
@@ -235,6 +243,30 @@ struct RealTwiddleRows {
     const float* p = reinterpret_cast<const float*>(buf) + 2 * c * G::N + i;
     return make_float2(p[0], 2 * c + 1 < rows_in<L>(b) ? p[G::N] : 0.f);
   }
+  // Bin k of real row q of the batch, from the spectrum Z of complex row
+  // q / 2: X_a[k] = (Z[k] + conj Z[n-k]) / 2 for even q, X_b[k] = (Z[k] -
+  // conj Z[n-k]) / 2i for odd q.
+  template <int L>
+  __device__ static float2 split(const float* re, const float* im, int q,
+                                 int k) {
+    constexpr int N = fft_rows::Geometry<L>::N;
+    const int z = (q >> 1) * N;
+    const int i = fft_rows::pad(z + k);
+    const int i2 = fft_rows::pad(z + ((N - k) & (N - 1)));
+    const float zr = re[i], zi = im[i], nr = re[i2], ni = im[i2];
+    return (q & 1) ? make_float2(0.5f * (zi + ni), 0.5f * (nr - zr))
+                   : make_float2(0.5f * (zr + nr), 0.5f * (zi - ni));
+  }
+};
+
+// Kernel 5's rows: (M, n) interleaved complex64 out, the full spectrum of
+// each row times the four-step twiddle row T[r % n1] ((n1, n) float32
+// planes).
+struct RealTwiddleRows : RealRowPairs {
+  const float* tr;
+  const float* ti;
+  int n1;
+
   template <int L>
   __device__ void store(const float* re, const float* im, int b) const {
     using G = fft_rows::Geometry<L>;
@@ -244,22 +276,44 @@ struct RealTwiddleRows {
     float4* o = reinterpret_cast<float4*>(out + (size_t)b * G::POINTS * 4);
     for (int e = 2 * threadIdx.x; e < count; e += 2 * fft_rows::THREADS) {
       const int q = e >> L, k = e & (N - 1);
-      const int z = (q >> 1) * N;  // complex row c = q / 2
       const size_t t = (size_t)((row0 + q) % n1) * N + k;
       float v[4];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int i = fft_rows::pad(z + k + h);
-        const int i2 = fft_rows::pad(z + ((N - k - h) & (N - 1)));
-        const float zr = re[i], zi = im[i], nr = re[i2], ni = im[i2];
-        // X_a = (Z[k] + conj Z[n-k]) / 2, X_b = (Z[k] - conj Z[n-k]) / 2i.
-        const float xr = (q & 1) ? 0.5f * (zi + ni) : 0.5f * (zr + nr);
-        const float xi = (q & 1) ? 0.5f * (nr - zr) : 0.5f * (zi - ni);
+        const float2 s = split<L>(re, im, q, k + h);
         const float wr = __ldg(tr + t + h), wi = __ldg(ti + t + h);
-        v[2 * h] = xr * wr - xi * wi;
-        v[2 * h + 1] = xr * wi + xi * wr;
+        v[2 * h] = s.x * wr - s.y * wi;
+        v[2 * h + 1] = s.x * wi + s.y * wr;
       }
       o[e / 2] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+};
+
+// Kernel 1's rows: (M, n/2 + 1) interleaved complex64 out, bins 0..n/2 of
+// each row's spectrum. A row is 8 (n/2 + 1) bytes, not a multiple of 16, so
+// the epilogue walks the batch's output as one contiguous span of
+// rows_in * (n/2 + 1) bins (16 ROWS (n/2 + 1) bytes a full batch, so every
+// batch starts 16-byte aligned): thread by thread two neighbouring bins, of
+// one row or across a row boundary, as one coalesced 16-byte store, and a
+// last odd bin as 8 bytes.
+struct RealRows : RealRowPairs {
+  template <int L>
+  __device__ void store(const float* re, const float* im, int b) const {
+    using G = fft_rows::Geometry<L>;
+    constexpr int K = G::N / 2 + 1;  // bins a row
+    const int count = rows_in<L>(b) * K;
+    float2* o = reinterpret_cast<float2*>(out) + (size_t)b * 2 * G::ROWS * K;
+    for (int e = 2 * threadIdx.x; e < count; e += 2 * fft_rows::THREADS) {
+      const int q = e / K, k = e - q * K;  // K a compile-time constant
+      const float2 v = split<L>(re, im, q, k);
+      if (e + 1 < count) {
+        const float2 w = k + 1 < K ? split<L>(re, im, q, k + 1)
+                                   : split<L>(re, im, q + 1, 0);
+        reinterpret_cast<float4*>(o)[e / 2] = make_float4(v.x, v.y, w.x, w.y);
+      } else {
+        o[e] = v;
+      }
     }
   }
 };
@@ -309,7 +363,7 @@ int dfft_rdft_tw(const float* x, const float* table, const float* tr,
   if (M < 1 || n1 < 1 || !tr || !ti) return cudaErrorInvalidValue;
   if (fft_rows::misaligned(x) || fft_rows::misaligned(out))
     return cudaErrorMisalignedAddress;
-  const RealTwiddleRows body{x, tr, ti, out, M, n1};
+  const RealTwiddleRows body{{x, out, M}, tr, ti, n1};
   return fft_rows::launch(n, schedule, body, table, 0,
                           static_cast<cudaStream_t>(stream));
 }
@@ -325,6 +379,33 @@ int dfft_cdft_tw(const float* x, const float* table, const float* tr,
     return cudaErrorMisalignedAddress;
   const fft_rows::ComplexTwiddleRows<true> body{x, tr, ti, out, M, n1};
   return fft_rows::launch(n, schedule, body, table, inverse,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 2, FFT body. x: (M, n) complex64, n a power of two in [8, 1024],
+// 16-byte aligned; table, schedule: ops/hopper_fft.fft_plan(n, inverse);
+// out: (M, n) complex64, 16-byte aligned.
+int dfft_cdft(const float* x, const float* table, float* out, int M, int n,
+              int schedule, int inverse, void* stream) {
+  if (M < 1) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(x) || fft_rows::misaligned(out))
+    return cudaErrorMisalignedAddress;
+  const fft_rows::ComplexTwiddleRows<false> body{x, nullptr, nullptr, out, M,
+                                                 1};
+  return fft_rows::launch(n, schedule, body, table, inverse,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 1, FFT body. x: (M, n) float32, n a power of two in [8, 1024],
+// 16-byte aligned; table, schedule: ops/hopper_fft.fft_plan(n, False);
+// out: (M, n/2 + 1) complex64, 16-byte aligned.
+int dfft_rdft(const float* x, const float* table, float* out, int M, int n,
+              int schedule, void* stream) {
+  if (M < 1) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(x) || fft_rows::misaligned(out))
+    return cudaErrorMisalignedAddress;
+  const RealRows body{{x, out, M}};
+  return fft_rows::launch(n, schedule, body, table, 0,
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -18,21 +18,24 @@ granularities:
   (or real) data, optionally with the four-step twiddle fused into its
   epilogue, plus the half-spectrum C2R. ``fft``/``ifft``/``rfft``/
   ``irfft`` move the axis last and dispatch as ``pallas_fft._fft_last`` /
-  ``_rfft_last`` do: one direct stage up to 512 points (and for a prime
-  up to 1024), else the four-step split of ``mxu_fft._split_for``, whose
-  real-input first stage is ``rdft_tw``. This path carries every
-  distributed plan and every single-device cube the fused path does not
-  take.
+  ``_rfft_last`` do, but for the engine's lengths: one direct stage
+  (``cdft`` / ``rdft``, kernels 2 and 1) up to 512 points, for a power of
+  two up to 1024 and for a prime up to 1024, else the four-step split of
+  ``mxu_fft._split_for`` (the JAX package splits every axis past 512,
+  where the TPU's direct matmul stops), whose first stage is ``cdft_tw``
+  or ``rdft_tw``. This path carries every distributed plan and every
+  single-device cube the fused path does not take.
 * **fused wire** (``csrc/wire.cu``): the bf16 wire of the ring exchanges
   (``parallel/transpose.ring_transpose``) as kernels — ``enc_pack``
   encodes a travelling block, ``dec_unpack`` decodes an arrived one, and
   ``dec_cmatmul`` decodes it straight into the first per-block DFT. The
   hooks ``fused_ring_hooks`` / ``decode_fft_fused`` plug them into a ring.
-* **row FFT engine** (``csrc/fft_rows.cuh``): the body of ``cdft_tw``
-  (kernel 4), ``rdft_tw`` (kernel 5) and ``dec_cmatmul`` (kernel 11) on
-  rows of a power of two in [8, 1024] (``_fft_body``); other lengths take
-  the dense tile loop of ``stage.cu``. It also runs the two FFT passes
-  of ``zy_fwd``'s FFT body (kernel 6). ``fft_plan`` is its host side.
+* **row FFT engine** (``csrc/fft_rows.cuh``): the body of ``rdft``
+  (kernel 1), ``cdft`` (kernel 2), ``cdft_tw`` (kernel 4), ``rdft_tw``
+  (kernel 5) and ``dec_cmatmul`` (kernel 11) on rows of a power of two in
+  [8, 1024] (``_fft_body``); other lengths take the dense bodies of
+  ``stage.cu``. It also runs the two FFT passes of ``zy_fwd``'s FFT body
+  (kernel 6). ``fft_plan`` is its host side.
 
 Each kernel has here:
 
@@ -77,6 +80,8 @@ _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
             "dfft_stage": ("stage", (6, 6)),
             "dfft_rdft_tw": ("stage", (5, 4)),
             "dfft_cdft_tw": ("stage", (5, 5)),
+            "dfft_cdft": ("stage", (3, 4)),
+            "dfft_rdft": ("stage", (3, 3)),
             "dfft_enc_pack": ("wire", (2, 6)),
             "dfft_dec_unpack": ("wire", (2, 1)),
             "dfft_dec_cmatmul": ("wire", (4, 2)),
@@ -137,8 +142,8 @@ def _twiddle(n1: int, n2: int, inverse: bool,
 
 
 # ---------------------------------------------------------------------------
-# The row FFT engine of kernels 4, 5, 6 and 11 (csrc/fft_rows.cuh): its
-# host side
+# The row FFT engine of kernels 1, 2, 4, 5, 6 and 11 (csrc/fft_rows.cuh):
+# its host side
 # ---------------------------------------------------------------------------
 
 # Row lengths the engine takes: the powers of two in [FFT_MIN, FFT_MAX].
@@ -146,9 +151,11 @@ FFT_MIN, FFT_MAX = 8, 1024
 
 
 def _fft_body(n: int) -> str:
-    """The body kernels 4, 5 and 11 run on rows of n points: ``"fft"`` (the
-    row FFT engine) for a power of two in [FFT_MIN, FFT_MAX], else
-    ``"tile"`` (the dense tile loop of ``stage_tile.cuh``)."""
+    """The body kernels 1, 2, 4, 5 and 11 run on rows of n points:
+    ``"fft"`` (the row FFT engine) for a power of two in [FFT_MIN,
+    FFT_MAX], else ``"tile"`` (the dense bodies of ``stage.cu`` / ``wire.cu``
+    with the DFT planes: the tile loop of ``stage_tile.cuh``, or for
+    kernels 1 and 2 on rows of a few points the row path)."""
     return "fft" if FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0 else "tile"
 
 
@@ -272,21 +279,34 @@ def fft_rows_mirror(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     return x
 
 
-def rdft_tw_mirror(x2: torch.Tensor, n1: int) -> torch.Tensor:
-    """Kernel 5's FFT body in plain PyTorch: real rows 2c and 2c + 1 packed
-    as one complex row (an odd last row paired with zeros), the engine, the
-    split X_a[k] = (Z[k] + conj Z[n-k]) / 2, X_b[k] = (Z[k] - conj Z[n-k])
-    / 2i, and the twiddle row T[r % n1]."""
+def _real_pairs_mirror(x2: torch.Tensor) -> torch.Tensor:
+    """The real-row loader and split of kernels 1, 5 and 6 in plain
+    PyTorch: real rows 2c and 2c + 1 packed as one complex row (an odd last
+    row paired with zeros), the engine, the split X_a[k] = (Z[k] + conj
+    Z[n-k]) / 2, X_b[k] = (Z[k] - conj Z[n-k]) / 2i: (M, n) -> (M, n), the
+    full spectrum of each row."""
     M, n = x2.shape
     x = x2.to(torch.float32)
     if M % 2:
         x = torch.cat([x, x.new_zeros((1, n))])
     z = fft_rows_mirror(torch.complex(x[0::2], x[1::2]), False)
     zn = z[:, (-torch.arange(n)) % n].conj()
-    out = torch.stack([(z + zn) / 2, (z - zn) / 2j], 1).reshape(-1, n)[:M]
+    return torch.stack([(z + zn) / 2, (z - zn) / 2j], 1).reshape(-1, n)[:M]
+
+
+def rdft_mirror(x2: torch.Tensor) -> torch.Tensor:
+    """Kernel 1's FFT body in plain PyTorch: the real-row pairs, bins
+    k in [0, n/2] kept: (M, n) -> (M, n/2 + 1)."""
+    return _real_pairs_mirror(x2)[:, :x2.shape[1] // 2 + 1]
+
+
+def rdft_tw_mirror(x2: torch.Tensor, n1: int) -> torch.Tensor:
+    """Kernel 5's FFT body in plain PyTorch: the real-row pairs, every bin,
+    times the twiddle row T[r % n1]."""
+    M, n = x2.shape
     tr, ti = _twiddle_planes(n1, n, False, x2.device)
     rows = torch.arange(M) % n1
-    return out * torch.complex(tr[rows], ti[rows])
+    return _real_pairs_mirror(x2) * torch.complex(tr[rows], ti[rows])
 
 
 def cdft_tw_mirror(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
@@ -304,11 +324,8 @@ def zy_rows_mirror(x: torch.Tensor) -> torch.Tensor:
     as one complex row, the engine, the split, k in [0, Z/2] kept, laid
     out as the scratch of ``_zy_scratch_shape``."""
     X, Y, Z = x.shape
-    rows = x.reshape(-1, Z).to(torch.float32)
-    z = fft_rows_mirror(torch.complex(rows[0::2], rows[1::2]), False)
-    zn = z[:, (-torch.arange(Z)) % Z].conj()
-    half = torch.stack([(z + zn) / 2, (z - zn) / 2j], 1).reshape(-1, Z)
-    return half[:, :Z // 2 + 1].reshape(X, Y, -1).transpose(1, 2).contiguous()
+    half = rdft_mirror(x.reshape(-1, Z))
+    return half.reshape(X, Y, -1).transpose(1, 2).contiguous()
 
 
 def zy_cols_mirror(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -607,6 +624,52 @@ def stage(x2: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
     return y
 
 
+def cdft(x2: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Complex rows to their DFT: (M, n) complex64 -> (M, n) complex64, the
+    unnormalized n-point DFT (inverse DFT when ``inverse``) of each row
+    (kernel 2, ``_cmatmul_kernel`` with the full DFT matrix). The body is
+    ``_fft_body(n)``: the row FFT engine for a power of two in [8, 1024]
+    (on a CPU tensor its plain version, ``stage_plain``), else ``stage``
+    with the DFT planes (the tile or row body); both count as
+    ``cmatmul``."""
+    cpu = _check_rows("cmatmul", x2, torch.complex64)
+    M, n = x2.shape
+    dev = x2.device
+    if _fft_body(n) == "tile":
+        return stage(x2, *_planes("dft", n, inverse, dev))
+    if cpu:
+        return stage_plain(x2, *_planes("dft", n, inverse, dev))
+    y = torch.empty_like(x2)
+    if M:
+        _require_aligned("cmatmul", x2, y)
+        _launch("cmatmul", "dfft_cdft", x2, _fft_table(n, inverse, dev), y, M,
+                n, fft_plan(n, inverse).schedule, int(inverse))
+    return y
+
+
+def rdft(x2: torch.Tensor) -> torch.Tensor:
+    """Real rows to their half spectra: (M, n) float32 -> (M, n//2+1)
+    complex64, bins 0..n/2 of each row's unnormalized DFT (kernel 1,
+    ``_rmatmul_kernel`` with the R2C columns). The body is
+    ``_fft_body(n)``: the row FFT engine for a power of two in [8, 1024]
+    (on a CPU tensor its plain version, ``stage_plain``), else ``stage``
+    with the R2C planes (the tile or row body); both count as
+    ``rmatmul``."""
+    cpu = _check_rows("rmatmul", x2, torch.float32)
+    M, n = x2.shape
+    dev = x2.device
+    if _fft_body(n) == "tile":
+        return stage(x2, *_planes("rdft", n, False, dev))
+    if cpu:
+        return stage_plain(x2, *_planes("rdft", n, False, dev))
+    y = torch.empty((M, n // 2 + 1), dtype=torch.complex64, device=dev)
+    if M:
+        _require_aligned("rmatmul", x2, y)
+        _launch("rmatmul", "dfft_rdft", x2, _fft_table(n, False, dev), y, M,
+                n, fft_plan(n, False).schedule)
+    return y
+
+
 def rdft_tw(x2: torch.Tensor, n1: int) -> torch.Tensor:
     """Real rows to the four-step first stage: (M, n2) float32 -> (M, n2)
     complex64, the full n2-point DFT of each row times the twiddle row
@@ -682,12 +745,17 @@ def c2r(c2: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _last_rows(fn, x: torch.Tensor, *args) -> torch.Tensor:
+    """``fn(rows, *args)`` along the LAST axis of an nd tensor (rows = the
+    flattened rest)."""
+    y2 = fn(x.reshape(-1, x.shape[-1]).contiguous(), *args)
+    return y2.reshape(x.shape[:-1] + y2.shape[-1:])
+
+
 def _stage(x: torch.Tensor, F: Tuple[torch.Tensor, torch.Tensor],
            twiddle: Optional[Tuple[int, int, bool]] = None) -> torch.Tensor:
     """DFT stage along the LAST axis of an nd tensor (rows = flattened rest)."""
-    lead = x.shape[:-1]
-    y2 = stage(x.reshape(-1, x.shape[-1]).contiguous(), *F, twiddle)
-    return y2.reshape(lead + (F[0].shape[1],))
+    return _last_rows(stage, x, *F, twiddle)
 
 
 def _c2r_stage(c: torch.Tensor, n: int) -> torch.Tensor:
@@ -717,18 +785,26 @@ def _swap_last(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2).contiguous()
 
 
+def _direct(n: int) -> bool:
+    """One launch for a whole axis of n points: every n up to
+    ``mx.DIRECT_MAX`` and, past it, a power of two the row FFT engine takes
+    (up to ``FFT_MAX``). A pure function of n."""
+    return n <= mx.DIRECT_MAX or _fft_body(n) == "fft"
+
+
 def _fft_last(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """Unnormalized C2C along the last axis of a contiguous complex64
-    tensor (``pallas_fft._fft_last``)."""
+    tensor (``pallas_fft._fft_last``, with ``_direct`` lengths in one
+    ``cdft``)."""
     n = x.shape[-1]
     lead = x.shape[:-1]
     dev = x.device
-    if n <= mx.DIRECT_MAX:
-        return _stage(x, _planes("dft", n, inverse, dev))
+    if _direct(n):
+        return _last_rows(cdft, x, inverse)
     n1, n2 = mx._split_for(n, mx.DIRECT_MAX)
     if n1 == 1:  # prime length
         if n <= mx.N_MAX:
-            return _stage(x, _planes("dft", n, inverse, dev))
+            return _last_rows(cdft, x, inverse)
         raise _prime_too_long(n)
     a = _swap_last(x.reshape(lead + (n2, n1)))                    # (.., n1, n2)
     if n2 <= mx.DIRECT_MAX:
@@ -745,17 +821,18 @@ def _fft_last(x: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 def _rfft_last(x: torch.Tensor) -> torch.Tensor:
     """Unnormalized R2C along the last axis of a contiguous float32 tensor
-    (``pallas_fft._rfft_last``): (.., n) -> (.., n//2+1)."""
+    (``pallas_fft._rfft_last``, with ``_direct`` lengths in one ``rdft``):
+    (.., n) -> (.., n//2+1)."""
     n = x.shape[-1]
     n_out = n // 2 + 1
     lead = x.shape[:-1]
     dev = x.device
-    if n <= mx.DIRECT_MAX:
-        return _stage(x, _planes("rdft", n, False, dev))
+    if _direct(n):
+        return _last_rows(rdft, x)
     n1, n2 = mx._split_for(n, mx.DIRECT_MAX)
     if n1 == 1:
         if n <= mx.N_MAX:
-            return _stage(x, _planes("rdft", n, False, dev))
+            return _last_rows(rdft, x)
         raise _prime_too_long(n)
     a = _swap_last(x.reshape(lead + (n2, n1)))
     if n2 <= mx.DIRECT_MAX:

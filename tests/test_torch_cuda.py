@@ -185,8 +185,45 @@ def test_cdft_tw_kernel(cuda, n1, n2, lines, inverse):
     assert _rel(y, ref) <= 5e-4
 
 
+# Kernels 1 and 2's FFT bodies (``rdft`` / ``cdft``, hf._fft_body): every
+# power of two in [8, 1024] at one row, an odd count and a count above one
+# persistent wave of the grid.
+POW2 = [8, 16, 32, 64, 128, 256, 512, 1024]
+DIRECT_ROWS = [(M, n) for n in POW2 for M in (1, 7, (1 << 21) // n + 2)]
+
+
+@pytest.mark.parametrize("M, n", DIRECT_ROWS)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cdft_kernel(cuda, M, n, inverse):
+    """Kernel 2 on its FFT body (one ``dfft_cdft`` launch)."""
+    x = _crandn((M, n), 29, cuda)
+    before = hf.LAUNCHES["cmatmul"]
+    y = hf.cdft(x, inverse)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["cmatmul"] == before + 1
+    assert y.shape == (M, n) and y.dtype == torch.complex64
+    assert _rel(y, hf.stage_plain(x, *hf._planes("dft", n, inverse,
+                                                 cuda))) <= 5e-4
+
+
+@pytest.mark.parametrize("M, n", DIRECT_ROWS)
+def test_rdft_kernel(cuda, M, n):
+    """Kernel 1 on its FFT body (one ``dfft_rdft`` launch): (M, n) real
+    rows to (M, n/2 + 1) bins, an odd last row paired with zeros."""
+    x = _randn((M, n), 31, cuda)
+    before = hf.LAUNCHES["rmatmul"]
+    y = hf.rdft(x)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["rmatmul"] == before + 1
+    assert y.shape == (M, n // 2 + 1) and y.dtype == torch.complex64
+    assert _rel(y, hf.stage_plain(x, *hf._planes("rdft", n, False,
+                                                 cuda))) <= 5e-4
+
+
 @pytest.mark.parametrize("shape", [(4, 6, 1024), (3, 640, 10), (1024, 2, 3),
-                                   (5, 8, 1042), (8, 1, 8)])
+                                   (5, 8, 1042), (8, 1, 8), (2, 8, 2048),
+                                   (2048, 3, 4), (3, 1024, 2048),
+                                   (1024, 5, 1024)])
 def test_per_axis_plan_matches_torch_fft(cuda, shape):
     x = _randn(shape, 15, cuda)
     plan = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
@@ -283,6 +320,10 @@ def test_fft_body_rejects_misaligned_views(cuda):
         hf.cdft_tw(cplx[1:].view(M, n), 2, True)
     with pytest.raises(ValueError, match="16-byte aligned"):
         hf.zy_fwd(real[1:].view(M, 8, 8))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hf.cdft(cplx[1:].view(M, n), False)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hf.rdft(real[1:].view(M, n))
     assert hf.LAUNCHES == before
 
 

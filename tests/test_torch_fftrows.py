@@ -1,4 +1,4 @@
-"""The host side of the row FFT engine of kernels 4, 5 and 11
+"""The host side of the row FFT engine of kernels 1, 2, 4, 5 and 11
 (``csrc/fft_rows.cuh``), on the CPU.
 
 * ``fft_plan(n, inverse)``: the pass schedule and the twiddle table the
@@ -13,9 +13,15 @@
   ``_call_stage`` with the twiddle.
 * Kernel 4's complex-row path (``cdft_tw_mirror``: the engine, then the
   twiddle by ``r % n1``), both directions, against ``stage_plain`` and the
-  JAX ``_call_stage`` with the twiddle; ``fft`` of a 1024-point axis
+  JAX ``_call_stage`` with the twiddle; ``fft`` of a 2048-point axis
   reaching ``cdft_tw``.
-* ``_fft_body``'s routing and the new wrappers' argument checks.
+* Kernel 2's body (``fft_rows_mirror``) and kernel 1's (``rdft_mirror``:
+  pair packing, the split, bins 0..n/2 kept, an odd M) against
+  ``stage_plain`` and the JAX ``_call_stage`` without a twiddle, at every
+  power of two 8..1024.
+* ``_fft_body``'s routing, the per-axis dispatch (a power of two up to
+  1024 in one ``cdft`` / ``rdft``, other direct lengths through ``stage``'s
+  planes) and the wrappers' argument checks.
 """
 
 import math
@@ -160,6 +166,124 @@ def test_kernel4_complex_rows_path(n1, M, n2, inverse):
     assert _rel(got.numpy(), want) <= 5e-4
 
 
+# M: one row, an odd count (the last real row paired with zeros), even.
+@pytest.mark.parametrize("M", [1, 5, 6])
+@pytest.mark.parametrize("n", POW2)
+def test_kernel1_mirror_matches_plain_and_jax(n, M):
+    """Kernel 1's FFT body: pair packing, the split and bins 0..n/2 kept,
+    against ``stage_plain`` with the R2C planes and JAX's ``_call_stage``
+    (its Pallas kernel in interpret mode)."""
+    x = _real((M, n), 3 * n + M)
+    got = hf.rdft_mirror(torch.from_numpy(x))
+    assert got.dtype == torch.complex64 and got.shape == (M, n // 2 + 1)
+    plain = hf.stage_plain(torch.from_numpy(x),
+                           *hf._planes("rdft", n, False, CPU))
+    assert _rel(got.numpy(), plain.numpy()) <= 1e-5
+    want = np.asarray(pallas_fft._call_stage(
+        x, jmx._dft_np(n, False, False)[:, :n // 2 + 1], None))
+    assert _rel(got.numpy(), want) <= 5e-4
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("n", POW2)
+def test_kernel2_mirror_matches_plain_and_jax(n, inverse):
+    """Kernel 2's FFT body (the engine, no twiddle) against ``stage_plain``
+    with the DFT planes and JAX's ``_call_stage``; M cycles through one
+    row, an odd and an even count."""
+    M = (1, 7, 4)[POW2.index(n) % 3]
+    z = _complex((M, n), 5 * n + inverse)
+    got = hf.fft_rows_mirror(torch.from_numpy(z), inverse)
+    plain = hf.stage_plain(torch.from_numpy(z),
+                           *hf._planes("dft", n, inverse, CPU))
+    assert _rel(got.numpy(), plain.numpy()) <= 1e-5
+    want = np.asarray(pallas_fft._call_stage(
+        z, jmx._dft_np(n, inverse, False), None))
+    assert _rel(got.numpy(), want) <= 5e-4
+
+
+@pytest.mark.parametrize("n", POW2 + [2, 12, 257])
+def test_cdft_rdft_on_cpu_equal_stage_plain(n):
+    """On CPU tensors ``cdft`` / ``rdft`` are their plain versions exactly,
+    whichever body ``_fft_body(n)`` names, and launch nothing."""
+    hf.reset_launches()
+    z = torch.from_numpy(_complex((3, n), n))
+    x = torch.from_numpy(_real((5, n), n + 1))
+    for inverse in (False, True):
+        assert torch.equal(hf.cdft(z, inverse), hf.stage_plain(
+            z, *hf._planes("dft", n, inverse, CPU)))
+    assert torch.equal(hf.rdft(x), hf.stage_plain(
+        x, *hf._planes("rdft", n, False, CPU)))
+    assert all(v == 0 for v in hf.LAUNCHES.values()), hf.LAUNCHES
+
+
+def _count_calls(monkeypatch, *names):
+    """Record the calls of the named ``hopper_fft`` functions: name ->
+    list of (shape of the first argument, the rest)."""
+    calls = {name: [] for name in names}
+
+    def wrap(name, orig):
+        def counted(x2, *args):
+            calls[name].append((tuple(x2.shape),) + args)
+            return orig(x2, *args)
+        return counted
+
+    for name in names:
+        monkeypatch.setattr(hf, name, wrap(name, getattr(hf, name)))
+    return calls
+
+
+@pytest.mark.parametrize("fn", ["fft", "ifft", "rfft"])
+@pytest.mark.parametrize("n", POW2)
+def test_power_of_two_axes_take_one_engine_launch(monkeypatch, n, fn):
+    """A power of two up to 1024 goes straight to ``cdft`` / ``rdft`` (1024
+    included), never to the four-step split, and on its engine body never
+    through ``stage``'s planes."""
+    calls = _count_calls(monkeypatch, "cdft", "rdft", "cdft_tw", "rdft_tw",
+                         "stage")
+    if fn == "rfft":
+        x = _real((2, 3, n), n)
+        want = np.fft.rfft(x.astype(np.float64))
+    else:
+        x = _complex((2, 3, n), n)
+        want = (np.fft.ifft(x.astype(np.complex128)) * n if fn == "ifft"
+                else np.fft.fft(x.astype(np.complex128)))
+    got = getattr(hf, fn)(torch.from_numpy(x), axis=-1).numpy()
+    assert _rel(got, want) <= 1e-5
+    wrapper = "rdft" if fn == "rfft" else "cdft"
+    args = () if fn == "rfft" else (fn == "ifft",)
+    assert calls.pop(wrapper) == [((6, n),) + args]
+    assert all(not v for v in calls.values()), calls
+
+
+@pytest.mark.parametrize("fn", ["fft", "ifft", "rfft"])
+@pytest.mark.parametrize("n", [2, 4, 12, 96, 257, 320])
+def test_other_direct_axes_take_the_planes(monkeypatch, n, fn):
+    """Any other length up to 512 also takes one ``cdft`` / ``rdft``, whose
+    body is then ``stage`` with the DFT (or R2C) planes: the tile body, or
+    the row body for a few points."""
+    calls = _count_calls(monkeypatch, "cdft", "rdft", "cdft_tw", "rdft_tw",
+                         "stage")
+    inverse = fn == "ifft"
+    if fn == "rfft":
+        x = _real((3, n), n)
+        want = np.fft.rfft(x.astype(np.float64))
+    else:
+        x = _complex((3, n), n)
+        want = (np.fft.ifft(x.astype(np.complex128)) * n if inverse
+                else np.fft.fft(x.astype(np.complex128)))
+    got = getattr(hf, fn)(torch.from_numpy(x), axis=-1).numpy()
+    assert _rel(got, want) <= 1e-5
+    assert hf._fft_body(n) == "tile"
+    wrapper = "rdft" if fn == "rfft" else "cdft"
+    assert len(calls.pop(wrapper)) == 1
+    (stage_call,) = calls.pop("stage")
+    k = n // 2 + 1 if fn == "rfft" else n
+    assert stage_call[0] == (3, n) and stage_call[1].shape == (n, k)
+    kind = "rdft" if fn == "rfft" else "dft"
+    assert torch.equal(stage_call[1], hf._planes(kind, n, inverse, CPU)[0])
+    assert all(not v for v in calls.values()), calls
+
+
 def test_fft_body_routing():
     fft = [n for n in range(1, 2100) if hf._fft_body(n) == "fft"]
     assert fft == POW2
@@ -200,6 +324,26 @@ def test_wrappers_check_their_arguments():
     hf._require_aligned("dec_cmatmul", raw[:64].view(2, 4, 8))
 
 
+def test_cdft_rdft_check_their_arguments():
+    cplx = torch.zeros((4, 8), dtype=torch.complex64)
+    with pytest.raises(ValueError):
+        hf.cdft(cplx[None], False)                          # not 2D rows
+    with pytest.raises(TypeError):
+        hf.cdft(cplx.real.contiguous(), False)              # not complex
+    with pytest.raises(ValueError):
+        hf.cdft(torch.zeros((8, 4), dtype=torch.complex64).t(), True)
+    with pytest.raises(ValueError):
+        hf.cdft(cplx.to("meta"), False)                     # no kernel
+    with pytest.raises(ValueError):
+        hf.rdft(torch.zeros((2, 3, 8)))                     # not 2D rows
+    with pytest.raises(TypeError):
+        hf.rdft(torch.zeros((4, 8), dtype=torch.float64))
+    with pytest.raises(ValueError):
+        hf.rdft(torch.zeros((8, 4)).t())                    # not contiguous
+    with pytest.raises(ValueError):
+        hf.rdft(torch.zeros((4, 8), device="meta"))         # no kernel
+
+
 def test_cpu_wrappers_take_plain_versions_and_launch_nothing():
     hf.reset_launches()
     x = torch.from_numpy(_real((6, 64), 3))
@@ -211,8 +355,9 @@ def test_cpu_wrappers_take_plain_versions_and_launch_nothing():
 
 
 def test_rfft_last_takes_kernel5_through_rdft_tw(monkeypatch):
-    """The 1024-point R2C's first four-step stage goes through ``rdft_tw``
-    with n1 = 2, and the whole axis still matches the JAX package."""
+    """The 2048-point R2C (past the engine's 1024, so still split as 4 x
+    512) takes its first four-step stage through ``rdft_tw`` with n1 = 4,
+    and the whole axis still matches the JAX package."""
     calls = []
     orig = hf.rdft_tw
 
@@ -221,17 +366,17 @@ def test_rfft_last_takes_kernel5_through_rdft_tw(monkeypatch):
         return orig(x2, n1)
 
     monkeypatch.setattr(hf, "rdft_tw", counted)
-    x = _real((3, 1024), 5)
+    x = _real((3, 2048), 5)
     got = hf.rfft(torch.from_numpy(x), axis=-1).numpy()
-    assert calls == [((6, 512), 2)]
+    assert calls == [((12, 512), 4)]
     assert _rel(got, pallas_fft.rfft(x, axis=-1)) < 5e-4
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
 def test_fft_last_takes_kernel4_through_cdft_tw(monkeypatch, inverse):
-    """The 1024-point C2C's first four-step stage goes through ``cdft_tw``
-    with (rows, 512) and n1 = 2, and the whole axis still matches the JAX
-    package."""
+    """The 2048-point C2C (still split as 4 x 512) takes its first
+    four-step stage through ``cdft_tw`` with (rows, 512) and n1 = 4, and
+    the whole axis still matches the JAX package."""
     calls = []
     orig = hf.cdft_tw
 
@@ -240,12 +385,12 @@ def test_fft_last_takes_kernel4_through_cdft_tw(monkeypatch, inverse):
         return orig(x2, n1, inv)
 
     monkeypatch.setattr(hf, "cdft_tw", counted)
-    x = _complex((3, 1024), 6 + inverse)
+    x = _complex((3, 2048), 6 + inverse)
     if inverse:
         got = hf.ifft(torch.from_numpy(x), axis=-1).numpy()
         want = np.asarray(pallas_fft.ifft(x, axis=-1))
     else:
         got = hf.fft(torch.from_numpy(x), axis=-1).numpy()
         want = np.asarray(pallas_fft.fft(x, axis=-1))
-    assert calls == [((6, 512), 2, inverse)]
+    assert calls == [((12, 512), 4, inverse)]
     assert _rel(got, want) < 5e-4

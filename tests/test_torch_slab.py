@@ -163,11 +163,15 @@ def test_not_ported_boundaries_raise(build, run):
     ((1, 8, 8), "r2c", {}),
     ((8, 8, 8), "r2c", {"fft3d_chunk": 2}),
     ((6, 12, 15), "c2c", {"norm": jdfft.FFTNorm.ORTHO}),
+    ((2, 4, 1024), "r2c", {}),
+    ((2, 1024, 6), "c2c", {}),
+    ((2, 2, 2048), "r2c", {}),
 ])
 def test_pallas_per_axis_cases_match_reference(shape, transform, cfg_kw):
     """Single-device "pallas" plans outside the fused path (an axis above
     512 or below 2, the chunked path, C2C) run the per-axis kernels, as
-    the JAX plan does."""
+    the JAX plan does: a 1024-point axis in one launch of the engine where
+    the JAX plan splits it, a 2048-point axis split in both."""
     jplan, tplan = _plans(shape, transform=transform, fft_backend="pallas",
                           **cfg_kw)
     rng = np.random.default_rng(11)

@@ -22,8 +22,9 @@ from distributedfft_tpu_torch.params import FFTNorm
 from distributedfft_tpu.params import FFTNorm as JNorm
 
 # direct (8, 96), odd direct (12, 13-prime), four-step with the fused
-# twiddle (640 -> 2x320, 1024 -> 2x512).
-NS = [8, 12, 13, 96, 640, 1024]
+# twiddle (640 -> 2x320), a power of two the port runs direct where the JAX
+# package splits (1024 -> 2x512 there), and one both split (2048 -> 4x512).
+NS = [8, 12, 13, 96, 640, 1024, 2048]
 
 
 def _rel(a, b):
