@@ -10,20 +10,20 @@ once, before any rank is spawned) and then, under
 
 1. holds each kernel against its plain PyTorch version at the main paths'
    shapes: the fused kernels 6-8 at 512^3, the per-axis kernels 1-5 at the
-   shapes of the 512^3 two-rank plan, of the 1024^3 plan (kernels 1 and 2
-   on 1024-point rows) and of the 2048 x 256 x 2048 four-step (kernels 4
-   and 5, and kernel 2's 4-point second stage on its row body), the
-   fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan over
-   four ranks (9 and 10 bit for bit, NaN and Inf included); kernels 4, 5,
-   6 and 11 also on their other body (dense or tile) at a shape whose
-   axes are not powers of two;
+   shapes of the 512^3 two-rank plan, of the 1024^3 plan (kernels 1, 2
+   and 3 on 1024-point rows) and of the 2048 x 256 x 2048 four-step
+   (kernels 4 and 5, and kernel 2's 4-point second stage on its row body),
+   the fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan
+   over four ranks (9 and 10 bit for bit, NaN and Inf included); kernels
+   3, 4, 5, 6, 8 and 11 also on their other body (dense or tile) at a
+   shape whose axes are not powers of two;
 2. runs a small cube against numpy, then the single-card slab plan at
-   512^3 (fused kernels), at 1024^3 (per-axis kernels 1 and 2, every axis
-   one launch of the row FFT engine) and at 2048 x 256 x 2048 (x and z
-   split four-step, 4 x 512: kernels 4, 5 and 2): ``exec_r2c`` then
+   512^3 (fused kernels), at 1024^3 (per-axis kernels 1, 2 and 3, every
+   axis one launch of the row FFT engine) and at 2048 x 256 x 2048 (x and
+   z split four-step, 4 x 512: kernels 4, 5 and 2): ``exec_r2c`` then
    ``exec_c2r``, checked against ``torch.fft`` and the input, with the
    launch counts of every kernel and the entry point (the body) of every
-   launch;
+   launch, each direction counted from zero;
 3. runs the distributed slab plan at 512^3 as two ranks sharing the card
    over a gloo group (``torch.multiprocessing.spawn``; gloo stages the
    exchange through the host): the all-to-all, then the ring renderings
@@ -124,23 +124,25 @@ def bound(flops: float, nbytes: float):
 
 # Kernels whose body is a pure function of their shape: the row FFT engine
 # or the dense tile loop (hopper_fft._fft_body of the row length; for
-# kernel 2 on rows of at most 16 points the row path of stage.cu's launch),
-# or, for kernel 6, the engine or the dense kernel (hopper_fft._zy_body).
-ROUTED = ("rmatmul", "cmatmul", "rmatmul_tw", "dec_cmatmul", "cmatmul_tw",
-          "zy_fwd")
+# kernels 2 and 3 on rows of at most 16 points the row path of stage.cu's
+# launch), or, for kernels 6 and 8, the engine or the dense kernel
+# (hopper_fft._zy_body).
+ROUTED = ("rmatmul", "cmatmul", "c2r", "rmatmul_tw", "dec_cmatmul",
+          "cmatmul_tw", "zy_fwd", "yz_inv")
 
 
 def body_of(hf, k) -> str:
-    """The body a kernel row runs: for the routed kernels 1, 2, 4, 5, 6
-    and 11 the body of its shape, which must be the row's ``body`` ("fft"
-    unless the row names another), else the one body the kernel has."""
+    """The body a kernel row runs: for the routed kernels 1-6, 8 and 11
+    the body of its shape, which must be the row's ``body`` ("fft" unless
+    the row names another), else the one body the kernel has."""
     if k["name"] in ROUTED:
         sh = k["shape"]
-        if k["name"] == "zy_fwd":
+        if k["name"] in ("zy_fwd", "yz_inv"):
             body = hf._zy_body(sh["Y"], sh["Z"])
         else:
             body = hf._fft_body(sh["n"])
-            if body == "tile" and k["name"] == "cmatmul" and sh["n"] <= 16:
+            if body == "tile" and k["name"] in ("cmatmul", "c2r") \
+                    and sh["n"] <= 16:
                 body = "row"
         if body != k.get("body", "fft"):
             fail(f"kernel {k['name']} {k['shape']} routes to the {body} body")
@@ -490,9 +492,10 @@ def stage_cases(torch, hf, dev, gen):
     rows_640c = 640 * 321 * 2                 # 640^3 y/x first stage rows
     k_r = N // 2 + 1
     kb = NBIG // 2 + 1
-    # Kernels 1 and 2 take no F: rdft / cdft pick their body by n (the FFT
-    # body at 512 and 1024, the row body at 4). An FFT body's bytes count
-    # no DFT matrix.
+    k480 = 480 // 2 + 1
+    # Kernels 1, 2 and 3 take no F: rdft / cdft / irdft pick their body by
+    # n (the FFT body at 512 and 1024, the row body at 4, the tile body at
+    # 480). An FFT body's bytes count no DFT matrix.
     return [
         dict(name="rmatmul", replaces=f"{PALLAS}:182",
              shape=dict(M=rows_r, n=N, k=k_r),
@@ -546,16 +549,39 @@ def stage_cases(torch, hf, dev, gen):
              library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
              flops=fft_flops(big_n1, 4), gemm_flops=8 * big_n1 * 4 * 4,
              bytes=64 * big_n1 + 8 * 4 * 4),
+        # Kernel 3 on random half spectra: their DC and Nyquist bins have
+        # imaginary parts, which the C2R ignores.
         dict(name="c2r", replaces=f"{PALLAS}:156",
              shape=dict(M=rows_r, n_in=k_r, n=N),
              make=lambda: dict(x=cr(rows_r, k_r), C=planes("c2r", N)),
-             run=lambda t: hf.c2r(t["x"], *t["C"]),
+             run=lambda t: hf.irdft(t["x"], N),
              plain=lambda t: hf.c2r_plain(t["x"], *t["C"]),
              library=lambda t: torch.fft.irfft(t["x"], n=N, norm="forward"),
              library_call="irfft(norm='forward')",
              flops=fft_flops(rows_r, N, real=True),
              gemm_flops=4 * rows_r * k_r * N,
-             bytes=8 * rows_r * k_r + 4 * rows_r * N + 8 * k_r * N),
+             bytes=8 * rows_r * k_r + 4 * rows_r * N),
+        dict(name="c2r", variant="rows_1024", replaces=f"{PALLAS}:156",
+             shape=dict(M=big_r, n_in=kb, n=NBIG),
+             make=lambda: dict(x=cr(big_r, kb), C=planes("c2r", NBIG)),
+             run=lambda t: hf.irdft(t["x"], NBIG),
+             plain=lambda t: hf.c2r_plain(t["x"], *t["C"]),
+             library=lambda t: torch.fft.irfft(t["x"], n=NBIG,
+                                               norm="forward"),
+             library_call="irfft(norm='forward') of the same rows",
+             flops=fft_flops(big_r, NBIG, real=True),
+             gemm_flops=4 * big_r * kb * NBIG,
+             bytes=8 * big_r * kb + 4 * big_r * NBIG),
+        dict(name="c2r", variant="tile_480", body="tile",
+             replaces=f"{PALLAS}:156", shape=dict(M=rows_r, n_in=k480, n=480),
+             make=lambda: dict(x=cr(rows_r, k480), C=planes("c2r", 480)),
+             run=lambda t: hf.irdft(t["x"], 480),
+             plain=lambda t: hf.c2r_plain(t["x"], *t["C"]),
+             library=lambda t: torch.fft.irfft(t["x"], n=480, norm="forward"),
+             library_call="irfft(norm='forward')",
+             flops=fft_flops(rows_r, 480, real=True),
+             gemm_flops=4 * rows_r * k480 * 480,
+             bytes=8 * rows_r * k480 + 4 * rows_r * 480 + 8 * k480 * 480),
         # Kernel 4 takes no F: cdft_tw picks its body by n2 (the FFT body
         # at 512, the 2048-point axis's 4 x 512; the tile body at 320, the
         # 640-point axis's 2 x 320). "rows": torch.fft.fft of the same
@@ -704,15 +730,16 @@ def check_wire(torch, k, got, ref):
 
 # The single-card per-axis paths under "pallas": id -> (shape, launches
 # forward, launches inverse, C entry points forward, inverse). At 1024^3
-# every axis is one launch of the row FFT engine (kernels 1 and 2); at
-# 2048 x 256 x 2048 the x and z axes split 4 x 512 (kernels 5 and 4, then
-# kernel 2's 4-point second stage on the row body of dfft_stage) and y is
-# one engine launch. The inverse C2R of an axis past 512 points inverts the
-# Hermitian-extended spectrum as a complex transform.
+# every axis is one launch of the row FFT engine (kernels 1 and 2, and on
+# the inverse's z axis kernel 3's C2R Body); at 2048 x 256 x 2048 the x
+# and z axes split 4 x 512 (kernels 5 and 4, then kernel 2's 4-point
+# second stage on the row body of dfft_stage) and y is one engine launch.
+# The inverse C2R of a split axis inverts the Hermitian-extended spectrum
+# as a complex transform.
 PER_AXIS_PATHS = {
     "per_axis_1024": (
-        (NBIG,) * 3, dict(rmatmul=1, cmatmul=2), dict(cmatmul=3),
-        {"dfft_rdft": 1, "dfft_cdft": 2}, {"dfft_cdft": 3}),
+        (NBIG,) * 3, dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1),
+        {"dfft_rdft": 1, "dfft_cdft": 2}, {"dfft_cdft": 2, "dfft_c2r": 1}),
     "per_axis_2048x256x2048": (
         SPLIT, dict(rmatmul_tw=1, cmatmul_tw=1, cmatmul=3),
         dict(cmatmul_tw=2, cmatmul=3),
@@ -839,7 +866,9 @@ def main() -> int:
                            dtype=torch.float32)
 
     x = randn(N, N, N)
-    x480 = randn(N, 480, 480)     # kernel 6's dense body (not powers of two)
+    x480 = randn(N, 480, 480)     # kernels 6 and 8's dense bodies (not
+    Z4 = 480 // 2 + 1             # powers of two)
+    pr480, pi480 = randn(N, 480, Z4), randn(N, 480, Z4)
     pr, pi = randn(N, N, Zo), randn(N, N, Zo)
     fzr, fzi = hf._planes("rdft", N, False, dev)
     fyr, fyi = hf._planes("dft", N, False, dev)
@@ -847,10 +876,12 @@ def main() -> int:
     fyir, fyii = hf._planes("dft", N, True, dev)
     cr, ci = hf._planes("c2r", N, False, dev)
     pc = torch.complex(pr, pi)
+    pc480 = torch.complex(pr480, pi480)
     X = Y = Z = N
     f480 = (hf._planes("rdft", 480, False, dev) + hf._planes("dft", 480, False,
                                                              dev))
-    Z4 = 480 // 2 + 1
+    i480 = (hf._planes("dft", 480, True, dev) + hf._planes("c2r", 480, False,
+                                                           dev))
     fused = [
         dict(name="zy_fwd", replaces=f"{PALLAS}:427",
              shape=dict(X=X, Y=Y, Z=Z),
@@ -878,6 +909,8 @@ def main() -> int:
              library_call="ifft(dim=0)",
              flops=fft_flops(Y * Zo, X), gemm_flops=8 * X * X * Y * Zo,
              bytes=4 * (4 * X * Y * Zo + 2 * X * X)),
+        # Kernel 8 on random spectra: their DC and Nyquist z-bins have
+        # imaginary parts, which the C2R ignores.
         dict(name="yz_inv", replaces=f"{PALLAS}:452",
              shape=dict(X=X, Y=Y, Z=Z),
              run=lambda: hf.yz_inv(pr, pi, Z),
@@ -886,7 +919,19 @@ def main() -> int:
              library_call="irfft2",
              flops=fft_flops(X * Zo, Y) + fft_flops(X * Y, Z, real=True),
              gemm_flops=8 * X * Y * Y * Zo + 4 * X * Y * Zo * Z,
-             bytes=4 * (2 * X * Y * Zo + 2 * Y * Y + 2 * Zo * Z + X * Y * Z)),
+             bytes=4 * (2 * X * Y * Zo + X * Y * Z)),
+        dict(name="yz_inv", variant="dense_480", body="dense",
+             replaces=f"{PALLAS}:452",
+             shape=dict(X=X, Y=480, Z=480),
+             run=lambda: hf.yz_inv(pr480, pi480, 480),
+             plain=lambda: hf.yz_inv_plain(pr480, pi480, *i480),
+             library=lambda: torch.fft.irfft2(pc480, s=(480, 480),
+                                              norm="forward"),
+             library_call="irfft2",
+             flops=fft_flops(X * Z4, 480) + fft_flops(X * 480, 480, real=True),
+             gemm_flops=8 * X * 480 * 480 * Z4 + 4 * X * 480 * Z4 * 480,
+             bytes=4 * (2 * X * 480 * Z4 + 2 * 480 * 480 + 2 * Z4 * 480
+                        + X * 480 * 480)),
     ]
     for k in fused:
         k["source"] = "distributedfft_tpu_torch/csrc/fused3d.cu"
@@ -927,20 +972,27 @@ def main() -> int:
         c = plan.exec_r2c(x)
         torch.cuda.synchronize()
     fwd = dict(hf.LAUNCHES)
-    back = plan.exec_c2r(c)
-    torch.cuda.synchronize()
-    launches = {"fused_512": dict(hf.LAUNCHES)}
-    inv = {k: launches["fused_512"][k] - fwd[k] for k in fwd}
+    hf.reset_launches()
+    with entry_counts(hf) as entries_inv:
+        back = plan.exec_c2r(c)
+        torch.cuda.synchronize()
+    inv = dict(hf.LAUNCHES)
+    launches = {"fused_512": {k: fwd[k] + inv[k] for k in fwd}}
     emit(phase="main_path", path="fused_512", launches_forward=fwd,
          launches_inverse=inv, entries_forward=entries,
+         entries_inverse=entries_inv,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    # Kernel 6 on its FFT body: passes A, B and C, the dense kernel never.
+    # Kernels 6 and 8 on their FFT bodies: three passes each, the dense
+    # kernels never.
     if fwd != expect(hf, zy_fwd=3, x_c2c=1) or \
-            inv != expect(hf, x_c2c=1, yz_inv=1) or \
+            inv != expect(hf, x_c2c=1, yz_inv=3) or \
             entries != {"dfft_zy_rows": 1, "dfft_zy_cols": 1,
-                        "dfft_zy_planes": 1, "dfft_x_c2c": 1}:
+                        "dfft_zy_planes": 1, "dfft_x_c2c": 1} or \
+            entries_inv != {"dfft_x_c2c": 1, "dfft_yz_scratch": 1,
+                            "dfft_yz_cols": 1, "dfft_yz_rows": 1}:
         fail(f"main path did not launch each kernel as expected: forward "
-             f"{fwd} (entries {entries}), inverse {inv}")
+             f"{fwd} (entries {entries}), inverse {inv} (entries "
+             f"{entries_inv})")
     if tuple(c.shape) != (N, N, Zo) or c.dtype != torch.complex64 or \
             tuple(back.shape) != (N, N, N) or back.dtype != torch.float32:
         fail(f"unexpected outputs {tuple(c.shape)} {c.dtype}, "
@@ -962,7 +1014,7 @@ def main() -> int:
         k["plain_ms"] = median_ms(torch, k["plain"])
         k["library_ms"] = median_ms(torch, k["library"])
         k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
-        if k["body"] == "fft":   # kernel 6: its three passes apart
+        if k["body"] == "fft":   # kernels 6 and 8: their passes apart
             k["pass_ms"] = entry_ms(torch, hf, k["run"])
         emit(phase="kernel_time", name=k["name"], variant=k.get("variant"),
              kernel_ms=k["kernel_ms"], plain_ms=k["plain_ms"],
@@ -976,7 +1028,7 @@ def main() -> int:
          pallas_inverse_ms=median_ms(torch, lambda: plan.exec_c2r(cp)),
          xla_forward_ms=median_ms(torch, lambda: xla.exec_r2c(x)),
          xla_inverse_ms=median_ms(torch, lambda: xla.exec_c2r(cx)))
-    del x, x480, pr, pi, pc, cp, cx, plan, xla
+    del x, x480, pr, pi, pc, pr480, pi480, pc480, cp, cx, plan, xla
     torch.cuda.empty_cache()
 
     # -- 6. per-axis kernels 1-5: check against plain, then time -------------

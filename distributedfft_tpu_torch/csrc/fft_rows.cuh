@@ -1,13 +1,14 @@
 // The row FFT engine for Hopper (sm_90a), shared by wire.cu (kernel 11),
-// stage.cu (kernels 1, 2, 4 and 5) and fused3d.cu (kernel 6): the DFT of
-// every row of a batch of power-of-two rows, 8 <= n <= 1024, in shared
-// memory and registers.
+// stage.cu (kernels 1, 2, 3, 4 and 5) and fused3d.cu (kernels 6 and 8): the
+// DFT of every row of a batch of power-of-two rows, 8 <= n <= 1024, in
+// shared memory and registers.
 //
-// It replaces the dense DFT product of six Pallas TPU kernels of
+// It replaces the dense DFT product of eight Pallas TPU kernels of
 // distributedfft_tpu/ops/pallas_fft.py (_dec_cmatmul_kernel :737, kernel
 // 11, _cmatmul_kernel :164, kernel 2, _rmatmul_kernel :182, kernel 1,
-// _cmatmul_tw_kernel :171, kernel 4, _rmatmul_tw_kernel :188, kernel 5,
-// and _zy_fwd_kernel :427, kernel 6, as two passes). The TPU had only a
+// _c2r_kernel :156, kernel 3, _cmatmul_tw_kernel :171, kernel 4,
+// _rmatmul_tw_kernel :188, kernel 5, and _zy_fwd_kernel :427, kernel 6, and
+// _yz_inv_kernel :452, kernel 8, as two passes each). The TPU had only a
 // matrix unit, so there a row DFT is a product with the (n, n) DFT matrix:
 // n / (5 log2 n) times an FFT's arithmetic (20x at n = 1024). Here the
 // function is bound by bytes: an FFT costs 5 n log2 n flop per row, 50 flop
@@ -25,7 +26,10 @@
 //   contiguous) into a ring of STAGES buffers, each with an mbarrier that
 //   counts the bytes in. Thread 0 refills a buffer as soon as every thread
 //   has read it, so STAGES - 1 batches (32 KB or more a block, two or three
-//   blocks an SM) stay in flight while one is transformed.
+//   blocks an SM) stay in flight while one is transformed. A Body whose
+//   batch is many small pieces has every thread copy a share of them with
+//   16-byte cp.async instead, each thread arriving on the buffer's barrier
+//   once its own have landed.
 // - Stockham passes of radix 8 or 16 (the schedule of fft_plan in
 //   ops/hopper_fft.py: ceil(log2 n / 4) passes, larger radices first, e.g.
 //   1024 = 16 * 8 * 8, 512 = 8 * 8 * 8). A thread holds RMAX points (the
@@ -33,7 +37,8 @@
 //   unrolled radix-2 networks; points cross threads through one shared
 //   buffer of split (real, imag) float planes, padded by one float every 32
 //   against bank conflicts. The first pass reads straight from the input
-//   buffer, widening bfloat16 or packing real rows as it goes.
+//   buffer, widening bfloat16, packing real rows or extending half spectra as
+//   it goes.
 // - The twiddles are a float32 table built on the host in float64, laid out
 //   pass by pass so that neighbouring threads read neighbouring entries; it
 //   is copied to shared memory once per block. Arithmetic is float32.
@@ -278,11 +283,31 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// 16 bytes from global src to shared dst, both 16-byte aligned, without
+// waiting (cp.async, through L2 only).
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Arrive on bar once every cp.async this thread has issued has landed.
+__device__ __forceinline__ void arrive_when_copied(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // The kernel. Body gives the rows' loader and epilogue:
+//   ISSUERS                           threads that call issue, each
+//                                     arriving once on the buffer's barrier:
+//                                     1 (a bulk copy and its expect_tx) or
+//                                     THREADS (cp.async pieces)
 //   batches<L>()                      number of row batches
 //   stage_bytes<L>()                  bytes of one input buffer
-//   issue<L>(buffer, b, bar)          thread 0: bulk copies of batch b
+//   issue<L>(buffer, b, bar)          bulk copies of batch b
 //   load<L>(buffer, b, row, i)        point i of the batch's complex row
 //   store<L>(re, im, b)               the epilogue, all threads
 // ---------------------------------------------------------------------------
@@ -300,6 +325,8 @@ fft_rows_kernel(const Body body, const float* __restrict__ table,
                 int inverse) {
   using G = Geometry<L>;
   constexpr int SB = Body::template stage_bytes<L>();
+  constexpr int ISSUERS = Body::ISSUERS;
+  static_assert(ISSUERS == 1 || ISSUERS == THREADS, "one thread or all");
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   float* wr = reinterpret_cast<float*>(smem + 128);
@@ -315,11 +342,11 @@ fft_rows_kernel(const Body body, const float* __restrict__ table,
     wi[i] = table[G::TABLE + i];
   }
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], ISSUERS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0) {
+  if (tid < ISSUERS) {
     for (int s = 0; s < STAGES; ++s) {
       const int b = blockIdx.x + s * gridDim.x;
       if (b < nb) body.template issue<L>(stages + s * SB, b, &full[s]);
@@ -342,7 +369,7 @@ fft_rows_kernel(const Body body, const float* __restrict__ table,
     // Every thread has read buffer s, and the last epilogue has read the
     // work planes: refill s with the batch STAGES steps ahead.
     __syncthreads();
-    if (tid == 0) {
+    if (tid < ISSUERS) {
       const int next = b + STAGES * gridDim.x;
       if (next < nb) {
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -413,6 +440,7 @@ struct ComplexTwiddleRows {
   float* out;
   int M;
   int n1;
+  static constexpr int ISSUERS = 1;
 
   template <int L>
   __host__ __device__ int batches() const {
@@ -462,6 +490,70 @@ struct ComplexTwiddleRows {
         }
       }
       o[e / 2] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The two halves of a C2R Body, shared by stage.cu (kernel 3, HalfRows) and
+// fused3d.cu (kernel 8's z pass, YZRows). Half spectra A and B (n/2 + 1
+// bins each) of two real rows are packed as one complex row Z = A + iB,
+// extended by Hermitian symmetry; its unnormalized inverse DFT is a + ib,
+// a and b the two real rows. Each Body gives issue and load; this gives
+// the packing and the epilogue.
+// ---------------------------------------------------------------------------
+
+// Point i of Z from bin k of A and bin k of B, k = i for i <= n/2, else
+// n - i (then conjugated). The imaginary parts of the DC and Nyquist bins
+// are dropped: the C2R ignores them (mxu_fft._c2r_np's CI rows 0 and n/2
+// are sin 0 and sin pi j), and in the packed pair they would leak into the
+// partner row.
+template <int L>
+__device__ __forceinline__ float2 hermitian_pair(float2 a, float2 b, int i) {
+  constexpr int N = 1 << L;
+  if (i == 0 || i == N / 2) {
+    a.y = 0.f;
+    b.y = 0.f;
+  } else if (i > N / 2) {
+    a.y = -a.y;
+    b.y = -b.y;
+  }
+  return make_float2(a.x - b.y, a.y + b.x);
+}
+
+// (M, n) float32 rows out, 2 ROWS real rows a batch: row 2c is the real
+// plane of complex row c, row 2c + 1 its imaginary plane. A batch's rows
+// are one contiguous run of whole rows (4 n bytes each, a multiple of 16):
+// thread by thread four neighbouring points of one row as one coalesced
+// 16-byte store (the padding of the work planes puts the four reads of a
+// warp's store on distinct banks). The partner of an odd last row is not
+// stored.
+struct RealPairsOut {
+  float* out;
+  int M;  // real rows
+
+  template <int L>
+  __host__ __device__ int batches() const {
+    constexpr int ROWS2 = 2 * Geometry<L>::ROWS;
+    return (M + ROWS2 - 1) / ROWS2;
+  }
+  template <int L>
+  __device__ int rows_in(int b) const {
+    constexpr int ROWS2 = 2 * Geometry<L>::ROWS;
+    const int left = M - b * ROWS2;
+    return left < ROWS2 ? left : ROWS2;
+  }
+  template <int L>
+  __device__ void store(const float* re, const float* im, int b) const {
+    using G = Geometry<L>;
+    const int count = rows_in<L>(b) * G::N;
+    float4* o = reinterpret_cast<float4*>(out + (size_t)b * 2 * G::POINTS);
+    for (int e = 4 * threadIdx.x; e < count; e += 4 * THREADS) {
+      const int q = e >> L;
+      const float* p = (q & 1) ? im : re;
+      // A multiple of 4: its four points lie in one padded group of 32.
+      const int i = pad((q >> 1) * G::N + (e & (G::N - 1)));
+      o[e / 4] = make_float4(p[i], p[i + 1], p[i + 2], p[i + 3]);
     }
   }
 };

@@ -15,7 +15,12 @@
 //   then zy_planes_kernel
 //                  <- _zy_fwd_kernel  (the FFT body: three launches)
 //   x_c2c_kernel   <- _x_c2c_kernel   (C2C along x, both directions)
-//   yz_inv_kernel  <- _yz_inv_kernel  (y-C2C inverse, then half-spectrum C2R)
+//   yz_inv_kernel  <- _yz_inv_kernel  (y-C2C inverse, then half-spectrum C2R;
+//                                      the dense body, for Y or Z not a
+//                                      power of two in [8, 512])
+//   yz_scratch_kernel, fft_rows_kernel<L, ComplexTwiddleRows<false>>
+//   then fft_rows_kernel<L, YZRows>
+//                  <- _yz_inv_kernel  (the FFT body: three launches)
 //
 // Bound on an H100 SXM at X = Y = Z = 512 (Zo = 257), float32 outside the
 // tensor cores (67 TFLOP/s) and 3.35 TB/s of HBM:
@@ -58,6 +63,22 @@
 //
 // The three passes move three times the function's bytes (3.2 GB at
 // 512^3), so their ceiling is about a third of the bound (~0.97 ms).
+//
+// yz_inv's FFT body (Y and Z powers of two in [8, 512]) runs kernel 6's
+// passes backwards, through the same (X, Zo, Y) complex64 scratch, with the
+// same bound (1.08 GB -> 0.32 ms at 512^3) and the same ceiling:
+//
+// - Pass 1 (yz_scratch_kernel): the two (X, Y, Zo) planes transposed into
+//   the scratch through shared memory, 8 whole plane rows per block, read
+//   as contiguous runs and written as aligned 64-byte pieces of 8 y.
+// - Pass 2 (ComplexTwiddleRows<false>, the inverse table): the y-C2C
+//   inverse of each scratch row, in place.
+// - Pass 3 (YZRows): the z-C2R of every (x, y) row, kernel 3's C2R Body
+//   (fft_rows::hermitian_pair, fft_rows::RealPairsOut) with a loader that
+//   gathers a batch's half rows from the scratch, for each zo one aligned
+//   piece of consecutive y (64 bytes at Z = 512), copied in 16-byte parts
+//   by every thread with cp.async; the epilogue writes whole (X, Y, Z)
+//   rows.
 //
 // Every extern "C" entry point returns cudaGetLastError() after its launch.
 
@@ -470,6 +491,7 @@ struct ZRows {
   float* s;
   int M;     // X * Y real rows (even: Y is)
   int ylog;  // log2 Y
+  static constexpr int ISSUERS = 1;
 
   template <int L>
   __host__ __device__ int batches() const {
@@ -562,6 +584,106 @@ zy_planes_kernel(const float4* __restrict__ s, float* __restrict__ yr,
   }
 }
 
+// ---------------------------------------------------------------------------
+// yz_inv, FFT body: pass 1 (yz_scratch_kernel), pass 2 (the engine on the
+// scratch's rows, inverse) and pass 3 (YZRows)
+// ---------------------------------------------------------------------------
+
+// Pass 1: zy_planes_kernel backwards. Block (y-tile, x) stages PLANE_ROWS
+// rows of both planes (one contiguous run each) in shared memory, then
+// writes, for each zo, the tile's PLANE_ROWS y as one aligned 64-byte piece
+// of the scratch row (x, zo); the staging reads of 4 threads a zo land in
+// 32 distinct banks.
+__global__ void __launch_bounds__(PLANE_THREADS)
+yz_scratch_kernel(const float* __restrict__ er, const float* __restrict__ ei,
+                  float4* __restrict__ s, int Y, int Zo) {
+  __shared__ float tr[PLANE_ROWS * PLANE_LD];
+  __shared__ float ti[PLANE_ROWS * PLANE_LD];
+  const int y0 = blockIdx.x * PLANE_ROWS;
+  const size_t x = blockIdx.y;
+  const size_t o = (x * Y + y0) * Zo;
+  for (int e = threadIdx.x; e < PLANE_ROWS * Zo; e += PLANE_THREADS) {
+    const int r = e / Zo, zo = e - r * Zo;
+    tr[r * PLANE_LD + zo] = er[o + e];
+    ti[r * PLANE_LD + zo] = ei[o + e];
+  }
+  __syncthreads();
+  float4* dst = s + (x * Zo * Y + y0) / 2;
+  for (int e = threadIdx.x; e < Zo * PLANE_ROWS / 2; e += PLANE_THREADS) {
+    const int zo = e / (PLANE_ROWS / 2), h = e % (PLANE_ROWS / 2);
+    dst[(size_t)zo * (Y / 2) + h] =
+        make_float4(tr[2 * h * PLANE_LD + zo], ti[2 * h * PLANE_LD + zo],
+                    tr[(2 * h + 1) * PLANE_LD + zo],
+                    ti[(2 * h + 1) * PLANE_LD + zo]);
+  }
+}
+
+__host__ __device__ constexpr int ilog2(int n) {
+  return n > 1 ? 1 + ilog2(n / 2) : 0;
+}
+
+// Pass 3: the z-C2R of the X * Y rows (x, y), their half spectra gathered
+// from pass 2's (X, Zo, Y) scratch, (X, Y, Z) float32 out. A batch's 2 ROWS
+// consecutive rows take, for every zo, W = min(2 ROWS, Y) consecutive y of
+// each of its P = rows / W planes: P Zo aligned pieces of 8 W bytes (64 at
+// Z = 512) from rows 8 Y bytes apart. One bulk copy a piece, 257 a batch
+// at Z = 512, set this pass's pace (PERF.md section 6), and so did plain
+// loads in the first pass (half of each sector used, no prefetch). Instead
+// every thread copies a share of the pieces' 16-byte parts with cp.async
+// (a warp's 32 parts are 8 whole 64-byte pieces, every sector used) and
+// arrives on the buffer's barrier when its own have landed. Piece
+// (p, zo) lands in slot p Zo + zo, 8 W + 16 bytes apart: the padding puts
+// the first pass's 16-byte reads of neighbouring zo on distinct banks. Row
+// counts are multiples of W (>= 8), so rows pair up.
+struct YZRows : fft_rows::RealPairsOut {
+  const float* s;
+  int ylog;  // log2 Y
+  static constexpr int ISSUERS = fft_rows::THREADS;
+
+  // log2 W.
+  template <int L>
+  __device__ int wlog() const {
+    constexpr int R = ilog2(2 * fft_rows::Geometry<L>::ROWS);
+    return ylog < R ? ylog : R;
+  }
+  // At most 2 ROWS / 8 planes a batch: P (8 W + 16) <= 20 ROWS bytes a zo.
+  template <int L>
+  __host__ __device__ static constexpr int stage_bytes() {
+    using G = fft_rows::Geometry<L>;
+    return 20 * G::ROWS * (G::N / 2 + 1);
+  }
+  template <int L>
+  __device__ void issue(unsigned char* buf, int b, uint64_t* bar) const {
+    using G = fft_rows::Geometry<L>;
+    constexpr int ZO = G::N / 2 + 1;
+    const int wl = wlog<L>(), rows = rows_in<L>(b);
+    const int r0 = b * 2 * G::ROWS;
+    const size_t x0 = r0 >> ylog;
+    const int y0 = r0 & ((1 << ylog) - 1), slot = (8 << wl) + 16;
+    // Part e: 16 bytes (two y) j of piece q = (p, zo), W / 2 parts a piece.
+    for (int e = threadIdx.x; e < rows / 2 * ZO; e += fft_rows::THREADS) {
+      const int q = e >> (wl - 1), j = e & ((1 << (wl - 1)) - 1);
+      const int p = q / ZO, k = q - p * ZO;
+      const float* src = s + 2 * ((((x0 + p) * ZO + k) << ylog) + y0 + 2 * j);
+      fft_rows::copy16_async(buf + q * slot + 16 * j, src);
+    }
+    fft_rows::arrive_when_copied(bar);
+  }
+  // Point i of complex row c: bin k of rows 2c and 2c + 1, two neighbouring
+  // y of one piece, as one 16-byte read.
+  template <int L>
+  __device__ float2 load(const unsigned char* buf, int, int c, int i) const {
+    constexpr int N = fft_rows::Geometry<L>::N, ZO = N / 2 + 1;
+    const int k = i <= N / 2 ? i : N - i;
+    const int wl = wlog<L>(), q = 2 * c;
+    const int slot = (8 << wl) + 16, p = q >> wl, w = q & ((1 << wl) - 1);
+    const float4 v =
+        *reinterpret_cast<const float4*>(buf + (p * ZO + k) * slot + 8 * w);
+    return fft_rows::hermitian_pair<L>(make_float2(v.x, v.y),
+                                       make_float2(v.z, v.w), i);
+  }
+};
+
 // Y and Z powers of two in [8, AXIS_MAX]: the FFT body's shapes.
 bool zy_fft_ok(int X, int Y, int Z) {
   auto pow2 = [](int n) { return n >= 8 && n <= AXIS_MAX && !(n & (n - 1)); };
@@ -577,6 +699,17 @@ int log2i(int n) {
 bool axes_ok(int X, int Y, int Z) {
   return X >= 2 && Y >= 2 && Z >= 2 && X <= AXIS_MAX && Y <= AXIS_MAX &&
          Z <= AXIS_MAX;
+}
+
+// The y-C2C of every row of the (X, Z/2 + 1, Y) scratch, in place.
+int scratch_cols(float* s, const float* table, int X, int Y, int Z,
+                 int schedule, int inverse, void* stream) {
+  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(s)) return cudaErrorMisalignedAddress;
+  const fft_rows::ComplexTwiddleRows<false> body{s, nullptr, nullptr, s,
+                                                 X * (Z / 2 + 1), 1};
+  return fft_rows::launch(Y, schedule, body, table, inverse,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -620,12 +753,7 @@ int dfft_zy_rows(const float* x, const float* table, float* s, int X, int Y,
 // y; table, schedule: ops/hopper_fft.fft_plan(Y, False).
 int dfft_zy_cols(float* s, const float* table, int X, int Y, int Z,
                  int schedule, void* stream) {
-  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
-  if (fft_rows::misaligned(s)) return cudaErrorMisalignedAddress;
-  const fft_rows::ComplexTwiddleRows<false> body{s, nullptr, nullptr, s,
-                                                 X * (Z / 2 + 1), 1};
-  return fft_rows::launch(Y, schedule, body, table, 0,
-                          static_cast<cudaStream_t>(stream));
+  return scratch_cols(s, table, X, Y, Z, schedule, 0, stream);
 }
 
 // zy_fwd FFT body, pass C. s: pass B's (X, Z/2 + 1, Y) complex64 result,
@@ -663,6 +791,39 @@ int dfft_yz_inv(const float* er, const float* ei, const float* fyr,
                   static_cast<cudaStream_t>(stream)>>>(er, ei, fyr, fyi, cr,
                                                        ci, out, Y, Z);
   return cudaGetLastError();
+}
+
+// yz_inv FFT body, pass 1. er, ei: (X, Y, Z/2 + 1) float32 planes; s:
+// (X, Z/2 + 1, Y) complex64 scratch, 16-byte aligned.
+int dfft_yz_scratch(const float* er, const float* ei, float* s, int X, int Y,
+                    int Z, void* stream) {
+  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(s)) return cudaErrorMisalignedAddress;
+  const dim3 grid(Y / PLANE_ROWS, X);
+  yz_scratch_kernel<<<grid, PLANE_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      er, ei, reinterpret_cast<float4*>(s), Y, Z / 2 + 1);
+  return cudaGetLastError();
+}
+
+// yz_inv FFT body, pass 2. s: pass 1's scratch, inverse-transformed in
+// place along y; table, schedule: ops/hopper_fft.fft_plan(Y, True).
+int dfft_yz_cols(float* s, const float* table, int X, int Y, int Z,
+                 int schedule, void* stream) {
+  return scratch_cols(s, table, X, Y, Z, schedule, 1, stream);
+}
+
+// yz_inv FFT body, pass 3. s: pass 2's (X, Z/2 + 1, Y) complex64 result,
+// 16-byte aligned; table, schedule: ops/hopper_fft.fft_plan(Z, True); out:
+// (X, Y, Z) float32, 16-byte aligned.
+int dfft_yz_rows(const float* s, const float* table, float* out, int X,
+                 int Y, int Z, int schedule, void* stream) {
+  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(s) || fft_rows::misaligned(out))
+    return cudaErrorMisalignedAddress;
+  const YZRows body{{out, X * Y}, s, log2i(Y)};
+  return fft_rows::launch(Z, schedule, body, table, 1,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

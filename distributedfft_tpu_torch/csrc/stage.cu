@@ -26,7 +26,11 @@
 //                               power-of-two n in [8, 1024])
 //   MODE_RMATMUL             <- _rmatmul_kernel     (kernel 1, tile or row
 //                               body: any other n)
-//   MODE_C2R                 <- _c2r_kernel         (kernel 3, real output)
+//   fft_rows_kernel<L, HalfRows>
+//                            <- _c2r_kernel         (kernel 3, FFT body:
+//                               power-of-two n in [8, 1024])
+//   MODE_C2R                 <- _c2r_kernel         (kernel 3, tile or row
+//                               body: any other n, e.g. 12 or 480)
 //   fft_rows_kernel<L, ComplexTwiddleRows<true>>
 //                            <- _cmatmul_tw_kernel  (kernel 4, FFT body:
 //                               power-of-two n2 in [8, 1024])
@@ -38,10 +42,11 @@
 //   MODE_RMATMUL + twiddle   <- _rmatmul_tw_kernel  (kernel 5, tile body:
 //                               any other n2, e.g. 320 or 171)
 //
-// Kernel 3 computes y = Re(c) @ CR - Im(c) @ CI. Read as real numbers, a row
-// of interleaved complex input is [re0, im0, re1, im1, ...], so the C2R is
-// one real product of depth 2 * n_in whose B operand row 2j is CR[j] and row
-// 2j + 1 is -CI[j]: the same tile loop as kernel 1, with a real output.
+// Kernel 3 computes y = Re(c) @ CR - Im(c) @ CI. Its dense body reads a row
+// of interleaved complex input as real numbers [re0, im0, re1, im1, ...], so
+// the C2R is one real product of depth 2 * n_in whose B operand row 2j is
+// CR[j] and row 2j + 1 is -CI[j]: the same tile loop as kernel 1, with a
+// real output.
 //
 // Bound on an H100 SXM (HBM3 3.35 TB/s, float32 outside the tensor cores
 // 67 TFLOP/s): bytes each input read once and each output written once
@@ -53,6 +58,7 @@
 //   kernel 2, same plan (M 65792, n = k = 512):              0.54 GB -> 0.16 ms
 //   kernel 3, same plan (M 131072, n_in 257, n 512):         0.54 GB -> 0.16 ms
 //   kernel 1, 1024^3 z forward (M 1048576, n 1024, k 513):    8.6 GB -> 2.57 ms
+//   kernel 3, 1024^3 z inverse (M 1048576, n_in 513, n 1024): 8.6 GB -> 2.57 ms
 //   kernel 2, 1024^3 x/y forward (M 525312, n = k = 1024):    8.6 GB -> 2.57 ms
 //   kernel 4, 2048 x 256 x 2048 x forward (M 1049600, n = k = 512):
 //                                                             8.6 GB -> 2.57 ms
@@ -79,6 +85,16 @@
 //   one contiguous span a batch, not row by row. Each input byte is read
 //   once, and 2.5 n log2 n flop a row are done where the dense product did
 //   4 n (n/2 + 1).
+// - Kernel 3 has an FFT body on the same engine (HalfRows), the mirror of
+//   kernel 1's: each batch of half spectra arrives by one bulk copy, the
+//   first pass packs half rows 2c and 2c + 1 as one complex row extended by
+//   Hermitian symmetry (fft_rows::hermitian_pair), the engine runs its
+//   inverse passes, and the epilogue writes the real and imaginary planes
+//   as the two real rows, whole rows with 16-byte stores. It reads each
+//   input byte once and does 2.5 n log2 n flop a row where the dense
+//   product did 4 n (n/2 + 1). Past 512 points it also replaces, on the
+//   per-axis path, the Hermitian extension and a complex inverse of twice
+//   the bytes.
 // - Wide dense stages take the tile path of stage_tile.cuh:
 //   64 x 64 output tiles, depth 16, 256 threads each holding a 4 x 4
 //   complex register tile, as x_c2c_kernel in fused3d.cu does; an operand
@@ -211,6 +227,7 @@ struct RealRowPairs {
   const float* x;
   float* out;
   int M;
+  static constexpr int ISSUERS = 1;
 
   template <int L>
   __host__ __device__ int batches() const {
@@ -318,6 +335,49 @@ struct RealRows : RealRowPairs {
   }
 };
 
+// Kernel 3's rows: (M, n/2 + 1) complex64 half spectra in, the
+// unnormalized C2R of each row out as (M, n) float32 (fft_rows::
+// RealPairsOut): half rows 2c and 2c + 1 of a batch become complex row c
+// (an odd last row paired with zeros). Rows of 8 (n/2 + 1) bytes have no
+// 16-byte pitch, but a full batch, 16 ROWS (n/2 + 1) bytes, does: every
+// batch starts 16-byte aligned and arrives by one bulk copy. A last batch
+// of an odd row count is 8 bytes off a multiple of 16: its copy stops 8
+// bytes short, so nothing past the tensor's end is read, and the issuing
+// thread reads that last bin from global memory into the buffer itself
+// before its arrive on the barrier, which releases the store to the
+// threads that wait on it.
+struct HalfRows : fft_rows::RealPairsOut {
+  const float* x;
+  static constexpr int ISSUERS = 1;
+
+  template <int L>
+  __host__ __device__ static constexpr int stage_bytes() {
+    using G = fft_rows::Geometry<L>;
+    return 16 * G::ROWS * (G::N / 2 + 1);
+  }
+  template <int L>
+  __device__ void issue(unsigned char* buf, int b, uint64_t* bar) const {
+    using G = fft_rows::Geometry<L>;
+    const int count = rows_in<L>(b) * (G::N / 2 + 1);  // bins
+    const float2* src =
+        reinterpret_cast<const float2*>(x) + (size_t)b * G::ROWS * (G::N + 2);
+    if (count & 1)
+      reinterpret_cast<float2*>(buf)[count - 1] = __ldg(src + count - 1);
+    const uint32_t bytes = 8u * (count & ~1);
+    fft_rows::mbar_expect_tx(bar, bytes);
+    fft_rows::bulk_load(buf, src, bytes, bar);
+  }
+  template <int L>
+  __device__ float2 load(const unsigned char* buf, int b, int c,
+                         int i) const {
+    constexpr int N = fft_rows::Geometry<L>::N, K = N / 2 + 1;
+    const int k = i <= N / 2 ? i : N - i;
+    const float2* p = reinterpret_cast<const float2*>(buf) + 2 * c * K + k;
+    const float2 v = 2 * c + 1 < rows_in<L>(b) ? p[K] : make_float2(0.f, 0.f);
+    return fft_rows::hermitian_pair<L>(p[0], v, i);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -406,6 +466,19 @@ int dfft_rdft(const float* x, const float* table, float* out, int M, int n,
     return cudaErrorMisalignedAddress;
   const RealRows body{{x, out, M}};
   return fft_rows::launch(n, schedule, body, table, 0,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 3, FFT body. c: (M, n/2 + 1) complex64, n a power of two in [8,
+// 1024], 16-byte aligned; table, schedule: ops/hopper_fft.fft_plan(n,
+// True); out: (M, n) float32, 16-byte aligned.
+int dfft_c2r(const float* c, const float* table, float* out, int M, int n,
+             int schedule, void* stream) {
+  if (M < 1) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(c) || fft_rows::misaligned(out))
+    return cudaErrorMisalignedAddress;
+  const HalfRows body{{out, M}, c};
+  return fft_rows::launch(n, schedule, body, table, 1,
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -96,6 +96,7 @@ struct DecodeRows {
   const __nv_bfloat16* y;
   float* out;
   int M;
+  static constexpr int ISSUERS = 1;
 
   template <int L>
   __host__ __device__ int batches() const {

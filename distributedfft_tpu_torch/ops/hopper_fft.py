@@ -8,11 +8,12 @@ granularities:
   more — forward ``zy_fwd`` (z-R2C then y-C2C per x-row) then
   ``x_c2c``; inverse ``x_c2c`` then ``yz_inv`` (y-C2C inverse then the
   half-spectrum z-C2R). Complex data crosses these kernels as split
-  float32 (real, imag) planes. ``zy_fwd`` picks its body by
-  ``_zy_body(Y, Z)``: when Y and Z are powers of two in [8, 512], three
-  launches (the row FFT engine on the z rows into a complex64 scratch,
-  the engine on the scratch's y rows in place, a transpose into the
-  planes), else the dense kernel.
+  float32 (real, imag) planes. ``zy_fwd`` and ``yz_inv`` pick their body
+  by ``_zy_body(Y, Z)``: when Y and Z are powers of two in [8, 512], three
+  launches through a complex64 scratch (``zy_fwd``: the row FFT engine on
+  the z rows into the scratch, the engine on the scratch's y rows in
+  place, a transpose into the planes; ``yz_inv`` the same backwards, its
+  z pass kernel 3's C2R Body), else the dense kernel.
 * **per-axis path** (``csrc/stage.cu``): one kernel launch is one DFT
   stage along the last axis, ``y = x @ F`` on rows of interleaved complex
   (or real) data, optionally with the four-step twiddle fused into its
@@ -23,19 +24,22 @@ granularities:
   two up to 1024 and for a prime up to 1024, else the four-step split of
   ``mxu_fft._split_for`` (the JAX package splits every axis past 512,
   where the TPU's direct matmul stops), whose first stage is ``cdft_tw``
-  or ``rdft_tw``. This path carries every distributed plan and every
-  single-device cube the fused path does not take.
+  or ``rdft_tw``. ``irfft`` takes one ``irdft`` (kernel 3) on the same
+  direct lengths, else the Hermitian extension and a complex inverse.
+  This path carries every distributed plan and every single-device cube
+  the fused path does not take.
 * **fused wire** (``csrc/wire.cu``): the bf16 wire of the ring exchanges
   (``parallel/transpose.ring_transpose``) as kernels — ``enc_pack``
   encodes a travelling block, ``dec_unpack`` decodes an arrived one, and
   ``dec_cmatmul`` decodes it straight into the first per-block DFT. The
   hooks ``fused_ring_hooks`` / ``decode_fft_fused`` plug them into a ring.
 * **row FFT engine** (``csrc/fft_rows.cuh``): the body of ``rdft``
-  (kernel 1), ``cdft`` (kernel 2), ``cdft_tw`` (kernel 4), ``rdft_tw``
-  (kernel 5) and ``dec_cmatmul`` (kernel 11) on rows of a power of two in
-  [8, 1024] (``_fft_body``); other lengths take the dense bodies of
-  ``stage.cu``. It also runs the two FFT passes of ``zy_fwd``'s FFT body
-  (kernel 6). ``fft_plan`` is its host side.
+  (kernel 1), ``cdft`` (kernel 2), ``irdft`` (kernel 3), ``cdft_tw``
+  (kernel 4), ``rdft_tw`` (kernel 5) and ``dec_cmatmul`` (kernel 11) on
+  rows of a power of two in [8, 1024] (``_fft_body``); other lengths take
+  the dense bodies of ``stage.cu``. It also runs the two FFT passes of
+  the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8).
+  ``fft_plan`` is its host side.
 
 Each kernel has here:
 
@@ -77,11 +81,15 @@ _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
             "dfft_zy_planes": ("fused3d", (3, 3)),
             "dfft_x_c2c": ("fused3d", (6, 2)),
             "dfft_yz_inv": ("fused3d", (7, 3)),
+            "dfft_yz_scratch": ("fused3d", (3, 3)),
+            "dfft_yz_cols": ("fused3d", (2, 4)),
+            "dfft_yz_rows": ("fused3d", (3, 4)),
             "dfft_stage": ("stage", (6, 6)),
             "dfft_rdft_tw": ("stage", (5, 4)),
             "dfft_cdft_tw": ("stage", (5, 5)),
             "dfft_cdft": ("stage", (3, 4)),
             "dfft_rdft": ("stage", (3, 3)),
+            "dfft_c2r": ("stage", (3, 3)),
             "dfft_enc_pack": ("wire", (2, 6)),
             "dfft_dec_unpack": ("wire", (2, 1)),
             "dfft_dec_cmatmul": ("wire", (4, 2)),
@@ -142,8 +150,8 @@ def _twiddle(n1: int, n2: int, inverse: bool,
 
 
 # ---------------------------------------------------------------------------
-# The row FFT engine of kernels 1, 2, 4, 5, 6 and 11 (csrc/fft_rows.cuh):
-# its host side
+# The row FFT engine of kernels 1-6, 8 and 11 (csrc/fft_rows.cuh): its
+# host side
 # ---------------------------------------------------------------------------
 
 # Row lengths the engine takes: the powers of two in [FFT_MIN, FFT_MAX].
@@ -151,27 +159,27 @@ FFT_MIN, FFT_MAX = 8, 1024
 
 
 def _fft_body(n: int) -> str:
-    """The body kernels 1, 2, 4, 5 and 11 run on rows of n points:
-    ``"fft"`` (the row FFT engine) for a power of two in [FFT_MIN,
-    FFT_MAX], else ``"tile"`` (the dense bodies of ``stage.cu`` / ``wire.cu``
-    with the DFT planes: the tile loop of ``stage_tile.cuh``, or for
-    kernels 1 and 2 on rows of a few points the row path)."""
+    """The body kernels 1-5 and 11 run on rows of n points: ``"fft"`` (the
+    row FFT engine) for a power of two in [FFT_MIN, FFT_MAX], else
+    ``"tile"`` (the dense bodies of ``stage.cu`` / ``wire.cu`` with the DFT
+    or C2R planes: the tile loop of ``stage_tile.cuh``, or for kernels 1-3
+    on rows of a few points the row path)."""
     return "fft" if FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0 else "tile"
 
 
 def _zy_body(Y: int, Z: int) -> str:
-    """The body kernel 6 runs on (X, Y, Z): ``"fft"`` (two launches of the
-    row FFT engine and a transpose) when Y and Z are both powers of two in
-    [FFT_MIN, ``mx.DIRECT_MAX``], else ``"dense"`` (the dense-product
-    ``zy_fwd_kernel``)."""
+    """The body kernels 6 and 8 run on (X, Y, Z): ``"fft"`` (two launches
+    of the row FFT engine and a transpose) when Y and Z are both powers of
+    two in [FFT_MIN, ``mx.DIRECT_MAX``], else ``"dense"`` (the
+    dense-product ``zy_fwd_kernel`` / ``yz_inv_kernel``)."""
     return ("fft" if all(_fft_body(n) == "fft" and n <= mx.DIRECT_MAX
                          for n in (Y, Z)) else "dense")
 
 
 def _zy_scratch_shape(X: int, Y: int, Z: int) -> Tuple[int, int, int]:
-    """The complex64 scratch of kernel 6's FFT body: (X, Z // 2 + 1, Y),
-    column zo of plane x one contiguous row, so the y pass runs on rows and
-    the transpose writes whole plane rows."""
+    """The complex64 scratch of the FFT bodies of kernels 6 and 8: (X,
+    Z // 2 + 1, Y), column zo of plane x one contiguous row, so the y pass
+    runs on rows and the transposes read and write whole plane rows."""
     return (X, Z // 2 + 1, Y)
 
 
@@ -343,6 +351,36 @@ def zy_fwd_mirror(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return zy_cols_mirror(zy_rows_mirror(x))
 
 
+def c2r_mirror(c2: torch.Tensor, n: int) -> torch.Tensor:
+    """Kernel 3's FFT body in plain PyTorch: (M, n/2 + 1) half spectra ->
+    (M, n) float32, the unnormalized C2R of each row. Half rows 2c and
+    2c + 1 (an odd last row paired with zeros), their DC and Nyquist
+    imaginary parts zeroed, extended by Hermitian symmetry and packed as
+    one complex row A + iB; the engine's inverse passes; the real and
+    imaginary parts split into the two real rows."""
+    M = c2.shape[0]
+    c = c2.to(torch.complex64).clone()
+    for k in (0, n // 2):
+        c[:, k] = c[:, k].real.to(torch.complex64)
+    if M % 2:
+        c = torch.cat([c, c.new_zeros((1, c.shape[1]))])
+    full = mx._hermitian_extend(c, n)
+    z = fft_rows_mirror(full[0::2] + 1j * full[1::2], True)
+    return torch.stack([z.real, z.imag], 1).reshape(-1, n)[:M]
+
+
+def yz_inv_mirror(er: torch.Tensor, ei: torch.Tensor,
+                  z: int) -> torch.Tensor:
+    """Kernel 8's FFT body in plain PyTorch: pass 1 the transpose of the
+    (X, Y, Zo) planes into the (X, Zo, Y) scratch, pass 2 the engine's
+    inverse on its rows (the y-C2C), pass 3 kernel 3's C2R Body on the (x,
+    y) half rows gathered from it."""
+    X, Y, Zo = er.shape
+    s = torch.complex(er, ei).transpose(1, 2).contiguous()
+    s = fft_rows_mirror(s.reshape(-1, Y), True).reshape(X, Zo, Y)
+    return c2r_mirror(s.transpose(1, 2).reshape(-1, Zo), z).reshape(X, Y, z)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions (the kernels' arithmetic as dense float32 products)
 # ---------------------------------------------------------------------------
@@ -456,7 +494,13 @@ def x_c2c(ar: torch.Tensor, ai: torch.Tensor,
 
 def yz_inv(er: torch.Tensor, ei: torch.Tensor, z: int) -> torch.Tensor:
     """(X, Y, z//2+1) planes -> (X, Y, z) float32: y-C2C inverse then the
-    half-spectrum z-C2R, unnormalized (kernel 8, ``_yz_inv_kernel``)."""
+    half-spectrum z-C2R, unnormalized (kernel 8, ``_yz_inv_kernel``). The
+    body is ``_zy_body(Y, z)``: on ``"fft"`` three launches through a
+    complex64 scratch of ``_zy_scratch_shape`` (it and the output 16-byte
+    aligned): the transpose of the planes into the scratch, the row FFT
+    engine's inverse on its y rows in place, kernel 3's C2R Body on the z
+    rows gathered from it; else one launch of the dense kernel. Every
+    launch counts as ``yz_inv``."""
     X, Y, Zo = er.shape
     if Zo != z // 2 + 1 or er.shape != ei.shape:
         raise ValueError(f"yz_inv: planes {tuple(er.shape)}, "
@@ -464,12 +508,22 @@ def yz_inv(er: torch.Tensor, ei: torch.Tensor, z: int) -> torch.Tensor:
     cpu = _check("yz_inv", er, ei)
     if not 2 <= z <= mx.DIRECT_MAX:
         raise ValueError(f"yz_inv: z = {z} outside [2, {mx.DIRECT_MAX}]")
-    fyr, fyi = _planes("dft", Y, True, er.device)
-    cr, ci = _planes("c2r", z, False, er.device)
+    dev = er.device
+    dense = _planes("dft", Y, True, dev) + _planes("c2r", z, False, dev)
     if cpu:
-        return yz_inv_plain(er, ei, fyr, fyi, cr, ci)
-    y = torch.empty((X, Y, z), dtype=torch.float32, device=er.device)
-    _launch("yz_inv", "dfft_yz_inv", er, ei, fyr, fyi, cr, ci, y, X, Y, z)
+        return yz_inv_plain(er, ei, *dense)
+    y = torch.empty((X, Y, z), dtype=torch.float32, device=dev)
+    if _zy_body(Y, z) == "dense":
+        _launch("yz_inv", "dfft_yz_inv", er, ei, *dense, y, X, Y, z)
+        return y
+    s = torch.empty(_zy_scratch_shape(X, Y, z), dtype=torch.complex64,
+                    device=dev)
+    _require_aligned("yz_inv", s, y)
+    _launch("yz_inv", "dfft_yz_scratch", er, ei, s, X, Y, z)
+    _launch("yz_inv", "dfft_yz_cols", s, _fft_table(Y, True, dev), X, Y, z,
+            fft_plan(Y, True).schedule)
+    _launch("yz_inv", "dfft_yz_rows", s, _fft_table(z, True, dev), y, X, Y,
+            z, fft_plan(z, True).schedule)
     return y
 
 
@@ -729,7 +783,8 @@ def cdft_tw(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
 
 def c2r(c2: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
     """Half-spectrum C2R on rows: (M, n//2+1) complex64 -> (M, n) float32,
-    ``Re(c) @ CR - Im(c) @ CI``, unnormalized (kernel 3, ``_c2r_kernel``)."""
+    ``Re(c) @ CR - Im(c) @ CI``, unnormalized (kernel 3, ``_c2r_kernel``):
+    the dense body (the tile loop, or the row path for a few points)."""
     if cr.shape != ci.shape or cr.ndim != 2 or c2.ndim != 2 \
             or cr.shape[0] != c2.shape[1]:
         raise ValueError(f"c2r: rows {tuple(c2.shape)} do not fit CR/CI "
@@ -742,6 +797,30 @@ def c2r(c2: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
     if M:
         _launch("c2r", "dfft_stage", c2, cr, ci, None, None, y, M, n_in, n,
                 1, _MODES["c2r"], 0)
+    return y
+
+
+def irdft(c2: torch.Tensor, n: int) -> torch.Tensor:
+    """Half spectra to their real rows: (M, n//2+1) complex64 -> (M, n)
+    float32, the unnormalized C2R of each row (kernel 3, ``_c2r_kernel``;
+    the imaginary parts of bins 0 and n/2 are ignored). The body is
+    ``_fft_body(n)``: the row FFT engine for a power of two in [8, 1024]
+    (on a CPU tensor its plain version, ``c2r_plain``), else ``c2r`` with
+    the C2R planes (the tile or row body); both count as ``c2r``."""
+    cpu = _check_rows("c2r", c2, torch.complex64)
+    M, k = c2.shape
+    if n < 1 or k != n // 2 + 1:
+        raise ValueError(f"c2r: rows {tuple(c2.shape)} do not fit n = {n}")
+    dev = c2.device
+    if _fft_body(n) == "tile":
+        return c2r(c2, *_planes("c2r", n, False, dev))
+    if cpu:
+        return c2r_plain(c2, *_planes("c2r", n, False, dev))
+    y = torch.empty((M, n), dtype=torch.float32, device=dev)
+    if M:
+        _require_aligned("c2r", c2, y)
+        _launch("c2r", "dfft_c2r", c2, _fft_table(n, True, dev), y, M, n,
+                fft_plan(n, True).schedule)
     return y
 
 
@@ -760,10 +839,7 @@ def _stage(x: torch.Tensor, F: Tuple[torch.Tensor, torch.Tensor],
 
 def _c2r_stage(c: torch.Tensor, n: int) -> torch.Tensor:
     """Half-spectrum C2R along the last axis (n//2+1 -> n, real)."""
-    lead = c.shape[:-1]
-    c2 = c.reshape(-1, c.shape[-1]).to(torch.complex64).contiguous()
-    y2 = c2r(c2, *_planes("c2r", n, False, c.device))
-    return y2.reshape(lead + (n,))
+    return _last_rows(irdft, c.to(torch.complex64), n)
 
 
 def _require_single(dtype: torch.dtype, what: str) -> None:
@@ -884,13 +960,13 @@ def irfft(x: torch.Tensor, n: int, axis: int,
           norm: FFTNorm = FFTNorm.NONE) -> torch.Tensor:
     _require_single(x.dtype, "irfft")
     c = mx._fit_axis(x.movedim(axis, -1).to(torch.complex64), -1, n // 2 + 1)
-    if n > mx.DIRECT_MAX:
-        # No half-spectrum kernel past the direct size: invert the
+    if _direct(n):
+        y = _c2r_stage(c, n)
+    else:
+        # No half-spectrum kernel for a split axis: invert the
         # Hermitian-extended spectrum as a complex transform.
         full = mx._hermitian_extend(c, n).contiguous()
         y = _fft_last(full, True).real.contiguous()
-    else:
-        y = _c2r_stage(c, n)
     return mx._scaled(y, mx._inv_scale(n, norm)).movedim(-1, axis)
 
 

@@ -75,13 +75,20 @@ def test_x_c2c_kernel(cuda, shape, inverse):
     assert _rel(zr, pr) <= 5e-4 and _rel(zi, pi) <= 5e-4
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + ZY_FFT_SHAPES)
 def test_yz_inv_kernel(cuda, shape):
+    """Both bodies of kernel 8 (``hf._zy_body``): three launches on the FFT
+    body, one dense; random spectra, so the DC and Nyquist z-bins have
+    imaginary parts that both ignore."""
     X, Y, Z = shape
     half = (X, Y, Z // 2 + 1)
     er, ei = _randn(half, 4, cuda), _randn(half, 5, cuda)
+    before = hf.LAUNCHES["yz_inv"]
     y = hf.yz_inv(er, ei, Z)
     torch.cuda.synchronize()
+    assert hf.LAUNCHES["yz_inv"] == before + (
+        3 if hf._zy_body(Y, Z) == "fft" else 1)
+    assert y.shape == shape and y.dtype == torch.float32
     ref = hf.yz_inv_plain(er, ei, *hf._planes("dft", Y, True, cuda),
                           *hf._planes("c2r", Z, False, cuda))
     assert _rel(y, ref) <= 5e-4
@@ -98,7 +105,7 @@ def test_pallas_plan_matches_torch_fft(cuda, shape):
     torch.cuda.synchronize()
     zy = 3 if hf._zy_body(*shape[1:]) == "fft" else 1
     assert hf.LAUNCHES == {**dict.fromkeys(hf.LAUNCHES, 0),
-                           "zy_fwd": zy, "x_c2c": 2, "yz_inv": 1}
+                           "zy_fwd": zy, "x_c2c": 2, "yz_inv": zy}
     assert _rel(c, torch.fft.rfftn(x)) <= 5e-4
     assert _rel(back / float(np.prod(shape)), x) <= 5e-4
 
@@ -220,6 +227,21 @@ def test_rdft_kernel(cuda, M, n):
                                                  cuda))) <= 5e-4
 
 
+@pytest.mark.parametrize("M, n", DIRECT_ROWS)
+def test_irdft_kernel(cuda, M, n):
+    """Kernel 3 on its FFT body (one ``dfft_c2r`` launch): (M, n/2 + 1)
+    random half spectra (imaginary DC and Nyquist bins, which the C2R
+    ignores) to (M, n) real rows, an odd last row paired with zeros."""
+    c = _crandn((M, n // 2 + 1), 33, cuda)
+    before = hf.LAUNCHES["c2r"]
+    y = hf.irdft(c, n)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["c2r"] == before + 1
+    assert y.shape == (M, n) and y.dtype == torch.float32
+    assert _rel(y, hf.c2r_plain(c, *hf._planes("c2r", n, False,
+                                               cuda))) <= 5e-4
+
+
 @pytest.mark.parametrize("shape", [(4, 6, 1024), (3, 640, 10), (1024, 2, 3),
                                    (5, 8, 1042), (8, 1, 8), (2, 8, 2048),
                                    (2048, 3, 4), (3, 1024, 2048),
@@ -324,6 +346,10 @@ def test_fft_body_rejects_misaligned_views(cuda):
         hf.cdft(cplx[1:].view(M, n), False)
     with pytest.raises(ValueError, match="16-byte aligned"):
         hf.rdft(real[1:].view(M, n))
+    half = torch.zeros(M * (n // 2 + 1) + 1, dtype=torch.complex64,
+                       device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hf.irdft(half[1:].view(M, n // 2 + 1), n)
     assert hf.LAUNCHES == before
 
 

@@ -1,4 +1,5 @@
-"""Kernel 6's FFT body (``zy_fwd`` on the row FFT engine), on the CPU.
+"""The FFT bodies of kernels 6 (``zy_fwd``) and 8 (``yz_inv``) on the row
+FFT engine, on the CPU.
 
 ``zy_fwd_mirror`` runs the passes of the kernel in plain PyTorch from
 ``fft_plan``: pass A packs two real z-rows as one complex row, runs the
@@ -12,6 +13,15 @@ is held against
 * the JAX package's ``pallas_fft._rfftn3d_fused`` (its Pallas kernels in
   interpret mode), followed by ``x_c2c_plain``, to 5e-4, the JAX package's
   per-stage bound.
+
+Kernel 8's ``yz_inv_mirror`` runs its passes the other way: pass 1
+transposes the (X, Y, Zo) planes into the same scratch, pass 2 runs the
+engine's inverse on its rows (the y-C2C), pass 3 runs kernel 3's C2R Body
+(``c2r_mirror``) on the (x, y) half rows gathered from it. It is held
+against ``yz_inv_plain`` to 1e-5 and, after ``x_c2c_plain``'s inverse,
+against the JAX package's ``pallas_fft._irfftn3d_fused`` to 5e-4, on
+random spectra (their DC and Nyquist z-bins have imaginary parts, which
+both ignore).
 
 Also ``_zy_body``'s routing, the scratch layout, and that CPU tensors take
 the plain version and launch nothing.
@@ -100,4 +110,62 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     pr, pi = _plain(x)
     assert torch.equal(yr, pr) and torch.equal(yi, pi)
     hf.rfftn3d_fused(x)
+    assert all(v == 0 for v in hf.LAUNCHES.values()), hf.LAUNCHES
+
+
+def _spectrum(shape, seed):
+    """Random (X, Y, Z/2 + 1) float32 planes of a half spectrum."""
+    X, Y, Z = shape
+    half = (X, Y, Z // 2 + 1)
+    return (torch.from_numpy(_real(half, seed)),
+            torch.from_numpy(_real(half, seed + 1)))
+
+
+@pytest.mark.parametrize("shape", FFT_SHAPES + [(4, 512, 8), (2, 8, 512)])
+def test_yz_inv_mirror_matches_plain(shape):
+    X, Y, Z = shape
+    er, ei = _spectrum(shape, sum(shape))
+    got = hf.yz_inv_mirror(er, ei, Z)
+    want = hf.yz_inv_plain(er, ei, *hf._planes("dft", Y, True, CPU),
+                           *hf._planes("c2r", Z, False, CPU))
+    assert got.shape == shape and got.dtype == torch.float32
+    assert _rel(got.numpy(), want.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", FFT_SHAPES)
+def test_x_then_yz_inv_mirror_matches_irfftn3d_fused(shape):
+    """Kernel 7's plain inverse, then kernel 8's FFT body, against the JAX
+    package's fused 3D C2R."""
+    X, Y, Z = shape
+    assert hf._zy_body(Y, Z) == "fft"
+    cr, ci = _spectrum(shape, 3 + sum(shape))
+    er, ei = hf.x_c2c_plain(cr, ci, *hf._planes("dft", X, True, CPU))
+    got = hf.yz_inv_mirror(er, ei, Z)
+    want = np.asarray(pallas_fft._irfftn3d_fused(
+        torch.complex(cr, ci).numpy(), shape))
+    assert _rel(got.numpy(), want) <= 5e-4
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8), (3, 16, 32), (2, 8, 64)])
+def test_yz_inv_pass_1_scratch_layout(shape):
+    """Pass 1 fills kernel 6's scratch shape: row (x, zo) holds bin zo of
+    every y of plane x, and pass 2 leaves it the y-inverse of each."""
+    X, Y, Z = shape
+    er, ei = _spectrum(shape, 9)
+    s = torch.complex(er, ei).transpose(1, 2).contiguous()
+    assert s.shape == hf._zy_scratch_shape(X, Y, Z)
+    rows = hf.fft_rows_mirror(s.reshape(-1, Y), True).reshape(s.shape)
+    want = np.fft.ifft(torch.complex(er, ei).numpy().astype(np.complex128),
+                       axis=1) * Y
+    assert _rel(rows.transpose(1, 2).numpy(), want) <= 1e-5
+
+
+def test_yz_inv_on_cpu_takes_the_plain_version_and_launches_nothing():
+    hf.reset_launches()
+    for shape in ((3, 16, 32), (2, 12, 10)):
+        X, Y, Z = shape
+        er, ei = _spectrum(shape, 13)
+        want = hf.yz_inv_plain(er, ei, *hf._planes("dft", Y, True, CPU),
+                               *hf._planes("c2r", Z, False, CPU))
+        assert torch.equal(hf.yz_inv(er, ei, Z), want)
     assert all(v == 0 for v in hf.LAUNCHES.values()), hf.LAUNCHES
