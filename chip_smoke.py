@@ -9,18 +9,23 @@ once, before any rank is spawned) and then, under
 ``Config(fft_backend="pallas")``:
 
 1. holds each kernel against its plain PyTorch version at the main paths'
-   shapes: the fused kernels 6-8 at 512^3, the per-axis kernels 1-5 at the
-   shapes of the 512^3 two-rank plan, of the 1024^3 plan (kernels 1, 2
-   and 3 on 1024-point rows) and of the 2048 x 256 x 2048 four-step
-   (kernels 4 and 5, and kernel 2's 4-point second stage on its row body),
+   shapes: the fused kernels 6-8 at 512^3 (kernel 7 on each layout pair
+   the fused plan launches), the per-axis kernels 1-5 at the shapes of the
+   512^3 two-rank plan (kernel 2's column body on a rank's y and x axes,
+   its row body on the y blocks of the ``Z_Then_YX`` rings), of the
+   1024^3 plan (kernels 1, 2 and 3 on 1024-point rows, kernel 2's column
+   body on the y and x axes where they lie) and of the 2048 x 256 x 2048
+   four-step (kernels 4 and 5, kernel 2's column body on its y axis and
+   its 4-point second stage on the row body),
    the fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan
    over four ranks (9 and 10 bit for bit, NaN and Inf included); kernels
-   3, 4, 5, 6, 8 and 11 also on their other body (dense or tile) at a
+   3, 4, 5, 6, 7, 8 and 11 also on their other body (dense or tile) at a
    shape whose axes are not powers of two;
 2. runs a small cube against numpy, then the single-card slab plan at
    512^3 (fused kernels), at 1024^3 (per-axis kernels 1, 2 and 3, every
-   axis one launch of the row FFT engine) and at 2048 x 256 x 2048 (x and
-   z split four-step, 4 x 512: kernels 4, 5 and 2): ``exec_r2c`` then
+   axis one launch of the row FFT engine, y and x where they lie) and at
+   2048 x 256 x 2048 (x and z split four-step, 4 x 512: kernels 4, 5 and
+   2): ``exec_r2c`` then
    ``exec_c2r``, checked against ``torch.fft`` and the input, with the
    launch counts of every kernel and the entry point (the body) of every
    launch, each direction counted from zero;
@@ -29,20 +34,23 @@ once, before any rank is spawned) and then, under
    exchange through the host): the all-to-all, then the ring renderings
    (RING, RING_OVERLAP with the bf16 wire, without and with the fused wire
    of kernels 9-11, at depth 3 with two sub-blocks, and ``Z_Then_YX``),
-   each rank checking its launches per direction and each plan against
+   each rank checking its launches and their entry points per direction
+   and each plan against
    ``torch.fft`` and against the plans it must equal;
 4. times each kernel, its plain version and one PyTorch call of the same
    function, the plans under "pallas" and "xla", and the exchange of each
-   rendering with its wire bytes; one run of each direction of the
-   per-axis plans under ``torch.profiler`` names the device time op by op
-   and gives the device's idle share.
+   rendering with its wire bytes; one run of each direction of the fused
+   and per-axis plans under ``torch.profiler`` names the device time op by
+   op and gives the device's idle share. The 1024^3 plan fails if the ops
+   of its dispatch (copies, transposes: every aten op with device time)
+   take more than ``COPY_LIMIT_MS`` in either direction.
 
 Phases print JSON lines. Before the last line come one ``{"kernels": ...}``
 line and the card's name and power limit as ``nvidia-smi`` gives them; the
 last line is ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the script exits non-zero with no result line; so does a machine without a
-CUDA device, or a directory without the port. Takes about a minute on an
-H100, the kernels' build included.
+CUDA device, or a directory without the port. Takes about 85-110 s on an
+H100, the kernels' build (25-45 s) included.
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ SMALL = (6, 12, 15)
 REPS = 10
 WARMUP = 2
 REPS_BIG = 3       # repetitions of a per-axis plan direction (~0.1 s each)
+COPY_LIMIT_MS = 1.0  # the 1024^3 plan's dispatch ops, a direction
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate.
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
@@ -125,20 +134,25 @@ def bound(flops: float, nbytes: float):
 # Kernels whose body is a pure function of their shape: the row FFT engine
 # or the dense tile loop (hopper_fft._fft_body of the row length; for
 # kernels 2 and 3 on rows of at most 16 points the row path of stage.cu's
-# launch), or, for kernels 6 and 8, the engine or the dense kernel
-# (hopper_fft._zy_body).
+# launch; kernel 2 on a non-last axis, shape (outer, n, inner), the column
+# kernel, "cols"), or, for kernels 6, 7 and 8, the engine or the dense
+# kernel (hopper_fft._zy_body, hopper_fft._x_body).
 ROUTED = ("rmatmul", "cmatmul", "c2r", "rmatmul_tw", "dec_cmatmul",
-          "cmatmul_tw", "zy_fwd", "yz_inv")
+          "cmatmul_tw", "zy_fwd", "x_c2c", "yz_inv")
 
 
 def body_of(hf, k) -> str:
-    """The body a kernel row runs: for the routed kernels 1-6, 8 and 11
-    the body of its shape, which must be the row's ``body`` ("fft" unless
-    the row names another), else the one body the kernel has."""
+    """The body a kernel row runs: for the routed kernels 1-8 and 11 the
+    body of its shape, which must be the row's ``body`` ("fft" unless the
+    row names another), else the one body the kernel has."""
     if k["name"] in ROUTED:
         sh = k["shape"]
         if k["name"] in ("zy_fwd", "yz_inv"):
             body = hf._zy_body(sh["Y"], sh["Z"])
+        elif k["name"] == "x_c2c":
+            body = hf._x_body(sh["X"])
+        elif "inner" in sh:
+            body = "cols" if hf._fft_body(sh["n"]) == "fft" else "none"
         else:
             body = hf._fft_body(sh["n"])
             if body == "tile" and k["name"] in ("cmatmul", "c2r") \
@@ -198,6 +212,22 @@ def entry_counts(hf):
         hf._launch = orig
 
 
+def run_counted(torch, hf, plan, x):
+    """One forward and one inverse of ``plan``, each counted from zero:
+    (spectrum, inverse, launches forward, launches inverse, entry points
+    forward, entry points inverse)."""
+    hf.reset_launches()
+    with entry_counts(hf) as ent_f:
+        c = plan.exec_r2c(x)
+        torch.cuda.synchronize()
+    fwd = dict(hf.LAUNCHES)
+    hf.reset_launches()
+    with entry_counts(hf) as ent_i:
+        back = plan.exec_c2r(c)
+        torch.cuda.synchronize()
+    return c, back, fwd, dict(hf.LAUNCHES), ent_f, ent_i
+
+
 def kernel_share(torch, hf, fn, by_entry=False):
     """Run fn once with kernel events: (total ms, {kernel: ms summed}), or
     {C entry point: ms summed} with ``by_entry``."""
@@ -227,25 +257,37 @@ def entry_ms(torch, hf, fn, reps: int = REPS):
 def device_profile(torch, fn, top: int = 8):
     """One run of fn under ``torch.profiler``: the device ms of the largest
     kernels and of each aten op that launched kernels (the copies of the
-    dispatch), the kernels' summed ms ("busy") and the device's idle share
-    of the run's CUDA-event window (the profiler's own overhead inside it).
-    Where the trace holds no device time: "not measured". Measurement
-    only."""
+    dispatch; the port's kernels launch outside aten), their sum
+    ("aten_ms"), the kernels' summed ms ("busy") and the device's idle share of the run's CUDA-event
+    window (the profiler's own overhead inside it). One run before the
+    kept one warms the tracer up, and the kept one starts 2 ms after the
+    step that opens it; its events are read as its cycle ends. Where the
+    trace holds no device time: "not measured". Measurement only."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    kept = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.append(p.key_averages())
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.002)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
+        prof.step()
     window = start.elapsed_time(end)
     kernels, ops = {}, {}
-    for e in prof.key_averages():
+    for e in (kept[-1] if kept else []):
         ms = e.self_device_time_total / 1e3
+        if e.key.startswith("ProfilerStep"):   # the step's own span
+            continue
         if ms > 0 and e.device_type == DeviceType.CUDA:
             name = e.key[:90]          # kernels whose names share it add up
             kernels[name] = kernels.get(name, 0.0) + ms
@@ -255,7 +297,8 @@ def device_profile(torch, fn, top: int = 8):
     largest = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:top])
     return {"window_ms": window, "busy_ms": busy if busy else "not measured",
             "idle_share": 1 - busy / window if busy else "not measured",
-            "aten_ops_ms": ops, "kernels_ms": largest}
+            "aten_ops_ms": ops, "aten_ms": sum(ops.values()),
+            "kernels_ms": largest}
 
 
 # ---------------------------------------------------------------------------
@@ -281,18 +324,13 @@ def rank_main(rank: int, addr: str, outdir: str) -> None:
     x = torch.randn((N, N, N), generator=gen, device=dev)
     xl = plan.pad_input(x)
 
-    hf.reset_launches()
-    c = plan.exec_r2c(xl)
-    torch.cuda.synchronize()
-    fwd = dict(hf.LAUNCHES)
-    hf.reset_launches()
-    back = plan.exec_c2r(c)
-    torch.cuda.synchronize()
-    inv = dict(hf.LAUNCHES)
+    c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, xl)
     if fwd != expect(hf, rmatmul=1, cmatmul=2) or \
-            inv != expect(hf, cmatmul=2, c2r=1):
+            inv != expect(hf, cmatmul=2, c2r=1) or \
+            (ent_f, ent_i) != A2A_ENTRIES:
         fail(f"rank {rank}: the two-rank plan did not launch the per-axis "
-             f"kernels as expected: forward {fwd}, inverse {inv}")
+             f"kernels as expected: forward {fwd} (entries {ent_f}), "
+             f"inverse {inv} (entries {ent_i})")
     ref = torch.fft.rfftn(x)
     _, local_rel = rel_err(c, ref[plan.local_slices(output=True)])
     _, local_rt = rel_err(back / float(N ** 3), xl)
@@ -302,6 +340,7 @@ def rank_main(rank: int, addr: str, outdir: str) -> None:
     full = torch.from_numpy(plan.crop_spectral(c))       # gathered, host
     rt = torch.from_numpy(plan.crop_real(back))
     out = {"rank": rank, "launches_forward": fwd, "launches_inverse": inv,
+           "entries_forward": ent_f, "entries_inverse": ent_i,
            "local_forward_rel": local_rel, "local_roundtrip_rel": local_rt,
            "local_input_shape": list(plan.local_input_shape),
            "local_output_shape": list(plan.local_output_shape)}
@@ -350,30 +389,53 @@ def rank_main(rank: int, addr: str, outdir: str) -> None:
     multihost.shutdown()
 
 
+# The entry points of a rank's per-axis launches, forward and inverse: z on
+# rows, y (after the z-R2C) and x (after the exchange) on kernel 2's column
+# body in place.
+A2A_ENTRIES = ({"dfft_rdft": 1, "dfft_cdft_cols": 2},
+               {"dfft_cdft_cols": 2, "dfft_c2r": 1})
+
+
+def _plus(entries, **more):
+    return tuple({**e, **{f"dfft_{k}": v for k, v in more.items()}}
+                 for e in entries)
+
+
 # The ring renderings of the two-rank phase: id -> (Config fields,
-# sequence, launches forward, launches inverse). Two ranks make one ring
-# step, so each direction sends one block (two with two sub-blocks).
+# sequence, launches forward, launches inverse, entry points forward and
+# inverse). Two ranks make one ring step, so each direction sends one
+# block (two with two sub-blocks). Z_Then_YX runs y on the row body on the
+# rank's own block, on the fused wire's decode (kernel 11) on the one it
+# receives, and the inverse's y on the column body after the exchange.
 _RO = {"send_method": "RingOverlap", "wire_dtype": "bf16"}
 RING_PATHS = {
     "ring_native": ({"send_method": "Ring"}, "ZY_Then_X",
-                    dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1)),
+                    dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1),
+                    *A2A_ENTRIES),
     "ring_overlap_wire16": (_RO, "ZY_Then_X",
-                            dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1)),
+                            dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1),
+                            *A2A_ENTRIES),
     "ring_overlap_wire16_fused": (
         {**_RO, "fused_wire": True}, "ZY_Then_X",
         dict(rmatmul=1, cmatmul=2, enc_pack=1, dec_unpack=1),
-        dict(cmatmul=2, enc_pack=1, dec_unpack=1, c2r=1)),
+        dict(cmatmul=2, enc_pack=1, dec_unpack=1, c2r=1),
+        *_plus(A2A_ENTRIES, enc_pack=1, dec_unpack=1)),
     "ring_overlap_wire16_fused_d3_s2": (
         {**_RO, "fused_wire": True, "overlap_depth": 3,
          "overlap_subblocks": 2}, "ZY_Then_X",
         dict(rmatmul=1, cmatmul=2, enc_pack=2, dec_unpack=2),
-        dict(cmatmul=2, enc_pack=2, dec_unpack=2, c2r=1)),
+        dict(cmatmul=2, enc_pack=2, dec_unpack=2, c2r=1),
+        *_plus(A2A_ENTRIES, enc_pack=2, dec_unpack=2)),
     "z_then_yx_ring_overlap_wire16": (
-        _RO, "Z_Then_YX", dict(rmatmul=1, cmatmul=3), dict(cmatmul=2, c2r=1)),
+        _RO, "Z_Then_YX", dict(rmatmul=1, cmatmul=3), dict(cmatmul=2, c2r=1),
+        *_plus(A2A_ENTRIES[:1], cdft=1) + A2A_ENTRIES[1:]),
     "z_then_yx_ring_overlap_wire16_fused": (
         {**_RO, "fused_wire": True}, "Z_Then_YX",
         dict(rmatmul=1, cmatmul=2, enc_pack=1, dec_cmatmul=1),
-        dict(cmatmul=2, enc_pack=1, dec_unpack=1, c2r=1)),
+        dict(cmatmul=2, enc_pack=1, dec_unpack=1, c2r=1),
+        {"dfft_rdft": 1, "dfft_enc_pack": 1, "dfft_cdft": 1,
+         "dfft_dec_fft": 1, "dfft_cdft_cols": 1},
+        *_plus(A2A_ENTRIES[1:], enc_pack=1, dec_unpack=1)),
 }
 # The exchange of these is timed beside the all-to-all's.
 EXCHANGE_TIMED = ("ring_native", "ring_overlap_wire16",
@@ -393,23 +455,19 @@ def ring_paths(rank, x, xl, a2a_fwd, a2a_back, wall_ms):
            if tr._Transport(None, x.device).staged else "device memory"}
     ref = torch.fft.rfftn(x)
     res = {}
-    for pid, (fields, seq, want_f, want_i) in RING_PATHS.items():
+    for pid, (fields, seq, want_f, want_i, ent_f_want,
+              ent_i_want) in RING_PATHS.items():
         kw = dict(fields, send_method=dft.SendMethod(fields["send_method"]),
                   fft_backend="pallas")
         plan = dft.SlabFFTPlan(dft.GlobalSize(N, N, N),
                                dft.SlabPartition(RANKS), dft.Config(**kw),
                                sequence=seq)
-        hf.reset_launches()
-        c = plan.exec_r2c(xl)
-        torch.cuda.synchronize()
-        fwd = dict(hf.LAUNCHES)
-        hf.reset_launches()
-        back = plan.exec_c2r(c)
-        torch.cuda.synchronize()
-        inv = dict(hf.LAUNCHES)
-        if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i):
-            fail(f"rank {rank} {pid}: launches forward {fwd}, inverse {inv}; "
-                 f"expected {want_f}, {want_i}")
+        c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, xl)
+        if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i) or \
+                ent_f != ent_f_want or ent_i != ent_i_want:
+            fail(f"rank {rank} {pid}: launches forward {fwd} (entries "
+                 f"{ent_f}), inverse {inv} (entries {ent_i}); expected "
+                 f"{want_f} ({ent_f_want}), {want_i} ({ent_i_want})")
         tol = WIRE16_TOL if plan.config.wire_dtype == "bf16" else TOL
         _, f_rel = rel_err(c, plan.pad_spectral(ref))   # pad lanes are 0
         _, rt_rel = rel_err(back / float(N ** 3), xl)
@@ -417,7 +475,8 @@ def ring_paths(rank, x, xl, a2a_fwd, a2a_back, wall_ms):
             fail(f"rank {rank} {pid}: forward rel {f_rel:.3e}, roundtrip rel "
                  f"{rt_rel:.3e} (tol {tol})")
         row = {"sequence": seq, "launches_forward": fwd,
-               "launches_inverse": inv, "forward_vs_torch_fft": f_rel,
+               "launches_inverse": inv, "entries_forward": ent_f,
+               "entries_inverse": ent_i, "forward_vs_torch_fft": f_rel,
                "roundtrip_vs_input": rt_rel, "tol": tol,
                "forward_ms": wall_ms(lambda: plan.exec_r2c(xl)),
                "inverse_ms": wall_ms(lambda: plan.exec_c2r(c))}
@@ -480,8 +539,27 @@ def stage_cases(torch, hf, dev, gen):
     def planes(kind, n, inverse=False):
         return hf._planes(kind, n, inverse, dev)
 
+    def cols_case(variant, shape, axis):
+        """Kernel 2's column body on axis ``axis`` of a contiguous complex
+        tensor of ``shape``, as the plan holds it."""
+        n = shape[axis]
+        outer, inner = math.prod(shape[:axis]), math.prod(shape[axis + 1:])
+        rows = outer * inner
+        return dict(
+            name="cmatmul", variant=variant, body="cols",
+            replaces=f"{PALLAS}:164",
+            shape=dict(outer=outer, n=n, inner=inner, axis=axis),
+            make=lambda: dict(x=cr(*shape)),
+            run=lambda t: hf.cdft_cols(t["x"], axis, False),
+            plain=lambda t: hf.cdft_cols_plain(t["x"], axis, False),
+            library=lambda t: torch.fft.fft(t["x"], dim=axis),
+            library_call=f"fft(dim={axis}) of the same tensor",
+            flops=fft_flops(rows, n), gemm_flops=8 * rows * n * n,
+            bytes=16 * rows * n)
+
     rows_r = (N // RANKS) * N                 # z-R2C rows of a rank's slab
-    rows_c = (N // RANKS) * (N // 2 + 1)      # y and x C2C rows of a rank
+    k_half = -(-(N // 2 + 1) // RANKS)        # a rank's padded z bins
+    rows_zyx = (N // RANKS) * k_half          # Z_Then_YX rings' y rows
     big_c = NBIG * (NBIG // 2 + 1)            # 1024^3 y/x forward rows
     big_r = NBIG * NBIG                       # 1024^3 z rows (R2C, C2C inverse)
     sx, sy, sz = SPLIT
@@ -515,14 +593,16 @@ def stage_cases(torch, hf, dev, gen):
              flops=fft_flops(big_r, NBIG, real=True),
              gemm_flops=4 * big_r * NBIG * kb,
              bytes=4 * big_r * NBIG + 8 * big_r * kb),
+        # Kernel 2's row body at 512 points: the y pass of the Z_Then_YX
+        # rings, on a rank's (256, 129)-column block of rows.
         dict(name="cmatmul", replaces=f"{PALLAS}:164",
-             shape=dict(M=rows_c, n=N, k=N),
-             make=lambda: dict(x=cr(rows_c, N), F=planes("dft", N)),
+             shape=dict(M=rows_zyx, n=N, k=N),
+             make=lambda: dict(x=cr(rows_zyx, N), F=planes("dft", N)),
              run=lambda t: hf.cdft(t["x"], False),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
              library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
-             flops=fft_flops(rows_c, N), gemm_flops=8 * rows_c * N * N,
-             bytes=16 * rows_c * N),
+             flops=fft_flops(rows_zyx, N), gemm_flops=8 * rows_zyx * N * N,
+             bytes=16 * rows_zyx * N),
         dict(name="cmatmul", variant="fft_1024", replaces=f"{PALLAS}:164",
              shape=dict(M=big_c, n=NBIG, k=NBIG),
              make=lambda: dict(x=cr(big_c, NBIG), F=planes("dft", NBIG)),
@@ -541,6 +621,17 @@ def stage_cases(torch, hf, dev, gen):
              library_call="ifft(norm='forward')",
              flops=fft_flops(big_r, NBIG), gemm_flops=8 * big_r * NBIG * NBIG,
              bytes=16 * big_r * NBIG),
+        # Kernel 2's column body where the plans run it: the y axis of the
+        # 1024^3 spectrum (rows of 513 elements, every other one 8 bytes
+        # off a 16-byte boundary, a one-column last group) and its x axis;
+        # a rank's y axis of the two-rank plan after its z-R2C and its x
+        # axis after the exchange; the y axis of the 2048 x 256 x 2048
+        # plan, whose rows of 8200 bytes take 8-byte parts.
+        cols_case("cols_1024_y", (NBIG, NBIG, kb), 1),
+        cols_case("cols_1024_x", (NBIG, NBIG, kb), 0),
+        cols_case("cols_512_y", (N // RANKS, N, k_r), 1),
+        cols_case("cols_512_x", (N, N // RANKS, k_r), 0),
+        cols_case("cols_2048_y", (sx, sy, sz // 2 + 1), 1),
         dict(name="cmatmul", variant="row_n4_stage_2048", body="row",
              replaces=f"{PALLAS}:164", shape=dict(M=big_n1, n=4, k=4),
              make=lambda: dict(x=cr(big_n1, 4), F=planes("dft", 4)),
@@ -729,45 +820,42 @@ def check_wire(torch, k, got, ref):
 
 
 # The single-card per-axis paths under "pallas": id -> (shape, launches
-# forward, launches inverse, C entry points forward, inverse). At 1024^3
-# every axis is one launch of the row FFT engine (kernels 1 and 2, and on
-# the inverse's z axis kernel 3's C2R Body); at 2048 x 256 x 2048 the x
-# and z axes split 4 x 512 (kernels 5 and 4, then kernel 2's 4-point
-# second stage on the row body of dfft_stage) and y is one engine launch.
-# The inverse C2R of a split axis inverts the Hermitian-extended spectrum
-# as a complex transform.
+# forward, launches inverse, C entry points forward, inverse, the limit of
+# the dispatch's aten ops in ms a direction or None). At 1024^3 every axis
+# is one launch of the row FFT engine: z on rows (kernel 1, and on the
+# inverse kernel 3's C2R Body), y and x where they lie on kernel 2's
+# column body, so no axis moves and the dispatch copies nothing; at 2048 x
+# 256 x 2048 the x and z axes split 4 x 512 (kernels 5 and 4, then kernel
+# 2's 4-point second stage on the row body of dfft_stage) and y is one
+# column launch. The inverse C2R of a split axis inverts the
+# Hermitian-extended spectrum as a complex transform.
 PER_AXIS_PATHS = {
     "per_axis_1024": (
         (NBIG,) * 3, dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1),
-        {"dfft_rdft": 1, "dfft_cdft": 2}, {"dfft_cdft": 2, "dfft_c2r": 1}),
+        {"dfft_rdft": 1, "dfft_cdft_cols": 2},
+        {"dfft_cdft_cols": 2, "dfft_c2r": 1}, COPY_LIMIT_MS),
     "per_axis_2048x256x2048": (
         SPLIT, dict(rmatmul_tw=1, cmatmul_tw=1, cmatmul=3),
         dict(cmatmul_tw=2, cmatmul=3),
-        {"dfft_rdft_tw": 1, "dfft_cdft_tw": 1, "dfft_cdft": 1, "dfft_stage": 2},
-        {"dfft_cdft_tw": 2, "dfft_cdft": 1, "dfft_stage": 2}),
+        {"dfft_rdft_tw": 1, "dfft_cdft_tw": 1, "dfft_cdft_cols": 1,
+         "dfft_stage": 2},
+        {"dfft_cdft_tw": 2, "dfft_cdft_cols": 1, "dfft_stage": 2}, None),
 }
 
 
 def per_axis_path(torch, dft, hf, gen, pid, shape, want_f, want_i, ent_f_want,
-                  ent_i_want):
+                  ent_i_want, copy_limit_ms):
     """Run one single-card per-axis plan: launches and entry points per
     direction, forward against torch.fft.rfftn and the roundtrip against
-    the input, then times under "pallas" and "xla" and the kernel share of
-    each direction. Returns the launches of the roundtrip."""
+    the input, then times under "pallas" and "xla", the kernel share of
+    each direction and its profile, whose aten ops (the dispatch's copies)
+    must stay within ``copy_limit_ms`` where one is given. Returns the
+    launches of the roundtrip."""
     torch.cuda.reset_peak_memory_stats()
     xb = torch.randn(shape, generator=gen, device="cuda")
     big = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
                           dft.Config(fft_backend="pallas"))
-    hf.reset_launches()
-    with entry_counts(hf) as ent_f:
-        cb = big.exec_r2c(xb)
-        torch.cuda.synchronize()
-    fwd = dict(hf.LAUNCHES)
-    hf.reset_launches()
-    with entry_counts(hf) as ent_i:
-        bb = big.exec_c2r(cb)
-        torch.cuda.synchronize()
-    inv = dict(hf.LAUNCHES)
+    cb, bb, fwd, inv, ent_f, ent_i = run_counted(torch, hf, big, xb)
     emit(phase="main_path", path=pid, shape=list(shape), launches_forward=fwd,
          launches_inverse=inv, entries_forward=ent_f, entries_inverse=ent_i,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -816,6 +904,15 @@ def per_axis_path(torch, dft, hf, gen, pid, shape, want_f, want_i, ent_f_want,
         timed[f"{name}_rest_ms"] = total - sum(per.values())
         timed[f"{name}_profile"] = device_profile(torch, fn)
     emit(phase="plan_time", **timed)
+    if copy_limit_ms is not None:
+        for name in ("forward", "inverse"):
+            prof = timed[f"{name}_profile"]
+            if prof["busy_ms"] == "not measured" or \
+                    prof["aten_ms"] > copy_limit_ms:
+                fail(f"{pid} {name}: the dispatch's ops took "
+                     f"{prof['aten_ms']} ms of device time "
+                     f"({prof['aten_ops_ms']}; limit {copy_limit_ms} ms, "
+                     f"busy {prof['busy_ms']})")
     del xb, cb, big, xla_big
     torch.cuda.empty_cache()
     return {k: fwd[k] + inv[k] for k in fwd}
@@ -873,6 +970,9 @@ def main() -> int:
     fzr, fzi = hf._planes("rdft", N, False, dev)
     fyr, fyi = hf._planes("dft", N, False, dev)
     fxr, fxi = hf._planes("dft", N, True, dev)
+    fxfr, fxfi = hf._planes("dft", N, False, dev)
+    xr480, xi480 = randn(480, N, Zo), randn(480, N, Zo)   # kernel 7's dense
+    f480x = hf._planes("dft", 480, True, dev)              # body (X = 480)
     fyir, fyii = hf._planes("dft", N, True, dev)
     cr, ci = hf._planes("c2r", N, False, dev)
     pc = torch.complex(pr, pi)
@@ -901,14 +1001,35 @@ def main() -> int:
              gemm_flops=4 * X * 480 * 480 * Z4 + 8 * X * 480 * 480 * Z4,
              bytes=4 * (X * 480 * 480 + 2 * 480 * Z4 + 2 * 480 * 480
                         + 2 * X * 480 * Z4)),
+        # Kernel 7 on each layout pair the fused plan launches: the
+        # inverse's (the complex64 spectrum in, kernel 8's planes out) and
+        # the forward's (kernel 6's planes in, the spectrum out); the dense
+        # body at X = 480. An FFT body's bytes count no DFT matrix.
         dict(name="x_c2c", replaces=f"{PALLAS}:443",
              shape=dict(X=X, Y=Y, Zo=Zo),
-             run=lambda: hf.x_c2c(pr, pi, inverse=True),
+             run=lambda: hf.x_cols(pc, True, complex_out=False),
              plain=lambda: hf.x_c2c_plain(pr, pi, fxr, fxi),
              library=lambda: torch.fft.ifft(pc, dim=0, norm="forward"),
-             library_call="ifft(dim=0)",
+             library_call="ifft(dim=0, norm='forward')",
              flops=fft_flops(Y * Zo, X), gemm_flops=8 * X * X * Y * Zo,
-             bytes=4 * (4 * X * Y * Zo + 2 * X * X)),
+             bytes=16 * X * Y * Zo),
+        dict(name="x_c2c", variant="forward_to_complex",
+             replaces=f"{PALLAS}:443", shape=dict(X=X, Y=Y, Zo=Zo),
+             run=lambda: hf.x_cols((pr, pi), False, complex_out=True),
+             plain=lambda: torch.complex(*hf.x_c2c_plain(pr, pi, fxfr, fxfi)),
+             library=lambda: torch.fft.fft(pc, dim=0),
+             library_call="fft(dim=0)",
+             flops=fft_flops(Y * Zo, X), gemm_flops=8 * X * X * Y * Zo,
+             bytes=16 * X * Y * Zo),
+        dict(name="x_c2c", variant="dense_480", body="dense",
+             replaces=f"{PALLAS}:443", shape=dict(X=480, Y=Y, Zo=Zo),
+             run=lambda: hf.x_c2c(xr480, xi480, inverse=True),
+             plain=lambda: hf.x_c2c_plain(xr480, xi480, *f480x),
+             library=lambda: torch.fft.ifft(torch.complex(xr480, xi480),
+                                            dim=0, norm="forward"),
+             library_call="ifft(dim=0, norm='forward')",
+             flops=fft_flops(Y * Zo, 480), gemm_flops=8 * 480 * 480 * Y * Zo,
+             bytes=16 * 480 * Y * Zo + 8 * 480 * 480),
         # Kernel 8 on random spectra: their DC and Nyquist z-bins have
         # imaginary parts, which the C2R ignores.
         dict(name="yz_inv", replaces=f"{PALLAS}:452",
@@ -967,28 +1088,19 @@ def main() -> int:
                            pallas)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    hf.reset_launches()
-    with entry_counts(hf) as entries:
-        c = plan.exec_r2c(x)
-        torch.cuda.synchronize()
-    fwd = dict(hf.LAUNCHES)
-    hf.reset_launches()
-    with entry_counts(hf) as entries_inv:
-        back = plan.exec_c2r(c)
-        torch.cuda.synchronize()
-    inv = dict(hf.LAUNCHES)
+    c, back, fwd, inv, entries, entries_inv = run_counted(torch, hf, plan, x)
     launches = {"fused_512": {k: fwd[k] + inv[k] for k in fwd}}
     emit(phase="main_path", path="fused_512", launches_forward=fwd,
          launches_inverse=inv, entries_forward=entries,
          entries_inverse=entries_inv,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    # Kernels 6 and 8 on their FFT bodies: three passes each, the dense
-    # kernels never.
+    # Kernels 6 and 8 on their FFT bodies (three passes each), kernel 7 on
+    # its column body; the dense kernels never.
     if fwd != expect(hf, zy_fwd=3, x_c2c=1) or \
             inv != expect(hf, x_c2c=1, yz_inv=3) or \
             entries != {"dfft_zy_rows": 1, "dfft_zy_cols": 1,
-                        "dfft_zy_planes": 1, "dfft_x_c2c": 1} or \
-            entries_inv != {"dfft_x_c2c": 1, "dfft_yz_scratch": 1,
+                        "dfft_zy_planes": 1, "dfft_x_cols": 1} or \
+            entries_inv != {"dfft_x_cols": 1, "dfft_yz_scratch": 1,
                             "dfft_yz_cols": 1, "dfft_yz_rows": 1}:
         fail(f"main path did not launch each kernel as expected: forward "
              f"{fwd} (entries {entries}), inverse {inv} (entries "
@@ -1014,7 +1126,7 @@ def main() -> int:
         k["plain_ms"] = median_ms(torch, k["plain"])
         k["library_ms"] = median_ms(torch, k["library"])
         k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
-        if k["body"] == "fft":   # kernels 6 and 8: their passes apart
+        if k["body"] == "fft" and k["name"] != "x_c2c":  # 6 and 8: passes
             k["pass_ms"] = entry_ms(torch, hf, k["run"])
         emit(phase="kernel_time", name=k["name"], variant=k.get("variant"),
              kernel_ms=k["kernel_ms"], plain_ms=k["plain_ms"],
@@ -1023,12 +1135,15 @@ def main() -> int:
     xla = dft.SlabFFTPlan(dft.GlobalSize(N, N, N), dft.SlabPartition(1),
                           dft.Config())
     cp, cx = plan.exec_r2c(x), xla.exec_r2c(x)
-    emit(phase="plan_time", shape=[N, N, N],
+    emit(phase="plan_time", path="fused_512", shape=[N, N, N],
          pallas_forward_ms=median_ms(torch, lambda: plan.exec_r2c(x)),
          pallas_inverse_ms=median_ms(torch, lambda: plan.exec_c2r(cp)),
          xla_forward_ms=median_ms(torch, lambda: xla.exec_r2c(x)),
-         xla_inverse_ms=median_ms(torch, lambda: xla.exec_c2r(cx)))
-    del x, x480, pr, pi, pc, pr480, pi480, pc480, cp, cx, plan, xla
+         xla_inverse_ms=median_ms(torch, lambda: xla.exec_c2r(cx)),
+         forward_profile=device_profile(torch, lambda: plan.exec_r2c(x)),
+         inverse_profile=device_profile(torch, lambda: plan.exec_c2r(cp)))
+    del x, x480, pr, pi, pc, pr480, pi480, pc480, xr480, xi480, cp, cx, plan, \
+        xla
     torch.cuda.empty_cache()
 
     # -- 6. per-axis kernels 1-5: check against plain, then time -------------

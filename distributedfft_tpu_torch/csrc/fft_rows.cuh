@@ -1,14 +1,17 @@
 // The row FFT engine for Hopper (sm_90a), shared by wire.cu (kernel 11),
-// stage.cu (kernels 1, 2, 3, 4 and 5) and fused3d.cu (kernels 6 and 8): the
-// DFT of every row of a batch of power-of-two rows, 8 <= n <= 1024, in
-// shared memory and registers.
+// stage.cu (kernels 1, 2, 3, 4 and 5) and fused3d.cu (kernels 6, 7 and 8):
+// the DFT of every row of a batch of power-of-two rows, 8 <= n <= 1024, in
+// shared memory and registers; and, on the same passes and twiddle table,
+// the column kernel (the end of this file: kernel 7, and kernel 2 on a
+// non-last axis), the DFT of every column of an (outer, n, inner) array.
 //
-// It replaces the dense DFT product of eight Pallas TPU kernels of
+// It replaces the dense DFT product of nine Pallas TPU kernels of
 // distributedfft_tpu/ops/pallas_fft.py (_dec_cmatmul_kernel :737, kernel
 // 11, _cmatmul_kernel :164, kernel 2, _rmatmul_kernel :182, kernel 1,
 // _c2r_kernel :156, kernel 3, _cmatmul_tw_kernel :171, kernel 4,
-// _rmatmul_tw_kernel :188, kernel 5, and _zy_fwd_kernel :427, kernel 6, and
-// _yz_inv_kernel :452, kernel 8, as two passes each). The TPU had only a
+// _rmatmul_tw_kernel :188, kernel 5, _zy_fwd_kernel :427, kernel 6, and
+// _yz_inv_kernel :452, kernel 8, as two passes each, and _x_c2c_kernel
+// :443, kernel 7, as the column kernel). The TPU had only a
 // matrix unit, so there a row DFT is a product with the (n, n) DFT matrix:
 // n / (5 log2 n) times an FFT's arithmetic (20x at n = 1024). Here the
 // function is bound by bytes: an FFT costs 5 n log2 n flop per row, 50 flop
@@ -300,6 +303,55 @@ __device__ __forceinline__ void arrive_when_copied(uint64_t* bar) {
 }
 
 // ---------------------------------------------------------------------------
+// What every persistent kernel of the engine does first and how it is
+// launched.
+// ---------------------------------------------------------------------------
+
+// All NT threads of the block: (2, entries) float32 planes from global src
+// to shared re, im.
+template <int NT>
+__device__ __forceinline__ void load_planes(const float* src, int entries,
+                                            float* re, float* im) {
+  for (int i = threadIdx.x; i < entries; i += NT) {
+    re[i] = src[i];
+    im[i] = src[entries + i];
+  }
+}
+
+// Thread 0: the ring's stages barriers at full, each completing after
+// arrivals arrives. The block syncs before it uses them.
+__device__ __forceinline__ void init_ring(uint64_t* full, int stages,
+                                          uint32_t arrivals) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], arrivals);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// Launch kernel(args...) on a persistent grid of blocks of threads threads
+// and smem bytes of dynamic shared memory: as many blocks as the card holds
+// at once, at most nb (the batches they walk, nb >= 1).
+template <class K, class... A>
+cudaError_t launch_persistent(K kernel, int threads, size_t smem, long long nb,
+                              cudaStream_t stream, A... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (nb < 1 || nb > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long most = (long long)sms * per_sm;
+  kernel<<<(int)(nb < most ? nb : most), threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // The kernel. Body gives the rows' loader and epilogue:
 //   ISSUERS                           threads that call issue, each
 //                                     arriving once on the buffer's barrier:
@@ -337,14 +389,8 @@ fft_rows_kernel(const Body body, const float* __restrict__ table,
 
   const int tid = threadIdx.x;
   const int nb = body.template batches<L>();
-  for (int i = tid; i < G::TABLE; i += THREADS) {
-    wr[i] = table[i];
-    wi[i] = table[G::TABLE + i];
-  }
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], ISSUERS);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  load_planes<THREADS>(table, G::TABLE, wr, wi);
+  init_ring(full, STAGES, ISSUERS);
   __syncthreads();
   if (tid < ISSUERS) {
     for (int s = 0; s < STAGES; ++s) {
@@ -388,23 +434,9 @@ template <int L, class Body>
 cudaError_t launch_log2(int schedule, const Body& body, const float* table,
                         int inverse, cudaStream_t stream) {
   if (schedule != packed_schedule(L)) return cudaErrorInvalidValue;
-  auto kernel = fft_rows_kernel<L, Body>;
-  constexpr size_t smem = smem_bytes<L, Body>();
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int nb = body.template batches<L>();
-  const int grid = nb < sms * per_sm ? nb : sms * per_sm;
-  kernel<<<grid, THREADS, smem, stream>>>(body, table, inverse);
-  return cudaGetLastError();
+  return launch_persistent(fft_rows_kernel<L, Body>, THREADS,
+                           smem_bytes<L, Body>(), body.template batches<L>(),
+                           stream, body, table, inverse);
 }
 
 // Launch the engine on rows of n points (a power of two in [8, 1024]).
@@ -560,6 +592,490 @@ struct RealPairsOut {
 
 inline bool misaligned(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+}
+
+// ---------------------------------------------------------------------------
+// The column kernel: the engine's passes on W columns of an (outer, n, inner)
+// array at once, each column an n-point C2C whose points lie inner elements
+// apart (fused3d.cu, kernel 7; stage.cu, kernel 2 on a non-last axis).
+//
+// A batch is W consecutive columns (o, c0 .. c0 + W) of one outer index o,
+// each of its n point-rows a strip of W contiguous elements. The row
+// kernel's batch of ROWS rows would make that strip 4 columns at n = 512,
+// 32 bytes of complex64, and narrow strips are what set the pace of a
+// store (csrc/probes/store_strips.cu, PERF.md section 6). So the column
+// kernel has its own geometry: COL_THREADS threads a block, PT = 16 points
+// a thread (PT / r butterflies of each radix-r pass), W = COL_THREADS * PT
+// / n columns a batch: 16 at n = 512 (128-byte strips of complex64, 64 of
+// a float plane), 512 at n <= 16; n = 1024 takes the split kernel below
+// (16 columns, each half of their rows in one buffer). A batch is 8 n W = 64 KB (32 at n = 8) as
+// complex64, and COL_STAGES of them fill 192 KB of shared memory: one
+// block an SM, 16 warps, two batches in flight while one is transformed.
+//
+// - Loads: every thread cp.asyncs a share of the batch's strips into the
+//   buffer, in parts of 16, 8 or 4 bytes, the widest that the strip's start
+//   and length allow (a complex64 row of 513 elements is 4104 bytes, so
+//   every other row of the 1024^3 y axis starts 8 bytes off a 16-byte
+//   boundary: 8-byte parts), and arrives on the buffer's barrier when they
+//   have landed. A strip is the columns that exist: the last group of a
+//   ragged inner extent is a partial batch, its other columns transformed
+//   from stale data and never stored.
+// - Work layout: float2 w[i W + c], point i of column c, in the batch's own
+//   buffer (the first pass reads the strips, every thread syncs, then
+//   writes). Thread t takes column c = t mod W, so a half warp's 16 lanes
+//   read or write 16 columns of one point, 128 bytes, without a bank
+//   conflict (W >= 16).
+// - Epilogue: the strips stored from the buffer in parts as wide as the
+//   destination allows; then the buffer is refilled with the batch
+//   COL_STAGES steps ahead.
+// - The grid is persistent and walks batches column group first, so
+//   neighbouring blocks hold neighbouring strips of the same point-rows at
+//   the same time and share the 32-byte sectors of a misaligned strip.
+// ---------------------------------------------------------------------------
+
+constexpr int COL_THREADS = 512;
+constexpr int COL_STAGES = 3;
+
+template <int L>
+struct ColGeometry {
+  static constexpr int N = 1 << L;
+  static constexpr int PT = N < 16 ? N : 16;  // points a thread holds
+  static constexpr int T = N / PT;            // threads a column
+  static constexpr int W = COL_THREADS / T;   // columns a batch
+  static constexpr int POINTS = W * N;        // = COL_THREADS * PT
+};
+
+template <int L>
+constexpr size_t cols_smem_bytes() {
+  return 128 + 8 * Geometry<L>::TABLE + COL_STAGES * 8 * ColGeometry<L>::POINTS;
+}
+
+// Write the thread's butterflies of pass P to the work layout (Stockham
+// order, as store_pass): output m of butterfly j to point (j - k) r + k +
+// m NS, k = j mod NS.
+template <int L, int P>
+__device__ __forceinline__ void col_store(float2* w, int c, int jl,
+                                          const float2* a) {
+  using G = ColGeometry<L>;
+  constexpr int r = 1 << pass_bits(L, P), NS = 1 << bits_before(L, P);
+#pragma unroll
+  for (int q = 0; q < G::PT / r; ++q) {
+    const int j = jl + q * G::T, k = j & (NS - 1), o = (j - k) * r + k;
+#pragma unroll
+    for (int m = 0; m < r; ++m) w[(o + m * NS) * G::W + c] = a[q * r + m];
+  }
+}
+
+// A pass after the first: butterflies j = jl + q T read, twiddled and
+// transformed, sync, written, sync.
+template <int L, int P>
+__device__ __forceinline__ void col_pass(float2* w, int c, int jl,
+                                         const float* wr, const float* wi,
+                                         float sgn) {
+  using G = ColGeometry<L>;
+  constexpr int r = 1 << pass_bits(L, P);
+  float2 a[G::PT];
+#pragma unroll
+  for (int q = 0; q < G::PT / r; ++q) {
+    const int j = jl + q * G::T;
+#pragma unroll
+    for (int m = 0; m < r; ++m)
+      a[q * r + m] = w[(j + m * (G::N / r)) * G::W + c];
+    twiddle_dft<L, P>(a + q * r, j, wr, wi, sgn);
+  }
+  __syncthreads();
+  col_store<L, P>(w, c, jl, a);
+  __syncthreads();
+}
+
+// cp.async of PS bytes (4, 8 or 16; both addresses PS-aligned) without
+// waiting.
+template <int PS>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  if constexpr (PS == 16)
+    copy16_async(dst, src);
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(PS)
+                 : "memory");
+}
+
+// f(i, k) for every part k < per of every row i < rows, shared among the
+// block's threads, neighbouring threads on neighbouring parts.
+template <class F>
+__device__ __forceinline__ void for_parts(int rows, int per, F f) {
+  for (int e = threadIdx.x; e < rows * per; e += COL_THREADS) {
+    const int i = e / per;
+    f(i, e - i * per);
+  }
+}
+
+template <int PS>
+__device__ __forceinline__ void copy_strips_by(unsigned char* dst,
+                                               const unsigned char* src,
+                                               size_t pitch, int bytes,
+                                               int rows, int spitch) {
+  for_parts(rows, bytes / PS, [&](int i, int k) {
+    copy_async<PS>(dst + i * spitch + k * PS, src + i * pitch + k * PS);
+  });
+}
+
+// rows strips of bytes bytes, pitch bytes apart from src, to dst, spitch
+// bytes apart: every thread cp.asyncs a share, in the widest parts that
+// the strips' starts and length allow.
+__device__ __forceinline__ void copy_strips(unsigned char* dst,
+                                           const void* src, size_t pitch,
+                                           int bytes, int rows, int spitch) {
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  const unsigned a =
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(s) | pitch | bytes);
+  if (!(a & 15))
+    copy_strips_by<16>(dst, s, pitch, bytes, rows, spitch);
+  else if (!(a & 7))
+    copy_strips_by<8>(dst, s, pitch, bytes, rows, spitch);
+  else
+    copy_strips_by<4>(dst, s, pitch, bytes, rows, spitch);
+}
+
+// The kernel. Body gives the columns' loader and epilogue:
+//   batches<L>()               number of batches
+//   issue<L>(buffer, b, bar)   every thread: its cp.async parts of batch b,
+//                              then its arrive on bar
+//   load<L>(buffer, c, i)      point i of column c of the landed batch
+//   store<L>(w, b)             the epilogue from the work layout, all threads
+template <int L, class Body>
+__global__ void __launch_bounds__(COL_THREADS, 1)
+fft_cols_kernel(const Body body, const float* __restrict__ table,
+                int inverse) {
+  using G = ColGeometry<L>;
+  constexpr int TABLE = Geometry<L>::TABLE, R0 = Geometry<L>::RMAX;
+  constexpr int SB = 8 * G::POINTS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  float* wr = reinterpret_cast<float*>(smem + 128);
+  float* wi = wr + TABLE;
+  unsigned char* stages = reinterpret_cast<unsigned char*>(wi + TABLE);
+
+  const int tid = threadIdx.x;
+  const int nb = body.template batches<L>();
+  load_planes<COL_THREADS>(table, TABLE, wr, wi);
+  init_ring(full, COL_STAGES, COL_THREADS);
+  __syncthreads();
+  for (int s = 0; s < COL_STAGES; ++s) {
+    const int b = blockIdx.x + s * gridDim.x;
+    if (b < nb) body.template issue<L>(stages + s * SB, b, &full[s]);
+  }
+
+  const float sgn = inverse ? 1.f : -1.f;
+  const int c = tid % G::W, jl = tid / G::W;
+  int it = 0;
+  for (int b = blockIdx.x; b < nb; b += gridDim.x, ++it) {
+    const int s = it % COL_STAGES;
+    unsigned char* buf = stages + s * SB;
+    float2* w = reinterpret_cast<float2*>(buf);
+    mbar_wait(&full[s], (it / COL_STAGES) & 1);
+    float2 a[G::PT];
+#pragma unroll
+    for (int q = 0; q < G::PT / R0; ++q) {
+      const int j = jl + q * G::T;
+#pragma unroll
+      for (int m = 0; m < R0; ++m)
+        a[q * R0 + m] = body.template load<L>(buf, c, j + m * (G::N / R0));
+      twiddle_dft<L, 0>(a + q * R0, j, wr, wi, sgn);
+    }
+    __syncthreads();
+    col_store<L, 0>(w, c, jl, a);
+    __syncthreads();
+    if constexpr (Geometry<L>::PASSES > 1) col_pass<L, 1>(w, c, jl, wr, wi, sgn);
+    if constexpr (Geometry<L>::PASSES > 2) col_pass<L, 2>(w, c, jl, wr, wi, sgn);
+    body.template store<L>(w, b);
+    // Every thread has read buffer s: refill it STAGES batches ahead.
+    __syncthreads();
+    const int next = b + COL_STAGES * gridDim.x;
+    if (next < nb) body.template issue<L>(buf, next, &full[s]);
+  }
+}
+
+template <int L, class Body>
+cudaError_t launch_cols_log2(int schedule, const Body& body,
+                             const float* table, int inverse,
+                             cudaStream_t stream) {
+  if (schedule != packed_schedule(L)) return cudaErrorInvalidValue;
+  return launch_persistent(fft_cols_kernel<L, Body>, COL_THREADS,
+                           cols_smem_bytes<L>(), body.template batches_ll<L>(),
+                           stream, body, table, inverse);
+}
+
+// The column Body of kernels 7 and 2: the n-point C2C of every column of an
+// (outer, n, inner) array. Its input is interleaved complex64 at in_r (in_i
+// null) or split float32 planes in_r, in_i, and so is its output (out_r,
+// out_i), which must not overlap the input unless it is the input. A batch
+// moves the kernel's N = 2^L point-rows of W columns: all n of them, or
+// (the split kernel at n = 1024) the rows row0 + step * i, i < N.
+struct Columns {
+  const float* in_r;
+  const float* in_i;
+  float* out_r;
+  float* out_i;
+  int outer;
+  int n;
+  int inner;
+
+  template <int L>
+  __host__ __device__ int groups() const {
+    constexpr int W = ColGeometry<L>::W;
+    return (inner + W - 1) / W;
+  }
+  template <int L>
+  __host__ __device__ long long batches_ll() const {
+    return (long long)outer * groups<L>();
+  }
+  template <int L>
+  __device__ int batches() const {
+    return outer * groups<L>();
+  }
+  // Batch b: element offset of its first strip (point 0 of column c0 of
+  // outer index o, in elements of its array) and its column count.
+  template <int L>
+  __device__ size_t locate(int b, int& valid) const {
+    using G = ColGeometry<L>;
+    const int g = groups<L>(), o = b / g, c0 = (b - o * g) * G::W;
+    valid = inner - c0 < G::W ? inner - c0 : G::W;
+    return (size_t)o * n * inner + c0;
+  }
+  // Every thread: its cp.async parts of rows row0 .. row0 + N of batch b,
+  // then its arrive on bar.
+  template <int L>
+  __device__ void issue(unsigned char* buf, int b, uint64_t* bar,
+                        int row0 = 0) const {
+    using G = ColGeometry<L>;
+    int valid;
+    const size_t off = locate<L>(b, valid) + (size_t)row0 * inner;
+    if (in_i == nullptr) {
+      copy_strips(buf, in_r + 2 * off, 8 * (size_t)inner, 8 * valid, G::N,
+                  8 * G::W);
+    } else {
+      copy_strips(buf, in_r + off, 4 * (size_t)inner, 4 * valid, G::N,
+                  4 * G::W);
+      copy_strips(buf + 4 * G::POINTS, in_i + off, 4 * (size_t)inner,
+                  4 * valid, G::N, 4 * G::W);
+    }
+    arrive_when_copied(bar);
+  }
+  template <int L>
+  __device__ float2 load(const unsigned char* buf, int c, int i) const {
+    using G = ColGeometry<L>;
+    if (in_i == nullptr)
+      return reinterpret_cast<const float2*>(buf)[i * G::W + c];
+    const float* p = reinterpret_cast<const float*>(buf);
+    return make_float2(p[i * G::W + c], p[G::POINTS + i * G::W + c]);
+  }
+  // All threads: work row i of batch b to row row0 + step * i.
+  template <int L>
+  __device__ void store(const float2* w, int b, int row0 = 0,
+                        int step = 1) const {
+    int valid;
+    const size_t off = locate<L>(b, valid) + (size_t)row0 * inner;
+    const size_t pitch = (size_t)step * inner;
+    if (out_i == nullptr) {
+      store_complex<L>(out_r + 2 * off, 2 * pitch, w, valid);
+    } else {
+      store_plane<L, 0>(out_r + off, pitch, w, valid);
+      store_plane<L, 1>(out_i + off, pitch, w, valid);
+    }
+  }
+
+  // valid complex64 columns of every work row to dst, rows pitch floats
+  // apart: 16-byte parts of two columns where the rows allow, else 8.
+  template <int L>
+  __device__ void store_complex(float* dst, size_t pitch, const float2* w,
+                                int valid) const {
+    using G = ColGeometry<L>;
+    const unsigned a = static_cast<unsigned>(
+        reinterpret_cast<uintptr_t>(dst) | 4 * pitch | 8 * valid);
+    if (!(a & 15)) {
+      for_parts(G::N, valid / 2, [&](int i, int k) {
+        *reinterpret_cast<float4*>(dst + i * pitch + 4 * k) =
+            reinterpret_cast<const float4*>(w)[(i * G::W) / 2 + k];
+      });
+    } else {
+      for_parts(G::N, valid, [&](int i, int k) {
+        *reinterpret_cast<float2*>(dst + i * pitch + 2 * k) = w[i * G::W + k];
+      });
+    }
+  }
+  // The real (H = 0) or imaginary (H = 1) parts of valid columns of every
+  // work row to the float32 plane dst, rows pitch floats apart: parts of
+  // 4, 2 or 1 columns.
+  template <int L, int H>
+  __device__ void store_plane(float* dst, size_t pitch, const float2* w,
+                              int valid) const {
+    const unsigned a = static_cast<unsigned>(
+        reinterpret_cast<uintptr_t>(dst) | 4 * pitch | 4 * valid);
+    if (!(a & 15))
+      store_plane_by<L, H, 4>(dst, pitch, w, valid);
+    else if (!(a & 7))
+      store_plane_by<L, H, 2>(dst, pitch, w, valid);
+    else
+      store_plane_by<L, H, 1>(dst, pitch, w, valid);
+  }
+  template <int L, int H, int K>
+  __device__ void store_plane_by(float* dst, size_t pitch, const float2* w,
+                                 int valid) const {
+    using G = ColGeometry<L>;
+    for_parts(G::N, valid / K, [&](int i, int k) {
+      const float2* p = w + i * G::W + K * k;
+      float v[K];
+#pragma unroll
+      for (int h = 0; h < K; ++h) v[h] = H ? p[h].y : p[h].x;
+      float* o = dst + i * pitch + K * k;
+      if constexpr (K == 4)
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      else if constexpr (K == 2)
+        *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+      else
+        *o = v[0];
+    });
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The split kernel: columns of n = 1024 points, W = 16 a batch.
+//
+// The column kernel's batch at 1024 points would hold W = 8 columns in its
+// 64 KB buffer, and 64-byte strips cost it 4.65 ms on the 1024^3 x axis
+// where 128-byte strips of the same bytes cost 3.26 and a plain copy of
+// them 2.84 (csrc/probes/col_strips.cu, PERF.md section 6): the strips,
+// not the FFT, set its pace. So at 1024 points a batch is W = 16 columns
+// in two buffers of the ring, its halves a (rows 0 .. 512) and b (rows 512
+// .. 1024), each loaded as 128-byte strips. A radix-2 split across the
+// halves, u_i = a_i + b_i and v_i = (a_i - b_i) w^i, w = exp(-+ 2 pi i /
+// 1024), is formed as each thread loads its first pass (a thread reads a_i
+// and b_i of the same points of both buffers); the 512-point FFT of u is
+// the even bins of the column, that of v the odd ones: the engine's passes
+// (fft_plan(512), ColGeometry<9>) on each buffer in turn, u's output k
+// stored to row 2 k and v's to row 2 k + 1, 128-byte strips again. The
+// ring turns by half batches: a buffer is refilled as soon as its half is
+// stored, so one half-batch load stays in flight while a batch is
+// transformed.
+// ---------------------------------------------------------------------------
+
+constexpr int SPLIT_L = 9;  // each half's FFT: 512 points
+
+constexpr size_t split_smem_bytes() {
+  return cols_smem_bytes<SPLIT_L>() + 8 * 512;
+}
+
+template <class Body>
+__global__ void __launch_bounds__(COL_THREADS, 1)
+fft_cols_split_kernel(const Body body, const float* __restrict__ table,
+                      const float* __restrict__ split, int inverse) {
+  constexpr int L = SPLIT_L;
+  using G = ColGeometry<L>;
+  constexpr int TABLE = Geometry<L>::TABLE, R0 = Geometry<L>::RMAX;
+  constexpr int SB = 8 * G::POINTS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  float* wr = reinterpret_cast<float*>(smem + 128);
+  float* wi = wr + TABLE;
+  unsigned char* stages = reinterpret_cast<unsigned char*>(wi + TABLE);
+  float* sr = reinterpret_cast<float*>(stages + COL_STAGES * SB);
+  float* si = sr + G::N;
+
+  const int tid = threadIdx.x;
+  const int nb = body.template batches<L>();
+  load_planes<COL_THREADS>(table, TABLE, wr, wi);
+  load_planes<COL_THREADS>(split, G::N, sr, si);
+  init_ring(full, COL_STAGES, COL_THREADS);
+  __syncthreads();
+  // Half h of the block's sequence: half h % 2 of its batch h / 2, in
+  // buffer h % COL_STAGES.
+  auto issue = [&](int h) {
+    const int b = blockIdx.x + (h >> 1) * gridDim.x;
+    if (b < nb)
+      body.template issue<L>(stages + (h % COL_STAGES) * SB, b,
+                             &full[h % COL_STAGES], (h & 1) * G::N);
+  };
+  for (int h = 0; h < COL_STAGES; ++h) issue(h);
+
+  const float sgn = inverse ? 1.f : -1.f;
+  const int c = tid % G::W, jl = tid / G::W;
+  int h = 0;
+  for (int b = blockIdx.x; b < nb; b += gridDim.x, h += 2) {
+    unsigned char* bufa = stages + (h % COL_STAGES) * SB;
+    unsigned char* bufb = stages + ((h + 1) % COL_STAGES) * SB;
+    float2* wa = reinterpret_cast<float2*>(bufa);
+    float2* wb = reinterpret_cast<float2*>(bufb);
+    mbar_wait(&full[h % COL_STAGES], (h / COL_STAGES) & 1);
+    mbar_wait(&full[(h + 1) % COL_STAGES], ((h + 1) / COL_STAGES) & 1);
+    float2 u[G::PT], v[G::PT];
+#pragma unroll
+    for (int q = 0; q < G::PT / R0; ++q) {
+      const int j = jl + q * G::T;
+#pragma unroll
+      for (int m = 0; m < R0; ++m) {
+        const int i = j + m * (G::N / R0);
+        const float2 x0 = body.template load<L>(bufa, c, i);
+        const float2 x1 = body.template load<L>(bufb, c, i);
+        u[q * R0 + m] = make_float2(x0.x + x1.x, x0.y + x1.y);
+        v[q * R0 + m] = cmul(make_float2(x0.x - x1.x, x0.y - x1.y),
+                             make_float2(sr[i], si[i]));
+      }
+      twiddle_dft<L, 0>(u + q * R0, j, wr, wi, sgn);
+      twiddle_dft<L, 0>(v + q * R0, j, wr, wi, sgn);
+    }
+    __syncthreads();
+    col_store<L, 0>(wa, c, jl, u);
+    col_store<L, 0>(wb, c, jl, v);
+    __syncthreads();
+    if constexpr (Geometry<L>::PASSES > 1) col_pass<L, 1>(wa, c, jl, wr, wi, sgn);
+    if constexpr (Geometry<L>::PASSES > 2) col_pass<L, 2>(wa, c, jl, wr, wi, sgn);
+    body.template store<L>(wa, b, 0, 2);
+    __syncthreads();
+    issue(h + COL_STAGES);
+    if constexpr (Geometry<L>::PASSES > 1) col_pass<L, 1>(wb, c, jl, wr, wi, sgn);
+    if constexpr (Geometry<L>::PASSES > 2) col_pass<L, 2>(wb, c, jl, wr, wi, sgn);
+    body.template store<L>(wb, b, 1, 2);
+    __syncthreads();
+    issue(h + 1 + COL_STAGES);
+  }
+}
+
+// Launch the split kernel on columns of 1024 points; table, schedule: the
+// 512-point engine's (ops/hopper_fft.fft_plan(512, inverse)); split: (2,
+// 512) float32 planes of w^i.
+template <class Body>
+cudaError_t launch_cols_split(int schedule, const Body& body,
+                              const float* table, const float* split,
+                              int inverse, cudaStream_t stream) {
+  if (schedule != packed_schedule(SPLIT_L) || split == nullptr)
+    return cudaErrorInvalidValue;
+  return launch_persistent(fft_cols_split_kernel<Body>, COL_THREADS,
+                           split_smem_bytes(),
+                           body.template batches_ll<SPLIT_L>(), stream, body,
+                           table, split, inverse);
+}
+
+// Launch the column kernel on columns of n points (a power of two in [8,
+// 1024]): table and schedule are fft_plan(n, inverse)'s up to 512 points;
+// at 1024 those of 512, with split (see launch_cols_split).
+template <class Body>
+cudaError_t launch_cols(int n, int schedule, const Body& body,
+                        const float* table, const float* split, int inverse,
+                        cudaStream_t stream) {
+  switch (n) {
+    case 8: return launch_cols_log2<3>(schedule, body, table, inverse, stream);
+    case 16: return launch_cols_log2<4>(schedule, body, table, inverse, stream);
+    case 32: return launch_cols_log2<5>(schedule, body, table, inverse, stream);
+    case 64: return launch_cols_log2<6>(schedule, body, table, inverse, stream);
+    case 128: return launch_cols_log2<7>(schedule, body, table, inverse, stream);
+    case 256: return launch_cols_log2<8>(schedule, body, table, inverse, stream);
+    case 512: return launch_cols_log2<9>(schedule, body, table, inverse, stream);
+    case 1024:
+      return launch_cols_split(schedule, body, table, split, inverse, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace fft_rows

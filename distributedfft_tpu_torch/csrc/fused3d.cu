@@ -1,9 +1,12 @@
 // Fused single-device 3D FFT kernels for Hopper (sm_90a), plain C interface.
 //
-// Complex data travels as split float32 (real, imag) planes, as in the JAX
-// package's Pallas kernels. Every DFT is a dense matrix product with the DFT
-// matrices built on the host (ops/mxu_fft.py), computed in float32 FFMA on
-// the CUDA cores through shared-memory tiles; no tensor cores yet.
+// Complex data between the kernels travels as split float32 (real, imag)
+// planes, as in the JAX package's Pallas kernels; kernel 7's FFT body also
+// reads or writes the interleaved complex64 spectrum. The dense bodies
+// compute every DFT as a matrix product with the DFT matrices built on the
+// host (ops/mxu_fft.py), in float32 FFMA on the CUDA cores through
+// shared-memory tiles; the FFT bodies run the row FFT engine of
+// fft_rows.cuh.
 //
 // Three kernels, each replacing one Pallas TPU kernel of
 // distributedfft_tpu/ops/pallas_fft.py:
@@ -14,7 +17,10 @@
 //   fft_rows_kernel<L, ZRows>, fft_rows_kernel<L, ComplexTwiddleRows<false>>
 //   then zy_planes_kernel
 //                  <- _zy_fwd_kernel  (the FFT body: three launches)
-//   x_c2c_kernel   <- _x_c2c_kernel   (C2C along x, both directions)
+//   fft_cols_kernel<L, Columns>
+//                  <- _x_c2c_kernel   (C2C along x, both directions; the FFT
+//                                      body, X a power of two in [8, 512])
+//   x_c2c_kernel   <- _x_c2c_kernel   (the dense body, any other X)
 //   yz_inv_kernel  <- _yz_inv_kernel  (y-C2C inverse, then half-spectrum C2R;
 //                                      the dense body, for Y or Z not a
 //                                      power of two in [8, 512])
@@ -29,13 +35,13 @@
 //   x_c2c   2.76e11 FLOP -> 4.1 ms;  1.08 GB -> 0.32 ms   (operations bound)
 //   yz_inv  4.14e11 FLOP -> 6.2 ms;  1.08 GB -> 0.32 ms   (operations bound)
 //
-// A DFT done as a dense product is about 20x the arithmetic of an FFT, so
-// all three are bound by operations, not bytes. What the designs do about it:
-// each keeps its inter-stage intermediate in shared memory (one HBM read of
-// the input, one HBM write of the output), and each thread holds a register
-// tile of 16 to 32 complex sums so that an operand fetched from shared memory
-// feeds 4 to 16 FMAs. The DFT matrices are re-read per block from L2. Tensor
-// cores (3xTF32 or split bf16) and TMA pipelines are the later steps.
+// (the dense bodies' counts). A DFT done as a dense product is about 20x
+// the arithmetic of an FFT, so all three are bound by operations, not
+// bytes. What the dense designs do about it: each keeps its inter-stage
+// intermediate in shared memory (one HBM read of the input, one HBM write
+// of the output), and each thread holds a register tile of 16 to 32
+// complex sums so that an operand fetched from shared memory feeds 4 to 16
+// FMAs. The DFT matrices are re-read per block from L2.
 //
 // zy_fwd's FFT body (Y and Z powers of two in [8, 512]) does no dense
 // product: it runs the row FFT engine of fft_rows.cuh twice and a
@@ -79,6 +85,18 @@
 //   piece of consecutive y (64 bytes at Z = 512), copied in 16-byte parts
 //   by every thread with cp.async; the epilogue writes whole (X, Y, Z)
 //   rows.
+//
+// x_c2c's FFT body (X a power of two in [8, 512]) is the column kernel of
+// fft_rows.cuh (fft_rows::Columns): the (X, Ky, Zo) data is one (1, X,
+// Ky * Zo) array of columns, W = 16 columns a batch at X = 512, every
+// point-row of a batch a 64-byte strip of each float plane or a 128-byte
+// strip of complex64. It reads the planes kernel 6 writes and writes the
+// complex64 spectrum straight away (the forward), or reads the spectrum and
+// writes the planes kernel 8 reads (the inverse), so neither direction
+// spends a pass on interleaving or splitting. The dense product did 8 X
+// flop a point, about 11x an FFT's 5 log2 X at X = 512; this body does the
+// FFT's and moves each byte once: bound by bytes, 1.08 GB -> 0.32 ms at
+// 512^3.
 //
 // Every extern "C" entry point returns cudaGetLastError() after its launch.
 
@@ -778,6 +796,19 @@ int dfft_x_c2c(const float* ar, const float* ai, const float* fr,
   x_c2c_kernel<<<grid, XC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       ar, ai, fr, fi, zr, zi, M, N);
   return cudaGetLastError();
+}
+
+// x_c2c FFT body: the X-point C2C (inverse when inverse != 0) of every
+// column of an (X, inner) array, inner = Ky * Zo. In: float32 planes ar, ai,
+// or complex64 at ar when ai is null; out: planes zr, zi, or complex64 at zr
+// when zi is null. table, schedule: ops/hopper_fft.fft_plan(X, inverse).
+int dfft_x_cols(const float* ar, const float* ai, const float* table,
+                float* zr, float* zi, int X, int inner, int schedule,
+                int inverse, void* stream) {
+  if (X < 8 || X > AXIS_MAX || inner < 1) return cudaErrorInvalidValue;
+  const fft_rows::Columns body{ar, ai, zr, zi, 1, X, inner};
+  return fft_rows::launch_cols(X, schedule, body, table, nullptr, inverse,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // e (X, Y, Zo) planes; fy (Y, Y) planes; c2r (Zo, Z) f32 x2 -> out (X, Y, Z)

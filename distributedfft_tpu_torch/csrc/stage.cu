@@ -18,6 +18,10 @@
 //   fft_rows_kernel<L, ComplexTwiddleRows<false>>
 //                            <- _cmatmul_kernel     (kernel 2, FFT body:
 //                               power-of-two n in [8, 1024])
+//   fft_cols_kernel<L, Columns>
+//                            <- _cmatmul_kernel     (kernel 2, column body:
+//                               the same n along a non-last axis, in place
+//                               in the layout)
 //   MODE_CMATMUL             <- _cmatmul_kernel     (kernel 2, tile or row
 //                               body: any other n, e.g. 96, 257, or the
 //                               4-point second stage of a 2048 axis)
@@ -75,6 +79,14 @@
 //   lies, and the epilogue stores interleaved complex64, times the twiddle
 //   row T[r % n1] for kernel 4. It reads and writes each byte once and does
 //   5 n log2 n flop a row where the dense product did 8 n^2.
+// - Kernel 2 also has a column body (fft_rows::Columns): the C2C along
+//   axis 1 of an (outer, n, inner) complex64 array, where the TPU kernel
+//   could read only contiguous rows and so needed the axis moved last and
+//   back, two copies of the tensor. The column kernel reads W = 16 columns
+//   of every point-row a batch (128-byte strips; at n = 1024 the split
+//   kernel, two 512-point halves) and writes them back in the same layout:
+//   each byte moved once, bound by bytes as the row body (8.6 GB -> 2.57 ms
+//   at each non-last axis of the 1024^3 spectrum).
 // - Kernels 1 and 5 have an FFT body on the same engine on real rows
 //   (RealRowPairs): each batch of real rows arrives by one bulk copy, the
 //   first pass packs rows 2c and 2c + 1 as one complex row (an odd last row
@@ -454,6 +466,20 @@ int dfft_cdft(const float* x, const float* table, float* out, int M, int n,
                                                  1};
   return fft_rows::launch(n, schedule, body, table, inverse,
                           static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 2, column body: the n-point C2C (inverse when inverse != 0) along
+// axis 1 of an (outer, n, inner) complex64 array x, into out of the same
+// layout; n a power of two in [8, 1024]; table, schedule, split:
+// ops/hopper_fft.cols_plan(n, inverse) (split null below 1024). No
+// alignment beyond complex64's.
+int dfft_cdft_cols(const float* x, const float* table, const float* split,
+                   float* out, int outer, int n, int inner, int schedule,
+                   int inverse, void* stream) {
+  if (outer < 1 || inner < 1) return cudaErrorInvalidValue;
+  const fft_rows::Columns body{x, nullptr, out, nullptr, outer, n, inner};
+  return fft_rows::launch_cols(n, schedule, body, table, split, inverse,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // Kernel 1, FFT body. x: (M, n) float32, n a power of two in [8, 1024],

@@ -13,13 +13,20 @@ granularities:
   launches through a complex64 scratch (``zy_fwd``: the row FFT engine on
   the z rows into the scratch, the engine on the scratch's y rows in
   place, a transpose into the planes; ``yz_inv`` the same backwards, its
-  z pass kernel 3's C2R Body), else the dense kernel.
+  z pass kernel 3's C2R Body), else the dense kernel. ``x_c2c`` picks its
+  body by ``_x_body(X)``: for a power of two in [8, 512] the column kernel
+  of the row FFT engine, which reads kernel 6's planes and writes the
+  complex64 spectrum (forward) or reads the spectrum and writes kernel 8's
+  planes (inverse), else the dense kernel on planes.
 * **per-axis path** (``csrc/stage.cu``): one kernel launch is one DFT
   stage along the last axis, ``y = x @ F`` on rows of interleaved complex
   (or real) data, optionally with the four-step twiddle fused into its
   epilogue, plus the half-spectrum C2R. ``fft``/``ifft``/``rfft``/
-  ``irfft`` move the axis last and dispatch as ``pallas_fft._fft_last`` /
-  ``_rfft_last`` do, but for the engine's lengths: one direct stage
+  ``irfft`` dispatch as ``pallas_fft._fft_last`` / ``_rfft_last`` do,
+  but for the engine's lengths. ``fft`` / ``ifft`` of a contiguous tensor
+  along a non-last axis whose length the engine takes run one
+  ``cdft_cols`` (kernel 2's column body) where the axis lies; any other
+  axis moves last first. On the last axis: one direct stage
   (``cdft`` / ``rdft``, kernels 2 and 1) up to 512 points, for a power of
   two up to 1024 and for a prime up to 1024, else the four-step split of
   ``mxu_fft._split_for`` (the JAX package splits every axis past 512,
@@ -38,8 +45,9 @@ granularities:
   (kernel 4), ``rdft_tw`` (kernel 5) and ``dec_cmatmul`` (kernel 11) on
   rows of a power of two in [8, 1024] (``_fft_body``); other lengths take
   the dense bodies of ``stage.cu``. It also runs the two FFT passes of
-  the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8).
-  ``fft_plan`` is its host side.
+  the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8), and,
+  as its column kernel, ``x_c2c`` (kernel 7) and ``cdft_cols`` (kernel 2
+  on a non-last axis). ``fft_plan`` is its host side.
 
 Each kernel has here:
 
@@ -58,6 +66,7 @@ raise ``NotImplementedError``.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -80,6 +89,7 @@ _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
             "dfft_zy_cols": ("fused3d", (2, 4)),
             "dfft_zy_planes": ("fused3d", (3, 3)),
             "dfft_x_c2c": ("fused3d", (6, 2)),
+            "dfft_x_cols": ("fused3d", (5, 4)),
             "dfft_yz_inv": ("fused3d", (7, 3)),
             "dfft_yz_scratch": ("fused3d", (3, 3)),
             "dfft_yz_cols": ("fused3d", (2, 4)),
@@ -88,6 +98,7 @@ _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
             "dfft_rdft_tw": ("stage", (5, 4)),
             "dfft_cdft_tw": ("stage", (5, 5)),
             "dfft_cdft": ("stage", (3, 4)),
+            "dfft_cdft_cols": ("stage", (4, 5)),
             "dfft_rdft": ("stage", (3, 3)),
             "dfft_c2r": ("stage", (3, 3)),
             "dfft_enc_pack": ("wire", (2, 6)),
@@ -176,6 +187,70 @@ def _zy_body(Y: int, Z: int) -> str:
                          for n in (Y, Z)) else "dense")
 
 
+def _x_body(X: int) -> str:
+    """The body kernel 7 runs on (X, Ky, Zo): ``"fft"`` (the column kernel
+    of the row FFT engine) for a power of two in [FFT_MIN,
+    ``mx.DIRECT_MAX``], else ``"dense"`` (the dense-product
+    ``x_c2c_kernel``). A pure function of X."""
+    return "fft" if _fft_body(X) == "fft" and X <= mx.DIRECT_MAX else "dense"
+
+
+# Threads a block of the column kernel (``COL_THREADS`` in fft_rows.cuh).
+COL_THREADS = 512
+
+
+class ColGeometry(NamedTuple):
+    """The column kernel's batch on columns of n points (``ColGeometry``
+    in fft_rows.cuh): ``width`` columns a batch, every point-row of it one
+    strip of ``width`` contiguous elements, in ``halves`` buffers (2 at n =
+    1024: the split kernel, each half of the rows a 512-point FFT); each
+    thread holds ``points`` (16, or n below 16) of one column of each
+    half, ``threads`` threads a column (``COL_THREADS = width *
+    threads``)."""
+    points: int
+    threads: int
+    width: int
+    halves: int
+
+
+def cols_geometry(n: int) -> ColGeometry:
+    if _fft_body(n) != "fft":
+        raise ValueError(f"the column kernel takes a power of two in "
+                         f"[{FFT_MIN}, {FFT_MAX}], not {n}")
+    halves = 2 if n == FFT_MAX else 1
+    m = n // halves                       # points of one FFT
+    pt = min(m, 16)
+    return ColGeometry(pt, m // pt, COL_THREADS * pt // m, halves)
+
+
+class ColsPlan(NamedTuple):
+    """What the column kernel runs on columns of n points: the engine's
+    plan of each FFT (n points, or 512 for the split kernel at n =
+    1024), and for the split kernel the radix-2 split's
+    twiddles w^i = exp(-+ 2 pi i i / n), i < n / 2, as (2, n / 2) float32
+    planes built in float64 (else None)."""
+    plan: FFTPlan
+    split: Optional[np.ndarray]
+
+
+@functools.lru_cache(maxsize=None)
+def cols_plan(n: int, inverse: bool) -> ColsPlan:
+    if cols_geometry(n).halves == 1:
+        return ColsPlan(fft_plan(n, inverse), None)
+    w = np.exp((1.0 if inverse else -1.0) * 2j * np.pi * np.arange(n // 2) / n)
+    return ColsPlan(fft_plan(n // 2, inverse),
+                    np.ascontiguousarray(np.stack([w.real, w.imag]),
+                                         np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _cols_tables(n: int, inverse: bool, device: torch.device):
+    """(table, split or None) of ``cols_plan`` on ``device``."""
+    cp = cols_plan(n, inverse)
+    return (torch.from_numpy(cp.plan.table).to(device),
+            None if cp.split is None else torch.from_numpy(cp.split).to(device))
+
+
 def _zy_scratch_shape(X: int, Y: int, Z: int) -> Tuple[int, int, int]:
     """The complex64 scratch of the FFT bodies of kernels 6 and 8: (X,
     Z // 2 + 1, Y), column zo of plane x one contiguous row, so the y pass
@@ -236,13 +311,13 @@ _S16 = np.sin(2 * np.pi * np.arange(8) / 16).astype(np.float32)
 
 
 def _dft_regs_mirror(a: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """The kernel's radix-r DFT along dim 1 of (M, r, B) complex64: the
+    """The kernel's radix-r DFT along dim -2 of (..., r, B) complex64: the
     radix-2 network on bit-reversed input (``dft_regs``)."""
-    r = a.shape[1]
+    r = a.shape[-2]
     bits = r.bit_length() - 1
     rev = [int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
            for i in range(r)]
-    b = list(a[:, rev].unbind(1))
+    b = list(a[..., rev, :].unbind(-2))
     half = 1
     while half < r:
         for i in range(0, r, 2 * half):
@@ -255,18 +330,18 @@ def _dft_regs_mirror(a: torch.Tensor, inverse: bool) -> torch.Tensor:
                 u = b[i + k]
                 b[i + k], b[i + k + half] = u + v, u - v
         half *= 2
-    return torch.stack(b, 1)
+    return torch.stack(b, -2)
 
 
 def fft_rows_mirror(z: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """The engine's passes in plain PyTorch, from ``fft_plan``: (M, n)
-    complex -> (M, n) complex64, the unnormalized DFT of each row. Pass p
+    """The engine's passes in plain PyTorch, from ``fft_plan``: (..., n)
+    complex -> (..., n) complex64, the unnormalized DFT of each row. Pass p
     (radix r, NS the product of the radices before it) takes inputs
     j + m n / r of butterfly j, twiddles input m by the table's
     [m - 1, j mod NS], runs the radix-r DFT and writes output m to
     (j - k) r + k + m NS, k = j mod NS. For tests: the port runs the
     kernel, its plain version the dense product."""
-    M, n = z.shape
+    n = z.shape[-1]
     plan = fft_plan(n, inverse)
     table = torch.from_numpy(plan.table)
     w = torch.complex(table[0], table[1])
@@ -276,15 +351,43 @@ def fft_rows_mirror(z: torch.Tensor, inverse: bool) -> torch.Tensor:
         j = torch.arange(n // r)
         m = torch.arange(r)[:, None]
         k = j % ns
-        a = x[:, j + m * (n // r)]                         # (M, r, n / r)
+        a = x[..., j + m * (n // r)]                     # (..., r, n / r)
         if ns > 1:
             t = ns - plan.radices[0] + (m[1:] - 1) * ns + k
-            a = torch.cat([a[:, :1], a[:, 1:] * w[t]], 1)
+            a = torch.cat([a[..., :1, :], a[..., 1:, :] * w[t]], -2)
         a = _dft_regs_mirror(a, inverse)
         y = torch.empty_like(x)
-        y[:, (j - k) * r + k + m * ns] = a
+        y[..., (j - k) * r + k + m * ns] = a
         x, ns = y, ns * r
     return x
+
+
+def fft_cols_mirror(x3: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The column kernel in plain PyTorch: (outer, n, inner) complex ->
+    (outer, n, inner) complex64, the unnormalized DFT of every column.
+    Batches of ``cols_geometry(n).width`` columns of one outer index, the
+    last group of a ragged inner extent filled out (the kernel transforms
+    stale columns there and stores none of them), the engine's passes on
+    each column, the filled columns dropped. At n = 1024 (the split
+    kernel) the radix-2 split first: halves a and b of each column, u = a
+    + b and v = (a - b) w^i (``cols_plan``'s twiddles), the 512-point
+    passes on each, u's bins the even ones and v's the odd."""
+    outer, n, inner = x3.shape
+    width = cols_geometry(n).width
+    groups = -(-inner // width)
+    x = x3.new_zeros((outer, n, groups * width), dtype=torch.complex64)
+    x[..., :inner] = x3
+    cols = x.reshape(outer, n, groups, width).permute(0, 2, 3, 1)
+    split = cols_plan(n, inverse).split
+    if split is None:
+        y = fft_rows_mirror(cols, inverse)
+    else:
+        a, b = cols[..., :n // 2], cols[..., n // 2:]
+        w = torch.complex(*torch.from_numpy(split))
+        y = torch.stack([fft_rows_mirror(a + b, inverse),
+                         fft_rows_mirror((a - b) * w, inverse)], -1)
+        y = y.reshape(cols.shape)
+    return y.permute(0, 3, 1, 2).reshape(outer, n, groups * width)[..., :inner]
 
 
 def _real_pairs_mirror(x2: torch.Tensor) -> torch.Tensor:
@@ -410,13 +513,15 @@ def yz_inv_plain(er, ei, fyr, fyi, cr, ci):
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, *ts: torch.Tensor) -> bool:
-    """Validate kernel operands; True when they lie on the CPU (plain
-    version), False on CUDA (kernel). Anything else raises."""
+def _check(name: str, *ts: torch.Tensor,
+           dtype: torch.dtype = torch.float32) -> bool:
+    """Validate kernel operands (float32 planes, or one complex64 tensor);
+    True when they lie on the CPU (plain version), False on CUDA (kernel).
+    Anything else raises."""
     dev = ts[0].device
     for t in ts:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32 planes, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
         if not t.is_contiguous():
@@ -475,21 +580,55 @@ def zy_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return yr, yi
 
 
+def x_cols(a, inverse: bool, complex_out: bool):
+    """Kernel 7 (``_x_c2c_kernel``) on one layout pair: the unnormalized
+    C2C along axis 0 of (X, Ky, Zo) data ``a``, a pair of float32 planes
+    (kernel 6's output, the fused forward) or one contiguous complex64
+    tensor (the spectrum, the fused inverse), out as one complex64 tensor
+    (``complex_out``) or a pair of planes (kernel 8's input). The body is
+    ``_x_body(X)``: on ``"fft"`` one launch of the column kernel
+    (``dfft_x_cols``) on the layouts as they are, else the dense kernel on
+    planes (a complex side split or joined around it). Every launch counts
+    as ``x_c2c``."""
+    planes_in = isinstance(a, tuple)
+    if planes_in:
+        ar, ai = a
+        cpu = _check("x_c2c", ar, ai)
+        if ar.shape != ai.shape:
+            raise ValueError(f"x_c2c: plane shapes {tuple(ar.shape)} and "
+                             f"{tuple(ai.shape)} differ")
+    else:
+        cpu = _check("x_c2c", a, dtype=torch.complex64)
+        ar, ai = a, None
+    X, dev = ar.shape[0], ar.device
+    if cpu or _x_body(X) == "dense":
+        if not planes_in:
+            ar, ai = a.real.contiguous(), a.imag.contiguous()
+        fr, fi = _planes("dft", X, inverse, dev)
+        if cpu:
+            zr, zi = x_c2c_plain(ar, ai, fr, fi)
+        else:
+            zr, zi = torch.empty_like(ar), torch.empty_like(ai)
+            _launch("x_c2c", "dfft_x_c2c", ar, ai, fr, fi, zr, zi, X,
+                    ar[0].numel())
+        return torch.complex(zr, zi) if complex_out else (zr, zi)
+    if complex_out:
+        z = torch.empty(ar.shape, dtype=torch.complex64, device=dev)
+        outs = (z, None)
+    else:
+        outs = (torch.empty(ar.shape, dtype=torch.float32, device=dev),
+                torch.empty(ar.shape, dtype=torch.float32, device=dev))
+    _launch("x_c2c", "dfft_x_cols", ar, ai, _fft_table(X, inverse, dev),
+            *outs, X, ar[0].numel(), fft_plan(X, inverse).schedule,
+            int(inverse))
+    return outs[0] if complex_out else outs
+
+
 def x_c2c(ar: torch.Tensor, ai: torch.Tensor,
           inverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """C2C along axis 0 of (X, Ky, Zo) planes, unnormalized (kernel 7,
-    ``_x_c2c_kernel``; forward pass 2 and inverse pass 1)."""
-    cpu = _check("x_c2c", ar, ai)
-    if ar.shape != ai.shape:
-        raise ValueError(f"x_c2c: plane shapes {tuple(ar.shape)} and "
-                         f"{tuple(ai.shape)} differ")
-    X = ar.shape[0]
-    fr, fi = _planes("dft", X, inverse, ar.device)
-    if cpu:
-        return x_c2c_plain(ar, ai, fr, fi)
-    zr, zi = torch.empty_like(ar), torch.empty_like(ai)
-    _launch("x_c2c", "dfft_x_c2c", ar, ai, fr, fi, zr, zi, X, ar[0].numel())
-    return zr, zi
+    """C2C along axis 0 of (X, Ky, Zo) planes, unnormalized, planes out
+    (kernel 7, ``_x_c2c_kernel``; ``x_cols``)."""
+    return x_cols((ar, ai), inverse, complex_out=False)
 
 
 def yz_inv(er: torch.Tensor, ei: torch.Tensor, z: int) -> torch.Tensor:
@@ -536,8 +675,7 @@ def yz_inv(er: torch.Tensor, ei: torch.Tensor, z: int) -> torch.Tensor:
 def rfftn3d_fused(x: torch.Tensor) -> torch.Tensor:
     """(X, Y, Z) float32 -> (X, Y, Z//2+1) complex64, unnormalized."""
     yr, yi = zy_fwd(x.contiguous())
-    zr, zi = x_c2c(yr, yi, inverse=False)
-    return torch.complex(zr, zi)
+    return x_cols((yr, yi), False, complex_out=True)
 
 
 def irfftn3d_fused(c: torch.Tensor, shape_3d) -> torch.Tensor:
@@ -546,7 +684,7 @@ def irfftn3d_fused(c: torch.Tensor, shape_3d) -> torch.Tensor:
     c = c.to(torch.complex64)
     for ax, n in ((-3, X), (-2, Y), (-1, Z // 2 + 1)):
         c = mx._fit_axis(c, ax, n)
-    er, ei = x_c2c(c.real.contiguous(), c.imag.contiguous(), inverse=True)
+    er, ei = x_cols(c.contiguous(), True, complex_out=False)
     return yz_inv(er, ei, Z)
 
 
@@ -698,6 +836,61 @@ def cdft(x2: torch.Tensor, inverse: bool) -> torch.Tensor:
         _require_aligned("cmatmul", x2, y)
         _launch("cmatmul", "dfft_cdft", x2, _fft_table(n, inverse, dev), y, M,
                 n, fft_plan(n, inverse).schedule, int(inverse))
+    return y
+
+
+def cdft_cols_plain(x: torch.Tensor, axis: int,
+                    inverse: bool) -> torch.Tensor:
+    """Kernel 2's column body as a dense product: the axis moved last, the
+    rows times the DFT planes (``stage_plain``), moved back into a
+    contiguous tensor of the input's layout."""
+    n = x.shape[axis]
+    xm = x.movedim(axis, -1).contiguous()
+    y = stage_plain(xm.reshape(-1, n), *_planes("dft", n, inverse, x.device))
+    return y.reshape(xm.shape).movedim(-1, axis).contiguous()
+
+
+def _check_cols(name: str, x: torch.Tensor, axis: int) -> bool:
+    """Validate the operand of a column launch along ``axis`` (already
+    in [0, ndim)); True for a CPU tensor (plain version), False for CUDA
+    (kernel). Anything else raises."""
+    if x.dtype != torch.complex64:
+        raise TypeError(f"{name}: expected complex64, got {x.dtype}")
+    if not 0 <= axis < x.ndim - 1:
+        raise ValueError(f"{name}: axis {axis} of shape {tuple(x.shape)} "
+                         f"is not a non-last axis")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: operand must be contiguous")
+    if _fft_body(x.shape[axis]) != "fft":
+        raise ValueError(f"{name}: the column kernel takes a power of two "
+                         f"in [{FFT_MIN}, {FFT_MAX}], not {x.shape[axis]}")
+    if max(math.prod(x.shape[:axis]), math.prod(x.shape[axis + 1:])) \
+            > _INT_MAX:
+        raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds one launch")
+    return x.device.type == "cpu"
+
+
+def cdft_cols(x: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
+    """The unnormalized DFT (inverse DFT when ``inverse``) along a non-last
+    ``axis`` of a contiguous complex64 tensor, where the axis lies: the
+    result has the input's shape and layout, with no axis moved and no
+    copy (kernel 2, ``_cmatmul_kernel``, on its column body: the column
+    kernel of the row FFT engine on the (outer, n, inner) view, one
+    ``dfft_cdft_cols`` launch counted as ``cmatmul``). n is a power of two
+    in [8, 1024]; on a CPU tensor the plain version ``cdft_cols_plain``."""
+    axis = axis % x.ndim if x.ndim else axis
+    cpu = _check_cols("cmatmul", x, axis)
+    n, dev = x.shape[axis], x.device
+    if cpu:
+        return cdft_cols_plain(x, axis, inverse)
+    y = torch.empty_like(x)
+    if x.numel():
+        _launch("cmatmul", "dfft_cdft_cols", x, *_cols_tables(n, inverse, dev),
+                y, math.prod(x.shape[:axis]), n,
+                math.prod(x.shape[axis + 1:]),
+                cols_plan(n, inverse).plan.schedule, int(inverse))
     return y
 
 
@@ -868,31 +1061,45 @@ def _direct(n: int) -> bool:
     return n <= mx.DIRECT_MAX or _fft_body(n) == "fft"
 
 
-def _fft_last(x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """Unnormalized C2C along the last axis of a contiguous complex64
-    tensor (``pallas_fft._fft_last``, with ``_direct`` lengths in one
-    ``cdft``)."""
-    n = x.shape[-1]
-    lead = x.shape[:-1]
-    dev = x.device
-    if _direct(n):
-        return _last_rows(cdft, x, inverse)
+def _split_axis(n: int) -> Tuple[int, int]:
+    """(n1, n2) of the four-step split of a length that is not ``_direct``
+    (``mx._split_for``): n1 = 1 for a prime, which takes one ``cdft`` up
+    to ``mx.N_MAX`` points."""
     n1, n2 = mx._split_for(n, mx.DIRECT_MAX)
-    if n1 == 1:  # prime length
-        if n <= mx.N_MAX:
-            return _last_rows(cdft, x, inverse)
+    if n1 == 1 and n > mx.N_MAX:
         raise _prime_too_long(n)
+    return n1, n2
+
+
+def _four_step(x: torch.Tensor, inverse: bool, n1: int,
+               n2: int) -> torch.Tensor:
+    """The four-step C2C along the last axis of a contiguous complex64
+    tensor, n = n1 n2: (.., n) -> d (.., n2, n1), d[.., k2, k1] bin
+    k1 n2 + k2 of the unnormalized DFT."""
+    lead = x.shape[:-1]
     a = _swap_last(x.reshape(lead + (n2, n1)))                    # (.., n1, n2)
     if n2 <= mx.DIRECT_MAX:
         # Fused: DFT over s and the twiddle epilogue in one kernel pass.
         c = cdft_tw(a.reshape(-1, n2), n1, inverse).reshape(a.shape)
     else:
-        c = _fft_last(a, inverse) * _twiddle(n1, n2, inverse, dev)
+        c = _fft_last(a, inverse) * _twiddle(n1, n2, inverse, x.device)
     del a
     c = _swap_last(c)                                             # (.., n2, n1)
-    d = _fft_last(c, inverse)
-    del c
-    return d.transpose(-1, -2).reshape(lead + (n,))
+    return _fft_last(c, inverse)
+
+
+def _fft_last(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Unnormalized C2C along the last axis of a contiguous complex64
+    tensor (``pallas_fft._fft_last``, with ``_direct`` lengths in one
+    ``cdft``)."""
+    n = x.shape[-1]
+    if _direct(n):
+        return _last_rows(cdft, x, inverse)
+    n1, n2 = _split_axis(n)
+    if n1 == 1:
+        return _last_rows(cdft, x, inverse)
+    d = _four_step(x, inverse, n1, n2)
+    return d.transpose(-1, -2).reshape(x.shape)
 
 
 def _rfft_last(x: torch.Tensor) -> torch.Tensor:
@@ -905,11 +1112,9 @@ def _rfft_last(x: torch.Tensor) -> torch.Tensor:
     dev = x.device
     if _direct(n):
         return _last_rows(rdft, x)
-    n1, n2 = mx._split_for(n, mx.DIRECT_MAX)
+    n1, n2 = _split_axis(n)
     if n1 == 1:
-        if n <= mx.N_MAX:
-            return _last_rows(rdft, x)
-        raise _prime_too_long(n)
+        return _last_rows(rdft, x)
     a = _swap_last(x.reshape(lead + (n2, n1)))
     if n2 <= mx.DIRECT_MAX:
         # Real-input fused stage: the full n2-point DFT plus the twiddle.
@@ -919,33 +1124,71 @@ def _rfft_last(x: torch.Tensor) -> torch.Tensor:
                                                                dev)
     del a
     c = _swap_last(c)
-    d = _fft_last(c, False)
+    d = _fft_last(c, False).transpose(-1, -2)    # (.., n1, n2): bin k1 n2 + k2
     del c
-    full = d.transpose(-1, -2).reshape(lead + (n,))
-    return full[..., :n_out]
+    # Bins 0 .. n/2 straight into a contiguous tensor: q whole rows of d's
+    # transpose, then the first rem bins of the next.
+    q, rem = divmod(n_out, n2)
+    out = d.new_empty(lead + (n_out,))
+    out[..., :q * n2].unflatten(-1, (q, n2)).copy_(d[..., :q, :])
+    if rem:
+        out[..., q * n2:].copy_(d[..., q, :rem])
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Public per-axis API (``pallas_fft.fft`` ...; same FFTNorm semantics).
-# Results keep the input's axis order; a transformed axis that is not the
-# last comes back as a strided view of the kernel's output.
+# Results keep the input's axis order. ``fft`` / ``ifft`` along a
+# non-last axis: where ``_strided`` holds, one ``cdft_cols`` where the axis
+# lies, the result in the input's layout; else the axis moves last, and the
+# result is a strided view of the kernel's output, or, for a split axis, a
+# contiguous tensor in the input's axis order (the four-step's last copy
+# writes it so).
 # ---------------------------------------------------------------------------
+
+
+def _strided(x: torch.Tensor, axis: int) -> bool:
+    """Whether ``fft`` / ``ifft`` transform ``axis`` of ``x`` where it lies,
+    by one ``cdft_cols``: a non-last axis of a contiguous complex64 tensor
+    whose length the row FFT engine takes (``_fft_body``). A pure function
+    of dtype, shape and strides: a split axis (2048), any other length and a
+    non-contiguous view (a ring's block) move the axis last instead."""
+    return (x.ndim > 1 and axis % x.ndim != x.ndim - 1
+            and x.dtype == torch.complex64
+            and _fft_body(x.shape[axis]) == "fft" and x.is_contiguous())
+
+
+def _c2c_axis(x: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
+    """Unnormalized C2C along ``axis`` of a complex64 tensor, in the
+    input's axis order (see the note above)."""
+    axis %= x.ndim
+    if _strided(x, axis):
+        return cdft_cols(x, axis, inverse)
+    xm = x.movedim(axis, -1).contiguous()
+    if axis == x.ndim - 1:
+        return _fft_last(xm, inverse)
+    n = xm.shape[-1]
+    n1, n2 = (1, n) if _direct(n) else _split_axis(n)
+    if n1 == 1:
+        return _fft_last(xm, inverse).movedim(-1, axis)
+    d = _four_step(xm, inverse, n1, n2)             # (moved lead.., n2, n1)
+    out = torch.empty(x.shape, dtype=torch.complex64, device=x.device)
+    out.unflatten(axis, (n1, n2)).copy_(d.movedim((-1, -2), (axis, axis + 1)))
+    return out
 
 
 def fft(x: torch.Tensor, axis: int, norm: FFTNorm = FFTNorm.NONE
         ) -> torch.Tensor:
     _require_single(x.dtype, "fft")
-    x = x.movedim(axis, -1).to(torch.complex64).contiguous()
-    y = mx._scaled(_fft_last(x, False), mx._fwd_scale(x.shape[-1], norm))
-    return y.movedim(-1, axis)
+    y = _c2c_axis(x.to(torch.complex64), axis, False)
+    return mx._scaled(y, mx._fwd_scale(x.shape[axis], norm))
 
 
 def ifft(x: torch.Tensor, axis: int, norm: FFTNorm = FFTNorm.NONE
          ) -> torch.Tensor:
     _require_single(x.dtype, "ifft")
-    x = x.movedim(axis, -1).to(torch.complex64).contiguous()
-    y = mx._scaled(_fft_last(x, True), mx._inv_scale(x.shape[-1], norm))
-    return y.movedim(-1, axis)
+    y = _c2c_axis(x.to(torch.complex64), axis, True)
+    return mx._scaled(y, mx._inv_scale(x.shape[axis], norm))
 
 
 def rfft(x: torch.Tensor, axis: int, norm: FFTNorm = FFTNorm.NONE

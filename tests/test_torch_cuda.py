@@ -21,6 +21,7 @@ from distributedfft_tpu_torch.ops import hopper_fft as hf
 
 pytestmark = pytest.mark.cuda
 
+POW2 = [8, 16, 32, 64, 128, 256, 512, 1024]
 SHAPES = [(2, 2, 2), (8, 8, 8), (6, 12, 15), (16, 10, 12), (3, 17, 33),
           (65, 129, 66), (7, 512, 512), (512, 9, 511)]
 # Kernel 6's FFT body (hf._zy_body: Y and Z powers of two in [8, 512]):
@@ -49,6 +50,11 @@ def _randn(shape, seed, device):
                             ).to(device)
 
 
+def _crandn(shape, seed, device):
+    return torch.complex(_randn(shape, seed, device),
+                         _randn(shape, seed + 1, device))
+
+
 @pytest.mark.parametrize("shape", SHAPES + ZY_FFT_SHAPES)
 def test_zy_fwd_kernel(cuda, shape):
     """Both bodies of kernel 6: three launches on the FFT body, one dense."""
@@ -73,6 +79,73 @@ def test_x_c2c_kernel(cuda, shape, inverse):
     torch.cuda.synchronize()
     pr, pi = hf.x_c2c_plain(ar, ai, *hf._planes("dft", X, inverse, cuda))
     assert _rel(zr, pr) <= 5e-4 and _rel(zi, pi) <= 5e-4
+
+
+# Kernel 7's column body (hf._x_body: X a power of two in [8, 512]): every
+# X, one column group or many, a ragged last group (Ky * Zo not a multiple
+# of the batch width), plane rows whose 4 Ky Zo bytes are not a multiple of
+# 16 (8-byte or 4-byte parts).
+X_FFT_SHAPES = [(8, 8, 8), (16, 3, 5), (32, 17, 33), (64, 9, 7),
+                (128, 10, 12), (256, 6, 11), (512, 16, 9), (512, 512, 257),
+                (8, 101, 13), (64, 2, 3)]
+
+
+@pytest.mark.parametrize("layout", ["planes", "to_complex", "from_complex"])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", X_FFT_SHAPES + [(12, 16, 15), (480, 4, 9)])
+def test_x_c2c_layouts(cuda, shape, inverse, layout):
+    """Every layout pair of kernel 7 against ``x_c2c_plain``: planes to
+    planes (``x_c2c``), planes to complex64 (the fused forward), complex64
+    to planes (the fused inverse); one launch, on the body of
+    ``_x_body(X)``."""
+    X = shape[0]
+    ar, ai = _randn(shape, 41, cuda), _randn(shape, 42, cuda)
+    pr, pi = hf.x_c2c_plain(ar, ai, *hf._planes("dft", X, inverse, cuda))
+    before = hf.LAUNCHES["x_c2c"]
+    if layout == "planes":
+        zr, zi = hf.x_c2c(ar, ai, inverse)
+    elif layout == "to_complex":
+        z = hf.x_cols((ar, ai), inverse, complex_out=True)
+        assert z.dtype == torch.complex64 and z.is_contiguous()
+        zr, zi = z.real, z.imag
+    else:
+        zr, zi = hf.x_cols(torch.complex(ar, ai), inverse, complex_out=False)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["x_c2c"] == before + 1
+    assert zr.shape == shape
+    assert _rel(zr, pr) <= 5e-4 and _rel(zi, pi) <= 5e-4
+
+
+# Kernel 2's column body (``cdft_cols``): every n, one batch, an odd inner
+# extent (the 1024^3 y axis: rows of 513 elements, every other one 8 bytes
+# off a 16-byte boundary, a one-column last group), more batches than one
+# wave of the persistent grid, and the x axis shape (outer 1).
+COLS_SHAPES = ([(1, n, 1) for n in POW2] + [(3, n, 513) for n in POW2]
+               + [(300, n, 8) for n in POW2]
+               + [(1, 1024, 4104), (2, 512, 33), (5, 64, 1000)])
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", COLS_SHAPES)
+def test_cdft_cols_kernel(cuda, shape, inverse):
+    x = _crandn(shape, 43, cuda)
+    before = hf.LAUNCHES["cmatmul"]
+    y = hf.cdft_cols(x, 1, inverse)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["cmatmul"] == before + 1
+    assert y.shape == shape and y.is_contiguous()
+    assert _rel(y, hf.cdft_cols_plain(x, 1, inverse)) <= 5e-4
+
+
+def test_cdft_cols_takes_an_8_byte_aligned_view(cuda):
+    """The column loads and stores take 8-byte parts where a tensor starts
+    8 bytes off a 16-byte boundary (no 16-byte alignment needed)."""
+    raw = _crandn((3 * 64 * 7 + 1,), 44, cuda)
+    x = raw[1:].view(3, 64, 7)
+    assert x.data_ptr() % 16 == 8
+    y = hf.cdft_cols(x, 1, False)
+    torch.cuda.synchronize()
+    assert _rel(y, hf.cdft_cols_plain(x, 1, False)) <= 5e-4
 
 
 @pytest.mark.parametrize("shape", SHAPES + ZY_FFT_SHAPES)
@@ -117,9 +190,6 @@ ROWS = [(1, 1), (3, 2), (7, 8), (65, 13), (129, 16), (300, 96), (70, 257),
         (4099, 512), (33, 521), (5, 1021)]
 
 
-def _crandn(shape, seed, device):
-    return torch.complex(_randn(shape, seed, device),
-                         _randn(shape, seed + 1, device))
 
 
 @pytest.mark.parametrize("M, n", ROWS)
@@ -195,7 +265,6 @@ def test_cdft_tw_kernel(cuda, n1, n2, lines, inverse):
 # Kernels 1 and 2's FFT bodies (``rdft`` / ``cdft``, hf._fft_body): every
 # power of two in [8, 1024] at one row, an odd count and a count above one
 # persistent wave of the grid.
-POW2 = [8, 16, 32, 64, 128, 256, 512, 1024]
 DIRECT_ROWS = [(M, n) for n in POW2 for M in (1, 7, (1 << 21) // n + 2)]
 
 
