@@ -15,8 +15,10 @@ once, before any rank is spawned) and then, under
    its row body on the y blocks of the ``Z_Then_YX`` rings), of the
    1024^3 plan (kernels 1, 2 and 3 on 1024-point rows, kernel 2's column
    body on the y and x axes where they lie) and of the 2048 x 256 x 2048
-   four-step (kernels 4 and 5, kernel 2's column body on its y axis and
-   its 4-point second stage on the row body),
+   four-step (kernels 4 and 5 on rows, kernel 4's column body on its x
+   axis where it lies, kernel 2's column body on its y axis and its
+   short-stage body on the 4-point second stage of x and z, with each of
+   its output geometries; the 4-point row body it replaced),
    the fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan
    over four ranks (9 and 10 bit for bit, NaN and Inf included); kernels
    3, 4, 5, 6, 7, 8 and 11 also on their other body (dense or tile) at a
@@ -25,7 +27,7 @@ once, before any rank is spawned) and then, under
    512^3 (fused kernels), at 1024^3 (per-axis kernels 1, 2 and 3, every
    axis one launch of the row FFT engine, y and x where they lie) and at
    2048 x 256 x 2048 (x and z split four-step, 4 x 512: kernels 4, 5 and
-   2): ``exec_r2c`` then
+   2, x where it lies): ``exec_r2c`` then
    ``exec_c2r``, checked against ``torch.fft`` and the input, with the
    launch counts of every kernel and the entry point (the body) of every
    launch, each direction counted from zero;
@@ -41,9 +43,11 @@ once, before any rank is spawned) and then, under
    function, the plans under "pallas" and "xla", and the exchange of each
    rendering with its wire bytes; one run of each direction of the fused
    and per-axis plans under ``torch.profiler`` names the device time op by
-   op and gives the device's idle share. The 1024^3 plan fails if the ops
+   op and gives the device's idle share. A per-axis plan fails if the ops
    of its dispatch (copies, transposes: every aten op with device time)
-   take more than ``COPY_LIMIT_MS`` in either direction.
+   take more than its limit in either direction: ``COPY_LIMIT_MS`` at
+   1024^3, and at 2048 x 256 x 2048 the limits ``split_copy_limits``
+   computes from the bytes of the copies that remain.
 
 Phases print JSON lines. Before the last line come one ``{"kernels": ...}``
 line and the card's name and power limit as ``nvidia-smi`` gives them; the
@@ -79,6 +83,8 @@ REPS = 10
 WARMUP = 2
 REPS_BIG = 3       # repetitions of a per-axis plan direction (~0.1 s each)
 COPY_LIMIT_MS = 1.0  # the 1024^3 plan's dispatch ops, a direction
+COPY_RATE = 0.55     # share of the HBM rate the dispatch's copies reach
+COPY_MARGIN = 1.2    # on top of the copies' time at COPY_RATE
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate.
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
@@ -134,11 +140,33 @@ def bound(flops: float, nbytes: float):
 # Kernels whose body is a pure function of their shape: the row FFT engine
 # or the dense tile loop (hopper_fft._fft_body of the row length; for
 # kernels 2 and 3 on rows of at most 16 points the row path of stage.cu's
-# launch; kernel 2 on a non-last axis, shape (outer, n, inner), the column
-# kernel, "cols"), or, for kernels 6, 7 and 8, the engine or the dense
-# kernel (hopper_fft._zy_body, hopper_fft._x_body).
+# launch; kernels 2 and 4 on columns, shape (outer, n, inner), the column
+# kernel, "cols", or for kernel 2 on 2..16 points the short-stage kernel,
+# "short"), or, for kernels 6, 7 and 8, the engine or the dense kernel
+# (hopper_fft._zy_body, hopper_fft._x_body).
 ROUTED = ("rmatmul", "cmatmul", "c2r", "rmatmul_tw", "dec_cmatmul",
           "cmatmul_tw", "zy_fwd", "x_c2c", "yz_inv")
+
+
+def split_copy_limits(shape):
+    """(forward, inverse) limits, in ms, of the device time of the aten ops
+    of a single-card per-axis plan whose x and z axes split, set from the
+    bytes of the copies its dispatch still makes, at ``COPY_RATE`` of the
+    HBM rate, plus ``COPY_MARGIN``. Forward: the swap of the real z input
+    (4 bytes a point read and written). Inverse: the z axis's Hermitian
+    extension (the flip of the n/2 - 1 conjugated bins, read and written;
+    the cat of the half spectrum and that tail, read, and the full
+    spectrum written), the four-step's swap of the full spectrum (read and
+    written) and its real part (8 bytes a point read, 4 written). The x
+    axis copies nothing: its four-step runs where it lies."""
+    X, Y, Z = shape
+    rows = X * Y
+    half, tail = Z // 2 + 1, (Z + 1) // 2 - 1
+    fwd = 2 * 4 * rows * Z
+    inv = (2 * 8 * rows * tail + 8 * rows * (half + tail) + 8 * rows * Z
+           + 2 * 8 * rows * Z + 12 * rows * Z)
+    return tuple(1e3 * b / (COPY_RATE * HBM_BYTES) * COPY_MARGIN
+                 for b in (fwd, inv))
 
 
 def body_of(hf, k) -> str:
@@ -152,7 +180,8 @@ def body_of(hf, k) -> str:
         elif k["name"] == "x_c2c":
             body = hf._x_body(sh["X"])
         elif "inner" in sh:
-            body = "cols" if hf._fft_body(sh["n"]) == "fft" else "none"
+            body = ("cols" if hf._fft_body(sh["n"]) == "fft" else
+                    "short" if hf._short_body(sh["n"]) else "none")
         else:
             body = hf._fft_body(sh["n"])
             if body == "tile" and k["name"] in ("cmatmul", "c2r") \
@@ -557,6 +586,33 @@ def stage_cases(torch, hf, dev, gen):
             flops=fft_flops(rows, n), gemm_flops=8 * rows * n * n,
             bytes=16 * rows * n)
 
+    def short_case(variant, shape, kind, inverse):
+        """Kernel 2's short-stage body on (outer, n1, inner) columns with
+        one of its output geometries: "last" (natural order), "crop"
+        (bins 0..n/2) or "strided" (a non-last axis of n1 * outer points,
+        outer index k2, stored in its (n, inner) layout)."""
+        outer, n1, inner = shape
+        if kind == "strided":
+            geom = hf.short_strided(n1, outer, inner)
+            out_shape = (n1 * outer, inner)
+        else:
+            n_out = n1 * inner // 2 + 1 if kind == "crop" else n1 * inner
+            geom, out_shape = hf.short_last(n1, inner, n_out), (outer, n_out)
+        cols = outer * inner
+        return dict(
+            name="cmatmul", variant=variant, body="short",
+            replaces=f"{PALLAS}:164",
+            shape=dict(outer=outer, n=n1, inner=inner, geometry=kind,
+                       out=list(out_shape)),
+            make=lambda: dict(x=cr(*shape)),
+            run=lambda t: hf.cdft_short(t["x"], inverse, geom, out_shape),
+            plain=lambda t: hf.cdft_short_plain(t["x"], inverse, geom,
+                                                out_shape),
+            library=lambda t: torch.fft.fft(t["x"], dim=1),
+            library_call="fft(dim=1) of the same columns",
+            flops=fft_flops(cols, n1), gemm_flops=8 * cols * n1 * n1,
+            bytes=8 * cols * n1 + 8 * math.prod(out_shape))
+
     rows_r = (N // RANKS) * N                 # z-R2C rows of a rank's slab
     k_half = -(-(N // 2 + 1) // RANKS)        # a rank's padded z bins
     rows_zyx = (N // RANKS) * k_half          # Z_Then_YX rings' y rows
@@ -566,6 +622,7 @@ def stage_cases(torch, hf, dev, gen):
     big_tw = sy * (sz // 2 + 1) * 4           # SPLIT x forward first stage rows
     big_rtw = sx * sy * 4                     # SPLIT z forward first stage rows
     big_n1 = sy * (sz // 2 + 1) * 512         # SPLIT x forward 4-point stage rows
+    x_inner = sy * (sz // 2 + 1)              # SPLIT x axis: points a column
     rows_640 = 640 * 640 * 2                  # 640^3 z first stage rows
     rows_640c = 640 * 321 * 2                 # 640^3 y/x first stage rows
     k_r = N // 2 + 1
@@ -632,6 +689,17 @@ def stage_cases(torch, hf, dev, gen):
         cols_case("cols_512_y", (N // RANKS, N, k_r), 1),
         cols_case("cols_512_x", (N, N // RANKS, k_r), 0),
         cols_case("cols_2048_y", (sx, sy, sz // 2 + 1), 1),
+        # Kernel 2's short-stage body on the 4-point second stage of the
+        # 2048 x 256 x 2048 plan: the forward z (bins 0..1024 stored, the
+        # crop), the inverse z (natural order) and x where it lies (the
+        # bins stored in the axis's layout). Library: fft over the same
+        # columns, no crop and no permutation.
+        short_case("short_2048_z_crop", (sx * sy, 4, sz // 4), "crop", False),
+        short_case("short_2048_z", (sx * sy, 4, sz // 4), "last", True),
+        short_case("short_2048_x", (sx // 4, 4, sy * (sz // 2 + 1)),
+                   "strided", False),
+        # The 4-point row body the short-stage body replaced (no main path
+        # since it did).
         dict(name="cmatmul", variant="row_n4_stage_2048", body="row",
              replaces=f"{PALLAS}:164", shape=dict(M=big_n1, n=4, k=4),
              make=lambda: dict(x=cr(big_n1, 4), F=planes("dft", 4)),
@@ -692,6 +760,26 @@ def stage_cases(torch, hf, dev, gen):
              flops=fft_flops(big_tw, N) + 6 * big_tw * N,
              gemm_flops=8 * big_tw * N * N,
              bytes=16 * big_tw * N + 8 * 4 * N),
+        # Kernel 4's column body where the plan's x axis lies: the (1, 512,
+        # 4 * 262400) view of the (2048, 256, 1025) spectrum. "rows": fft
+        # of the same columns without the twiddle; "pair": the port's
+        # whole axis (this body, then the short-stage body).
+        dict(name="cmatmul_tw", variant="cols_2048_x", body="cols",
+             replaces=f"{PALLAS}:171",
+             shape=dict(outer=1, n=sx // 4, inner=4 * x_inner, n1=4, axis=0),
+             make=lambda: dict(z=cr(sx, sy, sz // 2 + 1)),
+             run=lambda t: hf.cdft_tw_cols(
+                 t["z"].view(1, sx // 4, 4 * x_inner), 4, False),
+             plain=lambda t: hf.cdft_tw_cols_plain(
+                 t["z"].view(1, sx // 4, 4 * x_inner), 4, False),
+             pair=lambda t: hf.fft(t["z"], axis=0),
+             rows=lambda t: torch.fft.fft(
+                 t["z"].view(1, sx // 4, 4 * x_inner), dim=1),
+             library=lambda t: torch.fft.fft(t["z"], dim=0),
+             library_call="fft(dim=0) of the whole 2048-point axis",
+             flops=fft_flops(4 * x_inner, sx // 4) + 6 * 4 * x_inner * sx // 4,
+             gemm_flops=8 * 4 * x_inner * (sx // 4) ** 2,
+             bytes=16 * 4 * x_inner * sx // 4 + 8 * 4 * sx // 4),
         dict(name="cmatmul_tw", variant="tile_n2_320", body="tile",
              replaces=f"{PALLAS}:171",
              shape=dict(M=rows_640c, n=320, k=320, n1=2),
@@ -820,36 +908,43 @@ def check_wire(torch, k, got, ref):
 
 
 # The single-card per-axis paths under "pallas": id -> (shape, launches
-# forward, launches inverse, C entry points forward, inverse, the limit of
-# the dispatch's aten ops in ms a direction or None). At 1024^3 every axis
-# is one launch of the row FFT engine: z on rows (kernel 1, and on the
-# inverse kernel 3's C2R Body), y and x where they lie on kernel 2's
-# column body, so no axis moves and the dispatch copies nothing; at 2048 x
-# 256 x 2048 the x and z axes split 4 x 512 (kernels 5 and 4, then kernel
-# 2's 4-point second stage on the row body of dfft_stage) and y is one
-# column launch. The inverse C2R of a split axis inverts the
-# Hermitian-extended spectrum as a complex transform.
+# forward, launches inverse, C entry points forward, inverse, the limits
+# of the dispatch's aten ops in ms, forward and inverse). At 1024^3 every
+# axis is one launch of the row FFT engine: z on rows (kernel 1, and on
+# the inverse kernel 3's C2R Body), y and x where they lie on kernel 2's
+# column body, so no axis moves and the dispatch copies nothing. At 2048 x
+# 256 x 2048 the x and z axes split 4 x 512 and y is one column launch.
+# The z axis swaps its rows once, runs its first stage on them (kernel 5
+# forward, kernel 4 inverse) and its 4-point second stage on kernel 2's
+# short-stage body, which stores the crop (forward) or the natural order
+# (inverse). The x axis runs its four-step where it lies, no copy: kernel
+# 4's column body over s with the twiddle, then the short-stage body over
+# r, storing each bin in the spectrum's layout. No dfft_stage launch.
+# The inverse C2R of the split z axis inverts the Hermitian-extended
+# spectrum as a complex transform and keeps its real part: the copies
+# that remain, with the forward's swap, set the aten limits.
 PER_AXIS_PATHS = {
     "per_axis_1024": (
         (NBIG,) * 3, dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1),
         {"dfft_rdft": 1, "dfft_cdft_cols": 2},
-        {"dfft_cdft_cols": 2, "dfft_c2r": 1}, COPY_LIMIT_MS),
+        {"dfft_cdft_cols": 2, "dfft_c2r": 1}, (COPY_LIMIT_MS, COPY_LIMIT_MS)),
     "per_axis_2048x256x2048": (
         SPLIT, dict(rmatmul_tw=1, cmatmul_tw=1, cmatmul=3),
         dict(cmatmul_tw=2, cmatmul=3),
-        {"dfft_rdft_tw": 1, "dfft_cdft_tw": 1, "dfft_cdft_cols": 1,
-         "dfft_stage": 2},
-        {"dfft_cdft_tw": 2, "dfft_cdft_cols": 1, "dfft_stage": 2}, None),
+        {"dfft_rdft_tw": 1, "dfft_cdft_short": 2, "dfft_cdft_cols": 1,
+         "dfft_cdft_tw_cols": 1},
+        {"dfft_cdft_tw_cols": 1, "dfft_cdft_short": 2, "dfft_cdft_cols": 1,
+         "dfft_cdft_tw": 1}, split_copy_limits(SPLIT)),
 }
 
 
 def per_axis_path(torch, dft, hf, gen, pid, shape, want_f, want_i, ent_f_want,
-                  ent_i_want, copy_limit_ms):
+                  ent_i_want, copy_limits_ms):
     """Run one single-card per-axis plan: launches and entry points per
     direction, forward against torch.fft.rfftn and the roundtrip against
     the input, then times under "pallas" and "xla", the kernel share of
     each direction and its profile, whose aten ops (the dispatch's copies)
-    must stay within ``copy_limit_ms`` where one is given. Returns the
+    must stay within ``copy_limits_ms`` (forward, inverse). Returns the
     launches of the roundtrip."""
     torch.cuda.reset_peak_memory_stats()
     xb = torch.randn(shape, generator=gen, device="cuda")
@@ -903,16 +998,14 @@ def per_axis_path(torch, dft, hf, gen, pid, shape, want_f, want_i, ent_f_want,
         timed[f"{name}_kernel_ms"] = per
         timed[f"{name}_rest_ms"] = total - sum(per.values())
         timed[f"{name}_profile"] = device_profile(torch, fn)
+    timed["aten_limit_ms"] = dict(zip(("forward", "inverse"), copy_limits_ms))
     emit(phase="plan_time", **timed)
-    if copy_limit_ms is not None:
-        for name in ("forward", "inverse"):
-            prof = timed[f"{name}_profile"]
-            if prof["busy_ms"] == "not measured" or \
-                    prof["aten_ms"] > copy_limit_ms:
-                fail(f"{pid} {name}: the dispatch's ops took "
-                     f"{prof['aten_ms']} ms of device time "
-                     f"({prof['aten_ops_ms']}; limit {copy_limit_ms} ms, "
-                     f"busy {prof['busy_ms']})")
+    for name, limit in zip(("forward", "inverse"), copy_limits_ms):
+        prof = timed[f"{name}_profile"]
+        if prof["busy_ms"] == "not measured" or prof["aten_ms"] > limit:
+            fail(f"{pid} {name}: the dispatch's ops took {prof['aten_ms']} "
+                 f"ms of device time ({prof['aten_ops_ms']}; limit {limit} "
+                 f"ms, busy {prof['busy_ms']})")
     del xb, cb, big, xla_big
     torch.cuda.empty_cache()
     return {k: fwd[k] + inv[k] for k in fwd}
@@ -1277,7 +1370,7 @@ def main() -> int:
                     f: v[f] for f in ("body", "shape", "max_abs_err",
                                       "max_rel_err", "kernel_ms", "plain_ms",
                                       "library_ms", "library_call",
-                                      "library_rows_ms", "bound_ms",
+                                      "library_rows_ms", "pair_ms", "bound_ms",
                                       "bound_by", "flops", "gemm_flops",
                                       "bytes") if f in v}
         rows.append(row)

@@ -2,8 +2,11 @@
 // stage.cu (kernels 1, 2, 3, 4 and 5) and fused3d.cu (kernels 6, 7 and 8):
 // the DFT of every row of a batch of power-of-two rows, 8 <= n <= 1024, in
 // shared memory and registers; and, on the same passes and twiddle table,
-// the column kernel (the end of this file: kernel 7, and kernel 2 on a
-// non-last axis), the DFT of every column of an (outer, n, inner) array.
+// the column kernel (kernel 7, kernel 2 on a non-last axis, kernel 4 on a
+// non-last split axis), the DFT of every column of an (outer, n, inner)
+// array; and, on the column kernel's loader, the short-stage kernel (the
+// end of this file: kernel 2 on the 2..16-point second stage of a split
+// axis).
 //
 // It replaces the dense DFT product of nine Pallas TPU kernels of
 // distributedfft_tpu/ops/pallas_fft.py (_dec_cmatmul_kernel :737, kernel
@@ -590,8 +593,8 @@ struct RealPairsOut {
   }
 };
 
-inline bool misaligned(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+inline bool misaligned(const void* p, uintptr_t to = 16) {
+  return (reinterpret_cast<uintptr_t>(p) & (to - 1)) != 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -1074,6 +1077,234 @@ cudaError_t launch_cols(int n, int schedule, const Body& body,
     case 512: return launch_cols_log2<9>(schedule, body, table, inverse, stream);
     case 1024:
       return launch_cols_split(schedule, body, table, split, inverse, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The short-stage kernel: the n1-point DFT, 2 <= n1 <= SHORT_MAX, of every
+// column of an (outer, n1, inner) complex64 array, stored where the
+// four-step wants its bins. It is kernel 2 (_cmatmul_kernel) on the second
+// stage of a split axis (n = n1 n2, _split_for: 1536 = 3 x 512, 2048 = 4 x
+// 512, ..., 8192 = 16 x 512, 640 = 2 x 320), which the JAX package runs on
+// contiguous rows of n1 points after a swap, and which the row body of
+// stage.cu ran as one thread a row: strips of 32 bytes, 42% of its bound
+// at 4 points. Here the rows of n1 points are columns of the first stage's
+// output as it lies, inner = n2 (or n2's columns times the axis's inner
+// extent) elements apart, so a point-row is a strip of thousands of
+// contiguous elements.
+//
+// - Loads: the column kernel's (copy_strips: every thread cp.asyncs a share
+//   of the batch's strips, in the widest parts their alignment allows, and
+//   arrives on the buffer's barrier), a ring of COL_STAGES 64 KB buffers, a
+//   persistent grid of one 512-thread block an SM. A batch is SHORT_POINTS
+//   complex64: W = CAP columns of one outer index (inner >= CAP), or all
+//   inner columns of per = CAP / inner outer indices, whose n1 per point-rows
+//   lie one after another.
+// - The DFT: a thread takes whole columns (neighbouring threads neighbouring
+//   columns), reads its n1 points from the buffer and runs the DFT in
+//   registers: the engine's radix-2 network (dft_regs) for a power of two,
+//   a dense product with the n1 roots of unity (a float32 table built in
+//   float64 on the host) otherwise.
+// - Stores: straight from registers, bin k1 of column c of outer index q to
+//       (q / group) s1 + (q % group) s2 + k1 row + c
+//   if k1 row + c < limit, neighbouring threads on neighbouring elements,
+//   coalesced. One geometry serves the three callers: the natural order of
+//   a last split axis (group 1, s1 = n, row = n2, limit n), the R2C crop
+//   (s1 = limit = n/2 + 1: bins past n/2 never stored) and a non-last split
+//   axis, where outer index q = o n2 + k2 and bin k1 n2 + k2 lies at (o, k1
+//   n2 + k2, b) of the axis's (outer, n, inner) layout (group n2, s1 = n
+//   inner, s2 = inner, row = n2 inner).
+// Each byte is read once and written once: bound by bytes, 16 a point (12
+// at the crop).
+// ---------------------------------------------------------------------------
+
+constexpr int SHORT_MAX = 16;
+constexpr int SHORT_POINTS = 8192;  // complex64 a batch: one 64 KB buffer
+
+__host__ __device__ constexpr int log2_of(int n) {
+  return n <= 1 ? 0 : 1 + log2_of(n / 2);
+}
+
+// Columns a batch at most: a multiple of 32, so a warp's columns lie
+// side by side.
+template <int N1>
+constexpr int short_cap() {
+  return (SHORT_POINTS / N1) & ~31;
+}
+
+// In-place DFT of the N1 points a[] in registers, exp(sgn 2 pi i jk / N1):
+// the radix-2 network for a power of two; else the dense product with the
+// roots (wr, wi)[m] = exp(sgn 2 pi i m / N1).
+template <int N1>
+__device__ __forceinline__ void dft_short(float2* a, const float* wr,
+                                          const float* wi, float sgn) {
+  if constexpr ((N1 & (N1 - 1)) == 0) {
+    dft_regs<log2_of(N1)>(a, sgn);
+  } else {
+    float2 y[N1];
+#pragma unroll
+    for (int k = 0; k < N1; ++k) {
+      float2 s = a[0];
+#pragma unroll
+      for (int j = 1; j < N1; ++j) {
+        const int m = (j * k) % N1;
+        if (m == 0) {
+          s.x += a[j].x;
+          s.y += a[j].y;
+        } else {
+          const float c = wr[m], d = wi[m];
+          s.x = fmaf(a[j].x, c, fmaf(-a[j].y, d, s.x));
+          s.y = fmaf(a[j].x, d, fmaf(a[j].y, c, s.y));
+        }
+      }
+      y[k] = s;
+    }
+#pragma unroll
+    for (int k = 0; k < N1; ++k) a[k] = y[k];
+  }
+}
+
+// The short-stage kernel's columns: x (outer, n1, inner) complex64 in, out
+// complex64 in the geometry above. w, per and groups are set by
+// launch_short.
+struct ShortColumns {
+  const float* x;
+  float* out;
+  int outer;
+  int n1;
+  int inner;
+  int group;
+  long long s1;
+  long long s2;
+  long long row;
+  long long limit;
+  int w;       // columns a strip
+  int per;     // outer indices a batch
+  int groups;  // batches across inner
+
+  __host__ __device__ long long batches() const {
+    return ((long long)outer + per - 1) / per * groups;
+  }
+  // Batch b: its first outer index and column, and how many of each exist.
+  __device__ void locate(int b, int& q0, int& c0, int& pv, int& wv) const {
+    const int ob = b / groups;
+    q0 = ob * per;
+    c0 = (b - ob * groups) * w;
+    pv = outer - q0 < per ? outer - q0 : per;
+    wv = inner - c0 < w ? inner - c0 : w;
+  }
+  // Every thread: its cp.async parts of batch b (pv n1 strips of wv
+  // columns, inner apart in x, w apart in the buffer), then its arrive.
+  __device__ void issue(unsigned char* buf, int b, uint64_t* bar) const {
+    int q0, c0, pv, wv;
+    locate(b, q0, c0, pv, wv);
+    const size_t off = (size_t)q0 * n1 * inner + c0;
+    copy_strips(buf, x + 2 * off, 8 * (size_t)inner, 8 * wv, pv * n1, 8 * w);
+    arrive_when_copied(bar);
+  }
+  // Every thread: the DFT of its columns of the landed batch b, stored.
+  template <int N1>
+  __device__ void transform(const unsigned char* buf, int b, const float* wr,
+                            const float* wi, float sgn) const {
+    int q0, c0, pv, wv;
+    locate(b, q0, c0, pv, wv);
+    const float2* v = reinterpret_cast<const float2*>(buf);
+    float2* o = reinterpret_cast<float2*>(out);
+    for (int e = threadIdx.x; e < pv * w; e += COL_THREADS) {
+      const int p = e / w, c = e - p * w;
+      if (c >= wv) continue;
+      float2 a[N1];
+#pragma unroll
+      for (int i = 0; i < N1; ++i) a[i] = v[(p * N1 + i) * w + c];
+      dft_short<N1>(a, wr, wi, sgn);
+      const int q = q0 + p;
+      const long long col = (long long)c0 + c;
+      float2* dst = o + (long long)(q / group) * s1 +
+                    (long long)(q % group) * s2 + col;
+#pragma unroll
+      for (int i = 0; i < N1; ++i)
+        if (i * row + col < limit) dst[i * row] = a[i];
+    }
+  }
+};
+
+constexpr size_t short_smem_bytes() {
+  return 256 + (size_t)COL_STAGES * 8 * SHORT_POINTS;
+}
+
+template <int N1>
+__global__ void __launch_bounds__(COL_THREADS, 1)
+fft_short_kernel(const ShortColumns body, const float* __restrict__ roots,
+                 int inverse) {
+  constexpr int SB = 8 * SHORT_POINTS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  float* wr = reinterpret_cast<float*>(smem + 128);
+  float* wi = wr + SHORT_MAX;
+  unsigned char* stages = smem + 256;
+
+  const int nb = (int)body.batches();
+  load_planes<COL_THREADS>(roots, N1, wr, wi);
+  init_ring(full, COL_STAGES, COL_THREADS);
+  __syncthreads();
+  for (int s = 0; s < COL_STAGES; ++s) {
+    const int b = blockIdx.x + s * gridDim.x;
+    if (b < nb) body.issue(stages + s * SB, b, &full[s]);
+  }
+
+  const float sgn = inverse ? 1.f : -1.f;
+  int it = 0;
+  for (int b = blockIdx.x; b < nb; b += gridDim.x, ++it) {
+    const int s = it % COL_STAGES;
+    unsigned char* buf = stages + s * SB;
+    mbar_wait(&full[s], (it / COL_STAGES) & 1);
+    body.template transform<N1>(buf, b, wr, wi, sgn);
+    // Every thread has read buffer s: refill it STAGES batches ahead.
+    __syncthreads();
+    const int next = b + COL_STAGES * gridDim.x;
+    if (next < nb) body.issue(buf, next, &full[s]);
+  }
+}
+
+template <int N1>
+cudaError_t launch_short_n(ShortColumns body, const float* roots, int inverse,
+                           cudaStream_t stream) {
+  constexpr int CAP = short_cap<N1>();
+  if (body.inner >= CAP) {
+    body.w = CAP;
+    body.per = 1;
+    body.groups = (body.inner + CAP - 1) / CAP;
+  } else {
+    body.w = body.inner;
+    body.per = CAP / body.inner;
+    body.groups = 1;
+  }
+  return launch_persistent(fft_short_kernel<N1>, COL_THREADS,
+                           short_smem_bytes(), body.batches(), stream, body,
+                           roots, inverse);
+}
+
+// Launch the short-stage kernel on columns of body.n1 points; roots: (2,
+// n1) float32 planes of exp(-+ 2 pi i m / n1) (ops/hopper_fft.short_roots).
+inline cudaError_t launch_short(const ShortColumns& body, const float* roots,
+                                int inverse, cudaStream_t stream) {
+  switch (body.n1) {
+    case 2: return launch_short_n<2>(body, roots, inverse, stream);
+    case 3: return launch_short_n<3>(body, roots, inverse, stream);
+    case 4: return launch_short_n<4>(body, roots, inverse, stream);
+    case 5: return launch_short_n<5>(body, roots, inverse, stream);
+    case 6: return launch_short_n<6>(body, roots, inverse, stream);
+    case 7: return launch_short_n<7>(body, roots, inverse, stream);
+    case 8: return launch_short_n<8>(body, roots, inverse, stream);
+    case 9: return launch_short_n<9>(body, roots, inverse, stream);
+    case 10: return launch_short_n<10>(body, roots, inverse, stream);
+    case 11: return launch_short_n<11>(body, roots, inverse, stream);
+    case 12: return launch_short_n<12>(body, roots, inverse, stream);
+    case 13: return launch_short_n<13>(body, roots, inverse, stream);
+    case 14: return launch_short_n<14>(body, roots, inverse, stream);
+    case 15: return launch_short_n<15>(body, roots, inverse, stream);
+    case 16: return launch_short_n<16>(body, roots, inverse, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -22,9 +22,14 @@
 //                            <- _cmatmul_kernel     (kernel 2, column body:
 //                               the same n along a non-last axis, in place
 //                               in the layout)
+//   fft_short_kernel<N1>     <- _cmatmul_kernel     (kernel 2, short-stage
+//                               body: the n1 = 2..16-point second stage of
+//                               a split axis, where the first stage's
+//                               output lies, its bins stored in the
+//                               four-step's order)
 //   MODE_CMATMUL             <- _cmatmul_kernel     (kernel 2, tile or row
-//                               body: any other n, e.g. 96, 257, or the
-//                               4-point second stage of a 2048 axis)
+//                               body: any other n, e.g. 96, 257, or a
+//                               direct axis of a few points)
 //   fft_rows_kernel<L, RealRows>
 //                            <- _rmatmul_kernel     (kernel 1, FFT body:
 //                               power-of-two n in [8, 1024])
@@ -38,6 +43,10 @@
 //   fft_rows_kernel<L, ComplexTwiddleRows<true>>
 //                            <- _cmatmul_tw_kernel  (kernel 4, FFT body:
 //                               power-of-two n2 in [8, 1024])
+//   fft_cols_kernel<L, TwiddleColumns>
+//                            <- _cmatmul_tw_kernel  (kernel 4, column body:
+//                               the same n2 up to 512 on a non-last split
+//                               axis, where the axis lies)
 //   MODE_CMATMUL + twiddle   <- _cmatmul_tw_kernel  (kernel 4, tile body:
 //                               any other n2, e.g. 320)
 //   fft_rows_kernel<L, RealTwiddleRows>
@@ -66,7 +75,14 @@
 //   kernel 2, 1024^3 x/y forward (M 525312, n = k = 1024):    8.6 GB -> 2.57 ms
 //   kernel 4, 2048 x 256 x 2048 x forward (M 1049600, n = k = 512):
 //                                                             8.6 GB -> 2.57 ms
-//   kernel 2, same axis, 4-point second stage (M 134348800): 8.6 GB -> 2.57 ms
+//   kernel 4, same x axis where it lies ((1, 512, 1049600) columns):
+//                                                             8.6 GB -> 2.57 ms
+//   kernel 2, same x axis, 4-point second stage ((512, 4, 262400) columns,
+//     bins stored in the axis's layout):                      8.6 GB -> 2.57 ms
+//   kernel 2, same plan, z forward second stage ((524288, 4, 512) columns,
+//     bins 0..1024 stored, the crop):                        12.9 GB -> 3.85 ms
+//   kernel 2, same plan, z inverse second stage ((524288, 4, 512)):
+//                                                            17.2 GB -> 5.13 ms
 //   kernel 5, same plan, z forward (M 2097152, n = k = 512): 12.9 GB -> 3.85 ms
 //
 // The dense bodies do 8 n k flop a complex row, 8 n / (5 log2 n) times an
@@ -87,6 +103,18 @@
 //   kernel, two 512-point halves) and writes them back in the same layout:
 //   each byte moved once, bound by bytes as the row body (8.6 GB -> 2.57 ms
 //   at each non-last axis of the 1024^3 spectrum).
+// - Kernel 4 also has a column body (TwiddleColumns): on a non-last split
+//   axis j = s n1 + r of a contiguous (outer, n, inner) tensor, viewed as
+//   (outer, n2, n1 inner), the column kernel's n2-point DFT over s where it
+//   lies, its epilogue times T[r][k2], r = column / inner. The TPU kernel
+//   read contiguous rows only, so the axis moved last and swapped twice
+//   around it (four copies of the tensor).
+// - Kernel 2's short-stage body (fft_short_kernel, fft_rows.cuh) runs the
+//   four-step's second stage, n1 = 2..16 points, on columns where the first
+//   stage left them: strips of n2 elements or more loaded by the column
+//   kernel's cp.async ring, the DFT in registers, every bin stored straight
+//   to its place in the axis's natural order (or the R2C crop), so neither
+//   the swap before it nor the transpose after it exists.
 // - Kernels 1 and 5 have an FFT body on the same engine on real rows
 //   (RealRowPairs): each batch of real rows arrives by one bulk copy, the
 //   first pass packs rows 2c and 2c + 1 as one complex row (an odd last row
@@ -113,10 +141,10 @@
 //   fetched from shared memory feeds 4 (real) to 16 (complex) FMAs. The
 //   twiddle is applied in registers before the store, so a four-step first
 //   stage costs no extra pass.
-// - Narrow stages (n and k of a few points: the 4-point second stage of a
-//   2048 four-step) take the row path: one thread per row, the row held in
-//   registers, F in shared memory, so each byte of X and Y crosses HBM once
-//   and no lane of a 64-wide tile idles.
+// - Narrow stages (n and k of a few points: a direct axis below 8 points)
+//   take the row path: one thread per row, the row held in registers, F in
+//   shared memory, so each byte of X and Y crosses HBM once and no lane of
+//   a 64-wide tile idles.
 // - Ragged edges (k = 257, n_in = 257, any M) are masked element by
 //   element; no vector load crosses a row.
 // - Offsets are 64-bit: one interleaved plane at 1024^3 holds 2.15e9
@@ -390,6 +418,67 @@ struct HalfRows : fft_rows::RealPairsOut {
   }
 };
 
+// Kernel 4's columns: the column kernel's n-point DFT of every column of an
+// (outer, n, inner) complex64 array (fft_rows::Columns, interleaved in and
+// out), times the four-step twiddle in the epilogue: work row k2 (bin k2)
+// of column c by T[c / span][k2] ((n1, n) float32 planes). On a non-last
+// split axis j = s n1 + r viewed as (outer, n2, n1 span), column c = r span
+// + b takes twiddle row r.
+struct TwiddleColumns : fft_rows::Columns {
+  const float* tr;
+  const float* ti;
+  int span;
+
+  template <int L>
+  __device__ void store(const float2* w, int b) const {
+    using G = fft_rows::ColGeometry<L>;
+    const int g = groups<L>(), o = b / g, c0 = (b - o * g) * G::W;
+    const int valid = inner - c0 < G::W ? inner - c0 : G::W;
+    float* dst = out_r + 2 * ((size_t)o * n * inner + c0);
+    const size_t pitch = 2 * (size_t)inner;  // floats
+    // Bin i of column c0 + c times its twiddle.
+    auto twiddled = [&](float2 v, int i, int c) {
+      const size_t t = (size_t)((c0 + c) / span) * G::N + i;
+      return fft_rows::cmul(v, make_float2(__ldg(tr + t), __ldg(ti + t)));
+    };
+    const unsigned a = static_cast<unsigned>(
+        reinterpret_cast<uintptr_t>(dst) | 4 * pitch | 8 * valid);
+    if (!(a & 15)) {
+      fft_rows::for_parts(G::N, valid / 2, [&](int i, int k) {
+        const float4 p = reinterpret_cast<const float4*>(w)[(i * G::W) / 2 + k];
+        const float2 u = twiddled(make_float2(p.x, p.y), i, 2 * k);
+        const float2 v = twiddled(make_float2(p.z, p.w), i, 2 * k + 1);
+        *reinterpret_cast<float4*>(dst + i * pitch + 4 * k) =
+            make_float4(u.x, u.y, v.x, v.y);
+      });
+    } else {
+      fft_rows::for_parts(G::N, valid, [&](int i, int k) {
+        *reinterpret_cast<float2*>(dst + i * pitch + 2 * k) =
+            twiddled(w[i * G::W + k], i, k);
+      });
+    }
+  }
+};
+
+// The column kernel on columns of n points, a power of two in [8, 512]
+// (no split kernel: its halves store through Columns' own epilogue).
+template <class Body>
+cudaError_t launch_cols_direct(int n, int schedule, const Body& body,
+                               const float* table, int inverse,
+                               cudaStream_t s) {
+  using fft_rows::launch_cols_log2;
+  switch (n) {
+    case 8: return launch_cols_log2<3>(schedule, body, table, inverse, s);
+    case 16: return launch_cols_log2<4>(schedule, body, table, inverse, s);
+    case 32: return launch_cols_log2<5>(schedule, body, table, inverse, s);
+    case 64: return launch_cols_log2<6>(schedule, body, table, inverse, s);
+    case 128: return launch_cols_log2<7>(schedule, body, table, inverse, s);
+    case 256: return launch_cols_log2<8>(schedule, body, table, inverse, s);
+    case 512: return launch_cols_log2<9>(schedule, body, table, inverse, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -480,6 +569,48 @@ int dfft_cdft_cols(const float* x, const float* table, const float* split,
   const fft_rows::Columns body{x, nullptr, out, nullptr, outer, n, inner};
   return fft_rows::launch_cols(n, schedule, body, table, split, inverse,
                                static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 4, column body: the n-point DFT (inverse when inverse != 0) along
+// axis 1 of an (outer, n, inner) complex64 array x, times the twiddle
+// T[c / (inner / n1)][k2] of column c, bin k2, into out of the same layout
+// (not overlapping x); n a power of two in [8, 512], n1 dividing inner;
+// table, schedule: ops/hopper_fft.fft_plan(n, inverse); tr, ti: (n1, n)
+// float32 twiddle planes. x and out 8-byte aligned.
+int dfft_cdft_tw_cols(const float* x, const float* table, const float* tr,
+                      const float* ti, float* out, int outer, int n,
+                      int inner, int n1, int schedule, int inverse,
+                      void* stream) {
+  if (outer < 1 || inner < 1 || n1 < 1 || inner % n1 || !tr || !ti)
+    return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(x, 8) || fft_rows::misaligned(out, 8))
+    return cudaErrorMisalignedAddress;
+  const TwiddleColumns body{{x, nullptr, out, nullptr, outer, n, inner},
+                            tr, ti, inner / n1};
+  return launch_cols_direct(n, schedule, body, table, inverse,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 2, short-stage body: the n1-point DFT (inverse when inverse != 0),
+// 2 <= n1 <= 16, along axis 1 of an (outer, n1, inner) complex64 array x;
+// bin k1 of column c of outer index q stored to out at (q / group) s1 + (q
+// % group) s2 + k1 row + c (complex64 elements) when k1 row + c < limit;
+// outer a multiple of group; roots: ops/hopper_fft.short_roots(n1,
+// inverse). x and out 8-byte aligned, not overlapping.
+int dfft_cdft_short(const float* x, const float* roots, float* out,
+                    int outer, int n1, int inner, int group, int inverse,
+                    long long s1, long long s2, long long row,
+                    long long limit, void* stream) {
+  if (outer < 1 || inner < 1 || n1 < 2 || n1 > fft_rows::SHORT_MAX ||
+      group < 1 || outer % group || s1 < 0 || s2 < 0 || row < 1 ||
+      limit < 1 || !roots)
+    return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(x, 8) || fft_rows::misaligned(out, 8))
+    return cudaErrorMisalignedAddress;
+  const fft_rows::ShortColumns body{x,  out, outer, n1, inner, group, s1,
+                                    s2, row, limit, 0,  0,     0};
+  return fft_rows::launch_short(body, roots, inverse,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // Kernel 1, FFT body. x: (M, n) float32, n a power of two in [8, 1024],

@@ -91,18 +91,20 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         return secs
 
 
-def load(name: str, signatures: Mapping[str, Tuple[int, int]]) -> ctypes.CDLL:
+def load(name: str, signatures: Mapping[str, Tuple[int, ...]]) -> ctypes.CDLL:
     """The loaded library ``csrc/<name>.cu``, built if needed.
-    ``signatures`` maps each entry point to (pointer count, int count): its
-    arguments are that many pointers, then that many ints, then the stream,
-    and it returns an int CUDA error code."""
+    ``signatures`` maps each entry point to (pointer count, int count[,
+    long long count]): its arguments are that many pointers, then that many
+    ints, then that many 64-bit ints, then the stream, and it returns an
+    int CUDA error code."""
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        for fn, (n_ptr, n_int) in signatures.items():
+        for fn, (n_ptr, n_int, *n_ll) in signatures.items():
             f = getattr(lib, fn)
             f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                          + [ctypes.c_longlong] * sum(n_ll)
                           + [ctypes.c_void_p])
             f.restype = ctypes.c_int
         lib.dfft_error_string.argtypes = [ctypes.c_int]

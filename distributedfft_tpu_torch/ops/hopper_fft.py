@@ -30,11 +30,16 @@ granularities:
   (``cdft`` / ``rdft``, kernels 2 and 1) up to 512 points, for a power of
   two up to 1024 and for a prime up to 1024, else the four-step split of
   ``mxu_fft._split_for`` (the JAX package splits every axis past 512,
-  where the TPU's direct matmul stops), whose first stage is ``cdft_tw``
-  or ``rdft_tw``. ``irfft`` takes one ``irdft`` (kernel 3) on the same
-  direct lengths, else the Hermitian extension and a complex inverse.
-  This path carries every distributed plan and every single-device cube
-  the fused path does not take.
+  where the TPU's direct matmul stops): one swap, the first stage
+  ``cdft_tw`` or ``rdft_tw`` on rows, the second (n1 = 2..16 points)
+  ``cdft_short`` (kernel 2's short-stage body) on columns where the first
+  left them, its bins stored in natural order or as the R2C crop. A
+  non-last split axis of a contiguous complex64 tensor runs its
+  four-step where it lies: ``cdft_tw_cols`` (kernel 4's column body)
+  then ``cdft_short`` storing into the input's layout. ``irfft`` takes one
+  ``irdft`` (kernel 3) on the same direct lengths, else the Hermitian
+  extension and a complex inverse. This path carries every distributed
+  plan and every single-device cube the fused path does not take.
 * **fused wire** (``csrc/wire.cu``): the bf16 wire of the ring exchanges
   (``parallel/transpose.ring_transpose``) as kernels — ``enc_pack``
   encodes a travelling block, ``dec_unpack`` decodes an arrived one, and
@@ -46,8 +51,10 @@ granularities:
   rows of a power of two in [8, 1024] (``_fft_body``); other lengths take
   the dense bodies of ``stage.cu``. It also runs the two FFT passes of
   the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8), and,
-  as its column kernel, ``x_c2c`` (kernel 7) and ``cdft_cols`` (kernel 2
-  on a non-last axis). ``fft_plan`` is its host side.
+  as its column kernel, ``x_c2c`` (kernel 7), ``cdft_cols`` (kernel 2
+  on a non-last axis) and ``cdft_tw_cols`` (kernel 4 on a non-last split
+  axis); its short-stage kernel, on the column kernel's loader, is
+  ``cdft_short``. ``fft_plan`` is its host side.
 
 Each kernel has here:
 
@@ -83,7 +90,8 @@ LAUNCHES: Dict[str, int] = {
     "rmatmul_tw": 0,
     "enc_pack": 0, "dec_unpack": 0, "dec_cmatmul": 0}       # wire.cu
 
-# Entry points: library (csrc/<name>.cu), (pointer arguments, int arguments).
+# Entry points: library (csrc/<name>.cu), (pointer arguments, int
+# arguments[, 64-bit int arguments]).
 _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
             "dfft_zy_rows": ("fused3d", (3, 4)),
             "dfft_zy_cols": ("fused3d", (2, 4)),
@@ -99,6 +107,8 @@ _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
             "dfft_cdft_tw": ("stage", (5, 5)),
             "dfft_cdft": ("stage", (3, 4)),
             "dfft_cdft_cols": ("stage", (4, 5)),
+            "dfft_cdft_tw_cols": ("stage", (5, 6)),
+            "dfft_cdft_short": ("stage", (3, 5, 4)),
             "dfft_rdft": ("stage", (3, 3)),
             "dfft_c2r": ("stage", (3, 3)),
             "dfft_enc_pack": ("wire", (2, 6)),
@@ -894,6 +904,226 @@ def cdft_cols(x: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
     return y
 
 
+# ---------------------------------------------------------------------------
+# A split axis where it lies: kernel 2's short-stage body (the four-step's
+# second stage) and kernel 4's column body (its first stage on a non-last
+# axis)
+# ---------------------------------------------------------------------------
+
+# Longest second stage the short-stage body takes (``SHORT_MAX`` in
+# fft_rows.cuh): every n1 that ``mx._split_for`` gives up to 8192 points.
+SHORT_MAX = 16
+
+
+def _short_body(n1: int) -> bool:
+    """Whether the short-stage body takes a four-step second stage of n1
+    points: 2 <= n1 <= ``SHORT_MAX``. A pure function of n1."""
+    return 2 <= n1 <= SHORT_MAX
+
+
+@functools.lru_cache(maxsize=None)
+def short_roots(n1: int, inverse: bool) -> np.ndarray:
+    """(2, n1) float32 planes of exp(-+ 2 pi i m / n1), built in float64:
+    the roots of the short-stage body's dense DFT (n1 not a power of
+    two)."""
+    w = np.exp((1.0 if inverse else -1.0) * 2j * np.pi * np.arange(n1) / n1)
+    return np.ascontiguousarray(np.stack([w.real, w.imag]), np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _short_roots(n1: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(short_roots(n1, inverse)).to(device)
+
+
+class ShortOut(NamedTuple):
+    """Where the short-stage body stores bin k1 of column c of outer index
+    q: element (q // group) * s1 + (q % group) * s2 + k1 * row + c of its
+    output, when k1 * row + c < limit."""
+    group: int
+    s1: int
+    s2: int
+    row: int
+    limit: int
+
+
+def short_last(n1: int, n2: int, n_out: Optional[int] = None) -> ShortOut:
+    """A last split axis, (.., n1, n2) columns -> (.., n_out): bin k1 n2 +
+    k2 of a row at k1 n2 + k2, bins from n_out on not stored (n_out = n1
+    n2, the natural order, by default; n / 2 + 1 for the R2C crop)."""
+    n_out = n1 * n2 if n_out is None else n_out
+    return ShortOut(1, n_out, 0, n2, n_out)
+
+
+def short_strided(n1: int, n2: int, inner: int) -> ShortOut:
+    """A non-last split axis: (outer n2, n1, inner) columns, outer index q
+    = o n2 + k2, bin k1 n2 + k2 to (o, k1 n2 + k2, b) of an (outer, n1 n2,
+    inner) tensor."""
+    n = n1 * n2
+    return ShortOut(n2, n * inner, inner, n2 * inner, n * inner)
+
+
+def _short_extent(outer: int, n1: int, inner: int, g: ShortOut) -> int:
+    """Elements an output needs to hold every bin that ``g`` stores."""
+    last = min((n1 - 1) * g.row + inner, g.limit)
+    return (outer // g.group - 1) * g.s1 + (g.group - 1) * g.s2 + last
+
+
+def cdft_short_mirror(x3: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The short-stage body's DFT in plain PyTorch: (outer, n1, inner)
+    complex -> (outer, n1, inner) complex64, the n1-point DFT of every
+    column, as the kernel computes it: the radix-2 network of the engine
+    (``_dft_regs_mirror``) for a power of two, else the dense product with
+    ``short_roots``. For tests."""
+    n1 = x3.shape[1]
+    x = x3.to(torch.complex64)
+    if n1 & (n1 - 1) == 0:
+        return _dft_regs_mirror(x, inverse)
+    w = torch.complex(*torch.from_numpy(short_roots(n1, inverse)))
+    m = (torch.arange(n1)[:, None] * torch.arange(n1)) % n1      # [k, j]
+    return torch.einsum("kj,ojc->okc", w[m], x)
+
+
+def cdft_short_plain(x3: torch.Tensor, inverse: bool, geom: ShortOut,
+                     out_shape: Sequence[int]) -> torch.Tensor:
+    """Kernel 2's short-stage body as a dense product (``cdft_cols_plain``
+    along axis 1 of (outer, n1, inner)), its bins stored by ``geom`` into a
+    new complex64 tensor of ``out_shape`` (elements no bin reaches are
+    zero here; the kernel leaves them unset)."""
+    outer, n1, inner = x3.shape
+    g = geom.group
+    y = cdft_cols_plain(x3, 1, inverse).view(outer // g, g, n1, inner)
+    out = x3.new_zeros(tuple(out_shape), dtype=torch.complex64)
+    full = min(n1, geom.limit // geom.row)
+    rem = min(inner, geom.limit - full * geom.row) if full < n1 else 0
+    if full and outer:
+        out.as_strided((outer // g, g, full, inner),
+                       (geom.s1, geom.s2, geom.row, 1)).copy_(y[:, :, :full])
+    if rem > 0 and outer:
+        out.as_strided((outer // g, g, rem), (geom.s1, geom.s2, 1),
+                       full * geom.row).copy_(y[:, :, full, :rem])
+    return out
+
+
+def _check_short(x3: torch.Tensor, geom: ShortOut,
+                 out_shape: Sequence[int]) -> bool:
+    """Validate a short-stage launch; True for a CPU tensor (plain
+    version), False for CUDA (kernel). Anything else raises."""
+    name = "cmatmul"
+    if x3.dtype != torch.complex64:
+        raise TypeError(f"{name}: expected complex64, got {x3.dtype}")
+    if x3.ndim != 3 or not _short_body(x3.shape[1]):
+        raise ValueError(f"{name}: the short-stage body takes (outer, n1, "
+                         f"inner) with 2 <= n1 <= {SHORT_MAX}, not "
+                         f"{tuple(x3.shape)}")
+    if x3.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {x3.device}")
+    if not x3.is_contiguous():
+        raise ValueError(f"{name}: operand must be contiguous")
+    outer, n1, inner = x3.shape
+    if min(geom) < 0 or geom.group < 1 or geom.row < 1 or outer % geom.group:
+        raise ValueError(f"{name}: geometry {geom} does not fit {outer} "
+                         f"outer indices")
+    if max(outer, inner) > _INT_MAX:
+        raise ValueError(f"{name}: shape {tuple(x3.shape)} exceeds one launch")
+    if outer and _short_extent(outer, n1, inner, geom) > math.prod(out_shape):
+        raise ValueError(f"{name}: geometry {geom} stores past an output of "
+                         f"shape {tuple(out_shape)}")
+    return x3.device.type == "cpu"
+
+
+def cdft_short(x3: torch.Tensor, inverse: bool, geom: ShortOut,
+               out_shape: Sequence[int]) -> torch.Tensor:
+    """The four-step's second stage where the first stage left it: the
+    unnormalized n1-point DFT (inverse DFT when ``inverse``) of every
+    column of a contiguous (outer, n1, inner) complex64 tensor, 2 <= n1 <=
+    ``SHORT_MAX``, each bin stored by ``geom`` (``short_last``,
+    ``short_strided``) into a new complex64 tensor of ``out_shape``
+    (kernel 2, ``_cmatmul_kernel``, on its short-stage body: one
+    ``dfft_cdft_short`` launch counted as ``cmatmul``). On a CPU tensor the
+    plain version ``cdft_short_plain``."""
+    cpu = _check_short(x3, geom, out_shape)
+    if cpu:
+        return cdft_short_plain(x3, inverse, geom, out_shape)
+    out = torch.empty(tuple(out_shape), dtype=torch.complex64,
+                      device=x3.device)
+    if x3.numel():
+        outer, n1, inner = x3.shape
+        _launch("cmatmul", "dfft_cdft_short", x3,
+                _short_roots(n1, inverse, x3.device), out, outer, n1, inner,
+                geom.group, int(inverse), geom.s1, geom.s2, geom.row,
+                geom.limit)
+    return out
+
+
+def cdft_tw_cols_plain(x3: torch.Tensor, n1: int,
+                       inverse: bool) -> torch.Tensor:
+    """Kernel 4's column body as dense products: ``cdft_cols_plain`` along
+    axis 1 of (outer, n2, n1 span), times T[r][k2] on the columns r span ..
+    (r + 1) span."""
+    outer, n2, inner = x3.shape
+    tr, ti = _twiddle_planes(n1, n2, inverse, x3.device)
+    y = cdft_cols_plain(x3, 1, inverse).view(outer, n2, n1, inner // n1)
+    return (y * torch.complex(tr, ti).t()[None, :, :, None]).view(x3.shape)
+
+
+def cdft_tw_cols_mirror(x3: torch.Tensor, n1: int,
+                        inverse: bool) -> torch.Tensor:
+    """Kernel 4's column body in plain PyTorch: the column kernel
+    (``fft_cols_mirror``), then its epilogue's twiddle, T[c // span][k2]
+    on bin k2 of column c. For tests."""
+    outer, n2, inner = x3.shape
+    tr, ti = _twiddle_planes(n1, n2, inverse, x3.device)
+    rows = torch.arange(inner) // (inner // n1)
+    return fft_cols_mirror(x3, inverse) * torch.complex(tr, ti)[rows].t()
+
+
+def _check_tw_cols(x3: torch.Tensor, n1: int) -> bool:
+    """Validate a launch of kernel 4's column body; True for a CPU tensor
+    (plain version), False for CUDA (kernel). Anything else raises."""
+    name = "cmatmul_tw"
+    if x3.dtype != torch.complex64:
+        raise TypeError(f"{name}: expected complex64, got {x3.dtype}")
+    if x3.ndim != 3 or _fft_body(x3.shape[1]) != "fft" \
+            or x3.shape[1] > mx.DIRECT_MAX:
+        raise ValueError(f"{name}: the column body takes (outer, n2, inner) "
+                         f"with n2 a power of two in [{FFT_MIN}, "
+                         f"{mx.DIRECT_MAX}], not {tuple(x3.shape)}")
+    if n1 < 1 or x3.shape[2] % n1:
+        raise ValueError(f"{name}: n1 = {n1} does not divide the "
+                         f"{x3.shape[2]} columns")
+    if x3.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {x3.device}")
+    if not x3.is_contiguous():
+        raise ValueError(f"{name}: operand must be contiguous")
+    if max(x3.shape[0], x3.shape[2]) > _INT_MAX:
+        raise ValueError(f"{name}: shape {tuple(x3.shape)} exceeds one launch")
+    return x3.device.type == "cpu"
+
+
+def cdft_tw_cols(x3: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
+    """The four-step's first stage where a non-last split axis lies: x3 is
+    the contiguous complex64 view (outer, n2, n1 span) of the axis j = s
+    n1 + r, point (s, r span + b); the result has the same layout, y[o,
+    k2, r span + b] = T[r][k2] sum_s x3[o, s, r span + b] exp(-+ 2 pi i s
+    k2 / n2), unnormalized (kernel 4, ``_cmatmul_tw_kernel``, on its
+    column body: the column kernel with the twiddle in its epilogue, one
+    ``dfft_cdft_tw_cols`` launch counted as ``cmatmul_tw``). n2 is a
+    power of two in [8, 512]; on a CPU tensor the plain version
+    ``cdft_tw_cols_plain``."""
+    cpu = _check_tw_cols(x3, n1)
+    if cpu:
+        return cdft_tw_cols_plain(x3, n1, inverse)
+    outer, n2, inner = x3.shape
+    dev = x3.device
+    y = torch.empty_like(x3)
+    if x3.numel():
+        tr, ti = _twiddle_planes(n1, n2, inverse, dev)
+        _launch("cmatmul_tw", "dfft_cdft_tw_cols", x3,
+                _fft_table(n2, inverse, dev), tr, ti, y, outer, n2, inner, n1,
+                fft_plan(n2, inverse).schedule, int(inverse))
+    return y
+
+
 def rdft(x2: torch.Tensor) -> torch.Tensor:
     """Real rows to their half spectra: (M, n) float32 -> (M, n//2+1)
     complex64, bins 0..n/2 of each row's unnormalized DFT (kernel 1,
@@ -1071,21 +1301,52 @@ def _split_axis(n: int) -> Tuple[int, int]:
     return n1, n2
 
 
-def _four_step(x: torch.Tensor, inverse: bool, n1: int,
-               n2: int) -> torch.Tensor:
-    """The four-step C2C along the last axis of a contiguous complex64
-    tensor, n = n1 n2: (.., n) -> d (.., n2, n1), d[.., k2, k1] bin
-    k1 n2 + k2 of the unnormalized DFT."""
-    lead = x.shape[:-1]
-    a = _swap_last(x.reshape(lead + (n2, n1)))                    # (.., n1, n2)
+def _first_stage(a: torch.Tensor, inverse: bool, n1: int,
+                 n2: int) -> torch.Tensor:
+    """The four-step's first stage on contiguous (.., n1, n2) rows, a[..,
+    r, s] = x[s n1 + r]: the n2-point DFT over s times T[r][k2] (kernel 4,
+    or kernel 5 on real rows, up to ``mx.DIRECT_MAX`` points; past it the
+    recursion and the twiddle as a product)."""
+    dev = a.device
+    if a.is_complex():
+        if n2 <= mx.DIRECT_MAX:
+            return cdft_tw(a.reshape(-1, n2), n1, inverse).reshape(a.shape)
+        return _fft_last(a, inverse) * _twiddle(n1, n2, inverse, dev)
     if n2 <= mx.DIRECT_MAX:
-        # Fused: DFT over s and the twiddle epilogue in one kernel pass.
-        c = cdft_tw(a.reshape(-1, n2), n1, inverse).reshape(a.shape)
-    else:
-        c = _fft_last(a, inverse) * _twiddle(n1, n2, inverse, x.device)
+        return rdft_tw(a.reshape(-1, n2), n1).reshape(a.shape)
+    return _fft_last(a.to(torch.complex64), False) * _twiddle(n1, n2, False,
+                                                              dev)
+
+
+def _four_step(x: torch.Tensor, inverse: bool, n1: int, n2: int,
+               n_out: Optional[int] = None) -> torch.Tensor:
+    """The four-step along the last axis of a contiguous tensor (.., n), n
+    = n1 n2: complex64, or float32 for the forward R2C. Returns (..,
+    n_out) complex64, bins 0 .. n_out - 1 of the unnormalized DFT in
+    natural order (n_out = n by default, n / 2 + 1 for the R2C). One swap
+    puts r = j mod n1 ahead of s = j div n1 and the first stage runs on
+    rows of s; the second stage, the n1-point DFT over r, runs on the
+    short-stage body's columns where the first stage left them and stores
+    bin k1 n2 + k2 in its place, so nothing moves after it. An n1 past
+    ``SHORT_MAX`` swaps again, runs rows of n1 and copies the bins back in
+    order."""
+    lead = x.shape[:-1]
+    n_out = n1 * n2 if n_out is None else n_out
+    a = _swap_last(x.reshape(lead + (n2, n1)))                    # (.., n1, n2)
+    c = _first_stage(a, inverse, n1, n2)
     del a
-    c = _swap_last(c)                                             # (.., n2, n1)
-    return _fft_last(c, inverse)
+    if _short_body(n1):
+        return cdft_short(c.reshape(-1, n1, n2), inverse,
+                          short_last(n1, n2, n_out), lead + (n_out,))
+    d = _fft_last(_swap_last(c), inverse)      # (.., n2, n1): bin k1 n2 + k2
+    del c
+    q, rem = divmod(n_out, n2)
+    out = d.new_empty(lead + (n_out,))
+    out[..., :q * n2].unflatten(-1, (q, n2)).copy_(
+        d[..., :q].transpose(-1, -2))
+    if rem:
+        out[..., q * n2:].copy_(d[..., :rem, q])
+    return out
 
 
 def _fft_last(x: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -1098,8 +1359,7 @@ def _fft_last(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     n1, n2 = _split_axis(n)
     if n1 == 1:
         return _last_rows(cdft, x, inverse)
-    d = _four_step(x, inverse, n1, n2)
-    return d.transpose(-1, -2).reshape(x.shape)
+    return _four_step(x, inverse, n1, n2)
 
 
 def _rfft_last(x: torch.Tensor) -> torch.Tensor:
@@ -1107,43 +1367,40 @@ def _rfft_last(x: torch.Tensor) -> torch.Tensor:
     (``pallas_fft._rfft_last``, with ``_direct`` lengths in one ``rdft``):
     (.., n) -> (.., n//2+1)."""
     n = x.shape[-1]
-    n_out = n // 2 + 1
-    lead = x.shape[:-1]
-    dev = x.device
     if _direct(n):
         return _last_rows(rdft, x)
     n1, n2 = _split_axis(n)
     if n1 == 1:
         return _last_rows(rdft, x)
-    a = _swap_last(x.reshape(lead + (n2, n1)))
-    if n2 <= mx.DIRECT_MAX:
-        # Real-input fused stage: the full n2-point DFT plus the twiddle.
-        c = rdft_tw(a.reshape(-1, n2), n1).reshape(a.shape)
-    else:
-        c = _fft_last(a.to(torch.complex64), False) * _twiddle(n1, n2, False,
-                                                               dev)
-    del a
-    c = _swap_last(c)
-    d = _fft_last(c, False).transpose(-1, -2)    # (.., n1, n2): bin k1 n2 + k2
-    del c
-    # Bins 0 .. n/2 straight into a contiguous tensor: q whole rows of d's
-    # transpose, then the first rem bins of the next.
-    q, rem = divmod(n_out, n2)
-    out = d.new_empty(lead + (n_out,))
-    out[..., :q * n2].unflatten(-1, (q, n2)).copy_(d[..., :q, :])
-    if rem:
-        out[..., q * n2:].copy_(d[..., q, :rem])
-    return out
+    return _four_step(x, False, n1, n2, n // 2 + 1)
+
+
+def _four_step_in_place(x: torch.Tensor, axis: int,
+                        inverse: bool) -> torch.Tensor:
+    """The four-step along a non-last ``axis`` of a contiguous complex64
+    tensor where it lies (``_split_in_place``): the axis j = s n1 + r of
+    the (outer, n, inner) view read as (outer, n2, n1 inner), kernel 4's
+    column body over s with the twiddle, then the short-stage body over r
+    on the (outer n2, n1, inner) view of its output, each bin stored at its
+    place in a new tensor of the input's shape and layout. Two launches,
+    no copy."""
+    n1, n2 = _split_axis(x.shape[axis])
+    outer = math.prod(x.shape[:axis])
+    inner = math.prod(x.shape[axis + 1:])
+    c = cdft_tw_cols(x.view(outer, n2, n1 * inner), n1, inverse)
+    return cdft_short(c.view(outer * n2, n1, inner), inverse,
+                      short_strided(n1, n2, inner), x.shape)
 
 
 # ---------------------------------------------------------------------------
 # Public per-axis API (``pallas_fft.fft`` ...; same FFTNorm semantics).
 # Results keep the input's axis order. ``fft`` / ``ifft`` along a
 # non-last axis: where ``_strided`` holds, one ``cdft_cols`` where the axis
-# lies, the result in the input's layout; else the axis moves last, and the
-# result is a strided view of the kernel's output, or, for a split axis, a
-# contiguous tensor in the input's axis order (the four-step's last copy
-# writes it so).
+# lies, and where ``_split_in_place`` holds, the four-step where it lies
+# (``cdft_tw_cols`` then ``cdft_short``), the result in the input's layout;
+# else the axis moves last, and the result is a strided view of the
+# kernel's output, or, for a split axis, a contiguous tensor in the input's
+# axis order.
 # ---------------------------------------------------------------------------
 
 
@@ -1151,11 +1408,32 @@ def _strided(x: torch.Tensor, axis: int) -> bool:
     """Whether ``fft`` / ``ifft`` transform ``axis`` of ``x`` where it lies,
     by one ``cdft_cols``: a non-last axis of a contiguous complex64 tensor
     whose length the row FFT engine takes (``_fft_body``). A pure function
-    of dtype, shape and strides: a split axis (2048), any other length and a
-    non-contiguous view (a ring's block) move the axis last instead."""
+    of dtype, shape and strides: a split axis (2048) takes
+    ``_split_in_place`` or moves last, and any other length and a
+    non-contiguous view (a ring's block) move the axis last."""
     return (x.ndim > 1 and axis % x.ndim != x.ndim - 1
             and x.dtype == torch.complex64
             and _fft_body(x.shape[axis]) == "fft" and x.is_contiguous())
+
+
+def _split_in_place(x: torch.Tensor, axis: int) -> bool:
+    """Whether ``fft`` / ``ifft`` run the four-step of a split ``axis`` of
+    ``x`` where it lies (``_four_step_in_place``): a non-last axis of a
+    contiguous complex64 tensor that is not ``_direct``, split n1 x n2
+    (``mx._split_for``) with n1 a short stage (``_short_body``) and n2 a
+    power of two in [8, 512] (kernel 4's column body). A pure function of
+    dtype, shape and strides: n1 past 16 (16384 = 32 x 512), an n2 that is
+    not a power of two (640 = 2 x 320) and a non-contiguous view move the
+    axis last."""
+    if not (x.ndim > 1 and axis % x.ndim != x.ndim - 1
+            and x.dtype == torch.complex64 and x.is_contiguous()):
+        return False
+    n = x.shape[axis]
+    if _direct(n):
+        return False
+    n1, n2 = mx._split_for(n, mx.DIRECT_MAX)
+    return (_short_body(n1) and _fft_body(n2) == "fft"
+            and n2 <= mx.DIRECT_MAX)
 
 
 def _c2c_axis(x: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
@@ -1164,17 +1442,15 @@ def _c2c_axis(x: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
     axis %= x.ndim
     if _strided(x, axis):
         return cdft_cols(x, axis, inverse)
-    xm = x.movedim(axis, -1).contiguous()
+    if _split_in_place(x, axis):
+        return _four_step_in_place(x, axis, inverse)
+    y = _fft_last(x.movedim(axis, -1).contiguous(), inverse)
     if axis == x.ndim - 1:
-        return _fft_last(xm, inverse)
-    n = xm.shape[-1]
-    n1, n2 = (1, n) if _direct(n) else _split_axis(n)
-    if n1 == 1:
-        return _fft_last(xm, inverse).movedim(-1, axis)
-    d = _four_step(xm, inverse, n1, n2)             # (moved lead.., n2, n1)
-    out = torch.empty(x.shape, dtype=torch.complex64, device=x.device)
-    out.unflatten(axis, (n1, n2)).copy_(d.movedim((-1, -2), (axis, axis + 1)))
-    return out
+        return y
+    n = x.shape[axis]
+    split = not _direct(n) and _split_axis(n)[0] > 1
+    y = y.movedim(-1, axis)
+    return y.contiguous() if split else y
 
 
 def fft(x: torch.Tensor, axis: int, norm: FFTNorm = FFTNorm.NONE

@@ -17,10 +17,11 @@ against
 Also the routing, with the wrappers' checks and ``_launch`` patched so that
 nothing runs: ``fft`` / ``ifft`` of a contiguous tensor along a non-last
 axis the engine takes reach ``dfft_cdft_cols`` with the caller's tensor
-(no copy); a split or other length, or a non-contiguous view, keeps the
-axis move; the fused plan reaches ``dfft_x_cols`` exactly when
-``_x_body(X)`` is "fft"; and the per-axis plans launch the entry points
-``chip_smoke.py`` expects.
+(no copy); a split axis runs its four-step where it lies
+(``dfft_cdft_tw_cols``, ``dfft_cdft_short``); another length, or a
+non-contiguous view, keeps the axis move; the fused plan reaches
+``dfft_x_cols`` exactly when ``_x_body(X)`` is "fft"; and the per-axis
+plans launch the entry points ``chip_smoke.py`` expects.
 """
 
 import numpy as np
@@ -193,6 +194,8 @@ def _record_launches(monkeypatch):
     monkeypatch.setattr(hf, "_check_rows", lambda *a: False)
     monkeypatch.setattr(hf, "_check", lambda *a, **k: False)
     monkeypatch.setattr(hf, "_check_cols", lambda *a: False)
+    monkeypatch.setattr(hf, "_check_short", lambda *a: False)
+    monkeypatch.setattr(hf, "_check_tw_cols", lambda *a: False)
     monkeypatch.setattr(hf, "_launch", lambda kernel, fn, *args:
                         log.append((kernel, fn, args)))
     return log
@@ -229,16 +232,17 @@ def test_strided_axis_reaches_cdft_cols_with_no_copy(monkeypatch, shape, axis,
 # ``stage`` (``dfft_stage``) whatever the checks say; on the card they
 # launch ``dfft_cdft_tw`` / ``dfft_rdft_tw``, which chip_smoke.py checks.
 @pytest.mark.parametrize("shape, axis, want", [
-    ((2048, 3, 4), 0, [("cmatmul_tw", "dfft_stage"),
-                       ("cmatmul", "dfft_stage")]),          # split 4 x 512
+    ((2048, 3, 4), 0, [("cmatmul_tw", "dfft_cdft_tw_cols"),
+                       ("cmatmul", "dfft_cdft_short")]),     # split 4 x 512
     ((3, 96, 4), 1, [("cmatmul", "dfft_stage")]),            # tile body
     ((5, 4, 3), 1, [("cmatmul", "dfft_stage")]),             # row body
     ((3, 521, 2), 1, [("cmatmul", "dfft_stage")]),           # prime
     ((4, 3, 64), 2, [("cmatmul", "dfft_cdft")]),             # last axis
 ])
 def test_other_axes_keep_their_route(monkeypatch, shape, axis, want):
-    """A split axis, a length the engine does not take, or the last axis
-    keep the route they had: no column launch."""
+    """A length the engine does not take, or the last axis, keep the route
+    they had: no column launch. A split axis (4 x 512) takes the four-step
+    where it lies: kernel 4's column body, then the short-stage body."""
     log = _record_launches(monkeypatch)
     y = hf.fft(torch.zeros(shape, dtype=torch.complex64), axis=axis)
     assert y.shape == shape
@@ -285,7 +289,8 @@ def _entries(log):
     return seen
 
 
-_COLS, _STAGE = ("cmatmul", "dfft_cdft_cols"), ("cmatmul", "dfft_stage")
+_COLS, _SHORT = ("cmatmul", "dfft_cdft_cols"), ("cmatmul", "dfft_cdft_short")
+_TW_COLS = ("cmatmul_tw", "dfft_cdft_tw_cols")
 
 
 @pytest.mark.parametrize("shape, fwd, inv", [
@@ -294,15 +299,15 @@ _COLS, _STAGE = ("cmatmul", "dfft_cdft_cols"), ("cmatmul", "dfft_stage")
     ((1024, 16, 16), {("rmatmul", "dfft_rdft"): 1, _COLS: 2},
      {_COLS: 2, ("c2r", "dfft_c2r"): 1}),
     ((2048, 8, 2048),
-     {("rmatmul_tw", "dfft_stage"): 1, ("cmatmul_tw", "dfft_stage"): 1,
-      _COLS: 1, _STAGE: 2},
-     {("cmatmul_tw", "dfft_stage"): 2, _COLS: 1, _STAGE: 2}),
+     {("rmatmul_tw", "dfft_stage"): 1, _TW_COLS: 1, _COLS: 1, _SHORT: 2},
+     {_TW_COLS: 1, ("cmatmul_tw", "dfft_stage"): 1, _COLS: 1, _SHORT: 2}),
 ])
 def test_per_axis_plans_launch_the_column_body(monkeypatch, shape, fwd, inv):
     """The per-axis 3D transforms: z on rows, y and x (where not split) on
-    the column body in place, a split axis's four-step handing the next
-    axis a contiguous tensor (its crop or its last copy written in the
-    input's layout)."""
+    the column body in place; a split x axis's four-step where it lies
+    (kernel 4's column body, the short-stage body), a split z axis's
+    second stage on the short-stage body writing the crop or the natural
+    order, so the next axis gets a contiguous tensor."""
     log = _record_launches(monkeypatch)
     c = hf.rfftn_3d(torch.zeros(shape))
     assert c.is_contiguous() and c.shape == shape[:2] + (shape[2] // 2 + 1,)

@@ -148,6 +148,118 @@ def test_cdft_cols_takes_an_8_byte_aligned_view(cuda):
     assert _rel(y, hf.cdft_cols_plain(x, 1, False)) <= 5e-4
 
 
+# Kernel 2's short-stage body (``cdft_short``): n1 from 2 to 16 (dense and
+# radix-2 DFTs); inner below a batch's width (several outer indices a
+# batch, an odd strip), above it with a ragged last group, and many
+# batches; an odd outer count; each output geometry.
+SHORT_N1 = [2, 3, 4, 5, 6, 7, 8, 12, 13, 16]
+SHORT_INNER = [3, 512, 2733]
+
+
+def _short_geometry(kind, outer, n1, inner):
+    """(input shape, geometry, output shape) of one caller's layout."""
+    if kind == "natural":
+        return ((outer, n1, inner), hf.short_last(n1, inner),
+                (outer, n1 * inner))
+    if kind == "crop":
+        n_out = n1 * inner // 2 + 1
+        return ((outer, n1, inner), hf.short_last(n1, inner, n_out),
+                (outer, n_out))
+    n2 = 8                                   # a non-last split axis
+    return ((outer * n2, n1, inner), hf.short_strided(n1, n2, inner),
+            (outer, n1 * n2, inner))
+
+
+@pytest.mark.parametrize("kind", ["natural", "crop", "strided"])
+@pytest.mark.parametrize("inner", SHORT_INNER)
+@pytest.mark.parametrize("n1", SHORT_N1)
+def test_cdft_short_kernel(cuda, n1, inner, kind):
+    shape, geom, out_shape = _short_geometry(kind, 5, n1, inner)
+    inverse = bool(n1 % 2)
+    x = _crandn(shape, 45, cuda)
+    before = hf.LAUNCHES["cmatmul"]
+    y = hf.cdft_short(x, inverse, geom, out_shape)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["cmatmul"] == before + 1
+    assert y.shape == out_shape and y.dtype == torch.complex64
+    assert _rel(y, hf.cdft_short_plain(x, inverse, geom, out_shape)) <= 5e-4
+
+
+@pytest.mark.parametrize("shape", [(1001, 4, 512), (3, 16, 70001),
+                                   (4099, 3, 1)])
+def test_cdft_short_kernel_many_batches(cuda, shape):
+    """More batches than one wave of the persistent grid."""
+    outer, n1, inner = shape
+    geom = hf.short_last(n1, inner)
+    x = _crandn(shape, 46, cuda)
+    y = hf.cdft_short(x, False, geom, (outer, n1 * inner))
+    torch.cuda.synchronize()
+    ref = hf.cdft_short_plain(x, False, geom, (outer, n1 * inner))
+    assert _rel(y, ref) <= 5e-4
+
+
+# Kernel 4's column body (``cdft_tw_cols``): every n2 up to 512, n1 = 3, 4
+# and 16, a span of one column, an odd span and one past a batch.
+@pytest.mark.parametrize("span", [1, 7, 33])
+@pytest.mark.parametrize("n1", [3, 4, 16])
+@pytest.mark.parametrize("n2", [n for n in POW2 if n <= 512])
+def test_cdft_tw_cols_kernel(cuda, n2, n1, span):
+    outer = 3
+    inverse = bool(span % 2)
+    x = _crandn((outer, n2, n1 * span), 47, cuda)
+    before = hf.LAUNCHES["cmatmul_tw"]
+    y = hf.cdft_tw_cols(x, n1, inverse)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["cmatmul_tw"] == before + 1
+    assert y.shape == x.shape and y.is_contiguous()
+    assert _rel(y, hf.cdft_tw_cols_plain(x, n1, inverse)) <= 5e-4
+
+
+@pytest.mark.parametrize("shape, axis", [((2048, 3, 5), 0), ((2, 1536, 7), 1),
+                                         ((8192, 9), 0), ((3, 4096, 2, 3), 1),
+                                         ((6144, 1, 4), 0)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_split_axis_in_place_matches_torch_fft(cuda, shape, axis, inverse):
+    """A non-last split axis: kernel 4's column body, then the short-stage
+    body writing the input's layout, one launch each."""
+    x = _crandn(shape, 48, cuda)
+    assert hf._split_in_place(x, axis)
+    before = dict(hf.LAUNCHES)
+    y = (hf.ifft if inverse else hf.fft)(x, axis=axis)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["cmatmul_tw"] == before["cmatmul_tw"] + 1
+    assert hf.LAUNCHES["cmatmul"] == before["cmatmul"] + 1
+    assert y.shape == shape and y.is_contiguous()
+    ref = (torch.fft.ifft(x, dim=axis, norm="forward") if inverse
+           else torch.fft.fft(x, dim=axis))
+    assert _rel(y, ref) <= 5e-4
+
+
+def test_split_bodies_reject_misaligned_pointers(cuda):
+    """Both entries refuse an operand that is not 8-byte aligned (a float
+    off a complex64 boundary) before launching: the wrapper raises and
+    counts nothing."""
+    x = _crandn((4, 4, 64), 49, cuda)
+    y = torch.empty_like(x)
+    before = dict(hf.LAUNCHES)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        hf._launch("cmatmul", "dfft_cdft_short", x.data_ptr() + 4,
+                   hf._short_roots(4, False, cuda), y, 4, 4, 64, 1, 0,
+                   256, 0, 64, 256)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        hf._launch("cmatmul_tw", "dfft_cdft_tw_cols", x,
+                   hf._fft_table(8, False, cuda),
+                   *hf._twiddle_planes(4, 8, False, cuda), y.data_ptr() + 4,
+                   4, 8, 32, 4, hf.fft_plan(8, False).schedule, 0)
+    assert hf.LAUNCHES == before
+    with pytest.raises(ValueError):
+        hf.cdft_short(x, False, hf.short_last(4, 64), (4, 255))  # too small
+    with pytest.raises(ValueError):
+        hf.cdft_tw_cols(x.reshape(4, 8, 32), 3, False)          # 3 !| 32
+    with pytest.raises(ValueError):
+        hf.cdft_tw_cols(x.reshape(1, 1024, 1), 1, False)        # n2 > 512
+
+
 @pytest.mark.parametrize("shape", SHAPES + ZY_FFT_SHAPES)
 def test_yz_inv_kernel(cuda, shape):
     """Both bodies of kernel 8 (``hf._zy_body``): three launches on the FFT
