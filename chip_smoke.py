@@ -47,14 +47,29 @@ once, before any rank is spawned) and then, under
    of its dispatch (copies, transposes: every aten op with device time)
    take more than its limit in either direction: ``COPY_LIMIT_MS`` at
    1024^3, and at 2048 x 256 x 2048 the limits ``split_copy_limits``
-   computes from the bytes of the copies that remain.
+   computes from the bytes of the copies that remain;
+5. runs the port's executables in this process, as a user would call them
+   (``cli.slab.main`` / ``cli.reference.main``): the slab executable's
+   testcases 0-4 at 1024^3 (the per-axis kernels) and testcases 0 and 4 at
+   512^3 (the fused kernels) under "pallas" and "xla", testcase 1 with the
+   host's float64 truth at 128^3, the reference executable's testcase 0 at
+   512^3; then, as two spawned ranks over gloo, the slab executable at
+   512^3 over both exchanges (Peer2Peer and All2All, testcases 3 and 0),
+   the renderings' bit equality and the reference executable's bandwidth
+   probe. Each run's launches and entry points are counted from zero and
+   held against the plan phases'; testcases 1 and 3 hold within TOL of
+   their reference magnitude, testcase 4 too or, where float32 cannot,
+   within twice cuFFT's error (``gate_cli_results``); every phase CSV
+   parses with the port's reader, and its means stand beside
+   ``plan_time``'s.
 
 Phases print JSON lines. Before the last line come one ``{"kernels": ...}``
 line and the card's name and power limit as ``nvidia-smi`` gives them; the
 last line is ``{"ok": true, "device": {...}}``. Any failed phase raises, so
 the script exits non-zero with no result line; so does a machine without a
-CUDA device, or a directory without the port. Takes about 85-110 s on an
-H100, the kernels' build (25-45 s) included.
+CUDA device, or a directory without the port. Takes about 170-190 s on
+an H100, the kernels' build (25-55 s) and the executables' phase (about
+50 s, most of it the host's random draws at 1024^3) included.
 """
 
 from __future__ import annotations
@@ -907,6 +922,16 @@ def check_wire(torch, k, got, ref):
     return 0.0, 0.0
 
 
+# The 512^3 fused plan, per direction: launches and entry points. Kernels
+# 6 and 8 on their FFT bodies (three passes each), kernel 7 on its column
+# body; the dense kernels never. Any cube of powers of two in [8, 512]
+# runs the same.
+FUSED_PATH = (dict(zy_fwd=3, x_c2c=1), dict(x_c2c=1, yz_inv=3),
+              {"dfft_zy_rows": 1, "dfft_zy_cols": 1, "dfft_zy_planes": 1,
+               "dfft_x_cols": 1},
+              {"dfft_x_cols": 1, "dfft_yz_scratch": 1, "dfft_yz_cols": 1,
+               "dfft_yz_rows": 1})
+
 # The single-card per-axis paths under "pallas": id -> (shape, launches
 # forward, launches inverse, C entry points forward, inverse, the limits
 # of the dispatch's aten ops in ms, forward and inverse). At 1024^3 every
@@ -945,7 +970,7 @@ def per_axis_path(torch, dft, hf, gen, pid, shape, want_f, want_i, ent_f_want,
     the input, then times under "pallas" and "xla", the kernel share of
     each direction and its profile, whose aten ops (the dispatch's copies)
     must stay within ``copy_limits_ms`` (forward, inverse). Returns the
-    launches of the roundtrip."""
+    launches of the roundtrip and the plan's times."""
     torch.cuda.reset_peak_memory_stats()
     xb = torch.randn(shape, generator=gen, device="cuda")
     big = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
@@ -1008,7 +1033,330 @@ def per_axis_path(torch, dft, hf, gen, pid, shape, want_f, want_i, ent_f_want,
                  f"ms, busy {prof['busy_ms']})")
     del xb, cb, big, xla_big
     torch.cuda.empty_cache()
-    return {k: fwd[k] + inv[k] for k in fwd}
+    return {k: fwd[k] + inv[k] for k in fwd}, timed
+
+
+# ---------------------------------------------------------------------------
+# The executables: the port's slab and reference CLIs, run in-process
+# ---------------------------------------------------------------------------
+
+CLI_N = (NBIG, N)     # the cubes the slab executable runs on one card
+CLI_HOST_TRUTH_N = 128  # testcase 1's host truth: a float64 numpy cube
+# Testcase -> (arguments, CSV blocks, forward runs, inverse runs): the
+# executable runs each direction once as stages and once as the plan's
+# exec_* (the "Run complete (fused)" mark), warm-ups included.
+CLI_CASES = {
+    0: (["-t", "0", "-i", "5", "-w", "2"], 5, 14, 0),
+    2: (["-t", "2", "-i", "5", "-w", "2"], 5, 0, 14),
+    3: (["-t", "3", "-i", "3", "-w", "1"], 3, 8, 8),
+    4: (["-t", "4", "-i", "3", "-w", "1"], 3, 8, 8),
+    1: (["-t", "1", "--tc1-truth", "analytic"], 1, 1, 0),
+}
+# The two-rank runs: (arguments, CSV blocks, forward runs, inverse runs).
+CLI_RANK_CASES = {3: (["-t", "3"], 1, 2, 2),
+                  0: (["-t", "0", "-i", "3", "-w", "1"], 3, 8, 0)}
+
+
+def scaled(want_f, k_f, want_i, k_i):
+    """Launch (or entry-point) counts of k_f forwards and k_i inverses."""
+    keys = set(want_f) | set(want_i)
+    out = {k: k_f * want_f.get(k, 0) + k_i * want_i.get(k, 0) for k in keys}
+    return {k: v for k, v in out.items() if v}
+
+
+def cli_run(torch, hf, main, argv):
+    """Run an executable's ``main(argv)`` in this process with the launch
+    counts set to 0 just before and read just after: (printed text,
+    launches, C entry points, seconds). A non-zero exit code fails."""
+    import io
+    buf = io.StringIO()
+    hf.reset_launches()
+    t0 = time.perf_counter()
+    with entry_counts(hf) as ent, contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{argv} exited with {rc}: {buf.getvalue()}")
+    return buf.getvalue(), dict(hf.LAUNCHES), dict(ent), seconds
+
+
+def printed(text: str, key: str) -> float:
+    """The number the executable printed after ``key``."""
+    for line in text.splitlines():
+        if line.startswith(key):
+            return float(line[len(key):].split()[0])
+    fail(f"no {key!r} in the executable's output: {text!r}")
+
+
+def cli_csv(bdir, sections, blocks_want, ranks):
+    """The one CSV an executable wrote under ``bdir``: (file name, mean "Run
+    complete" ms, mean fused ms) of rank 0's column, after checking it
+    parses with the port's reader into ``blocks_want`` blocks of
+    ``sections``, each with ``ranks`` columns."""
+    import glob
+    from distributedfft_tpu_torch.testing.testcases import FUSED_DESC
+    from distributedfft_tpu_torch.utils.timer import read_timer_csv
+    paths = glob.glob(os.path.join(bdir, "*", "*.csv"))
+    if len(paths) != 1:
+        fail(f"expected one CSV under {bdir}, found {paths}")
+    with open(paths[0]) as f:
+        header = f.readline().rstrip("\n")
+    blocks = read_timer_csv(paths[0])
+    if header != "," + "".join(f"{r}," for r in range(ranks)) or \
+            len(blocks) != blocks_want or \
+            any(list(b) != sections or any(len(v) != ranks
+                                           for v in b.values())
+                for b in blocks):
+        fail(f"{paths[0]}: header {header!r}, {len(blocks)} blocks "
+             f"(expected {blocks_want} of {sections} with {ranks} columns)")
+    run = [b["Run complete"][0] for b in blocks]
+    fused = [b[FUSED_DESC][0] - b["Run complete"][0] for b in blocks]
+    return (os.path.relpath(paths[0], bdir), statistics.mean(run),
+            statistics.mean(fused) if blocks_want and fused[0] > 0 else None)
+
+
+def cli_result(tc: int, text: str, n_total: int, truth_asum: float):
+    """Testcases 1, 3 and 4: (the printed result, the result over its
+    reference magnitude: the truth's asum, N, 3 sqrt(N))."""
+    if tc == 1:
+        val, scale = printed(text, "Result "), truth_asum
+    elif tc == 3:
+        val, scale = printed(text, "Result (max): "), float(n_total)
+    elif tc == 4:
+        val, scale = printed(text, "Result (max): "), 3 * math.sqrt(n_total)
+    else:
+        return None, None
+    if not math.isfinite(val):
+        fail(f"testcase {tc} printed {val}")
+    return val, val / scale
+
+
+def gate_cli_results(rows):
+    """Testcases 1 and 3 within TOL of their reference magnitude. Testcase
+    4 too, or, where float32 cannot reach TOL with any FFT (its Laplacian
+    symbol multiplies the forward's rounding noise by up to 3 (n/2)^2 /
+    sqrt(N), so its error over 3 sqrt(N) grows about fivefold a doubling of
+    n), no worse than twice the error of cuFFT ("xla") on the same cube."""
+    cufft = {(r["n"], r["testcase"]): r["result"] for r in rows
+             if r.get("result") is not None and r["backend"] == "xla"}
+    for r in rows:
+        if r.get("result") is None:
+            continue
+        r["gate"] = "tol"
+        if r["result_rel"] > TOL:
+            ref = cufft.get((r["n"], r["testcase"]))
+            if r["testcase"] != 4 or ref is None or r["result"] > 2 * ref:
+                fail(f"slab {r['argv']}: result {r['result']} ({r['result_rel']}"
+                     f" of its reference magnitude; cuFFT's {ref})")
+            r["gate"] = f"2 x cufft ({ref})"
+
+
+def cli_single_card(torch, dft, hf, plan_times):
+    """The slab executable at 1024^3 and 512^3 on one card (testcases 0-4
+    under "pallas" and "xla"), testcase 1's host truth at 128^3, and the
+    reference executable's testcase 0 at 512^3: launches and entry points
+    against the plan phases', results within TOL of their reference
+    magnitude, every CSV parsed. Returns (launches by path, rows)."""
+    from distributedfft_tpu_torch.cli import reference as cli_ref
+    from distributedfft_tpu_torch.cli import slab as cli_slab
+    from distributedfft_tpu_torch.testing import testcases as tcs
+
+    paths = {NBIG: PER_AXIS_PATHS["per_axis_1024"][1:5],
+             N: FUSED_PATH, CLI_HOST_TRUTH_N: FUSED_PATH}
+    runs = [(n, tc) for n in CLI_N for tc in ((0, 2, 3, 4, 1) if n == NBIG
+                                              else (0, 4))]
+    runs.append((CLI_HOST_TRUTH_N, 1))
+    launches, rows = {}, []
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    sections = tcs.make_plan("slab", dft.GlobalSize(N, N, N), dft.SlabPartition(1), None,
+                             device="cuda").section_descriptions
+    for be in ("pallas", "xla"):
+        for n, tc in runs:
+            args, blocks, k_f, k_i = CLI_CASES[tc]
+            host_truth = n == CLI_HOST_TRUTH_N
+            if host_truth:
+                args = ["-t", "1"]
+            bdir = os.path.join(root, f"{be}_{n}_{tc}")
+            argv = ["-nx", str(n), "-ny", str(n), "-nz", str(n), "-comm",
+                    "All2All", "--fft-backend", be, "-b", bdir] + args
+            text, got, ent, secs = cli_run(torch, hf, cli_slab.main, argv)
+            want_f, want_i, ent_f, ent_i = paths[n]
+            want = scaled(want_f, k_f, want_i, k_i) if be == "pallas" else {}
+            ent_want = scaled(ent_f, k_f, ent_i, k_i) if be == "pallas" \
+                else {}
+            if got != expect(hf, **want) or ent != ent_want:
+                fail(f"slab {argv}: launches {got} (entries {ent}), "
+                     f"expected {want} ({ent_want})")
+            truth = n ** 3 / 2
+            if host_truth:
+                plan = tcs.make_plan("slab", dft.GlobalSize(n, n, n), dft.SlabPartition(1), None,
+                                     device="cuda")
+                truth = float(np.abs(tcs.reference_spectrum(
+                    plan, tcs.random_real_input(plan).astype(np.float64))
+                ).sum())
+            val, rel = cli_result(tc, text, n ** 3, truth)
+            name, run_ms, fused_ms = cli_csv(bdir, sections, blocks, 1)
+            launches[f"cli_slab_{be}_{n}_t{tc}"] = got
+            rows.append(dict(executable="slab", backend=be, n=n, testcase=tc,
+                             argv=argv, seconds=secs, csv=name,
+                             run_complete_ms=run_ms, fused_ms=fused_ms,
+                             result=val, result_rel=rel,
+                             printed=text.strip().splitlines()[-3:],
+                             entries=ent))
+            emit(phase="cli", **rows[-1])
+            torch.cuda.empty_cache()
+        argv = ["-nx", str(N), "-ny", str(N), "-nz", str(N), "-t", "0",
+                "-i", "5", "-w", "2", "--fft-backend", be]
+        text, got, ent, secs = cli_run(torch, hf, cli_ref.main, argv)
+        want_f, _, ent_f, _ = FUSED_PATH
+        want = scaled(want_f, 7, {}, 0) if be == "pallas" else {}
+        ent_want = scaled(ent_f, 7, {}, 0) if be == "pallas" else {}
+        if got != expect(hf, **want) or ent != ent_want:
+            fail(f"reference {argv}: launches {got} (entries {ent})")
+        launches[f"cli_reference_{be}_{N}_t0"] = got
+        rows.append(dict(executable="reference", backend=be, n=N, testcase=0,
+                         argv=argv, seconds=secs,
+                         run_complete_ms=printed(text, "Run complete: "),
+                         printed=text.strip().splitlines(), entries=ent))
+        emit(phase="cli", **rows[-1])
+        torch.cuda.empty_cache()
+    gate_cli_results(rows)
+    emit(phase="cli_results", rows=[
+        {k: r.get(k) for k in ("backend", "n", "testcase", "result",
+                               "result_rel", "gate")}
+        for r in rows if r.get("result") is not None])
+    # The executables' means beside the plan phases' medians, same plans:
+    # testcase 0 is the forward, testcase 2 the inverse (reported only).
+    table = []
+    for r in rows:
+        pid = {NBIG: "per_axis_1024", N: "fused_512"}.get(r["n"])
+        d = {0: "forward", 2: "inverse"}.get(r["testcase"])
+        if pid in plan_times and d:
+            ref = plan_times[pid][f"{r['backend']}_{d}_ms"]
+            got = r["fused_ms"] if r["executable"] == "slab" else \
+                r["run_complete_ms"]
+            table.append(dict(executable=r["executable"], n=r["n"],
+                              backend=r["backend"], direction=d,
+                              run_complete_ms=r["run_complete_ms"],
+                              fused_ms=r.get("fused_ms"),
+                              plan_time_ms=ref, ratio=got / ref))
+    emit(phase="cli_vs_plan_time", rows=table)
+    return launches, rows
+
+
+def xla_inverse_probe(torch, dft):
+    """cuFFT's ("xla") 1024^3 inverse on testcase 2's kind of input (a
+    uniform random spectrum, not Hermitian) and on a forward's output, in
+    turns in one process: whether the inverse's time depends on its input
+    or on the run before it."""
+    from distributedfft_tpu_torch.testing import testcases as tcs
+    plan = tcs.make_plan("slab", dft.GlobalSize(NBIG, NBIG, NBIG), dft.SlabPartition(1), dft.Config(),
+                         device="cuda")
+    spec = plan.output_shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    c_fwd = plan.exec_r2c(torch.rand(plan.input_shape, generator=gen,
+                                     device="cuda"))
+    c_rand = torch.complex(torch.rand(spec, generator=gen, device="cuda"),
+                           torch.rand(spec, generator=gen, device="cuda"))
+    out = {}
+    for name, c in (("random", c_rand), ("forward_output", c_fwd),
+                    ("random_again", c_rand), ("forward_output_again", c_fwd)):
+        out[f"{name}_ms"] = median_ms(torch, lambda: plan.exec_c2r(c),
+                                      REPS_BIG, 1)
+    emit(phase="cli_xla_inverse_probe", n=NBIG, reps=REPS_BIG, **out)
+    del c_fwd, c_rand, plan
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_rank_main(rank: int, addr: str, outdir: str) -> None:
+    """One of the two ranks of the executables' phase: the slab executable
+    at 512^3 over both exchanges (testcases 3 and 0), the renderings' bit
+    equality, and the reference executable's bandwidth probe."""
+    import torch
+    import torch.distributed as dist
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.cli import reference as cli_ref
+    from distributedfft_tpu_torch.cli import slab as cli_slab
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.parallel import multihost
+    from distributedfft_tpu_torch.testing import testcases as tcs
+
+    torch.cuda.set_device(0)
+    multihost.maybe_initialize(addr, RANKS, rank, backend="gloo",
+                               timeout_s=300)
+    out = {"rank": rank, "runs": [], "launches": {}}
+    sections = tcs.make_plan("slab", dft.GlobalSize(N, N, N), dft.SlabPartition(1), None,
+                             device="cuda").section_descriptions
+    for comm in ("Peer2Peer", "All2All"):
+        for tc, (args, blocks, k_f, k_i) in CLI_RANK_CASES.items():
+            bdir = os.path.join(outdir, f"{comm}_t{tc}")
+            argv = ["-nx", str(N), "-ny", str(N), "-nz", str(N), "-p",
+                    str(RANKS), "-comm", comm, "--fft-backend", "pallas",
+                    "-b", bdir] + args
+            text, got, ent, secs = cli_run(torch, hf, cli_slab.main, argv)
+            want = scaled(dict(rmatmul=1, cmatmul=2), k_f,
+                          dict(cmatmul=2, c2r=1), k_i)
+            ent_want = scaled(A2A_ENTRIES[0], k_f, A2A_ENTRIES[1], k_i)
+            if got != expect(hf, **want) or ent != ent_want:
+                fail(f"rank {rank} slab {argv}: launches {got} (entries "
+                     f"{ent}), expected {want} ({ent_want})")
+            out["launches"][f"cli_slab_{comm}_{N}_t{tc}"] = got
+            row = dict(comm=comm, testcase=tc, argv=argv, seconds=secs,
+                       entries=ent)
+            dist.barrier()      # rank 0 has written the CSV
+            if rank == 0:
+                val, rel = cli_result(tc, text, N ** 3, 0.0)
+                if rel is not None and rel > TOL:
+                    fail(f"rank 0 slab {argv}: {val} is {rel} of N")
+                name, run_ms, fused_ms = cli_csv(bdir, sections, blocks,
+                                                 RANKS)
+                row.update(csv=name, run_complete_ms=run_ms,
+                           fused_ms=fused_ms, result=val, result_rel=rel,
+                           printed=text.strip().splitlines())
+            out["runs"].append(row)
+            torch.cuda.empty_cache()
+    # The renderings of one exchange, bit for bit: PEER2PEER + SYNC and
+    # ALL2ALL + MPI_TYPE against ALL2ALL + SYNC.
+    res = {}
+    for rid, comm, snd in (("a2a_sync", "All2All", "Sync"),
+                           ("p2p_sync", "Peer2Peer", "Sync"),
+                           ("a2a_mpi_type", "All2All", "MPI_Type")):
+        plan = tcs.make_plan("slab", dft.GlobalSize(N, N, N), dft.SlabPartition(RANKS),
+                             dft.Config(comm_method=dft.CommMethod.parse(comm),
+                                        send_method=dft.SendMethod.parse(snd),
+                                        fft_backend="pallas"), device="cuda")
+        xl = plan.pad_input(tcs.random_real_input(plan))
+        c = plan.exec_r2c(xl)
+        res[rid] = (c, plan.exec_c2r(c))
+        del plan, xl
+    for rid in ("p2p_sync", "a2a_mpi_type"):
+        ok = all(torch.equal(g, w) for g, w in zip(res[rid], res["a2a_sync"]))
+        out[f"{rid}_equals_a2a_sync"] = ok
+        if not ok:
+            fail(f"rank {rank}: {rid} is not bit-equal to All2All + Sync")
+    del res
+    torch.cuda.empty_cache()
+    for o in ("0", "1"):
+        argv = ["-nx", str(N), "-ny", str(N), "-nz", str(N), "-t", "1",
+                "-o", o, "-i", "3", "-w", "1"]
+        text, got, ent, secs = cli_run(torch, hf, cli_ref.main, argv)
+        if any(got.values()):
+            fail(f"rank {rank} reference {argv} launched kernels: {got}")
+        if rank == 0:
+            line = next(ln for ln in text.splitlines()
+                        if ln.startswith("Bandwidth: "))
+            want = "isend" if o == "0" else "all_to_all_single"
+            if want not in line:
+                fail(f"reference -o {o}: {line}")
+            out[f"reference_t1_o{o}"] = dict(
+                argv=argv, seconds=secs, printed=line,
+                mb_per_s=printed(text, "Bandwidth: "))
+    with open(os.path.join(outdir, f"cli_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    multihost.shutdown()
 
 
 def main() -> int:
@@ -1187,14 +1535,9 @@ def main() -> int:
          launches_inverse=inv, entries_forward=entries,
          entries_inverse=entries_inv,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    # Kernels 6 and 8 on their FFT bodies (three passes each), kernel 7 on
-    # its column body; the dense kernels never.
-    if fwd != expect(hf, zy_fwd=3, x_c2c=1) or \
-            inv != expect(hf, x_c2c=1, yz_inv=3) or \
-            entries != {"dfft_zy_rows": 1, "dfft_zy_cols": 1,
-                        "dfft_zy_planes": 1, "dfft_x_cols": 1} or \
-            entries_inv != {"dfft_x_cols": 1, "dfft_yz_scratch": 1,
-                            "dfft_yz_cols": 1, "dfft_yz_rows": 1}:
+    want_f, want_i, ent_f_want, ent_i_want = FUSED_PATH
+    if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i) or \
+            entries != ent_f_want or entries_inv != ent_i_want:
         fail(f"main path did not launch each kernel as expected: forward "
              f"{fwd} (entries {entries}), inverse {inv} (entries "
              f"{entries_inv})")
@@ -1228,11 +1571,13 @@ def main() -> int:
     xla = dft.SlabFFTPlan(dft.GlobalSize(N, N, N), dft.SlabPartition(1),
                           dft.Config())
     cp, cx = plan.exec_r2c(x), xla.exec_r2c(x)
+    plan_times = {"fused_512": dict(
+        pallas_forward_ms=median_ms(torch, lambda: plan.exec_r2c(x)),
+        pallas_inverse_ms=median_ms(torch, lambda: plan.exec_c2r(cp)),
+        xla_forward_ms=median_ms(torch, lambda: xla.exec_r2c(x)),
+        xla_inverse_ms=median_ms(torch, lambda: xla.exec_c2r(cx)))}
     emit(phase="plan_time", path="fused_512", shape=[N, N, N],
-         pallas_forward_ms=median_ms(torch, lambda: plan.exec_r2c(x)),
-         pallas_inverse_ms=median_ms(torch, lambda: plan.exec_c2r(cp)),
-         xla_forward_ms=median_ms(torch, lambda: xla.exec_r2c(x)),
-         xla_inverse_ms=median_ms(torch, lambda: xla.exec_c2r(cx)),
+         **plan_times["fused_512"],
          forward_profile=device_profile(torch, lambda: plan.exec_r2c(x)),
          inverse_profile=device_profile(torch, lambda: plan.exec_c2r(cp)))
     del x, x480, pr, pi, pc, pr480, pi480, pc480, xr480, xi480, cp, cx, plan, \
@@ -1300,7 +1645,8 @@ def main() -> int:
 
     # -- 7. the single-card per-axis plans -----------------------------------
     for pid, spec in PER_AXIS_PATHS.items():
-        launches[pid] = per_axis_path(torch, dft, hf, gen, pid, *spec)
+        launches[pid], plan_times[pid] = per_axis_path(torch, dft, hf, gen,
+                                                       pid, *spec)
 
     # -- 8. the 512^3 plan as two ranks sharing the card over gloo -----------
     import torch.multiprocessing as tmp
@@ -1340,6 +1686,23 @@ def main() -> int:
                               wire_bytes_per_rank=row["wire_bytes_per_rank"])
         emit(phase="exchange", rank=rk["rank"],
              transport=rk["ring"]["transport"], renderings=table)
+
+    # -- 8b. the executables: slab and reference, on one card and two ranks -
+    t0 = time.perf_counter()
+    cli_launches, cli_rows = cli_single_card(torch, dft, hf, plan_times)
+    launches.update(cli_launches)
+    xla_inverse_probe(torch, dft)
+    tmp.spawn(cli_rank_main, args=(multihost.local_coordinator(), outdir),
+              nprocs=RANKS, join=True)
+    cli_ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(outdir, f"cli_rank{r}.json")) as f:
+            cli_ranks.append(json.load(f))
+    for name, v in cli_ranks[0]["launches"].items():
+        launches[f"{name}_rank0"] = v
+    emit(phase="cli_ranks", ranks=RANKS,
+         exchange="gloo, host-staged, 2 ranks on 1 card", per_rank=cli_ranks)
+    emit(phase="cli_done", seconds=time.perf_counter() - t0)
 
     # -- 9. the kernels line, the card, the result ---------------------------
     def total_launches(name):

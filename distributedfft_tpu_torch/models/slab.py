@@ -8,14 +8,21 @@ then the pre axes), pads the split axis to a multiple of P, and one
 exchange scatters the split axis and gathers x; then the post axes run.
 The inverse runs the same steps backwards.
 
-The exchange is rendered as one all-to-all (ALL2ALL + SYNC) or as a ring
-of point-to-point steps (``SendMethod.RING`` / ``RING_OVERLAP``; the ring
+The exchange is rendered as one all-to-all (ALL2ALL + SYNC), as a send
+and a receive to every peer posted at once (PEER2PEER + SYNC; the same
+result bit for bit; MPI_TYPE is SYNC's alias) or as a ring of
+point-to-point steps (``SendMethod.RING`` / ``RING_OVERLAP``; the ring
 owns the exchange whatever ``comm_method`` says, as in the JAX package).
 On a ring, the post-exchange transforms that do not run along the gathered
 axis run on each peer block as it arrives. Either rendering takes
 ``wire_dtype="bf16"``; on a ring ``fused_wire`` swaps the wire boundary
 for the kernels of ``ops/hopper_fft.py`` (encode; decode, or decode fused
 with the first per-block DFT).
+
+The staged surface (``forward_stages`` / ``inverse_stages``,
+``section_descriptions``, ``variant_name``) splits each direction into the
+reference's timed phases for the phase ``Timer`` (``utils/timer.py``) of
+the testcases.
 
 With one rank (``SlabPartition(1)``) the plan takes the single-device path
 instead: one local 3D transform per direction. Under
@@ -56,7 +63,8 @@ from ..ops import fft as lf
 from ..ops import hopper_fft as hf
 from ..parallel.mesh import make_slab_group
 from ..parallel.transpose import (all_to_all_transpose, pad_axis_to,
-                                  ring_transpose, slice_axis_to)
+                                  peer_to_peer_transpose, ring_transpose,
+                                  slice_axis_to)
 from ..utils.native_planner import even_shard_sizes, padded_extent
 from .base import DistFFTPlan, Pipeline
 
@@ -82,15 +90,6 @@ _SEQS = {
 }
 
 
-def _parse_sequence(sequence) -> pm.SlabSequence:
-    if isinstance(sequence, pm.SlabSequence):
-        return sequence
-    for s in pm.SlabSequence:
-        if sequence in (s.value, s.name):
-            return s
-    raise ValueError(f"unknown slab sequence: {sequence!r}")
-
-
 class SlabFFTPlan(DistFFTPlan):
     """3D R2C/C2R (or C2C) FFT plan with 1D (slab) decomposition over x."""
 
@@ -100,7 +99,7 @@ class SlabFFTPlan(DistFFTPlan):
                  sequence: "pm.SlabSequence | str" = pm.SlabSequence.ZY_THEN_X):
         if transform not in ("r2c", "c2c"):
             raise ValueError(f"transform must be 'r2c' or 'c2c', got {transform!r}")
-        sequence = _parse_sequence(sequence)
+        sequence = pm.SlabSequence.parse(sequence)
         P = partition.p
         if P == 1 and sequence is pm.SlabSequence.Y_THEN_ZX:
             # The JAX plan declares a y-halved output here but its single-
@@ -142,8 +141,9 @@ class SlabFFTPlan(DistFFTPlan):
 
     def _check_rendering(self) -> None:
         """The exchange renderings this slice has: a ring (RING or
-        RING_OVERLAP, with depth, sub-blocks and the fused wire), or ALL2ALL
-        + SYNC at opt 0; either with the native or the bf16 wire."""
+        RING_OVERLAP, with depth, sub-blocks and the fused wire), or, at opt
+        0, ALL2ALL or PEER2PEER with a SYNC send (MPI_TYPE is its alias);
+        any of them with the native or the bf16 wire."""
         cfg = self.config
         if cfg.send_method.is_ring:
             return      # the ring owns the exchange (comm_method, opt inert)
@@ -151,18 +151,19 @@ class SlabFFTPlan(DistFFTPlan):
             raise NotImplementedError(
                 f"opt {cfg.opt} (the realigned exchange) is not ported yet "
                 f"({_SLAB_ITEM})")
+        a2a = cfg.comm_method is pm.CommMethod.ALL2ALL
         for what, ok in (
-                (f"comm_method {cfg.comm_method.value}",
-                 cfg.comm_method is pm.CommMethod.ALL2ALL),
                 (f"send_method {cfg.send_method.value}",
-                 cfg.send_method is pm.SendMethod.SYNC),
+                 cfg.send_method in (pm.SendMethod.SYNC,
+                                     pm.SendMethod.MPI_TYPE)),
                 (f"overlap_subblocks {cfg.overlap_subblocks} (the pipelined "
-                 f"all-to-all)", cfg.resolved_overlap_subblocks() <= 1)):
+                 f"all-to-all)",
+                 not a2a or cfg.resolved_overlap_subblocks() <= 1)):
             if not ok:
                 raise NotImplementedError(
                     f"{what} is not ported yet ({_RENDERINGS_ITEM}); the "
                     f"port's distributed slab runs RING / RING_OVERLAP, or "
-                    f"ALL2ALL + SYNC at opt 0")
+                    f"ALL2ALL / PEER2PEER + SYNC at opt 0")
 
     # -- shapes & size tables ---------------------------------------------
 
@@ -340,6 +341,14 @@ class SlabFFTPlan(DistFFTPlan):
                     depth=cfg.resolved_overlap_depth(),
                     subblocks=cfg.resolved_overlap_subblocks())
 
+    def _exchange(self):
+        """The monolithic exchange of a SYNC / MPI_TYPE send: one all-to-all
+        (ALL2ALL) or a send and a receive to every peer (PEER2PEER); both
+        give the same result bit for bit."""
+        if self.config.comm_method is pm.CommMethod.PEER2PEER:
+            return peer_to_peer_transpose
+        return all_to_all_transpose
+
     def _ring_pipe(self, axes: Tuple[int, ...], inverse: bool = False):
         """Shape-preserving per-block FFTs over ``axes`` (None when
         empty: the ring then runs no per-block stage)."""
@@ -414,10 +423,11 @@ class SlabFFTPlan(DistFFTPlan):
                                       encode_fn=enc_fn, arrive_fn=arr_fn,
                                       **kw)
         else:
-            rest, wire = s.post_axes, cfg.wire_dtype
+            rest, wire, exchange = s.post_axes, cfg.wire_dtype, \
+                self._exchange()
 
             def xpose(cl: torch.Tensor) -> torch.Tensor:
-                return all_to_all_transpose(cl, group, sa, 0, wire=wire)
+                return exchange(cl, group, sa, 0, wire=wire)
 
         def last(cl: torch.Tensor) -> torch.Tensor:
             # Drop the zero pad rows of x before transforming along it.
@@ -462,10 +472,10 @@ class SlabFFTPlan(DistFFTPlan):
                                       **kw)
         else:
             after, r2c_last = tuple(reversed(s.pre_axes)), True
-            wire = cfg.wire_dtype
+            wire, exchange = cfg.wire_dtype, self._exchange()
 
             def xpose(cl: torch.Tensor) -> torch.Tensor:
-                return all_to_all_transpose(cl, group, 0, sa, wire=wire)
+                return exchange(cl, group, 0, sa, wire=wire)
 
         def last(cl: torch.Tensor) -> torch.Tensor:
             # Drop the pad lanes of the split axis before inverting along
@@ -495,3 +505,81 @@ class SlabFFTPlan(DistFFTPlan):
                     else self._fft3d_c2r())
         first, xpose, last = self._inv_parts()
         return lambda cl: last(xpose(first(cl)))
+
+    # -- per-phase staged execution (the phase Timer's surface) -------------
+
+    @property
+    def variant_name(self) -> str:
+        """The benchmark directory of this sequence's CSVs."""
+        return {
+            pm.SlabSequence.ZY_THEN_X: "slab_default",
+            pm.SlabSequence.Z_THEN_YX: "slab_z_then_yx",
+            pm.SlabSequence.Y_THEN_ZX: "slab_y_then_zx",
+        }[self.sequence]
+
+    @property
+    def section_descriptions(self) -> List[str]:
+        """The reference's phase vocabulary for this sequence (slab default:
+        ``include/mpicufft_slab.hpp:209-223``; z_then_yx: ``:121-134``;
+        y_then_zx: ``:107-109``), plus "Run complete (fused)": the mark
+        after one more call of ``exec_*``, so a CSV carries the staged
+        phases and the plan's own time. Phases the port does not time
+        (packing, the first send) stay 0 in the CSV."""
+        first, last = self._stage_descs()
+        xpose = ["Transpose (First Send)", "Transpose (Packing)",
+                 "Transpose (Start Local Transpose)",
+                 "Transpose (Start Receive)", "Transpose (First Receive)",
+                 "Transpose (Finished Receive)", "Transpose (Start All2All)",
+                 "Transpose (Finished All2All)", "Transpose (Unpacking)"]
+        if self.sequence is pm.SlabSequence.ZY_THEN_X:
+            return ["init", "2D FFT (Sync)", first] + xpose + [
+                last, "Run complete", "Run complete (fused)"]
+        if self.sequence is pm.SlabSequence.Y_THEN_ZX:
+            return ["init", first, "Transpose (First Send)",
+                    "Transpose (Packing)", "Transpose (Start Local Transpose)",
+                    "Transpose (Start Receive)", "Transpose (Finished Receive)",
+                    last, "Run complete", "Run complete (fused)"]
+        return ["init", first] + xpose + [last, "Run complete",
+                                          "Run complete (fused)"]
+
+    def _stage_descs(self) -> Tuple[str, str]:
+        return {
+            pm.SlabSequence.ZY_THEN_X: ("2D FFT Y-Z-Direction",
+                                        "1D FFT X-Direction"),
+            pm.SlabSequence.Z_THEN_YX: ("1D FFT Z-Direction",
+                                        "2D FFT Y-X-Direction"),
+            pm.SlabSequence.Y_THEN_ZX: ("1D FFT Y-Direction",
+                                        "2D FFT Z-X-Direction"),
+        }[self.sequence]
+
+    def _xpose_desc(self) -> str:
+        # The reference's y_then_zx list has no All2All markers: its
+        # exchange time stays under the receive marker for either method.
+        if self.sequence is pm.SlabSequence.Y_THEN_ZX:
+            return "Transpose (Finished Receive)"
+        return ("Transpose (Finished All2All)"
+                if self.config.comm_method is pm.CommMethod.ALL2ALL
+                else "Transpose (Finished Receive)")
+
+    def _whole(self, forward: bool):
+        if self.transform == "c2c":
+            return self.exec_c2c if forward else self.exec_c2c_inv
+        return self.exec_r2c if forward else self.exec_c2r
+
+    def forward_stages(self) -> List[Tuple[Optional[str], Pipeline]]:
+        """``[(phase, fn)]`` whose composition is the forward transform of a
+        local block: the pre-exchange FFTs, the exchange, the post-exchange
+        FFTs. One rank: the whole transform, untimed by phase."""
+        if self.fft3d:
+            return [(None, self._whole(True))]
+        first, xpose, last = self._fwd_parts()
+        d1, d2 = self._stage_descs()
+        return [(d1, first), (self._xpose_desc(), xpose), (d2, last)]
+
+    def inverse_stages(self) -> List[Tuple[Optional[str], Pipeline]]:
+        """``forward_stages`` of the inverse transform."""
+        if self.fft3d:
+            return [(None, self._whole(False))]
+        first, xpose, last = self._inv_parts()
+        d1, d2 = self._stage_descs()
+        return [(d2, first), (self._xpose_desc(), xpose), (d1, last)]

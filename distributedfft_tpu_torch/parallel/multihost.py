@@ -91,6 +91,13 @@ def maybe_initialize(coordinator_address: Optional[str] = None,
     return dist.get_rank(), dist.get_world_size()
 
 
+def world() -> Tuple[int, int]:
+    """(rank, world size) of this process; (0, 1) outside a world."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def shutdown() -> None:
     """Leave the world joined by ``maybe_initialize`` (``MPI_Finalize``)."""
     global _INITIALIZED

@@ -1,20 +1,23 @@
 """Global transposes of the distributed plans — the port's counterpart of
 the JAX package's ``parallel/transpose.py``.
 
-Two renderings of one exchange (scatter ``split_axis`` over the ranks,
+Three renderings of one exchange (scatter ``split_axis`` over the ranks,
 gather ``concat_axis`` from them):
 
 * ``all_to_all_transpose``: one ``all_to_all_single`` (ALL2ALL + SYNC),
   the analog of the reference's ``MPI_Alltoall``;
+* ``peer_to_peer_transpose``: every send and receive posted at once, one
+  pair per peer (PEER2PEER + SYNC), the reference's ``MPI_Isend`` /
+  ``MPI_Irecv`` to every peer;
 * ``ring_transpose``: the exchange as P-1 point-to-point ring steps
   (``SendMethod.RING``), each a ``batch_isend_irecv`` of one send and one
   receive, optionally issued ahead of the per-block compute with revolving
   receive buffers (``RING_OVERLAP``) and split into sub-blocks.
 
-Both carry the wire layer: ``wire="bf16"`` sends a complex payload as a
-planar (real, imag) bfloat16 pair, half the bytes of complex64. STREAMS,
-the pipelined all-to-all and PEER2PEER are ROADMAP Queue 1 item 7 and
-raise at plan construction (``models/slab.py``).
+All carry the wire layer: ``wire="bf16"`` sends a complex payload as a
+planar (real, imag) bfloat16 pair, half the bytes of complex64. STREAMS
+and the pipelined all-to-all are ROADMAP Queue 1 item 7 and raise at plan
+construction (``models/slab.py``).
 
 Data travels as bytes (``.view(torch.uint8)`` of a contiguous buffer), so
 neither backend sees a complex or bfloat16 type it may lack. Gloo's
@@ -193,6 +196,43 @@ def _all_to_all_native(x: torch.Tensor, group, split_axis: int,
     out = list(recv.shape[1:])
     out[c] *= p
     return recv.movedim(0, c).reshape(out)
+
+
+def peer_to_peer_transpose(x: torch.Tensor, group, split_axis: int,
+                           concat_axis: int, *,
+                           wire: str = WIRE_NATIVE) -> torch.Tensor:
+    """The exchange of ``all_to_all_transpose`` as point-to-point messages:
+    chunk d of the split axis is sent to rank d and rank j's chunk is
+    received from it, all P-1 sends and receives posted before any is
+    waited on; the own chunk stays local. Bit for bit the all-to-all's
+    result, the wire included: a compressed wire encodes every chunk (the
+    own one too) before the exchange and decodes after it.
+
+    Over gloo a CUDA payload is staged through pinned host memory
+    (``_Transport``); NCCL sends device memory as it is."""
+    p = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    dtype, wired = x.dtype, _wire_active(x, wire)
+    s, c = split_axis % x.ndim, concat_axis % x.ndim
+    if x.shape[s] % p:
+        raise ValueError(f"split extent {x.shape[s]} not divisible by the "
+                         f"{p} ranks (plans pad before the exchange)")
+    ch = x.shape[s] // p
+    if wired:   # the planar pair: the split and concat axes shift by one
+        x, s, c = wire_encode(x, wire), s + 1, c + 1
+    net = _Transport(group, x.device)
+    pending = []
+    for t in range(1, p):
+        dst, src = (r + t) % p, (r - t) % p
+        send = x.narrow(s, dst * ch, ch).contiguous()
+        recv = torch.empty_like(send)
+        pending.append((src, net.post(send, recv, dst, src, t), recv))
+    blocks = [x.narrow(s, r * ch, ch)] * p
+    for src, handle, recv in pending:
+        net.wait(handle)
+        blocks[src] = recv
+    out = torch.cat(blocks, dim=c)
+    return wire_decode(out, dtype, wire) if wired else out
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,15 @@ _WIRE_DTYPES = ("native", "bf16", AUTO)
 DEFAULT_WIRE_ERROR_BUDGET = 2e-2
 
 
+def parse_wire_dtype(s: str) -> str:
+    """Canonical wire-dtype name (case-insensitive; 'auto' = measured)."""
+    key = str(s).strip().lower()
+    if key in _WIRE_DTYPES:
+        return key
+    raise ValueError(
+        f"unknown wire dtype: {s!r} (choose from {_WIRE_DTYPES})")
+
+
 def parse_guards(s: str) -> str:
     """Canonical guard-mode name (case-insensitive)."""
     key = str(s).strip().lower()
@@ -56,11 +65,31 @@ def parse_overlap_depth(s: "str | int") -> "str | int":
     return v
 
 
+def parse_comm_method(s: "str | CommMethod") -> "str | CommMethod":
+    """``CommMethod.parse`` that also accepts ``"auto"`` (the
+    wisdom-resolved marker)."""
+    if isinstance(s, str) and s.strip().lower() == AUTO:
+        return AUTO
+    return CommMethod.parse(s)
+
+
 class CommMethod(enum.Enum):
-    """Global-redistribution strategy (reference ``params.hpp:83-85``)."""
+    """Global-redistribution strategy (reference ``params.hpp:83-85``):
+    point-to-point sends to every peer, or one all-to-all."""
 
     PEER2PEER = "Peer2Peer"
     ALL2ALL = "All2All"
+
+    @classmethod
+    def parse(cls, s: "str | CommMethod") -> "CommMethod":
+        if isinstance(s, CommMethod):
+            return s
+        key = str(s).strip().lower().replace("_", "").replace("-", "")
+        if key in ("peer2peer", "p2p", "peer"):
+            return cls.PEER2PEER
+        if key in ("all2all", "a2a", "alltoall"):
+            return cls.ALL2ALL
+        raise ValueError(f"unknown comm method: {s!r}")
 
 
 class SendMethod(enum.Enum):
@@ -71,6 +100,23 @@ class SendMethod(enum.Enum):
     MPI_TYPE = "MPI_Type"
     RING = "Ring"
     RING_OVERLAP = "RingOverlap"
+
+    @classmethod
+    def parse(cls, s: "str | SendMethod") -> "SendMethod":
+        if isinstance(s, SendMethod):
+            return s
+        key = str(s).strip().lower().replace("_", "").replace("-", "")
+        if key == "sync":
+            return cls.SYNC
+        if key == "streams":
+            return cls.STREAMS
+        if key == "ring":
+            return cls.RING
+        if key in ("ringoverlap", "overlap", "ringovl"):
+            return cls.RING_OVERLAP
+        if key in ("mpitype", "mpit", "type"):
+            return cls.MPI_TYPE
+        raise ValueError(f"unknown send method: {s!r}")
 
     @property
     def is_ring(self) -> bool:
@@ -93,6 +139,21 @@ class SlabSequence(enum.Enum):
     ZY_THEN_X = "ZY_Then_X"
     Z_THEN_YX = "Z_Then_YX"
     Y_THEN_ZX = "Y_Then_ZX"
+
+    @classmethod
+    def parse(cls, s: "str | SlabSequence") -> "SlabSequence":
+        if isinstance(s, SlabSequence):
+            return s
+        key = str(s).strip().lower().replace("-", "_")
+        table = {
+            "zy_then_x": cls.ZY_THEN_X, "default": cls.ZY_THEN_X,
+            "2d_1d": cls.ZY_THEN_X,
+            "z_then_yx": cls.Z_THEN_YX, "1d_2d": cls.Z_THEN_YX,
+            "y_then_zx": cls.Y_THEN_ZX, "1d_2d_y": cls.Y_THEN_ZX,
+        }
+        if key in table:
+            return table[key]
+        raise ValueError(f"unknown slab sequence: {s!r}")
 
 
 @dataclasses.dataclass(frozen=True)

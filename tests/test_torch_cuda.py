@@ -567,3 +567,79 @@ def test_failed_build_raises(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
     with pytest.raises(RuntimeError, match="build failed"):
         _build.build(["broken"])
+
+
+# ---------------------------------------------------------------------------
+# The executables and the phase Timer on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t", [3, 4])
+def test_slab_executable_on_the_card(cuda, tmp_path, t, capsys):
+    """``dfft-slab`` at 64^3 under "pallas": the fused path's kernels
+    launch and the result is within 5e-4 of its reference magnitude."""
+    from distributedfft_tpu_torch.cli import slab
+    from distributedfft_tpu_torch.utils.timer import read_timer_csv
+    hf.reset_launches()
+    rc = slab.main(["-nx", "64", "-ny", "64", "-nz", "64", "-t", str(t),
+                    "-i", "2", "-w", "1", "--fft-backend", "pallas",
+                    "-b", str(tmp_path)])
+    assert rc == 0
+    # 3 iterations, each a staged and a fused roundtrip: kernels 6 and 8
+    # three passes each, kernel 7 once a direction.
+    assert hf.LAUNCHES["zy_fwd"] == 18 and hf.LAUNCHES["yz_inv"] == 18
+    assert hf.LAUNCHES["x_c2c"] == 12
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("Result (max): "))
+    err = float(line.split()[-1])
+    scale = 64.0 ** 3 if t == 3 else 3 * 64.0 ** 1.5
+    assert err / scale <= 5e-4
+    (csv,) = tmp_path.rglob("*.csv")
+    assert csv.name == "test_0_0_0_64_64_64_1_1.csv"
+    assert len(read_timer_csv(str(csv))) == 2
+
+
+def test_timer_fences_the_card(cuda, monkeypatch):
+    """A mark waits for the queued work: it is at least the device time of
+    the work, and each mark synchronizes the timer's device once."""
+    from distributedfft_tpu_torch.utils.timer import Timer
+    a = torch.randn(4096, 4096, device=cuda)
+    t = Timer(["mm"], 1, None, device=cuda)
+    t.start()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        a = a @ a / 64.0
+    end.record()
+    ms = t.stop_store("mm")
+    assert ms >= start.elapsed_time(end) * 0.95
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: (calls.append(d), real(d)))
+    t.start()
+    t.stop_store("mm")
+    assert calls == [cuda, cuda]
+
+
+def test_timer_gathers_device_tensors_under_nccl(cuda, tmp_path):
+    """Under NCCL the all-gather's tensor lives on the card (NCCL refuses a
+    CPU tensor); a one-rank world writes its own column."""
+    import torch.distributed as dist
+    from distributedfft_tpu_torch.parallel import multihost
+    from distributedfft_tpu_torch.utils import timer
+    dist.init_process_group("nccl", init_method=
+                            f"tcp://{multihost.local_coordinator()}",
+                            world_size=1, rank=0)
+    try:
+        with pytest.raises(Exception):
+            dist.all_gather([torch.empty(2)], torch.ones(2))
+        assert timer._all_gather_rows([1.5, 2.0], cuda) == [[1.5, 2.0]]
+        t = timer.Timer(["a", "Run complete"], 1, str(tmp_path / "t.csv"),
+                        num_processes=1, device=cuda)
+        t._durations = {"a": 0.25, "Run complete": 3.0}
+        assert t._rank_columns() == [[0.25], [3.0]]
+    finally:
+        dist.destroy_process_group()

@@ -410,7 +410,8 @@ def _two_rank_plan(**kw):
 
 @pytest.mark.parametrize("kw, item", [
     (dict(send_method=SendMethod.STREAMS), "Queue 1, item 7"),
-    (dict(comm_method=tdfft.CommMethod.PEER2PEER), "Queue 1, item 7"),
+    (dict(comm_method=tdfft.CommMethod.PEER2PEER,
+          send_method=SendMethod.STREAMS), "Queue 1, item 7"),
     (dict(overlap_subblocks=2), "Queue 1, item 7"),
     (dict(opt=1), "Queue 1, item 2"),
     (dict(wire_dtype="auto"), "Queue 1, item 11"),

@@ -145,7 +145,8 @@ def _port_plan(shape=(8, 8, 8), p=1, transform="r2c", **kw):
                                tdfft.SlabPartition(1), sequence="Y_Then_ZX",
                                device="cpu"), None),
     (lambda: _port_plan(p=2, opt=1), None),
-    (lambda: _port_plan(p=2, comm_method=CommMethod.PEER2PEER), None),
+    (lambda: _port_plan(p=2, comm_method=CommMethod.PEER2PEER,
+                        send_method=SendMethod.STREAMS), None),
     (lambda: _port_plan(p=2, send_method=SendMethod.STREAMS), None),
     (lambda: _port_plan(p=2, overlap_subblocks=2), None),
 ])
