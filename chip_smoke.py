@@ -31,15 +31,24 @@ once, before any rank is spawned) and then, under
    ``exec_c2r``, checked against ``torch.fft`` and the input, with the
    launch counts of every kernel and the entry point (the body) of every
    launch, each direction counted from zero;
-3. runs the distributed slab plan at 512^3 as two ranks sharing the card
+3. runs what the ``"pallas"`` backend hands the matmul backend
+   (``ops/mxu_fft.py``; no kernel of the port, its dispatches counted):
+   the single-card float64 plan at 512^3 and 1024^3 against
+   ``torch.fft`` in float64 (``F64_TOL``), with its peak memory, and a
+   1031-point prime axis in float32; then the ``"matmul"`` backends at
+   512^3 under HIGHEST, HIGH, DEFAULT and ``"matmul-r2"``, and that
+   HIGHEST refuses TF32;
+4. runs the distributed slab plan at 512^3 as two ranks sharing the card
    over a gloo group (``torch.multiprocessing.spawn``; gloo stages the
    exchange through the host): the all-to-all, then the ring renderings
    (RING, RING_OVERLAP with the bf16 wire, without and with the fused wire
    of kernels 9-11, at depth 3 with two sub-blocks, and ``Z_Then_YX``),
-   each rank checking its launches and their entry points per direction
-   and each plan against
-   ``torch.fft`` and against the plans it must equal;
-4. times each kernel, its plain version and one PyTorch call of the same
+   then opt 1, the pipelined all-to-all (depth 2 and 3, native and bf16
+   wire) and STREAMS (ALL2ALL and PEER2PEER, 4 pieces), each rank checking
+   its launches and their entry points per direction and each plan
+   against ``torch.fft`` and, bit for bit, against the plans it must
+   equal;
+5. times each kernel, its plain version and one PyTorch call of the same
    function, the plans under "pallas" and "xla", and the exchange of each
    rendering with its wire bytes; one run of each direction of the fused
    and per-axis plans under ``torch.profiler`` names the device time op by
@@ -48,28 +57,33 @@ once, before any rank is spawned) and then, under
    take more than its limit in either direction: ``COPY_LIMIT_MS`` at
    1024^3, and at 2048 x 256 x 2048 the limits ``split_copy_limits``
    computes from the bytes of the copies that remain;
-5. runs the port's executables in this process, as a user would call them
+6. runs the port's executables in this process, as a user would call them
    (``cli.slab.main`` / ``cli.reference.main``): the slab executable's
    testcases 0-4 at 1024^3 (the per-axis kernels) and testcases 0 and 4 at
    512^3 (the fused kernels) under "pallas" and "xla", testcase 1 with the
    host's float64 truth at 128^3, the reference executable's testcase 0 at
-   512^3; then, as two spawned ranks over gloo, the slab executable at
-   512^3 over both exchanges (Peer2Peer and All2All, testcases 3 and 0),
-   the renderings' bit equality and the reference executable's bandwidth
-   probe. Each run's launches and entry points are counted from zero and
+   512^3, and ``-d --fft-backend pallas`` (the matmul backend) testcases
+   0-4 at 512^3; then, as two spawned ranks over gloo, the slab executable
+   at 512^3 over both exchanges (Peer2Peer and All2All, testcases 3 and
+   0) and with ``-o 1``, ``-snd Streams`` and ``-comm All2All
+   --overlap-subblocks 2`` (testcase 0), the renderings' bit equality and
+   the reference executable's bandwidth probe. Each run's launches and entry points are counted from zero and
    held against the plan phases'; testcases 1 and 3 hold within TOL of
    their reference magnitude, testcase 4 too or, where float32 cannot,
    within twice cuFFT's error (``gate_cli_results``); every phase CSV
    parses with the port's reader, and its means stand beside
    ``plan_time``'s.
 
-Phases print JSON lines. Before the last line come one ``{"kernels": ...}``
-line and the card's name and power limit as ``nvidia-smi`` gives them; the
-last line is ``{"ok": true, "device": {...}}``. Any failed phase raises, so
+Phases print JSON lines. Before the last line come one
+``{"matmul_backend": ...}`` line (the matmul backend is no kernel), one
+``{"kernels": ...}`` line and the card's name and power limit as
+``nvidia-smi`` gives them; the last line is ``{"ok": true, "device":
+{...}}``. Any failed phase raises, so
 the script exits non-zero with no result line; so does a machine without a
-CUDA device, or a directory without the port. Takes about 170-190 s on
-an H100, the kernels' build (25-55 s) and the executables' phase (about
-50 s, most of it the host's random draws at 1024^3) included.
+CUDA device, or a directory without the port. Takes about 200-230 s on
+an H100, the kernels' build (25-55 s), the matmul backend's phase (about
+10 s) and the executables' phase (about 60 s, most of it the host's
+random draws) included.
 """
 
 from __future__ import annotations
@@ -100,9 +114,19 @@ REPS_BIG = 3       # repetitions of a per-axis plan direction (~0.1 s each)
 COPY_LIMIT_MS = 1.0  # the 1024^3 plan's dispatch ops, a direction
 COPY_RATE = 0.55     # share of the HBM rate the dispatch's copies reach
 COPY_MARGIN = 1.2    # on top of the copies' time at COPY_RATE
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate.
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate;
+# the tensor cores in float64 and in bfloat16 (dense).
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
+FP64_TC_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
+F64_TOL = 1e-10      # the JAX package's float64 bound (tests/test_mxu_fft.py)
+DEFAULT_TOL = 2e-3   # one bfloat16 pass (mxu_precision "default"), forward
+# Its roundtrip: six one-pass stages, each adding about 2^-9 / 3 of max |x|
+# (rms) on uniform input, so about 1e-2 at the maximum over 512^3 points;
+# the bound is three times that.
+DEFAULT_RT_TOL = 2 ** -5
+PRIME = 1031         # a prime axis past the kernels' N_MAX = 1024
 PALLAS = "distributedfft_tpu/ops/pallas_fft.py"
 
 
@@ -256,20 +280,32 @@ def entry_counts(hf):
         hf._launch = orig
 
 
+def counted(hf):
+    """The kernel launch counts since the last reset, with the matmul
+    backend's dispatches (``hf.DISPATCHES``, not a kernel) under "matmul"
+    where there were any: a path that must run only kernels then fails its
+    comparison with ``expect``."""
+    out = dict(hf.LAUNCHES)
+    if hf.DISPATCHES["matmul"]:
+        out["matmul"] = hf.DISPATCHES["matmul"]
+    return out
+
+
 def run_counted(torch, hf, plan, x):
     """One forward and one inverse of ``plan``, each counted from zero:
     (spectrum, inverse, launches forward, launches inverse, entry points
-    forward, entry points inverse)."""
+    forward, entry points inverse); the launches as ``counted`` gives
+    them."""
     hf.reset_launches()
     with entry_counts(hf) as ent_f:
         c = plan.exec_r2c(x)
         torch.cuda.synchronize()
-    fwd = dict(hf.LAUNCHES)
+    fwd = counted(hf)
     hf.reset_launches()
     with entry_counts(hf) as ent_i:
         back = plan.exec_c2r(c)
         torch.cuda.synchronize()
-    return c, back, fwd, dict(hf.LAUNCHES), ent_f, ent_i
+    return c, back, fwd, counted(hf), ent_f, ent_i
 
 
 def kernel_share(torch, hf, fn, by_entry=False):
@@ -426,7 +462,10 @@ def rank_main(rank: int, addr: str, outdir: str) -> None:
         _, per = kernel_share(torch, hf, fn)
         out[f"{name}_kernel_ms"] = per
         out[f"{name}_kernel_total_ms"] = sum(per.values())
-    out["ring"] = ring_paths(rank, x, xl, c, back, wall_ms)
+    out["ring"] = rendering_paths(rank, x, xl, c, back, wall_ms, RING_PATHS,
+                                  RING_PAIRS)
+    out["exchange_renderings"] = rendering_paths(
+        rank, x, xl, c, back, wall_ms, EXCHANGE_PATHS, EXCHANGE_PAIRS)
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -481,15 +520,70 @@ RING_PATHS = {
          "dfft_dec_fft": 1, "dfft_cdft_cols": 1},
         *_plus(A2A_ENTRIES[1:], enc_pack=1, dec_unpack=1)),
 }
+# Bit-equalities of the ring renderings: (rendering, the one it equals or
+# None for the all-to-all, "bit" or a tolerance).
+RING_PAIRS = [("ring_native", None, "bit"),
+              ("ring_overlap_wire16_fused", "ring_overlap_wire16", "bit"),
+              ("ring_overlap_wire16_fused_d3_s2", "ring_overlap_wire16_fused",
+               "bit"),
+              ("z_then_yx_ring_overlap_wire16_fused",
+               "z_then_yx_ring_overlap_wire16", TOL)]
 # The exchange of these is timed beside the all-to-all's.
 EXCHANGE_TIMED = ("ring_native", "ring_overlap_wire16",
-                  "ring_overlap_wire16_fused")
+                  "ring_overlap_wire16_fused", "a2a_wire16", "opt1",
+                  "a2a_pipelined_d2", "a2a_pipelined_d3",
+                  "a2a_pipelined_d2_wire16", "a2a_pipelined_d3_wire16",
+                  "streams_a2a", "streams_p2p")
+
+# The monolithic renderings beside the all-to-all (ALL2ALL + SYNC, opt 0,
+# the native wire), with RING_PATHS' fields: opt 1, the pipelined
+# all-to-all (two pieces of the free z axis, depth 2 and 3, native and
+# bf16 wire) and STREAMS (4 pieces; under ALL2ALL each piece runs its x
+# FFT on the column body after its exchange, forward, and before it,
+# inverse).
+_STREAMS = {"send_method": "Streams", "streams_chunks": 4}
+EXCHANGE_PATHS = {
+    "a2a_wire16": ({"wire_dtype": "bf16"}, "ZY_Then_X",
+                   dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1),
+                   *A2A_ENTRIES),
+    "opt1": ({"opt": 1}, "ZY_Then_X", dict(rmatmul=1, cmatmul=2),
+             dict(cmatmul=2, c2r=1), *A2A_ENTRIES),
+    "a2a_pipelined_d2": ({"overlap_subblocks": 2}, "ZY_Then_X",
+                         dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1),
+                         *A2A_ENTRIES),
+    "a2a_pipelined_d3": ({"overlap_subblocks": 2, "overlap_depth": 3},
+                         "ZY_Then_X", dict(rmatmul=1, cmatmul=2),
+                         dict(cmatmul=2, c2r=1), *A2A_ENTRIES),
+    "a2a_pipelined_d2_wire16": ({"overlap_subblocks": 2,
+                                 "wire_dtype": "bf16"}, "ZY_Then_X",
+                                dict(rmatmul=1, cmatmul=2),
+                                dict(cmatmul=2, c2r=1), *A2A_ENTRIES),
+    "a2a_pipelined_d3_wire16": ({"overlap_subblocks": 2, "overlap_depth": 3,
+                                 "wire_dtype": "bf16"}, "ZY_Then_X",
+                                dict(rmatmul=1, cmatmul=2),
+                                dict(cmatmul=2, c2r=1), *A2A_ENTRIES),
+    "streams_a2a": (_STREAMS, "ZY_Then_X", dict(rmatmul=1, cmatmul=5),
+                    dict(cmatmul=5, c2r=1),
+                    {"dfft_rdft": 1, "dfft_cdft_cols": 5},
+                    {"dfft_cdft_cols": 5, "dfft_c2r": 1}),
+    "streams_p2p": ({**_STREAMS, "comm_method": "Peer2Peer"}, "ZY_Then_X",
+                    dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1),
+                    *A2A_ENTRIES),
+}
+EXCHANGE_PAIRS = [("opt1", None, "bit"),
+                  ("a2a_pipelined_d2", None, "bit"),
+                  ("a2a_pipelined_d3", None, "bit"),
+                  ("a2a_pipelined_d2_wire16", "a2a_wire16", "bit"),
+                  ("a2a_pipelined_d3_wire16", "a2a_wire16", "bit"),
+                  ("streams_a2a", None, "bit"),
+                  ("streams_p2p", None, "bit")]
 
 
-def ring_paths(rank, x, xl, a2a_fwd, a2a_back, wall_ms):
-    """Run every ring rendering of RING_PATHS on this rank (the same input
-    as the all-to-all plan): launch counts per direction, checks against
-    torch.fft, the bit-equalities the renderings promise, and times."""
+def rendering_paths(rank, x, xl, a2a_fwd, a2a_back, wall_ms, paths, pairs):
+    """Run every rendering of ``paths`` (RING_PATHS' fields) on this rank,
+    on the same input as the all-to-all plan: launch counts and entry
+    points per direction, checks against torch.fft, the bit-equalities of
+    ``pairs``, and times (the exchange too, for ``EXCHANGE_TIMED``)."""
     import torch
     import distributedfft_tpu_torch as dft
     from distributedfft_tpu_torch.ops import hopper_fft as hf
@@ -500,9 +594,12 @@ def ring_paths(rank, x, xl, a2a_fwd, a2a_back, wall_ms):
     ref = torch.fft.rfftn(x)
     res = {}
     for pid, (fields, seq, want_f, want_i, ent_f_want,
-              ent_i_want) in RING_PATHS.items():
-        kw = dict(fields, send_method=dft.SendMethod(fields["send_method"]),
-                  fft_backend="pallas")
+              ent_i_want) in paths.items():
+        kw = dict(fields, fft_backend="pallas")
+        if "send_method" in kw:
+            kw["send_method"] = dft.SendMethod(kw["send_method"])
+        if "comm_method" in kw:
+            kw["comm_method"] = dft.CommMethod(kw["comm_method"])
         plan = dft.SlabFFTPlan(dft.GlobalSize(N, N, N),
                                dft.SlabPartition(RANKS), dft.Config(**kw),
                                sequence=seq)
@@ -518,7 +615,7 @@ def ring_paths(rank, x, xl, a2a_fwd, a2a_back, wall_ms):
         if not (f_rel <= tol and rt_rel <= tol):
             fail(f"rank {rank} {pid}: forward rel {f_rel:.3e}, roundtrip rel "
                  f"{rt_rel:.3e} (tol {tol})")
-        row = {"sequence": seq, "launches_forward": fwd,
+        row = {"sequence": seq, "config": fields, "launches_forward": fwd,
                "launches_inverse": inv, "entries_forward": ent_f,
                "entries_inverse": ent_i, "forward_vs_torch_fft": f_rel,
                "roundtrip_vs_input": rt_rel, "tol": tol,
@@ -528,29 +625,25 @@ def ring_paths(rank, x, xl, a2a_fwd, a2a_back, wall_ms):
             first, xpose, _ = plan._fwd_parts()
             ifirst, ixpose, _ = plan._inv_parts()
             a, b = first(xl), ifirst(c)
-            sched = {d: tr.ring_schedule(
-                (t.shape[0] * RANKS,) + tuple(t.shape[1:]), t.dtype,
-                plan.config.wire_dtype, RANKS,
-                overlap=plan.config.send_method is dft.SendMethod.RING_OVERLAP,
-                depth=plan.config.resolved_overlap_depth(),
-                subblocks=plan.config.resolved_overlap_subblocks())
-                for d, t in (("forward", a), ("inverse", b))}
+            wire = plan.config.wire_dtype
             row.update(exchange_forward_ms=wall_ms(lambda: xpose(a)),
                        exchange_inverse_ms=wall_ms(lambda: ixpose(b)),
                        wire_bytes_per_rank={
-                           d: v["total_wire_bytes"] // RANKS
-                           for d, v in sched.items()},
-                       schedule_forward=sched["forward"])
+                           d: tr.wire_nbytes(t.shape, t.dtype, wire)
+                           * (RANKS - 1) // RANKS
+                           for d, t in (("forward", a), ("inverse", b))})
+            if plan.config.send_method.is_ring:
+                row["schedule_forward"] = tr.ring_schedule(
+                    (a.shape[0] * RANKS,) + tuple(a.shape[1:]), a.dtype,
+                    wire, RANKS,
+                    overlap=plan.config.send_method
+                    is dft.SendMethod.RING_OVERLAP,
+                    depth=plan.config.resolved_overlap_depth(),
+                    subblocks=plan.config.resolved_overlap_subblocks())
             del a, b
         res[pid] = (c, back)
         out[pid] = row
         del plan
-    pairs = [("ring_native", None, "bit"),
-             ("ring_overlap_wire16_fused", "ring_overlap_wire16", "bit"),
-             ("ring_overlap_wire16_fused_d3_s2", "ring_overlap_wire16_fused",
-              "bit"),
-             ("z_then_yx_ring_overlap_wire16_fused",
-              "z_then_yx_ring_overlap_wire16", TOL)]
     for pid, other, how in pairs:
         got = res[pid]
         want = (a2a_fwd, a2a_back) if other is None else res[other]
@@ -1037,6 +1130,244 @@ def per_axis_path(torch, dft, hf, gen, pid, shape, want_f, want_i, ent_f_want,
 
 
 # ---------------------------------------------------------------------------
+# The matmul backend: what "pallas" hands it (float64, a prime axis past
+# 1024) and the "matmul" / "matmul-r2" backends themselves. No kernel of
+# the port runs on these paths; the backend's dispatches are counted.
+# ---------------------------------------------------------------------------
+
+
+def matmul_flops(mx, n: int, rows: int, kind: str = "c2c",
+                 radix2: bool = False) -> float:
+    """The dense-product flops of the matmul backend on ``rows`` rows of n
+    points (``mx._fft_last``, ``_rfft_last``, ``_c2r_last``), 8 a complex
+    multiply-add and 4 a real row's against a complex column: a direct
+    product up to ``DIRECT_MAX`` (the R2C's n/2+1 columns; the C2R's
+    folded (CR, CI) pair), else the four-step's two stages (a C2R past
+    ``DIRECT_MAX`` inverts the Hermitian extension, a complex transform);
+    with ``radix2`` a C2C stage past ``_R2_BASE`` halves. The twiddles'
+    products are left out (a few flops a point)."""
+    dm = mx.DIRECT_MAX
+    if kind == "c2c" and radix2 and n > mx._R2_BASE and n % 2 == 0:
+        return 2 * matmul_flops(mx, n // 2, rows, "c2c", True)
+    if kind != "c2c" and n <= dm:
+        return 4 * rows * n * (n // 2 + 1)
+    if kind == "c2r":
+        return matmul_flops(mx, n, rows, "c2c", radix2)
+    n1, n2 = mx._split_for(n, dm) if n > dm else (1, n)
+    if n1 == 1:
+        return (4 * rows * n * (n // 2 + 1) if kind == "r2c"
+                else 8 * rows * n * n)
+    first = (4 * rows * n1 * n2 * n2 if kind == "r2c" and n2 <= dm
+             else matmul_flops(mx, n2, rows * n1, "c2c", radix2))
+    return first + matmul_flops(mx, n1, rows * n2, "c2c", radix2)
+
+
+def matmul_plan_flops(mx, shape, inverse: bool, extended_c2r: bool = False,
+                      radix2: bool = False) -> float:
+    """One direction of a single-card R2C plan on the matmul backend: the
+    z axis (the R2C, or the C2R: folded, or with ``extended_c2r`` the
+    Hermitian extension's complex inverse, as "pallas" runs it in float64),
+    then y and x on the half spectrum."""
+    X, Y, Z = shape
+    half = Z // 2 + 1
+    zkind = ("c2c" if extended_c2r else "c2r") if inverse else "r2c"
+    return (matmul_flops(mx, Z, X * Y, zkind, radix2)
+            + matmul_flops(mx, Y, X * half, "c2c", radix2)
+            + matmul_flops(mx, X, Y * half, "c2c", radix2))
+
+
+def matmul_bound(flops: float, nbytes: float, rate: float):
+    """(bound ms, what bounds it) at a tensor-core ``rate``."""
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+# float64 under "pallas" on one card: id -> cube edge. Forward and inverse
+# each dispatch one transform an axis to the matmul backend and launch no
+# kernel.
+F64_PATHS = {"f64_pallas_512": N, "f64_pallas_1024": NBIG}
+AXIS_DISPATCHES = {"matmul": 3}
+
+
+def f64_path(torch, dft, hf, mx, gen, pid, n):
+    """One float64 "pallas" plan on one card: its dispatches and launches
+    per direction, the forward against ``torch.fft.rfftn`` in float64 and
+    the roundtrip against the input (``F64_TOL``), each direction's time
+    beside the "xla" float64 plan's, the bound of its dense products on
+    the float64 tensor cores, and the peak memory."""
+    shape = (n, n, n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float64)
+    plan = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                           dft.Config(fft_backend="pallas", double_prec=True))
+    c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, x)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = dict(expect(hf), **AXIS_DISPATCHES)
+    if fwd != want or inv != want or ent_f or ent_i:
+        fail(f"{pid}: forward {fwd} (entries {ent_f}), inverse {inv} "
+             f"(entries {ent_i}); expected {want} and no kernel")
+    if c.dtype != torch.complex128 or back.dtype != torch.float64 or \
+            tuple(c.shape) != (n, n, n // 2 + 1):
+        fail(f"{pid}: outputs {tuple(c.shape)} {c.dtype}, {back.dtype}")
+    ref = torch.fft.rfftn(x)
+    f_abs, f_rel = rel_err(c, ref)
+    del ref
+    back /= float(n ** 3)
+    rt_abs, rt_rel = rel_err(back, x)
+    del back
+    out = dict(path=pid, shape=list(shape), launches_forward=fwd,
+               launches_inverse=inv, entries_forward=ent_f,
+               entries_inverse=ent_i, forward_max_abs_err=f_abs,
+               forward_vs_torch_fft=f_rel, roundtrip_max_abs_err=rt_abs,
+               roundtrip_vs_input=rt_rel, tol=F64_TOL,
+               peak_memory_gb=peak,
+               device_memory_gb=torch.cuda.get_device_properties(0)
+               .total_memory / 1e9)
+    emit(phase="main_path", **out)
+    if not (f_rel <= F64_TOL and rt_rel <= F64_TOL):
+        fail(f"{pid} wrong: forward rel {f_rel:.3e}, roundtrip rel "
+             f"{rt_rel:.3e} (tol {F64_TOL})")
+    xla = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                          dft.Config(double_prec=True))
+    timed = dict(path=pid, shape=list(shape), reps=REPS_BIG,
+                 pallas_forward_ms=median_ms(torch, lambda: plan.exec_r2c(x),
+                                             REPS_BIG, 1),
+                 pallas_inverse_ms=median_ms(torch, lambda: plan.exec_c2r(c),
+                                             REPS_BIG, 1),
+                 xla_forward_ms=median_ms(torch, lambda: xla.exec_r2c(x),
+                                          REPS_BIG, 1),
+                 xla_inverse_ms=median_ms(torch, lambda: xla.exec_c2r(c),
+                                          REPS_BIG, 1))
+    rbytes, cbytes = 8 * n ** 3, 16 * n * n * (n // 2 + 1)
+    for d, inverse in (("forward", False), ("inverse", True)):
+        flops = matmul_plan_flops(mx, shape, inverse, extended_c2r=True)
+        timed[f"{d}_dense_flops"] = flops
+        timed[f"{d}_bound_ms"], timed[f"{d}_bound_by"] = matmul_bound(
+            flops, rbytes + cbytes, FP64_TC_FLOPS)
+    timed["bound_rate"] = "float64 tensor cores, 67 TFLOP/s"
+    emit(phase="plan_time", **timed)
+    out.update(timed)
+    del x, c, plan, xla
+    torch.cuda.empty_cache()
+    return {k: fwd.get(k, 0) + inv.get(k, 0) for k in want}, out
+
+
+# The "matmul" backends at 512^3 in float32: id -> Config fields. Input
+# uniform in [0, 1), as the reference's testcases draw it (the error the
+# JAX package documents for one bfloat16 pass is on such input).
+MATMUL_PATHS = {
+    "matmul_highest": dict(fft_backend="matmul", mxu_precision="highest"),
+    "matmul_high": dict(fft_backend="matmul", mxu_precision="high"),
+    "matmul_default": dict(fft_backend="matmul", mxu_precision="default"),
+    "matmul_r2": dict(fft_backend="matmul-r2"),
+}
+
+
+def matmul_paths(torch, dft, hf, mx, gen):
+    """Each ``MATMUL_PATHS`` plan at 512^3: its dispatches and launches per
+    direction, the forward against ``torch.fft.rfftn`` and the roundtrip
+    (``TOL``; one bfloat16 pass ``DEFAULT_TOL`` and ``DEFAULT_RT_TOL``),
+    each direction's time and the bound of its products (the bfloat16 passes at the tensor
+    cores' rate when they ran there, else float32 on the CUDA cores); then
+    that HIGHEST refuses to run with TF32 enabled."""
+    shape = (N, N, N)
+    x = torch.rand(shape, generator=gen, device="cuda")
+    ref = torch.fft.rfftn(x)
+    rows, want = {}, dict(expect(hf), **AXIS_DISPATCHES)
+    for pid, fields in MATMUL_PATHS.items():
+        plan = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                               dft.Config(**fields))
+        mx.MM16_ROUTE["route"] = None
+        c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, x)
+        if fwd != want or inv != want or ent_f or ent_i:
+            fail(f"{pid}: forward {fwd}, inverse {inv}; expected {want}")
+        one_pass = fields.get("mxu_precision") == "default"
+        tol = DEFAULT_TOL if one_pass else TOL
+        rt_tol = DEFAULT_RT_TOL if one_pass else TOL
+        _, f_rel = rel_err(c, ref)
+        back /= float(N ** 3)
+        _, rt_rel = rel_err(back, x)
+        prec = plan._mxu_st.precision if plan._mxu_st else \
+            mx.current_settings().precision
+        passes = {"DEFAULT": 1, "HIGH": 3, "HIGHEST": 1}[prec.name]
+        route = (mx.MM16_ROUTE["route"] if prec.name != "HIGHEST"
+                 else "float32 CUDA cores (IEEE, TF32 off)")
+        rate = (BF16_TC_FLOPS if route == mx._TENSOR_CORES else FP32_FLOPS)
+        row = dict(path=pid, config=fields, precision=prec.name,
+                   bf16_passes=passes if prec.name != "HIGHEST" else 0,
+                   products_ran_on=route, launches_forward=fwd,
+                   launches_inverse=inv, forward_vs_torch_fft=f_rel,
+                   roundtrip_vs_input=rt_rel, tol=tol, roundtrip_tol=rt_tol,
+                   forward_ms=median_ms(torch, lambda: plan.exec_r2c(x),
+                                        REPS_BIG, 1),
+                   inverse_ms=median_ms(torch, lambda: plan.exec_c2r(c),
+                                        REPS_BIG, 1))
+        rbytes, cbytes = 4 * N ** 3, 8 * N * N * (N // 2 + 1)
+        for d, inverse in (("forward", False), ("inverse", True)):
+            flops = passes * matmul_plan_flops(
+                mx, shape, inverse, radix2=fields["fft_backend"] == "matmul-r2")
+            row[f"{d}_bound_ms"], row[f"{d}_bound_by"] = matmul_bound(
+                flops, rbytes + cbytes, rate)
+        emit(phase="matmul_path", **row)
+        if not (f_rel <= tol and rt_rel <= rt_tol):
+            fail(f"{pid} wrong: forward rel {f_rel:.3e} (tol {tol}), "
+                 f"roundtrip rel {rt_rel:.3e} (tol {rt_tol})")
+        rows[pid] = row
+        del c, back, plan
+    # HIGHEST must be IEEE float32: with TF32 enabled the plan refuses.
+    plan = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                           dft.Config(**MATMUL_PATHS["matmul_highest"]))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        plan.exec_r2c(x)
+    except RuntimeError as err:
+        refused = "allow_tf32" in str(err)
+    else:
+        refused = False
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    emit(phase="matmul_tf32_guard", refused=refused)
+    if not refused:
+        fail("a HIGHEST matmul plan ran with TF32 enabled")
+    del x, ref, plan
+    torch.cuda.empty_cache()
+    return rows
+
+
+def long_prime(torch, hf, gen):
+    """A prime axis of ``PRIME`` points under "pallas" in float32: ``fft``
+    and ``rfft`` of 8192 rows each dispatch once to the matmul backend and
+    launch no kernel, within ``TOL`` of ``torch.fft``; timed beside it."""
+    xc = torch.complex(torch.randn((8192, PRIME), generator=gen,
+                                   device="cuda"),
+                       torch.randn((8192, PRIME), generator=gen,
+                                   device="cuda"))
+    xr = torch.randn((8192, PRIME), generator=gen, device="cuda")
+    rows = {}
+    for name, run, lib in (
+            ("fft", lambda: hf.fft(xc, axis=-1), lambda: torch.fft.fft(xc)),
+            ("rfft", lambda: hf.rfft(xr, axis=-1),
+             lambda: torch.fft.rfft(xr))):
+        hf.reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        n_f = counted(hf)
+        _, rel = rel_err(got, lib())
+        rows[name] = dict(rows=8192, n=PRIME, launches=n_f,
+                          vs_torch_fft=rel, tol=TOL,
+                          ms=median_ms(torch, run, REPS_BIG, 1),
+                          library_ms=median_ms(torch, lib, REPS_BIG, 1))
+        if n_f != dict(expect(hf), matmul=1) or not rel <= TOL:
+            fail(f"prime {PRIME} {name}: launches {n_f}, rel {rel:.3e}")
+    emit(phase="long_prime", **rows)
+    del xc, xr
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # The executables: the port's slab and reference CLIs, run in-process
 # ---------------------------------------------------------------------------
 
@@ -1055,6 +1386,12 @@ CLI_CASES = {
 # The two-rank runs: (arguments, CSV blocks, forward runs, inverse runs).
 CLI_RANK_CASES = {3: (["-t", "3"], 1, 2, 2),
                   0: (["-t", "0", "-i", "3", "-w", "1"], 3, 8, 0)}
+# Renderings run through the executable over two ranks, testcase 0 (the
+# executable's default exchange is Peer2Peer): id -> flags.
+CLI_RANK_RENDERINGS = {
+    "opt1": ["-o", "1"],
+    "streams": ["-snd", "Streams"],
+    "a2a_pipelined": ["-comm", "All2All", "--overlap-subblocks", "2"]}
 
 
 def scaled(want_f, k_f, want_i, k_i):
@@ -1078,7 +1415,7 @@ def cli_run(torch, hf, main, argv):
     seconds = time.perf_counter() - t0
     if rc != 0:
         fail(f"{argv} exited with {rc}: {buf.getvalue()}")
-    return buf.getvalue(), dict(hf.LAUNCHES), dict(ent), seconds
+    return buf.getvalue(), counted(hf), dict(ent), seconds
 
 
 def printed(text: str, key: str) -> float:
@@ -1245,6 +1582,69 @@ def cli_single_card(torch, dft, hf, plan_times):
     return launches, rows
 
 
+def csv_name(argv, ranks: int) -> str:
+    """Where the slab executable writes the CSV of ``argv``, under its
+    ``-b`` directory: the port's ``benchmark_filename`` of the Config its
+    flags make (the CPU tests hold that name equal to the JAX
+    executable's)."""
+    from distributedfft_tpu_torch import params as pm
+    from distributedfft_tpu_torch.cli import common
+    from distributedfft_tpu_torch.cli import slab as cli_slab
+    from distributedfft_tpu_torch.utils.timer import benchmark_filename
+    args = cli_slab.build_parser().parse_args(argv)
+    cfg = pm.Config(comm_method=pm.CommMethod.parse(args.comm_method),
+                    send_method=pm.SendMethod.parse(args.send_method),
+                    **common.config_kwargs(args))
+    g = pm.GlobalSize(args.input_dim_x, args.input_dim_y, args.input_dim_z)
+    return os.path.relpath(benchmark_filename(
+        args.benchmark_dir, "slab_default", cfg, g, ranks),
+        args.benchmark_dir)
+
+
+def cli_f64(torch, dft, hf):
+    """``dfft-torch-slab -d --fft-backend pallas``, testcases 0-4 at 512^3
+    on one card: no kernel, the matmul backend's dispatches (one an axis,
+    each direction), results within TOL of their reference magnitude, the
+    CSV where ``csv_name`` says with the sections of the plan. Returns
+    (launches by path, rows)."""
+    from distributedfft_tpu_torch.cli import slab as cli_slab
+    from distributedfft_tpu_torch.testing import testcases as tcs
+    launches, rows = {}, []
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_f64_")
+    sections = tcs.make_plan("slab", dft.GlobalSize(N, N, N),
+                             dft.SlabPartition(1), None,
+                             device="cuda").section_descriptions
+    for tc in (0, 2, 3, 4, 1):
+        args, blocks, k_f, k_i = CLI_CASES[tc]
+        bdir = os.path.join(root, f"t{tc}")
+        argv = ["-nx", str(N), "-ny", str(N), "-nz", str(N), "-comm",
+                "All2All", "--fft-backend", "pallas", "-d", "-b",
+                bdir] + args
+        text, got, ent, secs = cli_run(torch, hf, cli_slab.main, argv)
+        want = dict(expect(hf), **scaled(AXIS_DISPATCHES, k_f,
+                                         AXIS_DISPATCHES, k_i))
+        if got != want or ent:
+            fail(f"slab {argv}: launches {got} (entries {ent}), expected "
+                 f"{want} and no kernel")
+        val, rel = cli_result(tc, text, N ** 3, N ** 3 / 2)
+        name, run_ms, fused_ms = cli_csv(bdir, sections, blocks, 1)
+        if name != csv_name(argv, 1):
+            fail(f"slab {argv} wrote {name}, not {csv_name(argv, 1)}")
+        launches[f"cli_slab_f64_pallas_{N}_t{tc}"] = got
+        rows.append(dict(executable="slab", backend="pallas", precision="f64",
+                         n=N, testcase=tc, argv=argv, seconds=secs, csv=name,
+                         run_complete_ms=run_ms, fused_ms=fused_ms,
+                         result=val, result_rel=rel,
+                         printed=text.strip().splitlines()[-3:],
+                         launches=got))
+        emit(phase="cli_f64", **rows[-1])
+        if rel is not None and not rel <= TOL:
+            fail(f"slab {argv}: result {val} ({rel} of its reference "
+                 f"magnitude)")
+        torch.cuda.empty_cache()
+    return launches, rows
+
+
 def xla_inverse_probe(torch, dft):
     """cuFFT's ("xla") 1024^3 inverse on testcase 2's kind of input (a
     uniform random spectrum, not Hermitian) and on a forward's output, in
@@ -1317,6 +1717,36 @@ def cli_rank_main(rank: int, addr: str, outdir: str) -> None:
                            printed=text.strip().splitlines())
             out["runs"].append(row)
             torch.cuda.empty_cache()
+    # The renderings that raised until item 2's opt 1 and item 7's STREAMS
+    # and pipelined all-to-all were ported: testcase 0 through the
+    # executable, the all-to-all's launches, the CSV where the port names
+    # it.
+    args, blocks, k_f, k_i = CLI_RANK_CASES[0]
+    for rid, flags in CLI_RANK_RENDERINGS.items():
+        bdir = os.path.join(outdir, f"render_{rid}")
+        argv = ["-nx", str(N), "-ny", str(N), "-nz", str(N), "-p",
+                str(RANKS), "--fft-backend", "pallas", "-b", bdir] + flags \
+            + args
+        text, got, ent, secs = cli_run(torch, hf, cli_slab.main, argv)
+        want = scaled(dict(rmatmul=1, cmatmul=2), k_f,
+                      dict(cmatmul=2, c2r=1), k_i)
+        ent_want = scaled(A2A_ENTRIES[0], k_f, A2A_ENTRIES[1], k_i)
+        if got != expect(hf, **want) or ent != ent_want:
+            fail(f"rank {rank} slab {argv}: launches {got} (entries "
+                 f"{ent}), expected {want} ({ent_want})")
+        out["launches"][f"cli_slab_{rid}_{N}_t0"] = got
+        row = dict(rendering=rid, testcase=0, argv=argv, seconds=secs,
+                   entries=ent)
+        dist.barrier()      # rank 0 has written the CSV
+        if rank == 0:
+            name, run_ms, fused_ms = cli_csv(bdir, sections, blocks, RANKS)
+            if name != csv_name(argv, RANKS):
+                fail(f"slab {argv} wrote {name}, not "
+                     f"{csv_name(argv, RANKS)}")
+            row.update(csv=name, run_complete_ms=run_ms, fused_ms=fused_ms,
+                       printed=text.strip().splitlines())
+        out["runs"].append(row)
+        torch.cuda.empty_cache()
     # The renderings of one exchange, bit for bit: PEER2PEER + SYNC and
     # ALL2ALL + MPI_TYPE against ALL2ALL + SYNC.
     res = {}
@@ -1648,6 +2078,23 @@ def main() -> int:
         launches[pid], plan_times[pid] = per_axis_path(torch, dft, hf, gen,
                                                        pid, *spec)
 
+    # -- 7b. the matmul backend: float64 "pallas", "matmul", a long prime ----
+    t0 = time.perf_counter()
+    from distributedfft_tpu_torch.ops import mxu_fft as mx
+    matmul_rows = {}
+    for pid, n in F64_PATHS.items():
+        launches[pid], matmul_rows[pid] = f64_path(torch, dft, hf, mx, gen,
+                                                   pid, n)
+    matmul_rows.update(matmul_paths(torch, dft, hf, mx, gen))
+    matmul_rows["long_prime"] = long_prime(torch, hf, gen)
+    # The four-step's pieces at 1 GiB of float64 1024-point rows, in the
+    # formulation the backend runs and the one it replaced.
+    from distributedfft_tpu_torch.testing import microbench
+    matmul_rows["fourstep_pieces_ms"] = microbench.matmul_fourstep_ms()
+    emit(phase="matmul_fourstep_pieces", **matmul_rows["fourstep_pieces_ms"])
+    torch.cuda.empty_cache()
+    emit(phase="matmul_done", seconds=time.perf_counter() - t0)
+
     # -- 8. the 512^3 plan as two ranks sharing the card over gloo -----------
     import torch.multiprocessing as tmp
     outdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
@@ -1662,11 +2109,13 @@ def main() -> int:
     launches["distributed_512_rank0"] = {
         k: r0["launches_forward"][k] + r0["launches_inverse"][k]
         for k in r0["launches_forward"]}
-    for pid in RING_PATHS:
-        row = r0["ring"][pid]
-        launches[f"distributed_512_{pid}_rank0"] = {
-            k: row["launches_forward"][k] + row["launches_inverse"][k]
-            for k in row["launches_forward"]}
+    for group, paths in (("ring", RING_PATHS),
+                         ("exchange_renderings", EXCHANGE_PATHS)):
+        for pid in paths:
+            row = r0[group][pid]
+            launches[f"distributed_512_{pid}_rank0"] = {
+                k: row["launches_forward"][k] + row["launches_inverse"][k]
+                for k in row["launches_forward"]}
     emit(phase="main_path", path="distributed_512", ranks=RANKS,
          exchange="gloo, host-staged, 2 ranks on 1 card",
          seconds=time.perf_counter() - t0, per_rank=ranks)
@@ -1680,7 +2129,8 @@ def main() -> int:
             inverse_ms=rk["exchange_inverse_ms"],
             wire_bytes_per_rank={"forward": sent, "inverse": sent})}
         for pid in EXCHANGE_TIMED:
-            row = rk["ring"][pid]
+            row = (rk["ring"] if pid in RING_PATHS
+                   else rk["exchange_renderings"])[pid]
             table[pid] = dict(forward_ms=row["exchange_forward_ms"],
                               inverse_ms=row["exchange_inverse_ms"],
                               wire_bytes_per_rank=row["wire_bytes_per_rank"])
@@ -1690,6 +2140,8 @@ def main() -> int:
     # -- 8b. the executables: slab and reference, on one card and two ranks -
     t0 = time.perf_counter()
     cli_launches, cli_rows = cli_single_card(torch, dft, hf, plan_times)
+    launches.update(cli_launches)
+    cli_launches, matmul_rows["cli_f64"] = cli_f64(torch, dft, hf)
     launches.update(cli_launches)
     xla_inverse_probe(torch, dft)
     tmp.spawn(cli_rank_main, args=(multihost.local_coordinator(), outdir),
@@ -1740,6 +2192,9 @@ def main() -> int:
     if any(r["launches"] < 1 for r in rows):
         fail(f"a kernel never launched on the main paths: {launches}")
     emit(phase="done", seconds=time.perf_counter() - t_start)
+    # The matmul backend is no kernel: its numbers stand on a line of their
+    # own (every plan of it launched no kernel; its dispatches counted).
+    print(json.dumps({"matmul_backend": matmul_rows}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -31,12 +31,9 @@ from .. import params as pm
 from ..ops.fft import _NOT_PORTED, BACKENDS
 from ..parallel import multihost
 
+# The ROADMAP Queue 1 items whose flags still raise (items keep their
+# numbers once done: 1-4 and 7 run).
 LATER_ITEMS = {
-    2: "ROADMAP Queue 1, item 2 (opt 1, the realigned exchange)",
-    3: "ROADMAP Queue 1, item 3 (the matmul backend, which runs the JAX "
-       "package's f64 'pallas' path)",
-    7: "ROADMAP Queue 1, item 7 (exchange renderings: STREAMS and the "
-       "pipelined all-to-all)",
     9: "ROADMAP Queue 1, item 9 (resilience: guards and selftest)",
     11: "ROADMAP Queue 1, item 11 (autotune and wisdom)",
     12: "ROADMAP Queue 1, item 12 (observability)",
@@ -70,14 +67,16 @@ def add_common_args(ap: argparse.ArgumentParser,
     ap.add_argument("--host-staged", dest="cuda_aware", action="store_false",
                     help="label this run as host-staged (cuda=0 in CSV names)")
     ap.add_argument("--double_prec", "-d", action="store_true",
-                    help="use float64/complex128 (under --fft-backend xla)")
+                    help="use float64/complex128 (under 'pallas' the "
+                         "matmul backend runs it, as in the JAX package)")
     ap.add_argument("--benchmark_dir", "-b", default="benchmarks",
                     help="prefix for the benchmark directory")
     ap.add_argument("--fft-backend", default="xla",
                     choices=BACKENDS + ("auto",),
                     help="local transform implementation: torch.fft (cuFFT "
-                         "on the card; 'xla', the default) or the "
-                         "hand-written CUDA kernels ('pallas')")
+                         "on the card; 'xla', the default), DFT products "
+                         "('matmul', 'matmul-r2') or the hand-written CUDA "
+                         "kernels ('pallas')")
     ap.add_argument("--wisdom", default=None, metavar="PATH",
                     help="persistent plan-wisdom store (not ported yet)")
     ap.add_argument("--no-wisdom", action="store_true",
@@ -105,12 +104,13 @@ def add_common_args(ap: argparse.ArgumentParser,
                     help='"Peer2Peer" (a send and a receive to every peer) '
                          'or "All2All" (one all-to-all)')
     ap.add_argument("--send-method", "-snd", default="Sync",
-                    help="Sync (monolithic exchange) | Ring (point-to-point "
-                         "ring with per-block FFTs between steps; owns the "
-                         "rendering regardless of comm method) | "
-                         "RingOverlap (the ring with transfers issued ahead "
-                         "of the compute; bit-identical output) | "
-                         "MPI_Type (alias of Sync)")
+                    help="Sync (monolithic exchange) | Streams (the "
+                         "exchange in pieces of the free axis) | Ring "
+                         "(point-to-point ring with per-block FFTs between "
+                         "steps; owns the rendering regardless of comm "
+                         "method) | RingOverlap (the ring with transfers "
+                         "issued ahead of the compute; bit-identical "
+                         "output) | MPI_Type (alias of Sync)")
     ap.add_argument("--streams-chunks", type=int, default=None,
                     help="piece count for the Streams transpose (ignored "
                          "unless the send method is Streams)")
@@ -119,7 +119,8 @@ def add_common_args(ap: argparse.ArgumentParser,
                          "(2 | 4 | 8 | 'auto' = 2)")
     ap.add_argument("--overlap-subblocks", type=int, default=None,
                     help="split every exchanged ring block into this many "
-                         "sub-blocks (default 1)")
+                         "sub-blocks, or, under All2All + Sync, pipeline "
+                         "the all-to-all in this many pieces (default 1)")
     ap.add_argument("--wire-dtype", "-wire",
                     default=os.environ.get("DFFT_WIRE", "native"),
                     choices=("native", "bf16", "auto"),
@@ -142,12 +143,10 @@ def add_common_args(ap: argparse.ArgumentParser,
                          "built on the device")
 
 
-def refuse_later_items(args, kind: str = "slab") -> None:
+def refuse_later_items(args) -> None:
     """Raise ``NotImplementedError`` for the first flag that asks for a
-    feature of a later ROADMAP item. ``kind`` is "slab" or "reference" (on
-    the reference executable ``-o 1`` selects the all-to-all probe)."""
+    feature of a later ROADMAP item."""
     comm = str(args.comm_method).strip().lower()
-    snd = pm.SendMethod.parse(args.send_method)
     for flag, item, on in (
             ("--autotune-comm", 11, getattr(args, "autotune_comm", False)),
             ("--autotune", 11, getattr(args, "autotune", False)),
@@ -160,16 +159,7 @@ def refuse_later_items(args, kind: str = "slab") -> None:
             ("--obs", 12, args.obs),
             ("--obs-dir", 12, args.obs_dir is not None),
             ("--profile-dir", 12, args.profile_dir is not None),
-            ("--profile-stages", 12, args.profile_stages),
-            ("-o 1", 2, kind == "slab" and args.opt == 1),
-            ("-d under --fft-backend pallas", 3,
-             args.double_prec and args.fft_backend == "pallas"),
-            ("-snd Streams", 7, snd is pm.SendMethod.STREAMS),
-            ("--overlap-subblocks > 1 with All2All + Sync (the pipelined "
-             "all-to-all)", 7,
-             comm != pm.AUTO and (args.overlap_subblocks or 1) > 1
-             and pm.CommMethod.parse(comm) is pm.CommMethod.ALL2ALL
-             and snd in (pm.SendMethod.SYNC, pm.SendMethod.MPI_TYPE))):
+            ("--profile-stages", 12, args.profile_stages)):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet ({LATER_ITEMS[item]})")

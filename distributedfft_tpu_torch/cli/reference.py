@@ -45,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_later_items(args, "reference")
+    refuse_later_items(args)
     if args.testcase in _LATER_TESTCASES:
         raise NotImplementedError(
             f"reference testcase {args.testcase} is not ported yet "

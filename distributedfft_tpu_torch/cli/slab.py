@@ -34,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_later_items(args, "slab")
+    refuse_later_items(args)
     return run("distributedfft_tpu_torch.cli.slab", args, argv)
 
 

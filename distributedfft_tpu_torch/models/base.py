@@ -56,6 +56,10 @@ class DistFFTPlan:
         self.device = resolve_device(device)
         self.real_dtype, self.complex_dtype = local_fft.dtypes_for(
             self.config.double_prec)
+        # The matmul backend's settings, resolved once here: every local
+        # FFT of the plan runs under this snapshot (None: the process
+        # defaults at each call, when the Config sets no mxu_* knob).
+        self._mxu_st = self.config.mxu_settings()
         # Single-process path, exactly the reference's fft3d = (pcnt == 1).
         self.fft3d = partition.num_ranks == 1
         # The process group the exchanges run over (None: the world group,
@@ -122,37 +126,35 @@ class DistFFTPlan:
         return ck
 
     def _fft3d_r2c(self) -> Pipeline:
-        norm, be = self.config.norm, self.config.fft_backend
+        kw = dict(norm=self.config.norm, backend=self.config.fft_backend,
+                  settings=self._mxu_st)
         ck = self._chunk_for(self.input_shape[0])
 
         def run(x: torch.Tensor) -> torch.Tensor:
             if ck is None:
-                return local_fft.rfftn_3d(x, norm=norm, backend=be)
+                return local_fft.rfftn_3d(x, **kw)
             # Memory-bounded large-cube path: z+y stages per leading-axis
             # chunk; the x stage needs the full axis and runs on the
             # already-halved spectrum.
-            parts = [local_fft.fft(local_fft.rfft(xs, axis=-1, norm=norm,
-                                                  backend=be),
-                                   axis=-2, norm=norm, backend=be)
+            parts = [local_fft.fft(local_fft.rfft(xs, axis=-1, **kw),
+                                   axis=-2, **kw)
                      for xs in torch.chunk(x, ck, dim=0)]
-            return local_fft.fft(torch.cat(parts, dim=0), axis=-3, norm=norm,
-                                 backend=be)
+            return local_fft.fft(torch.cat(parts, dim=0), axis=-3, **kw)
 
         return run
 
     def _fft3d_c2r(self) -> Pipeline:
-        norm, be = self.config.norm, self.config.fft_backend
+        kw = dict(norm=self.config.norm, backend=self.config.fft_backend,
+                  settings=self._mxu_st)
         shape = self.input_shape
         ck = self._chunk_for(shape[0])
 
         def run(c: torch.Tensor) -> torch.Tensor:
             if ck is None:
-                return local_fft.irfftn_3d(c, shape, norm=norm, backend=be)
-            c = local_fft.ifft(c, axis=-3, norm=norm, backend=be)
-            parts = [local_fft.irfft(local_fft.ifft(cs, axis=-2, norm=norm,
-                                                    backend=be),
-                                     n=shape[-1], axis=-1, norm=norm,
-                                     backend=be)
+                return local_fft.irfftn_3d(c, shape, **kw)
+            c = local_fft.ifft(c, axis=-3, **kw)
+            parts = [local_fft.irfft(local_fft.ifft(cs, axis=-2, **kw),
+                                     n=shape[-1], axis=-1, **kw)
                      for cs in torch.chunk(c, ck, dim=0)]
             return torch.cat(parts, dim=0)
 
@@ -161,12 +163,13 @@ class DistFFTPlan:
     def _fft3d_c2c(self, forward: bool) -> Pipeline:
         """Single-device full 3D C2C (both directions unnormalized under
         FFTNorm.NONE, like cuFFT's CUFFT_FORWARD/CUFFT_INVERSE)."""
-        norm, be = self.config.norm, self.config.fft_backend
+        kw = dict(norm=self.config.norm, backend=self.config.fft_backend,
+                  settings=self._mxu_st)
         axes = (-3, -2, -1)
 
         def run(c: torch.Tensor) -> torch.Tensor:
             if forward:
-                return local_fft.fftn(c, axes, norm=norm, backend=be)
-            return local_fft.ifftn(c, axes, norm=norm, backend=be)
+                return local_fft.fftn(c, axes, **kw)
+            return local_fft.ifftn(c, axes, **kw)
 
         return run

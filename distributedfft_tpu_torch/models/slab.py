@@ -8,16 +8,25 @@ then the pre axes), pads the split axis to a multiple of P, and one
 exchange scatters the split axis and gathers x; then the post axes run.
 The inverse runs the same steps backwards.
 
-The exchange is rendered as one all-to-all (ALL2ALL + SYNC), as a send
-and a receive to every peer posted at once (PEER2PEER + SYNC; the same
-result bit for bit; MPI_TYPE is SYNC's alias) or as a ring of
-point-to-point steps (``SendMethod.RING`` / ``RING_OVERLAP``; the ring
-owns the exchange whatever ``comm_method`` says, as in the JAX package).
-On a ring, the post-exchange transforms that do not run along the gathered
-axis run on each peer block as it arrives. Either rendering takes
-``wire_dtype="bf16"``; on a ring ``fused_wire`` swaps the wire boundary
-for the kernels of ``ops/hopper_fft.py`` (encode; decode, or decode fused
-with the first per-block DFT).
+The exchange is rendered as one all-to-all (ALL2ALL + SYNC, at opt 0 or
+the realigned opt 1, which the port packs alike), as a send and a receive
+to every peer posted at once (PEER2PEER + SYNC; the same result bit for
+bit; MPI_TYPE is SYNC's alias), as the pipelined all-to-all (ALL2ALL +
+SYNC with ``overlap_subblocks`` > 1: pieces of the free axis, each issued
+ahead of the ones before it are landed), as STREAMS (K exchanges on pieces
+of the free axis; under ALL2ALL each piece runs its post-exchange FFTs
+before the next piece's exchange, as the JAX package's STREAMS engine
+does) or as a ring of point-to-point steps (``SendMethod.RING`` /
+``RING_OVERLAP``; the ring owns the exchange whatever ``comm_method``
+says, as in the JAX package). On a ring, the post-exchange transforms that
+do not run along the gathered axis run on each peer block as it arrives.
+Every rendering takes ``wire_dtype="bf16"``; on a ring ``fused_wire``
+swaps the wire boundary for the kernels of ``ops/hopper_fft.py`` (encode;
+decode, or decode fused with the first per-block DFT). The renderings of
+one plan give the same result bit for bit where they run the same FFTs on
+the same blocks; a ring's pipelined c2c inverse and STREAMS under ALL2ALL
+run them in another order or on narrower blocks, and agree within
+rounding, as in the JAX package.
 
 The staged surface (``forward_stages`` / ``inverse_stages``,
 ``section_descriptions``, ``variant_name``) splits each direction into the
@@ -62,14 +71,14 @@ from .. import params as pm
 from ..ops import fft as lf
 from ..ops import hopper_fft as hf
 from ..parallel.mesh import make_slab_group
-from ..parallel.transpose import (all_to_all_transpose, pad_axis_to,
-                                  peer_to_peer_transpose, ring_transpose,
-                                  slice_axis_to)
+from ..parallel.transpose import (all_to_all_transpose, concat_axis_chunks,
+                                  pad_axis_to, peer_to_peer_transpose,
+                                  pipelined_all_to_all, ring_subblocks,
+                                  ring_transpose, slice_axis_to,
+                                  split_axis_chunks, wire_complex_dtype)
 from ..utils.native_planner import even_shard_sizes, padded_extent
 from .base import DistFFTPlan, Pipeline
 
-_SLAB_ITEM = "ROADMAP Queue 1, item 2 (the rest of the slab plan)"
-_RENDERINGS_ITEM = "ROADMAP Queue 1, item 7 (exchange renderings)"
 _ODDITY_ITEM = "ROADMAP Queue 3 (the reference's P=1 Y_Then_ZX oddity)"
 
 
@@ -115,7 +124,6 @@ class SlabFFTPlan(DistFFTPlan):
         self._P = P
         self.rank = 0
         if P > 1:
-            self._check_rendering()
             if group is None or group is dist.group.WORLD:
                 # Held as None, which every collective reads as the world
                 # group: a plan still holding the world group's object at
@@ -138,32 +146,6 @@ class SlabFFTPlan(DistFFTPlan):
         self._split_ext = self._spec_shape[s.split_axis]
         self._nx_pad = padded_extent(g.nx, P)
         self._split_pad = padded_extent(self._split_ext, P)
-
-    def _check_rendering(self) -> None:
-        """The exchange renderings this slice has: a ring (RING or
-        RING_OVERLAP, with depth, sub-blocks and the fused wire), or, at opt
-        0, ALL2ALL or PEER2PEER with a SYNC send (MPI_TYPE is its alias);
-        any of them with the native or the bf16 wire."""
-        cfg = self.config
-        if cfg.send_method.is_ring:
-            return      # the ring owns the exchange (comm_method, opt inert)
-        if cfg.opt != 0:
-            raise NotImplementedError(
-                f"opt {cfg.opt} (the realigned exchange) is not ported yet "
-                f"({_SLAB_ITEM})")
-        a2a = cfg.comm_method is pm.CommMethod.ALL2ALL
-        for what, ok in (
-                (f"send_method {cfg.send_method.value}",
-                 cfg.send_method in (pm.SendMethod.SYNC,
-                                     pm.SendMethod.MPI_TYPE)),
-                (f"overlap_subblocks {cfg.overlap_subblocks} (the pipelined "
-                 f"all-to-all)",
-                 not a2a or cfg.resolved_overlap_subblocks() <= 1)):
-            if not ok:
-                raise NotImplementedError(
-                    f"{what} is not ported yet ({_RENDERINGS_ITEM}); the "
-                    f"port's distributed slab runs RING / RING_OVERLAP, or "
-                    f"ALL2ALL / PEER2PEER + SYNC at opt 0")
 
     # -- shapes & size tables ---------------------------------------------
 
@@ -333,6 +315,12 @@ class SlabFFTPlan(DistFFTPlan):
 
     # -- pipelines ----------------------------------------------------------
 
+    def _fft_kw(self) -> dict:
+        """The keywords of every local FFT of the plan."""
+        cfg = self.config
+        return dict(norm=cfg.norm, backend=cfg.fft_backend,
+                    settings=self._mxu_st)
+
     def _exchange_kw(self) -> dict:
         """The ring's schedule knobs from the Config."""
         cfg = self.config
@@ -341,25 +329,83 @@ class SlabFFTPlan(DistFFTPlan):
                     depth=cfg.resolved_overlap_depth(),
                     subblocks=cfg.resolved_overlap_subblocks())
 
-    def _exchange(self):
-        """The monolithic exchange of a SYNC / MPI_TYPE send: one all-to-all
-        (ALL2ALL) or a send and a receive to every peer (PEER2PEER); both
-        give the same result bit for bit."""
-        if self.config.comm_method is pm.CommMethod.PEER2PEER:
-            return peer_to_peer_transpose
-        return all_to_all_transpose
+    def _streams_chunk_axis(self) -> int:
+        """The axis the pieced exchanges cut: the one in neither side of the
+        exchange (split axis <-> 0 leaves exactly one of {1, 2} free)."""
+        return next(a for a in (1, 2) if a != self._seq.split_axis)
+
+    def _a2a_pipe_chunks(self) -> int:
+        """Pieces of the pipelined all-to-all (ALL2ALL + SYNC / MPI_TYPE
+        with ``overlap_subblocks`` > 1), clamped to the free axis's
+        extent; 1 wherever another rendering owns the exchange."""
+        cfg = self.config
+        if (self.fft3d or cfg.comm_method is not pm.CommMethod.ALL2ALL
+                or cfg.send_method not in (pm.SendMethod.SYNC,
+                                           pm.SendMethod.MPI_TYPE)):
+            return 1
+        return ring_subblocks(
+            self.output_padded_shape[self._streams_chunk_axis()],
+            cfg.resolved_overlap_subblocks())
+
+    def _xpose_bodies(self, chunks: Optional[int] = None):
+        """``(forward, inverse)`` exchange bodies of a plan that no ring
+        owns: the all-to-all (ALL2ALL, at the Config's opt) or Peer2Peer
+        (PEER2PEER), each the whole block at once; the pipelined
+        all-to-all where ``_a2a_pipe_chunks`` > 1; with ``chunks`` > 1,
+        that many independent exchanges of pieces of the free axis
+        (STREAMS' exchanges). Every one gives the monolithic result bit
+        for bit."""
+        cfg = self.config
+        realigned, wire = cfg.opt == 1, cfg.wire_dtype
+        group, sa = self.group, self._seq.split_axis
+        ca = self._streams_chunk_axis()
+        a2a = cfg.comm_method is pm.CommMethod.ALL2ALL
+
+        def one(cl, split, concat):
+            if a2a:
+                return all_to_all_transpose(cl, group, split, concat,
+                                            realigned=realigned, wire=wire)
+            return peer_to_peer_transpose(cl, group, split, concat,
+                                          wire=wire)
+
+        if chunks is None and self._a2a_pipe_chunks() > 1:
+            pk, depth = self._a2a_pipe_chunks(), cfg.resolved_overlap_depth()
+
+            def piped(cl, split, concat):
+                return pipelined_all_to_all(
+                    cl, group, split, concat, chunk_axis=ca, chunks=pk,
+                    depth=depth, realigned=realigned, wire=wire)
+
+            return (lambda cl: piped(cl, sa, 0)), (lambda cl: piped(cl, 0, sa))
+        if chunks is None or chunks <= 1:
+            return (lambda cl: one(cl, sa, 0)), (lambda cl: one(cl, 0, sa))
+
+        def chunked(cl, split, concat):
+            return concat_axis_chunks(
+                [one(p, split, concat)
+                 for p in split_axis_chunks(cl, ca, chunks)], ca)
+
+        return (lambda cl: chunked(cl, sa, 0)), (lambda cl: chunked(cl, 0, sa))
+
+    def _exchange_bodies(self):
+        """The exchange pair of the staged surface: ``_xpose_bodies`` of
+        this Config, with STREAMS as its K pieced exchanges."""
+        if self.config.send_method is pm.SendMethod.STREAMS:
+            return self._xpose_bodies(
+                chunks=self.config.resolved_streams_chunks())
+        return self._xpose_bodies()
 
     def _ring_pipe(self, axes: Tuple[int, ...], inverse: bool = False):
         """Shape-preserving per-block FFTs over ``axes`` (None when
         empty: the ring then runs no per-block stage)."""
         if not axes:
             return None
-        norm, be = self.config.norm, self.config.fft_backend
+        kw = self._fft_kw()
         tf = lf.ifft if inverse else lf.fft
 
         def pipe(b: torch.Tensor) -> torch.Tensor:
             for a in axes:
-                b = tf(b, axis=a, norm=norm, backend=be)
+                b = tf(b, axis=a, **kw)
             return b
 
         return pipe
@@ -370,8 +416,10 @@ class SlabFFTPlan(DistFFTPlan):
         encode is kernel 9 and the arrival is kernel 11 (decode fused with
         the first per-block DFT, then the remaining axes' plain pipe), or
         kernel 10 where there is no per-block FFT; otherwise ``(None, None,
-        pipe)`` keeps the plain wire layer. ``pipe`` is always the whole
-        per-block pipeline: the local block never touches the wire."""
+        pipe)`` keeps the plain wire layer. A double-precision plan's
+        arrival decodes plainly and runs the matmul backend's DFT
+        (``hf.decode_fft_fused``). ``pipe`` is always the whole per-block
+        pipeline: the local block never touches the wire."""
         cfg = self.config
         pipe = self._ring_pipe(pipe_axes, inverse)
         if not cfg.fused_wire_active():
@@ -379,18 +427,14 @@ class SlabFFTPlan(DistFFTPlan):
         if not pipe_axes:
             enc_fn, arr_fn = hf.fused_ring_hooks(cfg)
             return enc_fn, arr_fn, pipe
-        if cfg.double_prec:
-            raise NotImplementedError(
-                "the fused decode + DFT of a double-precision plan runs the "
-                "matmul backend in the JAX package; it is not ported yet "
-                "(ROADMAP Queue 1, item 3)")
-        norm = cfg.norm
+        norm, st = cfg.norm, self._mxu_st
+        cdt = wire_complex_dtype(cfg.double_prec)
         first_ax = pipe_axes[0]
         rest_pipe = self._ring_pipe(pipe_axes[1:], inverse)
 
         def arrive(b: torch.Tensor) -> torch.Tensor:
-            b = hf.decode_fft_fused(b, torch.complex64, first_ax,
-                                    inverse=inverse, norm=norm)
+            b = hf.decode_fft_fused(b, cdt, first_ax, inverse=inverse,
+                                    norm=norm, settings=st)
             return rest_pipe(b) if rest_pipe is not None else b
 
         return hf.wire_encode_fused, arrive, pipe
@@ -400,40 +444,35 @@ class SlabFFTPlan(DistFFTPlan):
         C2C) axis and the pre axes of the x-slab, the exchange, the post
         axes. On a ring the post axes other than the gathered x run per
         arriving block inside ``xpose``."""
-        s, cfg = self._seq, self.config
-        norm, be = cfg.norm, cfg.fft_backend
+        s, cfg, kw = self._seq, self.config, self._fft_kw()
         split_pad, nx = self._split_pad, self.global_size.nx
         first_axis = lf.fft if self.transform == "c2c" else lf.rfft
         group, sa = self.group, s.split_axis
 
         def first(xl: torch.Tensor) -> torch.Tensor:
-            c = first_axis(xl, axis=s.r2c_axis, norm=norm, backend=be)
+            c = first_axis(xl, axis=s.r2c_axis, **kw)
             for a in s.pre_axes:
-                c = lf.fft(c, axis=a, norm=norm, backend=be)
+                c = lf.fft(c, axis=a, **kw)
             return pad_axis_to(c, sa, split_pad)
 
         if cfg.send_method.is_ring:
             enc_fn, arr_fn, pipe = self._ring_hooks(
                 tuple(a for a in s.post_axes if a != 0))
             rest = tuple(a for a in s.post_axes if a == 0)
-            kw = self._exchange_kw()
+            ring_kw = self._exchange_kw()
 
             def xpose(cl: torch.Tensor) -> torch.Tensor:
                 return ring_transpose(cl, group, sa, 0, pipeline_fn=pipe,
                                       encode_fn=enc_fn, arrive_fn=arr_fn,
-                                      **kw)
+                                      **ring_kw)
         else:
-            rest, wire, exchange = s.post_axes, cfg.wire_dtype, \
-                self._exchange()
-
-            def xpose(cl: torch.Tensor) -> torch.Tensor:
-                return exchange(cl, group, sa, 0, wire=wire)
+            rest, xpose = s.post_axes, self._exchange_bodies()[0]
 
         def last(cl: torch.Tensor) -> torch.Tensor:
             # Drop the zero pad rows of x before transforming along it.
             c = slice_axis_to(cl, 0, nx)
             for a in rest:
-                c = lf.fft(c, axis=a, norm=norm, backend=be)
+                c = lf.fft(c, axis=a, **kw)
             return c
 
         return first, xpose, last
@@ -443,8 +482,7 @@ class SlabFFTPlan(DistFFTPlan):
         pipelined set is the C2C axes of ``last`` other than the gathered
         split axis; for ``c2c`` that includes the r2c axis, whose IFFT then
         runs per block ahead of the split axis's, as in the JAX package."""
-        s, cfg = self._seq, self.config
-        norm, be = cfg.norm, cfg.fft_backend
+        s, cfg, kw = self._seq, self.config, self._fft_kw()
         nx_pad, split_ext = self._nx_pad, self._split_ext
         real_n = self.global_size.nz if s.r2c_axis == 2 else \
             self.global_size.ny
@@ -454,7 +492,7 @@ class SlabFFTPlan(DistFFTPlan):
         def first(cl: torch.Tensor) -> torch.Tensor:
             c = cl
             for a in reversed(s.post_axes):
-                c = lf.ifft(c, axis=a, norm=norm, backend=be)
+                c = lf.ifft(c, axis=a, **kw)
             return pad_axis_to(c, 0, nx_pad)
 
         if cfg.send_method.is_ring:
@@ -464,38 +502,108 @@ class SlabFFTPlan(DistFFTPlan):
             enc_fn, arr_fn, pipe = self._ring_hooks(pipe_axes, inverse=True)
             after = tuple(a for a in reversed(s.pre_axes) if a == sa)
             r2c_last = not c2c or s.r2c_axis == sa
-            kw = self._exchange_kw()
+            ring_kw = self._exchange_kw()
 
             def xpose(cl: torch.Tensor) -> torch.Tensor:
                 return ring_transpose(cl, group, 0, sa, pipeline_fn=pipe,
                                       encode_fn=enc_fn, arrive_fn=arr_fn,
-                                      **kw)
+                                      **ring_kw)
         else:
             after, r2c_last = tuple(reversed(s.pre_axes)), True
-            wire, exchange = cfg.wire_dtype, self._exchange()
-
-            def xpose(cl: torch.Tensor) -> torch.Tensor:
-                return exchange(cl, group, 0, sa, wire=wire)
+            xpose = self._exchange_bodies()[1]
 
         def last(cl: torch.Tensor) -> torch.Tensor:
             # Drop the pad lanes of the split axis before inverting along
             # the remaining axes.
             c = slice_axis_to(cl, sa, split_ext)
             for a in after:
-                c = lf.ifft(c, axis=a, norm=norm, backend=be)
+                c = lf.ifft(c, axis=a, **kw)
             if not r2c_last:
                 return c
             if c2c:
-                return lf.ifft(c, axis=s.r2c_axis, norm=norm, backend=be)
-            return lf.irfft(c, n=real_n, axis=s.r2c_axis, norm=norm,
-                            backend=be)
+                return lf.ifft(c, axis=s.r2c_axis, **kw)
+            return lf.irfft(c, n=real_n, axis=s.r2c_axis, **kw)
 
         return first, xpose, last
+
+    # -- STREAMS under ALL2ALL: K (exchange -> FFT) piece chains ------------
+    # The reference's Streams engine (per-peer packs on CUDA streams, a
+    # callback thread and MPI_Isend, src/slab/default/mpicufft_slab.cpp:
+    # 343-448) as the JAX package renders it: the block splits into K
+    # pieces along the free axis, and each piece's exchange is followed by
+    # its post-exchange FFTs before the next piece's exchange. FFTs along
+    # the free axis itself run once on the reassembled block; separable
+    # DFT axes commute, so the result is the SYNC plan's. In the JAX
+    # package GSPMD may schedule the K collectives together; here they are
+    # K exchanges, one after another, each ending before its FFTs.
+
+    def _streams_split(self):
+        """(chunk axis, pieces, per-piece post axes, after-concat post
+        axes) of the STREAMS pipeline."""
+        ca = self._streams_chunk_axis()
+        k = self.config.resolved_streams_chunks()
+        per_chunk = tuple(a for a in self._seq.post_axes if a != ca)
+        after = tuple(a for a in self._seq.post_axes if a == ca)
+        return ca, k, per_chunk, after
+
+    def _streams_fwd_body(self) -> Pipeline:
+        """The forward of ALL2ALL + STREAMS: the first stage, then K
+        independent (exchange -> post FFTs) piece chains."""
+        kw, nx = self._fft_kw(), self.global_size.nx
+        ca, k, per_chunk, after = self._streams_split()
+        first = self._fwd_parts()[0]
+        xpose = self._xpose_bodies()[0]
+
+        def body(xl: torch.Tensor) -> torch.Tensor:
+            outs = []
+            for piece in split_axis_chunks(first(xl), ca, k):
+                y = slice_axis_to(xpose(piece), 0, nx)
+                for a in per_chunk:
+                    y = lf.fft(y, axis=a, **kw)
+                outs.append(y)
+            c = concat_axis_chunks(outs, ca)
+            for a in after:
+                c = lf.fft(c, axis=a, **kw)
+            return c
+
+        return body
+
+    def _streams_inv_body(self) -> Pipeline:
+        """The inverse of ALL2ALL + STREAMS: the free axis's inverse FFT on
+        the whole block, then K independent (inverse FFTs -> exchange back)
+        piece chains, then the shared last stage."""
+        kw, nx_pad = self._fft_kw(), self._nx_pad
+        ca, k, per_chunk, after = self._streams_split()
+        xpose_inv = self._xpose_bodies()[1]
+        last = self._inv_parts()[2]
+
+        def body(cl: torch.Tensor) -> torch.Tensor:
+            c = cl
+            for a in after:
+                c = lf.ifft(c, axis=a, **kw)
+            outs = []
+            for piece in split_axis_chunks(c, ca, k):
+                # A contiguous piece: on the card its FFTs then run on the
+                # column kernel where they lie, as the whole block's do.
+                y = piece.contiguous()
+                for a in reversed(per_chunk):
+                    y = lf.ifft(y, axis=a, **kw)
+                outs.append(xpose_inv(pad_axis_to(y, 0, nx_pad)))
+            return last(concat_axis_chunks(outs, ca))
+
+        return body
+
+    def _streams_a2a(self) -> bool:
+        cfg = self.config
+        return (cfg.send_method is pm.SendMethod.STREAMS
+                and cfg.comm_method is pm.CommMethod.ALL2ALL)
 
     def _build_r2c(self) -> Pipeline:
         if self.fft3d:
             return (self._fft3d_c2c(forward=True) if self.transform == "c2c"
                     else self._fft3d_r2c())
+        if self._streams_a2a():
+            return self._streams_fwd_body()
         first, xpose, last = self._fwd_parts()
         return lambda xl: last(xpose(first(xl)))
 
@@ -503,6 +611,8 @@ class SlabFFTPlan(DistFFTPlan):
         if self.fft3d:
             return (self._fft3d_c2c(forward=False) if self.transform == "c2c"
                     else self._fft3d_c2r())
+        if self._streams_a2a():
+            return self._streams_inv_body()
         first, xpose, last = self._inv_parts()
         return lambda cl: last(xpose(first(cl)))
 

@@ -2,34 +2,39 @@
 cuFFT shim (``include/cufft.hpp:23-61``).
 
 Every entry point takes ``backend`` (the ``Config.fft_backend`` strings of
-the JAX package):
+the JAX package) and ``settings`` (an ``mxu_fft.MXUSettings``, scoped
+around the call; None keeps the settings in effect):
 
 * ``"xla"`` runs ``torch.fft`` — cuFFT on the card — with the cuFFT
-  "unnormalized both ways" convention mapped through ``FFTNorm``;
+  "unnormalized both ways" convention mapped through ``FFTNorm``; it reads
+  no settings;
+* ``"matmul"`` runs the matmul backend (``ops/mxu_fft.py``): DFT products
+  and the four-step, at the settings' precision; ``"matmul-r2"`` is the
+  same backend with ``radix2`` forced on;
 * ``"pallas"`` runs the hand-written Hopper kernels (``ops/hopper_fft.py``):
   the fused 3D kernels for single-device cubes at direct sizes, the
   per-axis stage kernels everywhere else. Double precision and prime axes
-  above 1024 raise ``NotImplementedError`` (the JAX package runs them on
-  its matmul backend, not ported yet);
-* ``"matmul"``, ``"matmul-r2"`` and ``"bluestein"`` are not ported yet and
-  raise ``NotImplementedError``.
+  above 1024 take the matmul backend there, under the same settings scope,
+  as in the JAX package;
+* ``"bluestein"`` is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Sequence, Tuple
 
 import torch
 
 from ..params import FFTNorm
 from . import hopper_fft
+from . import mxu_fft
 
 BACKENDS = ("xla", "matmul", "matmul-r2", "pallas", "bluestein")
 
 # Where in ROADMAP.md each backend that is not ported yet is scheduled.
 _NOT_PORTED = {
-    "matmul": "ROADMAP Queue 1, item 3 (the mxu_fft matmul backend)",
-    "matmul-r2": "ROADMAP Queue 1, item 3 (the mxu_fft matmul backend)",
     "bluestein": "ROADMAP Queue 1, item 8 (arbitrary sizes)",
 }
 
@@ -41,14 +46,30 @@ def validate_backend(backend: str) -> str:
     return backend
 
 
-def _pallas(backend: str, what: str) -> bool:
-    """True for "pallas", False for "xla"; raise for a backend that is not
-    ported yet (``what`` names the call)."""
-    if validate_backend(backend) in ("xla", "pallas"):
-        return backend == "pallas"
-    raise NotImplementedError(
-        f"{what} with fft_backend={backend!r} is not ported yet: "
-        f"{_NOT_PORTED[backend]}")
+def _impl(backend: str, what: str):
+    """The module that runs ``backend`` (None for "xla"); raise for a
+    backend that is not ported yet (``what`` names the call)."""
+    b = validate_backend(backend)
+    if b in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{what} with fft_backend={backend!r} is not ported yet: "
+            f"{_NOT_PORTED[backend]}")
+    if b == "pallas":
+        return hopper_fft
+    return None if b == "xla" else mxu_fft
+
+
+def _settings_ctx(backend: str, settings):
+    """The ``MXUSettings`` scope of a non-"xla" dispatch. ``"matmul-r2"``
+    forces ``radix2`` on whatever the caller's settings say; "pallas" is
+    scoped the same way, so a plan's precision reaches the axes it hands to
+    the matmul backend."""
+    if backend == "matmul-r2":
+        settings = dataclasses.replace(
+            settings or mxu_fft.current_settings(), radix2=True)
+    if settings is None:
+        return contextlib.nullcontext()
+    return mxu_fft.use_settings(settings)
 
 
 def dtypes_for(double_prec: bool) -> Tuple[torch.dtype, torch.dtype]:
@@ -73,61 +94,81 @@ def _inv_norm(norm: FFTNorm) -> str:
     return "backward"
 
 
-def rfft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla"):
+def rfft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
+         settings=None):
     """Forward R2C along one axis (cuFFT ``execR2C`` analog, 1D case)."""
-    if _pallas(backend, "rfft"):
-        return hopper_fft.rfft(x, axis=axis, norm=norm)
+    m = _impl(backend, "rfft")
+    if m is not None:
+        with _settings_ctx(backend, settings):
+            return m.rfft(x, axis=axis, norm=norm)
     return torch.fft.rfft(x, dim=axis, norm=_fwd_norm(norm))
 
 
 def irfft(x, n: int, axis: int, norm: FFTNorm = FFTNorm.NONE,
-          backend: str = "xla"):
+          backend: str = "xla", settings=None):
     """Inverse C2R along one axis; ``n`` is the real output extent."""
-    if _pallas(backend, "irfft"):
-        return hopper_fft.irfft(x, n=n, axis=axis, norm=norm)
+    m = _impl(backend, "irfft")
+    if m is not None:
+        with _settings_ctx(backend, settings):
+            return m.irfft(x, n=n, axis=axis, norm=norm)
     return torch.fft.irfft(x, n=n, dim=axis, norm=_inv_norm(norm))
 
 
-def fft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla"):
+def fft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
+        settings=None):
     """Forward C2C along one axis (cuFFT ``execC2C(..., CUFFT_FORWARD)``)."""
-    if _pallas(backend, "fft"):
-        return hopper_fft.fft(x, axis=axis, norm=norm)
+    m = _impl(backend, "fft")
+    if m is not None:
+        with _settings_ctx(backend, settings):
+            return m.fft(x, axis=axis, norm=norm)
     return torch.fft.fft(x, dim=axis, norm=_fwd_norm(norm))
 
 
-def ifft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla"):
+def ifft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
+         settings=None):
     """Inverse C2C along one axis (cuFFT ``execC2C(..., CUFFT_INVERSE)``)."""
-    if _pallas(backend, "ifft"):
-        return hopper_fft.ifft(x, axis=axis, norm=norm)
+    m = _impl(backend, "ifft")
+    if m is not None:
+        with _settings_ctx(backend, settings):
+            return m.ifft(x, axis=axis, norm=norm)
     return torch.fft.ifft(x, dim=axis, norm=_inv_norm(norm))
 
 
 def fftn(x, axes: Sequence[int], norm: FFTNorm = FFTNorm.NONE,
-         backend: str = "xla"):
-    if _pallas(backend, "fftn"):
-        return hopper_fft.fftn(x, axes, norm=norm)
+         backend: str = "xla", settings=None):
+    m = _impl(backend, "fftn")
+    if m is not None:
+        with _settings_ctx(backend, settings):
+            return m.fftn(x, axes, norm=norm)
     return torch.fft.fftn(x, dim=tuple(axes), norm=_fwd_norm(norm))
 
 
 def ifftn(x, axes: Sequence[int], norm: FFTNorm = FFTNorm.NONE,
-          backend: str = "xla"):
-    if _pallas(backend, "ifftn"):
-        return hopper_fft.ifftn(x, axes, norm=norm)
+          backend: str = "xla", settings=None):
+    m = _impl(backend, "ifftn")
+    if m is not None:
+        with _settings_ctx(backend, settings):
+            return m.ifftn(x, axes, norm=norm)
     return torch.fft.ifftn(x, dim=tuple(axes), norm=_inv_norm(norm))
 
 
-def rfftn_3d(x, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla"):
+def rfftn_3d(x, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
+             settings=None):
     """Single-device full 3D R2C over the trailing three axes — the analog
     of the reference's ``cufftMakePlan3d`` single-process fallback
     (``src/mpicufft.cpp:65``). The halved axis is z (the last)."""
-    if _pallas(backend, "rfftn_3d"):
-        return hopper_fft.rfftn_3d(x, norm=norm)
+    m = _impl(backend, "rfftn_3d")
+    if m is not None:
+        with _settings_ctx(backend, settings):
+            return m.rfftn_3d(x, norm=norm)
     return torch.fft.rfftn(x, dim=(-3, -2, -1), norm=_fwd_norm(norm))
 
 
 def irfftn_3d(x, shape_3d: Tuple[int, int, int], norm: FFTNorm = FFTNorm.NONE,
-              backend: str = "xla"):
-    if _pallas(backend, "irfftn_3d"):
-        return hopper_fft.irfftn_3d(x, shape_3d=shape_3d, norm=norm)
+              backend: str = "xla", settings=None):
+    m = _impl(backend, "irfftn_3d")
+    if m is not None:
+        with _settings_ctx(backend, settings):
+            return m.irfftn_3d(x, shape_3d=shape_3d, norm=norm)
     return torch.fft.irfftn(x, s=tuple(shape_3d), dim=(-3, -2, -1),
                             norm=_inv_norm(norm))

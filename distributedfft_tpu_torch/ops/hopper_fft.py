@@ -65,9 +65,11 @@ Each kernel has here:
   tensor it launches the kernel or raises;
 * a launch count in ``LAUNCHES``, raised by one per kernel launch.
 
-Double precision, and a prime axis above ``mxu_fft.N_MAX``, go to the
-matmul backend in the JAX package; that backend is not ported, so they
-raise ``NotImplementedError``.
+Double precision, and a prime axis above ``mxu_fft.N_MAX``, take the
+matmul backend (``ops/mxu_fft.py``), as ``pallas_fft._use_fallback`` and its
+prime branches route them in the JAX package; each such axis counts one
+in ``DISPATCHES["matmul"]`` (the backend's own counter), never in
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -116,13 +118,16 @@ _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
             "dfft_dec_cmatmul": ("wire", (4, 2)),
             "dfft_dec_fft": ("wire", (3, 4))}
 
-# Roadmap item of what the JAX package sends to the matmul backend.
-_MATMUL_ITEM = "ROADMAP Queue 1, item 3 (the mxu_fft matmul backend)"
+# Per-axis transforms handed to the matmul backend (the same dict as
+# ``mxu_fft.DISPATCHES``).
+DISPATCHES = mx.DISPATCHES
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Set every kernel's launch count and the matmul dispatches to 0."""
+    for d in (LAUNCHES, DISPATCHES):
+        for k in d:
+            d[k] = 0
 
 
 def fused3d_applicable(shape3, dtype) -> bool:
@@ -1265,20 +1270,6 @@ def _c2r_stage(c: torch.Tensor, n: int) -> torch.Tensor:
     return _last_rows(irdft, c.to(torch.complex64), n)
 
 
-def _require_single(dtype: torch.dtype, what: str) -> None:
-    if mx._is_double(dtype):
-        raise NotImplementedError(
-            f"{what} in double precision under fft_backend='pallas' runs "
-            f"the matmul backend in the JAX package; it is not ported yet "
-            f"({_MATMUL_ITEM})")
-
-
-def _prime_too_long(n: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"a prime axis of {n} > {mx.N_MAX} points runs the matmul backend "
-        f"in the JAX package; it is not ported yet ({_MATMUL_ITEM})")
-
-
 def _swap_last(x: torch.Tensor) -> torch.Tensor:
     """Swap the two last axes into a new contiguous tensor."""
     return x.transpose(-1, -2).contiguous()
@@ -1294,11 +1285,15 @@ def _direct(n: int) -> bool:
 def _split_axis(n: int) -> Tuple[int, int]:
     """(n1, n2) of the four-step split of a length that is not ``_direct``
     (``mx._split_for``): n1 = 1 for a prime, which takes one ``cdft`` up
-    to ``mx.N_MAX`` points."""
-    n1, n2 = mx._split_for(n, mx.DIRECT_MAX)
-    if n1 == 1 and n > mx.N_MAX:
-        raise _prime_too_long(n)
-    return n1, n2
+    to ``mx.N_MAX`` points and the matmul backend past it
+    (``_long_prime``)."""
+    return mx._split_for(n, mx.DIRECT_MAX)
+
+
+def _long_prime(n: int) -> bool:
+    """A prime axis past ``mx.N_MAX``: the matmul backend's, in float32
+    under the caller's settings (``pallas_fft._fft_last``'s prime branch)."""
+    return n > mx.N_MAX and _split_axis(n)[0] == 1
 
 
 def _first_stage(a: torch.Tensor, inverse: bool, n1: int,
@@ -1356,6 +1351,9 @@ def _fft_last(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     n = x.shape[-1]
     if _direct(n):
         return _last_rows(cdft, x, inverse)
+    if _long_prime(n):
+        return mx.rows(lambda r: mx._fft_last(r, inverse), x, n,
+                       torch.complex64)
     n1, n2 = _split_axis(n)
     if n1 == 1:
         return _last_rows(cdft, x, inverse)
@@ -1369,6 +1367,8 @@ def _rfft_last(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[-1]
     if _direct(n):
         return _last_rows(rdft, x)
+    if _long_prime(n):
+        return mx.rows(mx._rfft_last, x, n // 2 + 1, torch.complex64)
     n1, n2 = _split_axis(n)
     if n1 == 1:
         return _last_rows(rdft, x)
@@ -1453,23 +1453,33 @@ def _c2c_axis(x: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
     return y.contiguous() if split else y
 
 
+# Double precision takes the matmul backend before anything narrows it to
+# single precision (``pallas_fft._use_fallback``): ``fft`` / ``ifft`` /
+# ``rfft`` as ``mx._fft_last`` / ``mx._rfft_last``, ``irfft`` as the real
+# part of the Hermitian extension's complex inverse (``pallas_fft.irfft``),
+# never the folded C2R matrices.
+
+
 def fft(x: torch.Tensor, axis: int, norm: FFTNorm = FFTNorm.NONE
         ) -> torch.Tensor:
-    _require_single(x.dtype, "fft")
+    if mx._is_double(x.dtype):
+        return mx.fft(x, axis=axis, norm=norm)
     y = _c2c_axis(x.to(torch.complex64), axis, False)
     return mx._scaled(y, mx._fwd_scale(x.shape[axis], norm))
 
 
 def ifft(x: torch.Tensor, axis: int, norm: FFTNorm = FFTNorm.NONE
          ) -> torch.Tensor:
-    _require_single(x.dtype, "ifft")
+    if mx._is_double(x.dtype):
+        return mx.ifft(x, axis=axis, norm=norm)
     y = _c2c_axis(x.to(torch.complex64), axis, True)
     return mx._scaled(y, mx._inv_scale(x.shape[axis], norm))
 
 
 def rfft(x: torch.Tensor, axis: int, norm: FFTNorm = FFTNorm.NONE
          ) -> torch.Tensor:
-    _require_single(x.dtype, "rfft")
+    if mx._is_double(x.dtype):
+        return mx.rfft(x, axis=axis, norm=norm)
     x = x.movedim(axis, -1).to(torch.float32).contiguous()
     y = mx._scaled(_rfft_last(x), mx._fwd_scale(x.shape[-1], norm))
     return y.movedim(-1, axis)
@@ -1477,7 +1487,8 @@ def rfft(x: torch.Tensor, axis: int, norm: FFTNorm = FFTNorm.NONE
 
 def irfft(x: torch.Tensor, n: int, axis: int,
           norm: FFTNorm = FFTNorm.NONE) -> torch.Tensor:
-    _require_single(x.dtype, "irfft")
+    if mx._is_double(x.dtype):
+        return mx.irfft_extended(x, n=n, axis=axis, norm=norm)
     c = mx._fit_axis(x.movedim(axis, -1).to(torch.complex64), -1, n // 2 + 1)
     if _direct(n):
         y = _c2r_stage(c, n)
@@ -1645,27 +1656,25 @@ def wire_decode_fused(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def decode_fft_fused(y: torch.Tensor, dtype: torch.dtype, axis: int,
-                     inverse: bool = False,
-                     norm: FFTNorm = FFTNorm.NONE) -> torch.Tensor:
+                     inverse: bool = False, norm: FFTNorm = FFTNorm.NONE,
+                     settings: Optional[mx.MXUSettings] = None
+                     ) -> torch.Tensor:
     """Decode an arrived block's ``(2,) + block`` planes and run the direct
     DFT along ``axis`` of the block, in one kernel (11) whatever the plan's
     ``fft_backend``, as the JAX package's fused arrival does. The axis
     moves last on the bfloat16 planes (half the bytes of a float32 move);
     the norm scale is applied after the kernel, as in the JAX package.
-    A double-precision target or an axis above ``mx.N_MAX`` points runs the
-    matmul backend there, which is not ported: ``NotImplementedError``."""
+    A double-precision target, or an axis above ``mx.N_MAX`` points, takes
+    the plain decode and then the matmul backend's ``fft`` / ``ifft``
+    under ``settings`` (``pallas_fft.decode_fft_fused``)."""
     block_ndim = y.ndim - 1
     axis %= block_ndim
     n = y.shape[1 + axis]
-    if not _wire_kernel_usable(dtype):
-        raise NotImplementedError(
-            f"decode + DFT into {dtype} runs the matmul backend in the JAX "
-            f"package; it is not ported yet ({_MATMUL_ITEM})")
-    if n > mx.N_MAX:
-        raise NotImplementedError(
-            f"decode + DFT of a {n}-point axis (> {mx.N_MAX}) runs the "
-            f"matmul backend in the JAX package; it is not ported yet "
-            f"({_MATMUL_ITEM})")
+    if not _wire_kernel_usable(dtype) or n > mx.N_MAX:
+        z = y.to(torch.float64 if mx._is_double(dtype) else torch.float32)
+        with mx.use_settings(settings):
+            return (mx.ifft if inverse else mx.fft)(
+                torch.complex(z[0], z[1]), axis=axis, norm=norm)
     planes = y.movedim(1 + axis, -1).contiguous()
     shape = planes.shape[1:]
     out = dec_cmatmul(planes.reshape(2, -1, n), inverse)

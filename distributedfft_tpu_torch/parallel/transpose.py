@@ -1,11 +1,16 @@
 """Global transposes of the distributed plans — the port's counterpart of
 the JAX package's ``parallel/transpose.py``.
 
-Three renderings of one exchange (scatter ``split_axis`` over the ranks,
+Four renderings of one exchange (scatter ``split_axis`` over the ranks,
 gather ``concat_axis`` from them):
 
-* ``all_to_all_transpose``: one ``all_to_all_single`` (ALL2ALL + SYNC),
-  the analog of the reference's ``MPI_Alltoall``;
+* ``all_to_all_transpose``: one ``all_to_all_single`` (ALL2ALL + SYNC, at
+  opt 0 or the realigned opt 1), the analog of the reference's
+  ``MPI_Alltoall``;
+* ``pipelined_all_to_all``: the same exchange as K asynchronous
+  ``all_to_all_single`` calls on pieces of the free axis, each issued
+  ahead of the pieces before it are landed (ALL2ALL + SYNC with
+  ``overlap_subblocks`` > 1);
 * ``peer_to_peer_transpose``: every send and receive posted at once, one
   pair per peer (PEER2PEER + SYNC), the reference's ``MPI_Isend`` /
   ``MPI_Irecv`` to every peer;
@@ -14,10 +19,10 @@ gather ``concat_axis`` from them):
   receive, optionally issued ahead of the per-block compute with revolving
   receive buffers (``RING_OVERLAP``) and split into sub-blocks.
 
-All carry the wire layer: ``wire="bf16"`` sends a complex payload as a
-planar (real, imag) bfloat16 pair, half the bytes of complex64. STREAMS
-and the pipelined all-to-all are ROADMAP Queue 1 item 7 and raise at plan
-construction (``models/slab.py``).
+STREAMS (``models/slab.py``) runs K of these exchanges on pieces of the
+free axis. All carry the wire layer: ``wire="bf16"`` sends a complex
+payload as a planar (real, imag) bfloat16 pair, half the bytes of
+complex64.
 
 Data travels as bytes (``.view(torch.uint8)`` of a contiguous buffer), so
 neither backend sees a complex or bfloat16 type it may lack. Gloo's
@@ -158,8 +163,24 @@ def concat_axis_chunks(pieces: Sequence[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
+def realigned_pack_shape(shape: Sequence[int], split_axis: int,
+                         p: int) -> Tuple[int, ...]:
+    """Shape of the realigned (opt 1) sender pack: the split axis cut into
+    p peer pieces merged into the leading axis, so each peer's piece is a
+    contiguous leading chunk (the JAX package's ``realigned_pack_shape``)."""
+    s = split_axis
+    if shape[s] % p:
+        raise ValueError(
+            f"split extent {shape[s]} not divisible by mesh size {p}")
+    if s == 0:
+        return tuple(shape)
+    return (p * shape[0],) + tuple(
+        shape[i] // p if i == s else shape[i]
+        for i in range(1, len(shape)))
+
+
 def all_to_all_transpose(x: torch.Tensor, group, split_axis: int,
-                         concat_axis: int, *,
+                         concat_axis: int, *, realigned: bool = False,
                          wire: str = WIRE_NATIVE) -> torch.Tensor:
     """Scatter ``split_axis`` over the ranks of ``group`` and gather
     ``concat_axis`` from them: the local block of
@@ -168,11 +189,15 @@ def all_to_all_transpose(x: torch.Tensor, group, split_axis: int,
     Under a compressed wire the planar bfloat16 pair is exchanged with the
     split and concat axes shifted past its plane axis, then decoded.
 
-    ``all_to_all_single`` scatters and gathers along dim 0, so the sender
-    packs the P pieces of the split axis to the front (piece d goes to rank
-    d) and the receiver moves the arrived pieces (piece j came from rank j)
-    onto the concat axis — the pack/unpack of the JAX package's realigned
-    rendering, whose result equals the default one bit for bit."""
+    ``realigned`` is the reference's opt 1 (the coordinate-transformed
+    layout, ``include/mpicufft_slab_opt1.hpp:46-54``): the sender packs its
+    block so every peer's piece is a contiguous leading chunk
+    (``realigned_pack_shape``), the collective is a pure dim-0 exchange,
+    and the receiver unpacks onto the concat axis. In the JAX package opt 0
+    is ``lax.all_to_all`` with split != concat, whose strided pieces XLA
+    gathers itself. ``all_to_all_single`` takes only dim-0 pieces, so the
+    port renders opt 0 with that same pack and unpack: both options run
+    one code path here and give the same bits."""
     if _wire_active(x, wire):
         y = _all_to_all_native(wire_encode(x, wire), group, split_axis % x.ndim
                                + 1, concat_axis % x.ndim + 1)
@@ -180,22 +205,90 @@ def all_to_all_transpose(x: torch.Tensor, group, split_axis: int,
     return _all_to_all_native(x, group, split_axis, concat_axis)
 
 
-def _all_to_all_native(x: torch.Tensor, group, split_axis: int,
-                       concat_axis: int) -> torch.Tensor:
-    p = dist.get_world_size(group)
+def _a2a_pack(x: torch.Tensor, p: int, s: int) -> torch.Tensor:
+    """The sender pack: (p, piece...) with piece d (for rank d) contiguous,
+    the ``realigned_pack_shape`` layout with its leading axis unmerged."""
     shp = tuple(x.shape)
-    s, c = split_axis % x.ndim, concat_axis % x.ndim
     if shp[s] % p:
         raise ValueError(f"split extent {shp[s]} not divisible by the "
                          f"{p} ranks (plans pad before the exchange)")
-    send = (x.reshape(shp[:s] + (p, shp[s] // p) + shp[s + 1:])
+    return (x.reshape(shp[:s] + (p, shp[s] // p) + shp[s + 1:])
             .movedim(s, 0).contiguous())
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(_bytes(recv), _bytes(send), group=group)
-    # recv: (p, piece...), piece j from rank j -> concatenate along c.
+
+
+def _a2a_unpack(recv: torch.Tensor, p: int, c: int) -> torch.Tensor:
+    """The receiver unpack: (p, piece...), piece j from rank j,
+    concatenated along ``c``."""
     out = list(recv.shape[1:])
     out[c] *= p
     return recv.movedim(0, c).reshape(out)
+
+
+def _all_to_all_native(x: torch.Tensor, group, split_axis: int,
+                       concat_axis: int) -> torch.Tensor:
+    p = dist.get_world_size(group)
+    s, c = split_axis % x.ndim, concat_axis % x.ndim
+    send = _a2a_pack(x, p, s)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(_bytes(recv), _bytes(send), group=group)
+    return _a2a_unpack(recv, p, c)
+
+
+def pipelined_all_to_all(x: torch.Tensor, group, split_axis: int,
+                         concat_axis: int, *, chunk_axis: int, chunks: int,
+                         depth: int = 2, realigned: bool = False,
+                         wire: str = WIRE_NATIVE) -> torch.Tensor:
+    """The exchange of ``all_to_all_transpose`` as ``chunks`` pieces along
+    ``chunk_axis``, an axis it does not touch (``chunk_slices``: clamped to
+    the extent), with an issue-ahead window of ``depth - 1`` pieces: piece
+    k + depth - 1's asynchronous ``all_to_all_single`` is issued before
+    piece k is waited on and landed (unpacked and decoded), as in the JAX
+    package's ``pipelined_all_to_all``. Each piece is the monolithic
+    exchange of a slice along an uninvolved axis, so the result is the
+    monolithic one bit for bit, wire included. ``realigned`` is accepted
+    as in ``all_to_all_transpose`` (one pack for both options).
+
+    Over gloo a CUDA piece travels through the host inside gloo's own
+    CUDA all-to-all (its asynchronous form: pinned staging and the host
+    collective on gloo's worker thread, the wait on the caller's stream)."""
+    s, c, k_ax = (split_axis % x.ndim, concat_axis % x.ndim,
+                  chunk_axis % x.ndim)
+    if k_ax in (s, c):
+        raise ValueError(
+            f"pipelined all_to_all needs a chunk axis the exchange does "
+            f"not touch, got chunk_axis={chunk_axis} with "
+            f"split={split_axis}/concat={concat_axis}")
+    if depth < 1:
+        raise ValueError(f"overlap depth must be >= 1, got {depth}")
+    p = dist.get_world_size(group)
+    wired = _wire_active(x, wire)
+    shift = 1 if wired else 0
+
+    def issue(piece: torch.Tensor):
+        if wired:
+            piece = wire_encode(piece, wire)
+        send = _a2a_pack(piece, p, s + shift)
+        recv = torch.empty_like(send)
+        work = dist.all_to_all_single(_bytes(recv), _bytes(send),
+                                      group=group, async_op=True)
+        return work, send, recv
+
+    def land(pending) -> torch.Tensor:
+        work, _, recv = pending
+        work.wait()
+        y = _a2a_unpack(recv, p, c + shift)
+        return wire_decode(y, x.dtype, wire) if wired else y
+
+    pieces = split_axis_chunks(x, k_ax, chunks)
+    k = len(pieces)
+    w = min(depth - 1, k - 1)
+    queue = [issue(pieces[i]) for i in range(w)]
+    out = []
+    for i in range(k):
+        if i + w < k:
+            queue.append(issue(pieces[i + w]))
+        out.append(land(queue.pop(0)))
+    return concat_axis_chunks(out, k_ax)
 
 
 def peer_to_peer_transpose(x: torch.Tensor, group, split_axis: int,

@@ -252,10 +252,13 @@ class PencilPartition(Partition):
 class Config:
     """Plan-wide configuration — field for field the JAX package's
     ``Config`` (its docstring documents every knob). In this port,
-    ``fft_backend="xla"`` runs ``torch.fft`` (cuFFT on the card) and
-    ``"pallas"`` runs the hand-written Hopper kernels of
-    ``ops/hopper_fft.py``; the other backends and the distributed-exchange
-    knobs are accepted and validated but not ported yet."""
+    ``fft_backend="xla"`` runs ``torch.fft`` (cuFFT on the card),
+    ``"matmul"`` / ``"matmul-r2"`` the matmul backend of ``ops/mxu_fft.py``
+    (its knobs: the ``mxu_*`` fields) and ``"pallas"`` the hand-written
+    Hopper kernels of ``ops/hopper_fft.py``; ``"bluestein"``, the
+    ``"auto"`` markers and the fields of later ROADMAP items (guards,
+    wisdom, the second pencil transpose) are accepted and validated but
+    not ported yet."""
 
     comm_method: CommMethod = CommMethod.ALL2ALL
     send_method: SendMethod = SendMethod.SYNC
@@ -350,6 +353,31 @@ class Config:
         marker (the JAX package's ``wisdom.unresolved``)."""
         return AUTO in (self.fft_backend, self.comm_method,
                         self.comm_method2, self.wire_dtype)
+
+    def mxu_settings(self):
+        """The plan's ``mxu_fft.MXUSettings``, or None when every ``mxu_*``
+        knob is None (the process defaults then apply at each call). When
+        any knob is set, the others come from the process defaults as they
+        are now (``default_settings``, never a caller's scoped override)."""
+        if (self.mxu_precision is None and self.mxu_karatsuba is None
+                and self.mxu_fourstep_einsum is None
+                and self.mxu_direct_max is None):
+            return None
+        from .ops import mxu_fft as mx   # lazy: ops imports params
+        kw = {}
+        if self.mxu_precision is not None:
+            kw["precision"] = mx.as_precision(self.mxu_precision)
+        if self.mxu_karatsuba is not None:
+            kw["karatsuba"] = self.mxu_karatsuba
+        if self.mxu_fourstep_einsum is not None:
+            kw["fourstep_einsum"] = self.mxu_fourstep_einsum
+        if self.mxu_direct_max is not None:
+            kw["direct_max"] = self.mxu_direct_max
+        return dataclasses.replace(mx.default_settings(), **kw)
+
+    def resolved_streams_chunks(self) -> int:
+        """Pieces of the STREAMS exchange (None -> 4)."""
+        return self.streams_chunks if self.streams_chunks is not None else 4
 
     def resolved_snd2(self) -> SendMethod:
         return (self.send_method2 if self.send_method2 is not None

@@ -1,7 +1,8 @@
 """Microbenchmarks of the ``reference`` executable — two of the JAX
 package's ``testing/microbench.py``: the single-device 3D FFT baseline and
-the slab transpose's bandwidth. The rest of that module (the autotuner's
-races, the fraction chain) is ROADMAP Queue 1 item 11.
+the slab transpose's bandwidth — and the pieces of the matmul backend's
+four-step (``matmul_fourstep_ms``). The rest of the JAX module (the
+autotuner's races, the fraction chain) is ROADMAP Queue 1 item 11.
 
 On a CUDA device the single-device transform is timed with CUDA events;
 the transpose, which spans ranks, with the host clock between barriers,
@@ -104,3 +105,37 @@ def transpose_bandwidth(shape, p: int, explicit: bool = True,
     nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
     return {"seconds": dt, "bytes": nbytes, "gb_per_s": nbytes / dt / 1e9,
             "geometry": "1d", "collective_ops": calls if p > 1 else []}
+
+
+def matmul_fourstep_ms(rows: int = 65536, iterations: int = 5,
+                       warmup: int = 1,
+                       device: "str | torch.device" = "cuda"
+                       ) -> Dict[str, float]:
+    """Mean ms of the matmul backend's four-step on ``rows`` complex128
+    rows of 1024 = 2 x 512 points (1 GiB at the default), whole
+    (``mxu_fft._fft_last``) and piece by piece in the two formulations of
+    its products: the first (512-point) product over the swapped view, a
+    batched product, or over a contiguous copy, one 2D product; the
+    2-point second product over the swapped stage (a product of inner size
+    2) or contracted where the stage lies (``F1 @ b``), which needs no
+    swap back."""
+    from ..ops import mxu_fft as mx
+    device = torch.device(device)
+    x = torch.randn(rows, 1024, dtype=torch.complex128, device=device)
+    f512 = mx._const(("dft", 512, False, True), "c", device)
+    f2 = mx._const(("dft", 2, False, True), "c", device)
+    a = x.reshape(rows, 512, 2).transpose(-1, -2)
+    ac = a.contiguous()
+    b = torch.matmul(ac, f512)
+    bt = b.transpose(-1, -2).contiguous()
+    cases = {
+        "whole": lambda: mx._fft_last(x, False),
+        "first_product_over_the_view": lambda: torch.matmul(a, f512),
+        "swap_copy": lambda: a.contiguous(),
+        "first_product_2d": lambda: torch.matmul(
+            ac.reshape(-1, 512), f512),
+        "second_product_inner_2": lambda: torch.matmul(
+            bt.reshape(-1, 2), f2),
+        "second_product_in_place": lambda: torch.matmul(f2, b)}
+    return {k: _mean_ms(fn, iterations, warmup, device)
+            for k, fn in cases.items()}

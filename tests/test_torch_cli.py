@@ -42,6 +42,17 @@ RENDERINGS = {
     "z-then-yx": (["-s", "Z_Then_YX"], 5e-4),
     "y-then-zx": (["-s", "Y_Then_ZX", "-snd", "MPI_Type"], 5e-4),
     "p2p-subblocks-inert": (["--overlap-subblocks", "2"], 5e-4),
+    "opt1": (["-o", "1"], 5e-4),
+    "streams-p2p": (["-snd", "Streams"], 5e-4),
+    "streams-a2a": (["-comm", "All2All", "-snd", "Streams",
+                     "--streams-chunks", "3"], 5e-4),
+    "a2a-pipelined": (["-comm", "All2All", "--overlap-subblocks", "2"], 5e-4),
+    "a2a-pipelined-opt1-d3": (["-comm", "All2All", "-o", "1",
+                               "--overlap-depth", "3",
+                               "--overlap-subblocks", "3", "-wire", "bf16"],
+                              2e-2),
+    "f64-pallas": (["-d", "--fft-backend", "pallas"], 1e-10),
+    "matmul": (["--fft-backend", "matmul"], 5e-4),
 }
 # Flags of a later ROADMAP item: (executable, flags, the item named).
 LATER = [
@@ -56,13 +67,6 @@ LATER = [
     ("slab", ["--obs-dir", "obs"], "item 12"),
     ("slab", ["--profile-dir", "prof"], "item 12"),
     ("slab", ["--profile-stages"], "item 12"),
-    ("slab", ["-o", "1"], "item 2"),
-    ("slab", ["-snd", "Streams"], "item 7"),
-    ("slab", ["-comm", "All2All", "--overlap-subblocks", "2"], "item 7"),
-    ("slab", ["-comm", "All2All", "-snd", "MPI_Type",
-              "--overlap-subblocks", "3"], "item 7"),
-    ("slab", ["-d", "--fft-backend", "pallas"], "item 3"),
-    ("slab", ["--fft-backend", "matmul"], "item 3"),
     ("slab", ["--fft-backend", "bluestein"], "item 8"),
     ("reference", ["--autotune"], "item 11"),
     ("reference", ["-t", "2"], "item 5"),
@@ -70,7 +74,18 @@ LATER = [
     ("reference", ["-t", "4"], "item 11"),
     ("reference", ["--wisdom", "w.json"], "item 11"),
     ("reference", ["--profile-stages"], "item 12"),
-    ("reference", ["-d", "--fft-backend", "pallas"], "item 3"),
+]
+# Flags of ROADMAP items 2, 3 and 7, which raised until those items were
+# ported: (executable, flags). Each now runs, on one rank.
+FORMER = [
+    ("slab", ["-o", "1"]),
+    ("slab", ["-snd", "Streams"]),
+    ("slab", ["-comm", "All2All", "--overlap-subblocks", "2"]),
+    ("slab", ["-comm", "All2All", "-snd", "MPI_Type",
+              "--overlap-subblocks", "3"]),
+    ("slab", ["-d", "--fft-backend", "pallas"]),
+    ("slab", ["--fft-backend", "matmul"]),
+    ("reference", ["-d", "--fft-backend", "pallas"]),
 ]
 
 
@@ -179,6 +194,30 @@ def test_later_item_flags_raise_naming_their_item(exe, flags, item):
         main(SIZE + flags + ["--emulate-devices", "1"])
 
 
+@pytest.mark.parametrize("exe,flags", FORMER,
+                         ids=[f"{e}{''.join(f)}" for e, f in FORMER])
+def test_former_later_item_flags_run(devices, tmp_path, exe, flags):
+    """The same call as before, now run: the slab executable writes the
+    JAX executable's CSV path and sections; the reference executable
+    prints its testcase-0 line as the JAX one does."""
+    argv = SIZE + flags
+    if exe == "reference":
+        from distributedfft_tpu.cli.reference import main as jmain
+        rc, text = _run(tref.main, argv + ["--emulate-devices", "1"])
+        jrc, jtext = _run(jmain, argv + ["--emulate-devices", "8"])
+        assert rc == jrc == 0
+        tail = "(single-device 3D R2C, 16x16x16)"
+        assert text.startswith("Run complete: ") and tail in text
+        assert jtext.startswith("Run complete: ") and tail in jtext
+        return
+    rc, text = _run(tslab.main, argv + ["-b", str(tmp_path / "port"),
+                                        "--emulate-devices", "1"])
+    assert rc == 0 and _printed(text, "Run complete: ") > 0
+    mine = _csvs(tmp_path / "port")
+    assert len(mine) == 1
+    assert mine == _jax_slab(argv + ["-p", "1"], tmp_path / "jax")
+
+
 def test_multihost_needs_a_world():
     with pytest.raises(SystemExit):
         tslab.main(SIZE + ["--multihost", "--emulate-devices", "2"])
@@ -239,7 +278,10 @@ def test_renderings_run_through_the_executable(world, cid):
     args = build_parser().parse_args(SIZE + flags + ["-b", "b", "-p", "4"])
     cfg = jdfft.Config(comm_method=jdfft.CommMethod.parse(args.comm_method),
                        send_method=jdfft.SendMethod.parse(args.send_method),
-                       benchmark_dir="b", **overlap_config_kwargs(args),
+                       benchmark_dir="b", opt=args.opt,
+                       double_prec=args.double_prec,
+                       fft_backend=args.fft_backend,
+                       **overlap_config_kwargs(args),
                        **wire_config_kwargs(args))
     variant = {"ZY_Then_X": "slab_default", "Z_Then_YX": "slab_z_then_yx",
                "Y_Then_ZX": "slab_y_then_zx"}[args.sequence]

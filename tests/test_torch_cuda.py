@@ -643,3 +643,150 @@ def test_timer_gathers_device_tensors_under_nccl(cuda, tmp_path):
         assert t._rank_columns() == [[0.25], [3.0]]
     finally:
         dist.destroy_process_group()
+
+
+# The matmul backend (ops/mxu_fft.py) on the card: float64 and a long prime
+# under "pallas", the "matmul" backends' precisions, the TF32 guard.
+
+
+def _matmul_case(fn, n, dtype, device, seed):
+    x = _crandn((64, n), seed, device) if fn != "rfft" else \
+        _randn((64, n), seed, device)
+    if fn == "irfft":
+        x = x[:, :n // 2 + 1]
+    x = x.to(torch.complex128 if dtype == "f64" else torch.complex64) \
+        if x.is_complex() else x.to(torch.float64 if dtype == "f64"
+                                    else torch.float32)
+    kw = {"n": n} if fn == "irfft" else {}
+    lib = {"fft": lambda: torch.fft.fft(x),
+           "ifft": lambda: torch.fft.ifft(x, norm="forward"),
+           "rfft": lambda: torch.fft.rfft(x),
+           "irfft": lambda: torch.fft.irfft(x, n=n, norm="forward")}[fn]
+    return x, kw, lib
+
+
+@pytest.mark.parametrize("fn", ["fft", "ifft", "rfft", "irfft"])
+@pytest.mark.parametrize("n", [12, 640, 1024, 2048])
+def test_pallas_double_precision_on_the_matmul_backend(cuda, fn, n):
+    """f64 under "pallas": one matmul dispatch, no kernel, within 1e-11 of
+    torch.fft in float64."""
+    x, kw, lib = _matmul_case(fn, n, "f64", cuda, 60)
+    hf.reset_launches()
+    got = getattr(hf, fn)(x, axis=-1, **kw)
+    torch.cuda.synchronize()
+    assert hf.DISPATCHES == {"matmul": 1} and not any(hf.LAUNCHES.values())
+    assert got.dtype == lib().dtype and _rel(got, lib()) <= 1e-11
+
+
+@pytest.mark.parametrize("fn", ["fft", "ifft", "rfft", "irfft"])
+def test_pallas_long_prime_on_the_matmul_backend(cuda, fn):
+    x, kw, lib = _matmul_case(fn, 1031, "f32", cuda, 61)
+    hf.reset_launches()
+    got = getattr(hf, fn)(x, axis=-1, **kw)
+    torch.cuda.synchronize()
+    assert hf.DISPATCHES == {"matmul": 1} and not any(hf.LAUNCHES.values())
+    assert _rel(got, lib()) <= 5e-4
+
+
+@pytest.mark.parametrize("prec, tol", [("highest", 5e-4), ("high", 5e-4),
+                                       ("default", 2 ** -7)])
+@pytest.mark.parametrize("fn", ["fft", "rfft", "irfft"])
+@pytest.mark.parametrize("n", [96, 512, 1024])
+def test_matmul_backend_precisions(cuda, fn, n, prec, tol):
+    """float32 at each precision against torch.fft (normal data: one
+    bfloat16 pass within 2^-7)."""
+    from distributedfft_tpu_torch.ops import fft as lf
+    from distributedfft_tpu_torch.ops import mxu_fft as mx
+    x, kw, lib = _matmul_case(fn, n, "f32", cuda, 62)
+    got = getattr(lf, fn)(x, axis=-1, backend="matmul",
+                          settings=mx.MXUSettings.make(prec), **kw)
+    assert got.dtype == lib().dtype and _rel(got, lib()) <= tol
+    if prec != "highest":
+        assert mx.MM16_ROUTE["route"] is not None
+
+
+@pytest.mark.parametrize("backend", ["matmul", "matmul-r2"])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (7, 11, 13), (160, 8, 6)])
+def test_matmul_plan_matches_torch_fft(cuda, backend, shape):
+    x = _randn(shape, 63, cuda)
+    for double, tol in ((False, 5e-4), (True, 1e-10)):
+        xt = x.double() if double else x
+        plan = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                               dft.Config(fft_backend=backend,
+                                          double_prec=double))
+        hf.reset_launches()
+        c = plan.exec_r2c(xt)
+        back = plan.exec_c2r(c)
+        torch.cuda.synchronize()
+        assert hf.DISPATCHES == {"matmul": 6} and not any(hf.LAUNCHES.values())
+        assert _rel(c, torch.fft.rfftn(xt)) <= tol
+        assert _rel(back / float(np.prod(shape)), xt) <= tol
+
+
+def test_highest_refuses_tf32(cuda):
+    """HIGHEST in float32 needs IEEE products: with TF32 on it raises and
+    names the flag; the other precisions and float64 still run."""
+    from distributedfft_tpu_torch.ops import mxu_fft as mx
+    x = _crandn((8, 64), 64, cuda)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with mx.use_settings(mx.MXUSettings.make("highest")):
+            with pytest.raises(RuntimeError, match="allow_tf32"):
+                mx.fft(x, axis=-1)
+        mx.fft(x, axis=-1)
+        mx.fft(x.to(torch.complex128), axis=-1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# The exchange renderings on the card: two gloo ranks sharing it, "pallas"
+# float32, each rendering bit for bit its monolithic (or SYNC) plan.
+
+_RENDER_N = 32
+_RENDERINGS = {"a2a": {}, "a2a_wire16": {"wire_dtype": "bf16"},
+               "opt1": {"opt": 1},
+               "pipe_d2": {"overlap_subblocks": 2},
+               "pipe_d3": {"overlap_subblocks": 3, "overlap_depth": 3},
+               "pipe_d2_wire16": {"overlap_subblocks": 2,
+                                  "wire_dtype": "bf16"},
+               "streams_a2a": {"send_method": "Streams"},
+               "streams_p2p": {"send_method": "Streams",
+                               "comm_method": "Peer2Peer"}}
+_SAME = {"opt1": "a2a", "pipe_d2": "a2a", "pipe_d3": "a2a",
+         "pipe_d2_wire16": "a2a_wire16", "streams_a2a": "a2a",
+         "streams_p2p": "a2a"}
+
+
+def _render_rank(rank, addr, outdir):
+    import os
+    from distributedfft_tpu_torch.parallel import multihost
+    torch.cuda.set_device(0)
+    multihost.maybe_initialize(addr, 2, rank, backend="gloo", timeout_s=120)
+    n = _RENDER_N
+    x = torch.randn((n, n, n), generator=torch.Generator("cuda")
+                    .manual_seed(65), device="cuda")
+    out = {}
+    for rid, fields in _RENDERINGS.items():
+        kw = dict(fields, fft_backend="pallas")
+        for k, enum in (("send_method", dft.SendMethod),
+                        ("comm_method", dft.CommMethod)):
+            if k in kw:
+                kw[k] = enum(kw[k])
+        plan = dft.SlabFFTPlan(dft.GlobalSize(n, n, n), dft.SlabPartition(2),
+                               dft.Config(**kw))
+        c = plan.exec_r2c(plan.pad_input(x))
+        out[rid] = (c.cpu(), plan.exec_c2r(c).cpu())
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    multihost.shutdown()
+
+
+def test_renderings_bit_equal_over_two_ranks(cuda, tmp_path):
+    from distributedfft_tpu_torch.parallel import multihost
+    torch.multiprocessing.start_processes(
+        _render_rank, args=(multihost.local_coordinator(), str(tmp_path)),
+        nprocs=2, start_method="spawn")
+    for r in range(2):
+        res = torch.load(tmp_path / f"rank{r}.pt")
+        for rid, other in _SAME.items():
+            for got, want in zip(res[rid], res[other]):
+                assert torch.equal(got, want), (r, rid, other)

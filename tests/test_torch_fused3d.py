@@ -146,11 +146,16 @@ def test_outside_the_fused_path_matches_the_per_axis_path(shape):
 
 @pytest.mark.parametrize("shape, dtype", [
     ((8, 8, 8), torch.float64), ((8, 8, 513), torch.float64)])
-def test_outside_the_fused_path_raises_not_implemented(shape, dtype):
-    """Double precision runs the matmul backend in the JAX package, which
-    is not ported yet."""
-    with pytest.raises(NotImplementedError):
-        hf.rfftn_3d(torch.zeros(shape, dtype=dtype))
+def test_outside_the_fused_path_takes_the_matmul_backend(shape, dtype):
+    """Double precision leaves the fused path for the per-axis one, where
+    every axis runs the matmul backend, as in the JAX package: three
+    dispatches, no kernel, within 1e-11 of ``pallas_fft.rfftn_3d``."""
+    x = np.random.default_rng(11).standard_normal(shape)
+    hf.reset_launches()
+    got = hf.rfftn_3d(torch.from_numpy(x).to(dtype))
+    assert hf.DISPATCHES == {"matmul": 3} and not any(hf.LAUNCHES.values())
+    assert got.dtype == torch.complex128
+    assert _rel(got.numpy(), pallas_fft.rfftn_3d(x)) < 1e-11
 
 
 def test_3d_transforms_need_three_axes():

@@ -1,9 +1,10 @@
 """The kernels and C entry points a rank of the two-rank slab plan
-launches, on the CPU: the all-to-all and every ring rendering that
-``chip_smoke.py`` runs on the card, each direction counted from zero and
-held against the counts and entry points ``chip_smoke.py`` expects
-(``A2A_ENTRIES``, ``RING_PATHS``), so that those expectations are checked
-before the card runs them.
+launches, on the CPU: the all-to-all, every ring rendering and every
+other exchange rendering that ``chip_smoke.py`` runs on the card, each
+direction counted from zero and held against the counts and entry points
+``chip_smoke.py`` expects (``A2A_ENTRIES``, ``RING_PATHS``,
+``EXCHANGE_PATHS``), so that those expectations are checked before the
+card runs them.
 
 The wrappers' checks and ``_launch`` are patched so that every wrapper
 takes its CUDA route on CPU tensors and each launch is only counted: the
@@ -40,7 +41,7 @@ def _smoke():
 SMOKE = _smoke()
 PATHS = {"all_to_all": ({}, "ZY_Then_X", dict(rmatmul=1, cmatmul=2),
                         dict(cmatmul=2, c2r=1), *SMOKE.A2A_ENTRIES),
-         **SMOKE.RING_PATHS}
+         **SMOKE.RING_PATHS, **SMOKE.EXCHANGE_PATHS}
 
 
 def _counted(plan, x):
@@ -69,6 +70,8 @@ def _rank_main(rank, addr, outdir):
             kw = dict(fields, fft_backend="pallas")
             if "send_method" in fields:
                 kw["send_method"] = tdfft.SendMethod(fields["send_method"])
+            if "comm_method" in fields:
+                kw["comm_method"] = tdfft.CommMethod(fields["comm_method"])
             plan = tdfft.SlabFFTPlan(tdfft.GlobalSize(N, N, N),
                                      tdfft.SlabPartition(P),
                                      tdfft.Config(**kw), sequence=seq,

@@ -17,6 +17,10 @@ top: the references are computed in the parent.
   same Config: rel <= 1e-5 (``"xla"``), 2e-3 (``"pallas"``, the JAX
   plan's own bound) on a native wire, 2e-2 on bf16 (``BF16_BOUND`` of
   ``tests/test_wire.py``). RING_OVERLAP equals RING bit for bit.
+* A double-precision ring with the fused wire (its arrival decodes and
+  runs the matmul backend's DFT) and the settings the plan refused before
+  their renderings were ported (STREAMS under ALL2ALL and PEER2PEER, the
+  pipelined all-to-all, opt 1) run against the JAX plan.
 """
 
 import dataclasses
@@ -176,17 +180,44 @@ def _run_ring_vs_a2a(shape):
     return outs
 
 
-def _run_f64_fused(shape):
-    """A double-precision plan whose ring arrival would take kernel 11."""
-    cfg = tdfft.Config(send_method=SendMethod.RING, wire_dtype="bf16",
-                       fused_wire=True, double_prec=True)
+# A double-precision ring whose arrival would take kernel 11: its fused
+# decode + DFT runs the plain decode and the matmul backend instead.
+F64_FUSED = dict(send_method="Ring", wire_dtype="bf16", fused_wire=True,
+                 double_prec=True)
+# Settings the plan refused before their renderings were ported, each run
+# at P = 4 against the JAX plan: id -> Config fields.
+SETTINGS = {"streams": dict(send_method="Streams"),
+            "peer2peer": dict(comm_method="Peer2Peer", send_method="Streams"),
+            "pipelined-a2a": dict(overlap_subblocks=2),
+            "opt1": dict(opt=1)}
+
+
+def _config(pkg, fields):
+    """``pkg.Config`` of ``fields``, the enum fields given by value."""
+    kw = dict(fields)
+    for k, enum in (("send_method", pkg.SendMethod),
+                    ("comm_method", pkg.CommMethod)):
+        if k in kw:
+            kw[k] = enum(kw[k])
+    return pkg.Config(**kw)
+
+
+def _run_settings(case):
+    """One plan of ``fields``: local blocks, gathered arrays, and the
+    matmul dispatches and kernel launches of its forward."""
+    shape, seq, fields, seed = case
     plan = tdfft.SlabFFTPlan(tdfft.GlobalSize(*shape), tdfft.SlabPartition(P),
-                             cfg, device="cpu", sequence="Z_Then_YX")
-    try:
-        plan.exec_r2c(plan.pad_input(np.zeros(shape)))
-    except NotImplementedError as err:
-        return str(err)
-    return None
+                             _config(tdfft, fields), device="cpu",
+                             sequence=seq)
+    x = _plan_input(shape, "r2c", seed).astype(
+        np.float64 if fields.get("double_prec") else np.float32)
+    hf.reset_launches()
+    fwd = plan.exec_r2c(plan.pad_input(x))
+    counts = (dict(hf.DISPATCHES), sum(hf.LAUNCHES.values()))
+    back = plan.exec_c2r(fwd)
+    return {"local_fwd": fwd.numpy(), "local_back": back.numpy(),
+            "crop_fwd": plan.crop_spectral(fwd),
+            "crop_back": plan.crop_real(back), "counts": counts}
 
 
 def _rank_main(rank, addr, cases, outdir):
@@ -196,7 +227,7 @@ def _rank_main(rank, addr, cases, outdir):
         try:
             run = {"bare": _run_bare, "bare_wire16": _run_bare_wire16,
                    "plan": _run_plan, "ring_vs_a2a": _run_ring_vs_a2a,
-                   "f64_fused": _run_f64_fused}[kind]
+                   "settings": _run_settings}[kind]
             results[cid] = run(case)
         except Exception:  # noqa: BLE001 — reported by that case's test
             results[cid] = {"error": traceback.format_exc()}
@@ -243,7 +274,11 @@ def world(tmp_path_factory):
             dataclasses.asdict(_jax_config(snd, wid, be, tr))) for snd in RINGS}
         cases[cid] = ("plan", (PLAN_SHAPE, seq, tr, cfgs, 300 + i))
     cases["ring_vs_a2a"] = ("ring_vs_a2a", (8, 12, 10))
-    cases["f64_fused"] = ("f64_fused", (8, 8, 8))
+    cases["f64_fused"] = ("settings", ((8, 8, 8), "Z_Then_YX", F64_FUSED,
+                                       7))
+    for i, (sid, fields) in enumerate(SETTINGS.items()):
+        cases[f"settings-{sid}"] = ("settings", (PLAN_SHAPE, "ZY_Then_X",
+                                                 fields, 400 + i))
     outdir = tmp_path_factory.mktemp("ring")
     torch.multiprocessing.start_processes(
         _rank_main, args=(multihost.local_coordinator(), cases, str(outdir)),
@@ -393,10 +428,50 @@ def test_ring_forward_equals_all_to_all_bit_for_bit(world):
         assert a2a.dtype == ring.dtype and np.array_equal(a2a, ring)
 
 
-def test_double_precision_fused_decode_dft_raises(world):
+def _settings_vs_reference(world, devices, cid, shape, seq, fields, seed,
+                           tol):
+    """Each rank's blocks and the gathered arrays of a ``_run_settings``
+    case against the JAX plan under the same Config."""
+    import distributedfft_tpu as jdfft
+    jplan = jdfft.SlabFFTPlan(jdfft.GlobalSize(*shape), jdfft.SlabPartition(P),
+                              _config(jdfft, fields), mesh=_mesh(devices),
+                              sequence=seq)
+    x = _plan_input(shape, "r2c", seed).astype(
+        np.float64 if fields.get("double_prec") else np.float32)
+    jc = jplan.exec_r2c(jplan.pad_input(x))
+    jb = jplan.exec_c2r(jc)
+    jc_np, jb_np = np.asarray(jc), np.asarray(jb)
+    split = {"ZY_Then_X": 1, "Z_Then_YX": 2, "Y_Then_ZX": 1}[seq]
+    bs, bx = jc_np.shape[split] // P, jb_np.shape[0] // P
     for r in range(P):
-        msg = _result(world, r, "f64_fused")
-        assert msg is not None and "Queue 1, item 3" in msg
+        res = _result(world, r, cid)
+        fwd = jc_np.take(range(r * bs, (r + 1) * bs), axis=split)
+        assert res["local_fwd"].dtype == fwd.dtype
+        assert _rel(res["local_fwd"], fwd) <= tol, (r, "forward")
+        assert _rel(res["local_back"], jb_np[r * bx:(r + 1) * bx]) <= tol
+    res = _result(world, 0, cid)
+    assert _rel(res["crop_fwd"], jplan.crop_spectral(jc)) <= tol
+    assert _rel(res["crop_back"], jplan.crop_real(jb)) <= tol
+    return [_result(world, r, cid)["counts"] for r in range(P)]
+
+
+def test_double_precision_fused_decode_dft_runs(world, devices):
+    """The f64 ring's fused arrival (Z_Then_YX: y runs on each arriving
+    block) decodes and runs the matmul backend, as the JAX package's does:
+    P-1 dispatches a forward, no kernel; within the bf16 wire's bound of
+    the JAX plan."""
+    counts = _settings_vs_reference(world, devices, "f64_fused", (8, 8, 8),
+                                    "Z_Then_YX", F64_FUSED, 7, WIRE16_TOL)
+    assert counts == [({"matmul": P - 1}, 0)] * P
+
+
+@pytest.mark.parametrize("sid", list(SETTINGS))
+def test_settings_run_as_the_reference(world, devices, sid):
+    """STREAMS (ALL2ALL and PEER2PEER), the pipelined all-to-all and opt 1
+    build and run at P = 4, within 1e-5 of the JAX plan."""
+    _settings_vs_reference(world, devices, f"settings-{sid}", PLAN_SHAPE,
+                           "ZY_Then_X", SETTINGS[sid],
+                           400 + list(SETTINGS).index(sid), TOL["xla"])
 
 
 def test_ranks_import_no_jax(world):
@@ -409,13 +484,8 @@ def _two_rank_plan(**kw):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(send_method=SendMethod.STREAMS), "Queue 1, item 7"),
-    (dict(comm_method=tdfft.CommMethod.PEER2PEER,
-          send_method=SendMethod.STREAMS), "Queue 1, item 7"),
-    (dict(overlap_subblocks=2), "Queue 1, item 7"),
-    (dict(opt=1), "Queue 1, item 2"),
     (dict(wire_dtype="auto"), "Queue 1, item 11"),
-], ids=["streams", "peer2peer", "pipelined-a2a", "opt1", "auto-wire"])
+], ids=["auto-wire"])
 def test_refused_settings_name_their_item(kw, item):
     """Refused before any process group is needed."""
     with pytest.raises(NotImplementedError, match=item):

@@ -138,17 +138,10 @@ def _port_plan(shape=(8, 8, 8), p=1, transform="r2c", **kw):
 
 @pytest.mark.parametrize("build, run", [
     (lambda: _port_plan(fft_backend="auto"), None),
-    (lambda: _port_plan(fft_backend="matmul"), "r2c"),
     (lambda: _port_plan(fft_backend="bluestein"), "r2c"),
-    (lambda: _port_plan(fft_backend="pallas", double_prec=True), "r2c"),
     (lambda: tdfft.SlabFFTPlan(tdfft.GlobalSize(8, 8, 8),
                                tdfft.SlabPartition(1), sequence="Y_Then_ZX",
                                device="cpu"), None),
-    (lambda: _port_plan(p=2, opt=1), None),
-    (lambda: _port_plan(p=2, comm_method=CommMethod.PEER2PEER,
-                        send_method=SendMethod.STREAMS), None),
-    (lambda: _port_plan(p=2, send_method=SendMethod.STREAMS), None),
-    (lambda: _port_plan(p=2, overlap_subblocks=2), None),
 ])
 def test_not_ported_boundaries_raise(build, run):
     """What the next slices port raises NotImplementedError instead of
@@ -157,6 +150,36 @@ def test_not_ported_boundaries_raise(build, run):
         plan = build()
         if run == "r2c":
             plan.exec_r2c(np.zeros(plan.input_shape, np.float32))
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(fft_backend="matmul"),
+                                    dict(fft_backend="pallas",
+                                         double_prec=True)],
+                         ids=["matmul", "pallas-f64"])
+def test_matmul_backend_plans_run(cfg_kw):
+    """The one-rank plans that raised until the matmul backend was ported
+    run, against the JAX plan (5e-4 in float32, 1e-10 in float64)."""
+    jplan, tplan = _plans((8, 8, 8), **cfg_kw)
+    double = cfg_kw.get("double_prec", False)
+    x = np.random.default_rng(9).standard_normal((8, 8, 8)).astype(
+        np.float64 if double else np.float32)
+    got = tplan.exec_r2c(torch.from_numpy(x))
+    assert got.dtype == (torch.complex128 if double else torch.complex64)
+    assert _rel(got.numpy(), jplan.exec_r2c(x)) < (1e-10 if double else 5e-4)
+
+
+@pytest.mark.parametrize("cfg_kw", [
+    dict(opt=1),
+    dict(comm_method=CommMethod.PEER2PEER, send_method=SendMethod.STREAMS),
+    dict(send_method=SendMethod.STREAMS),
+    dict(overlap_subblocks=2),
+], ids=["opt1", "streams-p2p", "streams", "pipelined-a2a"])
+def test_exchange_renderings_are_accepted(cfg_kw):
+    """The two-rank renderings that raised until they were ported build
+    as far as needing a process group (they run over 4 gloo ranks in
+    tests/test_torch_exchange.py and tests/test_torch_ring.py)."""
+    with pytest.raises(RuntimeError, match="maybe_initialize"):
+        _port_plan(p=2, **cfg_kw)
 
 
 @pytest.mark.parametrize("shape, transform, cfg_kw", [

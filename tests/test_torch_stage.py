@@ -134,22 +134,40 @@ def test_split_for_matches_reference(n):
 
 
 @pytest.mark.parametrize("fn", ["fft", "ifft", "rfft", "irfft"])
-def test_double_precision_raises_not_implemented(fn):
-    x = torch.zeros((2, 8), dtype=torch.complex128 if fn in ("fft", "ifft",
-                                                             "irfft")
-                    else torch.float64)
-    kw = {"n": 8} if fn == "irfft" else {}
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        getattr(hf, fn)(x, axis=-1, **kw)
+def test_double_precision_takes_the_matmul_backend(fn):
+    """f64 under "pallas" runs the matmul backend, as ``pallas_fft`` routes
+    it (``_use_fallback``; its ``irfft`` inverts the Hermitian extension):
+    one dispatch, no kernel, complex128 / float64 out, within 1e-11 of the
+    JAX package."""
+    rng = np.random.default_rng(40)
+    if fn == "rfft":
+        x = rng.standard_normal((2, 1024))
+    else:
+        x = rng.standard_normal((2, 513)) + 1j * rng.standard_normal((2, 513))
+    kw = {"n": 1024} if fn == "irfft" else {}
+    hf.reset_launches()
+    got = getattr(hf, fn)(torch.from_numpy(x), axis=-1, **kw)
+    ref = np.asarray(getattr(pallas_fft, fn)(x, axis=-1, **kw))
+    assert hf.DISPATCHES == {"matmul": 1}
+    assert not any(hf.LAUNCHES.values())
+    assert got.dtype == (torch.float64 if fn == "irfft" else torch.complex128)
+    assert got.shape == ref.shape and _rel(got.numpy(), ref) < 1e-11
 
 
-def test_prime_axis_above_n_max_raises_not_implemented():
+def test_prime_axis_above_n_max_takes_the_matmul_backend():
+    """A prime axis past ``N_MAX`` runs the matmul backend in float32 (the
+    prime branches of ``pallas_fft._fft_last`` / ``_rfft_last``)."""
     n = 1031  # prime, above N_MAX = 1024
     assert tmx._split_for(n, tmx.DIRECT_MAX) == (1, n)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        hf.fft(torch.zeros((1, n), dtype=torch.complex64), axis=-1)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        hf.rfft(torch.zeros((1, n)), axis=-1)
+    x, xr = _complex((2, n), 41), _real((2, n), 42)
+    hf.reset_launches()
+    got = hf.fft(torch.from_numpy(x), axis=-1)
+    assert _rel(got.numpy(), pallas_fft.fft(x, axis=-1)) < 5e-4
+    got_r = hf.rfft(torch.from_numpy(xr), axis=-1)
+    assert _rel(got_r.numpy(), pallas_fft.rfft(xr, axis=-1)) < 5e-4
+    assert got.dtype == got_r.dtype == torch.complex64
+    assert hf.DISPATCHES == {"matmul": 2}
+    assert not any(hf.LAUNCHES.values())
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -142,12 +142,27 @@ def test_wire_wrappers_reject_what_the_kernels_do_not_take():
         hf.dec_unpack(planes.transpose(1, 2))                # not contiguous
 
 
-def test_decode_dft_refuses_what_the_matmul_backend_takes():
-    planes = torch.zeros((2, 2, 1031), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        hf.decode_fft_fused(planes, torch.complex64, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        hf.decode_fft_fused(planes[:, :, :8], torch.complex128, 1)
+def test_decode_dft_takes_the_matmul_backend_past_the_kernel():
+    """Past ``N_MAX`` points, or into complex128, the fused arrival decodes
+    plainly and runs the matmul backend's DFT, as
+    ``pallas_fft.decode_fft_fused`` does: no kernel, one dispatch each,
+    within 5e-4 (float32) and 1e-11 (complex128) of the JAX package."""
+    planes = torch.from_numpy(np.random.default_rng(43).standard_normal(
+        (2, 2, 1031)).astype(np.float32)).to(torch.bfloat16)
+    jplanes = jnp.asarray(planes.float().numpy()).astype(jnp.bfloat16)
+    hf.reset_launches()
+    for cut, dtype, jdtype, tol, inverse in (
+            (1031, torch.complex64, jnp.complex64, 5e-4, False),
+            (8, torch.complex128, jnp.complex128, 1e-11, True)):
+        got = hf.decode_fft_fused(planes[:, :, :cut], dtype, 1,
+                                  inverse=inverse)
+        ref = np.asarray(pallas_fft.decode_fft_fused(
+            jplanes[:, :, :cut], jdtype, 1, inverse=inverse))
+        assert got.dtype == dtype and got.shape == ref.shape
+        err = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
+        assert err < tol
+    assert hf.DISPATCHES == {"matmul": 2}
+    assert not any(hf.LAUNCHES.values())
 
 
 def test_fused_ring_hooks_route_by_setting_and_dtype():
