@@ -67,12 +67,26 @@ once, before any rank is spawned) and then, under
    at 512^3 over both exchanges (Peer2Peer and All2All, testcases 3 and
    0) and with ``-o 1``, ``-snd Streams`` and ``-comm All2All
    --overlap-subblocks 2`` (testcase 0), the renderings' bit equality and
-   the reference executable's bandwidth probe. Each run's launches and entry points are counted from zero and
-   held against the plan phases'; testcases 1 and 3 hold within TOL of
-   their reference magnitude, testcase 4 too or, where float32 cannot,
-   within twice cuFFT's error (``gate_cli_results``); every phase CSV
-   parses with the port's reader, and its means stand beside
-   ``plan_time``'s.
+   the reference executable's bandwidth probe. Each run's launches and
+   entry points are counted from zero and held against the plan phases';
+   testcases 1 and 3 hold within TOL of their reference magnitude,
+   testcase 4 too or, where float32 cannot, within twice cuFFT's error
+   (``gate_cli_results``); every phase CSV parses with the port's reader,
+   and its means stand beside ``plan_time``'s;
+7. runs the pencil plan: one rank on the card at 1024^3 at depths 1, 2 and
+   3 (per axis: kernels 1, 2 and 3, never 6-8), then a 2 x 2 grid as four
+   ranks sharing the card over gloo (two sub-groups each): at 1024^3 the
+   reference's default exchange (Peer2Peer + Sync) and the all-to-all at
+   opt 1, each rank's block against torch.fft.rfftn (the ranks draw the
+   reference in turn) with the exchange time of each transpose, the wire
+   bytes and the peak memory; at 512^3 every rendering of
+   ``PENCIL_PATHS`` (Peer2Peer, the all-to-all at opt 0 and 1, mixed
+   comm methods, the pipelined all-to-all, STREAMS under both, the rings,
+   the bf16 wire with and without the fused wire of kernels 9 and 10,
+   depths 1 and 2), bit for bit the monolithic all-to-all; and the
+   executables: ``dfft-torch-pencil`` testcases 3 and 0 at 1024^3 for
+   both exchanges and ``dfft-torch-reference`` testcases 2 and 3 (the 2D
+   and 3D geometries) at 512^3.
 
 Phases print JSON lines. Before the last line come one
 ``{"matmul_backend": ...}`` line (the matmul backend is no kernel), one
@@ -80,10 +94,11 @@ Phases print JSON lines. Before the last line come one
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device":
 {...}}``. Any failed phase raises, so
 the script exits non-zero with no result line; so does a machine without a
-CUDA device, or a directory without the port. Takes about 200-230 s on
+CUDA device, or a directory without the port. Takes about 370-400 s on
 an H100, the kernels' build (25-55 s), the matmul backend's phase (about
-10 s) and the executables' phase (about 60 s, most of it the host's
-random draws) included.
+10 s), the executables' phase (about 60 s, most of it the host's random
+draws) and the pencil's (about 170 s, most of it gloo's host-staged
+exchanges) included.
 """
 
 from __future__ import annotations
@@ -291,19 +306,20 @@ def counted(hf):
     return out
 
 
-def run_counted(torch, hf, plan, x):
-    """One forward and one inverse of ``plan``, each counted from zero:
-    (spectrum, inverse, launches forward, launches inverse, entry points
-    forward, entry points inverse); the launches as ``counted`` gives
-    them."""
+def run_counted(torch, hf, plan, x, dims=None):
+    """One forward and one inverse of ``plan`` (a pencil plan's at depth
+    ``dims``), each counted from zero: (spectrum, inverse, launches
+    forward, launches inverse, entry points forward, entry points
+    inverse); the launches as ``counted`` gives them."""
+    kw = {} if dims is None else {"dims": dims}
     hf.reset_launches()
     with entry_counts(hf) as ent_f:
-        c = plan.exec_r2c(x)
+        c = plan.exec_r2c(x, **kw)
         torch.cuda.synchronize()
     fwd = counted(hf)
     hf.reset_launches()
     with entry_counts(hf) as ent_i:
-        back = plan.exec_c2r(c)
+        back = plan.exec_c2r(c, **kw)
         torch.cuda.synchronize()
     return c, back, fwd, counted(hf), ent_f, ent_i
 
@@ -658,6 +674,428 @@ def rendering_paths(rank, x, xl, a2a_fwd, a2a_back, wall_ms, paths, pairs):
             fail(f"rank {rank}: {pid} does not match {other or 'all_to_all'}"
                  f" ({how})")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The pencil plan: one rank on the card (per axis, with depth), and a 2 x 2
+# grid as four spawned ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+PENCIL_GRID = (2, 2)
+PENCIL_RANKS = 4
+# A pencil rank's launches per direction at each depth, and their entry
+# points: z on rows (kernel 1, the inverse on kernel 3's C2R Body), y and x
+# on kernel 2's column body where they lie after each exchange. The
+# single-card pencil (1 x 1) launches the same per axis.
+PENCIL_DEPTHS = {
+    1: (dict(rmatmul=1), dict(c2r=1), {"dfft_rdft": 1}, {"dfft_c2r": 1}),
+    2: (dict(rmatmul=1, cmatmul=1), dict(cmatmul=1, c2r=1),
+        {"dfft_rdft": 1, "dfft_cdft_cols": 1},
+        {"dfft_cdft_cols": 1, "dfft_c2r": 1}),
+    3: (dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1), *A2A_ENTRIES),
+}
+# The full-size pencil at 1024^3 over 2 x 2: the reference's default
+# exchange (Peer2Peer + Sync on both transposes) and the all-to-all at
+# opt 1: id -> (Config fields, executable flags).
+_PP = {"comm_method": "Peer2Peer"}
+PENCIL_FULL = {
+    "p2p": (_PP, []),
+    "a2a_opt1": ({"comm_method": "All2All", "comm_method2": "All2All",
+                  "opt": 1},
+                 ["-comm1", "All2All", "-comm2", "All2All", "-o", "1"]),
+}
+# The renderings at 512^3 over 2 x 2: id -> (Config fields, depth, launches
+# forward, inverse, entry points forward, inverse). STREAMS under ALL2ALL
+# runs each piece's next FFT after its exchange: y on 4 pieces of x and x
+# on 4 pieces of z forward; inverse, x on the whole block, then y on 4
+# pieces of z and the z C2R on 4 pieces of x. On the fused wire each
+# transpose is one ring step (two ranks a group): one encode (kernel 9)
+# and one unpack-only arrival (kernel 10) each.
+_P3 = PENCIL_DEPTHS[3]
+_PRO16 = {"send_method": "RingOverlap", "wire_dtype": "bf16"}
+PENCIL_PATHS = {
+    "a2a": ({"comm_method": "All2All"}, 3, *_P3),
+    "p2p_p2p": (_PP, 3, *_P3),
+    "a2a_p2p": ({"comm_method": "All2All", "comm_method2": "Peer2Peer"}, 3,
+                *_P3),
+    "opt1": ({"comm_method": "All2All", "opt": 1}, 3, *_P3),
+    "a2a_pipelined": ({"comm_method": "All2All", "overlap_subblocks": 2}, 3,
+                      *_P3),
+    "streams_a2a": ({"comm_method": "All2All", "send_method": "Streams",
+                     "streams_chunks": 4}, 3,
+                    dict(rmatmul=1, cmatmul=8), dict(cmatmul=5, c2r=4),
+                    {"dfft_rdft": 1, "dfft_cdft_cols": 8},
+                    {"dfft_cdft_cols": 5, "dfft_c2r": 4}),
+    "streams_p2p": ({**_PP, "send_method": "Streams", "streams_chunks": 4},
+                    3, *_P3),
+    "ring": ({"send_method": "Ring"}, 3, *_P3),
+    "ring_overlap": ({"send_method": "RingOverlap"}, 3, *_P3),
+    "ring_overlap_wire16": (_PRO16, 3, *_P3),
+    "ring_overlap_wire16_fused": (
+        {**_PRO16, "fused_wire": True}, 3,
+        dict(rmatmul=1, cmatmul=2, enc_pack=2, dec_unpack=2),
+        dict(cmatmul=2, c2r=1, enc_pack=2, dec_unpack=2),
+        *_plus(A2A_ENTRIES, enc_pack=2, dec_unpack=2)),
+    "p2p_dims1": (_PP, 1, *PENCIL_DEPTHS[1]),
+    "p2p_dims2": (_PP, 2, *PENCIL_DEPTHS[2]),
+}
+# Bit-equalities of the renderings: every one runs the kernels on the same
+# columns and rows as the monolithic all-to-all.
+PENCIL_PAIRS = [(pid, "a2a") for pid in (
+    "p2p_p2p", "a2a_p2p", "opt1", "a2a_pipelined", "streams_a2a",
+    "streams_p2p", "ring", "ring_overlap")] + [
+    ("ring_overlap_wire16_fused", "ring_overlap_wire16")]
+
+
+def pencil_config(dft, fields, **more):
+    """The port's Config of a pencil path's fields under "pallas"."""
+    kw = dict(fields, fft_backend="pallas", **more)
+    for k, enum in (("send_method", dft.SendMethod),
+                    ("comm_method", dft.CommMethod),
+                    ("comm_method2", dft.CommMethod)):
+        if k in kw:
+            kw[k] = enum.parse(kw[k])
+    return dft.Config(**kw)
+
+
+def barrier_ms(torch, dist, fn, reps: int = 3) -> float:
+    """Median host wall time of fn on every rank at once: each run starts
+    after a barrier and ends on the rank's own synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def pencil_single_card(torch, dft, hf, gen):
+    """The 1 x 1 pencil at 1024^3 at depths 1, 2 and 3: launches and entry
+    points per direction (kernels 1, 2 and 3 per axis, never the fused 3D
+    kernels), forward against torch.fft and the roundtrip against the
+    input over the transformed extents, and times. Returns (launches by
+    path, rows)."""
+    shape = (NBIG,) * 3
+    x = torch.randn(shape, generator=gen, device="cuda")
+    plan = dft.PencilFFTPlan(dft.GlobalSize(*shape), dft.PencilPartition(1, 1),
+                             dft.Config(fft_backend="pallas"))
+    launches, rows = {}, {}
+    ref = torch.fft.rfft(x, dim=2)
+    for d in (1, 2, 3):
+        if d > 1:
+            ref = torch.fft.fft(ref, dim=3 - d)
+        torch.cuda.reset_peak_memory_stats()
+        c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, x,
+                                                      dims=d)
+        want_f, want_i, ent_f_want, ent_i_want = PENCIL_DEPTHS[d]
+        if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i) or \
+                (ent_f, ent_i) != (ent_f_want, ent_i_want):
+            fail(f"pencil 1x1 dims {d}: launches forward {fwd} (entries "
+                 f"{ent_f}), inverse {inv} (entries {ent_i})")
+        _, f_rel = rel_err(c, ref)
+        back /= float(NBIG ** d)
+        _, rt_rel = rel_err(back, x)
+        del back
+        if not (f_rel <= TOL and rt_rel <= TOL):
+            fail(f"pencil 1x1 dims {d}: forward rel {f_rel:.3e}, roundtrip "
+                 f"rel {rt_rel:.3e}")
+        row = dict(dims=d, launches_forward=fwd, launches_inverse=inv,
+                   entries_forward=ent_f, entries_inverse=ent_i,
+                   forward_vs_torch_fft=f_rel, roundtrip_vs_input=rt_rel,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   forward_ms=median_ms(
+                       torch, lambda: plan.exec_r2c(x, d), REPS_BIG, 1),
+                   inverse_ms=median_ms(
+                       torch, lambda: plan.exec_c2r(c, d), REPS_BIG, 1))
+        emit(phase="main_path", path=f"pencil_1x1_dims{d}", **row)
+        launches[f"pencil_1x1_dims{d}"] = {k: fwd[k] + inv[k] for k in fwd}
+        rows[d] = row
+        del c
+        torch.cuda.empty_cache()
+    del x, ref, plan
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def pencil_input(torch, dist, plan, n: int, rank: int):
+    """This rank's block of a random n^3 cube drawn on the card from one
+    seed, and the same block of the cube's torch.fft.rfftn. The ranks draw
+    in turn, so one full spectrum is on the card at a time."""
+    xl = ref = None
+    for turn in range(PENCIL_RANKS):
+        if turn == rank:
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+            x = torch.randn((n,) * 3, generator=gen, device="cuda")
+            xl = plan.pad_input(x)
+            ref = plan.pad_spectral(torch.fft.rfftn(x))
+            del x
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return xl, ref
+
+
+def pencil_full(torch, dist, dft, hf, tr, rank: int):
+    """The pencil at 1024^3 on 2 x 2 (``PENCIL_FULL``): each rank's
+    launches and entry points per direction, its forward block against
+    torch.fft.rfftn and its roundtrip block against the input, the times
+    of each direction and of each transpose alone, the wire bytes and the
+    peak memory."""
+    g = dft.GlobalSize(NBIG, NBIG, NBIG)
+    part = dft.PencilPartition(*PENCIL_GRID)
+    out, xl, ref = {}, None, None
+    for pid, (fields, _) in PENCIL_FULL.items():
+        plan = dft.PencilFFTPlan(g, part, pencil_config(dft, fields))
+        if xl is None:
+            xl, ref = pencil_input(torch, dist, plan, NBIG, rank)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, xl)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want_f, want_i, ent_f_want, ent_i_want = _P3
+        if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i) or \
+                (ent_f, ent_i) != (ent_f_want, ent_i_want):
+            fail(f"rank {rank} pencil {pid}: launches forward {fwd} "
+                 f"(entries {ent_f}), inverse {inv} (entries {ent_i})")
+        _, f_rel = rel_err(c, ref)
+        back /= float(NBIG ** 3)
+        _, rt_rel = rel_err(back, xl)
+        del back
+        if not (f_rel <= TOL and rt_rel <= TOL):
+            fail(f"rank {rank} pencil {pid}: forward rel {f_rel:.3e}, "
+                 f"roundtrip rel {rt_rel:.3e}")
+        row = dict(config=fields, coords=list(plan.coords),
+                   local_input_shape=list(plan.local_input_shape),
+                   local_output_shape=list(plan.local_output_shape),
+                   launches_forward=fwd, launches_inverse=inv,
+                   entries_forward=ent_f, entries_inverse=ent_i,
+                   forward_vs_torch_fft=f_rel, roundtrip_vs_input=rt_rel,
+                   peak_memory_gb=peak,
+                   forward_ms=barrier_ms(torch, dist,
+                                         lambda: plan.exec_r2c(xl)),
+                   inverse_ms=barrier_ms(torch, dist,
+                                         lambda: plan.exec_c2r(c)))
+        # Each transpose alone, on the block the plan hands it, and the
+        # bytes this rank sends over its group (two ranks: half the block).
+        s, i = plan._fwd_ffts(3), plan._inv_ffts()
+        a = s[0](xl)
+        t1 = plan._xpose(1, False)
+        b = s[1](t1(a))
+        t2 = plan._xpose(2, False)
+        ms = {"transpose1_forward": barrier_ms(torch, dist, lambda: t1(a)),
+              "transpose2_forward": barrier_ms(torch, dist, lambda: t2(b))}
+        sent = {"transpose1": a.numel() * a.element_size() // 2,
+                "transpose2": b.numel() * b.element_size() // 2}
+        del a, b
+        ia = i[3](c)
+        t2b = plan._xpose(2, True)
+        ib = i[2](t2b(ia))
+        t1b = plan._xpose(1, True)
+        ms.update(
+            transpose2_inverse=barrier_ms(torch, dist, lambda: t2b(ia)),
+            transpose1_inverse=barrier_ms(torch, dist, lambda: t1b(ib)))
+        del ia, ib
+        row.update(exchange_ms=ms, wire_bytes_per_rank=sent,
+                   transport="gloo, staged through the host"
+                   if tr._Transport(plan.row_group, xl.device).staged
+                   else "device memory")
+        for name, fn in (("forward", lambda: plan.exec_r2c(xl)),
+                         ("inverse", lambda: plan.exec_c2r(c))):
+            _, per = kernel_share(torch, hf, fn)
+            row[f"{name}_kernel_ms"] = per
+        out[pid] = row
+        del c, plan
+        torch.cuda.empty_cache()
+    del xl, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def pencil_renderings(torch, dist, dft, hf, rank: int):
+    """Every rendering of ``PENCIL_PATHS`` at 512^3 on 2 x 2: launches and
+    entry points per direction, the forward block against torch.fft at
+    its depth, the roundtrip against the input, the bit-equalities of
+    ``PENCIL_PAIRS`` and each direction's time."""
+    g = dft.GlobalSize(N, N, N)
+    part = dft.PencilPartition(*PENCIL_GRID)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    x = torch.randn((N,) * 3, generator=gen, device="cuda")
+    refs = {1: torch.fft.rfft(x, dim=2)}
+    refs[2] = torch.fft.fft(refs[1], dim=1)
+    refs[3] = torch.fft.fft(refs[2], dim=0)
+    out, res = {}, {}
+    for pid, (fields, d, want_f, want_i, ent_f_want,
+              ent_i_want) in PENCIL_PATHS.items():
+        plan = dft.PencilFFTPlan(g, part, pencil_config(dft, fields))
+        xl = plan.pad_input(x)
+        c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, xl,
+                                                      dims=d)
+        if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i) or \
+                (ent_f, ent_i) != (ent_f_want, ent_i_want):
+            fail(f"rank {rank} pencil {pid}: launches forward {fwd} "
+                 f"(entries {ent_f}), inverse {inv} (entries {ent_i}); "
+                 f"expected {want_f} ({ent_f_want}), {want_i} "
+                 f"({ent_i_want})")
+        tol = WIRE16_TOL if plan.config.wire_dtype == "bf16" else TOL
+        _, f_rel = rel_err(c, plan.pad_spectral(refs[d], d))
+        _, rt_rel = rel_err(back / float(N ** d), xl)
+        if not (f_rel <= tol and rt_rel <= tol):
+            fail(f"rank {rank} pencil {pid}: forward rel {f_rel:.3e}, "
+                 f"roundtrip rel {rt_rel:.3e} (tol {tol})")
+        out[pid] = dict(config=fields, dims=d, launches_forward=fwd,
+                        launches_inverse=inv, entries_forward=ent_f,
+                        entries_inverse=ent_i, forward_vs_torch_fft=f_rel,
+                        roundtrip_vs_input=rt_rel, tol=tol,
+                        forward_ms=barrier_ms(
+                            torch, dist, lambda: plan.exec_r2c(xl, d)),
+                        inverse_ms=barrier_ms(
+                            torch, dist, lambda: plan.exec_c2r(c, d)))
+        res[pid] = (c, back)
+        del plan, xl
+    for pid, other in PENCIL_PAIRS:
+        ok = all(torch.equal(g_, w) for g_, w in zip(res[pid], res[other]))
+        out[f"{pid}_equals_{other}"] = ok
+        if not ok:
+            errs = [rel_err(g_, w)[1] for g_, w in zip(res[pid], res[other])]
+            fail(f"rank {rank}: pencil {pid} is not bit-equal to {other} "
+                 f"(rel {max(errs):.3e})")
+    del res, refs, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def pencil_csv_name(argv) -> str:
+    """Where the pencil executable writes the CSV of ``argv``, under its
+    ``-b`` directory (the CPU tests hold it equal to the JAX
+    executable's)."""
+    from distributedfft_tpu_torch import params as pm
+    from distributedfft_tpu_torch.cli import common
+    from distributedfft_tpu_torch.cli import pencil as cli_pencil
+    from distributedfft_tpu_torch.utils.timer import benchmark_filename
+    args = cli_pencil.build_parser().parse_args(argv)
+    cfg = pm.Config(
+        comm_method=pm.CommMethod.parse(args.comm_method1),
+        send_method=pm.SendMethod.parse(args.send_method1),
+        comm_method2=(pm.CommMethod.parse(args.comm_method2)
+                      if args.comm_method2 else None),
+        **common.config_kwargs(args))
+    g = pm.GlobalSize(args.input_dim_x, args.input_dim_y, args.input_dim_z)
+    return os.path.relpath(benchmark_filename(
+        args.benchmark_dir, "pencil", cfg, g, PENCIL_RANKS,
+        pencil_grid=(args.partition1, args.partition2)), args.benchmark_dir)
+
+
+def csv_rank_means(bdir):
+    """Each rank's mean "Run complete" and fused ms over the blocks of the
+    one CSV under ``bdir``."""
+    import glob
+    from distributedfft_tpu_torch.testing.testcases import FUSED_DESC
+    from distributedfft_tpu_torch.utils.timer import read_timer_csv
+    blocks = read_timer_csv(glob.glob(os.path.join(bdir, "*", "*.csv"))[0])
+    ranks = range(len(blocks[0]["Run complete"]))
+    return {"run_complete_ms": [statistics.mean(b["Run complete"][r]
+                                                for b in blocks)
+                                for r in ranks],
+            "fused_ms": [statistics.mean(b[FUSED_DESC][r]
+                                         - b["Run complete"][r]
+                                         for b in blocks) for r in ranks]}
+
+
+def pencil_cli(torch, dist, dft, hf, rank: int, outdir: str):
+    """``dfft-torch-pencil`` at 1024^3 on 2 x 2 under "pallas", testcases
+    3 and 0, for each exchange of ``PENCIL_FULL``, and
+    ``dfft-torch-reference`` testcases 2 and 3 at 512^3 over the four
+    ranks: launches and entry points against the plan's, testcase 3's
+    result within TOL of N, each CSV's name, sections and per-rank means,
+    the probes' rates."""
+    from distributedfft_tpu_torch.cli import pencil as cli_pencil
+    from distributedfft_tpu_torch.cli import reference as cli_ref
+    sections = dft.PencilFFTPlan(
+        dft.GlobalSize(8, 8, 8), dft.PencilPartition(1, 1), None,
+        device="cuda").section_descriptions
+    out = {"runs": [], "launches": {}}
+    for rid, (_, flags) in PENCIL_FULL.items():
+        for tc, (args, blocks, k_f, k_i) in CLI_RANK_CASES.items():
+            bdir = os.path.join(outdir, f"pencil_{rid}_t{tc}")
+            argv = ["-nx", str(NBIG), "-ny", str(NBIG), "-nz", str(NBIG),
+                    "-p1", str(PENCIL_GRID[0]), "-p2", str(PENCIL_GRID[1]),
+                    "--fft-backend", "pallas", "-b", bdir] + flags + args
+            text, got, ent, secs = cli_run(torch, hf, cli_pencil.main, argv)
+            want = scaled(_P3[0], k_f, _P3[1], k_i)
+            ent_want = scaled(_P3[2], k_f, _P3[3], k_i)
+            if got != expect(hf, **want) or ent != ent_want:
+                fail(f"rank {rank} pencil {argv}: launches {got} (entries "
+                     f"{ent}), expected {want} ({ent_want})")
+            out["launches"][f"cli_pencil_{rid}_{NBIG}_t{tc}"] = got
+            row = dict(rendering=rid, testcase=tc, argv=argv, seconds=secs,
+                       entries=ent)
+            dist.barrier()      # rank 0 has written the CSV
+            if rank == 0:
+                val, rel = cli_result(tc, text, NBIG ** 3, 0.0)
+                if rel is not None and rel > TOL:
+                    fail(f"pencil {argv}: {val} is {rel} of N")
+                name, run_ms, fused_ms = cli_csv(bdir, sections, blocks,
+                                                 PENCIL_RANKS)
+                if name != pencil_csv_name(argv):
+                    fail(f"pencil {argv} wrote {name}, not "
+                         f"{pencil_csv_name(argv)}")
+                row.update(csv=name, result=val, result_rel=rel,
+                           per_rank=csv_rank_means(bdir),
+                           printed=text.strip().splitlines())
+            out["runs"].append(row)
+            torch.cuda.empty_cache()
+    for tc, geometry in ((2, "2d"), (3, "3d")):
+        for o in ("0", "1"):
+            argv = ["-nx", str(N), "-ny", str(N), "-nz", str(N), "-t",
+                    str(tc), "-o", o, "-i", "3", "-w", "1"]
+            text, got, _, secs = cli_run(torch, hf, cli_ref.main, argv)
+            if any(got.values()):
+                fail(f"rank {rank} reference {argv} launched kernels: {got}")
+            if rank == 0:
+                line = next(ln for ln in text.splitlines()
+                            if ln.startswith("Bandwidth: "))
+                call = "isend" if o == "0" else "all_to_all_single"
+                if f", {geometry}, {PENCIL_RANKS} devices" not in line or \
+                        call not in line:
+                    fail(f"reference -t {tc} -o {o}: {line}")
+                out[f"reference_t{tc}_o{o}"] = dict(
+                    argv=argv, seconds=secs, printed=line,
+                    mb_per_s=printed(text, "Bandwidth: "))
+    return out
+
+
+def pencil_rank_main(rank: int, addr: str, outdir: str) -> None:
+    """One of the four ranks of the pencil phase (``torch.cuda.set_device``
+    0 on each: they share the card over gloo)."""
+    import torch
+    import torch.distributed as dist
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.parallel import multihost
+    from distributedfft_tpu_torch.parallel import transpose as tr
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.maybe_initialize(addr, PENCIL_RANKS, rank, backend="gloo",
+                               timeout_s=600)
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    out["full"] = pencil_full(torch, dist, dft, hf, tr, rank)
+    out["full_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["renderings"] = pencil_renderings(torch, dist, dft, hf, rank)
+    out["renderings_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cli"] = pencil_cli(torch, dist, dft, hf, rank, outdir)
+    out["cli_seconds"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, f"pencil_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    multihost.shutdown()
 
 
 # ---------------------------------------------------------------------------
@@ -2155,6 +2593,36 @@ def main() -> int:
     emit(phase="cli_ranks", ranks=RANKS,
          exchange="gloo, host-staged, 2 ranks on 1 card", per_rank=cli_ranks)
     emit(phase="cli_done", seconds=time.perf_counter() - t0)
+
+    # -- 8c. the pencil plan: 1 x 1 per axis, then 2 x 2 as four ranks -------
+    t0 = time.perf_counter()
+    pen_launches, _ = pencil_single_card(torch, dft, hf, gen)
+    launches.update(pen_launches)
+    tmp.spawn(pencil_rank_main, args=(multihost.local_coordinator(), outdir),
+              nprocs=PENCIL_RANKS, join=True)
+    pen_ranks = []
+    for r in range(PENCIL_RANKS):
+        with open(os.path.join(outdir, f"pencil_rank{r}.json")) as f:
+            pen_ranks.append(json.load(f))
+    p0 = pen_ranks[0]
+    for group, prefix in (("full", f"pencil_{NBIG}"),
+                          ("renderings", f"pencil_{N}")):
+        for pid in (PENCIL_FULL if group == "full" else PENCIL_PATHS):
+            row = p0[group][pid]
+            launches[f"{prefix}_{pid}_rank0"] = {
+                k: row["launches_forward"][k] + row["launches_inverse"][k]
+                for k in row["launches_forward"]}
+    for name, v in p0["cli"]["launches"].items():
+        launches[f"{name}_rank0"] = v
+    for rk in pen_ranks:
+        emit(phase="pencil_full", rank=rk["rank"], grid=list(PENCIL_GRID),
+             shape=[NBIG] * 3, exchange="gloo, host-staged, 4 ranks on 1 card",
+             seconds=rk["full_seconds"], paths=rk["full"])
+    emit(phase="pencil_renderings", shape=[N] * 3, grid=list(PENCIL_GRID),
+         per_rank={rk["rank"]: rk["renderings"] for rk in pen_ranks},
+         seconds=p0["renderings_seconds"])
+    emit(phase="pencil_cli", rank0=p0["cli"], seconds=p0["cli_seconds"])
+    emit(phase="pencil_done", seconds=time.perf_counter() - t0)
 
     # -- 9. the kernels line, the card, the result ---------------------------
     def total_launches(name):

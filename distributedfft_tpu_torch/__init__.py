@@ -1,24 +1,31 @@
 """PyTorch / CUDA port of ``distributedfft_tpu`` for NVIDIA Hopper.
 
 A second package beside the JAX one, ported slice by slice. It runs the
-slab plan: ``SlabFFTPlan(GlobalSize, SlabPartition(P), Config)`` with
-``exec_r2c`` / ``exec_c2r``, on one device or over P ranks of a
-``torch.distributed`` world (``maybe_initialize``, ``make_slab_group``),
-its exchange one all-to-all or a ring of point-to-point steps,
-on ``torch.fft`` (backend ``"xla"``) or on the hand-written Hopper kernels
-(backend ``"pallas"``). Entry points run on ``device="cuda"`` unless the
-caller asks for the CPU.
+slab plan, ``SlabFFTPlan(GlobalSize, SlabPartition(P), Config)``, and the
+pencil plan, ``PencilFFTPlan(GlobalSize, PencilPartition(P1, P2),
+Config)``, with ``exec_r2c`` / ``exec_c2r`` (the pencil's with the depth
+``dims`` of its partial transforms), on one device or over the ranks of a
+``torch.distributed`` world (``maybe_initialize``; ``make_slab_group``,
+``make_pencil_groups``), each exchange an all-to-all, point to point or a
+ring of point-to-point steps, on ``torch.fft`` (backend ``"xla"``) or on
+the hand-written Hopper kernels (backend ``"pallas"``). Entry points run
+on ``device="cuda"`` unless the caller asks for the CPU.
 """
 
+from .models.pencil import PencilFFTPlan
 from .models.slab import SlabFFTPlan
-from .parallel.mesh import SLAB_AXIS, make_slab_group
+from .parallel.mesh import (PENCIL_AXES, SLAB_AXIS, best_pencil_grid,
+                            make_pencil_groups, make_slab_group)
 from .parallel.multihost import maybe_initialize, shutdown
-from .params import (CommMethod, Config, FFTNorm, GlobalSize, SendMethod,
-                     SlabPartition, SlabSequence, config_from_reference,
-                     global_size_from_reference, slab_partition_from_reference)
+from .params import (CommMethod, Config, FFTNorm, GlobalSize,
+                     PencilPartition, SendMethod, SlabPartition, SlabSequence,
+                     config_from_reference, global_size_from_reference,
+                     slab_partition_from_reference)
 
-__all__ = ["CommMethod", "Config", "FFTNorm", "GlobalSize", "SLAB_AXIS",
-           "SendMethod", "SlabFFTPlan", "SlabPartition", "SlabSequence",
-           "config_from_reference",
-           "global_size_from_reference", "make_slab_group",
-           "maybe_initialize", "shutdown", "slab_partition_from_reference"]
+__all__ = ["CommMethod", "Config", "FFTNorm", "GlobalSize", "PENCIL_AXES",
+           "PencilFFTPlan", "PencilPartition", "SLAB_AXIS", "SendMethod",
+           "SlabFFTPlan", "SlabPartition", "SlabSequence",
+           "best_pencil_grid", "config_from_reference",
+           "global_size_from_reference", "make_pencil_groups",
+           "make_slab_group", "maybe_initialize", "shutdown",
+           "slab_partition_from_reference"]

@@ -44,10 +44,12 @@ LATER_ITEMS = {
 EMULATED_TIMEOUT_S = 300
 
 
-def add_common_args(ap: argparse.ArgumentParser,
+def add_common_args(ap: argparse.ArgumentParser, pencil: bool = False,
                     comm_tunable: bool = False) -> None:
-    """The JAX package's ``add_common_args`` surface (slab and reference:
-    one ``-comm`` / ``-snd`` pair)."""
+    """The JAX package's ``add_common_args`` surface: slab and reference
+    take one ``-comm`` / ``-snd`` pair, pencil one pair per transpose
+    (``-comm1/-snd1``, ``-comm2/-snd2``; the second defaults to the
+    first)."""
     ap.add_argument("--input-dim-x", "-nx", type=int, required=True,
                     help="size of the input data in x-direction")
     ap.add_argument("--input-dim-y", "-ny", type=int, required=True,
@@ -100,17 +102,28 @@ def add_common_args(ap: argparse.ArgumentParser,
     if comm_tunable:
         ap.add_argument("--autotune-comm", action="store_true",
                         help="race the comm-strategy matrix (not ported yet)")
-    ap.add_argument("--comm-method", "-comm", default="Peer2Peer",
-                    help='"Peer2Peer" (a send and a receive to every peer) '
-                         'or "All2All" (one all-to-all)')
-    ap.add_argument("--send-method", "-snd", default="Sync",
-                    help="Sync (monolithic exchange) | Streams (the "
-                         "exchange in pieces of the free axis) | Ring "
-                         "(point-to-point ring with per-block FFTs between "
-                         "steps; owns the rendering regardless of comm "
-                         "method) | RingOverlap (the ring with transfers "
-                         "issued ahead of the compute; bit-identical "
-                         "output) | MPI_Type (alias of Sync)")
+    snd_help = ("Sync (monolithic exchange) | Streams (the exchange in "
+                "pieces of the free axis) | Ring (point-to-point ring; owns "
+                "the rendering regardless of comm method) | RingOverlap "
+                "(the ring with transfers issued ahead of the compute; "
+                "bit-identical output) | MPI_Type (alias of Sync)")
+    if pencil:
+        ap.add_argument("--comm-method1", "-comm1", default="Peer2Peer",
+                        help='"Peer2Peer" (a send and a receive to every '
+                             'peer) or "All2All" (one all-to-all), '
+                             'transpose 1')
+        ap.add_argument("--send-method1", "-snd1", default="Sync",
+                        help=snd_help)
+        ap.add_argument("--comm-method2", "-comm2", default=None,
+                        help="same as --comm-method1 for transpose 2 "
+                             "(default: transpose 1's)")
+        ap.add_argument("--send-method2", "-snd2", default=None)
+    else:
+        ap.add_argument("--comm-method", "-comm", default="Peer2Peer",
+                        help='"Peer2Peer" (a send and a receive to every '
+                             'peer) or "All2All" (one all-to-all)')
+        ap.add_argument("--send-method", "-snd", default="Sync",
+                        help=snd_help)
     ap.add_argument("--streams-chunks", type=int, default=None,
                     help="piece count for the Streams transpose (ignored "
                          "unless the send method is Streams)")
@@ -146,12 +159,15 @@ def add_common_args(ap: argparse.ArgumentParser,
 def refuse_later_items(args) -> None:
     """Raise ``NotImplementedError`` for the first flag that asks for a
     feature of a later ROADMAP item."""
-    comm = str(args.comm_method).strip().lower()
+    comms = [str(v).strip().lower() for v in
+             (getattr(args, k, None) for k in ("comm_method", "comm_method1",
+                                               "comm_method2"))
+             if v is not None]
     for flag, item, on in (
             ("--autotune-comm", 11, getattr(args, "autotune_comm", False)),
             ("--autotune", 11, getattr(args, "autotune", False)),
             ("--wisdom", 11, args.wisdom is not None),
-            ("-comm auto", 11, comm == pm.AUTO),
+            ("-comm auto", 11, pm.AUTO in comms),
             ("--fft-backend auto", 11, args.fft_backend == pm.AUTO),
             ("-wire auto", 11, args.wire_dtype == pm.AUTO),
             ("--guards", 9, args.guards not in (None, "off")),
@@ -206,8 +222,10 @@ def config_kwargs(args) -> dict:
         guards=args.guards)
 
 
-def run_testcase(plan, args) -> int:
-    """Dispatch ``-t N`` to the testcases and print the perf summary."""
+def run_testcase(plan, args, dims: Optional[int] = None) -> int:
+    """Dispatch ``-t N`` to the testcases and print the perf summary;
+    ``dims`` is the pencil executable's ``--fft-dim`` (testcase 4 always
+    runs the whole transform)."""
     from ..testing import testcases as tc
 
     fn = {0: tc.testcase0, 1: tc.testcase1, 2: tc.testcase2,
@@ -220,6 +238,8 @@ def run_testcase(plan, args) -> int:
         kwargs.update(iterations=args.iterations, warmup=args.warmup_rounds)
     if args.testcase == 1:
         kwargs["truth"] = args.tc1_truth
+    if dims is not None and args.testcase != 4:
+        kwargs["dims"] = dims
     result = fn(plan, **kwargs)
     if "mean_ms" in result:
         tc.say(f"Run complete: {result['mean_ms']:.4f} ms "

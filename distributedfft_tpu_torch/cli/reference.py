@@ -1,15 +1,17 @@
 """``reference`` executable of the port — the single-device baseline and
-the slab transpose's bandwidth (reference ``tests/src/reference/main.cpp``,
-``tests/include/tests_reference.hpp:42-96``), after the JAX package's
-``cli/reference.py``.
+the global transpose's bandwidth (reference
+``tests/src/reference/main.cpp``, ``tests/include/tests_reference.hpp:
+42-96``), after the JAX package's ``cli/reference.py``.
 
 Testcases (``-o`` picks the exchange: 0 = Peer2Peer, 1 = All2All):
   0: the full 3D R2C on one device (the reference's gather ->
      ``cufftMakePlan3d`` baseline);
-  1: the 1D geometry: the slab transpose over every rank of the world.
-The 2D and 3D geometries (testcases 2, 3) transpose a pencil mesh, ROADMAP
-Queue 1 item 5; the fraction chain (testcase 4) and ``--autotune`` are
-item 11. Each raises ``NotImplementedError`` naming its item.
+  1: the 1D geometry: the slab transpose over every rank of the world;
+  2: the 2D geometry: a pencil transpose over one axis of a 1 x P grid;
+  3: the 3D geometry: the 2 x P/2 grid, x held split while y becomes
+     z-split (P even and > 2).
+The fraction chain (testcase 4) and ``--autotune`` are ROADMAP Queue 1
+item 11; each raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -20,11 +22,7 @@ import sys
 from .common import (LATER_ITEMS, add_common_args, refuse_later_items,
                      run, setup_backend)
 
-_LATER_TESTCASES = {
-    2: "ROADMAP Queue 1, item 5 (the pencil plan: the 2D geometry)",
-    3: "ROADMAP Queue 1, item 5 (the pencil plan: the 3D geometry)",
-    4: LATER_ITEMS[11] + ": the fraction chain",
-}
+_LATER_TESTCASES = {4: LATER_ITEMS[11] + ": the fraction chain"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,15 +69,18 @@ def _body(args) -> int:
         say(f"Run complete: {ms:.4f} ms (single-device 3D R2C, "
             f"{shape[0]}x{shape[1]}x{shape[2]})")
         return 0
-    if args.testcase == 1:
+    if args.testcase in (1, 2, 3):
         p = multihost.world()[1]
         explicit = args.opt != 0     # opt 0: Peer2Peer, opt 1: All2All
+        geometry = {1: "1d", 2: "2d", 3: "3d"}[args.testcase]
         r = mb.transpose_bandwidth(shape, p, explicit=explicit,
                                    iterations=it or 1, warmup=wu,
-                                   dtype=dtype, device=device)
+                                   dtype=dtype, device=device,
+                                   geometry=geometry)
         kind = "All2All" if explicit else "Peer2Peer"
         say(f"Bandwidth: {r['gb_per_s'] * 1e3:.2f} MB/s "
-            f"[{kind}, 1d, {p} devices, {r['bytes'] / 1e6:.1f} MB moved in "
+            f"[{kind}, {geometry}, {p} devices, {r['bytes'] / 1e6:.1f} MB "
+            f"moved in "
             f"{r['seconds'] * 1e3:.3f} ms, collectives={r['collective_ops']}]")
         return 0
     print(f"unknown testcase {args.testcase}", file=sys.stderr)

@@ -71,11 +71,10 @@ from .. import params as pm
 from ..ops import fft as lf
 from ..ops import hopper_fft as hf
 from ..parallel.mesh import make_slab_group
-from ..parallel.transpose import (all_to_all_transpose, concat_axis_chunks,
-                                  pad_axis_to, peer_to_peer_transpose,
-                                  pipelined_all_to_all, ring_subblocks,
-                                  ring_transpose, slice_axis_to,
-                                  split_axis_chunks, wire_complex_dtype)
+from ..parallel.transpose import (concat_axis_chunks, exchange_body,
+                                  pad_axis_to, ring_subblocks, ring_transpose,
+                                  slice_axis_to, split_axis_chunks,
+                                  wire_complex_dtype)
 from ..utils.native_planner import even_shard_sizes, padded_extent
 from .base import DistFFTPlan, Pipeline
 
@@ -349,43 +348,21 @@ class SlabFFTPlan(DistFFTPlan):
 
     def _xpose_bodies(self, chunks: Optional[int] = None):
         """``(forward, inverse)`` exchange bodies of a plan that no ring
-        owns: the all-to-all (ALL2ALL, at the Config's opt) or Peer2Peer
-        (PEER2PEER), each the whole block at once; the pipelined
-        all-to-all where ``_a2a_pipe_chunks`` > 1; with ``chunks`` > 1,
-        that many independent exchanges of pieces of the free axis
-        (STREAMS' exchanges). Every one gives the monolithic result bit
-        for bit."""
+        owns (``exchange_body``): the all-to-all (ALL2ALL, at the Config's
+        opt) or Peer2Peer (PEER2PEER), each the whole block at once; the
+        pipelined all-to-all where ``_a2a_pipe_chunks`` > 1; with
+        ``chunks`` > 1, that many independent exchanges of pieces of the
+        free axis (STREAMS' exchanges). Every one gives the monolithic
+        result bit for bit."""
         cfg = self.config
-        realigned, wire = cfg.opt == 1, cfg.wire_dtype
-        group, sa = self.group, self._seq.split_axis
-        ca = self._streams_chunk_axis()
-        a2a = cfg.comm_method is pm.CommMethod.ALL2ALL
-
-        def one(cl, split, concat):
-            if a2a:
-                return all_to_all_transpose(cl, group, split, concat,
-                                            realigned=realigned, wire=wire)
-            return peer_to_peer_transpose(cl, group, split, concat,
-                                          wire=wire)
-
-        if chunks is None and self._a2a_pipe_chunks() > 1:
-            pk, depth = self._a2a_pipe_chunks(), cfg.resolved_overlap_depth()
-
-            def piped(cl, split, concat):
-                return pipelined_all_to_all(
-                    cl, group, split, concat, chunk_axis=ca, chunks=pk,
-                    depth=depth, realigned=realigned, wire=wire)
-
-            return (lambda cl: piped(cl, sa, 0)), (lambda cl: piped(cl, 0, sa))
-        if chunks is None or chunks <= 1:
-            return (lambda cl: one(cl, sa, 0)), (lambda cl: one(cl, 0, sa))
-
-        def chunked(cl, split, concat):
-            return concat_axis_chunks(
-                [one(p, split, concat)
-                 for p in split_axis_chunks(cl, ca, chunks)], ca)
-
-        return (lambda cl: chunked(cl, sa, 0)), (lambda cl: chunked(cl, 0, sa))
+        sa = self._seq.split_axis
+        kw = dict(all_to_all=cfg.comm_method is pm.CommMethod.ALL2ALL,
+                  realigned=cfg.opt == 1, wire=cfg.wire_dtype,
+                  chunk_axis=self._streams_chunk_axis(),
+                  pipe_chunks=self._a2a_pipe_chunks() if chunks is None else 1,
+                  depth=cfg.resolved_overlap_depth(), pieces=chunks or 1)
+        return (exchange_body(self.group, sa, 0, **kw),
+                exchange_body(self.group, 0, sa, **kw))
 
     def _exchange_bodies(self):
         """The exchange pair of the staged surface: ``_xpose_bodies`` of

@@ -3,19 +3,41 @@
 
 The reference derives its rank layout from ``MPI_Comm_rank`` /
 ``MPI_Comm_split`` (``src/mpicufft.cpp:46-51``). The JAX package names a
-1D device-mesh axis ``'p'`` for a slab plan; here each rank is one process
-of a ``torch.distributed`` world (NCCL across cards, gloo on the CPU), and a
-slab plan over P ranks exchanges over a group of exactly P processes.
+1D device-mesh axis ``'p'`` for a slab plan and a 2D mesh ``('p1', 'p2')``
+for a pencil plan; here each rank is one process of a
+``torch.distributed`` world (NCCL across cards, gloo on the CPU). A slab
+plan over P ranks exchanges over a group of exactly P processes; a pencil
+plan over a P1 x P2 grid exchanges over two sub-groups of it, the
+reference's two ``MPI_Comm_split`` communicators
+(``src/pencil/mpicufft_pencil.cpp:112-123``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch.distributed as dist
 
 # Name of the slab decomposition axis (the JAX mesh axis name).
 SLAB_AXIS = "p"
+# Names of the pencil grid's axes (the JAX mesh axis names): p1 splits x
+# and carries transpose 2, p2 splits y and carries transpose 1.
+PENCIL_AXES = ("p1", "p2")
+
+# (p1, p2) -> (row groups, column groups) of this world, every one of them:
+# ``dist.new_group`` is collective over the world, so each rank creates
+# them all, once, in one order.
+_PENCIL_GROUPS: Dict[Tuple[int, int], Tuple[list, list]] = {}
+
+
+def _require_world(kind: str) -> int:
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"a distributed {kind} plan needs a torch.distributed world: "
+            f"start one rank per process and call "
+            f"distributedfft_tpu_torch.maybe_initialize() first")
+    return dist.get_world_size()
 
 
 def make_slab_group(p: Optional[int] = None):
@@ -24,15 +46,61 @@ def make_slab_group(p: Optional[int] = None):
 
     It is the default (world) group, which must hold exactly ``p`` ranks;
     anything else raises. Start the world first (``maybe_initialize``)."""
-    if not dist.is_available() or not dist.is_initialized():
-        raise RuntimeError(
-            "a distributed slab plan needs a torch.distributed world: start "
-            "one rank per process and call "
-            "distributedfft_tpu_torch.maybe_initialize() first")
-    world = dist.get_world_size()
+    world = _require_world("slab")
     if p is None:
         p = world
     if p != world:
         raise ValueError(f"requested {p} slab ranks but the world has "
                          f"{world}; a slab plan uses the whole world")
     return dist.group.WORLD
+
+
+def pencil_coords(rank: int, p2: int) -> Tuple[int, int]:
+    """Grid coordinate (i, j) of a global rank: rank = i * p2 + j, the
+    reference's ``pidx`` (``src/pencil/mpicufft_pencil.cpp:83-85``) and the
+    JAX mesh's device order."""
+    return divmod(rank, p2)
+
+
+def make_pencil_groups(p1: int, p2: int):
+    """``(row_group, col_group)`` of this rank on a ``p1 x p2`` grid over
+    the whole world — the counterpart of ``make_pencil_mesh``.
+
+    The row group holds the p2 ranks with this rank's i and carries
+    transpose 1; the column group holds the p1 ranks with its j and carries
+    transpose 2. Each group lists its ranks in ascending order, so a
+    rank's group rank is its coordinate (j in the row group, i in the
+    column group): the exchanges place block d at group rank d. Every rank
+    creates all p1 row groups and p2 column groups, in one order, once per
+    (p1, p2) and world; a world of another size than p1 * p2 raises."""
+    world = _require_world("pencil")
+    if p1 <= 0 or p2 <= 0:
+        raise ValueError(f"pencil grid must be positive, got {p1}x{p2}")
+    if p1 * p2 != world:
+        raise ValueError(f"requested a {p1}x{p2} pencil grid but the world "
+                         f"has {world} ranks; a pencil plan uses the whole "
+                         f"world")
+    if (p1, p2) not in _PENCIL_GROUPS:
+        rows = [dist.new_group([i * p2 + j for j in range(p2)])
+                for i in range(p1)]
+        cols = [dist.new_group([i * p2 + j for i in range(p1)])
+                for j in range(p2)]
+        _PENCIL_GROUPS[(p1, p2)] = (rows, cols)
+    rows, cols = _PENCIL_GROUPS[(p1, p2)]
+    i, j = pencil_coords(dist.get_rank(), p2)
+    return rows[i], cols[j]
+
+
+def forget_groups() -> None:
+    """Drop the cached pencil groups (the world that made them is gone)."""
+    _PENCIL_GROUPS.clear()
+
+
+def best_pencil_grid(n: int) -> Tuple[int, int]:
+    """Most-square factorization of ``n`` into (p1, p2), the usual default
+    when a job spec gives only a rank count."""
+    best = (1, n)
+    for p1 in range(1, int(math.isqrt(n)) + 1):
+        if n % p1 == 0:
+            best = (p1, n // p1)
+    return best

@@ -227,6 +227,8 @@ def _a2a_unpack(recv: torch.Tensor, p: int, c: int) -> torch.Tensor:
 def _all_to_all_native(x: torch.Tensor, group, split_axis: int,
                        concat_axis: int) -> torch.Tensor:
     p = dist.get_world_size(group)
+    if p == 1:      # a one-rank group: the exchange is the identity
+        return x
     s, c = split_axis % x.ndim, concat_axis % x.ndim
     send = _a2a_pack(x, p, s)
     recv = torch.empty_like(send)
@@ -268,6 +270,8 @@ def pipelined_all_to_all(x: torch.Tensor, group, split_axis: int,
         if wired:
             piece = wire_encode(piece, wire)
         send = _a2a_pack(piece, p, s + shift)
+        if p == 1:  # a one-rank group: nothing to post
+            return None, send, send
         recv = torch.empty_like(send)
         work = dist.all_to_all_single(_bytes(recv), _bytes(send),
                                       group=group, async_op=True)
@@ -275,7 +279,8 @@ def pipelined_all_to_all(x: torch.Tensor, group, split_axis: int,
 
     def land(pending) -> torch.Tensor:
         work, _, recv = pending
-        work.wait()
+        if work is not None:
+            work.wait()
         y = _a2a_unpack(recv, p, c + shift)
         return wire_decode(y, x.dtype, wire) if wired else y
 
@@ -326,6 +331,36 @@ def peer_to_peer_transpose(x: torch.Tensor, group, split_axis: int,
         blocks[src] = recv
     out = torch.cat(blocks, dim=c)
     return wire_decode(out, dtype, wire) if wired else out
+
+
+def exchange_body(group, split_axis: int, concat_axis: int, *,
+                  all_to_all: bool, realigned: bool = False,
+                  wire: str = WIRE_NATIVE, chunk_axis: Optional[int] = None,
+                  pipe_chunks: int = 1, depth: int = 2,
+                  pieces: int = 1) -> Block:
+    """The body of one exchange that no ring owns, as the plans render it
+    from their Config: with ``pieces`` > 1, that many independent
+    exchanges of pieces of ``chunk_axis`` (STREAMS' exchanges); else,
+    under ALL2ALL with ``pipe_chunks`` > 1, the pipelined all-to-all in
+    that many pieces of ``chunk_axis``; else the whole block at once, by
+    the all-to-all (``all_to_all``) or point to point. Every one gives the
+    monolithic result bit for bit."""
+    def one(x: torch.Tensor) -> torch.Tensor:
+        if all_to_all:
+            return all_to_all_transpose(x, group, split_axis, concat_axis,
+                                        realigned=realigned, wire=wire)
+        return peer_to_peer_transpose(x, group, split_axis, concat_axis,
+                                      wire=wire)
+
+    if pieces > 1:
+        return lambda x: concat_axis_chunks(
+            [one(p) for p in split_axis_chunks(x, chunk_axis, pieces)],
+            chunk_axis)
+    if all_to_all and pipe_chunks > 1:
+        return lambda x: pipelined_all_to_all(
+            x, group, split_axis, concat_axis, chunk_axis=chunk_axis,
+            chunks=pipe_chunks, depth=depth, realigned=realigned, wire=wire)
+    return one
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:

@@ -257,8 +257,7 @@ class Config:
     (its knobs: the ``mxu_*`` fields) and ``"pallas"`` the hand-written
     Hopper kernels of ``ops/hopper_fft.py``; ``"bluestein"``, the
     ``"auto"`` markers and the fields of later ROADMAP items (guards,
-    wisdom, the second pencil transpose) are accepted and validated but
-    not ported yet."""
+    wisdom) are accepted and validated but not ported yet."""
 
     comm_method: CommMethod = CommMethod.ALL2ALL
     send_method: SendMethod = SendMethod.SYNC
@@ -378,6 +377,11 @@ class Config:
     def resolved_streams_chunks(self) -> int:
         """Pieces of the STREAMS exchange (None -> 4)."""
         return self.streams_chunks if self.streams_chunks is not None else 4
+
+    def resolved_comm2(self) -> CommMethod:
+        """The pencil's second-transpose comm method (None -> the first's)."""
+        return (self.comm_method2 if self.comm_method2 is not None
+                else self.comm_method)
 
     def resolved_snd2(self) -> SendMethod:
         return (self.send_method2 if self.send_method2 is not None

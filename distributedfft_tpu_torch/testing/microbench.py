@@ -1,6 +1,7 @@
 """Microbenchmarks of the ``reference`` executable — two of the JAX
 package's ``testing/microbench.py``: the single-device 3D FFT baseline and
-the slab transpose's bandwidth — and the pieces of the matmul backend's
+a global transpose's bandwidth in the reference's 1D, 2D and 3D exchange
+geometries — and the pieces of the matmul backend's
 four-step (``matmul_fourstep_ms``). The rest of the JAX module (the
 autotuner's races, the fraction chain) is ROADMAP Queue 1 item 11.
 
@@ -64,33 +65,62 @@ def single_device_fft_ms(shape, iterations: int = 10, warmup: int = 2,
 def transpose_bandwidth(shape, p: int, explicit: bool = True,
                         iterations: int = 10, warmup: int = 2,
                         dtype=np.float32, group=None,
-                        device: "str | torch.device" = "cuda") -> Dict:
-    """The slab transpose's bandwidth over the ranks of ``group`` (the
-    reference's 1D probe, ``tests_reference.hpp:53-96``): each rank holds
-    its x-slab of a global ``shape`` of ones and the exchange leaves it a
-    y-slab. ``explicit=True`` runs the all-to-all (All2All),
-    ``False`` the point-to-point exchange to every peer (Peer2Peer).
-    Every rank must call it. Returns the exchanged bytes (the global
-    array), the mean seconds of one exchange, the rate and the collective
-    calls the rendering makes. The 2D and 3D geometries transpose a pencil
-    mesh (ROADMAP Queue 1, item 5)."""
+                        device: "str | torch.device" = "cuda",
+                        geometry: str = "1d") -> Dict:
+    """A global transpose's bandwidth in the reference's three exchange
+    geometries (``tests_reference.hpp:53-96``), over the ``p`` ranks of
+    ``group`` (default: the world), on a global ``shape`` of ones:
+
+    * ``"1d"``: the slab transpose: each rank's x-slab becomes a y-slab;
+    * ``"2d"``: one axis of a 1 x p pencil grid: each rank's y-split block
+      becomes z-split (the pencil's transpose 1);
+    * ``"3d"``: the 2 x p/2 grid, x held split over p1 while y-split
+      becomes z-split over p2: the exchange strided in two axes (p even
+      and > 2).
+
+    ``explicit=True`` runs the all-to-all (All2All), ``False`` the
+    point-to-point exchange to every peer (Peer2Peer). Every rank must call
+    it. Returns the exchanged bytes (the global array), the mean seconds
+    of one exchange, the rate, the geometry and the collective calls the
+    rendering makes."""
     world = dist.get_world_size(group) if dist.is_initialized() else 1
+    if geometry == "1d":
+        block = (shape[0] // p,) + tuple(shape[1:])
+        split, concat, exts, q = 1, 0, shape[:2], p
+    elif geometry in ("2d", "3d"):
+        if geometry == "3d":
+            if p % 2 or p <= 2:
+                raise ValueError(
+                    f"3d geometry needs an even device count > 2 to doubly "
+                    f"shard (got p={p}); with p1=1 it would be the 2d probe "
+                    f"mislabeled")
+            if shape[0] % 2:
+                raise ValueError("3d geometry needs shape[0] % 2 == 0")
+        p1 = 2 if geometry == "3d" else 1
+        q = p // p1
+        block = (shape[0] // p1, shape[1] // q, shape[2])
+        split, concat, exts = 2, 1, shape[1:]
+    else:
+        raise ValueError(f"geometry must be '1d'|'2d'|'3d', got {geometry!r}")
     if p != world:
         raise ValueError(f"the probe runs over all {world} ranks, got p={p}")
-    for ext in shape[:2]:
-        if ext % p:
+    for ext in exts:
+        if ext % q:
             raise ValueError(
-                f"microbench extents must divide the ranks: {ext} % {p} "
+                f"microbench extents must divide the ranks: {ext} % {q} "
                 f"!= 0 (the plans pad uneven extents; this probe does not)")
+    xgroup = group
+    if geometry != "1d" and p > 1:
+        from ..parallel.mesh import make_pencil_groups
+        xgroup = make_pencil_groups(p1, q)[0]    # this rank's row group
     device = torch.device(device)
-    x = torch.from_numpy(np.ones((shape[0] // p,) + tuple(shape[1:]),
-                                 dtype=dtype)).to(device)
+    x = torch.from_numpy(np.ones(block, dtype=dtype)).to(device)
     exchange = all_to_all_transpose if explicit else peer_to_peer_transpose
     calls = (["all_to_all_single"] if explicit else ["isend", "irecv"])
 
     def run():
-        if p > 1:
-            exchange(x, group, 1, 0)
+        if q > 1:
+            exchange(x, xgroup, split, concat)
 
     for _ in range(warmup):
         run()
@@ -104,7 +134,7 @@ def transpose_bandwidth(shape, p: int, explicit: bool = True,
     dt = (time.perf_counter() - t0) / iterations
     nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
     return {"seconds": dt, "bytes": nbytes, "gb_per_s": nbytes / dt / 1e9,
-            "geometry": "1d", "collective_ops": calls if p > 1 else []}
+            "geometry": geometry, "collective_ops": calls if q > 1 else []}
 
 
 def matmul_fourstep_ms(rows: int = 65536, iterations: int = 5,

@@ -1,6 +1,6 @@
 """Per-rank test inputs, spectral symbols and residuals of the testcases —
 the port's counterpart of the JAX package's ``testing/sharded.py``, for
-the slab plan.
+the slab and pencil plans.
 
 The reference generates its validation inputs and residuals on the GPU
 (cuRAND, the ``difference`` / ``derivativeCoefficients`` kernels and a
@@ -10,9 +10,11 @@ plan's device for this rank's block only, so no rank ever holds the global
 cube; a residual leaves the device as two scalars, all-reduced over the
 ranks (SUM for the abs-sum, MAX for the abs-max).
 
-A plan's block is its share of the padded global array: the input split
-over x, the spectrum over the split axis. Pad lanes carry no data, so the
-residuals run over the logical region of the block only.
+A plan's block is its share of the padded global array: a slab plan's
+input split over x and its spectrum over the split axis; a pencil plan's
+blocks split over two axes, its spectrum's at the depth ``dims`` of its
+partial transforms. Pad lanes carry no data, so the residuals run over the
+logical region of the block only.
 """
 
 from __future__ import annotations
@@ -23,30 +25,36 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models.pencil import PencilFFTPlan
+
 
 def _halved_axis(plan) -> int:
     """The R2C-halved axis of the spectrum (none for a c2c plan)."""
     if plan.transform == "c2c":
         return -1
-    return plan._seq.r2c_axis
+    return 2 if isinstance(plan, PencilFFTPlan) else plan._seq.r2c_axis
 
 
-def _geometry(plan, space: str):
-    """(padded global shape, logical shape, decomposed axis, this rank's
-    slices) of the plan's real input or spectral output."""
+def _geometry(plan, space: str, dims: int = 3):
+    """(padded global shape, logical shape, this rank's slices) of the
+    plan's real input or spectral output (a pencil plan's at depth
+    ``dims``)."""
     if space == "real":
-        return (plan.input_padded_shape, plan.input_shape, 0,
-                plan.local_slices())
+        return plan.input_padded_shape, plan.input_shape, plan.local_slices()
     if space == "spectral":
+        if isinstance(plan, PencilFFTPlan):
+            return (plan.output_padded_shape_for(dims), plan.output_shape,
+                    plan.local_slices(output=True, dims=dims))
         return (plan.output_padded_shape, plan.output_shape,
-                plan._seq.split_axis, plan.local_slices(output=True))
+                plan.local_slices(output=True))
     raise ValueError(f"space must be 'real' or 'spectral', got {space!r}")
 
 
-def _outer3(plan, vs: List[np.ndarray], space: str) -> torch.Tensor:
+def _outer3(plan, vs: List[np.ndarray], space: str,
+            dims: int = 3) -> torch.Tensor:
     """This rank's block of the outer product of three padded 1D vectors,
     computed on the plan's device."""
-    sl = _geometry(plan, space)[3]
+    sl = _geometry(plan, space, dims)[2]
     v1, v2, v3 = (torch.from_numpy(v[s]).to(plan.device)
                   for v, s in zip(vs, sl))
     return v1[:, None, None] * v2[None, :, None] * v3[None, None, :]
@@ -69,18 +77,25 @@ def sine_input(plan) -> torch.Tensor:
                           for n, ext in zip(g.shape, ps)], "real")
 
 
-def sine_spectrum_ref(plan) -> torch.Tensor:
+def sine_spectrum_ref(plan, dims: int = 3) -> torch.Tensor:
     """This rank's block of the analytic, unnormalized spectrum of
     ``sine_input`` in the plan's padded output layout: a transformed axis of
     n points carries ``-i n/2`` at wavenumber 1 and ``+i n/2`` at n-1 (the
     halved R2C axis keeps only bin 1; n <= 2 is identically zero), so the
-    truth needs no host FFT and no host memory."""
+    truth needs no host FFT and no host memory. A pencil plan's spectrum at
+    depth ``dims`` transforms z, then y, then x; an axis it leaves alone
+    carries the sine samples themselves."""
     g = plan.global_size
-    padded = plan.output_padded_shape
+    padded = _geometry(plan, "spectral", dims)[0]
     halved = _halved_axis(plan)
     cdt = np.complex128 if plan.config.double_prec else np.complex64
+    transformed = ((dims >= 3, dims >= 2, True)
+                   if isinstance(plan, PencilFFTPlan) else (True,) * 3)
     vs = []
     for ax, (n, ext) in enumerate(zip(g.shape, padded)):
+        if not transformed[ax]:
+            vs.append(_sine_vec(n, ext, cdt))
+            continue
         v = np.zeros(ext, dtype=cdt)
         if ax == halved:
             if n > 2:
@@ -90,7 +105,7 @@ def sine_spectrum_ref(plan) -> torch.Tensor:
             v[1] += -0.5j * n
             v[n - 1] += 0.5j * n
         vs.append(v)
-    return _outer3(plan, vs, "spectral")
+    return _outer3(plan, vs, "spectral", dims)
 
 
 def axis_freqs(n: int, ext: int, halved: bool) -> np.ndarray:
@@ -130,52 +145,61 @@ def laplacian_scale_fn(plan) -> Callable[[torch.Tensor], torch.Tensor]:
     return apply
 
 
-def residual_fn(plan, space: str = "real", ref_scale: float = 1.0
-                ) -> Callable[[torch.Tensor, torch.Tensor],
-                              Tuple[float, float]]:
+def residual_fn(plan, space: str = "real", ref_scale: float = 1.0,
+                dims: int = 3) -> Callable[[torch.Tensor, torch.Tensor],
+                                           Tuple[float, float]]:
     """``(y, ref) -> (abs-sum, abs-max)`` of ``y - ref * ref_scale`` over
     the logical region, as host floats: this rank's block, then an
-    ``all_reduce`` (SUM, MAX) over the plan's group when it has ranks.
+    ``all_reduce`` (SUM, MAX) over the plan's groups when it has ranks (a
+    pencil plan's row group, then its column group).
 
     ``y`` and ``ref`` are this rank's blocks in the padded ``space`` layout
-    ("real": the input, "spectral": the output); their pad lanes are left
-    out. ``ref_scale`` is testcase 3's Nx·Ny·Nz or testcase 4's
-    -3·sqrt(N)."""
-    padded, logical, axis, sl = _geometry(plan, space)
-    lo = sl[axis].start or 0
-    keep = max(0, min(logical[axis] - lo, padded[axis] // plan.partition.p))
+    ("real": the input, "spectral": the output, a pencil plan's at depth
+    ``dims``); their pad lanes are left out. ``ref_scale`` is testcase 3's
+    Nx·Ny·Nz or testcase 4's -3·sqrt(N)."""
+    padded, logical, sl = _geometry(plan, space, dims)
+    keep = []
+    for a in range(3):
+        lo = sl[a].start or 0
+        hi = padded[a] if sl[a].stop is None else sl[a].stop
+        keep.append(max(0, min(logical[a] - lo, hi - lo)))
 
     def f(y: torch.Tensor, ref: torch.Tensor) -> Tuple[float, float]:
         d = (y - ref * ref_scale).abs()
-        d = d.narrow(axis, 0, keep)
         for a in range(3):
-            if a != axis:
-                d = d.narrow(a, 0, logical[a])
+            d = d.narrow(a, 0, keep[a])
         acc = torch.float64 if plan.config.double_prec else torch.float32
         pair = torch.stack([d.sum(dtype=acc), d.amax()]) if d.numel() else \
             torch.zeros(2, dtype=acc, device=d.device)
         if plan.fft3d:
             s, m = pair.tolist()
             return s, m
-        red = pair.to(_reduce_device(plan))
+        groups = _groups(plan)
+        red = pair.to(_reduce_device(plan, groups[0]))
         total, top = red[:1].clone(), red[1:].clone()
-        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=plan.group)
-        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=plan.group)
+        for g in groups:
+            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=g)
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g)
         return float(total), float(top)
 
     return f
 
 
-def _reduce_device(plan) -> torch.device:
+def _groups(plan) -> tuple:
+    """The groups a reduction over every rank of the plan runs over."""
+    return plan.groups if isinstance(plan, PencilFFTPlan) else (plan.group,)
+
+
+def _reduce_device(plan, group) -> torch.device:
     """Where a collective's tensor lives: the plan's device under NCCL
     (CUDA tensors only), the CPU under gloo."""
-    if dist.get_backend(plan.group) == dist.Backend.NCCL:
+    if dist.get_backend(group) == dist.Backend.NCCL:
         return plan.device
     return torch.device("cpu")
 
 
-def residuals(plan, y, ref, space: str = "real",
-              ref_scale: float = 1.0) -> Tuple[float, float]:
+def residuals(plan, y, ref, space: str = "real", ref_scale: float = 1.0,
+              dims: int = 3) -> Tuple[float, float]:
     """One ``residual_fn`` call."""
-    return residual_fn(plan, space, ref_scale)(y, ref)
+    return residual_fn(plan, space, ref_scale, dims)(y, ref)
 

@@ -1,5 +1,6 @@
-"""The reference's five testcases as library functions, for the slab plan —
-the port's counterpart of the JAX package's ``testing/testcases.py``.
+"""The reference's five testcases as library functions, for the slab and
+pencil plans — the port's counterpart of the JAX package's
+``testing/testcases.py``.
 
 Semantics of the reference (``tests/src/slab/random_dist_default.cu``):
 
@@ -23,7 +24,9 @@ shape from one seed, the same on every rank, and each rank keeps its
 block. Phase times go through the reference-schema ``Timer``: the stages
 of ``forward_stages`` / ``inverse_stages`` with a fence after each, then
 one call of the plan's own ``exec_*`` marked "Run complete (fused)".
-Warm-up iterations are not gathered. Only rank 0 prints.
+Warm-up iterations are not gathered. Only rank 0 prints. A pencil plan
+takes the depth ``dims`` of its partial transforms (the reference's
+``--fft-dim``); testcase 4 always runs the whole transform.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import params as pm
+from ..models.pencil import PencilFFTPlan
 from ..models.slab import SlabFFTPlan
 from ..ops.fft import dtypes_for
 from ..parallel import multihost
@@ -44,8 +48,7 @@ from . import sharded
 
 FUSED_DESC = "Run complete (fused)"
 
-_KINDS_ITEM = {"pencil": "ROADMAP Queue 1, item 5 (the pencil plan)",
-               "batched2d": "ROADMAP Queue 1, item 6 (the batched-2D plan)"}
+_KINDS_ITEM = {"batched2d": "ROADMAP Queue 1, item 6 (the batched-2D plan)"}
 
 
 def say(msg: str) -> None:
@@ -56,10 +59,12 @@ def say(msg: str) -> None:
 
 def make_plan(kind: str, global_size: pm.GlobalSize, partition, config,
               sequence=None, device: "str | torch.device" = "cuda"):
-    """The plan a testcase runs; the slab plan only in this port."""
+    """The plan a testcase runs: the slab or the pencil plan."""
     if kind == "slab":
         return SlabFFTPlan(global_size, partition, config, device=device,
                            sequence=sequence or pm.SlabSequence.ZY_THEN_X)
+    if kind == "pencil":
+        return PencilFFTPlan(global_size, partition, config, device=device)
     if kind in _KINDS_ITEM:
         raise NotImplementedError(
             f"the {kind} plan is not ported yet ({_KINDS_ITEM[kind]})")
@@ -70,9 +75,12 @@ def make_timer(plan, write_csv: bool = True) -> Timer:
     cfg = plan.config
     filename = None
     if write_csv:
+        grid = ((plan.p1, plan.p2) if isinstance(plan, PencilFFTPlan)
+                and not plan.fft3d else None)
         filename = benchmark_filename(cfg.benchmark_dir, plan.variant_name,
                                       cfg, plan.global_size,
-                                      plan.partition.num_ranks)
+                                      plan.partition.num_ranks,
+                                      pencil_grid=grid)
     rank, world = multihost.world()
     return Timer(plan.section_descriptions, plan.partition.num_ranks, filename,
                  process_index=rank, num_processes=world, device=plan.device)
@@ -115,28 +123,51 @@ def random_real_input(plan, seed: int = 0) -> np.ndarray:
     return _uniform(np.random.default_rng(seed), plan.input_shape, rdt)
 
 
-def random_spectral_input(plan, seed: int = 0) -> torch.Tensor:
+def _pad_spectral(plan, c, dims: int = 3) -> torch.Tensor:
+    if isinstance(plan, PencilFFTPlan):
+        return plan.pad_spectral(c, dims)
+    return plan.pad_spectral(c)
+
+
+def random_spectral_input(plan, seed: int = 0, dims: int = 3) -> torch.Tensor:
     """This rank's block of a uniform random spectrum (real part, then
     imaginary part, each over the global spectral shape from
-    ``default_rng(seed)``), on the plan's device."""
+    ``default_rng(seed)``), on the plan's device; a pencil plan's block at
+    depth ``dims``."""
     rdt = np.float64 if plan.config.double_prec else np.float32
     rng = np.random.default_rng(seed)
     re = torch.from_numpy(_uniform(rng, plan.output_shape, rdt))
     im = torch.from_numpy(_uniform(rng, plan.output_shape, rdt))
-    return plan.pad_spectral(torch.complex(re, im))
+    return _pad_spectral(plan, torch.complex(re, im), dims)
 
 
-def reference_spectrum(plan, x: np.ndarray) -> np.ndarray:
-    """Single-host ground truth in the plan's own spectral layout."""
-    if plan.sequence is pm.SlabSequence.Y_THEN_ZX:
+def reference_spectrum(plan, x: np.ndarray, dims: int = 3) -> np.ndarray:
+    """Single-host ground truth in the plan's own spectral layout (a
+    pencil plan's at depth ``dims``: z, then y, then x)."""
+    if getattr(plan, "sequence", None) is pm.SlabSequence.Y_THEN_ZX:
         r = np.fft.rfft(x, axis=1)
         r = np.fft.fft(r, axis=2)
         return np.fft.fft(r, axis=0)
-    return np.fft.fft(np.fft.fft(np.fft.rfft(x, axis=2), axis=1), axis=0)
+    r = np.fft.rfft(x, axis=2)
+    if dims >= 2:
+        r = np.fft.fft(r, axis=1)
+    if dims >= 3:
+        r = np.fft.fft(r, axis=0)
+    return r
 
 
-def _whole_fns(plan):
+def _stages(plan, forward: bool, dims: int = 3):
+    """The plan's staged surface; a pencil plan's at depth ``dims``."""
+    if isinstance(plan, PencilFFTPlan):
+        return (plan.forward_stages(dims) if forward
+                else plan.inverse_stages(dims))
+    return plan.forward_stages() if forward else plan.inverse_stages()
+
+
+def _whole_fns(plan, dims: int = 3):
     """(forward, inverse) of the plan's own ``exec_*``."""
+    if isinstance(plan, PencilFFTPlan):
+        return plan._whole(True, dims), plan._whole(False, dims)
     return plan._whole(True), plan._whole(False)
 
 
@@ -176,18 +207,18 @@ def _perf(times, fused) -> Dict:
 
 
 def testcase0(plan, iterations: int = 1, warmup: int = 0, seed: int = 0,
-              write_csv: bool = True) -> Dict:
+              write_csv: bool = True, dims: int = 3) -> Dict:
     """Forward perf (reference testcase 0)."""
     x = plan.pad_input(random_real_input(plan, seed))
     timer = make_timer(plan, write_csv)
-    fwd, _ = _whole_fns(plan)
-    _, times, fused = _run_staged(plan, plan.forward_stages(), timer, x,
+    fwd, _ = _whole_fns(plan, dims)
+    _, times, fused = _run_staged(plan, _stages(plan, True, dims), timer, x,
                                   warmup, iterations, fused_fn=fwd)
     return _perf(times, fused)
 
 
 def testcase1(plan, seed: int = 0, write_csv: bool = True,
-              truth: str = "host") -> Dict:
+              truth: str = "host", dims: int = 3) -> Dict:
     """Distributed vs reference spectrum (testcase 1); prints the asum
     residual as ``Result <sum>``.
 
@@ -201,38 +232,38 @@ def testcase1(plan, seed: int = 0, write_csv: bool = True,
     timer = make_timer(plan, write_csv)
     if truth == "analytic":
         x = sharded.sine_input(plan)
-        refdev = sharded.sine_spectrum_ref(plan)
+        refdev = sharded.sine_spectrum_ref(plan, dims)
     else:
         _, cdt = dtypes_for(plan.config.double_prec)
         xh = random_real_input(plan, seed)
         x = plan.pad_input(xh)
-        ref = reference_spectrum(plan, xh.astype(np.float64))
-        refdev = plan.pad_spectral(torch.from_numpy(ref).to(cdt))
-    out, _, _ = _run_staged(plan, plan.forward_stages(), timer, x, 0, 1)
-    resid, _ = sharded.residuals(plan, out, refdev, "spectral")
+        ref = reference_spectrum(plan, xh.astype(np.float64), dims)
+        refdev = _pad_spectral(plan, torch.from_numpy(ref).to(cdt), dims)
+    out, _, _ = _run_staged(plan, _stages(plan, True, dims), timer, x, 0, 1)
+    resid, _ = sharded.residuals(plan, out, refdev, "spectral", dims=dims)
     say(f"Result {resid}")
     return {"residual_sum": resid}
 
 
 def testcase2(plan, iterations: int = 1, warmup: int = 0, seed: int = 0,
-              write_csv: bool = True) -> Dict:
+              write_csv: bool = True, dims: int = 3) -> Dict:
     """Inverse perf on random spectral input (testcase 2)."""
-    c = random_spectral_input(plan, seed)
+    c = random_spectral_input(plan, seed, dims)
     timer = make_timer(plan, write_csv)
-    _, inv = _whole_fns(plan)
-    _, times, fused = _run_staged(plan, plan.inverse_stages(), timer, c,
+    _, inv = _whole_fns(plan, dims)
+    _, times, fused = _run_staged(plan, _stages(plan, False, dims), timer, c,
                                   warmup, iterations, fused_fn=inv)
     return _perf(times, fused)
 
 
 def _roundtrip_loop(plan, timer: Timer, x, rfn, warmup: int, iterations: int,
-                    scale=None) -> Dict:
+                    scale=None, dims: int = 3) -> Dict:
     """Testcases 3 and 4: forward, ``scale`` (testcase 4's symbol), inverse,
     timed as "Run complete", then the fused pair; the residual of every
     iteration against the input, printed after the last."""
     g = plan.global_size
-    fwd, inv = plan.forward_stages(), plan.inverse_stages()
-    ffwd, finv = _whole_fns(plan)
+    fwd, inv = _stages(plan, True, dims), _stages(plan, False, dims)
+    ffwd, finv = _whole_fns(plan, dims)
     scale = scale or (lambda c: c)
     avg = mx = 0.0
     fused_times = []
@@ -258,21 +289,26 @@ def _roundtrip_loop(plan, timer: Timer, x, rfn, warmup: int, iterations: int,
             "fused_mean_ms": float(np.mean(fused_times))}
 
 
-def _roundtrip_scale(plan) -> float:
+def _roundtrip_scale(plan, dims: int = 3) -> float:
+    """The unnormalized roundtrip's factor: the product of the transformed
+    extents (z, then y, then x at a pencil plan's depth ``dims``)."""
     if plan.config.norm is not pm.FFTNorm.NONE:
         return 1.0
-    return float(plan.global_size.n_total)
+    g = plan.global_size
+    return float({1: g.nz, 2: g.nz * g.ny, 3: g.n_total}[dims])
 
 
 def testcase3(plan, iterations: int = 1, warmup: int = 0, seed: int = 0,
-              write_csv: bool = True) -> Dict:
+              write_csv: bool = True, dims: int = 3) -> Dict:
     """Round trip forward + inverse vs the scaled input (testcase 3, the
     reference's ``differenceInv`` and all-reduce of avg and max,
     ``random_dist_default.cu:529-623``)."""
     x = plan.pad_input(random_real_input(plan, seed))
     timer = make_timer(plan, write_csv)
-    rfn = sharded.residual_fn(plan, "real", ref_scale=_roundtrip_scale(plan))
-    return _roundtrip_loop(plan, timer, x, rfn, warmup, iterations)
+    rfn = sharded.residual_fn(plan, "real",
+                              ref_scale=_roundtrip_scale(plan, dims))
+    return _roundtrip_loop(plan, timer, x, rfn, warmup, iterations,
+                           dims=dims)
 
 
 def testcase4(plan, iterations: int = 1, warmup: int = 0,

@@ -62,20 +62,31 @@ def _overlap_suffix(config: Config) -> str:
 
 
 def benchmark_filename(benchmark_dir: str, variant: str, config: Config,
-                       global_size: GlobalSize, pcnt: int) -> str:
+                       global_size: GlobalSize, pcnt: int,
+                       pencil_grid=None) -> str:
     """The reference's CSV path of a slab run
     (``mpicufft_slab.cpp:99-103``):
     ``test_<opt>_<comm>_<snd>_<Nx>_<Ny>_<Nz>_<cuda>_<P>.csv`` with the
-    overlap and wire suffixes."""
+    overlap and wire suffixes; a pencil run (``pencil_grid=(p1, p2)``)
+    adds the second transpose's methods and the grid
+    (``mpicufft_pencil.cpp:69-71``):
+    ``test_<opt>_<comm1>_<snd1>_<comm2>_<snd2>_<Nx>_<Ny>_<Nz>_<cuda>_<P1>_<P2>.csv``."""
     comm = _COMM_CODE[config.comm_method]
     snd = _SEND_CODE[config.send_method]
     cuda = 1 if config.cuda_aware else 0
     suffix = _overlap_suffix(config) + _wire_suffix(config)
     g = global_size
+    d = os.path.join(benchmark_dir, variant)
+    if pencil_grid is not None:
+        comm2 = _COMM_CODE[config.resolved_comm2()]
+        snd2 = _SEND_CODE[config.resolved_snd2()]
+        p1, p2 = pencil_grid
+        return os.path.join(
+            d, f"test_{config.opt}_{comm}_{snd}_{comm2}_{snd2}"
+               f"_{g.nx}_{g.ny}_{g.nz}_{cuda}_{p1}_{p2}{suffix}.csv")
     return os.path.join(
-        benchmark_dir, variant,
-        f"test_{config.opt}_{comm}_{snd}_{g.nx}_{g.ny}_{g.nz}_{cuda}"
-        f"_{pcnt}{suffix}.csv")
+        d, f"test_{config.opt}_{comm}_{snd}_{g.nx}_{g.ny}_{g.nz}_{cuda}"
+           f"_{pcnt}{suffix}.csv")
 
 
 def _all_gather_rows(values: Sequence[float],

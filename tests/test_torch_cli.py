@@ -69,8 +69,6 @@ LATER = [
     ("slab", ["--profile-stages"], "item 12"),
     ("slab", ["--fft-backend", "bluestein"], "item 8"),
     ("reference", ["--autotune"], "item 11"),
-    ("reference", ["-t", "2"], "item 5"),
-    ("reference", ["-t", "3"], "item 5"),
     ("reference", ["-t", "4"], "item 11"),
     ("reference", ["--wisdom", "w.json"], "item 11"),
     ("reference", ["--profile-stages"], "item 12"),

@@ -790,3 +790,30 @@ def test_renderings_bit_equal_over_two_ranks(cuda, tmp_path):
         for rid, other in _SAME.items():
             for got, want in zip(res[rid], res[other]):
                 assert torch.equal(got, want), (r, rid, other)
+
+
+# The single-card pencil (1 x 1): per axis with the depth of its partial
+# transforms, on kernels 1, 2 and 3, never the fused 3D kernels.
+
+
+@pytest.mark.parametrize("dims", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(8, 16, 32), (6, 12, 15), (64, 32, 1024),
+                                   (1024, 8, 16)])
+def test_pencil_single_card_per_axis(cuda, shape, dims):
+    x = _randn(shape, 21, cuda)
+    plan = dft.PencilFFTPlan(dft.GlobalSize(*shape), dft.PencilPartition(1, 1),
+                             dft.Config(fft_backend="pallas"))
+    hf.reset_launches()
+    c = plan.exec_r2c(x, dims)
+    back = plan.exec_c2r(c, dims)
+    torch.cuda.synchronize()
+    assert hf.LAUNCHES["zy_fwd"] == hf.LAUNCHES["x_c2c"] == \
+        hf.LAUNCHES["yz_inv"] == 0
+    assert hf.LAUNCHES["rmatmul"] == 1 and hf.LAUNCHES["c2r"] == 1
+    assert hf.LAUNCHES["cmatmul"] == 2 * (dims - 1)
+    ref = torch.fft.rfft(x, dim=2)
+    for a in (1, 0)[:dims - 1]:
+        ref = torch.fft.fft(ref, dim=a)
+    assert _rel(c, ref) <= 5e-4
+    scale = float(np.prod(shape[3 - dims:]))
+    assert _rel(back / scale, x) <= 5e-4

@@ -76,6 +76,19 @@ def test_config_from_reference_round_trips(kw):
     assert tp.config_from_reference(dataclasses.asdict(cfg)) == cfg
 
 
+@pytest.mark.parametrize("kw", REFERENCE_CONFIGS)
+def test_resolved_second_transpose_matches(kw):
+    """The pencil's second transpose: ``resolved_comm2`` /
+    ``resolved_snd2`` as the JAX Config resolves them (None -> the first
+    transpose's), and the fused wire each one turns on."""
+    jcfg = _jax_config(kw)
+    cfg = tp.config_from_reference(dataclasses.asdict(jcfg))
+    assert cfg.resolved_comm2().value == jcfg.resolved_comm2().value
+    assert cfg.resolved_snd2().value == jcfg.resolved_snd2().value
+    for second in (False, True):
+        assert cfg.fused_wire_active(second) == jcfg.fused_wire_active(second)
+
+
 @pytest.mark.parametrize("field", ["fft_backend", "comm_method",
                                    "comm_method2", "wire_dtype"])
 def test_config_from_reference_refuses_auto(field):
