@@ -18,8 +18,9 @@ once, before any rank is spawned) and then, under
    four-step (kernels 4 and 5 on rows, kernel 4's column body on its x
    axis where it lies, kernel 2's column body on its y axis and its
    short-stage body on the 4-point second stage of x and z, with each of
-   its output geometries; the 4-point row body it replaced),
-   the fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan
+   its output geometries; the 4-point row body it replaced), of the
+   batched 64 x 4096 x 4096 stack (the 8-point short stage of y and x,
+   kernel 4's column body on x), the fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan
    over four ranks (9 and 10 bit for bit, NaN and Inf included); kernels
    3, 4, 5, 6, 7, 8 and 11 also on their other body (dense or tile) at a
    shape whose axes are not powers of two;
@@ -88,17 +89,39 @@ once, before any rank is spawned) and then, under
    both exchanges and ``dfft-torch-reference`` testcases 2 and 3 (the 2D
    and 3D geometries) at 512^3.
 
+8. runs the batched-2D plan (BASELINE config #4): on one card the
+   64 x 4096 x 4096 stack under "pallas" (every 4096 axis split 8 x 512:
+   kernels 5, 4 and 2's short stage, the y C2R on the Hermitian
+   extension) as a whole and with ``batch_chunk=1`` (bit-equal to the
+   whole stack), and 256 x 1024 x 1024 (kernels 1, 2 and 3), each against
+   ``torch.fft.rfft2`` and beside "xla", with peak memory and a profile of
+   each direction; ``dfft-torch-batched`` testcases 0 and 3 at 64 x
+   4096^2, whole and one image at a time; then two ranks sharing the card
+   over gloo: ``shard="batch"`` at 64 x 4096^2 (32 images a rank),
+   ``shard="x"`` at 8 x 4096^2 (All2All and Peer2Peer, bit-equal), every
+   exchange rendering at 16 x 512^2 (bit-equal to the all-to-all; the
+   fused wire of kernels 9 and 10 to the plain bf16 wire) and the
+   executable with ``--shard x``;
+9. runs the Bluestein backend (``fft_backend="bluestein"``, no kernel of
+   the port: the chirp-z identity over ``torch.fft``): 64 x 4093 x 4093
+   (both axes prime) at ``batch_chunk=8`` against float64
+   ``torch.fft.rfft2``, beside "xla", float64 on one chunk, the whole
+   stack where its estimated peak fits; the 521^3 slab plan on one rank;
+   the smooth 512^3 plan bit-equal to "xla".
+
 Phases print JSON lines. Before the last line come one
 ``{"matmul_backend": ...}`` line (the matmul backend is no kernel), one
 ``{"kernels": ...}`` line and the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device":
 {...}}``. Any failed phase raises, so
 the script exits non-zero with no result line; so does a machine without a
-CUDA device, or a directory without the port. Takes about 370-400 s on
-an H100, the kernels' build (25-55 s), the matmul backend's phase (about
+CUDA device, or a directory without the port. On the way out it stops
+every process it started (the ranks, multiprocessing's resource tracker)
+and any descendant they left behind. Takes about 400 s on an
+H100, the kernels' build (25-55 s), the matmul backend's phase (about
 10 s), the executables' phase (about 60 s, most of it the host's random
-draws) and the pencil's (about 170 s, most of it gloo's host-staged
-exchanges) included.
+draws), the pencil's (about 170 s, most of it gloo's host-staged
+exchanges) and the batched and Bluestein phases included.
 """
 
 from __future__ import annotations
@@ -143,6 +166,15 @@ DEFAULT_TOL = 2e-3   # one bfloat16 pass (mxu_precision "default"), forward
 DEFAULT_RT_TOL = 2 ** -5
 PRIME = 1031         # a prime axis past the kernels' N_MAX = 1024
 PALLAS = "distributedfft_tpu/ops/pallas_fft.py"
+BATCHED = (64, 4096, 4096)      # BASELINE config #4: 64 images of 4096^2
+BATCHED_DIRECT = (256, 1024, 1024)  # every axis one engine launch (1 GiB)
+BATCHED_X = (8, 4096, 4096)     # shard="x" on two ranks: the batch cut to 8
+BATCHED_RENDER = (16, 512, 512)  # the shard="x" renderings on two ranks
+BLUESTEIN = (64, 4093, 4093)    # both axes prime: chirp length 8192
+BLUESTEIN_CHUNK = 8
+BLUESTEIN_SLAB = 521            # a prime cube: chirp length 2048
+XLA_CHUNK_TOL = 1e-6            # "xla" chunked against the whole stack
+MEMORY_SHARE = 0.9              # the whole Bluestein stack runs below this
 
 
 def emit(**kw) -> None:
@@ -233,9 +265,10 @@ def body_of(hf, k) -> str:
             body = hf._zy_body(sh["Y"], sh["Z"])
         elif k["name"] == "x_c2c":
             body = hf._x_body(sh["X"])
+        elif "inner" in sh and "geometry" in sh:   # the short-stage body
+            body = "short" if hf._short_body(sh["n"]) else "none"
         elif "inner" in sh:
-            body = ("cols" if hf._fft_body(sh["n"]) == "fft" else
-                    "short" if hf._short_body(sh["n"]) else "none")
+            body = "cols" if hf._fft_body(sh["n"]) == "fft" else "none"
         else:
             body = hf._fft_body(sh["n"])
             if body == "tile" and k["name"] in ("cmatmul", "c2r") \
@@ -306,20 +339,29 @@ def counted(hf):
     return out
 
 
+def directions(plan):
+    """(forward, inverse) of a plan: ``exec_r2c`` / ``exec_c2r``, or a
+    batched-2D plan's ``exec_forward`` / ``exec_inverse``."""
+    if hasattr(plan, "exec_forward"):
+        return plan.exec_forward, plan.exec_inverse
+    return plan.exec_r2c, plan.exec_c2r
+
+
 def run_counted(torch, hf, plan, x, dims=None):
     """One forward and one inverse of ``plan`` (a pencil plan's at depth
     ``dims``), each counted from zero: (spectrum, inverse, launches
     forward, launches inverse, entry points forward, entry points
     inverse); the launches as ``counted`` gives them."""
     kw = {} if dims is None else {"dims": dims}
+    fwd_fn, inv_fn = directions(plan)
     hf.reset_launches()
     with entry_counts(hf) as ent_f:
-        c = plan.exec_r2c(x, **kw)
+        c = fwd_fn(x, **kw)
         torch.cuda.synchronize()
     fwd = counted(hf)
     hf.reset_launches()
     with entry_counts(hf) as ent_i:
-        back = plan.exec_c2r(c, **kw)
+        back = inv_fn(c, **kw)
         torch.cuda.synchronize()
     return c, back, fwd, counted(hf), ent_f, ent_i
 
@@ -1099,6 +1141,633 @@ def pencil_rank_main(rank: int, addr: str, outdir: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The batched-2D plan (BASELINE config #4): one card, two ranks sharing it
+# over gloo, the executable; then the Bluestein backend
+# ---------------------------------------------------------------------------
+
+# Launches and entry points of one call of the batched plan under
+# "pallas", forward and inverse. A 4096-point axis splits 8 x 512: y
+# forward is the R2C first stage on rows (kernel 5) and the 8-point second
+# stage storing the crop (kernel 2's short-stage body); x, where it lies,
+# kernel 4's column body then the short stage. The inverse runs x the same
+# way; the C2R of y inverts the Hermitian extension as a complex four-step
+# (kernel 4 on rows, the short stage). At 1024 points every axis is one
+# engine launch: y on rows (kernel 1, inverse kernel 3), x on kernel 2's
+# column body where it lies.
+BATCHED_SPLIT = (dict(rmatmul_tw=1, cmatmul=2, cmatmul_tw=1),
+                 dict(cmatmul_tw=2, cmatmul=2),
+                 {"dfft_rdft_tw": 1, "dfft_cdft_short": 2,
+                  "dfft_cdft_tw_cols": 1},
+                 {"dfft_cdft_tw_cols": 1, "dfft_cdft_short": 2,
+                  "dfft_cdft_tw": 1})
+BATCHED_DIRECT_PATH = (dict(rmatmul=1, cmatmul=1), dict(cmatmul=1, c2r=1),
+                       {"dfft_rdft": 1, "dfft_cdft_cols": 1},
+                       {"dfft_cdft_cols": 1, "dfft_c2r": 1})
+# The single-card stacks: id -> (shape, one call's launches and entry
+# points, the batch_chunk values run beside the whole stack).
+BATCHED_CARD = {"batched_64x4096": (BATCHED, BATCHED_SPLIT, (1,)),
+                "batched_256x1024": (BATCHED_DIRECT, BATCHED_DIRECT_PATH,
+                                     ())}
+# The shard="x" renderings at 16 x 512^2 on two ranks: id -> (Config
+# fields, launches forward, inverse, entry points forward, inverse).
+# STREAMS under ALL2ALL runs x on each of its 4 pieces of the batch after
+# the piece's exchange, forward, and the y C2R on each piece after it,
+# inverse. On the fused wire the one ring step is one encode (kernel 9)
+# and one unpack-only arrival (kernel 10) a direction.
+_BD = BATCHED_DIRECT_PATH
+_BRO = {"send_method": "RingOverlap"}
+BATCHED_RENDERINGS = {
+    "a2a": ({"comm_method": "All2All"}, *_BD),
+    "p2p": ({"comm_method": "Peer2Peer"}, *_BD),
+    "opt1": ({"comm_method": "All2All", "opt": 1}, *_BD),
+    "a2a_pipelined": ({"comm_method": "All2All", "overlap_subblocks": 2},
+                      *_BD),
+    "streams_a2a": ({"comm_method": "All2All", "send_method": "Streams",
+                     "streams_chunks": 4},
+                    dict(rmatmul=1, cmatmul=4), dict(cmatmul=1, c2r=4),
+                    {"dfft_rdft": 1, "dfft_cdft_cols": 4},
+                    {"dfft_cdft_cols": 1, "dfft_c2r": 4}),
+    "streams_p2p": ({"comm_method": "Peer2Peer", "send_method": "Streams",
+                     "streams_chunks": 4}, *_BD),
+    "ring": ({"send_method": "Ring"}, *_BD),
+    "ring_overlap": (_BRO, *_BD),
+    "ring_overlap_wire16": (dict(_BRO, wire_dtype="bf16"), *_BD),
+    "ring_overlap_wire16_fused": (
+        dict(_BRO, wire_dtype="bf16", fused_wire=True),
+        dict(rmatmul=1, cmatmul=1, enc_pack=1, dec_unpack=1),
+        dict(cmatmul=1, c2r=1, enc_pack=1, dec_unpack=1),
+        *_plus(_BD[2:], enc_pack=1, dec_unpack=1)),
+}
+# Bit-equalities of the renderings: every one runs the kernels on the same
+# rows and columns as the all-to-all.
+BATCHED_PAIRS = [(pid, "a2a") for pid in (
+    "p2p", "opt1", "a2a_pipelined", "streams_a2a", "streams_p2p", "ring",
+    "ring_overlap")] + [("ring_overlap_wire16_fused", "ring_overlap_wire16")]
+BATCHED_X_COMMS = ("All2All", "Peer2Peer")
+# The batched executable's runs: testcase -> (arguments, CSV blocks,
+# forward calls, inverse calls).
+BATCHED_CLI_CASES = {0: (["-t", "0", "-i", "3", "-w", "1"], 3, 8, 0),
+                     3: (["-t", "3"], 1, 2, 2)}
+
+
+def batched_path(torch, dft, hf, gen, pid, shape, path, chunks):
+    """One batched-2D stack on one card under "pallas", as a whole and in
+    each ``batch_chunk`` of ``chunks``: launches and entry points per
+    direction (one call's, times the calls), the forward against
+    torch.fft.rfft2 and the roundtrip against nx ny x, each chunked run
+    bit-equal to the whole stack; "xla" beside it (chunked within
+    ``XLA_CHUNK_TOL`` of its whole stack); times (median of 3), peak
+    memory, the kernels' share and a profile of each direction. Returns
+    (launches by path, the row)."""
+    B, nx, ny = shape
+    want_f, want_i, ent_f_want, ent_i_want = path
+    x = torch.randn(shape, generator=gen, device="cuda")
+    launches, row, whole = {}, dict(path=pid, shape=list(shape),
+                                    reps=REPS_BIG), None
+    for ck in (None,) + tuple(chunks):
+        name = "whole" if ck is None else f"chunk{ck}"
+        plan = dft.Batched2DFFTPlan(*shape, dft.SlabPartition(1),
+                                    dft.Config(fft_backend="pallas"),
+                                    batch_chunk=ck)
+        calls = B // (ck or B)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, x)
+        r = dict(batch_chunk=ck, calls=calls, launches_forward=fwd,
+                 launches_inverse=inv, entries_forward=ent_f,
+                 entries_inverse=ent_i,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if fwd != expect(hf, **scaled(want_f, calls, {}, 0)) or \
+                inv != expect(hf, **scaled({}, 0, want_i, calls)) or \
+                ent_f != scaled(ent_f_want, calls, {}, 0) or \
+                ent_i != scaled({}, 0, ent_i_want, calls):
+            fail(f"{pid} {name}: launches forward {fwd} (entries {ent_f}), "
+                 f"inverse {inv} (entries {ent_i}); one call's are "
+                 f"{want_f} ({ent_f_want}), {want_i} ({ent_i_want})")
+        if whole is None:
+            if tuple(c.shape) != (B, nx, ny // 2 + 1) or \
+                    c.dtype != torch.complex64 or \
+                    tuple(back.shape) != tuple(shape):
+                fail(f"{pid}: outputs {tuple(c.shape)} {c.dtype}, "
+                     f"{tuple(back.shape)}")
+            ref = torch.fft.rfft2(x)
+            _, r["forward_vs_torch_fft"] = rel_err(c, ref)
+            del ref
+            _, r["roundtrip_vs_input"] = rel_err(back / float(nx * ny), x)
+            if not (r["forward_vs_torch_fft"] <= TOL
+                    and r["roundtrip_vs_input"] <= TOL):
+                fail(f"{pid}: forward rel {r['forward_vs_torch_fft']:.3e}, "
+                     f"roundtrip rel {r['roundtrip_vs_input']:.3e}")
+            whole = (c, back)
+        else:
+            r["equals_whole_stack"] = (torch.equal(c, whole[0])
+                                       and torch.equal(back, whole[1]))
+            if not r["equals_whole_stack"]:
+                fail(f"{pid} {name} is not bit-equal to the whole stack")
+        del back
+        f_fn, i_fn = directions(plan)
+        r["forward_ms"] = median_ms(torch, lambda: f_fn(x), REPS_BIG, 1)
+        r["inverse_ms"] = median_ms(torch, lambda: i_fn(c), REPS_BIG, 1)
+        if ck is None:
+            for d, fn in (("forward", lambda: f_fn(x)),
+                          ("inverse", lambda: i_fn(c))):
+                total, per = kernel_share(torch, hf, fn)
+                r[f"{d}_kernel_ms"] = per
+                r[f"{d}_rest_ms"] = total - sum(per.values())
+                r[f"{d}_profile"] = device_profile(torch, fn)
+        emit(phase="main_path", path=f"{pid}_{name}", shape=list(shape),
+             **r)
+        launches[f"{pid}_{name}"] = {k: fwd[k] + inv[k] for k in fwd}
+        row[name] = r
+        del c, plan
+        torch.cuda.empty_cache()
+    whole = xla_c = None
+    torch.cuda.empty_cache()
+    for ck in (None,) + tuple(chunks):
+        name = "whole" if ck is None else f"chunk{ck}"
+        plan = dft.Batched2DFFTPlan(*shape, dft.SlabPartition(1),
+                                    dft.Config(), batch_chunk=ck)
+        f_fn, i_fn = directions(plan)
+        c = f_fn(x)
+        r = dict(forward_ms=median_ms(torch, lambda: f_fn(x), REPS_BIG, 1),
+                 inverse_ms=median_ms(torch, lambda: i_fn(c), REPS_BIG, 1))
+        if xla_c is None:
+            xla_c = c
+        else:
+            _, r["vs_whole_stack"] = rel_err(c, xla_c)
+            if not r["vs_whole_stack"] <= XLA_CHUNK_TOL:
+                fail(f"{pid} xla {name}: {r['vs_whole_stack']:.3e} off its "
+                     f"whole stack")
+        row[f"xla_{name}"] = r
+        del c, plan
+    row["library_ms"] = dict(
+        rfft2=median_ms(torch, lambda: torch.fft.rfft2(x), REPS_BIG, 1),
+        irfft2=median_ms(torch, lambda: torch.fft.irfft2(xla_c, s=(nx, ny)),
+                         REPS_BIG, 1))
+    row["pallas_over_xla"] = {
+        d: row["whole"][f"{d}_ms"] / row["xla_whole"][f"{d}_ms"]
+        for d in ("forward", "inverse")}
+    emit(phase="plan_time", **{k: v for k, v in row.items()
+                               if not isinstance(v, dict)
+                               or not k.startswith(("whole", "chunk"))},
+         pallas_ms={k: {d: row[k][f"{d}_ms"] for d in ("forward", "inverse")}
+                    for k in row if k.startswith(("whole", "chunk"))})
+    del x, xla_c
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def batched_csv_name(argv, ranks: int) -> str:
+    """Where the batched executable writes the CSV of ``argv``, under its
+    ``-b`` directory (the CPU tests hold it equal to the JAX
+    executable's)."""
+    from distributedfft_tpu_torch import params as pm
+    from distributedfft_tpu_torch.cli import batched as cli_batched
+    from distributedfft_tpu_torch.cli import common
+    from distributedfft_tpu_torch.utils.timer import benchmark_filename
+    args = cli_batched.build_parser().parse_args(argv)
+    cfg = pm.Config(comm_method=pm.CommMethod.parse(args.comm_method),
+                    send_method=pm.SendMethod.parse(args.send_method),
+                    **common.config_kwargs(args))
+    g = pm.GlobalSize(args.input_dim_z, args.input_dim_x, args.input_dim_y)
+    variant = f"batched2d_{args.shard}" + (
+        f"_ck{args.batch_chunk}" if args.batch_chunk else "")
+    return os.path.relpath(benchmark_filename(
+        args.benchmark_dir, variant, cfg, g, ranks), args.benchmark_dir)
+
+
+def batched_cli_run(torch, hf, argv, tc, calls, sections, ranks, rank=0):
+    """One run of ``dfft-torch-batched`` under "pallas" (shape ``BATCHED``
+    or ``BATCHED_X``, each call one of ``BATCHED_SPLIT``): its launches
+    and entry points, and on rank 0 testcase 3's result within TOL of nx
+    ny and the CSV where ``batched_csv_name`` says, with ``sections``.
+    Returns (launches, row)."""
+    from distributedfft_tpu_torch.cli import batched as cli_batched
+    args, blocks, k_f, k_i = BATCHED_CLI_CASES[tc]
+    text, got, ent, secs = cli_run(torch, hf, cli_batched.main, argv + args)
+    want = scaled(BATCHED_SPLIT[0], k_f * calls, BATCHED_SPLIT[1], k_i * calls)
+    ent_want = scaled(BATCHED_SPLIT[2], k_f * calls, BATCHED_SPLIT[3],
+                      k_i * calls)
+    if got != expect(hf, **want) or ent != ent_want:
+        fail(f"rank {rank} batched {argv + args}: launches {got} (entries "
+             f"{ent}), expected {want} ({ent_want})")
+    row = dict(testcase=tc, argv=argv + args, seconds=secs, entries=ent)
+    if ranks > 1:
+        import torch.distributed as dist
+        dist.barrier()          # rank 0 has written the CSV
+    if rank == 0:
+        bdir = argv[argv.index("-b") + 1]
+        nxy = int(argv[argv.index("-nx") + 1]) * int(
+            argv[argv.index("-ny") + 1])
+        val, rel = cli_result(tc, text, nxy, 0.0)
+        if rel is not None and rel > TOL:
+            fail(f"batched {argv + args}: {val} is {rel} of nx ny")
+        name, run_ms, fused_ms = cli_csv(bdir, sections, blocks, ranks)
+        if name != batched_csv_name(argv + args, ranks):
+            fail(f"batched {argv + args} wrote {name}, not "
+                 f"{batched_csv_name(argv + args, ranks)}")
+        row.update(csv=name, run_complete_ms=run_ms, fused_ms=fused_ms,
+                   result=val, result_rel=rel,
+                   printed=text.strip().splitlines()[-3:])
+    return got, row
+
+
+def batched_cli_single_card(torch, dft, hf, plan_row):
+    """``dfft-torch-batched -nx 4096 -ny 4096 -nz 64 --shard batch
+    --fft-backend pallas``, testcases 0 and 3, with and without
+    ``--batch-chunk 1``, on one card: each run's launches (one call's
+    times the calls), results and CSV, and testcase 0's fused mean beside
+    the plan's own forward time (``plan_row``). Returns (launches by
+    path, rows)."""
+    B, nx, ny = BATCHED
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_batched_")
+    sections = dft.Batched2DFFTPlan(*BATCHED, dft.SlabPartition(1),
+                                    None).section_descriptions
+    launches, rows = {}, []
+    for ck in (None, 1):
+        name = "whole" if ck is None else f"chunk{ck}"
+        for tc in BATCHED_CLI_CASES:
+            argv = ["-nx", str(nx), "-ny", str(ny), "-nz", str(B), "--shard",
+                    "batch", "--fft-backend", "pallas", "-b",
+                    os.path.join(root, f"{name}_t{tc}")]
+            if ck:
+                argv += ["--batch-chunk", str(ck)]
+            got, row = batched_cli_run(torch, hf, argv, tc, B // (ck or B),
+                                       sections, 1)
+            if tc == 0:
+                row["plan_forward_ms"] = plan_row[name]["forward_ms"]
+                row["fused_over_plan"] = (row["fused_ms"]
+                                          / row["plan_forward_ms"])
+            launches[f"cli_batched_{name}_t{tc}"] = got
+            rows.append(row)
+            emit(phase="cli_batched", **row)
+            torch.cuda.empty_cache()
+    return launches, rows
+
+
+def batched_batch_shard(torch, dist, dft, hf, rank: int, outdir: str):
+    """shard="batch" at 64 x 4096^2 on the two ranks: 32 images a rank
+    drawn from its own seed, no exchange: launches and entry points, the
+    block against torch.fft.rfft2 and nx ny x, peak memory, times."""
+    B, nx, ny = BATCHED
+    plan = dft.Batched2DFFTPlan(*BATCHED, dft.SlabPartition(RANKS),
+                                dft.Config(fft_backend="pallas"),
+                                shard="batch")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20 + rank)
+    xl = torch.randn(plan.local_input_shape, generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, xl)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want_f, want_i, ent_f_want, ent_i_want = BATCHED_SPLIT
+    if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i) or \
+            (ent_f, ent_i) != (ent_f_want, ent_i_want):
+        fail(f"rank {rank} batched shard=batch: launches forward {fwd} "
+             f"(entries {ent_f}), inverse {inv} (entries {ent_i})")
+    ref = torch.fft.rfft2(xl)
+    _, f_rel = rel_err(c, ref)
+    del ref
+    _, rt_rel = rel_err(back / float(nx * ny), xl)
+    del back
+    if not (f_rel <= TOL and rt_rel <= TOL):
+        fail(f"rank {rank} batched shard=batch: forward rel {f_rel:.3e}, "
+             f"roundtrip rel {rt_rel:.3e}")
+    return dict(local_input_shape=list(plan.local_input_shape),
+                local_output_shape=list(plan.local_output_shape),
+                launches_forward=fwd, launches_inverse=inv,
+                entries_forward=ent_f, entries_inverse=ent_i,
+                forward_vs_torch_fft=f_rel, roundtrip_vs_input=rt_rel,
+                peak_memory_gb=peak,
+                forward_ms=barrier_ms(torch, dist,
+                                      lambda: plan.exec_forward(xl)),
+                inverse_ms=barrier_ms(torch, dist,
+                                      lambda: plan.exec_inverse(c)))
+
+
+def batched_x_shard(torch, dist, dft, hf, rank: int, outdir: str):
+    """shard="x" at 8 x 4096^2 on the two ranks, All2All and Peer2Peer +
+    Sync: launches and entry points, the blocks against torch.fft.rfft2 and
+    nx ny x, the two exchanges bit-equal, times of each direction and of
+    the exchange alone, the bytes a rank sends, peak memory."""
+    B, nx, ny = BATCHED_X
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    x = torch.randn(BATCHED_X, generator=gen, device="cuda")
+    ref = torch.fft.rfft2(x)
+    out, res = {}, {}
+    for comm in BATCHED_X_COMMS:
+        plan = dft.Batched2DFFTPlan(*BATCHED_X, dft.SlabPartition(RANKS),
+                                    pencil_config(dft,
+                                                  {"comm_method": comm}),
+                                    shard="x")
+        xl, refl = plan.pad_input(x), plan.pad_spectral(ref)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, xl)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want_f, want_i, ent_f_want, ent_i_want = BATCHED_SPLIT
+        if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i) or \
+                (ent_f, ent_i) != (ent_f_want, ent_i_want):
+            fail(f"rank {rank} batched shard=x {comm}: launches forward "
+                 f"{fwd} (entries {ent_f}), inverse {inv} (entries {ent_i})")
+        _, f_rel = rel_err(c, refl)
+        _, rt_rel = rel_err(back / float(nx * ny), xl)
+        if not (f_rel <= TOL and rt_rel <= TOL):
+            fail(f"rank {rank} batched shard=x {comm}: forward rel "
+                 f"{f_rel:.3e}, roundtrip rel {rt_rel:.3e}")
+        first, xpose, _ = plan._slab_parts(True)
+        ifirst, ixpose, _ = plan._slab_parts(False)
+        a, b = first(xl), ifirst(c)
+        row = dict(local_input_shape=list(plan.local_input_shape),
+                   local_output_shape=list(plan.local_output_shape),
+                   launches_forward=fwd, launches_inverse=inv,
+                   entries_forward=ent_f, entries_inverse=ent_i,
+                   forward_vs_torch_fft=f_rel, roundtrip_vs_input=rt_rel,
+                   peak_memory_gb=peak,
+                   forward_ms=barrier_ms(torch, dist,
+                                         lambda: plan.exec_forward(xl)),
+                   inverse_ms=barrier_ms(torch, dist,
+                                         lambda: plan.exec_inverse(c)),
+                   exchange_forward_ms=barrier_ms(torch, dist,
+                                                  lambda: xpose(a)),
+                   exchange_inverse_ms=barrier_ms(torch, dist,
+                                                  lambda: ixpose(b)),
+                   wire_bytes_per_rank={
+                       "forward": a.numel() * a.element_size() // RANKS,
+                       "inverse": b.numel() * b.element_size() // RANKS})
+        del a, b
+        for d, fn in (("forward", lambda: plan.exec_forward(xl)),
+                      ("inverse", lambda: plan.exec_inverse(c))):
+            _, per = kernel_share(torch, hf, fn)
+            row[f"{d}_kernel_ms"] = per
+        out[comm] = row
+        res[comm] = (c, back)
+        del plan, xl, refl
+        torch.cuda.empty_cache()
+    ok = all(torch.equal(g, w) for g, w in zip(res["Peer2Peer"],
+                                               res["All2All"]))
+    out["peer2peer_equals_all2all"] = ok
+    if not ok:
+        fail(f"rank {rank}: batched shard=x Peer2Peer is not bit-equal to "
+             f"All2All")
+    return out
+
+
+def batched_renderings(torch, dist, dft, hf, rank: int, outdir: str):
+    """Every rendering of ``BATCHED_RENDERINGS`` at 16 x 512^2, shard="x",
+    on the two ranks: launches and entry points per direction, the blocks
+    against torch.fft.rfft2 and nx ny x, the bit-equalities of
+    ``BATCHED_PAIRS`` and each direction's time."""
+    B, nx, ny = BATCHED_RENDER
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    x = torch.randn(BATCHED_RENDER, generator=gen, device="cuda")
+    ref = torch.fft.rfft2(x)
+    out, res = {}, {}
+    for pid, (fields, want_f, want_i, ent_f_want,
+              ent_i_want) in BATCHED_RENDERINGS.items():
+        plan = dft.Batched2DFFTPlan(*BATCHED_RENDER, dft.SlabPartition(RANKS),
+                                    pencil_config(dft, fields), shard="x")
+        xl = plan.pad_input(x)
+        c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, xl)
+        if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i) or \
+                (ent_f, ent_i) != (ent_f_want, ent_i_want):
+            fail(f"rank {rank} batched {pid}: launches forward {fwd} "
+                 f"(entries {ent_f}), inverse {inv} (entries {ent_i}); "
+                 f"expected {want_f} ({ent_f_want}), {want_i} "
+                 f"({ent_i_want})")
+        tol = WIRE16_TOL if plan.config.wire_dtype == "bf16" else TOL
+        _, f_rel = rel_err(c, plan.pad_spectral(ref))
+        _, rt_rel = rel_err(back / float(nx * ny), xl)
+        if not (f_rel <= tol and rt_rel <= tol):
+            fail(f"rank {rank} batched {pid}: forward rel {f_rel:.3e}, "
+                 f"roundtrip rel {rt_rel:.3e} (tol {tol})")
+        out[pid] = dict(config=fields, launches_forward=fwd,
+                        launches_inverse=inv, entries_forward=ent_f,
+                        entries_inverse=ent_i, forward_vs_torch_fft=f_rel,
+                        roundtrip_vs_input=rt_rel, tol=tol,
+                        forward_ms=barrier_ms(
+                            torch, dist, lambda: plan.exec_forward(xl)),
+                        inverse_ms=barrier_ms(
+                            torch, dist, lambda: plan.exec_inverse(c)))
+        res[pid] = (c, back)
+        del plan, xl
+    for pid, other in BATCHED_PAIRS:
+        ok = all(torch.equal(g_, w) for g_, w in zip(res[pid], res[other]))
+        out[f"{pid}_equals_{other}"] = ok
+        if not ok:
+            errs = [rel_err(g_, w)[1] for g_, w in zip(res[pid], res[other])]
+            fail(f"rank {rank}: batched {pid} is not bit-equal to {other} "
+                 f"(rel {max(errs):.3e})")
+    del res, ref, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def batched_cli_ranks(torch, dist, dft, hf, rank: int, outdir: str):
+    """``dfft-torch-batched -nx 4096 -ny 4096 -nz 8 --shard x
+    --fft-backend pallas`` (the default Peer2Peer exchange), testcases 0
+    and 3, over the two ranks."""
+    B, nx, ny = BATCHED_X
+    sections = dft.Batched2DFFTPlan(*BATCHED_X, dft.SlabPartition(RANKS),
+                                    None, shard="x").section_descriptions
+    out = {"runs": [], "launches": {}}
+    for tc in BATCHED_CLI_CASES:
+        argv = ["-nx", str(nx), "-ny", str(ny), "-nz", str(B), "--shard", "x",
+                "--fft-backend", "pallas", "-b",
+                os.path.join(outdir, f"batched_x_t{tc}")]
+        got, row = batched_cli_run(torch, hf, argv, tc, 1, sections, RANKS,
+                                   rank)
+        out["launches"][f"cli_batched_x_{B}_t{tc}"] = got
+        out["runs"].append(row)
+        torch.cuda.empty_cache()
+    return out
+
+
+def batched_rank_main(rank: int, addr: str, outdir: str) -> None:
+    """One of the two ranks of the batched phase, sharing the card over
+    gloo: shard="batch" at 64 x 4096^2, shard="x" at 8 x 4096^2, the
+    renderings at 16 x 512^2 and the executable."""
+    import torch
+    import torch.distributed as dist
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.parallel import multihost
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.maybe_initialize(addr, RANKS, rank, backend="gloo",
+                               timeout_s=600)
+    out = {"rank": rank}
+    for name, fn in (("batch_shard", batched_batch_shard),
+                     ("x_shard", batched_x_shard),
+                     ("renderings", batched_renderings),
+                     ("cli", batched_cli_ranks)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, dist, dft, hf, rank, outdir)
+        out[f"{name}_seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, f"batched_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    multihost.shutdown()
+
+
+def bluestein_paths(torch, dft, hf, gen):
+    """The Bluestein backend on one card: the 64 x 4093^2 stack (both axes
+    prime, chirp length 8192) at ``batch_chunk`` 8 against float64
+    torch.fft.rfft2 chunk by chunk and nx ny x, its peak memory, its times
+    against "xla" (cuFFT) at the same chunking; float64 on one chunk; the
+    whole stack where its estimated peak fits; the 521^3 slab plan on one
+    rank against float64 torch.fft.rfftn; and the 512^3 plan, all smooth,
+    bit-equal to "xla". No kernel launches on any of these."""
+    from distributedfft_tpu_torch.ops import bluestein as bl
+    B, nx, ny = BLUESTEIN
+    ck = BLUESTEIN_CHUNK
+    out = dict(shape=list(BLUESTEIN), chirp_length=bl.chirp_length(ny),
+               batch_chunk=ck, reps=REPS_BIG)
+    x = torch.randn(BLUESTEIN, generator=gen, device="cuda")
+    plan = dft.Batched2DFFTPlan(*BLUESTEIN, dft.SlabPartition(1),
+                                dft.Config(fft_backend="bluestein"),
+                                batch_chunk=ck)
+    hf.reset_launches()
+    torch.cuda.synchronize()
+    base_f = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c = plan.exec_forward(x)
+    torch.cuda.synchronize()
+    peak_f = torch.cuda.max_memory_allocated()
+    base_i = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    back = plan.exec_inverse(c)
+    torch.cuda.synchronize()
+    peak_i = torch.cuda.max_memory_allocated()
+    if any(counted(hf).values()):
+        fail(f"the Bluestein plan launched kernels: {counted(hf)}")
+    err = top = rt_err = 0.0
+    for i in range(0, B, ck):
+        ref = torch.fft.rfft2(x[i:i + ck].double())
+        err = max(err, float((c[i:i + ck] - ref).abs().max()))
+        top = max(top, float(ref.abs().max()))
+        rt_err = max(rt_err, float((back[i:i + ck].double() / (nx * ny)
+                                    - x[i:i + ck]).abs().max()))
+        del ref
+    out.update(forward_vs_torch_fft_f64=err / top,
+               roundtrip_vs_input=rt_err / float(x.abs().max()),
+               peak_memory_gb={"forward": peak_f / 1e9,
+                               "inverse": peak_i / 1e9})
+    if not (out["forward_vs_torch_fft_f64"] <= TOL
+            and out["roundtrip_vs_input"] <= TOL):
+        fail(f"Bluestein {BLUESTEIN}: {out}")
+    del back
+    out["forward_ms"] = median_ms(torch, lambda: plan.exec_forward(x),
+                                  REPS_BIG, 1)
+    out["inverse_ms"] = median_ms(torch, lambda: plan.exec_inverse(c),
+                                  REPS_BIG, 1)
+    xla = dft.Batched2DFFTPlan(*BLUESTEIN, dft.SlabPartition(1), dft.Config(),
+                               batch_chunk=ck)
+    cx = xla.exec_forward(x)
+    out["xla_forward_ms"] = median_ms(torch, lambda: xla.exec_forward(x),
+                                      REPS_BIG, 1)
+    out["xla_inverse_ms"] = median_ms(torch, lambda: xla.exec_inverse(cx),
+                                      REPS_BIG, 1)
+    del cx, xla
+    torch.cuda.empty_cache()
+    # Float64 on one chunk.
+    p64 = dft.Batched2DFFTPlan(ck, nx, ny, dft.SlabPartition(1),
+                               dft.Config(fft_backend="bluestein",
+                                          double_prec=True))
+    x64 = x[:ck].double()
+    c64 = p64.exec_forward(x64)
+    _, out["f64_forward_vs_torch_fft"] = rel_err(c64, torch.fft.rfft2(x64))
+    _, out["f64_roundtrip_vs_input"] = rel_err(
+        p64.exec_inverse(c64) / float(nx * ny), x64)
+    if not (out["f64_forward_vs_torch_fft"] <= F64_TOL
+            and out["f64_roundtrip_vs_input"] <= F64_TOL):
+        fail(f"Bluestein float64 chunk: {out}")
+    del p64, x64, c64
+    torch.cuda.empty_cache()
+    # The whole stack at once, where the chunked run's intermediates times
+    # the chunks fit: the estimate, the decision and what it took.
+    chunks = B // ck
+    out_bytes = c.numel() * c.element_size()
+    est = {"forward": base_f + out_bytes
+           + (peak_f - base_f - out_bytes) * chunks,
+           "inverse": base_i + x.numel() * x.element_size()
+           + (peak_i - base_i - x.numel() * x.element_size()) * chunks}
+    total = torch.cuda.get_device_properties(0).total_memory
+    out["whole_stack"] = whole = dict(
+        estimated_peak_gb={d: v / 1e9 for d, v in est.items()},
+        device_memory_gb=total / 1e9,
+        runs=max(est.values()) <= MEMORY_SHARE * total)
+    if whole["runs"]:
+        wp = dft.Batched2DFFTPlan(*BLUESTEIN, dft.SlabPartition(1),
+                                  dft.Config(fft_backend="bluestein"))
+        for d, fn in (("forward", lambda: wp.exec_forward(x)),
+                      ("inverse", lambda: wp.exec_inverse(c))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            whole[f"{d}_ms"] = median_ms(torch, fn, 1, 0)
+            whole[f"{d}_peak_memory_gb"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.empty_cache()
+        cw = wp.exec_forward(x)
+        _, whole["forward_vs_chunked"] = rel_err(cw, c)
+        del cw, wp
+        if not whole["forward_vs_chunked"] <= TOL:
+            fail(f"Bluestein whole stack: {whole}")
+    del x, c, plan
+    torch.cuda.empty_cache()
+    # The slab plan on one rank at a prime cube.
+    n = BLUESTEIN_SLAB
+    g = dft.GlobalSize(n, n, n)
+    xs = torch.randn((n, n, n), generator=gen, device="cuda")
+    sp = dft.SlabFFTPlan(g, dft.SlabPartition(1),
+                         dft.Config(fft_backend="bluestein"))
+    hf.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs = sp.exec_r2c(xs)
+    bs = sp.exec_c2r(cs)
+    torch.cuda.synchronize()
+    slab = dict(shape=[n] * 3, chirp_length=bl.chirp_length(n),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if any(counted(hf).values()):
+        fail(f"the Bluestein slab plan launched kernels: {counted(hf)}")
+    _, slab["forward_vs_torch_fft_f64"] = rel_err(
+        cs, torch.fft.rfftn(xs.double()))
+    _, slab["roundtrip_vs_input"] = rel_err(bs / float(n ** 3), xs)
+    del bs
+    if not (slab["forward_vs_torch_fft_f64"] <= TOL
+            and slab["roundtrip_vs_input"] <= TOL):
+        fail(f"Bluestein slab {n}^3: {slab}")
+    xsp = dft.SlabFFTPlan(g, dft.SlabPartition(1), dft.Config())
+    cx = xsp.exec_r2c(xs)
+    slab.update(
+        forward_ms=median_ms(torch, lambda: sp.exec_r2c(xs), REPS_BIG, 1),
+        inverse_ms=median_ms(torch, lambda: sp.exec_c2r(cs), REPS_BIG, 1),
+        xla_forward_ms=median_ms(torch, lambda: xsp.exec_r2c(xs), REPS_BIG,
+                                 1),
+        xla_inverse_ms=median_ms(torch, lambda: xsp.exec_c2r(cx), REPS_BIG,
+                                 1))
+    out["slab_prime"] = slab
+    del xs, cs, cx, sp, xsp
+    torch.cuda.empty_cache()
+    # A smooth cube: "bluestein" is "xla", bit for bit.
+    g = dft.GlobalSize(N, N, N)
+    xs = torch.randn((N, N, N), generator=gen, device="cuda")
+    bp = dft.SlabFFTPlan(g, dft.SlabPartition(1),
+                         dft.Config(fft_backend="bluestein"))
+    xp = dft.SlabFFTPlan(g, dft.SlabPartition(1), dft.Config())
+    cb, cx = bp.exec_r2c(xs), xp.exec_r2c(xs)
+    out["smooth_512_equals_xla"] = (torch.equal(cb, cx) and torch.equal(
+        bp.exec_c2r(cb), xp.exec_c2r(cx)))
+    if not out["smooth_512_equals_xla"]:
+        fail("Bluestein on the smooth 512^3 cube is not bit-equal to xla")
+    del xs, cb, cx, bp, xp
+    torch.cuda.empty_cache()
+    emit(phase="bluestein", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The parent
 # ---------------------------------------------------------------------------
 
@@ -1132,15 +1801,18 @@ def stage_cases(torch, hf, dev, gen):
             flops=fft_flops(rows, n), gemm_flops=8 * rows * n * n,
             bytes=16 * rows * n)
 
-    def short_case(variant, shape, kind, inverse):
+    def short_case(variant, shape, kind, inverse, n2=None):
         """Kernel 2's short-stage body on (outer, n1, inner) columns with
         one of its output geometries: "last" (natural order), "crop"
-        (bins 0..n/2) or "strided" (a non-last axis of n1 * outer points,
-        outer index k2, stored in its (n, inner) layout)."""
+        (bins 0..n/2) or "strided" (a non-last axis of n1 * n2 points,
+        outer index o n2 + k2 (n2 = outer by default), stored in its
+        (outer / n2, n, inner) layout)."""
         outer, n1, inner = shape
         if kind == "strided":
-            geom = hf.short_strided(n1, outer, inner)
-            out_shape = (n1 * outer, inner)
+            n2 = n2 or outer
+            geom = hf.short_strided(n1, n2, inner)
+            out_shape = ((n1 * outer, inner) if n2 == outer
+                         else (outer // n2, n1 * n2, inner))
         else:
             n_out = n1 * inner // 2 + 1 if kind == "crop" else n1 * inner
             geom, out_shape = hf.short_last(n1, inner, n_out), (outer, n_out)
@@ -1169,6 +1841,8 @@ def stage_cases(torch, hf, dev, gen):
     big_rtw = sx * sy * 4                     # SPLIT z forward first stage rows
     big_n1 = sy * (sz // 2 + 1) * 512         # SPLIT x forward 4-point stage rows
     x_inner = sy * (sz // 2 + 1)              # SPLIT x axis: points a column
+    bb, bx, by = BATCHED                      # the batched 4096^2 stack
+    bys = by // 2 + 1
     rows_640 = 640 * 640 * 2                  # 640^3 z first stage rows
     rows_640c = 640 * 321 * 2                 # 640^3 y/x first stage rows
     k_r = N // 2 + 1
@@ -1244,6 +1918,12 @@ def stage_cases(torch, hf, dev, gen):
         short_case("short_2048_z", (sx * sy, 4, sz // 4), "last", True),
         short_case("short_2048_x", (sx // 4, 4, sy * (sz // 2 + 1)),
                    "strided", False),
+        # Its 8-point second stage on the batched plan's 64 x 4096 x 4096
+        # stack (BASELINE config #4): y forward (the R2C crop) and x where
+        # it lies (64 images of 512 x 8 columns of 2049 points).
+        short_case("short_4096_y_crop", (bb * bx, 8, by // 8), "crop", False),
+        short_case("short_4096_x", (bb * bx // 8, 8, bys), "strided", False,
+                   n2=bx // 8),
         # The 4-point row body the short-stage body replaced (no main path
         # since it did).
         dict(name="cmatmul", variant="row_n4_stage_2048", body="row",
@@ -1326,6 +2006,24 @@ def stage_cases(torch, hf, dev, gen):
              flops=fft_flops(4 * x_inner, sx // 4) + 6 * 4 * x_inner * sx // 4,
              gemm_flops=8 * 4 * x_inner * (sx // 4) ** 2,
              bytes=16 * 4 * x_inner * sx // 4 + 8 * 4 * sx // 4),
+        # The same body on the batched stack's x axis: (64, 512, 8 * 2049)
+        # views of the (64, 4096, 2049) spectrum, an odd inner extent.
+        dict(name="cmatmul_tw", variant="cols_4096_batched_x", body="cols",
+             replaces=f"{PALLAS}:171",
+             shape=dict(outer=bb, n=bx // 8, inner=8 * bys, n1=8, axis=1),
+             make=lambda: dict(z=cr(bb, bx, bys)),
+             run=lambda t: hf.cdft_tw_cols(
+                 t["z"].view(bb, bx // 8, 8 * bys), 8, False),
+             plain=lambda t: hf.cdft_tw_cols_plain(
+                 t["z"].view(bb, bx // 8, 8 * bys), 8, False),
+             pair=lambda t: hf.fft(t["z"], axis=1),
+             rows=lambda t: torch.fft.fft(
+                 t["z"].view(bb, bx // 8, 8 * bys), dim=1),
+             library=lambda t: torch.fft.fft(t["z"], dim=1),
+             library_call="fft(dim=1) of the whole 4096-point axis",
+             flops=fft_flops(bb * 8 * bys, bx // 8) + 6 * bb * bx * bys,
+             gemm_flops=8 * bb * 8 * bys * (bx // 8) ** 2,
+             bytes=16 * bb * bx * bys + 8 * bx),
         dict(name="cmatmul_tw", variant="tile_n2_320", body="tile",
              replaces=f"{PALLAS}:171",
              shape=dict(M=rows_640c, n=320, k=320, n1=2),
@@ -2624,6 +3322,45 @@ def main() -> int:
     emit(phase="pencil_cli", rank0=p0["cli"], seconds=p0["cli_seconds"])
     emit(phase="pencil_done", seconds=time.perf_counter() - t0)
 
+    # -- 8d. the batched-2D plan: one card, the executable, two ranks --------
+    t0 = time.perf_counter()
+    batched_rows = {}
+    for pid, (shape, path, chunks) in BATCHED_CARD.items():
+        got, batched_rows[pid] = batched_path(torch, dft, hf, gen, pid, shape,
+                                              path, chunks)
+        launches.update(got)
+    got, batched_rows["cli"] = batched_cli_single_card(
+        torch, dft, hf, batched_rows["batched_64x4096"])
+    launches.update(got)
+    torch.cuda.empty_cache()
+    tmp.spawn(batched_rank_main, args=(multihost.local_coordinator(), outdir),
+              nprocs=RANKS, join=True)
+    b_ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(outdir, f"batched_rank{r}.json")) as f:
+            b_ranks.append(json.load(f))
+    b0 = b_ranks[0]
+    rows0 = {"batched_batch_shard": b0["batch_shard"],
+             **{f"batched_x_{c}": b0["x_shard"][c] for c in BATCHED_X_COMMS},
+             **{f"batched_{BATCHED_RENDER[1]}_{pid}": b0["renderings"][pid]
+                for pid in BATCHED_RENDERINGS}}
+    for name, row in rows0.items():
+        launches[f"{name}_rank0"] = {
+            k: row["launches_forward"][k] + row["launches_inverse"][k]
+            for k in row["launches_forward"]}
+    for name, v in b0["cli"]["launches"].items():
+        launches[f"{name}_rank0"] = v
+    for rk in b_ranks:
+        emit(phase="batched_ranks", rank=rk["rank"],
+             exchange="gloo, host-staged, 2 ranks on 1 card",
+             **{k: rk[k] for k in rk if k != "rank"})
+    emit(phase="batched_done", seconds=time.perf_counter() - t0)
+
+    # -- 8e. the Bluestein backend (no kernel: torch.fft's chirp-z) ----------
+    t0 = time.perf_counter()
+    bluestein_paths(torch, dft, hf, gen)
+    emit(phase="bluestein_done", seconds=time.perf_counter() - t0)
+
     # -- 9. the kernels line, the card, the result ---------------------------
     def total_launches(name):
         return sum(v.get(name, 0) for v in launches.values())
@@ -2671,5 +3408,83 @@ def main() -> int:
     return 0
 
 
+def _children() -> list:
+    """The pids whose parent is this process, zombies included."""
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # after the parenthesised command come the state, then the parent
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            out.append(int(d))
+    return out
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace")
+    except OSError:
+        return "?"
+
+
+def _running(pid: int) -> bool:
+    """Whether the child ``pid`` still runs; reaps it if it has ended."""
+    try:
+        return os.waitpid(pid, os.WNOHANG) == (0, 0)
+    except ChildProcessError:
+        return False
+
+
+def stop_children() -> None:
+    """Stop every process this run started, and every descendant left
+    behind (the script is their subreaper, so orphans come back here):
+    multiprocessing's children and its resource tracker first, then
+    whatever is still a child of this process, SIGTERM then SIGKILL, each
+    reaped. What had to be stopped goes to stderr."""
+    import gc
+    import multiprocessing
+    import signal
+    from multiprocessing import resource_tracker
+    for p in multiprocessing.active_children():
+        p.terminate()
+        p.join(10)
+    gc.collect()                 # finalize the spawns' queues first
+    resource_tracker._resource_tracker._stop()
+    for _ in range(5):           # a stopped child's own children come next
+        pids = _children()
+        if not pids:
+            return
+        for pid in pids:
+            print(f"chip_smoke: stopping leftover process {pid}: "
+                  f"{_cmdline(pid)}", file=sys.stderr)
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGTERM)
+        deadline = time.monotonic() + 5
+        while pids and time.monotonic() < deadline:
+            pids = [p for p in pids if _running(p)]
+            time.sleep(0.05)
+        for pid in pids:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, 0)
+    if _children():
+        raise RuntimeError(f"chip_smoke: processes left: {_children()}")
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    import ctypes
+    # PR_SET_CHILD_SUBREAPER: a descendant whose parent exits becomes this
+    # process's child, so stop_children finds it.
+    ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

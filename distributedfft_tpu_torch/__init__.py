@@ -4,14 +4,18 @@ A second package beside the JAX one, ported slice by slice. It runs the
 slab plan, ``SlabFFTPlan(GlobalSize, SlabPartition(P), Config)``, and the
 pencil plan, ``PencilFFTPlan(GlobalSize, PencilPartition(P1, P2),
 Config)``, with ``exec_r2c`` / ``exec_c2r`` (the pencil's with the depth
-``dims`` of its partial transforms), on one device or over the ranks of a
+``dims`` of its partial transforms), and the batched-2D plan,
+``Batched2DFFTPlan(batch, nx, ny, SlabPartition(P), Config, shard=)``, with
+``exec_forward`` / ``exec_inverse``, on one device or over the ranks of a
 ``torch.distributed`` world (``maybe_initialize``; ``make_slab_group``,
 ``make_pencil_groups``), each exchange an all-to-all, point to point or a
 ring of point-to-point steps, on ``torch.fft`` (backend ``"xla"``) or on
-the hand-written Hopper kernels (backend ``"pallas"``). Entry points run
+the hand-written Hopper kernels (backend ``"pallas"``), or, for axes of
+any length, on the chirp-z transform (``"bluestein"``). Entry points run
 on ``device="cuda"`` unless the caller asks for the CPU.
 """
 
+from .models.batched2d import Batched2DFFTPlan
 from .models.pencil import PencilFFTPlan
 from .models.slab import SlabFFTPlan
 from .parallel.mesh import (PENCIL_AXES, SLAB_AXIS, best_pencil_grid,
@@ -22,7 +26,7 @@ from .params import (CommMethod, Config, FFTNorm, GlobalSize,
                      config_from_reference, global_size_from_reference,
                      slab_partition_from_reference)
 
-__all__ = ["CommMethod", "Config", "FFTNorm", "GlobalSize", "PENCIL_AXES",
+__all__ = ["Batched2DFFTPlan", "CommMethod", "Config", "FFTNorm", "GlobalSize", "PENCIL_AXES",
            "PencilFFTPlan", "PencilPartition", "SLAB_AXIS", "SendMethod",
            "SlabFFTPlan", "SlabPartition", "SlabSequence",
            "best_pencil_grid", "config_from_reference",

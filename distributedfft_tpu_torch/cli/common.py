@@ -28,11 +28,11 @@ from typing import List, Optional
 import torch
 
 from .. import params as pm
-from ..ops.fft import _NOT_PORTED, BACKENDS
+from ..ops.fft import BACKENDS
 from ..parallel import multihost
 
 # The ROADMAP Queue 1 items whose flags still raise (items keep their
-# numbers once done: 1-4 and 7 run).
+# numbers once done: 1-8 run).
 LATER_ITEMS = {
     9: "ROADMAP Queue 1, item 9 (resilience: guards and selftest)",
     11: "ROADMAP Queue 1, item 11 (autotune and wisdom)",
@@ -77,8 +77,9 @@ def add_common_args(ap: argparse.ArgumentParser, pencil: bool = False,
                     choices=BACKENDS + ("auto",),
                     help="local transform implementation: torch.fft (cuFFT "
                          "on the card; 'xla', the default), DFT products "
-                         "('matmul', 'matmul-r2') or the hand-written CUDA "
-                         "kernels ('pallas')")
+                         "('matmul', 'matmul-r2'), the hand-written CUDA "
+                         "kernels ('pallas') or the chirp-z transform for "
+                         "any axis length ('bluestein')")
     ap.add_argument("--wisdom", default=None, metavar="PATH",
                     help="persistent plan-wisdom store (not ported yet)")
     ap.add_argument("--no-wisdom", action="store_true",
@@ -179,10 +180,6 @@ def refuse_later_items(args) -> None:
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet ({LATER_ITEMS[item]})")
-    if args.fft_backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--fft-backend {args.fft_backend} is not ported yet "
-            f"({_NOT_PORTED[args.fft_backend]})")
 
 
 def setup_backend(args) -> torch.device:

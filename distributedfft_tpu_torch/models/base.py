@@ -18,10 +18,13 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import fft as local_fft
 from ..params import Config, GlobalSize, Partition
+from ..parallel.transpose import pad_axis_to
 
 Pipeline = Callable[[torch.Tensor], torch.Tensor]
 
@@ -173,3 +176,48 @@ class DistFFTPlan:
             return local_fft.ifftn(c, axes, **kw)
 
         return run
+
+
+class AxisBlocks:
+    """This rank's block of a global array split along one axis over the
+    ``_P`` ranks of ``group`` (the slab and batched-2D plans): ``_block``
+    cuts it from the logical or padded global array onto the plan's
+    device, ``_gather`` puts the padded global array back together on
+    every rank (collective), ``_host`` hands it to numpy. One rank
+    (``fft3d``) holds the whole array."""
+
+    rank: int
+    _P: int
+    fft3d: bool
+    group = None
+    device: torch.device
+
+    def _block(self, a, dtype: torch.dtype, axis: int, logical, padded
+               ) -> torch.Tensor:
+        t = torch.as_tensor(a)
+        if tuple(t.shape) == tuple(logical):
+            t = pad_axis_to(t, axis, padded[axis])
+        elif tuple(t.shape) != tuple(padded):
+            raise ValueError(f"expected the global shape {tuple(logical)} (or "
+                             f"padded {tuple(padded)}), got {tuple(t.shape)}")
+        b = padded[axis] // self._P
+        t = t.narrow(axis, self.rank * b, b)
+        return t.to(device=self.device, dtype=dtype).contiguous()
+
+    def _gather(self, t, axis: int):
+        """The padded global array from every rank's block (all ranks
+        must call it); the block itself on one rank."""
+        if self.fft3d:
+            return t
+        t = torch.as_tensor(t, device=self.device).contiguous()
+        parts = [torch.empty_like(t) for _ in range(self._P)]
+        if t.is_complex():
+            dist.all_gather([torch.view_as_real(q) for q in parts],
+                            torch.view_as_real(t), group=self.group)
+        else:
+            dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim=axis)
+
+    @staticmethod
+    def _host(t) -> np.ndarray:
+        return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)

@@ -76,7 +76,7 @@ from ..parallel.transpose import (concat_axis_chunks, exchange_body,
                                   slice_axis_to, split_axis_chunks,
                                   wire_complex_dtype)
 from ..utils.native_planner import even_shard_sizes, padded_extent
-from .base import DistFFTPlan, Pipeline
+from .base import AxisBlocks, DistFFTPlan, Pipeline
 
 _ODDITY_ITEM = "ROADMAP Queue 3 (the reference's P=1 Y_Then_ZX oddity)"
 
@@ -98,7 +98,15 @@ _SEQS = {
 }
 
 
-class SlabFFTPlan(DistFFTPlan):
+# The reference's transpose phases (``include/mpicufft_slab.hpp:209-223``).
+XPOSE_SECTIONS = ["Transpose (First Send)", "Transpose (Packing)",
+                  "Transpose (Start Local Transpose)",
+                  "Transpose (Start Receive)", "Transpose (First Receive)",
+                  "Transpose (Finished Receive)", "Transpose (Start All2All)",
+                  "Transpose (Finished All2All)", "Transpose (Unpacking)"]
+
+
+class SlabFFTPlan(DistFFTPlan, AxisBlocks):
     """3D R2C/C2R (or C2C) FFT plan with 1D (slab) decomposition over x."""
 
     def __init__(self, global_size: pm.GlobalSize, partition: pm.SlabPartition,
@@ -227,36 +235,6 @@ class SlabFFTPlan(DistFFTPlan):
         sl = [slice(None)] * 3
         sl[sa] = slice(0, self._split_ext)
         return self._host(self._gather(c, sa))[tuple(sl)]
-
-    def _block(self, a, dtype: torch.dtype, axis: int, logical, padded
-               ) -> torch.Tensor:
-        t = torch.as_tensor(a)
-        if tuple(t.shape) == tuple(logical):
-            t = pad_axis_to(t, axis, padded[axis])
-        elif tuple(t.shape) != tuple(padded):
-            raise ValueError(f"expected the global shape {tuple(logical)} (or "
-                             f"padded {tuple(padded)}), got {tuple(t.shape)}")
-        b = padded[axis] // self._P
-        t = t.narrow(axis, self.rank * b, b)
-        return t.to(device=self.device, dtype=dtype).contiguous()
-
-    def _gather(self, t, axis: int):
-        """The padded global array from every rank's block (all ranks
-        must call it); the block itself on one rank."""
-        if self.fft3d:
-            return t
-        t = torch.as_tensor(t, device=self.device).contiguous()
-        parts = [torch.empty_like(t) for _ in range(self._P)]
-        if t.is_complex():
-            dist.all_gather([torch.view_as_real(q) for q in parts],
-                            torch.view_as_real(t), group=self.group)
-        else:
-            dist.all_gather(parts, t, group=self.group)
-        return torch.cat(parts, dim=axis)
-
-    @staticmethod
-    def _host(t) -> np.ndarray:
-        return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
     # -- execution ----------------------------------------------------------
 
@@ -613,11 +591,7 @@ class SlabFFTPlan(DistFFTPlan):
         phases and the plan's own time. Phases the port does not time
         (packing, the first send) stay 0 in the CSV."""
         first, last = self._stage_descs()
-        xpose = ["Transpose (First Send)", "Transpose (Packing)",
-                 "Transpose (Start Local Transpose)",
-                 "Transpose (Start Receive)", "Transpose (First Receive)",
-                 "Transpose (Finished Receive)", "Transpose (Start All2All)",
-                 "Transpose (Finished All2All)", "Transpose (Unpacking)"]
+        xpose = XPOSE_SECTIONS
         if self.sequence is pm.SlabSequence.ZY_THEN_X:
             return ["init", "2D FFT (Sync)", first] + xpose + [
                 last, "Run complete", "Run complete (fused)"]

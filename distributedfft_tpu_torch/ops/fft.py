@@ -16,7 +16,9 @@ around the call; None keeps the settings in effect):
   per-axis stage kernels everywhere else. Double precision and prime axes
   above 1024 take the matmul backend there, under the same settings scope,
   as in the JAX package;
-* ``"bluestein"`` is not ported yet and raises ``NotImplementedError``.
+* ``"bluestein"`` runs the chirp-z backend (``ops/bluestein.py``) for
+  arbitrary axis sizes: a 5-smooth axis makes the ``"xla"`` call bit for
+  bit, any other length the chirp-z identity over ``torch.fft``.
 """
 
 from __future__ import annotations
@@ -28,15 +30,14 @@ from typing import Sequence, Tuple
 import torch
 
 from ..params import FFTNorm
+from . import bluestein
 from . import hopper_fft
 from . import mxu_fft
 
 BACKENDS = ("xla", "matmul", "matmul-r2", "pallas", "bluestein")
 
-# Where in ROADMAP.md each backend that is not ported yet is scheduled.
-_NOT_PORTED = {
-    "bluestein": "ROADMAP Queue 1, item 8 (arbitrary sizes)",
-}
+_MODULES = {"matmul": mxu_fft, "matmul-r2": mxu_fft, "pallas": hopper_fft,
+            "bluestein": bluestein}
 
 
 def validate_backend(backend: str) -> str:
@@ -46,17 +47,9 @@ def validate_backend(backend: str) -> str:
     return backend
 
 
-def _impl(backend: str, what: str):
-    """The module that runs ``backend`` (None for "xla"); raise for a
-    backend that is not ported yet (``what`` names the call)."""
-    b = validate_backend(backend)
-    if b in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{what} with fft_backend={backend!r} is not ported yet: "
-            f"{_NOT_PORTED[backend]}")
-    if b == "pallas":
-        return hopper_fft
-    return None if b == "xla" else mxu_fft
+def _impl(backend: str):
+    """The module that runs ``backend`` (None for "xla")."""
+    return _MODULES.get(validate_backend(backend))
 
 
 def _settings_ctx(backend: str, settings):
@@ -97,7 +90,7 @@ def _inv_norm(norm: FFTNorm) -> str:
 def rfft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
          settings=None):
     """Forward R2C along one axis (cuFFT ``execR2C`` analog, 1D case)."""
-    m = _impl(backend, "rfft")
+    m = _impl(backend)
     if m is not None:
         with _settings_ctx(backend, settings):
             return m.rfft(x, axis=axis, norm=norm)
@@ -107,7 +100,7 @@ def rfft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
 def irfft(x, n: int, axis: int, norm: FFTNorm = FFTNorm.NONE,
           backend: str = "xla", settings=None):
     """Inverse C2R along one axis; ``n`` is the real output extent."""
-    m = _impl(backend, "irfft")
+    m = _impl(backend)
     if m is not None:
         with _settings_ctx(backend, settings):
             return m.irfft(x, n=n, axis=axis, norm=norm)
@@ -117,7 +110,7 @@ def irfft(x, n: int, axis: int, norm: FFTNorm = FFTNorm.NONE,
 def fft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
         settings=None):
     """Forward C2C along one axis (cuFFT ``execC2C(..., CUFFT_FORWARD)``)."""
-    m = _impl(backend, "fft")
+    m = _impl(backend)
     if m is not None:
         with _settings_ctx(backend, settings):
             return m.fft(x, axis=axis, norm=norm)
@@ -127,7 +120,7 @@ def fft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
 def ifft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
          settings=None):
     """Inverse C2C along one axis (cuFFT ``execC2C(..., CUFFT_INVERSE)``)."""
-    m = _impl(backend, "ifft")
+    m = _impl(backend)
     if m is not None:
         with _settings_ctx(backend, settings):
             return m.ifft(x, axis=axis, norm=norm)
@@ -136,7 +129,7 @@ def ifft(x, axis: int, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
 
 def fftn(x, axes: Sequence[int], norm: FFTNorm = FFTNorm.NONE,
          backend: str = "xla", settings=None):
-    m = _impl(backend, "fftn")
+    m = _impl(backend)
     if m is not None:
         with _settings_ctx(backend, settings):
             return m.fftn(x, axes, norm=norm)
@@ -145,7 +138,7 @@ def fftn(x, axes: Sequence[int], norm: FFTNorm = FFTNorm.NONE,
 
 def ifftn(x, axes: Sequence[int], norm: FFTNorm = FFTNorm.NONE,
           backend: str = "xla", settings=None):
-    m = _impl(backend, "ifftn")
+    m = _impl(backend)
     if m is not None:
         with _settings_ctx(backend, settings):
             return m.ifftn(x, axes, norm=norm)
@@ -157,7 +150,7 @@ def rfftn_3d(x, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
     """Single-device full 3D R2C over the trailing three axes — the analog
     of the reference's ``cufftMakePlan3d`` single-process fallback
     (``src/mpicufft.cpp:65``). The halved axis is z (the last)."""
-    m = _impl(backend, "rfftn_3d")
+    m = _impl(backend)
     if m is not None:
         with _settings_ctx(backend, settings):
             return m.rfftn_3d(x, norm=norm)
@@ -166,7 +159,7 @@ def rfftn_3d(x, norm: FFTNorm = FFTNorm.NONE, backend: str = "xla",
 
 def irfftn_3d(x, shape_3d: Tuple[int, int, int], norm: FFTNorm = FFTNorm.NONE,
               backend: str = "xla", settings=None):
-    m = _impl(backend, "irfftn_3d")
+    m = _impl(backend)
     if m is not None:
         with _settings_ctx(backend, settings):
             return m.irfftn_3d(x, shape_3d=shape_3d, norm=norm)

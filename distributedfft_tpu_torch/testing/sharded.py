@@ -1,6 +1,6 @@
 """Per-rank test inputs, spectral symbols and residuals of the testcases —
 the port's counterpart of the JAX package's ``testing/sharded.py``, for
-the slab and pencil plans.
+the slab, pencil and batched-2D plans.
 
 The reference generates its validation inputs and residuals on the GPU
 (cuRAND, the ``difference`` / ``derivativeCoefficients`` kernels and a
@@ -13,7 +13,9 @@ ranks (SUM for the abs-sum, MAX for the abs-max).
 A plan's block is its share of the padded global array: a slab plan's
 input split over x and its spectrum over the split axis; a pencil plan's
 blocks split over two axes, its spectrum's at the depth ``dims`` of its
-partial transforms. Pad lanes carry no data, so the residuals run over the
+partial transforms; a batched-2D plan's over the batch (``shard="batch"``)
+or over x, then spectral y (``shard="x"``), its batch axis never
+transformed. Pad lanes carry no data, so the residuals run over the
 logical region of the block only.
 """
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models.batched2d import Batched2DFFTPlan
 from ..models.pencil import PencilFFTPlan
 
 
@@ -32,7 +35,9 @@ def _halved_axis(plan) -> int:
     """The R2C-halved axis of the spectrum (none for a c2c plan)."""
     if plan.transform == "c2c":
         return -1
-    return 2 if isinstance(plan, PencilFFTPlan) else plan._seq.r2c_axis
+    if isinstance(plan, (PencilFFTPlan, Batched2DFFTPlan)):
+        return 2
+    return plan._seq.r2c_axis
 
 
 def _geometry(plan, space: str, dims: int = 3):
@@ -89,8 +94,12 @@ def sine_spectrum_ref(plan, dims: int = 3) -> torch.Tensor:
     padded = _geometry(plan, "spectral", dims)[0]
     halved = _halved_axis(plan)
     cdt = np.complex128 if plan.config.double_prec else np.complex64
-    transformed = ((dims >= 3, dims >= 2, True)
-                   if isinstance(plan, PencilFFTPlan) else (True,) * 3)
+    if isinstance(plan, PencilFFTPlan):
+        transformed = (dims >= 3, dims >= 2, True)
+    elif isinstance(plan, Batched2DFFTPlan):
+        transformed = (False, True, True)    # the batch keeps its samples
+    else:
+        transformed = (True,) * 3
     vs = []
     for ax, (n, ext) in enumerate(zip(g.shape, padded)):
         if not transformed[ax]:

@@ -1,5 +1,5 @@
-"""The reference's five testcases as library functions, for the slab and
-pencil plans — the port's counterpart of the JAX package's
+"""The reference's five testcases as library functions, for the slab,
+pencil and batched-2D plans — the port's counterpart of the JAX package's
 ``testing/testcases.py``.
 
 Semantics of the reference (``tests/src/slab/random_dist_default.cu``):
@@ -26,7 +26,9 @@ of ``forward_stages`` / ``inverse_stages`` with a fence after each, then
 one call of the plan's own ``exec_*`` marked "Run complete (fused)".
 Warm-up iterations are not gathered. Only rank 0 prints. A pencil plan
 takes the depth ``dims`` of its partial transforms (the reference's
-``--fft-dim``); testcase 4 always runs the whole transform.
+``--fft-dim``); testcase 4 always runs the whole transform. A batched-2D
+plan transforms (x, y) of every image: its executable passes ``dims=2``,
+so the roundtrip's factor is nx * ny (the last two of its size slots).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import params as pm
+from ..models.batched2d import Batched2DFFTPlan
 from ..models.pencil import PencilFFTPlan
 from ..models.slab import SlabFFTPlan
 from ..ops.fft import dtypes_for
@@ -47,8 +50,6 @@ from ..utils.timer import Timer, benchmark_filename
 from . import sharded
 
 FUSED_DESC = "Run complete (fused)"
-
-_KINDS_ITEM = {"batched2d": "ROADMAP Queue 1, item 6 (the batched-2D plan)"}
 
 
 def say(msg: str) -> None:
@@ -59,15 +60,18 @@ def say(msg: str) -> None:
 
 def make_plan(kind: str, global_size: pm.GlobalSize, partition, config,
               sequence=None, device: "str | torch.device" = "cuda"):
-    """The plan a testcase runs: the slab or the pencil plan."""
+    """The plan a testcase runs: the slab, pencil or batched-2D plan. The
+    batched plan reads ``global_size`` as (batch, nx, ny) and splits x
+    (the JAX package's slot convention)."""
     if kind == "slab":
         return SlabFFTPlan(global_size, partition, config, device=device,
                            sequence=sequence or pm.SlabSequence.ZY_THEN_X)
     if kind == "pencil":
         return PencilFFTPlan(global_size, partition, config, device=device)
-    if kind in _KINDS_ITEM:
-        raise NotImplementedError(
-            f"the {kind} plan is not ported yet ({_KINDS_ITEM[kind]})")
+    if kind == "batched2d":
+        g = global_size
+        return Batched2DFFTPlan(g.nx, g.ny, g.nz, partition, config,
+                                shard="x", device=device)
     raise ValueError(f"unknown plan kind {kind!r}")
 
 
@@ -143,7 +147,12 @@ def random_spectral_input(plan, seed: int = 0, dims: int = 3) -> torch.Tensor:
 
 def reference_spectrum(plan, x: np.ndarray, dims: int = 3) -> np.ndarray:
     """Single-host ground truth in the plan's own spectral layout (a
-    pencil plan's at depth ``dims``: z, then y, then x)."""
+    pencil plan's at depth ``dims``: z, then y, then x; a batched-2D
+    plan's over (x, y) of every image)."""
+    if isinstance(plan, Batched2DFFTPlan):
+        if plan.transform == "c2c":
+            return np.fft.fft(np.fft.fft(x, axis=2), axis=1)
+        return np.fft.fft(np.fft.rfft(x, axis=2), axis=1)
     if getattr(plan, "sequence", None) is pm.SlabSequence.Y_THEN_ZX:
         r = np.fft.rfft(x, axis=1)
         r = np.fft.fft(r, axis=2)

@@ -67,13 +67,12 @@ LATER = [
     ("slab", ["--obs-dir", "obs"], "item 12"),
     ("slab", ["--profile-dir", "prof"], "item 12"),
     ("slab", ["--profile-stages"], "item 12"),
-    ("slab", ["--fft-backend", "bluestein"], "item 8"),
     ("reference", ["--autotune"], "item 11"),
     ("reference", ["-t", "4"], "item 11"),
     ("reference", ["--wisdom", "w.json"], "item 11"),
     ("reference", ["--profile-stages"], "item 12"),
 ]
-# Flags of ROADMAP items 2, 3 and 7, which raised until those items were
+# Flags of ROADMAP items 2, 3, 7 and 8, which raised until those items were
 # ported: (executable, flags). Each now runs, on one rank.
 FORMER = [
     ("slab", ["-o", "1"]),
@@ -83,6 +82,7 @@ FORMER = [
               "--overlap-subblocks", "3"]),
     ("slab", ["-d", "--fft-backend", "pallas"]),
     ("slab", ["--fft-backend", "matmul"]),
+    ("slab", ["--fft-backend", "bluestein"]),
     ("reference", ["-d", "--fft-backend", "pallas"]),
 ]
 
@@ -176,7 +176,7 @@ def _surface(ap):
             for a in ap._actions if a.option_strings != ["-h", "--help"]}
 
 
-@pytest.mark.parametrize("name", ["slab", "reference"])
+@pytest.mark.parametrize("name", ["slab", "reference", "batched"])
 def test_flag_surface_matches_jax(name):
     import importlib
     mine = importlib.import_module(f"distributedfft_tpu_torch.cli.{name}")

@@ -817,3 +817,104 @@ def test_pencil_single_card_per_axis(cuda, shape, dims):
     assert _rel(c, ref) <= 5e-4
     scale = float(np.prod(shape[3 - dims:]))
     assert _rel(back / scale, x) <= 5e-4
+
+
+# The batched-2D plan on one card: "pallas" against torch.fft.rfft2, a
+# chunked stack bit for bit the whole one (every kernel computes each row
+# and column alone), and the executable.
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 48), (3, 16, 2048), (2, 2048, 16),
+                                   (5, 1024, 1024), (2, 4096, 4096),
+                                   (3, 13, 31)])
+def test_batched_plan_on_the_card(cuda, shape):
+    B, nx, ny = shape
+    x = _randn(shape, 31, cuda)
+    whole = dft.Batched2DFFTPlan(*shape, dft.SlabPartition(1),
+                                 dft.Config(fft_backend="pallas"))
+    one = dft.Batched2DFFTPlan(*shape, dft.SlabPartition(1),
+                               dft.Config(fft_backend="pallas"),
+                               batch_chunk=1)
+    hf.reset_launches()
+    c = whole.exec_forward(x)
+    back = whole.exec_inverse(c)
+    torch.cuda.synchronize()
+    assert sum(hf.LAUNCHES.values()) > 0 and hf.DISPATCHES["matmul"] == 0
+    assert c.shape == (B, nx, ny // 2 + 1) and c.dtype == torch.complex64
+    assert _rel(c, torch.fft.rfft2(x)) <= 5e-4
+    assert _rel(back / (nx * ny), x) <= 5e-4
+    assert torch.equal(one.exec_forward(x), c)
+    assert torch.equal(one.exec_inverse(c), back)
+
+
+@pytest.mark.parametrize("transform", ["r2c", "c2c"])
+def test_batched_c2c_and_xla_on_the_card(cuda, transform):
+    shape = (4, 512, 96)
+    x = _randn(shape, 32, cuda) if transform == "r2c" else \
+        _crandn(shape, 32, cuda)
+    ref = torch.fft.rfft2(x) if transform == "r2c" else torch.fft.fft2(x)
+    for be in ("pallas", "xla"):
+        plan = dft.Batched2DFFTPlan(*shape, dft.SlabPartition(1),
+                                    dft.Config(fft_backend=be),
+                                    transform=transform, batch_chunk=2)
+        c = plan.exec_forward(x)
+        assert _rel(c, ref) <= 5e-4
+        assert _rel(plan.exec_inverse(c) / (512 * 96), x) <= 5e-4
+
+
+def test_batched_executable_on_the_card(cuda, tmp_path, capsys):
+    from distributedfft_tpu_torch.cli import batched
+    hf.reset_launches()
+    rc = batched.main(["-nx", "256", "-ny", "512", "-nz", "6", "-t", "3",
+                       "--batch-chunk", "2", "--fft-backend", "pallas",
+                       "-b", str(tmp_path)])
+    assert rc == 0
+    # 3 chunks, a staged and a fused roundtrip: y on kernel 1 and 3, x on
+    # kernel 2's column body.
+    assert hf.LAUNCHES["rmatmul"] == hf.LAUNCHES["c2r"] == 6
+    assert hf.LAUNCHES["cmatmul"] == 12
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("Result (max): "))
+    assert float(line.split()[-1]) / (256 * 512) <= 5e-4
+    (csv,) = tmp_path.rglob("*.csv")
+    assert csv.parent.name == "batched2d_batch_ck2"
+    assert csv.name == "test_0_0_0_6_256_512_1_1.csv"
+
+
+# The Bluestein backend on the card: torch.fft's chirp-z, no kernel.
+
+
+@pytest.mark.parametrize("n", [127, 1031, 4093])
+@pytest.mark.parametrize("fn", ["fft", "ifft", "rfft", "irfft"])
+def test_bluestein_on_the_card(cuda, fn, n):
+    from distributedfft_tpu_torch.ops import fft as lf
+    hf.reset_launches()
+    if fn == "irfft":
+        x = _crandn((4, n // 2 + 1), 33, cuda)
+        got = lf.irfft(x, n=n, axis=-1, backend="bluestein")
+        ref = torch.fft.irfft(x.to(torch.complex128), n=n, norm="forward")
+    else:
+        x = _crandn((4, n), 33, cuda) if fn != "rfft" else \
+            _randn((4, n), 33, cuda)
+        got = getattr(lf, fn)(x, axis=-1, backend="bluestein")
+        ref = getattr(torch.fft, fn)(
+            x.to(torch.complex128 if fn != "rfft" else torch.float64),
+            norm="forward" if fn == "ifft" else "backward")
+    assert _rel(got, ref) <= 5e-4
+    assert not any(hf.LAUNCHES.values())
+    if fn != "irfft":
+        got64 = getattr(lf, fn)(x.to(torch.float64 if fn == "rfft" else
+                                     torch.complex128), axis=-1,
+                                backend="bluestein")
+        assert _rel(got64, ref) <= 1e-10
+
+
+def test_bluestein_smooth_plan_is_xla_on_the_card(cuda):
+    x = _randn((64, 48, 30), 34, cuda)
+    g = dft.GlobalSize(64, 48, 30)
+    bp = dft.SlabFFTPlan(g, dft.SlabPartition(1),
+                         dft.Config(fft_backend="bluestein"))
+    xp = dft.SlabFFTPlan(g, dft.SlabPartition(1), dft.Config())
+    c = bp.exec_r2c(x)
+    assert torch.equal(c, xp.exec_r2c(x))
+    assert torch.equal(bp.exec_c2r(c), xp.exec_c2r(c))

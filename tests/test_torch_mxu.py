@@ -430,8 +430,9 @@ def test_backend_dispatch_matches_xla():
     a = tlf.rfft(_t(x), axis=-1, backend="matmul")
     b = tlf.rfft(_t(x), axis=-1, backend="xla")
     assert _rel(a.numpy(), b.numpy()) < 1e-11
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tlf.rfft(_t(x), axis=-1, backend="bluestein")
+    # "bluestein", which raised until it was ported: a smooth axis is the
+    # "xla" call, bit for bit.
+    assert torch.equal(tlf.rfft(_t(x), axis=-1, backend="bluestein"), b)
 
 
 def test_rfftn3d_matches_reference():

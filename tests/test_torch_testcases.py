@@ -490,11 +490,14 @@ def test_random_inputs_match_jax(monkeypatch):
 
 
 def test_other_plan_kinds_name_their_items():
-    """The batched-2D plan still raises naming its item; the pencil plan
-    (item 5) is made."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ttc.make_plan("batched2d", tdfft.GlobalSize(8, 8, 8),
-                      tdfft.SlabPartition(1), tdfft.Config(), device="cpu")
+    """The batched-2D plan (item 6), which raised until it was ported, and
+    the pencil plan (item 5) are made; the batched plan reads the size's
+    slots as (batch, nx, ny) and splits x, as the JAX package's does."""
+    plan = ttc.make_plan("batched2d", tdfft.GlobalSize(8, 6, 4),
+                         tdfft.SlabPartition(1), tdfft.Config(), device="cpu")
+    assert isinstance(plan, tdfft.Batched2DFFTPlan) and plan.fft3d
+    assert (plan.batch, plan.nx, plan.ny, plan.shard) == (8, 6, 4, "x")
+    assert plan.global_size.shape == (8, 6, 4)
     plan = ttc.make_plan("pencil", tdfft.GlobalSize(8, 8, 8),
                          tdfft.PencilPartition(1, 1), tdfft.Config(),
                          device="cpu")
