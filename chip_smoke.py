@@ -107,7 +107,25 @@ once, before any rank is spawned) and then, under
    (both axes prime) at ``batch_chunk=8`` against float64
    ``torch.fft.rfft2``, beside "xla", float64 on one chunk, the whole
    stack where its estimated peak fits; the 521^3 slab plan on one rank;
-   the smooth 512^3 plan bit-equal to "xla".
+   the smooth 512^3 plan bit-equal to "xla";
+10. runs the resilience layer: the guards on the 512^3 and 1024^3
+   single-card plans (off, check, enforce: bit-equal outputs, the same
+   launches and entry points, no violation; ms per direction beside the
+   guard's bound; peak memory within 1% of off), and beside PR 13's
+   unguarded times; in the two-rank 512^3 world, each wire fault (NaN,
+   a bit flip aimed at a value it makes visible, 0.5x) under enforce on
+   both exchanges (one verdict on both ranks), check counting, a bf16
+   wire over its budget demoted to native, the fused-wire ring (kernels
+   9-11) under NaN, a failing ring walking the ladder to the all-to-all's
+   bits, a failing launch's ``KernelError`` never demoted, the
+   collectives beside the exchange (none on the default plan; the
+   ladder's agreement on a ring, timed); enforce under NaN on the
+   pencil's four ranks and the batched plan's two;
+11. runs ``--selftest`` through the slab executable at 1024^3 and 128^3
+   (the host reference only at 128^3) and, on two ranks under
+   ``wire:nan``, exits 1 with ``selftest: FAIL``, a valid event log
+   carrying the fault and the violation (``--obs --obs-dir``) and, under
+   ``--guards enforce``, a flight-recorder dump.
 
 Phases print JSON lines. Before the last line come one
 ``{"matmul_backend": ...}`` line (the matmul backend is no kernel), one
@@ -117,11 +135,12 @@ Phases print JSON lines. Before the last line come one
 the script exits non-zero with no result line; so does a machine without a
 CUDA device, or a directory without the port. On the way out it stops
 every process it started (the ranks, multiprocessing's resource tracker)
-and any descendant they left behind. Takes about 400 s on an
+and any descendant they left behind. Takes about 480 s on an
 H100, the kernels' build (25-55 s), the matmul backend's phase (about
 10 s), the executables' phase (about 60 s, most of it the host's random
 draws), the pencil's (about 170 s, most of it gloo's host-staged
-exchanges) and the batched and Bluestein phases included.
+exchanges), the batched and Bluestein phases and the resilience phases
+included.
 """
 
 from __future__ import annotations
@@ -524,6 +543,10 @@ def rank_main(rank: int, addr: str, outdir: str) -> None:
                                   RING_PAIRS)
     out["exchange_renderings"] = rendering_paths(
         rank, x, xl, c, back, wall_ms, EXCHANGE_PATHS, EXCHANGE_PAIRS)
+    t0 = time.perf_counter()
+    out["resilience"] = resilience_ranks(torch, dist, dft, hf, rank, xl, c,
+                                         wall_ms)
+    out["resilience_seconds"] = time.perf_counter() - t0
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -1134,6 +1157,12 @@ def pencil_rank_main(rank: int, addr: str, outdir: str) -> None:
     t0 = time.perf_counter()
     out["cli"] = pencil_cli(torch, dist, dft, hf, rank, outdir)
     out["cli_seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    out["guard"] = guard_case(
+        torch, lambda: dft.PencilFFTPlan(
+            dft.GlobalSize(N, N, N), dft.PencilPartition(*PENCIL_GRID),
+            dft.Config(fft_backend="pallas", guards="enforce")),
+        "exec_r2c", SEED + 7, f"pencil rank {rank}")
     with open(os.path.join(outdir, f"pencil_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -1604,6 +1633,11 @@ def batched_rank_main(rank: int, addr: str, outdir: str) -> None:
         out[name] = fn(torch, dist, dft, hf, rank, outdir)
         out[f"{name}_seconds"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
+    out["guard"] = guard_case(
+        torch, lambda: dft.Batched2DFFTPlan(
+            *BATCHED_RENDER, dft.SlabPartition(RANKS),
+            dft.Config(fft_backend="pallas", guards="enforce"), shard="x"),
+        "exec_forward", SEED + 8, f"batched rank {rank}")
     with open(os.path.join(outdir, f"batched_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -2919,10 +2953,418 @@ def cli_rank_main(rank: int, addr: str, outdir: str) -> None:
             out[f"reference_t1_o{o}"] = dict(
                 argv=argv, seconds=secs, printed=line,
                 mb_per_s=printed(text, "Bandwidth: "))
+    t0 = time.perf_counter()
+    out["selftest"] = selftest_ranks(torch, dist, rank, outdir)
+    out["selftest_seconds"] = time.perf_counter() - t0
     with open(os.path.join(outdir, f"cli_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
     multihost.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The resilience layer: the guards on the single-card main paths, faults
+# injected across ranks, the executables' --selftest
+# ---------------------------------------------------------------------------
+
+GUARD_MODES = ("off", "check", "enforce")
+GUARD_PATHS = {"fused_512": (N,) * 3, "per_axis_1024": (NBIG,) * 3}
+# PR 13's "pallas" times of the unguarded plans, forward / inverse ms
+# (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5), and
+# the run-to-run spread the plans' times stay within.
+PR13_MS = {"fused_512": (1.76, 1.75), "per_axis_1024": (12.73, 12.30)}
+PR13_SPREAD = 0.10
+PEAK_SHARE = 0.01     # guards on: peak device memory within 1% of off
+# The wire faults of the two-rank phase. A top-exponent bit flip blows a
+# value below 2 up to ~1e38 (the guard sees it) but shrinks a larger one
+# to ~1e-38: at 512^3 the payload's values are ~512, so flipping one
+# removes ~1e-11 of the energy, far under the tolerance, in the JAX
+# package as here. The bit flip is aimed (``@seed=``) at the first payload
+# element that is below 2 on both ranks.
+RESILIENCE_FAULTS = ("wire:nan", "wire:bitflip", "wire:scale:0.5")
+FLIP_VISIBLE = (1e-3, 2.0)
+SELFTEST_N = (NBIG, 128)   # the host reference runs at 128^3 only
+SELFTEST_RANKS_N = 256
+
+
+def guard_bound_ms(shape):
+    """(forward, inverse) least time of the guard's own reads at the HBM
+    rate: the forward's Parseval check reads the input (4 bytes a point)
+    and the spectrum (8 bytes a bin); the inverse's finiteness check reads
+    the real output."""
+    X, Y, Z = shape
+    n, bins = X * Y * Z, X * Y * (Z // 2 + 1)
+    return (1e3 * (4 * n + 8 * bins) / HBM_BYTES, 1e3 * 4 * n / HBM_BYTES)
+
+
+def faulted_verdict(torch, spec, fn):
+    """Run fn with ``$DFFT_FAULT_SPEC`` set to spec (None: unset), the
+    metrics counted from zero: {"violation": the GuardViolation's check,
+    value, tolerance and fingerprint, or None; "counters": the counters
+    that moved}."""
+    from distributedfft_tpu_torch import obs
+    from distributedfft_tpu_torch.resilience import GuardViolation, inject
+    obs.reset()
+    if spec:
+        os.environ[inject.ENV_VAR] = spec
+    try:
+        try:
+            fn()
+            v = None
+        except GuardViolation as e:
+            v = dict(check=e.check, value=e.value, tolerance=e.tolerance,
+                     fingerprint=e.fingerprint)
+    finally:
+        os.environ.pop(inject.ENV_VAR, None)
+    torch.cuda.synchronize()
+    return {"violation": v, "counters": obs.metrics.snapshot()["counters"]}
+
+
+def same_violation(rows, what: str) -> dict:
+    """Every rank's row raised, with one check and one fingerprint: the
+    shared verdict."""
+    vs = [r["violation"] for r in rows]
+    if any(v is None for v in vs) or \
+            len({(v["check"], json.dumps(v["fingerprint"], sort_keys=True))
+                 for v in vs}) != 1:
+        fail(f"{what}: the ranks did not all raise one GuardViolation: {vs}")
+    return vs[0]
+
+
+def guards_main(torch, dft, hf, gen, plan_times):
+    """The single-card slab plan under "pallas" at 512^3 (fused kernels
+    6-8) and 1024^3 (per-axis kernels 1-3) with guards off, check and
+    enforce: the outputs bit for bit off's, the same launches and entry
+    points, no violation; ms per direction of each mode and the guard's
+    extra ms against its bound; the peak device memory of a roundtrip in
+    each mode over what was allocated before it (within ``PEAK_SHARE`` of
+    off's); the unguarded plans' times beside PR 13's."""
+    from distributedfft_tpu_torch import obs
+    rows = {}
+    for pid, shape in GUARD_PATHS.items():
+        reps, warm = (REPS, WARMUP) if shape[0] == N else (REPS_BIG, 1)
+        x = torch.randn(shape, generator=gen, device="cuda")
+        bounds = guard_bound_ms(shape)
+        ref, modes = None, {}
+        for mode in GUARD_MODES:
+            plan = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                                   dft.Config(fft_backend="pallas",
+                                              guards=mode))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            obs.reset()
+            got = run_counted(torch, hf, plan, x)
+            peak = torch.cuda.max_memory_allocated() - base
+            c, back = got[:2]
+            row = dict(launches_forward=got[2], launches_inverse=got[3],
+                       entries_forward=got[4], entries_inverse=got[5],
+                       violations=obs.metrics.snapshot()["counters"],
+                       peak_gb=peak / 1e9,
+                       forward_ms=median_ms(torch, lambda: plan.exec_r2c(x),
+                                            reps, warm),
+                       inverse_ms=median_ms(torch, lambda: plan.exec_c2r(c),
+                                            reps, warm))
+            if ref is None:
+                ref = got
+            else:
+                row["bit_equal_to_off"] = bool(torch.equal(c, ref[0])
+                                              and torch.equal(back, ref[1]))
+                if not row["bit_equal_to_off"] or got[2:] != ref[2:]:
+                    fail(f"{pid} guards {mode}: not off's bits or launches: "
+                         f"{row}")
+                off = modes["off"]
+                row["peak_over_off"] = peak / (off["peak_gb"] * 1e9) - 1
+                for d, b in zip(("forward", "inverse"), bounds):
+                    row[f"guard_{d}_ms"] = row[f"{d}_ms"] - off[f"{d}_ms"]
+                    row[f"guard_{d}_bound_ms"] = b
+                if row["peak_over_off"] > PEAK_SHARE:
+                    fail(f"{pid} guards {mode}: peak memory {peak} bytes, "
+                         f"{row['peak_over_off']:.2%} over off's")
+            if any(k.startswith("guard.") for k in row["violations"]):
+                fail(f"{pid} guards {mode}: a clean run violated: {row}")
+            modes[mode] = row
+            if mode != "off":
+                del c, back
+            del got, plan
+        del ref, x
+        torch.cuda.empty_cache()
+        unguarded = plan_times[pid]
+        rows[pid] = dict(
+            shape=list(shape), modes=modes,
+            unguarded_forward_ms=unguarded["pallas_forward_ms"],
+            unguarded_inverse_ms=unguarded["pallas_inverse_ms"],
+            pr13_ms=list(PR13_MS[pid]),
+            within_pr13_spread=all(
+                abs(unguarded[f"pallas_{d}_ms"] / w - 1) <= PR13_SPREAD
+                for d, w in zip(("forward", "inverse"), PR13_MS[pid])))
+        emit(phase="guards_main", path=pid, **rows[pid])
+    return rows
+
+
+def resilience_ranks(torch, dist, dft, hf, rank, xl, a2a_fwd, wall_ms):
+    """One rank's resilience cases on the 512^3 slab plan over two gloo
+    ranks sharing the card ("pallas"): enforce under each wire fault and
+    both exchanges; check counting; a bf16 wire over its error budget
+    demoted to native (the next call bit for bit the all-to-all's); the
+    fused-wire ring (kernels 9-11) under NaN, both directions; a ring that
+    fails walking send -> opt to the all-to-all's bits; a kernel launch
+    that fails never demoted; the default plan posting no collective but
+    its exchange; the cost of the ladder's agreement collective on a ring
+    plan."""
+    from distributedfft_tpu_torch import obs
+    from distributedfft_tpu_torch.models import slab as slab_mod
+    from distributedfft_tpu_torch.ops import _build
+    from distributedfft_tpu_torch.parallel import transpose as tr
+    from distributedfft_tpu_torch.resilience import fallback
+    g, part = dft.GlobalSize(N, N, N), dft.SlabPartition(RANKS)
+
+    def plan(seq="ZY_Then_X", **fields):
+        for k, enum in (("comm_method", dft.CommMethod),
+                        ("send_method", dft.SendMethod)):
+            if k in fields:
+                fields[k] = enum.parse(fields[k])
+        return dft.SlabFFTPlan(g, part, dft.Config(fft_backend="pallas",
+                                                   **fields), sequence=seq)
+
+    def counters():
+        return obs.metrics.snapshot()["counters"]
+
+    # The first element of the exchange payload (this rank's block after
+    # the z and y transforms, as it goes on the wire) in FLIP_VISIBLE on
+    # every rank.
+    pay = plan()._fwd_parts()[0](xl).real.abs().reshape(-1)[:1 << 20]
+    lo, hi = FLIP_VISIBLE
+    visible = ((pay >= lo) & (pay < hi)).to(torch.int32)
+    dist.all_reduce(visible, op=dist.ReduceOp.MIN)
+    flip_seed = int(torch.nonzero(visible)[0])
+    del pay, visible
+    out = {"bitflip_seed": flip_seed}
+    for comm in ("All2All", "Peer2Peer"):
+        for spec in RESILIENCE_FAULTS:
+            if spec == "wire:bitflip":
+                spec += f"@seed={flip_seed}"
+            p = plan(comm_method=comm, guards="enforce")
+            row = faulted_verdict(torch, spec, lambda: p.exec_r2c(xl))
+            if row["violation"] is None:
+                fail(f"rank {rank}: {comm} under {spec} did not raise")
+            out[f"enforce_{comm}_{spec}"] = row
+    p = plan(guards="check")
+    row = faulted_verdict(torch, "wire:nan", lambda: p.exec_r2c(xl))
+    if row["violation"] is not None or \
+            row["counters"].get("guard.parseval_violations") != 1:
+        fail(f"rank {rank}: check mode under wire:nan: {row}")
+    out["check_wire:nan"] = row
+    p = plan(wire_dtype="bf16", wire_error_budget=1e-9, guards="check")
+    row = faulted_verdict(torch, None, lambda: p.exec_r2c(xl))
+    row.update(wire_after=p.config.wire_dtype,
+               next_call_equals_native=bool(torch.equal(p.exec_r2c(xl),
+                                                        a2a_fwd)))
+    if row["wire_after"] != "native" or not row["next_call_equals_native"] \
+            or row["counters"].get("fallback.wire_demotions") != 1:
+        fail(f"rank {rank}: the bf16 wire over its budget: {row}")
+    out["wire_budget_demotion"] = row
+    p = plan("Z_Then_YX", send_method="RingOverlap", wire_dtype="bf16",
+             fused_wire=True, guards="enforce")
+    c = p.exec_r2c(xl)
+    hf.reset_launches()
+    row = {"forward": faulted_verdict(torch, "wire:nan",
+                                      lambda: p.exec_r2c(xl)),
+           "inverse": faulted_verdict(torch, "wire:nan",
+                                      lambda: p.exec_c2r(c)),
+           "launches": counted(hf)}
+    if row["forward"]["violation"] is None or \
+            row["inverse"]["violation"] is None or \
+            not all(row["launches"][k] for k in ("enc_pack", "dec_unpack",
+                                                 "dec_cmatmul")):
+        fail(f"rank {rank}: the fused-wire ring under wire:nan: {row}")
+    out["ring_fused_wire_nan"] = row
+    del c
+    real_ring, real_a2a = slab_mod.ring_transpose, tr.all_to_all_transpose
+
+    def ring_fails(*a, **k):
+        raise RuntimeError("patched ring failure")
+
+    def opt1_fails(x, group, split, concat, *, realigned=False,
+                   wire="native"):
+        if realigned:
+            raise RuntimeError("patched realigned all-to-all failure")
+        return real_a2a(x, group, split, concat, wire=wire)
+
+    slab_mod.ring_transpose, tr.all_to_all_transpose = ring_fails, opt1_fails
+    try:
+        p = plan(send_method="Ring")
+        obs.reset()
+        y = p.exec_r2c(xl)
+    finally:
+        slab_mod.ring_transpose, tr.all_to_all_transpose = real_ring, real_a2a
+    row = dict(counters=counters(), send=p.config.send_method.value,
+               opt=p.config.opt, equals_a2a=bool(torch.equal(y, a2a_fwd)))
+    if (row["counters"].get("fallback.send_demotions"),
+            row["counters"].get("fallback.opt_demotions"),
+            row["counters"].get("fallback.demotions"),
+            row["send"], row["opt"], row["equals_a2a"]) != \
+            (1, 1, 2, "Sync", 0, True):
+        fail(f"rank {rank}: the ring's ladder: {row}")
+    out["ladder"] = row
+    del y
+    real_launch = hf._launch
+
+    def launch_fails(kernel, fn, *args):
+        raise _build.KernelError(f"{fn}: CUDA error 700 (patched launch)")
+
+    hf._launch = launch_fails
+    try:
+        p = plan(send_method="Ring")
+        obs.reset()
+        try:
+            p.exec_r2c(xl)
+            err = None
+        except _build.KernelError as e:
+            err = str(e)
+    finally:
+        hf._launch = real_launch
+    row = dict(raised=err, counters=counters(),
+               send=p.config.send_method.value)
+    if err is None or row["counters"].get("fallback.demotions", 0) or \
+            row["send"] != "Ring":
+        fail(f"rank {rank}: a failing launch on a ring plan: {row}")
+    out["kernel_error"] = row
+    # Collectives posted beside the exchange: none on the default plan; on
+    # a ring plan (rungs left) the agreement's one-element all-reduce.
+    calls, real_reduce = [], dist.all_reduce
+
+    def reduce_counted(*a, **k):
+        calls.append(1)
+        return real_reduce(*a, **k)
+
+    ring = plan(send_method="Ring")
+    dist.all_reduce = reduce_counted
+    try:
+        plan().exec_r2c(xl)
+        default_calls = len(calls)
+        ring.exec_r2c(xl)
+        ring_calls = len(calls) - default_calls
+    finally:
+        dist.all_reduce = real_reduce
+    if default_calls or ring_calls != 1:
+        fail(f"rank {rank}: collectives beside the exchange: default "
+             f"{default_calls}, ring {ring_calls}")
+    agree = []
+    for _ in range(20):
+        dist.barrier()
+        t0 = time.perf_counter()
+        fallback._any_rank_failed(ring, False)
+        agree.append(1e3 * (time.perf_counter() - t0))
+    ring_on = wall_ms(lambda: ring.exec_r2c(xl))
+    os.environ["DFFT_FALLBACK"] = "off"
+    try:
+        ring_off = wall_ms(lambda: ring.exec_r2c(xl))
+    finally:
+        os.environ.pop("DFFT_FALLBACK")
+    out["collectives"] = dict(
+        default_plan_all_reduces=default_calls,
+        ring_plan_all_reduces=ring_calls,
+        agreement_ms=statistics.median(agree),
+        ring_forward_ms_ladder_on=ring_on, ring_forward_ms_ladder_off=ring_off)
+    return out
+
+
+def guard_case(torch, make_plan, fwd_name, gen_seed, what):
+    """One enforce run under ``wire:nan`` of a distributed plan of the
+    pencil or batched phase: this rank's verdict (it must raise)."""
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    plan = make_plan()
+    x = torch.randn(plan.local_input_shape, generator=gen, device="cuda")
+    row = faulted_verdict(torch, "wire:nan",
+                          lambda: getattr(plan, fwd_name)(x))
+    if row["violation"] is None:
+        fail(f"{what}: enforce under wire:nan did not raise")
+    return row
+
+
+def selftest_lines(text: str) -> list:
+    return [ln for ln in text.splitlines() if ln.startswith("selftest: ")]
+
+
+def selftest_single_card(torch, dft, hf):
+    """``dfft-torch-slab ... --fft-backend pallas -t 3 --selftest`` in this
+    process at 1024^3 (no host reference: the cube exceeds
+    ``DEFAULT_REF_MAX``) and at 128^3 (with it): PASS, then the testcase."""
+    from distributedfft_tpu_torch.cli import slab as cli_slab
+    rows = {}
+    for n in SELFTEST_N:
+        bdir = tempfile.mkdtemp(prefix="chip_smoke_selftest_")
+        argv = ["-nx", str(n), "-ny", str(n), "-nz", str(n), "--fft-backend",
+                "pallas", "-t", "3", "--selftest", "-b", bdir]
+        text, got, ent, secs = cli_run(torch, hf, cli_slab.main, argv)
+        lines = selftest_lines(text)
+        with_ref = n ** 3 <= (1 << 21)
+        if len(lines) != 1 or not lines[0].startswith("selftest: PASS") or \
+                ("reference" in lines[0]) != with_ref:
+            fail(f"slab {argv}: selftest line {lines}")
+        rows[f"selftest_{n}"] = dict(argv=argv, seconds=secs, launches=got,
+                                     selftest=lines[0],
+                                     result_max=printed(text,
+                                                        "Result (max): "))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def selftest_ranks(torch, dist, rank: int, outdir: str) -> dict:
+    """Two ranks of the slab executable under ``wire:nan``: with
+    ``--selftest --guards check --obs --obs-dir`` both exit 1 printing
+    ``selftest: FAIL`` and each event log (valid) carries the injected
+    fault and the violation; with ``--guards enforce -t 3 --obs-dir`` each
+    rank raises and leaves a valid flight-recorder dump."""
+    import io
+    from distributedfft_tpu_torch import obs
+    from distributedfft_tpu_torch.cli import slab as cli_slab
+    from distributedfft_tpu_torch.resilience import GuardViolation, inject
+    n = SELFTEST_RANKS_N
+    size = ["-nx", str(n), "-ny", str(n), "-nz", str(n), "-p", str(RANKS),
+            "--fft-backend", "pallas"]
+    logs = os.path.join(outdir, "selftest_obs")
+    dumps = os.path.join(outdir, "selftest_dumps")
+    out = {}
+    os.environ[inject.ENV_VAR] = "wire:nan"
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli_slab.main(size + ["-t", "3", "--selftest", "--guards",
+                                       "check", "--obs", "--obs-dir", logs,
+                                       "-b", os.path.join(outdir, "st_b")])
+        obs.reset_enablement()
+        obs.disable_console()
+        dist.barrier()
+        obs.flightrec.clear()
+        try:
+            cli_slab.main(size + ["-t", "3", "--guards", "enforce",
+                                  "--obs-dir", dumps, "-b",
+                                  os.path.join(outdir, "st_b2")])
+            raised = None
+        except GuardViolation as e:
+            raised = e.check
+    finally:
+        os.environ.pop(inject.ENV_VAR, None)
+        obs.reset_enablement()
+        obs.disable_console()
+    text = buf.getvalue()
+    log = os.path.join(logs, f"events-{os.getpid()}.jsonl")
+    with open(log) as f:
+        names = sorted({json.loads(ln)["name"] for ln in f if ln.strip()})
+    dump = obs.flightrec.last_dump()
+    out = dict(rc=rc, selftest=selftest_lines(text), raised=raised,
+               events=obs.validate_events_file(log), event_names=names,
+               dump=dump, dump_records=(obs.flightrec.validate_dump_file(
+                   dump["path"]) if dump else None))
+    if rc != 1 or not any(ln.startswith("selftest: FAIL")
+                          for ln in out["selftest"]) or raised is None or \
+            not {"inject.wire_fault", "guard.violation"} <= set(names) or \
+            dump is None or dump["trigger"] != "guard_violation":
+        fail(f"rank {rank}: the executable's selftest under wire:nan: {out}")
+    return out
 
 
 def main() -> int:
@@ -3214,6 +3656,11 @@ def main() -> int:
         launches[pid], plan_times[pid] = per_axis_path(torch, dft, hf, gen,
                                                        pid, *spec)
 
+    # -- 7a. the guards on the single-card main paths ------------------------
+    t0 = time.perf_counter()
+    guards_main(torch, dft, hf, gen, plan_times)
+    emit(phase="guards_done", seconds=time.perf_counter() - t0)
+
     # -- 7b. the matmul backend: float64 "pallas", "matmul", a long prime ----
     t0 = time.perf_counter()
     from distributedfft_tpu_torch.ops import mxu_fft as mx
@@ -3272,6 +3719,18 @@ def main() -> int:
                               wire_bytes_per_rank=row["wire_bytes_per_rank"])
         emit(phase="exchange", rank=rk["rank"],
              transport=rk["ring"]["transport"], renderings=table)
+    # The resilience cases of the two ranks: one verdict on both.
+    res = [rk["resilience"] for rk in ranks]
+    verdicts = {key: same_violation([r[key] for r in res], key)
+                for key in res[0] if key.startswith("enforce_")}
+    if len({r["bitflip_seed"] for r in res}) != 1:
+        fail(f"the ranks aimed the bit flip apart: {res}")
+    for d in ("forward", "inverse"):
+        verdicts[f"ring_fused_wire_nan_{d}"] = same_violation(
+            [r["ring_fused_wire_nan"][d] for r in res], f"fused ring {d}")
+    emit(phase="resilience_ranks", ranks=RANKS, shape=[N] * 3,
+         exchange="gloo, host-staged, 2 ranks on 1 card", verdicts=verdicts,
+         seconds=[rk["resilience_seconds"] for rk in ranks], per_rank=res)
 
     # -- 8b. the executables: slab and reference, on one card and two ranks -
     t0 = time.perf_counter()
@@ -3289,8 +3748,18 @@ def main() -> int:
     for name, v in cli_ranks[0]["launches"].items():
         launches[f"{name}_rank0"] = v
     emit(phase="cli_ranks", ranks=RANKS,
-         exchange="gloo, host-staged, 2 ranks on 1 card", per_rank=cli_ranks)
+         exchange="gloo, host-staged, 2 ranks on 1 card",
+         per_rank=[{k: v for k, v in rk.items() if k != "selftest"}
+                   for rk in cli_ranks])
     emit(phase="cli_done", seconds=time.perf_counter() - t0)
+
+    # -- 8b'. the executables' --selftest: one card, then two ranks ----------
+    t0 = time.perf_counter()
+    emit(phase="selftest_cli", single_card=selftest_single_card(torch, dft,
+                                                                  hf),
+         ranks=[rk["selftest"] for rk in cli_ranks],
+         seconds=time.perf_counter() - t0
+         + sum(rk["selftest_seconds"] for rk in cli_ranks) / RANKS)
 
     # -- 8c. the pencil plan: 1 x 1 per axis, then 2 x 2 as four ranks -------
     t0 = time.perf_counter()
@@ -3320,6 +3789,10 @@ def main() -> int:
          per_rank={rk["rank"]: rk["renderings"] for rk in pen_ranks},
          seconds=p0["renderings_seconds"])
     emit(phase="pencil_cli", rank0=p0["cli"], seconds=p0["cli_seconds"])
+    emit(phase="resilience_pencil", grid=list(PENCIL_GRID), shape=[N] * 3,
+         verdict=same_violation([rk["guard"] for rk in pen_ranks],
+                                "pencil enforce under wire:nan"),
+         per_rank=[rk["guard"] for rk in pen_ranks])
     emit(phase="pencil_done", seconds=time.perf_counter() - t0)
 
     # -- 8d. the batched-2D plan: one card, the executable, two ranks --------
@@ -3353,7 +3826,11 @@ def main() -> int:
     for rk in b_ranks:
         emit(phase="batched_ranks", rank=rk["rank"],
              exchange="gloo, host-staged, 2 ranks on 1 card",
-             **{k: rk[k] for k in rk if k != "rank"})
+             **{k: rk[k] for k in rk if k not in ("rank", "guard")})
+    emit(phase="resilience_batched", shard="x", shape=list(BATCHED_RENDER),
+         verdict=same_violation([rk["guard"] for rk in b_ranks],
+                                "batched enforce under wire:nan"),
+         per_rank=[rk["guard"] for rk in b_ranks])
     emit(phase="batched_done", seconds=time.perf_counter() - t0)
 
     # -- 8e. the Bluestein backend (no kernel: torch.fft's chirp-z) ----------

@@ -11,32 +11,35 @@ process spawns (``torch.multiprocessing``), each running the executable's
 body; rank 0 prints. A process that is already one rank of an N-rank world
 runs the body itself.
 
-A flag whose feature the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP Queue 1 item whenever it is
-given a value other than its default (``refuse_later_items``); none is
-ignored.
+``--guards`` sets ``Config.guards``; ``--selftest`` runs one roundtrip
+of the plan before the testcase and exits 1 on FAIL; ``--obs`` prints
+notices and a metrics snapshot, ``--obs-dir`` writes the event log. A flag
+whose feature the port does not have yet raises ``NotImplementedError``
+naming its ROADMAP Queue 1 item whenever it is given a value other than
+its default (``refuse_later_items``); none is ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib
+import json
 import os
 import sys
 from typing import List, Optional
 
 import torch
 
+from .. import obs
 from .. import params as pm
 from ..ops.fft import BACKENDS
 from ..parallel import multihost
 
 # The ROADMAP Queue 1 items whose flags still raise (items keep their
-# numbers once done: 1-8 run).
+# numbers once done: 1-9 run, and item 12's host core: --obs, --obs-dir).
 LATER_ITEMS = {
-    9: "ROADMAP Queue 1, item 9 (resilience: guards and selftest)",
     11: "ROADMAP Queue 1, item 11 (autotune and wisdom)",
-    12: "ROADMAP Queue 1, item 12 (observability)",
+    12: "ROADMAP Queue 1, item 12 (observability: the device profiles)",
 }
 
 # Seconds a collective of an emulated (spawned, CPU) world waits before it
@@ -93,9 +96,12 @@ def add_common_args(ap: argparse.ArgumentParser, pencil: bool = False,
     ap.add_argument("--profile-stages", action="store_true",
                     help="stage-attributed device profile (not ported yet)")
     ap.add_argument("--obs", action="store_true",
-                    help="observability console (not ported yet)")
+                    help="print notices (guard violations, demotions) "
+                         "and a metrics snapshot after the run")
     ap.add_argument("--obs-dir", default=None, metavar="DIR",
-                    help="structured event log directory (not ported yet)")
+                    help="write the structured JSONL event log (and "
+                         "flight-recorder dumps) under DIR "
+                         "($DFFT_OBS_DIR)")
     ap.add_argument("--multihost", action="store_true",
                     help="require a torch.distributed world (torchrun, or "
                          "DFFT_COORDINATOR / DFFT_NUM_PROCESSES / "
@@ -145,10 +151,12 @@ def add_common_args(ap: argparse.ArgumentParser, pencil: bool = False,
                     help="max rel error the 'auto' wire race accepts")
     ap.add_argument("--guards", default=None,
                     choices=("off", "check", "enforce"),
-                    help="in-graph numerical guards (not ported yet)")
+                    help="numerical guards after every execution: Parseval "
+                         "and wire drift; 'check' counts violations, "
+                         "'enforce' raises (default $DFFT_GUARDS or off)")
     ap.add_argument("--selftest", action="store_true",
-                    help="guarded roundtrip before the timed loop (not "
-                         "ported yet)")
+                    help="one roundtrip of the plan before the timed loop; "
+                         "exit 1 on FAIL")
     ap.add_argument("--tc1-truth", choices=("host", "analytic"),
                     default="host",
                     help="testcase-1 ground truth: 'host' = dense random "
@@ -171,10 +179,6 @@ def refuse_later_items(args) -> None:
             ("-comm auto", 11, pm.AUTO in comms),
             ("--fft-backend auto", 11, args.fft_backend == pm.AUTO),
             ("-wire auto", 11, args.wire_dtype == pm.AUTO),
-            ("--guards", 9, args.guards not in (None, "off")),
-            ("--selftest", 9, args.selftest),
-            ("--obs", 12, args.obs),
-            ("--obs-dir", 12, args.obs_dir is not None),
             ("--profile-dir", 12, args.profile_dir is not None),
             ("--profile-stages", 12, args.profile_stages)):
         if on:
@@ -182,11 +186,40 @@ def refuse_later_items(args) -> None:
                 f"{flag} is not ported yet ({LATER_ITEMS[item]})")
 
 
+def setup_obs(args) -> None:
+    """Apply the observability flags (--obs / --obs-dir) before any plan is
+    constructed, so the first build's spans are captured."""
+    if getattr(args, "obs_dir", None):
+        obs.enable(args.obs_dir)
+    if getattr(args, "obs", False):
+        obs.enable_console()
+
+
+def print_obs_snapshot(args) -> None:
+    """The --obs epilogue: one compact JSON line of the metrics registry
+    (rank 0's)."""
+    if getattr(args, "obs", False) and multihost.world()[0] == 0:
+        print("obs metrics: " + json.dumps(obs.metrics.snapshot(),
+                                           sort_keys=True), flush=True)
+
+
+def maybe_selftest(plan, args, dims: Optional[int] = None) -> bool:
+    """--selftest: one roundtrip of the exact plan before the timed loop
+    (``resilience/selftest.py``); False — abort with exit code 1 — on
+    FAIL."""
+    if not getattr(args, "selftest", False):
+        return True
+    from ..resilience.selftest import run_selftest
+    return bool(run_selftest(plan, dims=dims)["ok"])
+
+
 def setup_backend(args) -> torch.device:
     """The device the executable runs on, after joining a world: the CPU
     under ``--emulate-devices`` (the caller is one emulated rank, or the
     only one), else the CUDA device, with ``maybe_initialize()`` joining a
-    configured world and each rank on its own card."""
+    configured world and each rank on its own card. The observability
+    flags apply first."""
+    setup_obs(args)
     if args.emulate_devices:
         _, n = multihost.world()
         if n not in (1, args.emulate_devices):
@@ -230,6 +263,10 @@ def run_testcase(plan, args, dims: Optional[int] = None) -> int:
     if fn is None:
         print(f"unknown testcase {args.testcase}", file=sys.stderr)
         return 2
+    if not maybe_selftest(plan, args, dims=dims):
+        print("selftest FAILED; aborting before the timed loop",
+              file=sys.stderr)
+        return 1
     kwargs = {}
     if args.testcase in (0, 2, 3, 4):
         kwargs.update(iterations=args.iterations, warmup=args.warmup_rounds)
@@ -241,6 +278,7 @@ def run_testcase(plan, args, dims: Optional[int] = None) -> int:
     if "mean_ms" in result:
         tc.say(f"Run complete: {result['mean_ms']:.4f} ms "
                f"(mean over {args.iterations} iterations)")
+    print_obs_snapshot(args)
     return 0
 
 

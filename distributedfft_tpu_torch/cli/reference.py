@@ -63,6 +63,19 @@ def _body(args) -> int:
     shape = (args.input_dim_x, args.input_dim_y, args.input_dim_z)
     dtype = np.float64 if args.double_prec else np.float32
     it, wu = args.iterations, args.warmup_rounds
+    if args.selftest:
+        # The reference executable has no distributed plan; its selftest
+        # is the single-device roundtrip at this shape.
+        from .. import params as pm
+        from ..models.slab import SlabFFTPlan
+        from ..resilience.selftest import run_selftest
+        plan = SlabFFTPlan(pm.GlobalSize(*shape), pm.SlabPartition(1),
+                           pm.Config(double_prec=args.double_prec,
+                                     fft_backend=args.fft_backend,
+                                     guards=args.guards), device=device)
+        if not run_selftest(plan)["ok"]:
+            print("selftest FAILED; aborting", file=sys.stderr)
+            return 1
     if args.testcase == 0:
         ms = mb.single_device_fft_ms(shape, it, wu, dtype,
                                      backend=args.fft_backend, device=device)

@@ -9,9 +9,11 @@ transform per direction through ``ops/fft.py``, or per-axis transforms
 over leading-axis chunks under ``Config.fft3d_chunk``. The distributed
 pipelines live in the subclasses.
 
-A plan's pipelines run as built. The JAX package wraps them in a fallback
-ladder that demotes the backend on failure; on the card that would hide a
-failing kernel, so the port raises instead.
+Every execution runs inside the resilience envelope
+(``resilience.fallback.execute``), as in the JAX package: the guards of
+the plan's mode (resolved once here) check each result, and a failing
+rendering walks the fallback ladder one rung at a time. A kernel error is
+never a rung: it propagates.
 """
 
 from __future__ import annotations
@@ -22,11 +24,30 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import obs
 from ..ops import fft as local_fft
 from ..params import Config, GlobalSize, Partition
 from ..parallel.transpose import pad_axis_to
+from ..resilience import fallback, guards
 
 Pipeline = Callable[[torch.Tensor], torch.Tensor]
+
+
+def notice_axis_smoothness(kind: str, axes_lengths, config) -> None:
+    """A one-line notice when an axis length is not 5-smooth under a
+    backend whose fast path needs smooth lengths (the matmul backend's
+    dense products, the kernels' tile bodies), naming the fix
+    (``fft_backend="bluestein"``). "xla" and "bluestein" take every
+    length: no notice there."""
+    from ..ops.bluestein import is_smooth
+    rough = sorted({int(n) for n in axes_lengths if not is_smooth(int(n))})
+    if rough and config.fft_backend in ("matmul", "matmul-r2", "pallas"):
+        obs.notice(
+            f"{kind} plan: non-smooth axis length(s) {rough} fall off the "
+            f"{config.fft_backend} fast path (dense O(n^2) per axis); "
+            "fft_backend='bluestein' keeps them O(n log n)",
+            name="plan.nonsmooth_axes", kind=kind, lengths=rough,
+            backend=config.fft_backend)
 
 
 def resolve_device(device: "str | torch.device") -> torch.device:
@@ -63,6 +84,11 @@ class DistFFTPlan:
         # FFT of the plan runs under this snapshot (None: the process
         # defaults at each call, when the Config sets no mxu_* knob).
         self._mxu_st = self.config.mxu_settings()
+        # The guard mode, resolved once here (field -> $DFFT_GUARDS ->
+        # off), so a mid-run env change cannot split a plan's directions
+        # across modes; _guard_state holds each direction's tolerances.
+        self._guard_mode = guards.resolved_mode(self.config)
+        self._guard_state: dict = {}
         # Single-process path, exactly the reference's fft3d = (pcnt == 1).
         self.fft3d = partition.num_ranks == 1
         # The process group the exchanges run over (None: the world group,
@@ -98,21 +124,44 @@ class DistFFTPlan:
     # -- execution ----------------------------------------------------------
 
     def exec_r2c(self, x: torch.Tensor) -> torch.Tensor:
-        """Forward real-to-complex transform (reference ``execR2C``)."""
-        if self._r2c is None:
-            self._r2c = self._build_r2c()
-        return self._r2c(x)
+        """Forward real-to-complex transform (reference ``execR2C``),
+        inside the resilience envelope (``fallback.execute``)."""
+        return fallback.execute(self, "forward", x, self._get_r2c)
 
     def exec_c2r(self, c: torch.Tensor) -> torch.Tensor:
         """Inverse complex-to-real transform (reference ``execC2R``)."""
+        return fallback.execute(self, "inverse", c, self._get_c2r)
+
+    def _build_attrs(self) -> dict:
+        """The ``plan.build`` span's attributes."""
+        return {}
+
+    def _get_r2c(self) -> Pipeline:
+        if self._r2c is None:
+            with obs.span("plan.build", direction="forward",
+                          **self._build_attrs()):
+                self._r2c, _ = guards.maybe_wrap(self, self._build_r2c(),
+                                                 "forward")
+        return self._r2c
+
+    def _get_c2r(self) -> Pipeline:
         if self._c2r is None:
-            self._c2r = self._build_c2r()
-        return self._c2r(c)
+            with obs.span("plan.build", direction="inverse",
+                          **self._build_attrs()):
+                self._c2r, _ = guards.maybe_wrap(self, self._build_c2r(),
+                                                 "inverse")
+        return self._c2r
 
     def _build_r2c(self) -> Pipeline:
         raise NotImplementedError
 
     def _build_c2r(self) -> Pipeline:
+        raise NotImplementedError
+
+    def _guard_spec(self, direction: str, dims: int = 3
+                    ) -> guards.GuardSpec:
+        """The family's ``guards.GuardSpec`` for one direction (only
+        consulted at modes check/enforce)."""
         raise NotImplementedError
 
     # -- single-device path ------------------------------------------------

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import obs
 from .. import params as pm
 from ..ops import fft as lf
 from ..ops import hopper_fft as hf
@@ -57,7 +58,8 @@ from ..parallel.transpose import (concat_axis_chunks, exchange_body,
                                   pad_axis_to, ring_subblocks, ring_transpose,
                                   slice_axis_to, split_axis_chunks)
 from ..utils.native_planner import padded_extent
-from .base import AxisBlocks, Pipeline, resolve_device
+from ..resilience import fallback, guards
+from .base import AxisBlocks, Pipeline, notice_axis_smoothness, resolve_device
 from .slab import XPOSE_SECTIONS
 
 _BATCH_STAGE = "2D FFT X-Y-Direction"
@@ -88,6 +90,11 @@ class Batched2DFFTPlan(AxisBlocks):
         self.real_dtype, self.complex_dtype = lf.dtypes_for(
             self.config.double_prec)
         self._mxu_st = self.config.mxu_settings()
+        # The guard mode, resolved once (the DistFFTPlan contract: this
+        # plan stands outside that hierarchy but honors the same
+        # guard/fallback envelope).
+        self._guard_mode = guards.resolved_mode(self.config)
+        self._guard_state: dict = {}
         self.batch, self.nx, self.ny = batch, nx, ny
         self.partition = partition
         self.shard = shard
@@ -134,6 +141,14 @@ class Batched2DFFTPlan(AxisBlocks):
             self.rank = dist.get_rank(group)
         self._fwd: Optional[Pipeline] = None
         self._inv: Optional[Pipeline] = None
+        notice_axis_smoothness("batched2d", (nx, ny), self.config)
+        obs.event("plan.created", kind="batched2d", shard=shard,
+                  transform=transform, shape=[batch, nx, ny], ranks=P,
+                  batch_chunk=batch_chunk,
+                  comm=self.config.comm_method.value,
+                  send=self.config.send_method.value, opt=self.config.opt,
+                  wire=self.config.wire_dtype,
+                  backend=self.config.fft_backend)
 
     # -- shapes ---------------------------------------------------------------
 
@@ -237,17 +252,41 @@ class Batched2DFFTPlan(AxisBlocks):
         rank) or of this rank's block."""
         x = self._checked(x, self._input_dtype, self.local_input_shape,
                           "forward")
-        if self._fwd is None:
-            self._fwd = self._build(True)
-        return self._fwd(x)
+        return fallback.execute(self, "forward", x, self._get_fwd, dims=2)
 
     def exec_inverse(self, c) -> torch.Tensor:
         """Batched 2D inverse transform."""
         c = self._checked(c, self.complex_dtype, self.local_output_shape,
                           "inverse")
+        return fallback.execute(self, "inverse", c, self._get_inv, dims=2)
+
+    def _get_fwd(self) -> Pipeline:
+        if self._fwd is None:
+            self._fwd = self._guarded(True)
+        return self._fwd
+
+    def _get_inv(self) -> Pipeline:
         if self._inv is None:
-            self._inv = self._build(False)
-        return self._inv(c)
+            self._inv = self._guarded(False)
+        return self._inv
+
+    def _guarded(self, forward: bool) -> Pipeline:
+        direction = "forward" if forward else "inverse"
+        with obs.span("plan.build", kind="batched2d", shard=self.shard,
+                      direction=direction):
+            return guards.maybe_wrap(self, self._build(forward), direction,
+                                     dims=2)[0]
+
+    # -- resilience hooks (guards + fallback ladder) ----------------------------
+
+    def _guard_spec(self, direction: str, dims: int = 2) -> guards.GuardSpec:
+        """GuardSpec of the batched-2D pipelines (the JAX plan's): the
+        transform covers (x, y) of every image, so the Parseval volume is
+        ``nx * ny`` and the R2C halved axis is the last."""
+        return guards.transform_spec(
+            direction, self.config.norm, float(self.nx * self.ny),
+            self.transform == "c2c", self.input_shape, self.output_shape, 2,
+            self.ny)
 
     def _checked(self, a, dtype: torch.dtype, local, direction: str
                  ) -> torch.Tensor:

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import obs
 from .. import params as pm
 from ..ops import fft as lf
 from ..ops import hopper_fft as hf
@@ -67,7 +68,8 @@ from ..parallel.transpose import (concat_axis_chunks, exchange_body,
                                   pad_axis_to, ring_transpose, slice_axis_to,
                                   split_axis_chunks)
 from ..utils.native_planner import even_shard_sizes, padded_extent
-from .base import DistFFTPlan, Pipeline
+from ..resilience import fallback, guards
+from .base import DistFFTPlan, Pipeline, notice_axis_smoothness
 
 # (split, concat) of each transpose, forward and inverse: transpose 1
 # scatters z and gathers y; transpose 2 scatters y and gathers x.
@@ -129,6 +131,15 @@ class PencilFFTPlan(DistFFTPlan):
             self._nzc_p2 = padded_extent(self._nz_spec, self.p2)
         self._fwd_d: Dict[int, Pipeline] = {}
         self._inv_d: Dict[int, Pipeline] = {}
+        notice_axis_smoothness("pencil", g.shape, self.config)
+        obs.event("plan.created", kind="pencil", transform=transform,
+                  shape=list(g.shape), grid=[self.p1, self.p2],
+                  comm=self.config.comm_method.value,
+                  comm2=self.config.resolved_comm2().value,
+                  send=self.config.send_method.value,
+                  send2=self.config.resolved_snd2().value,
+                  opt=self.config.opt, wire=self.config.wire_dtype,
+                  backend=self.config.fft_backend)
 
     @property
     def groups(self) -> Tuple:
@@ -336,10 +347,10 @@ class PencilFFTPlan(DistFFTPlan):
             want = f"this rank's input block {self.local_input_shape}"
         if not ok:
             raise ValueError(f"forward exec expects {want}, got {shape}")
-        if dims not in self._fwd_d:
-            self._fwd_d[dims] = self._build_fwd(dims)
-        return self._fwd_d[dims](
-            torch.as_tensor(x, dtype=dtype, device=self.device))
+        return fallback.execute(
+            self, "forward", torch.as_tensor(x, dtype=dtype,
+                                             device=self.device),
+            lambda: self._get(True, dims), dims)
 
     def _exec_inv(self, c, dims: int) -> torch.Tensor:
         _check_dims(dims)
@@ -354,10 +365,41 @@ class PencilFFTPlan(DistFFTPlan):
         if not ok:
             raise ValueError(f"inverse exec(dims={dims}) expects {want}, "
                              f"got {shape}")
-        if dims not in self._inv_d:
-            self._inv_d[dims] = self._build_inv(dims)
-        return self._inv_d[dims](
-            torch.as_tensor(c, dtype=self.complex_dtype, device=self.device))
+        return fallback.execute(
+            self, "inverse", torch.as_tensor(c, dtype=self.complex_dtype,
+                                             device=self.device),
+            lambda: self._get(False, dims), dims)
+
+    def _get(self, forward: bool, dims: int) -> Pipeline:
+        """The (possibly guarded) pipeline of one direction at depth
+        ``dims``, built once per config."""
+        cache = self._fwd_d if forward else self._inv_d
+        if dims not in cache:
+            direction = "forward" if forward else "inverse"
+            with obs.span("plan.build", kind="pencil", direction=direction,
+                          dims=dims):
+                pure = (self._build_fwd(dims) if forward
+                        else self._build_inv(dims))
+                cache[dims], _ = guards.maybe_wrap(self, pure, direction,
+                                                   dims)
+        return cache[dims]
+
+    # -- resilience hooks (guards + fallback ladder) ------------------------
+
+    def _transformed_volume(self, dims: int) -> float:
+        """Product of the extents the first ``dims`` axes (z, y, x) cover."""
+        g = self.global_size
+        return float({1: g.nz, 2: g.ny * g.nz, 3: g.n_total}[dims])
+
+    def _guard_spec(self, direction: str, dims: int = 3) -> guards.GuardSpec:
+        """GuardSpec per direction AND depth (the JAX plan's: the
+        partial-depth transforms conserve energy over exactly the
+        transformed axes)."""
+        g = self.global_size
+        return guards.transform_spec(
+            direction, self.config.norm, self._transformed_volume(dims),
+            self.transform == "c2c", self.input_shape,
+            (g.nx, g.ny, self._nz_spec), 2, g.nz)
 
     # -- pipelines ------------------------------------------------------------
 

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import obs
 from .. import params as pm
 from ..ops import fft as lf
 from ..ops import hopper_fft as hf
@@ -76,7 +77,8 @@ from ..parallel.transpose import (concat_axis_chunks, exchange_body,
                                   slice_axis_to, split_axis_chunks,
                                   wire_complex_dtype)
 from ..utils.native_planner import even_shard_sizes, padded_extent
-from .base import AxisBlocks, DistFFTPlan, Pipeline
+from ..resilience.guards import GuardSpec, transform_spec
+from .base import AxisBlocks, DistFFTPlan, Pipeline, notice_axis_smoothness
 
 _ODDITY_ITEM = "ROADMAP Queue 3 (the reference's P=1 Y_Then_ZX oddity)"
 
@@ -153,6 +155,13 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
         self._split_ext = self._spec_shape[s.split_axis]
         self._nx_pad = padded_extent(g.nx, P)
         self._split_pad = padded_extent(self._split_ext, P)
+        notice_axis_smoothness("slab", g.shape, self.config)
+        obs.event("plan.created", kind="slab", sequence=sequence.value,
+                  transform=transform, shape=list(g.shape), ranks=P,
+                  comm=self.config.comm_method.value,
+                  send=self.config.send_method.value, opt=self.config.opt,
+                  wire=self.config.wire_dtype,
+                  backend=self.config.fft_backend)
 
     # -- shapes & size tables ---------------------------------------------
 
@@ -289,6 +298,19 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
         if not ok:
             raise ValueError(f"inverse exec expects {want}, got {shape}")
         return torch.as_tensor(c, dtype=self.complex_dtype, device=self.device)
+
+    # -- resilience hooks (guards + fallback ladder) -------------------------
+
+    def _guard_spec(self, direction: str, dims: int = 3) -> GuardSpec:
+        """GuardSpec of the slab pipelines (the JAX plan's): the sequence's
+        R2C axis is the halved one."""
+        g, ax = self.global_size, self._seq.r2c_axis
+        return transform_spec(direction, self.config.norm, float(g.n_total),
+                              self.transform == "c2c", self.input_shape,
+                              self._spec_shape, ax, g.shape[ax])
+
+    def _build_attrs(self) -> dict:
+        return {"kind": "slab", "sequence": self.sequence.value}
 
     # -- pipelines ----------------------------------------------------------
 

@@ -9,9 +9,15 @@ into its own shared library with a plain C interface, and loaded with
   (``csrc/*.cuh``) and the flags: a changed source builds anew, an
   unchanged one is reused.
 * ``build()`` starts one ``nvcc`` per missing library, all at once.
-* A missing ``nvcc`` or a failed build raises. There is no fallback.
+* A missing ``nvcc`` or a failed build raises ``KernelError``. There is
+  no fallback.
 * Every C entry point returns ``cudaGetLastError()`` after its launch;
-  ``check`` raises when that is not ``cudaSuccess``.
+  ``check`` raises ``KernelError`` when that is not ``cudaSuccess``.
+
+``KernelError`` is what the fallback ladder (``resilience/fallback.py``)
+never steps around: a kernel that does not build or launch is a fault to
+report, and a failed launch may leave the CUDA context unusable for any
+other rendering.
 """
 
 from __future__ import annotations
@@ -34,6 +40,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built or its launch failed."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -41,7 +51,7 @@ def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
         return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found (not on PATH, no CUDA_HOME): the "
+    raise KernelError("nvcc not found (not on PATH, no CUDA_HOME): the "
                        "port's CUDA kernels cannot be built")
 
 
@@ -87,7 +97,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
             else:
                 os.replace(tmp, out)
         if failed:
-            raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+            raise KernelError("CUDA kernel build failed: " + "\n".join(failed))
         return secs
 
 
@@ -117,4 +127,4 @@ def check(lib: ctypes.CDLL, fn: str, rc: int) -> None:
     """Raise if a launch returned a CUDA error."""
     if rc != 0:
         msg = lib.dfft_error_string(rc).decode()
-        raise RuntimeError(f"{fn}: CUDA error {rc} ({msg})")
+        raise KernelError(f"{fn}: CUDA error {rc} ({msg})")

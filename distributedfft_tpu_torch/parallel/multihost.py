@@ -10,7 +10,9 @@ rank in a ``torch.distributed`` world:
   ``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE``; a launcher of its own sets
   ``DFFT_COORDINATOR`` (``host:port`` of rank 0), ``DFFT_NUM_PROCESSES``
   and ``DFFT_PROCESS_ID``. The ``backend`` argument picks the backend
-  (default: NCCL when the process sees a CUDA device, else gloo).
+  (default: NCCL when the process sees a CUDA device, else gloo). The
+  connect runs under a bounded exponential backoff with jitter
+  (``_connect_with_backoff``), as in the JAX package.
 * ``process_local_slices`` / ``plan_local_input`` / ``plan_local_spectral``
   give each rank its block of a plan's padded global array, the block a
   distributed plan's ``exec_*`` take and return (each reference rank
@@ -22,13 +24,17 @@ from __future__ import annotations
 
 import datetime
 import os
+import random
 import socket
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import obs
+from ..resilience import inject
 from . import mesh
 
 _INITIALIZED = False
@@ -45,6 +51,43 @@ def local_coordinator() -> str:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def _connect_with_backoff(connect, what: str):
+    """Bounded exponential backoff with jitter around the coordinator
+    connect: joining fails outright when the coordinator is not yet
+    listening, routine when ranks start seconds apart. Up to
+    ``$DFFT_COORD_RETRIES`` attempts (default 5), delays
+    ``$DFFT_COORD_BACKOFF_S`` * 2^attempt (default 0.5 s base) capped at
+    ``$DFFT_COORD_BACKOFF_CAP_S`` (default 30 s), each with +-25% jitter.
+    The final failure propagates (``coordinator:down`` in
+    ``$DFFT_FAULT_SPEC`` simulates exactly this). Only connection-shaped
+    failures retry (``ConnectionError``, ``OSError``, ``TimeoutError``,
+    and ``RuntimeError``, which torch's rendezvous errors derive from);
+    configuration errors (``ValueError``, ``TypeError``) propagate at
+    once. Retries count into ``multihost.connect_retries``."""
+    attempts = max(1, int(os.environ.get("DFFT_COORD_RETRIES", "5")))
+    base = float(os.environ.get("DFFT_COORD_BACKOFF_S", "0.5"))
+    cap = float(os.environ.get("DFFT_COORD_BACKOFF_CAP_S", "30"))
+    last = None
+    for attempt in range(attempts):
+        try:
+            inject.maybe_fail_coordinator(attempt)
+            return connect()
+        except (ConnectionError, OSError, TimeoutError, RuntimeError) as e:
+            last = e
+            if attempt == attempts - 1:
+                break
+            delay = min(cap, base * (2 ** attempt))
+            delay *= 0.75 + 0.5 * random.random()  # +-25% jitter
+            obs.metrics.inc("multihost.connect_retries")
+            obs.notice(
+                f"multihost: {what} failed ({type(e).__name__}: {e}); "
+                f"retry {attempt + 2}/{attempts} in {delay:.2f}s",
+                name="multihost.connect_retry", attempt=attempt + 1,
+                attempts=attempts, delay_s=round(delay, 3))
+            time.sleep(delay)
+    raise last
 
 
 def maybe_initialize(coordinator_address: Optional[str] = None,
@@ -84,12 +127,17 @@ def maybe_initialize(coordinator_address: Optional[str] = None,
             raise ValueError(
                 f"{ENV_COORD} needs the world size and this process's rank "
                 f"({ENV_NPROCS}, {ENV_PROCID})")
-        dist.init_process_group(backend,
-                                init_method=f"tcp://{coordinator_address}",
-                                world_size=num_processes, rank=process_id,
-                                **kw)
+        init = f"tcp://{coordinator_address}"
+        _connect_with_backoff(
+            lambda: dist.init_process_group(
+                backend, init_method=init, world_size=num_processes,
+                rank=process_id, **kw),
+            f"joining the world at {coordinator_address}")
     else:
-        dist.init_process_group(backend, init_method="env://", **kw)
+        _connect_with_backoff(
+            lambda: dist.init_process_group(backend, init_method="env://",
+                                            **kw),
+            "joining the torchrun world")
     _INITIALIZED = True
     return dist.get_rank(), dist.get_world_size()
 

@@ -25,7 +25,15 @@ payload as a planar (real, imag) bfloat16 pair, half the bytes of
 complex64.
 
 Data travels as bytes (``.view(torch.uint8)`` of a contiguous buffer), so
-neither backend sees a complex or bfloat16 type it may lack. Gloo's
+neither backend sees a complex or bfloat16 type it may lack.
+
+Each exchange counts into ``obs.metrics`` (``wire.exchanges_traced`` and
+the ``wire.bytes_per_transpose`` gauge, at every executed call where the
+JAX package counts once per trace) and runs inside an ``exchange.*`` span.
+The fault injector's ``inject.taint_wire`` sits at the wire_encode /
+wire_decode boundary of every rendering, on the payload exactly as it
+travels (identity, the same tensor, without ``$DFFT_FAULT_SPEC``); over
+gloo it runs on the device tensor before it is staged to the host. Gloo's
 point-to-point does not take CUDA tensors (it aborts on a device pointer,
 seen on an H100), so a ring over gloo stages each CUDA block through
 pinned host memory; NCCL sends device memory as it is.
@@ -39,6 +47,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .. import obs
+from ..resilience import inject
 
 # Wire encodings of an exchange payload (the JAX package's wire layer).
 WIRE_NATIVE = "native"
@@ -68,7 +79,8 @@ def wire_encode(x: torch.Tensor, wire: str = WIRE_BF16) -> torch.Tensor:
     Non-complex input and ``wire="native"`` pass through."""
     if not _wire_active(x, wire):
         return x
-    return torch.stack([x.real, x.imag]).to(torch.bfloat16)
+    with obs.span("exchange.encode", wire=wire):
+        return torch.stack([x.real, x.imag]).to(torch.bfloat16)
 
 
 def wire_decode(y: torch.Tensor, dtype: torch.dtype,
@@ -78,9 +90,10 @@ def wire_decode(y: torch.Tensor, dtype: torch.dtype,
     validate_wire(wire)
     if wire == WIRE_NATIVE:
         return y
-    f = torch.float64 if dtype == torch.complex128 else torch.float32
-    z = y.to(f)
-    return torch.complex(z[0], z[1])
+    with obs.span("exchange.decode", wire=wire):
+        f = torch.float64 if dtype == torch.complex128 else torch.float32
+        z = y.to(f)
+        return torch.complex(z[0], z[1])
 
 
 def wire_complex_dtype(double_prec: bool) -> torch.dtype:
@@ -101,6 +114,14 @@ def wire_itemsize(dtype, wire: str = WIRE_NATIVE) -> int:
 def wire_nbytes(shape: Sequence[int], dtype, wire: str = WIRE_NATIVE) -> int:
     """Wire bytes of a whole exchange payload of ``shape`` / ``dtype``."""
     return math.prod(int(s) for s in shape) * wire_itemsize(dtype, wire)
+
+
+def _count_exchange(x: torch.Tensor, wire: str) -> None:
+    """One exchange run: its count and its payload's wire bytes (this
+    rank's block)."""
+    obs.metrics.inc("wire.exchanges_traced")
+    obs.metrics.gauge("wire.bytes_per_transpose",
+                      wire_nbytes(x.shape, x.dtype, wire))
 
 
 def _np_dtype(dtype):
@@ -198,11 +219,16 @@ def all_to_all_transpose(x: torch.Tensor, group, split_axis: int,
     gathers itself. ``all_to_all_single`` takes only dim-0 pieces, so the
     port renders opt 0 with that same pack and unpack: both options run
     one code path here and give the same bits."""
-    if _wire_active(x, wire):
-        y = _all_to_all_native(wire_encode(x, wire), group, split_axis % x.ndim
-                               + 1, concat_axis % x.ndim + 1)
-        return wire_decode(y, x.dtype, wire)
-    return _all_to_all_native(x, group, split_axis, concat_axis)
+    _count_exchange(x, wire)
+    with obs.span("exchange.all_to_all", realigned=bool(realigned),
+                  wire=wire):
+        if _wire_active(x, wire):
+            y = inject.taint_wire(wire_encode(x, wire), "all_to_all")
+            y = _all_to_all_native(y, group, split_axis % x.ndim + 1,
+                                   concat_axis % x.ndim + 1)
+            return wire_decode(y, x.dtype, wire)
+        return _all_to_all_native(inject.taint_wire(x, "all_to_all"), group,
+                                  split_axis, concat_axis)
 
 
 def _a2a_pack(x: torch.Tensor, p: int, s: int) -> torch.Tensor:
@@ -269,6 +295,7 @@ def pipelined_all_to_all(x: torch.Tensor, group, split_axis: int,
     def issue(piece: torch.Tensor):
         if wired:
             piece = wire_encode(piece, wire)
+        piece = inject.taint_wire(piece, "a2a_pipe")
         send = _a2a_pack(piece, p, s + shift)
         if p == 1:  # a one-rank group: nothing to post
             return None, send, send
@@ -284,16 +311,19 @@ def pipelined_all_to_all(x: torch.Tensor, group, split_axis: int,
         y = _a2a_unpack(recv, p, c + shift)
         return wire_decode(y, x.dtype, wire) if wired else y
 
-    pieces = split_axis_chunks(x, k_ax, chunks)
-    k = len(pieces)
-    w = min(depth - 1, k - 1)
-    queue = [issue(pieces[i]) for i in range(w)]
-    out = []
-    for i in range(k):
-        if i + w < k:
-            queue.append(issue(pieces[i + w]))
-        out.append(land(queue.pop(0)))
-    return concat_axis_chunks(out, k_ax)
+    _count_exchange(x, wire)
+    with obs.span("exchange.a2a_pipe", chunks=int(chunks), depth=int(depth),
+                  realigned=bool(realigned), wire=wire):
+        pieces = split_axis_chunks(x, k_ax, chunks)
+        k = len(pieces)
+        w = min(depth - 1, k - 1)
+        queue = [issue(pieces[i]) for i in range(w)]
+        out = []
+        for i in range(k):
+            if i + w < k:
+                queue.append(issue(pieces[i + w]))
+            out.append(land(queue.pop(0)))
+        return concat_axis_chunks(out, k_ax)
 
 
 def peer_to_peer_transpose(x: torch.Tensor, group, split_axis: int,
@@ -316,21 +346,24 @@ def peer_to_peer_transpose(x: torch.Tensor, group, split_axis: int,
         raise ValueError(f"split extent {x.shape[s]} not divisible by the "
                          f"{p} ranks (plans pad before the exchange)")
     ch = x.shape[s] // p
-    if wired:   # the planar pair: the split and concat axes shift by one
-        x, s, c = wire_encode(x, wire), s + 1, c + 1
-    net = _Transport(group, x.device)
-    pending = []
-    for t in range(1, p):
-        dst, src = (r + t) % p, (r - t) % p
-        send = x.narrow(s, dst * ch, ch).contiguous()
-        recv = torch.empty_like(send)
-        pending.append((src, net.post(send, recv, dst, src, t), recv))
-    blocks = [x.narrow(s, r * ch, ch)] * p
-    for src, handle, recv in pending:
-        net.wait(handle)
-        blocks[src] = recv
-    out = torch.cat(blocks, dim=c)
-    return wire_decode(out, dtype, wire) if wired else out
+    _count_exchange(x, wire)
+    with obs.span("exchange.peer_to_peer", wire=wire):
+        if wired:   # the planar pair: the split and concat axes shift by one
+            x, s, c = wire_encode(x, wire), s + 1, c + 1
+        x = inject.taint_wire(x, "peer_to_peer")
+        net = _Transport(group, x.device)
+        pending = []
+        for t in range(1, p):
+            dst, src = (r + t) % p, (r - t) % p
+            send = x.narrow(s, dst * ch, ch).contiguous()
+            recv = torch.empty_like(send)
+            pending.append((src, net.post(send, recv, dst, src, t), recv))
+        blocks = [x.narrow(s, r * ch, ch)] * p
+        for src, handle, recv in pending:
+            net.wait(handle)
+            blocks[src] = recv
+        out = torch.cat(blocks, dim=c)
+        return wire_decode(out, dtype, wire) if wired else out
 
 
 def exchange_body(group, split_axis: int, concat_axis: int, *,
@@ -487,6 +520,21 @@ def ring_transpose(x: torch.Tensor, group, split_axis: int, concat_axis: int,
       arriving ones (the fused wire).
 
     The split extent must be divisible by the group size (plans pad)."""
+    _count_exchange(x, wire)
+    with obs.span("exchange.ring", wire=wire, overlap=bool(overlap),
+                  depth=int(depth), subblocks=int(subblocks)):
+        return _ring_transpose_impl(
+            x, group, split_axis, concat_axis, pipeline_fn=pipeline_fn,
+            wire=wire, overlap=overlap, depth=depth, subblocks=subblocks,
+            encode_fn=encode_fn, arrive_fn=arrive_fn)
+
+
+def _ring_transpose_impl(x: torch.Tensor, group, split_axis: int,
+                         concat_axis: int, *, pipeline_fn: Optional[Block],
+                         wire: str, overlap: bool, depth: int, subblocks: int,
+                         encode_fn: Optional[Block],
+                         arrive_fn: Optional[Block]) -> torch.Tensor:
+    """``ring_transpose`` proper (split out so the span wraps one call)."""
     if depth < 1:
         raise ValueError(f"overlap depth must be >= 1, got {depth}")
     if overlap and depth < 2:
@@ -522,9 +570,11 @@ def ring_transpose(x: torch.Tensor, group, split_axis: int, concat_axis: int,
         return b
 
     def encoded(b: torch.Tensor) -> torch.Tensor:
+        """A travelling block as it goes on the wire: encoded (the fused
+        wire's kernel 9 where ``encode_fn`` is given), then tainted."""
         if wired:
             b = encode_fn(b) if encode_fn is not None else wire_encode(b, wire)
-        return b.contiguous()
+        return inject.taint_wire(b, "ring").contiguous()
 
     # Revolving receive buffers, each the size of the largest sub-block.
     w = min(depth - 1, micro) if overlap else 0

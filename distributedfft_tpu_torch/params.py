@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 from typing import Any, List, Mapping, Optional, Tuple
 
 from .utils import native_planner
@@ -255,9 +256,11 @@ class Config:
     ``fft_backend="xla"`` runs ``torch.fft`` (cuFFT on the card),
     ``"matmul"`` / ``"matmul-r2"`` the matmul backend of ``ops/mxu_fft.py``
     (its knobs: the ``mxu_*`` fields) and ``"pallas"`` the hand-written
-    Hopper kernels of ``ops/hopper_fft.py``; ``"bluestein"``, the
-    ``"auto"`` markers and the fields of later ROADMAP items (guards,
-    wisdom) are accepted and validated but not ported yet."""
+    Hopper kernels of ``ops/hopper_fft.py`` and ``"bluestein"`` the
+    chirp-z transform of ``ops/bluestein.py``. ``guards`` selects the
+    numerical guards of ``resilience/guards.py`` (``resolved_guards``).
+    The ``"auto"`` markers and the wisdom fields are accepted and validated
+    but not ported yet (ROADMAP Queue 1, item 11)."""
 
     comm_method: CommMethod = CommMethod.ALL2ALL
     send_method: SendMethod = SendMethod.SYNC
@@ -413,6 +416,16 @@ class Config:
         ``DEFAULT_WIRE_ERROR_BUDGET``)."""
         return (self.wire_error_budget if self.wire_error_budget is not None
                 else DEFAULT_WIRE_ERROR_BUDGET)
+
+    def resolved_guards(self) -> str:
+        """Guard mode: the explicit ``guards`` field, else ``$DFFT_GUARDS``,
+        else "off". Read once at plan construction (resilience/guards.py),
+        so a mid-run env change cannot split a plan's directions across
+        modes."""
+        if self.guards is not None:
+            return self.guards
+        env = os.environ.get("DFFT_GUARDS", "").strip()
+        return parse_guards(env) if env else "off"
 
 
 # Enum-typed Config fields and their enum classes.

@@ -173,8 +173,10 @@ def _stages(plan, forward: bool, dims: int = 3):
     return plan.forward_stages() if forward else plan.inverse_stages()
 
 
-def _whole_fns(plan, dims: int = 3):
-    """(forward, inverse) of the plan's own ``exec_*``."""
+def _fused_fns(plan, dims: int = 3):
+    """(forward, inverse) of the plan's own ``exec_*`` (the whole
+    transform in one call, inside the resilience envelope): the path
+    users run, and the selftest's roundtrip."""
     if isinstance(plan, PencilFFTPlan):
         return plan._whole(True, dims), plan._whole(False, dims)
     return plan._whole(True), plan._whole(False)
@@ -220,7 +222,7 @@ def testcase0(plan, iterations: int = 1, warmup: int = 0, seed: int = 0,
     """Forward perf (reference testcase 0)."""
     x = plan.pad_input(random_real_input(plan, seed))
     timer = make_timer(plan, write_csv)
-    fwd, _ = _whole_fns(plan, dims)
+    fwd, _ = _fused_fns(plan, dims)
     _, times, fused = _run_staged(plan, _stages(plan, True, dims), timer, x,
                                   warmup, iterations, fused_fn=fwd)
     return _perf(times, fused)
@@ -259,7 +261,7 @@ def testcase2(plan, iterations: int = 1, warmup: int = 0, seed: int = 0,
     """Inverse perf on random spectral input (testcase 2)."""
     c = random_spectral_input(plan, seed, dims)
     timer = make_timer(plan, write_csv)
-    _, inv = _whole_fns(plan, dims)
+    _, inv = _fused_fns(plan, dims)
     _, times, fused = _run_staged(plan, _stages(plan, False, dims), timer, c,
                                   warmup, iterations, fused_fn=inv)
     return _perf(times, fused)
@@ -272,7 +274,7 @@ def _roundtrip_loop(plan, timer: Timer, x, rfn, warmup: int, iterations: int,
     iteration against the input, printed after the last."""
     g = plan.global_size
     fwd, inv = _stages(plan, True, dims), _stages(plan, False, dims)
-    ffwd, finv = _whole_fns(plan, dims)
+    ffwd, finv = _fused_fns(plan, dims)
     scale = scale or (lambda c: c)
     avg = mx = 0.0
     fused_times = []

@@ -61,10 +61,6 @@ LATER = [
     ("slab", ["-comm", "auto"], "item 11"),
     ("slab", ["--fft-backend", "auto"], "item 11"),
     ("slab", ["-wire", "auto"], "item 11"),
-    ("slab", ["--guards", "check"], "item 9"),
-    ("slab", ["--selftest"], "item 9"),
-    ("slab", ["--obs"], "item 12"),
-    ("slab", ["--obs-dir", "obs"], "item 12"),
     ("slab", ["--profile-dir", "prof"], "item 12"),
     ("slab", ["--profile-stages"], "item 12"),
     ("reference", ["--autotune"], "item 11"),
@@ -72,8 +68,9 @@ LATER = [
     ("reference", ["--wisdom", "w.json"], "item 11"),
     ("reference", ["--profile-stages"], "item 12"),
 ]
-# Flags of ROADMAP items 2, 3, 7 and 8, which raised until those items were
-# ported: (executable, flags). Each now runs, on one rank.
+# Flags of ROADMAP items 2, 3, 7, 8, 9 and 12's host core, which raised
+# until those items were ported: (executable, flags). Each now runs, on one
+# rank.
 FORMER = [
     ("slab", ["-o", "1"]),
     ("slab", ["-snd", "Streams"]),
@@ -84,6 +81,10 @@ FORMER = [
     ("slab", ["--fft-backend", "matmul"]),
     ("slab", ["--fft-backend", "bluestein"]),
     ("reference", ["-d", "--fft-backend", "pallas"]),
+    ("slab", ["--guards", "check"]),
+    ("slab", ["--guards", "enforce"]),
+    ("slab", ["--selftest"]),
+    ("slab", ["--obs"]),
 ]
 
 
@@ -214,6 +215,47 @@ def test_former_later_item_flags_run(devices, tmp_path, exe, flags):
     mine = _csvs(tmp_path / "port")
     assert len(mine) == 1
     assert mine == _jax_slab(argv + ["-p", "1"], tmp_path / "jax")
+
+
+def test_reference_selftest_gates_its_testcase(monkeypatch):
+    """The reference executable's ``--selftest``: the single-device
+    roundtrip at its shape (with the host reference), PASS, then its
+    testcase; exit 1 on FAIL, as the JAX executable."""
+    rc, text = _run(tref.main, SIZE + ["--selftest", "--emulate-devices",
+                                       "1"])
+    assert rc == 0
+    lines = text.splitlines()
+    assert lines[0].startswith("selftest: PASS") and "reference" in lines[0]
+    assert lines[1].startswith("Run complete: ")
+    from distributedfft_tpu_torch.models import slab as slab_mod
+    real = slab_mod.SlabFFTPlan._fft3d_r2c
+    monkeypatch.setattr(slab_mod.SlabFFTPlan, "_fft3d_r2c",
+                        lambda self: (lambda x: 2 * real(self)(x)))
+    rc, text = _run(tref.main, SIZE + ["--selftest", "--emulate-devices",
+                                       "1"])
+    assert rc == 1 and text.startswith("selftest: FAIL")
+
+
+def test_obs_dir_writes_the_event_log(tmp_path):
+    """``--obs-dir``: the event log of the run, accepted by the port's and
+    the JAX package's validators, with the plan's build spans in it."""
+    import json
+    from distributedfft_tpu.obs import tracing as jtracing
+    from distributedfft_tpu_torch import obs
+    d = tmp_path / "obs"
+    try:
+        rc, _ = _run(tslab.main, SIZE + ["--obs-dir", str(d), "-b",
+                                         str(tmp_path / "b"),
+                                         "--emulate-devices", "1"])
+    finally:
+        obs.reset_enablement()
+    assert rc == 0
+    logs = sorted(d.glob("events-*.jsonl"))
+    assert len(logs) == 1
+    n = obs.validate_events_file(str(logs[0]))
+    assert n > 0 and jtracing.validate_events_file(str(logs[0])) == n
+    names = {json.loads(ln)["name"] for ln in logs[0].read_text().splitlines()}
+    assert {"plan.created", "plan.build"} <= names
 
 
 def test_multihost_needs_a_world():

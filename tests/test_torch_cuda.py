@@ -918,3 +918,71 @@ def test_bluestein_smooth_plan_is_xla_on_the_card(cuda):
     c = bp.exec_r2c(x)
     assert torch.equal(c, xp.exec_r2c(x))
     assert torch.equal(bp.exec_c2r(c), xp.exec_c2r(c))
+
+
+# -- the resilience layer on the card ----------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(6, 12, 15), (16, 10, 12), (64, 32, 1024),
+                                   (8, 512, 512)])
+@pytest.mark.parametrize("mode", ["check", "enforce"])
+def test_guarded_plan_is_the_plan_on_the_card(cuda, shape, mode):
+    """Guards on: the unguarded plan's bits and launches, no violation; the
+    guard's energies on the card within 1e-6 of the CPU's."""
+    from distributedfft_tpu_torch import obs
+    from distributedfft_tpu_torch.resilience import guards
+    x = _randn(shape, 90, cuda)
+    g = dft.GlobalSize(*shape)
+    off = dft.SlabFFTPlan(g, dft.SlabPartition(1),
+                          dft.Config(fft_backend="pallas"))
+    on = dft.SlabFFTPlan(g, dft.SlabPartition(1),
+                         dft.Config(fft_backend="pallas", guards=mode))
+    hf.reset_launches()
+    want = off.exec_r2c(x)
+    back_want = off.exec_c2r(want)
+    launches = dict(hf.LAUNCHES)
+    obs.reset()
+    hf.reset_launches()
+    got = on.exec_r2c(x)
+    back = on.exec_c2r(got)
+    assert dict(hf.LAUNCHES) == launches
+    assert torch.equal(got, want) and torch.equal(back, back_want)
+    assert obs.metrics.counter_value("guard.parseval_violations") == 0
+    spec = on._guard_spec("forward")
+    reg = guards.region(on, "forward")
+    card = guards.parseval_sums(spec, x, got, reg).tolist()
+    host = guards.parseval_sums(spec, x.cpu(), got.cpu(), reg).tolist()
+    np.testing.assert_allclose(card, host, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("spec", ["wire:nan", "wire:bitflip@seed=11",
+                                  "wire:scale:0.3"])
+def test_taint_on_the_card_is_the_host_taint(cuda, monkeypatch, spec, dtype):
+    """The injector corrupts a device tensor out of place, bit for bit as
+    it corrupts the same tensor on the host."""
+    from distributedfft_tpu_torch.resilience import inject
+    monkeypatch.setenv(inject.ENV_VAR, spec)
+    x = _crandn((4, 6, 10), 91, "cpu").to(dtype) if dtype.is_complex \
+        else _randn((2, 4, 6, 10), 91, "cpu").to(dtype)
+    xd = x.to(cuda)
+    got = inject.taint_wire(xd, "test")
+    assert got.device.type == "cuda"
+    assert torch.equal(xd.cpu(), x)
+    want = inject.taint_wire(x, "test")
+    view = (lambda t: torch.view_as_real(t).view(torch.int32)) \
+        if dtype.is_complex else (lambda t: t.view(
+            torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(view(got.cpu()), view(want))
+
+
+def test_kernel_error_is_raised_by_a_failing_launch(cuda, monkeypatch):
+    """A launch whose entry point returns a CUDA error raises
+    ``KernelError``, which the ladder does not step around."""
+    from distributedfft_tpu_torch.ops import _build
+    assert issubclass(_build.KernelError, RuntimeError)
+    lib = _build.load("stage", {f: sig for f, (name, sig)
+                                in hf._ENTRIES.items() if name == "stage"})
+    with pytest.raises(_build.KernelError, match="CUDA error 1"):
+        _build.check(lib, "dfft_cdft", 1)

@@ -32,6 +32,11 @@ def test_import_pulls_in_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert "distributedfft_tpu_torch.parallel.multihost" in MODULES
+    assert {f"distributedfft_tpu_torch.{m}" for m in (
+        "obs", "obs.flightrec", "obs.metrics", "obs.tracing", "resilience",
+        "resilience.circuit", "resilience.deadline", "resilience.fallback",
+        "resilience.guards", "resilience.inject", "resilience.selftest")
+    } <= set(MODULES)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

@@ -78,10 +78,11 @@ REFS = {f"t{t}-o{o}": _S16 + ["-t", str(t), "-o", str(o), "-i", "2"]
 # Flags of a later ROADMAP item: (flags, the item named).
 LATER = [(["--autotune-comm"], "item 11"), (["--wisdom", "w.json"], "item 11"),
          (["-comm1", "auto"], "item 11"), (["-comm2", "auto"], "item 11"),
-         (["--fft-backend", "auto"], "item 11"), (["--guards", "check"],
-                                                  "item 9"),
-         (["--selftest"], "item 9"), (["--obs"], "item 12"),
+         (["--fft-backend", "auto"], "item 11"),
          (["--profile-dir", "prof"], "item 12")]
+# Flags of ROADMAP item 9 and item 12's host core, which raised until they
+# were ported; each now runs.
+FORMER = [["--guards", "check"], ["--selftest"], ["--obs"]]
 COMMS = [("All2All", None), ("Peer2Peer", None), ("All2All", "Peer2Peer"),
          ("Peer2Peer", "All2All")]
 
@@ -326,6 +327,16 @@ def test_flag_surface_matches_jax():
 def test_later_item_flags_raise_naming_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         tpencil.main(_S16 + GRID + flags + ["--emulate-devices", "1"])
+
+
+@pytest.mark.parametrize("flags", FORMER, ids=["".join(f) for f in FORMER])
+def test_former_later_item_flags_run(tmp_path, flags):
+    rc, text = _run(tpencil.main, _S16 + ["-t", "3", "-p1", "1", "-p2", "1",
+                                          "-b", str(tmp_path)] + flags
+                    + ["--emulate-devices", "1"])
+    assert rc == 0 and _printed(text, "Result (max): ") < 1e-2
+    if "--selftest" in flags:
+        assert "selftest: PASS" in text
 
 
 def test_one_rank_pencil_writes_jax_csv(devices, tmp_path):

@@ -96,7 +96,7 @@ def _global(shape, transform, seed=5):
 def _staged_equal(plan, transform):
     """(forward, inverse) of the staged surface equal to exec_* bit for bit."""
     x = plan.pad_input(_global(plan.input_shape, transform))
-    fwd, inv = ttc._whole_fns(plan)
+    fwd, inv = ttc._fused_fns(plan)
     y = x
     for _, fn in plan.forward_stages():
         y = fn(y)
@@ -141,7 +141,7 @@ def _run_renderings(case):
         cfg = tdfft.Config(comm_method=tdfft.CommMethod.parse(comm),
                            send_method=tdfft.SendMethod.parse(snd), **base)
         plan = _plan(shape, seq, cfg, transform)
-        fwd, inv = ttc._whole_fns(plan)
+        fwd, inv = ttc._fused_fns(plan)
         x = plan.pad_input(_global(shape, transform))
         c = fwd(x)
         outs[rid] = (c, inv(c))
