@@ -50,7 +50,7 @@ once, before any rank is spawned) and then, under
    against ``torch.fft`` and, bit for bit, against the plans it must
    equal;
 5. times each kernel, its plain version and one PyTorch call of the same
-   function, the plans under "pallas" and "xla", and the exchange of each
+   function (kernel 9 also in 50 calls alternated with that call), the plans under "pallas" and "xla", and the exchange of each
    rendering with its wire bytes; one run of each direction of the fused
    and per-axis plans under ``torch.profiler`` names the device time op by
    op and gives the device's idle share. A per-axis plan fails if the ops
@@ -125,7 +125,20 @@ once, before any rank is spawned) and then, under
    (the host reference only at 128^3) and, on two ranks under
    ``wire:nan``, exits 1 with ``selftest: FAIL``, a valid event log
    carrying the fault and the violation (``--obs --obs-dir``) and, under
-   ``--guards enforce``, a flight-recorder dump.
+   ``--guards enforce``, a flight-recorder dump;
+12. runs the solvers (``solvers/``, ``testing/workloads.py``) under
+   "pallas": Poisson at 1024^3 (the manufactured solution, integer mode
+   against "xla", one forward and one inverse of the plan's launches a
+   solve, ``poisson_chain``), Navier-Stokes 3D at 512^3 (Taylor-Green on
+   the fused kernels, against "xla", inviscid energy), the convolution of
+   64 x 4064^2 images with a 33^2 kernel on the 64 x 4096^2 batched plan
+   (against "xla" and direct float64 sums) and at a 5-smooth 4320 extent,
+   ``ns2d_chain`` at 16 x 4096^2, ``dctn`` / ``dstn`` at 512^3; the
+   gradients (Poisson ``solve_fn`` under "xla" at 512^3, NS-2D against
+   central differences, the "pallas" backward raising); and two ranks
+   sharing the card: Poisson at 512^3 against one card, a Dirichlet box
+   extended on the split axis, the guarded bf16-wire solve on a ring
+   (kernels 9-11) and the roundtrip's gradient across the ranks.
 
 Phases print JSON lines. Before the last line come one
 ``{"matmul_backend": ...}`` line (the matmul backend is no kernel), one
@@ -135,12 +148,12 @@ Phases print JSON lines. Before the last line come one
 the script exits non-zero with no result line; so does a machine without a
 CUDA device, or a directory without the port. On the way out it stops
 every process it started (the ranks, multiprocessing's resource tracker)
-and any descendant they left behind. Takes about 480 s on an
+and any descendant they left behind. Takes about 450 s on an
 H100, the kernels' build (25-55 s), the matmul backend's phase (about
 10 s), the executables' phase (about 60 s, most of it the host's random
 draws), the pencil's (about 170 s, most of it gloo's host-staged
-exchanges), the batched and Bluestein phases and the resilience phases
-included.
+exchanges), the batched and Bluestein phases, the resilience phases and
+the solvers' (about 45 s) included.
 """
 
 from __future__ import annotations
@@ -171,6 +184,7 @@ REPS_BIG = 3       # repetitions of a per-axis plan direction (~0.1 s each)
 COPY_LIMIT_MS = 1.0  # the 1024^3 plan's dispatch ops, a direction
 COPY_RATE = 0.55     # share of the HBM rate the dispatch's copies reach
 COPY_MARGIN = 1.2    # on top of the copies' time at COPY_RATE
+ALTERNATED_REPS = 50  # kernel 9 beside its library call, alternated
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate;
 # the tensor cores in float64 and in bfloat16 (dense).
 FP32_FLOPS = 67e12
@@ -226,6 +240,37 @@ def median_ms(torch, fn, reps: int = REPS, warmup: int = WARMUP) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def alternated_ms(torch, fa, fb, reps: int = ALTERNATED_REPS) -> dict:
+    """``reps`` calls of fa and of fb alternated (a, b, a, b, ...), each
+    timed by its own CUDA events after one warm-up call of each: the
+    median and the quartiles of each, and whether a's median exceeds b's
+    by more than the spread (half the sum of the two interquartile
+    ranges)."""
+    fa(), fb()
+    torch.cuda.synchronize()
+    times = {"a": [], "b": []}
+    for _ in range(reps):
+        for key, fn in (("a", fa), ("b", fb)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[key].append(start.elapsed_time(end))
+    out = {"reps": reps}
+    for key in ("a", "b"):
+        q1, med, q3 = np.percentile(times[key], [25, 50, 75])
+        out[key] = {"median_ms": float(med), "q1_ms": float(q1),
+                    "q3_ms": float(q3)}
+    spread = ((out["a"]["q3_ms"] - out["a"]["q1_ms"])
+              + (out["b"]["q3_ms"] - out["b"]["q1_ms"])) / 2
+    out["spread_ms"] = spread
+    out["a_slower_beyond_spread"] = bool(
+        out["a"]["median_ms"] - out["b"]["median_ms"] > spread)
+    return out
 
 
 def fft_flops(rows: int, n: int, real: bool = False) -> float:
@@ -3367,6 +3412,692 @@ def selftest_ranks(torch, dist, rank: int, outdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The solvers (solvers/, testing/workloads.py) on the card
+# ---------------------------------------------------------------------------
+
+POISSON_N = NBIG          # BASELINE config #5's solver at the reference's
+                          # 1024^3 (2048^3: 34.4 GB a float32 field)
+NS3D_N = N                # Taylor-Green, 3 RK4 steps
+NS3D_STEPS = 3
+NS3D_DT = 5e-3
+NS2D = (16, 4096)         # ns2d_chain: BASELINE config #4's images, the
+                          # batch cut from 64 to bound RK4's state
+NS2D_STEPS = 2
+NS2D_DT = 1e-3
+CONV_IMAGES = (64, 4064)  # BASELINE config #4: 64 x 4064^2 images, 33^2
+CONV_KERNEL = 33          # kernel, "same" -> a 64 x 4096^2 plan
+CONV_SMOOTH = (8, 4096, 225)  # images, extent, kernel: 4320 = good_size
+CONV_PIXELS = 16
+DCT_N = N                 # dctn over a 512^3 cube: 1024-point extensions
+GRAD_N = N                # Poisson solve_fn's gradient under "xla"
+NS_GRAD = (2, 64, 4, 1e-2)  # batch, n, steps, dt (float64, "matmul")
+ENERGY_TOL = 1e-5         # inviscid energy drift, float32
+GRAD_TOL = 1e-4
+RANK_POISSON_N = N        # two ranks: the 512^3 solve
+RANK_DIRICHLET_N = 256    # the extended box (interior 128^3)
+RANK_GRAD_N = 128
+WIRE_TOL = 2e-2
+
+
+def peak_gb(torch, base: int) -> float:
+    """Peak device memory since the last reset, over ``base`` bytes."""
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def fresh_peak(torch) -> int:
+    """Free the cache, reset the peak; the bytes allocated now."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def host_ms(torch, fn, reps: int = 3) -> float:
+    """Median host wall ms of fn, each run fenced by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def counted_call(torch, hf, fn):
+    """fn() once with the launches counted from zero: (result, launches,
+    entry points)."""
+    hf.reset_launches()
+    with entry_counts(hf) as ent:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, counted(hf), ent
+
+
+def combine(a: dict, ka: int, b: dict, kb: int) -> dict:
+    """ka a + kb b, key by key."""
+    return {k: ka * a.get(k, 0) + kb * b.get(k, 0) for k in set(a) | set(b)}
+
+
+def plan_directions(torch, hf, plan, x):
+    """One forward and one inverse of ``plan`` counted: (launches forward,
+    inverse, entry points forward, inverse)."""
+    _, _, f, i, ef, ei = run_counted(torch, hf, plan, x)
+    return f, i, ef, ei
+
+
+def solver_poisson(torch, dft, hf, dev):
+    """Poisson at 1024^3 on one card under "pallas": the manufactured
+    solution, integer mode against "xla", one forward and one inverse of
+    the plan's launches per solve, its time beside the plan's directions
+    and the symbol multiply's bound, the chain, the peak."""
+    from distributedfft_tpu_torch.solvers import PoissonSolver
+    from distributedfft_tpu_torch.testing import workloads
+    n = POISSON_N
+    g = dft.GlobalSize(n, n, n)
+    base = fresh_peak(torch)
+    plan = dft.SlabFFTPlan(g, dft.SlabPartition(1),
+                           dft.Config(fft_backend="pallas"))
+    t = torch.arange(n, device=dev, dtype=torch.float32) * (2 * math.pi / n)
+    u = (torch.sin(t)[:, None, None] * torch.sin(2 * t)[None, :, None]
+         * torch.cos(3 * t)[None, None, :])
+    f = -14.0 * u
+    solver = PoissonSolver(plan, mode="physical")
+    got, launches, ents = counted_call(torch, hf, lambda: solver.solve(f))
+    peak = peak_gb(torch, base)
+    lf, li, ef, ei = plan_directions(torch, hf, plan, f)
+    want, want_ents = combine(lf, 1, li, 1), combine(ef, 1, ei, 1)
+    if launches != want or ents != want_ents:
+        fail(f"poisson {n}^3: a solve launched {launches} ({ents}), not one "
+             f"forward and one inverse of the plan: {want} ({want_ents})")
+    _, rel = rel_err(got, u)
+    del got
+    if not rel <= TOL:
+        fail(f"poisson {n}^3 manufactured solution: rel {rel:.3e} > {TOL}")
+    solve_ms = median_ms(torch, lambda: solver.solve(f), reps=REPS_BIG,
+                         warmup=1)
+    fwd_ms = median_ms(torch, lambda: plan.exec_fwd(f), reps=REPS_BIG,
+                       warmup=1)
+    c = plan.exec_fwd(f)
+    inv_ms = median_ms(torch, lambda: plan.exec_inv(c), reps=REPS_BIG,
+                       warmup=1)
+    sym = solver._symbol()
+    mul_ms = median_ms(torch, lambda: torch.view_as_real(c).mul_(
+        sym.unsqueeze(-1)), reps=REPS_BIG, warmup=1)
+    mul_bytes = 2 * c.numel() * c.element_size() + sym.numel() * 4
+    del c, solver, sym
+    # Integer mode: "pallas" against cuFFT on the same random forcing.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    fr = torch.rand((n, n, n), generator=gen, device=dev)
+    a = PoissonSolver(plan, mode="integer").solve(fr)
+    sx = PoissonSolver(dft.SlabFFTPlan(g, dft.SlabPartition(1), dft.Config()),
+                       mode="integer")
+    _, int_rel = rel_err(a, sx.solve(fr))
+    del a, sx
+    if not int_rel <= TOL:
+        fail(f"poisson {n}^3 integer mode vs xla: rel {int_rel:.3e}")
+    torch.cuda.empty_cache()
+    chain_k = 8
+    fn, cplan = workloads.poisson_chain(chain_k, n, "pallas")
+    hf.reset_launches()
+    s = fn(fr)
+    chain_launches = counted(hf)
+    if not math.isfinite(s) or chain_launches != combine(want, chain_k, {},
+                                                         0):
+        fail(f"poisson_chain({chain_k}, {n}): sum {s}, launches "
+             f"{chain_launches}")
+    chain_ms = host_ms(torch, lambda: fn(fr), reps=2) / chain_k
+    del fr, fn, cplan, u, f, plan
+    torch.cuda.empty_cache()
+    bound_ms = 1e3 * mul_bytes / HBM_BYTES
+    row = dict(path=f"poisson_{n}", shape=[n] * 3, backend="pallas",
+               launches_per_solve=want, entries_per_solve=ents,
+               manufactured_rel=rel, integer_vs_xla_rel=int_rel, tol=TOL,
+               solve_ms=solve_ms, forward_ms=fwd_ms, inverse_ms=inv_ms,
+               multiply_ms=mul_ms, multiply_bound_ms=bound_ms,
+               directions_plus_multiply_bound_ms=fwd_ms + inv_ms + bound_ms,
+               chain_k=chain_k, chain_ms_per_solve=chain_ms, chain_sum=s,
+               peak_memory_gb=peak,
+               cut="2048^3 does not fit one card (34.4 GB a float32 field)")
+    emit(phase="solver", **row)
+    return {f"poisson_{n}": want}, row
+
+
+def solver_ns3d(torch, dft, hf, dev):
+    """Navier-Stokes 3D at 512^3 (slab, one card: the fused kernels 6-8):
+    inviscid Taylor-Green, 3 RK4 steps, against "xla", energy conserved,
+    launches per step against 4 x (3 forward + 6 inverse) directions."""
+    from distributedfft_tpu_torch.solvers import NavierStokes3D
+    n = NS3D_N
+    g = dft.GlobalSize(n, n, n)
+    base = fresh_peak(torch)
+    t = torch.arange(n, device=dev, dtype=torch.float32) * (2 * math.pi / n)
+    cx, sx = torch.cos(t), torch.sin(t)
+    u0 = torch.stack([cx[:, None, None] * sx[None, :, None] * sx[None, None],
+                      -sx[:, None, None] * cx[None, :, None] * sx[None, None],
+                      torch.zeros((n, n, n), device=dev)])
+    outs, rows = {}, {}
+    for be in ("pallas", "xla"):
+        plan = dft.SlabFFTPlan(g, dft.SlabPartition(1),
+                               dft.Config(fft_backend=be))
+        ns = NavierStokes3D(plan, 0.0)
+        step = ns.step_fn(NS3D_DT)
+        with torch.no_grad():
+            ch = ns.to_spectral(u0)
+            e0 = float(ns.diagnostics(ch)["energy"])
+            rest = NS3D_STEPS
+            if be == "pallas":
+                ch, per_step, ents = counted_call(torch, hf,
+                                                  lambda: step(ch))
+                rest -= 1
+            for _ in range(rest):
+                ch = step(ch)
+            eT = float(ns.diagnostics(ch)["energy"])
+            outs[be] = ns.to_physical(ch)
+            rows[be] = dict(energy0=e0, energyT=eT,
+                            energy_drift=abs(eT - e0) / e0,
+                            step_ms=median_ms(torch, lambda: step(ch),
+                                              reps=REPS_BIG, warmup=1))
+        del ns, step, ch, plan
+        torch.cuda.empty_cache()
+    want_f, want_i, ent_f, ent_i = FUSED_PATH
+    want = combine(expect(hf, **want_f), 12, expect(hf, **want_i), 24)
+    want_ents = combine(ent_f, 12, ent_i, 24)
+    if per_step != want or ents != want_ents:
+        fail(f"ns3d {n}^3: one step launched {per_step} ({ents}), not "
+             f"4 x (3 forward + 6 inverse): {want} ({want_ents})")
+    _, rel = rel_err(outs["pallas"], outs["xla"])
+    peak = peak_gb(torch, base)
+    del outs, u0
+    drift = rows["pallas"]["energy_drift"]
+    if not (rel <= TOL and drift <= ENERGY_TOL
+            and abs(rows["pallas"]["energy0"] - 0.125) <= 1e-5):
+        fail(f"ns3d {n}^3: vs xla rel {rel:.3e}, energy {rows}")
+    row = dict(path=f"ns3d_{n}", shape=[3, n, n, n], steps=NS3D_STEPS,
+               dt=NS3D_DT, launches_per_step=per_step,
+               entries_per_step=ents, vs_xla_rel=rel, tol=TOL,
+               energy_tol=ENERGY_TOL, pallas=rows["pallas"],
+               xla=rows["xla"], peak_memory_gb=peak)
+    emit(phase="solver", **row)
+    return {f"ns3d_{n}": per_step}, row
+
+
+def direct_conv_pixels(img, ker, pixels):
+    """Direct float64 sums on the host of ``mode="same"`` convolution
+    pixels of the device stack ``img`` (np.convolve's centering: output i
+    is full i + (k-1)//2), each from its own k x k window."""
+    k = ker.shape[0]
+    s = (k - 1) // 2
+    n = img.shape[1]
+    kf = ker.astype(np.float64)
+    out = []
+    for b, i, j in pixels:
+        # full[i + s] = sum_p img[i + s - p] ker[p]
+        r0, r1 = max(0, i + s - k + 1), min(n, i + s + 1)
+        c0, c1 = max(0, j + s - k + 1), min(n, j + s + 1)
+        win = img[b, r0:r1, c0:c1].double().cpu().numpy()
+        acc = 0.0
+        for ii in range(r0, r1):
+            for jj in range(c0, c1):
+                acc += win[ii - r0, jj - c0] * kf[i + s - ii, j + s - jj]
+        out.append(acc)
+    return np.asarray(out)
+
+
+def solver_convolve(torch, dft, hf, dev):
+    """BASELINE config #4's convolution: 64 x 4064^2 images, a 33^2 kernel,
+    "same", on the 64 x 4096^2 batched plan (kernels 2, 4 and 5); against
+    the "xla" convolver and 16 direct float64 sums on the host; its time
+    beside the plan's roundtrip; then a 5-smooth extent (4320 =
+    good_size(4096 + 225 - 1)), which takes the tile bodies."""
+    from distributedfft_tpu_torch.solvers import make_convolver
+    b, n = CONV_IMAGES
+    k = CONV_KERNEL
+    base = fresh_peak(torch)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    img = torch.rand((b, n, n), generator=gen, device=dev)
+    ker = np.random.default_rng(SEED).random((k, k)).astype(np.float32)
+    cv = make_convolver(ker, (n, n), batch=b, mode="same",
+                        config=dft.Config(fft_backend="pallas"))
+    ext = tuple(cv.plan.input_shape)
+    out, launches, ents = counted_call(torch, hf, lambda: cv(img))
+    peak = peak_gb(torch, base)
+    xin = torch.zeros(ext, device=dev)
+    lf, li, ef, ei = plan_directions(torch, hf, cv.plan, xin)
+    want, want_ents = combine(lf, 1, li, 1), combine(ef, 1, ei, 1)
+    if launches != want or ents != want_ents:
+        fail(f"convolution: a call launched {launches} ({ents}), not one "
+             f"forward and one inverse of the plan: {want} ({want_ents})")
+    c = cv.plan.exec_forward(xin)
+    rt_ms = (median_ms(torch, lambda: cv.plan.exec_forward(xin),
+                       reps=REPS_BIG, warmup=1)
+             + median_ms(torch, lambda: cv.plan.exec_inverse(c),
+                         reps=REPS_BIG, warmup=1))
+    del xin, c
+    call_ms = median_ms(torch, lambda: cv(img), reps=REPS_BIG, warmup=1)
+    rng = np.random.default_rng(SEED + 1)
+    pix = [(int(rng.integers(b)), int(rng.integers(n)), int(rng.integers(n)))
+           for _ in range(CONV_PIXELS - 4)] + [(0, 0, 0), (b - 1, n - 1, 0),
+                                              (1, 0, n - 1), (2, 5, 7)]
+    got_pix = np.asarray([float(out[q]) for q in pix])
+    ref_pix = direct_conv_pixels(img, ker, pix)
+    pix_err = float(np.max(np.abs(got_pix - ref_pix))) / float(
+        out.abs().max())
+    del cv
+    torch.cuda.empty_cache()
+    cvx = make_convolver(ker, (n, n), batch=b, mode="same",
+                         config=dft.Config())
+    _, xla_rel = rel_err(out, cvx(img))
+    xla_ms = median_ms(torch, lambda: cvx(img), reps=REPS_BIG, warmup=1)
+    del cvx, out, img
+    torch.cuda.empty_cache()
+    if not (xla_rel <= TOL and pix_err <= TOL):
+        fail(f"convolution: vs xla rel {xla_rel:.3e}, direct pixels rel "
+             f"{pix_err:.3e}")
+    # The 5-smooth extent.
+    sb, sn, sk = CONV_SMOOTH
+    img = torch.rand((sb, sn, sn), generator=gen, device=dev)
+    ker2 = np.random.default_rng(SEED + 2).random((sk, sk)).astype(np.float32)
+    cvs = make_convolver(ker2, (sn, sn), batch=sb, mode="same",
+                         config=dft.Config(fft_backend="pallas"))
+    outs, smooth_launches, smooth_ents = counted_call(torch, hf,
+                                                      lambda: cvs(img))
+    smooth_ms = median_ms(torch, lambda: cvs(img), reps=REPS_BIG, warmup=1)
+    sext = list(cvs.plan.input_shape)
+    del cvs
+    torch.cuda.empty_cache()
+    cvsx = make_convolver(ker2, (sn, sn), batch=sb, mode="same",
+                          config=dft.Config())
+    _, smooth_rel = rel_err(outs, cvsx(img))
+    smooth_xla_ms = median_ms(torch, lambda: cvsx(img), reps=REPS_BIG,
+                              warmup=1)
+    del cvsx, outs, img
+    torch.cuda.empty_cache()
+    if not smooth_rel <= TOL or smooth_launches.get("matmul"):
+        fail(f"convolution at the 5-smooth extent {sext}: rel "
+             f"{smooth_rel:.3e}, launches {smooth_launches}")
+    row = dict(path=f"conv_{b}x{n}", images=[b, n, n], kernel=[k, k],
+               plan_shape=list(ext), mode="same", backend="pallas",
+               launches_per_call=want, entries_per_call=ents,
+               vs_xla_rel=xla_rel, direct_pixels_rel=pix_err,
+               pixels=CONV_PIXELS, tol=TOL, call_ms=call_ms,
+               plan_roundtrip_ms=rt_ms, xla_call_ms=xla_ms,
+               peak_memory_gb=peak,
+               smooth=dict(images=[sb, sn, sn], kernel=[sk, sk],
+                           plan_shape=sext, launches=smooth_launches,
+                           entries=smooth_ents, vs_xla_rel=smooth_rel,
+                           call_ms=smooth_ms, xla_call_ms=smooth_xla_ms))
+    emit(phase="solver", **row)
+    return {f"conv_{b}x{n}": want,
+            f"conv_smooth_{sext[1]}": smooth_launches}, row
+
+
+def smooth_vorticity(torch, dev, batch: int, n: int, modes: int = 4,
+                     seed: int = SEED):
+    """A (batch, n, n) float32 vorticity of random low modes (|m| <= modes
+    per axis), made on the device."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.arange(n, device=dev, dtype=torch.float32) * (2 * math.pi / n)
+    w = torch.zeros((batch, n, n), device=dev)
+    for mx_ in range(modes + 1):
+        for my in range(-modes, modes + 1):
+            a = torch.rand((batch, 1, 1), generator=gen, device=dev) - 0.5
+            ph = 2 * math.pi * torch.rand((batch, 1, 1), generator=gen,
+                                          device=dev)
+            w += a * torch.cos(mx_ * t[None, :, None] + my * t[None, None, :]
+                               + ph)
+    return w
+
+
+def solver_ns2d(torch, dft, hf, dev):
+    """``ns2d_chain`` at 16 x 4096^2 under "pallas" against "xla", ms per
+    step; the chain's launches against (4k + 1) forward and (16k + 1)
+    inverse directions of the plan."""
+    from distributedfft_tpu_torch.testing import workloads
+    b, n = NS2D
+    k = NS2D_STEPS
+    base = fresh_peak(torch)
+    w0 = smooth_vorticity(torch, dev, b, n)
+    outs, rows = {}, {}
+    for be in ("pallas", "xla"):
+        fn, solver = workloads.ns2d_chain(k, b, n, dt=NS2D_DT, backend=be)
+        if be == "pallas":
+            s, launches, ents = counted_call(torch, hf, lambda: fn(w0))
+            peak = peak_gb(torch, base)
+            lf, li, ef, ei = plan_directions(torch, hf, solver.plan, w0)
+            want = combine(lf, 4 * k + 1, li, 16 * k + 1)
+            want_ents = combine(ef, 4 * k + 1, ei, 16 * k + 1)
+            if launches != want or ents != want_ents:
+                fail(f"ns2d {b}x{n}^2: the chain launched {launches} "
+                     f"({ents}), not {want} ({want_ents})")
+        else:
+            s = fn(w0)
+        outs[be] = solver.run(w0, k, NS2D_DT)
+        rows[be] = dict(chain_sum=s, ms_per_step=host_ms(
+            torch, lambda: fn(w0), reps=2) / k)
+        del fn, solver
+        torch.cuda.empty_cache()
+    _, rel = rel_err(outs["pallas"], outs["xla"])
+    del outs, w0
+    torch.cuda.empty_cache()
+    if not rel <= TOL:
+        fail(f"ns2d {b}x{n}^2: vs xla rel {rel:.3e}")
+    row = dict(path=f"ns2d_{b}x{n}", shape=[b, n, n], steps=k, dt=NS2D_DT,
+               launches_chain=launches, entries_chain=ents, vs_xla_rel=rel,
+               tol=TOL, pallas=rows["pallas"], xla=rows["xla"],
+               peak_memory_gb=peak,
+               cut="batch 64 -> 16 (RK4's state: 5 spectra of 1.07 GB, the "
+                   "RHS temporaries and the split C2R's extension)")
+    emit(phase="solver", **row)
+    return {f"ns2d_{b}x{n}": launches}, row
+
+
+def solver_dct(torch, dft, hf, dev):
+    """dctn / dstn over a 512^3 float32 cube, type 2 and type 3, under
+    "pallas" (1024-point extension rows: kernels 1 and 3) against
+    "xla"."""
+    from distributedfft_tpu_torch.solvers import r2r
+    n = DCT_N
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    x = torch.rand((n, n, n), generator=gen, device=dev)
+    rows, launches = {}, {}
+    for name, fn, tp in (("dctn2", r2r.dctn, 2), ("dctn3", r2r.dctn, 3),
+                         ("dstn2", r2r.dstn, 2)):
+        got, lau, ents = counted_call(
+            torch, hf, lambda: fn(x, type=tp, backend="pallas"))
+        _, rel = rel_err(got, fn(x, type=tp, backend="xla"))
+        if not rel <= TOL or lau.get("matmul"):
+            fail(f"{name} {n}^3: vs xla rel {rel:.3e}, launches {lau}")
+        rows[name] = dict(vs_xla_rel=rel, launches=lau, entries=ents,
+                          ms=median_ms(torch, lambda: fn(x, type=tp,
+                                                         backend="pallas"),
+                                       reps=REPS_BIG, warmup=1),
+                          xla_ms=median_ms(torch, lambda: fn(x, type=tp,
+                                                             backend="xla"),
+                                           reps=REPS_BIG, warmup=1))
+        launches[f"{name}_{n}"] = lau
+        del got
+    if not (launches[f"dctn2_{n}"]["rmatmul"] == 3
+            and launches[f"dctn3_{n}"]["c2r"] == 3):
+        fail(f"dctn at {n}^3 did not run kernels 1 and 3 once an axis: "
+             f"{launches}")
+    del x
+    torch.cuda.empty_cache()
+    emit(phase="solver", path=f"r2r_{n}", shape=[n] * 3, tol=TOL, **rows)
+    return launches, rows
+
+
+def solver_grad(torch, dft, hf, dev):
+    """Gradients on one card: Poisson ``solve_fn`` under "xla" at 512^3
+    (integer mode, self-adjoint: grad of sum(w S f) is S w), 4 steps of
+    ``NavierStokes2D.solve_fn`` (float64, "matmul", 2 x 64^2) against
+    central differences, and "pallas": ``forward_fn`` bit for bit
+    ``exec_fwd`` and ``backward`` raising."""
+    from distributedfft_tpu_torch.solvers import (NavierStokes2D,
+                                                  PoissonSolver)
+    n = GRAD_N
+    g = dft.GlobalSize(n, n, n)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    f = torch.rand((n, n, n), generator=gen, device=dev)
+    w = torch.rand((n, n, n), generator=gen, device=dev)
+    solver = PoissonSolver(dft.SlabFFTPlan(g, dft.SlabPartition(1),
+                                           dft.Config()), mode="integer")
+    fl = f.clone().requires_grad_()
+    torch.sum(w * solver.solve_fn()(fl)).backward()
+    _, poisson_rel = rel_err(fl.grad, solver.solve(w))
+    del fl, solver
+    # NS-2D against central differences.
+    b, m, steps, dt = NS_GRAD
+    plan = dft.Batched2DFFTPlan(b, m, m, dft.SlabPartition(1),
+                                dft.Config(double_prec=True,
+                                           fft_backend="matmul"))
+    sfn = NavierStokes2D(plan, 0.01).solve_fn(steps, dt)
+    w0 = torch.rand((b, m, m), generator=gen, device=dev,
+                    dtype=torch.float64)
+    wl = w0.clone().requires_grad_()
+    torch.sum(sfn(wl) ** 2).backward()
+    fd_rows = []
+    eps = 1e-6
+    with torch.no_grad():
+        for idx in ((0, 3, 5), (1, 7, 2)):
+            wp, wm = w0.clone(), w0.clone()
+            wp[idx] += eps
+            wm[idx] -= eps
+            fd = (float(torch.sum(sfn(wp) ** 2))
+                  - float(torch.sum(sfn(wm) ** 2))) / (2 * eps)
+            fd_rows.append(dict(index=list(idx), grad=float(wl.grad[idx]),
+                                fd=fd))
+    fd_ok = all(abs(r["grad"] - r["fd"]) <= 1e-6 * abs(r["fd"]) + 1e-10
+                for r in fd_rows)
+    # "pallas": the fused forward bit for bit, the backward raising.
+    plan = dft.SlabFFTPlan(g, dft.SlabPartition(1),
+                           dft.Config(fft_backend="pallas"))
+    with torch.no_grad():
+        same = torch.equal(plan.forward_fn()(f), plan.exec_fwd(f))
+    fl = f.clone().requires_grad_()
+    try:
+        torch.sum(w * plan.inverse_fn()(plan.forward_fn()(fl))).backward()
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    del f, w, fl, plan
+    torch.cuda.empty_cache()
+    row = dict(poisson=dict(shape=[n] * 3, backend="xla",
+                            grad_vs_solve_rel=poisson_rel, tol=GRAD_TOL),
+               ns2d=dict(shape=[b, m, m], steps=steps, fd=fd_rows,
+                         rel=1e-6),
+               pallas=dict(forward_fn_is_exec_fwd=same, raised=raised))
+    emit(phase="solver_grad", **row)
+    if not (poisson_rel <= GRAD_TOL and fd_ok and same and raised
+            and "has no VJP" in raised):
+        fail(f"solver gradients: {row}")
+    return row
+
+
+def solver_rank_main(rank: int, addr: str, outdir: str) -> None:
+    """Two ranks sharing the card over gloo: Poisson at 512^3 against the
+    one-card solve, a Dirichlet box extended on the split x axis against
+    its closed form, the guards + bf16 wire solve under RING (kernels 9
+    and 10) and with the fused wire (kernel 11), and the gradient of the
+    slab roundtrip under "xla" at 128^3."""
+    import torch
+    import torch.distributed as dist
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch import obs
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.parallel import multihost
+    from distributedfft_tpu_torch.solvers import PoissonSolver
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.maybe_initialize(addr, RANKS, rank, backend="gloo",
+                               timeout_s=300)
+    dev = torch.device("cuda")
+    out = {"rank": rank}
+    n = RANK_POISSON_N
+    g = dft.GlobalSize(n, n, n)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    f = torch.rand((n, n, n), generator=gen, device=dev)
+    f -= f.mean()
+    plan = dft.SlabFFTPlan(g, dft.SlabPartition(RANKS),
+                           dft.Config(fft_backend="pallas"))
+    solver = PoissonSolver(plan, mode="integer")
+    fl = plan.pad_input(f)
+    ul, launches, ents = counted_call(torch, hf, lambda: solver.solve(fl))
+    lf, li, ef, ei = plan_directions(torch, hf, plan, fl)
+    if launches != combine(lf, 1, li, 1) or ents != combine(ef, 1, ei, 1):
+        fail(f"rank {rank}: the two-rank solve launched {launches}, not one "
+             f"forward and one inverse: {lf}, {li}")
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        solver.solve(fl)
+    torch.cuda.synchronize()
+    out["poisson_ms"] = 1e3 * (time.perf_counter() - t0) / 3
+    full = torch.from_numpy(plan.crop_real(ul))
+    del ul, solver, plan
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = PoissonSolver(dft.SlabFFTPlan(g, dft.SlabPartition(1),
+                                            dft.Config(fft_backend="pallas")),
+                            mode="integer")
+        _, out["poisson_vs_one_card_rel"] = rel_err(full, one.solve(f).cpu())
+        del one
+        if not out["poisson_vs_one_card_rel"] <= TOL:
+            fail(f"two-rank poisson vs one card: {out}")
+    out["poisson_launches"] = launches
+    out["poisson_entries"] = ents
+    del full
+    torch.cuda.empty_cache()
+    dist.barrier()
+    # The Dirichlet box, extended on every axis, the split x included.
+    ne = RANK_DIRICHLET_N
+    m, L = ne // 2, 1.3
+    plan = dft.SlabFFTPlan(dft.GlobalSize(ne, ne, ne),
+                           dft.SlabPartition(RANKS),
+                           dft.Config(fft_backend="pallas"))
+    s = PoissonSolver(plan, lengths=(L,) * 3, bc="dirichlet")
+    xs = (torch.arange(m, device=dev, dtype=torch.float32) + 0.5) * (L / m)
+    sx = torch.sin(math.pi * xs / L)
+    u_true = sx[:, None, None] * sx[None, :, None] * sx[None, None, :]
+    ul = s.solve(-3.0 * (math.pi / L) ** 2 * u_true)
+    out["dirichlet_local_interior"] = list(ul.shape)
+    got = torch.from_numpy(s.gather_interior(ul))
+    _, out["dirichlet_vs_closed_form_rel"] = rel_err(got, u_true.cpu())
+    if not out["dirichlet_vs_closed_form_rel"] <= TOL or \
+            out["dirichlet_local_interior"][0] != (m if rank == 0 else 0):
+        fail(f"rank {rank}: the extended Dirichlet box: {out}")
+    del s, plan, ul, got
+    # The JAX package's guards + bf16 wire solve, under RING.
+    fr = torch.rand((n, n, n), generator=gen, device=dev)
+    fr -= fr.mean()
+    wire_rows = {}
+    native = None
+    for name, kw in (("native", dict(guards="off")),
+                     ("ring_wire16", dict(send_method=dft.SendMethod.RING,
+                                          wire_dtype="bf16", guards="check")),
+                     ("ring_wire16_fused", dict(
+                         send_method=dft.SendMethod.RING, wire_dtype="bf16",
+                         fused_wire=True, guards="check"))):
+        seq = "Z_Then_YX" if name == "ring_wire16_fused" else "ZY_Then_X"
+        plan = dft.SlabFFTPlan(g, dft.SlabPartition(RANKS),
+                               dft.Config(fft_backend="pallas", **kw),
+                               sequence=seq)
+        sol = PoissonSolver(plan)
+        fb = plan.pad_input(fr)
+        obs.metrics.reset()
+        u, lau, ents = counted_call(torch, hf, lambda: sol.solve(fb))
+        snap = obs.metrics.snapshot()["counters"]
+        full = torch.from_numpy(plan.crop_real(u))
+        row = dict(sequence=seq, launches=lau, entries=ents,
+                   parseval_violations=snap.get(
+                       "guard.parseval_violations", 0),
+                   wire_drift_violations=snap.get(
+                       "guard.wire_drift_violations", 0))
+        if native is None:
+            native = full
+        else:
+            _, row["vs_native_rel"] = rel_err(full, native)
+            if not (row["vs_native_rel"] <= WIRE_TOL
+                    and row["parseval_violations"] == 0
+                    and row["wire_drift_violations"] == 0
+                    and bool(torch.isfinite(full).all())):
+                fail(f"rank {rank}: guarded bf16-wire solve {name}: {row}")
+        wire_rows[name] = row
+        del plan, sol, u, full, fb
+    fused = wire_rows["ring_wire16_fused"]["launches"]
+    if not (wire_rows["ring_wire16"]["launches"]["enc_pack"] == 0
+            and fused["enc_pack"] and fused["dec_cmatmul"]
+            and fused["dec_unpack"]):
+        fail(f"rank {rank}: the fused-wire solve did not run kernels 9-11: "
+             f"{wire_rows}")
+    out["wire"] = wire_rows
+    del native, fr, f, fl
+    torch.cuda.empty_cache()
+    # The gradient of the slab roundtrip under "xla" across the two ranks.
+    ng = RANK_GRAD_N
+    grads = {}
+    for comm in ("Peer2Peer", "All2All"):
+        plan = dft.SlabFFTPlan(dft.GlobalSize(ng, ng, ng),
+                               dft.SlabPartition(RANKS),
+                               dft.Config(comm_method=dft.CommMethod(comm)))
+        gx = torch.Generator(device=dev).manual_seed(SEED + 70)
+        x = torch.rand((ng, ng, ng), generator=gx, device=dev)
+        w = torch.rand((ng, ng, ng), generator=gx, device=dev)
+        xl = plan.pad_input(x).requires_grad_()
+        wl = plan.pad_input(w)
+        loss = torch.sum(wl * plan.inverse_fn()(plan.forward_fn()(xl))) \
+            / float(ng ** 3)
+        loss.backward()
+        _, grads[comm] = rel_err(xl.grad, wl)
+        if not grads[comm] <= 1e-5:
+            fail(f"rank {rank}: grad of the {comm} roundtrip: rel "
+                 f"{grads[comm]:.3e}")
+        del plan, x, w, xl, wl, loss
+    out["roundtrip_grad_rel"] = grads
+    with open(os.path.join(outdir, f"solver_rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    multihost.shutdown()
+
+
+def solvers_phase(torch, dft, hf, multihost, dev, outdir):
+    """``solvers_main``, ``solver_grad`` and ``solver_ranks``: (the
+    launches of each path, the rows)."""
+    import torch.multiprocessing as tmp
+    t0 = time.perf_counter()
+    launches, rows = {}, {}
+    for fn in (solver_poisson, solver_ns3d, solver_convolve, solver_ns2d,
+               solver_dct):
+        t1 = time.perf_counter()
+        got, rows[fn.__name__] = fn(torch, dft, hf, dev)
+        rows[fn.__name__]["seconds"] = time.perf_counter() - t1
+        launches.update(got)
+    emit(phase="solvers_main", seconds=time.perf_counter() - t0,
+         paths=sorted(launches))
+    t1 = time.perf_counter()
+    rows["grad"] = solver_grad(torch, dft, hf, dev)
+    emit(phase="solver_grad_done", seconds=time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    tmp.spawn(solver_rank_main, args=(multihost.local_coordinator(), outdir),
+              nprocs=RANKS, join=True)
+    ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(outdir, f"solver_rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    r0 = ranks[0]
+    launches[f"poisson_{RANK_POISSON_N}_p{RANKS}_rank0"] = \
+        r0["poisson_launches"]
+    for name, row in r0["wire"].items():
+        launches[f"poisson_{RANK_POISSON_N}_{name}_rank0"] = row["launches"]
+    emit(phase="solver_ranks", ranks=RANKS,
+         exchange="gloo, host-staged, 2 ranks on 1 card", per_rank=ranks,
+         seconds=time.perf_counter() - t1)
+    return launches, rows
+
+
+def solvers_only() -> int:
+    """Build the kernels and run the solvers' phases alone (a shorter run
+    while the solvers change; ``main`` runs them after every other
+    phase): ``python3 -c "import chip_smoke; chip_smoke.solvers_only()"``."""
+    import tempfile as _tf
+    import torch
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.ops import _build
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.parallel import multihost
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
+    launches, _ = solvers_phase(torch, dft, hf, multihost,
+                                torch.device("cuda"),
+                                _tf.mkdtemp(prefix="chip_smoke_solvers_"))
+    emit(phase="solvers_only", launches=launches)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3644,6 +4375,10 @@ def main() -> int:
         k["plain_ms"] = median_ms(torch, lambda: k["plain"](t))
         k["library_ms"] = median_ms(torch, lambda: k["library"](t))
         k["bound_ms"], k["bound_by"] = bound(k["flops"], k["bytes"])
+        if k["name"] == "enc_pack" and "variant" not in k:
+            k["alternated"] = alternated_ms(torch, lambda: k["run"](t),
+                                            lambda: k["library"](t))
+            emit(phase="kernel9_alternated", **k["alternated"])
         emit(phase="kernel_time", name=k["name"], variant=k.get("variant"),
              kernel_ms=k["kernel_ms"], plain_ms=k["plain_ms"],
              library_ms=k["library_ms"], library_call=k["library_call"],
@@ -3838,6 +4573,12 @@ def main() -> int:
     bluestein_paths(torch, dft, hf, gen)
     emit(phase="bluestein_done", seconds=time.perf_counter() - t0)
 
+    # -- 8f. the solvers: one card, gradients, two ranks ---------------------
+    t0 = time.perf_counter()
+    got, _ = solvers_phase(torch, dft, hf, multihost, dev, outdir)
+    launches.update(got)
+    emit(phase="solvers_done", seconds=time.perf_counter() - t0)
+
     # -- 9. the kernels line, the card, the result ---------------------------
     def total_launches(name):
         return sum(v.get(name, 0) for v in launches.values())
@@ -3858,7 +4599,7 @@ def main() -> int:
                "library_call": k["library_call"], "flops": k["flops"],
                "gemm_flops": k["gemm_flops"], "bytes": k["bytes"],
                "shape": k.get("shape")}
-        for f in ("pair_ms", "library_rows_ms", "pass_ms"):
+        for f in ("pair_ms", "library_rows_ms", "pass_ms", "alternated"):
             if f in k:
                 row[f] = k[f]
         for v in every:

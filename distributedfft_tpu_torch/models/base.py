@@ -9,6 +9,14 @@ transform per direction through ``ops/fft.py``, or per-axis transforms
 over leading-axis chunks under ``Config.fft3d_chunk``. The distributed
 pipelines live in the subclasses.
 
+The solver protocol (``spectral_halved_axis``, ``exec_fwd`` /
+``exec_inv``, ``forward_fn`` / ``inverse_fn``) is the surface the
+solvers of ``solvers/`` drive every family through. ``forward_fn`` and
+``inverse_fn`` return the pipelines with no envelope and no guard, and
+differentiable: each exchange is an autograd Function
+(``parallel/transpose.py``), each kernel wrapper a boundary whose
+backward raises (``ops/hopper_fft.py``).
+
 Every execution runs inside the resilience envelope
 (``resilience.fallback.execute``), as in the JAX package: the guards of
 the plan's mode (resolved once here) check each result, and a failing
@@ -64,6 +72,49 @@ def resolve_device(device: "str | torch.device") -> torch.device:
     return dev
 
 
+def logical_block(padded_local, logical, sl) -> Tuple[int, ...]:
+    """The shape of the logical part of a rank's block: ``padded_local``
+    is the block's shape, ``sl`` its place in the padded global array
+    (``local_slices``) and ``logical`` the unpadded global shape. Along a
+    split axis the block keeps the entries below the logical extent (none
+    on a rank whose block is all pad)."""
+    return tuple(max(0, min(int(b), int(n) - (s.start or 0)))
+                 for b, n, s in zip(padded_local, logical, sl))
+
+
+def with_pad(pure: Pipeline, logical, padded, convert: Pipeline
+             ) -> Pipeline:
+    """A pure pipeline that takes a ``logical``-shaped input, zero-padded
+    to ``padded`` by a differentiable pad (``pad_axis_to``, whose gradient
+    slices the cotangent), or a ``padded``-shaped one as it is; any other
+    shape raises, as the ``exec_*`` checks do (the JAX package's
+    ``_with_pad``). ``convert`` puts the input on the plan's device and
+    dtype first (a no-op on a tensor that is there)."""
+    logical, padded = tuple(logical), tuple(padded)
+
+    def fn(x) -> torch.Tensor:
+        x = convert(x)
+        if tuple(x.shape) == logical:
+            for ax, n in enumerate(padded):
+                x = pad_axis_to(x, ax, n)
+        elif tuple(x.shape) != padded:
+            raise ValueError(
+                f"input shape {tuple(x.shape)} matches neither the logical "
+                f"shape {logical} nor the padded shape {padded}")
+        return pure(x)
+
+    return fn
+
+
+def to_plan(device: torch.device, dtype: torch.dtype) -> Pipeline:
+    """``x`` on ``device`` in ``dtype``: the same tensor when it is there
+    already, else a differentiable conversion (numpy arrays too)."""
+    def convert(x) -> torch.Tensor:
+        return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+    return convert
+
+
 class DistFFTPlan:
     """Base class of the plans; subclasses build the pipelines."""
 
@@ -96,6 +147,7 @@ class DistFFTPlan:
         self.group = None
         self._r2c: Optional[Pipeline] = None
         self._c2r: Optional[Pipeline] = None
+        self._pure: dict = {}
 
     # -- shape queries (reference getInSize/getOutSize family) -------------
 
@@ -120,6 +172,35 @@ class DistFFTPlan:
         for a in self.transform_axes:
             out *= int(self.input_shape[a])
         return out
+
+    # -- the solver protocol (the JAX package's models/base.py) -----------
+    # The solvers (``solvers/``) drive every plan family through this
+    # surface only; ``Batched2DFFTPlan`` honors it outside the hierarchy.
+
+    @property
+    def spectral_halved_axis(self) -> Optional[int]:
+        """The ``n//2+1``-halved spectral axis, or None for C2C plans."""
+        if getattr(self, "transform", "r2c") == "c2c":
+            return None
+        return self._halved_axis_index()
+
+    def _halved_axis_index(self) -> int:
+        """The R2C axis of this family (the pencil halves z; the slab
+        overrides it per sequence)."""
+        return 2
+
+    def exec_fwd(self, x) -> torch.Tensor:
+        """Forward transform of the plan's own family (r2c: ``exec_r2c``,
+        c2c: ``exec_c2c``), inside the resilience envelope."""
+        if getattr(self, "transform", "r2c") == "c2c":
+            return self.exec_c2c(x)
+        return self.exec_r2c(x)
+
+    def exec_inv(self, c) -> torch.Tensor:
+        """Inverse transform (see ``exec_fwd``)."""
+        if getattr(self, "transform", "r2c") == "c2c":
+            return self.exec_c2c_inv(c)
+        return self.exec_c2r(c)
 
     # -- execution ----------------------------------------------------------
 
@@ -270,3 +351,31 @@ class AxisBlocks:
     @staticmethod
     def _host(t) -> np.ndarray:
         return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+    def _fn_shapes(self, output: bool):
+        """(logical, padded) input shapes of ``forward_fn`` (or of
+        ``inverse_fn``, ``output``): the global shapes on one rank, this
+        rank's block and its logical part on P ranks."""
+        if output:
+            logical, padded, local = (self.output_shape,
+                                      self.output_padded_shape,
+                                      self.local_output_shape)
+        else:
+            logical, padded, local = (self.input_shape,
+                                      self.input_padded_shape,
+                                      self.local_input_shape)
+        if self.fft3d:
+            return logical, padded
+        return logical_block(local, logical, self.local_slices(output)), local
+
+    def _pure_fn(self, forward: bool, build: Callable[[], Pipeline]
+                 ) -> Pipeline:
+        """``forward_fn`` / ``inverse_fn`` of the slab and batched plans:
+        ``build()``'s pipeline behind ``with_pad``, built once."""
+        if forward not in self._pure:
+            in_dtype = (self.complex_dtype if not forward
+                        or self.transform == "c2c" else self.real_dtype)
+            self._pure[forward] = with_pad(
+                build(), *self._fn_shapes(not forward),
+                to_plan(self.device, in_dtype))
+        return self._pure[forward]

@@ -141,6 +141,7 @@ class Batched2DFFTPlan(AxisBlocks):
             self.rank = dist.get_rank(group)
         self._fwd: Optional[Pipeline] = None
         self._inv: Optional[Pipeline] = None
+        self._pure: dict = {}
         notice_axis_smoothness("batched2d", (nx, ny), self.config)
         obs.event("plan.created", kind="batched2d", shard=shard,
                   transform=transform, shape=[batch, nx, ny], ranks=P,
@@ -219,6 +220,17 @@ class Batched2DFFTPlan(AxisBlocks):
 
     def exec_inv(self, c) -> torch.Tensor:
         return self.exec_inverse(c)
+
+    def forward_fn(self) -> Pipeline:
+        """The forward pipeline with no resilience envelope and no guard,
+        differentiable, built once (``SlabFFTPlan.forward_fn``'s
+        contract): the stack on one rank, this rank's padded block (or its
+        logical part) on P ranks."""
+        return self._pure_fn(True, lambda: self._build(True))
+
+    def inverse_fn(self) -> Pipeline:
+        """The inverse pipeline (see ``forward_fn``)."""
+        return self._pure_fn(False, lambda: self._build(False))
 
     # -- logical <-> padded conversion ----------------------------------------
 

@@ -69,7 +69,8 @@ from ..parallel.transpose import (concat_axis_chunks, exchange_body,
                                   split_axis_chunks)
 from ..utils.native_planner import even_shard_sizes, padded_extent
 from ..resilience import fallback, guards
-from .base import DistFFTPlan, Pipeline, notice_axis_smoothness
+from .base import (DistFFTPlan, Pipeline, logical_block,
+                   notice_axis_smoothness, to_plan, with_pad)
 
 # (split, concat) of each transpose, forward and inverse: transpose 1
 # scatters z and gathers y; transpose 2 scatters y and gathers x.
@@ -369,6 +370,41 @@ class PencilFFTPlan(DistFFTPlan):
             self, "inverse", torch.as_tensor(c, dtype=self.complex_dtype,
                                              device=self.device),
             lambda: self._get(False, dims), dims)
+
+    def forward_fn(self, dims: int = 3) -> Pipeline:
+        """The forward pipeline at depth ``dims`` with no resilience
+        envelope and no guard (the JAX plan's ``forward_fn``),
+        differentiable, built once per depth. It takes what ``exec_r2c``
+        (``exec_c2c``) takes: on one rank the global array, on P ranks this
+        rank's padded z-pencil, or its logical part, zero-padded by a
+        differentiable pad; any other shape raises. Under
+        ``torch.no_grad()`` its output is ``exec_fwd``'s bit for bit."""
+        return self._pure_fn(True, dims)
+
+    def inverse_fn(self, dims: int = 3) -> Pipeline:
+        """The inverse pipeline at depth ``dims`` (see ``forward_fn``)."""
+        return self._pure_fn(False, dims)
+
+    def _pure_fn(self, forward: bool, dims: int) -> Pipeline:
+        _check_dims(dims)
+        key = (forward, dims)
+        if key not in self._pure:
+            if forward:
+                logical, padded = self.input_shape, self.local_input_shape
+                sl = self.local_slices()
+                dtype = (self.complex_dtype if self.transform == "c2c"
+                         else self.real_dtype)
+                pure = self._build_fwd(dims)
+            else:
+                logical = self.output_shape
+                padded = self.local_output_shape_for(dims)
+                sl = self.local_slices(output=True, dims=dims)
+                dtype, pure = self.complex_dtype, self._build_inv(dims)
+            if not self.fft3d:
+                logical = logical_block(padded, logical, sl)
+            self._pure[key] = with_pad(pure, logical, padded,
+                                       to_plan(self.device, dtype))
+        return self._pure[key]
 
     def _get(self, forward: bool, dims: int) -> Pipeline:
         """The (possibly guarded) pipeline of one direction at depth

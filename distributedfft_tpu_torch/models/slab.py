@@ -299,6 +299,25 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
             raise ValueError(f"inverse exec expects {want}, got {shape}")
         return torch.as_tensor(c, dtype=self.complex_dtype, device=self.device)
 
+    # -- the pure pipelines (the solver protocol) ----------------------------
+
+    def _halved_axis_index(self) -> int:
+        return self._seq.r2c_axis
+
+    def forward_fn(self) -> Pipeline:
+        """The forward pipeline with no resilience envelope and no guard
+        (the JAX plan's ``forward_fn``), differentiable, built once. It
+        takes what ``exec_r2c`` (``exec_c2c``) takes: on one rank the
+        global array, on P ranks this rank's padded block, or in either
+        case its logical part, zero-padded by a differentiable pad; any
+        other shape raises. Under ``torch.no_grad()`` its output is
+        ``exec_fwd``'s bit for bit."""
+        return self._pure_fn(True, self._build_r2c)
+
+    def inverse_fn(self) -> Pipeline:
+        """The inverse pipeline (see ``forward_fn``)."""
+        return self._pure_fn(False, self._build_c2r)
+
     # -- resilience hooks (guards + fallback ladder) -------------------------
 
     def _guard_spec(self, direction: str, dims: int = 3) -> GuardSpec:

@@ -63,13 +63,17 @@ Each kernel has here:
 * its plain PyTorch version (``*_plain``), the same arithmetic as dense
   products. The wrapper takes it only for tensors on the CPU; for a CUDA
   tensor it launches the kernel or raises;
-* a launch count in ``LAUNCHES``, raised by one per kernel launch.
+* a launch count in ``LAUNCHES``, raised by one per kernel launch;
+* an autograd boundary (``_no_vjp``): a gradient through the wrapper
+  raises ``NotImplementedError``, on the card and on the CPU, as
+  ``jax.grad`` through a Pallas kernel does.
 
 Double precision, and a prime axis above ``mxu_fft.N_MAX``, take the
 matmul backend (``ops/mxu_fft.py``), as ``pallas_fft._use_fallback`` and its
 prime branches route them in the JAX package; each such axis counts one
 in ``DISPATCHES["matmul"]`` (the backend's own counter), never in
-``LAUNCHES``.
+``LAUNCHES``; a gradient flows through them, as through the JAX
+package's jnp route.
 """
 
 from __future__ import annotations
@@ -562,6 +566,49 @@ def _launch(kernel: str, fn: str, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
+class _NoVJP(torch.autograd.Function):
+    """The autograd boundary of a kernel wrapper: the forward runs the
+    wrapper as it is (the same launches, the same bits, no copy); the
+    backward raises, as ``jax.grad`` does through a Pallas kernel (no
+    ``custom_vjp`` in ``pallas_fft.py``, no transpose rule for
+    ``pallas_call``). It raises on the CPU too, where the plain version
+    that stands in for the kernel would differentiate by accident."""
+
+    @staticmethod
+    def forward(ctx, what, run, *tensors):
+        ctx.what = what
+        return run()
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            f"{ctx.what} has no VJP (the JAX package's Pallas kernel has "
+            f"none either); differentiate with fft_backend 'xla' or "
+            f"'matmul', or in double precision")
+
+
+def _no_vjp(jax_kernel: str):
+    """Put the wrapper behind ``_NoVJP`` when autograd would record it (a
+    tensor argument, or one inside a tuple argument, requires grad under
+    grad mode); otherwise call it as it is."""
+    def wrap(fn):
+        what = f"hopper_fft.{fn.__name__} ({jax_kernel})"
+
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            ts = [t for a in args
+                  for t in (a if isinstance(a, tuple) else (a,))
+                  if isinstance(t, torch.Tensor)]
+            if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+                return _NoVJP.apply(what, lambda: fn(*args, **kw), *ts)
+            return fn(*args, **kw)
+
+        return run
+
+    return wrap
+
+
+@_no_vjp("_zy_fwd_kernel")
 def zy_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(X, Y, Z) float32 -> (X, Y, Z//2+1) planes: z-R2C then y-C2C,
     unnormalized forward (kernel 6, ``_zy_fwd_kernel``). The body is
@@ -595,6 +642,7 @@ def zy_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return yr, yi
 
 
+@_no_vjp("_x_c2c_kernel")
 def x_cols(a, inverse: bool, complex_out: bool):
     """Kernel 7 (``_x_c2c_kernel``) on one layout pair: the unnormalized
     C2C along axis 0 of (X, Ky, Zo) data ``a``, a pair of float32 planes
@@ -646,6 +694,7 @@ def x_c2c(ar: torch.Tensor, ai: torch.Tensor,
     return x_cols((ar, ai), inverse, complex_out=False)
 
 
+@_no_vjp("_yz_inv_kernel")
 def yz_inv(er: torch.Tensor, ei: torch.Tensor, z: int) -> torch.Tensor:
     """(X, Y, z//2+1) planes -> (X, Y, z) float32: y-C2C inverse then the
     half-spectrum z-C2R, unnormalized (kernel 8, ``_yz_inv_kernel``). The
@@ -794,6 +843,7 @@ def _check_rows(name: str, x2: torch.Tensor, dtype: torch.dtype,
     return dev.type == "cpu"
 
 
+@_no_vjp("_cmatmul_kernel / _rmatmul_kernel / their _tw forms")
 def stage(x2: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
           twiddle: Optional[Tuple[int, int, bool]] = None) -> torch.Tensor:
     """One DFT stage on rows: ``y = (x2 @ F) [* T]`` (``_call_stage``).
@@ -831,6 +881,7 @@ def stage(x2: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
     return y
 
 
+@_no_vjp("_cmatmul_kernel")
 def cdft(x2: torch.Tensor, inverse: bool) -> torch.Tensor:
     """Complex rows to their DFT: (M, n) complex64 -> (M, n) complex64, the
     unnormalized n-point DFT (inverse DFT when ``inverse``) of each row
@@ -887,6 +938,7 @@ def _check_cols(name: str, x: torch.Tensor, axis: int) -> bool:
     return x.device.type == "cpu"
 
 
+@_no_vjp("_cmatmul_kernel")
 def cdft_cols(x: torch.Tensor, axis: int, inverse: bool) -> torch.Tensor:
     """The unnormalized DFT (inverse DFT when ``inverse``) along a non-last
     ``axis`` of a contiguous complex64 tensor, where the axis lies: the
@@ -1036,6 +1088,7 @@ def _check_short(x3: torch.Tensor, geom: ShortOut,
     return x3.device.type == "cpu"
 
 
+@_no_vjp("_cmatmul_kernel")
 def cdft_short(x3: torch.Tensor, inverse: bool, geom: ShortOut,
                out_shape: Sequence[int]) -> torch.Tensor:
     """The four-step's second stage where the first stage left it: the
@@ -1105,6 +1158,7 @@ def _check_tw_cols(x3: torch.Tensor, n1: int) -> bool:
     return x3.device.type == "cpu"
 
 
+@_no_vjp("_cmatmul_tw_kernel")
 def cdft_tw_cols(x3: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
     """The four-step's first stage where a non-last split axis lies: x3 is
     the contiguous complex64 view (outer, n2, n1 span) of the axis j = s
@@ -1129,6 +1183,7 @@ def cdft_tw_cols(x3: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
     return y
 
 
+@_no_vjp("_rmatmul_kernel")
 def rdft(x2: torch.Tensor) -> torch.Tensor:
     """Real rows to their half spectra: (M, n) float32 -> (M, n//2+1)
     complex64, bins 0..n/2 of each row's unnormalized DFT (kernel 1,
@@ -1152,6 +1207,7 @@ def rdft(x2: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@_no_vjp("_rmatmul_tw_kernel")
 def rdft_tw(x2: torch.Tensor, n1: int) -> torch.Tensor:
     """Real rows to the four-step first stage: (M, n2) float32 -> (M, n2)
     complex64, the full n2-point DFT of each row times the twiddle row
@@ -1178,6 +1234,7 @@ def rdft_tw(x2: torch.Tensor, n1: int) -> torch.Tensor:
     return y
 
 
+@_no_vjp("_cmatmul_tw_kernel")
 def cdft_tw(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
     """Complex rows to the four-step first stage: (M, n2) complex64 ->
     (M, n2) complex64, the n2-point DFT (inverse DFT when ``inverse``) of
@@ -1209,6 +1266,7 @@ def cdft_tw(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
     return y
 
 
+@_no_vjp("_c2r_kernel")
 def c2r(c2: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
     """Half-spectrum C2R on rows: (M, n//2+1) complex64 -> (M, n) float32,
     ``Re(c) @ CR - Im(c) @ CI``, unnormalized (kernel 3, ``_c2r_kernel``):
@@ -1228,6 +1286,7 @@ def c2r(c2: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@_no_vjp("_c2r_kernel")
 def irdft(c2: torch.Tensor, n: int) -> torch.Tensor:
     """Half spectra to their real rows: (M, n//2+1) complex64 -> (M, n)
     float32, the unnormalized C2R of each row (kernel 3, ``_c2r_kernel``;
@@ -1560,6 +1619,7 @@ def _planes_of(name: str, y: torch.Tensor) -> None:
         raise ValueError(f"{name}: planes must be contiguous")
 
 
+@_no_vjp("_enc_pack_kernel")
 def enc_pack(x: torch.Tensor) -> torch.Tensor:
     """complex64 block of up to 3 dims, any strides -> contiguous
     ``(2,) + x.shape`` bfloat16 planes (kernel 9, ``_enc_pack_kernel``).
@@ -1582,6 +1642,7 @@ def enc_pack(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@_no_vjp("_dec_unpack_kernel")
 def dec_unpack(y: torch.Tensor) -> torch.Tensor:
     """Contiguous ``(2, ...)`` bfloat16 planes -> complex64 of shape
     ``y.shape[1:]`` (kernel 10, ``_dec_unpack_kernel``); exact."""
@@ -1604,6 +1665,7 @@ def _require_aligned(name: str, *ts: torch.Tensor) -> None:
                              f"16-byte aligned (the bulk copies need it)")
 
 
+@_no_vjp("_dec_cmatmul_kernel")
 def dec_cmatmul(y2: torch.Tensor, inverse: bool) -> torch.Tensor:
     """(2, M, n) bfloat16 planes -> (M, n) complex64, the unnormalized DFT
     (inverse DFT) of each decoded row (kernel 11, ``_dec_cmatmul_kernel``).

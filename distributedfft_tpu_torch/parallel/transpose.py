@@ -27,6 +27,15 @@ complex64.
 Data travels as bytes (``.view(torch.uint8)`` of a contiguous buffer), so
 neither backend sees a complex or bfloat16 type it may lack.
 
+Each raw exchange of data is a ``torch.autograd.Function`` (``_AllToAll``,
+``_AllToAllStart``, ``_PeerToPeer``, ``_RingStep``) whose backward is the
+inverse exchange of the cotangent, split and concat axes swapped; the
+pad, pack, slice and the bf16 wire's cast around it stay ordinary tensor
+ops that torch differentiates itself, so a cotangent crosses the same
+wire, rounded. Every rank posts the backward collectives in the order the
+autograd engine runs the (identical) graphs of all ranks. A tensor that
+requires no gradient takes the same Functions' forwards, with no graph.
+
 Each exchange counts into ``obs.metrics`` (``wire.exchanges_traced`` and
 the ``wire.bytes_per_transpose`` gauge, at every executed call where the
 JAX package counts once per trace) and runs inside an ``exchange.*`` span.
@@ -250,15 +259,58 @@ def _a2a_unpack(recv: torch.Tensor, p: int, c: int) -> torch.Tensor:
     return recv.movedim(0, c).reshape(out)
 
 
+def _a2a_dim0(send: torch.Tensor, group) -> torch.Tensor:
+    """The dim-0 all-to-all of a contiguous (p, piece...) buffer: piece d
+    goes to rank d, piece j of the result came from rank j."""
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(_bytes(recv), _bytes(send), group=group)
+    return recv
+
+
+class _AllToAll(torch.autograd.Function):
+    """``_a2a_dim0`` with a backward: the adjoint of the dim-0 exchange is
+    the same exchange of the cotangent (rank r's piece d went to rank d's
+    piece r), so the pack and unpack around it, differentiated by torch,
+    make the backward the inverse transpose with split and concat swapped,
+    rendered by the all-to-all."""
+
+    @staticmethod
+    def forward(ctx, send, group):
+        ctx.group = group
+        return _a2a_dim0(send, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a_dim0(g.contiguous(), ctx.group), None
+
+
+class _AllToAllStart(torch.autograd.Function):
+    """The asynchronous ``all_to_all_single`` of one piece of the pipelined
+    all-to-all: the forward issues it into a fresh receive buffer and
+    appends its work to ``pending`` (waited on before the buffer is read);
+    the backward is the synchronous exchange of the cotangent, as in
+    ``_AllToAll``."""
+
+    @staticmethod
+    def forward(ctx, send, group, pending):
+        ctx.group = group
+        recv = torch.empty_like(send)
+        pending.append(dist.all_to_all_single(_bytes(recv), _bytes(send),
+                                              group=group, async_op=True))
+        return recv
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a_dim0(g.contiguous(), ctx.group), None, None
+
+
 def _all_to_all_native(x: torch.Tensor, group, split_axis: int,
                        concat_axis: int) -> torch.Tensor:
     p = dist.get_world_size(group)
     if p == 1:      # a one-rank group: the exchange is the identity
         return x
     s, c = split_axis % x.ndim, concat_axis % x.ndim
-    send = _a2a_pack(x, p, s)
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(_bytes(recv), _bytes(send), group=group)
+    recv = _AllToAll.apply(_a2a_pack(x, p, s), group)
     return _a2a_unpack(recv, p, c)
 
 
@@ -299,10 +351,9 @@ def pipelined_all_to_all(x: torch.Tensor, group, split_axis: int,
         send = _a2a_pack(piece, p, s + shift)
         if p == 1:  # a one-rank group: nothing to post
             return None, send, send
-        recv = torch.empty_like(send)
-        work = dist.all_to_all_single(_bytes(recv), _bytes(send),
-                                      group=group, async_op=True)
-        return work, send, recv
+        work = []
+        recv = _AllToAllStart.apply(send, group, work)
+        return work[0], send, recv
 
     def land(pending) -> torch.Tensor:
         work, _, recv = pending
@@ -339,31 +390,57 @@ def peer_to_peer_transpose(x: torch.Tensor, group, split_axis: int,
     Over gloo a CUDA payload is staged through pinned host memory
     (``_Transport``); NCCL sends device memory as it is."""
     p = dist.get_world_size(group)
-    r = dist.get_rank(group)
     dtype, wired = x.dtype, _wire_active(x, wire)
     s, c = split_axis % x.ndim, concat_axis % x.ndim
     if x.shape[s] % p:
         raise ValueError(f"split extent {x.shape[s]} not divisible by the "
                          f"{p} ranks (plans pad before the exchange)")
-    ch = x.shape[s] // p
     _count_exchange(x, wire)
     with obs.span("exchange.peer_to_peer", wire=wire):
         if wired:   # the planar pair: the split and concat axes shift by one
             x, s, c = wire_encode(x, wire), s + 1, c + 1
         x = inject.taint_wire(x, "peer_to_peer")
-        net = _Transport(group, x.device)
-        pending = []
-        for t in range(1, p):
-            dst, src = (r + t) % p, (r - t) % p
-            send = x.narrow(s, dst * ch, ch).contiguous()
-            recv = torch.empty_like(send)
-            pending.append((src, net.post(send, recv, dst, src, t), recv))
-        blocks = [x.narrow(s, r * ch, ch)] * p
-        for src, handle, recv in pending:
-            net.wait(handle)
-            blocks[src] = recv
-        out = torch.cat(blocks, dim=c)
+        out = _PeerToPeer.apply(x, group, s, c)
         return wire_decode(out, dtype, wire) if wired else out
+
+
+def _p2p_raw(x: torch.Tensor, group, s: int, c: int) -> torch.Tensor:
+    """Peer2Peer's exchange proper on a payload as it travels: chunk d of
+    axis ``s`` to rank d, rank j's chunk received into place j along
+    ``c``, every send and receive posted before any is waited on."""
+    p = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    ch = x.shape[s] // p
+    net = _Transport(group, x.device)
+    pending = []
+    for t in range(1, p):
+        dst, src = (r + t) % p, (r - t) % p
+        send = x.narrow(s, dst * ch, ch).contiguous()
+        recv = torch.empty_like(send)
+        pending.append((src, net.post(send, recv, dst, src, t), recv))
+    blocks = [x.narrow(s, r * ch, ch)] * p
+    for src, handle, recv in pending:
+        net.wait(handle)
+        blocks[src] = recv
+    return torch.cat(blocks, dim=c)
+
+
+class _PeerToPeer(torch.autograd.Function):
+    """``_p2p_raw`` with a backward: the inverse exchange of the cotangent,
+    ``s`` and ``c`` swapped, rendered point to point as well (out on rank
+    r holds, at place j along c, rank j's chunk r along s; so rank j's
+    cotangent of chunk r is rank r's cotangent at place j). Over gloo the
+    pinned host staging of a CUDA payload stays inside (``_Transport``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, s, c):
+        ctx.args = (group, s, c)
+        return _p2p_raw(x, group, s, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, s, c = ctx.args
+        return _p2p_raw(g.contiguous(), group, c, s), None, None, None
 
 
 def exchange_body(group, split_axis: int, concat_axis: int, *,
@@ -482,12 +559,41 @@ class _Transport:
 
     def wait(self, handle) -> None:
         """Finish a micro-step: its receive buffer holds the block after
-        this, ordered before any later work on the current stream."""
+        this, ordered before any later work on the current stream. The
+        staging copy lands the data only: autograd records nothing (the
+        buffer may be a ``_RingStep`` output)."""
         works, _, rb_host, rb = handle
         for w in works:
             w.wait()
         if rb_host is not rb:
-            rb.copy_(rb_host)
+            with torch.no_grad():
+                rb.copy_(rb_host)
+
+
+class _RingStep(torch.autograd.Function):
+    """One ring micro-step: send ``send`` to ``dst``, receive a block of
+    its shape from ``src`` into ``recv`` (a fresh buffer when None). The
+    forward posts it and appends the handle to ``handles``; the caller
+    waits (``_Transport.wait``) before it reads the block. The backward is
+    the micro-step reversed, posted and waited at once: the cotangent of
+    the received block goes back to ``src`` and the cotangent of the sent
+    one comes from ``dst``, on the same tag."""
+
+    @staticmethod
+    def forward(ctx, send, net, dst, src, tag, recv, handles):
+        ctx.args = (net, dst, src, tag)
+        if recv is None:
+            recv = torch.empty_like(send)
+        handles.append(net.post(send, recv, dst, src, tag))
+        return recv
+
+    @staticmethod
+    def backward(ctx, g):
+        net, dst, src, tag = ctx.args
+        g = g.contiguous()
+        back = torch.empty_like(g)
+        net.wait(net.post(g, back, src, dst, tag))
+        return back, None, None, None, None, None, None
 
 
 def ring_transpose(x: torch.Tensor, group, split_axis: int, concat_axis: int,
@@ -576,18 +682,26 @@ def _ring_transpose_impl(x: torch.Tensor, group, split_axis: int,
             b = encode_fn(b) if encode_fn is not None else wire_encode(b, wire)
         return inject.taint_wire(b, "ring").contiguous()
 
-    # Revolving receive buffers, each the size of the largest sub-block.
+    # Revolving receive buffers, each the size of the largest sub-block;
+    # a block that autograd tracks lands in a buffer of its own instead
+    # (a later micro-step must not overwrite what its graph holds).
     w = min(depth - 1, micro) if overlap else 0
     probe = encoded(piece(1, 0))
+    tracked = torch.is_grad_enabled() and x.requires_grad
     unit = probe.numel()
-    bufs = [torch.empty(unit, dtype=probe.dtype, device=x.device)
-            for _ in range(min(w + 1, micro))]
+    bufs = [] if tracked else [
+        torch.empty(unit, dtype=probe.dtype, device=x.device)
+        for _ in range(min(w + 1, micro))]
 
     def post(m: int):
         t, j = (m - 1) // nsub + 1, (m - 1) % nsub
         send = probe if m == 1 else encoded(piece(t, j))
-        recv = bufs[m % len(bufs)][:send.numel()].view(send.shape)
-        return net.post(send, recv, (r + t) % p, (r - t) % p, m), recv
+        recv = (bufs[m % len(bufs)][:send.numel()].view(send.shape)
+                if bufs else None)
+        handles = []
+        recv = _RingStep.apply(send, net, (r + t) % p, (r - t) % p, m, recv,
+                               handles)
+        return handles[0], recv
 
     def arrive(b: torch.Tensor) -> torch.Tensor:
         if arrive_fn is not None:

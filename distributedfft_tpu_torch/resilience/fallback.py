@@ -160,11 +160,11 @@ def ladder_preview(cfg) -> list:
 
 
 # The pipeline caches of the port's plans (slab and base: ``_r2c`` /
-# ``_c2r``; batched: ``_fwd`` / ``_inv``; pencil: one per depth), cleared
-# on any config change so the next exec rebuilds under the demoted
-# rendering.
+# ``_c2r``; batched: ``_fwd`` / ``_inv``; pencil: one per depth; every
+# family's ``forward_fn`` / ``inverse_fn`` in ``_pure``), cleared on any
+# config change so the next call rebuilds under the demoted rendering.
 _CACHE_ATTRS = ("_r2c", "_c2r", "_fwd", "_inv")
-_CACHE_DICTS = ("_fwd_d", "_inv_d")
+_CACHE_DICTS = ("_fwd_d", "_inv_d", "_pure")
 
 
 def apply_config(plan, cfg) -> None:

@@ -35,7 +35,9 @@ def test_import_pulls_in_no_jax():
     assert {f"distributedfft_tpu_torch.{m}" for m in (
         "obs", "obs.flightrec", "obs.metrics", "obs.tracing", "resilience",
         "resilience.circuit", "resilience.deadline", "resilience.fallback",
-        "resilience.guards", "resilience.inject", "resilience.selftest")
+        "resilience.guards", "resilience.inject", "resilience.selftest",
+        "solvers", "solvers.convolve", "solvers.navier_stokes",
+        "solvers.poisson", "solvers.r2r", "testing.workloads")
     } <= set(MODULES)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
