@@ -138,7 +138,23 @@ once, before any rank is spawned) and then, under
    central differences, the "pallas" backward raising); and two ranks
    sharing the card: Poisson at 512^3 against one card, a Dirichlet box
    extended on the split axis, the guarded bf16-wire solve on a ring
-   (kernels 9-11) and the roundtrip's gradient across the ranks.
+   (kernels 9-11) and the roundtrip's gradient across the ranks;
+13. runs the autotune, wisdom and persistence slice (``wisdom_phase``;
+   ``wisdom_only()`` runs it alone): the 1024^3 slab plan with
+   ``fft_backend="auto"`` (every candidate's time and error, the
+   "pallas" cell on kernels 1-3, the winner against ``torch.fft``, the
+   second construction racing nothing), the 8 x 4320^2 batched plan's
+   race (kernels 2, 4 and 5's tile bodies) beside both backends' plan
+   times, on two ranks the all-"auto" comm and wire race at 256^3 (the
+   fused wire's twins on kernels 9 and 10, equal Configs on both ranks,
+   the comm record, a second construction racing nothing), the fraction
+   chain (``dfft-torch-reference -t 4``) and a check-mode wire demotion
+   under ``wire:nan`` stamping the record the next construction re-races;
+   ``dfft-torch-reference --autotune`` at 1024^3 and ``dfft-torch-slab
+   -comm auto --fft-backend auto`` at 512^3; NS-3D at 512^3 on kernels
+   6-8: 2 steps, a checkpoint, restore, 2 steps bit-equal to 4 straight
+   ones, a corrupted newest generation falling back one, the write, read
+   and CRC32C rates of the 1.62 GB state.
 
 Phases print JSON lines. Before the last line come one
 ``{"matmul_backend": ...}`` line (the matmul backend is no kernel), one
@@ -148,12 +164,13 @@ Phases print JSON lines. Before the last line come one
 the script exits non-zero with no result line; so does a machine without a
 CUDA device, or a directory without the port. On the way out it stops
 every process it started (the ranks, multiprocessing's resource tracker)
-and any descendant they left behind. Takes about 450 s on an
+and any descendant they left behind. Takes about 600 s on an
 H100, the kernels' build (25-55 s), the matmul backend's phase (about
 10 s), the executables' phase (about 60 s, most of it the host's random
 draws), the pencil's (about 170 s, most of it gloo's host-staged
-exchanges), the batched and Bluestein phases, the resilience phases and
-the solvers' (about 45 s) included.
+exchanges), the batched and Bluestein phases, the resilience phases, the
+solvers' (about 45 s) and the wisdom phase's (about 140 s, most of it
+the matmul candidates of the two 1024^3 races) included.
 """
 
 from __future__ import annotations
@@ -4098,6 +4115,496 @@ def solvers_only() -> int:
     return 0
 
 
+# -- 13. autotune, wisdom and persistence ------------------------------------
+
+WISDOM_N = NBIG                 # (a): the local race of the 1024^3 plan
+WISDOM_BATCHED = (8, 4320, 4320)  # (b): the convolution's 5-smooth extent
+WISDOM_COMM_N = 256             # (c): the comm race, cut from 512^3
+WISDOM_T4_N = 128               # (d): the fraction chain over two ranks
+WISDOM_K = 2                    # chain length of every race: one (t_2 - t_1)
+WISDOM_REPEATS = 1              # pair a cell (a 1024^3 matmul@high roundtrip
+                                # takes 1.7 s on the card: the race's cost)
+WISDOM_CLI_N = N                # (d): the slab executable's "auto" run
+CKPT_N = N                      # (f): NS-3D 512^3, 3 x 512 x 512 x 257
+CKPT_DT = 1e-3
+LOCAL_KERNELS = ("rmatmul", "cmatmul", "c2r")   # kernels 1-3
+SPLIT_KERNELS = ("cmatmul", "cmatmul_tw", "rmatmul_tw")  # 2, 4, 5: 4320
+
+
+@contextlib.contextmanager
+def race_log(hf, at):
+    """Record each race cell's launches (counted from zero inside the
+    cell) and the ranked candidates of each local race while the block
+    runs; yields {"cells": {label: launches}, "local": [ranked...]}.
+    Measurement only: the cells and the races run unchanged."""
+    log = {"cells": {}, "local": []}
+    orig_cell, orig_local = at._call_with_timeout, at.autotune_local_fft
+
+    def cell(fn, label):
+        hf.reset_launches()
+        try:
+            return orig_cell(fn, label)
+        finally:
+            log["cells"][label] = counted(hf)
+
+    def local(*a, **kw):
+        ranked = orig_local(*a, **kw)
+        log["local"].append([dict(label=c.label, ms=c.per_iter_ms,
+                                  rel_err=c.rel_err, ok=c.ok, error=c.error)
+                             for c in ranked])
+        return ranked
+
+    at._call_with_timeout, at.autotune_local_fft = cell, local
+    try:
+        yield log
+    finally:
+        at._call_with_timeout, at.autotune_local_fft = orig_cell, orig_local
+
+
+def race_cells(obs) -> int:
+    return int(obs.metrics.counter_value("autotune.race_cells"))
+
+
+def check_local_race(hf, log, what: str, kernels) -> dict:
+    """The ranked table of the one local race in ``log``: every
+    candidate measured or failed with a reason, the ok ones with a
+    positive time, fastest first; the "pallas" cell launched exactly
+    ``kernels``."""
+    if len(log["local"]) != 1:
+        fail(f"{what}: {len(log['local'])} local races, not 1")
+    table = log["local"][0]
+    ok = [c for c in table if c["ok"]]
+    if not ok or any(not (c["ms"] > 0) for c in ok):
+        fail(f"{what}: a usable candidate without a positive time: {table}")
+    if [c["ms"] for c in ok] != sorted(c["ms"] for c in ok) or \
+            table[:len(ok)] != ok:
+        fail(f"{what}: the ranking is not fastest first: {table}")
+    pallas = log["cells"].get("pallas")
+    if pallas is None or {k for k, v in pallas.items() if v} != set(kernels):
+        fail(f"{what}: the pallas cell launched {pallas}, not {kernels}")
+    return {"table": table, "winner": table[0]["label"],
+            "pallas_cell_launches": pallas}
+
+
+def wisdom_local(torch, dft, hf, obs, at, wisdom, dev, store):
+    """(a): the 1024^3 slab plan with fft_backend="auto": the race on the
+    miss, the plan against torch.fft, the second construction a hit."""
+    n = WISDOM_N
+    g = dft.GlobalSize(n, n, n)
+    cfg = dft.Config(fft_backend="auto", wisdom_path=store)
+    t0 = time.perf_counter()
+    with race_log(hf, at) as log:
+        plan = dft.SlabFFTPlan(g, dft.SlabPartition(1), cfg)
+    race_s = time.perf_counter() - t0
+    row = check_local_race(hf, log, f"local race {n}^3", LOCAL_KERNELS)
+    winner = plan.config.fft_backend
+    if not row["winner"].startswith(winner):
+        fail(f"local race {n}^3: plan took {winner}, race {row['winner']}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    x = torch.rand((n, n, n), generator=gen, device=dev)
+    c, back, lf_, li, _, _ = run_counted(torch, hf, plan, x)
+    _, fwd_rel = rel_err(c, torch.fft.rfftn(x))
+    _, rt_rel = rel_err(back / float(n ** 3), x)
+    del c, back
+    cells0 = race_cells(obs)
+    t1 = time.perf_counter()
+    again = dft.SlabFFTPlan(g, dft.SlabPartition(1), cfg)
+    hit_s = time.perf_counter() - t1
+    _, _, lf2, li2, _, _ = run_counted(torch, hf, again, x)
+    want = ((expect(hf, rmatmul=1, cmatmul=2), expect(hf, cmatmul=2, c2r=1))
+            if winner == "pallas" else (lf_, li))
+    if not (fwd_rel <= TOL and rt_rel <= TOL):
+        fail(f"local race {n}^3: {winner} plan rel {fwd_rel:.3e} / "
+             f"{rt_rel:.3e}")
+    if race_cells(obs) != cells0 or again.config != plan.config:
+        fail(f"local race {n}^3: the second construction raced "
+             f"({race_cells(obs) - cells0} cells) or resolved "
+             f"{again.config} != {plan.config}")
+    if (lf_, li) != want or (lf2, li2) != want:
+        fail(f"local race {n}^3: {winner} plans launched {lf_}/{li} and "
+             f"{lf2}/{li2}, not {want}")
+    row.update(path=f"wisdom_local_{n}", resolved=winner,
+               race_seconds=race_s, hit_seconds=hit_s, forward_rel=fwd_rel,
+               roundtrip_rel=rt_rel, launches_forward=lf_,
+               launches_inverse=li)
+    emit(phase="wisdom_local", **row)
+    del plan, again, x
+    torch.cuda.empty_cache()
+    return {f"wisdom_local_{n}": combine(lf_, 1, li, 1)}, row
+
+
+def wisdom_batched(torch, dft, hf, obs, at, wisdom, dev, store):
+    """(b): the 8 x 4320^2 batched plan with fft_backend="auto" (raced as
+    a 3D roundtrip of the block, as in the JAX package), its winner
+    beside both backends' own plan times."""
+    b, nx, ny = WISDOM_BATCHED
+    cfg = dft.Config(fft_backend="auto", wisdom_path=store)
+    t0 = time.perf_counter()
+    with race_log(hf, at) as log:
+        plan = dft.Batched2DFFTPlan(b, nx, ny, dft.SlabPartition(1), cfg)
+    race_s = time.perf_counter() - t0
+    row = check_local_race(hf, log, f"local race {b}x{nx}^2",
+                           SPLIT_KERNELS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+    x = torch.rand((b, nx, ny), generator=gen, device=dev)
+    c, back, lf_, li, _, _ = run_counted(torch, hf, plan, x)
+    _, fwd_rel = rel_err(c, torch.fft.rfft2(x))
+    _, rt_rel = rel_err(back / float(nx * ny), x)
+    del c, back
+    if not (fwd_rel <= TOL and rt_rel <= TOL):
+        fail(f"batched race: {plan.config.fft_backend} rel {fwd_rel:.3e} / "
+             f"{rt_rel:.3e}")
+    cells0 = race_cells(obs)
+    again = dft.Batched2DFFTPlan(b, nx, ny, dft.SlabPartition(1), cfg)
+    if race_cells(obs) != cells0 or again.config != plan.config:
+        fail("batched race: the second construction raced or differed")
+    plan_ms = {}
+    for be in ("pallas", "xla"):
+        p = dft.Batched2DFFTPlan(b, nx, ny, dft.SlabPartition(1),
+                                 dft.Config(fft_backend=be))
+        spec = p.exec_forward(x)
+        plan_ms[be] = {
+            "forward": median_ms(torch, lambda: p.exec_forward(x), reps=5),
+            "inverse": median_ms(torch, lambda: p.exec_inverse(spec),
+                                 reps=5)}
+        del p, spec
+    row.update(path=f"wisdom_batched_{b}x{nx}", resolved=plan.config
+               .fft_backend, race_seconds=race_s, forward_rel=fwd_rel,
+               roundtrip_rel=rt_rel, launches_forward=lf_,
+               launches_inverse=li, plan_ms=plan_ms)
+    emit(phase="wisdom_batched", **row)
+    del plan, again, x
+    torch.cuda.empty_cache()
+    return {f"wisdom_batched_{b}x{nx}": combine(lf_, 1, li, 1)}, row
+
+
+def wisdom_rank_main(rank: int, addr: str, outdir: str, store: str) -> None:
+    """(c) and (e) on two ranks sharing the card over gloo, and (d)'s
+    ``dfft-torch-reference -t 4``: the comm and wire race of an all-"auto"
+    Config (the pallas backend, the fused wire), both ranks' resolutions,
+    the second construction; then the demotion stamp of a check-mode wire
+    demotion under an injected ``wire:nan``."""
+    import torch
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch import obs
+    from distributedfft_tpu_torch.cli import reference as cli_ref
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.parallel import multihost
+    from distributedfft_tpu_torch.testing import autotune as at
+    from distributedfft_tpu_torch.utils import wisdom
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.maybe_initialize(addr, RANKS, rank, backend="gloo",
+                               timeout_s=600)
+    n = WISDOM_COMM_N
+    g = dft.GlobalSize(n, n, n)
+    part = dft.SlabPartition(RANKS)
+    out = {"rank": rank}
+    cfg = dft.Config(comm_method="auto", wire_dtype="auto", fused_wire=True,
+                     fft_backend="pallas", wisdom_path=store)
+    t0 = time.perf_counter()
+    with race_log(hf, at) as log:
+        plan = dft.SlabFFTPlan(g, part, cfg)
+    out["race_seconds"] = time.perf_counter() - t0
+    out["cells"] = log["cells"]
+    out["resolved"] = wisdom._describe_comm(plan.config)
+    out["resolved_vec"] = wisdom._resolved_vec(plan.config).tolist()
+    dev = plan.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+    x = torch.rand((n, n, n), generator=gen, device=dev)
+    xl = plan.pad_input(x)
+    c, back, lf_, li, _, _ = run_counted(torch, hf, plan, xl)
+    _, out["forward_rel"] = rel_err(
+        c, torch.fft.rfftn(x)[plan.local_slices(output=True)])
+    _, out["roundtrip_rel"] = rel_err(back / float(n ** 3), xl)
+    out["launches"] = combine(lf_, 1, li, 1)
+    cells0 = race_cells(obs)
+    again = dft.SlabFFTPlan(g, part, cfg)
+    out["second_raced_cells"] = race_cells(obs) - cells0
+    out["second_same"] = again.config == plan.config
+    del plan, again, c, back
+
+    # (d): the fraction chain of the reference executable over both ranks.
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    m = WISDOM_T4_N
+    with contextlib.redirect_stdout(buf):
+        rc = cli_ref.main(["-nx", str(m), "-ny", str(m), "-nz", str(m),
+                           "-t", "4", "-i", "3"])
+    out["reference_t4"] = {"rc": rc, "text": buf.getvalue().strip(),
+                           "seconds": time.perf_counter() - t0}
+
+    # (e): an explicit bf16 wire under check-mode guards; the comm race
+    # records its winner, an injected NaN on the wire demotes the wire,
+    # the stamp lands on the record, the next construction re-races.
+    cfg_e = dft.Config(comm_method="auto", wire_dtype="bf16",
+                       fft_backend="pallas", guards="check",
+                       wisdom_path=store)
+    plan = dft.SlabFFTPlan(g, part, cfg_e)
+    key = wisdom.plan_wisdom_key(plan)
+    os.environ["DFFT_FAULT_SPEC"] = "wire:nan"
+    try:
+        plan.exec_r2c(xl)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["DFFT_FAULT_SPEC"]
+    out["demoted_wire"] = plan.config.wire_dtype
+    ws = wisdom.WisdomStore(store)
+    out["stamps"] = {s: bool((ws.lookup(key, s) or {}).get("demoted"))
+                     for s in ("comm", "wire")}
+    _, prov = wisdom.peek_config("slab", g, part, cfg_e,
+                                 sequence=plan.sequence, device=dev)
+    out["peek"] = prov["slots"].get("comm")
+    cells0 = race_cells(obs)
+    dft.SlabFFTPlan(g, part, cfg_e)
+    out["reraced_cells"] = race_cells(obs) - cells0
+    with open(os.path.join(outdir, f"wisdom_rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    multihost.shutdown()
+
+
+def wisdom_ranks(multihost, outdir, store) -> tuple:
+    """Spawn (c)-(e)'s two ranks and gate what they report."""
+    import torch.multiprocessing as tmp
+    t0 = time.perf_counter()
+    tmp.spawn(wisdom_rank_main,
+              args=(multihost.local_coordinator(), outdir, store),
+              nprocs=RANKS, join=True)
+    ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(outdir, f"wisdom_rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    r0 = ranks[0]
+    if any(rk["resolved_vec"] != r0["resolved_vec"] for rk in ranks):
+        fail(f"comm race: the ranks resolved different Configs: "
+             f"{[rk['resolved'] for rk in ranks]}")
+    with open(store) as fh:
+        entries = json.load(fh)["entries"]
+    slots = sorted({s for e in entries.values() for s in e})
+    if not any("comm" in e for e in entries.values()):
+        fail(f"comm race: no comm record in the store ({slots})")
+    for rk in ranks:
+        if rk["second_raced_cells"] or not rk["second_same"]:
+            fail(f"comm race: rank {rk['rank']}'s second construction "
+                 f"raced {rk['second_raced_cells']} cells")
+        if not (rk["forward_rel"] <= WIRE_TOL
+                and rk["roundtrip_rel"] <= WIRE_TOL):
+            fail(f"comm race: rank {rk['rank']} resolved plan rel "
+                 f"{rk['forward_rel']:.3e} / {rk['roundtrip_rel']:.3e}")
+        for label, got in rk["cells"].items():
+            wire_k = {k for k in ("enc_pack", "dec_unpack", "dec_cmatmul")
+                      if got.get(k)}
+            ring16 = label.endswith("/bf16") and "/ring" in label
+            if ring16 and not {"enc_pack", "dec_unpack"} <= wire_k:
+                fail(f"comm race: the fused-wire twin {label} launched "
+                     f"{got}, not kernels 9 and 10")
+            if not ring16 and wire_k:
+                fail(f"comm race: {label} launched the wire kernels {got}")
+        t4 = rk["reference_t4"]
+        if t4["rc"] != 0 or (rk["rank"] == 0
+                             and "All2All fraction:" not in t4["text"]):
+            fail(f"reference -t 4 on rank {rk['rank']}: "
+                 f"{rk['reference_t4']}")
+        if rk["demoted_wire"] != "native" or not all(rk["stamps"].values()):
+            fail(f"demotion: rank {rk['rank']} wire {rk['demoted_wire']}, "
+                 f"stamps {rk['stamps']}")
+        peek = rk["peek"] or {}
+        if peek.get("status") != "miss" or "demoted" not in \
+                str(peek.get("reason")) or not rk["reraced_cells"]:
+            fail(f"demotion: rank {rk['rank']}'s next construction did not "
+                 f"see the stamp: {peek}, re-raced {rk['reraced_cells']}")
+    emit(phase="wisdom_ranks", ranks=RANKS, shape=[WISDOM_COMM_N] * 3,
+         exchange="gloo, host-staged, 2 ranks on 1 card",
+         winner=r0["resolved"], store_slots=slots,
+         cells={label: {k: v for k, v in got.items() if v}
+                for label, got in r0["cells"].items()},
+         per_rank=[{k: rk[k] for k in rk if k != "cells"} for rk in ranks],
+         seconds=time.perf_counter() - t0)
+    launches = {f"wisdom_comm_{WISDOM_COMM_N}_rank0": r0["launches"]}
+    for label, got in r0["cells"].items():
+        launches[f"wisdom_comm_cell_{label}_rank0"] = got
+    return launches, r0
+
+
+def wisdom_cli(torch, dft, hf, at, store, store_cli):
+    """(d) on one card: ``dfft-torch-reference --autotune`` at 1024^3
+    records its winner; ``dfft-torch-slab -comm auto --fft-backend auto``
+    at 512^3 resolves and runs."""
+    import functools
+    from distributedfft_tpu_torch.cli import reference as cli_ref
+    from distributedfft_tpu_torch.cli import slab as cli_slab
+    from distributedfft_tpu_torch.utils import wisdom
+    n = WISDOM_N
+    orig = at.autotune_local_fft
+    # One timing pair per cell (the executable's own repeats are 3 x 3).
+    at.autotune_local_fft = functools.partial(orig, repeats=WISDOM_REPEATS,
+                                              inner=1)
+    try:
+        text, got, _, secs = cli_run(
+            torch, hf, cli_ref.main,
+            ["-nx", str(n), "-ny", str(n), "-nz", str(n), "--autotune",
+             "--autotune-k", str(WISDOM_K), "--wisdom", store_cli])
+    finally:
+        at.autotune_local_fft = orig
+    rec = wisdom.WisdomStore(store_cli).lookup(
+        wisdom.local_key((n, n, n), False, "cuda"), "local_fft")
+    if rec is None or "wisdom: winner recorded" not in text:
+        fail(f"reference --autotune recorded nothing: {text}")
+    m = WISDOM_CLI_N
+    bdir = tempfile.mkdtemp(prefix="chip_smoke_wisdom_cli_")
+    text2, got2, _, secs2 = cli_run(
+        torch, hf, cli_slab.main,
+        ["-nx", str(m), "-ny", str(m), "-nz", str(m), "-t", "0", "-i", "3",
+         "-comm", "auto", "--fft-backend", "auto", "--wisdom", store,
+         "-b", bdir])
+    if "Run complete:" not in text2:
+        fail(f"slab -comm auto --fft-backend auto: {text2}")
+    row = dict(reference_autotune=dict(text=text, seconds=secs,
+                                       record=rec, launches=got),
+               slab_auto=dict(text=text2, seconds=secs2, launches=got2))
+    emit(phase="wisdom_cli", **row)
+    return {"wisdom_cli_reference_autotune": got,
+            "wisdom_cli_slab_auto": got2}, row
+
+
+def wisdom_persist(torch, dft, hf, obs, dev, ckdir):
+    """(f): NS-3D at 512^3 under "pallas" (kernels 6-8): 2 steps,
+    checkpoint, restore, 2 steps, bit-equal to 4 straight steps; a
+    corrupted newest generation falls back exactly one generation; write,
+    read and CRC32C rates of the 1.62 GB state."""
+    from distributedfft_tpu_torch import persist
+    from distributedfft_tpu_torch.persist import checkpoint as ck
+    from distributedfft_tpu_torch.solvers import NavierStokes3D
+    n = CKPT_N
+    plan = dft.SlabFFTPlan(dft.GlobalSize(n, n, n), dft.SlabPartition(1),
+                           dft.Config(fft_backend="pallas"))
+    ns = NavierStokes3D(plan, 1e-3)
+    step = ns.step_fn(CKPT_DT)
+    t = torch.arange(n, device=dev, dtype=torch.float32) * (2 * math.pi / n)
+    cx, sx = torch.cos(t), torch.sin(t)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 93)
+    u0 = torch.stack([cx[:, None, None] * sx[None, :, None] * sx[None, None],
+                      -sx[:, None, None] * cx[None, :, None] * sx[None, None],
+                      torch.zeros((n, n, n), device=dev)])
+    u0 = u0 + 1e-3 * torch.rand(u0.shape, generator=gen, device=dev)
+    with torch.no_grad():
+        w0 = ns.to_spectral(u0)
+        del u0
+        hf.reset_launches()
+        w = step(w0)
+        torch.cuda.synchronize()
+        per_step = counted(hf)
+        w = step(w)
+        straight = step(step(w))
+        torch.cuda.synchronize()
+    store = persist.CheckpointStore(ckdir)
+    sim = persist.capture(ns, w, step=2, dt=CKPT_DT)
+    nbytes = sum(a.nbytes for a in sim.arrays.values())
+    t0 = time.perf_counter()
+    store.save(sim)
+    write_s = time.perf_counter() - t0
+    fp = persist.plan_fingerprint(plan)
+    t0 = time.perf_counter()
+    back = store.load(expect_fingerprint=fp)
+    read_s = time.perf_counter() - t0
+    with torch.no_grad():
+        r = persist.restore(back, ns)
+        resumed = step(step(r))
+        torch.cuda.synchronize()
+    diffs = [int((a != b).sum()) for a, b in zip(resumed, straight)]
+    if any(diffs):
+        fail(f"resume {n}^3: {diffs} elements differ from 4 straight steps")
+    # The newest generation damaged as it lands: load falls back one.
+    sim4 = persist.capture(ns, straight, step=4, dt=CKPT_DT)
+    os.environ["DFFT_FAULT_SPEC"] = "checkpoint:corrupt@seed=1000"
+    try:
+        store.save(sim4)
+    finally:
+        del os.environ["DFFT_FAULT_SPEC"]
+    fb0 = obs.metrics.counter_value("persist.generation_fallbacks")
+    older = store.load(expect_fingerprint=fp)
+    fallbacks = obs.metrics.counter_value("persist.generation_fallbacks") \
+        - fb0
+    same = all(np.array_equal(older.arrays[k], sim.arrays[k])
+               for k in sim.arrays)
+    if older.step != 2 or fallbacks != 1 or not same:
+        fail(f"fallback {n}^3: loaded step {older.step}, {fallbacks} "
+             f"fallbacks, arrays equal {same}")
+    buf = sim.arrays["field0"]
+    ck.crc32c(buf.reshape(-1).view(np.uint8)[:1 << 20])  # the lanes warm
+    t0 = time.perf_counter()
+    crc = ck.crc32c(buf)
+    torch.cuda.synchronize()
+    crc_s = time.perf_counter() - t0
+    row = dict(path=f"persist_ns3d_{n}", state_bytes=nbytes,
+               state_gb=nbytes / 1e9, write_s=write_s, read_s=read_s,
+               write_gb_s=nbytes / write_s / 1e9,
+               read_gb_s=nbytes / read_s / 1e9,
+               crc_bytes=int(buf.nbytes), crc_s=crc_s,
+               crc_gb_s=buf.nbytes / crc_s / 1e9, crc=crc,
+               resume="bit-equal to 4 straight steps",
+               fallback_step=older.step, fallbacks=fallbacks,
+               launches_per_step=per_step)
+    emit(phase="wisdom_persist", **row)
+    del plan, ns, step, w, w0, straight, resumed, r, sim, sim4, back, older
+    torch.cuda.empty_cache()
+    return {f"persist_ns3d_{n}": per_step}, row
+
+
+def wisdom_phase(torch, dft, hf, multihost, dev, outdir):
+    """(a)-(f) of the autotune, wisdom and persistence slice: (the
+    launches of each path, the rows)."""
+    from distributedfft_tpu_torch import obs
+    from distributedfft_tpu_torch.testing import autotune as at
+    from distributedfft_tpu_torch.utils import wisdom
+    t0 = time.perf_counter()
+    os.environ["DFFT_WISDOM_K"] = str(WISDOM_K)
+    wisdom._RACE_REPEATS, wisdom._RACE_INNER = WISDOM_REPEATS, 1
+    wdir = tempfile.mkdtemp(prefix="chip_smoke_wisdom_")
+    store = os.path.join(wdir, "wisdom.json")
+    launches, rows = {}, {}
+    for fn in (wisdom_local, wisdom_batched):
+        t1 = time.perf_counter()
+        got, rows[fn.__name__] = fn(torch, dft, hf, obs, at, wisdom, dev,
+                                    store)
+        rows[fn.__name__]["seconds"] = time.perf_counter() - t1
+        launches.update(got)
+    got, rows["ranks"] = wisdom_ranks(multihost, outdir,
+                                      os.path.join(wdir, "ranks.json"))
+    launches.update(got)
+    got, rows["cli"] = wisdom_cli(torch, dft, hf, at, store,
+                                  os.path.join(wdir, "cli.json"))
+    launches.update(got)
+    got, rows["persist"] = wisdom_persist(torch, dft, hf, obs, dev,
+                                          os.path.join(wdir, "ckpt"))
+    launches.update(got)
+    emit(phase="wisdom_done", seconds=time.perf_counter() - t0)
+    return launches, rows
+
+
+def wisdom_only() -> int:
+    """Build the kernels and run the autotune, wisdom and persistence
+    phases alone: ``python3 -c "import sys, chip_smoke;
+    sys.exit(chip_smoke.wisdom_only())"``."""
+    import torch
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.ops import _build
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.parallel import multihost
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
+    launches, _ = wisdom_phase(torch, dft, hf, multihost,
+                               torch.device("cuda"),
+                               tempfile.mkdtemp(prefix="chip_smoke_w_"))
+    emit(phase="wisdom_only", launches=launches)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4578,6 +5085,10 @@ def main() -> int:
     got, _ = solvers_phase(torch, dft, hf, multihost, dev, outdir)
     launches.update(got)
     emit(phase="solvers_done", seconds=time.perf_counter() - t0)
+
+    # -- 8g. autotune, wisdom and persistence --------------------------------
+    got, _ = wisdom_phase(torch, dft, hf, multihost, dev, outdir)
+    launches.update(got)
 
     # -- 9. the kernels line, the card, the result ---------------------------
     def total_launches(name):

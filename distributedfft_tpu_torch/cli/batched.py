@@ -22,8 +22,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .common import (add_common_args, config_kwargs, refuse_later_items, run,
-                     run_testcase, setup_backend)
+from .common import (add_common_args, config_kwargs, maybe_autotune_comm,
+                     refuse_later_items, run, run_testcase, setup_backend)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,17 +60,29 @@ def _body(args) -> int:
     from .. import params as pm
     from ..models.batched2d import Batched2DFFTPlan
     from ..parallel import multihost
+    from ..testing.testcases import say
 
     device = setup_backend(args)
     p = args.partitions or multihost.world()[1]
-    cfg = pm.Config(comm_method=pm.CommMethod.parse(args.comm_method),
+    cfg = pm.Config(comm_method=pm.parse_comm_method(args.comm_method),
                     send_method=pm.SendMethod.parse(args.send_method),
                     **config_kwargs(args))
+    transform = "c2c" if args.c2c else "r2c"
+    if getattr(args, "autotune_comm", False):
+        if args.shard != "x":
+            say("autotune-comm: shard='batch' issues no collectives; "
+                "nothing to tune")
+        else:
+            g = pm.GlobalSize(args.input_dim_z, args.input_dim_x,
+                              args.input_dim_y)  # (batch, nx, ny) slots
+            cfg = maybe_autotune_comm(args, "batched2d", g,
+                                      pm.SlabPartition(p), cfg, dims=2,
+                                      variant="x", transform=transform,
+                                      device=device)
     plan = Batched2DFFTPlan(
         batch=args.input_dim_z, nx=args.input_dim_x, ny=args.input_dim_y,
         partition=pm.SlabPartition(p), config=cfg, shard=args.shard,
-        transform="c2c" if args.c2c else "r2c",
-        batch_chunk=args.batch_chunk, device=device)
+        transform=transform, batch_chunk=args.batch_chunk, device=device)
     # dims=2: the unnormalized roundtrip's factor is nx * ny.
     return run_testcase(plan, args, dims=2)
 

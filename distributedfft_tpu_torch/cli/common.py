@@ -13,15 +13,21 @@ runs the body itself.
 
 ``--guards`` sets ``Config.guards``; ``--selftest`` runs one roundtrip
 of the plan before the testcase and exits 1 on FAIL; ``--obs`` prints
-notices and a metrics snapshot, ``--obs-dir`` writes the event log. A flag
-whose feature the port does not have yet raises ``NotImplementedError``
-naming its ROADMAP Queue 1 item whenever it is given a value other than
-its default (``refuse_later_items``); none is ignored.
+notices and a metrics snapshot, ``--obs-dir`` writes the event log.
+``--fft-backend auto``, ``-comm auto`` and ``-wire auto`` are resolved
+by measurement when the plan is built, through the wisdom store of
+``--wisdom`` / ``$DFFT_WISDOM`` (``--no-wisdom``: none);
+``--autotune-comm`` races the comm matrix first, prints it and runs (and
+records) the winner. A flag whose feature the port does not have yet
+raises ``NotImplementedError`` naming its ROADMAP Queue 1 item whenever
+it is given a value other than its default (``refuse_later_items``);
+none is ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import os
@@ -36,9 +42,9 @@ from ..ops.fft import BACKENDS
 from ..parallel import multihost
 
 # The ROADMAP Queue 1 items whose flags still raise (items keep their
-# numbers once done: 1-9 run, and item 12's host core: --obs, --obs-dir).
+# numbers once done: 1-11 and 13 run, and item 12's host core: --obs,
+# --obs-dir).
 LATER_ITEMS = {
-    11: "ROADMAP Queue 1, item 11 (autotune and wisdom)",
     12: "ROADMAP Queue 1, item 12 (observability: the device profiles)",
 }
 
@@ -84,7 +90,8 @@ def add_common_args(ap: argparse.ArgumentParser, pencil: bool = False,
                          "kernels ('pallas') or the chirp-z transform for "
                          "any axis length ('bluestein')")
     ap.add_argument("--wisdom", default=None, metavar="PATH",
-                    help="persistent plan-wisdom store (not ported yet)")
+                    help="persistent plan-wisdom store of the 'auto' "
+                         "races (default $DFFT_WISDOM)")
     ap.add_argument("--no-wisdom", action="store_true",
                     help="never consult or write the wisdom store")
     ap.add_argument("--emulate-devices", type=int,
@@ -108,7 +115,10 @@ def add_common_args(ap: argparse.ArgumentParser, pencil: bool = False,
                          "DFFT_PROCESS_ID)")
     if comm_tunable:
         ap.add_argument("--autotune-comm", action="store_true",
-                        help="race the comm-strategy matrix (not ported yet)")
+                        help="race the comm-strategy matrix (comm method x "
+                             "send method x opt x wire) on this shape, "
+                             "print it and run the winner (recorded in "
+                             "the wisdom store when one is configured)")
     snd_help = ("Sync (monolithic exchange) | Streams (the exchange in "
                 "pieces of the free axis) | Ring (point-to-point ring; owns "
                 "the rendering regardless of comm method) | RingOverlap "
@@ -168,22 +178,67 @@ def add_common_args(ap: argparse.ArgumentParser, pencil: bool = False,
 def refuse_later_items(args) -> None:
     """Raise ``NotImplementedError`` for the first flag that asks for a
     feature of a later ROADMAP item."""
-    comms = [str(v).strip().lower() for v in
-             (getattr(args, k, None) for k in ("comm_method", "comm_method1",
-                                               "comm_method2"))
-             if v is not None]
     for flag, item, on in (
-            ("--autotune-comm", 11, getattr(args, "autotune_comm", False)),
-            ("--autotune", 11, getattr(args, "autotune", False)),
-            ("--wisdom", 11, args.wisdom is not None),
-            ("-comm auto", 11, pm.AUTO in comms),
-            ("--fft-backend auto", 11, args.fft_backend == pm.AUTO),
-            ("-wire auto", 11, args.wire_dtype == pm.AUTO),
             ("--profile-dir", 12, args.profile_dir is not None),
             ("--profile-stages", 12, args.profile_stages)):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet ({LATER_ITEMS[item]})")
+
+
+def maybe_autotune_comm(args, kind: str, global_size, partition, cfg,
+                        sequence=None, dims: int = 3,
+                        variant: Optional[str] = None,
+                        transform: str = "r2c",
+                        device: "str | torch.device" = "cuda"):
+    """--autotune-comm: race the comm matrix for this shape over the ranks,
+    print the table and return the winning Config (``cfg`` itself when the
+    flag is off). ``dims`` (the pencil's depth) and ``transform`` make the
+    race time the program the run executes. The winner is recorded in the
+    wisdom store when one is configured, so ``-comm auto`` reuses it."""
+    if not getattr(args, "autotune_comm", False):
+        return cfg
+    from ..testing import autotune as at
+    from ..testing.testcases import say
+    from ..utils import wisdom
+
+    if dims < 2:
+        say("autotune-comm: dims=1 performs no transpose; nothing to tune")
+        return cfg
+    say(f"autotuning comm strategies for {global_size.shape} "
+        f"({kind}, {partition.num_ranks} ranks, dims={dims}):")
+    base = cfg  # the config the send=None candidates are timed on
+    if pm.AUTO in (base.comm_method, base.comm_method2):
+        base = dataclasses.replace(
+            base, comm_method=pm.CommMethod.ALL2ALL,
+            comm_method2=(None if base.comm_method2 == pm.AUTO
+                          else base.comm_method2))
+    ranked = at.autotune_comm(kind, global_size, partition, base,
+                              sequence=sequence, dims=dims,
+                              transform=transform,
+                              iterations=max(args.iterations, 3),
+                              warmup=max(args.warmup_rounds, 1),
+                              race_send=True,
+                              # -wire auto hands the wire axis to this race;
+                              # an explicit -wire is kept, not re-raced.
+                              race_wire=cfg.wire_dtype == pm.AUTO,
+                              verbose=multihost.world()[0] == 0,
+                              device=device)
+    best = ranked[0]
+    cfg = at.apply_best_comm(ranked, base)
+    runner = ranked[1] if len(ranked) > 1 and ranked[1].ok else None
+    delta = (f", {runner.total_ms - best.total_ms:+.3f} ms vs next "
+             f"({runner.label})" if runner else "")
+    say(f"best: {best.label} ({best.total_ms:.3f} ms roundtrip{delta})")
+    store = wisdom.store_for_config(cfg)
+    if store is not None and best.ok:
+        key = wisdom.plan_key(kind, global_size.shape, cfg.double_prec,
+                              partition, cfg.norm, sequence=sequence,
+                              variant=variant, transform=transform,
+                              dims=dims, device=device)
+        if store.record(key, "comm", wisdom.comm_record(best, base)):
+            say(f"wisdom: comm winner recorded -> {store.path}")
+    return cfg
 
 
 def setup_obs(args) -> None:

@@ -16,8 +16,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .common import (add_common_args, config_kwargs, refuse_later_items, run,
-                     run_testcase, setup_backend)
+from .common import (add_common_args, config_kwargs, maybe_autotune_comm,
+                     refuse_later_items, run, run_testcase, setup_backend)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,15 +48,18 @@ def _body(args) -> int:
     device = setup_backend(args)
     g = pm.GlobalSize(args.input_dim_x, args.input_dim_y, args.input_dim_z)
     cfg = pm.Config(
-        comm_method=pm.CommMethod.parse(args.comm_method1),
+        comm_method=pm.parse_comm_method(args.comm_method1),
         send_method=pm.SendMethod.parse(args.send_method1),
-        comm_method2=(pm.CommMethod.parse(args.comm_method2)
+        comm_method2=(pm.parse_comm_method(args.comm_method2)
                       if args.comm_method2 else None),
         send_method2=(pm.SendMethod.parse(args.send_method2)
                       if args.send_method2 else None),
         **config_kwargs(args))
     part = pm.PencilPartition(args.partition1, args.partition2)
-    plan = tc.make_plan("pencil", g, part, cfg, device=device)
+    cfg = maybe_autotune_comm(args, "pencil", g, part, cfg,
+                              dims=args.fft_dim, device=device)
+    plan = tc.make_plan("pencil", g, part, cfg, device=device,
+                        dims=args.fft_dim)
     return run_testcase(plan, args, dims=args.fft_dim)
 
 

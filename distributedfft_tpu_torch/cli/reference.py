@@ -9,9 +9,13 @@ Testcases (``-o`` picks the exchange: 0 = Peer2Peer, 1 = All2All):
   1: the 1D geometry: the slab transpose over every rank of the world;
   2: the 2D geometry: a pencil transpose over one axis of a 1 x P grid;
   3: the 3D geometry: the 2 x P/2 grid, x held split while y becomes
-     z-split (P even and > 2).
-The fraction chain (testcase 4) and ``--autotune`` are ROADMAP Queue 1
-item 11; each raises ``NotImplementedError`` naming it.
+     z-split (P even and > 2);
+  4: the slab transpose's achieved fraction of the pure all-to-all's
+     ceiling (``microbench.transpose_fraction_chain``), over every rank.
+``--autotune`` races the local-FFT backends on this shape, prints the
+table and records the winner in the wisdom store (``--wisdom`` /
+``$DFFT_WISDOM``); testcase 0 with ``--fft-backend auto`` takes the
+recorded winner (or races and records one).
 """
 
 from __future__ import annotations
@@ -19,10 +23,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .common import (LATER_ITEMS, add_common_args, refuse_later_items,
+from .common import (add_common_args, print_obs_snapshot, refuse_later_items,
                      run, setup_backend)
-
-_LATER_TESTCASES = {4: LATER_ITEMS[11] + ": the fraction chain"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,7 +35,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--partition1", "-p1", type=int, default=0)
     ap.add_argument("--partition2", "-p2", type=int, default=0)
     ap.add_argument("--autotune", action="store_true",
-                    help="race the local-FFT backends (not ported yet)")
+                    help="race the local-FFT backends (xla / matmul / "
+                         "pallas ...) for this shape on the device and "
+                         "report the fastest within the accuracy budget")
     ap.add_argument("--autotune-budget", type=float, default=1e-4,
                     help="max roundtrip rel. error a backend may incur")
     ap.add_argument("--autotune-k", type=int, default=257,
@@ -44,10 +48,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     refuse_later_items(args)
-    if args.testcase in _LATER_TESTCASES:
-        raise NotImplementedError(
-            f"reference testcase {args.testcase} is not ported yet "
-            f"({_LATER_TESTCASES[args.testcase]})")
     return run("distributedfft_tpu_torch.cli.reference", args, argv)
 
 
@@ -69,16 +69,30 @@ def _body(args) -> int:
         from .. import params as pm
         from ..models.slab import SlabFFTPlan
         from ..resilience.selftest import run_selftest
+        be = args.fft_backend if args.fft_backend != pm.AUTO else "xla"
         plan = SlabFFTPlan(pm.GlobalSize(*shape), pm.SlabPartition(1),
                            pm.Config(double_prec=args.double_prec,
-                                     fft_backend=args.fft_backend,
-                                     guards=args.guards), device=device)
+                                     fft_backend=be, guards=args.guards),
+                           device=device)
         if not run_selftest(plan)["ok"]:
             print("selftest FAILED; aborting", file=sys.stderr)
             return 1
+    if args.autotune:
+        return _autotune(args, shape, device)
     if args.testcase == 0:
+        backend = args.fft_backend
+        if backend == "auto":
+            # A bare single-device transform: the wisdom store's local
+            # record (a miss races and records), as the plans resolve
+            # Config(fft_backend="auto").
+            from ..utils import wisdom
+            backend, rec = wisdom.resolve_local_backend(
+                shape, args.double_prec, path=args.wisdom,
+                enabled=not args.no_wisdom, device=device)
+            say(f"fft-backend auto -> {backend} "
+                f"({'wisdom' if rec is not None else 'fallback'})")
         ms = mb.single_device_fft_ms(shape, it, wu, dtype,
-                                     backend=args.fft_backend, device=device)
+                                     backend=backend, device=device)
         say(f"Run complete: {ms:.4f} ms (single-device 3D R2C, "
             f"{shape[0]}x{shape[1]}x{shape[2]})")
         return 0
@@ -96,8 +110,93 @@ def _body(args) -> int:
             f"moved in "
             f"{r['seconds'] * 1e3:.3f} ms, collectives={r['collective_ops']}]")
         return 0
+    if args.testcase == 4:
+        return _fraction(args, shape, dtype, it, wu, device)
     print(f"unknown testcase {args.testcase}", file=sys.stderr)
     return 2
+
+
+def _autotune(args, shape, device) -> int:
+    """--autotune: race, print, record the winner."""
+    from ..testing import autotune as at
+    from ..testing.testcases import say
+    from ..utils import wisdom
+
+    prec = "f64" if args.double_prec else "f32"
+    say(f"autotuning local FFT backends for {shape} {prec} on "
+        f"{device.type}:")
+    ranked = at.autotune_local_fft(shape, args.autotune_budget,
+                                   k=args.autotune_k,
+                                   double_prec=args.double_prec,
+                                   verbose=True, device=device)
+    best = ranked[0]
+    if not best.ok:
+        print(f"no usable backend: {at.describe_failures(ranked)}",
+              file=sys.stderr)
+        return 1
+    say(f"best: {best.label} ({best.per_iter_ms:.3f} ms/roundtrip, "
+        f"rel_err {best.rel_err:.2e})")
+    # The explicit "tune once": later --fft-backend auto runs of this
+    # shape reuse the recorded winner.
+    store = wisdom.open_store(args.wisdom, not args.no_wisdom)
+    if store is not None:
+        key = wisdom.local_key(shape, args.double_prec, device)
+        if store.record(key, "local_fft", wisdom.local_fft_record(best)):
+            say(f"wisdom: winner recorded -> {store.path}")
+    print_obs_snapshot(args)
+    return 0
+
+
+def _fraction(args, shape, dtype, it, wu, device) -> int:
+    """Testcase 4: the fraction gate over every rank."""
+    import numpy as np
+
+    from .. import params as pm
+    from ..models.slab import SlabFFTPlan
+    from ..parallel import multihost
+    from ..testing import microbench as mb
+    from ..testing.testcases import say
+
+    p = multihost.world()[1]
+    g = pm.GlobalSize(*shape)
+    plan = SlabFFTPlan(g, pm.SlabPartition(p),
+                       pm.Config(comm_method=pm.CommMethod.ALL2ALL,
+                                 double_prec=args.double_prec,
+                                 guards=args.guards,
+                                 overlap_depth=pm.parse_overlap_depth(
+                                     args.overlap_depth),
+                                 overlap_subblocks=args.overlap_subblocks,
+                                 use_wisdom=False),
+                       device=device)
+    x = plan.pad_input(np.random.default_rng(0).random(g.shape)
+                       .astype(dtype))
+    spec = plan.forward_stages()[0][1](x)
+    # --streams-chunks N > 1 adds the pieced exchange (opt1sN) to the
+    # selection race.
+    sc = args.streams_chunks
+    sv = (sc,) if sc and sc > 1 else ()
+    try:
+        r = mb.transpose_fraction_chain(plan, spec, repeats=max(it or 1, 3),
+                                        warmup=max(wu, 1),
+                                        streams_variants=sv)
+    except ValueError as e:     # shape / divisibility precondition
+        print(f"fraction gate unavailable for this shape: {e}",
+              file=sys.stderr)
+        return 2
+    if r.get("degenerate"):
+        print(f"fraction chain degenerate ({r['dropped']} repeats "
+              "noise-swamped; raise -i or use a bigger size)",
+              file=sys.stderr)
+        return 1
+    lo, hi = r["fraction_spread"]
+    rlo, rhi = r.get("fraction_range", (lo, hi))
+    say(f"All2All fraction: {r['fraction']:.3f} "
+        f"[{r.get('variant', 'opt0')}, IQR {lo:.3f}-{hi:.3f}, "
+        f"range {rlo:.3f}-{rhi:.3f}, "
+        f"pipeline {r['pipe_gb_per_s']:.3f} GB/s vs ceiling "
+        f"{r['raw_gb_per_s']:.3f} GB/s, k={r['k']}, "
+        f"{p} devices]")
+    return 0
 
 
 if __name__ == "__main__":

@@ -16,8 +16,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .common import (add_common_args, config_kwargs, refuse_later_items, run,
-                     run_testcase, setup_backend)
+from .common import (add_common_args, config_kwargs, maybe_autotune_comm,
+                     refuse_later_items, run, run_testcase, setup_backend)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,11 +47,14 @@ def _body(args) -> int:
     device = setup_backend(args)
     p = args.partitions or multihost.world()[1]
     g = pm.GlobalSize(args.input_dim_x, args.input_dim_y, args.input_dim_z)
-    cfg = pm.Config(comm_method=pm.CommMethod.parse(args.comm_method),
+    cfg = pm.Config(comm_method=pm.parse_comm_method(args.comm_method),
                     send_method=pm.SendMethod.parse(args.send_method),
                     **config_kwargs(args))
-    plan = tc.make_plan("slab", g, pm.SlabPartition(p), cfg,
-                        sequence=args.sequence, device=device)
+    part = pm.SlabPartition(p)
+    cfg = maybe_autotune_comm(args, "slab", g, part, cfg,
+                              sequence=args.sequence, device=device)
+    plan = tc.make_plan("slab", g, part, cfg, sequence=args.sequence,
+                        device=device)
     return run_testcase(plan, args)
 
 

@@ -125,9 +125,12 @@ class DistFFTPlan:
         self.partition = partition
         self.config = config or Config()
         if self.config.unresolved():
-            raise NotImplementedError(
-                "Config has unresolved 'auto' fields; wisdom resolution is "
-                "not ported yet (ROADMAP Queue 1, item 11)")
+            # The families resolve "auto" before they get here
+            # (utils/wisdom.resolve_config); a bare base plan cannot.
+            raise ValueError(
+                "Config has unresolved 'auto' fields: build a plan family "
+                "(it resolves them), or resolve the Config with "
+                "utils.wisdom.resolve_config first")
         self.device = resolve_device(device)
         self.real_dtype, self.complex_dtype = local_fft.dtypes_for(
             self.config.double_prec)

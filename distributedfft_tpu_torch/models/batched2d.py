@@ -59,6 +59,7 @@ from ..parallel.transpose import (concat_axis_chunks, exchange_body,
                                   slice_axis_to, split_axis_chunks)
 from ..utils.native_planner import padded_extent
 from ..resilience import fallback, guards
+from ..utils import wisdom
 from .base import AxisBlocks, Pipeline, notice_axis_smoothness, resolve_device
 from .slab import XPOSE_SECTIONS
 
@@ -81,12 +82,14 @@ class Batched2DFFTPlan(AxisBlocks):
             raise ValueError("batch/nx/ny must be positive")
         if batch_chunk == 0:
             batch_chunk = None      # 0 = the whole stack at once
-        self.config = config or pm.Config()
-        if self.config.unresolved():
-            raise NotImplementedError(
-                "Config has unresolved 'auto' fields; wisdom resolution is "
-                "not ported yet (ROADMAP Queue 1, item 11)")
         self.device = resolve_device(device)
+        # "auto" Config fields are settled here (see SlabFFTPlan);
+        # shard='batch' posts no exchange, so its comm "auto" resolves to
+        # the defaults without a race.
+        self.config = wisdom.resolve_config(
+            "batched2d", pm.GlobalSize(batch, nx, ny), partition,
+            config or pm.Config(), transform=transform, dims=2,
+            variant=shard, device=self.device, group=group)
         self.real_dtype, self.complex_dtype = lf.dtypes_for(
             self.config.double_prec)
         self._mxu_st = self.config.mxu_settings()
@@ -310,6 +313,10 @@ class Batched2DFFTPlan(AxisBlocks):
             raise ValueError(f"{direction} exec expected {whose} "
                              f"{tuple(local)}, got {tuple(a.shape)}")
         return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _wisdom_key_args(self) -> dict:
+        return {"kind": "batched2d", "variant": self.shard,
+                "transform": self.transform, "dims": 2}
 
     def _whole(self, forward: bool) -> Pipeline:
         return self.exec_forward if forward else self.exec_inverse

@@ -69,7 +69,8 @@ from ..parallel.transpose import (concat_axis_chunks, exchange_body,
                                   split_axis_chunks)
 from ..utils.native_planner import even_shard_sizes, padded_extent
 from ..resilience import fallback, guards
-from .base import (DistFFTPlan, Pipeline, logical_block,
+from ..utils import wisdom
+from .base import (DistFFTPlan, Pipeline, logical_block, resolve_device,
                    notice_axis_smoothness, to_plan, with_pad)
 
 # (split, concat) of each transpose, forward and inverse: transpose 1
@@ -100,9 +101,22 @@ class PencilFFTPlan(DistFFTPlan):
     def __init__(self, global_size: pm.GlobalSize,
                  partition: pm.PencilPartition,
                  config: Optional[pm.Config] = None, transform: str = "r2c",
-                 device: "str | torch.device" = "cuda", groups=None):
+                 device: "str | torch.device" = "cuda", groups=None,
+                 dims: int = 3):
         if transform not in ("r2c", "c2c"):
             raise ValueError(f"transform must be 'r2c' or 'c2c', got {transform!r}")
+        # "auto" Config fields are settled before anything reads the config
+        # (see SlabFFTPlan), agreed over the row and column groups (every
+        # rank creates all of them first). ``dims`` is a resolution hint
+        # only: the depth the run will execute keys the wisdom entry and
+        # bounds the comm race (at dims 2 only transpose 1 exists).
+        if (wisdom.unresolved(config or pm.Config()) and groups is None
+                and partition.num_ranks > 1):
+            groups = make_pencil_groups(partition.p1, partition.p2)
+        config = wisdom.resolve_config(
+            "pencil", global_size, partition, config, transform=transform,
+            dims=dims, device=resolve_device(device), groups=groups)
+        self._wisdom_dims = int(dims)
         super().__init__(global_size, partition, config, device)
         self.transform = transform
         self.p1, self.p2 = partition.p1, partition.p2
@@ -141,6 +155,10 @@ class PencilFFTPlan(DistFFTPlan):
                   send2=self.config.resolved_snd2().value,
                   opt=self.config.opt, wire=self.config.wire_dtype,
                   backend=self.config.fft_backend)
+
+    def _wisdom_key_args(self) -> dict:
+        return {"kind": "pencil", "transform": self.transform,
+                "dims": self._wisdom_dims}
 
     @property
     def groups(self) -> Tuple:

@@ -78,7 +78,9 @@ from ..parallel.transpose import (concat_axis_chunks, exchange_body,
                                   wire_complex_dtype)
 from ..utils.native_planner import even_shard_sizes, padded_extent
 from ..resilience.guards import GuardSpec, transform_spec
-from .base import AxisBlocks, DistFFTPlan, Pipeline, notice_axis_smoothness
+from ..utils import wisdom
+from .base import (AxisBlocks, DistFFTPlan, Pipeline, notice_axis_smoothness,
+                   resolve_device)
 
 _ODDITY_ITEM = "ROADMAP Queue 3 (the reference's P=1 Y_Then_ZX oddity)"
 
@@ -126,6 +128,12 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
             raise NotImplementedError(
                 f"slab sequence {sequence.value} on one rank is not ported "
                 f"({_ODDITY_ITEM})")
+        # "auto" Config fields are settled here, before anything reads the
+        # config: a wisdom hit folds the record, a miss races and records
+        # (utils/wisdom.py); a concrete Config passes through untouched.
+        config = wisdom.resolve_config(
+            "slab", global_size, partition, config, sequence=sequence,
+            transform=transform, device=resolve_device(device), group=group)
         super().__init__(global_size, partition, config, device)
         self.transform = transform
         self.sequence = sequence
@@ -164,6 +172,10 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
                   backend=self.config.fft_backend)
 
     # -- shapes & size tables ---------------------------------------------
+
+    def _wisdom_key_args(self) -> dict:
+        return {"kind": "slab", "sequence": self.sequence,
+                "transform": self.transform, "dims": 3}
 
     @property
     def output_shape(self) -> Tuple[int, int, int]:

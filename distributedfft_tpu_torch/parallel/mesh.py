@@ -17,6 +17,8 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
+import torch
 import torch.distributed as dist
 
 # Name of the slab decomposition axis (the JAX mesh axis name).
@@ -104,3 +106,50 @@ def best_pencil_grid(n: int) -> Tuple[int, int]:
         if n % p1 == 0:
             best = (p1, n // p1)
     return best
+
+
+def plan_groups(plan) -> tuple:
+    """The groups a value reduced or agreed over every rank of a built
+    ``plan`` runs over: none on one rank; a pencil plan's column group,
+    then its row group (a broadcast from each one's rank 0 reaches every
+    rank from rank (0, 0)); else the plan's one group (None: the world)."""
+    if getattr(plan, "fft3d", True):
+        return ()
+    if getattr(plan, "col_group", None) is not None:
+        return (plan.col_group, plan.row_group)
+    return (plan.group,)
+
+
+def agreement_groups(kind: str, partition, group=None, groups=None) -> tuple:
+    """``plan_groups`` of a ``kind`` plan over ``partition`` before it is
+    built: none on one rank or outside a world; a pencil plan's ``groups``
+    (``(row, column)``, else ``make_pencil_groups``'s) as column, row;
+    else ``group``."""
+    if partition.num_ranks <= 1 or not dist.is_initialized():
+        return ()
+    if kind == "pencil":
+        row, col = (groups if groups is not None
+                    else make_pencil_groups(partition.p1, partition.p2))
+        return (col, row)
+    return (group,)
+
+
+def broadcast_vec(vec, groups) -> np.ndarray:
+    """Rank 0's int64 vector on every rank of ``groups``: broadcast over
+    each group in turn from its rank 0. No group, or no world, passes
+    ``vec`` through. Under gloo it travels as a CPU tensor, under NCCL on
+    the current CUDA device."""
+    vec = np.asarray(vec, dtype=np.int64)
+    if not dist.is_initialized():
+        return vec
+    for g in groups:
+        if dist.get_world_size(g) <= 1:
+            continue
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend(g) == dist.Backend.NCCL
+               else torch.device("cpu"))
+        t = torch.from_numpy(vec.copy()).to(dev)
+        src = 0 if g is None else dist.get_global_rank(g, 0)
+        dist.broadcast(t, src=src, group=g)
+        vec = t.cpu().numpy()
+    return vec

@@ -473,6 +473,45 @@ def exchange_body(group, split_axis: int, concat_axis: int, *,
     return one
 
 
+class _Replicated(torch.autograd.Function):
+    """The autograd boundary of an input every rank holds whole (the
+    global image of a convolver, the global interior of an extended
+    Poisson box): forward the identity; backward the SUM all-reduce of the
+    cotangent over ``groups``, so every rank holds the gradient of the
+    loss summed over the ranks. Identical graphs post it in the same order
+    on every rank, as the exchanges' backwards. Under gloo a CUDA
+    cotangent is reduced through the host."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for group in ctx.groups:
+            if dist.get_world_size(group) <= 1:
+                continue
+            staged = (g.is_cuda
+                      and dist.get_backend(group) == dist.Backend.GLOO)
+            t = g.cpu() if staged else g
+            flat = torch.view_as_real(t) if t.is_complex() else t
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+            g = t.to(g.device) if staged else t
+        return g, None
+
+
+def replicated(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` behind ``_Replicated`` over ``groups`` (the plan's group, or
+    the pencil's two); ``x`` itself where there is no group to reduce
+    over or no gradient to take."""
+    groups = tuple(groups)
+    if not groups or not torch.is_grad_enabled() or not x.requires_grad:
+        return x
+    return _Replicated.apply(x, groups)
+
+
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     """A contiguous tensor's memory as a flat uint8 view."""
     return t.reshape(-1).view(torch.uint8)

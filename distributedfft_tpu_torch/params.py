@@ -24,9 +24,12 @@ _MXU_PRECISIONS = frozenset({"default", "high", "highest"})
 
 GUARD_MODES = ("off", "check", "enforce")
 
-# Marker for measurement-resolved Config fields (wisdom resolution in the
-# JAX package; not ported yet, so the port refuses an unresolved marker).
+# Marker for measurement-resolved Config fields: the plan constructors
+# resolve it through the wisdom store (``utils/wisdom.resolve_config``).
 AUTO = "auto"
+
+# The revolving-buffer depths the comm race tries (``testing/autotune``).
+OVERLAP_DEPTHS = (2, 4, 8)
 
 _WIRE_DTYPES = ("native", "bf16", AUTO)
 
@@ -259,8 +262,11 @@ class Config:
     Hopper kernels of ``ops/hopper_fft.py`` and ``"bluestein"`` the
     chirp-z transform of ``ops/bluestein.py``. ``guards`` selects the
     numerical guards of ``resilience/guards.py`` (``resolved_guards``).
-    The ``"auto"`` markers and the wisdom fields are accepted and validated
-    but not ported yet (ROADMAP Queue 1, item 11)."""
+    The ``"auto"`` markers (``fft_backend``, ``comm_method``,
+    ``comm_method2``, ``wire_dtype``) are resolved by measurement when a
+    plan is built (``utils/wisdom.resolve_config``), reading and writing
+    the wisdom store at ``wisdom_path`` / ``$DFFT_WISDOM`` unless
+    ``use_wisdom`` is False."""
 
     comm_method: CommMethod = CommMethod.ALL2ALL
     send_method: SendMethod = SendMethod.SYNC
@@ -437,21 +443,15 @@ _ENUM_FIELDS = {"comm_method": CommMethod, "send_method": SendMethod,
 def config_from_reference(d: Mapping[str, Any]) -> Config:
     """The port's ``Config`` from ``dataclasses.asdict`` of a JAX-package
     ``Config``. Enum fields may be given as enum members of either package
-    or as their ``.value`` strings. A field still set to ``"auto"`` needs
-    wisdom resolution, which is not ported: ``NotImplementedError``."""
+    or as their ``.value`` strings. A field set to ``"auto"`` stays
+    ``"auto"``: the plan it is handed to resolves it."""
     kw = {}
     for k, v in d.items():
         v = getattr(v, "value", v)
         if k in _ENUM_FIELDS and v is not None and v != AUTO:
             v = _ENUM_FIELDS[k](v)
         kw[k] = v
-    cfg = Config(**kw)
-    if cfg.unresolved():
-        raise NotImplementedError(
-            "Config fields set to 'auto' need wisdom resolution "
-            "(utils/wisdom.py), which the port does not have yet "
-            "(ROADMAP Queue 1, item 11)")
-    return cfg
+    return Config(**kw)
 
 
 def global_size_from_reference(d: Mapping[str, Any]) -> GlobalSize:

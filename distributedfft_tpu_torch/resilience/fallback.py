@@ -62,10 +62,6 @@ RUNG_OPT = "opt"      # opt1 -> default layout
 RUNG_COMM = "comm"    # Peer2Peer -> explicit All2All
 RUNG_WIRE = "wire"    # compressed wire -> native
 
-# The wisdom store's environment default (the JAX package's
-# ``utils/wisdom.ENV_VAR``).
-WISDOM_ENV = "DFFT_WISDOM"
-
 
 class _Tls(threading.local):
     def __init__(self):
@@ -186,18 +182,21 @@ def apply_config(plan, cfg) -> None:
 
 
 def _stamp_wisdom(plan, rung: str, reason: str) -> None:
-    """The demotion stamp on the plan's wisdom record. Without a store
-    (no ``wisdom_path``, no ``$DFFT_WISDOM``, or ``use_wisdom=False``)
-    there is nothing to stamp, as in the JAX package; with one, the wisdom
-    store is not ported yet."""
-    cfg = plan.config
-    if not cfg.use_wisdom or not (cfg.wisdom_path
-                                  or os.environ.get(WISDOM_ENV, "").strip()):
-        return
-    raise NotImplementedError(
-        f"stamping the {rung} demotion ({reason}) on the plan's wisdom "
-        f"record needs the wisdom store, which is not ported yet (ROADMAP "
-        f"Queue 1, item 11)")
+    """Best-effort demotion stamp on the plan's wisdom record(s): the
+    slot(s) whose recommendation produced the failing rendering. A
+    stamped record reads as a miss, so the store stops recommending it
+    until a fresh race re-records it. Nothing without a store."""
+    from ..utils import wisdom
+    try:
+        store = wisdom.store_for_config(plan.config)
+        if store is None:
+            return
+        key = wisdom.plan_wisdom_key(plan)
+        slots = ("wire", "comm") if rung == RUNG_WIRE else ("comm",)
+        for slot in slots:
+            wisdom.stamp_demotion(store, key, slot, rung, reason)
+    except Exception:  # noqa: BLE001 — stamping degrades, never errors
+        pass
 
 
 def _note_demotion(plan, rung: str, label: str, reason: str) -> None:

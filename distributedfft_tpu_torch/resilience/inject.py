@@ -386,16 +386,53 @@ def maybe_hang_worker(index: int, generation: int = 0) -> None:
 
 def maybe_taint_checkpoint(path: str) -> None:
     """Damage a checkpoint file that just LANDED on disk
-    (``checkpoint:torn|corrupt|stale``), as the JAX package's persist
-    layer calls it after its atomic replace. The port has no checkpoint
-    writer yet: with a checkpoint fault active this raises
-    ``NotImplementedError``; inactive, it returns and touches nothing."""
+    (``checkpoint:torn|corrupt|stale``) — called by
+    ``persist/checkpoint.py`` after its atomic replace, simulating the
+    field faults the restore path's validation exists for:
+
+    * ``torn[:BYTES]`` truncates the final BYTES bytes (default 64) —
+      a write the filesystem lost mid-flush;
+    * ``corrupt`` XORs one byte at ``@seed= % filesize`` — bitrot;
+    * ``stale`` re-stamps the header with schema version 0 and
+      RECOMPUTES the header checksum, so only schema validation (not a
+      CRC) can refuse it.
+
+    Host-side file surgery only; inactive, the file is untouched.
+    """
     spec = _spec_of("checkpoint")
     if spec is None:
         return
-    raise NotImplementedError(
-        f"checkpoint fault {spec} needs the persistence layer, which is not "
-        f"ported yet (ROADMAP Queue 1, item 13)")
+    obs.metrics.inc("inject.checkpoint_faults")
+    obs.event("inject.checkpoint_fault", mode=spec.mode, path=path,
+              seed=spec.seed)
+    size = os.path.getsize(path)
+    if spec.mode == "torn":
+        cut = 64 if spec.param is None else max(1, int(spec.param))
+        with open(path, "r+b") as f:
+            f.truncate(max(0, size - cut))
+        return
+    if spec.mode == "corrupt":
+        idx = spec.seed % max(1, size)
+        with open(path, "r+b") as f:
+            f.seek(idx)
+            b = f.read(1)
+            f.seek(idx)
+            f.write(bytes([b[0] ^ 0x40]) if b else b"\x40")
+        return
+    # stale: rebuild the header with version 0 + a matching checksum
+    from ..persist import checkpoint as _ckpt
+    import json as _json
+    with open(path, "rb") as f:
+        blob = f.read()
+    nmag = len(_ckpt.MAGIC)
+    hlen = int.from_bytes(blob[nmag:nmag + 4], "little")
+    header = _json.loads(blob[nmag + 8:nmag + 8 + hlen].decode("utf-8"))
+    header["version"] = 0
+    hdr = _json.dumps(header, sort_keys=True).encode("utf-8")
+    with open(path, "wb") as f:
+        f.write(_ckpt.MAGIC + len(hdr).to_bytes(4, "little")
+                + _ckpt.crc32c(hdr).to_bytes(4, "little") + hdr
+                + blob[nmag + 8 + hlen:])
 
 
 def maybe_hang_cell(label: str) -> None:

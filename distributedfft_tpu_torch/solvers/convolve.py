@@ -29,9 +29,11 @@ pipeline.
 GLOBAL logical image stack on every rank, as ``pad_input`` does, and
 returns this rank's part of the global crop (its block of the inverse
 output, cut to the crop; possibly empty); ``gather`` assembles the global
-crop on every rank (collective). ``conv_fn`` runs on one rank only: on P
-ranks its input, the global image on every rank, would get a per-rank
-partial gradient.
+crop on every rank (collective). ``conv_fn`` takes the global image on
+every rank and returns this rank's part of the crop, like ``__call__``;
+its input sits behind ``parallel.transpose.replicated``, whose backward
+all-reduces the gradient, so every rank holds the gradient of the loss
+summed over the ranks.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ import torch
 
 from .. import params as pm
 from ..ops.bluestein import good_size
-from ..parallel.transpose import pad_axis_to
+from ..parallel.mesh import plan_groups
+from ..parallel.transpose import pad_axis_to, replicated
 
 _MODES = ("full", "same", "valid")
 
@@ -232,18 +235,17 @@ class SpectralConvolver:
         return fn
 
     def conv_fn(self):
-        """The differentiable convolution: logical image stack -> cropped
-        convolution (one rank: see the module docstring)."""
-        if not self.plan.fft3d:
-            raise NotImplementedError(
-                "conv_fn on P > 1 ranks: its input, the global image on "
-                "every rank, would get a per-rank partial gradient; use "
-                "the convolver's call, or one rank")
+        """The differentiable convolution: the GLOBAL logical image stack
+        -> this rank's part of the cropped convolution (the whole crop on
+        one rank). On P ranks the input's gradient is all-reduced, so it is
+        the gradient of the loss summed over the ranks on every rank."""
         if self._fn is None:
-            padded, crop = self._padded_fn(), self._crop_slices()
+            plan = self.plan
+            padded, crop = self._padded_fn(), self._local_crop()
+            groups = plan_groups(plan)
 
             def fn(x):
-                return padded(x)[crop]
+                return padded(replicated(torch.as_tensor(x), groups))[crop]
 
             self._fn = fn
         return self._fn

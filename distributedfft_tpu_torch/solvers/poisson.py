@@ -42,9 +42,9 @@ rank's part of f), and returns the part of its solution block below the
 interior extent (empty on a rank whose block is all mirror);
 ``gather_interior`` assembles the global interior solution (collective).
 The JAX package's global arrays need none of this. ``solve_fn`` of an
-extended box at P > 1 raises ``NotImplementedError``: its input is the
-global interior on every rank, whose gradient would be a per-rank partial
-sum.
+extended box takes the global interior on every rank too, behind
+``parallel.transpose.replicated``: its backward all-reduces the gradient,
+so every rank holds the gradient of the loss summed over the ranks.
 """
 
 from __future__ import annotations
@@ -55,6 +55,8 @@ import numpy as np
 import torch
 
 from .. import params as pm
+from ..parallel.mesh import plan_groups
+from ..parallel.transpose import replicated
 
 _BCS = ("periodic", "dirichlet", "neumann")
 _CHUNK = 1 << 26      # elements per piece of the symbol's division
@@ -324,22 +326,19 @@ class PoissonSolver:
         on ``forward_fn`` / ``inverse_fn``, with no envelope: ``backward``
         flows through the distributed spectral solve. It maps what
         ``forward_fn`` takes to what ``inverse_fn`` returns; for a
-        non-periodic box, interior to interior (one rank only, see the
+        non-periodic box, the global interior to this rank's part of the
+        interior, the input's gradient all-reduced over the ranks (see the
         module docstring)."""
         if self._solve_pure is None:
             plan = self.plan
             fwd, inv = plan.forward_fn(), plan.inverse_fn()
             apply = self._apply
             if self._extended:
-                if not plan.fft3d:
-                    raise NotImplementedError(
-                        "solve_fn of a non-periodic box on P > 1 ranks: its "
-                        "input, the global interior on every rank, would "
-                        "get a per-rank partial gradient; use solve(), or "
-                        "one rank")
                 ext, restrict = self._extend, self._restrict
+                groups = plan_groups(plan)
 
                 def fn(f):
+                    f = replicated(torch.as_tensor(f), groups)
                     return restrict(inv(apply(fwd(ext(f)))))
             else:
                 def fn(f):

@@ -1,13 +1,15 @@
-"""Microbenchmarks of the ``reference`` executable — two of the JAX
-package's ``testing/microbench.py``: the single-device 3D FFT baseline and
-a global transpose's bandwidth in the reference's 1D, 2D and 3D exchange
-geometries — and the pieces of the matmul backend's
-four-step (``matmul_fourstep_ms``). The rest of the JAX module (the
-autotuner's races, the fraction chain) is ROADMAP Queue 1 item 11.
+"""Microbenchmarks of the ``reference`` executable and the autotuner,
+after the JAX package's ``testing/microbench.py``: the single-device 3D
+FFT baseline, a global transpose's bandwidth in the reference's 1D, 2D
+and 3D exchange geometries, the pure all-to-all's bandwidth
+(``wire_bandwidth``), the slab transpose's fraction of that ceiling
+(``transpose_fraction_chain``, reference testcase 4), the wire layer's
+accuracy metric (``max_rel_err``) and the pieces of the matmul backend's
+four-step (``matmul_fourstep_ms``).
 
 On a CUDA device the single-device transform is timed with CUDA events;
-the transpose, which spans ranks, with the host clock between barriers,
-each rank ending on its own device's synchronize.
+what spans ranks with the host clock, each rank ending on its own
+device's synchronize.
 """
 
 from __future__ import annotations
@@ -20,7 +22,10 @@ import torch
 import torch.distributed as dist
 
 from ..ops import fft as lf
-from ..parallel.transpose import all_to_all_transpose, peer_to_peer_transpose
+from ..parallel.transpose import (_a2a_dim0, all_to_all_transpose,
+                                  exchange_body, peer_to_peer_transpose,
+                                  realigned_pack_shape)
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -46,6 +51,51 @@ def _mean_ms(fn, iterations: int, warmup: int, device: torch.device) -> float:
     for _ in range(iterations):
         fn()
     return (time.perf_counter() - t0) * 1e3 / iterations
+
+
+def _fence(t) -> None:
+    """Wait until ``t`` (a tensor, or anything else: a no-op) is
+    computed."""
+    if isinstance(t, torch.Tensor):
+        _sync(t.device)
+
+
+def _time_fn(fn, x, iterations: int, warmup: int) -> float:
+    """Mean seconds of one ``fn(x)`` over ``iterations`` back-to-back
+    calls after ``warmup``, on the host clock fenced by the device's
+    synchronize (the JAX package's ``_time_fn``; ranks that call it in
+    step time the same collectives)."""
+    y = x
+    for _ in range(warmup):
+        y = fn(x)
+    _fence(y if warmup else x)
+    t0 = time.perf_counter()
+    for _ in range(iterations):
+        y = fn(x)
+    _fence(y)
+    return (time.perf_counter() - t0) / iterations
+
+
+def max_rel_err(a, b, groups=()) -> float:
+    """Max ``|a - b|`` relative to ``max |b|`` — the wire layer's one
+    accuracy metric, shared by the autotuner's error gate. With
+    ``groups`` (a plan's group(s)) ``a`` and ``b`` are this rank's blocks
+    and both maxima are reduced over every rank, so every rank returns
+    the global figure."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    with torch.no_grad():
+        m = torch.stack([(a - b).abs().max(), b.abs().max()]).to(
+            torch.float64)
+    for g in groups:
+        if not dist.is_initialized() or dist.get_world_size(g) <= 1:
+            continue
+        dev = m.device if dist.get_backend(g) == dist.Backend.NCCL \
+            else torch.device("cpu")
+        t = m.to(dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
+        m = t
+    num, den = m.tolist()
+    return num / den
 
 
 def single_device_fft_ms(shape, iterations: int = 10, warmup: int = 2,
@@ -169,3 +219,205 @@ def matmul_fourstep_ms(rows: int = 65536, iterations: int = 5,
         "second_product_in_place": lambda: torch.matmul(f2, b)}
     return {k: _mean_ms(fn, iterations, warmup, device)
             for k, fn in cases.items()}
+
+
+def wire_bandwidth(shape, p: int, iterations: int = 10, warmup: int = 2,
+                   dtype=np.float32, windows: int = 1, group=None,
+                   device: "str | torch.device" = "cuda") -> Dict:
+    """The PURE all-to-all's bandwidth over the ``p`` ranks of ``group``:
+    each rank's block of a global ``shape`` of ones, its leading axis cut
+    into ``p`` pieces exchanged with no relayout (split == concat): the
+    collective ceiling the fraction chain gates against. The best of
+    ``windows`` timing windows."""
+    world = dist.get_world_size(group) if dist.is_initialized() else 1
+    if p != world:
+        raise ValueError(f"the probe runs over all {world} ranks, got p={p}")
+    if shape[0] % (p * p):
+        raise ValueError(f"wire probe needs shape[0] % {p * p} == 0")
+    device = torch.device(device)
+    x = torch.ones((shape[0] // p,) + tuple(shape[1:]),
+                   dtype=torch.from_numpy(np.zeros(0, dtype)).dtype,
+                   device=device)
+
+    def run(v):
+        return _a2a_dim0(v, group) if p > 1 else v
+
+    dt = min(_time_fn(run, x, iterations, warmup)
+             for _ in range(max(1, windows)))
+    nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    return {"seconds": dt, "bytes": nbytes, "gb_per_s": nbytes / dt / 1e9,
+            "collective_ops": ["all_to_all_single"] if p > 1 else []}
+
+
+def transpose_fraction_chain(plan, spec_val, k: int = 8, repeats: int = 5,
+                             iterations: int = 3, warmup: int = 1,
+                             selection_repeats: "int | None" = None,
+                             streams_variants=(),
+                             publication_repeats: "int | None" = None,
+                             publication_iterations: "int | None" = None
+                             ) -> Dict:
+    """The slab transpose's achieved fraction of the raw collective
+    ceiling (reference testcase 4; the JAX package's gate of the same
+    name), ``fraction <= 1`` in expectation by construction.
+
+    Every rank of the P-rank slab ``plan`` calls it with its block
+    ``spec_val`` of the pre-transpose spectral volume. Chains of k
+    iterations, each timed as a (t_K - t_1) / (K - 1) pair difference:
+
+    * pipeline chains: (forward transpose, inverse transpose) of the
+      plan's own exchange bodies, ``opt0`` and ``opt1`` (the port renders
+      both with one packed all-to-all, so they race the same code), and
+      ``opt1s<c>`` per ``streams_variants`` piece count;
+    * ceiling chains: two PURE exchanges (split == concat, no relayout) of
+      the same bytes, in the block's own layout (``raw``) and in the opt 1
+      pack's merged-leading layout (``raw_merged``); each repeat's
+      ceiling is the faster.
+
+    A SELECTION phase picks the winner by median fraction (rank 0's pick,
+    agreed over the group, since the next phase's collectives follow
+    it); a fresh PUBLICATION phase re-times only the winner against the
+    ceiling (``publication_repeats`` / ``publication_iterations``,
+    defaults ``repeats`` and twice ``iterations``), and its median is
+    ``fraction``, with the interquartile ``fraction_spread`` and the full
+    ``fraction_range``. A repeat whose ceiling samples are all
+    nonpositive is dropped; if every publication repeat is, the result is
+    ``{"degenerate": True, ...}``. Fractions and times are this rank's."""
+    from ..parallel.mesh import broadcast_vec
+
+    p, group = plan._P, plan.group
+    sa = plan._seq.split_axis
+    cfg = plan.config
+    local0 = spec_val.shape[0]
+    if local0 % p:
+        raise ValueError(
+            f"fraction chain needs the local leading extent {local0} "
+            f"divisible by {p} (the pure exchange re-splits it)")
+
+    def chained(body_pair, kk):
+        def run(v):
+            with torch.no_grad():
+                for _ in range(kk):
+                    v = body_pair(v)
+            return v
+        return run
+
+    def pipe_pair(realigned, chunks=None):
+        kw = dict(all_to_all=True, realigned=realigned, wire=cfg.wire_dtype,
+                  chunk_axis=plan._streams_chunk_axis(),
+                  pipe_chunks=plan._a2a_pipe_chunks() if chunks is None
+                  else 1,
+                  depth=cfg.resolved_overlap_depth(), pieces=chunks or 1)
+        xf = exchange_body(group, sa, 0, **kw)
+        xi = exchange_body(group, 0, sa, **kw)
+        return lambda w: xi(xf(w))
+
+    def pure_pair(w):
+        return _a2a_dim0(_a2a_dim0(w.contiguous(), group), group)
+
+    merged_shape = realigned_pack_shape(tuple(spec_val.shape), sa, p)
+    fns = {"opt0": (chained(pipe_pair(False), 1),
+                    chained(pipe_pair(False), k)),
+           "opt1": (chained(pipe_pair(True), 1),
+                    chained(pipe_pair(True), k)),
+           "raw": (chained(pure_pair, 1), chained(pure_pair, k))}
+    merged_val = None
+    if tuple(merged_shape) != tuple(spec_val.shape):
+        # split axis 0 leaves the pack shape unchanged: "raw" already is it.
+        merged_val = torch.zeros(merged_shape, dtype=spec_val.dtype,
+                                 device=spec_val.device)
+        fns["raw_merged"] = (chained(pure_pair, 1), chained(pure_pair, k))
+    for c in streams_variants:
+        pp = pipe_pair(True, chunks=c)
+        fns[f"opt1s{c}"] = (chained(pp, 1), chained(pp, k))
+    args = {n: merged_val if n == "raw_merged" else spec_val for n in fns}
+    for name, (f1, fK) in fns.items():   # warm every chain up front
+        _fence(f1(args[name]))
+        _fence(fK(args[name]))
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    raw_names = ("raw", "raw_merged")
+
+    def run_repeats(names, n_repeats, n_iterations=None):
+        n_iterations = iterations if n_iterations is None else n_iterations
+        fracs = {n: [] for n in names if n not in raw_names}
+        times = {n: [] for n in fracs}
+        times["ceil"] = []
+        for _ in range(n_repeats):
+            per = {}
+            for name in names:
+                f1, fK = fns[name]
+                tK = _time_fn(fK, args[name], n_iterations, warmup)
+                t1 = _time_fn(f1, args[name], n_iterations, warmup)
+                per[name] = (tK - t1) / (k - 1)
+            ceil_s = [per[n] for n in raw_names if n in per and per[n] > 0]
+            if not ceil_s:
+                continue
+            ceil = min(ceil_s)
+            contributed = False
+            for n in fracs:
+                if per[n] > 0:
+                    times[n].append(per[n])
+                    fracs[n].append(ceil / per[n])
+                    contributed = True
+            if contributed:
+                times["ceil"].append(ceil)
+        return fracs, times
+
+    sel_n = repeats if selection_repeats is None else max(
+        1, min(selection_repeats, repeats))
+    sel_fracs, _ = run_repeats(list(fns), sel_n)
+    by_variant = {}
+    for n, fs in sel_fracs.items():
+        if fs:
+            fs = sorted(fs)
+            by_variant[n] = {
+                "fraction": round(med(fs), 4),
+                "fraction_range": [round(fs[0], 4), round(fs[-1], 4)],
+            }
+    names = list(fns)
+    pick = (names.index(max(by_variant,
+                            key=lambda n: by_variant[n]["fraction"]))
+            if by_variant else -1)
+    pick = int(broadcast_vec([pick], (group,) if p > 1 else ())[0])
+    if pick < 0:
+        return {"degenerate": True, "k": k, "repeats": sel_n,
+                "dropped": sel_n, "phase": "selection"}
+    winner = names[pick]
+
+    pub_n = repeats if publication_repeats is None else publication_repeats
+    pub_i = (2 * iterations if publication_iterations is None
+             else publication_iterations)
+    pub_fracs, pub_times = run_repeats(
+        [winner] + [n for n in raw_names if n in fns], pub_n, pub_i)
+    fs = sorted(pub_fracs[winner])
+    if not fs:
+        return {"degenerate": True, "k": k, "repeats": pub_n,
+                "dropped": pub_n, "phase": "publication",
+                "variant": winner, "variants": by_variant}
+    q1 = fs[(len(fs) - 1) // 4]
+    q3 = fs[(3 * (len(fs) - 1) + 3) // 4]
+    # 2 exchanges of the pre-transpose volume (all ranks') per iteration.
+    nbytes = 2 * spec_val.numel() * spec_val.element_size() * p
+    out = {
+        "fraction": round(med(fs), 4),
+        "fraction_spread": [round(q1, 4), round(q3, 4)],
+        "fraction_range": [round(fs[0], 4), round(fs[-1], 4)],
+        "gate_phase": "publication",
+        "gate_note": ("'fraction' is the publication-phase median of the "
+                      f"winner ({pub_n} fresh repeats x {pub_i} inner "
+                      "iterations); 'fraction_spread' is the interquartile "
+                      "range of those repeats (full range under "
+                      "'fraction_range'); 'variants' entries are "
+                      "selection-phase rankings only, not gate values"),
+        "variant": winner,
+        "variants": by_variant,
+        "pipe_gb_per_s": round(nbytes / med(pub_times[winner]) / 1e9, 3),
+        "raw_gb_per_s": round(nbytes / med(pub_times["ceil"]) / 1e9, 3),
+        "k": k, "repeats": pub_n, "iterations": pub_i,
+    }
+    dropped = pub_n - len(fs)
+    if dropped:
+        out["dropped"] = dropped
+    return out

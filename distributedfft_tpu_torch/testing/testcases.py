@@ -59,19 +59,25 @@ def say(msg: str) -> None:
 
 
 def make_plan(kind: str, global_size: pm.GlobalSize, partition, config,
-              sequence=None, device: "str | torch.device" = "cuda"):
+              sequence=None, device: "str | torch.device" = "cuda",
+              transform: str = "r2c", group=None, dims: int = 3):
     """The plan a testcase runs: the slab, pencil or batched-2D plan. The
     batched plan reads ``global_size`` as (batch, nx, ny) and splits x
-    (the JAX package's slot convention)."""
+    (the JAX package's slot convention). ``group`` is the slab and
+    batched plans' group, or the pencil's (row, column) groups; ``dims``
+    the pencil's depth hint for an "auto" Config."""
     if kind == "slab":
         return SlabFFTPlan(global_size, partition, config, device=device,
-                           sequence=sequence or pm.SlabSequence.ZY_THEN_X)
+                           sequence=sequence or pm.SlabSequence.ZY_THEN_X,
+                           transform=transform, group=group)
     if kind == "pencil":
-        return PencilFFTPlan(global_size, partition, config, device=device)
+        return PencilFFTPlan(global_size, partition, config, device=device,
+                             transform=transform, groups=group, dims=dims)
     if kind == "batched2d":
         g = global_size
         return Batched2DFFTPlan(g.nx, g.ny, g.nz, partition, config,
-                                shard="x", device=device)
+                                shard="x", device=device,
+                                transform=transform, group=group)
     raise ValueError(f"unknown plan kind {kind!r}")
 
 

@@ -56,17 +56,21 @@ RENDERINGS = {
 }
 # Flags of a later ROADMAP item: (executable, flags, the item named).
 LATER = [
-    ("slab", ["--autotune-comm"], "item 11"),
-    ("slab", ["--wisdom", "w.json"], "item 11"),
-    ("slab", ["-comm", "auto"], "item 11"),
-    ("slab", ["--fft-backend", "auto"], "item 11"),
-    ("slab", ["-wire", "auto"], "item 11"),
     ("slab", ["--profile-dir", "prof"], "item 12"),
     ("slab", ["--profile-stages"], "item 12"),
-    ("reference", ["--autotune"], "item 11"),
-    ("reference", ["-t", "4"], "item 11"),
-    ("reference", ["--wisdom", "w.json"], "item 11"),
     ("reference", ["--profile-stages"], "item 12"),
+]
+# Flags of ROADMAP item 11 (autotune and wisdom), which raised until it was
+# ported: (executable, flags, a line the run prints). Each now runs.
+ITEM11 = [
+    ("slab", ["--autotune-comm"], "best: "),
+    ("slab", ["--wisdom", "w.json"], "Run complete: "),
+    ("slab", ["-comm", "auto"], "Run complete: "),
+    ("slab", ["--fft-backend", "auto"], "Run complete: "),
+    ("slab", ["-wire", "auto"], "Run complete: "),
+    ("reference", ["--autotune"], "best: "),
+    ("reference", ["-t", "4"], None),
+    ("reference", ["--wisdom", "w.json"], "Run complete: "),
 ]
 # Flags of ROADMAP items 2, 3, 7, 8, 9 and 12's host core, which raised
 # until those items were ported: (executable, flags). Each now runs, on one
@@ -191,6 +195,27 @@ def test_later_item_flags_raise_naming_their_item(exe, flags, item):
     main = tslab.main if exe == "slab" else tref.main
     with pytest.raises(NotImplementedError, match=item):
         main(SIZE + flags + ["--emulate-devices", "1"])
+
+
+@pytest.mark.parametrize("exe,flags,line", ITEM11,
+                         ids=[f"{e}{''.join(f)}" for e, f, _ in ITEM11])
+def test_item11_flags_run(tmp_path, monkeypatch, exe, flags, line):
+    """The flags that raised naming item 11 now run: the "auto" fields
+    resolve (a store under ``tmp_path``), ``--autotune-comm`` and
+    ``--autotune`` print their winner, testcase 4 runs over four spawned
+    ranks (their output is theirs, so only the exit code is held)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("DFFT_WISDOM_K", "2")
+    main = tslab.main if exe == "slab" else tref.main
+    argv = SIZE + flags + ["-b", str(tmp_path / "b")] * (exe == "slab")
+    if exe == "reference" and "--autotune" in flags:
+        # Long enough that a loaded host's noise cannot swamp every pair.
+        argv += ["--autotune-k", "33"]
+    n = "4" if line is None else "1"
+    rc, text = _run(main, argv + ["--emulate-devices", n])
+    assert rc == 0
+    if line is not None:
+        assert line in text, text
 
 
 @pytest.mark.parametrize("exe,flags", FORMER,

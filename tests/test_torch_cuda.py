@@ -12,6 +12,8 @@ rel <= 5e-4, the JAX package's per-stage bound; kernel and plain version
 both compute in float32, with sums taken in another order.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1049,3 +1051,87 @@ def test_pallas_backward_raises_on_the_card(cuda):
     y = plan.inverse_fn()(plan.forward_fn()(xl))
     with pytest.raises(NotImplementedError, match="has no VJP"):
         y.sum().backward()
+
+
+@pytest.mark.parametrize("n", [1, 65537, (1 << 22) + 3])
+def test_crc32c_lanes_on_the_card(cuda, n):
+    """The checkpoint checksum's lanes on the card give the table loop's
+    answer (CPU lanes beside them)."""
+    from distributedfft_tpu_torch.persist import checkpoint as ck
+    buf = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+    want = ck._raw(buf, ck._MASK, torch.device("cpu")) ^ ck._MASK
+    assert ck._raw(buf, ck._MASK, cuda) ^ ck._MASK == want == ck.crc32c(buf)
+    if n < 1 << 20:
+        assert ck._raw_loop(buf.tobytes(), 0xFFFFFFFF) ^ 0xFFFFFFFF == want
+
+
+def test_auto_backend_races_once_on_the_card(cuda, tmp_path, monkeypatch):
+    """``fft_backend="auto"`` on the card: every candidate measured, the
+    winner recorded under the card's name, the second plan a hit."""
+    from distributedfft_tpu_torch import obs
+    from distributedfft_tpu_torch.utils import wisdom
+    monkeypatch.setenv("DFFT_WISDOM_K", "2")
+    cfg = dft.Config(fft_backend="auto", wisdom_path=str(tmp_path / "w.json"))
+    g = dft.GlobalSize(64, 64, 64)
+    plan = dft.SlabFFTPlan(g, dft.SlabPartition(1), cfg)
+    key = wisdom.plan_wisdom_key(plan)
+    assert torch.cuda.get_device_name(0) in key
+    rec = wisdom.WisdomStore(cfg.wisdom_path).lookup(key, "local_fft")
+    assert rec["fft_backend"] == plan.config.fft_backend
+    c0 = obs.metrics.counter_value("autotune.race_cells")
+    again = dft.SlabFFTPlan(g, dft.SlabPartition(1), cfg)
+    assert obs.metrics.counter_value("autotune.race_cells") == c0
+    assert again.config == plan.config
+    x = _randn((64, 64, 64), 3, cuda)
+    assert _rel(plan.exec_r2c(x), torch.fft.rfftn(x)) <= 5e-4
+
+
+@pytest.mark.parametrize("plant", ["over-budget", "hang"])
+def test_failed_pallas_cell_raises_on_the_card(cuda, tmp_path, monkeypatch,
+                                               plant):
+    """A "pallas" race cell that misses the budget "xla" met, or hangs
+    past the cell timeout, raises a KernelError out of the "auto" plan
+    and records no "xla" winner."""
+    from distributedfft_tpu_torch.ops._build import KernelError
+    from distributedfft_tpu_torch.testing import autotune as at
+    monkeypatch.setenv("DFFT_WISDOM_K", "2")
+    real = at._measure
+
+    def measure(shape, backend, *a, **k):
+        if backend != "pallas":
+            return real(shape, backend, *a, **k)
+        if plant == "hang":
+            time.sleep(6)   # abandoned at 2 s; never reaches the card
+            raise RuntimeError("abandoned cell")
+        ms, _, note = real(shape, backend, *a, **k)
+        return ms, 0.5, note
+
+    monkeypatch.setattr(at, "_measure", measure)
+    if plant == "hang":
+        monkeypatch.setenv("DFFT_AUTOTUNE_CELL_TIMEOUT_S", "2")
+    store = tmp_path / "w.json"
+    cfg = dft.Config(fft_backend="auto", wisdom_path=str(store))
+    with pytest.raises(KernelError, match="candidate pallas failed"):
+        dft.SlabFFTPlan(dft.GlobalSize(32, 32, 32), dft.SlabPartition(1), cfg)
+    assert not store.exists()
+
+
+def test_resume_is_bit_exact_on_the_card(cuda, tmp_path):
+    """NS-3D on the fused kernels: 2 steps, checkpoint, restore, 2 steps
+    bit-equal to 4 straight steps."""
+    from distributedfft_tpu_torch import persist
+    from distributedfft_tpu_torch.solvers import NavierStokes3D
+    n = 64
+    plan = dft.SlabFFTPlan(dft.GlobalSize(n, n, n), dft.SlabPartition(1),
+                           dft.Config(fft_backend="pallas"))
+    ns = NavierStokes3D(plan, 1e-3)
+    step = ns.step_fn(1e-3)
+    store = persist.CheckpointStore(str(tmp_path))
+    with torch.no_grad():
+        w = step(step(ns.to_spectral(_randn((3, n, n, n), 4, cuda))))
+        straight = step(step(w))
+        store.save(persist.capture(ns, w, 2, 1e-3))
+        back = persist.restore(store.load(
+            expect_fingerprint=persist.plan_fingerprint(plan)), ns)
+        resumed = step(step(back))
+    assert all(torch.equal(a, b) for a, b in zip(resumed, straight))

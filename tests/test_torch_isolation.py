@@ -37,7 +37,9 @@ def test_import_pulls_in_no_jax():
         "resilience.circuit", "resilience.deadline", "resilience.fallback",
         "resilience.guards", "resilience.inject", "resilience.selftest",
         "solvers", "solvers.convolve", "solvers.navier_stokes",
-        "solvers.poisson", "solvers.r2r", "testing.workloads")
+        "solvers.poisson", "solvers.r2r", "testing.workloads",
+        "testing.autotune", "testing.chaintimer", "utils.wisdom", "persist",
+        "persist.checkpoint", "persist.policy", "persist.state")
     } <= set(MODULES)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -92,9 +92,11 @@ def test_resolved_second_transpose_matches(kw):
 @pytest.mark.parametrize("field", ["fft_backend", "comm_method",
                                    "comm_method2", "wire_dtype"])
 def test_config_from_reference_refuses_auto(field):
+    """An "auto" field raised until the wisdom resolution was ported; it
+    now carries across as "auto", for the plan to resolve."""
     d = dataclasses.asdict(jp.Config(**{field: jp.AUTO}))
-    with pytest.raises(NotImplementedError):
-        tp.config_from_reference(d)
+    cfg = tp.config_from_reference(d)
+    assert getattr(cfg, field) == tp.AUTO and cfg.unresolved()
 
 
 @pytest.mark.parametrize("kw", [

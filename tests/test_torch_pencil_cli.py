@@ -76,13 +76,12 @@ for _r, _flags in RENDER.items():
 REFS = {f"t{t}-o{o}": _S16 + ["-t", str(t), "-o", str(o), "-i", "2"]
         for t in (1, 2, 3) for o in (0, 1)}
 # Flags of a later ROADMAP item: (flags, the item named).
-LATER = [(["--autotune-comm"], "item 11"), (["--wisdom", "w.json"], "item 11"),
-         (["-comm1", "auto"], "item 11"), (["-comm2", "auto"], "item 11"),
-         (["--fft-backend", "auto"], "item 11"),
-         (["--profile-dir", "prof"], "item 12")]
-# Flags of ROADMAP item 9 and item 12's host core, which raised until they
-# were ported; each now runs.
-FORMER = [["--guards", "check"], ["--selftest"], ["--obs"]]
+LATER = [(["--profile-dir", "prof"], "item 12")]
+# Flags of ROADMAP items 9 and 11 and item 12's host core, which raised
+# until they were ported; each now runs.
+FORMER = [["--guards", "check"], ["--selftest"], ["--obs"],
+          ["--autotune-comm"], ["--wisdom", "w.json"], ["-comm1", "auto"],
+          ["-comm2", "auto"], ["--fft-backend", "auto"]]
 COMMS = [("All2All", None), ("Peer2Peer", None), ("All2All", "Peer2Peer"),
          ("Peer2Peer", "All2All")]
 
@@ -330,7 +329,9 @@ def test_later_item_flags_raise_naming_their_item(flags, item):
 
 
 @pytest.mark.parametrize("flags", FORMER, ids=["".join(f) for f in FORMER])
-def test_former_later_item_flags_run(tmp_path, flags):
+def test_former_later_item_flags_run(tmp_path, monkeypatch, flags):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("DFFT_WISDOM_K", "2")
     rc, text = _run(tpencil.main, _S16 + ["-t", "3", "-p1", "1", "-p2", "1",
                                           "-b", str(tmp_path)] + flags
                     + ["--emulate-devices", "1"])

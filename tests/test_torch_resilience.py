@@ -872,12 +872,14 @@ def test_server_slow_and_host_simulators(monkeypatch, tmp_path):
     monkeypatch.setenv(inject.ENV_VAR, "autotune:hang:0.01")
     inject.maybe_hang_cell("cell")
     assert obs.metrics.counter_value("inject.cell_hangs") == 1
-    # The checkpoint faults wait for the persistence layer (item 13).
+    # The checkpoint faults damage the landed file (they raised naming
+    # item 13 until the persistence layer was ported): torn cuts 64 bytes.
     path = tmp_path / "ck.bin"
     path.write_bytes(b"\0" * 128)
     monkeypatch.setenv(inject.ENV_VAR, "checkpoint:torn")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        inject.maybe_taint_checkpoint(str(path))
+    inject.maybe_taint_checkpoint(str(path))
+    assert path.read_bytes() == b"\0" * 64
+    path.write_bytes(b"\0" * 128)
     monkeypatch.delenv(inject.ENV_VAR)
     inject.maybe_taint_checkpoint(str(path))
     assert path.read_bytes() == b"\0" * 128
@@ -1074,17 +1076,26 @@ def test_fallback_ladder_respects_ambient_deadline():
     assert len(calls) == 1
 
 
-def test_stamp_wisdom_waits_for_the_store(monkeypatch):
+def test_stamp_wisdom_waits_for_the_store(monkeypatch, tmp_path):
     """No store configured: nothing to stamp (as in JAX); a configured
-    store raises, naming item 11."""
+    store (which raised naming item 11 until the store was ported) gets
+    the demotion stamp on the plan's comm record; an unwritable one is
+    skipped, as every wisdom write."""
     plan = tdfft.SlabFFTPlan(tdfft.GlobalSize(8, 8, 8), tdfft.SlabPartition(1),
                              tdfft.Config(send_method=tdfft.SendMethod.RING),
                              device="cpu")
     monkeypatch.delenv("DFFT_WISDOM", raising=False)
     fallback._stamp_wisdom(plan, "send", "test")
     monkeypatch.setenv("DFFT_WISDOM", "/nonexistent/w.json")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fallback._stamp_wisdom(plan, "send", "test")
+    fallback._stamp_wisdom(plan, "send", "test")
+    from distributedfft_tpu_torch.utils import wisdom
+    store = tmp_path / "w.json"
+    monkeypatch.setenv("DFFT_WISDOM", str(store))
+    fallback._stamp_wisdom(plan, "send", "test")
+    rec = wisdom.WisdomStore(str(store)).lookup(wisdom.plan_wisdom_key(plan),
+                                                "comm")
+    assert rec["demoted"] and rec["demoted_rung"] == "send"
+    assert rec["demoted_reason"] == "test"
 
 
 def test_coordinator_backoff_retries_then_succeeds(monkeypatch):

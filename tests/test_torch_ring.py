@@ -484,11 +484,14 @@ def _two_rank_plan(**kw):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(wire_dtype="auto"), "Queue 1, item 11"),
+    (dict(wire_dtype="auto"), "torch.distributed world"),
 ], ids=["auto-wire"])
 def test_refused_settings_name_their_item(kw, item):
-    """Refused before any process group is needed."""
-    with pytest.raises(NotImplementedError, match=item):
+    """A two-rank plan outside a world: ``wire_dtype="auto"`` raised naming
+    item 11 until the wisdom resolution was ported; the wire race now
+    cannot build its candidates there (it falls back to native) and the
+    plan itself asks for the world."""
+    with pytest.raises(RuntimeError, match=item):
         _two_rank_plan(**kw)
 
 

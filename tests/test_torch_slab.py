@@ -136,17 +136,21 @@ def _port_plan(shape=(8, 8, 8), p=1, transform="r2c", **kw):
                              device="cpu")
 
 
-@pytest.mark.parametrize("build", [
-    lambda: _port_plan(fft_backend="auto"),
-    lambda: tdfft.SlabFFTPlan(tdfft.GlobalSize(8, 8, 8),
-                              tdfft.SlabPartition(1), sequence="Y_Then_ZX",
-                              device="cpu"),
-])
-def test_not_ported_boundaries_raise(build):
+@pytest.mark.parametrize("build,raises", [
+    (lambda: _port_plan(fft_backend="auto", use_wisdom=False), False),
+    (lambda: tdfft.SlabFFTPlan(tdfft.GlobalSize(8, 8, 8),
+                               tdfft.SlabPartition(1), sequence="Y_Then_ZX",
+                               device="cpu"), True),
+], ids=["build0", "build1"])
+def test_not_ported_boundaries_raise(build, raises):
     """What the next slices port raises NotImplementedError instead of
-    being computed some other way."""
-    with pytest.raises(NotImplementedError):
-        build()
+    being computed some other way. ``fft_backend="auto"`` (build0) raised
+    until the wisdom resolution was ported: it now resolves."""
+    if raises:
+        with pytest.raises(NotImplementedError):
+            build()
+    else:
+        assert not build().config.unresolved()
 
 
 @pytest.mark.parametrize("shape", [(8, 8, 8), (7, 11, 13)],

@@ -237,14 +237,29 @@ def _dirichlet(bc):
     sx = np.sin(np.pi * x / L) if bc == "dirichlet" else np.cos(np.pi * x / L)
     u_true = sx[:, None, None] * sx[None, :, None] * sx[None, None, :]
     u = s.solve(-3.0 * (np.pi / L) ** 2 * u_true)
-    try:
-        s.solve_fn()
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
+    grad, s_w = _extended_grad(s, _rng(7).random(s.interior_shape))
     return {"u": s.gather_interior(u), "local": tuple(u.shape),
             "interior": s.interior_shape, "u_true": u_true,
-            "solve_fn_raised": raised}
+            "solve_fn_grad": grad, "solve_w": s_w}
+
+
+def _local_part(plan, w, u):
+    """The part of the global interior array ``w`` this rank's interior
+    block ``u`` covers."""
+    return torch.as_tensor(w)[tuple(
+        slice(sl.start or 0, (sl.start or 0) + n)
+        for sl, n in zip(plan.local_slices(), u.shape))]
+
+
+def _extended_grad(s, w, f=None):
+    """The gradient of sum(w * u) over every rank's part of an extended
+    box's ``solve_fn`` (the input the GLOBAL interior on every rank), and
+    the gathered solve of w (S is self-adjoint on the interior)."""
+    f = _rng(8).random(s.interior_shape) if f is None else f
+    ft = torch.tensor(f, requires_grad=True)
+    u = s.solve_fn()(ft)
+    torch.sum(_local_part(s.plan, w, u) * u).backward()
+    return ft.grad.numpy(), s.gather_interior(s.solve(w))
 
 
 def _mixed():
@@ -290,14 +305,39 @@ def _conv(mode, correlate=False, family="batched2d", pad="smooth",
         cv = make_convolver(ker, img.shape, family=family, mode=mode,
                             partition=part, config=_cfg(), device="cpu")
     y = cv(img)
-    try:
-        cv.conv_fn()
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
     return {"out": cv.gather(y), "img": img, "ker": ker,
             "plan_shape": tuple(cv.plan.input_shape),
-            "conv_fn_raised": raised}
+            "conv_fn_grad": _conv_grad(cv, img)}
+
+
+def _conv_grad(cv, img):
+    """The gradient of the sum of squares of every rank's part of
+    ``conv_fn`` (the input the global image on every rank)."""
+    v = torch.tensor(img, requires_grad=True)
+    y = cv.conv_fn()(v)
+    torch.sum(y ** 2).backward()
+    return v.grad.numpy()
+
+
+def _conv_grad_matmul():
+    """``tests/test_solvers.py::test_convolve_grad`` at P ranks."""
+    rng = _rng(9)
+    vol, k3 = rng.random((8, 8, 8)), rng.random((3, 3, 3))
+    cv = make_convolver(k3, (8, 8, 8), family="slab", mode="same",
+                        partition=tdfft.SlabPartition(P),
+                        config=_cfg(fft_backend="matmul"), device="cpu")
+    return {"vol": vol, "k3": k3, "grad": _conv_grad(cv, vol)}
+
+
+def _dirichlet_grad_matmul():
+    """An extended (Dirichlet) box's ``solve_fn`` gradient at P ranks on
+    the matmul backend, for ``jax.grad`` of the JAX solver."""
+    n = 8
+    plan = _slab(2 * n, fft_backend="matmul")
+    s = PoissonSolver(plan, bc="dirichlet")
+    w, f = _rng(10).random((n, n, n)), _rng(11).random((n, n, n))
+    grad, s_w = _extended_grad(s, w, f)
+    return {"w": w, "f": f, "grad": grad, "solve_w": s_w}
 
 
 def _guards_wire():
@@ -344,6 +384,8 @@ RANKED = {
     "conv-pencil": lambda: _conv("same", family="pencil"),
     "conv-exact": lambda: _conv("valid", pad="exact", backend="bluestein"),
     "conv-pallas": lambda: _conv("same", backend="pallas"),
+    "conv-grad-matmul": _conv_grad_matmul,
+    "dirichlet-grad-matmul": _dirichlet_grad_matmul,
     "guards-wire": _guards_wire,
 }
 
@@ -499,7 +541,8 @@ def test_poisson_extended_box_on_the_split_axis(world, devices, bc):
     the extension on the split x axis over 4 ranks: ranks 0 and 1 hold the
     interior rows, ranks 2 and 3 only mirror rows (an empty interior);
     the gathered interior is the closed form and the JAX solver's;
-    ``solve_fn`` of the extended box raises on P ranks."""
+    the gradient of ``solve_fn`` of the extended box on P ranks
+    (all-reduced) is the solve of the weights."""
     from distributedfft_tpu.solvers.poisson import PoissonSolver as JSolver
     import distributedfft_tpu as jdfft
     res = _result(world, 0, bc)
@@ -507,7 +550,9 @@ def test_poisson_extended_box_on_the_split_axis(world, devices, bc):
     assert [_result(world, r, bc)["local"][0] for r in range(P)] == \
         [8, 8, 0, 0]
     np.testing.assert_allclose(res["u"], res["u_true"], atol=1e-12)
-    assert "P > 1" in res["solve_fn_raised"]
+    for r in range(P):
+        np.testing.assert_allclose(_result(world, r, bc)["solve_fn_grad"],
+                                   res["solve_w"], atol=1e-10)
     L = 1.3 if bc == "dirichlet" else 2.0
     jplan = jdfft.SlabFFTPlan(jdfft.GlobalSize(32, 32, 32),
                               jdfft.SlabPartition(P),
@@ -630,7 +675,16 @@ def test_convolve_batched_images_vs_scipy(world, mode):
     ref = np.stack([scipy_signal.convolve2d(res["img"][i], res["ker"],
                                             mode=mode) for i in range(3)])
     np.testing.assert_allclose(res["out"], ref, atol=1e-12)
-    assert "P > 1" in res["conv_fn_raised"]
+    # conv_fn's gradient on P ranks (all-reduced) is the one-rank one.
+    one = make_convolver(res["ker"], (20, 17), batch=3, mode=mode,
+                         partition=tdfft.SlabPartition(1), config=_cfg(),
+                         device="cpu")
+    v = torch.tensor(res["img"], requires_grad=True)
+    torch.sum(one.conv_fn()(v) ** 2).backward()
+    for r in range(P):
+        np.testing.assert_allclose(
+            _result(world, r, f"conv-{mode}")["conv_fn_grad"],
+            v.grad.numpy(), atol=1e-10)
     for r in range(1, P):
         assert np.array_equal(_result(world, r, f"conv-{mode}")["out"],
                               res["out"])
@@ -711,6 +765,55 @@ def test_convolve_grad(rng):
     fn = jcv.conv_fn()
     jg = jax.grad(lambda x: jnp.sum(fn(x) ** 2))(jnp.asarray(vol))
     np.testing.assert_allclose(g, np.asarray(jg), atol=1e-10)
+
+
+def test_convolve_grad_on_four_ranks(world, devices):
+    """``test_convolve_grad`` at P = 4 (``SlabPartition(4)``, "matmul",
+    float64): every rank holds the gradient of the whole loss, and it is
+    ``jax.grad``'s through the JAX convolver on a 4-device mesh."""
+    import jax
+    import jax.numpy as jnp
+    import distributedfft_tpu as jdfft
+    from distributedfft_tpu.solvers import make_convolver as jmake
+    res = _result(world, 0, "conv-grad-matmul")
+    jcv = jmake(res["k3"], (8, 8, 8), family="slab", mode="same",
+                partition=jdfft.SlabPartition(P),
+                config=jdfft.Config(double_prec=True, use_wisdom=False,
+                                    fft_backend="matmul"),
+                mesh=_jax_mesh(devices))
+    fn = jcv.conv_fn()
+    jg = np.asarray(jax.grad(lambda x: jnp.sum(fn(x) ** 2))(
+        jnp.asarray(res["vol"])))
+    for r in range(P):
+        g = _result(world, r, "conv-grad-matmul")["grad"]
+        assert g.shape == res["vol"].shape and np.all(np.isfinite(g))
+        np.testing.assert_allclose(g, jg, atol=1e-10)
+
+
+def test_extended_box_solve_fn_grad_on_four_ranks(world, devices):
+    """An extended (Dirichlet) box's ``solve_fn`` at P = 4 on the matmul
+    backend: the all-reduced gradient of sum(w * u) on every rank is
+    ``jax.grad``'s through the JAX solver on a 4-device mesh (and the
+    solve of w)."""
+    import jax
+    import jax.numpy as jnp
+    import distributedfft_tpu as jdfft
+    from distributedfft_tpu.solvers.poisson import PoissonSolver as JSolver
+    res = _result(world, 0, "dirichlet-grad-matmul")
+    jplan = jdfft.SlabFFTPlan(jdfft.GlobalSize(16, 16, 16),
+                              jdfft.SlabPartition(P),
+                              jdfft.Config(double_prec=True,
+                                           use_wisdom=False,
+                                           fft_backend="matmul"),
+                              mesh=_jax_mesh(devices))
+    sfn = JSolver(jplan, bc="dirichlet").solve_fn()
+    w = res["w"]
+    jg = np.asarray(jax.grad(lambda x: jnp.sum(w * sfn(x)))(
+        jnp.asarray(res["f"])))
+    for r in range(P):
+        g = _result(world, r, "dirichlet-grad-matmul")["grad"]
+        np.testing.assert_allclose(g, jg, atol=1e-10)
+        np.testing.assert_allclose(g, res["solve_w"], atol=1e-10)
 
 
 # -- guards + compressed wire through a solver path ---------------------------
