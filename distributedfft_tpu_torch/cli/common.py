@@ -42,10 +42,11 @@ from ..ops.fft import BACKENDS
 from ..parallel import multihost
 
 # The ROADMAP Queue 1 items whose flags still raise (items keep their
-# numbers once done: 1-11 and 13 run, and item 12's host core: --obs,
-# --obs-dir).
+# numbers once done: 1-11 and 13 run, item 12's host core and first part:
+# --obs, --obs-dir, --profile-dir; item 14 but the fleet).
 LATER_ITEMS = {
-    12: "ROADMAP Queue 1, item 12 (observability: the device profiles)",
+    12: "ROADMAP Queue 1, item 12's rest (the stage profile's graph join)",
+    14: "ROADMAP Queue 1, item 14, second part (the fleet)",
 }
 
 # Seconds a collective of an emulated (spawned, CPU) world waits before it
@@ -99,7 +100,8 @@ def add_common_args(ap: argparse.ArgumentParser, pencil: bool = False,
                     help="run as N gloo ranks on the CPU (0 = the CUDA "
                          "device)")
     ap.add_argument("--profile-dir", default=None,
-                    help="profiler trace directory (not ported yet)")
+                    help="write a torch.profiler chrome trace of the timed "
+                         "runs to this directory")
     ap.add_argument("--profile-stages", action="store_true",
                     help="stage-attributed device profile (not ported yet)")
     ap.add_argument("--obs", action="store_true",
@@ -179,8 +181,7 @@ def refuse_later_items(args) -> None:
     """Raise ``NotImplementedError`` for the first flag that asks for a
     feature of a later ROADMAP item."""
     for flag, item, on in (
-            ("--profile-dir", 12, args.profile_dir is not None),
-            ("--profile-stages", 12, args.profile_stages)):
+            ("--profile-stages", 12, args.profile_stages),):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet ({LATER_ITEMS[item]})")
@@ -258,6 +259,13 @@ def print_obs_snapshot(args) -> None:
                                            sort_keys=True), flush=True)
 
 
+def maybe_profile(args, device: "str | torch.device" = "cuda"):
+    """Context manager: a ``torch.profiler`` trace of the block written to
+    ``--profile-dir`` (one chrome trace per rank), a no-op without it."""
+    return obs.profile.maybe_profile(getattr(args, "profile_dir", None),
+                                     device)
+
+
 def maybe_selftest(plan, args, dims: Optional[int] = None) -> bool:
     """--selftest: one roundtrip of the exact plan before the timed loop
     (``resilience/selftest.py``); False — abort with exit code 1 — on
@@ -282,7 +290,7 @@ def setup_backend(args) -> torch.device:
                              f"world of {n} ranks")
         return torch.device("cpu")
     rank, n = multihost.maybe_initialize()
-    if args.multihost and n == 1:
+    if getattr(args, "multihost", False) and n == 1:
         raise SystemExit("--multihost needs a torch.distributed world: start "
                          "the ranks with torchrun, or set DFFT_COORDINATOR, "
                          "DFFT_NUM_PROCESSES and DFFT_PROCESS_ID")
@@ -329,7 +337,8 @@ def run_testcase(plan, args, dims: Optional[int] = None) -> int:
         kwargs["truth"] = args.tc1_truth
     if dims is not None and args.testcase != 4:
         kwargs["dims"] = dims
-    result = fn(plan, **kwargs)
+    with maybe_profile(args, plan.device):
+        result = fn(plan, **kwargs)
     if "mean_ms" in result:
         tc.say(f"Run complete: {result['mean_ms']:.4f} ms "
                f"(mean over {args.iterations} iterations)")
@@ -342,7 +351,7 @@ def run(module: str, args, argv: Optional[List[str]]) -> int:
     outside a world, spawn N gloo ranks on the CPU, each parsing ``argv``
     and running the body; the exit code is the first failing rank's."""
     n = args.emulate_devices
-    if n and args.multihost:
+    if n and getattr(args, "multihost", False):
         raise SystemExit("--multihost and --emulate-devices are mutually "
                          "exclusive (emulation spawns its own ranks)")
     if n > 1 and multihost.world()[1] == 1:

@@ -23,7 +23,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .common import (add_common_args, print_obs_snapshot, refuse_later_items,
+from .common import (add_common_args, maybe_profile, print_obs_snapshot,
+                     refuse_later_items,
                      run, setup_backend)
 
 
@@ -55,10 +56,6 @@ def _body(args) -> int:
     """The executable on one rank (or the only process)."""
     import numpy as np
 
-    from ..parallel import multihost
-    from ..testing import microbench as mb
-    from ..testing.testcases import say
-
     device = setup_backend(args)
     shape = (args.input_dim_x, args.input_dim_y, args.input_dim_z)
     dtype = np.float64 if args.double_prec else np.float32
@@ -77,6 +74,17 @@ def _body(args) -> int:
         if not run_selftest(plan)["ok"]:
             print("selftest FAILED; aborting", file=sys.stderr)
             return 1
+    with maybe_profile(args, device):
+        return _dispatch(args, shape, dtype, it, wu, device)
+
+
+def _dispatch(args, shape, dtype, it, wu, device) -> int:
+    """The work of ``-t`` / ``--autotune`` (under ``--profile-dir``'s
+    trace when one is asked for)."""
+    from ..parallel import multihost
+    from ..testing import microbench as mb
+    from ..testing.testcases import say
+
     if args.autotune:
         return _autotune(args, shape, device)
     if args.testcase == 0:

@@ -277,7 +277,8 @@ class DistFFTPlan:
                      for xs in torch.chunk(x, ck, dim=0)]
             return local_fft.fft(torch.cat(parts, dim=0), axis=-3, **kw)
 
-        return run
+        return obs.profile.scoped(obs.profile.scope_family(self),
+                                  "local_fft:1", run)
 
     def _fft3d_c2r(self) -> Pipeline:
         kw = dict(norm=self.config.norm, backend=self.config.fft_backend,
@@ -294,7 +295,8 @@ class DistFFTPlan:
                      for cs in torch.chunk(c, ck, dim=0)]
             return torch.cat(parts, dim=0)
 
-        return run
+        return obs.profile.scoped(obs.profile.scope_family(self),
+                                  "local_fft:1", run)
 
     def _fft3d_c2c(self, forward: bool) -> Pipeline:
         """Single-device full 3D C2C (both directions unnormalized under
@@ -308,7 +310,8 @@ class DistFFTPlan:
                 return local_fft.fftn(c, axes, **kw)
             return local_fft.ifftn(c, axes, **kw)
 
-        return run
+        return obs.profile.scoped(obs.profile.scope_family(self),
+                                  "local_fft:1", run)
 
 
 class AxisBlocks:

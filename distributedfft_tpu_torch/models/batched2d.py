@@ -364,13 +364,18 @@ class Batched2DFFTPlan(AxisBlocks):
 
     def _build(self, forward: bool) -> Pipeline:
         if self.fft3d or self.shard == "batch":
-            return self._chunked(lambda x: self._fft2(x, forward))
+            # Stage scope (obs/profile.py): the collective-free graph's
+            # one local_fft node covers the whole per-plane 2D transform.
+            return self._chunked(obs.profile.scoped(
+                "batched2d", "local_fft:1",
+                lambda x: self._fft2(x, forward)))
         first, xpose, last = self._slab_parts(forward)
         cfg = self.config
         if (cfg.send_method is pm.SendMethod.STREAMS
                 and cfg.comm_method is pm.CommMethod.ALL2ALL):
             # K (exchange -> x or y FFT) chains on pieces of the batch.
-            one = self._exchange(forward, pieces=1)
+            one = obs.profile.scoped("batched2d", "exchange:1",
+                                     self._exchange(forward, pieces=1))
             k = cfg.resolved_streams_chunks()
 
             def body(v: torch.Tensor) -> torch.Tensor:
@@ -405,7 +410,11 @@ class Batched2DFFTPlan(AxisBlocks):
                 if c2c:
                     return lf.ifft(c, axis=2, **kw)
                 return lf.irfft(c, n=ny, axis=2, **kw)
-        return first, self._exchange(forward), last
+        # Stage scopes (obs/profile.py): the shard='x' graph's nodes.
+        sc = obs.profile.scoped
+        return (sc("batched2d", "local_fft:1", first),
+                sc("batched2d", "exchange:1", self._exchange(forward)),
+                sc("batched2d", "local_fft:2", last))
 
     def _a2a_pipe_chunks(self) -> int:
         """Pieces of the pipelined all-to-all (ALL2ALL + SYNC / MPI_TYPE

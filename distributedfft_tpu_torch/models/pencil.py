@@ -540,32 +540,74 @@ class PencilFFTPlan(DistFFTPlan):
             pipe_chunks=cfg.resolved_overlap_subblocks(),
             depth=cfg.resolved_overlap_depth(), pieces=pieces)
 
-    def _chain(self, which: int, inverse: bool, nxt: Pipeline) -> Pipeline:
+    def _scope_ids(self, direction: str, dims: int) -> Dict[str, str]:
+        """Plan-graph node ids per pipeline part (the JAX plan's stage
+        scopes, ``obs/profile.py``): local-FFT stages count in pipeline
+        order, exchanges only when their group has more than one rank."""
+        ids: Dict[str, str] = {}
+        n = {"lf": 0, "x": 0}
+
+        def nlf(part: str) -> None:
+            n["lf"] += 1
+            ids[part] = f"local_fft:{n['lf']}"
+
+        def nx_(part: str, p: int) -> None:
+            if p > 1:
+                n["x"] += 1
+                ids[part] = f"exchange:{n['x']}"
+
+        if direction == "forward":
+            nlf("s1")
+            if dims >= 2:
+                nx_("t1", self.p2)
+                nlf("s2")
+            if dims >= 3:
+                nx_("t2", self.p1)
+                nlf("s3")
+        else:
+            if dims >= 3:
+                nlf("i3")
+                nx_("t2b", self.p1)
+            if dims >= 2:
+                nlf("i2")
+                nx_("t1b", self.p2)
+            nlf("i1")
+        return ids
+
+    def _chain(self, which: int, inverse: bool, nxt: Pipeline,
+               scope: str = "") -> Pipeline:
         """Transpose ``which`` followed by the FFT stage ``nxt``. Under
         ALL2ALL + STREAMS: K independent (exchange -> ``nxt``) chains on
         pieces of the free axis, reassembled (the JAX package's ``_attach``);
         ``nxt`` never runs along that axis, so the result is SYNC's."""
         comm, snd = self._rendering(which)
+        sc = obs.profile.scoped
         if snd is pm.SendMethod.STREAMS and comm is pm.CommMethod.ALL2ALL:
-            one = self._xpose(which, inverse, pieces=1)
+            one = sc("pencil", scope, self._xpose(which, inverse, pieces=1))
             ca, k = _FREE[which], self.config.resolved_streams_chunks()
             return lambda c: concat_axis_chunks(
                 [nxt(one(p)) for p in split_axis_chunks(c, ca, k)], ca)
-        xpose = self._xpose(which, inverse)
+        xpose = sc("pencil", scope, self._xpose(which, inverse))
         return lambda c: nxt(xpose(c))
 
     def _build_fwd(self, dims: int) -> Pipeline:
         if self.fft3d:
             return self._fft3d_fwd(dims)
-        s = self._fwd_ffts(dims)
-        return _compose([s[0]] + [self._chain(w, False, s[w])
+        ids = self._scope_ids("forward", dims)
+        s = [obs.profile.scoped("pencil", ids[f"s{w + 1}"], f)
+             for w, f in enumerate(self._fwd_ffts(dims))]
+        return _compose([s[0]] + [self._chain(w, False, s[w],
+                                              ids.get(f"t{w}", ""))
                                   for w in range(1, dims)])
 
     def _build_inv(self, dims: int) -> Pipeline:
         if self.fft3d:
             return self._fft3d_inv(dims)
-        i = self._inv_ffts()
-        return _compose([i[dims]] + [self._chain(w, True, i[w])
+        ids = self._scope_ids("inverse", dims)
+        i = {w: obs.profile.scoped("pencil", ids[f"i{w}"], f)
+             for w, f in self._inv_ffts().items() if f"i{w}" in ids}
+        return _compose([i[dims]] + [self._chain(w, True, i[w],
+                                                 ids.get(f"t{w}b", ""))
                                      for w in range(dims - 1, 0, -1)])
 
     # -- the single-rank path: per axis, with depth ---------------------------
@@ -580,7 +622,7 @@ class PencilFFTPlan(DistFFTPlan):
                 c = lf.fft(c, axis=a, **kw)
             return c
 
-        return run
+        return obs.profile.scoped("pencil", "local_fft:1", run)
 
     def _fft3d_inv(self, dims: int) -> Pipeline:
         kw, nz = self._fft_kw(), self.global_size.nz
@@ -593,7 +635,7 @@ class PencilFFTPlan(DistFFTPlan):
                 return lf.ifft(c, axis=2, **kw)
             return lf.irfft(c, n=nz, axis=2, **kw)
 
-        return run
+        return obs.profile.scoped("pencil", "local_fft:1", run)
 
     # -- per-phase staged execution (the phase Timer's surface) -------------
 

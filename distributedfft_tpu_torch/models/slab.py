@@ -392,8 +392,12 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
                   chunk_axis=self._streams_chunk_axis(),
                   pipe_chunks=self._a2a_pipe_chunks() if chunks is None else 1,
                   depth=cfg.resolved_overlap_depth(), pieces=chunks or 1)
-        return (exchange_body(self.group, sa, 0, **kw),
-                exchange_body(self.group, 0, sa, **kw))
+        # Stage scope (obs/profile.py): the whole exchange — encode,
+        # collective, decode — is the graph's exchange:1 node (the wire
+        # layer nests its own scopes inside).
+        return tuple(obs.profile.scoped(
+            "slab", "exchange:1", exchange_body(self.group, a, b, **kw))
+            for a, b in ((sa, 0), (0, sa)))
 
     def _exchange_bodies(self):
         """The exchange pair of the staged surface: ``_xpose_bodies`` of
@@ -416,7 +420,9 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
                 b = tf(b, axis=a, **kw)
             return b
 
-        return pipe
+        # The per-block FFTs belong to the stage-2 local-FFT node even
+        # though they run inside the ring (innermost scope wins).
+        return obs.profile.scoped("slab", "local_fft:2", pipe)
 
     def _ring_hooks(self, pipe_axes: Tuple[int, ...], inverse: bool = False):
         """``(encode_fn, arrive_fn, pipe)`` of a ring whose arriving blocks
@@ -473,6 +479,8 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
                 return ring_transpose(cl, group, sa, 0, pipeline_fn=pipe,
                                       encode_fn=enc_fn, arrive_fn=arr_fn,
                                       **ring_kw)
+
+            xpose = obs.profile.scoped("slab", "exchange:1", xpose)
         else:
             rest, xpose = s.post_axes, self._exchange_bodies()[0]
 
@@ -483,7 +491,9 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
                 c = lf.fft(c, axis=a, **kw)
             return c
 
-        return first, xpose, last
+        sc = obs.profile.scoped
+        return (sc("slab", "local_fft:1", first), xpose,
+                sc("slab", "local_fft:2", last))
 
     def _inv_parts(self):
         """(first, xpose, last) of the distributed inverse. On a ring the
@@ -516,6 +526,8 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
                 return ring_transpose(cl, group, 0, sa, pipeline_fn=pipe,
                                       encode_fn=enc_fn, arrive_fn=arr_fn,
                                       **ring_kw)
+
+            xpose = obs.profile.scoped("slab", "exchange:1", xpose)
         else:
             after, r2c_last = tuple(reversed(s.pre_axes)), True
             xpose = self._exchange_bodies()[1]
@@ -532,7 +544,9 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
                 return lf.ifft(c, axis=s.r2c_axis, **kw)
             return lf.irfft(c, n=real_n, axis=s.r2c_axis, **kw)
 
-        return first, xpose, last
+        sc = obs.profile.scoped
+        return (sc("slab", "local_fft:1", first), xpose,
+                sc("slab", "local_fft:2", last))
 
     # -- STREAMS under ALL2ALL: K (exchange -> FFT) piece chains ------------
     # The reference's Streams engine (per-peer packs on CUDA streams, a
@@ -565,13 +579,16 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
         def body(xl: torch.Tensor) -> torch.Tensor:
             outs = []
             for piece in split_axis_chunks(first(xl), ca, k):
-                y = slice_axis_to(xpose(piece), 0, nx)
-                for a in per_chunk:
-                    y = lf.fft(y, axis=a, **kw)
+                y = xpose(piece)
+                with obs.profile.stage_scope("slab", "local_fft:2"):
+                    y = slice_axis_to(y, 0, nx)
+                    for a in per_chunk:
+                        y = lf.fft(y, axis=a, **kw)
                 outs.append(y)
-            c = concat_axis_chunks(outs, ca)
-            for a in after:
-                c = lf.fft(c, axis=a, **kw)
+            with obs.profile.stage_scope("slab", "local_fft:2"):
+                c = concat_axis_chunks(outs, ca)
+                for a in after:
+                    c = lf.fft(c, axis=a, **kw)
             return c
 
         return body
@@ -587,16 +604,20 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
 
         def body(cl: torch.Tensor) -> torch.Tensor:
             c = cl
-            for a in after:
-                c = lf.ifft(c, axis=a, **kw)
+            with obs.profile.stage_scope("slab", "local_fft:1"):
+                for a in after:
+                    c = lf.ifft(c, axis=a, **kw)
             outs = []
             for piece in split_axis_chunks(c, ca, k):
-                # A contiguous piece: on the card its FFTs then run on the
-                # column kernel where they lie, as the whole block's do.
-                y = piece.contiguous()
-                for a in reversed(per_chunk):
-                    y = lf.ifft(y, axis=a, **kw)
-                outs.append(xpose_inv(pad_axis_to(y, 0, nx_pad)))
+                with obs.profile.stage_scope("slab", "local_fft:1"):
+                    # A contiguous piece: on the card its FFTs then run on
+                    # the column kernel where they lie, as the whole
+                    # block's do.
+                    y = piece.contiguous()
+                    for a in reversed(per_chunk):
+                        y = lf.ifft(y, axis=a, **kw)
+                    y = pad_axis_to(y, 0, nx_pad)
+                outs.append(xpose_inv(y))
             return last(concat_axis_chunks(outs, ca))
 
         return body

@@ -15,6 +15,7 @@ reference's two ``MPI_Comm_split`` communicators
 from __future__ import annotations
 
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -26,6 +27,14 @@ SLAB_AXIS = "p"
 # Names of the pencil grid's axes (the JAX mesh axis names): p1 splits x
 # and carries transpose 2, p2 splits y and carries transpose 1.
 PENCIL_AXES = ("p1", "p2")
+
+# One process-wide mutex serializing device work that posts collectives
+# across threads: a resident solver stepping on its own thread while the
+# serving thread executes a plan would post two threads' collectives on one
+# group, which NCCL and gloo deadlock or interleave (as XLA's in-process
+# rendezvous did in the JAX package). Reentrant so a holder can call
+# helpers that take it; single-threaded use never contends.
+DEVICE_LOCK = threading.RLock()
 
 # (p1, p2) -> (row groups, column groups) of this world, every one of them:
 # ``dist.new_group`` is collective over the world, so each rank creates

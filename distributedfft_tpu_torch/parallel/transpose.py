@@ -88,7 +88,8 @@ def wire_encode(x: torch.Tensor, wire: str = WIRE_BF16) -> torch.Tensor:
     Non-complex input and ``wire="native"`` pass through."""
     if not _wire_active(x, wire):
         return x
-    with obs.span("exchange.encode", wire=wire):
+    with obs.span("exchange.encode", wire=wire), \
+            obs.profile.wire_scope("encode"):
         return torch.stack([x.real, x.imag]).to(torch.bfloat16)
 
 
@@ -99,7 +100,8 @@ def wire_decode(y: torch.Tensor, dtype: torch.dtype,
     validate_wire(wire)
     if wire == WIRE_NATIVE:
         return y
-    with obs.span("exchange.decode", wire=wire):
+    with obs.span("exchange.decode", wire=wire), \
+            obs.profile.wire_scope("decode"):
         f = torch.float64 if dtype == torch.complex128 else torch.float32
         z = y.to(f)
         return torch.complex(z[0], z[1])
@@ -718,7 +720,11 @@ def _ring_transpose_impl(x: torch.Tensor, group, split_axis: int,
         """A travelling block as it goes on the wire: encoded (the fused
         wire's kernel 9 where ``encode_fn`` is given), then tainted."""
         if wired:
-            b = encode_fn(b) if encode_fn is not None else wire_encode(b, wire)
+            if encode_fn is None:
+                b = wire_encode(b, wire)   # carries the wire/encode scope
+            else:
+                with obs.profile.wire_scope("encode"):
+                    b = encode_fn(b)
         return inject.taint_wire(b, "ring").contiguous()
 
     # Revolving receive buffers, each the size of the largest sub-block;
@@ -744,7 +750,10 @@ def _ring_transpose_impl(x: torch.Tensor, group, split_axis: int,
 
     def arrive(b: torch.Tensor) -> torch.Tensor:
         if arrive_fn is not None:
-            out = arrive_fn(b)
+            # The fused arrival runs under wire/decode; a family's
+            # pipelined-FFT scope nested inside wins in attribution.
+            with obs.profile.wire_scope("decode"):
+                out = arrive_fn(b)
         else:
             out = pipe(wire_decode(b, x.dtype, wire) if wired else b)
         # A later micro-step reuses the buffer: keep no view of it.

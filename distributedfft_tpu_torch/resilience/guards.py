@@ -269,14 +269,18 @@ def _max_pair(diff: torch.Tensor, ref: torch.Tensor,
     return _allreduce(m, dist.ReduceOp.MAX, reg)
 
 
-def wrap(pure, spec: GuardSpec, wire: str, probe: bool, reg: Region):
+def wrap(pure, spec: GuardSpec, wire: str, probe: bool, reg: Region,
+         family: str = "plan"):
     """The guarded pipeline: ``x -> (y, stats)`` where ``stats`` is a
     float64 2-vector ``[check_residual, wire_drift]`` on the device, the
-    same on every rank (drift -1 when not probed)."""
+    same on every rank (drift -1 when not probed). The guard's reductions
+    run under the ``dfft/<family>/guard`` stage scope (the graph's guard
+    node in ``obs/profile.py`` attribution)."""
 
     def run(x: torch.Tensor):
         y = pure(x)
-        return y, _stats(x, y)
+        with obs.profile.stage_scope(family, "guard"):
+            return y, _stats(x, y)
 
     def _stats(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         if spec.check == "finite":
@@ -319,7 +323,8 @@ def maybe_wrap(plan, pure, direction: str, dims: int = 3):
         tolerance=parseval_tolerance(cfg.double_prec, wire, n_total),
         wire_budget=cfg.resolved_wire_budget(),
         probe=probe)
-    return wrap(pure, spec, wire, probe, region(plan, direction, dims)), True
+    return wrap(pure, spec, wire, probe, region(plan, direction, dims),
+                family=obs.profile.scope_family(plan)), True
 
 
 def fingerprint(plan, direction: str) -> dict:

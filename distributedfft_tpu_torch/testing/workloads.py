@@ -18,9 +18,10 @@ ranks on P ranks), where the JAX package jits a ``lax.fori_loop``:
 
 The chains run under ``torch.no_grad()``. Plans take ``device`` where the
 JAX package takes ``mesh`` (on P ranks: a ``partition`` of P and the
-world group, each rank passing its own block). ``serve_load``, the serve
-layer's load generator, comes with the serve layer (ROADMAP Queue 1
-item 14).
+world group, each rank passing its own block).
+
+``serve_load`` is the serve layer's open-loop load generator (Poisson
+arrivals against a live ``serve.Server``).
 """
 
 from __future__ import annotations
@@ -140,9 +141,216 @@ def flops_batched2d(batch: int, nx: int, ny: int) -> float:
     return 2 * 2.5 * batch * nx * ny * math.log2(float(nx) * ny)
 
 
-def serve_load(server, **kwargs) -> dict:
-    """The serve layer's open-loop load generator: not ported with the
-    solvers; it comes with the serve layer."""
-    raise NotImplementedError(
-        "workloads.serve_load drives the serve layer, which is not ported "
-        "yet (ROADMAP Queue 1, item 14)")
+# ---------------------------------------------------------------------------
+# open-loop load generation against the serving layer
+# ---------------------------------------------------------------------------
+
+def serve_load(server, *, rate_hz: float, duration_s: float | None = None,
+               n_requests: int | None = None,
+               shapes=((256, 256),), dtypes=("f32",),
+               transforms=("r2c",), deadline_ms: float | None = None,
+               seed: int = 0, warmup: int = 1, stop=None,
+               tenants=None) -> dict:
+    """Open-loop load generator: Poisson arrivals against a live
+    :class:`~distributedfft_tpu_torch.serve.server.Server` (the JAX
+    package's ``serve_load``, the same schedule from the same seed).
+
+    OPEN loop means the arrival schedule is fixed in advance
+    (exponential inter-arrival gaps at ``rate_hz``) and never slows down
+    because the server is slow — the honest way to measure a serving
+    system under saturation (a closed loop self-throttles and hides the
+    latency cliff). Traffic mixes uniformly over ``shapes``
+    (``(nx, ny)`` image pairs and/or ``(nx, ny, nz)`` volume triples),
+    ``dtypes``
+    (``"f32"``/``"f64"``) and ``transforms`` (``"r2c"``/``"c2c"``),
+    seed-keyed so a chaos run is reproducible.
+
+    Every submission outcome is tallied: completed requests contribute
+    their end-to-end latency (submit -> result materialized), rejections
+    count by class (``shed`` / ``circuit_open`` / ``deadline_expired`` /
+    ``closed`` / ``failed``). Returns the measurement dict: p50/p99/mean
+    latency ms, achieved FFTs/sec vs offered, and the outcome counts.
+
+    ``warmup`` synchronous requests per (shape, dtype, transform) cell
+    pre-build the plans OUTSIDE the measured window (set ``warmup=0`` to
+    measure cold-start behavior). ``stop`` (a ``threading.Event``-like
+    object) aborts the submission schedule early — the CLI's
+    SIGTERM/SIGINT handler sets it so a long drive drains gracefully
+    instead of running its full window; already-submitted requests are
+    still collected into the summary.
+
+    ``tenants`` (a sequence of names) mixes the traffic uniformly over
+    tenant identities and adds a ``by_tenant`` outcome/latency breakdown
+    to the summary; it needs a server whose ``submit`` takes a tenant
+    (the fleet, ROADMAP Queue 1 item 14's second part)."""
+    import numpy as np
+    if (duration_s is None) == (n_requests is None):
+        raise ValueError("pass exactly one of duration_s / n_requests")
+    if tenants:
+        from ..serve.server import LATER_FLEET
+        raise NotImplementedError(
+            f"serve_load's tenant mix drives the fleet ({LATER_FLEET})")
+    rng = np.random.default_rng(seed)
+    cells = [(tuple(int(n) for n in shape), d, t) for shape in shapes
+             for d in dtypes for t in transforms]
+
+    def _payload(shape, d, t):
+        real = rng.random(shape,
+                          dtype=np.float64 if d == "f64" else np.float32)
+        if t == "c2c":
+            return real.astype(np.complex128 if d == "f64"
+                               else np.complex64)
+        return real
+
+    # Pre-build every coalescing bucket per cell (the rolling-restart
+    # pattern) — but only when the plan cache can actually HOLD the
+    # result: prewarming more plans than capacity just thrashes the LRU
+    # and leaves the measured window cold anyway. A Fleet has no single
+    # cache (each worker owns one); prewarm unconditionally there.
+    from ..serve.plancache import bucket_for
+    buckets_per_cell = bucket_for(server.max_coalesce,
+                                  server.max_coalesce).bit_length()
+    cache_cap = getattr(getattr(server, "cache", None), "capacity", None)
+    full_prewarm = (cache_cap is None
+                    or len(cells) * buckets_per_cell <= cache_cap)
+    for shape, d, t in (cells if warmup else []):
+        if full_prewarm:
+            try:
+                server.prewarm(shape,
+                               dtype="float64" if d == "f64" else "float32",
+                               transform=t)
+            except Exception:  # noqa: BLE001 — warmup failures are the
+                pass           # run's own evidence (chaos drills inject)
+        for _ in range(warmup):
+            try:
+                server.request(_payload(shape, d, t), t)
+            except Exception:  # noqa: BLE001
+                pass
+
+    # Pre-draw the whole open-loop schedule (arrival offsets + traffic
+    # mix), so generator overhead never back-pressures the schedule.
+    # Payloads come from a small per-cell POOL reused round-robin —
+    # pre-materializing one array per arrival would be O(rate x duration
+    # x image bytes) of memory for no measurement benefit.
+    if n_requests is None:
+        gaps, total = [], 0.0
+        while total < duration_s:
+            g = rng.exponential(1.0 / rate_hz)
+            total += g
+            gaps.append(g)
+    else:
+        gaps = list(rng.exponential(1.0 / rate_hz, size=n_requests))
+    arrivals = np.cumsum(gaps)
+    mix = [cells[rng.integers(len(cells))] for _ in arrivals]
+    pool = {c: [_payload(*c) for _ in range(4)] for c in cells}
+    payloads = [pool[c][i % 4] for i, c in enumerate(mix)]
+    tenant_mix = ([str(tenants[rng.integers(len(tenants))])
+                   for _ in arrivals] if tenants else [None] * len(mix))
+
+    import time as _time
+    _OUTCOME0 = {"ok": 0, "shed": 0, "circuit_open": 0,
+                 "deadline_expired": 0, "closed": 0, "failed": 0}
+    outcomes = dict(_OUTCOME0)
+    by_tenant: dict = {str(t): {"outcomes": dict(_OUTCOME0),
+                                "latencies": []}
+                       for t in (tenants or [])}
+
+    def _tally(outcome, tenant):
+        outcomes[outcome] += 1
+        if tenant is not None:
+            by_tenant[tenant]["outcomes"][outcome] += 1
+
+    latencies: list = []
+    inflight: list = []
+    t0 = _time.perf_counter()
+    aborted = False
+    for at, cell, x, tn in zip(arrivals, mix, payloads, tenant_mix):
+        if stop is not None and stop.is_set():
+            aborted = True
+            break
+        while True:  # sliced sleep so a stop signal lands within ~0.2 s
+            gap = at - (_time.perf_counter() - t0)
+            if gap <= 0:
+                break
+            _time.sleep(min(gap, 0.2))
+            if stop is not None and stop.is_set():
+                break
+        if stop is not None and stop.is_set():
+            aborted = True
+            break
+        sub = _time.perf_counter()
+        try:
+            kw = {"deadline_ms": deadline_ms}
+            if tn is not None:
+                kw["tenant"] = tn
+            fut = server.submit(x, cell[2], **kw)
+        except Exception as e:  # noqa: BLE001 — classify the rejection
+            _tally(_classify(e), tn)
+            continue
+        # End-to-end latency must stamp when the future RESOLVES (the
+        # worker's set_result), not when this open-loop harness gets
+        # around to reading it after the submission schedule finishes.
+        rec = {"sub": sub}
+        fut.add_done_callback(
+            lambda f, rec=rec: rec.__setitem__("done",
+                                               _time.perf_counter()))
+        inflight.append((rec, fut, tn))
+    for rec, fut, tn in inflight:
+        try:
+            fut.result()
+        except Exception as e:  # noqa: BLE001
+            _tally(_classify(e), tn)
+            continue
+        _tally("ok", tn)
+        # Future.set_result wakes result() waiters BEFORE running done
+        # callbacks, so the stamp can lag a just-resolved future by a
+        # hair — fall back to "now", which is within that same hair.
+        done = rec.get("done") or _time.perf_counter()
+        latencies.append((done - rec["sub"]) * 1e3)
+        if tn is not None:
+            by_tenant[tn]["latencies"].append(latencies[-1])
+    wall_s = _time.perf_counter() - t0
+    lat = np.asarray(latencies, dtype=np.float64)
+    # offered = arrivals actually driven; an aborted (stop-signalled) run
+    # offered only what it got through before the signal.
+    offered = sum(outcomes.values())
+    tenant_block = {}
+    for t, rec in by_tenant.items():
+        tl = np.asarray(rec["latencies"], dtype=np.float64)
+        tenant_block[t] = {
+            "outcomes": rec["outcomes"],
+            "p50_ms": round(float(np.percentile(tl, 50)), 3)
+            if len(tl) else None,
+            "p99_ms": round(float(np.percentile(tl, 99)), 3)
+            if len(tl) else None,
+        }
+    return ({"by_tenant": tenant_block} if tenant_block else {}) | {
+        "offered": offered,
+        "aborted": aborted,
+        "offered_rate_hz": round(offered / wall_s, 3),
+        "target_rate_hz": rate_hz,
+        "wall_s": round(wall_s, 3),
+        "outcomes": outcomes,
+        "completed": int(outcomes["ok"]),
+        "achieved_fps": round(outcomes["ok"] / wall_s, 3),
+        "p50_ms": round(float(np.percentile(lat, 50)), 3) if len(lat) else None,
+        "p99_ms": round(float(np.percentile(lat, 99)), 3) if len(lat) else None,
+        "mean_ms": round(float(lat.mean()), 3) if len(lat) else None,
+        "max_ms": round(float(lat.max()), 3) if len(lat) else None,
+    }
+
+
+def _classify(e: BaseException) -> str:
+    """Map a serve rejection/failure to its outcome bucket."""
+    from ..resilience.circuit import CircuitOpen
+    from ..resilience.deadline import DeadlineExceeded
+    from ..serve.server import Overloaded, ServerClosed
+    if isinstance(e, Overloaded):
+        return "shed"
+    if isinstance(e, CircuitOpen):
+        return "circuit_open"
+    if isinstance(e, DeadlineExceeded):
+        return "deadline_expired"
+    if isinstance(e, ServerClosed):
+        return "closed"
+    return "failed"

@@ -55,8 +55,10 @@ RENDERINGS = {
     "matmul": (["--fft-backend", "matmul"], 5e-4),
 }
 # Flags of a later ROADMAP item: (executable, flags, the item named).
+# ``--profile-dir`` runs since item 12's first part
+# (tests/test_torch_profile.py).
 LATER = [
-    ("slab", ["--profile-dir", "prof"], "item 12"),
+    ("slab", ["--profile-stages", "-t", "1"], "item 12"),
     ("slab", ["--profile-stages"], "item 12"),
     ("reference", ["--profile-stages"], "item 12"),
 ]

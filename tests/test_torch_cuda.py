@@ -1135,3 +1135,51 @@ def test_resume_is_bit_exact_on_the_card(cuda, tmp_path):
             expect_fingerprint=persist.plan_fingerprint(plan)), ns)
         resumed = step(step(back))
     assert all(torch.equal(a, b) for a, b in zip(resumed, straight))
+
+
+def test_server_on_the_card(cuda):
+    """A one-rank server on the kernels: 256² replies within 5e-4 of
+    ``torch.fft``, a coalesced batch bit for bit its single-shot replies,
+    the split recorded, and the images' launches kernels 2, 4 or 5 only."""
+    from distributedfft_tpu_torch.serve import Server
+    imgs = [np.random.default_rng(i).standard_normal((256, 256))
+            .astype(np.float32) for i in range(4)]
+    with Server(config=dft.Config(fft_backend="pallas"), max_coalesce=1) \
+            as s1:
+        single = [s1.request(x) for x in imgs]
+    with Server(config=dft.Config(fft_backend="pallas"), max_coalesce=8) \
+            as s:
+        assert s.prewarm((256, 256), directions=("forward", "inverse")) == 4
+        hf.reset_launches()
+        s.submit(np.zeros((64, 64), np.float32))
+        futs = [s.submit(x) for x in imgs]
+        got = [f.result(120) for f in futs]
+        assert s.health()["counters"]["coalesced"] >= 2
+        back = s.request(got[0], "r2c", "inverse", ny=256)
+        hist = s.health()["obs_metrics"]["histograms"]
+    for a, b in zip(single, got):
+        assert np.array_equal(a, b)
+    ref = torch.fft.rfft2(torch.from_numpy(imgs[0]).to(cuda)).cpu()
+    assert _rel(torch.from_numpy(got[0]), ref) <= 5e-4
+    assert _rel(torch.from_numpy(back / 256 ** 2),
+                torch.from_numpy(imgs[0])) <= 5e-4
+    assert set(k for k, v in hf.LAUNCHES.items() if v) <= {
+        "cmatmul", "cmatmul_tw", "rmatmul_tw", "rmatmul", "c2r"}
+    assert hf.DISPATCHES["matmul"] == 0
+    for name in ("serve.copy_in_ms", "serve.device_ms", "serve.copy_out_ms"):
+        assert hist[name]["count"] >= 1
+
+
+def test_capture_charges_ctypes_kernels_to_their_scopes(cuda):
+    """The port's kernels launch through ``ctypes``, outside aten: the
+    capture still charges their device time to the stage scope open
+    around each launch, and reads the device's idle share."""
+    from distributedfft_tpu_torch.obs import profile
+    plan = dft.SlabFFTPlan(dft.GlobalSize(128, 128, 128),
+                           dft.SlabPartition(1),
+                           dft.Config(fft_backend="pallas"))
+    prof = profile.capture_stage_profile(plan, "forward", iters=3)
+    assert prof["planes"] and prof["planes"][0].startswith("/device:GPU:")
+    assert prof["scopes"].get("slab/local_fft:1", 0) > 0
+    assert prof["scopes"]["slab/local_fft:1"] >= 0.5 * prof["total_ms"]
+    assert 0 <= prof["idle_share"] < 1

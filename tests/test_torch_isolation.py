@@ -39,7 +39,10 @@ def test_import_pulls_in_no_jax():
         "solvers", "solvers.convolve", "solvers.navier_stokes",
         "solvers.poisson", "solvers.r2r", "testing.workloads",
         "testing.autotune", "testing.chaintimer", "utils.wisdom", "persist",
-        "persist.checkpoint", "persist.policy", "persist.state")
+        "persist.checkpoint", "persist.policy", "persist.state",
+        "obs.promexp", "obs.profile", "serve", "serve.cli",
+        "serve.plancache", "serve.resident", "serve.router", "serve.server",
+        "solvers.driver")
     } <= set(MODULES)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -76,7 +76,9 @@ for _r, _flags in RENDER.items():
 REFS = {f"t{t}-o{o}": _S16 + ["-t", str(t), "-o", str(o), "-i", "2"]
         for t in (1, 2, 3) for o in (0, 1)}
 # Flags of a later ROADMAP item: (flags, the item named).
-LATER = [(["--profile-dir", "prof"], "item 12")]
+# ``--profile-dir`` runs since item 12's first part
+# (tests/test_torch_profile.py).
+LATER = [(["--profile-stages"], "item 12")]
 # Flags of ROADMAP items 9 and 11 and item 12's host core, which raised
 # until they were ported; each now runs.
 FORMER = [["--guards", "check"], ["--selftest"], ["--obs"],

@@ -83,8 +83,14 @@ def test_flops_formulas():
 
 
 def test_serve_load_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        workloads.serve_load(None, rate_hz=1.0, n_requests=1)
+    """``serve_load`` runs since item 14 (``tests/test_torch_serve.py``);
+    its tenant mix drives the fleet, item 14's second part, and raises
+    naming it."""
+    from distributedfft_tpu_torch.serve import Server
+    with Server(device="cpu") as s:
+        with pytest.raises(NotImplementedError, match="item 14, second"):
+            workloads.serve_load(s, rate_hz=1.0, n_requests=1,
+                                 tenants=["gold"])
 
 
 def _rank_main(rank, addr, outdir):
