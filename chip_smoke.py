@@ -170,7 +170,33 @@ once, before any rank is spawned) and then, under
    leader and a follower (the 512^3 volume bit for bit the direct plan,
    ``shard="x"`` 1024^2 images and a 256^3 c2c volume on the fused bf16
    ring: kernels 9-11; each rank's idle share); and the profile capture of
-   the 1024^3 plan and of one NS-3D 512^3 step, ms per ``dfft/...`` scope.
+   the 1024^3 plan and of one NS-3D 512^3 step, ms per ``dfft/...`` scope;
+15. runs the serving fleet (``fleet_phase``; ``fleet_only()`` runs it and
+   16 alone): fleet A, two one-rank worker processes (coalescing 8,
+   ``batch_chunk=1``, tenants gold:free 3:1) prewarmed on a 4096^2 and a
+   4096 x 2048 image (one key a worker) and 512^3: single requests bit for
+   bit the in-process ``Server``'s and within TOL of ``torch.fft``, the
+   workers' summed launches and entry points equal to that Server's for
+   the same requests (kernels 2, 4, 5, 6-8), a burst for the fleet's
+   capacity, open-loop drives at 0.7x and 1.5x of it (the second over the
+   tenants), a request's time through the fleet against the in-process
+   Server's (the pipe); fleet B, one worker under a ``ScaleController``
+   1:3 growing under load, then ``worker:crash:3@seed=1``; fleet C,
+   ``worker:hang``; both with every request answered; fleet D,
+   ``worker_devices=[2, 0]`` on the fused bf16 ring: the two-rank worker
+   (a leader and a follower process over gloo) takes the 512^3 volume and
+   1024^2 images (kernels 9-11, its ranks' counts gathered) and hosts an
+   NS-3D 256^3 resident, then ``worker:devloss:1@seed=0`` brings it back
+   one rank short, restoring the resident with ``persist.degraded_restore``
+   (kernels 6-8); no matmul dispatch, no worker JAX, and no process of any
+   worker alive after each ``close``;
+16. runs evaluation and launch: the matmul backend's chain-timed
+   roundtrips (``testing/chaintimer.py``) at 128^3-512^3 written in
+   ``roofline_rows``' CSV schema and rendered by ``dfft-torch-roofline
+   --csv`` on H100 peaks; ``dfft-torch-launch`` on a job of
+   ``dfft-torch-slab`` at 512^3 under "pallas", reduced by
+   ``dfft-torch-eval``, whose fused mean holds within 10% of
+   ``plan_time``'s.
 
 Phases print JSON lines. Before the last line come one
 ``{"matmul_backend": ...}`` line (the matmul backend is no kernel), one
@@ -180,15 +206,17 @@ Phases print JSON lines. Before the last line come one
 the script exits non-zero with no result line; so does a machine without a
 CUDA device, or a directory without the port. On the way out it stops
 every process it started (the ranks, multiprocessing's resource tracker)
-and any descendant they left behind. Takes about 700 s on an
-H100, the kernels' build (25-55 s), the matmul backend's phase (about
-10 s), the executables' phase (about 60 s, most of it the host's random
-draws), the pencil's (about 170 s, most of it gloo's host-staged
-exchanges), the batched and Bluestein phases, the resilience phases, the
-solvers' (about 45 s), the wisdom phase's (about 140 s, most of it the
-matmul candidates of the two 1024^3 races) and the serving phase's
-(about 170 s, most of it the host's copies of 4096^2 images and
-1024^3 volumes) included.
+and any descendant they left behind (the fleets' workers and their
+followers among them). Takes about 900 s on an H100, the kernels' build
+(25-55 s), the matmul backend's phase (about 10 s), the executables'
+phase (about 60 s, most of it the host's random draws), the pencil's
+(about 170 s, most of it gloo's host-staged exchanges), the batched and
+Bluestein phases, the resilience phases, the solvers' (about 45 s), the
+wisdom phase's (about 140 s, most of it the matmul candidates of the two
+1024^3 races), the serving phase's (about 120 s, most of it the host's
+copies of 4096^2 images and 1024^3 volumes), the fleet's (about 190 s,
+most of it the workers' starts and the pipes' transfers of 512^3
+volumes) and evaluation's (about 20 s) included.
 """
 
 from __future__ import annotations
@@ -308,18 +336,22 @@ def alternated_ms(torch, fa, fb, reps: int = ALTERNATED_REPS) -> dict:
     return out
 
 
+def _roofline():
+    from distributedfft_tpu_torch.evalkit import roofline
+    return roofline
+
+
 def fft_flops(rows: int, n: int, real: bool = False) -> float:
     """The function's work: the FFT's nominal 5 n log2 n flop per complex
     row of n points, 2.5 n log2 n with real input or output (PERF.md §2's
-    GFLOP/s metric)."""
-    return (2.5 if real else 5.0) * rows * n * math.log2(n)
+    GFLOP/s metric; ``evalkit/roofline.py``'s ``fft_flops``)."""
+    return _roofline().fft_flops(rows, n, real)
 
 
 def bound(flops: float, nbytes: float):
-    """(bound ms, what bounds it) on the data sheet's peaks."""
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """(bound ms, what bounds it) on the data sheet's peaks: the port's one
+    bound rule, ``evalkit/roofline.py``'s ``bound``."""
+    return _roofline().bound(flops, nbytes)
 
 
 # Kernels whose body is a pure function of their shape: the row FFT engine
@@ -2428,10 +2460,9 @@ def matmul_plan_flops(mx, shape, inverse: bool, extended_c2r: bool = False,
 
 
 def matmul_bound(flops: float, nbytes: float, rate: float):
-    """(bound ms, what bounds it) at a tensor-core ``rate``."""
-    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """(bound ms, what bounds it) at a tensor-core ``rate`` (the same
+    rule)."""
+    return _roofline().bound(flops, nbytes, rate)
 
 
 # float64 under "pallas" on one card: id -> cube edge. Forward and inverse
@@ -5324,6 +5355,666 @@ def serve_only() -> int:
     return 0
 
 
+# -- 15. the serving fleet ------------------------------------------------------
+
+# The drives mix two 4096-row images, each key owned by one of the two
+# workers (rendezvous over worker-0, worker-1: 4096^2 -> worker-0, 4096 x
+# 2048 -> worker-1; a key is served by its owner, so one shape keeps one
+# worker busy).
+FLEET_IMAGES = ((4096, 4096), (4096, 2048))
+FLEET_TENANTS = {"gold": 3.0, "free": 1.0}
+# A worker's start holds the torch import, the CUDA context, the kernels'
+# libraries and the prewarm: the beats' window and the spawn timeout allow
+# for it.
+FLEET_HB = dict(heartbeat_interval_s=0.5, heartbeat_k=12,
+                spawn_timeout_s=300.0)
+FLEET_SCALE = (1, 3)              # ScaleController bounds, fleet B
+# Requests at once: past the router's admission capacity (64 for one
+# worker), so the rest shed and the controller sees shed grow within its
+# 0.5 s step however fast the card drains the queue.
+FLEET_SCALE_BURST = 160
+# Fleets B and D measure recovery, not shedding: a worker's latency budget
+# there admits what a volume or a rerouted request would otherwise shed.
+FLEET_DRILL_BUDGET_MS = 60_000.0
+FLEET_CRASH = "worker:crash:3@seed=1"
+FLEET_HANG = "worker:hang:60000@seed=0"
+# Fleets B and C (the drills): small images, one key a worker in a ring of
+# two (512 x 1024 -> worker-0, 1024^2 -> worker-1), so the pipe costs
+# little.
+FLEET_SMALL = ((512, 1024), (1024, 1024))
+FLEET_DEVLOSS = "worker:devloss:1@seed=0"
+# Fleet D's resident: NS-3D cut from 512^3 to 256^3, since its two ranks
+# exchange through gloo's host staging (a 512^3 step there is ~7 s).
+FLEET_RESIDENT_N = 256
+FLEET_RANK_IMAGES = SERVE_RANK_IMAGE   # shard="x" 1024^2 on worker-0: 9, 10
+# The c2c volume whose arriving ring blocks run kernel 11 (the serving
+# phase's two-rank 256^3), in place of a 512^3 c2c's 1 GiB each way
+# through the pipe.
+FLEET_RANK_C2C = SERVE_RANK_C2C
+# Kernels each fleet's paths may launch (all others must stay at 0).
+FLEET_IMAGE_KERNELS = ("cmatmul", "cmatmul_tw", "rmatmul_tw")     # 2, 4, 5
+FLEET_SMALL_KERNELS = ("rmatmul", "cmatmul")                     # 1, 2
+FLEET_RANK_KERNELS = ("rmatmul", "cmatmul", "c2r", "enc_pack", "dec_unpack",
+                      "dec_cmatmul")                              # 1-3, 9-11
+FLEET_FUSED_KERNELS = ("zy_fwd", "x_c2c", "yz_inv")               # 6-8
+
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """os.environ with ``kv`` for the block (the spawned workers inherit
+    it), then as it was."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update({k: str(v) for k, v in kv.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def fleet_sum(hf, rows_by_worker):
+    """The launches (a full dict), entry points and matmul dispatches of
+    every rank of every worker, summed; fails on a worker that did not
+    answer or holds JAX."""
+    launches = {k: 0 for k in hf.LAUNCHES}
+    entries, matmul = {}, 0
+    for name, rows in rows_by_worker.items():
+        if rows is None:
+            fail(f"fleet worker {name} did not report its counts")
+        for r in rows:
+            if "error" in r or r.get("jax"):
+                fail(f"fleet worker {name}: {r}")
+            for k, v in r["launches"].items():
+                launches[k] += v
+            for k, v in r["entries"].items():
+                entries[k] = entries.get(k, 0) + v
+            matmul += r["matmul"]
+    if matmul:
+        launches["matmul"] = matmul
+    return launches, entries
+
+
+def fleet_only_kernels(what, launches, allowed, required=None):
+    """Fail unless ``launches`` stay within ``allowed`` (no matmul
+    dispatch) and every kernel of ``required`` (default: all of
+    ``allowed``) launched."""
+    extra = {k: v for k, v in launches.items() if v and k not in allowed}
+    missing = [k for k in (allowed if required is None else required)
+               if not launches.get(k)]
+    if extra or missing:
+        fail(f"{what}: launched {launches} (outside {allowed}: {extra}; "
+             f"never: {missing})")
+
+
+def fleet_closed(fleet, what):
+    """Fail unless every process the fleet's workers ran as (leaders,
+    followers, every generation) has ended; returns their count."""
+    pids = fleet.process_ids()
+    deadline = time.monotonic() + 15
+    while time.monotonic() < deadline:
+        alive = [p for p in pids if _alive_pid(p)]
+        if not alive:
+            return len(pids)
+        time.sleep(0.1)
+    fail(f"{what}: worker processes {alive} outlived close()")
+
+
+def _alive_pid(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def fleet_wait(fleet, cond, timeout_s, what):
+    """cond(health) until it is true (returned) or ``timeout_s`` passes
+    (fail, with the last health's counters, ring and workers)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        h = fleet.health()
+        got = cond(h)
+        if got:
+            return got
+        if time.monotonic() >= deadline:
+            from distributedfft_tpu_torch.obs import flightrec
+            recent = [(r["name"], r.get("attrs")) for r in
+                      flightrec.snapshot()[-25:]]
+            fail(f"fleet: {what} within {timeout_s} s: counters "
+                 f"{h['counters']}, ring {h['ring']}, workers "
+                 f"{ {k: (w['state'], w['generation'], w['devices']) for k, w in h['workers'].items()} }, "
+                 f"recent records {recent}")
+        time.sleep(0.1)
+
+
+def fleet_no_jax(fleet, what):
+    bad = {w.name: w.info for w in list(fleet._workers.values())
+           if w.info.get("jax", True)}
+    if bad:
+        fail(f"{what}: a worker imports JAX or sent no ready info: {bad}")
+
+
+def fleet_serving(torch, dft, hf, dev):
+    """Fleet A: two one-rank workers (coalescing 8, batch_chunk 1, tenants
+    gold:free 3:1) prewarmed on the two images and 512^3; single requests
+    (each image and 512^3, forward and inverse) bit for bit the in-process
+    Server's, within TOL of torch.fft, the workers' summed launches and
+    entry points the in-process Server's for the same requests; a burst
+    of eight of each image for the fleet's capacity; open-loop drives at
+    0.7x (one tenant) and 1.5x (gold:free) of it; a single request's time
+    through the fleet against the in-process Server's (the pipe's cost).
+    Returns (launches, row)."""
+    from distributedfft_tpu_torch.serve import Fleet, Overloaded, Server
+    from distributedfft_tpu_torch.testing.workloads import serve_load
+    cfg = dft.Config(fft_backend="pallas")
+    row, launches = {}, {}
+    t0 = time.perf_counter()
+    fleet = Fleet(2, config=cfg, max_coalesce=SERVE_COALESCE, batch_chunk=1,
+                  worker_inflight=SERVE_COALESCE,
+                  tenant_weights=FLEET_TENANTS, **FLEET_HB)
+    ref = None
+    try:
+        row["spawn_s"] = time.perf_counter() - t0
+        fleet_no_jax(fleet, "fleet A")
+        t0 = time.perf_counter()
+        row["prewarm_built"] = (sum(fleet.prewarm(s) for s in FLEET_IMAGES)
+                                + fleet.prewarm((N,) * 3))
+        row["prewarm_s"] = time.perf_counter() - t0
+        fleet.kernel_counts(reset=True)
+        ref = Server(config=cfg, max_coalesce=SERVE_COALESCE, batch_chunk=1,
+                     device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 95)
+        xs = [torch.rand(s, generator=gen, device=dev)
+              for s in FLEET_IMAGES + ((N,) * 3,)]
+        hosts = [x.cpu().numpy() for x in xs]
+        got, times = [], {"fleet": [], "local": []}
+        for h in hosts:
+            t0 = time.perf_counter()
+            f = fleet.request(h, timeout_s=600)
+            times["fleet"].append((time.perf_counter() - t0) * 1e3)
+            b = fleet.request(f, "r2c", "inverse", ny=h.shape[-1],
+                              timeout_s=600)
+            got.append((f, b))
+        counts = fleet.kernel_counts(reset=True)
+        flaunch, fents = fleet_sum(hf, counts)
+        hf.reset_launches()
+        bit, errs = True, {}
+        for (f, b), h, x in zip(got, hosts, xs):
+            t0 = time.perf_counter()
+            wf = ref.request(h)
+            times["local"].append((time.perf_counter() - t0) * 1e3)
+            wb = ref.request(wf, "r2c", "inverse", ny=h.shape[-1])
+            bit = bit and np.array_equal(f, wf) and np.array_equal(b, wb)
+            spec = torch.fft.rfftn(x)
+            name = "x".join(map(str, h.shape))
+            _, errs[f"{name}_forward"] = rel_err(torch.from_numpy(f).to(dev),
+                                                 spec)
+            _, errs[f"{name}_inverse"] = rel_err(
+                torch.from_numpy(b).to(dev),
+                torch.fft.irfftn(spec, s=h.shape, norm="forward"))
+            del spec
+        torch.cuda.synchronize()
+        want, went = counted(hf), dict(hf.ENTRIES)
+        del xs, got
+        row.update(singles_bit_equal=bit, singles_vs_torch_fft=errs,
+                   single_fleet_ms=times["fleet"],
+                   single_local_ms=times["local"], singles_launches=flaunch,
+                   singles_entries=fents, local_launches=want)
+        if not bit or max(errs.values()) > TOL:
+            fail(f"fleet A singles: bit-equal {bit}, errors {errs}")
+        if flaunch != want or fents != went:
+            fail(f"fleet A singles: workers launched {flaunch} ({fents}), "
+                 f"the in-process Server {want} ({went})")
+        fleet_only_kernels("fleet A singles", flaunch,
+                           FLEET_IMAGE_KERNELS + FLEET_FUSED_KERNELS)
+        launches["fleet_singles"] = flaunch
+        emit(phase="fleet_singles", **row)
+        # Capacity: eight of each image at once (a warm batch a worker),
+        # the answered ones over the wall time (a worker sheds what its
+        # latency budget cannot hold).
+        imgs = [hosts[0], hosts[1]] * SERVE_COALESCE
+        t0 = time.perf_counter()
+        futs = [fleet.submit(h) for h in imgs]
+        answered = 0
+        for fu in futs:
+            try:
+                fu.result(600)
+                answered += 1
+            except Overloaded:
+                pass
+        burst = time.perf_counter() - t0
+        row.update(burst_s=burst, burst_answered=answered)
+        capacity = answered / burst
+        row["capacity_fps"] = capacity
+        emit(phase="fleet_capacity", burst_s=burst, answered=answered,
+             capacity_fps=capacity)
+        fleet.kernel_counts(reset=True)
+        for load, tenants in zip(SERVE_LOADS, (None, list(FLEET_TENANTS))):
+            out = serve_load(fleet, rate_hz=load * capacity,
+                             duration_s=SERVE_DRIVE_S, shapes=FLEET_IMAGES,
+                             seed=SEED + 5, warmup=0, tenants=tenants)
+            serve_requests_ok(out, f"fleet drive at {load}x")
+            out["load"] = load
+            row[f"drive_{load}x"] = out
+            emit(phase="fleet_drive", **out)
+        dl, _ = fleet_sum(hf, fleet.kernel_counts(reset=True))
+        fleet_only_kernels("fleet A drives", dl, FLEET_IMAGE_KERNELS)
+        launches["fleet_drives"] = dl
+        row["health"] = {k: fleet.health()[k] for k in ("status", "counters",
+                                                        "tenants")}
+    finally:
+        if ref is not None:
+            ref.close(drain=False)
+        fleet.close(drain=False)
+    row["processes"] = fleet_closed(fleet, "fleet A")
+    return launches, row
+
+
+def fleet_drills(torch, dft, hf, dev):
+    """Fleets B and C, on FLEET_SMALL images. B: one worker under a
+    ScaleController 1:3 and ``worker:crash:3@seed=1`` (in the workers'
+    environment): a burst of FLEET_SCALE_BURST requests (the admitted
+    ones answered, the rest shed) grows it to two;
+    worker-1 (the 1024^2 key's owner) dies on its third request of a
+    burst; every request is answered and the slot respawns. C: two
+    workers under
+    ``worker:hang:60000@seed=0``: worker-0 stops answering, is declared
+    dead on missed beats and replaced; every request is answered. Returns
+    (launches, rows)."""
+    from distributedfft_tpu_torch.serve import (Fleet, Overloaded,
+                                                ScaleController)
+    cfg = dft.Config(fft_backend="pallas")
+    launches, rows = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 96)
+    # -- B: scale-up, then the crash -----------------------------------------
+    t0 = time.perf_counter()
+    fleet = Fleet(FLEET_SCALE[0], config=cfg, max_coalesce=SERVE_COALESCE,
+                  batch_chunk=1, worker_env={"DFFT_FAULT_SPEC": FLEET_CRASH},
+                  latency_budget_ms=FLEET_DRILL_BUDGET_MS, **FLEET_HB)
+    row = {"spawn_s": time.perf_counter() - t0, "fault": FLEET_CRASH}
+    try:
+        fleet_no_jax(fleet, "fleet B")
+        for s in FLEET_SMALL:
+            fleet.prewarm(s)
+        ctl = ScaleController(fleet, *FLEET_SCALE, interval_s=0.5,
+                              cooldown_s=600.0, queue_high=2.0)
+        fleet.attach_controller(ctl)
+        fleet.kernel_counts(reset=True)
+        xs = [torch.rand(s, generator=gen, device=dev).cpu().numpy()
+              for s in FLEET_SMALL]
+        t0 = time.perf_counter()
+        futs, shed = [], 0
+        for i in range(FLEET_SCALE_BURST):
+            try:
+                futs.append(fleet.submit(xs[i % 2]))
+            except Overloaded:
+                shed += 1
+        for f in futs:
+            f.result(600)
+        row.update(load_burst_s=time.perf_counter() - t0,
+                   load_burst_answered=len(futs), load_burst_shed=shed)
+        fleet_wait(fleet, lambda h: len(h["ring"]) >= 2, 120,
+                   "the scale-up joined no worker")
+        row["scale_up_s"] = time.perf_counter() - t0
+        row["scale_decisions"] = fleet.health()["scale_decisions"]
+        x = torch.rand(FLEET_SMALL[1], generator=gen, device=dev)
+        h = x.cpu().numpy()
+        spec = torch.fft.rfft2(x)
+        t0 = time.perf_counter()
+        futs = [fleet.submit(h) for _ in range(SERVE_COALESCE)]
+        errs = [rel_err(torch.from_numpy(f.result(600)).to(dev), spec)[1]
+                for f in futs]
+        row["burst_s"] = time.perf_counter() - t0
+        row["burst_max_rel_err"] = max(errs)
+        if max(errs) > TOL:
+            fail(f"fleet B burst: errors {errs}")
+        hb = fleet_wait(fleet, lambda h: h if h["counters"][
+            "worker_restarts"] >= 1 and len(h["ring"]) >= 2 else None, 180,
+            "the crashed slot did not rejoin")
+        row["recovered_s"] = time.perf_counter() - t0
+        row["counters"] = hb["counters"]
+        if hb["counters"]["worker_deaths"] != 1 or \
+                hb["counters"]["failed"] or hb["counters"]["abandoned"]:
+            fail(f"fleet B: counters {hb['counters']}")
+        got, _ = fleet_sum(hf, fleet.kernel_counts(reset=True))
+        fleet_only_kernels("fleet B", got, FLEET_SMALL_KERNELS)
+        launches["fleet_scale_crash"] = got
+    finally:
+        fleet.close(drain=False)
+    row["processes"] = fleet_closed(fleet, "fleet B")
+    rows["scale_crash"] = row
+    emit(phase="fleet_scale_crash", **row)
+    # -- C: the hang -------------------------------------------------------
+    t0 = time.perf_counter()
+    fleet = Fleet(2, config=cfg, worker_env={"DFFT_FAULT_SPEC": FLEET_HANG},
+                  heartbeat_interval_s=0.5, heartbeat_k=6,
+                  spawn_timeout_s=300.0)
+    row = {"spawn_s": time.perf_counter() - t0, "fault": FLEET_HANG}
+    try:
+        fleet_no_jax(fleet, "fleet C")
+        xs = [torch.rand(s, generator=gen, device=dev)
+              for s in FLEET_SMALL for _ in range(4)]
+        t0 = time.perf_counter()
+        futs = [fleet.submit(x.cpu().numpy(), deadline_ms=120_000)
+                for x in xs]
+        errs = [rel_err(torch.from_numpy(f.result(600)).to(dev),
+                        torch.fft.rfft2(x))[1] for f, x in zip(futs, xs)]
+        row["answered_s"] = time.perf_counter() - t0
+        row["max_rel_err"] = max(errs)
+        hc = fleet.health()
+        row["counters"] = hc["counters"]
+        if max(errs) > TOL or hc["counters"]["worker_deaths"] != 1 or \
+                not hc["counters"]["resubmitted"]:
+            fail(f"fleet C: errors {errs}, counters {hc['counters']}")
+        rows_by_worker = fleet.kernel_counts(reset=True)
+        got, _ = fleet_sum(hf, {k: v for k, v in rows_by_worker.items()
+                                if v is not None})
+        fleet_only_kernels("fleet C", got, FLEET_SMALL_KERNELS)
+        launches["fleet_hang"] = got
+    finally:
+        fleet.close(drain=False)
+    row["processes"] = fleet_closed(fleet, "fleet C")
+    rows["hang"] = row
+    emit(phase="fleet_hang", **row)
+    return launches, rows
+
+
+def fleet_ranks(torch, dft, hf, dev, outdir):
+    """Fleet D: ``worker_devices=[2, 0]`` on the fused bf16 ring,
+    ``shard="x"``: worker-0 a two-rank group (a leader and a follower
+    process sharing the card over gloo) alone serves the volume keys and
+    hosts an NS-3D resident whose steps the leader posts to the follower;
+    the 512^3 volume's forward (kernels 1-2, 9, 10), a 256^3
+    c2c volume (kernel 11) and 1024^2 images within WIRE16_TOL of
+    torch.fft; the group's counts rank by rank; then
+    ``worker:devloss:1@seed=0``: worker-0 dies on its next request, comes
+    back one rank short, restores the two-rank checkpoint with
+    ``persist.degraded_restore`` and serves that request on the fused
+    kernels. Returns (launches, row)."""
+    from distributedfft_tpu_torch.serve import Fleet
+    row, launches = {}, {}
+    obs_dir = os.path.join(outdir, "fleet_obs")
+    ckdir = os.path.join(outdir, "fleet_ckpt")
+    os.makedirs(obs_dir, exist_ok=True)
+    resident = {"kind": "ns3d", "n": FLEET_RESIDENT_N, "dt": CKPT_DT,
+                "dir": ckdir, "policy": "steps:2", "fft_backend": "pallas",
+                "step_interval_ms": SERVE_RESIDENT_MS}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 97)
+    x = torch.rand((N,) * 3, generator=gen, device=dev)
+    b, ny, nx = FLEET_RANK_IMAGES
+    imgs = torch.rand((b, ny, nx), generator=gen, device=dev)
+    m = FLEET_RANK_C2C
+    z = torch.complex(torch.rand((m,) * 3, generator=gen, device=dev),
+                      torch.rand((m,) * 3, generator=gen, device=dev))
+    # 1 request (the volume's forward: its 1 GiB round trip through the
+    # pipe is the phase's longest) + 2 (the c2c volume) + b images, then
+    # the request that meets the devloss (one more image).
+    after = 1 + 2 + b + 1
+    t0 = time.perf_counter()
+    with env_set(DFFT_FAULT_SPEC=FLEET_DEVLOSS, DFFT_DEVLOSS_AFTER=after,
+                 DFFT_OBS_DIR=obs_dir):
+        fleet = Fleet(2, config=pencil_config(dft, SERVE_RING), shard="x",
+                      worker_devices=[2, 0], resident=resident,
+                      latency_budget_ms=FLEET_DRILL_BUDGET_MS, **FLEET_HB)
+        try:
+            row["spawn_s"] = time.perf_counter() - t0
+            fleet_no_jax(fleet, "fleet D")
+            h = fleet.health()
+            if h["mesh_ring"] != ["worker-0"] or \
+                    len(h["workers"]["worker-0"]["followers"]) != 1:
+                fail(f"fleet D: {h['mesh_ring']}, {h['workers']}")
+            first = fleet_wait(fleet, lambda h: h["resident"] if h[
+                "resident"] and h["resident"].get("checkpoints") else None,
+                240, "the two-rank resident wrote no checkpoint")
+            row["resident_first"] = first
+            fleet.kernel_counts(reset=True)
+            hx = x.cpu().numpy()
+            t0 = time.perf_counter()
+            got = fleet.request(hx, timeout_s=600)
+            row["volume_forward_ms"] = (time.perf_counter() - t0) * 1e3
+            spec = torch.fft.rfftn(x)
+            _, row["volume_forward_rel"] = rel_err(
+                torch.from_numpy(got).to(dev), spec)
+            del got, spec
+            zc = fleet.request(z.cpu().numpy(), "c2c", timeout_s=600)
+            zref = torch.fft.fftn(z)
+            _, row["c2c_forward_rel"] = rel_err(torch.from_numpy(zc).to(dev),
+                                                zref)
+            zb = fleet.request(zc, "c2c", "inverse", timeout_s=600)
+            _, row["c2c_inverse_rel"] = rel_err(
+                torch.from_numpy(zb).to(dev),
+                torch.fft.ifftn(zref, norm="forward"))
+            del zc, zb, zref
+            futs = [fleet.submit(im.cpu().numpy()) for im in imgs]
+            gi = np.stack([f.result(600) for f in futs])
+            _, row["images_forward_rel"] = rel_err(
+                torch.from_numpy(gi).to(dev), torch.fft.rfft2(imgs))
+            rows2 = fleet.kernel_counts(reset=True)["worker-0"]
+            if rows2 is None or [r["rank"] for r in rows2] != [0, 1]:
+                fail(f"fleet D: worker-0's ranks reported {rows2}")
+            row["ranks"] = [{k: r[k] for k in ("rank", "pid", "launches",
+                                               "matmul", "jax")}
+                            for r in rows2]
+            got2, ents2 = fleet_sum(hf, {"worker-0": rows2})
+            for k in ("volume_forward_rel", "c2c_forward_rel",
+                      "c2c_inverse_rel",
+                      "images_forward_rel"):
+                if not row[k] <= WIRE16_TOL:
+                    fail(f"fleet D {k} {row[k]:.3e} > {WIRE16_TOL}")
+            fleet_only_kernels("fleet D two-rank worker", got2,
+                               FLEET_RANK_KERNELS)
+            launches["fleet_two_rank_worker"] = got2
+            row["two_rank_entries"] = ents2
+            # The devloss: the next request kills worker-0's group; it is
+            # resubmitted to the one-rank replacement.
+            t0 = time.perf_counter()
+            again = fleet.request(imgs[0].cpu().numpy(), timeout_s=600)
+            row["devloss_request_ms"] = (time.perf_counter() - t0) * 1e3
+            _, row["devloss_request_rel"] = rel_err(
+                torch.from_numpy(again).to(dev), torch.fft.rfft2(imgs[0]))
+            del again
+            if not row["devloss_request_rel"] <= TOL:
+                fail(f"fleet D after the devloss: {row}")
+            hd = fleet_wait(fleet, lambda h: h if h["counters"][
+                "worker_restarts"] >= 1 and h["resident"] and h[
+                    "resident"].get("restored_from") and h["resident"][
+                        "step"] > h["resident"]["restored_from"] else None,
+                240, "the resident was not restored and stepping")
+            w0 = hd["workers"]["worker-0"]
+            row.update(after_devloss=dict(
+                status=hd["status"], devices=w0["devices"],
+                full_devices=w0["full_devices"], followers=w0["followers"],
+                resident=hd["resident"], counters=hd["counters"]))
+            if (w0["devices"], w0["full_devices"], w0["followers"]) != \
+                    (1, 2, []) or hd["status"] != "degraded":
+                fail(f"fleet D after the devloss: {row['after_devloss']}")
+            rows3 = fleet.kernel_counts(reset=True)["worker-0"]
+            got3, _ = fleet_sum(hf, {"worker-0": rows3})
+            # The replacement runs the hot keys on one rank: the images
+            # (prewarm, the resubmitted request: kernels 1 and 2) and the
+            # volume's prewarm and the resident's steps (kernels 6-8).
+            fleet_only_kernels("fleet D replacement", got3,
+                               FLEET_FUSED_KERNELS + ("rmatmul", "cmatmul"),
+                               FLEET_FUSED_KERNELS)
+            launches["fleet_devloss_replacement"] = got3
+        finally:
+            fleet.close(drain=False)
+    row["processes"] = fleet_closed(fleet, "fleet D")
+    names = set()
+    for fn in os.listdir(obs_dir):
+        if fn.startswith("events-") and fn.endswith(".jsonl"):
+            with open(os.path.join(obs_dir, fn)) as f:
+                names |= {json.loads(ln)["name"] for ln in f if ln.strip()}
+    row["events"] = sorted(n for n in names if n.startswith(
+        ("persist.", "fleet.worker", "inject.")))
+    for want in ("inject.worker_devloss", "fleet.worker_shrunk",
+                 "persist.degraded_restore", "persist.resident_restored"):
+        if want not in names:
+            fail(f"fleet D: no {want} event ({sorted(names)})")
+    return launches, row
+
+
+def fleet_phase(torch, dft, hf, dev, outdir):
+    """The serving fleet on the card (``serve/fleet.py``): (the launches
+    of each path, the rows)."""
+    t_phase = time.perf_counter()
+    launches, rows = {}, {}
+    torch.cuda.empty_cache()
+    got, rows["serving"] = fleet_serving(torch, dft, hf, dev)
+    launches.update(got)
+    emit(phase="fleet_serving", **{k: v for k, v in rows["serving"].items()
+                                   if not k.startswith("drive_")})
+    got, rows["drills"] = fleet_drills(torch, dft, hf, dev)
+    launches.update(got)
+    got, rows["ranks"] = fleet_ranks(torch, dft, hf, dev, outdir)
+    launches.update(got)
+    emit(phase="fleet_ranks", **rows["ranks"])
+    rows["seconds"] = time.perf_counter() - t_phase
+    emit(phase="fleet_done", seconds=rows["seconds"])
+    return launches, rows
+
+
+# -- 16. evaluation and launch (roofline, launcher, reducer) -----------------
+
+ROOFLINE_N = (128, 256, 512)       # the matmul backend's chain-timed cubes
+ROOFLINE_PRECISIONS = ("high", "highest")
+ROOFLINE_K = 3
+LAUNCH_ITERS = ("-i", "10", "-w", "2")
+LAUNCH_TOL = 0.10                  # reduced means against plan_time
+LAUNCH_BACKENDS = ("pallas",)      # the kernels' plan
+
+
+def roofline_csv(torch, path):
+    """Chain-timed roundtrips of the matmul backend (``testing/
+    chaintimer.py``) at ROOFLINE_N under each precision, written in
+    ``roofline_rows``' CSV schema. Returns the rows written."""
+    from distributedfft_tpu_torch.evalkit import roofline as rl
+    from distributedfft_tpu_torch.ops import mxu_fft as mx
+    from distributedfft_tpu_torch.testing import chaintimer as ct
+    from distributedfft_tpu_torch.testing.workloads import flops_roundtrip_3d
+    lines = [rl.CSV_HEADER]
+    for prec in ROOFLINE_PRECISIONS:
+        st = mx.MXUSettings.make(precision=prec)
+        for n in ROOFLINE_N:
+            x = torch.rand((n,) * 3, device="cuda")
+            f1 = ct.roundtrip_chain(1, (n,) * 3, "matmul", st)
+            fk = ct.roundtrip_chain(ROOFLINE_K, (n,) * 3, "matmul", st)
+            ct._fence(f1(x))
+            ct._fence(fk(x))
+            ms, _ = ct.median_pair_diff_ms(f1, fk, x, ROOFLINE_K, 3, 1)
+            gflops = flops_roundtrip_3d(n) / (ms * 1e-3) / 1e9
+            lines.append(f"{n}^3,roundtrip,matmul@{prec},{ms},{gflops},"
+                         f"{ROOFLINE_K},chain")
+            del x
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return lines[1:]
+
+
+def evalkit_phase(torch, outdir, plan_times):
+    """Item 15 on the card: the matmul backend's chain-timed rows ->
+    ``dfft-torch-roofline --csv`` (the H100 table); ``dfft-torch-launch``
+    on a job of ``dfft-torch-slab`` at 512^3 under LAUNCH_BACKENDS (a
+    ``-b`` prefix each), then ``dfft-torch-eval --prefix``, whose reduced
+    fused means lie within LAUNCH_TOL of ``plan_time``'s for the same
+    plans. Returns the row."""
+    import contextlib as _cl
+    import io
+    from distributedfft_tpu_torch import launch
+    from distributedfft_tpu_torch.evalkit import evaluate
+    from distributedfft_tpu_torch.evalkit import roofline as rl
+    t_phase = time.perf_counter()
+    row = {}
+    csv = os.path.join(outdir, "roofline_h100.csv")
+    row["roofline_rows"] = roofline_csv(torch, csv)
+    buf = io.StringIO()
+    with _cl.redirect_stdout(buf):
+        if rl.main(["--csv", csv]) != 0:
+            fail("dfft-torch-roofline failed")
+    row["roofline_table"] = buf.getvalue().splitlines()
+    if len([ln for ln in row["roofline_table"] if ln.startswith("| ")
+            and "^3" in ln]) != len(ROOFLINE_N) * len(ROOFLINE_PRECISIONS):
+        fail(f"roofline table: {row['roofline_table']}")
+    root = os.path.join(outdir, "launch")
+    job = {"size": [N], "global_test_settings": {
+        "$-t": 0, "-p": 1, "-comm": "All2All",
+        **dict(zip(LAUNCH_ITERS[::2], LAUNCH_ITERS[1::2]))},
+        "tests": [{"name": "Slab", "--fft-backend": be,
+                   "-b": os.path.join(root, be)} for be in LAUNCH_BACKENDS]}
+    path = os.path.join(outdir, "launch_job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with _cl.redirect_stdout(buf):
+        rc = launch.main(["--jobs", path])
+    row["launch_s"] = time.perf_counter() - t0
+    row["launch_lines"] = [ln for ln in buf.getvalue().splitlines()
+                           if ln.startswith("+ ")]
+    if rc != 0:
+        fail(f"dfft-torch-launch exited {rc}: {buf.getvalue()[-2000:]}")
+    means = {}
+    for be in LAUNCH_BACKENDS:
+        out = os.path.join(root, f"eval_{be}")
+        with _cl.redirect_stdout(io.StringIO()):
+            if evaluate.main(["--prefix", os.path.join(root, be),
+                              "--out", out]) != 0:
+                fail(f"dfft-torch-eval {be} failed")
+        with open(os.path.join(out, "slab_default", "runs",
+                               "fused_0_1_1.csv")) as f:
+            lines = f.read().splitlines()
+        fused = float(lines[1].split(",")[2])
+        ref = plan_times["fused_512"][f"{be}_forward_ms"] if plan_times \
+            else None
+        means[be] = dict(fused_ms=fused, plan_time_ms=ref,
+                         ratio=fused / ref if ref else None)
+    row["eval_vs_plan_time"] = means
+    for be, m in means.items():
+        if m["ratio"] is not None and abs(m["ratio"] - 1) > LAUNCH_TOL:
+            fail(f"dfft-torch-eval {be}: fused mean {m['fused_ms']:.3f} ms "
+                 f"against plan_time {m['plan_time_ms']:.3f}")
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(phase="evalkit", **row)
+    return row
+
+
+def fleet_only() -> int:
+    """Build the kernels and run the fleet and evaluation phases alone:
+    ``python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.fleet_only())"``
+    (the launcher's means then stand beside a fresh 512^3 plan time)."""
+    import torch
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.ops import _build
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit(phase="device", name=torch.cuda.get_device_name(0),
+         nvidia_smi=subprocess.run(
+             ["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"], capture_output=True, text=True,
+             check=True, timeout=60).stdout.strip())
+    _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    dev = torch.device("cuda")
+    launches, _ = fleet_phase(torch, dft, hf, dev, outdir)
+    emit(phase="fleet_only", launches=launches)
+    plan_times = {"fused_512": {}}
+    for be in LAUNCH_BACKENDS:
+        plan = dft.SlabFFTPlan(dft.GlobalSize(N, N, N), dft.SlabPartition(1),
+                               dft.Config(fft_backend=be))
+        x = torch.rand((N,) * 3, device=dev)
+        plan_times["fused_512"][f"{be}_forward_ms"] = median_ms(
+            torch, lambda: plan.exec_r2c(x))
+        del plan, x
+    evalkit_phase(torch, outdir, plan_times)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5812,6 +6503,13 @@ def main() -> int:
     # -- 8h. the serving layer and the profile capture -----------------------
     got, _ = serve_phase(torch, dft, hf, multihost, dev, outdir)
     launches.update(got)
+
+    # -- 8i. the serving fleet -----------------------------------------------
+    got, _ = fleet_phase(torch, dft, hf, dev, outdir)
+    launches.update(got)
+
+    # -- 8j. evaluation and launch --------------------------------------------
+    evalkit_phase(torch, outdir, plan_times)
 
     # -- 9. the kernels line, the card, the result ---------------------------
     def total_launches(name):

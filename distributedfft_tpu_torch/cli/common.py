@@ -42,11 +42,10 @@ from ..ops.fft import BACKENDS
 from ..parallel import multihost
 
 # The ROADMAP Queue 1 items whose flags still raise (items keep their
-# numbers once done: 1-11 and 13 run, item 12's host core and first part:
-# --obs, --obs-dir, --profile-dir; item 14 but the fleet).
+# numbers once done: 1-11 and 13-15 run, item 12's host core and first
+# part: --obs, --obs-dir, --profile-dir).
 LATER_ITEMS = {
     12: "ROADMAP Queue 1, item 12's rest (the stage profile's graph join)",
-    14: "ROADMAP Queue 1, item 14, second part (the fleet)",
 }
 
 # Seconds a collective of an emulated (spawned, CPU) world waits before it

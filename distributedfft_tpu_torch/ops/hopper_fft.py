@@ -96,6 +96,10 @@ LAUNCHES: Dict[str, int] = {
     "rmatmul_tw": 0,
     "enc_pack": 0, "dec_unpack": 0, "dec_cmatmul": 0}       # wire.cu
 
+# Launches of each C entry point (the body each kernel ran) since the last
+# ``reset_launches()``.
+ENTRIES: Dict[str, int] = {}
+
 # Entry points: library (csrc/<name>.cu), (pointer arguments, int
 # arguments[, 64-bit int arguments]).
 _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
@@ -128,10 +132,12 @@ DISPATCHES = mx.DISPATCHES
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count and the matmul dispatches to 0."""
+    """Set every kernel's launch count, the entry points' and the matmul
+    dispatches to 0."""
     for d in (LAUNCHES, DISPATCHES):
         for k in d:
             d[k] = 0
+    ENTRIES.clear()
 
 
 def fused3d_applicable(shape3, dtype) -> bool:
@@ -564,6 +570,7 @@ def _launch(kernel: str, fn: str, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     _build.check(lib, fn, getattr(lib, fn)(*conv, stream))
     LAUNCHES[kernel] += 1
+    ENTRIES[fn] = ENTRIES.get(fn, 0) + 1
 
 
 class _NoVJP(torch.autograd.Function):

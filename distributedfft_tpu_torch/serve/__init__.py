@@ -1,5 +1,5 @@
 """FFT-as-a-service: the long-lived serving layer of the port (the JAX
-package's ``serve/``, but the fleet).
+package's ``serve/``).
 
 One resident process (one rank per process: a leader and its followers
 over P > 1 ranks) keeps built plans hot and survives real traffic and
@@ -17,23 +17,25 @@ real faults:
   beside the traffic, checkpointed through ``persist``.
 * ``router``   — the fleet's pure routing and fairness pieces
   (:class:`RendezvousRing`, :class:`TenantPolicy`, :class:`FairQueue`).
+* ``fleet``    — :class:`Fleet`: N subprocess workers (a worker of D > 1
+  ranks is a D-rank group) behind the plan-key router, with heartbeat
+  failure detection, reroute and respawn, tenant quotas and the
+  metrics-driven :class:`ScaleController`.
 * ``cli``      — the ``dfft-torch-serve`` executable: ``--drive`` runs
   the open-loop load generator (``testing/workloads.serve_load``)
-  against an in-process server; ``--http`` serves ``/healthz`` /
-  ``/readyz`` / ``/metrics`` / ``POST /fft`` over stdlib HTTP.
-
-The fleet (``Fleet``, ``RemoteWorkerError``, ``ScaleController``: worker
-processes behind the router) is ROADMAP Queue 1 item 14's second part;
-those names raise ``NotImplementedError`` naming it.
+  against an in-process server or a fleet (``--workers``); ``--http``
+  serves ``/healthz`` / ``/readyz`` / ``/metrics`` / ``POST /fft`` over
+  stdlib HTTP.
 """
 
 from . import plancache
 from .plancache import (PlanCache, bucket_for, cache_key,
                         parse_request_key, request_key, request_key3d)
+from .fleet import Fleet, RemoteWorkerError, ScaleController
 from .resident import ResidentSolver
 from .router import FairQueue, RendezvousRing, TenantPolicy
-from .server import (LATER_FLEET, Overloaded, RankFailed, Server,
-                     ServerClosed, normalize_request)
+from .server import (Overloaded, RankFailed, Server, ServerClosed,
+                     normalize_request)
 
 __all__ = [
     "FairQueue", "Fleet", "Overloaded", "PlanCache", "RankFailed",
@@ -42,32 +44,6 @@ __all__ = [
     "bucket_for", "cache_key", "describe_request", "normalize_request",
     "parse_request_key", "plancache", "request_key", "request_key3d",
 ]
-
-
-class _Later:
-    """A fleet name of the JAX package: constructing it raises, naming
-    the ROADMAP item that ports it."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"serve.{type(self).__name__} is not ported yet ({LATER_FLEET})")
-
-
-class Fleet(_Later):
-    """The JAX package's worker fleet behind the plan-key router."""
-
-
-class ScaleController(_Later):
-    """The JAX package's metrics-driven worker-count controller."""
-
-
-class RemoteWorkerError(RuntimeError):
-    """A fleet worker's failure, re-raised at the router (the fleet is
-    not ported yet; nothing raises this)."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"serve.RemoteWorkerError is not ported yet ({LATER_FLEET})")
 
 
 def describe_request(nx: int, ny: int, nz=None, *, double: bool = False,

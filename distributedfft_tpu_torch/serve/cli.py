@@ -1,5 +1,5 @@
 """``dfft-torch-serve`` — the long-lived FFT server as an executable
-(the JAX package's ``dfft-serve``, but the fleet).
+(the JAX package's ``dfft-serve``).
 
 Two complementary surfaces over one in-process :class:`Server`:
 
@@ -31,17 +31,28 @@ ranks on the CPU. Over P > 1 ranks (``-p P`` in a P-rank world) rank 0
 leads — it admits, drives and serves HTTP — and the others follow it
 (``serve/server.py``, "Ranks").
 
-The fleet flags (``--workers``, ``--worker-devices``,
-``--worker-backend``, ``--worker-inflight``, ``--heartbeat-*``,
-``--autoscale``, ``--scale-cooldown-s``, ``--tenants``,
-``--tenant-weights``) raise ``NotImplementedError`` naming ROADMAP Queue
-1 item 14's second part.
+``--workers N`` (or ``--autoscale MIN:MAX``) promotes the process to a
+**fleet**: N subprocess workers each running the Server core behind the
+rendezvous plan-key router (``serve/fleet.py``; this process routes and
+serves no plan itself), with the heartbeat failure detector, per-tenant
+quotas (``--tenant-weights``, ``--tenants`` mixes the drive's traffic
+over tenants) and the metrics-driven worker-count controller.
+``--worker-devices 2,0`` makes worker 0 a two-rank group (it serves the
+volume keys); ``--emulate-devices N`` runs every worker on the CPU as an
+N-rank gloo group. The same ``--drive``/``--http`` surfaces apply;
+``/healthz`` returns the FLEET snapshot (workers, ring, tenants, scale
+decisions).
 
 Examples::
 
     dfft-torch-serve --drive --rate 50 --duration 10 \\
         --shapes 256x256,128x128 --deadline-ms 500 --fft-backend pallas
     dfft-torch-serve --http 8080 --emulate-devices 4 -p 4 --shard x
+    dfft-torch-serve --drive --workers 3 --rate 60 --duration 10 \\
+        --shapes 64x64 --tenants gold,free --tenant-weights gold=3
+    dfft-torch-serve --drive --autoscale 1:4 --rate 120 --duration 20
+    dfft-torch-serve --drive --workers 2 --worker-devices 2,0 \\
+        --shapes 64x64x64,256x256 --rate 20 --duration 10
 """
 
 from __future__ import annotations
@@ -52,8 +63,6 @@ import os
 import signal
 import sys
 import threading
-
-from .server import LATER_FLEET
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,8 +117,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write the structured JSONL event log here "
                          "(same as $DFFT_OBS_DIR)")
     # fleet mode: N shared-nothing subprocess workers behind the plan-key
-    # router (ROADMAP Queue 1 item 14's second part; refused until then);
-    # 0 = the single-process Server.
+    # router; 0 = the single-process Server.
     ap.add_argument("--workers", type=int, default=0,
                     help="run a fleet of N subprocess workers behind the "
                          "plan-key router (0 = single in-process server)")
@@ -269,134 +277,6 @@ def _parse_shapes(s: str):
 
 
 def _make_http(server, port: int):
-    """Stdlib HTTP front end; returns the started ThreadingHTTPServer."""
-    import io
-    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
-    import numpy as np
-
-    from ..resilience.circuit import CircuitOpen
-    from ..resilience.deadline import DeadlineExceeded
-    from .server import Overloaded, ServerClosed
-
-    class Handler(BaseHTTPRequestHandler):
-        def log_message(self, *a):  # quiet: obs is the log surface
-            pass
-
-        def _json(self, code: int, payload: dict) -> None:
-            body = json.dumps(payload, sort_keys=True).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def do_GET(self):
-            if self.path == "/healthz":
-                self._json(200, server.health())
-            elif self.path == "/readyz":
-                ready = server.state == "running"
-                self._json(200 if ready else 503,
-                           {"ready": ready, "state": server.state})
-            elif self.path == "/metrics":
-                # Prometheus exposition of the CUMULATIVE metrics view
-                # (obs/promexp.py) — the autoscaling scrape surface.
-                from ..obs import promexp
-                body = promexp.render().encode()
-                self.send_response(200)
-                self.send_header("Content-Type", promexp.CONTENT_TYPE)
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
-            else:
-                self._json(404, {"error": "unknown path"})
-
-        def do_POST(self):
-            if self.path != "/fft":
-                self._json(404, {"error": "unknown path"})
-                return
-            trace_id = None
-            try:
-                n = int(self.headers.get("Content-Length", "0"))
-                x = np.load(io.BytesIO(self.rfile.read(n)),
-                            allow_pickle=False)
-                transform = self.headers.get("X-DFFT-Transform", "r2c")
-                direction = self.headers.get("X-DFFT-Direction", "forward")
-                ny = self.headers.get("X-DFFT-Ny")
-                decomp = self.headers.get("X-DFFT-Decomp")
-                ddl = self.headers.get("X-DFFT-Deadline-Ms")
-                fut = server.submit(
-                    x, transform, direction,
-                    ny=int(ny) if ny else None,
-                    decomp=decomp or None,
-                    deadline_ms=float(ddl) if ddl else None)
-                # The admission trace id: one request's whole path
-                # (admit -> coalesce -> execute -> reply) is
-                # reconstructable from the event log by this id, and the
-                # client gets it back as X-DFFT-Trace.
-                trace_id = getattr(fut, "trace_id", None)
-                out = fut.result()
-            except Overloaded as e:
-                self._json(429, {"error": "overloaded", "reason": e.reason,
-                                 "queue_depth": e.queue_depth,
-                                 "est_delay_ms": e.est_delay_ms})
-            except CircuitOpen as e:
-                self._json(503, {"error": "circuit_open", "key": e.key,
-                                 "retry_after_s": e.retry_after_s})
-            except ServerClosed:
-                self._json(503, {"error": "closed"})
-            except DeadlineExceeded as e:
-                self._json(504, {"error": "deadline_exceeded",
-                                 "detail": e.detail,
-                                 "overrun_ms": e.overrun_ms})
-            except (ValueError, OSError) as e:
-                self._json(400, {"error": "bad_request", "detail": str(e)})
-            except Exception as e:  # noqa: BLE001 — the envelope's edge
-                self._json(500, {"error": type(e).__name__,
-                                 "detail": str(e)[:300]})
-            else:
-                buf = io.BytesIO()
-                np.save(buf, out, allow_pickle=False)
-                body = buf.getvalue()
-                self.send_response(200)
-                self.send_header("Content-Type",
-                                 "application/octet-stream")
-                self.send_header("Content-Length", str(len(body)))
-                if trace_id:
-                    self.send_header("X-DFFT-Trace", trace_id)
-                self.end_headers()
-                self.wfile.write(body)
-
-    httpd = ThreadingHTTPServer(("127.0.0.1", port), Handler)
-    threading.Thread(target=httpd.serve_forever, daemon=True,
-                     name="dfft-serve-http").start()
-    return httpd
-
-
-
-# The fleet's flags with their defaults: any other value raises.
-FLEET_FLAGS = (("--workers", "workers", 0),
-               ("--worker-devices", "worker_devices", None),
-               ("--worker-backend", "worker_backend", "server"),
-               ("--heartbeat-interval-s", "heartbeat_interval_s", 0.5),
-               ("--heartbeat-k", "heartbeat_k", 3),
-               ("--worker-inflight", "worker_inflight", 4),
-               ("--tenant-weights", "tenant_weights", None),
-               ("--tenants", "tenants", None),
-               ("--autoscale", "autoscale", None),
-               ("--scale-cooldown-s", "scale_cooldown_s", 5.0))
-
-
-def refuse_fleet(args) -> None:
-    """Raise ``NotImplementedError`` for the first fleet flag given a
-    value other than its default."""
-    for flag, dest, default in FLEET_FLAGS:
-        if getattr(args, dest) != default:
-            raise NotImplementedError(
-                f"{flag} is not ported yet ({LATER_FLEET})")
-
-
-def _make_http(server, port: int):
     """Stdlib HTTP front end on 127.0.0.1 (``port`` 0: an ephemeral one,
     read back from ``server_address``); returns the started
     ThreadingHTTPServer."""
@@ -500,51 +380,151 @@ def _make_http(server, port: int):
     return httpd
 
 
+def _parse_tenant_weights(s):
+    if not s:
+        return None
+    out = {}
+    for tok in s.split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        name, sep, w = tok.partition("=")
+        if not sep or not name.strip():
+            raise SystemExit(f"--tenant-weights wants T=W pairs, got "
+                             f"{tok!r}")
+        try:
+            out[name.strip()] = float(w)
+        except ValueError:
+            raise SystemExit(f"--tenant-weights weight not a number: "
+                             f"{tok!r}") from None
+    return out or None
+
+
+def _parse_worker_devices(s):
+    if not s:
+        return None
+    try:
+        out = [int(tok) for tok in s.split(",") if tok.strip()]
+    except ValueError:
+        raise SystemExit(f"--worker-devices wants comma-separated "
+                         f"integers, got {s!r}") from None
+    if not out or any(d < 0 for d in out):
+        raise SystemExit(f"--worker-devices counts must be >= 0, got "
+                         f"{s!r}")
+    return out
+
+
+def _parse_autoscale(s):
+    if not s:
+        return None
+    lo, sep, hi = s.partition(":")
+    try:
+        pair = (int(lo), int(hi if sep else lo))
+    except ValueError:
+        raise SystemExit(f"--autoscale wants MIN:MAX, got {s!r}") from None
+    if not 1 <= pair[0] <= pair[1]:
+        raise SystemExit(f"--autoscale needs 1 <= MIN <= MAX, got {s!r}")
+    return pair
+
+
+def _fleet_mode(args) -> bool:
+    return bool(args.workers or args.autoscale)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_fleet(args)
     _parse_resident(args)       # fail loudly at startup, before spawning
+    _parse_autoscale(args.autoscale)
+    if _fleet_mode(args):
+        # The fleet's workers are the ranks (each a group of its own):
+        # this process only routes.
+        return _body(args)
+    if args.worker_devices:
+        raise SystemExit("--worker-devices requires fleet mode "
+                         "(--workers N or --autoscale MIN:MAX)")
+    if args.tenants or args.tenant_weights:
+        # Server.submit has no tenant axis: forwarding the flag would
+        # fail every request into a silent 100%-failed drive. Fail loudly
+        # at startup instead.
+        raise SystemExit("--tenants/--tenant-weights require fleet "
+                         "mode (--workers N or --autoscale MIN:MAX)")
     from ..cli.common import run
     return run("distributedfft_tpu_torch.serve.cli", args, argv)
 
 
+def _make_fleet(args, cfg, server_kwargs, resident_spec):
+    """The fleet of ``--workers`` / ``--autoscale`` (JAX ``dfft-serve``'s
+    fleet mode), its controller attached."""
+    from .. import params as pm
+    from .fleet import Fleet, ScaleController
+    autoscale = _parse_autoscale(args.autoscale)
+    n0 = args.workers or autoscale[0]
+    if autoscale:
+        n0 = min(max(n0, autoscale[0]), autoscale[1])
+    if resident_spec is not None:
+        resident_spec = dict(resident_spec, fft_backend=args.fft_backend)
+    fleet = Fleet(
+        n0, partition=pm.SlabPartition(args.partitions), config=cfg,
+        shard=args.shard, emulate_devices=args.emulate_devices,
+        worker_backend=args.worker_backend,
+        heartbeat_interval_s=args.heartbeat_interval_s,
+        heartbeat_k=args.heartbeat_k,
+        worker_inflight=args.worker_inflight,
+        worker_devices=_parse_worker_devices(args.worker_devices),
+        volume_decomp=args.volume_decomp,
+        tenant_weights=_parse_tenant_weights(args.tenant_weights),
+        resident=resident_spec, **server_kwargs)
+    if autoscale:
+        fleet.attach_controller(ScaleController(
+            fleet, autoscale[0], autoscale[1],
+            cooldown_s=args.scale_cooldown_s))
+    return fleet
+
+
 def _body(args) -> int:
-    """The executable on one rank (or the only process)."""
+    """The executable on one rank (or the only process, or a fleet's
+    router)."""
     from .. import obs
     from .. import params as pm
-    from ..cli.common import setup_backend
+    from ..cli.common import setup_backend, setup_obs
     from ..parallel import multihost
     from .server import Server
 
     if args.obs_dir:
-        # Export too: a subprocess the run starts sees only the
-        # environment.
+        # Export too: a subprocess the run starts (fleet workers, their
+        # followers) sees only the environment.
         os.environ["DFFT_OBS_DIR"] = args.obs_dir
-    device = setup_backend(args)
-    rank, world = multihost.world()
-    if world > 1 and args.partitions != world:
-        raise SystemExit(f"--partitions {args.partitions} in a world of "
-                         f"{world} ranks: a served plan spans the world")
     cfg = pm.Config(
         comm_method=pm.parse_comm_method(args.comm_method),
         opt=args.opt, fft_backend=args.fft_backend,
         wire_dtype=args.wire_dtype, guards=args.guards,
         wisdom_path=args.wisdom, use_wisdom=not args.no_wisdom)
+    server_kwargs = dict(
+        max_queue=args.max_queue,
+        latency_budget_ms=args.latency_budget_ms,
+        max_coalesce=args.max_coalesce,
+        batch_chunk=args.batch_chunk or None,
+        cache_capacity=args.cache_capacity, circuit_k=args.circuit_k,
+        circuit_cooldown_s=args.circuit_cooldown_s)
     resident_spec = _parse_resident(args)
-    server = Server(pm.SlabPartition(args.partitions), cfg,
-                    shard=args.shard, volume_decomp=args.volume_decomp,
-                    max_queue=args.max_queue,
-                    latency_budget_ms=args.latency_budget_ms,
-                    max_coalesce=args.max_coalesce,
-                    batch_chunk=args.batch_chunk or None,
-                    cache_capacity=args.cache_capacity,
-                    circuit_k=args.circuit_k,
-                    circuit_cooldown_s=args.circuit_cooldown_s,
-                    device=device)
-    if not server.leader:
-        server.close()          # follows the leader until its stop
-        return 0
-    if resident_spec is not None:
+    fleet = _fleet_mode(args)
+    if fleet:
+        setup_obs(args)
+        server = _make_fleet(args, cfg, server_kwargs, resident_spec)
+    else:
+        device = setup_backend(args)
+        rank, world = multihost.world()
+        if world > 1 and args.partitions != world:
+            raise SystemExit(f"--partitions {args.partitions} in a world "
+                             f"of {world} ranks: a served plan spans the "
+                             "world")
+        server = Server(pm.SlabPartition(args.partitions), cfg,
+                        shard=args.shard, volume_decomp=args.volume_decomp,
+                        device=device, **server_kwargs)
+        if not server.leader:
+            server.close()          # follows the leader until its stop
+            return 0
+    if resident_spec is not None and not fleet:
         from .. import persist
         from .resident import ResidentSolver
         try:
@@ -585,6 +565,9 @@ def _body(args) -> int:
                                   args.transforms.split(",") if t.strip()],
                       deadline_ms=args.deadline_ms, seed=args.seed,
                       warmup=args.warmup, stop=stop)
+            if args.tenants:
+                kw["tenants"] = [t.strip() for t in
+                                 args.tenants.split(",") if t.strip()]
             if args.requests:
                 kw["n_requests"] = args.requests
             else:
@@ -614,6 +597,12 @@ def _body(args) -> int:
                 rc = 1
         if summary is not None:
             summary["health_status"] = health["status"]
+            if fleet:
+                summary["workers"] = len(health.get("ring", []))
+                summary["worker_deaths"] = \
+                    health["counters"].get("worker_deaths", 0)
+                summary["resubmitted"] = \
+                    health["counters"].get("resubmitted", 0)
             if resident_spec is not None:
                 summary["resident"] = health.get("resident")
             print(json.dumps(summary, sort_keys=True), flush=True)

@@ -31,7 +31,12 @@ On P > 1 ranks (``dfft-torch-solve -p``) every rank runs its own resident
 over the same plan; the ranks agree after every step, in one MAX
 all-reduce over the plan's group, whether to stop and whether a
 checkpoint is due (a time trigger or a signal is one rank's view), and
-only group rank 0 writes the store.
+only group rank 0 writes the store. On a multi-rank SERVER (a fleet
+worker's rank group) the ranks' residents do not step on their own: the
+leader's thread posts each step through the server's protocol
+(``start(post=...)``; the followers' residents ``follow()``), and every
+rank runs :meth:`ResidentSolver.step_once` for it, whose one MAX
+all-reduce agrees stop, checkpoint and failure.
 """
 
 from __future__ import annotations
@@ -154,6 +159,11 @@ class ResidentSolver:
         self._writer = (self._ranks == 1
                         or dist.get_rank(self._group) == 0)
         self._stopped_agreed = self._ranks == 1
+        # A resident on a multi-rank server: the leader's post callable
+        # (start(post=...)), or follow() on a follower rank.
+        self._post: Optional[Callable[[bool, bool], None]] = None
+        self._posted = False
+        self._drain = True
         # describe() cache: (monotonic stamp, result); checkpoint()
         # invalidates it.
         self._describe_at = 0.0
@@ -214,30 +224,134 @@ class ResidentSolver:
 
     # -- lifecycle ---------------------------------------------------------
 
-    def start(self) -> None:
-        """Start the stepping thread (idempotent)."""
+    def start(self, post: Optional[Callable[[bool, bool], None]] = None
+              ) -> None:
+        """Start the stepping thread (idempotent). ``post(stop, drain)``
+        (a multi-rank server's leader) posts each step to the followers
+        before this rank runs it (:meth:`step_once`)."""
         if self._thread is not None:
             return
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name=f"{self.name}-steps")
+        if post is not None:
+            self._post, self._posted = post, True
+        self._thread = threading.Thread(
+            target=self._served_loop if post is not None else self._loop,
+            daemon=True, name=f"{self.name}-steps")
         obs.event("resident.start", resident=self.name, step=self.step,
                   restored_from=self.restored_from,
                   policy=str(self.policy))
         self._thread.start()
 
-    def _agree(self, stop: bool, due: Optional[str]):
-        """``(stop, checkpoint reason)`` the ranks agree on after a step
-        (one MAX all-reduce over the plan's group); the flags as they are
-        on one rank."""
+    def follow(self) -> None:
+        """A follower rank of a multi-rank server: no thread; the
+        server runs :meth:`step_once` for each step its leader posts."""
+        self._posted = True
+        obs.event("resident.start", resident=self.name, step=self.step,
+                  restored_from=self.restored_from,
+                  policy=str(self.policy), role="follower")
+
+    def _served_loop(self) -> None:
+        """The leader's stepping thread on a multi-rank server: each step
+        is posted, then run, under ``DEVICE_LOCK``, so every rank steps in
+        the same collective order between the server's batches. After
+        ``max_steps`` it idles until stopped; the last post carries the
+        stop (and the drain checkpoint, when asked for)."""
+        from .server import inherit_threads
+        inherit_threads()
+        try:
+            while not self._stop.is_set():
+                if (self.max_steps is not None
+                        and self.step >= self.max_steps):
+                    self._stop.wait(0.05)
+                    continue
+                with mesh.DEVICE_LOCK:
+                    self._post(False, False)
+                    if self.step_once(False, False):
+                        return
+                if self.step_interval_s:
+                    self._stop.wait(self.step_interval_s)
+            with mesh.DEVICE_LOCK:
+                self._post(True, self._drain)
+                self.step_once(True, self._drain)
+        except Exception as e:  # noqa: BLE001 — a lost group, a post
+            self._record_error(e)  # that failed: never die silently
+
+    def step_once(self, stop: bool, drain: bool) -> bool:
+        """One posted step on this rank (caller holds ``DEVICE_LOCK``):
+        unless ``stop``, one step; then one MAX all-reduce of (stop,
+        checkpoint due, failed); then the agreed checkpoint (``drain`` on
+        the stopping post, when the policy says ``drain:on``), written by
+        rank 0. Returns whether the resident stopped (stop agreed, or a
+        rank failed: every rank then records the failure)."""
+        err: Optional[BaseException] = None
+        if not stop:
+            try:
+                if self._step_fn is None:
+                    self._step_fn = self.solver.step_fn(self.dt)
+                state = advance_steps(self._step_fn, self.state, 1)
+                with self._lock:
+                    self.state = state
+                    self.step += 1
+                    self.sim_time += self.dt
+            except Exception as e:  # noqa: BLE001 — agreed below
+                err = e
+        due = None if stop else self.policy.due(
+            self.step, self._last_saved_step, self._last_saved_time,
+            time.monotonic())
+        stop_all, due_any, failed = self._agree_flags(
+            stop, due is not None, err is not None)
+        if failed:
+            self._record_error(err if err is not None else RuntimeError(
+                "another rank's resident step failed"))
+            self._stopped_agreed = True
+            return True
+        if stop_all:
+            reason = ("drain" if drain and self.policy.on_drain else None)
+        else:
+            reason = (due or "agreed") if due_any else None
+        if reason is not None:
+            self._checkpoint_stepping_on(reason)
+        if stop_all:
+            self._stopped_agreed = True
+        return stop_all
+
+    def _checkpoint_stepping_on(self, reason: str) -> None:
+        """A checkpoint the ranks agreed on. A TRANSIENT write failure
+        (ENOSPC, an NFS blip) must not kill the simulation: the loss is
+        one checkpoint window, counted and noticed."""
+        if self.store is None:
+            return
+        try:
+            self.checkpoint(reason)
+        except OSError as e:
+            obs.metrics.inc("persist.checkpoint_failures")
+            obs.notice(f"resident {self.name}: checkpoint write failed at "
+                       f"step {self.step} ({type(e).__name__}: {e}); "
+                       "stepping on", name="persist.checkpoint_failed",
+                       step=self.step)
+
+    def _agree_flags(self, *flags: bool):
+        """The flags MAX-reduced over the plan's group (as they are on
+        one rank): one all-reduce agrees what one rank decided alone (a
+        time trigger, a signal, a failure)."""
         if self._ranks == 1:
-            return stop, due
+            return tuple(bool(f) for f in flags)
         dev = (self.solver.plan.device
                if dist.get_backend(self._group) == "nccl" else "cpu")
-        v = torch.tensor([int(stop), int(due is not None)],
-                         dtype=torch.int32, device=dev)
+        v = torch.tensor([int(f) for f in flags], dtype=torch.int32,
+                         device=dev)
         dist.all_reduce(v, op=dist.ReduceOp.MAX, group=self._group)
-        stop_all, due_any = (bool(x) for x in v.tolist())
-        return stop_all, ((due or "agreed") if due_any else None)
+        return tuple(bool(x) for x in v.tolist())
+
+    def _record_error(self, e: BaseException) -> None:
+        with self._lock:
+            self.error = f"{type(e).__name__}: {e}"[:300]
+        obs.metrics.inc("persist.resident_errors")
+        obs.notice(f"resident {self.name}: stepping thread died at "
+                   f"step {self.step} ({self.error})",
+                   name="resident.error", step=self.step)
+        from ..obs import flightrec
+        flightrec.dump(f"resident {self.name} stepping error: "
+                       f"{self.error}")
 
     def _loop(self) -> None:
         # The whole loop is guarded: a stepping thread that dies SILENTLY
@@ -253,7 +367,7 @@ class ResidentSolver:
                 if (self.max_steps is not None
                         and self.step >= self.max_steps):
                     break
-                stop, _ = self._agree(self._stop.is_set(), None)
+                (stop,) = self._agree_flags(self._stop.is_set())
                 if stop:
                     break
                 # THE shared stepping idiom (advance_steps). DEVICE_LOCK:
@@ -264,36 +378,17 @@ class ResidentSolver:
                     self.state = state
                     self.step += 1
                     self.sim_time += self.dt
-                _, reason = self._agree(False, self.policy.due(
+                due = self.policy.due(
                     self.step, self._last_saved_step,
-                    self._last_saved_time, time.monotonic()))
-                if reason is not None and self.store is not None:
-                    # A TRANSIENT write failure (ENOSPC, an NFS blip) must
-                    # not kill the simulation: the loss is one checkpoint
-                    # window, counted and noticed.
-                    try:
-                        self.checkpoint(reason)
-                    except OSError as e:
-                        obs.metrics.inc("persist.checkpoint_failures")
-                        obs.notice(
-                            f"resident {self.name}: checkpoint write "
-                            f"failed at step {self.step} "
-                            f"({type(e).__name__}: {e}); stepping on",
-                            name="persist.checkpoint_failed",
-                            step=self.step)
+                    self._last_saved_time, time.monotonic())
+                (due_any,) = self._agree_flags(due is not None)
+                if due_any:
+                    self._checkpoint_stepping_on(due or "agreed")
                 if self.step_interval_s:
                     self._stop.wait(self.step_interval_s)
             self._stopped_agreed = True
         except Exception as e:  # noqa: BLE001 — must never die silently
-            with self._lock:
-                self.error = f"{type(e).__name__}: {e}"[:300]
-            obs.metrics.inc("persist.resident_errors")
-            obs.notice(f"resident {self.name}: stepping thread died at "
-                       f"step {self.step} ({self.error})",
-                       name="resident.error", step=self.step)
-            from ..obs import flightrec
-            flightrec.dump(f"resident {self.name} stepping error: "
-                           f"{self.error}")
+            self._record_error(e)
 
     def checkpoint(self, reason: str) -> Optional[str]:
         """Capture + save one generation now; returns the path written
@@ -321,12 +416,14 @@ class ResidentSolver:
         the final generation when the policy says ``drain:on``.
         Idempotent."""
         first = not self._stop.is_set()
+        self._drain = bool(checkpoint)
         self._stop.set()
         t = self._thread
         if t is not None:
             t.join(None if self._ranks > 1 else 30.0)
         if first:
-            if (checkpoint and self.policy.on_drain
+            # A posted resident checkpointed on its stopping post.
+            if (checkpoint and self.policy.on_drain and not self._posted
                     and self.store is not None
                     and (self._stopped_agreed or t is None)):
                 self.checkpoint("drain")
@@ -334,6 +431,14 @@ class ResidentSolver:
                       checkpoints=self.checkpoints)
 
     # -- observability -----------------------------------------------------
+
+    def progress(self) -> Dict[str, Any]:
+        """Name, step, restore provenance, checkpoints and liveness, read
+        without the lock (the heartbeat's view: a checkpoint holds the
+        lock across its capture)."""
+        return {"name": self.name, "step": self.step,
+                "restored_from": self.restored_from,
+                "checkpoints": self.checkpoints, "running": self.running}
 
     @property
     def running(self) -> bool:

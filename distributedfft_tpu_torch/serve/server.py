@@ -59,7 +59,13 @@ gathered. A batch the leader expires or rejects is never posted. After
 the build and after the execution every rank posts a one-element MAX
 all-reduce of its failure flag, so a failure on any rank fails the batch
 on every rank with one verdict (``RankFailed`` on a rank that did not
-fail itself).
+fail itself). A resident solver on a multi-rank server steps by the same
+posts: the leader's stepping thread posts each step as a header op, so
+every rank steps in the same collective order between batches, and the
+ranks agree after it, in one MAX all-reduce, whether to stop, whether a
+checkpoint is due and whether a rank failed (rank 0 writes). A header op
+also gathers every rank's kernel counts (``rank_counts``: the fleet's
+proof of which kernels served a request).
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import sys
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
@@ -78,7 +85,6 @@ import torch.distributed as dist
 
 from .. import obs
 from .. import params as pm
-from ..cli.common import LATER_ITEMS
 from ..parallel import mesh as pmesh
 from ..resilience import deadline as dl
 from ..resilience import inject
@@ -86,8 +92,6 @@ from ..resilience.circuit import CircuitBreaker
 from ..resilience.deadline import Deadline, DeadlineExceeded
 from ..utils.native_planner import padded_extent
 from . import plancache
-
-LATER_FLEET = LATER_ITEMS[14]
 
 
 class Overloaded(RuntimeError):
@@ -202,7 +206,8 @@ SHED_BURST_DEFAULT = 10
 KEEPALIVE_S = 10.0
 
 # The leader's posts (the first slot of the broadcast header).
-_OP_STOP, _OP_EXEC, _OP_INVALIDATE, _OP_NOOP = 0, 1, 2, 3
+_OP_STOP, _OP_EXEC, _OP_INVALIDATE, _OP_NOOP, _OP_RESIDENT, _OP_COUNTS = \
+    range(6)
 
 
 def _new_trace_id() -> str:
@@ -272,6 +277,21 @@ class _Job:
 
 
 _HEADER_LEN = 11
+
+
+def local_counts(reset: bool = False) -> Dict[str, Any]:
+    """This process's kernel launches, C entry points and matmul
+    dispatches since their last reset (``ops/hopper_fft.py``), with its
+    pid and whether JAX is among its modules; ``reset`` sets them to 0
+    after reading. Lock-free dict copies."""
+    from ..ops import hopper_fft as hf
+    out = {"pid": os.getpid(), "launches": dict(hf.LAUNCHES),
+           "entries": dict(hf.ENTRIES),
+           "matmul": int(hf.DISPATCHES["matmul"]),
+           "jax": "jax" in sys.modules}
+    if reset:
+        hf.reset_launches()
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -369,6 +389,7 @@ class Server:
         self._inflight = 0
         self._shed_times: collections.deque = collections.deque()
         self._resident: Optional[Any] = None  # attach_resident()
+        self._resident_ready = threading.Event()
         self._last_post = time.monotonic()
         self._stop_posted = False
         obs.event("serve.start", server=name, shard=shard,
@@ -824,13 +845,25 @@ class Server:
                            f"leader ({type(err).__name__}: {err})"[:300],
                            name="serve.follower_lost")
                 break
-            op, job, built = _Job.from_header([int(v) for v in h.tolist()])
+            vals = [int(v) for v in h.tolist()]
+            op, job, built = _Job.from_header(vals)
             if op == _OP_STOP:
                 break
             if op == _OP_NOOP:
                 continue
             if op == _OP_INVALIDATE:
                 self.cache.invalidate_prefix(job.base_key(self.shard))
+                continue
+            if op == _OP_COUNTS:
+                with pmesh.DEVICE_LOCK:
+                    self._gather_counts(bool(vals[1]))
+                continue
+            if op == _OP_RESIDENT:
+                # Posted only after the leader attached its resident; this
+                # rank attaches its own right after constructing.
+                self._resident_ready.wait()
+                with pmesh.DEVICE_LOCK:
+                    self._resident.step_once(bool(vals[1]), bool(vals[2]))
                 continue
             with pmesh.DEVICE_LOCK:
                 try:
@@ -1084,23 +1117,63 @@ class Server:
         """Host a :class:`~.resident.ResidentSolver`: start its stepping
         thread and own its lifecycle — ``close(drain=True)`` stops it
         THROUGH its drain-checkpoint path; ``health()`` gains a
-        ``resident`` block. One rank only: a resident beside a multi-rank
-        server would post its own collectives between the leader's."""
-        if self._P > 1:
-            raise NotImplementedError(
-                "a resident solver on a multi-rank server is not ported "
-                f"yet ({LATER_FLEET}: worker rank groups)")
+        ``resident`` block. On P > 1 ranks every rank attaches its own
+        resident over the same plan (built before the server, so the
+        build's collectives precede the protocol); the leader's thread
+        posts each step (``_OP_RESIDENT``: stop, drain-checkpoint) and
+        the followers step when the post arrives."""
         with self._lock:
             if self._resident is not None:
                 raise RuntimeError("a resident solver is already attached")
             self._resident = resident
-        resident.start()
+        if self._P > 1 and not self.leader:
+            resident.follow()
+        elif self._P > 1:
+            resident.start(post=lambda stop, drain: self._post(
+                [_OP_RESIDENT, int(stop), int(drain)]
+                + [0] * (_HEADER_LEN - 3)))
+        else:
+            resident.start()
+        self._resident_ready.set()
 
     @property
     def resident(self) -> Optional[Any]:
         return self._resident
 
+    # -- kernel counts --------------------------------------------------------
+
+    def rank_counts(self, reset: bool = False) -> List[Dict[str, Any]]:
+        """Every rank's ``local_counts`` (leader only), rank by rank; on
+        P > 1 ranks a header op under ``DEVICE_LOCK`` gathers them."""
+        if self._P == 1:
+            return [dict(local_counts(reset), rank=0)]
+        with pmesh.DEVICE_LOCK:
+            self._post([_OP_COUNTS, int(reset)] + [0] * (_HEADER_LEN - 2))
+            return self._gather_counts(reset)
+
+    def _gather_counts(self, reset: bool) -> Optional[List[Dict[str, Any]]]:
+        mine = dict(local_counts(reset), rank=self.rank)
+        rows: Optional[List[Any]] = [None] * self._P if self.leader else None
+        dist.gather_object(mine, rows, dst=self._src, group=self.group)
+        return rows
+
     # -- health / lifecycle ------------------------------------------------
+
+    def beat(self) -> Dict[str, Any]:
+        """The heartbeat's view of ``health()``: status, queue depth,
+        EMA, counters and the resident's progress. It takes only the
+        server's own lock (never held across device work) and reads the
+        resident without its lock, so it answers while a batch holds
+        ``DEVICE_LOCK`` or waits on the card."""
+        with self._lock:
+            out = {"status": self._state, "queue_depth": len(self._pending),
+                   "ema_ms": (round(self._ema_ms, 4)
+                              if self._ema_ms is not None else None),
+                   "counters": dict(self._counts)}
+        res = self._resident
+        if res is not None:
+            out["resident"] = res.progress()
+        return out
 
     def health(self) -> Dict[str, Any]:
         """The readiness snapshot (the ``/healthz`` payload): overall

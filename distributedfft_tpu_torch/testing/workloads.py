@@ -179,17 +179,14 @@ def serve_load(server, *, rate_hz: float, duration_s: float | None = None,
     instead of running its full window; already-submitted requests are
     still collected into the summary.
 
-    ``tenants`` (a sequence of names) mixes the traffic uniformly over
-    tenant identities and adds a ``by_tenant`` outcome/latency breakdown
-    to the summary; it needs a server whose ``submit`` takes a tenant
-    (the fleet, ROADMAP Queue 1 item 14's second part)."""
+    ``server`` may equally be a :class:`~..serve.fleet.Fleet` (same
+    submit surface). ``tenants`` (a sequence of names, fleet mode only)
+    mixes the traffic uniformly over tenant identities and adds a
+    ``by_tenant`` outcome/latency breakdown to the summary — the surface
+    the per-tenant fairness drills assert on."""
     import numpy as np
     if (duration_s is None) == (n_requests is None):
         raise ValueError("pass exactly one of duration_s / n_requests")
-    if tenants:
-        from ..serve.server import LATER_FLEET
-        raise NotImplementedError(
-            f"serve_load's tenant mix drives the fleet ({LATER_FLEET})")
     rng = np.random.default_rng(seed)
     cells = [(tuple(int(n) for n in shape), d, t) for shape in shapes
              for d in dtypes for t in transforms]

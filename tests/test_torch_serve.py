@@ -3,8 +3,8 @@ package's: every single-rank case of ``tests/test_serve.py`` (the
 multi-rank ones run in ``tests/test_torch_serve_ranks.py``), the served
 volume at one rank, replies equal to the JAX ``Server``'s on the same
 payloads within 1e-5 ("xla") and 5e-4 ("pallas", the kernels' plain
-versions), the data path's split metrics, the fleet's names raising, and
-the resident cases of ``tests/test_persist.py``.
+versions), the data path's split metrics, and the resident cases of
+``tests/test_persist.py`` (the fleet's: ``tests/test_torch_fleet.py``).
 
 * plan cache: strict LRU eviction order, hit accounting, prefix
   invalidation, and zero plan builds on a hit (build counts);
@@ -701,13 +701,12 @@ def test_data_path_split_is_recorded():
         assert hist[name]["count"] >= 3, name
 
 
-def test_fleet_names_raise_naming_their_item():
-    from distributedfft_tpu_torch import serve
-    for name in ("Fleet", "ScaleController", "RemoteWorkerError"):
-        with pytest.raises(NotImplementedError, match="item 14, second part"):
-            getattr(serve, name)()
+def test_one_rank_server_is_its_own_leader():
     with Srv(tdfft.SlabPartition(1)) as s:
         assert s.leader and s.health()["role"] == "leader"
+        rows = s.rank_counts()
+    assert [r["rank"] for r in rows] == [0]
+    assert rows[0]["pid"] == os.getpid() and rows[0]["matmul"] == 0
 
 
 # ---------------------------------------------------------------------------

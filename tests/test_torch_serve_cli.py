@@ -3,7 +3,9 @@
 (``solvers/driver.py``).
 
 * both flag surfaces equal the JAX ``dfft-serve`` / ``dfft-solve`` ones;
-  every fleet flag raises naming ROADMAP item 14's second part;
+* fleet mode (``--workers``, ``--autoscale``, ``--tenants`` /
+  ``--tenant-weights``, ``--worker-devices 2,0``) answers every request
+  and prints the JAX fleet summary's keys;
 * ``--drive`` on one rank offers the JAX drive's schedule (same seed,
   same outcome counts) and on four emulated ranks (``-p 4 --shard x``)
   serves every request;
@@ -77,16 +79,64 @@ def test_solve_flag_surface_matches_jax():
     assert _surface(tdriver.build_parser()) == _surface(build_parser())
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("--workers", "2"), ("--worker-devices", "1,0"),
-    ("--worker-backend", "stub"), ("--heartbeat-interval-s", "1"),
-    ("--heartbeat-k", "5"), ("--worker-inflight", "2"),
-    ("--tenant-weights", "gold=3"), ("--tenants", "gold,free"),
-    ("--autoscale", "1:2"), ("--scale-cooldown-s", "1")])
-def test_fleet_flags_raise_naming_their_item(flag, value):
-    assert {f for f, _, _ in tcli.FLEET_FLAGS} >= {flag}
-    with pytest.raises(NotImplementedError, match="item 14, second part"):
-        tcli.main(["--drive", flag, value, "--emulate-devices", "1"])
+_FLEET_DRIVE = ["--drive", "--requests", "12", "--rate", "60", "--shapes",
+                "16x16,12x12", "--seed", "5", "--heartbeat-interval-s",
+                "0.25", "--heartbeat-k", "12"]
+FLEET_CASES = {
+    "stub": ["--workers", "2", "--worker-backend", "stub"],
+    "tenants": ["--workers", "2", "--worker-backend", "stub", "--tenants",
+                "gold,free", "--tenant-weights", "gold=3",
+                "--worker-inflight", "2"],
+    "autoscale": ["--autoscale", "1:2", "--worker-backend", "stub",
+                  "--scale-cooldown-s", "1"],
+    "worker_devices": ["--workers", "2", "--worker-devices", "2,0",
+                       "--emulate-devices", "1", "--shapes",
+                       "16x16,16x16x16"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLEET_CASES))
+def test_fleet_mode_drive_matches_jax_summary(case):
+    """``dfft-torch-serve --drive`` in fleet mode (``--workers`` /
+    ``--autoscale``; stub workers, or real ones on the CPU with worker 0
+    a two-rank group): every request answered, and the final JSON line
+    has the keys of JAX ``dfft-serve``'s for the same flags (its stub
+    workers; JAX's own emulation flag stays out of this process, and the
+    keys do not depend on the core)."""
+    from distributedfft_tpu.serve.cli import main as jmain
+    argv = _FLEET_DRIVE + FLEET_CASES[case]
+    rc, text = _run(tcli.main, argv)
+    jargv = list(argv)
+    if "--emulate-devices" in jargv:
+        i = jargv.index("--emulate-devices")
+        del jargv[i:i + 2]
+    if "--worker-backend" not in jargv:
+        jargv += ["--worker-backend", "stub"]
+    jrc, jtext = _run(jmain, jargv)
+    assert rc == jrc == 0
+    mine, theirs = _last_json(text), _last_json(jtext)
+    assert set(mine) == set(theirs)
+    assert mine["offered"] == theirs["offered"] == 12
+    assert mine["outcomes"]["ok"] == 12, mine
+    assert mine["worker_deaths"] == 0
+    assert mine["workers"] == (1 if case == "autoscale" else 2)
+    if case == "tenants":
+        assert set(mine["by_tenant"]) == set(theirs["by_tenant"]) \
+            == {"gold", "free"}
+        for t, block in mine["by_tenant"].items():
+            assert set(block) == set(theirs["by_tenant"][t])
+            assert block["outcomes"] == theirs["by_tenant"][t]["outcomes"]
+
+
+def test_fleet_flags_need_fleet_mode():
+    """As in JAX ``dfft-serve``: the per-worker and tenant flags refuse to
+    run without ``--workers`` / ``--autoscale``."""
+    for extra in (["--worker-devices", "2,0"], ["--tenants", "gold"],
+                  ["--tenant-weights", "gold=3"]):
+        with pytest.raises(SystemExit):
+            tcli.main(["--drive", "--emulate-devices", "1"] + extra)
+    with pytest.raises(SystemExit):
+        tcli.main(["--drive", "--autoscale", "3:2"])
 
 
 # ---------------------------------------------------------------------------

@@ -82,15 +82,51 @@ def test_flops_formulas():
     assert workloads.flops_ns2d_step(16, 4096) == jw.flops_ns2d_step(16, 4096)
 
 
-def test_serve_load_names_its_item():
-    """``serve_load`` runs since item 14 (``tests/test_torch_serve.py``);
-    its tenant mix drives the fleet, item 14's second part, and raises
-    naming it."""
-    from distributedfft_tpu_torch.serve import Server
-    with Server(device="cpu") as s:
-        with pytest.raises(NotImplementedError, match="item 14, second"):
-            workloads.serve_load(s, rate_hz=1.0, n_requests=1,
-                                 tenants=["gold"])
+class _Done:
+    """A server that answers every request at once (numpy's rfft2): the
+    load generator's schedule is all a run then shows."""
+
+    max_coalesce = 8
+
+    def __init__(self, tenanted):
+        self.tenanted = tenanted
+        self.tenants = []
+
+    def prewarm(self, *a, **kw):
+        return 0
+
+    def request(self, x, transform="r2c", **kw):
+        return np.fft.rfft2(x)
+
+    def submit(self, x, transform="r2c", deadline_ms=None, **kw):
+        from concurrent.futures import Future
+        if "tenant" in kw:
+            self.tenants.append(kw["tenant"])
+        fut = Future()
+        fut.set_result(np.fft.rfft2(x))
+        return fut
+
+
+def test_serve_load_tenant_mix_matches_jax():
+    """``serve_load(tenants=...)``: the same open-loop schedule and tenant
+    mix as the JAX load generator from the same seed (each submit's
+    tenant, in order), and the same ``by_tenant`` block keys."""
+    from distributedfft_tpu.testing import workloads as jw
+    kw = dict(rate_hz=400.0, n_requests=24, shapes=((8, 8), (6, 6)),
+              seed=11, warmup=0, tenants=["gold", "free", "bronze"])
+    mine, theirs = _Done(True), _Done(True)
+    out = workloads.serve_load(mine, **kw)
+    jout = jw.serve_load(theirs, **kw)
+    assert mine.tenants == theirs.tenants and len(mine.tenants) == 24
+    assert set(out) == set(jout)
+    assert set(out["by_tenant"]) == set(jout["by_tenant"]) == set(
+        kw["tenants"])
+    for t in kw["tenants"]:
+        assert set(out["by_tenant"][t]) == set(jout["by_tenant"][t])
+        assert out["by_tenant"][t]["outcomes"] == \
+            jout["by_tenant"][t]["outcomes"]
+        assert out["by_tenant"][t]["outcomes"]["ok"] == mine.tenants.count(t)
+    assert out["outcomes"]["ok"] == 24
 
 
 def _rank_main(rank, addr, outdir):
