@@ -196,7 +196,20 @@ once, before any rank is spawned) and then, under
    --csv`` on H100 peaks; ``dfft-torch-launch`` on a job of
    ``dfft-torch-slab`` at 512^3 under "pallas", reduced by
    ``dfft-torch-eval``, whose fused mean holds within 10% of
-   ``plan_time``'s.
+   ``plan_time``'s;
+17. runs the static analysis and the stage profile (``analysis_phase``;
+   ``analysis_only()`` runs it alone): ``dfft-torch-verify --fft-backend
+   pallas`` on the card (its single-device combos, each trace holding
+   every launch the kernels counted; the pins, schedules and source
+   lints), ``stage_profile`` of the 1024^3 slab (kernels 1-3) and the
+   512^3 fused plan (kernels 6-8) in both directions, every declared node
+   attributed and the nodes' ms within 10% of the capture's busy ms,
+   each node's ms, ideal ms and gap printed; ``dfft-torch-explain`` of
+   the 1024^3 slab under "pallas" (its contract line PASS); then two
+   ranks sharing the card over gloo: every slab rendering of the verify
+   matrix on both wires and in both directions under "pallas", and the
+   stage profile of the 256^3 fused bf16 ring (``Z_Then_YX``: kernels
+   9-11).
 
 Phases print JSON lines. Before the last line come one
 ``{"matmul_backend": ...}`` line (the matmul backend is no kernel), one
@@ -216,7 +229,8 @@ wisdom phase's (about 140 s, most of it the matmul candidates of the two
 1024^3 races), the serving phase's (about 120 s, most of it the host's
 copies of 4096^2 images and 1024^3 volumes), the fleet's (about 190 s,
 most of it the workers' starts and the pipes' transfers of 512^3
-volumes) and evaluation's (about 20 s) included.
+volumes), evaluation's (about 20 s) and the analysis phase's (about 30 s)
+included.
 """
 
 from __future__ import annotations
@@ -4174,7 +4188,7 @@ WISDOM_T4_N = 128               # (d): the fraction chain over two ranks
 WISDOM_K = 2                    # chain length of every race: one (t_2 - t_1)
 WISDOM_REPEATS = 1              # pair a cell (a 1024^3 matmul@high roundtrip
                                 # takes 1.7 s on the card: the race's cost)
-WISDOM_CLI_N = N                # (d): the slab executable's "auto" run
+WISDOM_CLI_N = N                # (d): the executables' autotune and "auto"
 CKPT_N = N                      # (f): NS-3D 512^3, 3 x 512 x 512 x 257
 CKPT_DT = 1e-3
 LOCAL_KERNELS = ("rmatmul", "cmatmul", "c2r")   # kernels 1-3
@@ -4479,14 +4493,14 @@ def wisdom_ranks(multihost, outdir, store) -> tuple:
 
 
 def wisdom_cli(torch, dft, hf, at, store, store_cli):
-    """(d) on one card: ``dfft-torch-reference --autotune`` at 1024^3
-    records its winner; ``dfft-torch-slab -comm auto --fft-backend auto``
-    at 512^3 resolves and runs."""
+    """(d) on one card: ``dfft-torch-reference --autotune`` at 512^3
+    records its winner (the 1024^3 race is (a)'s); ``dfft-torch-slab -comm
+    auto --fft-backend auto`` at 512^3 resolves and runs."""
     import functools
     from distributedfft_tpu_torch.cli import reference as cli_ref
     from distributedfft_tpu_torch.cli import slab as cli_slab
     from distributedfft_tpu_torch.utils import wisdom
-    n = WISDOM_N
+    n = WISDOM_CLI_N
     orig = at.autotune_local_fft
     # One timing pair per cell (the executable's own repeats are 3 x 3).
     at.autotune_local_fft = functools.partial(orig, repeats=WISDOM_REPEATS,
@@ -6015,6 +6029,326 @@ def fleet_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 17. static analysis, the stage profile and explain
+# ---------------------------------------------------------------------------
+
+ANALYSIS_ITERS = 3              # profiled iterations of each direction
+ANALYSIS_BUSY_TOL = 0.10        # the nodes' summed ms against the busy ms
+ANALYSIS_RING_N = 256           # two ranks: the fused bf16 ring's cube
+ANALYSIS_RING = dict(wire_dtype="bf16", fused_wire=True)  # RingOverlap
+ANALYSIS_RING_SEQ = "Z_Then_YX"  # its forward decodes into the y DFT (11)
+ANALYSIS_PROFILES = {           # one card: the shape, the kernels it runs
+    "slab_1024": ((NBIG,) * 3, ("rmatmul", "cmatmul", "c2r")),
+    "fused_512": ((N,) * 3, ("zy_fwd", "x_c2c", "yz_inv")),
+}
+ANALYSIS_RING_KERNELS = ("enc_pack", "dec_unpack", "dec_cmatmul")
+ANALYSIS_RENDERINGS = ("a2a", "opt1", "p2p", "streams", "ring", "ring_ovl",
+                       "ring_ovl_d4", "ring_ovl_d8", "ring_sub2", "a2a_pipe",
+                       "fused")
+# The entry points each verified combo's route launches, on the verifier's
+# 20 x 16 x 16 gate shape (ZY_Then_X, "pallas"): forward, z through kernel 1
+# (rdft), y through kernel 2's column form, the 20-point x through kernel
+# 2's planes (stage); the inverse mirrors it and ends in kernel 3 (c2r).
+# Only the fused wire packs and unpacks in kernels 9 and 10; the unfused
+# bf16 wire encodes with a plain convert, as the JAX reference's does.
+ANALYSIS_SLAB_ENTRIES = {
+    "forward": {"dfft_rdft", "dfft_cdft_cols", "dfft_stage"},
+    "inverse": {"dfft_stage", "dfft_cdft_cols", "dfft_c2r"},
+}
+ANALYSIS_FUSED_WIRE_ENTRIES = {"dfft_enc_pack", "dfft_dec_unpack"}
+ANALYSIS_CARD_ENTRIES = {     # dfft-torch-verify's single-card combos
+    # the 16^3 single-device plan: kernel 6 (zy_*) and kernel 7 (x_cols)
+    ("slab", "none"): {"dfft_zy_rows", "dfft_zy_cols", "dfft_zy_planes",
+                       "dfft_x_cols"},
+    ("slab", "bluestn"): set(),   # the chirp-z backend runs no kernel
+    ("batched", "none"): {"dfft_rdft", "dfft_stage"},   # batch-sharded 2D
+}
+
+
+def analysis_expected(c: dict) -> set:
+    """The entry points a two-rank slab combo's route must launch."""
+    want = set(ANALYSIS_SLAB_ENTRIES[c["direction"]])
+    if c["rendering"] == "fused" and c["wire"] == "bf16":
+        want |= ANALYSIS_FUSED_WIRE_ENTRIES
+    return want
+
+
+def analysis_profile(torch, hf, plan, what, agree=None):
+    """``stage_profile`` of both directions of ``plan`` (collective on a
+    plan over ranks; ``agree(ok)`` then gives every rank's verdict on a
+    capture, so all retry together): a capture is taken anew while the
+    trace lost a launch of the port's kernels (up to
+    SERVE_CAPTURE_TRIES). Fails unless every declared node is attributed
+    with device time and the nodes' summed ms lie within
+    ANALYSIS_BUSY_TOL of the capture's busy ms. Returns ({direction:
+    row}, {direction: launches})."""
+    from distributedfft_tpu_torch.obs import profile
+    agree = agree or (lambda ok: ok)
+    rows, launches = {}, {}
+    for d in ("forward", "inverse"):
+        for _ in range(SERVE_CAPTURE_TRIES):
+            hf.reset_launches()
+            cap = profile.capture_stage_profile(plan, d,
+                                                iters=ANALYSIS_ITERS)
+            got = counted(hf)
+            # one warmup call precedes the window's ANALYSIS_ITERS calls
+            in_window = sum(got.values()) * ANALYSIS_ITERS \
+                // (ANALYSIS_ITERS + 1)
+            if agree(cap["port_kernel_events"] >= in_window):
+                break
+        capture_complete(f"{what} {d}", cap["port_kernel_events"], in_window)
+        prof = profile.stage_profile(plan, d, capture=cap)
+        nodes = [r for r in prof["stages"]
+                 if r["kind"] not in ("input", "output")]
+        if not all(r["attributed"] and r["device_ms"] > 0 for r in nodes):
+            fail(f"{what} {d}: a declared node has no device time: {nodes}")
+        nodes_ms = sum(r["device_ms"] for r in nodes)
+        busy = prof["busy_ms"]
+        if not abs(nodes_ms - busy) <= ANALYSIS_BUSY_TOL * busy:
+            fail(f"{what} {d}: the nodes' {nodes_ms:.3f} ms against the "
+                 f"capture's busy {busy:.3f} ms")
+        rows[d] = dict(
+            nodes=[{k: r.get(k) for k in ("node", "kind", "label",
+                                          "device_ms", "fraction",
+                                          "ideal_ms", "bound_by", "gap_x")}
+                   for r in nodes],
+            nodes_ms=nodes_ms, busy_ms=busy, total_ms=prof["total_ms"],
+            unattributed_ms=prof["unattributed_ms"],
+            exchange_ms=prof["exchange_ms"], compute_ms=prof["compute_ms"],
+            idle_share=prof["idle_share"],
+            kernel_idle_share=prof["kernel_idle_share"],
+            port_kernel_events=cap["port_kernel_events"],
+            launches_in_window=in_window,
+            lines=profile.format_stage_profile(prof))
+        launches[d] = got
+    return rows, launches
+
+
+def analysis_capture_main(rank: int, outdir: str) -> None:
+    """The single-card stage profiles in a process of their own, as the
+    serve phase's captures (``serve_capture_main``): late in this script's
+    long process the tracer lost every kernel record of the 1024^3 slab's
+    capture on an H100."""
+    import torch
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {}
+    for what, (shape, _) in ANALYSIS_PROFILES.items():
+        t0 = time.perf_counter()
+        plan = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                               dft.Config(fft_backend="pallas"), device=dev)
+        prof, got = analysis_profile(torch, hf, plan, what)
+        prof["seconds"] = time.perf_counter() - t0
+        out[what] = (prof, got)
+        del plan
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, "analysis_capture.json"), "w") as f:
+        json.dump(out, f)
+
+
+def analysis_rank_main(rank: int, addr: str, outdir: str) -> None:
+    """Two ranks sharing the card over gloo: every slab rendering of
+    ``dfft-torch-verify``'s matrix under "pallas" on both wires and in
+    both directions (census, payload, graph against the trace, the lints,
+    the launches each trace recorded), then the stage profile of the
+    256^3 fused bf16 ring (kernels 9-11)."""
+    import torch
+    import torch.distributed as dist
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.analysis import verify
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.parallel import multihost
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.maybe_initialize(addr, RANKS, rank, backend="gloo",
+                               timeout_s=300)
+    dev = torch.device("cuda")
+    out = {"rank": rank, "combos": []}
+    t0 = time.perf_counter()
+    for rendering in ANALYSIS_RENDERINGS:
+        for wire in ("native", "bf16"):
+            for d in ("forward", "inverse"):
+                combo = dict(family="slab", rendering=rendering,
+                             sequence="ZY_Then_X", wire=wire, guards="off",
+                             direction=d)
+                res = verify.run_combo(combo, RANKS, dev, "pallas")
+                out["combos"].append({k: res[k] for k in (
+                    "rendering", "wire", "direction", "contract", "census",
+                    "kernels", "violations", "ok")})
+    out["verify_seconds"] = time.perf_counter() - t0
+
+    def agree(ok: bool) -> bool:
+        flag = torch.tensor([int(ok)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return bool(flag.item())
+
+    t0 = time.perf_counter()
+    n = ANALYSIS_RING_N
+    plan = dft.SlabFFTPlan(dft.GlobalSize(n, n, n), dft.SlabPartition(RANKS),
+                           dft.Config(fft_backend="pallas",
+                                      send_method=dft.SendMethod.RING_OVERLAP,
+                                      **ANALYSIS_RING),
+                           sequence=ANALYSIS_RING_SEQ, device=dev)
+    out["ring"], out["ring_launches"] = analysis_profile(
+        torch, hf, plan, f"rank {rank} ring {n}^3", agree)
+    out["ring_seconds"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, f"analysis_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    multihost.shutdown()
+
+
+def analysis_phase(torch, dft, hf, multihost, dev, outdir):
+    """Phase 17 (``analysis_only()`` runs it alone): ``dfft-torch-verify
+    --fft-backend pallas`` on the card (its single-device combos, pins,
+    schedules and source lints), the stage profile of the 1024^3 slab
+    (kernels 1-3) and the 512^3 fused plan (kernels 6-8) in both
+    directions (in a fresh process, ``analysis_capture_main``),
+    ``dfft-torch-explain`` of the 1024^3 slab under "pallas"
+    (its contract line PASS), then two ranks sharing the card: the slab's
+    renderings verified and the 256^3 fused bf16 ring profiled. Prints
+    each node's ms, ideal ms and gap. Returns (launches, row)."""
+    import contextlib as _cl
+    import io
+    import torch.multiprocessing as tmp
+    from distributedfft_tpu_torch.analysis import verify
+    from distributedfft_tpu_torch.obs import explain
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    row, launches = {}, {}
+
+    t0 = time.perf_counter()
+    path = os.path.join(outdir, "verify_card.json")
+    buf = io.StringIO()
+    with _cl.redirect_stdout(buf):
+        rc = verify.main(["--fft-backend", "pallas", "--json", path])
+    with open(path) as f:
+        rep = json.load(f)
+    if rc != 0 or not rep["ok"]:
+        fail(f"dfft-torch-verify on the card: rc {rc}\n"
+             f"{buf.getvalue()[-3000:]}")
+    row["verify_card"] = dict(
+        combos=[{k: c[k] for k in ("family", "rendering", "contract",
+                                    "census", "kernels", "ok")}
+                for c in rep["combos"]],
+        pins=rep["pins"], sched=len(rep["sched"]), srclint=rep["srclint"],
+        seconds=time.perf_counter() - t0)
+    bad = [(c["family"], c["rendering"], c["kernels"])
+           for c in rep["combos"]
+           if set(c["kernels"]) != ANALYSIS_CARD_ENTRIES.get(
+               (c["family"], c["rendering"]))]
+    if bad or len(rep["combos"]) != len(ANALYSIS_CARD_ENTRIES):
+        fail(f"verify on the card: combos whose launches differ from "
+             f"their route's {ANALYSIS_CARD_ENTRIES}: {bad}")
+
+    row["profiles"] = {}
+    tmp.spawn(analysis_capture_main, args=(outdir,), nprocs=1, join=True)
+    with open(os.path.join(outdir, "analysis_capture.json")) as f:
+        captured = json.load(f)
+    for what, (shape, kernels) in ANALYSIS_PROFILES.items():
+        prof, got = captured[what]
+        used = {k for c in got.values() for k, v in c.items() if v}
+        if not set(kernels) <= used:
+            fail(f"{what}: launches {got}, expected {kernels}")
+        for d, counts in got.items():
+            launches[f"analysis_{what}_{d}"] = counts
+        row["profiles"][what] = prof
+        for d in ("forward", "inverse"):
+            for ln in prof[d]["lines"]:
+                print(f"stage_profile {what} {d}: {ln}", flush=True)
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with _cl.redirect_stdout(buf):
+        rc = explain.main(["--kind", "slab", "-nx", str(NBIG), "-ny",
+                           str(NBIG), "-nz", str(NBIG), "--fft-backend",
+                           "pallas"])
+    text = buf.getvalue()
+    contract = [ln for ln in text.splitlines() if "contract:" in ln]
+    if rc != 0 or not contract or "contract: PASS" not in contract[0]:
+        fail(f"dfft-torch-explain 1024^3: rc {rc}\n{text[-3000:]}")
+    row["explain"] = dict(contract=contract[0].strip(),
+                          census=[ln.strip() for ln in text.splitlines()
+                                  if ln.startswith("  all_to_all:")
+                                  or ln.startswith("  kernels:")],
+                          roofline=[ln.strip() for ln in text.split(
+                              "roofline (")[-1].splitlines()[1:]],
+                          seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tmp.spawn(analysis_rank_main, args=(multihost.local_coordinator(),
+                                        outdir),
+              nprocs=RANKS, join=True)
+    ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(outdir, f"analysis_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for rk in ranks:
+        bad = [c for c in rk["combos"] if not c["ok"]
+               or set(c["kernels"]) != analysis_expected(c)]
+        if bad or len(rk["combos"]) != 4 * len(ANALYSIS_RENDERINGS):
+            fail(f"rank {rk['rank']}: combos failed or launched other "
+                 f"entries than their route's: {bad}")
+        for d, counts in rk["ring_launches"].items():
+            launches[f"analysis_ring_{ANALYSIS_RING_N}_{d}_rank{rk['rank']}"
+                     ] = counts
+        used = {k for c in rk["ring_launches"].values() for k, v in
+                c.items() if v}
+        if not set(ANALYSIS_RING_KERNELS) <= used:
+            fail(f"rank {rk['rank']} ring: launches "
+                 f"{rk['ring_launches']}, expected {ANALYSIS_RING_KERNELS}")
+    r0 = ranks[0]
+    for d in ("forward", "inverse"):
+        for ln in r0["ring"][d]["lines"]:
+            print(f"stage_profile ring_{ANALYSIS_RING_N}_rank0 {d}: {ln}",
+                  flush=True)
+    row["ranks"] = dict(
+        combos=len(r0["combos"]),
+        per_rank=[{k: rk[k] for k in ("rank", "ring", "verify_seconds",
+                                      "ring_seconds")} for rk in ranks],
+        kernels_by_combo={f"{c['rendering']}/{c['wire']}/{c['direction']}":
+                          c["kernels"] for c in r0["combos"]},
+        census_by_combo={f"{c['rendering']}/{c['wire']}/{c['direction']}":
+                         c["census"] for c in r0["combos"]},
+        seconds=time.perf_counter() - t0)
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(phase="analysis", **row)
+    return launches, row
+
+
+def analysis_only() -> int:
+    """Build the kernels and run phase 17 alone:
+    ``python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.analysis_only())"``."""
+    import torch
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.ops import _build
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.parallel import multihost
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit(phase="device", name=torch.cuda.get_device_name(0),
+         nvidia_smi=subprocess.run(
+             ["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"], capture_output=True, text=True,
+             check=True, timeout=60).stdout.strip())
+    t0 = time.perf_counter()
+    _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
+    emit(phase="build", seconds=time.perf_counter() - t0)
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    launches, _ = analysis_phase(torch, dft, hf, multihost,
+                                 torch.device("cuda"), outdir)
+    emit(phase="analysis_only", launches=launches)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6510,6 +6844,10 @@ def main() -> int:
 
     # -- 8j. evaluation and launch --------------------------------------------
     evalkit_phase(torch, outdir, plan_times)
+
+    # -- 8k. static analysis, the stage profile, explain ----------------------
+    got, _ = analysis_phase(torch, dft, hf, multihost, dev, outdir)
+    launches.update(got)
 
     # -- 9. the kernels line, the card, the result ---------------------------
     def total_launches(name):

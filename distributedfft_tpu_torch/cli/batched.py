@@ -23,7 +23,7 @@ import argparse
 import sys
 
 from .common import (add_common_args, config_kwargs, maybe_autotune_comm,
-                     refuse_later_items, run, run_testcase, setup_backend)
+                     run, run_testcase, setup_backend)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,7 +47,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_later_items(args)
     if args.testcase == 4:
         print("testcase 4 (3D Laplacian) is not defined for the batched-2D "
               "plan; use testcases 0-3", file=sys.stderr)

@@ -18,10 +18,9 @@ notices and a metrics snapshot, ``--obs-dir`` writes the event log.
 by measurement when the plan is built, through the wisdom store of
 ``--wisdom`` / ``$DFFT_WISDOM`` (``--no-wisdom``: none);
 ``--autotune-comm`` races the comm matrix first, prints it and runs (and
-records) the winner. A flag whose feature the port does not have yet
-raises ``NotImplementedError`` naming its ROADMAP Queue 1 item whenever
-it is given a value other than its default (``refuse_later_items``);
-none is ignored.
+records) the winner. ``--profile-stages`` ends the run with the stage
+profile of the plan's forward direction (``print_stage_profile``: device
+ms per declared plan-graph node beside its H100 ideal).
 """
 
 from __future__ import annotations
@@ -40,13 +39,6 @@ from .. import obs
 from .. import params as pm
 from ..ops.fft import BACKENDS
 from ..parallel import multihost
-
-# The ROADMAP Queue 1 items whose flags still raise (items keep their
-# numbers once done: 1-11 and 13-15 run, item 12's host core and first
-# part: --obs, --obs-dir, --profile-dir).
-LATER_ITEMS = {
-    12: "ROADMAP Queue 1, item 12's rest (the stage profile's graph join)",
-}
 
 # Seconds a collective of an emulated (spawned, CPU) world waits before it
 # fails: a rank that died leaves the others waiting on it.
@@ -176,16 +168,6 @@ def add_common_args(ap: argparse.ArgumentParser, pencil: bool = False,
                          "built on the device")
 
 
-def refuse_later_items(args) -> None:
-    """Raise ``NotImplementedError`` for the first flag that asks for a
-    feature of a later ROADMAP item."""
-    for flag, item, on in (
-            ("--profile-stages", 12, args.profile_stages),):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet ({LATER_ITEMS[item]})")
-
-
 def maybe_autotune_comm(args, kind: str, global_size, partition, cfg,
                         sequence=None, dims: int = 3,
                         variant: Optional[str] = None,
@@ -265,6 +247,30 @@ def maybe_profile(args, device: "str | torch.device" = "cuda"):
                                      device)
 
 
+def print_stage_profile(plan, args, dims: Optional[int] = None) -> None:
+    """The ``--profile-stages`` epilogue (all four executables): a short
+    profiled window of the plan's forward direction, printed as device
+    time per declared plan-graph node with each stage's H100 ideal
+    (``obs/profile.stage_profile``), on rank 0. Collective: every rank
+    runs the window. A plan family with no declared graph prints why; a
+    kernel or collective that fails in the window raises, as it would in
+    the timed loop."""
+    if not getattr(args, "profile_stages", False):
+        return
+    from ..analysis.plangraph import MissingGraph
+    from ..testing.testcases import say
+
+    say("stage profile (measured device time per declared plan-graph "
+        "node):")
+    try:
+        prof = obs.profile.stage_profile(plan, "forward",
+                                         3 if dims is None else dims)
+    except MissingGraph as e:
+        say(f"  unavailable: {e}")
+        return
+    say("\n".join(obs.profile.format_stage_profile(prof)))
+
+
 def maybe_selftest(plan, args, dims: Optional[int] = None) -> bool:
     """--selftest: one roundtrip of the exact plan before the timed loop
     (``resilience/selftest.py``); False — abort with exit code 1 — on
@@ -342,6 +348,7 @@ def run_testcase(plan, args, dims: Optional[int] = None) -> int:
         tc.say(f"Run complete: {result['mean_ms']:.4f} ms "
                f"(mean over {args.iterations} iterations)")
     print_obs_snapshot(args)
+    print_stage_profile(plan, args, dims=dims)
     return 0
 
 

@@ -24,8 +24,7 @@ import argparse
 import sys
 
 from .common import (add_common_args, maybe_profile, print_obs_snapshot,
-                     refuse_later_items,
-                     run, setup_backend)
+                     print_stage_profile, run, setup_backend)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,7 +47,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_later_items(args)
     return run("distributedfft_tpu_torch.cli.reference", args, argv)
 
 
@@ -103,6 +101,10 @@ def _dispatch(args, shape, dtype, it, wu, device) -> int:
                                      backend=backend, device=device)
         say(f"Run complete: {ms:.4f} ms (single-device 3D R2C, "
             f"{shape[0]}x{shape[1]}x{shape[2]})")
+        if args.profile_stages:
+            say("stage profile: needs a declared plan graph — the "
+                "single-device baseline has none (use testcase 4 or a "
+                "decomposition executable)")
         return 0
     if args.testcase in (1, 2, 3):
         p = multihost.world()[1]
@@ -117,6 +119,10 @@ def _dispatch(args, shape, dtype, it, wu, device) -> int:
             f"[{kind}, {geometry}, {p} devices, {r['bytes'] / 1e6:.1f} MB "
             f"moved in "
             f"{r['seconds'] * 1e3:.3f} ms, collectives={r['collective_ops']}]")
+        if args.profile_stages:
+            say("stage profile: needs a declared plan graph — the "
+                "geometry probes have none (use testcase 4 or a "
+                "decomposition executable)")
         return 0
     if args.testcase == 4:
         return _fraction(args, shape, dtype, it, wu, device)
@@ -204,6 +210,7 @@ def _fraction(args, shape, dtype, it, wu, device) -> int:
         f"pipeline {r['pipe_gb_per_s']:.3f} GB/s vs ceiling "
         f"{r['raw_gb_per_s']:.3f} GB/s, k={r['k']}, "
         f"{p} devices]")
+    print_stage_profile(plan, args)
     return 0
 
 

@@ -17,7 +17,7 @@ import argparse
 import sys
 
 from .common import (add_common_args, config_kwargs, maybe_autotune_comm,
-                     refuse_later_items, run, run_testcase, setup_backend)
+                     run, run_testcase, setup_backend)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,7 +34,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_later_items(args)
     return run("distributedfft_tpu_torch.cli.slab", args, argv)
 
 

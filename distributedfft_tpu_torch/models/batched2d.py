@@ -512,3 +512,97 @@ class Batched2DFFTPlan(AxisBlocks):
         first, xpose, last = self._slab_parts(False)
         return [("1D FFT X-Direction", first), (self._xpose_desc(), xpose),
                 ("1D FFT Y-Direction", last)]
+
+
+# ---------------------------------------------------------------------------
+# contract and stage-graph declarations (analysis/contracts.py,
+# analysis/plangraph.py) — the exchange this family stages, next to the
+# code that stages it.
+# ---------------------------------------------------------------------------
+
+def _contract_exchanges(plan, direction, dims=2):
+    """Batched-2D: ``shard="x"`` stages one exchange (scatter spectral y,
+    gather x; STREAMS and the pipelined all-to-all cut the untouched batch
+    axis); ``shard="batch"`` and the single-device path are collective-free
+    by construction."""
+    del dims
+    if plan.fft3d or plan.shard == "batch":
+        return ()
+    from ..analysis import contracts as _c
+    cfg = plan.config
+    rendering = _c.rendering_name(cfg)
+    chunks = 1
+    subblocks = 1
+    if rendering == "streams" or (
+            rendering == "p2p" and cfg.send_method is pm.SendMethod.STREAMS):
+        chunks = min(cfg.resolved_streams_chunks(), plan._batch_pad)
+    elif rendering == "a2a_pipe":
+        chunks = ring_subblocks(plan._batch_pad,
+                                cfg.resolved_overlap_subblocks())
+    elif rendering in ("ring", "ring_overlap"):
+        p = plan.partition.num_ranks
+        ext = (plan._nx_pad // p if direction == "forward"
+               else plan._nys_pad // p)
+        subblocks = ring_subblocks(ext, cfg.resolved_overlap_subblocks())
+    return (_c.ExchangeDecl(
+        "transpose", (plan._batch_pad, plan._nx_pad, plan._nys_pad),
+        plan.partition.num_ranks, rendering, chunks,
+        subblocks=subblocks),)
+
+
+def _declare_graph(plan, direction, dims=2):
+    """Batched-2D stage graph: ``shard="x"`` is the 2D slab restriction —
+    per-plane y FFT -> exchange -> per-plane x FFT (encode/decode under a
+    compressed wire; the fused wire's unpack-only arrival); ``shard=
+    "batch"`` and the single-device path are one collective-free 2D FFT
+    node. Guard at check/enforce."""
+    del dims
+    from ..analysis import plangraph as _pg
+    cfg = plan.config
+    cdt, rdt = _pg.payload_dtypes(cfg, plan.transform)
+    fwd = direction == "forward"
+    b = _pg.GraphBuilder("batched2d", direction, wire=cfg.wire_dtype,
+                         guards=plan._guard_mode, complex_dtype=cdt)
+    in_shape = plan.input_padded_shape if fwd else plan.output_padded_shape
+    out_shape = plan.output_padded_shape if fwd else plan.input_padded_shape
+    in_dtype, out_dtype = (rdt, cdt) if fwd else (cdt, rdt)
+    if plan.fft3d:
+        x_spec = y_spec = ""
+    elif plan.shard == "batch":
+        x_spec = y_spec = _pg.split_spec(0)
+    else:
+        x_spec, y_spec = _pg.split_spec(1), _pg.split_spec(2)
+    in_spec, out_spec = (x_spec, y_spec) if fwd else (y_spec, x_spec)
+    b.node("input")
+    b.payload(in_shape, in_dtype, in_spec)
+    if plan.fft3d or plan.shard == "batch":
+        b.node("local_fft", axes=(2, 1) if fwd else (1, 2),
+               label="2D FFT per plane")
+        b.payload(out_shape, out_dtype, out_spec)
+    else:
+        (decl,) = _contract_exchanges(plan, direction)
+        b.node("local_fft", axes=(2,) if fwd else (1,), label="stage 1")
+        depth = _pg.shipped_schedule_depth(decl.rendering, cfg)
+        fused = cfg.fused_wire_active()
+        b.exchange(decl.label, decl.payload_shape, decl.axis_size,
+                   decl.rendering, chunks=decl.chunks,
+                   subblocks=decl.subblocks,
+                   schedule_depth=depth, decoded_spec=out_spec,
+                   fused_encode=fused,
+                   decode_fuses=("decode",) if fused else None)
+        b.node("local_fft", axes=(1,) if fwd else (2,), label="stage 2")
+        b.payload(out_shape, out_dtype, out_spec)
+    if plan._guard_mode != "off":
+        b.node("guard")
+    b.node("output")
+    return b.graph()
+
+
+def _register_contracts():
+    from ..analysis import contracts as _c
+    from ..analysis import plangraph as _pg
+    _c.register_family("batched2d", "Batched2DFFTPlan", _contract_exchanges)
+    _pg.register_graph_family("batched2d", _declare_graph)
+
+
+_register_contracts()

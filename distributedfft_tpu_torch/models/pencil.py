@@ -65,7 +65,8 @@ from ..ops import fft as lf
 from ..ops import hopper_fft as hf
 from ..parallel.mesh import make_pencil_groups
 from ..parallel.transpose import (concat_axis_chunks, exchange_body,
-                                  pad_axis_to, ring_transpose, slice_axis_to,
+                                  pad_axis_to, ring_subblocks,
+                                  ring_transpose, slice_axis_to,
                                   split_axis_chunks)
 from ..utils.native_planner import even_shard_sizes, padded_extent
 from ..resilience import fallback, guards
@@ -725,3 +726,145 @@ def _all_gather(t: torch.Tensor, group, axis: int) -> torch.Tensor:
     else:
         dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=axis)
+
+
+# ---------------------------------------------------------------------------
+# contract and stage-graph declarations (analysis/contracts.py,
+# analysis/plangraph.py) — the exchanges this family stages at each
+# partial-transform depth, next to the code that stages them.
+# ---------------------------------------------------------------------------
+
+def _stage_spec(plan, stage: int) -> str:
+    """How stage ``stage``'s pencils lie over (p1, p2) (``_SPLIT``)."""
+    if plan.fft3d:
+        return ""
+    from ..analysis import plangraph as _pg
+    a1, a2 = _SPLIT[stage]
+    return _pg.split_spec((a1, "p1"), (a2, "p2"))
+
+
+def _pieces(cfg, snd, rendering: str, sub: int, free_ext: int) -> int:
+    """The resolved piece count of one transpose: STREAMS' pieces (under
+    PEER2PEER too: the port posts each piece's messages) and the
+    pipelined all-to-all's, both clamped to the free axis's extent."""
+    if rendering == "streams" or (rendering == "p2p"
+                                  and snd is pm.SendMethod.STREAMS):
+        return min(cfg.resolved_streams_chunks(), free_ext)
+    if rendering == "a2a_pipe":
+        return ring_subblocks(free_ext, sub)
+    return 1
+
+
+def _contract_exchanges(plan, direction, dims=3):
+    """Pencil: transpose 1 over p2 (scatter z, gather y; free axis x) from
+    dims >= 2, transpose 2 over p1 (scatter y, gather x; free axis z) from
+    dims >= 3, each only when its group has more than one rank. Payloads
+    are the padded spectral volumes both transposes move. Only the ring
+    sub-block split depends on ``direction`` (the concat axis flips)."""
+    if plan.fft3d:
+        return ()
+    from ..analysis import contracts as _c
+    cfg = plan.config
+    fwd = direction == "forward"
+    sub = cfg.resolved_overlap_subblocks()
+    out = []
+    if dims >= 2 and plan.p2 > 1:
+        r1 = _c.rendering_name(cfg)
+        k1 = _pieces(cfg, cfg.send_method, r1, sub, plan._nx_p1 // plan.p1)
+        s1 = 1
+        if r1 in ("ring", "ring_overlap"):
+            ext = (plan._ny_p2 // plan.p2 if fwd
+                   else plan._nzc_p2 // plan.p2)
+            s1 = ring_subblocks(ext, sub)
+        out.append(_c.ExchangeDecl(
+            "transpose 1", (plan._nx_p1, plan._ny_p2, plan._nzc_p2),
+            plan.p2, r1, k1, subblocks=s1))
+    if dims >= 3 and plan.p1 > 1:
+        r2 = _c.rendering_name(cfg, second=True)
+        k2 = _pieces(cfg, cfg.resolved_snd2(), r2, sub,
+                     plan._nzc_p2 // plan.p2)
+        s2 = 1
+        if r2 in ("ring", "ring_overlap"):
+            ext = (plan._nx_p1 // plan.p1 if fwd
+                   else plan._ny_p1 // plan.p1)
+            s2 = ring_subblocks(ext, sub)
+        out.append(_c.ExchangeDecl(
+            "transpose 2", (plan._nx_p1, plan._ny_p1, plan._nzc_p2),
+            plan.p1, r2, k2, subblocks=s2))
+    return tuple(out)
+
+
+def _declare_graph(plan, direction, dims=3):
+    """Pencil stage graph: z FFT -> transpose 1 (p2 group, from dims >= 2
+    when p2 > 1) -> y FFT -> transpose 2 (p1 group, from dims >= 3 when
+    p1 > 1) -> x FFT, mirrored for the inverse; encode/decode around each
+    compressed exchange (the fused wire's unpack-only arrival: every
+    post-transpose FFT runs along the gathered axis); guard at modes
+    check/enforce."""
+    from ..analysis import plangraph as _pg
+    cfg = plan.config
+    cdt, rdt = _pg.payload_dtypes(cfg, plan.transform)
+    fwd = direction == "forward"
+    b = _pg.GraphBuilder("pencil", direction, wire=cfg.wire_dtype,
+                         guards=plan._guard_mode, complex_dtype=cdt)
+    decls = {d.label: d for d in _contract_exchanges(plan, direction, dims)}
+
+    def add_exchange(label, spec_after, second=False):
+        d = decls.get(label)
+        if d is None:
+            return
+        fused = cfg.fused_wire_active(second)
+        b.exchange(d.label, d.payload_shape, d.axis_size, d.rendering,
+                   chunks=d.chunks, subblocks=d.subblocks,
+                   schedule_depth=_pg.shipped_schedule_depth(d.rendering,
+                                                             cfg),
+                   decoded_spec=spec_after, fused_encode=fused,
+                   decode_fuses=("decode",) if fused else None)
+
+    out_spec = _stage_spec(plan, dims)
+    if fwd:
+        b.node("input")
+        b.payload(plan.input_padded_shape, rdt, _stage_spec(plan, 1))
+        if plan.fft3d:
+            b.node("local_fft", axes=tuple((2, 1, 0)[:dims]),
+                   label="fft3d")
+        else:
+            b.node("local_fft", axes=(2,), label="z stage")
+            if dims >= 2:
+                add_exchange("transpose 1", _stage_spec(plan, 2))
+                b.node("local_fft", axes=(1,), label="y stage")
+            if dims >= 3:
+                add_exchange("transpose 2", _stage_spec(plan, 3),
+                             second=True)
+                b.node("local_fft", axes=(0,), label="x stage")
+        b.payload(plan.output_padded_shape_for(dims), cdt, out_spec)
+    else:
+        b.node("input")
+        b.payload(plan.output_padded_shape_for(dims), cdt, out_spec)
+        if plan.fft3d:
+            b.node("local_fft", axes=tuple(reversed((2, 1, 0)[:dims])),
+                   label="fft3d")
+        else:
+            if dims >= 3:
+                b.node("local_fft", axes=(0,), label="x stage")
+                add_exchange("transpose 2", _stage_spec(plan, 2),
+                             second=True)
+            if dims >= 2:
+                b.node("local_fft", axes=(1,), label="y stage")
+                add_exchange("transpose 1", _stage_spec(plan, 1))
+            b.node("local_fft", axes=(2,), label="z stage")
+        b.payload(plan.input_padded_shape, rdt, _stage_spec(plan, 1))
+    if plan._guard_mode != "off":
+        b.node("guard")
+    b.node("output")
+    return b.graph()
+
+
+def _register_contracts():
+    from ..analysis import contracts as _c
+    from ..analysis import plangraph as _pg
+    _c.register_family("pencil", "PencilFFTPlan", _contract_exchanges)
+    _pg.register_graph_family("pencil", _declare_graph)
+
+
+_register_contracts()

@@ -718,3 +718,115 @@ class SlabFFTPlan(DistFFTPlan, AxisBlocks):
         first, xpose, last = self._inv_parts()
         d1, d2 = self._stage_descs()
         return [(d2, first), (self._xpose_desc(), xpose), (d1, last)]
+
+
+# ---------------------------------------------------------------------------
+# contract and stage-graph declarations (analysis/contracts.py,
+# analysis/plangraph.py) — the exchange this family stages, declared next
+# to the code that stages it so the verifier and the pipeline cannot
+# drift apart.
+# ---------------------------------------------------------------------------
+
+def _spec(plan, output: bool) -> str:
+    """The split of a padded global array over the plan's ranks, as a
+    spec string: the x-slab input, the split-axis output."""
+    if plan.fft3d:
+        return ""
+    from ..analysis import plangraph as _pg
+    return _pg.split_spec(plan._seq.split_axis if output else 0)
+
+
+def _contract_exchanges(plan, direction, dims=3):
+    """Slab: one symmetric global exchange per direction (scatter the
+    sequence's split axis, gather x), payload = the padded spectral volume
+    with x padded to the ranks. The single-device path stages none. Only
+    the ring sub-block split depends on ``direction`` (the concat axis
+    flips with it); STREAMS under PEER2PEER declares its K pieces (the
+    port posts each piece's messages)."""
+    del dims
+    if plan.fft3d:
+        return ()
+    from ..analysis import contracts as _c
+    cfg = plan.config
+    rendering = _c.rendering_name(cfg)
+    payload = list(plan.output_padded_shape)
+    payload[0] = plan._nx_pad
+    chunks = 1
+    subblocks = 1
+    if rendering == "streams" or (
+            rendering == "p2p" and cfg.send_method is pm.SendMethod.STREAMS):
+        ca = plan._streams_chunk_axis()
+        chunks = min(cfg.resolved_streams_chunks(), payload[ca])
+    elif rendering == "a2a_pipe":
+        chunks = plan._a2a_pipe_chunks()
+    elif rendering in ("ring", "ring_overlap"):
+        c = 0 if direction == "forward" else plan._seq.split_axis
+        subblocks = ring_subblocks(payload[c] // plan._P,
+                                   cfg.resolved_overlap_subblocks())
+    return (_c.ExchangeDecl("transpose", tuple(payload), plan._P, rendering,
+                            chunks, subblocks=subblocks),)
+
+
+def _declare_graph(plan, direction, dims=3):
+    """Slab stage graph: stage-1 local FFTs (the sequence's R2C axis + pre
+    axes) -> one symmetric exchange (encode/decode around it under a
+    compressed wire; the fused wire kernels when ``Config.fused_wire`` is
+    active) -> stage-2 local FFTs (post axes) -> guard (modes
+    check/enforce). The single-device path is one local-FFT node."""
+    from ..analysis import plangraph as _pg
+    cfg = plan.config
+    c2c = plan.transform == "c2c"
+    cdt, rdt = _pg.payload_dtypes(cfg, plan.transform)
+    fwd = direction == "forward"
+    b = _pg.GraphBuilder("slab", direction, wire=cfg.wire_dtype,
+                         guards=plan._guard_mode, complex_dtype=cdt)
+    in_shape = plan.input_padded_shape if fwd else plan.output_padded_shape
+    out_shape = plan.output_padded_shape if fwd else plan.input_padded_shape
+    in_dtype, out_dtype = (rdt, cdt) if fwd else (cdt, rdt)
+    b.node("input")
+    b.payload(in_shape, in_dtype, _spec(plan, not fwd))
+    if plan.fft3d:
+        b.node("local_fft", axes=(2, 1, 0) if fwd else (0, 1, 2),
+               label="fft3d")
+        b.payload(out_shape, out_dtype, "")
+    else:
+        s = plan._seq
+        (decl,) = _contract_exchanges(plan, direction, dims)
+        if fwd:
+            stage1 = (s.r2c_axis,) + s.pre_axes
+            stage2 = s.post_axes
+            pipe_axes = tuple(a for a in s.post_axes if a != 0)
+        else:
+            stage1 = tuple(reversed(s.post_axes))
+            stage2 = tuple(reversed(s.pre_axes)) + (s.r2c_axis,)
+            pipe_axes = tuple(a for a in reversed(s.pre_axes)
+                              if a != s.split_axis)
+            if c2c and s.r2c_axis != s.split_axis:
+                pipe_axes += (s.r2c_axis,)
+        b.node("local_fft", axes=stage1, label="stage 1")
+        depth = _pg.shipped_schedule_depth(decl.rendering, cfg)
+        fused = cfg.fused_wire_active()
+        spec_after = _spec(plan, fwd)
+        b.exchange(decl.label, decl.payload_shape, decl.axis_size,
+                   decl.rendering, chunks=decl.chunks,
+                   subblocks=decl.subblocks,
+                   schedule_depth=depth, decoded_spec=spec_after,
+                   fused_encode=fused,
+                   decode_fuses=(("decode", "fft") if pipe_axes
+                                 else ("decode",)) if fused else None)
+        b.node("local_fft", axes=stage2, label="stage 2")
+        b.payload(out_shape, out_dtype, spec_after)
+    if plan._guard_mode != "off":
+        b.node("guard")
+    b.node("output")
+    return b.graph()
+
+
+def _register_contracts():
+    from ..analysis import contracts as _c
+    from ..analysis import plangraph as _pg
+    _c.register_family("slab", "SlabFFTPlan", _contract_exchanges)
+    _pg.register_graph_family("slab", _declare_graph)
+
+
+_register_contracts()

@@ -20,10 +20,9 @@ package's ``obs/``: spans, metrics and the flight recorder.
   reader for ``torch.profiler``'s chrome traces (and the JAX package's
   xplane files), and ``capture_stage_profile``, which runs one direction
   of a live plan under ``torch.profiler`` and charges its device time to
-  those scopes (``profile.py``).
-
-The JAX package's ``explain`` and the graph join of ``profile``
-(``stage_profile``) are not ported yet (ROADMAP Queue 1, item 12's rest).
+  those scopes, and ``stage_profile``, which joins that time onto the
+  declared plan graph with each stage's H100 ideal (``profile.py``).
+* ``dfft-torch-explain`` — resolved-plan diagnostics (``explain.py``).
 """
 
 from . import flightrec, metrics, profile, promexp

@@ -1,6 +1,6 @@
 """Stage-attributed device profiling of the port: where the device time
-of one plan execution goes, by declared plan-graph node — the first part
-of the JAX package's ``obs/profile.py``.
+of one plan execution goes, by declared plan-graph node — the JAX
+package's ``obs/profile.py``.
 
 1. **Scope emission** — the plan families wrap each declared graph
    node's work in ``torch.profiler.record_function("dfft/<family>/<node-id>")``
@@ -32,9 +32,15 @@ of the JAX package's ``obs/profile.py``.
    idle share of a capture (``capture_window`` profiles any block, a
    served drive for instance).
 
-The graph join (``stage_profile``: per-node rows, the roofline gap of
-each stage) needs the plan-graph IR and the roofline model, which are
-ROADMAP Queue 1 item 16 and 15; it raises, naming item 12's rest.
+4. **Graph join** — ``stage_profile`` resolves the declared graph
+   (``analysis/plangraph.graph_for``), captures one direction, and gives
+   one row per declared node: its device ms, its share of the direction,
+   and for a local-FFT stage its H100 ideal ms (``evalkit/roofline.py``'s
+   bound rule: the FFT-nominal work over 67 TFLOP/s against the stage's
+   bytes over 3.35 TB/s, this rank's share) and the gap (measured over
+   ideal); plus the exchange/compute split and the time no scope covers.
+   ``format_stage_profile`` prints it (``--profile-stages``,
+   ``dfft-torch-explain --profile``).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import contextlib
 import glob
 import gzip
 import json
+import math
 import os
 import re
 import tempfile
@@ -59,14 +66,6 @@ ENV_NO_SCOPES = "DFFT_NO_STAGE_SCOPES"
 SCOPE_RE = re.compile(r"dfft/([A-Za-z0-9_.-]+/[A-Za-z0-9_.:-]+)")
 
 _SCOPES_FORCED_OFF = [False]
-
-# The later items the rest of the JAX module waits for.
-LATER = ("ROADMAP Queue 1, item 12's rest (stage_profile and "
-         "--profile-stages: the plan-graph join, after items 15 and 16)")
-
-# Plan class -> the JAX package's graph family name of its scopes.
-_FAMILIES = {"SlabFFTPlan": "slab", "PencilFFTPlan": "pencil",
-             "Batched2DFFTPlan": "batched2d"}
 
 
 def scopes_enabled() -> bool:
@@ -103,11 +102,14 @@ def scope_name(family: str, node_id: str) -> str:
 
 
 def scope_family(plan: Any) -> str:
-    """The family a plan's scopes are named under: the JAX package's
-    graph family (``slab``, ``pencil``, ``batched2d``), else the class
-    name in lower case."""
-    name = type(plan).__name__
-    return _FAMILIES.get(name, name.lower())
+    """The family a plan's scopes are named under: its registered contract
+    family (``analysis/contracts.family_of``: ``slab``, ``pencil``,
+    ``batched2d``), else the class name in lower case."""
+    from ..analysis import contracts
+    try:
+        return contracts.family_of(plan)
+    except KeyError:
+        return type(plan).__name__.lower()
 
 
 def stage_scope(family: str, node_id: str):
@@ -858,8 +860,180 @@ def maybe_profile(profile_dir: Optional[str], device: Any = "cuda"):
         yield win
 
 
-def stage_profile(*args: Any, **kwargs: Any) -> Dict[str, Any]:
-    """The joined per-node report of the JAX package (device time per
-    declared node, the exchange/compute split, each stage's roofline
-    gap): it needs the plan-graph IR and the roofline model."""
-    raise NotImplementedError(f"stage_profile is not ported yet ({LATER})")
+# ---------------------------------------------------------------------------
+# graph join
+# ---------------------------------------------------------------------------
+
+def node_scope_key(graph: Any, node: Any) -> Optional[str]:
+    """The aggregation key one declared node's device time lands under
+    (None = the node runs nothing attributable: input/output). Unlike the
+    JAX package, a Peer2Peer exchange has a key: the port posts its
+    messages under the node's scope."""
+    if node.kind in ("input", "output"):
+        return None
+    if node.kind in ("exchange", "local_fft", "guard"):
+        return f"{graph.family}/{node.id}"
+    if node.encodes():
+        return "wire/encode"
+    if node.decodes():
+        return "wire/decode"
+    return None
+
+
+def _edge_bytes(edge: Any) -> int:
+    """The bytes of a graph edge's global payload."""
+    import torch
+    dtype = getattr(torch, str(edge.dtype).replace("torch.", ""))
+    return math.prod(int(s) for s in edge.shape) * dtype.itemsize
+
+
+def node_ideal(graph: Any, node: Any, ranks: int
+               ) -> Optional[Tuple[float, str]]:
+    """``(ideal ms, "operations" | "bytes")`` of one local-FFT stage on
+    one rank: ``evalkit/roofline.py``'s bound rule over this rank's share
+    of the stage's FFT-nominal work (axis by axis in application order:
+    5 n log2 n a complex row, 2.5 n log2 n on the halved axis, whose
+    extents differ between the stage's input and output) and of its
+    bytes (its input edge read once, its output edge written once).
+    Exchanges have no ideal (communication is not modelled: their
+    measured time is the gap)."""
+    if node.kind != "local_fft" or not node.axes:
+        return None
+    from ..evalkit import roofline as rl
+    ins, outs = graph.in_edges(node.id), graph.out_edges(node.id)
+    if not ins or not outs:
+        return None
+    cur = [int(s) for s in ins[0].shape]
+    end = [int(s) for s in outs[0].shape]
+    flops = 0.0
+    for a in node.axes:
+        if not 0 <= a < len(cur) or len(end) != len(cur):
+            return None
+        rows = math.prod(cur) // max(1, cur[a])
+        halved = cur[a] != end[a]
+        n = max(cur[a], end[a]) if halved else cur[a]
+        if n > 1:
+            flops += rl.fft_flops(rows, n, real=halved)
+        cur[a] = end[a]
+    nbytes = _edge_bytes(ins[0]) + _edge_bytes(outs[0])
+    r = max(1, int(ranks))
+    ms, by = rl.bound(flops / r, nbytes / r)
+    return float(f"{ms:.4g}"), by
+
+
+def stage_profile(plan: Any, direction: str = "forward", dims: int = 3,
+                  iters: int = 3, warmup: int = 1,
+                  capture: Optional[Dict[str, Any]] = None
+                  ) -> Dict[str, Any]:
+    """The joined stage-attribution report: capture one direction (or take
+    ``capture``, a ``capture_stage_profile`` result), resolve the declared
+    graph, and emit one row per declared node — device ms per iteration,
+    its share of the direction's total, and for a local-FFT stage the H100
+    ideal ms (``node_ideal``) and the gap — plus the exchange/compute
+    split, the unattributed remainder and the capture's device activity
+    (busy ms, idle share). Times are this rank's; on the CPU (no device
+    plane) the rows carry the ideal but no gap. Collective on a plan
+    over P ranks: every rank calls it."""
+    from ..analysis import plangraph
+
+    graph = plangraph.graph_for(plan, direction, dims)
+    agg = capture if capture is not None else capture_stage_profile(
+        plan, direction, dims, iters=iters, warmup=warmup)
+    scopes = dict(agg["scopes"])
+    total = float(agg["total_ms"]) or 1e-12
+    ranks = int(plan.partition.num_ranks)
+    on_device = any(str(p).startswith("/device:")
+                    for p in agg.get("planes", []))
+    # Nodes sharing one scope key (two encodes of a two-exchange pencil
+    # both land in "wire/encode") split that key's time evenly.
+    keys: Dict[str, List[Any]] = {}
+    for n in graph.nodes:
+        k = node_scope_key(graph, n)
+        if k is not None:
+            keys.setdefault(k, []).append(n)
+    rows: List[Dict[str, Any]] = []
+    consumed: Dict[str, float] = {}
+    exchange_ms = 0.0
+    compute_ms = 0.0
+    for n in graph.nodes:
+        k = node_scope_key(graph, n)
+        share = None
+        if k is not None:
+            t = scopes.get(k, 0.0)
+            share = t / len(keys[k])
+            consumed[k] = t
+        ms = round(share, 6) if share is not None else 0.0
+        row: Dict[str, Any] = {
+            "node": n.id, "kind": n.kind,
+            "label": n.label or plangraph._node_brief(n),
+            "device_ms": ms,
+            "fraction": round(ms / total, 4),
+        }
+        if k is not None:
+            row["attributed"] = k in scopes
+        if k is not None and len(keys[k]) > 1:
+            row["approx"] = True
+        ideal = node_ideal(graph, n, ranks)
+        if ideal is not None:
+            row["ideal_ms"], row["bound_by"] = ideal
+            # The gap is a device measure: none for a capture on the CPU.
+            if on_device and ms > 0 and ideal[0] > 0:
+                row["gap_x"] = float(f"{ms / ideal[0]:.3g}")
+        if n.kind in ("exchange", "encode", "decode", "fused_kernel"):
+            exchange_ms += ms
+        elif n.kind in ("local_fft", "guard"):
+            compute_ms += ms
+        rows.append(row)
+    other = {k: v for k, v in scopes.items() if k not in consumed}
+    attributed = sum(consumed.values())
+    out = {
+        "family": graph.family,
+        "direction": direction,
+        "iters": agg.get("iters", iters),
+        "ranks": ranks,
+        "total_ms": round(total, 6),
+        "attributed_ms": round(attributed, 6),
+        "unattributed_ms": round(
+            float(agg["unattributed_ms"]) + sum(other.values()), 6),
+        "exchange_ms": round(exchange_ms, 6),
+        "compute_ms": round(compute_ms, 6),
+        "exchange_fraction": round(exchange_ms / total, 4),
+        "stages": rows,
+        "other_scopes": other,
+        "planes": agg.get("planes", []),
+    }
+    for k in ("busy_ms", "kernel_busy_ms", "window_ms", "idle_share",
+              "kernel_idle_share", "kernel_events", "port_kernel_events"):
+        if k in agg:
+            out[k] = agg[k]
+    return out
+
+
+def format_stage_profile(prof: Dict[str, Any]) -> List[str]:
+    """Human-readable stage table (``--profile-stages`` and
+    ``dfft-torch-explain --profile``)."""
+    idle = prof.get("idle_share")
+    lines = [
+        f"  {prof['family']}/{prof['direction']}: total "
+        f"{prof['total_ms']:.3f} ms/iter over {prof['iters']} iter(s) — "
+        f"exchange {prof['exchange_ms']:.3f} ms "
+        f"({prof['exchange_fraction']:.0%}), compute "
+        f"{prof['compute_ms']:.3f} ms, unattributed "
+        f"{prof['unattributed_ms']:.3f} ms"
+        + (f", device idle {idle:.1%}" if idle is not None else "")]
+    for row in prof["stages"]:
+        if row["kind"] in ("input", "output"):
+            continue
+        extra = ""
+        if "ideal_ms" in row:
+            extra = f"  ideal {row['ideal_ms']:.4g} ms ({row['bound_by']})"
+            if "gap_x" in row:
+                extra += f" (gap {row['gap_x']:g}x)"
+        if row.get("approx"):
+            extra += "  [shared scope, split evenly]"
+        lines.append(
+            f"  {row['node']:<16} {row['device_ms']:>10.3f} ms  "
+            f"{row['fraction']:>6.1%}{extra}")
+    for k, v in sorted(prof["other_scopes"].items()):
+        lines.append(f"  (other scope {k}: {v:.3f} ms)")
+    return lines

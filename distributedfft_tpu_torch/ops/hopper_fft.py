@@ -100,6 +100,11 @@ LAUNCHES: Dict[str, int] = {
 # ``reset_launches()``.
 ENTRIES: Dict[str, int] = {}
 
+# Callables ``hook(kernel, entry, args)`` that ``_launch`` calls before each
+# launch (the op recorder of ``analysis/opscan.py``: a ctypes launch is not
+# a dispatched op). Empty unless a recorder is active.
+LAUNCH_HOOKS: list = []
+
 # Entry points: library (csrc/<name>.cu), (pointer arguments, int
 # arguments[, 64-bit int arguments]).
 _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
@@ -563,6 +568,8 @@ def _launch(kernel: str, fn: str, *args) -> None:
     """Launch ``kernel`` through entry point ``fn`` of a csrc/*.cu library on
     the current stream and count it in ``LAUNCHES[kernel]``: tensors go as
     data pointers, None as a null pointer, ints as ints."""
+    for hook in LAUNCH_HOOKS:
+        hook(kernel, fn, args)
     name = _ENTRIES[fn][0]
     lib = _build.load(name, {f: sig for f, (lib_name, sig) in _ENTRIES.items()
                              if lib_name == name})

@@ -261,10 +261,14 @@ def _agrees(plan) -> bool:
 
 def _any_rank_failed(plan, failed: bool) -> bool:
     """One-element MAX all-reduce of this rank's failure flag over the
-    plan's group (the pencil's: the world)."""
-    flag = torch.tensor([int(failed)], dtype=torch.int32, device=plan.device)
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=plan.group)
-    return bool(flag.item())
+    plan's group (the pencil's: the world), under its own stage scope
+    (``dfft/resilience/agree``): a rank waits here for the slowest, and a
+    stage profile names that wait instead of leaving it unattributed."""
+    with obs.profile.stage_scope("resilience", "agree"):
+        flag = torch.tensor([int(failed)], dtype=torch.int32,
+                            device=plan.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=plan.group)
+        return bool(flag.item())
 
 
 def execute(plan, direction: str, x, get_runner, dims: int = 3):

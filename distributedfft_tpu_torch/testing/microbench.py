@@ -4,8 +4,11 @@ FFT baseline, a global transpose's bandwidth in the reference's 1D, 2D
 and 3D exchange geometries, the pure all-to-all's bandwidth
 (``wire_bandwidth``), the slab transpose's fraction of that ceiling
 (``transpose_fraction_chain``, reference testcase 4), the wire layer's
-accuracy metric (``max_rel_err``) and the pieces of the matmul backend's
-four-step (``matmul_fourstep_ms``).
+accuracy metric (``max_rel_err``), the pieces of the matmul backend's
+four-step (``matmul_fourstep_ms``), and the op-trace evidence of what an
+exchange ran (``async_collective_counts``, ``wire_probe``), with the
+race of the monolithic exchange against its split renderings
+(``overlap_race``).
 
 On a CUDA device the single-device transform is timed with CUDA events;
 what spans ranks with the host clock, each rank ending on its own
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..analysis.opscan import collective_census, record
 from ..ops import fft as lf
 from ..parallel.transpose import (_a2a_dim0, all_to_all_transpose,
                                   exchange_body, peer_to_peer_transpose,
@@ -221,14 +225,21 @@ def matmul_fourstep_ms(rows: int = 65536, iterations: int = 5,
             for k, fn in cases.items()}
 
 
-def wire_bandwidth(shape, p: int, iterations: int = 10, warmup: int = 2,
-                   dtype=np.float32, windows: int = 1, group=None,
-                   device: "str | torch.device" = "cuda") -> Dict:
-    """The PURE all-to-all's bandwidth over the ``p`` ranks of ``group``:
-    each rank's block of a global ``shape`` of ones, its leading axis cut
-    into ``p`` pieces exchanged with no relayout (split == concat): the
-    collective ceiling the fraction chain gates against. The best of
-    ``windows`` timing windows."""
+# Instance counts of the collectives in a recorded op trace
+# (``analysis.opscan.record``), sync and asynchronous forms apart: the
+# JAX package's name for the count it reads off a compiled module.
+async_collective_counts = collective_census
+
+
+def wire_probe(shape, p: int, dtype=np.float32, group=None,
+               device: "str | torch.device" = "cuda"):
+    """The PURE all-to-all exchange (split == concat, no relayout) of this
+    rank's block of a global ``shape`` of ones over the ``p`` ranks of
+    ``group``, recorded once; returns ``(time_window, info)``:
+    ``time_window(iterations, warmup)`` times one window of it (seconds,
+    ``_time_fn``) and ``info`` carries the exchanged bytes and the
+    collectives the recorded run issued. Callers interleave windows with
+    other measurements. Every rank calls both."""
     world = dist.get_world_size(group) if dist.is_initialized() else 1
     if p != world:
         raise ValueError(f"the probe runs over all {world} ranks, got p={p}")
@@ -242,11 +253,137 @@ def wire_bandwidth(shape, p: int, iterations: int = 10, warmup: int = 2,
     def run(v):
         return _a2a_dim0(v, group) if p > 1 else v
 
-    dt = min(_time_fn(run, x, iterations, warmup)
-             for _ in range(max(1, windows)))
+    counts = async_collective_counts(record(run, x))
     nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
-    return {"seconds": dt, "bytes": nbytes, "gb_per_s": nbytes / dt / 1e9,
-            "collective_ops": ["all_to_all_single"] if p > 1 else []}
+    info = {"bytes": nbytes,
+            "collective_ops": sorted(k for k, v in counts.items()
+                                     if v and k not in ("async_total",
+                                                        "convert"))}
+
+    def time_window(iterations: int = 10, warmup: int = 2) -> float:
+        return _time_fn(run, x, iterations, warmup)
+
+    return time_window, info
+
+
+def wire_bandwidth(shape, p: int, iterations: int = 10, warmup: int = 2,
+                   dtype=np.float32, windows: int = 1, group=None,
+                   device: "str | torch.device" = "cuda") -> Dict:
+    """The PURE all-to-all's bandwidth (``wire_probe``): the collective
+    ceiling the fraction chain gates against. The best of ``windows``
+    timing windows (a noisy window must not drag the ceiling down)."""
+    time_window, info = wire_probe(shape, p, dtype, group, device)
+    dt = min(time_window(iterations, warmup) for _ in range(max(1, windows)))
+    return {"seconds": dt, **info, "gb_per_s": info["bytes"] / dt / 1e9}
+
+
+def overlap_race(global_shape, p: int, chunk_counts=(2, 4), k: int = 4,
+                 repeats: int = 5, iterations: int = 3, warmup: int = 1,
+                 backend: str = "xla", sequence: str = "ZY_Then_X",
+                 comm: str = "All2All", opt: int = 1,
+                 include_ring: bool = True,
+                 device: "str | torch.device" = "cuda") -> Dict:
+    """Race the monolithic slab pipeline (``SendMethod.SYNC``, one
+    collective per transpose) against STREAMS (K independent piece chains)
+    and, with ``include_ring``, the RING and RING_OVERLAP renderings (P-1
+    point-to-point steps with per-block FFTs between them): does splitting
+    the exchange buy compute/communication overlap? (The question the
+    reference answers with its Streams engine,
+    ``src/slab/default/mpicufft_slab.cpp:343-448``.)
+
+    Each variant times a k-chained forward+inverse roundtrip of the plan's
+    pure pipelines as the ``(t_K - t_1)/(K-1)`` pair difference
+    (``testing/chaintimer.py``'s contract), every variant inside the same
+    repeat so drift hits them alike; a repeat whose "sync" sample is
+    nonpositive is dropped for every variant. Each variant also carries
+    ``async_collective_counts`` of one recorded roundtrip: the
+    asynchronous ``all_to_all_start`` of the pipelined renderings, the
+    ``send``/``recv`` pairs of the rings. Every rank of the world calls
+    it (the plans span all ``p`` ranks); times are this rank's."""
+    from .. import params as pm
+    from ..models.slab import SlabFFTPlan
+    from .chaintimer import _fence
+
+    if k < 2:
+        raise ValueError(f"overlap_race needs k >= 2 for the (t_K - t_1)"
+                         f"/(K-1) pair difference, got {k}")
+    g = pm.GlobalSize(*global_shape)
+    scale = 1.0 / float(g.n_total)
+    variants = [("sync", None)] + [(f"streams{c}", c) for c in chunk_counts]
+    if include_ring:
+        variants += [("ring", None), ("ring-overlap", None)]
+    fns, counts = {}, {}
+    for name, chunks in variants:
+        snd = (pm.SendMethod.RING if name == "ring"
+               else pm.SendMethod.RING_OVERLAP if name == "ring-overlap"
+               else pm.SendMethod.SYNC if chunks is None
+               else pm.SendMethod.STREAMS)
+        cfg = pm.Config(comm_method=pm.CommMethod.parse(comm),
+                        send_method=snd, streams_chunks=chunks,
+                        fft_backend=backend, opt=opt, use_wisdom=False)
+        plan = SlabFFTPlan(g, pm.SlabPartition(p), cfg, sequence=sequence,
+                           device=device)
+        fwd, inv = plan.forward_fn(), plan.inverse_fn()
+
+        def chain(kk, fwd=fwd, inv=inv):
+            def run(v):
+                with torch.no_grad():
+                    for _ in range(kk):
+                        v = inv(fwd(v)) * scale
+                return v.abs().sum()
+            return run
+
+        gen = torch.Generator(device=plan.device).manual_seed(0)
+        x = torch.rand(plan.local_input_shape, generator=gen,
+                       device=plan.device, dtype=plan.real_dtype)
+        f1, fK = chain(1), chain(k)
+        counts[name] = async_collective_counts(record(f1, x))
+        _fence(fK(x))
+        fns[name] = (f1, fK, x)
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    def timed(f, x) -> float:
+        for _ in range(warmup):
+            _fence(f(x))
+        t0 = time.perf_counter()
+        for _ in range(iterations):
+            _fence(f(x))
+        return (time.perf_counter() - t0) / iterations
+
+    times = {name: [] for name, _ in variants}
+    for _ in range(repeats):
+        per = {}
+        for name in times:
+            f1, fK, x = fns[name]
+            per[name] = (timed(fK, x) - timed(f1, x)) / (k - 1)
+        if per.get("sync", 0.0) <= 0:
+            continue
+        for name, d in per.items():
+            if d > 0:
+                times[name].append(d)
+    out = {"shape": list(global_shape), "p": p, "k": k, "repeats": repeats,
+           "backend": backend, "sequence": sequence, "comm": comm,
+           "opt": opt, "device": str(torch.device(device)), "variants": {}}
+    for name in times:
+        ts = sorted(times[name])
+        rec = {"ops": counts[name]}
+        if ts:
+            rec["per_iter_ms"] = round(med(ts) * 1e3, 3)
+            rec["spread_ms"] = [round(ts[0] * 1e3, 3),
+                                round(ts[-1] * 1e3, 3)]
+        else:
+            rec["degenerate"] = True
+        out["variants"][name] = rec
+    timed_ms = {n: v["per_iter_ms"] for n, v in out["variants"].items()
+                if "per_iter_ms" in v}
+    if timed_ms:
+        best = min(timed_ms, key=timed_ms.get)
+        out["winner"] = best
+        if "sync" in timed_ms and timed_ms["sync"] > 0:
+            out["best_vs_sync"] = round(timed_ms["sync"] / timed_ms[best], 4)
+    return out
 
 
 def transpose_fraction_chain(plan, spec_val, k: int = 8, repeats: int = 5,

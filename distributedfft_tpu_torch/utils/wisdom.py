@@ -59,7 +59,7 @@ from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 try:
     from .. import obs
-    from ..ops._build import KernelError
+    from ..ops._build import KernelError  # srclint: allow(host-only-jnp)
 except ImportError:
     # Standalone load (the advisory-lock tests exec this file without the
     # package): observability degrades to no-ops.

@@ -54,13 +54,14 @@ RENDERINGS = {
     "f64-pallas": (["-d", "--fft-backend", "pallas"], 1e-10),
     "matmul": (["--fft-backend", "matmul"], 5e-4),
 }
-# Flags of a later ROADMAP item: (executable, flags, the item named).
-# ``--profile-dir`` runs since item 12's first part
-# (tests/test_torch_profile.py).
+# Flags of the stage profile's graph join, which raised until it was ported:
+# (executable, flags, a line the run now prints). ``--profile-stages``
+# ends the run with the stage profile (the reference executable's
+# testcase 0 has no plan graph and says so).
 LATER = [
-    ("slab", ["--profile-stages", "-t", "1"], "item 12"),
-    ("slab", ["--profile-stages"], "item 12"),
-    ("reference", ["--profile-stages"], "item 12"),
+    ("slab", ["--profile-stages", "-t", "1"], "  local_fft:1 "),
+    ("slab", ["--profile-stages"], "  local_fft:1 "),
+    ("reference", ["--profile-stages"], "needs a declared plan graph"),
 ]
 # Flags of ROADMAP item 11 (autotune and wisdom), which raised until it was
 # ported: (executable, flags, a line the run prints). Each now runs.
@@ -191,12 +192,21 @@ def test_flag_surface_matches_jax(name):
     assert _surface(mine.build_parser()) == _surface(theirs.build_parser())
 
 
-@pytest.mark.parametrize("exe,flags,item", LATER,
+@pytest.mark.parametrize("exe,flags,line", LATER,
                          ids=[f"{e}{''.join(f)}" for e, f, _ in LATER])
-def test_later_item_flags_raise_naming_their_item(exe, flags, item):
+def test_later_item_flags_raise_naming_their_item(tmp_path, monkeypatch,
+                                                   exe, flags, line):
+    """The flags that raised before the graph join was ported now run
+    and print the stage profile (name kept from when they raised)."""
+    monkeypatch.chdir(tmp_path)
     main = tslab.main if exe == "slab" else tref.main
-    with pytest.raises(NotImplementedError, match=item):
-        main(SIZE + flags + ["--emulate-devices", "1"])
+    argv = SIZE + flags + ["--emulate-devices", "1"]
+    if exe == "slab":
+        argv += ["-b", str(tmp_path / "b")]
+    rc, text = _run(main, argv)
+    assert rc == 0
+    assert any(ln.startswith(line) or line in ln
+               for ln in text.splitlines()), text
 
 
 @pytest.mark.parametrize("exe,flags,line", ITEM11,

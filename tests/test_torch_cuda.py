@@ -1183,3 +1183,44 @@ def test_capture_charges_ctypes_kernels_to_their_scopes(cuda):
     assert prof["scopes"].get("slab/local_fft:1", 0) > 0
     assert prof["scopes"]["slab/local_fft:1"] >= 0.5 * prof["total_ms"]
     assert 0 <= prof["idle_share"] < 1
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 64), (128, 64, 1024)])
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_op_recorder_sees_every_launch(cuda, shape, direction):
+    """A "pallas" direction recorded by ``analysis.opscan``: one
+    ``kernel.<entry>`` op per launch, entry for entry the launches the
+    wrapper counted (the fused path at 64^3, the per-axis path with a
+    1024-point axis), in the order they ran."""
+    from distributedfft_tpu_torch.analysis import opscan
+    plan = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                           dft.Config(fft_backend="pallas"), device=cuda)
+    opscan.record_plan(plan, direction)      # built and warm
+    before = dict(hf.ENTRIES)
+    trace = opscan.record_plan(plan, direction)
+    counted = {k: v - before.get(k, 0) for k, v in hf.ENTRIES.items()
+               if v != before.get(k, 0)}
+    assert counted and trace.kernels() == counted
+    assert hf.LAUNCH_HOOKS == []
+
+
+def test_verify_plan_on_the_card(cuda):
+    """The contract, the declared graph and the op lints of a 64^3
+    single-card slab under "pallas", both directions: no collective, no
+    bfloat16 tensor, every declared node scoped, every launch recorded."""
+    from distributedfft_tpu_torch.analysis import (contracts, oplint,
+                                                   plangraph, verify)
+    plan = dft.SlabFFTPlan(dft.GlobalSize(64, 64, 64), dft.SlabPartition(1),
+                           dft.Config(fft_backend="pallas"), device=cuda)
+    for d in ("forward", "inverse"):
+        assert contracts.verify_plan(plan, d) == []
+        assert plangraph.verify_graph(plan, d) == []
+        assert oplint.lint_plan(plan, d) == []
+    row = verify.run_combo(dict(family="slab", rendering="none",
+                                sequence="ZY_Then_X", wire="native",
+                                guards="off", direction="forward",
+                                single=True), 1, cuda, "pallas")
+    assert row["ok"], row["violations"]
+    # the 16^3 single-device plan: kernel 6's split entries and kernel 7's
+    assert set(row["kernels"]) == {"dfft_zy_rows", "dfft_zy_cols",
+                                   "dfft_zy_planes", "dfft_x_cols"}

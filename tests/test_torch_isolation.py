@@ -42,7 +42,9 @@ def test_import_pulls_in_no_jax():
         "persist.checkpoint", "persist.policy", "persist.state",
         "obs.promexp", "obs.profile", "serve", "serve.cli",
         "serve.plancache", "serve.resident", "serve.router", "serve.server",
-        "solvers.driver")
+        "solvers.driver", "analysis", "analysis.contracts", "analysis.opscan",
+        "analysis.oplint", "analysis.plangraph", "analysis.schedverify",
+        "analysis.srclint", "analysis.verify", "obs.explain")
     } <= set(MODULES)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -207,7 +207,7 @@ def test_wire_bandwidth_pure_exchange(world):
     for r in range(P):
         w = _result(world, r, "wire")
         assert w["ok"]["gb_per_s"] > 0 and w["ok"]["seconds"] > 0
-        assert w["ok"]["collective_ops"] == ["all_to_all_single"]
+        assert w["ok"]["collective_ops"] == ["all_to_all"]
         assert w["ok"]["bytes"] == 64 * 16 * 16 * 4
         assert "wire probe" in w["bad"]
 

@@ -75,10 +75,9 @@ for _r, _flags in RENDER.items():
 # The reference executable's geometries over the world.
 REFS = {f"t{t}-o{o}": _S16 + ["-t", str(t), "-o", str(o), "-i", "2"]
         for t in (1, 2, 3) for o in (0, 1)}
-# Flags of a later ROADMAP item: (flags, the item named).
-# ``--profile-dir`` runs since item 12's first part
-# (tests/test_torch_profile.py).
-LATER = [(["--profile-stages"], "item 12")]
+# Flags of the stage profile's graph join, which raised until it was ported:
+# (flags, a line the run now prints).
+LATER = [(["--profile-stages"], "  local_fft:1 ")]
 # Flags of ROADMAP items 9 and 11 and item 12's host core, which raised
 # until they were ported; each now runs.
 FORMER = [["--guards", "check"], ["--selftest"], ["--obs"],
@@ -323,11 +322,18 @@ def test_flag_surface_matches_jax():
     assert _surface(tpencil.build_parser()) == _surface(build_parser())
 
 
-@pytest.mark.parametrize("flags,item", LATER,
+@pytest.mark.parametrize("flags,line", LATER,
                          ids=["".join(f) for f, _ in LATER])
-def test_later_item_flags_raise_naming_their_item(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tpencil.main(_S16 + GRID + flags + ["--emulate-devices", "1"])
+def test_later_item_flags_raise_naming_their_item(tmp_path, monkeypatch,
+                                                   flags, line):
+    """The flag that raised before the graph join was ported now runs and
+    prints the stage profile of the one-rank pencil plan (name kept from
+    when it raised)."""
+    monkeypatch.chdir(tmp_path)
+    rc, text = _run(tpencil.main, _S16 + ["-t", "3", "-p1", "1", "-p2", "1",
+                                          "-b", str(tmp_path)] + flags
+                    + ["--emulate-devices", "1"])
+    assert rc == 0 and line in text, text
 
 
 @pytest.mark.parametrize("flags", FORMER, ids=["".join(f) for f in FORMER])
