@@ -21,12 +21,17 @@ once, before any rank is spawned) and then, under
    its output geometries; the 4-point row body it replaced), of the
    batched 64 x 4096 x 4096 stack (the 8-point short stage of y and x,
    kernel 4's column body on x), the fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan
-   over four ranks (9 and 10 bit for bit, NaN and Inf included); kernels
-   3, 4, 5, 6, 7, 8 and 11 also on their other body (dense or tile) at a
-   shape whose axes are not powers of two;
+   over four ranks (9 and 10 bit for bit, NaN and Inf included); kernel
+   6 at (512, 480, 480) and kernel 4 at n2 = 320 (n1 = 2) and 480 (n1 = 9,
+   the 8 x 4320^2 plan's x axis) on the row FFT engine's mixed-radix
+   kernel; kernels 1, 2, 3, 4, 5, 6, 7, 8 and 11 also on their other body
+   (dense or tile) at a shape whose axes are not powers of two (kernel 6
+   at 448, kernel 4 at n2 = 448, kernels 1-3 at 480);
 2. runs a small cube against numpy, then the single-card slab plan at
-   512^3 (fused kernels), at 1024^3 (per-axis kernels 1, 2 and 3, every
-   axis one launch of the row FFT engine, y and x where they lie) and at
+   512^3 (fused kernels) and at 480^3 (kernel 6 on the mixed-radix
+   engine, kernels 7 and 8 dense), at 1024^3 (per-axis kernels 1, 2 and
+   3, every axis one launch of the row FFT engine, y and x where they
+   lie) and at
    2048 x 256 x 2048 (x and z split four-step, 4 x 512: kernels 4, 5 and
    2, x where it lies): ``exec_r2c`` then
    ``exec_c2r``, checked against ``torch.fft`` and the input, with the
@@ -79,13 +84,14 @@ once, before any rank is spawned) and then, under
    ranks sharing the card over gloo (two sub-groups each): at 1024^3 the
    reference's default exchange (Peer2Peer + Sync) and the all-to-all at
    opt 1, each rank's block against torch.fft.rfftn (the ranks draw the
-   reference in turn) with the exchange time of each transpose, the wire
-   bytes and the peak memory; at 512^3 every rendering of
+   reference in turn) with the exchange time of each transpose (one run
+   after a warm-up each), the wire bytes and the peak memory; at 512^3
+   every rendering of
    ``PENCIL_PATHS`` (Peer2Peer, the all-to-all at opt 0 and 1, mixed
    comm methods, the pipelined all-to-all, STREAMS under both, the rings,
    the bf16 wire with and without the fused wire of kernels 9 and 10,
    depths 1 and 2), bit for bit the monolithic all-to-all; and the
-   executables: ``dfft-torch-pencil`` testcases 3 and 0 at 1024^3 for
+   executables: ``dfft-torch-pencil`` testcases 3 and 0 at 512^3 for
    both exchanges and ``dfft-torch-reference`` testcases 2 and 3 (the 2D
    and 3D geometries) at 512^3.
 
@@ -369,12 +375,14 @@ def bound(flops: float, nbytes: float):
 
 
 # Kernels whose body is a pure function of their shape: the row FFT engine
-# or the dense tile loop (hopper_fft._fft_body of the row length; for
-# kernels 2 and 3 on rows of at most 16 points the row path of stage.cu's
-# launch; kernels 2 and 4 on columns, shape (outer, n, inner), the column
-# kernel, "cols", or for kernel 2 on 2..16 points the short-stage kernel,
-# "short"), or, for kernels 6, 7 and 8, the engine or the dense kernel
-# (hopper_fft._zy_body, hopper_fft._x_body).
+# or the dense tile loop (hopper_fft._fft_body of the row length, and for
+# kernel 4 hopper_fft._cdft_tw_body, which adds the engine's mixed-radix
+# kernel at 5-smooth lengths; for kernels 2 and 3 on rows of at most 16
+# points the row path of stage.cu's launch; kernels 2 and 4 on columns,
+# shape (outer, n, inner), the column kernel, "cols", or for kernel 2 on
+# 2..16 points the short-stage kernel, "short"), or, for kernels 6, 7 and
+# 8, the engine or the dense kernel (hopper_fft._zy_fwd_body for kernel 6,
+# hopper_fft._x_body, hopper_fft._zy_body for kernel 8).
 ROUTED = ("rmatmul", "cmatmul", "c2r", "rmatmul_tw", "dec_cmatmul",
           "cmatmul_tw", "zy_fwd", "x_c2c", "yz_inv")
 
@@ -406,7 +414,9 @@ def body_of(hf, k) -> str:
     row names another), else the one body the kernel has."""
     if k["name"] in ROUTED:
         sh = k["shape"]
-        if k["name"] in ("zy_fwd", "yz_inv"):
+        if k["name"] == "zy_fwd":
+            body = hf._zy_fwd_body(sh["Y"], sh["Z"])
+        elif k["name"] == "yz_inv":
             body = hf._zy_body(sh["Y"], sh["Z"])
         elif k["name"] == "x_c2c":
             body = hf._x_body(sh["X"])
@@ -414,6 +424,8 @@ def body_of(hf, k) -> str:
             body = "short" if hf._short_body(sh["n"]) else "none"
         elif "inner" in sh:
             body = "cols" if hf._fft_body(sh["n"]) == "fft" else "none"
+        elif k["name"] == "cmatmul_tw":
+            body = hf._cdft_tw_body(sh["n"])
         else:
             body = hf._fft_body(sh["n"])
             if body == "tile" and k["name"] in ("cmatmul", "c2r") \
@@ -457,20 +469,41 @@ def kernel_events(torch, hf):
 
 @contextlib.contextmanager
 def entry_counts(hf):
-    """Count the launches of each C entry point (so the body each kernel
-    ran) while the block runs; yields the dict. Measurement only: the
-    counts in ``LAUNCHES`` still rise in ``_launch``."""
+    """Count the launches of each (kernel, C entry point) pair while the
+    block runs: the body each kernel ran; yields the dict (``per_entry``
+    sums it by entry point). Measurement only: the counts in ``LAUNCHES``
+    still rise in ``_launch``."""
     orig, seen = hf._launch, {}
 
     def launch(kernel, fn, *args):
         orig(kernel, fn, *args)
-        seen[fn] = seen.get(fn, 0) + 1
+        seen[kernel, fn] = seen.get((kernel, fn), 0) + 1
 
     hf._launch = launch
     try:
         yield seen
     finally:
         hf._launch = orig
+
+
+def per_entry(pairs: dict) -> dict:
+    """``entry_counts``' launches summed by C entry point."""
+    out = {}
+    for (_, fn), v in pairs.items():
+        out[fn] = out.get(fn, 0) + v
+    return out
+
+
+def kernel4_on_the_engine(pairs: dict, what: str) -> dict:
+    """Fail unless kernel 4 ran its FFT body (``dfft_cdft_tw``: at a
+    5-smooth n2 the engine's mixed-radix kernel) and never its tile body
+    (``dfft_stage``); ``entry_counts``' pairs as "kernel/entry" ->
+    launches."""
+    named = {f"{k}/{e}": v for (k, e), v in sorted(pairs.items())}
+    if pairs.get(("cmatmul_tw", "dfft_stage")) or \
+            not pairs.get(("cmatmul_tw", "dfft_cdft_tw")):
+        fail(f"{what}: kernel 4 did not run on the engine alone: {named}")
+    return named
 
 
 def counted(hf):
@@ -508,7 +541,7 @@ def run_counted(torch, hf, plan, x, dims=None):
     with entry_counts(hf) as ent_i:
         back = inv_fn(c, **kw)
         torch.cuda.synchronize()
-    return c, back, fwd, counted(hf), ent_f, ent_i
+    return c, back, fwd, counted(hf), per_entry(ent_f), per_entry(ent_i)
 
 
 def kernel_share(torch, hf, fn, by_entry=False):
@@ -636,7 +669,7 @@ def rank_main(rank: int, addr: str, outdir: str) -> None:
             fail(f"two-rank plan wrong: {out}")
     del full, rt, ref
 
-    def wall_ms(fn, reps=5):
+    def wall_ms(fn, reps=3):
         """Median host wall time of fn on both ranks at once: both start
         after a barrier, each ends on its own synchronize."""
         fn()
@@ -888,7 +921,12 @@ PENCIL_DEPTHS = {
 }
 # The full-size pencil at 1024^3 over 2 x 2: the reference's default
 # exchange (Peer2Peer + Sync on both transposes) and the all-to-all at
-# opt 1: id -> (Config fields, executable flags).
+# opt 1: id -> (Config fields, executable flags). Each of its times is one
+# run after a warm-up (PENCIL_FULL_REPS), and the executable runs both
+# exchanges at PENCIL_CLI_N: the depth cuts that keep the whole script
+# within its time limit.
+PENCIL_FULL_REPS = 1
+PENCIL_CLI_N = N
 _PP = {"comm_method": "Peer2Peer"}
 PENCIL_FULL = {
     "p2p": (_PP, []),
@@ -1068,9 +1106,11 @@ def pencil_full(torch, dist, dft, hf, tr, rank: int):
                    forward_vs_torch_fft=f_rel, roundtrip_vs_input=rt_rel,
                    peak_memory_gb=peak,
                    forward_ms=barrier_ms(torch, dist,
-                                         lambda: plan.exec_r2c(xl)),
+                                         lambda: plan.exec_r2c(xl),
+                                         PENCIL_FULL_REPS),
                    inverse_ms=barrier_ms(torch, dist,
-                                         lambda: plan.exec_c2r(c)))
+                                         lambda: plan.exec_c2r(c),
+                                         PENCIL_FULL_REPS))
         # Each transpose alone, on the block the plan hands it, and the
         # bytes this rank sends over its group (two ranks: half the block).
         s, i = plan._fwd_ffts(3), plan._inv_ffts()
@@ -1078,8 +1118,10 @@ def pencil_full(torch, dist, dft, hf, tr, rank: int):
         t1 = plan._xpose(1, False)
         b = s[1](t1(a))
         t2 = plan._xpose(2, False)
-        ms = {"transpose1_forward": barrier_ms(torch, dist, lambda: t1(a)),
-              "transpose2_forward": barrier_ms(torch, dist, lambda: t2(b))}
+        ms = {"transpose1_forward": barrier_ms(torch, dist, lambda: t1(a),
+                                               PENCIL_FULL_REPS),
+              "transpose2_forward": barrier_ms(torch, dist, lambda: t2(b),
+                                               PENCIL_FULL_REPS)}
         sent = {"transpose1": a.numel() * a.element_size() // 2,
                 "transpose2": b.numel() * b.element_size() // 2}
         del a, b
@@ -1088,8 +1130,10 @@ def pencil_full(torch, dist, dft, hf, tr, rank: int):
         ib = i[2](t2b(ia))
         t1b = plan._xpose(1, True)
         ms.update(
-            transpose2_inverse=barrier_ms(torch, dist, lambda: t2b(ia)),
-            transpose1_inverse=barrier_ms(torch, dist, lambda: t1b(ib)))
+            transpose2_inverse=barrier_ms(torch, dist, lambda: t2b(ia),
+                                          PENCIL_FULL_REPS),
+            transpose1_inverse=barrier_ms(torch, dist, lambda: t1b(ib),
+                                          PENCIL_FULL_REPS))
         del ia, ib
         row.update(exchange_ms=ms, wire_bytes_per_rank=sent,
                    transport="gloo, staged through the host"
@@ -1198,8 +1242,8 @@ def csv_rank_means(bdir):
 
 
 def pencil_cli(torch, dist, dft, hf, rank: int, outdir: str):
-    """``dfft-torch-pencil`` at 1024^3 on 2 x 2 under "pallas", testcases
-    3 and 0, for each exchange of ``PENCIL_FULL``, and
+    """``dfft-torch-pencil`` at PENCIL_CLI_N^3 on 2 x 2 under "pallas",
+    testcases 3 and 0, for each exchange of ``PENCIL_FULL``, and
     ``dfft-torch-reference`` testcases 2 and 3 at 512^3 over the four
     ranks: launches and entry points against the plan's, testcase 3's
     result within TOL of N, each CSV's name, sections and per-rank means,
@@ -1213,7 +1257,8 @@ def pencil_cli(torch, dist, dft, hf, rank: int, outdir: str):
     for rid, (_, flags) in PENCIL_FULL.items():
         for tc, (args, blocks, k_f, k_i) in CLI_RANK_CASES.items():
             bdir = os.path.join(outdir, f"pencil_{rid}_t{tc}")
-            argv = ["-nx", str(NBIG), "-ny", str(NBIG), "-nz", str(NBIG),
+            n = PENCIL_CLI_N
+            argv = ["-nx", str(n), "-ny", str(n), "-nz", str(n),
                     "-p1", str(PENCIL_GRID[0]), "-p2", str(PENCIL_GRID[1]),
                     "--fft-backend", "pallas", "-b", bdir] + flags + args
             text, got, ent, secs = cli_run(torch, hf, cli_pencil.main, argv)
@@ -1222,12 +1267,12 @@ def pencil_cli(torch, dist, dft, hf, rank: int, outdir: str):
             if got != expect(hf, **want) or ent != ent_want:
                 fail(f"rank {rank} pencil {argv}: launches {got} (entries "
                      f"{ent}), expected {want} ({ent_want})")
-            out["launches"][f"cli_pencil_{rid}_{NBIG}_t{tc}"] = got
+            out["launches"][f"cli_pencil_{rid}_{n}_t{tc}"] = got
             row = dict(rendering=rid, testcase=tc, argv=argv, seconds=secs,
                        entries=ent)
             dist.barrier()      # rank 0 has written the CSV
             if rank == 0:
-                val, rel = cli_result(tc, text, NBIG ** 3, 0.0)
+                val, rel = cli_result(tc, text, n ** 3, 0.0)
                 if rel is not None and rel > TOL:
                     fail(f"pencil {argv}: {val} is {rel} of N")
                 name, run_ms, fused_ms = cli_csv(bdir, sections, blocks,
@@ -2009,6 +2054,8 @@ def stage_cases(torch, hf, dev, gen):
     k_r = N // 2 + 1
     kb = NBIG // 2 + 1
     k480 = 480 // 2 + 1
+    wb, wx, wy = WISDOM_BATCHED               # 8 x 4320^2: 4320 = 9 x 480
+    rows_4320 = wb * (wy // 2 + 1) * 9        # its x axis's first stage rows
     # Kernels 1, 2 and 3 take no F: rdft / cdft / irdft pick their body by
     # n (the FFT body at 512 and 1024, the row body at 4, the tile body at
     # 480). An FFT body's bytes count no DFT matrix.
@@ -2041,6 +2088,25 @@ def stage_cases(torch, hf, dev, gen):
              library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
              flops=fft_flops(rows_zyx, N), gemm_flops=8 * rows_zyx * N * N,
              bytes=16 * rows_zyx * N),
+        # Kernels 1 and 2's tile bodies at 480 points (no power of two),
+        # on a rank's z rows of the 512^3 two-rank plan.
+        dict(name="rmatmul", variant="tile_480", body="tile",
+             replaces=f"{PALLAS}:182", shape=dict(M=rows_r, n=480, k=k480),
+             make=lambda: dict(x=rr(rows_r, 480), F=planes("rdft", 480)),
+             run=lambda t: hf.rdft(t["x"]),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
+             library=lambda t: torch.fft.rfft(t["x"]), library_call="rfft",
+             flops=fft_flops(rows_r, 480, real=True),
+             gemm_flops=4 * rows_r * 480 * k480,
+             bytes=4 * rows_r * 480 + 8 * rows_r * k480 + 8 * 480 * k480),
+        dict(name="cmatmul", variant="tile_480", body="tile",
+             replaces=f"{PALLAS}:164", shape=dict(M=rows_r, n=480, k=480),
+             make=lambda: dict(x=cr(rows_r, 480), F=planes("dft", 480)),
+             run=lambda t: hf.cdft(t["x"], False),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
+             library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
+             flops=fft_flops(rows_r, 480), gemm_flops=8 * rows_r * 480 * 480,
+             bytes=16 * rows_r * 480 + 8 * 480 * 480),
         dict(name="cmatmul", variant="fft_1024", replaces=f"{PALLAS}:164",
              shape=dict(M=big_c, n=NBIG, k=NBIG),
              make=lambda: dict(x=cr(big_c, NBIG), F=planes("dft", NBIG)),
@@ -2129,8 +2195,10 @@ def stage_cases(torch, hf, dev, gen):
              gemm_flops=4 * rows_r * k480 * 480,
              bytes=8 * rows_r * k480 + 4 * rows_r * 480 + 8 * k480 * 480),
         # Kernel 4 takes no F: cdft_tw picks its body by n2 (the FFT body
-        # at 512, the 2048-point axis's 4 x 512; the tile body at 320, the
-        # 640-point axis's 2 x 320). "rows": torch.fft.fft of the same
+        # at 512, the 2048-point axis's 4 x 512, and, on the engine's
+        # mixed-radix kernel, at 320, the 640-point axis's 2 x 320, and at
+        # 480, the 4320-point axis's 9 x 480; the tile body at 448, an
+        # 896-point axis's 2 x 448). "rows": torch.fft.fft of the same
         # rows, the stage without its twiddle, the nearer yardstick beside
         # the whole axis.
         dict(name="cmatmul_tw", replaces=f"{PALLAS}:171",
@@ -2185,7 +2253,7 @@ def stage_cases(torch, hf, dev, gen):
              flops=fft_flops(bb * 8 * bys, bx // 8) + 6 * bb * bx * bys,
              gemm_flops=8 * bb * 8 * bys * (bx // 8) ** 2,
              bytes=16 * bb * bx * bys + 8 * bx),
-        dict(name="cmatmul_tw", variant="tile_n2_320", body="tile",
+        dict(name="cmatmul_tw", variant="fft_n2_320",
              replaces=f"{PALLAS}:171",
              shape=dict(M=rows_640c, n=320, k=320, n1=2),
              make=lambda: dict(x=cr(rows_640c, 320), F=planes("dft", 320),
@@ -2193,12 +2261,42 @@ def stage_cases(torch, hf, dev, gen):
                                z=cr(rows_640c // 2, 640)),
              run=lambda t: hf.cdft_tw(t["x"], 2, False),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
+             pair=lambda t: hf._fft_last(t["z"], False),
              rows=lambda t: torch.fft.fft(t["x"]),
              library=lambda t: torch.fft.fft(t["z"]),
              library_call="fft of the whole 640-point axis",
              flops=fft_flops(rows_640c, 320) + 6 * rows_640c * 320,
              gemm_flops=8 * rows_640c * 320 * 320,
-             bytes=16 * rows_640c * 320 + 8 * 320 * 320 + 8 * 2 * 320),
+             bytes=16 * rows_640c * 320 + 8 * 2 * 320),
+        dict(name="cmatmul_tw", variant="fft_n2_480_n1_9",
+             replaces=f"{PALLAS}:171",
+             shape=dict(M=rows_4320, n=480, k=480, n1=9),
+             make=lambda: dict(x=cr(rows_4320, 480), F=planes("dft", 480),
+                               T=hf._twiddle_planes(9, 480, False, dev),
+                               z=cr(rows_4320 // 9, wx)),
+             run=lambda t: hf.cdft_tw(t["x"], 9, False),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
+             pair=lambda t: hf._fft_last(t["z"], False),
+             rows=lambda t: torch.fft.fft(t["x"]),
+             library=lambda t: torch.fft.fft(t["z"]),
+             library_call="fft of the whole 4320-point axis",
+             flops=fft_flops(rows_4320, 480) + 6 * rows_4320 * 480,
+             gemm_flops=8 * rows_4320 * 480 * 480,
+             bytes=16 * rows_4320 * 480 + 8 * 9 * 480),
+        dict(name="cmatmul_tw", variant="tile_n2_448", body="tile",
+             replaces=f"{PALLAS}:171",
+             shape=dict(M=rows_640c, n=448, k=448, n1=2),
+             make=lambda: dict(x=cr(rows_640c, 448), F=planes("dft", 448),
+                               T=hf._twiddle_planes(2, 448, False, dev),
+                               z=cr(rows_640c // 2, 896)),
+             run=lambda t: hf.cdft_tw(t["x"], 2, False),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
+             rows=lambda t: torch.fft.fft(t["x"]),
+             library=lambda t: torch.fft.fft(t["z"]),
+             library_call="fft of the whole 896-point axis",
+             flops=fft_flops(rows_640c, 448) + 6 * rows_640c * 448,
+             gemm_flops=8 * rows_640c * 448 * 448,
+             bytes=16 * rows_640c * 448 + 8 * 448 * 448 + 8 * 2 * 448),
         # Kernel 5 takes no F: rdft_tw picks its body by n2 (the FFT body
         # at 512, the 2048-point axis's 4 x 512; the tile body at 320, the
         # 640-point axis's 2 x 320).
@@ -2321,6 +2419,66 @@ FUSED_PATH = (dict(zy_fwd=3, x_c2c=1), dict(x_c2c=1, yz_inv=3),
                "dfft_x_cols": 1},
               {"dfft_x_cols": 1, "dfft_yz_scratch": 1, "dfft_yz_cols": 1,
                "dfft_yz_rows": 1})
+
+# The 480^3 fused plan, per direction: launches and entry points. Kernel
+# 6's FFT body on the engine's mixed-radix kernel (480 = 12 x 10 x 4 on
+# both passes), kernels 7 and 8 on their dense bodies (no FFT body at 480
+# yet).
+FUSED_480 = (480, 480, 480)
+FUSED_480_PATH = (dict(zy_fwd=3, x_c2c=1), dict(x_c2c=1, yz_inv=1),
+                  {"dfft_zy_rows": 1, "dfft_zy_cols": 1, "dfft_zy_planes": 1,
+                   "dfft_x_c2c": 1},
+                  {"dfft_x_c2c": 1, "dfft_yz_inv": 1})
+
+
+def fused_480_path(torch, dft, hf, gen):
+    """The 480^3 single-card slab plan under "pallas" (0.44 GB): launches
+    and entry points per direction, the forward against torch.fft.rfftn
+    and the roundtrip against the input, each direction's ms beside
+    "xla"'s and rfftn's, and the forward's ms by entry point. Returns the
+    roundtrip's launches and the times."""
+    shape = FUSED_480
+    x = torch.randn(shape, generator=gen, device="cuda")
+    plan = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                           dft.Config(fft_backend="pallas"))
+    c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, x)
+    emit(phase="main_path", path="fused_480", shape=list(shape),
+         launches_forward=fwd, launches_inverse=inv, entries_forward=ent_f,
+         entries_inverse=ent_i)
+    want_f, want_i, ef, ei = FUSED_480_PATH
+    if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i) or \
+            ent_f != ef or ent_i != ei:
+        fail(f"fused_480 plan did not launch as expected: forward {fwd} "
+             f"(entries {ent_f}), inverse {inv} (entries {ent_i})")
+    if tuple(c.shape) != shape[:2] + (shape[2] // 2 + 1,) or \
+            not bool(torch.isfinite(c).all()) or \
+            not bool(torch.isfinite(back).all()):
+        fail(f"fused_480 outputs {tuple(c.shape)}, finite "
+             f"{bool(torch.isfinite(c).all())}")
+    _, fwd_rel = rel_err(c, torch.fft.rfftn(x))
+    _, rt_rel = rel_err(back / float(math.prod(shape)), x)
+    emit(phase="main_path_check", path="fused_480",
+         forward_vs_torch_fft=fwd_rel, roundtrip_vs_input=rt_rel, tol=TOL)
+    if not (fwd_rel <= TOL and rt_rel <= TOL):
+        fail(f"fused_480 plan wrong: forward rel {fwd_rel:.3e}, roundtrip "
+             f"rel {rt_rel:.3e} (tol {TOL})")
+    del back
+    xla = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
+                          dft.Config())
+    cx = xla.exec_r2c(x)
+    timed = dict(
+        path="fused_480", shape=list(shape),
+        pallas_forward_ms=median_ms(torch, lambda: plan.exec_r2c(x)),
+        pallas_inverse_ms=median_ms(torch, lambda: plan.exec_c2r(c)),
+        xla_forward_ms=median_ms(torch, lambda: xla.exec_r2c(x)),
+        xla_inverse_ms=median_ms(torch, lambda: xla.exec_c2r(cx)),
+        rfftn_ms=median_ms(torch, lambda: torch.fft.rfftn(x)),
+        forward_entry_ms=entry_ms(torch, hf, lambda: plan.exec_r2c(x)))
+    emit(phase="plan_time", **timed)
+    del x, c, cx, plan, xla
+    torch.cuda.empty_cache()
+    return {k: fwd[k] + inv[k] for k in fwd}, timed
+
 
 # The single-card per-axis paths under "pallas": id -> (shape, launches
 # forward, launches inverse, C entry points forward, inverse, the limits
@@ -2711,7 +2869,7 @@ def cli_run(torch, hf, main, argv):
     seconds = time.perf_counter() - t0
     if rc != 0:
         fail(f"{argv} exited with {rc}: {buf.getvalue()}")
-    return buf.getvalue(), counted(hf), dict(ent), seconds
+    return buf.getvalue(), counted(hf), per_entry(ent), seconds
 
 
 def printed(text: str, key: str) -> float:
@@ -3554,7 +3712,7 @@ def counted_call(torch, hf, fn):
     with entry_counts(hf) as ent:
         out = fn()
         torch.cuda.synchronize()
-    return out, counted(hf), ent
+    return out, counted(hf), per_entry(ent)
 
 
 def combine(a: dict, ka: int, b: dict, kb: int) -> dict:
@@ -3732,7 +3890,9 @@ def solver_convolve(torch, dft, hf, dev):
     "same", on the 64 x 4096^2 batched plan (kernels 2, 4 and 5); against
     the "xla" convolver and 16 direct float64 sums on the host; its time
     beside the plan's roundtrip; then a 5-smooth extent (4320 =
-    good_size(4096 + 225 - 1)), which takes the tile bodies."""
+    good_size(4096 + 225 - 1) = 9 x 480), whose first stages run kernel 4
+    on the engine's mixed-radix kernel (never its tile body) and kernel 5
+    on its tile body."""
     from distributedfft_tpu_torch.solvers import make_convolver
     b, n = CONV_IMAGES
     k = CONV_KERNEL
@@ -3783,8 +3943,12 @@ def solver_convolve(torch, dft, hf, dev):
     ker2 = np.random.default_rng(SEED + 2).random((sk, sk)).astype(np.float32)
     cvs = make_convolver(ker2, (sn, sn), batch=sb, mode="same",
                          config=dft.Config(fft_backend="pallas"))
-    outs, smooth_launches, smooth_ents = counted_call(torch, hf,
-                                                      lambda: cvs(img))
+    hf.reset_launches()
+    with entry_counts(hf) as seen:
+        outs = cvs(img)
+        torch.cuda.synchronize()
+    smooth_launches, smooth_ents = counted(hf), per_entry(seen)
+    smooth_pairs = kernel4_on_the_engine(seen, f"convolution at {sn}")
     smooth_ms = median_ms(torch, lambda: cvs(img), reps=REPS_BIG, warmup=1)
     sext = list(cvs.plan.input_shape)
     del cvs
@@ -3808,7 +3972,8 @@ def solver_convolve(torch, dft, hf, dev):
                peak_memory_gb=peak,
                smooth=dict(images=[sb, sn, sn], kernel=[sk, sk],
                            plan_shape=sext, launches=smooth_launches,
-                           entries=smooth_ents, vs_xla_rel=smooth_rel,
+                           entries=smooth_ents, kernel_entries=smooth_pairs,
+                           vs_xla_rel=smooth_rel,
                            call_ms=smooth_ms, xla_call_ms=smooth_xla_ms))
     emit(phase="solver", **row)
     return {f"conv_{b}x{n}": want,
@@ -4326,6 +4491,12 @@ def wisdom_batched(torch, dft, hf, obs, at, wisdom, dev, store):
     for be in ("pallas", "xla"):
         p = dft.Batched2DFFTPlan(b, nx, ny, dft.SlabPartition(1),
                                  dft.Config(fft_backend=be))
+        if be == "pallas":
+            with entry_counts(hf) as seen:
+                p.exec_inverse(p.exec_forward(x))
+                torch.cuda.synchronize()
+            row["pallas_kernel_entries"] = kernel4_on_the_engine(
+                seen, f"batched {b}x{nx}^2 under pallas")
         spec = p.exec_forward(x)
         plan_ms[be] = {
             "forward": median_ms(torch, lambda: p.exec_forward(x), reps=5),
@@ -4673,7 +4844,7 @@ def wisdom_only() -> int:
 
 SERVE_IMAGE = BATCHED[1:]       # BASELINE config #4's image: 4096^2
 SERVE_COALESCE = 8
-SERVE_DRIVE_S = 5.0             # each open-loop drive
+SERVE_DRIVE_S = 3.0             # each open-loop drive
 SERVE_IDLE_S = 2.0              # the drive profiled for the idle share
 SERVE_LOADS = (0.7, 1.5)        # x the throughput the warm batch implies
 SERVE_CAPTURE_TRIES = 3         # the tracer can lose kernel records: capture anew
@@ -5308,7 +5479,8 @@ def serve_phase(torch, dft, hf, multihost, dev, outdir):
             torch.cuda.synchronize()
         rows["prewarm"] = dict(built=built,
                                seconds=time.perf_counter() - t0,
-                               launches=counted(hf), entries=dict(ents))
+                               launches=counted(hf),
+                               entries=per_entry(ents))
         launches["serve_prewarm"] = rows["prewarm"]["launches"]
         emit(phase="serve_prewarm", **rows["prewarm"])
         got, rows["images"] = serve_images(torch, hf, s, dev)
@@ -6394,8 +6566,9 @@ def main() -> int:
                            dtype=torch.float32)
 
     x = randn(N, N, N)
-    x480 = randn(N, 480, 480)     # kernels 6 and 8's dense bodies (not
-    Z4 = 480 // 2 + 1             # powers of two)
+    x480 = randn(N, 480, 480)     # kernel 6 on the mixed-radix engine,
+    Z4 = 480 // 2 + 1             # kernel 8's dense body (not powers of two)
+    x448 = randn(N, 448, 448)     # kernel 6's dense body (448 = 2^6 7)
     pr480, pi480 = randn(N, 480, Z4), randn(N, 480, Z4)
     pr, pi = randn(N, N, Zo), randn(N, N, Zo)
     fzr, fzi = hf._planes("rdft", N, False, dev)
@@ -6411,6 +6584,9 @@ def main() -> int:
     X = Y = Z = N
     f480 = (hf._planes("rdft", 480, False, dev) + hf._planes("dft", 480, False,
                                                              dev))
+    f448 = (hf._planes("rdft", 448, False, dev) + hf._planes("dft", 448, False,
+                                                             dev))
+    Z8 = 448 // 2 + 1
     i480 = (hf._planes("dft", 480, True, dev) + hf._planes("c2r", 480, False,
                                                            dev))
     fused = [
@@ -6422,7 +6598,9 @@ def main() -> int:
              flops=fft_flops(X * Y, Z, real=True) + fft_flops(X * Zo, Y),
              gemm_flops=4 * X * Y * Z * Zo + 8 * X * Y * Y * Zo,
              bytes=4 * (X * Y * Z + 2 * X * Y * Zo)),
-        dict(name="zy_fwd", variant="dense_480", body="dense",
+        # Kernel 6 at 480 on the engine's mixed-radix kernel (its three
+        # passes), and its dense body at 448.
+        dict(name="zy_fwd", variant="fft_480",
              replaces=f"{PALLAS}:427",
              shape=dict(X=X, Y=480, Z=480),
              run=lambda: hf.zy_fwd(x480),
@@ -6430,8 +6608,17 @@ def main() -> int:
              library=lambda: torch.fft.rfft2(x480), library_call="rfft2",
              flops=fft_flops(X * 480, 480, real=True) + fft_flops(X * Z4, 480),
              gemm_flops=4 * X * 480 * 480 * Z4 + 8 * X * 480 * 480 * Z4,
-             bytes=4 * (X * 480 * 480 + 2 * 480 * Z4 + 2 * 480 * 480
-                        + 2 * X * 480 * Z4)),
+             bytes=4 * (X * 480 * 480 + 2 * X * 480 * Z4)),
+        dict(name="zy_fwd", variant="dense_448", body="dense",
+             replaces=f"{PALLAS}:427",
+             shape=dict(X=X, Y=448, Z=448),
+             run=lambda: hf.zy_fwd(x448),
+             plain=lambda: hf.zy_fwd_plain(x448, *f448),
+             library=lambda: torch.fft.rfft2(x448), library_call="rfft2",
+             flops=fft_flops(X * 448, 448, real=True) + fft_flops(X * Z8, 448),
+             gemm_flops=4 * X * 448 * 448 * Z8 + 8 * X * 448 * 448 * Z8,
+             bytes=4 * (X * 448 * 448 + 2 * 448 * Z8 + 2 * 448 * 448
+                        + 2 * X * 448 * Z8)),
         # Kernel 7 on each layout pair the fused plan launches: the
         # inverse's (the complex64 spectrum in, kernel 8's planes out) and
         # the forward's (kernel 6's planes in, the spectrum out); the dense
@@ -6570,9 +6757,13 @@ def main() -> int:
          **plan_times["fused_512"],
          forward_profile=device_profile(torch, lambda: plan.exec_r2c(x)),
          inverse_profile=device_profile(torch, lambda: plan.exec_c2r(cp)))
-    del x, x480, pr, pi, pc, pr480, pi480, pc480, xr480, xi480, cp, cx, plan, \
-        xla
+    del x, x480, x448, pr, pi, pc, pr480, pi480, pc480, xr480, xi480, cp, cx, \
+        plan, xla
     torch.cuda.empty_cache()
+
+    # -- 5b. the 480^3 fused plan: kernel 6 on the mixed-radix engine --------
+    launches["fused_480"], plan_times["fused_480"] = fused_480_path(
+        torch, dft, hf, gen)
 
     # -- 6. per-axis kernels 1-5: check against plain, then time -------------
     staged = stage_cases(torch, hf, dev, gen)
@@ -6688,7 +6879,7 @@ def main() -> int:
     emit(phase="main_path", path="distributed_512", ranks=RANKS,
          exchange="gloo, host-staged, 2 ranks on 1 card",
          seconds=time.perf_counter() - t0, per_rank=ranks)
-    # The exchange alone per direction (host wall clock, median of 5, both
+    # The exchange alone per direction (host wall clock, median of 3, both
     # ranks at once) and the bytes each rank sends: gloo over the host on
     # one card, which says nothing about NCCL across cards.
     for rk in ranks:

@@ -1,12 +1,24 @@
 // The row FFT engine for Hopper (sm_90a), shared by wire.cu (kernel 11),
 // stage.cu (kernels 1, 2, 3, 4 and 5) and fused3d.cu (kernels 6, 7 and 8):
 // the DFT of every row of a batch of power-of-two rows, 8 <= n <= 1024, in
-// shared memory and registers; and, on the same passes and twiddle table,
-// the column kernel (kernel 7, kernel 2 on a non-last axis, kernel 4 on a
-// non-last split axis), the DFT of every column of an (outer, n, inner)
-// array; and, on the column kernel's loader, the short-stage kernel (the
-// end of this file: kernel 2 on the 2..16-point second stage of a split
-// axis).
+// shared memory and registers; on the same design its mixed-radix kernel
+// (fft_mixed_kernel below), rows of the 55 5-smooth lengths 2^a 3^b 5^c in
+// [9, 500] that are not powers of two (kernel 4's rows; both passes of
+// kernel 6, powers of two beside them included); and, on the same passes
+// and twiddle table, the column kernel (kernel 7, kernel 2 on a non-last
+// axis, kernel 4 on a non-last split axis), the DFT of every column of an
+// (outer, n, inner) array; and, on the column kernel's loader, the
+// short-stage kernel (the end of this file: kernel 2 on the 2..16-point
+// second stage of a split axis).
+//
+// Which kernel runs which body (ops/hopper_fft.py): the power-of-two
+// kernel carries kernels 1, 2, 3, 5 and 11 (_fft_body), kernel 4 on a
+// power-of-two n2 (_cdft_tw_body) and kernels 6 and 8 when Y and Z are
+// both powers of two (_zy_body); the mixed-radix kernel carries kernel 4 on
+// a 5-smooth n2 and kernel 6 on 5-smooth Y and Z, Y even (_zy_fwd_body).
+// Every other length keeps its dense or tile body. The mixed-radix kernel
+// is one instantiation a Body (n and the radices are runtime values), so
+// it adds three kernels to the build, not one a length.
 //
 // It replaces the dense DFT product of nine Pallas TPU kernels of
 // distributedfft_tpu/ops/pallas_fft.py (_dec_cmatmul_kernel :737, kernel
@@ -36,7 +48,7 @@
 //   batch is many small pieces has every thread copy a share of them with
 //   16-byte cp.async instead, each thread arriving on the buffer's barrier
 //   once its own have landed.
-// - Stockham passes of radix 8 or 16 (the schedule of fft_plan in
+// - Stockham passes of radix 4, 8 or 16 (the schedule of fft_plan in
 //   ops/hopper_fft.py: ceil(log2 n / 4) passes, larger radices first, e.g.
 //   1024 = 16 * 8 * 8, 512 = 8 * 8 * 8). A thread holds RMAX points (the
 //   first radix) in registers and runs RMAX / r butterflies of each pass as
@@ -83,11 +95,14 @@ __host__ __device__ constexpr int bits_before(int L, int p) {
   return s;
 }
 
-// log2 of each radix in 4 bits, pass 0 in the lowest: what the wrapper
-// passes, from fft_plan(n, inverse).schedule.
+// Each radix in 5 bits, pass 0 in the lowest: what the wrapper passes,
+// from fft_plan(n, inverse).schedule (the mixed-radix kernel reads its
+// radices from the same packing, and the rows of a batch above them:
+// ops/hopper_fft.mixed_schedule, mixed_plan).
 __host__ __device__ constexpr int packed_schedule(int L) {
   int s = 0;
-  for (int p = num_passes(L) - 1; p >= 0; --p) s = s * 16 + pass_bits(L, p);
+  for (int p = num_passes(L) - 1; p >= 0; --p)
+    s = s * 32 + (1 << pass_bits(L, p));
   return s;
 }
 
@@ -123,6 +138,10 @@ __host__ __device__ constexpr float cos16(int m) {
 
 __host__ __device__ constexpr float sin16(int m) {
   return cos16(m >= 4 ? m - 4 : 4 - m);
+}
+
+__host__ __device__ constexpr int log2_of(int n) {
+  return n <= 1 ? 0 : 1 + log2_of(n / 2);
 }
 
 __host__ __device__ constexpr int bitrev(int i, int bits) {
@@ -298,6 +317,23 @@ __device__ __forceinline__ void copy16_async(void* dst, const void* src) {
                : "memory");
 }
 
+// bytes (a multiple of 4) from global src to shared dst, both 16-byte
+// aligned, counted in to bar, by the one issuing thread: the largest
+// multiple of 16 by one bulk copy, the last 4 to 12 bytes (where rows of
+// an odd length end a batch off a 16-byte boundary) by plain loads before
+// its arrive on bar, which releases those stores to the threads that wait
+// on it.
+__device__ __forceinline__ void bulk_load_tail(void* dst, const void* src,
+                                               uint32_t bytes, uint64_t* bar) {
+  const uint32_t whole = bytes & ~15u;
+  for (uint32_t o = whole; o < bytes; o += 4)
+    *reinterpret_cast<float*>(static_cast<unsigned char*>(dst) + o) =
+        __ldg(reinterpret_cast<const float*>(
+            static_cast<const unsigned char*>(src) + o));
+  mbar_expect_tx(bar, whole);
+  if (whole) bulk_load(dst, src, whole, bar);
+}
+
 // Arrive on bar once every cp.async this thread has issued has landed.
 __device__ __forceinline__ void arrive_when_copied(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
@@ -460,6 +496,424 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
 }
 
 // ---------------------------------------------------------------------------
+// The mixed-radix kernel: the engine on rows of any length n <= MIXED_MAX
+// whose factors are radices it has: the 5-smooth lengths 2^a 3^b 5^c that
+// are not powers of two (ops/hopper_fft.MIXED_LENGTHS: 9 .. 500, 55 of
+// them; kernel 4's rows, both passes of kernel 6), and the powers of two
+// of kernel 6's passes that run beside them.
+//
+// The power-of-two kernel gives every thread the same RMAX points of one
+// row in every pass: T = n / RMAX threads a row, RMAX / r butterflies of a
+// radix-r pass, THREADS / T rows a batch. With a factor of 3 or 5 that
+// cannot hold (at 480 = 12 x 10 x 4, T = 40 threads a row divide neither
+// the 256 threads nor the 48 butterflies of the radix-10 pass). So this
+// kernel deals each pass's butterflies out over the whole block: a batch
+// is `rows` rows (points = rows n <= MIXED_POINTS, even), and the rows n /
+// r butterflies of a radix-r pass go to the THREADS threads round by
+// round, butterfly u = tid + q THREADS in round q. A pass reads one pair
+// of work planes and writes the other (the first reads the ring buffer),
+// so a butterfly's points leave the registers as soon as it is done and a
+// pass needs one barrier, not two. The last round's lanes past the
+// butterflies idle; the host (ops/hopper_fft._batch_rows) picks the row
+// count that idles the fewest lane slots and packs it into the schedule
+// (mixed_plan): 0 to 41% of them, 13% on average over the 55 lengths
+// (ops/hopper_fft.mixed_geometry), 17% at 480 and 13% at 320.
+// - n, rows and the radices are runtime values (MixedPlan), so one
+//   instantiation a Body serves every length and the build grows by one
+//   kernel a Body, not one a length: each pass dispatches on its radix
+//   (with_radix) to an unrolled register network with compile-time
+//   constants (dft_small): the radix-2 network (dft_regs) for 2, 4, 8 and
+//   16, the radix-3 and radix-5 butterflies (dft3, dft5), and 6, 9, 10,
+//   12 and 15 as two of those with their twiddles between them (dft_ct).
+// - The rest is the power-of-two kernel's: a persistent grid, the ring of
+//   STAGES buffers filled by bulk copies (a batch of rows of an odd length
+//   ends off a 16-byte boundary: its last bytes come by bulk_load_tail),
+//   Stockham passes through the padded split planes, the twiddle table of
+//   fft_plan (the same layout: pass p's block at NS - radix[0]), float32
+//   arithmetic, the Body's epilogue. A batch holds at most MIXED_POINTS =
+//   2560 points: a 20 KB buffer of complex64, at most ~105 KB a block
+//   with the table and the two pairs of planes, two blocks an SM.
+// - Bound by bytes, as the power-of-two kernel. The index arithmetic on a
+//   runtime n walks each thread's butterflies by additions (DivWalk: its
+//   divisions once a pass), and the idle lanes cost issue slots, not
+//   bytes.
+// ---------------------------------------------------------------------------
+
+constexpr int MIXED_MAX = 512;      // longest row
+constexpr int MIXED_POINTS = 2560;  // most points a batch
+constexpr int MIXED_PASSES = 4;     // most passes
+constexpr int MIXED_ROWS_SHIFT = 20;  // the schedule's rows field
+static_assert(MIXED_ROWS_SHIFT == 5 * MIXED_PASSES, "past the radices");
+
+// The plan of a launch: built on the host by mixed_plan from the packed
+// schedule, passed by value.
+struct MixedPlan {
+  int n;                     // points a row
+  int passes;
+  int radix[MIXED_PASSES];   // pass p's radix, 1 past the last pass
+  int rows;                  // rows a batch
+  int points;                // rows n, even (16-byte aligned batches)
+  int padded;                // floats of a work plane: points + points / 32
+  int tld;                   // floats of a table plane: n - radix[0],
+                             // rounded up to 4 (16-byte aligned buffers)
+};
+
+inline bool mixed_radix(int r) {
+  switch (r) {
+    case 2: case 3: case 4: case 5: case 6: case 8: case 9: case 10:
+    case 12: case 15: case 16: return true;
+    default: return false;
+  }
+}
+
+// The plan on rows of n points from the packed schedule (fft_plan(n,
+// inverse).schedule: the radix of pass p in bits 5p .. 5p + 4, the rows of
+// a batch from bit MIXED_ROWS_SHIFT on, both chosen on the host:
+// ops/hopper_fft.mixed_schedule); false unless its radices are the kernel's and
+// multiply to n in [8, MIXED_MAX] and its batch of rows n points is even
+// and at most MIXED_POINTS.
+inline bool mixed_plan(int n, int schedule, MixedPlan& g) {
+  if (n < 8 || n > MIXED_MAX || schedule <= 0) return false;
+  const int rows = schedule >> MIXED_ROWS_SHIFT;
+  if (rows < 1 || rows * n > MIXED_POINTS || rows * n % 2) return false;
+  int p = 0, prod = 1;
+  for (int s = schedule & ((1 << MIXED_ROWS_SHIFT) - 1); s != 0;
+       s >>= 5, ++p) {
+    if (p == MIXED_PASSES || !mixed_radix(s & 31)) return false;
+    g.radix[p] = s & 31;
+    prod *= s & 31;
+  }
+  if (prod != n) return false;
+  g.n = n;
+  g.passes = p;
+  for (int q = p; q < MIXED_PASSES; ++q) g.radix[q] = 1;
+  g.rows = rows;
+  g.points = g.rows * n;
+  g.padded = g.points + g.points / 32;
+  g.tld = (n - g.radix[0] + 3) & ~3;
+  return true;
+}
+
+template <int R>
+struct Radix {
+  static constexpr int value = R;
+};
+
+// f(Radix<r>()) for a runtime radix r of the kernel's.
+template <class F>
+__device__ __forceinline__ void with_radix(int r, F&& f) {
+  switch (r) {
+    case 2: f(Radix<2>()); break;
+    case 3: f(Radix<3>()); break;
+    case 4: f(Radix<4>()); break;
+    case 5: f(Radix<5>()); break;
+    case 6: f(Radix<6>()); break;
+    case 8: f(Radix<8>()); break;
+    case 9: f(Radix<9>()); break;
+    case 10: f(Radix<10>()); break;
+    case 12: f(Radix<12>()); break;
+    case 15: f(Radix<15>()); break;
+    case 16: f(Radix<16>()); break;
+    default: break;  // mixed_plan admits no other
+  }
+}
+
+// f(Radix<I>()), f(Radix<I + 1>()), ..., f(Radix<N - 1>()).
+template <int I, int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(Radix<I>());
+    static_for<I + 1, N>(f);
+  }
+}
+
+// cos and sin of t by their series, for the compile-time roots below.
+__host__ __device__ constexpr double series_cos(double t) {
+  double term = 1.0, sum = 1.0;
+  for (int k = 1; k < 30; ++k) {
+    term *= -t * t / ((2 * k - 1) * (2 * k));
+    sum += term;
+  }
+  return sum;
+}
+
+__host__ __device__ constexpr double series_sin(double t) {
+  double term = t, sum = t;
+  for (int k = 1; k < 30; ++k) {
+    term *= -t * t / ((2 * k) * (2 * k + 1));
+    sum += term;
+  }
+  return sum;
+}
+
+// cos and sin of 2 pi M / R, float32 constants rounded from float64.
+template <int R, int M>
+struct Root {
+  static constexpr double x = 2.0 * (M % R) / R;  // in [0, 2)
+  static constexpr double t = 3.14159265358979323846 * (x > 1.0 ? x - 2.0 : x);
+  static constexpr float c = static_cast<float>(series_cos(t));
+  static constexpr float s = static_cast<float>(series_sin(t));
+};
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+// In-place 3-point DFT, exp(sgn 2 pi i jk / 3).
+__device__ __forceinline__ void dft3(float2* a, float sgn) {
+  constexpr float S3 = 0.86602540378443864676f;  // sin 2 pi / 3
+  const float2 t1 = cadd(a[1], a[2]), d = csub(a[1], a[2]);
+  const float2 t2 = make_float2(a[0].x - 0.5f * t1.x, a[0].y - 0.5f * t1.y);
+  const float2 r = make_float2(-sgn * S3 * d.y, sgn * S3 * d.x);
+  a[0] = cadd(a[0], t1);
+  a[1] = cadd(t2, r);
+  a[2] = csub(t2, r);
+}
+
+// In-place 5-point DFT, exp(sgn 2 pi i jk / 5): the pairs a1 +- a4 and
+// a2 +- a3, then the two real and two imaginary combinations.
+__device__ __forceinline__ void dft5(float2* a, float sgn) {
+  constexpr float C1 = 0.30901699437494742410f;   // cos 2 pi / 5
+  constexpr float C2 = -0.80901699437494742410f;  // cos 4 pi / 5
+  constexpr float S1 = 0.95105651629515357212f;   // sin 2 pi / 5
+  constexpr float S2 = 0.58778525229247312917f;   // sin 4 pi / 5
+  const float2 b1 = cadd(a[1], a[4]), b2 = cadd(a[2], a[3]);
+  const float2 d1 = csub(a[1], a[4]), d2 = csub(a[2], a[3]);
+  const float2 u1 = make_float2(a[0].x + C1 * b1.x + C2 * b2.x,
+                                a[0].y + C1 * b1.y + C2 * b2.y);
+  const float2 u2 = make_float2(a[0].x + C2 * b1.x + C1 * b2.x,
+                                a[0].y + C2 * b1.y + C1 * b2.y);
+  const float2 w1 = make_float2(S1 * d1.x + S2 * d2.x, S1 * d1.y + S2 * d2.y);
+  const float2 w2 = make_float2(S2 * d1.x - S1 * d2.x, S2 * d1.y - S1 * d2.y);
+  const float2 v1 = make_float2(-sgn * w1.y, sgn * w1.x);  // i sgn w1
+  const float2 v2 = make_float2(-sgn * w2.y, sgn * w2.x);
+  a[0] = cadd(a[0], cadd(b1, b2));
+  a[1] = cadd(u1, v1);
+  a[4] = csub(u1, v1);
+  a[2] = cadd(u2, v2);
+  a[3] = csub(u2, v2);
+}
+
+template <int R>
+__device__ __forceinline__ void dft_small(float2* a, float sgn);
+
+// In-place DFT of R = P Q points: the P-point DFTs of a[Q j1 + j2] over j1,
+// the twiddles exp(sgn 2 pi i j2 k1 / R), the Q-point DFTs over j2; bin k1
+// + P k2 out.
+template <int P, int Q>
+__device__ __forceinline__ void dft_ct(float2* a, float sgn) {
+  float2 t[P * Q];  // t[k1 Q + j2]
+#pragma unroll
+  for (int j2 = 0; j2 < Q; ++j2) {
+    float2 c[P];
+#pragma unroll
+    for (int j1 = 0; j1 < P; ++j1) c[j1] = a[Q * j1 + j2];
+    dft_small<P>(c, sgn);
+#pragma unroll
+    for (int k1 = 0; k1 < P; ++k1) t[k1 * Q + j2] = c[k1];
+  }
+  static_for<1, Q>([&](auto J2) {
+    static_for<1, P>([&](auto K1) {
+      constexpr int j2 = decltype(J2)::value, k1 = decltype(K1)::value;
+      using W = Root<P * Q, j2 * k1>;
+      t[k1 * Q + j2] = cmul(t[k1 * Q + j2], make_float2(W::c, sgn * W::s));
+    });
+  });
+#pragma unroll
+  for (int k1 = 0; k1 < P; ++k1) {
+    dft_small<Q>(t + k1 * Q, sgn);
+#pragma unroll
+    for (int k2 = 0; k2 < Q; ++k2) a[k1 + P * k2] = t[k1 * Q + k2];
+  }
+}
+
+// In-place DFT of R points in registers, exp(sgn 2 pi i jk / R), for every
+// radix of the mixed-radix kernel (ops/hopper_fft._dft_small_mirror).
+template <int R>
+__device__ __forceinline__ void dft_small(float2* a, float sgn) {
+  if constexpr ((R & (R - 1)) == 0) {
+    dft_regs<log2_of(R)>(a, sgn);
+  } else if constexpr (R == 3) {
+    dft3(a, sgn);
+  } else if constexpr (R == 5) {
+    dft5(a, sgn);
+  } else if constexpr (R == 6) {
+    dft_ct<2, 3>(a, sgn);
+  } else if constexpr (R == 9) {
+    dft_ct<3, 3>(a, sgn);
+  } else if constexpr (R == 10) {
+    dft_ct<2, 5>(a, sgn);
+  } else if constexpr (R == 12) {
+    dft_ct<4, 3>(a, sgn);
+  } else {
+    static_assert(R == 15, "not a radix of the mixed-radix kernel");
+    dft_ct<3, 5>(a, sgn);
+  }
+}
+
+// (q, r) = divmod(e, d) for e = e0, e0 + step, e0 + 2 step, ...: the
+// divisions at the start only.
+struct DivWalk {
+  int q, r, dq, dr, d;
+  __device__ DivWalk(int e0, int d_, int step)
+      : q(e0 / d_), r(e0 % d_), dq(step / d_), dr(step % d_), d(d_) {}
+  __device__ void next() {
+    q += dq;
+    r += dr;
+    if (r >= d) {
+      r -= d;
+      ++q;
+    }
+  }
+};
+
+// One radix-R pass of a batch of points = rows n points, NS the product
+// of the radices before it and r0 the first, into the work planes (re,
+// im): butterfly u = (row, j), u = tid + q THREADS, takes points j + m n /
+// R of its row from load(row, i), twiddled by the table's [m - 1][k] of
+// the pass (at NS - r0), k = j mod NS, when NS > 1, runs the R-point DFT
+// and writes output m to point (j - k) R + k + m NS of its row (Stockham
+// order, as store_pass). Everything it indexes by is a register: no
+// stack copy of the plan for the planes' stores to alias.
+template <int R, class Load>
+__device__ __forceinline__ void mixed_pass(int n, int points, int r0, int ns,
+                                           float* __restrict__ re,
+                                           float* __restrict__ im,
+                                           const float* __restrict__ wr,
+                                           const float* __restrict__ wi,
+                                           float sgn, Load load) {
+  const int S = n / R, B = points / R, off = ns - r0;
+  DivWalk w(threadIdx.x, S, THREADS);  // (row, j) of butterfly u
+  // k = j mod NS: S is a multiple of NS, so k steps by dr mod NS.
+  int k = w.r % ns;
+  const int dk = w.dr % ns;
+  for (int u = threadIdx.x; u < B; u += THREADS) {
+    float2 a[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) a[m] = load(w.q, w.r + m * S);
+    if (ns > 1) {
+#pragma unroll
+      for (int m = 1; m < R; ++m) {
+        const int t = off + (m - 1) * ns + k;
+        a[m] = cmul(a[m], make_float2(wr[t], wi[t]));
+      }
+    }
+    dft_small<R>(a, sgn);
+    const int o = w.q * n + (w.r - k) * R + k;
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const int i = pad(o + m * ns);
+      re[i] = a[m].x;
+      im[i] = a[m].y;
+    }
+    w.next();
+    k += dk;
+    if (k >= ns) k -= ns;
+  }
+}
+
+// The kernel. Body gives, besides its power-of-two methods, the same ones
+// on a MixedPlan (its issuer is one thread; a buffer is 8 g.points bytes):
+//   batches(g)                     number of row batches
+//   issue(g, buffer, b, bar)       the bulk copies of batch b
+//   load(g, buffer, b, row, i)     point i of the batch's complex row
+//   store(g, re, im, b)            the epilogue, all threads
+// Pass p writes work planes p mod 2; a barrier ends each pass, and one
+// after the epilogue lets the next batch's first pass write. The passes
+// are unrolled over MIXED_PASSES, so the plan's fields are read at fixed
+// offsets and never copied to the stack.
+template <class Body>
+__global__ void __launch_bounds__(THREADS, 2)
+fft_mixed_kernel(const Body body, const MixedPlan g,
+                 const float* __restrict__ table, int inverse) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = g.n, points = g.points, r0 = g.radix[0];
+  const int SB = 8 * points;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  float* wr = reinterpret_cast<float*>(smem + 128);
+  float* wi = wr + g.tld;
+  unsigned char* stages = reinterpret_cast<unsigned char*>(wi + g.tld);
+  // Work planes 0 and 1: (re, im) each, one plane pair after the other.
+  float* planes = reinterpret_cast<float*>(stages + STAGES * SB);
+  const int pair = 2 * g.padded;
+
+  const int tid = threadIdx.x;
+  const int nb = (int)body.batches(g);
+  load_planes<THREADS>(table, n - r0, wr, wi);
+  init_ring(full, STAGES, 1);
+  __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      const int b = blockIdx.x + s * gridDim.x;
+      if (b < nb) body.issue(g, stages + s * SB, b, &full[s]);
+    }
+  }
+
+  const float sgn = inverse ? 1.f : -1.f;
+  int it = 0;
+  for (int b = blockIdx.x; b < nb; b += gridDim.x, ++it) {
+    const int s = it % STAGES;
+    unsigned char* buf = stages + s * SB;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    with_radix(r0, [&](auto R) {
+      mixed_pass<decltype(R)::value>(
+          n, points, r0, 1, planes, planes + g.padded, wr, wi, sgn,
+          [&body, &g, buf, b](int row, int i) {
+            return body.load(g, buf, b, row, i);
+          });
+    });
+    __syncthreads();
+    // Every thread has read buffer s: refill it with the batch STAGES
+    // steps ahead.
+    const int next = b + STAGES * gridDim.x;
+    if (tid == 0 && next < nb) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      body.issue(g, buf, next, &full[s]);
+    }
+    int ns = r0;
+#pragma unroll
+    for (int p = 1; p < MIXED_PASSES; ++p) {
+      if (p < g.passes) {
+        const float* sr = planes + ((p - 1) & 1) * pair;
+        const float* si = sr + g.padded;
+        float* dr = planes + (p & 1) * pair;
+        with_radix(g.radix[p], [&](auto R) {
+          mixed_pass<decltype(R)::value>(
+              n, points, r0, ns, dr, dr + g.padded, wr, wi, sgn,
+              [sr, si, n](int row, int i) {
+                const int x = pad(row * n + i);
+                return make_float2(sr[x], si[x]);
+              });
+        });
+        __syncthreads();
+        ns *= g.radix[p];
+      }
+    }
+    const float* fr = planes + ((g.passes - 1) & 1) * pair;
+    body.store(g, fr, fr + g.padded, b);
+    __syncthreads();
+  }
+}
+
+// Launch the mixed-radix kernel on rows of n points; table, schedule:
+// ops/hopper_fft.fft_plan(n, inverse)'s.
+template <class Body>
+cudaError_t launch_mixed(int n, int schedule, const Body& body,
+                         const float* table, int inverse,
+                         cudaStream_t stream) {
+  MixedPlan g;
+  if (!mixed_plan(n, schedule, g)) return cudaErrorInvalidValue;
+  const size_t smem = 128 + 8 * (size_t)g.tld +
+                      STAGES * 8 * (size_t)g.points + 16 * (size_t)g.padded;
+  return launch_persistent(fft_mixed_kernel<Body>, THREADS, smem,
+                           body.batches(g), stream, body, g, table, inverse);
+}
+
+// ---------------------------------------------------------------------------
 // A Body on complex rows, shared by stage.cu (kernel 4, TW; kernel 2, no
 // twiddle) and fused3d.cu (kernel 6's y pass, no twiddle): (M, n)
 // interleaved complex64 in and out, the n-point DFT of each row, times the
@@ -525,6 +979,61 @@ struct ComplexTwiddleRows {
         }
       }
       o[e / 2] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+
+  // The same on the mixed-radix kernel (g.rows rows a batch, n = g.n).
+  __host__ __device__ long long batches(const MixedPlan& g) const {
+    return ((long long)M + g.rows - 1) / g.rows;
+  }
+  __device__ int rows_in(const MixedPlan& g, int b) const {
+    const int left = M - b * g.rows;
+    return left < g.rows ? left : g.rows;
+  }
+  __device__ void issue(const MixedPlan& g, unsigned char* buf, int b,
+                        uint64_t* bar) const {
+    bulk_load_tail(buf, x + (size_t)b * 2 * g.points,
+                   8u * rows_in(g, b) * g.n, bar);
+  }
+  __device__ float2 load(const MixedPlan& g, const unsigned char* buf, int,
+                         int row, int i) const {
+    return reinterpret_cast<const float2*>(buf)[row * g.n + i];
+  }
+  // Two neighbouring points a thread, of one row or across two, as one
+  // 16-byte store (rows are even a batch, so every batch starts 16-byte
+  // aligned); an odd last point as 8 bytes.
+  __device__ void store(const MixedPlan& g, const float* re, const float* im,
+                        int b) const {
+    const int n = g.n, count = rows_in(g, b) * n, row0 = b * g.rows;
+    float* o = out + (size_t)b * g.points * 2;
+    DivWalk w(2 * threadIdx.x, n, 2 * THREADS);  // (row, point) of e
+    // The twiddle row (row0 + w.q) mod n1, stepped with w.
+    int rq = TW ? (row0 + w.q) % n1 : 0;
+    const int dq1 = TW ? w.dq % n1 : 0;
+    for (int e = 2 * threadIdx.x; e < count; e += 2 * THREADS) {
+      const int i = pad(e);  // e even: e + 1 pads to i + 1
+      float v[4] = {re[i], im[i], re[i + 1], im[i + 1]};
+      if constexpr (TW) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool next_row = w.r + h == n;  // an odd n's pair
+          const int row = !next_row ? rq : rq + 1 < n1 ? rq + 1 : 0;
+          const size_t t = (size_t)row * n + (next_row ? 0 : w.r + h);
+          const float wr = __ldg(tr + t), wi = __ldg(ti + t);
+          const float xr = v[2 * h], xi = v[2 * h + 1];
+          v[2 * h] = xr * wr - xi * wi;
+          v[2 * h + 1] = xr * wi + xi * wr;
+        }
+      }
+      if (e + 1 < count)
+        reinterpret_cast<float4*>(o)[e / 2] = make_float4(v[0], v[1], v[2],
+                                                          v[3]);
+      else
+        reinterpret_cast<float2*>(o)[e] = make_float2(v[0], v[1]);
+      const int q0 = w.q;
+      w.next();
+      rq += dq1 + (w.q - q0 - w.dq);  // dq or dq + 1 rows on
+      if (rq >= n1) rq -= n1;
     }
   }
 };
@@ -1121,10 +1630,6 @@ cudaError_t launch_cols(int n, int schedule, const Body& body,
 
 constexpr int SHORT_MAX = 16;
 constexpr int SHORT_POINTS = 8192;  // complex64 a batch: one 64 KB buffer
-
-__host__ __device__ constexpr int log2_of(int n) {
-  return n <= 1 ? 0 : 1 + log2_of(n / 2);
-}
 
 // Columns a batch at most: a multiple of 32, so a warp's columns lie
 // side by side.

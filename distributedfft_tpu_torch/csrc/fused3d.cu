@@ -12,11 +12,19 @@
 // distributedfft_tpu/ops/pallas_fft.py:
 //
 //   zy_fwd_kernel  <- _zy_fwd_kernel  (z-R2C, then y-C2C, per x-row; the
-//                                      dense body, for Y or Z not a power
-//                                      of two in [8, 512])
+//                                      dense body, for a Y or Z that is no
+//                                      5-smooth length in [8, 512], or an
+//                                      odd Y)
 //   fft_rows_kernel<L, ZRows>, fft_rows_kernel<L, ComplexTwiddleRows<false>>
 //   then zy_planes_kernel
-//                  <- _zy_fwd_kernel  (the FFT body: three launches)
+//                  <- _zy_fwd_kernel  (the FFT body: three launches; Y and
+//                                      Z powers of two)
+//   fft_mixed_kernel<ZRows>, fft_mixed_kernel<ComplexTwiddleRows<false>>
+//   then zy_planes_kernel
+//                  <- _zy_fwd_kernel  (the FFT body on the engine's
+//                                      mixed-radix kernel: Y and Z 5-smooth
+//                                      in [8, 512], Y even, not both powers
+//                                      of two)
 //   fft_cols_kernel<L, Columns>
 //                  <- _x_c2c_kernel   (C2C along x, both directions; the FFT
 //                                      body, X a power of two in [8, 512])
@@ -43,8 +51,9 @@
 // complex sums so that an operand fetched from shared memory feeds 4 to 16
 // FMAs. The DFT matrices are re-read per block from L2.
 //
-// zy_fwd's FFT body (Y and Z powers of two in [8, 512]) does no dense
-// product: it runs the row FFT engine of fft_rows.cuh twice and a
+// zy_fwd's FFT body (Y and Z powers of two in [8, 512], or 5-smooth
+// there with Y even: the engine's mixed-radix kernel on both passes) does
+// no dense product: it runs the row FFT engine of fft_rows.cuh twice and a
 // transpose. Its bound at 512^3 is the function's bytes, one read of x and
 // one write of the two planes, 1.08 GB -> 0.32 ms. One fused pass does
 // not fit: an FFT needs whole rows and whole columns, and one x-plane's
@@ -508,7 +517,8 @@ struct ZRows {
   const float* x;
   float* s;
   int M;     // X * Y real rows (even: Y is)
-  int ylog;  // log2 Y
+  int ylog;  // log2 Y (the power-of-two kernel)
+  int Y;     // (the mixed-radix kernel)
   static constexpr int ISSUERS = 1;
 
   template <int L>
@@ -565,15 +575,91 @@ struct ZRows {
           v;
     }
   }
+
+  // The same on the mixed-radix kernel (2 g.rows real rows a batch, Z =
+  // g.n, Y even, neither a power of two as such).
+  __host__ __device__ long long batches(const fft_rows::MixedPlan& g) const {
+    const int r2 = 2 * g.rows;
+    return ((long long)M + r2 - 1) / r2;
+  }
+  __device__ int rows_in(const fft_rows::MixedPlan& g, int b) const {
+    const int r2 = 2 * g.rows, left = M - b * r2;
+    return left < r2 ? left : r2;
+  }
+  __device__ void issue(const fft_rows::MixedPlan& g, unsigned char* buf,
+                        int b, uint64_t* bar) const {
+    fft_rows::bulk_load_tail(buf, x + (size_t)b * 2 * g.points,
+                             4u * rows_in(g, b) * g.n, bar);
+  }
+  __device__ float2 load(const fft_rows::MixedPlan& g,
+                         const unsigned char* buf, int, int c, int i) const {
+    const float* p = reinterpret_cast<const float*>(buf) + 2 * c * g.n;
+    return make_float2(p[i], p[g.n + i]);
+  }
+  __device__ void store(const fft_rows::MixedPlan& g, const float* re,
+                        const float* im, int b) const {
+    const int n = g.n, rows = g.rows, zo = n / 2 + 1;
+    const int pairs = rows_in(g, b) / 2;
+    float4* o = reinterpret_cast<float4*>(s);
+    // The batch's first real row r0 = (x0, y0): a pair 2c on is (x0, y0 +
+    // 2c) while that stays below Y, so the division runs only across a
+    // plane's end.
+    const int r0 = b * 2 * rows, x0 = r0 / Y, y0 = r0 - x0 * Y;
+    fft_rows::DivWalk w(threadIdx.x, rows, fft_rows::THREADS);  // (k, c)
+    for (int e = threadIdx.x; e < zo * rows;
+         e += fft_rows::THREADS, w.next()) {
+      const int k = w.q, c = w.r;
+      if (c >= pairs) continue;
+      const int i = fft_rows::pad(c * n + k);
+      const int i2 = fft_rows::pad(c * n + (k ? n - k : 0));
+      const float zr = re[i], zi = im[i], nr = re[i2], ni = im[i2];
+      const float4 v = make_float4(0.5f * (zr + nr), 0.5f * (zi - ni),
+                                   0.5f * (zi + ni), 0.5f * (nr - zr));
+      int xq = x0, y = y0 + 2 * c;  // even: y + 1 is the next y
+      if (y >= Y) {
+        const int planes = y / Y;
+        xq += planes;
+        y -= planes * Y;
+      }
+      o[(((size_t)xq * zo + k) * Y + y) / 2] = v;
+    }
+  }
 };
 
 // Pass C: the (X, Zo, Y) complex64 scratch, transposed into the two
 // (X, Y, Zo) float32 planes. Block (ky-tile, x) stages PLANE_ROWS rows of
-// both planes in shared memory; LD makes the staging writes of 4 threads a
-// zo (one 64-byte piece of 8 y) land in 32 distinct banks.
+// both planes in shared memory (the last tile of a Y that is not a
+// multiple of 8 fewer: Y is even, so 2, 4 or 6); LD makes the staging
+// writes of 4 threads a zo (one 64-byte piece of 8 y) land in 32 distinct
+// banks.
 constexpr int PLANE_ROWS = 8;
 constexpr int PLANE_THREADS = 256;
 constexpr int PLANE_LD = AXIS_MAX / 2 + 4;  // >= Zo, = 4 (mod 16)
+
+// The R rows of a tile: row (x, zo) of the scratch holds Y / 2 vectors of
+// two y, R / 2 of them the tile's; then the tile's rows of each plane, one
+// contiguous run from o.
+template <int R>
+__device__ __forceinline__ void planes_tile(const float4* __restrict__ src,
+                                            float* __restrict__ yr,
+                                            float* __restrict__ yi, float* tr,
+                                            float* ti, size_t o, int Y,
+                                            int Zo) {
+  for (int e = threadIdx.x; e < Zo * R / 2; e += PLANE_THREADS) {
+    const int zo = e / (R / 2), h = e % (R / 2);
+    const float4 v = src[(size_t)zo * (Y / 2) + h];
+    tr[2 * h * PLANE_LD + zo] = v.x;
+    ti[2 * h * PLANE_LD + zo] = v.y;
+    tr[(2 * h + 1) * PLANE_LD + zo] = v.z;
+    ti[(2 * h + 1) * PLANE_LD + zo] = v.w;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < R * Zo; e += PLANE_THREADS) {
+    const int r = e / Zo, zo = e - r * Zo;
+    yr[o + e] = tr[r * PLANE_LD + zo];
+    yi[o + e] = ti[r * PLANE_LD + zo];
+  }
+}
 
 __global__ void __launch_bounds__(PLANE_THREADS)
 zy_planes_kernel(const float4* __restrict__ s, float* __restrict__ yr,
@@ -582,23 +668,13 @@ zy_planes_kernel(const float4* __restrict__ s, float* __restrict__ yr,
   __shared__ float ti[PLANE_ROWS * PLANE_LD];
   const int ky0 = blockIdx.x * PLANE_ROWS;
   const size_t x = blockIdx.y;
-  // Row (x, zo) of the scratch holds Y / 2 vectors of two y.
   const float4* src = s + (x * Zo * Y + ky0) / 2;
-  for (int e = threadIdx.x; e < Zo * PLANE_ROWS / 2; e += PLANE_THREADS) {
-    const int zo = e / (PLANE_ROWS / 2), h = e % (PLANE_ROWS / 2);
-    const float4 v = src[(size_t)zo * (Y / 2) + h];
-    tr[2 * h * PLANE_LD + zo] = v.x;
-    ti[2 * h * PLANE_LD + zo] = v.y;
-    tr[(2 * h + 1) * PLANE_LD + zo] = v.z;
-    ti[(2 * h + 1) * PLANE_LD + zo] = v.w;
-  }
-  __syncthreads();
-  // The block's rows of each plane are one contiguous run.
   const size_t o = (x * Y + ky0) * Zo;
-  for (int e = threadIdx.x; e < PLANE_ROWS * Zo; e += PLANE_THREADS) {
-    const int r = e / Zo, zo = e - r * Zo;
-    yr[o + e] = tr[r * PLANE_LD + zo];
-    yi[o + e] = ti[r * PLANE_LD + zo];
+  switch (Y - ky0 < PLANE_ROWS ? Y - ky0 : PLANE_ROWS) {
+    case 8: planes_tile<8>(src, yr, yi, tr, ti, o, Y, Zo); break;
+    case 6: planes_tile<6>(src, yr, yi, tr, ti, o, Y, Zo); break;
+    case 4: planes_tile<4>(src, yr, yi, tr, ti, o, Y, Zo); break;
+    default: planes_tile<2>(src, yr, yi, tr, ti, o, Y, Zo); break;
   }
 }
 
@@ -708,6 +784,22 @@ bool zy_fft_ok(int X, int Y, int Z) {
   return X >= 2 && X <= AXIS_MAX && pow2(Y) && pow2(Z);
 }
 
+// Y and Z lengths of the engine's mixed-radix kernel (5-smooth in [8,
+// AXIS_MAX]), Y even, not both powers of two: the FFT body on that kernel
+// (its z pass stores two neighbouring y as one vector, so a pair of rows
+// never straddles two x-planes).
+bool zy_mixed_ok(int X, int Y, int Z) {
+  auto smooth = [](int n) {
+    if (n < 8 || n > AXIS_MAX) return false;
+    const int primes[3] = {2, 3, 5};
+    for (int i = 0; i < 3; ++i)
+      while (n % primes[i] == 0) n /= primes[i];
+    return n == 1;
+  };
+  return X >= 2 && X <= AXIS_MAX && smooth(Y) && smooth(Z) && Y % 2 == 0 &&
+         !zy_fft_ok(X, Y, Z);
+}
+
 int log2i(int n) {
   int l = 0;
   while ((1 << l) < n) ++l;
@@ -719,15 +811,19 @@ bool axes_ok(int X, int Y, int Z) {
          Z <= AXIS_MAX;
 }
 
-// The y-C2C of every row of the (X, Z/2 + 1, Y) scratch, in place.
+// The y-C2C of every row of the (X, Z/2 + 1, Y) scratch, in place (kernel
+// 8 on powers of two only).
 int scratch_cols(float* s, const float* table, int X, int Y, int Z,
                  int schedule, int inverse, void* stream) {
-  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
+  const bool pow2 = zy_fft_ok(X, Y, Z);
+  if (!pow2 && (inverse || !zy_mixed_ok(X, Y, Z)))
+    return cudaErrorInvalidValue;
   if (fft_rows::misaligned(s)) return cudaErrorMisalignedAddress;
   const fft_rows::ComplexTwiddleRows<false> body{s, nullptr, nullptr, s,
                                                  X * (Z / 2 + 1), 1};
-  return fft_rows::launch(Y, schedule, body, table, inverse,
-                          static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return pow2 ? fft_rows::launch(Y, schedule, body, table, inverse, st)
+              : fft_rows::launch_mixed(Y, schedule, body, table, inverse, st);
 }
 
 }  // namespace
@@ -759,12 +855,14 @@ int dfft_zy_fwd(const float* x, const float* fzr, const float* fzi,
 // complex64 scratch, 16-byte aligned.
 int dfft_zy_rows(const float* x, const float* table, float* s, int X, int Y,
                  int Z, int schedule, void* stream) {
-  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
+  const bool pow2 = zy_fft_ok(X, Y, Z);
+  if (!pow2 && !zy_mixed_ok(X, Y, Z)) return cudaErrorInvalidValue;
   if (fft_rows::misaligned(x) || fft_rows::misaligned(s))
     return cudaErrorMisalignedAddress;
-  const ZRows body{x, s, X * Y, log2i(Y)};
-  return fft_rows::launch(Z, schedule, body, table, 0,
-                          static_cast<cudaStream_t>(stream));
+  const ZRows body{x, s, X * Y, log2i(Y), Y};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return pow2 ? fft_rows::launch(Z, schedule, body, table, 0, st)
+              : fft_rows::launch_mixed(Z, schedule, body, table, 0, st);
 }
 
 // zy_fwd FFT body, pass B. s: pass A's scratch, transformed in place along
@@ -778,9 +876,10 @@ int dfft_zy_cols(float* s, const float* table, int X, int Y, int Z,
 // 16-byte aligned; yr, yi: (X, Y, Z/2 + 1) float32 planes.
 int dfft_zy_planes(const float* s, float* yr, float* yi, int X, int Y, int Z,
                    void* stream) {
-  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
+  if (!zy_fft_ok(X, Y, Z) && !zy_mixed_ok(X, Y, Z))
+    return cudaErrorInvalidValue;
   if (fft_rows::misaligned(s)) return cudaErrorMisalignedAddress;
-  const dim3 grid(Y / PLANE_ROWS, X);
+  const dim3 grid((Y + PLANE_ROWS - 1) / PLANE_ROWS, X);
   zy_planes_kernel<<<grid, PLANE_THREADS, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(s), yr, yi, Y, Z / 2 + 1);

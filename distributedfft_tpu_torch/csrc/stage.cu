@@ -43,12 +43,16 @@
 //   fft_rows_kernel<L, ComplexTwiddleRows<true>>
 //                            <- _cmatmul_tw_kernel  (kernel 4, FFT body:
 //                               power-of-two n2 in [8, 1024])
+//   fft_mixed_kernel<ComplexTwiddleRows<true>>
+//                            <- _cmatmul_tw_kernel  (kernel 4, FFT body on
+//                               the engine's mixed-radix kernel: 5-smooth
+//                               n2 in [9, 500], e.g. 320, 480)
 //   fft_cols_kernel<L, TwiddleColumns>
 //                            <- _cmatmul_tw_kernel  (kernel 4, column body:
 //                               the same n2 up to 512 on a non-last split
 //                               axis, where the axis lies)
 //   MODE_CMATMUL + twiddle   <- _cmatmul_tw_kernel  (kernel 4, tile body:
-//                               any other n2, e.g. 320)
+//                               any other n2, e.g. 448 or 206)
 //   fft_rows_kernel<L, RealTwiddleRows>
 //                            <- _rmatmul_tw_kernel  (kernel 5, FFT body:
 //                               power-of-two n2 in [8, 1024])
@@ -529,9 +533,11 @@ int dfft_rdft_tw(const float* x, const float* table, const float* tr,
                           static_cast<cudaStream_t>(stream));
 }
 
-// Kernel 4, FFT body. x: (M, n) complex64, n a power of two in [8, 1024],
-// 16-byte aligned; table, schedule: ops/hopper_fft.fft_plan(n, inverse);
-// tr, ti: (n1, n) float32 twiddle planes; out: (M, n) complex64.
+// Kernel 4, FFT body. x: (M, n) complex64, n a power of two in [8, 1024]
+// (the engine's power-of-two kernel) or 5-smooth in [8, 512] (its
+// mixed-radix kernel), 16-byte aligned; table, schedule:
+// ops/hopper_fft.fft_plan(n, inverse); tr, ti: (n1, n) float32 twiddle
+// planes; out: (M, n) complex64.
 int dfft_cdft_tw(const float* x, const float* table, const float* tr,
                  const float* ti, float* out, int M, int n, int n1,
                  int schedule, int inverse, void* stream) {
@@ -539,8 +545,10 @@ int dfft_cdft_tw(const float* x, const float* table, const float* tr,
   if (fft_rows::misaligned(x) || fft_rows::misaligned(out))
     return cudaErrorMisalignedAddress;
   const fft_rows::ComplexTwiddleRows<true> body{x, tr, ti, out, M, n1};
-  return fft_rows::launch(n, schedule, body, table, inverse,
-                          static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (n & (n - 1)) == 0
+             ? fft_rows::launch(n, schedule, body, table, inverse, st)
+             : fft_rows::launch_mixed(n, schedule, body, table, inverse, st);
 }
 
 // Kernel 2, FFT body. x: (M, n) complex64, n a power of two in [8, 1024],

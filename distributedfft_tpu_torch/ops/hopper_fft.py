@@ -8,12 +8,14 @@ granularities:
   more — forward ``zy_fwd`` (z-R2C then y-C2C per x-row) then
   ``x_c2c``; inverse ``x_c2c`` then ``yz_inv`` (y-C2C inverse then the
   half-spectrum z-C2R). Complex data crosses these kernels as split
-  float32 (real, imag) planes. ``zy_fwd`` and ``yz_inv`` pick their body
-  by ``_zy_body(Y, Z)``: when Y and Z are powers of two in [8, 512], three
+  float32 (real, imag) planes. ``zy_fwd`` picks its body by
+  ``_zy_fwd_body(Y, Z)`` and ``yz_inv`` by ``_zy_body(Y, Z)``: three
   launches through a complex64 scratch (``zy_fwd``: the row FFT engine on
   the z rows into the scratch, the engine on the scratch's y rows in
   place, a transpose into the planes; ``yz_inv`` the same backwards, its
-  z pass kernel 3's C2R Body), else the dense kernel. ``x_c2c`` picks its
+  z pass kernel 3's C2R Body) when Y and Z are powers of two in [8, 512],
+  and for ``zy_fwd`` also when they are 5-smooth there with Y even (the
+  engine's mixed-radix kernel), else the dense kernel. ``x_c2c`` picks its
   body by ``_x_body(X)``: for a power of two in [8, 512] the column kernel
   of the row FFT engine, which reads kernel 6's planes and writes the
   complex64 spectrum (forward) or reads the spectrum and writes kernel 8's
@@ -48,8 +50,10 @@ granularities:
 * **row FFT engine** (``csrc/fft_rows.cuh``): the body of ``rdft``
   (kernel 1), ``cdft`` (kernel 2), ``irdft`` (kernel 3), ``cdft_tw``
   (kernel 4), ``rdft_tw`` (kernel 5) and ``dec_cmatmul`` (kernel 11) on
-  rows of a power of two in [8, 1024] (``_fft_body``); other lengths take
-  the dense bodies of ``stage.cu``. It also runs the two FFT passes of
+  rows of a power of two in [8, 1024] (``_fft_body``), and, on its
+  mixed-radix kernel, of ``cdft_tw`` on the 55 5-smooth lengths in [9,
+  500] (``MIXED_LENGTHS``, ``_cdft_tw_body``); other lengths take the
+  dense bodies of ``stage.cu``. It also runs the two FFT passes of
   the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8), and,
   as its column kernel, ``x_c2c`` (kernel 7), ``cdft_cols`` (kernel 2
   on a non-last axis) and ``cdft_tw_cols`` (kernel 4 on a non-last split
@@ -195,26 +199,83 @@ def _twiddle(n1: int, n2: int, inverse: bool,
 # host side
 # ---------------------------------------------------------------------------
 
-# Row lengths the engine takes: the powers of two in [FFT_MIN, FFT_MAX].
+# Row lengths the engine's power-of-two kernel takes: the powers of two in
+# [FFT_MIN, FFT_MAX].
 FFT_MIN, FFT_MAX = 8, 1024
+
+# The engine's mixed-radix kernel (``fft_mixed_kernel`` in fft_rows.cuh):
+# the butterflies it has (``MIXED_RADICES``), the most points a batch holds
+# (``MIXED_POINTS``), threads a block (``THREADS``), the longest row
+# (``MIXED_MAX``) and the first bit of its schedule's rows field
+# (``MIXED_ROWS_SHIFT``, past 4 passes of 5 bits). It runs the 5-smooth
+# lengths 2^a 3^b 5^c in [FFT_MIN, MIXED_MAX] that are not powers of two
+# (``MIXED_LENGTHS``, 55 of them), and, beside them on kernel 6's passes,
+# the powers of two up to MIXED_MAX.
+MIXED_RADICES = (16, 15, 12, 10, 9, 8, 6, 5, 4, 3, 2)
+MIXED_POINTS = 2560
+MIXED_MAX = 512
+THREADS = 256
+MIXED_ROWS_SHIFT = 20
+
+
+def _smooth5(n: int) -> bool:
+    for p in (2, 3, 5):
+        while n > 1 and n % p == 0:
+            n //= p
+    return n == 1
+
+
+MIXED_LENGTHS = tuple(n for n in range(FFT_MIN, MIXED_MAX + 1)
+                      if _smooth5(n) and n & (n - 1))
 
 
 def _fft_body(n: int) -> str:
-    """The body kernels 1-5 and 11 run on rows of n points: ``"fft"`` (the
-    row FFT engine) for a power of two in [FFT_MIN, FFT_MAX], else
+    """The body kernels 1-3, 5 and 11 run on rows of n points: ``"fft"``
+    (the row FFT engine) for a power of two in [FFT_MIN, FFT_MAX], else
     ``"tile"`` (the dense bodies of ``stage.cu`` / ``wire.cu`` with the DFT
     or C2R planes: the tile loop of ``stage_tile.cuh``, or for kernels 1-3
-    on rows of a few points the row path)."""
+    on rows of a few points the row path). Kernel 4 routes by
+    ``_cdft_tw_body``."""
     return "fft" if FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0 else "tile"
 
 
+def _engine_length(n: int) -> bool:
+    """Whether the row FFT engine runs rows of n points: a power of two in
+    [FFT_MIN, FFT_MAX] or one of ``MIXED_LENGTHS``."""
+    return _fft_body(n) == "fft" or n in MIXED_LENGTHS
+
+
+def _cdft_tw_body(n2: int) -> str:
+    """The body kernel 4 (``cdft_tw``) runs on rows of n2 points: ``"fft"``
+    (the row FFT engine: its power-of-two kernel, or its mixed-radix kernel
+    for a 5-smooth n2) where ``_engine_length(n2)``, else ``"tile"``."""
+    return "fft" if _engine_length(n2) else "tile"
+
+
 def _zy_body(Y: int, Z: int) -> str:
-    """The body kernels 6 and 8 run on (X, Y, Z): ``"fft"`` (two launches
-    of the row FFT engine and a transpose) when Y and Z are both powers of
-    two in [FFT_MIN, ``mx.DIRECT_MAX``], else ``"dense"`` (the
-    dense-product ``zy_fwd_kernel`` / ``yz_inv_kernel``)."""
+    """The body kernel 8 runs on (X, Y, Z), and kernel 6 when both are
+    powers of two: ``"fft"`` (two launches of the row FFT engine and a
+    transpose) when Y and Z are both powers of two in [FFT_MIN,
+    ``mx.DIRECT_MAX``], else ``"dense"`` (the dense-product
+    ``zy_fwd_kernel`` / ``yz_inv_kernel``). Kernel 6 routes by
+    ``_zy_fwd_body``."""
     return ("fft" if all(_fft_body(n) == "fft" and n <= mx.DIRECT_MAX
                          for n in (Y, Z)) else "dense")
+
+
+def _zy_fwd_body(Y: int, Z: int) -> str:
+    """The body kernel 6 runs on (X, Y, Z): ``"fft"`` (the engine's two
+    passes and the transpose) when ``_zy_body`` says so, and also when Y
+    and Z are both engine lengths up to ``mx.DIRECT_MAX`` and Y is even
+    (the mixed-radix kernel on both passes: its z pass stores the half
+    spectra of two neighbouring y as one 16-byte vector, so a pair of rows
+    must not straddle two x-planes); else ``"dense"``. 448 = 2^6 7, the
+    primes and an odd Y keep the dense kernel."""
+    if _zy_body(Y, Z) == "fft":
+        return "fft"
+    return ("fft" if Y % 2 == 0 and all(
+        _engine_length(n) and n <= mx.DIRECT_MAX for n in (Y, Z))
+        else "dense")
 
 
 def _x_body(X: int) -> str:
@@ -291,11 +352,14 @@ def _zy_scratch_shape(X: int, Y: int, Z: int) -> Tuple[int, int, int]:
 class FFTPlan(NamedTuple):
     """What the engine runs on rows of n points.
 
-    radices: the Stockham passes in order, ceil(log2 n / 4) of them, the
-        log2 n bits split as evenly as possible, larger radices first
-        (1024 = 16 * 8 * 8, 512 = 8 * 8 * 8);
-    schedule: the radices packed as the kernel checks them, log2 of pass
-        p in bits 4p .. 4p + 3;
+    radices: the Stockham passes in order. For a power of two ceil(log2 n
+        / 4) of them, the log2 n bits split as evenly as possible, larger
+        radices first (1024 = 16 * 8 * 8, 512 = 8 * 8 * 8); for a mixed
+        length (``MIXED_LENGTHS``) the fewest passes of ``MIXED_RADICES``
+        whose batch (``mixed_geometry``) leaves the fewest lanes idle,
+        larger radices first (480 = 12 * 10 * 4, 320 = 10 * 8 * 4);
+    schedule: the radices packed as the kernel checks them, the radix of
+        pass p in bits 5p .. 5p + 4;
     table: (2, n - radices[0]) float32 (real, imag) twiddles, built in
         float64: for each pass p > 0 in order, with NS the product of the
         radices before it and r its radix, a block of (r - 1) x NS entries
@@ -307,17 +371,94 @@ class FFTPlan(NamedTuple):
     table: np.ndarray
 
 
+def _lane_use(n: int, radices: Sequence[int], rows: int) -> Tuple[int, int]:
+    """(points transformed, lane slots spent) by the mixed-radix kernel's
+    passes on a batch of ``rows`` rows of n points: a pass of radix r runs
+    rows n / r butterflies over the block's ``THREADS`` lanes in
+    ceil(rows n / (r THREADS)) rounds of r points a lane."""
+    pts = rows * n
+    slots = sum(THREADS * -(-pts // (r * THREADS)) * r for r in radices)
+    return len(radices) * pts, slots
+
+
+def _batch_rows(n: int, radices: Sequence[int]) -> int:
+    """Rows a batch of the mixed-radix kernel: the count, at most
+    ``MIXED_POINTS`` / n and with rows n even (16-byte aligned batches),
+    whose passes leave the smallest share of lane slots idle, the larger
+    count on a tie. The kernel takes it from ``mixed_schedule``."""
+    best, best_use = 2, (0, 1)
+    for rows in range(1, MIXED_POINTS // n + 1):
+        if rows * n % 2:
+            continue
+        used, slots = _lane_use(n, radices, rows)
+        if used * best_use[1] >= best_use[0] * slots:
+            best, best_use = rows, (used, slots)
+    return best
+
+
+def _mixed_radices(n: int) -> Tuple[int, ...]:
+    """The passes of a mixed length: every factorization of n into
+    ``MIXED_RADICES`` with the fewest factors (3 at most below 513),
+    larger radices first; of those the one whose batch leaves the
+    smallest share of lanes idle, the larger radices on a tie."""
+    found = set()
+
+    def split(m, pre):
+        if m == 1:
+            found.add(tuple(sorted(pre, reverse=True)))
+        elif len(pre) < 4:
+            for r in MIXED_RADICES:
+                if m % r == 0:
+                    split(m // r, pre + [r])
+
+    split(n, [])
+    fewest = min(len(f) for f in found)
+
+    def use(radices):
+        used, slots = _lane_use(n, radices, _batch_rows(n, radices))
+        return used / slots, radices
+
+    return max((f for f in found if len(f) == fewest), key=use)
+
+
+class MixedGeometry(NamedTuple):
+    """The mixed-radix kernel's batch on rows of n points: ``rows`` rows
+    (``points`` = rows n), and the share of its lane slots the passes
+    leave idle (the rounds' last lanes past rows n / r butterflies)."""
+    rows: int
+    points: int
+    idle: float
+
+
+def mixed_geometry(n: int) -> MixedGeometry:
+    rows = mixed_schedule(n, False) >> MIXED_ROWS_SHIFT
+    used, slots = _lane_use(n, fft_plan(n, False).radices, rows)
+    return MixedGeometry(rows, rows * n, 1 - used / slots)
+
+
+def mixed_schedule(n: int, inverse: bool) -> int:
+    """The packed schedule the mixed-radix kernel takes on rows of n points
+    (``mixed_plan`` in fft_rows.cuh): ``fft_plan(n, inverse).schedule``
+    and, from bit ``MIXED_ROWS_SHIFT`` on, the rows of a batch
+    (``_batch_rows``), so the rows that run are the ones chosen here."""
+    plan = fft_plan(n, inverse)
+    return plan.schedule | _batch_rows(n, plan.radices) << MIXED_ROWS_SHIFT
+
+
 @functools.lru_cache(maxsize=None)
 def fft_plan(n: int, inverse: bool) -> FFTPlan:
-    if _fft_body(n) != "fft":
+    if _fft_body(n) == "fft":
+        bits = n.bit_length() - 1
+        passes = (bits + 3) // 4
+        radices = tuple(1 << (bits // passes + (p < bits % passes))
+                        for p in range(passes))
+    elif n in MIXED_LENGTHS:
+        radices = _mixed_radices(n)
+    else:
         raise ValueError(f"the row FFT engine takes a power of two in "
-                         f"[{FFT_MIN}, {FFT_MAX}], not {n}")
-    bits = n.bit_length() - 1
-    passes = (bits + 3) // 4
-    radices = tuple(1 << (bits // passes + (p < bits % passes))
-                    for p in range(passes))
-    schedule = sum((r.bit_length() - 1) << (4 * p)
-                   for p, r in enumerate(radices))
+                         f"[{FFT_MIN}, {FFT_MAX}] or a 5-smooth length in "
+                         f"[{FFT_MIN}, {MIXED_MAX}], not {n}")
+    schedule = sum(r << (5 * p) for p, r in enumerate(radices))
     sign = 1.0 if inverse else -1.0
     blocks, ns = [np.zeros(0)], radices[0]
     for r in radices[1:]:
@@ -363,14 +504,66 @@ def _dft_regs_mirror(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     return torch.stack(b, -2)
 
 
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+# Constants of the kernel's radix-3 and radix-5 butterflies (``dft3``,
+# ``dft5`` in fft_rows.cuh), float32: sin 2 pi / 3, cos and sin of 2 pi / 5
+# and 4 pi / 5.
+_S3 = _f32(np.sin(2 * np.pi / 3))
+_C5 = (_f32(np.cos(2 * np.pi / 5)), _f32(np.cos(4 * np.pi / 5)))
+_S5 = (_f32(np.sin(2 * np.pi / 5)), _f32(np.sin(4 * np.pi / 5)))
+# The composite butterflies R = P Q (``dft_small`` in fft_rows.cuh): P-point
+# DFTs, the twiddles w_R^(j2 k1), Q-point DFTs.
+_CT = {6: (2, 3), 9: (3, 3), 10: (2, 5), 12: (4, 3), 15: (3, 5)}
+
+
+def _dft_small_mirror(a: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The kernel's radix-r DFT along dim -2 of (..., r, B) complex64
+    (``dft_small``): the radix-2 network for a power of two, the radix-3
+    and radix-5 butterflies, and for a composite r = P Q the P-point DFTs
+    of a[Q j1 + j2] over j1, the twiddles exp(-+ 2 pi i j2 k1 / r) (float32
+    from float64), the Q-point DFTs over j2, bin k1 + P k2 out."""
+    r = a.shape[-2]
+    sgn = 1.0 if inverse else -1.0
+    if r & (r - 1) == 0:
+        return _dft_regs_mirror(a, inverse)
+    if r == 3:
+        a0, a1, a2 = a.unbind(-2)
+        t1, d = a1 + a2, a1 - a2
+        t2 = a0 - 0.5 * t1
+        rot = d * complex(0.0, sgn * _S3)
+        return torch.stack([a0 + t1, t2 + rot, t2 - rot], -2)
+    if r == 5:
+        a0, a1, a2, a3, a4 = a.unbind(-2)
+        b1, b2, d1, d2 = a1 + a4, a2 + a3, a1 - a4, a2 - a3
+        (c1, c2), (s1, s2) = _C5, _S5
+        u1, u2 = a0 + c1 * b1 + c2 * b2, a0 + c2 * b1 + c1 * b2
+        v1 = (s1 * d1 + s2 * d2) * complex(0.0, sgn)
+        v2 = (s2 * d1 - s1 * d2) * complex(0.0, sgn)
+        return torch.stack([a0 + b1 + b2, u1 + v1, u2 + v2, u2 - v2,
+                            u1 - v1], -2)
+    p, q = _CT[r]
+    x = a.unflatten(-2, (p, q)).transpose(-3, -2)          # [.., j2, j1, B]
+    x = _dft_small_mirror(x, inverse)                      # [.., j2, k1, B]
+    m = np.outer(np.arange(q), np.arange(p))
+    w = np.exp(sgn * 2j * np.pi * m / r).astype(np.complex64)
+    x = x * torch.from_numpy(w)[..., None]
+    x = _dft_small_mirror(x.transpose(-3, -2), inverse)    # [.., k1, k2, B]
+    return x.transpose(-3, -2).reshape(a.shape)            # k1 + p k2
+
+
 def fft_rows_mirror(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The engine's passes in plain PyTorch, from ``fft_plan``: (..., n)
     complex -> (..., n) complex64, the unnormalized DFT of each row. Pass p
     (radix r, NS the product of the radices before it) takes inputs
     j + m n / r of butterfly j, twiddles input m by the table's
-    [m - 1, j mod NS], runs the radix-r DFT and writes output m to
-    (j - k) r + k + m NS, k = j mod NS. For tests: the port runs the
-    kernel, its plain version the dense product."""
+    [m - 1, j mod NS], runs the radix-r DFT (``_dft_small_mirror``) and
+    writes output m to (j - k) r + k + m NS, k = j mod NS. The same for
+    both of the engine's kernels: the power-of-two one and the mixed-radix
+    one. For tests: the port runs the kernel, its plain version the dense
+    product."""
     n = z.shape[-1]
     plan = fft_plan(n, inverse)
     table = torch.from_numpy(plan.table)
@@ -385,7 +578,7 @@ def fft_rows_mirror(z: torch.Tensor, inverse: bool) -> torch.Tensor:
         if ns > 1:
             t = ns - plan.radices[0] + (m[1:] - 1) * ns + k
             a = torch.cat([a[..., :1, :], a[..., 1:, :] * w[t]], -2)
-        a = _dft_regs_mirror(a, inverse)
+        a = _dft_small_mirror(a, inverse)
         y = torch.empty_like(x)
         y[..., (j - k) * r + k + m * ns] = a
         x, ns = y, ns * r
@@ -626,11 +819,13 @@ def _no_vjp(jax_kernel: str):
 def zy_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(X, Y, Z) float32 -> (X, Y, Z//2+1) planes: z-R2C then y-C2C,
     unnormalized forward (kernel 6, ``_zy_fwd_kernel``). The body is
-    ``_zy_body(Y, Z)``: on ``"fft"`` three launches through a complex64
+    ``_zy_fwd_body(Y, Z)``: on ``"fft"`` three launches through a complex64
     scratch of ``_zy_scratch_shape`` (x and the scratch 16-byte aligned):
     the row FFT engine on the z rows, the engine on the scratch's y rows in
-    place, the transpose into the planes; else one launch of the dense
-    kernel. Every launch counts as ``zy_fwd``."""
+    place, the transpose into the planes (the engine's power-of-two kernel
+    when Y and Z are both powers of two, else its mixed-radix kernel on
+    both passes); else one launch of the dense kernel. Every launch counts
+    as ``zy_fwd``."""
     cpu = _check("zy_fwd", x)
     X, Y, Z = x.shape
     dev = x.device
@@ -641,17 +836,21 @@ def zy_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     Zo = Z // 2 + 1
     yr = torch.empty((X, Y, Zo), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    if _zy_body(Y, Z) == "dense":
+    if _zy_fwd_body(Y, Z) == "dense":
         _launch("zy_fwd", "dfft_zy_fwd", x, fzr, fzi, fyr, fyi, yr, yi, X, Y,
                 Z)
         return yr, yi
     s = torch.empty(_zy_scratch_shape(X, Y, Z), dtype=torch.complex64,
                     device=dev)
     _require_aligned("zy_fwd", x, s)
+    if _zy_body(Y, Z) == "fft":     # both passes on the power-of-two kernel
+        zs, ys = fft_plan(Z, False).schedule, fft_plan(Y, False).schedule
+    else:                           # both on the mixed-radix kernel
+        zs, ys = mixed_schedule(Z, False), mixed_schedule(Y, False)
     _launch("zy_fwd", "dfft_zy_rows", x, _fft_table(Z, False, dev), s, X, Y,
-            Z, fft_plan(Z, False).schedule)
+            Z, zs)
     _launch("zy_fwd", "dfft_zy_cols", s, _fft_table(Y, False, dev), X, Y, Z,
-            fft_plan(Y, False).schedule)
+            ys)
     _launch("zy_fwd", "dfft_zy_planes", s, yr, yi, X, Y, Z)
     return yr, yi
 
@@ -1253,9 +1452,10 @@ def cdft_tw(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
     """Complex rows to the four-step first stage: (M, n2) complex64 ->
     (M, n2) complex64, the n2-point DFT (inverse DFT when ``inverse``) of
     each row times the twiddle row T[r % n1] (kernel 4,
-    ``_cmatmul_tw_kernel``). The body is ``_fft_body(n2)``: the row FFT
-    engine for a power of two in [8, 1024], else the dense tile loop of
-    ``stage`` with the DFT planes; both count as ``cmatmul_tw``."""
+    ``_cmatmul_tw_kernel``). The body is ``_cdft_tw_body(n2)``: the row
+    FFT engine for a power of two in [8, 1024] or a 5-smooth n2 in [8,
+    512] (its mixed-radix kernel), else the dense tile loop of ``stage``
+    with the DFT planes; both count as ``cmatmul_tw``."""
     if x2.ndim != 2:
         raise ValueError(f"cmatmul_tw: expected 2D rows, got shape "
                          f"{tuple(x2.shape)}")
@@ -1266,7 +1466,7 @@ def cdft_tw(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
                         f"{x2.dtype}")
     M, n2 = x2.shape
     dev = x2.device
-    if dev.type == "cpu" or _fft_body(n2) == "tile":
+    if dev.type == "cpu" or _cdft_tw_body(n2) == "tile":
         return stage(x2, *_planes("dft", n2, inverse, dev),
                      (n1, n2, inverse))
     tr, ti = _twiddle_planes(n1, n2, inverse, dev)
@@ -1274,9 +1474,11 @@ def cdft_tw(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
     y = torch.empty((M, n2), dtype=torch.complex64, device=dev)
     if M:
         _require_aligned("cmatmul_tw", x2, y)
+        sched = (fft_plan(n2, inverse).schedule if _fft_body(n2) == "fft"
+                 else mixed_schedule(n2, inverse))
         _launch("cmatmul_tw", "dfft_cdft_tw", x2,
-                _fft_table(n2, inverse, dev), tr, ti, y, M, n2, n1,
-                fft_plan(n2, inverse).schedule, int(inverse))
+                _fft_table(n2, inverse, dev), tr, ti, y, M, n2, n1, sched,
+                int(inverse))
     return y
 
 

@@ -32,6 +32,13 @@ SHAPES = [(2, 2, 2), (8, 8, 8), (6, 12, 15), (16, 10, 12), (3, 17, 33),
 ZY_FFT_SHAPES = [(2, 8, 8), (3, 8, 16), (5, 16, 8), (2, 32, 64),
                  (3, 64, 32), (9, 128, 16), (2, 16, 256), (4, 256, 128),
                  (3, 512, 8), (2, 8, 512), (5, 512, 512), (512, 16, 32)]
+# Kernel 6's FFT body on the engine's mixed-radix kernel (hf._zy_fwd_body:
+# Y and Z 5-smooth, Y even): odd Z (rows ending off 16 bytes), a power of
+# two beside a mixed length, a Y that is not a multiple of 8 (a ragged
+# tile of the transpose), the (X, 480, 480) of the main path.
+ZY_MIXED_SHAPES = [(2, 96, 120), (3, 480, 40), (2, 12, 10), (3, 8, 480),
+                   (2, 480, 16), (2, 30, 9), (3, 250, 27), (9, 60, 36),
+                   (4, 500, 375), (7, 480, 480), (5, 18, 512)]
 
 
 @pytest.fixture()
@@ -57,7 +64,7 @@ def _crandn(shape, seed, device):
                          _randn(shape, seed + 1, device))
 
 
-@pytest.mark.parametrize("shape", SHAPES + ZY_FFT_SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + ZY_FFT_SHAPES + ZY_MIXED_SHAPES)
 def test_zy_fwd_kernel(cuda, shape):
     """Both bodies of kernel 6: three launches on the FFT body, one dense."""
     x = _randn(shape, 1, cuda)
@@ -66,7 +73,7 @@ def test_zy_fwd_kernel(cuda, shape):
     yr, yi = hf.zy_fwd(x)
     torch.cuda.synchronize()
     assert hf.LAUNCHES["zy_fwd"] == before + (
-        3 if hf._zy_body(Y, Z) == "fft" else 1)
+        3 if hf._zy_fwd_body(Y, Z) == "fft" else 1)
     pr, pi = hf.zy_fwd_plain(x, *hf._planes("rdft", Z, False, cuda),
                              *hf._planes("dft", Y, False, cuda))
     assert _rel(yr, pr) <= 5e-4 and _rel(yi, pi) <= 5e-4
@@ -290,9 +297,10 @@ def test_pallas_plan_matches_torch_fft(cuda, shape):
     c = plan.exec_r2c(x)
     back = plan.exec_c2r(c)
     torch.cuda.synchronize()
-    zy = 3 if hf._zy_body(*shape[1:]) == "fft" else 1
+    zy6 = 3 if hf._zy_fwd_body(*shape[1:]) == "fft" else 1
+    zy8 = 3 if hf._zy_body(*shape[1:]) == "fft" else 1
     assert hf.LAUNCHES == {**dict.fromkeys(hf.LAUNCHES, 0),
-                           "zy_fwd": zy, "x_c2c": 2, "yz_inv": zy}
+                           "zy_fwd": zy6, "x_c2c": 2, "yz_inv": zy8}
     assert _rel(c, torch.fft.rfftn(x)) <= 5e-4
     assert _rel(back / float(np.prod(shape)), x) <= 5e-4
 
@@ -334,7 +342,8 @@ def test_c2r_kernel(cuda, M, n):
 
 # Kernel 5's two bodies (hf._fft_body): the row FFT engine for a
 # power-of-two n2 in [8, 1024] (M = 1, odd M, and M above one persistent
-# wave of the grid), else the tile loop (320, 206, 171).
+# wave of the grid), else the tile loop (320, 206, 171). Kernel 4 also takes
+# the engine (its mixed-radix kernel) at 320.
 TWIDDLE_ROWS = [(2, 512, 3), (2, 320, 33), (5, 206, 7), (4, 512, 2),
                 (8, 16, 5), (3, 171, 9), (1, 1024, 1), (3, 64, 5),
                 (2, 512, 2000), (2, 8, 110001), (4, 32, 33), (2, 128, 17),
@@ -362,8 +371,8 @@ def test_twiddle_kernels(cuda, n1, n2, lines, real):
 @pytest.mark.parametrize("n1, n2, lines", TWIDDLE_ROWS)
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cdft_tw_kernel(cuda, n1, n2, lines, inverse):
-    """Kernel 4 through ``cdft_tw``, both bodies (``_fft_body(n2)``), both
-    directions: rows cycle through n1 (M = lines * n1)."""
+    """Kernel 4 through ``cdft_tw``, both bodies (``_cdft_tw_body(n2)``),
+    both directions: rows cycle through n1 (M = lines * n1)."""
     M = lines * n1
     x = _crandn((M, n2), 27, cuda)
     before = hf.LAUNCHES["cmatmul_tw"]
@@ -373,6 +382,24 @@ def test_cdft_tw_kernel(cuda, n1, n2, lines, inverse):
     tw = (n1, n2, inverse)
     ref = hf.stage_plain(x, *hf._planes("dft", n2, inverse, cuda),
                          *hf._twiddle_planes(*tw, cuda))
+    assert _rel(y, ref) <= 5e-4
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n2", hf.MIXED_LENGTHS)
+def test_cdft_tw_mixed_lengths(cuda, n2, inverse):
+    """Kernel 4 on the engine's mixed-radix kernel at every 5-smooth n2 in
+    [9, 500]: one ``dfft_cdft_tw`` launch, rows cycling through n1 = 3 (an
+    odd M, so rows of an odd n2 end a batch off a 16-byte boundary)."""
+    n1, M = 3, 3 * 37
+    x = _crandn((M, n2), n2, cuda)
+    ent = dict(hf.ENTRIES)
+    y = hf.cdft_tw(x, n1, inverse)
+    torch.cuda.synchronize()
+    assert hf.ENTRIES.get("dfft_cdft_tw", 0) == ent.get("dfft_cdft_tw", 0) + 1
+    assert hf.ENTRIES.get("dfft_stage", 0) == ent.get("dfft_stage", 0)
+    ref = hf.stage_plain(x, *hf._planes("dft", n2, inverse, cuda),
+                         *hf._twiddle_planes(n1, n2, inverse, cuda))
     assert _rel(y, ref) <= 5e-4
 
 

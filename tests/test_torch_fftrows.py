@@ -2,7 +2,8 @@
 (``csrc/fft_rows.cuh``), on the CPU.
 
 * ``fft_plan(n, inverse)``: the pass schedule and the twiddle table the
-  kernel consumes, for every power of two 8..1024.
+  kernel consumes, for every power of two 8..1024 (the mixed lengths:
+  ``tests/test_torch_mixedradix.py``).
 * ``fft_rows_mirror``: the kernel's passes from that plan in plain PyTorch,
   held against ``torch.fft`` (1e-5, float32 against float64) and against
   the JAX package's ``pallas_fft._stage`` with ``_dft_np`` (its Pallas
@@ -65,9 +66,9 @@ def test_fft_plan_schedule_and_table(n):
     assert all(2 <= r <= 16 for r in plan.radices)
     assert list(plan.radices) == sorted(plan.radices, reverse=True)
     assert max(plan.radices) <= 2 * min(plan.radices)       # as even as can be
-    assert [(plan.schedule >> (4 * p)) & 15 for p in range(len(plan.radices))] \
-        == [int(math.log2(r)) for r in plan.radices]
-    assert plan.schedule >> (4 * len(plan.radices)) == 0
+    assert [(plan.schedule >> (5 * p)) & 31 for p in range(len(plan.radices))] \
+        == list(plan.radices)
+    assert plan.schedule >> (5 * len(plan.radices)) == 0
     # The table, entry by entry, from its documented layout.
     assert plan.table.dtype == np.float32 and plan.table.flags.c_contiguous
     assert plan.table.shape == (2, n - plan.radices[0])
@@ -87,8 +88,9 @@ def test_fft_plan_schedule_and_table(n):
 def test_fft_plan_examples_and_refusals():
     assert hf.fft_plan(1024, False).radices == (16, 8, 8)
     assert hf.fft_plan(512, False).radices == (8, 8, 8)
-    assert hf.fft_plan(1024, False).schedule == 0x334
-    for n in (4, 12, 520, 2048):
+    assert hf.fft_plan(1024, False).schedule == 16 | 8 << 5 | 8 << 10
+    assert hf.fft_plan(12, False).radices == (12,)   # a mixed length
+    for n in (4, 7, 520, 1000, 2048):
         with pytest.raises(ValueError):
             hf.fft_plan(n, False)
 

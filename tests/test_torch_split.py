@@ -282,10 +282,11 @@ _TW = ("cmatmul_tw", "dfft_cdft_tw")
     (("ifft", (2, 6144), -1), [_TW, _SHORT]),
     (("rfft", (3, 2048), -1), [("rmatmul_tw", "dfft_rdft_tw"), _SHORT]),
     (("irfft", (3, 1025), -1), [_TW, _SHORT]),
-    # A non-last split axis that moves: n2 = 320 (tile first stage), a
-    # prime n2 = 521 (its direct stage, then the twiddle as a product), a
-    # non-contiguous view, rfft of a non-last axis.
-    (("fft", (640, 3), 0), [("cmatmul_tw", "dfft_stage"), _SHORT]),
+    # A non-last split axis that moves: n2 = 320 (its first stage on the
+    # engine's mixed-radix kernel), a prime n2 = 521 (its direct stage,
+    # then the twiddle as a product), a non-contiguous view, rfft of a
+    # non-last axis.
+    (("fft", (640, 3), 0), [_TW, _SHORT]),
     (("fft", (1042, 2), 0), [("cmatmul", "dfft_stage"), _SHORT]),
     (("view", (2048, 3, 4), 0), [_TW, _SHORT]),
     (("rfft", (2048, 3), 0), [("rmatmul_tw", "dfft_rdft_tw"), _SHORT]),

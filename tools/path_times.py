@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Time three kernel launches and three "pallas" paths of the port on one
+card in two trees of the repo, alternated in one call (A, B, B, A), so
+that a change and its parent are compared on the same card under the same
+power limit:
+
+* kernel 6 (``zy_fwd``) at (512, 480, 480), and kernel 4 (``cdft_tw``,
+  forward) on 410880 rows of 320 points, n1 2 (the 640 split's first
+  stage), and on 155592 rows of 480, n1 9 (the 4320 split's), each
+  beside its plain version;
+* the 480^3 P = 1 slab plan, forward and inverse (kernels 6, 7 and 8);
+* the 4320 convolution: 8 images of 4096^2 with a 225^2 kernel, "same",
+  whose plan pads each axis to good_size 4320 = 9 x 480 (kernels 4 and 5
+  on its first stages);
+* the 8 x 4320^2 batched-2D plan, forward and inverse.
+
+    python3 tools/path_times.py TREE_A TREE_B     # e.g. build/parent .
+    python3 tools/path_times.py --one TREE        # one tree, one process
+
+Each tree runs in a process of its own that imports that tree's package,
+so each builds its own kernels (``build/kernels/`` under the tree). Every
+time is the median of CUDA-event times after a warm-up call. Prints one
+JSON line a run (tree, the C entry points each path launched, ms) and,
+first, the card's name and power limit as ``nvidia-smi`` gives them.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+SEED = 20261016
+SLAB = (480, 480, 480)
+CONV = (8, 4096, 225)       # images, extent, kernel side
+BATCHED = (8, 4320, 4320)
+REPS = 5
+ZY = (512, 480, 480)
+TW = ((410880, 320, 2), (155592, 480, 9))   # rows, n2, n1
+
+
+def median_ms(torch, fn, reps=REPS):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def entries(torch, hf, fn):
+    """The C entry points one call of fn launches."""
+    hf.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return dict(sorted(hf.ENTRIES.items()))
+
+
+def one(tree):
+    """Time the kernels and paths with the package of ``tree``; one JSON
+    line."""
+    root = os.path.abspath(tree)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import distributedfft_tpu_torch as dft
+    from distributedfft_tpu_torch.ops import hopper_fft as hf
+    from distributedfft_tpu_torch.solvers import make_convolver
+    if not hf.__file__.startswith(root + os.sep):
+        raise SystemExit(f"imported {hf.__file__}, not the tree {root}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    pallas = dft.Config(fft_backend="pallas")
+    row = {"tree": tree}
+    dev = torch.device("cuda")
+
+    x = torch.randn(ZY, generator=gen, device="cuda")
+    yr, yi = hf.zy_fwd(x)
+    pr, pi = hf.zy_fwd_plain(x, *hf._planes("rdft", ZY[2], False, dev),
+                             *hf._planes("dft", ZY[1], False, dev))
+    row["kernel6"] = dict(
+        shape=list(ZY), entries=entries(torch, hf, lambda: hf.zy_fwd(x)),
+        max_rel_err=max(max_rel(yr, pr), max_rel(yi, pi)),
+        ms=median_ms(torch, lambda: hf.zy_fwd(x)))
+    del x, yr, yi, pr, pi
+    for m, n2, n1 in TW:
+        x = torch.randn((m, n2), generator=gen, device="cuda",
+                        dtype=torch.complex64)
+        ref = hf.stage_plain(x, *hf._planes("dft", n2, False, dev),
+                             *hf._twiddle_planes(n1, n2, False, dev))
+
+        def run():
+            return hf.cdft_tw(x, n1, False)
+
+        row[f"kernel4_{n2}_n1_{n1}"] = dict(
+            rows=m, entries=entries(torch, hf, run),
+            max_rel_err=max_rel(run(), ref), ms=median_ms(torch, run))
+        del x, ref
+    torch.cuda.empty_cache()
+
+    x = torch.randn(SLAB, generator=gen, device="cuda")
+    plan = dft.SlabFFTPlan(dft.GlobalSize(*SLAB), dft.SlabPartition(1),
+                           pallas)
+    c = plan.exec_r2c(x)
+    row["slab480"] = dict(
+        entries_forward=entries(torch, hf, lambda: plan.exec_r2c(x)),
+        forward_ms=median_ms(torch, lambda: plan.exec_r2c(x)),
+        inverse_ms=median_ms(torch, lambda: plan.exec_c2r(c)))
+    del x, c, plan
+
+    b, n, k = CONV
+    img = torch.rand((b, n, n), generator=gen, device="cuda")
+    ker = np.random.default_rng(SEED).random((k, k)).astype(np.float32)
+    cv = make_convolver(ker, (n, n), batch=b, mode="same", config=pallas)
+    row["conv4320"] = dict(plan_shape=list(cv.plan.input_shape),
+                           entries=entries(torch, hf, lambda: cv(img)),
+                           call_ms=median_ms(torch, lambda: cv(img)))
+    del img, cv
+
+    x = torch.rand(BATCHED, generator=gen, device="cuda")
+    p = dft.Batched2DFFTPlan(*BATCHED, dft.SlabPartition(1), pallas)
+    spec = p.exec_forward(x)
+    row["batched8x4320"] = dict(
+        entries_forward=entries(torch, hf, lambda: p.exec_forward(x)),
+        entries_inverse=entries(torch, hf, lambda: p.exec_inverse(spec)),
+        forward_ms=median_ms(torch, lambda: p.exec_forward(x)),
+        inverse_ms=median_ms(torch, lambda: p.exec_inverse(spec)))
+    print(json.dumps(row), flush=True)
+
+
+def main(argv):
+    if argv[:1] == ["--one"] and len(argv) == 2:
+        one(argv[1])
+        return 0
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(card.stdout.strip(), flush=True)
+    a, b = argv
+    for tree in (a, b, b, a):
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--one", tree]).returncode
+        if rc:
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
