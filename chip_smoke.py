@@ -22,11 +22,12 @@ once, before any rank is spawned) and then, under
    batched 64 x 4096 x 4096 stack (the 8-point short stage of y and x,
    kernel 4's column body on x), the fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan
    over four ranks (9 and 10 bit for bit, NaN and Inf included); kernel
-   6 at (512, 480, 480) and kernel 4 at n2 = 320 (n1 = 2) and 480 (n1 = 9,
-   the 8 x 4320^2 plan's x axis) on the row FFT engine's mixed-radix
-   kernel; kernels 1, 2, 3, 4, 5, 6, 7, 8 and 11 also on their other body
-   (dense or tile) at a shape whose axes are not powers of two (kernel 6
-   at 448, kernel 4 at n2 = 448, kernels 1-3 at 480);
+   6 at (512, 480, 480), kernel 4 at n2 = 320 (n1 = 2), 480 (n1 = 9,
+   the 8 x 4320^2 plan's x axis) and 448 (n1 = 2, an 896-point axis) and
+   kernel 2 at 480 and 448 on the row FFT engine's mixed-radix kernel;
+   kernels 1, 2, 3, 4, 5, 6, 7, 8 and 11 also on their other body (dense
+   or tile) at a shape the engine does not take (kernel 6 at 448, kernel
+   4 at n2 = 416, kernel 2 at 440, kernels 1 and 3 at 480);
 2. runs a small cube against numpy, then the single-card slab plan at
    512^3 (fused kernels) and at 480^3 (kernel 6 on the mixed-radix
    engine, kernels 7 and 8 dense), at 1024^3 (per-axis kernels 1, 2 and
@@ -99,15 +100,18 @@ once, before any rank is spawned) and then, under
    64 x 4096 x 4096 stack under "pallas" (every 4096 axis split 8 x 512:
    kernels 5, 4 and 2's short stage, the y C2R on the Hermitian
    extension) as a whole and with ``batch_chunk=1`` (bit-equal to the
-   whole stack), and 256 x 1024 x 1024 (kernels 1, 2 and 3), each against
-   ``torch.fft.rfft2`` and beside "xla", with peak memory and a profile of
-   each direction; ``dfft-torch-batched`` testcases 0 and 3 at 64 x
-   4096^2, whole and one image at a time; then two ranks sharing the card
-   over gloo: ``shard="batch"`` at 64 x 4096^2 (32 images a rank),
-   ``shard="x"`` at 8 x 4096^2 (All2All and Peer2Peer, bit-equal), every
-   exchange rendering at 16 x 512^2 (bit-equal to the all-to-all; the
-   fused wire of kernels 9 and 10 to the plain bf16 wire) and the
-   executable with ``--shard x``;
+   whole stack), 256 x 1024 x 1024 (kernels 1, 2 and 3), 256 x 480 x 480
+   (x on kernel 2's FFT body, the mixed-radix kernel) and 64 x 896 x 896
+   (both axes split 2 x 448, kernel 4 on the mixed-radix kernel), the two
+   last failing unless kernels 2 and 4 ran there and never their tile
+   bodies, each against ``torch.fft.rfft2`` and beside "xla", with peak
+   memory and a profile of each direction; ``dfft-torch-batched``
+   testcases 0 and 3 at 64 x 4096^2, whole and one image at a time; then
+   two ranks sharing the card over gloo: ``shard="batch"`` at 64 x 4096^2
+   (32 images a rank), ``shard="x"`` at 8 x 4096^2 (All2All and
+   Peer2Peer, bit-equal), every exchange rendering at 16 x 512^2
+   (bit-equal to the all-to-all; the fused wire of kernels 9 and 10 to
+   the plain bf16 wire) and the executable with ``--shard x``;
 9. runs the Bluestein backend (``fft_backend="bluestein"``, no kernel of
    the port: the chirp-z identity over ``torch.fft``): 64 x 4093 x 4093
    (both axes prime) at ``batch_chunk=8`` against float64
@@ -376,13 +380,14 @@ def bound(flops: float, nbytes: float):
 
 # Kernels whose body is a pure function of their shape: the row FFT engine
 # or the dense tile loop (hopper_fft._fft_body of the row length, and for
-# kernel 4 hopper_fft._cdft_tw_body, which adds the engine's mixed-radix
-# kernel at 5-smooth lengths; for kernels 2 and 3 on rows of at most 16
-# points the row path of stage.cu's launch; kernels 2 and 4 on columns,
-# shape (outer, n, inner), the column kernel, "cols", or for kernel 2 on
-# 2..16 points the short-stage kernel, "short"), or, for kernels 6, 7 and
-# 8, the engine or the dense kernel (hopper_fft._zy_fwd_body for kernel 6,
-# hopper_fft._x_body, hopper_fft._zy_body for kernel 8).
+# kernels 2 and 4 hopper_fft._cdft_body, which adds the engine's
+# mixed-radix kernel at 7-smooth lengths; for kernels 2 and 3 on rows of
+# at most 16 points the row path of stage.cu's launch; kernels 2 and 4 on
+# columns, shape (outer, n, inner), the column kernel, "cols", or for
+# kernel 2 on 2..16 points the short-stage kernel, "short"), or, for
+# kernels 6, 7 and 8, the engine or the dense kernel
+# (hopper_fft._zy_fwd_body for kernel 6, hopper_fft._x_body,
+# hopper_fft._zy_body for kernel 8).
 ROUTED = ("rmatmul", "cmatmul", "c2r", "rmatmul_tw", "dec_cmatmul",
           "cmatmul_tw", "zy_fwd", "x_c2c", "yz_inv")
 
@@ -424,12 +429,13 @@ def body_of(hf, k) -> str:
             body = "short" if hf._short_body(sh["n"]) else "none"
         elif "inner" in sh:
             body = "cols" if hf._fft_body(sh["n"]) == "fft" else "none"
-        elif k["name"] == "cmatmul_tw":
-            body = hf._cdft_tw_body(sh["n"])
+        elif k["name"] in ("cmatmul", "cmatmul_tw"):
+            body = hf._cdft_body(sh["n"])
+            if body == "tile" and k["name"] == "cmatmul" and sh["n"] <= 16:
+                body = "row"
         else:
             body = hf._fft_body(sh["n"])
-            if body == "tile" and k["name"] in ("cmatmul", "c2r") \
-                    and sh["n"] <= 16:
+            if body == "tile" and k["name"] == "c2r" and sh["n"] <= 16:
                 body = "row"
         if body != k.get("body", "fft"):
             fail(f"kernel {k['name']} {k['shape']} routes to the {body} body")
@@ -494,15 +500,21 @@ def per_entry(pairs: dict) -> dict:
     return out
 
 
-def kernel4_on_the_engine(pairs: dict, what: str) -> dict:
-    """Fail unless kernel 4 ran its FFT body (``dfft_cdft_tw``: at a
-    5-smooth n2 the engine's mixed-radix kernel) and never its tile body
-    (``dfft_stage``); ``entry_counts``' pairs as "kernel/entry" ->
-    launches."""
+# The FFT body of kernels 2 and 4 on rows (at a 7-smooth length the
+# engine's mixed-radix kernel).
+ENGINE_ENTRY = {"cmatmul": "dfft_cdft", "cmatmul_tw": "dfft_cdft_tw"}
+
+
+def on_the_engine(pairs: dict, what: str, kernels=("cmatmul_tw",)) -> dict:
+    """Fail unless each of ``kernels`` (kernel 2, "cmatmul", or 4,
+    "cmatmul_tw") ran its FFT body on rows (``ENGINE_ENTRY``) and neither
+    kernel 2 nor 4 ever ran its tile body (``dfft_stage``); returns
+    ``entry_counts``' pairs as "kernel/entry" -> launches."""
     named = {f"{k}/{e}": v for (k, e), v in sorted(pairs.items())}
-    if pairs.get(("cmatmul_tw", "dfft_stage")) or \
-            not pairs.get(("cmatmul_tw", "dfft_cdft_tw")):
-        fail(f"{what}: kernel 4 did not run on the engine alone: {named}")
+    if any(pairs.get((k, "dfft_stage")) for k in ENGINE_ENTRY) or \
+            not all(pairs.get((k, ENGINE_ENTRY[k])) for k in kernels):
+        fail(f"{what}: kernels {kernels} did not run on the engine alone: "
+             f"{named}")
     return named
 
 
@@ -525,11 +537,12 @@ def directions(plan):
     return plan.exec_r2c, plan.exec_c2r
 
 
-def run_counted(torch, hf, plan, x, dims=None):
+def run_counted(torch, hf, plan, x, dims=None, pairs=None):
     """One forward and one inverse of ``plan`` (a pencil plan's at depth
     ``dims``), each counted from zero: (spectrum, inverse, launches
     forward, launches inverse, entry points forward, entry points
-    inverse); the launches as ``counted`` gives them."""
+    inverse); the launches as ``counted`` gives them. ``pairs``, a list,
+    receives ``entry_counts``' (kernel, entry) pairs of each direction."""
     kw = {} if dims is None else {"dims": dims}
     fwd_fn, inv_fn = directions(plan)
     hf.reset_launches()
@@ -541,6 +554,8 @@ def run_counted(torch, hf, plan, x, dims=None):
     with entry_counts(hf) as ent_i:
         back = inv_fn(c, **kw)
         torch.cuda.synchronize()
+    if pairs is not None:
+        pairs.extend((ent_f, ent_i))
     return c, back, fwd, counted(hf), per_entry(ent_f), per_entry(ent_i)
 
 
@@ -1354,7 +1369,12 @@ def pencil_rank_main(rank: int, addr: str, outdir: str) -> None:
 # way; the C2R of y inverts the Hermitian extension as a complex four-step
 # (kernel 4 on rows, the short stage). At 1024 points every axis is one
 # engine launch: y on rows (kernel 1, inverse kernel 3), x on kernel 2's
-# column body where it lies.
+# column body where it lies. At 480 points (not a power of two) x moves
+# last and runs on rows: kernel 2 on the engine's mixed-radix kernel; y
+# keeps kernels 1 and 3's tile bodies. At 896 = 2 x 448 both axes split: y
+# forward kernel 5's tile body at 448, x and the inverse's Hermitian
+# extension kernel 4 on the mixed-radix kernel (448 = 8 x 8 x 7), each
+# with its 2-point short stage.
 BATCHED_SPLIT = (dict(rmatmul_tw=1, cmatmul=2, cmatmul_tw=1),
                  dict(cmatmul_tw=2, cmatmul=2),
                  {"dfft_rdft_tw": 1, "dfft_cdft_short": 2,
@@ -1364,11 +1384,27 @@ BATCHED_SPLIT = (dict(rmatmul_tw=1, cmatmul=2, cmatmul_tw=1),
 BATCHED_DIRECT_PATH = (dict(rmatmul=1, cmatmul=1), dict(cmatmul=1, c2r=1),
                        {"dfft_rdft": 1, "dfft_cdft_cols": 1},
                        {"dfft_cdft_cols": 1, "dfft_c2r": 1})
+BATCHED_480 = (256, 480, 480)   # 0.24 GB of spectrum
+BATCHED_480_PATH = (dict(rmatmul=1, cmatmul=1), dict(cmatmul=1, c2r=1),
+                    {"dfft_stage": 1, "dfft_cdft": 1},
+                    {"dfft_cdft": 1, "dfft_stage": 1})
+BATCHED_896 = (64, 896, 896)    # 0.21 GB of spectrum
+BATCHED_896_PATH = (dict(rmatmul_tw=1, cmatmul=2, cmatmul_tw=1),
+                    dict(cmatmul_tw=2, cmatmul=2),
+                    {"dfft_stage": 1, "dfft_cdft_short": 2,
+                     "dfft_cdft_tw": 1},
+                    {"dfft_cdft_tw": 2, "dfft_cdft_short": 2})
 # The single-card stacks: id -> (shape, one call's launches and entry
 # points, the batch_chunk values run beside the whole stack).
 BATCHED_CARD = {"batched_64x4096": (BATCHED, BATCHED_SPLIT, (1,)),
                 "batched_256x1024": (BATCHED_DIRECT, BATCHED_DIRECT_PATH,
-                                     ())}
+                                     ()),
+                "batched_256x480": (BATCHED_480, BATCHED_480_PATH, ()),
+                "batched_64x896": (BATCHED_896, BATCHED_896_PATH, ())}
+# The stacks whose path proves that kernels 2 and 4 ran on the engine's
+# mixed-radix kernel (``on_the_engine``, each direction): id -> kernels.
+BATCHED_ENGINE = {"batched_256x480": ("cmatmul",),
+                  "batched_64x896": ("cmatmul_tw",)}
 # The shard="x" renderings at 16 x 512^2 on two ranks: id -> (Config
 # fields, launches forward, inverse, entry points forward, inverse).
 # STREAMS under ALL2ALL runs x on each of its 4 pieces of the batch after
@@ -1433,11 +1469,17 @@ def batched_path(torch, dft, hf, gen, pid, shape, path, chunks):
         calls = B // (ck or B)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, x)
+        pairs = []
+        c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, x,
+                                                      pairs=pairs)
         r = dict(batch_chunk=ck, calls=calls, launches_forward=fwd,
                  launches_inverse=inv, entries_forward=ent_f,
                  entries_inverse=ent_i,
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if pid in BATCHED_ENGINE:
+            for d, seen in zip(("forward", "inverse"), pairs):
+                r[f"pairs_{d}"] = on_the_engine(seen, f"{pid} {name} {d}",
+                                                BATCHED_ENGINE[pid])
         if fwd != expect(hf, **scaled(want_f, calls, {}, 0)) or \
                 inv != expect(hf, **scaled({}, 0, want_i, calls)) or \
                 ent_f != scaled(ent_f_want, calls, {}, 0) or \
@@ -2057,8 +2099,10 @@ def stage_cases(torch, hf, dev, gen):
     wb, wx, wy = WISDOM_BATCHED               # 8 x 4320^2: 4320 = 9 x 480
     rows_4320 = wb * (wy // 2 + 1) * 9        # its x axis's first stage rows
     # Kernels 1, 2 and 3 take no F: rdft / cdft / irdft pick their body by
-    # n (the FFT body at 512 and 1024, the row body at 4, the tile body at
-    # 480). An FFT body's bytes count no DFT matrix.
+    # n (the FFT body at 512 and 1024, the row body at 4; kernels 1 and 3
+    # the tile body at 480, kernel 2 the engine's mixed-radix kernel at 480
+    # and 448 and its tile body at 440 = 8 x 5 x 11). An FFT body's bytes
+    # count no DFT matrix.
     return [
         dict(name="rmatmul", replaces=f"{PALLAS}:182",
              shape=dict(M=rows_r, n=N, k=k_r),
@@ -2088,8 +2132,10 @@ def stage_cases(torch, hf, dev, gen):
              library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
              flops=fft_flops(rows_zyx, N), gemm_flops=8 * rows_zyx * N * N,
              bytes=16 * rows_zyx * N),
-        # Kernels 1 and 2's tile bodies at 480 points (no power of two),
-        # on a rank's z rows of the 512^3 two-rank plan.
+        # Kernel 1's tile body at 480 points (no power of two), kernel 2's
+        # FFT body on the mixed-radix kernel at 480 and 448 and its tile
+        # body at 440 (a factor past 7), on as many rows as a rank's z rows
+        # of the 512^3 two-rank plan.
         dict(name="rmatmul", variant="tile_480", body="tile",
              replaces=f"{PALLAS}:182", shape=dict(M=rows_r, n=480, k=k480),
              make=lambda: dict(x=rr(rows_r, 480), F=planes("rdft", 480)),
@@ -2099,14 +2145,22 @@ def stage_cases(torch, hf, dev, gen):
              flops=fft_flops(rows_r, 480, real=True),
              gemm_flops=4 * rows_r * 480 * k480,
              bytes=4 * rows_r * 480 + 8 * rows_r * k480 + 8 * 480 * k480),
-        dict(name="cmatmul", variant="tile_480", body="tile",
-             replaces=f"{PALLAS}:164", shape=dict(M=rows_r, n=480, k=480),
-             make=lambda: dict(x=cr(rows_r, 480), F=planes("dft", 480)),
+        *(dict(name="cmatmul", variant=f"fft_{n}",
+               replaces=f"{PALLAS}:164", shape=dict(M=rows_r, n=n, k=n),
+               make=lambda n=n: dict(x=cr(rows_r, n), F=planes("dft", n)),
+               run=lambda t: hf.cdft(t["x"], False),
+               plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
+               library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
+               flops=fft_flops(rows_r, n), gemm_flops=8 * rows_r * n * n,
+               bytes=16 * rows_r * n) for n in (480, 448)),
+        dict(name="cmatmul", variant="tile_440", body="tile",
+             replaces=f"{PALLAS}:164", shape=dict(M=rows_r, n=440, k=440),
+             make=lambda: dict(x=cr(rows_r, 440), F=planes("dft", 440)),
              run=lambda t: hf.cdft(t["x"], False),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
              library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
-             flops=fft_flops(rows_r, 480), gemm_flops=8 * rows_r * 480 * 480,
-             bytes=16 * rows_r * 480 + 8 * 480 * 480),
+             flops=fft_flops(rows_r, 440), gemm_flops=8 * rows_r * 440 * 440,
+             bytes=16 * rows_r * 440 + 8 * 440 * 440),
         dict(name="cmatmul", variant="fft_1024", replaces=f"{PALLAS}:164",
              shape=dict(M=big_c, n=NBIG, k=NBIG),
              make=lambda: dict(x=cr(big_c, NBIG), F=planes("dft", NBIG)),
@@ -2196,11 +2250,11 @@ def stage_cases(torch, hf, dev, gen):
              bytes=8 * rows_r * k480 + 4 * rows_r * 480 + 8 * k480 * 480),
         # Kernel 4 takes no F: cdft_tw picks its body by n2 (the FFT body
         # at 512, the 2048-point axis's 4 x 512, and, on the engine's
-        # mixed-radix kernel, at 320, the 640-point axis's 2 x 320, and at
-        # 480, the 4320-point axis's 9 x 480; the tile body at 448, an
-        # 896-point axis's 2 x 448). "rows": torch.fft.fft of the same
-        # rows, the stage without its twiddle, the nearer yardstick beside
-        # the whole axis.
+        # mixed-radix kernel, at 320, the 640-point axis's 2 x 320, at 480,
+        # the 4320-point axis's 9 x 480, and at 448, the 896-point axis's 2
+        # x 448; the tile body at 416 = 32 x 13, an 832-point axis's 2 x
+        # 416). "rows": torch.fft.fft of the same rows, the stage without
+        # its twiddle, the nearer yardstick beside the whole axis.
         dict(name="cmatmul_tw", replaces=f"{PALLAS}:171",
              shape=dict(M=big_tw, n=N, k=N, n1=4),
              make=lambda: dict(x=cr(big_tw, N), F=planes("dft", N),
@@ -2283,7 +2337,7 @@ def stage_cases(torch, hf, dev, gen):
              flops=fft_flops(rows_4320, 480) + 6 * rows_4320 * 480,
              gemm_flops=8 * rows_4320 * 480 * 480,
              bytes=16 * rows_4320 * 480 + 8 * 9 * 480),
-        dict(name="cmatmul_tw", variant="tile_n2_448", body="tile",
+        dict(name="cmatmul_tw", variant="fft_n2_448",
              replaces=f"{PALLAS}:171",
              shape=dict(M=rows_640c, n=448, k=448, n1=2),
              make=lambda: dict(x=cr(rows_640c, 448), F=planes("dft", 448),
@@ -2291,12 +2345,27 @@ def stage_cases(torch, hf, dev, gen):
                                z=cr(rows_640c // 2, 896)),
              run=lambda t: hf.cdft_tw(t["x"], 2, False),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
+             pair=lambda t: hf._fft_last(t["z"], False),
              rows=lambda t: torch.fft.fft(t["x"]),
              library=lambda t: torch.fft.fft(t["z"]),
              library_call="fft of the whole 896-point axis",
              flops=fft_flops(rows_640c, 448) + 6 * rows_640c * 448,
              gemm_flops=8 * rows_640c * 448 * 448,
-             bytes=16 * rows_640c * 448 + 8 * 448 * 448 + 8 * 2 * 448),
+             bytes=16 * rows_640c * 448 + 8 * 2 * 448),
+        dict(name="cmatmul_tw", variant="tile_n2_416", body="tile",
+             replaces=f"{PALLAS}:171",
+             shape=dict(M=rows_640c, n=416, k=416, n1=2),
+             make=lambda: dict(x=cr(rows_640c, 416), F=planes("dft", 416),
+                               T=hf._twiddle_planes(2, 416, False, dev),
+                               z=cr(rows_640c // 2, 832)),
+             run=lambda t: hf.cdft_tw(t["x"], 2, False),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
+             rows=lambda t: torch.fft.fft(t["x"]),
+             library=lambda t: torch.fft.fft(t["z"]),
+             library_call="fft of the whole 832-point axis",
+             flops=fft_flops(rows_640c, 416) + 6 * rows_640c * 416,
+             gemm_flops=8 * rows_640c * 416 * 416,
+             bytes=16 * rows_640c * 416 + 8 * 416 * 416 + 8 * 2 * 416),
         # Kernel 5 takes no F: rdft_tw picks its body by n2 (the FFT body
         # at 512, the 2048-point axis's 4 x 512; the tile body at 320, the
         # 640-point axis's 2 x 320).
@@ -3948,7 +4017,7 @@ def solver_convolve(torch, dft, hf, dev):
         outs = cvs(img)
         torch.cuda.synchronize()
     smooth_launches, smooth_ents = counted(hf), per_entry(seen)
-    smooth_pairs = kernel4_on_the_engine(seen, f"convolution at {sn}")
+    smooth_pairs = on_the_engine(seen, f"convolution at {sn}")
     smooth_ms = median_ms(torch, lambda: cvs(img), reps=REPS_BIG, warmup=1)
     sext = list(cvs.plan.input_shape)
     del cvs
@@ -4495,7 +4564,7 @@ def wisdom_batched(torch, dft, hf, obs, at, wisdom, dev, store):
             with entry_counts(hf) as seen:
                 p.exec_inverse(p.exec_forward(x))
                 torch.cuda.synchronize()
-            row["pallas_kernel_entries"] = kernel4_on_the_engine(
+            row["pallas_kernel_entries"] = on_the_engine(
                 seen, f"batched {b}x{nx}^2 under pallas")
         spec = p.exec_forward(x)
         plan_ms[be] = {
@@ -6221,12 +6290,13 @@ ANALYSIS_RENDERINGS = ("a2a", "opt1", "p2p", "streams", "ring", "ring_ovl",
 # The entry points each verified combo's route launches, on the verifier's
 # 20 x 16 x 16 gate shape (ZY_Then_X, "pallas"): forward, z through kernel 1
 # (rdft), y through kernel 2's column form, the 20-point x through kernel
-# 2's planes (stage); the inverse mirrors it and ends in kernel 3 (c2r).
+# 2's row FFT body (cdft, the engine's mixed-radix kernel); the inverse
+# mirrors it and ends in kernel 3 (c2r).
 # Only the fused wire packs and unpacks in kernels 9 and 10; the unfused
 # bf16 wire encodes with a plain convert, as the JAX reference's does.
 ANALYSIS_SLAB_ENTRIES = {
-    "forward": {"dfft_rdft", "dfft_cdft_cols", "dfft_stage"},
-    "inverse": {"dfft_stage", "dfft_cdft_cols", "dfft_c2r"},
+    "forward": {"dfft_rdft", "dfft_cdft_cols", "dfft_cdft"},
+    "inverse": {"dfft_cdft", "dfft_cdft_cols", "dfft_c2r"},
 }
 ANALYSIS_FUSED_WIRE_ENTRIES = {"dfft_enc_pack", "dfft_dec_unpack"}
 ANALYSIS_CARD_ENTRIES = {     # dfft-torch-verify's single-card combos
@@ -6234,7 +6304,7 @@ ANALYSIS_CARD_ENTRIES = {     # dfft-torch-verify's single-card combos
     ("slab", "none"): {"dfft_zy_rows", "dfft_zy_cols", "dfft_zy_planes",
                        "dfft_x_cols"},
     ("slab", "bluestn"): set(),   # the chirp-z backend runs no kernel
-    ("batched", "none"): {"dfft_rdft", "dfft_stage"},   # batch-sharded 2D
+    ("batched", "none"): {"dfft_rdft", "dfft_cdft"},    # batch-sharded 2D
 }
 
 

@@ -2,23 +2,25 @@
 // stage.cu (kernels 1, 2, 3, 4 and 5) and fused3d.cu (kernels 6, 7 and 8):
 // the DFT of every row of a batch of power-of-two rows, 8 <= n <= 1024, in
 // shared memory and registers; on the same design its mixed-radix kernel
-// (fft_mixed_kernel below), rows of the 55 5-smooth lengths 2^a 3^b 5^c in
-// [9, 500] that are not powers of two (kernel 4's rows; both passes of
-// kernel 6, powers of two beside them included); and, on the same passes
-// and twiddle table, the column kernel (kernel 7, kernel 2 on a non-last
-// axis, kernel 4 on a non-last split axis), the DFT of every column of an
-// (outer, n, inner) array; and, on the column kernel's loader, the
+// (fft_mixed_kernel below), rows of the 92 7-smooth lengths 2^a 3^b 5^c 7^d
+// in [9, 504] that are not powers of two (kernel 2's and kernel 4's rows;
+// both passes of kernel 6 at 5-smooth Y and Z, powers of two beside them
+// included); and, on the same passes and twiddle table, the column kernel
+// (kernel 7, kernel 2 on a non-last axis, kernel 4 on a non-last split
+// axis), the DFT of every column of an (outer, n, inner) array; and, on
+// the column kernel's loader, the
 // short-stage kernel (the end of this file: kernel 2 on the 2..16-point
 // second stage of a split axis).
 //
 // Which kernel runs which body (ops/hopper_fft.py): the power-of-two
-// kernel carries kernels 1, 2, 3, 5 and 11 (_fft_body), kernel 4 on a
-// power-of-two n2 (_cdft_tw_body) and kernels 6 and 8 when Y and Z are
-// both powers of two (_zy_body); the mixed-radix kernel carries kernel 4 on
-// a 5-smooth n2 and kernel 6 on 5-smooth Y and Z, Y even (_zy_fwd_body).
-// Every other length keeps its dense or tile body. The mixed-radix kernel
-// is one instantiation a Body (n and the radices are runtime values), so
-// it adds three kernels to the build, not one a length.
+// kernel carries kernels 1, 3, 5 and 11 (_fft_body), kernels 2 and 4 on a
+// power of two (_cdft_body) and kernels 6 and 8 when Y and Z are both
+// powers of two (_zy_body); the mixed-radix kernel carries kernels 2 and 4
+// on a 7-smooth length and kernel 6 on 5-smooth Y and Z, Y even
+// (_zy_fwd_body). Every other length keeps its dense or tile body. The
+// mixed-radix kernel is one instantiation a Body (n and the radices are
+// runtime values), so it adds four kernels to the build (kernels 2 and 4
+// in stage.cu, kernel 6's two passes in fused3d.cu), not one a length.
 //
 // It replaces the dense DFT product of nine Pallas TPU kernels of
 // distributedfft_tpu/ops/pallas_fft.py (_dec_cmatmul_kernel :737, kernel
@@ -497,10 +499,11 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
 
 // ---------------------------------------------------------------------------
 // The mixed-radix kernel: the engine on rows of any length n <= MIXED_MAX
-// whose factors are radices it has: the 5-smooth lengths 2^a 3^b 5^c that
-// are not powers of two (ops/hopper_fft.MIXED_LENGTHS: 9 .. 500, 55 of
-// them; kernel 4's rows, both passes of kernel 6), and the powers of two
-// of kernel 6's passes that run beside them.
+// whose factors are radices it has: the 7-smooth lengths 2^a 3^b 5^c 7^d
+// that are not powers of two (ops/hopper_fft.MIXED_LENGTHS: 9 .. 504, 92
+// of them; kernel 2's and kernel 4's rows, both passes of kernel 6 at
+// 5-smooth Y and Z), and the powers of two of kernel 6's passes that run
+// beside them.
 //
 // The power-of-two kernel gives every thread the same RMAX points of one
 // row in every pass: T = n / RMAX threads a row, RMAX / r butterflies of a
@@ -516,15 +519,16 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
 // pass needs one barrier, not two. The last round's lanes past the
 // butterflies idle; the host (ops/hopper_fft._batch_rows) picks the row
 // count that idles the fewest lane slots and packs it into the schedule
-// (mixed_plan): 0 to 41% of them, 13% on average over the 55 lengths
-// (ops/hopper_fft.mixed_geometry), 17% at 480 and 13% at 320.
+// (mixed_plan): 0 to 41% of them, 13% on average over the 55 5-smooth
+// lengths (ops/hopper_fft.mixed_geometry), 17% at 480 and 13% at 320.
 // - n, rows and the radices are runtime values (MixedPlan), so one
 //   instantiation a Body serves every length and the build grows by one
 //   kernel a Body, not one a length: each pass dispatches on its radix
 //   (with_radix) to an unrolled register network with compile-time
 //   constants (dft_small): the radix-2 network (dft_regs) for 2, 4, 8 and
-//   16, the radix-3 and radix-5 butterflies (dft3, dft5), and 6, 9, 10,
-//   12 and 15 as two of those with their twiddles between them (dft_ct).
+//   16, the radix-3, radix-5 and radix-7 butterflies (dft3, dft5, dft7),
+//   and 6, 9, 10, 12, 14 and 15 as two of those with their twiddles
+//   between them (dft_ct).
 // - The rest is the power-of-two kernel's: a persistent grid, the ring of
 //   STAGES buffers filled by bulk copies (a batch of rows of an odd length
 //   ends off a 16-byte boundary: its last bytes come by bulk_load_tail),
@@ -560,8 +564,8 @@ struct MixedPlan {
 
 inline bool mixed_radix(int r) {
   switch (r) {
-    case 2: case 3: case 4: case 5: case 6: case 8: case 9: case 10:
-    case 12: case 15: case 16: return true;
+    case 2: case 3: case 4: case 5: case 6: case 7: case 8: case 9:
+    case 10: case 12: case 14: case 15: case 16: return true;
     default: return false;
   }
 }
@@ -608,10 +612,12 @@ __device__ __forceinline__ void with_radix(int r, F&& f) {
     case 4: f(Radix<4>()); break;
     case 5: f(Radix<5>()); break;
     case 6: f(Radix<6>()); break;
+    case 7: f(Radix<7>()); break;
     case 8: f(Radix<8>()); break;
     case 9: f(Radix<9>()); break;
     case 10: f(Radix<10>()); break;
     case 12: f(Radix<12>()); break;
+    case 14: f(Radix<14>()); break;
     case 15: f(Radix<15>()); break;
     case 16: f(Radix<16>()); break;
     default: break;  // mixed_plan admits no other
@@ -698,6 +704,45 @@ __device__ __forceinline__ void dft5(float2* a, float sgn) {
   a[3] = csub(u2, v2);
 }
 
+// In-place 7-point DFT, exp(sgn 2 pi i jk / 7): the pairs a_k +- a_(7-k),
+// k = 1, 2, 3, then for m = 1, 2, 3 the real combination u_m = a0 + sum_k
+// cos(2 pi mk / 7) (a_k + a_(7-k)) and the imaginary one w_m = sum_k
+// sin(2 pi mk / 7) (a_k - a_(7-k)); bins m and 7 - m are u_m +- i sgn w_m.
+__device__ __forceinline__ void dft7(float2* a, float sgn) {
+  constexpr float C1 = 0.62348980185873353053f;   // cos 2 pi / 7
+  constexpr float C2 = -0.22252093395631440429f;  // cos 4 pi / 7
+  constexpr float C3 = -0.90096886790241912624f;  // cos 6 pi / 7
+  constexpr float S1 = 0.78183148246802980871f;   // sin 2 pi / 7
+  constexpr float S2 = 0.97492791218182360702f;   // sin 4 pi / 7
+  constexpr float S3 = 0.43388373911755812048f;   // sin 6 pi / 7
+  const float2 b1 = cadd(a[1], a[6]), b2 = cadd(a[2], a[5]);
+  const float2 b3 = cadd(a[3], a[4]);
+  const float2 d1 = csub(a[1], a[6]), d2 = csub(a[2], a[5]);
+  const float2 d3 = csub(a[3], a[4]);
+  const float2 u1 = make_float2(a[0].x + C1 * b1.x + C2 * b2.x + C3 * b3.x,
+                                a[0].y + C1 * b1.y + C2 * b2.y + C3 * b3.y);
+  const float2 u2 = make_float2(a[0].x + C2 * b1.x + C3 * b2.x + C1 * b3.x,
+                                a[0].y + C2 * b1.y + C3 * b2.y + C1 * b3.y);
+  const float2 u3 = make_float2(a[0].x + C3 * b1.x + C1 * b2.x + C2 * b3.x,
+                                a[0].y + C3 * b1.y + C1 * b2.y + C2 * b3.y);
+  const float2 w1 = make_float2(S1 * d1.x + S2 * d2.x + S3 * d3.x,
+                                S1 * d1.y + S2 * d2.y + S3 * d3.y);
+  const float2 w2 = make_float2(S2 * d1.x - S3 * d2.x - S1 * d3.x,
+                                S2 * d1.y - S3 * d2.y - S1 * d3.y);
+  const float2 w3 = make_float2(S3 * d1.x - S1 * d2.x + S2 * d3.x,
+                                S3 * d1.y - S1 * d2.y + S2 * d3.y);
+  const float2 v1 = make_float2(-sgn * w1.y, sgn * w1.x);  // i sgn w1
+  const float2 v2 = make_float2(-sgn * w2.y, sgn * w2.x);
+  const float2 v3 = make_float2(-sgn * w3.y, sgn * w3.x);
+  a[0] = cadd(a[0], cadd(cadd(b1, b2), b3));
+  a[1] = cadd(u1, v1);
+  a[6] = csub(u1, v1);
+  a[2] = cadd(u2, v2);
+  a[5] = csub(u2, v2);
+  a[3] = cadd(u3, v3);
+  a[4] = csub(u3, v3);
+}
+
 template <int R>
 __device__ __forceinline__ void dft_small(float2* a, float sgn);
 
@@ -741,6 +786,8 @@ __device__ __forceinline__ void dft_small(float2* a, float sgn) {
     dft3(a, sgn);
   } else if constexpr (R == 5) {
     dft5(a, sgn);
+  } else if constexpr (R == 7) {
+    dft7(a, sgn);
   } else if constexpr (R == 6) {
     dft_ct<2, 3>(a, sgn);
   } else if constexpr (R == 9) {
@@ -749,6 +796,8 @@ __device__ __forceinline__ void dft_small(float2* a, float sgn) {
     dft_ct<2, 5>(a, sgn);
   } else if constexpr (R == 12) {
     dft_ct<4, 3>(a, sgn);
+  } else if constexpr (R == 14) {
+    dft_ct<2, 7>(a, sgn);
   } else {
     static_assert(R == 15, "not a radix of the mixed-radix kernel");
     dft_ct<3, 5>(a, sgn);

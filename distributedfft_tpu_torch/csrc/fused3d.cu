@@ -784,8 +784,8 @@ bool zy_fft_ok(int X, int Y, int Z) {
   return X >= 2 && X <= AXIS_MAX && pow2(Y) && pow2(Z);
 }
 
-// Y and Z lengths of the engine's mixed-radix kernel (5-smooth in [8,
-// AXIS_MAX]), Y even, not both powers of two: the FFT body on that kernel
+// Y and Z 5-smooth lengths of the engine's mixed-radix kernel (in [8,
+// AXIS_MAX]; its radix 7 is not routed here), Y even, not both powers of two: the FFT body on that kernel
 // (its z pass stores two neighbouring y as one vector, so a pair of rows
 // never straddles two x-planes).
 bool zy_mixed_ok(int X, int Y, int Z) {

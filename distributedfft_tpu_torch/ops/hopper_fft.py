@@ -51,10 +51,10 @@ granularities:
   (kernel 1), ``cdft`` (kernel 2), ``irdft`` (kernel 3), ``cdft_tw``
   (kernel 4), ``rdft_tw`` (kernel 5) and ``dec_cmatmul`` (kernel 11) on
   rows of a power of two in [8, 1024] (``_fft_body``), and, on its
-  mixed-radix kernel, of ``cdft_tw`` on the 55 5-smooth lengths in [9,
-  500] (``MIXED_LENGTHS``, ``_cdft_tw_body``); other lengths take the
-  dense bodies of ``stage.cu``. It also runs the two FFT passes of
-  the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8), and,
+  mixed-radix kernel, of ``cdft`` and ``cdft_tw`` on the 92 7-smooth
+  lengths in [9, 504] (``MIXED_LENGTHS``, ``_cdft_body``); other lengths
+  take the dense bodies of ``stage.cu``. It also runs the two FFT passes
+  of the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8), and,
   as its column kernel, ``x_c2c`` (kernel 7), ``cdft_cols`` (kernel 2
   on a non-last axis) and ``cdft_tw_cols`` (kernel 4 on a non-last split
   axis); its short-stage kernel, on the column kernel's loader, is
@@ -207,35 +207,37 @@ FFT_MIN, FFT_MAX = 8, 1024
 # the butterflies it has (``MIXED_RADICES``), the most points a batch holds
 # (``MIXED_POINTS``), threads a block (``THREADS``), the longest row
 # (``MIXED_MAX``) and the first bit of its schedule's rows field
-# (``MIXED_ROWS_SHIFT``, past 4 passes of 5 bits). It runs the 5-smooth
-# lengths 2^a 3^b 5^c in [FFT_MIN, MIXED_MAX] that are not powers of two
-# (``MIXED_LENGTHS``, 55 of them), and, beside them on kernel 6's passes,
-# the powers of two up to MIXED_MAX.
-MIXED_RADICES = (16, 15, 12, 10, 9, 8, 6, 5, 4, 3, 2)
+# (``MIXED_ROWS_SHIFT``, past 4 passes of 5 bits). It runs the 7-smooth
+# lengths 2^a 3^b 5^c 7^d in [FFT_MIN, MIXED_MAX] that are not powers of
+# two (``MIXED_LENGTHS``, 92 of them: kernels 2 and 4; kernel 6 takes the
+# 55 5-smooth ones), and, beside them on kernel 6's passes, the powers of
+# two up to MIXED_MAX.
+MIXED_RADICES = (16, 15, 14, 12, 10, 9, 8, 7, 6, 5, 4, 3, 2)
 MIXED_POINTS = 2560
 MIXED_MAX = 512
 THREADS = 256
 MIXED_ROWS_SHIFT = 20
 
 
-def _smooth5(n: int) -> bool:
-    for p in (2, 3, 5):
+def _smooth(n: int, primes: Sequence[int]) -> bool:
+    """Whether n has no prime factor but ``primes``."""
+    for p in primes:
         while n > 1 and n % p == 0:
             n //= p
     return n == 1
 
 
 MIXED_LENGTHS = tuple(n for n in range(FFT_MIN, MIXED_MAX + 1)
-                      if _smooth5(n) and n & (n - 1))
+                      if _smooth(n, (2, 3, 5, 7)) and n & (n - 1))
 
 
 def _fft_body(n: int) -> str:
-    """The body kernels 1-3, 5 and 11 run on rows of n points: ``"fft"``
+    """The body kernels 1, 3, 5 and 11 run on rows of n points: ``"fft"``
     (the row FFT engine) for a power of two in [FFT_MIN, FFT_MAX], else
     ``"tile"`` (the dense bodies of ``stage.cu`` / ``wire.cu`` with the DFT
-    or C2R planes: the tile loop of ``stage_tile.cuh``, or for kernels 1-3
-    on rows of a few points the row path). Kernel 4 routes by
-    ``_cdft_tw_body``."""
+    or C2R planes: the tile loop of ``stage_tile.cuh``, or for kernels 1
+    and 3 on rows of a few points the row path). Kernels 2 and 4 on rows
+    route by ``_cdft_body``."""
     return "fft" if FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0 else "tile"
 
 
@@ -245,11 +247,13 @@ def _engine_length(n: int) -> bool:
     return _fft_body(n) == "fft" or n in MIXED_LENGTHS
 
 
-def _cdft_tw_body(n2: int) -> str:
-    """The body kernel 4 (``cdft_tw``) runs on rows of n2 points: ``"fft"``
-    (the row FFT engine: its power-of-two kernel, or its mixed-radix kernel
-    for a 5-smooth n2) where ``_engine_length(n2)``, else ``"tile"``."""
-    return "fft" if _engine_length(n2) else "tile"
+def _cdft_body(n: int) -> str:
+    """The body kernels 2 (``cdft``) and 4 (``cdft_tw``) run on rows of n
+    points: ``"fft"`` (the row FFT engine: its power-of-two kernel, or its
+    mixed-radix kernel for a 7-smooth n) where ``_engine_length(n)``, else
+    ``"tile"`` (the tile loop of ``stage.cu`` with the DFT planes, or for
+    kernel 2 on rows of a few points the row path)."""
+    return "fft" if _engine_length(n) else "tile"
 
 
 def _zy_body(Y: int, Z: int) -> str:
@@ -266,15 +270,18 @@ def _zy_body(Y: int, Z: int) -> str:
 def _zy_fwd_body(Y: int, Z: int) -> str:
     """The body kernel 6 runs on (X, Y, Z): ``"fft"`` (the engine's two
     passes and the transpose) when ``_zy_body`` says so, and also when Y
-    and Z are both engine lengths up to ``mx.DIRECT_MAX`` and Y is even
+    and Z are both 5-smooth in [FFT_MIN, ``mx.DIRECT_MAX``] and Y is even
     (the mixed-radix kernel on both passes: its z pass stores the half
     spectra of two neighbouring y as one 16-byte vector, so a pair of rows
     must not straddle two x-planes); else ``"dense"``. 448 = 2^6 7, the
-    primes and an odd Y keep the dense kernel."""
+    primes and an odd Y keep the dense kernel: the engine's radix 7 is not
+    routed here yet (``fused3d.cu``'s ``zy_mixed_ok`` admits 5-smooth
+    lengths only)."""
     if _zy_body(Y, Z) == "fft":
         return "fft"
     return ("fft" if Y % 2 == 0 and all(
-        _engine_length(n) and n <= mx.DIRECT_MAX for n in (Y, Z))
+        _smooth(n, (2, 3, 5)) and FFT_MIN <= n <= mx.DIRECT_MAX
+        for n in (Y, Z))
         else "dense")
 
 
@@ -357,7 +364,8 @@ class FFTPlan(NamedTuple):
         radices first (1024 = 16 * 8 * 8, 512 = 8 * 8 * 8); for a mixed
         length (``MIXED_LENGTHS``) the fewest passes of ``MIXED_RADICES``
         whose batch (``mixed_geometry``) leaves the fewest lanes idle,
-        larger radices first (480 = 12 * 10 * 4, 320 = 10 * 8 * 4);
+        larger radices first (480 = 12 * 10 * 4, 320 = 10 * 8 * 4, 448 =
+        8 * 8 * 7);
     schedule: the radices packed as the kernel checks them, the radix of
         pass p in bits 5p .. 5p + 4;
     table: (2, n - radices[0]) float32 (real, imag) twiddles, built in
@@ -436,6 +444,13 @@ def mixed_geometry(n: int) -> MixedGeometry:
     return MixedGeometry(rows, rows * n, 1 - used / slots)
 
 
+def _engine_schedule(n: int, inverse: bool) -> int:
+    """The schedule an engine length's rows launch with: ``fft_plan``'s for
+    a power of two (the power-of-two kernel), else ``mixed_schedule``."""
+    return (fft_plan(n, inverse).schedule if _fft_body(n) == "fft"
+            else mixed_schedule(n, inverse))
+
+
 def mixed_schedule(n: int, inverse: bool) -> int:
     """The packed schedule the mixed-radix kernel takes on rows of n points
     (``mixed_plan`` in fft_rows.cuh): ``fft_plan(n, inverse).schedule``
@@ -456,7 +471,7 @@ def fft_plan(n: int, inverse: bool) -> FFTPlan:
         radices = _mixed_radices(n)
     else:
         raise ValueError(f"the row FFT engine takes a power of two in "
-                         f"[{FFT_MIN}, {FFT_MAX}] or a 5-smooth length in "
+                         f"[{FFT_MIN}, {FFT_MAX}] or a 7-smooth length in "
                          f"[{FFT_MIN}, {MIXED_MAX}], not {n}")
     schedule = sum(r << (5 * p) for p, r in enumerate(radices))
     sign = 1.0 if inverse else -1.0
@@ -508,23 +523,27 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-# Constants of the kernel's radix-3 and radix-5 butterflies (``dft3``,
-# ``dft5`` in fft_rows.cuh), float32: sin 2 pi / 3, cos and sin of 2 pi / 5
-# and 4 pi / 5.
+# Constants of the kernel's radix-3, radix-5 and radix-7 butterflies
+# (``dft3``, ``dft5``, ``dft7`` in fft_rows.cuh), float32: sin 2 pi / 3,
+# cos and sin of 2 pi m / 5, m = 1, 2, and of 2 pi m / 7, m = 1, 2, 3.
 _S3 = _f32(np.sin(2 * np.pi / 3))
 _C5 = (_f32(np.cos(2 * np.pi / 5)), _f32(np.cos(4 * np.pi / 5)))
 _S5 = (_f32(np.sin(2 * np.pi / 5)), _f32(np.sin(4 * np.pi / 5)))
+_C7 = tuple(_f32(np.cos(2 * np.pi * m / 7)) for m in (1, 2, 3))
+_S7 = tuple(_f32(np.sin(2 * np.pi * m / 7)) for m in (1, 2, 3))
 # The composite butterflies R = P Q (``dft_small`` in fft_rows.cuh): P-point
 # DFTs, the twiddles w_R^(j2 k1), Q-point DFTs.
-_CT = {6: (2, 3), 9: (3, 3), 10: (2, 5), 12: (4, 3), 15: (3, 5)}
+_CT = {6: (2, 3), 9: (3, 3), 10: (2, 5), 12: (4, 3), 14: (2, 7),
+       15: (3, 5)}
 
 
 def _dft_small_mirror(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The kernel's radix-r DFT along dim -2 of (..., r, B) complex64
-    (``dft_small``): the radix-2 network for a power of two, the radix-3
-    and radix-5 butterflies, and for a composite r = P Q the P-point DFTs
-    of a[Q j1 + j2] over j1, the twiddles exp(-+ 2 pi i j2 k1 / r) (float32
-    from float64), the Q-point DFTs over j2, bin k1 + P k2 out."""
+    (``dft_small``): the radix-2 network for a power of two, the radix-3,
+    radix-5 and radix-7 butterflies, and for a composite r = P Q the
+    P-point DFTs of a[Q j1 + j2] over j1, the twiddles exp(-+ 2 pi i j2 k1
+    / r) (float32 from float64), the Q-point DFTs over j2, bin k1 + P k2
+    out."""
     r = a.shape[-2]
     sgn = 1.0 if inverse else -1.0
     if r & (r - 1) == 0:
@@ -544,6 +563,20 @@ def _dft_small_mirror(a: torch.Tensor, inverse: bool) -> torch.Tensor:
         v2 = (s2 * d1 - s1 * d2) * complex(0.0, sgn)
         return torch.stack([a0 + b1 + b2, u1 + v1, u2 + v2, u2 - v2,
                             u1 - v1], -2)
+    if r == 7:
+        a0, a1, a2, a3, a4, a5, a6 = a.unbind(-2)
+        b1, b2, b3 = a1 + a6, a2 + a5, a3 + a4
+        d1, d2, d3 = a1 - a6, a2 - a5, a3 - a4
+        (c1, c2, c3), (s1, s2, s3) = _C7, _S7
+        u1 = a0 + c1 * b1 + c2 * b2 + c3 * b3
+        u2 = a0 + c2 * b1 + c3 * b2 + c1 * b3
+        u3 = a0 + c3 * b1 + c1 * b2 + c2 * b3
+        i = complex(0.0, sgn)
+        v1 = (s1 * d1 + s2 * d2 + s3 * d3) * i
+        v2 = (s2 * d1 - s3 * d2 - s1 * d3) * i
+        v3 = (s3 * d1 - s1 * d2 + s2 * d3) * i
+        return torch.stack([a0 + b1 + b2 + b3, u1 + v1, u2 + v2, u3 + v3,
+                            u3 - v3, u2 - v2, u1 - v1], -2)
     p, q = _CT[r]
     x = a.unflatten(-2, (p, q)).transpose(-3, -2)          # [.., j2, j1, B]
     x = _dft_small_mirror(x, inverse)                      # [.., j2, k1, B]
@@ -1099,14 +1132,15 @@ def cdft(x2: torch.Tensor, inverse: bool) -> torch.Tensor:
     """Complex rows to their DFT: (M, n) complex64 -> (M, n) complex64, the
     unnormalized n-point DFT (inverse DFT when ``inverse``) of each row
     (kernel 2, ``_cmatmul_kernel`` with the full DFT matrix). The body is
-    ``_fft_body(n)``: the row FFT engine for a power of two in [8, 1024]
-    (on a CPU tensor its plain version, ``stage_plain``), else ``stage``
-    with the DFT planes (the tile or row body); both count as
-    ``cmatmul``."""
+    ``_cdft_body(n)``: the row FFT engine (``dfft_cdft``) for a power of
+    two in [8, 1024] (its power-of-two kernel) or a 7-smooth n in [9, 504]
+    (its mixed-radix kernel, ``mixed_schedule``), on a CPU tensor its
+    plain version, ``stage_plain``; else ``stage`` with the DFT planes (the
+    tile or row body); both count as ``cmatmul``."""
     cpu = _check_rows("cmatmul", x2, torch.complex64)
     M, n = x2.shape
     dev = x2.device
-    if _fft_body(n) == "tile":
+    if _cdft_body(n) == "tile":
         return stage(x2, *_planes("dft", n, inverse, dev))
     if cpu:
         return stage_plain(x2, *_planes("dft", n, inverse, dev))
@@ -1114,7 +1148,7 @@ def cdft(x2: torch.Tensor, inverse: bool) -> torch.Tensor:
     if M:
         _require_aligned("cmatmul", x2, y)
         _launch("cmatmul", "dfft_cdft", x2, _fft_table(n, inverse, dev), y, M,
-                n, fft_plan(n, inverse).schedule, int(inverse))
+                n, _engine_schedule(n, inverse), int(inverse))
     return y
 
 
@@ -1452,8 +1486,8 @@ def cdft_tw(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
     """Complex rows to the four-step first stage: (M, n2) complex64 ->
     (M, n2) complex64, the n2-point DFT (inverse DFT when ``inverse``) of
     each row times the twiddle row T[r % n1] (kernel 4,
-    ``_cmatmul_tw_kernel``). The body is ``_cdft_tw_body(n2)``: the row
-    FFT engine for a power of two in [8, 1024] or a 5-smooth n2 in [8,
+    ``_cmatmul_tw_kernel``). The body is ``_cdft_body(n2)``: the row
+    FFT engine for a power of two in [8, 1024] or a 7-smooth n2 in [8,
     512] (its mixed-radix kernel), else the dense tile loop of ``stage``
     with the DFT planes; both count as ``cmatmul_tw``."""
     if x2.ndim != 2:
@@ -1466,7 +1500,7 @@ def cdft_tw(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
                         f"{x2.dtype}")
     M, n2 = x2.shape
     dev = x2.device
-    if dev.type == "cpu" or _cdft_tw_body(n2) == "tile":
+    if dev.type == "cpu" or _cdft_body(n2) == "tile":
         return stage(x2, *_planes("dft", n2, inverse, dev),
                      (n1, n2, inverse))
     tr, ti = _twiddle_planes(n1, n2, inverse, dev)
@@ -1474,11 +1508,9 @@ def cdft_tw(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
     y = torch.empty((M, n2), dtype=torch.complex64, device=dev)
     if M:
         _require_aligned("cmatmul_tw", x2, y)
-        sched = (fft_plan(n2, inverse).schedule if _fft_body(n2) == "fft"
-                 else mixed_schedule(n2, inverse))
         _launch("cmatmul_tw", "dfft_cdft_tw", x2,
-                _fft_table(n2, inverse, dev), tr, ti, y, M, n2, n1, sched,
-                int(inverse))
+                _fft_table(n2, inverse, dev), tr, ti, y, M, n2, n1,
+                _engine_schedule(n2, inverse), int(inverse))
     return y
 
 

@@ -371,7 +371,7 @@ def test_twiddle_kernels(cuda, n1, n2, lines, real):
 @pytest.mark.parametrize("n1, n2, lines", TWIDDLE_ROWS)
 @pytest.mark.parametrize("inverse", [False, True])
 def test_cdft_tw_kernel(cuda, n1, n2, lines, inverse):
-    """Kernel 4 through ``cdft_tw``, both bodies (``_cdft_tw_body(n2)``),
+    """Kernel 4 through ``cdft_tw``, both bodies (``_cdft_body(n2)``),
     both directions: rows cycle through n1 (M = lines * n1)."""
     M = lines * n1
     x = _crandn((M, n2), 27, cuda)
@@ -388,9 +388,10 @@ def test_cdft_tw_kernel(cuda, n1, n2, lines, inverse):
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n2", hf.MIXED_LENGTHS)
 def test_cdft_tw_mixed_lengths(cuda, n2, inverse):
-    """Kernel 4 on the engine's mixed-radix kernel at every 5-smooth n2 in
-    [9, 500]: one ``dfft_cdft_tw`` launch, rows cycling through n1 = 3 (an
-    odd M, so rows of an odd n2 end a batch off a 16-byte boundary)."""
+    """Kernel 4 on the engine's mixed-radix kernel at every 7-smooth n2 in
+    [9, 504] (the 92 ``MIXED_LENGTHS``, 37 with a factor 7): one
+    ``dfft_cdft_tw`` launch, rows cycling through n1 = 3 (an odd M, so
+    rows of an odd n2 end a batch off a 16-byte boundary)."""
     n1, M = 3, 3 * 37
     x = _crandn((M, n2), n2, cuda)
     ent = dict(hf.ENTRIES)
@@ -401,6 +402,71 @@ def test_cdft_tw_mixed_lengths(cuda, n2, inverse):
     ref = hf.stage_plain(x, *hf._planes("dft", n2, inverse, cuda),
                          *hf._twiddle_planes(n1, n2, inverse, cuda))
     assert _rel(y, ref) <= 5e-4
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", hf.MIXED_LENGTHS)
+def test_cdft_mixed_lengths(cuda, n, inverse):
+    """Kernel 2 on the engine's mixed-radix kernel at every 7-smooth n in
+    [9, 504]: one ``dfft_cdft`` launch (``_cdft_body``), never
+    ``dfft_stage``, on an odd number of rows (an odd n ends a batch off a
+    16-byte boundary) and on more rows than one persistent wave holds."""
+    for M in (37, (1 << 20) // n + 3):
+        x = _crandn((M, n), n + M, cuda)
+        ent = dict(hf.ENTRIES)
+        y = hf.cdft(x, inverse)
+        torch.cuda.synchronize()
+        assert hf.ENTRIES.get("dfft_cdft", 0) == ent.get("dfft_cdft", 0) + 1
+        assert hf.ENTRIES.get("dfft_stage", 0) == ent.get("dfft_stage", 0)
+        assert y.shape == (M, n) and y.dtype == torch.complex64
+        ref = hf.stage_plain(x, *hf._planes("dft", n, inverse, cuda))
+        assert _rel(y, ref) <= 5e-4
+
+
+@pytest.mark.parametrize("n", [440, 416, 11, 13, 97, 510])
+def test_cdft_tile_lengths(cuda, n):
+    """Kernel 2 at a length with a prime factor past 7 keeps its tile body
+    (``dfft_stage`` with the DFT planes), against its plain version."""
+    x = _crandn((53, n), n, cuda)
+    ent = dict(hf.ENTRIES)
+    y = hf.cdft(x, False)
+    torch.cuda.synchronize()
+    assert hf.ENTRIES.get("dfft_stage", 0) == ent.get("dfft_stage", 0) + 1
+    assert hf.ENTRIES.get("dfft_cdft", 0) == ent.get("dfft_cdft", 0)
+    assert _rel(y, hf.stage_plain(x, *hf._planes("dft", n, False, cuda))) \
+        <= 5e-4
+
+
+@pytest.mark.parametrize("n1", [2, 3, 4])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_axes_split_on_448(cuda, n1, inverse):
+    """The 896, 1344 and 1792 axes split n1 x 448: their first stage is
+    kernel 4 on the mixed-radix kernel (``dfft_cdft_tw``, 448 = 8 x 8 x
+    7), never the tile body, then the short stage; the whole axis against
+    ``torch.fft``."""
+    n = 448 * n1
+    x = _crandn((9, n), n1, cuda)
+    hf.reset_launches()
+    y = hf.ifft(x, axis=-1, norm=dft.FFTNorm.NONE) if inverse \
+        else hf.fft(x, axis=-1)
+    torch.cuda.synchronize()
+    assert hf.ENTRIES == {"dfft_cdft_tw": 1, "dfft_cdft_short": 1}
+    want = (torch.fft.ifft(x, norm="forward") if inverse
+            else torch.fft.fft(x))
+    assert _rel(y, want) <= 5e-4
+
+
+def test_zy_fwd_at_448_stays_dense(cuda):
+    """Kernel 6 at Y = Z = 448 keeps its dense body (one ``dfft_zy_fwd``):
+    the engine's radix 7 is routed for kernels 2 and 4 only."""
+    x = _randn((3, 448, 448), 71, cuda)
+    hf.reset_launches()
+    yr, yi = hf.zy_fwd(x)
+    torch.cuda.synchronize()
+    assert hf.ENTRIES == {"dfft_zy_fwd": 1}
+    pr, pi = hf.zy_fwd_plain(x, *hf._planes("rdft", 448, False, cuda),
+                             *hf._planes("dft", 448, False, cuda))
+    assert _rel(yr, pr) <= 5e-4 and _rel(yi, pi) <= 5e-4
 
 
 # Kernels 1 and 2's FFT bodies (``rdft`` / ``cdft``, hf._fft_body): every

@@ -2,25 +2,29 @@
 ``csrc/fft_rows.cuh``): its host side and the bodies it carries, on the
 CPU.
 
-* ``fft_plan(n, inverse)`` at every 5-smooth length in [8, 512] that is not
-  a power of two (``MIXED_LENGTHS``, 55 of them): radices of the kernel's
-  that multiply to n, the packed schedule, the twiddle table of n - radix[0]
-  entries from its documented layout; ``mixed_geometry``'s batch.
+* ``fft_plan(n, inverse)`` at every 7-smooth length in [8, 512] that is not
+  a power of two (``MIXED_LENGTHS``, 92 of them, the 55 5-smooth ones
+  among them): radices of the kernel's that multiply to n, the packed
+  schedule, the twiddle table of n - radix[0] entries from its documented
+  layout; ``mixed_geometry``'s batch.
 * ``fft_rows_mirror`` (the kernel's passes: ``_dft_small_mirror``'s radix
-  3, 5 and composite butterflies) against ``torch.fft`` at every length,
-  both directions (1e-5, float32 against float64), and against the JAX
-  package's ``pallas_fft._stage`` with ``_dft_np`` (its Pallas kernel in
-  interpret mode; 5e-4, the JAX per-stage bound) at 480, 320, 96 and 375.
+  3, 5, 7 and composite butterflies) against ``torch.fft`` at every
+  length, both directions (1e-5, float32 against float64), and against
+  the JAX package's ``pallas_fft._stage`` with ``_dft_np`` (its Pallas
+  kernel in interpret mode; 5e-4, the JAX per-stage bound) at 480, 320,
+  96, 375, 448, 343, 490 and 504: kernel 2's FFT body on the kernel.
 * Kernel 4 on the kernel (``cdft_tw_mirror``: the engine, then the twiddle
-  by ``r % n1``) at n2 320 and 480, n1 2 and 9, both directions, against
-  ``stage_plain`` and the JAX ``_call_stage`` with the twiddle.
+  by ``r % n1``) at n2 320, 480 and 448, n1 2 and 9, both directions,
+  against ``stage_plain`` and the JAX ``_call_stage`` with the twiddle.
 * Kernel 6's three passes on the kernel (``zy_fwd_mirror``) at 5-smooth Y
   and Z, against ``zy_fwd_plain`` and, followed by ``x_c2c_plain``, the JAX
   ``_rfftn3d_fused`` in interpret mode (5e-4).
-* The routes: ``_zy_fwd_body`` (kernel 6), ``_zy_body`` (kernel 8, powers
-  of two only), ``_cdft_tw_body`` (kernel 4) and ``_fft_body`` (kernels 1,
-  2, 3, 5 and 11, powers of two only), and the launches of ``zy_fwd``,
-  ``cdft_tw`` and a 4320-point axis with the launch patched.
+* The routes: ``_zy_fwd_body`` (kernel 6, 5-smooth), ``_zy_body`` (kernel
+  8, powers of two only), ``_cdft_body`` (kernels 2 and 4, 7-smooth) and
+  ``_fft_body`` (kernels 1, 3, 5 and 11, powers of two only), and the
+  launches of ``zy_fwd``, ``cdft``, ``cdft_tw``, a 4320-point axis and
+  ``chip_smoke.py``'s 256 x 480^2 and 64 x 896^2 batched stacks with the
+  launch patched.
 """
 
 import math
@@ -35,6 +39,7 @@ from distributedfft_tpu_torch.ops import hopper_fft as hf
 
 CPU = torch.device("cpu")
 MIXED = list(hf.MIXED_LENGTHS)
+MIXED5 = [n for n in MIXED if n % 7]       # the 5-smooth ones
 
 
 def _rel(a, b):
@@ -54,9 +59,11 @@ def _real(shape, seed):
 
 def test_mixed_lengths():
     smooth = [n for n in range(8, 513)
-              if n & (n - 1) and 2 ** 9 * 3 ** 6 * 5 ** 4 % n == 0]
+              if n & (n - 1) and 2 ** 9 * 3 ** 6 * 5 ** 4 * 7 ** 4 % n == 0]
     assert list(hf.MIXED_LENGTHS) == smooth
-    assert len(MIXED) == 55 and MIXED[0] == 9 and MIXED[-1] == 500
+    assert len(MIXED) == 92 and MIXED[0] == 9 and MIXED[-1] == 504
+    assert len(MIXED5) == 55 and MIXED5[-1] == 500
+    assert len([n for n in MIXED if n % 7 == 0]) == 37
 
 
 @pytest.mark.parametrize("n", MIXED)
@@ -101,10 +108,18 @@ def test_fft_plan_examples():
     assert hf.fft_plan(480, False).radices == (12, 10, 4)
     assert hf.fft_plan(320, False).radices == (10, 8, 4)
     assert hf.fft_plan(9, False).radices == (9,)
+    assert hf.fft_plan(448, False).radices == (8, 8, 7)
+    assert hf.fft_plan(343, False).radices == (7, 7, 7)
+    assert hf.fft_plan(14, False).radices == (14,)
+    assert hf.fft_plan(490, False).radices == (14, 7, 5)
     g = hf.mixed_geometry(480)
     assert (g.rows, g.points) == (5, 2400) and 0.17 < g.idle < 0.18
-    idle = [hf.mixed_geometry(n).idle for n in MIXED]
+    g = hf.mixed_geometry(448)
+    assert (g.rows, g.points) == (4, 1792) and 0.08 < g.idle < 0.09
+    idle = [hf.mixed_geometry(n).idle for n in MIXED5]
     assert 0.12 < sum(idle) / len(idle) < 0.14
+    idle = [hf.mixed_geometry(n).idle for n in MIXED]
+    assert 0.15 < sum(idle) / len(idle) < 0.16
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
@@ -120,7 +135,7 @@ def test_mirror_matches_torch_fft(n, inverse):
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
-@pytest.mark.parametrize("r", [3, 5, 6, 9, 10, 12, 15])
+@pytest.mark.parametrize("r", [3, 5, 6, 7, 9, 10, 12, 14, 15])
 def test_butterflies_match_the_dft(r, inverse):
     """Each of the kernel's odd and composite butterflies alone (a one-pass
     length where there is one, else ``_dft_small_mirror`` directly)."""
@@ -133,7 +148,7 @@ def test_butterflies_match_the_dft(r, inverse):
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
-@pytest.mark.parametrize("n", [480, 320, 96, 375])
+@pytest.mark.parametrize("n", [480, 320, 96, 375, 448, 343, 490, 504])
 def test_mirror_matches_jax_stage(n, inverse):
     """Against ``pallas_fft._stage`` with the dense DFT, its Pallas kernel
     in interpret mode."""
@@ -145,7 +160,7 @@ def test_mirror_matches_jax_stage(n, inverse):
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
 @pytest.mark.parametrize("n1", [2, 9])
-@pytest.mark.parametrize("n2", [320, 480])
+@pytest.mark.parametrize("n2", [320, 480, 448])
 def test_kernel4_mixed_rows_path(n2, n1, inverse):
     """Kernel 4's FFT body on the mixed-radix kernel: the engine on complex
     rows and the twiddle by ``r % n1`` (an odd M), against ``stage_plain``
@@ -200,9 +215,10 @@ def test_zy_mirror_then_x_matches_rfftn3d_fused(shape):
 def test_routes():
     """Kernel 6 takes the engine on 5-smooth Y and Z (Y even) and keeps its
     dense body on 448 = 2^6 7, on a prime and on an odd Y; kernel 8 stays
-    on powers of two; kernel 4 takes the engine on 5-smooth n2 up to 512
-    and its tile body on 448; the other kernels' ``_fft_body`` stays
-    powers of two."""
+    on powers of two; kernels 2 and 4 take the engine on 7-smooth lengths
+    up to 512 (448 among them) and their tile body on a length with a
+    factor past 7 (440 = 8 x 5 x 11, 416 = 32 x 13); the other kernels'
+    ``_fft_body`` stays powers of two."""
     for y, z in ((480, 480), (96, 120), (480, 40), (12, 10), (512, 480),
                  (480, 512), (8, 9), (500, 375)):
         assert hf._zy_fwd_body(y, z) == "fft", (y, z)
@@ -211,12 +227,15 @@ def test_routes():
                  (4, 480), (480, 2), (6, 12), (514, 480), (480, 1024)):
         assert hf._zy_fwd_body(y, z) == "dense", (y, z)
     assert hf._zy_fwd_body(512, 512) == hf._zy_body(512, 512) == "fft"
-    fft = [n for n in range(1, 2100) if hf._cdft_tw_body(n) == "fft"]
-    assert fft == sorted(MIXED + [8, 16, 32, 64, 128, 256, 512, 1024])
-    for n in (320, 480, 9, 500):
-        assert hf._cdft_tw_body(n) == "fft" and hf._fft_body(n) == "tile"
-    for n in (448, 7, 520, 1000, 206):
-        assert hf._cdft_tw_body(n) == "tile"
+    pow2 = [8, 16, 32, 64, 128, 256, 512, 1024]
+    fft = [n for n in range(1, 2100) if hf._cdft_body(n) == "fft"]
+    assert fft == sorted(MIXED + pow2)
+    assert [n for n in range(1, 2100) if hf._fft_body(n) == "fft"] == pow2
+    for n in (320, 480, 9, 500, 448, 14, 343, 504, 20):
+        assert hf._cdft_body(n) == "fft"
+        assert hf._fft_body(n) == "tile"
+    for n in (7, 520, 1000, 206, 440, 416, 11, 13, 4):
+        assert hf._cdft_body(n) == "tile"
 
 
 def _record_launches(monkeypatch):
@@ -255,18 +274,106 @@ def test_zy_fwd_launches(monkeypatch, shape):
     assert log[1][2][2:] == (X, Y, Z, ys)
 
 
-@pytest.mark.parametrize("n2", [320, 480, 448])
+@pytest.mark.parametrize("n2", [320, 480, 448, 416])
 def test_cdft_tw_launches(monkeypatch, n2):
+    """Kernel 4 at a 7-smooth n2 launches its FFT body with the mixed
+    schedule (448 = 8 x 8 x 7 among them), at 416 = 32 x 13 its tile
+    body."""
     log = _record_launches(monkeypatch)
     x = torch.zeros((18, n2), dtype=torch.complex64, device="meta")
     hf.cdft_tw(x, 9, True)
     ((kernel, entry, args),) = log
     assert kernel == "cmatmul_tw"
-    if n2 == 448:
+    if n2 == 416:
         assert entry == "dfft_stage"
     else:
         assert entry == "dfft_cdft_tw"
         assert args[5:] == (18, n2, 9, hf.mixed_schedule(n2, True), 1)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("n", [480, 448, 20, 512, 440, 416])
+def test_cdft_launches(monkeypatch, n, inverse):
+    """Kernel 2 on rows: ``dfft_cdft`` with ``mixed_schedule(n, inverse)``
+    at a 7-smooth n (480, 448, the verifier's 20-point x), with the
+    power-of-two kernel's schedule at 512, and its tile body
+    (``dfft_stage`` with the DFT planes) at 440 and 416."""
+    log = _record_launches(monkeypatch)
+    x = torch.zeros((7, n), dtype=torch.complex64, device="meta")
+    y = hf.cdft(x, inverse)
+    assert y.shape == (7, n) and y.dtype == torch.complex64
+    ((kernel, entry, args),) = log
+    assert kernel == "cmatmul"
+    if n in (440, 416):
+        assert entry == "dfft_stage"
+        assert args[6:] == (7, n, n, 1, 0, 0)
+        return
+    assert entry == "dfft_cdft"
+    sched = (hf.fft_plan(n, inverse).schedule if n == 512
+             else hf.mixed_schedule(n, inverse))
+    assert args[3:] == (7, n, sched, int(inverse))
+    assert args[1] is hf._fft_table(n, inverse, x.device)   # fft_plan's
+
+
+# chip_smoke.py's batched stacks on the mixed-radix kernel, one call a
+# direction: (shape, launches forward, inverse as (kernel, entry) pairs).
+_BATCHED_ENGINE = {
+    (256, 480, 480): (
+        [("rmatmul", "dfft_stage"), ("cmatmul", "dfft_cdft")],
+        [("cmatmul", "dfft_cdft"), ("c2r", "dfft_stage")]),
+    (64, 896, 896): (
+        [("rmatmul_tw", "dfft_stage"), ("cmatmul", "dfft_cdft_short"),
+         ("cmatmul_tw", "dfft_cdft_tw"), ("cmatmul", "dfft_cdft_short")],
+        [("cmatmul_tw", "dfft_cdft_tw"), ("cmatmul", "dfft_cdft_short")] * 2),
+}
+
+
+@pytest.mark.parametrize("shape", list(_BATCHED_ENGINE))
+def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
+                                                         shape):
+    """The "pallas" batched-2D plan at 256 x 480^2 (x moved last, kernel 2
+    on the mixed-radix kernel at 480; kernels 1 and 3 keep their tile
+    bodies) and 64 x 896^2 (both axes 2 x 448: kernel 4 on the
+    mixed-radix kernel, the 2-point short stage; kernel 5's first stage
+    keeps its tile body), recorded on "meta" tensors: neither kernel 2 nor
+    kernel 4 reaches ``dfft_stage``, and the entries are the ones
+    ``chip_smoke.py``'s ``BATCHED_CARD`` counts."""
+    import importlib.util
+    import pathlib
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from distributedfft_tpu_torch import Batched2DFFTPlan, Config
+    from distributedfft_tpu_torch import SlabPartition
+    log = _record_launches(monkeypatch)
+    plan = Batched2DFFTPlan(*shape, SlabPartition(1),
+                            Config(fft_backend="pallas"), device="cpu")
+    c = plan._build(True)(torch.zeros(shape, device="meta"))
+    fwd = [(k, e) for k, e, _ in log]
+    del log[:]
+    back = plan._build(False)(c)
+    inv = [(k, e) for k, e, _ in log]
+    assert c.shape == shape[:2] + (shape[2] // 2 + 1,)
+    assert back.shape == shape
+    assert (fwd, inv) == _BATCHED_ENGINE[shape]
+    for pairs in (fwd, inv):
+        assert ("cmatmul", "dfft_stage") not in pairs
+        assert ("cmatmul_tw", "dfft_stage") not in pairs
+    (pid,) = [p for p, v in smoke.BATCHED_CARD.items() if v[0] == shape]
+    _, _, ent_f, ent_i = smoke.BATCHED_CARD[pid][1]
+    for pairs, want in ((fwd, ent_f), (inv, ent_i)):
+        got = {}
+        for _, e in pairs:
+            got[e] = got.get(e, 0) + 1
+        assert got == want
+    kernels = smoke.BATCHED_ENGINE[pid]
+    for pairs in (fwd, inv):
+        seen = {}
+        for p in pairs:
+            seen[p] = seen.get(p, 0) + 1
+        smoke.on_the_engine(seen, pid, kernels)
 
 
 @pytest.mark.parametrize("fn", ["fft", "ifft", "irfft", "rfft"])
@@ -296,7 +403,9 @@ def test_4320_axis_runs_kernel4_on_the_engine(monkeypatch, fn):
 def test_kernel_source_agrees_with_the_host_side():
     """The constants ``fft_plan`` and ``mixed_schedule`` assume are the
     kernel's: its batch cap, longest row, block size, the schedule's rows
-    field and radices
+    field and radices (admitted, dispatched and given a butterfly:
+    ``dft_small``'s branches, its composites the mirror's ``_CT``, radix
+    7's float32 constants the mirror's ``_C7`` / ``_S7``)
     (``csrc/fft_rows.cuh``), so the host never plans a length the kernel
     refuses."""
     import pathlib
@@ -318,3 +427,17 @@ def test_kernel_source_agrees_with_the_host_side():
     dispatch = re.search(r"void with_radix\(int r, F&& f\) \{(.*?)\n\}", src,
                          re.S).group(1)
     assert {int(c) for c in re.findall(r"case (\d+):", dispatch)} == cases
+    small = re.search(r"void dft_small\(float2\* a, float sgn\) \{(.*?)\n\}",
+                      src, re.S).group(1)
+    composite = {int(r): (int(p), int(q)) for r, p, q in re.findall(
+        r"R == (\d+)[^;{]*[;{]\s*dft_ct<(\d+), (\d+)>", small)}
+    assert composite == hf._CT
+    odd = {int(r) for r in re.findall(r"R == (\d+)\) \{\s*dft\1\(", small)}
+    assert odd == {3, 5, 7}
+    assert {r for r in cases if r & (r - 1)} == odd | set(composite)
+    body = re.search(r"void dft7\(float2\* a, float sgn\) \{(.*?)\n\}", src,
+                     re.S).group(1)
+    lit = {name: np.float32(v) for name, v in re.findall(
+        r"constexpr float (\w+) = (-?[\d.]+)f;", body)}
+    assert [lit[f"C{m}"] for m in (1, 2, 3)] == list(hf._C7)
+    assert [lit[f"S{m}"] for m in (1, 2, 3)] == list(hf._S7)

@@ -4,11 +4,14 @@ card in two trees of the repo, alternated in one call (A, B, B, A), so
 that a change and its parent are compared on the same card under the same
 power limit:
 
-* kernel 6 (``zy_fwd``) at (512, 480, 480), and kernel 4 (``cdft_tw``,
+* kernel 6 (``zy_fwd``) at (512, 480, 480), kernel 4 (``cdft_tw``,
   forward) on 410880 rows of 320 points, n1 2 (the 640 split's first
-  stage), and on 155592 rows of 480, n1 9 (the 4320 split's), each
-  beside its plain version;
+  stage), on 155592 rows of 480, n1 9 (the 4320 split's), and on 410880
+  rows of 448, n1 2 (the 896 split's), and kernel 2 (``cdft``, forward)
+  on 131072 rows of 480 and of 448, each beside its plain version;
 * the 480^3 P = 1 slab plan, forward and inverse (kernels 6, 7 and 8);
+* the 256 x 480^2 and 64 x 896^2 batched-2D plans, forward and inverse
+  (kernel 2 at 480, kernel 4 at 448);
 * the 4320 convolution: 8 images of 4096^2 with a 225^2 kernel, "same",
   whose plan pads each axis to good_size 4320 = 9 x 480 (kernels 4 and 5
   on its first stages);
@@ -36,7 +39,9 @@ CONV = (8, 4096, 225)       # images, extent, kernel side
 BATCHED = (8, 4320, 4320)
 REPS = 5
 ZY = (512, 480, 480)
-TW = ((410880, 320, 2), (155592, 480, 9))   # rows, n2, n1
+TW = ((410880, 320, 2), (155592, 480, 9), (410880, 448, 2))  # rows, n2, n1
+CDFT = ((131072, 480), (131072, 448))       # rows, n
+STACKS = ((256, 480, 480), (64, 896, 896))
 
 
 def median_ms(torch, fn, reps=REPS):
@@ -106,6 +111,18 @@ def one(tree):
             rows=m, entries=entries(torch, hf, run),
             max_rel_err=max_rel(run(), ref), ms=median_ms(torch, run))
         del x, ref
+    for m, n in CDFT:
+        x = torch.randn((m, n), generator=gen, device="cuda",
+                        dtype=torch.complex64)
+        ref = hf.stage_plain(x, *hf._planes("dft", n, False, dev))
+
+        def run():
+            return hf.cdft(x, False)
+
+        row[f"kernel2_{n}"] = dict(
+            rows=m, entries=entries(torch, hf, run),
+            max_rel_err=max_rel(run(), ref), ms=median_ms(torch, run))
+        del x, ref
     torch.cuda.empty_cache()
 
     x = torch.randn(SLAB, generator=gen, device="cuda")
@@ -127,14 +144,18 @@ def one(tree):
                            call_ms=median_ms(torch, lambda: cv(img)))
     del img, cv
 
-    x = torch.rand(BATCHED, generator=gen, device="cuda")
-    p = dft.Batched2DFFTPlan(*BATCHED, dft.SlabPartition(1), pallas)
-    spec = p.exec_forward(x)
-    row["batched8x4320"] = dict(
-        entries_forward=entries(torch, hf, lambda: p.exec_forward(x)),
-        entries_inverse=entries(torch, hf, lambda: p.exec_inverse(spec)),
-        forward_ms=median_ms(torch, lambda: p.exec_forward(x)),
-        inverse_ms=median_ms(torch, lambda: p.exec_inverse(spec)))
+    for shape in (BATCHED,) + STACKS:
+        x = torch.rand(shape, generator=gen, device="cuda")
+        p = dft.Batched2DFFTPlan(*shape, dft.SlabPartition(1), pallas)
+        spec = p.exec_forward(x)
+        row["batched{}x{}".format(*shape)] = dict(
+            entries_forward=entries(torch, hf, lambda: p.exec_forward(x)),
+            entries_inverse=entries(torch, hf, lambda: p.exec_inverse(spec)),
+            forward_vs_rfft2=max_rel(spec, torch.fft.rfft2(x)),
+            forward_ms=median_ms(torch, lambda: p.exec_forward(x)),
+            inverse_ms=median_ms(torch, lambda: p.exec_inverse(spec)))
+        del x, p, spec
+        torch.cuda.empty_cache()
     print(json.dumps(row), flush=True)
 
 
