@@ -22,17 +22,18 @@ once, before any rank is spawned) and then, under
    batched 64 x 4096 x 4096 stack (the 8-point short stage of y and x,
    kernel 4's column body on x), the fused-wire kernels 9-11 at the per-rank shapes of a 1024^3 plan
    over four ranks (9 and 10 bit for bit, NaN and Inf included); kernel
-   6 at (512, 480, 480), kernel 4 at n2 = 320 (n1 = 2), 480 (n1 = 9,
-   the 8 x 4320^2 plan's x axis) and 448 (n1 = 2, an 896-point axis) and
-   kernel 2 at 480 and 448 on the row FFT engine's mixed-radix kernel;
-   kernels 1, 2, 3, 4, 5, 6, 7, 8 and 11 also on their other body (dense
-   or tile) at a shape the engine does not take (kernel 6 at 448, kernel
-   4 at n2 = 416, kernel 2 at 440, kernels 1 and 3 at 480);
+   6 at (512, 480, 480) and (512, 448, 448), kernel 4 at n2 = 320 (n1 =
+   2), 480 (n1 = 9, the 8 x 4320^2 plan's x axis), 448 and 416 (n1 = 2,
+   an 896- and an 832-point axis) and kernel 2 at 480, 448 and 440 on the
+   row FFT engine's mixed-radix kernel; kernels 1, 2, 3, 4, 5, 6, 7, 8
+   and 11 also on their other body (dense or tile) at a shape the engine
+   does not take (kernel 6 at 442, kernel 4 at n2 = 408, kernel 2 at 442,
+   kernels 1 and 3 at 480);
 2. runs a small cube against numpy, then the single-card slab plan at
-   512^3 (fused kernels) and at 480^3 (kernel 6 on the mixed-radix
-   engine, kernels 7 and 8 dense), at 1024^3 (per-axis kernels 1, 2 and
-   3, every axis one launch of the row FFT engine, y and x where they
-   lie) and at
+   512^3 (fused kernels), at 480^3 and at 448^3 (kernel 6 on the
+   mixed-radix engine, kernels 7 and 8 dense), at 1024^3 (per-axis
+   kernels 1, 2 and 3, every axis one launch of the row FFT engine, y and
+   x where they lie) and at
    2048 x 256 x 2048 (x and z split four-step, 4 x 512: kernels 4, 5 and
    2, x where it lies): ``exec_r2c`` then
    ``exec_c2r``, checked against ``torch.fft`` and the input, with the
@@ -101,10 +102,11 @@ once, before any rank is spawned) and then, under
    kernels 5, 4 and 2's short stage, the y C2R on the Hermitian
    extension) as a whole and with ``batch_chunk=1`` (bit-equal to the
    whole stack), 256 x 1024 x 1024 (kernels 1, 2 and 3), 256 x 480 x 480
-   (x on kernel 2's FFT body, the mixed-radix kernel) and 64 x 896 x 896
-   (both axes split 2 x 448, kernel 4 on the mixed-radix kernel), the two
-   last failing unless kernels 2 and 4 ran there and never their tile
-   bodies, each against ``torch.fft.rfft2`` and beside "xla", with peak
+   and 256 x 440 x 440 (x on kernel 2's FFT body, the mixed-radix kernel)
+   and 64 x 896 x 896 and 64 x 832 x 832 (both axes split 2 x 448 or 2 x
+   416, kernel 4 on the mixed-radix kernel), the four last failing unless
+   kernels 2 and 4 ran there and never their tile bodies, each against
+   ``torch.fft.rfft2`` and beside "xla", with peak
    memory and a profile of each direction; ``dfft-torch-batched``
    testcases 0 and 3 at 64 x 4096^2, whole and one image at a time; then
    two ranks sharing the card over gloo: ``shard="batch"`` at 64 x 4096^2
@@ -1369,12 +1371,13 @@ def pencil_rank_main(rank: int, addr: str, outdir: str) -> None:
 # way; the C2R of y inverts the Hermitian extension as a complex four-step
 # (kernel 4 on rows, the short stage). At 1024 points every axis is one
 # engine launch: y on rows (kernel 1, inverse kernel 3), x on kernel 2's
-# column body where it lies. At 480 points (not a power of two) x moves
-# last and runs on rows: kernel 2 on the engine's mixed-radix kernel; y
-# keeps kernels 1 and 3's tile bodies. At 896 = 2 x 448 both axes split: y
-# forward kernel 5's tile body at 448, x and the inverse's Hermitian
-# extension kernel 4 on the mixed-radix kernel (448 = 8 x 8 x 7), each
-# with its 2-point short stage.
+# column body where it lies. At 480 and 440 points (not powers of two) x
+# moves last and runs on rows: kernel 2 on the engine's mixed-radix kernel
+# (480 = 12 x 10 x 4, 440 = 11 x 10 x 4); y keeps kernels 1 and 3's tile
+# bodies. At 896 = 2 x 448 and 832 = 2 x 416 both axes split: y forward
+# kernel 5's tile body at 448 or 416, x and the inverse's Hermitian
+# extension kernel 4 on the mixed-radix kernel (448 = 8 x 8 x 7, 416 = 16
+# x 13 x 2), each with its 2-point short stage.
 BATCHED_SPLIT = (dict(rmatmul_tw=1, cmatmul=2, cmatmul_tw=1),
                  dict(cmatmul_tw=2, cmatmul=2),
                  {"dfft_rdft_tw": 1, "dfft_cdft_short": 2,
@@ -1384,27 +1387,34 @@ BATCHED_SPLIT = (dict(rmatmul_tw=1, cmatmul=2, cmatmul_tw=1),
 BATCHED_DIRECT_PATH = (dict(rmatmul=1, cmatmul=1), dict(cmatmul=1, c2r=1),
                        {"dfft_rdft": 1, "dfft_cdft_cols": 1},
                        {"dfft_cdft_cols": 1, "dfft_c2r": 1})
+# x moved last at 480 and 440; both axes split in halves at 896 and 832.
+BATCHED_MOVED_PATH = (dict(rmatmul=1, cmatmul=1), dict(cmatmul=1, c2r=1),
+                      {"dfft_stage": 1, "dfft_cdft": 1},
+                      {"dfft_cdft": 1, "dfft_stage": 1})
+BATCHED_HALVES_PATH = (dict(rmatmul_tw=1, cmatmul=2, cmatmul_tw=1),
+                       dict(cmatmul_tw=2, cmatmul=2),
+                       {"dfft_stage": 1, "dfft_cdft_short": 2,
+                        "dfft_cdft_tw": 1},
+                       {"dfft_cdft_tw": 2, "dfft_cdft_short": 2})
 BATCHED_480 = (256, 480, 480)   # 0.24 GB of spectrum
-BATCHED_480_PATH = (dict(rmatmul=1, cmatmul=1), dict(cmatmul=1, c2r=1),
-                    {"dfft_stage": 1, "dfft_cdft": 1},
-                    {"dfft_cdft": 1, "dfft_stage": 1})
+BATCHED_440 = (256, 440, 440)   # 0.20 GB of spectrum
 BATCHED_896 = (64, 896, 896)    # 0.21 GB of spectrum
-BATCHED_896_PATH = (dict(rmatmul_tw=1, cmatmul=2, cmatmul_tw=1),
-                    dict(cmatmul_tw=2, cmatmul=2),
-                    {"dfft_stage": 1, "dfft_cdft_short": 2,
-                     "dfft_cdft_tw": 1},
-                    {"dfft_cdft_tw": 2, "dfft_cdft_short": 2})
+BATCHED_832 = (64, 832, 832)    # 0.18 GB of spectrum
 # The single-card stacks: id -> (shape, one call's launches and entry
 # points, the batch_chunk values run beside the whole stack).
 BATCHED_CARD = {"batched_64x4096": (BATCHED, BATCHED_SPLIT, (1,)),
                 "batched_256x1024": (BATCHED_DIRECT, BATCHED_DIRECT_PATH,
                                      ()),
-                "batched_256x480": (BATCHED_480, BATCHED_480_PATH, ()),
-                "batched_64x896": (BATCHED_896, BATCHED_896_PATH, ())}
+                "batched_256x480": (BATCHED_480, BATCHED_MOVED_PATH, ()),
+                "batched_64x896": (BATCHED_896, BATCHED_HALVES_PATH, ()),
+                "batched_64x832": (BATCHED_832, BATCHED_HALVES_PATH, ()),
+                "batched_256x440": (BATCHED_440, BATCHED_MOVED_PATH, ())}
 # The stacks whose path proves that kernels 2 and 4 ran on the engine's
 # mixed-radix kernel (``on_the_engine``, each direction): id -> kernels.
 BATCHED_ENGINE = {"batched_256x480": ("cmatmul",),
-                  "batched_64x896": ("cmatmul_tw",)}
+                  "batched_64x896": ("cmatmul_tw",),
+                  "batched_64x832": ("cmatmul_tw",),
+                  "batched_256x440": ("cmatmul",)}
 # The shard="x" renderings at 16 x 512^2 on two ranks: id -> (Config
 # fields, launches forward, inverse, entry points forward, inverse).
 # STREAMS under ALL2ALL runs x on each of its 4 pieces of the batch after
@@ -2100,9 +2110,9 @@ def stage_cases(torch, hf, dev, gen):
     rows_4320 = wb * (wy // 2 + 1) * 9        # its x axis's first stage rows
     # Kernels 1, 2 and 3 take no F: rdft / cdft / irdft pick their body by
     # n (the FFT body at 512 and 1024, the row body at 4; kernels 1 and 3
-    # the tile body at 480, kernel 2 the engine's mixed-radix kernel at 480
-    # and 448 and its tile body at 440 = 8 x 5 x 11). An FFT body's bytes
-    # count no DFT matrix.
+    # the tile body at 480, kernel 2 the engine's mixed-radix kernel at
+    # 480, 448 and 440 = 11 x 10 x 4 and its tile body at 442 = 2 x 13 x
+    # 17). An FFT body's bytes count no DFT matrix.
     return [
         dict(name="rmatmul", replaces=f"{PALLAS}:182",
              shape=dict(M=rows_r, n=N, k=k_r),
@@ -2133,9 +2143,9 @@ def stage_cases(torch, hf, dev, gen):
              flops=fft_flops(rows_zyx, N), gemm_flops=8 * rows_zyx * N * N,
              bytes=16 * rows_zyx * N),
         # Kernel 1's tile body at 480 points (no power of two), kernel 2's
-        # FFT body on the mixed-radix kernel at 480 and 448 and its tile
-        # body at 440 (a factor past 7), on as many rows as a rank's z rows
-        # of the 512^3 two-rank plan.
+        # FFT body on the mixed-radix kernel at 480, 448 and 440 and its
+        # tile body at 442 (a factor past 13), on as many rows as a rank's
+        # z rows of the 512^3 two-rank plan.
         dict(name="rmatmul", variant="tile_480", body="tile",
              replaces=f"{PALLAS}:182", shape=dict(M=rows_r, n=480, k=k480),
              make=lambda: dict(x=rr(rows_r, 480), F=planes("rdft", 480)),
@@ -2152,15 +2162,15 @@ def stage_cases(torch, hf, dev, gen):
                plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
                library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
                flops=fft_flops(rows_r, n), gemm_flops=8 * rows_r * n * n,
-               bytes=16 * rows_r * n) for n in (480, 448)),
-        dict(name="cmatmul", variant="tile_440", body="tile",
-             replaces=f"{PALLAS}:164", shape=dict(M=rows_r, n=440, k=440),
-             make=lambda: dict(x=cr(rows_r, 440), F=planes("dft", 440)),
+               bytes=16 * rows_r * n) for n in (480, 448, 440)),
+        dict(name="cmatmul", variant="tile_442", body="tile",
+             replaces=f"{PALLAS}:164", shape=dict(M=rows_r, n=442, k=442),
+             make=lambda: dict(x=cr(rows_r, 442), F=planes("dft", 442)),
              run=lambda t: hf.cdft(t["x"], False),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
              library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
-             flops=fft_flops(rows_r, 440), gemm_flops=8 * rows_r * 440 * 440,
-             bytes=16 * rows_r * 440 + 8 * 440 * 440),
+             flops=fft_flops(rows_r, 442), gemm_flops=8 * rows_r * 442 * 442,
+             bytes=16 * rows_r * 442 + 8 * 442 * 442),
         dict(name="cmatmul", variant="fft_1024", replaces=f"{PALLAS}:164",
              shape=dict(M=big_c, n=NBIG, k=NBIG),
              make=lambda: dict(x=cr(big_c, NBIG), F=planes("dft", NBIG)),
@@ -2251,10 +2261,11 @@ def stage_cases(torch, hf, dev, gen):
         # Kernel 4 takes no F: cdft_tw picks its body by n2 (the FFT body
         # at 512, the 2048-point axis's 4 x 512, and, on the engine's
         # mixed-radix kernel, at 320, the 640-point axis's 2 x 320, at 480,
-        # the 4320-point axis's 9 x 480, and at 448, the 896-point axis's 2
-        # x 448; the tile body at 416 = 32 x 13, an 832-point axis's 2 x
-        # 416). "rows": torch.fft.fft of the same rows, the stage without
-        # its twiddle, the nearer yardstick beside the whole axis.
+        # the 4320-point axis's 9 x 480, at 448, the 896-point axis's 2 x
+        # 448, and at 416 = 16 x 13 x 2, the 832-point axis's 2 x 416; the
+        # tile body at 408 = 24 x 17, an 816-point axis's 2 x 408). "rows":
+        # torch.fft.fft of the same rows, the stage without its twiddle,
+        # the nearer yardstick beside the whole axis.
         dict(name="cmatmul_tw", replaces=f"{PALLAS}:171",
              shape=dict(M=big_tw, n=N, k=N, n1=4),
              make=lambda: dict(x=cr(big_tw, N), F=planes("dft", N),
@@ -2337,35 +2348,35 @@ def stage_cases(torch, hf, dev, gen):
              flops=fft_flops(rows_4320, 480) + 6 * rows_4320 * 480,
              gemm_flops=8 * rows_4320 * 480 * 480,
              bytes=16 * rows_4320 * 480 + 8 * 9 * 480),
-        dict(name="cmatmul_tw", variant="fft_n2_448",
+        *(dict(name="cmatmul_tw", variant=f"fft_n2_{n}",
+               replaces=f"{PALLAS}:171",
+               shape=dict(M=rows_640c, n=n, k=n, n1=2),
+               make=lambda n=n: dict(x=cr(rows_640c, n), F=planes("dft", n),
+                                     T=hf._twiddle_planes(2, n, False, dev),
+                                     z=cr(rows_640c // 2, 2 * n)),
+               run=lambda t: hf.cdft_tw(t["x"], 2, False),
+               plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
+               pair=lambda t: hf._fft_last(t["z"], False),
+               rows=lambda t: torch.fft.fft(t["x"]),
+               library=lambda t: torch.fft.fft(t["z"]),
+               library_call=f"fft of the whole {2 * n}-point axis",
+               flops=fft_flops(rows_640c, n) + 6 * rows_640c * n,
+               gemm_flops=8 * rows_640c * n * n,
+               bytes=16 * rows_640c * n + 8 * 2 * n) for n in (448, 416)),
+        dict(name="cmatmul_tw", variant="tile_n2_408", body="tile",
              replaces=f"{PALLAS}:171",
-             shape=dict(M=rows_640c, n=448, k=448, n1=2),
-             make=lambda: dict(x=cr(rows_640c, 448), F=planes("dft", 448),
-                               T=hf._twiddle_planes(2, 448, False, dev),
-                               z=cr(rows_640c // 2, 896)),
+             shape=dict(M=rows_640c, n=408, k=408, n1=2),
+             make=lambda: dict(x=cr(rows_640c, 408), F=planes("dft", 408),
+                               T=hf._twiddle_planes(2, 408, False, dev),
+                               z=cr(rows_640c // 2, 816)),
              run=lambda t: hf.cdft_tw(t["x"], 2, False),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
-             pair=lambda t: hf._fft_last(t["z"], False),
              rows=lambda t: torch.fft.fft(t["x"]),
              library=lambda t: torch.fft.fft(t["z"]),
-             library_call="fft of the whole 896-point axis",
-             flops=fft_flops(rows_640c, 448) + 6 * rows_640c * 448,
-             gemm_flops=8 * rows_640c * 448 * 448,
-             bytes=16 * rows_640c * 448 + 8 * 2 * 448),
-        dict(name="cmatmul_tw", variant="tile_n2_416", body="tile",
-             replaces=f"{PALLAS}:171",
-             shape=dict(M=rows_640c, n=416, k=416, n1=2),
-             make=lambda: dict(x=cr(rows_640c, 416), F=planes("dft", 416),
-                               T=hf._twiddle_planes(2, 416, False, dev),
-                               z=cr(rows_640c // 2, 832)),
-             run=lambda t: hf.cdft_tw(t["x"], 2, False),
-             plain=lambda t: hf.stage_plain(t["x"], *t["F"], *t["T"]),
-             rows=lambda t: torch.fft.fft(t["x"]),
-             library=lambda t: torch.fft.fft(t["z"]),
-             library_call="fft of the whole 832-point axis",
-             flops=fft_flops(rows_640c, 416) + 6 * rows_640c * 416,
-             gemm_flops=8 * rows_640c * 416 * 416,
-             bytes=16 * rows_640c * 416 + 8 * 416 * 416 + 8 * 2 * 416),
+             library_call="fft of the whole 816-point axis",
+             flops=fft_flops(rows_640c, 408) + 6 * rows_640c * 408,
+             gemm_flops=8 * rows_640c * 408 * 408,
+             bytes=16 * rows_640c * 408 + 8 * 408 * 408 + 8 * 2 * 408),
         # Kernel 5 takes no F: rdft_tw picks its body by n2 (the FFT body
         # at 512, the 2048-point axis's 4 x 512; the tile body at 320, the
         # 640-point axis's 2 x 320).
@@ -2489,54 +2500,57 @@ FUSED_PATH = (dict(zy_fwd=3, x_c2c=1), dict(x_c2c=1, yz_inv=3),
               {"dfft_x_cols": 1, "dfft_yz_scratch": 1, "dfft_yz_cols": 1,
                "dfft_yz_rows": 1})
 
-# The 480^3 fused plan, per direction: launches and entry points. Kernel
-# 6's FFT body on the engine's mixed-radix kernel (480 = 12 x 10 x 4 on
-# both passes), kernels 7 and 8 on their dense bodies (no FFT body at 480
-# yet).
+# The 480^3 and 448^3 fused plans, per direction: launches and entry
+# points. Kernel 6's FFT body on the engine's mixed-radix kernel (480 = 12
+# x 10 x 4, 448 = 8 x 8 x 7 on both passes), kernels 7 and 8 on their
+# dense bodies (no FFT body off the powers of two yet).
 FUSED_480 = (480, 480, 480)
-FUSED_480_PATH = (dict(zy_fwd=3, x_c2c=1), dict(x_c2c=1, yz_inv=1),
-                  {"dfft_zy_rows": 1, "dfft_zy_cols": 1, "dfft_zy_planes": 1,
-                   "dfft_x_c2c": 1},
-                  {"dfft_x_c2c": 1, "dfft_yz_inv": 1})
+FUSED_448 = (448, 448, 448)
+FUSED_MIXED_PATH = (dict(zy_fwd=3, x_c2c=1), dict(x_c2c=1, yz_inv=1),
+                    {"dfft_zy_rows": 1, "dfft_zy_cols": 1,
+                     "dfft_zy_planes": 1, "dfft_x_c2c": 1},
+                    {"dfft_x_c2c": 1, "dfft_yz_inv": 1})
+# id -> (shape, its launches and entry points).
+FUSED_SLABS = {"fused_480": (FUSED_480, FUSED_MIXED_PATH),
+               "fused_448": (FUSED_448, FUSED_MIXED_PATH)}
 
 
-def fused_480_path(torch, dft, hf, gen):
-    """The 480^3 single-card slab plan under "pallas" (0.44 GB): launches
-    and entry points per direction, the forward against torch.fft.rfftn
-    and the roundtrip against the input, each direction's ms beside
-    "xla"'s and rfftn's, and the forward's ms by entry point. Returns the
-    roundtrip's launches and the times."""
-    shape = FUSED_480
+def fused_slab_path(torch, dft, hf, gen, pid):
+    """A single-card slab plan of ``FUSED_SLABS`` under "pallas" (480^3:
+    0.44 GB, 448^3: 0.36 GB): launches and entry points per direction, the
+    forward against torch.fft.rfftn and the roundtrip against the input,
+    each direction's ms beside "xla"'s and rfftn's, and the forward's ms
+    by entry point. Returns the roundtrip's launches and the times."""
+    shape, (want_f, want_i, ef, ei) = FUSED_SLABS[pid]
     x = torch.randn(shape, generator=gen, device="cuda")
     plan = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
                            dft.Config(fft_backend="pallas"))
     c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, x)
-    emit(phase="main_path", path="fused_480", shape=list(shape),
+    emit(phase="main_path", path=pid, shape=list(shape),
          launches_forward=fwd, launches_inverse=inv, entries_forward=ent_f,
          entries_inverse=ent_i)
-    want_f, want_i, ef, ei = FUSED_480_PATH
     if fwd != expect(hf, **want_f) or inv != expect(hf, **want_i) or \
             ent_f != ef or ent_i != ei:
-        fail(f"fused_480 plan did not launch as expected: forward {fwd} "
+        fail(f"{pid} plan did not launch as expected: forward {fwd} "
              f"(entries {ent_f}), inverse {inv} (entries {ent_i})")
     if tuple(c.shape) != shape[:2] + (shape[2] // 2 + 1,) or \
             not bool(torch.isfinite(c).all()) or \
             not bool(torch.isfinite(back).all()):
-        fail(f"fused_480 outputs {tuple(c.shape)}, finite "
+        fail(f"{pid} outputs {tuple(c.shape)}, finite "
              f"{bool(torch.isfinite(c).all())}")
     _, fwd_rel = rel_err(c, torch.fft.rfftn(x))
     _, rt_rel = rel_err(back / float(math.prod(shape)), x)
-    emit(phase="main_path_check", path="fused_480",
+    emit(phase="main_path_check", path=pid,
          forward_vs_torch_fft=fwd_rel, roundtrip_vs_input=rt_rel, tol=TOL)
     if not (fwd_rel <= TOL and rt_rel <= TOL):
-        fail(f"fused_480 plan wrong: forward rel {fwd_rel:.3e}, roundtrip "
+        fail(f"{pid} plan wrong: forward rel {fwd_rel:.3e}, roundtrip "
              f"rel {rt_rel:.3e} (tol {TOL})")
     del back
     xla = dft.SlabFFTPlan(dft.GlobalSize(*shape), dft.SlabPartition(1),
                           dft.Config())
     cx = xla.exec_r2c(x)
     timed = dict(
-        path="fused_480", shape=list(shape),
+        path=pid, shape=list(shape),
         pallas_forward_ms=median_ms(torch, lambda: plan.exec_r2c(x)),
         pallas_inverse_ms=median_ms(torch, lambda: plan.exec_c2r(c)),
         xla_forward_ms=median_ms(torch, lambda: xla.exec_r2c(x)),
@@ -4919,13 +4933,14 @@ SERVE_LOADS = (0.7, 1.5)        # x the throughput the warm batch implies
 SERVE_CAPTURE_TRIES = 3         # the tracer can lose kernel records: capture anew
 
 
-def capture_complete(what, port_events, launched):
+def capture_complete(what, port_records, launched):
     """Fail unless a capture's trace holds a record of every launch of the
-    port's kernels in its window (``port_kernel_events``: the kernels no
-    aten op launched, so aten's own kernels cannot make up for lost
-    ones)."""
-    if port_events < launched:
-        fail(f"{what}: the trace kept {port_events} of the {launched} "
+    port's kernels in its window (``port_kernel_records``: the kernel
+    records of the port's kernels by name, so aten's own kernels cannot
+    make up for lost ones, and a launch whose host-side record the trace
+    lost or put inside an aten op still counts by its kernel)."""
+    if port_records < launched:
+        fail(f"{what}: the trace kept {port_records} of the {launched} "
              f"kernel launches after {SERVE_CAPTURE_TRIES} captures")
 SERVE_VOLUMES = (N, NBIG)       # single-shot volumes: fused, per axis
 SERVE_RESIDENT_N = N            # the NS-3D resident beside the traffic
@@ -5073,9 +5088,7 @@ def serve_volumes(torch, hf, s, dev):
 def serve_drives(torch, hf, obs, s, dev, capacity):
     """The open-loop drives of 4096^2 r2c forwards at SERVE_LOADS x
     ``capacity`` (FFTs/s), each SERVE_DRIVE_S long, with the split of a
-    request's time; then one at the first load under the profiler for the
-    device's idle share. Returns (launches, rows)."""
-    from distributedfft_tpu_torch.obs import profile
+    request's time. Returns (launches, rows)."""
     from distributedfft_tpu_torch.testing.workloads import serve_load
     launches, rows = {}, {}
     for load in SERVE_LOADS:
@@ -5091,20 +5104,42 @@ def serve_drives(torch, hf, obs, s, dev, capacity):
         out["load"] = load
         rows[f"drive_{load}x"] = out
         emit(phase="serve_drive", **out)
-    for attempt in range(1, SERVE_CAPTURE_TRIES + 1):
-        obs.reset()
-        hf.reset_launches()
-        with profile.capture_window(dev) as win:
-            out = serve_load(s, rate_hz=SERVE_LOADS[0] * capacity,
-                             duration_s=SERVE_IDLE_S, shapes=(SERVE_IMAGE,),
-                             seed=SEED + 1, warmup=0)
-        serve_requests_ok(out, "profiled drive")
-        res = win.result
-        launched = sum(hf.LAUNCHES.values())
-        if res["port_kernel_events"] >= launched:
-            break
-    capture_complete("profiled drive", res["port_kernel_events"], launched)
-    rows["idle"] = dict(
+    return launches, rows
+
+
+def serve_idle_row(torch, dft, hf, dev, capacity):
+    """A drive at the first of SERVE_LOADS x ``capacity`` under the
+    profiler for the device's idle share, on a server of its own warmed
+    by a drive outside the window; taken again (up to
+    SERVE_CAPTURE_TRIES) until the trace holds a record for every launch
+    of the port's kernels in the window."""
+    from distributedfft_tpu_torch import obs
+    from distributedfft_tpu_torch.obs import profile
+    from distributedfft_tpu_torch.serve import Server
+    from distributedfft_tpu_torch.testing.workloads import serve_load
+    s = Server(config=dft.Config(fft_backend="pallas"),
+               max_coalesce=SERVE_COALESCE, batch_chunk=1, device=dev)
+    try:
+        serve_load(s, rate_hz=SERVE_LOADS[0] * capacity,
+                   duration_s=SERVE_IDLE_S, shapes=(SERVE_IMAGE,),
+                   seed=SEED, warmup=1)
+        torch.cuda.synchronize()
+        for attempt in range(1, SERVE_CAPTURE_TRIES + 1):
+            obs.reset()
+            hf.reset_launches()
+            with profile.capture_window(dev) as win:
+                out = serve_load(s, rate_hz=SERVE_LOADS[0] * capacity,
+                                 duration_s=SERVE_IDLE_S,
+                                 shapes=(SERVE_IMAGE,), seed=SEED + 1,
+                                 warmup=0)
+            serve_requests_ok(out, "profiled drive")
+            res = win.result
+            launched = sum(hf.LAUNCHES.values())
+            if res["port_kernel_records"] >= launched:
+                break
+    finally:
+        s.close(drain=False)
+    return dict(
         load=SERVE_LOADS[0], seconds=SERVE_IDLE_S, outcomes=out["outcomes"],
         p50_ms=out["p50_ms"], idle_share=res["idle_share"],
         kernel_idle_share=res["kernel_idle_share"],
@@ -5114,10 +5149,9 @@ def serve_drives(torch, hf, obs, s, dev, capacity):
         unattributed_ms=res["unattributed_ms"],
         kernel_events=res["kernel_events"],
         port_kernel_events=res["port_kernel_events"],
+        port_kernel_records=res["port_kernel_records"],
         kernels_launched=launched, attempts=attempt,
         note="under torch.profiler (CPU and CUDA activities)")
-    emit(phase="serve_idle", **rows["idle"])
-    return launches, rows
 
 
 def serve_resident(torch, hf, obs, s, dev, capacity, ckdir):
@@ -5321,7 +5355,7 @@ def serve_capture_rows(torch, dft, hf, dev):
         for attempt in range(1, SERVE_CAPTURE_TRIES + 1):
             r = profile.capture_stage_profile(plan, d, iters=3)
             r.update(attempts=attempt, kernels_launched=want,
-                     complete=r["port_kernel_events"] >= want)
+                     complete=r["port_kernel_records"] >= want)
             if r["complete"]:
                 break
         rows[f"slab_{NBIG}_{d}"] = r
@@ -5346,7 +5380,7 @@ def serve_capture_rows(torch, dft, hf, dev):
                 ch = step(ch)
             want = sum(hf.LAUNCHES.values())
             res = win.result
-            if res["port_kernel_events"] >= want:
+            if res["port_kernel_records"] >= want:
                 break
     rows[f"ns3d_{n}_step"] = dict(
         scopes=res["scopes"], unattributed_ms=res["unattributed_ms"],
@@ -5354,38 +5388,49 @@ def serve_capture_rows(torch, dft, hf, dev):
         window_ms=res["window_ms"], idle_share=res["idle_share"],
         kernel_idle_share=res["kernel_idle_share"],
         kernel_events=res["kernel_events"],
-        port_kernel_events=res["port_kernel_events"], kernels_launched=want,
-        attempts=attempt, complete=res["port_kernel_events"] >= want,
+        port_kernel_events=res["port_kernel_events"],
+        port_kernel_records=res["port_kernel_records"], kernels_launched=want,
+        attempts=attempt, complete=res["port_kernel_records"] >= want,
         transforms_share=(sum(res["scopes"].values()) / res["total_ms"]
                           if res["total_ms"] else None))
     return rows
 
 
-def serve_capture_main(rank: int, outdir: str) -> None:
+def serve_capture_main(rank: int, outdir: str, capacity: float) -> None:
     """The captures in a process of their own: late in this script's long
     process the tracer lost every kernel record of a 1024^3 capture on an
-    H100; in a fresh process it kept them."""
+    H100, and a quarter of a profiled drive's; in a fresh process it kept
+    them."""
     import torch
     import distributedfft_tpu_torch as dft
     from distributedfft_tpu_torch.ops import hopper_fft as hf
     torch.cuda.set_device(0)
-    rows = serve_capture_rows(torch, dft, hf, torch.device("cuda"))
+    dev = torch.device("cuda")
+    rows = serve_capture_rows(torch, dft, hf, dev)
+    torch.cuda.empty_cache()
+    idle = serve_idle_row(torch, dft, hf, dev, capacity)
     with open(os.path.join(outdir, "serve_capture.json"), "w") as f:
-        json.dump(rows, f)
+        json.dump(dict(captures=rows, idle=idle), f)
 
 
-def serve_captures(outdir):
-    """Spawn the capture process; emit its rows."""
+def serve_captures(outdir, capacity):
+    """Spawn the capture process; emit its rows. Returns (the captures'
+    rows, the profiled drive's row)."""
     import torch.multiprocessing as tmp
-    tmp.spawn(serve_capture_main, args=(outdir,), nprocs=1, join=True)
+    tmp.spawn(serve_capture_main, args=(outdir, capacity), nprocs=1,
+              join=True)
     with open(os.path.join(outdir, "serve_capture.json")) as f:
-        rows = json.load(f)
+        got = json.load(f)
+    rows, idle = got["captures"], got["idle"]
     for k, v in rows.items():
         emit(phase="serve_capture", path=k, **v)
+    emit(phase="serve_idle", **idle)
     for k, v in rows.items():
-        capture_complete(f"capture {k}", v["port_kernel_events"],
+        capture_complete(f"capture {k}", v["port_kernel_records"],
                          v["kernels_launched"])
-    return rows
+    capture_complete("profiled drive", idle["port_kernel_records"],
+                     idle["kernels_launched"])
+    return rows, idle
 
 
 def serve_rank_main(rank: int, addr: str, outdir: str) -> None:
@@ -5479,7 +5524,7 @@ def serve_rank_main(rank: int, addr: str, outdir: str) -> None:
             hf.reset_launches()
             cap = profile.capture_stage_profile(plan, d, iters=3)
             want = 3 * sum(hf.LAUNCHES.values()) // 4
-            kept = torch.tensor([int(cap["port_kernel_events"] >= want)])
+            kept = torch.tensor([int(cap["port_kernel_records"] >= want)])
             dist.all_reduce(kept, op=dist.ReduceOp.MIN, group=bar)
             if kept.item():
                 break
@@ -5518,7 +5563,7 @@ def serve_ranks(multihost, outdir):
         for d in ("forward", "inverse"):
             cap = rk[f"capture_{d}"]
             capture_complete(f"rank {rk['rank']} capture {d}",
-                             cap["port_kernel_events"],
+                             cap["port_kernel_records"],
                              cap["kernels_launched"])
     launches = {}
     for rk in rows:
@@ -5580,7 +5625,7 @@ def serve_phase(torch, dft, hf, multihost, dev, outdir):
     torch.cuda.empty_cache()
     got, rows["ranks"] = serve_ranks(multihost, outdir)
     launches.update(got)
-    rows["captures"] = serve_captures(outdir)
+    rows["captures"], rows["idle"] = serve_captures(outdir, capacity)
     rows["seconds"] = time.perf_counter() - t_phase
     emit(phase="serve_done", seconds=rows["seconds"])
     return launches, rows
@@ -6337,9 +6382,10 @@ def analysis_profile(torch, hf, plan, what, agree=None):
             # one warmup call precedes the window's ANALYSIS_ITERS calls
             in_window = sum(got.values()) * ANALYSIS_ITERS \
                 // (ANALYSIS_ITERS + 1)
-            if agree(cap["port_kernel_events"] >= in_window):
+            if agree(cap["port_kernel_records"] >= in_window):
                 break
-        capture_complete(f"{what} {d}", cap["port_kernel_events"], in_window)
+        capture_complete(f"{what} {d}", cap["port_kernel_records"],
+                         in_window)
         prof = profile.stage_profile(plan, d, capture=cap)
         nodes = [r for r in prof["stages"]
                  if r["kind"] not in ("input", "output")]
@@ -6361,6 +6407,7 @@ def analysis_profile(torch, hf, plan, what, agree=None):
             idle_share=prof["idle_share"],
             kernel_idle_share=prof["kernel_idle_share"],
             port_kernel_events=cap["port_kernel_events"],
+            port_kernel_records=cap["port_kernel_records"],
             launches_in_window=in_window,
             lines=profile.format_stage_profile(prof))
         launches[d] = got
@@ -6638,7 +6685,8 @@ def main() -> int:
     x = randn(N, N, N)
     x480 = randn(N, 480, 480)     # kernel 6 on the mixed-radix engine,
     Z4 = 480 // 2 + 1             # kernel 8's dense body (not powers of two)
-    x448 = randn(N, 448, 448)     # kernel 6's dense body (448 = 2^6 7)
+    x448 = randn(N, 448, 448)     # kernel 6 on the engine at 448 = 8 x 8 x 7
+    x442 = randn(N, 442, 442)     # its dense body (442 = 2 x 13 x 17)
     pr480, pi480 = randn(N, 480, Z4), randn(N, 480, Z4)
     pr, pi = randn(N, N, Zo), randn(N, N, Zo)
     fzr, fzi = hf._planes("rdft", N, False, dev)
@@ -6657,6 +6705,9 @@ def main() -> int:
     f448 = (hf._planes("rdft", 448, False, dev) + hf._planes("dft", 448, False,
                                                              dev))
     Z8 = 448 // 2 + 1
+    f442 = (hf._planes("rdft", 442, False, dev) + hf._planes("dft", 442, False,
+                                                             dev))
+    Z2 = 442 // 2 + 1
     i480 = (hf._planes("dft", 480, True, dev) + hf._planes("c2r", 480, False,
                                                            dev))
     fused = [
@@ -6668,8 +6719,8 @@ def main() -> int:
              flops=fft_flops(X * Y, Z, real=True) + fft_flops(X * Zo, Y),
              gemm_flops=4 * X * Y * Z * Zo + 8 * X * Y * Y * Zo,
              bytes=4 * (X * Y * Z + 2 * X * Y * Zo)),
-        # Kernel 6 at 480 on the engine's mixed-radix kernel (its three
-        # passes), and its dense body at 448.
+        # Kernel 6 at 480 and 448 on the engine's mixed-radix kernel (its
+        # three passes), and its dense body at 442 (a factor past 13).
         dict(name="zy_fwd", variant="fft_480",
              replaces=f"{PALLAS}:427",
              shape=dict(X=X, Y=480, Z=480),
@@ -6679,7 +6730,7 @@ def main() -> int:
              flops=fft_flops(X * 480, 480, real=True) + fft_flops(X * Z4, 480),
              gemm_flops=4 * X * 480 * 480 * Z4 + 8 * X * 480 * 480 * Z4,
              bytes=4 * (X * 480 * 480 + 2 * X * 480 * Z4)),
-        dict(name="zy_fwd", variant="dense_448", body="dense",
+        dict(name="zy_fwd", variant="fft_448",
              replaces=f"{PALLAS}:427",
              shape=dict(X=X, Y=448, Z=448),
              run=lambda: hf.zy_fwd(x448),
@@ -6687,8 +6738,17 @@ def main() -> int:
              library=lambda: torch.fft.rfft2(x448), library_call="rfft2",
              flops=fft_flops(X * 448, 448, real=True) + fft_flops(X * Z8, 448),
              gemm_flops=4 * X * 448 * 448 * Z8 + 8 * X * 448 * 448 * Z8,
-             bytes=4 * (X * 448 * 448 + 2 * 448 * Z8 + 2 * 448 * 448
-                        + 2 * X * 448 * Z8)),
+             bytes=4 * (X * 448 * 448 + 2 * X * 448 * Z8)),
+        dict(name="zy_fwd", variant="dense_442", body="dense",
+             replaces=f"{PALLAS}:427",
+             shape=dict(X=X, Y=442, Z=442),
+             run=lambda: hf.zy_fwd(x442),
+             plain=lambda: hf.zy_fwd_plain(x442, *f442),
+             library=lambda: torch.fft.rfft2(x442), library_call="rfft2",
+             flops=fft_flops(X * 442, 442, real=True) + fft_flops(X * Z2, 442),
+             gemm_flops=4 * X * 442 * 442 * Z2 + 8 * X * 442 * 442 * Z2,
+             bytes=4 * (X * 442 * 442 + 2 * 442 * Z2 + 2 * 442 * 442
+                        + 2 * X * 442 * Z2)),
         # Kernel 7 on each layout pair the fused plan launches: the
         # inverse's (the complex64 spectrum in, kernel 8's planes out) and
         # the forward's (kernel 6's planes in, the spectrum out); the dense
@@ -6827,13 +6887,16 @@ def main() -> int:
          **plan_times["fused_512"],
          forward_profile=device_profile(torch, lambda: plan.exec_r2c(x)),
          inverse_profile=device_profile(torch, lambda: plan.exec_c2r(cp)))
-    del x, x480, x448, pr, pi, pc, pr480, pi480, pc480, xr480, xi480, cp, cx, \
+    del x, x480, x448, x442, pr, pi, pc, pr480, pi480, pc480, xr480, xi480, \
+        cp, cx, \
         plan, xla
     torch.cuda.empty_cache()
 
-    # -- 5b. the 480^3 fused plan: kernel 6 on the mixed-radix engine --------
-    launches["fused_480"], plan_times["fused_480"] = fused_480_path(
-        torch, dft, hf, gen)
+    # -- 5b. the 480^3 and 448^3 fused plans: kernel 6 on the mixed-radix ----
+    # engine
+    for pid in FUSED_SLABS:
+        launches[pid], plan_times[pid] = fused_slab_path(torch, dft, hf, gen,
+                                                         pid)
 
     # -- 6. per-axis kernels 1-5: check against plain, then time -------------
     staged = stage_cases(torch, hf, dev, gen)

@@ -2,9 +2,9 @@
 // stage.cu (kernels 1, 2, 3, 4 and 5) and fused3d.cu (kernels 6, 7 and 8):
 // the DFT of every row of a batch of power-of-two rows, 8 <= n <= 1024, in
 // shared memory and registers; on the same design its mixed-radix kernel
-// (fft_mixed_kernel below), rows of the 92 7-smooth lengths 2^a 3^b 5^c 7^d
-// in [9, 504] that are not powers of two (kernel 2's and kernel 4's rows;
-// both passes of kernel 6 at 5-smooth Y and Z, powers of two beside them
+// (fft_mixed_kernel below), rows of the 155 13-smooth lengths 2^a 3^b 5^c
+// 7^d 11^e 13^f in [9, 507] that are not powers of two (kernel 2's and
+// kernel 4's rows; both passes of kernel 6, powers of two beside them
 // included); and, on the same passes and twiddle table, the column kernel
 // (kernel 7, kernel 2 on a non-last axis, kernel 4 on a non-last split
 // axis), the DFT of every column of an (outer, n, inner) array; and, on
@@ -16,7 +16,7 @@
 // kernel carries kernels 1, 3, 5 and 11 (_fft_body), kernels 2 and 4 on a
 // power of two (_cdft_body) and kernels 6 and 8 when Y and Z are both
 // powers of two (_zy_body); the mixed-radix kernel carries kernels 2 and 4
-// on a 7-smooth length and kernel 6 on 5-smooth Y and Z, Y even
+// on a 13-smooth length and kernel 6 on 13-smooth Y and Z, Y even
 // (_zy_fwd_body). Every other length keeps its dense or tile body. The
 // mixed-radix kernel is one instantiation a Body (n and the radices are
 // runtime values), so it adds four kernels to the build (kernels 2 and 4
@@ -499,11 +499,11 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
 
 // ---------------------------------------------------------------------------
 // The mixed-radix kernel: the engine on rows of any length n <= MIXED_MAX
-// whose factors are radices it has: the 7-smooth lengths 2^a 3^b 5^c 7^d
-// that are not powers of two (ops/hopper_fft.MIXED_LENGTHS: 9 .. 504, 92
-// of them; kernel 2's and kernel 4's rows, both passes of kernel 6 at
-// 5-smooth Y and Z), and the powers of two of kernel 6's passes that run
-// beside them.
+// whose factors are radices it has: the 13-smooth lengths 2^a 3^b 5^c 7^d
+// 11^e 13^f that are not powers of two (ops/hopper_fft.MIXED_LENGTHS: 9
+// .. 507, 155 of them; kernel 2's and kernel 4's rows, both passes of
+// kernel 6), and the powers of two of kernel 6's passes that run beside
+// them.
 //
 // The power-of-two kernel gives every thread the same RMAX points of one
 // row in every pass: T = n / RMAX threads a row, RMAX / r butterflies of a
@@ -519,16 +519,17 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
 // pass needs one barrier, not two. The last round's lanes past the
 // butterflies idle; the host (ops/hopper_fft._batch_rows) picks the row
 // count that idles the fewest lane slots and packs it into the schedule
-// (mixed_plan): 0 to 41% of them, 13% on average over the 55 5-smooth
-// lengths (ops/hopper_fft.mixed_geometry), 17% at 480 and 13% at 320.
+// (mixed_plan): 0 to 42% of them, 18% on average over the 155 lengths
+// (ops/hopper_fft.mixed_geometry), 17% at 480, 25% at 416, 22% at 440.
 // - n, rows and the radices are runtime values (MixedPlan), so one
 //   instantiation a Body serves every length and the build grows by one
 //   kernel a Body, not one a length: each pass dispatches on its radix
 //   (with_radix) to an unrolled register network with compile-time
 //   constants (dft_small): the radix-2 network (dft_regs) for 2, 4, 8 and
-//   16, the radix-3, radix-5 and radix-7 butterflies (dft3, dft5, dft7),
-//   and 6, 9, 10, 12, 14 and 15 as two of those with their twiddles
-//   between them (dft_ct).
+//   16, the odd prime butterflies (dft3, dft5, dft7, dft11, dft13), and 6,
+//   9, 10, 12, 14 and 15 as two of those with their twiddles between them
+//   (dft_ct). No composite holds 11 or 13: every 13-smooth length up to
+//   MIXED_MAX already takes at most three passes.
 // - The rest is the power-of-two kernel's: a persistent grid, the ring of
 //   STAGES buffers filled by bulk copies (a batch of rows of an odd length
 //   ends off a 16-byte boundary: its last bytes come by bulk_load_tail),
@@ -565,7 +566,8 @@ struct MixedPlan {
 inline bool mixed_radix(int r) {
   switch (r) {
     case 2: case 3: case 4: case 5: case 6: case 7: case 8: case 9:
-    case 10: case 12: case 14: case 15: case 16: return true;
+    case 10: case 11: case 12: case 13: case 14: case 15: case 16:
+      return true;
     default: return false;
   }
 }
@@ -616,7 +618,9 @@ __device__ __forceinline__ void with_radix(int r, F&& f) {
     case 8: f(Radix<8>()); break;
     case 9: f(Radix<9>()); break;
     case 10: f(Radix<10>()); break;
+    case 11: f(Radix<11>()); break;
     case 12: f(Radix<12>()); break;
+    case 13: f(Radix<13>()); break;
     case 14: f(Radix<14>()); break;
     case 15: f(Radix<15>()); break;
     case 16: f(Radix<16>()); break;
@@ -680,34 +684,62 @@ __device__ __forceinline__ void dft3(float2* a, float sgn) {
   a[2] = csub(t2, r);
 }
 
-// In-place 5-point DFT, exp(sgn 2 pi i jk / 5): the pairs a1 +- a4 and
-// a2 +- a3, then the two real and two imaginary combinations.
+// In-place DFT of an odd prime R, exp(sgn 2 pi i jk / R): the pairs b_k =
+// a_k + a_(R-k) and d_k = a_k - a_(R-k), k = 1 .. H = (R - 1) / 2, then
+// for m = 1 .. H the real combination u_m = a0 + sum_k cos(2 pi mk / R)
+// b_k and the imaginary one w_m = sum_k sin(2 pi mk / R) d_k, bins m and
+// R - m being u_m +- i sgn w_m. c[j - 1], s[j - 1]: cos and sin of 2 pi j
+// / R, j = 1 .. H (mk folds onto them), float32 constants rounded from
+// float64. The bins are formed one pair (m, R - m) at a time, so only the
+// pairs, a0 and one (u, w) stay live (radix 13: 26 floats of pairs
+// against radix 16's 32 points).
+template <int R>
+__device__ __forceinline__ void dft_odd(float2* a, float sgn,
+                                        const float (&c)[R / 2],
+                                        const float (&s)[R / 2]) {
+  constexpr int H = R / 2;
+  float2 b[H], d[H];
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    b[k - 1] = cadd(a[k], a[R - k]);
+    d[k - 1] = csub(a[k], a[R - k]);
+  }
+  const float2 a0 = a[0];
+  float2 sum = a0;
+#pragma unroll
+  for (int k = 0; k < H; ++k) sum = cadd(sum, b[k]);
+  a[0] = sum;
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    float2 u = a0, w = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 1; k <= H; ++k) {
+      const int j = m * k % R;  // cos and sin of 2 pi j / R
+      const float cj = j <= H ? c[j - 1] : c[R - j - 1];
+      const float sj = j <= H ? s[j - 1] : -s[R - j - 1];
+      u.x += cj * b[k - 1].x;
+      u.y += cj * b[k - 1].y;
+      w.x += sj * d[k - 1].x;
+      w.y += sj * d[k - 1].y;
+    }
+    const float2 v = make_float2(-sgn * w.y, sgn * w.x);  // i sgn w_m
+    a[m] = cadd(u, v);
+    a[R - m] = csub(u, v);
+  }
+}
+
+// In-place 5-point DFT, exp(sgn 2 pi i jk / 5) (dft_odd).
 __device__ __forceinline__ void dft5(float2* a, float sgn) {
   constexpr float C1 = 0.30901699437494742410f;   // cos 2 pi / 5
   constexpr float C2 = -0.80901699437494742410f;  // cos 4 pi / 5
   constexpr float S1 = 0.95105651629515357212f;   // sin 2 pi / 5
   constexpr float S2 = 0.58778525229247312917f;   // sin 4 pi / 5
-  const float2 b1 = cadd(a[1], a[4]), b2 = cadd(a[2], a[3]);
-  const float2 d1 = csub(a[1], a[4]), d2 = csub(a[2], a[3]);
-  const float2 u1 = make_float2(a[0].x + C1 * b1.x + C2 * b2.x,
-                                a[0].y + C1 * b1.y + C2 * b2.y);
-  const float2 u2 = make_float2(a[0].x + C2 * b1.x + C1 * b2.x,
-                                a[0].y + C2 * b1.y + C1 * b2.y);
-  const float2 w1 = make_float2(S1 * d1.x + S2 * d2.x, S1 * d1.y + S2 * d2.y);
-  const float2 w2 = make_float2(S2 * d1.x - S1 * d2.x, S2 * d1.y - S1 * d2.y);
-  const float2 v1 = make_float2(-sgn * w1.y, sgn * w1.x);  // i sgn w1
-  const float2 v2 = make_float2(-sgn * w2.y, sgn * w2.x);
-  a[0] = cadd(a[0], cadd(b1, b2));
-  a[1] = cadd(u1, v1);
-  a[4] = csub(u1, v1);
-  a[2] = cadd(u2, v2);
-  a[3] = csub(u2, v2);
+  const float c[2] = {C1, C2};
+  const float s[2] = {S1, S2};
+  dft_odd<5>(a, sgn, c, s);
 }
 
-// In-place 7-point DFT, exp(sgn 2 pi i jk / 7): the pairs a_k +- a_(7-k),
-// k = 1, 2, 3, then for m = 1, 2, 3 the real combination u_m = a0 + sum_k
-// cos(2 pi mk / 7) (a_k + a_(7-k)) and the imaginary one w_m = sum_k
-// sin(2 pi mk / 7) (a_k - a_(7-k)); bins m and 7 - m are u_m +- i sgn w_m.
+// In-place 7-point DFT, exp(sgn 2 pi i jk / 7) (dft_odd).
 __device__ __forceinline__ void dft7(float2* a, float sgn) {
   constexpr float C1 = 0.62348980185873353053f;   // cos 2 pi / 7
   constexpr float C2 = -0.22252093395631440429f;  // cos 4 pi / 7
@@ -715,32 +747,45 @@ __device__ __forceinline__ void dft7(float2* a, float sgn) {
   constexpr float S1 = 0.78183148246802980871f;   // sin 2 pi / 7
   constexpr float S2 = 0.97492791218182360702f;   // sin 4 pi / 7
   constexpr float S3 = 0.43388373911755812048f;   // sin 6 pi / 7
-  const float2 b1 = cadd(a[1], a[6]), b2 = cadd(a[2], a[5]);
-  const float2 b3 = cadd(a[3], a[4]);
-  const float2 d1 = csub(a[1], a[6]), d2 = csub(a[2], a[5]);
-  const float2 d3 = csub(a[3], a[4]);
-  const float2 u1 = make_float2(a[0].x + C1 * b1.x + C2 * b2.x + C3 * b3.x,
-                                a[0].y + C1 * b1.y + C2 * b2.y + C3 * b3.y);
-  const float2 u2 = make_float2(a[0].x + C2 * b1.x + C3 * b2.x + C1 * b3.x,
-                                a[0].y + C2 * b1.y + C3 * b2.y + C1 * b3.y);
-  const float2 u3 = make_float2(a[0].x + C3 * b1.x + C1 * b2.x + C2 * b3.x,
-                                a[0].y + C3 * b1.y + C1 * b2.y + C2 * b3.y);
-  const float2 w1 = make_float2(S1 * d1.x + S2 * d2.x + S3 * d3.x,
-                                S1 * d1.y + S2 * d2.y + S3 * d3.y);
-  const float2 w2 = make_float2(S2 * d1.x - S3 * d2.x - S1 * d3.x,
-                                S2 * d1.y - S3 * d2.y - S1 * d3.y);
-  const float2 w3 = make_float2(S3 * d1.x - S1 * d2.x + S2 * d3.x,
-                                S3 * d1.y - S1 * d2.y + S2 * d3.y);
-  const float2 v1 = make_float2(-sgn * w1.y, sgn * w1.x);  // i sgn w1
-  const float2 v2 = make_float2(-sgn * w2.y, sgn * w2.x);
-  const float2 v3 = make_float2(-sgn * w3.y, sgn * w3.x);
-  a[0] = cadd(a[0], cadd(cadd(b1, b2), b3));
-  a[1] = cadd(u1, v1);
-  a[6] = csub(u1, v1);
-  a[2] = cadd(u2, v2);
-  a[5] = csub(u2, v2);
-  a[3] = cadd(u3, v3);
-  a[4] = csub(u3, v3);
+  const float c[3] = {C1, C2, C3};
+  const float s[3] = {S1, S2, S3};
+  dft_odd<7>(a, sgn, c, s);
+}
+
+// In-place 11-point DFT, exp(sgn 2 pi i jk / 11) (dft_odd).
+__device__ __forceinline__ void dft11(float2* a, float sgn) {
+  constexpr float C1 = 0.84125353283118116886f;   // cos 2 pi / 11
+  constexpr float C2 = 0.41541501300188642553f;   // cos 4 pi / 11
+  constexpr float C3 = -0.14231483827328514044f;  // cos 6 pi / 11
+  constexpr float C4 = -0.65486073394528506406f;  // cos 8 pi / 11
+  constexpr float C5 = -0.95949297361449738989f;  // cos 10 pi / 11
+  constexpr float S1 = 0.54064081745559758211f;   // sin 2 pi / 11
+  constexpr float S2 = 0.90963199535451837141f;   // sin 4 pi / 11
+  constexpr float S3 = 0.98982144188093273238f;   // sin 6 pi / 11
+  constexpr float S4 = 0.75574957435425828377f;   // sin 8 pi / 11
+  constexpr float S5 = 0.28173255684142969771f;   // sin 10 pi / 11
+  const float c[5] = {C1, C2, C3, C4, C5};
+  const float s[5] = {S1, S2, S3, S4, S5};
+  dft_odd<11>(a, sgn, c, s);
+}
+
+// In-place 13-point DFT, exp(sgn 2 pi i jk / 13) (dft_odd).
+__device__ __forceinline__ void dft13(float2* a, float sgn) {
+  constexpr float C1 = 0.88545602565320989590f;   // cos 2 pi / 13
+  constexpr float C2 = 0.56806474673115580251f;   // cos 4 pi / 13
+  constexpr float C3 = 0.12053668025532305335f;   // cos 6 pi / 13
+  constexpr float C4 = -0.35460488704253562597f;  // cos 8 pi / 13
+  constexpr float C5 = -0.74851074817110109863f;  // cos 10 pi / 13
+  constexpr float C6 = -0.97094181742605202716f;  // cos 12 pi / 13
+  constexpr float S1 = 0.46472317204376854566f;   // sin 2 pi / 13
+  constexpr float S2 = 0.82298386589365639458f;   // sin 4 pi / 13
+  constexpr float S3 = 0.99270887409805399280f;   // sin 6 pi / 13
+  constexpr float S4 = 0.93501624268541482344f;   // sin 8 pi / 13
+  constexpr float S5 = 0.66312265824079520238f;   // sin 10 pi / 13
+  constexpr float S6 = 0.23931566428755776715f;   // sin 12 pi / 13
+  const float c[6] = {C1, C2, C3, C4, C5, C6};
+  const float s[6] = {S1, S2, S3, S4, S5, S6};
+  dft_odd<13>(a, sgn, c, s);
 }
 
 template <int R>
@@ -788,6 +833,10 @@ __device__ __forceinline__ void dft_small(float2* a, float sgn) {
     dft5(a, sgn);
   } else if constexpr (R == 7) {
     dft7(a, sgn);
+  } else if constexpr (R == 11) {
+    dft11(a, sgn);
+  } else if constexpr (R == 13) {
+    dft13(a, sgn);
   } else if constexpr (R == 6) {
     dft_ct<2, 3>(a, sgn);
   } else if constexpr (R == 9) {

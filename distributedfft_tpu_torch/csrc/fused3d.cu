@@ -13,7 +13,7 @@
 //
 //   zy_fwd_kernel  <- _zy_fwd_kernel  (z-R2C, then y-C2C, per x-row; the
 //                                      dense body, for a Y or Z that is no
-//                                      5-smooth length in [8, 512], or an
+//                                      13-smooth length in [8, 512], or an
 //                                      odd Y)
 //   fft_rows_kernel<L, ZRows>, fft_rows_kernel<L, ComplexTwiddleRows<false>>
 //   then zy_planes_kernel
@@ -22,9 +22,9 @@
 //   fft_mixed_kernel<ZRows>, fft_mixed_kernel<ComplexTwiddleRows<false>>
 //   then zy_planes_kernel
 //                  <- _zy_fwd_kernel  (the FFT body on the engine's
-//                                      mixed-radix kernel: Y and Z 5-smooth
-//                                      in [8, 512], Y even, not both powers
-//                                      of two)
+//                                      mixed-radix kernel: Y and Z
+//                                      13-smooth in [8, 512], Y even, not
+//                                      both powers of two)
 //   fft_cols_kernel<L, Columns>
 //                  <- _x_c2c_kernel   (C2C along x, both directions; the FFT
 //                                      body, X a power of two in [8, 512])
@@ -51,7 +51,7 @@
 // complex sums so that an operand fetched from shared memory feeds 4 to 16
 // FMAs. The DFT matrices are re-read per block from L2.
 //
-// zy_fwd's FFT body (Y and Z powers of two in [8, 512], or 5-smooth
+// zy_fwd's FFT body (Y and Z powers of two in [8, 512], or 13-smooth
 // there with Y even: the engine's mixed-radix kernel on both passes) does
 // no dense product: it runs the row FFT engine of fft_rows.cuh twice and a
 // transpose. Its bound at 512^3 is the function's bytes, one read of x and
@@ -784,15 +784,15 @@ bool zy_fft_ok(int X, int Y, int Z) {
   return X >= 2 && X <= AXIS_MAX && pow2(Y) && pow2(Z);
 }
 
-// Y and Z 5-smooth lengths of the engine's mixed-radix kernel (in [8,
-// AXIS_MAX]; its radix 7 is not routed here), Y even, not both powers of two: the FFT body on that kernel
-// (its z pass stores two neighbouring y as one vector, so a pair of rows
-// never straddles two x-planes).
+// Y and Z lengths of the engine's mixed-radix kernel (13-smooth in [8,
+// AXIS_MAX], ops/hopper_fft._engine_length), Y even, not both powers of
+// two: the FFT body on that kernel (its z pass stores two neighbouring y
+// as one vector, so a pair of rows never straddles two x-planes).
 bool zy_mixed_ok(int X, int Y, int Z) {
   auto smooth = [](int n) {
     if (n < 8 || n > AXIS_MAX) return false;
-    const int primes[3] = {2, 3, 5};
-    for (int i = 0; i < 3; ++i)
+    const int primes[6] = {2, 3, 5, 7, 11, 13};
+    for (int i = 0; i < 6; ++i)
       while (n % primes[i] == 0) n /= primes[i];
     return n == 1;
   };

@@ -20,8 +20,8 @@
 //                               power-of-two n in [8, 1024])
 //   fft_mixed_kernel<ComplexTwiddleRows<false>>
 //                            <- _cmatmul_kernel     (kernel 2, FFT body on
-//                               the engine's mixed-radix kernel: 7-smooth
-//                               n in [9, 504], e.g. 20, 448, 480)
+//                               the engine's mixed-radix kernel: 13-smooth
+//                               n in [9, 507], e.g. 20, 440, 448, 480)
 //   fft_cols_kernel<L, Columns>
 //                            <- _cmatmul_kernel     (kernel 2, column body:
 //                               the same n along a non-last axis, in place
@@ -32,7 +32,7 @@
 //                               output lies, its bins stored in the
 //                               four-step's order)
 //   MODE_CMATMUL             <- _cmatmul_kernel     (kernel 2, tile or row
-//                               body: any other n, e.g. 440, 257, or a
+//                               body: any other n, e.g. 442, 257, or a
 //                               direct axis of a few points)
 //   fft_rows_kernel<L, RealRows>
 //                            <- _rmatmul_kernel     (kernel 1, FFT body:
@@ -49,14 +49,14 @@
 //                               power-of-two n2 in [8, 1024])
 //   fft_mixed_kernel<ComplexTwiddleRows<true>>
 //                            <- _cmatmul_tw_kernel  (kernel 4, FFT body on
-//                               the engine's mixed-radix kernel: 7-smooth
-//                               n2 in [9, 504], e.g. 320, 448, 480)
+//                               the engine's mixed-radix kernel: 13-smooth
+//                               n2 in [9, 507], e.g. 320, 416, 448, 480)
 //   fft_cols_kernel<L, TwiddleColumns>
 //                            <- _cmatmul_tw_kernel  (kernel 4, column body:
 //                               the same n2 up to 512 on a non-last split
 //                               axis, where the axis lies)
 //   MODE_CMATMUL + twiddle   <- _cmatmul_tw_kernel  (kernel 4, tile body:
-//                               any other n2, e.g. 416 or 206)
+//                               any other n2, e.g. 408 or 206)
 //   fft_rows_kernel<L, RealTwiddleRows>
 //                            <- _rmatmul_tw_kernel  (kernel 5, FFT body:
 //                               power-of-two n2 in [8, 1024])
@@ -538,7 +538,7 @@ int dfft_rdft_tw(const float* x, const float* table, const float* tr,
 }
 
 // Kernel 4, FFT body. x: (M, n) complex64, n a power of two in [8, 1024]
-// (the engine's power-of-two kernel) or 7-smooth in [8, 512] (its
+// (the engine's power-of-two kernel) or 13-smooth in [8, 512] (its
 // mixed-radix kernel), 16-byte aligned; table, schedule:
 // ops/hopper_fft.fft_plan(n, inverse); tr, ti: (n1, n) float32 twiddle
 // planes; out: (M, n) complex64.
@@ -556,7 +556,7 @@ int dfft_cdft_tw(const float* x, const float* table, const float* tr,
 }
 
 // Kernel 2, FFT body. x: (M, n) complex64, n a power of two in [8, 1024]
-// (the engine's power-of-two kernel) or 7-smooth in [8, 512] (its
+// (the engine's power-of-two kernel) or 13-smooth in [8, 512] (its
 // mixed-radix kernel), 16-byte aligned; table: ops/hopper_fft.fft_plan(n,
 // inverse).table; schedule: its .schedule for a power of two, else
 // ops/hopper_fft.mixed_schedule(n, inverse); out: (M, n) complex64,

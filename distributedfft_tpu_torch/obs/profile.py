@@ -404,6 +404,17 @@ _TORCH_CATS = frozenset(_DEVICE_CATS + _LAUNCH_CATS + (
     "cpu_op", "user_annotation", "gpu_user_annotation",
     "python_function"))
 
+# The port's own kernels, the ``__global__`` functions of ``csrc/``: a
+# kernel record is the port's by its name, whatever the host side of the
+# trace kept of its launch.
+PORT_KERNELS = (
+    "dec_unpack_kernel", "enc_pack_kernel", "fft_cols_kernel",
+    "fft_cols_split_kernel", "fft_mixed_kernel", "fft_rows_kernel",
+    "fft_short_kernel", "stage_row_kernel", "stage_tile_kernel",
+    "x_c2c_kernel", "yz_inv_kernel", "yz_scratch_kernel", "zy_fwd_kernel",
+    "zy_planes_kernel")
+_PORT_KERNEL_RE = re.compile(r"\b(?:%s)\b" % "|".join(PORT_KERNELS))
+
 
 def is_torch_trace(obj: Any) -> bool:
     """Whether a chrome trace is ``torch.profiler``'s (its events carry
@@ -458,9 +469,10 @@ def parse_torch_trace(obj: Any) -> List[Dict[str, Any]]:
     thread) holding the aten ops. A device op takes the innermost
     ``dfft/...`` range open on the host thread that launched it (joined
     by the launch's correlation id; None where the trace lost the
-    launch), and ``outside_aten``: whether no aten op enclosed that
-    launch (the port's ``ctypes`` launches); a host op takes the
-    innermost range open around it on its thread."""
+    launch), ``outside_aten``: whether no aten op enclosed that launch
+    (the port's ``ctypes`` launches), and ``port``: whether it is a
+    kernel of ``PORT_KERNELS`` by name; a host op takes the innermost
+    range open around it on its thread."""
     evs = [e for e in (obj.get("traceEvents", []) if isinstance(obj, dict)
                        else obj)
            if isinstance(e, dict) and e.get("ph") == "X"]
@@ -508,7 +520,9 @@ def parse_torch_trace(obj: Any) -> List[Dict[str, Any]]:
             device.setdefault(dev, {}).setdefault(
                 args.get("stream", e.get("tid")), []).append(
                 {"name": name, "scope": scope, "offset_ps": s,
-                 "dur_ps": d, "kind": cat, "outside_aten": outside})
+                 "dur_ps": d, "kind": cat, "outside_aten": outside,
+                 "port": cat == "kernel"
+                 and bool(_PORT_KERNEL_RE.search(name))})
         elif cat == "cpu_op":
             key = (e.get("pid"), e.get("tid"))
             host.setdefault(key, []).append(
@@ -654,13 +668,17 @@ def device_activity(planes: List[Dict[str, Any]]) -> Dict[str, Any]:
     every plane, the idle share of that window, and the same for the
     kernels alone: ``{"busy_ms", "window_ms", "idle_share",
     "kernel_busy_ms", "kernel_idle_share", "kernel_events",
-    "port_kernel_events"}``; the shares are None where the trace holds no
-    device plane (a CPU run). ``port_kernel_events`` counts the kernels
-    launched outside aten (the port's own, through ``ctypes``): a caller
-    that knows its launches checks that the trace kept them all (the
-    tracer can lose records), which the count of every kernel, aten's
-    included, could not show."""
-    spans, kernels, port = [], [], 0
+    "port_kernel_events", "port_kernel_records"}``; the shares are None
+    where the trace holds no device plane (a CPU run).
+    ``port_kernel_records`` counts the kernel records of the port's
+    kernels (``PORT_KERNELS``, by name): a caller that knows its launches
+    checks that the trace kept them all (the tracer can lose records),
+    which the count of every kernel, aten's included, could not show.
+    ``port_kernel_events`` counts the kernels whose launch the host side
+    of the trace kept with no aten op around it (the port's ``ctypes``
+    launches): below ``port_kernel_records`` where the trace lost a
+    launch record or put it inside an aten op."""
+    spans, kernels, port, records = [], [], 0, 0
     lo, hi = None, None
     for p in planes:
         for ln in p["lines"]:
@@ -673,6 +691,7 @@ def device_activity(planes: List[Dict[str, Any]]) -> Dict[str, Any]:
                     if e.get("kind", "kernel") == "kernel":
                         kernels.append((s, t))
                         port += bool(e.get("outside_aten"))
+                        records += bool(e.get("port"))
     busy, kbusy = _union_ps(spans), _union_ps(kernels)
     window = (hi - lo) if lo is not None else 0
     has_device = any(p["name"].startswith("/device:") for p in planes)
@@ -685,7 +704,8 @@ def device_activity(planes: List[Dict[str, Any]]) -> Dict[str, Any]:
             "idle_share": share(busy),
             "kernel_busy_ms": round(kbusy * 1e-9, 6),
             "kernel_idle_share": share(kbusy),
-            "kernel_events": len(kernels), "port_kernel_events": port}
+            "kernel_events": len(kernels), "port_kernel_events": port,
+            "port_kernel_records": records}
 
 
 # ---------------------------------------------------------------------------
@@ -842,6 +862,7 @@ def capture_stage_profile(plan: Any, direction: str = "forward",
         "kernel_idle_share": agg["kernel_idle_share"],
         "kernel_events": agg["kernel_events"],
         "port_kernel_events": agg["port_kernel_events"],
+        "port_kernel_records": agg["port_kernel_records"],
     }
     out["iters"] = iters
     out["direction"] = direction
@@ -1003,7 +1024,8 @@ def stage_profile(plan: Any, direction: str = "forward", dims: int = 3,
         "planes": agg.get("planes", []),
     }
     for k in ("busy_ms", "kernel_busy_ms", "window_ms", "idle_share",
-              "kernel_idle_share", "kernel_events", "port_kernel_events"):
+              "kernel_idle_share", "kernel_events", "port_kernel_events",
+              "port_kernel_records"):
         if k in agg:
             out[k] = agg[k]
     return out

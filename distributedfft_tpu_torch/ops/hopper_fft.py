@@ -14,8 +14,8 @@ granularities:
   the z rows into the scratch, the engine on the scratch's y rows in
   place, a transpose into the planes; ``yz_inv`` the same backwards, its
   z pass kernel 3's C2R Body) when Y and Z are powers of two in [8, 512],
-  and for ``zy_fwd`` also when they are 5-smooth there with Y even (the
-  engine's mixed-radix kernel), else the dense kernel. ``x_c2c`` picks its
+  and for ``zy_fwd`` also when each is an engine length there with Y even
+  (the engine's mixed-radix kernel), else the dense kernel. ``x_c2c`` picks its
   body by ``_x_body(X)``: for a power of two in [8, 512] the column kernel
   of the row FFT engine, which reads kernel 6's planes and writes the
   complex64 spectrum (forward) or reads the spectrum and writes kernel 8's
@@ -51,8 +51,8 @@ granularities:
   (kernel 1), ``cdft`` (kernel 2), ``irdft`` (kernel 3), ``cdft_tw``
   (kernel 4), ``rdft_tw`` (kernel 5) and ``dec_cmatmul`` (kernel 11) on
   rows of a power of two in [8, 1024] (``_fft_body``), and, on its
-  mixed-radix kernel, of ``cdft`` and ``cdft_tw`` on the 92 7-smooth
-  lengths in [9, 504] (``MIXED_LENGTHS``, ``_cdft_body``); other lengths
+  mixed-radix kernel, of ``cdft`` and ``cdft_tw`` on the 155 13-smooth
+  lengths in [9, 507] (``MIXED_LENGTHS``, ``_cdft_body``); other lengths
   take the dense bodies of ``stage.cu``. It also runs the two FFT passes
   of the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8), and,
   as its column kernel, ``x_c2c`` (kernel 7), ``cdft_cols`` (kernel 2
@@ -207,12 +207,12 @@ FFT_MIN, FFT_MAX = 8, 1024
 # the butterflies it has (``MIXED_RADICES``), the most points a batch holds
 # (``MIXED_POINTS``), threads a block (``THREADS``), the longest row
 # (``MIXED_MAX``) and the first bit of its schedule's rows field
-# (``MIXED_ROWS_SHIFT``, past 4 passes of 5 bits). It runs the 7-smooth
-# lengths 2^a 3^b 5^c 7^d in [FFT_MIN, MIXED_MAX] that are not powers of
-# two (``MIXED_LENGTHS``, 92 of them: kernels 2 and 4; kernel 6 takes the
-# 55 5-smooth ones), and, beside them on kernel 6's passes, the powers of
-# two up to MIXED_MAX.
-MIXED_RADICES = (16, 15, 14, 12, 10, 9, 8, 7, 6, 5, 4, 3, 2)
+# (``MIXED_ROWS_SHIFT``, past 4 passes of 5 bits). It runs the 13-smooth
+# lengths 2^a 3^b 5^c 7^d 11^e 13^f in [FFT_MIN, MIXED_MAX] that are not
+# powers of two (``MIXED_LENGTHS``, 155 of them: kernels 2, 4 and 6),
+# and, beside them on kernel 6's passes, the powers of two up to
+# MIXED_MAX.
+MIXED_RADICES = (16, 15, 14, 13, 12, 11, 10, 9, 8, 7, 6, 5, 4, 3, 2)
 MIXED_POINTS = 2560
 MIXED_MAX = 512
 THREADS = 256
@@ -228,7 +228,7 @@ def _smooth(n: int, primes: Sequence[int]) -> bool:
 
 
 MIXED_LENGTHS = tuple(n for n in range(FFT_MIN, MIXED_MAX + 1)
-                      if _smooth(n, (2, 3, 5, 7)) and n & (n - 1))
+                      if _smooth(n, (2, 3, 5, 7, 11, 13)) and n & (n - 1))
 
 
 def _fft_body(n: int) -> str:
@@ -250,7 +250,7 @@ def _engine_length(n: int) -> bool:
 def _cdft_body(n: int) -> str:
     """The body kernels 2 (``cdft``) and 4 (``cdft_tw``) run on rows of n
     points: ``"fft"`` (the row FFT engine: its power-of-two kernel, or its
-    mixed-radix kernel for a 7-smooth n) where ``_engine_length(n)``, else
+    mixed-radix kernel for a 13-smooth n) where ``_engine_length(n)``, else
     ``"tile"`` (the tile loop of ``stage.cu`` with the DFT planes, or for
     kernel 2 on rows of a few points the row path)."""
     return "fft" if _engine_length(n) else "tile"
@@ -269,19 +269,16 @@ def _zy_body(Y: int, Z: int) -> str:
 
 def _zy_fwd_body(Y: int, Z: int) -> str:
     """The body kernel 6 runs on (X, Y, Z): ``"fft"`` (the engine's two
-    passes and the transpose) when ``_zy_body`` says so, and also when Y
-    and Z are both 5-smooth in [FFT_MIN, ``mx.DIRECT_MAX``] and Y is even
-    (the mixed-radix kernel on both passes: its z pass stores the half
-    spectra of two neighbouring y as one 16-byte vector, so a pair of rows
-    must not straddle two x-planes); else ``"dense"``. 448 = 2^6 7, the
-    primes and an odd Y keep the dense kernel: the engine's radix 7 is not
-    routed here yet (``fused3d.cu``'s ``zy_mixed_ok`` admits 5-smooth
-    lengths only)."""
-    if _zy_body(Y, Z) == "fft":
-        return "fft"
+    passes and the transpose) when Y and Z are each an engine length
+    (``_engine_length``) in [FFT_MIN, ``mx.DIRECT_MAX``] and Y is even: the
+    power-of-two kernel on both passes where ``_zy_body`` says "fft", else
+    the mixed-radix kernel on both (its z pass stores the half spectra of
+    two neighbouring y as one 16-byte vector, so a pair of rows must not
+    straddle two x-planes); else ``"dense"``: an odd Y, or a length with a
+    prime factor past 13 (``fused3d.cu``'s ``zy_mixed_ok``, the same
+    predicate)."""
     return ("fft" if Y % 2 == 0 and all(
-        _smooth(n, (2, 3, 5)) and FFT_MIN <= n <= mx.DIRECT_MAX
-        for n in (Y, Z))
+        _engine_length(n) and n <= mx.DIRECT_MAX for n in (Y, Z))
         else "dense")
 
 
@@ -365,7 +362,7 @@ class FFTPlan(NamedTuple):
         length (``MIXED_LENGTHS``) the fewest passes of ``MIXED_RADICES``
         whose batch (``mixed_geometry``) leaves the fewest lanes idle,
         larger radices first (480 = 12 * 10 * 4, 320 = 10 * 8 * 4, 448 =
-        8 * 8 * 7);
+        8 * 8 * 7, 416 = 16 * 13 * 2, 440 = 11 * 10 * 4);
     schedule: the radices packed as the kernel checks them, the radix of
         pass p in bits 5p .. 5p + 4;
     table: (2, n - radices[0]) float32 (real, imag) twiddles, built in
@@ -471,7 +468,7 @@ def fft_plan(n: int, inverse: bool) -> FFTPlan:
         radices = _mixed_radices(n)
     else:
         raise ValueError(f"the row FFT engine takes a power of two in "
-                         f"[{FFT_MIN}, {FFT_MAX}] or a 7-smooth length in "
+                         f"[{FFT_MIN}, {FFT_MAX}] or a 13-smooth length in "
                          f"[{FFT_MIN}, {MIXED_MAX}], not {n}")
     schedule = sum(r << (5 * p) for p, r in enumerate(radices))
     sign = 1.0 if inverse else -1.0
@@ -523,14 +520,23 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-# Constants of the kernel's radix-3, radix-5 and radix-7 butterflies
-# (``dft3``, ``dft5``, ``dft7`` in fft_rows.cuh), float32: sin 2 pi / 3,
-# cos and sin of 2 pi m / 5, m = 1, 2, and of 2 pi m / 7, m = 1, 2, 3.
+# Constants of the kernel's odd prime butterflies (``dft3``, ``dft5``,
+# ``dft7``, ``dft11``, ``dft13`` in fft_rows.cuh), float32: sin 2 pi / 3,
+# cos and sin of 2 pi m / 5, m = 1, 2, of 2 pi m / 7, m = 1, 2, 3, of 2 pi
+# m / 11, m = 1 .. 5, and of 2 pi m / 13, m = 1 .. 6.
 _S3 = _f32(np.sin(2 * np.pi / 3))
 _C5 = (_f32(np.cos(2 * np.pi / 5)), _f32(np.cos(4 * np.pi / 5)))
 _S5 = (_f32(np.sin(2 * np.pi / 5)), _f32(np.sin(4 * np.pi / 5)))
 _C7 = tuple(_f32(np.cos(2 * np.pi * m / 7)) for m in (1, 2, 3))
 _S7 = tuple(_f32(np.sin(2 * np.pi * m / 7)) for m in (1, 2, 3))
+_C11 = tuple(_f32(np.cos(2 * np.pi * m / 11)) for m in range(1, 6))
+_S11 = tuple(_f32(np.sin(2 * np.pi * m / 11)) for m in range(1, 6))
+_C13 = tuple(_f32(np.cos(2 * np.pi * m / 13)) for m in range(1, 7))
+_S13 = tuple(_f32(np.sin(2 * np.pi * m / 13)) for m in range(1, 7))
+# cos and sin of 2 pi m / r, m = 1 .. (r - 1) / 2, of each butterfly on
+# ``dft_odd``'s pairs and combinations (``dft5``, ``dft7``, ``dft11``,
+# ``dft13``).
+_ODD = {5: (_C5, _S5), 7: (_C7, _S7), 11: (_C11, _S11), 13: (_C13, _S13)}
 # The composite butterflies R = P Q (``dft_small`` in fft_rows.cuh): P-point
 # DFTs, the twiddles w_R^(j2 k1), Q-point DFTs.
 _CT = {6: (2, 3), 9: (3, 3), 10: (2, 5), 12: (4, 3), 14: (2, 7),
@@ -539,11 +545,11 @@ _CT = {6: (2, 3), 9: (3, 3), 10: (2, 5), 12: (4, 3), 14: (2, 7),
 
 def _dft_small_mirror(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The kernel's radix-r DFT along dim -2 of (..., r, B) complex64
-    (``dft_small``): the radix-2 network for a power of two, the radix-3,
-    radix-5 and radix-7 butterflies, and for a composite r = P Q the
-    P-point DFTs of a[Q j1 + j2] over j1, the twiddles exp(-+ 2 pi i j2 k1
-    / r) (float32 from float64), the Q-point DFTs over j2, bin k1 + P k2
-    out."""
+    (``dft_small``): the radix-2 network for a power of two, the radix-3
+    butterfly, the radix-5, 7, 11 and 13 ones (``dft_odd``'s pairs and
+    combinations), and for a composite r = P Q the P-point DFTs of a[Q j1
+    + j2] over j1, the twiddles exp(-+ 2 pi i j2 k1 / r) (float32 from
+    float64), the Q-point DFTs over j2, bin k1 + P k2 out."""
     r = a.shape[-2]
     sgn = 1.0 if inverse else -1.0
     if r & (r - 1) == 0:
@@ -554,29 +560,23 @@ def _dft_small_mirror(a: torch.Tensor, inverse: bool) -> torch.Tensor:
         t2 = a0 - 0.5 * t1
         rot = d * complex(0.0, sgn * _S3)
         return torch.stack([a0 + t1, t2 + rot, t2 - rot], -2)
-    if r == 5:
-        a0, a1, a2, a3, a4 = a.unbind(-2)
-        b1, b2, d1, d2 = a1 + a4, a2 + a3, a1 - a4, a2 - a3
-        (c1, c2), (s1, s2) = _C5, _S5
-        u1, u2 = a0 + c1 * b1 + c2 * b2, a0 + c2 * b1 + c1 * b2
-        v1 = (s1 * d1 + s2 * d2) * complex(0.0, sgn)
-        v2 = (s2 * d1 - s1 * d2) * complex(0.0, sgn)
-        return torch.stack([a0 + b1 + b2, u1 + v1, u2 + v2, u2 - v2,
-                            u1 - v1], -2)
-    if r == 7:
-        a0, a1, a2, a3, a4, a5, a6 = a.unbind(-2)
-        b1, b2, b3 = a1 + a6, a2 + a5, a3 + a4
-        d1, d2, d3 = a1 - a6, a2 - a5, a3 - a4
-        (c1, c2, c3), (s1, s2, s3) = _C7, _S7
-        u1 = a0 + c1 * b1 + c2 * b2 + c3 * b3
-        u2 = a0 + c2 * b1 + c3 * b2 + c1 * b3
-        u3 = a0 + c3 * b1 + c1 * b2 + c2 * b3
-        i = complex(0.0, sgn)
-        v1 = (s1 * d1 + s2 * d2 + s3 * d3) * i
-        v2 = (s2 * d1 - s3 * d2 - s1 * d3) * i
-        v3 = (s3 * d1 - s1 * d2 + s2 * d3) * i
-        return torch.stack([a0 + b1 + b2 + b3, u1 + v1, u2 + v2, u3 + v3,
-                            u3 - v3, u2 - v2, u1 - v1], -2)
+    if r in _ODD:
+        c, s = _ODD[r]
+        h = r // 2
+        e = a.unbind(-2)
+        b = [e[k] + e[r - k] for k in range(1, h + 1)]
+        d = [e[k] - e[r - k] for k in range(1, h + 1)]
+        out = [e[0] + sum(b)] + [None] * (r - 1)
+        for m in range(1, h + 1):
+            u, w = e[0], 0
+            for k in range(1, h + 1):
+                j = m * k % r                  # cos, sin of 2 pi j / r
+                cj = c[j - 1] if j <= h else c[r - j - 1]
+                sj = s[j - 1] if j <= h else -s[r - j - 1]
+                u, w = u + cj * b[k - 1], w + sj * d[k - 1]
+            v = w * complex(0.0, sgn)
+            out[m], out[r - m] = u + v, u - v
+        return torch.stack(out, -2)
     p, q = _CT[r]
     x = a.unflatten(-2, (p, q)).transpose(-3, -2)          # [.., j2, j1, B]
     x = _dft_small_mirror(x, inverse)                      # [.., j2, k1, B]
@@ -1133,7 +1133,7 @@ def cdft(x2: torch.Tensor, inverse: bool) -> torch.Tensor:
     unnormalized n-point DFT (inverse DFT when ``inverse``) of each row
     (kernel 2, ``_cmatmul_kernel`` with the full DFT matrix). The body is
     ``_cdft_body(n)``: the row FFT engine (``dfft_cdft``) for a power of
-    two in [8, 1024] (its power-of-two kernel) or a 7-smooth n in [9, 504]
+    two in [8, 1024] (its power-of-two kernel) or a 13-smooth n in [9, 507]
     (its mixed-radix kernel, ``mixed_schedule``), on a CPU tensor its
     plain version, ``stage_plain``; else ``stage`` with the DFT planes (the
     tile or row body); both count as ``cmatmul``."""
@@ -1487,7 +1487,7 @@ def cdft_tw(x2: torch.Tensor, n1: int, inverse: bool) -> torch.Tensor:
     (M, n2) complex64, the n2-point DFT (inverse DFT when ``inverse``) of
     each row times the twiddle row T[r % n1] (kernel 4,
     ``_cmatmul_tw_kernel``). The body is ``_cdft_body(n2)``: the row
-    FFT engine for a power of two in [8, 1024] or a 7-smooth n2 in [8,
+    FFT engine for a power of two in [8, 1024] or a 13-smooth n2 in [8,
     512] (its mixed-radix kernel), else the dense tile loop of ``stage``
     with the DFT planes; both count as ``cmatmul_tw``."""
     if x2.ndim != 2:

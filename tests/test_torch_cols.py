@@ -235,17 +235,19 @@ def test_strided_axis_reaches_cdft_cols_with_no_copy(monkeypatch, shape, axis,
     ((2048, 3, 4), 0, [("cmatmul_tw", "dfft_cdft_tw_cols"),
                        ("cmatmul", "dfft_cdft_short")]),     # split 4 x 512
     ((3, 96, 4), 1, [("cmatmul", "dfft_cdft")]),             # mixed radix
-    ((3, 88, 4), 1, [("cmatmul", "dfft_stage")]),            # tile body
+    ((3, 136, 4), 1, [("cmatmul", "dfft_stage")]),           # tile body
     ((5, 4, 3), 1, [("cmatmul", "dfft_stage")]),             # row body
     ((3, 521, 2), 1, [("cmatmul", "dfft_stage")]),           # prime
     ((4, 3, 64), 2, [("cmatmul", "dfft_cdft")]),             # last axis
+    ((3, 88, 4), 1, [("cmatmul", "dfft_cdft")]),             # radix 11
 ])
 def test_other_axes_keep_their_route(monkeypatch, shape, axis, want):
     """A length the column kernel does not take, or the last axis, keep the
     route they had: no column launch; the axis moves last and runs kernel
-    2's row body (the engine's mixed-radix kernel at 96, the tile body at
-    88 = 8 x 11). A split axis (4 x 512) takes the four-step
-    where it lies: kernel 4's column body, then the short-stage body."""
+    2's row body (the engine's mixed-radix kernel at 96 and 88 = 8 x 11,
+    the tile body at 136 = 8 x 17). A split axis (4 x 512) takes the
+    four-step where it lies: kernel 4's column body, then the short-stage
+    body."""
     log = _record_launches(monkeypatch)
     y = hf.fft(torch.zeros(shape, dtype=torch.complex64), axis=axis)
     assert y.shape == shape

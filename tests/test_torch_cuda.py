@@ -33,12 +33,16 @@ ZY_FFT_SHAPES = [(2, 8, 8), (3, 8, 16), (5, 16, 8), (2, 32, 64),
                  (3, 64, 32), (9, 128, 16), (2, 16, 256), (4, 256, 128),
                  (3, 512, 8), (2, 8, 512), (5, 512, 512), (512, 16, 32)]
 # Kernel 6's FFT body on the engine's mixed-radix kernel (hf._zy_fwd_body:
-# Y and Z 5-smooth, Y even): odd Z (rows ending off 16 bytes), a power of
-# two beside a mixed length, a Y that is not a multiple of 8 (a ragged
-# tile of the transpose), the (X, 480, 480) of the main path.
+# Y and Z engine lengths, Y even): odd Z (rows ending off 16 bytes), a
+# power of two beside a mixed length, a Y that is not a multiple of 8 (a
+# ragged tile of the transpose), the (X, 480, 480) and (X, 448, 448) of the
+# main paths, and 11- and 13-smooth Y and Z (416 = 16 x 13 x 2, 440 = 11 x
+# 10 x 4, 143 = 13 x 11, 429 = 13 x 11 x 3).
 ZY_MIXED_SHAPES = [(2, 96, 120), (3, 480, 40), (2, 12, 10), (3, 8, 480),
                    (2, 480, 16), (2, 30, 9), (3, 250, 27), (9, 60, 36),
-                   (4, 500, 375), (7, 480, 480), (5, 18, 512)]
+                   (4, 500, 375), (7, 480, 480), (5, 18, 512),
+                   (8, 448, 448), (3, 416, 440), (2, 26, 143), (2, 22, 429),
+                   (3, 28, 11)]
 
 
 @pytest.fixture()
@@ -388,8 +392,8 @@ def test_cdft_tw_kernel(cuda, n1, n2, lines, inverse):
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n2", hf.MIXED_LENGTHS)
 def test_cdft_tw_mixed_lengths(cuda, n2, inverse):
-    """Kernel 4 on the engine's mixed-radix kernel at every 7-smooth n2 in
-    [9, 504] (the 92 ``MIXED_LENGTHS``, 37 with a factor 7): one
+    """Kernel 4 on the engine's mixed-radix kernel at every 13-smooth n2 in
+    [9, 507] (the 155 ``MIXED_LENGTHS``, 63 with a factor 11 or 13): one
     ``dfft_cdft_tw`` launch, rows cycling through n1 = 3 (an odd M, so
     rows of an odd n2 end a batch off a 16-byte boundary)."""
     n1, M = 3, 3 * 37
@@ -407,8 +411,8 @@ def test_cdft_tw_mixed_lengths(cuda, n2, inverse):
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n", hf.MIXED_LENGTHS)
 def test_cdft_mixed_lengths(cuda, n, inverse):
-    """Kernel 2 on the engine's mixed-radix kernel at every 7-smooth n in
-    [9, 504]: one ``dfft_cdft`` launch (``_cdft_body``), never
+    """Kernel 2 on the engine's mixed-radix kernel at every 13-smooth n in
+    [9, 507]: one ``dfft_cdft`` launch (``_cdft_body``), never
     ``dfft_stage``, on an odd number of rows (an odd n ends a batch off a
     16-byte boundary) and on more rows than one persistent wave holds."""
     for M in (37, (1 << 20) // n + 3):
@@ -423,9 +427,9 @@ def test_cdft_mixed_lengths(cuda, n, inverse):
         assert _rel(y, ref) <= 5e-4
 
 
-@pytest.mark.parametrize("n", [440, 416, 11, 13, 97, 510])
+@pytest.mark.parametrize("n", [442, 408, 17, 19, 97, 510])
 def test_cdft_tile_lengths(cuda, n):
-    """Kernel 2 at a length with a prime factor past 7 keeps its tile body
+    """Kernel 2 at a length with a prime factor past 13 keeps its tile body
     (``dfft_stage`` with the DFT planes), against its plain version."""
     x = _crandn((53, n), n, cuda)
     ent = dict(hf.ENTRIES)
@@ -456,17 +460,44 @@ def test_axes_split_on_448(cuda, n1, inverse):
     assert _rel(y, want) <= 5e-4
 
 
-def test_zy_fwd_at_448_stays_dense(cuda):
-    """Kernel 6 at Y = Z = 448 keeps its dense body (one ``dfft_zy_fwd``):
-    the engine's radix 7 is routed for kernels 2 and 4 only."""
-    x = _randn((3, 448, 448), 71, cuda)
+@pytest.mark.parametrize("shape, entries", [
+    ((3, 448, 448), {"dfft_zy_rows": 1, "dfft_zy_cols": 1,
+                     "dfft_zy_planes": 1}),
+    ((3, 442, 448), {"dfft_zy_fwd": 1}),
+    ((3, 143, 448), {"dfft_zy_fwd": 1})])
+def test_zy_fwd_at_448(cuda, shape, entries):
+    """Kernel 6 at Y = Z = 448 = 8 x 8 x 7 runs the three passes of the
+    mixed-radix kernel; a Y with a factor past 13 (442 = 2 x 13 x 17) or
+    an odd Y keeps its dense body (one ``dfft_zy_fwd``)."""
+    x = _randn(shape, 71, cuda)
     hf.reset_launches()
     yr, yi = hf.zy_fwd(x)
     torch.cuda.synchronize()
-    assert hf.ENTRIES == {"dfft_zy_fwd": 1}
-    pr, pi = hf.zy_fwd_plain(x, *hf._planes("rdft", 448, False, cuda),
-                             *hf._planes("dft", 448, False, cuda))
+    assert hf.ENTRIES == entries
+    pr, pi = hf.zy_fwd_plain(x, *hf._planes("rdft", shape[2], False, cuda),
+                             *hf._planes("dft", shape[1], False, cuda))
     assert _rel(yr, pr) <= 5e-4 and _rel(yi, pi) <= 5e-4
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [416, 440, 143, 429])
+def test_mixed_kernel_at_11_and_13(cuda, n, inverse):
+    """Kernels 2 and 4 on the mixed-radix kernel at lengths of radix 13
+    and 11 (416 = 16 x 13 x 2, 440 = 11 x 10 x 4, 143 = 13 x 11, 429 = 13
+    x 11 x 3), on the main paths' row counts cut to a few waves of the
+    grid: one ``dfft_cdft`` / ``dfft_cdft_tw`` launch each, against the
+    plain versions."""
+    M = 4 * 1024 + 2
+    x = _crandn((M, n), n + inverse, cuda)
+    hf.reset_launches()
+    y2 = hf.cdft(x, inverse)
+    y4 = hf.cdft_tw(x, 2, inverse)
+    torch.cuda.synchronize()
+    assert hf.ENTRIES == {"dfft_cdft": 1, "dfft_cdft_tw": 1}
+    F = hf._planes("dft", n, inverse, cuda)
+    assert _rel(y2, hf.stage_plain(x, *F)) <= 5e-4
+    assert _rel(y4, hf.stage_plain(x, *F, *hf._twiddle_planes(
+        2, n, inverse, cuda))) <= 5e-4
 
 
 # Kernels 1 and 2's FFT bodies (``rdft`` / ``cdft``, hf._fft_body): every

@@ -2,28 +2,31 @@
 ``csrc/fft_rows.cuh``): its host side and the bodies it carries, on the
 CPU.
 
-* ``fft_plan(n, inverse)`` at every 7-smooth length in [8, 512] that is not
-  a power of two (``MIXED_LENGTHS``, 92 of them, the 55 5-smooth ones
-  among them): radices of the kernel's that multiply to n, the packed
-  schedule, the twiddle table of n - radix[0] entries from its documented
-  layout; ``mixed_geometry``'s batch.
+* ``fft_plan(n, inverse)`` at every 13-smooth length in [8, 512] that is
+  not a power of two (``MIXED_LENGTHS``, 155 of them, the 92 7-smooth and
+  55 5-smooth ones among them): radices of the kernel's that multiply to
+  n, the packed schedule, the twiddle table of n - radix[0] entries from
+  its documented layout; ``mixed_geometry``'s batch; the 7-smooth lengths'
+  radices and schedules as they were before radix 11 and 13.
 * ``fft_rows_mirror`` (the kernel's passes: ``_dft_small_mirror``'s radix
-  3, 5, 7 and composite butterflies) against ``torch.fft`` at every
-  length, both directions (1e-5, float32 against float64), and against
-  the JAX package's ``pallas_fft._stage`` with ``_dft_np`` (its Pallas
-  kernel in interpret mode; 5e-4, the JAX per-stage bound) at 480, 320,
-  96, 375, 448, 343, 490 and 504: kernel 2's FFT body on the kernel.
+  3, 5, 7, 11, 13 and composite butterflies) against ``torch.fft`` at
+  every length, both directions (1e-5, float32 against float64), and
+  against the JAX package's ``pallas_fft._stage`` with ``_dft_np`` (its
+  Pallas kernel in interpret mode; 5e-4, the JAX per-stage bound) at 480,
+  320, 96, 375, 448, 343, 490, 504, 416, 440, 143 and 429: kernel 2's FFT
+  body on the kernel.
 * Kernel 4 on the kernel (``cdft_tw_mirror``: the engine, then the twiddle
-  by ``r % n1``) at n2 320, 480 and 448, n1 2 and 9, both directions,
+  by ``r % n1``) at n2 320, 480, 448 and 416, n1 2 and 9, both directions,
   against ``stage_plain`` and the JAX ``_call_stage`` with the twiddle.
-* Kernel 6's three passes on the kernel (``zy_fwd_mirror``) at 5-smooth Y
-  and Z, against ``zy_fwd_plain`` and, followed by ``x_c2c_plain``, the JAX
-  ``_rfftn3d_fused`` in interpret mode (5e-4).
-* The routes: ``_zy_fwd_body`` (kernel 6, 5-smooth), ``_zy_body`` (kernel
-  8, powers of two only), ``_cdft_body`` (kernels 2 and 4, 7-smooth) and
-  ``_fft_body`` (kernels 1, 3, 5 and 11, powers of two only), and the
-  launches of ``zy_fwd``, ``cdft``, ``cdft_tw``, a 4320-point axis and
-  ``chip_smoke.py``'s 256 x 480^2 and 64 x 896^2 batched stacks with the
+* Kernel 6's three passes on the kernel (``zy_fwd_mirror``) at 5-, 7-, 11-
+  and 13-smooth Y and Z, against ``zy_fwd_plain`` and, followed by
+  ``x_c2c_plain``, the JAX ``_rfftn3d_fused`` in interpret mode (5e-4).
+* The routes: ``_zy_fwd_body`` (kernel 6, engine lengths, Y even),
+  ``_zy_body`` (kernel 8, powers of two only), ``_cdft_body`` (kernels 2
+  and 4, 13-smooth) and ``_fft_body`` (kernels 1, 3, 5 and 11, powers of
+  two only), and the launches of ``zy_fwd``, ``cdft``, ``cdft_tw``, a
+  4320-point axis, the 448^3 slab plan and ``chip_smoke.py``'s 256 x
+  480^2, 64 x 896^2, 64 x 832^2 and 256 x 440^2 batched stacks with the
   launch patched.
 """
 
@@ -39,7 +42,10 @@ from distributedfft_tpu_torch.ops import hopper_fft as hf
 
 CPU = torch.device("cpu")
 MIXED = list(hf.MIXED_LENGTHS)
-MIXED5 = [n for n in MIXED if n % 7]       # the 5-smooth ones
+MIXED7 = [n for n in MIXED if n % 11 and n % 13]   # the 7-smooth ones
+MIXED5 = [n for n in MIXED7 if n % 7]              # the 5-smooth ones
+# The radices the kernel had before radix 11 and 13.
+RADICES7 = tuple(r for r in hf.MIXED_RADICES if r not in (11, 13))
 
 
 def _rel(a, b):
@@ -58,12 +64,20 @@ def _real(shape, seed):
 
 
 def test_mixed_lengths():
-    smooth = [n for n in range(8, 513)
-              if n & (n - 1) and 2 ** 9 * 3 ** 6 * 5 ** 4 * 7 ** 4 % n == 0]
+    smooth = [n for n in range(8, 513) if n & (n - 1) and
+              2 ** 9 * 3 ** 6 * 5 ** 4 * 7 ** 4 * 11 ** 3 * 13 ** 3 % n == 0]
     assert list(hf.MIXED_LENGTHS) == smooth
-    assert len(MIXED) == 92 and MIXED[0] == 9 and MIXED[-1] == 504
+    assert len(MIXED) == 155 and MIXED[0] == 9 and MIXED[-1] == 507
+    smooth7 = [n for n in range(8, 513)
+               if n & (n - 1) and 2 ** 9 * 3 ** 6 * 5 ** 4 * 7 ** 4 % n == 0]
+    assert MIXED7 == smooth7
+    assert len(MIXED7) == 92 and MIXED7[0] == 9 and MIXED7[-1] == 504
     assert len(MIXED5) == 55 and MIXED5[-1] == 500
-    assert len([n for n in MIXED if n % 7 == 0]) == 37
+    assert len([n for n in MIXED7 if n % 7 == 0]) == 37
+    assert len([n for n in MIXED if n % 11 == 0]) == 35
+    assert len([n for n in MIXED if n % 13 == 0]) == 31
+    assert {416, 440, 143, 429, 11, 13} <= set(MIXED)
+    assert not {408, 442, 17, 520} & set(MIXED)
 
 
 @pytest.mark.parametrize("n", MIXED)
@@ -96,7 +110,10 @@ def test_fft_plan_schedule_and_table(n):
     assert np.array_equal(inv.table[1], -plan.table[1])
     g = hf.mixed_geometry(n)
     assert g.points == g.rows * n and g.points % 2 == 0
-    assert g.points <= hf.MIXED_POINTS and 0.0 <= g.idle < 0.42
+    # 455 = 13 x 7 x 5 idles 42.4% (4 rows a batch: 140 butterflies of
+    # radix 13 over 256 lanes); every 7-smooth length below 42%.
+    assert g.points <= hf.MIXED_POINTS
+    assert 0.0 <= g.idle < (0.42 if n in MIXED7 else 0.43)
     # The mixed-radix kernel's schedule: the plan's, then the batch's rows.
     for p, inverse in ((plan, False), (inv, True)):
         sched = hf.mixed_schedule(n, inverse)
@@ -118,8 +135,35 @@ def test_fft_plan_examples():
     assert (g.rows, g.points) == (4, 1792) and 0.08 < g.idle < 0.09
     idle = [hf.mixed_geometry(n).idle for n in MIXED5]
     assert 0.12 < sum(idle) / len(idle) < 0.14
-    idle = [hf.mixed_geometry(n).idle for n in MIXED]
+    idle = [hf.mixed_geometry(n).idle for n in MIXED7]
     assert 0.15 < sum(idle) / len(idle) < 0.16
+    idle = [hf.mixed_geometry(n).idle for n in MIXED]
+    assert 0.17 < sum(idle) / len(idle) < 0.18
+    assert hf.fft_plan(416, False).radices == (16, 13, 2)
+    assert hf.fft_plan(440, False).radices == (11, 10, 4)
+    assert hf.fft_plan(429, False).radices == (13, 11, 3)
+    assert hf.fft_plan(143, False).radices == (13, 11)
+    assert hf.fft_plan(11, False).radices == (11,)
+    assert hf.fft_plan(13, False).radices == (13,)
+    g = hf.mixed_geometry(416)
+    assert (g.rows, g.points) == (6, 2496) and g.idle == 0.25
+    g = hf.mixed_geometry(440)
+    assert (g.rows, g.points) == (5, 2200) and 0.21 < g.idle < 0.22
+
+
+@pytest.mark.parametrize("n", MIXED7)
+def test_seven_smooth_plans_unchanged(monkeypatch, n):
+    """Radix 11 and 13 only add lengths: every 7-smooth length keeps the
+    radices and the batch it had on the kernel's earlier radices."""
+    monkeypatch.setattr(hf, "MIXED_RADICES", RADICES7)
+    before = hf._mixed_radices(n)
+    monkeypatch.undo()
+    assert hf.fft_plan(n, False).radices == before
+    assert hf.fft_plan(n, True).radices == before
+    assert all(r not in (11, 13) for r in before)
+    assert hf.mixed_schedule(n, False) == (
+        sum(r << (5 * p) for p, r in enumerate(before))
+        | hf._batch_rows(n, before) << hf.MIXED_ROWS_SHIFT)
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
@@ -135,7 +179,7 @@ def test_mirror_matches_torch_fft(n, inverse):
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
-@pytest.mark.parametrize("r", [3, 5, 6, 7, 9, 10, 12, 14, 15])
+@pytest.mark.parametrize("r", [3, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15])
 def test_butterflies_match_the_dft(r, inverse):
     """Each of the kernel's odd and composite butterflies alone (a one-pass
     length where there is one, else ``_dft_small_mirror`` directly)."""
@@ -148,7 +192,8 @@ def test_butterflies_match_the_dft(r, inverse):
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
-@pytest.mark.parametrize("n", [480, 320, 96, 375, 448, 343, 490, 504])
+@pytest.mark.parametrize("n", [480, 320, 96, 375, 448, 343, 490, 504, 416,
+                               440, 143, 429])
 def test_mirror_matches_jax_stage(n, inverse):
     """Against ``pallas_fft._stage`` with the dense DFT, its Pallas kernel
     in interpret mode."""
@@ -160,7 +205,7 @@ def test_mirror_matches_jax_stage(n, inverse):
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
 @pytest.mark.parametrize("n1", [2, 9])
-@pytest.mark.parametrize("n2", [320, 480, 448])
+@pytest.mark.parametrize("n2", [320, 480, 448, 416])
 def test_kernel4_mixed_rows_path(n2, n1, inverse):
     """Kernel 4's FFT body on the mixed-radix kernel: the engine on complex
     rows and the twiddle by ``r % n1`` (an odd M), against ``stage_plain``
@@ -186,10 +231,12 @@ def _zy_plain(x):
 
 
 @pytest.mark.parametrize("shape", [(2, 96, 120), (3, 480, 40), (2, 12, 9),
-                                   (3, 30, 512), (2, 512, 45)])
+                                   (3, 30, 512), (2, 512, 45), (2, 28, 448),
+                                   (2, 14, 56), (2, 26, 22), (2, 22, 143)])
 def test_zy_mirror_matches_plain(shape):
-    """Kernel 6's three passes at 5-smooth Y and Z (an odd Z, a power of
-    two beside a mixed length) against the dense products."""
+    """Kernel 6's three passes at 5-, 7-, 11- and 13-smooth Y and Z (an odd
+    Z, a power of two beside a mixed length, 448 = 8 x 8 x 7, 143 = 13 x
+    11) against the dense products."""
     assert hf._zy_fwd_body(*shape[1:]) == "fft"
     x = torch.from_numpy(_real(shape, sum(shape)))
     yr, yi = hf.zy_fwd_mirror(x)
@@ -200,10 +247,12 @@ def test_zy_mirror_matches_plain(shape):
                 torch.complex(pr, pi).numpy()) <= 1e-5
 
 
-@pytest.mark.parametrize("shape", [(2, 96, 120), (3, 480, 40)])
+@pytest.mark.parametrize("shape", [(2, 96, 120), (3, 480, 40), (2, 14, 143)])
 def test_zy_mirror_then_x_matches_rfftn3d_fused(shape):
     """Kernel 6's FFT body on the mixed-radix kernel, then kernel 7's plain
-    version, against the JAX package's fused 3D R2C (interpret mode)."""
+    version, against the JAX package's fused 3D R2C (interpret mode): at
+    5-smooth Y and Z, and at Y = 14 = 2 x 7, Z = 143 = 11 x 13 (radices 14,
+    13 and 11)."""
     x = _real(shape, 7 + sum(shape))
     assert hf._zy_fwd_body(*shape[1:]) == "fft"
     yr, yi = hf.zy_fwd_mirror(torch.from_numpy(x))
@@ -213,28 +262,38 @@ def test_zy_mirror_then_x_matches_rfftn3d_fused(shape):
 
 
 def test_routes():
-    """Kernel 6 takes the engine on 5-smooth Y and Z (Y even) and keeps its
-    dense body on 448 = 2^6 7, on a prime and on an odd Y; kernel 8 stays
-    on powers of two; kernels 2 and 4 take the engine on 7-smooth lengths
-    up to 512 (448 among them) and their tile body on a length with a
-    factor past 7 (440 = 8 x 5 x 11, 416 = 32 x 13); the other kernels'
+    """Kernel 6 takes the engine where Y and Z are each an engine length up
+    to 512 and Y is even (448 = 8 x 8 x 7, 416, 440 and 13-smooth lengths
+    among them) and keeps its dense body on an odd Y and on a length with
+    a prime factor past 13 (408 = 24 x 17, 442 = 2 x 13 x 17); kernel 8
+    stays on powers of two; kernels 2 and 4 take the engine on 13-smooth
+    lengths up to 512 (416 = 32 x 13, 440 = 8 x 5 x 11 among them) and
+    their tile body on a length with a factor past 13; the other kernels'
     ``_fft_body`` stays powers of two."""
     for y, z in ((480, 480), (96, 120), (480, 40), (12, 10), (512, 480),
-                 (480, 512), (8, 9), (500, 375)):
+                 (480, 512), (8, 9), (500, 375), (448, 448), (480, 448),
+                 (448, 480), (416, 440), (26, 22), (14, 56), (28, 448),
+                 (22, 143), (512, 11)):
         assert hf._zy_fwd_body(y, z) == "fft", (y, z)
         assert hf._zy_body(y, z) == "dense", (y, z)
-    for y, z in ((448, 448), (480, 448), (448, 480), (15, 480), (480, 7),
-                 (4, 480), (480, 2), (6, 12), (514, 480), (480, 1024)):
+    for y, z in ((15, 480), (480, 7), (4, 480), (480, 2), (6, 12),
+                 (514, 480), (480, 1024), (13, 448), (143, 26), (448, 17),
+                 (408, 448), (448, 442), (34, 480)):
         assert hf._zy_fwd_body(y, z) == "dense", (y, z)
     assert hf._zy_fwd_body(512, 512) == hf._zy_body(512, 512) == "fft"
+    assert [(y, z) for y in range(1, 600) for z in (8, 448, 507, 1024)
+            if hf._zy_fwd_body(y, z) == "fft"] == [
+        (y, z) for y in range(8, 513, 2) for z in (8, 448, 507)
+        if hf._engine_length(y)]
     pow2 = [8, 16, 32, 64, 128, 256, 512, 1024]
     fft = [n for n in range(1, 2100) if hf._cdft_body(n) == "fft"]
     assert fft == sorted(MIXED + pow2)
     assert [n for n in range(1, 2100) if hf._fft_body(n) == "fft"] == pow2
-    for n in (320, 480, 9, 500, 448, 14, 343, 504, 20):
+    for n in (320, 480, 9, 500, 448, 14, 343, 504, 20, 416, 440, 11, 13,
+              143, 429):
         assert hf._cdft_body(n) == "fft"
         assert hf._fft_body(n) == "tile"
-    for n in (7, 520, 1000, 206, 440, 416, 11, 13, 4):
+    for n in (7, 520, 1000, 206, 408, 442, 17, 4):
         assert hf._cdft_body(n) == "tile"
 
 
@@ -252,7 +311,8 @@ def _record_launches(monkeypatch):
 
 
 @pytest.mark.parametrize("shape", [(3, 480, 480), (2, 96, 120), (4, 448, 448),
-                                   (2, 15, 480), (2, 512, 512)])
+                                   (2, 15, 480), (2, 512, 512), (2, 26, 22),
+                                   (2, 416, 440), (2, 408, 448)])
 def test_zy_fwd_launches(monkeypatch, shape):
     """Off the CPU, ``zy_fwd`` launches the three passes where
     ``_zy_fwd_body`` says "fft" (the schedules of Z and Y: the mixed-radix
@@ -274,17 +334,17 @@ def test_zy_fwd_launches(monkeypatch, shape):
     assert log[1][2][2:] == (X, Y, Z, ys)
 
 
-@pytest.mark.parametrize("n2", [320, 480, 448, 416])
+@pytest.mark.parametrize("n2", [320, 480, 448, 416, 440, 408])
 def test_cdft_tw_launches(monkeypatch, n2):
-    """Kernel 4 at a 7-smooth n2 launches its FFT body with the mixed
-    schedule (448 = 8 x 8 x 7 among them), at 416 = 32 x 13 its tile
-    body."""
+    """Kernel 4 at a 13-smooth n2 launches its FFT body with the mixed
+    schedule (448 = 8 x 8 x 7, 416 = 16 x 13 x 2 among them), at 408 = 24
+    x 17 its tile body."""
     log = _record_launches(monkeypatch)
     x = torch.zeros((18, n2), dtype=torch.complex64, device="meta")
     hf.cdft_tw(x, 9, True)
     ((kernel, entry, args),) = log
     assert kernel == "cmatmul_tw"
-    if n2 == 416:
+    if n2 == 408:
         assert entry == "dfft_stage"
     else:
         assert entry == "dfft_cdft_tw"
@@ -292,19 +352,19 @@ def test_cdft_tw_launches(monkeypatch, n2):
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
-@pytest.mark.parametrize("n", [480, 448, 20, 512, 440, 416])
+@pytest.mark.parametrize("n", [480, 448, 20, 512, 440, 416, 442, 408])
 def test_cdft_launches(monkeypatch, n, inverse):
     """Kernel 2 on rows: ``dfft_cdft`` with ``mixed_schedule(n, inverse)``
-    at a 7-smooth n (480, 448, the verifier's 20-point x), with the
-    power-of-two kernel's schedule at 512, and its tile body
-    (``dfft_stage`` with the DFT planes) at 440 and 416."""
+    at a 13-smooth n (480, 448, 440, 416, the verifier's 20-point x), with
+    the power-of-two kernel's schedule at 512, and its tile body
+    (``dfft_stage`` with the DFT planes) at 442 and 408."""
     log = _record_launches(monkeypatch)
     x = torch.zeros((7, n), dtype=torch.complex64, device="meta")
     y = hf.cdft(x, inverse)
     assert y.shape == (7, n) and y.dtype == torch.complex64
     ((kernel, entry, args),) = log
     assert kernel == "cmatmul"
-    if n in (440, 416):
+    if n in (442, 408):
         assert entry == "dfft_stage"
         assert args[6:] == (7, n, n, 1, 0, 0)
         return
@@ -317,27 +377,20 @@ def test_cdft_launches(monkeypatch, n, inverse):
 
 # chip_smoke.py's batched stacks on the mixed-radix kernel, one call a
 # direction: (shape, launches forward, inverse as (kernel, entry) pairs).
-_BATCHED_ENGINE = {
-    (256, 480, 480): (
-        [("rmatmul", "dfft_stage"), ("cmatmul", "dfft_cdft")],
-        [("cmatmul", "dfft_cdft"), ("c2r", "dfft_stage")]),
-    (64, 896, 896): (
-        [("rmatmul_tw", "dfft_stage"), ("cmatmul", "dfft_cdft_short"),
-         ("cmatmul_tw", "dfft_cdft_tw"), ("cmatmul", "dfft_cdft_short")],
-        [("cmatmul_tw", "dfft_cdft_tw"), ("cmatmul", "dfft_cdft_short")] * 2),
-}
+_DIRECT_ENGINE = (
+    [("rmatmul", "dfft_stage"), ("cmatmul", "dfft_cdft")],
+    [("cmatmul", "dfft_cdft"), ("c2r", "dfft_stage")])
+_SPLIT_ENGINE = (
+    [("rmatmul_tw", "dfft_stage"), ("cmatmul", "dfft_cdft_short"),
+     ("cmatmul_tw", "dfft_cdft_tw"), ("cmatmul", "dfft_cdft_short")],
+    [("cmatmul_tw", "dfft_cdft_tw"), ("cmatmul", "dfft_cdft_short")] * 2)
+_BATCHED_ENGINE = {(256, 480, 480): _DIRECT_ENGINE,
+                   (64, 896, 896): _SPLIT_ENGINE,
+                   (64, 832, 832): _SPLIT_ENGINE,
+                   (256, 440, 440): _DIRECT_ENGINE}
 
 
-@pytest.mark.parametrize("shape", list(_BATCHED_ENGINE))
-def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
-                                                         shape):
-    """The "pallas" batched-2D plan at 256 x 480^2 (x moved last, kernel 2
-    on the mixed-radix kernel at 480; kernels 1 and 3 keep their tile
-    bodies) and 64 x 896^2 (both axes 2 x 448: kernel 4 on the
-    mixed-radix kernel, the 2-point short stage; kernel 5's first stage
-    keeps its tile body), recorded on "meta" tensors: neither kernel 2 nor
-    kernel 4 reaches ``dfft_stage``, and the entries are the ones
-    ``chip_smoke.py``'s ``BATCHED_CARD`` counts."""
+def _chip_smoke():
     import importlib.util
     import pathlib
     spec = importlib.util.spec_from_file_location(
@@ -345,6 +398,21 @@ def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
         / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("shape", list(_BATCHED_ENGINE))
+def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
+                                                         shape):
+    """The "pallas" batched-2D plan at 256 x 480^2 and 256 x 440^2 (x moved
+    last, kernel 2 on the mixed-radix kernel at 480 = 12 x 10 x 4 and 440
+    = 11 x 10 x 4; kernels 1 and 3 keep their tile bodies) and 64 x 896^2
+    and 64 x 832^2 (both axes 2 x 448 or 2 x 416: kernel 4 on the
+    mixed-radix kernel, the 2-point short stage; kernel 5's first stage
+    keeps its tile body), recorded on "meta" tensors: neither kernel 2 nor
+    kernel 4 reaches ``dfft_stage``, and the entries are the ones
+    ``chip_smoke.py``'s ``BATCHED_CARD`` counts."""
+    smoke = _chip_smoke()
     from distributedfft_tpu_torch import Batched2DFFTPlan, Config
     from distributedfft_tpu_torch import SlabPartition
     log = _record_launches(monkeypatch)
@@ -376,6 +444,38 @@ def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
         smoke.on_the_engine(seen, pid, kernels)
 
 
+def test_slab_448_runs_kernel6_on_the_engine(monkeypatch):
+    """The "pallas" 448^3 slab plan on one rank (ZY_Then_X, the fused
+    path), recorded on "meta" tensors: forward kernel 6's three passes on
+    the mixed-radix kernel (448 = 8 x 8 x 7 on both) and kernel 7's dense
+    body, inverse kernels 7 and 8 on their dense bodies; the launches and
+    entries ``chip_smoke.py``'s ``FUSED_SLABS`` counts for it."""
+    smoke = _chip_smoke()
+    from distributedfft_tpu_torch import Config, GlobalSize, SlabFFTPlan
+    from distributedfft_tpu_torch import SlabPartition
+    shape, (want_f, want_i, ent_f, ent_i) = smoke.FUSED_SLABS["fused_448"]
+    assert shape == (448, 448, 448)
+    log = _record_launches(monkeypatch)
+    plan = SlabFFTPlan(GlobalSize(*shape), SlabPartition(1),
+                       Config(fft_backend="pallas"), device="cpu")
+    c = plan._build_r2c()(torch.zeros(shape, device="meta"))
+    fwd = list(log)
+    del log[:]
+    back = plan._build_c2r()(c)
+    inv = list(log)
+    assert c.shape == (448, 448, 225) and back.shape == shape
+    assert [e for _, e, _ in fwd] == ["dfft_zy_rows", "dfft_zy_cols",
+                                      "dfft_zy_planes", "dfft_x_c2c"]
+    assert fwd[0][2][3:] == (448, 448, 448, hf.mixed_schedule(448, False))
+    assert fwd[1][2][2:] == (448, 448, 448, hf.mixed_schedule(448, False))
+    for got, launches, entries in ((fwd, want_f, ent_f), (inv, want_i, ent_i)):
+        per_kernel, per_entry = {}, {}
+        for k, e, _ in got:
+            per_kernel[k] = per_kernel.get(k, 0) + 1
+            per_entry[e] = per_entry.get(e, 0) + 1
+        assert per_kernel == launches and per_entry == entries
+
+
 @pytest.mark.parametrize("fn", ["fft", "ifft", "irfft", "rfft"])
 def test_4320_axis_runs_kernel4_on_the_engine(monkeypatch, fn):
     """The convolver's 5-smooth 4320 = 9 x 480 (``good_size``): kernel 4's
@@ -404,8 +504,8 @@ def test_kernel_source_agrees_with_the_host_side():
     """The constants ``fft_plan`` and ``mixed_schedule`` assume are the
     kernel's: its batch cap, longest row, block size, the schedule's rows
     field and radices (admitted, dispatched and given a butterfly:
-    ``dft_small``'s branches, its composites the mirror's ``_CT``, radix
-    7's float32 constants the mirror's ``_C7`` / ``_S7``)
+    ``dft_small``'s branches, its composites the mirror's ``_CT``, the
+    float32 constants of radix 5, 7, 11 and 13 the mirror's ``_ODD``)
     (``csrc/fft_rows.cuh``), so the host never plans a length the kernel
     refuses."""
     import pathlib
@@ -433,11 +533,14 @@ def test_kernel_source_agrees_with_the_host_side():
         r"R == (\d+)[^;{]*[;{]\s*dft_ct<(\d+), (\d+)>", small)}
     assert composite == hf._CT
     odd = {int(r) for r in re.findall(r"R == (\d+)\) \{\s*dft\1\(", small)}
-    assert odd == {3, 5, 7}
+    assert odd == {3, 5, 7, 11, 13}
     assert {r for r in cases if r & (r - 1)} == odd | set(composite)
-    body = re.search(r"void dft7\(float2\* a, float sgn\) \{(.*?)\n\}", src,
-                     re.S).group(1)
-    lit = {name: np.float32(v) for name, v in re.findall(
-        r"constexpr float (\w+) = (-?[\d.]+)f;", body)}
-    assert [lit[f"C{m}"] for m in (1, 2, 3)] == list(hf._C7)
-    assert [lit[f"S{m}"] for m in (1, 2, 3)] == list(hf._S7)
+    for r, (c, s) in hf._ODD.items():
+        body = re.search(rf"void dft{r}\(float2\* a, float sgn\) \{{(.*?)\n\}}",
+                         src, re.S).group(1)
+        lit = {name: np.float32(v) for name, v in re.findall(
+            r"constexpr float (\w+) = (-?[\d.]+)f;", body)}
+        h = r // 2
+        assert len(lit) == 2 * h
+        assert [lit[f"C{m}"] for m in range(1, h + 1)] == list(c)
+        assert [lit[f"S{m}"] for m in range(1, h + 1)] == list(s)

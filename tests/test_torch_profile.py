@@ -9,7 +9,9 @@ JAX package's:
   H100): a kernel launched through ``ctypes`` (no aten parent) is charged
   to the innermost ``dfft/...`` scope open around its launch, by the
   launch's correlation id; a kernel whose launch the trace lost is
-  unattributed; the kernels launched outside aten are counted apart;
+  unattributed; the kernels launched outside aten are counted apart,
+  and the port's kernels by name (``PORT_KERNELS``, every ``__global__``
+  function of ``csrc/``) whatever the trace kept of their launches;
   device planes win, and the device's idle share is read from the same
   trace;
 * the scope contract: scopes are entered only while a profiler records;
@@ -267,6 +269,93 @@ def test_port_kernel_events_count_launches_outside_aten():
     assert dev["fft_rows"]["scope"] is None
     act = profile.device_activity(planes)
     assert act["kernel_events"] == 4 and act["port_kernel_events"] == 3
+
+
+def test_port_kernels_are_the_sources_kernels():
+    """``PORT_KERNELS`` names every ``__global__`` function of ``csrc/``
+    and nothing else, so a kernel added there is counted as the port's."""
+    import re
+    csrc = os.path.join(os.path.dirname(profile.__file__), os.pardir,
+                        "csrc")
+    found = set()
+    for name in os.listdir(csrc):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(csrc, name), encoding="utf-8") as f:
+                found.update(re.findall(
+                    r"__global__\s+void\s+"
+                    r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                    f.read()))
+    assert len(found) == 14
+    assert set(profile.PORT_KERNELS) == found
+
+
+@pytest.mark.parametrize("launches", ["kept", "lost"])
+def test_gpu_fixture_port_kernel_records(launches):
+    """The fixture's eight port kernels are counted by their kernel
+    records whether or not the trace kept their runtime launches; the
+    count by launch (``port_kernel_events``) drops to 0 without them."""
+    obj = _gpu_fixture()
+    if launches == "lost":
+        obj = {"traceEvents": [e for e in obj["traceEvents"]
+                               if e.get("cat") not in ("cuda_runtime",
+                                                       "cuda_driver")]}
+    act = profile.device_activity(profile.parse_torch_trace(obj))
+    assert act["port_kernel_records"] == 8
+    assert act["port_kernel_events"] == (8 if launches == "kept" else 0)
+
+
+def test_port_kernel_records_count_kernels_by_name():
+    """A port kernel whose launch record sits inside an aten op or was
+    lost still counts as a record; an aten kernel, a name that only
+    contains a port kernel's, and a memcpy do not."""
+    ev = [
+        {"ph": "X", "cat": "cpu_op", "name": "aten::empty", "pid": 1,
+         "tid": 7, "ts": 10, "dur": 20},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "pid": 1, "tid": 7, "ts": 12, "dur": 3,
+         "args": {"correlation": 1}},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::fill_", "pid": 1,
+         "tid": 7, "ts": 38, "dur": 8},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "pid": 1, "tid": 7, "ts": 40, "dur": 3,
+         "args": {"correlation": 2}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "pid": 1, "tid": 7, "ts": 50, "dur": 3,
+         "args": {"correlation": 3}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "pid": 1, "tid": 7, "ts": 60, "dur": 3,
+         "args": {"correlation": 4}},
+    ]
+    kernels = (
+        (1, "void fft_rows::fft_mixed_kernel<(anonymous namespace)"
+            "::ZRows>(ZRows, fft_rows::MixedPlan, float const*, int)",
+         200),
+        (5, "(anonymous namespace)::zy_planes_kernel(float4 const*, "
+            "float*, float*, int, int)", 210),
+        (2, "void at::native::vectorized_elementwise_kernel<4, "
+            "at::native::FillFunctor<float>>(int, float*)", 220),
+        (3, "my_fft_rows_kernel_copy(float*)", 230),
+        (4, "x_c2c_kernel(float const*, float const*, float const*, "
+            "float const*, float*, float*, int, int)", 240))
+    for corr, name, ts in kernels:
+        ev.append({"ph": "X", "cat": "kernel", "name": name, "pid": 0,
+                   "tid": 7, "ts": ts, "dur": 5,
+                   "args": {"correlation": corr, "device": 0,
+                            "stream": 7}})
+    ev.append({"ph": "X", "cat": "gpu_memcpy", "name": "fft_rows_kernel",
+               "pid": 0, "tid": 7, "ts": 250, "dur": 5,
+               "args": {"correlation": 6, "device": 0, "stream": 7}})
+    planes = profile.parse_torch_trace({"traceEvents": ev})
+    dev = [e for p in planes if p["name"].startswith("/device:")
+           for ln in p["lines"] for e in ln["events"]]
+    assert [e["name"] for e in dev if e["port"]] == [
+        kernels[0][1], kernels[1][1], kernels[4][1]]
+    act = profile.device_activity(planes)
+    assert act["kernel_events"] == 5
+    assert act["port_kernel_records"] == 3
+    # by launch: the unrelated name and x_c2c_kernel; not the two port
+    # kernels whose launch sat inside aten::empty or was lost
+    assert act["port_kernel_events"] == 2
 
 
 def test_synthetic_launch_nesting_innermost_scope():

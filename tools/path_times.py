@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Time three kernel launches and three "pallas" paths of the port on one
+"""Time kernel launches and "pallas" paths of the port on one
 card in two trees of the repo, alternated in one call (A, B, B, A), so
 that a change and its parent are compared on the same card under the same
 power limit:
 
-* kernel 6 (``zy_fwd``) at (512, 480, 480), kernel 4 (``cdft_tw``,
-  forward) on 410880 rows of 320 points, n1 2 (the 640 split's first
-  stage), on 155592 rows of 480, n1 9 (the 4320 split's), and on 410880
-  rows of 448, n1 2 (the 896 split's), and kernel 2 (``cdft``, forward)
-  on 131072 rows of 480 and of 448, each beside its plain version;
-* the 480^3 P = 1 slab plan, forward and inverse (kernels 6, 7 and 8);
-* the 256 x 480^2 and 64 x 896^2 batched-2D plans, forward and inverse
-  (kernel 2 at 480, kernel 4 at 448);
+* kernel 6 (``zy_fwd``) at (512, 480, 480), (512, 448, 448) and (512,
+  442, 442), kernel 4 (``cdft_tw``, forward) on 410880 rows of 320
+  points, n1 2 (the 640 split's first stage), on 155592 rows of 480, n1
+  9 (the 4320 split's), and on 410880 rows of 448, 416 and 408, n1 2 (the
+  896, 832 and 816 splits'), and kernel 2 (``cdft``, forward) on 131072
+  rows of 480, 448, 440 and 442, each beside its plain version;
+* the 480^3 and 448^3 P = 1 slab plans, forward and inverse (kernels 6,
+  7 and 8);
+* the 256 x 480^2, 64 x 896^2, 64 x 832^2 and 256 x 440^2 batched-2D
+  plans, forward and inverse (kernel 2 at 480 and 440, kernel 4 at 448
+  and 416);
 * the 4320 convolution: 8 images of 4096^2 with a 225^2 kernel, "same",
   whose plan pads each axis to good_size 4320 = 9 x 480 (kernels 4 and 5
   on its first stages);
@@ -34,14 +37,15 @@ import subprocess
 import sys
 
 SEED = 20261016
-SLAB = (480, 480, 480)
+SLABS = ((480, 480, 480), (448, 448, 448))
 CONV = (8, 4096, 225)       # images, extent, kernel side
 BATCHED = (8, 4320, 4320)
 REPS = 5
-ZY = (512, 480, 480)
-TW = ((410880, 320, 2), (155592, 480, 9), (410880, 448, 2))  # rows, n2, n1
-CDFT = ((131072, 480), (131072, 448))       # rows, n
-STACKS = ((256, 480, 480), (64, 896, 896))
+ZYS = ((512, 480, 480), (512, 448, 448), (512, 442, 442))
+TW = ((410880, 320, 2), (155592, 480, 9), (410880, 448, 2),
+      (410880, 416, 2), (410880, 408, 2))             # rows, n2, n1
+CDFT = ((131072, 480), (131072, 448), (131072, 440), (131072, 442))  # rows, n
+STACKS = ((256, 480, 480), (64, 896, 896), (64, 832, 832), (256, 440, 440))
 
 
 def median_ms(torch, fn, reps=REPS):
@@ -89,15 +93,16 @@ def one(tree):
     row = {"tree": tree}
     dev = torch.device("cuda")
 
-    x = torch.randn(ZY, generator=gen, device="cuda")
-    yr, yi = hf.zy_fwd(x)
-    pr, pi = hf.zy_fwd_plain(x, *hf._planes("rdft", ZY[2], False, dev),
-                             *hf._planes("dft", ZY[1], False, dev))
-    row["kernel6"] = dict(
-        shape=list(ZY), entries=entries(torch, hf, lambda: hf.zy_fwd(x)),
-        max_rel_err=max(max_rel(yr, pr), max_rel(yi, pi)),
-        ms=median_ms(torch, lambda: hf.zy_fwd(x)))
-    del x, yr, yi, pr, pi
+    for zy in ZYS:
+        x = torch.randn(zy, generator=gen, device="cuda")
+        yr, yi = hf.zy_fwd(x)
+        pr, pi = hf.zy_fwd_plain(x, *hf._planes("rdft", zy[2], False, dev),
+                                 *hf._planes("dft", zy[1], False, dev))
+        row[f"kernel6_{zy[1]}"] = dict(
+            shape=list(zy), entries=entries(torch, hf, lambda: hf.zy_fwd(x)),
+            max_rel_err=max(max_rel(yr, pr), max_rel(yi, pi)),
+            ms=median_ms(torch, lambda: hf.zy_fwd(x)))
+        del x, yr, yi, pr, pi
     for m, n2, n1 in TW:
         x = torch.randn((m, n2), generator=gen, device="cuda",
                         dtype=torch.complex64)
@@ -125,15 +130,18 @@ def one(tree):
         del x, ref
     torch.cuda.empty_cache()
 
-    x = torch.randn(SLAB, generator=gen, device="cuda")
-    plan = dft.SlabFFTPlan(dft.GlobalSize(*SLAB), dft.SlabPartition(1),
-                           pallas)
-    c = plan.exec_r2c(x)
-    row["slab480"] = dict(
-        entries_forward=entries(torch, hf, lambda: plan.exec_r2c(x)),
-        forward_ms=median_ms(torch, lambda: plan.exec_r2c(x)),
-        inverse_ms=median_ms(torch, lambda: plan.exec_c2r(c)))
-    del x, c, plan
+    for slab in SLABS:
+        x = torch.randn(slab, generator=gen, device="cuda")
+        plan = dft.SlabFFTPlan(dft.GlobalSize(*slab), dft.SlabPartition(1),
+                               pallas)
+        c = plan.exec_r2c(x)
+        row[f"slab{slab[0]}"] = dict(
+            entries_forward=entries(torch, hf, lambda: plan.exec_r2c(x)),
+            forward_vs_rfftn=max_rel(c, torch.fft.rfftn(x)),
+            forward_ms=median_ms(torch, lambda: plan.exec_r2c(x)),
+            inverse_ms=median_ms(torch, lambda: plan.exec_c2r(c)))
+        del x, c, plan
+        torch.cuda.empty_cache()
 
     b, n, k = CONV
     img = torch.rand((b, n, n), generator=gen, device="cuda")
