@@ -3,9 +3,9 @@
 // the DFT of every row of a batch of power-of-two rows, 8 <= n <= 1024, in
 // shared memory and registers; on the same design its mixed-radix kernel
 // (fft_mixed_kernel below), rows of the 155 13-smooth lengths 2^a 3^b 5^c
-// 7^d 11^e 13^f in [9, 507] that are not powers of two (kernel 2's and
-// kernel 4's rows; both passes of kernel 6, powers of two beside them
-// included); and, on the same passes and twiddle table, the column kernel
+// 7^d 11^e 13^f in [9, 507] that are not powers of two (the rows of
+// kernels 2, 3, 4 and 5; both passes of kernel 6, powers of two beside
+// them included); and, on the same passes and twiddle table, the column kernel
 // (kernel 7, kernel 2 on a non-last axis, kernel 4 on a non-last split
 // axis), the DFT of every column of an (outer, n, inner) array; and, on
 // the column kernel's loader, the
@@ -13,14 +13,15 @@
 // second stage of a split axis).
 //
 // Which kernel runs which body (ops/hopper_fft.py): the power-of-two
-// kernel carries kernels 1, 3, 5 and 11 (_fft_body), kernels 2 and 4 on a
+// kernel carries kernels 1 and 11 (_fft_body), kernels 2, 3, 4 and 5 on a
 // power of two (_cdft_body) and kernels 6 and 8 when Y and Z are both
-// powers of two (_zy_body); the mixed-radix kernel carries kernels 2 and 4
-// on a 13-smooth length and kernel 6 on 13-smooth Y and Z, Y even
+// powers of two (_zy_body); the mixed-radix kernel carries kernels 2, 3, 4
+// and 5 on a 13-smooth length and kernel 6 on 13-smooth Y and Z, Y even
 // (_zy_fwd_body). Every other length keeps its dense or tile body. The
 // mixed-radix kernel is one instantiation a Body (n and the radices are
-// runtime values), so it adds four kernels to the build (kernels 2 and 4
-// in stage.cu, kernel 6's two passes in fused3d.cu), not one a length.
+// runtime values), so it adds six kernels to the build (kernels 2, 3, 4
+// and 5 in stage.cu, kernel 6's two passes in fused3d.cu), not one a
+// length.
 //
 // It replaces the dense DFT product of nine Pallas TPU kernels of
 // distributedfft_tpu/ops/pallas_fft.py (_dec_cmatmul_kernel :737, kernel
@@ -501,9 +502,12 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
 // The mixed-radix kernel: the engine on rows of any length n <= MIXED_MAX
 // whose factors are radices it has: the 13-smooth lengths 2^a 3^b 5^c 7^d
 // 11^e 13^f that are not powers of two (ops/hopper_fft.MIXED_LENGTHS: 9
-// .. 507, 155 of them; kernel 2's and kernel 4's rows, both passes of
-// kernel 6), and the powers of two of kernel 6's passes that run beside
-// them.
+// .. 507, 155 of them), and the powers of two of kernel 6's passes that
+// run beside them. Its Bodies: complex rows (ComplexTwiddleRows: kernel 2,
+// kernel 4 with the twiddle, kernel 6's y pass), real rows two to a
+// complex row (stage.cu's RealTwiddleRows: kernel 5; fused3d.cu's ZRows:
+// kernel 6's z pass) and half spectra two to a complex row (stage.cu's
+// HalfRows with RealPairsOut's store: kernel 3).
 //
 // The power-of-two kernel gives every thread the same RMAX points of one
 // row in every pass: T = n / RMAX threads a row, RMAX / r butterflies of a
@@ -536,8 +540,13 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
 //   Stockham passes through the padded split planes, the twiddle table of
 //   fft_plan (the same layout: pass p's block at NS - radix[0]), float32
 //   arithmetic, the Body's epilogue. A batch holds at most MIXED_POINTS =
-//   2560 points: a 20 KB buffer of complex64, at most ~105 KB a block
-//   with the table and the two pairs of planes, two blocks an SM.
+//   2560 points: a 20 KB buffer of complex64 (stage_bytes(g) = 8 points;
+//   kernel 3's half spectra take 16 rows (n/2 + 1), up to 16 bytes a row
+//   more), at most MIXED_SMEM bytes a block with the table and the two
+//   pairs of planes, so that two blocks share an SM. launch_mixed refuses
+//   a plan past it; the host (ops/hopper_fft._batch_rows) caps kernel 3's
+//   rows where its larger buffers would pass it (the shortest rows: 256
+//   rows of 10 points).
 // - Bound by bytes, as the power-of-two kernel. The index arithmetic on a
 //   runtime n walks each thread's butterflies by additions (DivWalk: its
 //   divisions once a pass), and the idle lanes cost issue slots, not
@@ -548,6 +557,9 @@ constexpr int MIXED_MAX = 512;      // longest row
 constexpr int MIXED_POINTS = 2560;  // most points a batch
 constexpr int MIXED_PASSES = 4;     // most passes
 constexpr int MIXED_ROWS_SHIFT = 20;  // the schedule's rows field
+// Most shared memory a block: two blocks an SM of an H100 (233,472 bytes an
+// SM, 1,024 of them reserved a block).
+constexpr int MIXED_SMEM = 115712;
 static_assert(MIXED_ROWS_SHIFT == 5 * MIXED_PASSES, "past the radices");
 
 // The plan of a launch: built on the host by mixed_plan from the packed
@@ -915,8 +927,10 @@ __device__ __forceinline__ void mixed_pass(int n, int points, int r0, int ns,
 }
 
 // The kernel. Body gives, besides its power-of-two methods, the same ones
-// on a MixedPlan (its issuer is one thread; a buffer is 8 g.points bytes):
+// on a MixedPlan (its issuer is one thread):
 //   batches(g)                     number of row batches
+//   stage_bytes(g)                 bytes of one input buffer, a multiple
+//                                  of 16
 //   issue(g, buffer, b, bar)       the bulk copies of batch b
 //   load(g, buffer, b, row, i)     point i of the batch's complex row
 //   store(g, re, im, b)            the epilogue, all threads
@@ -930,7 +944,7 @@ fft_mixed_kernel(const Body body, const MixedPlan g,
                  const float* __restrict__ table, int inverse) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = g.n, points = g.points, r0 = g.radix[0];
-  const int SB = 8 * points;
+  const int SB = body.stage_bytes(g);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   float* wr = reinterpret_cast<float*>(smem + 128);
   float* wi = wr + g.tld;
@@ -997,16 +1011,24 @@ fft_mixed_kernel(const Body body, const MixedPlan g,
   }
 }
 
+// The mixed-radix kernel's shared memory a block on plan g with input
+// buffers of stage bytes (ops/hopper_fft.mixed_smem).
+inline size_t mixed_smem(const MixedPlan& g, int stage) {
+  return 128 + 8 * (size_t)g.tld + STAGES * (size_t)stage +
+         16 * (size_t)g.padded;
+}
+
 // Launch the mixed-radix kernel on rows of n points; table, schedule:
-// ops/hopper_fft.fft_plan(n, inverse)'s.
+// ops/hopper_fft.fft_plan(n, inverse)'s, the rows of a batch
+// ops/hopper_fft.mixed_schedule's (at most MIXED_SMEM bytes a block).
 template <class Body>
 cudaError_t launch_mixed(int n, int schedule, const Body& body,
                          const float* table, int inverse,
                          cudaStream_t stream) {
   MixedPlan g;
   if (!mixed_plan(n, schedule, g)) return cudaErrorInvalidValue;
-  const size_t smem = 128 + 8 * (size_t)g.tld +
-                      STAGES * 8 * (size_t)g.points + 16 * (size_t)g.padded;
+  const size_t smem = mixed_smem(g, body.stage_bytes(g));
+  if (smem > MIXED_SMEM) return cudaErrorInvalidValue;
   return launch_persistent(fft_mixed_kernel<Body>, THREADS, smem,
                            body.batches(g), stream, body, g, table, inverse);
 }
@@ -1084,6 +1106,9 @@ struct ComplexTwiddleRows {
   __host__ __device__ long long batches(const MixedPlan& g) const {
     return ((long long)M + g.rows - 1) / g.rows;
   }
+  __host__ __device__ static int stage_bytes(const MixedPlan& g) {
+    return 8 * g.points;
+  }
   __device__ int rows_in(const MixedPlan& g, int b) const {
     const int left = M - b * g.rows;
     return left < g.rows ? left : g.rows;
@@ -1146,21 +1171,27 @@ struct ComplexTwiddleRows {
 // ---------------------------------------------------------------------------
 
 // Point i of Z from bin k of A and bin k of B, k = i for i <= n/2, else
-// n - i (then conjugated). The imaginary parts of the DC and Nyquist bins
-// are dropped: the C2R ignores them (mxu_fft._c2r_np's CI rows 0 and n/2
-// are sin 0 and sin pi j), and in the packed pair they would leak into the
-// partner row.
-template <int L>
-__device__ __forceinline__ float2 hermitian_pair(float2 a, float2 b, int i) {
-  constexpr int N = 1 << L;
-  if (i == 0 || i == N / 2) {
+// n - i (then conjugated). The imaginary parts of the DC bin and, for an
+// even n, of the Nyquist bin n/2 are dropped: the C2R ignores them
+// (mxu_fft._c2r_np's CI rows 0 and n/2 are sin 0 and sin pi j), and in the
+// packed pair they would leak into the partner row. An odd n has no
+// Nyquist bin: its last bin (n - 1)/2 is an ordinary one, whose imaginary
+// part counts (its CI row is 2 sin(2 pi j (n - 1)/2n)).
+__device__ __forceinline__ float2 hermitian_pair(int n, float2 a, float2 b,
+                                                 int i) {
+  if (i == 0 || 2 * i == n) {
     a.y = 0.f;
     b.y = 0.f;
-  } else if (i > N / 2) {
+  } else if (2 * i > n) {
     a.y = -a.y;
     b.y = -b.y;
   }
   return make_float2(a.x - b.y, a.y + b.x);
+}
+
+template <int L>
+__device__ __forceinline__ float2 hermitian_pair(float2 a, float2 b, int i) {
+  return hermitian_pair(1 << L, a, b, i);
 }
 
 // (M, n) float32 rows out, 2 ROWS real rows a batch: row 2c is the real
@@ -1196,6 +1227,50 @@ struct RealPairsOut {
       // A multiple of 4: its four points lie in one padded group of 32.
       const int i = pad((q >> 1) * G::N + (e & (G::N - 1)));
       o[e / 4] = make_float4(p[i], p[i + 1], p[i + 2], p[i + 3]);
+    }
+  }
+
+  // The same on the mixed-radix kernel (2 g.rows real rows a batch, n =
+  // g.n any length): the batch's rows_in n floats are one contiguous span
+  // from 8 g.points b bytes on (16-byte aligned, g.points being even),
+  // walked four floats a thread, each float4 store possibly across a row
+  // end (n >= 9, so across one at most); a tail of 1 to 3 floats (n or
+  // rows_in odd) by single stores. Float e of the span is point i of real
+  // row q, (q, i) = divmod(e, n), which reads plane q & 1 at work row q /
+  // 2.
+  __host__ __device__ long long batches(const MixedPlan& g) const {
+    const int r2 = 2 * g.rows;
+    return ((long long)M + r2 - 1) / r2;
+  }
+  __device__ int rows_in(const MixedPlan& g, int b) const {
+    const int r2 = 2 * g.rows, left = M - b * r2;
+    return left < r2 ? left : r2;
+  }
+  __device__ void store(const MixedPlan& g, const float* re, const float* im,
+                        int b) const {
+    const int n = g.n, count = rows_in(g, b) * n;
+    float* o = out + (size_t)b * 2 * g.points;
+    DivWalk w(4 * threadIdx.x, n, 4 * THREADS);  // (row, point) of e
+    for (int e = 4 * threadIdx.x; e < count; e += 4 * THREADS, w.next()) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      int q = w.q, i = w.r;
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        if (e + h < count)
+          v[h] = ((q & 1) ? im : re)[pad((q >> 1) * n + i)];
+        if (++i == n) {
+          i = 0;
+          ++q;
+        }
+      }
+      if (e + 4 <= count) {
+        reinterpret_cast<float4*>(o)[e / 4] = make_float4(v[0], v[1], v[2],
+                                                          v[3]);
+      } else {
+#pragma unroll
+        for (int h = 0; h < 3; ++h)
+          if (e + h < count) o[e + h] = v[h];
+      }
     }
   }
 };

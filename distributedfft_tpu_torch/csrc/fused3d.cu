@@ -582,6 +582,9 @@ struct ZRows {
     const int r2 = 2 * g.rows;
     return ((long long)M + r2 - 1) / r2;
   }
+  __host__ __device__ static int stage_bytes(const fft_rows::MixedPlan& g) {
+    return 8 * g.points;
+  }
   __device__ int rows_in(const fft_rows::MixedPlan& g, int b) const {
     const int r2 = 2 * g.rows, left = M - b * r2;
     return left < r2 ? left : r2;

@@ -42,8 +42,12 @@
 //   fft_rows_kernel<L, HalfRows>
 //                            <- _c2r_kernel         (kernel 3, FFT body:
 //                               power-of-two n in [8, 1024])
+//   fft_mixed_kernel<HalfRows>
+//                            <- _c2r_kernel         (kernel 3, FFT body on
+//                               the engine's mixed-radix kernel: 13-smooth
+//                               n in [9, 507], e.g. 375, 440, 480)
 //   MODE_C2R                 <- _c2r_kernel         (kernel 3, tile or row
-//                               body: any other n, e.g. 12 or 480)
+//                               body: any other n, e.g. 442 or 257)
 //   fft_rows_kernel<L, ComplexTwiddleRows<true>>
 //                            <- _cmatmul_tw_kernel  (kernel 4, FFT body:
 //                               power-of-two n2 in [8, 1024])
@@ -60,8 +64,12 @@
 //   fft_rows_kernel<L, RealTwiddleRows>
 //                            <- _rmatmul_tw_kernel  (kernel 5, FFT body:
 //                               power-of-two n2 in [8, 1024])
+//   fft_mixed_kernel<RealTwiddleRows>
+//                            <- _rmatmul_tw_kernel  (kernel 5, FFT body on
+//                               the engine's mixed-radix kernel: 13-smooth
+//                               n2 in [9, 507], e.g. 320, 416, 448, 480)
 //   MODE_RMATMUL + twiddle   <- _rmatmul_tw_kernel  (kernel 5, tile body:
-//                               any other n2, e.g. 320 or 171)
+//                               any other n2, e.g. 408 or 171)
 //
 // Kernel 3 computes y = Re(c) @ CR - Im(c) @ CI. Its dense body reads a row
 // of interleaved complex input as real numbers [re0, im0, re1, im1, ...], so
@@ -132,17 +140,23 @@
 //   bins 0..n/2 (RealRows), whose rows of 8 (n/2 + 1) bytes are written as
 //   one contiguous span a batch, not row by row. Each input byte is read
 //   once, and 2.5 n log2 n flop a row are done where the dense product did
-//   4 n (n/2 + 1).
+//   4 n (n/2 + 1). Kernel 5 runs on both of the engine's kernels: on the
+//   mixed-radix one (13-smooth n2, e.g. the 640, 832, 896 and 4320 axes'
+//   320, 416, 448 and 480) its epilogue walks the batch's bins as one span
+//   with DivWalk, two a thread across row ends (an odd n2).
 // - Kernel 3 has an FFT body on the same engine (HalfRows), the mirror of
 //   kernel 1's: each batch of half spectra arrives by one bulk copy, the
 //   first pass packs half rows 2c and 2c + 1 as one complex row extended by
-//   Hermitian symmetry (fft_rows::hermitian_pair), the engine runs its
-//   inverse passes, and the epilogue writes the real and imaginary planes
-//   as the two real rows, whole rows with 16-byte stores. It reads each
-//   input byte once and does 2.5 n log2 n flop a row where the dense
-//   product did 4 n (n/2 + 1). Past 512 points it also replaces, on the
-//   per-axis path, the Hermitian extension and a complex inverse of twice
-//   the bytes.
+//   Hermitian symmetry (fft_rows::hermitian_pair: for an odd n the last
+//   bin (n - 1)/2 keeps its imaginary part, there being no Nyquist bin),
+//   the engine runs its inverse passes, and the epilogue writes the real
+//   and imaginary planes as the two real rows, 16-byte stores over the
+//   batch's one contiguous span of rows. It reads each input byte once and
+//   does 2.5 n log2 n flop a row where the dense product did 4 n (n/2 +
+//   1). It runs on both of the engine's kernels (on the mixed-radix one a
+//   buffer holds 16 rows (n/2 + 1) bytes, stage_bytes(g)). Past 512 points
+//   it also replaces, on the per-axis path, the Hermitian extension and a
+//   complex inverse of twice the bytes.
 // - Wide dense stages take the tile path of stage_tile.cuh:
 //   64 x 64 output tiles, depth 16, 256 threads each holding a 4 x 4
 //   complex register tile, as x_c2c_kernel in fused3d.cu does; an operand
@@ -311,16 +325,47 @@ struct RealRowPairs {
   // Bin k of real row q of the batch, from the spectrum Z of complex row
   // q / 2: X_a[k] = (Z[k] + conj Z[n-k]) / 2 for even q, X_b[k] = (Z[k] -
   // conj Z[n-k]) / 2i for odd q.
-  template <int L>
-  __device__ static float2 split(const float* re, const float* im, int q,
-                                 int k) {
-    constexpr int N = fft_rows::Geometry<L>::N;
-    const int z = (q >> 1) * N;
+  __device__ static float2 split(int n, const float* re, const float* im,
+                                 int q, int k) {
+    const int z = (q >> 1) * n;
     const int i = fft_rows::pad(z + k);
-    const int i2 = fft_rows::pad(z + ((N - k) & (N - 1)));
+    const int i2 = fft_rows::pad(z + (k ? n - k : 0));
     const float zr = re[i], zi = im[i], nr = re[i2], ni = im[i2];
     return (q & 1) ? make_float2(0.5f * (zi + ni), 0.5f * (nr - zr))
                    : make_float2(0.5f * (zr + nr), 0.5f * (zi - ni));
+  }
+  template <int L>
+  __device__ static float2 split(const float* re, const float* im, int q,
+                                 int k) {
+    return split(fft_rows::Geometry<L>::N, re, im, q, k);
+  }
+
+  // The same on the mixed-radix kernel (2 g.rows real rows a batch, n =
+  // g.n): a batch's rows_in n floats from 8 g.points b bytes on (16-byte
+  // aligned, g.points being even), by one bulk copy and, where an odd n
+  // and rows_in end it off 16 bytes, the issuing thread's loads of its
+  // last 4 to 12 bytes.
+  __host__ __device__ long long batches(const fft_rows::MixedPlan& g) const {
+    const int r2 = 2 * g.rows;
+    return ((long long)M + r2 - 1) / r2;
+  }
+  __host__ __device__ static int stage_bytes(const fft_rows::MixedPlan& g) {
+    return 8 * g.points;
+  }
+  __device__ int rows_in(const fft_rows::MixedPlan& g, int b) const {
+    const int r2 = 2 * g.rows, left = M - b * r2;
+    return left < r2 ? left : r2;
+  }
+  __device__ void issue(const fft_rows::MixedPlan& g, unsigned char* buf,
+                        int b, uint64_t* bar) const {
+    fft_rows::bulk_load_tail(buf, x + (size_t)b * 2 * g.points,
+                             4u * rows_in(g, b) * g.n, bar);
+  }
+  __device__ float2 load(const fft_rows::MixedPlan& g,
+                         const unsigned char* buf, int b, int c,
+                         int i) const {
+    const float* p = reinterpret_cast<const float*>(buf) + 2 * c * g.n + i;
+    return make_float2(p[0], 2 * c + 1 < rows_in(g, b) ? p[g.n] : 0.f);
   }
 };
 
@@ -351,6 +396,45 @@ struct RealTwiddleRows : RealRowPairs {
         v[2 * h + 1] = s.x * wi + s.y * wr;
       }
       o[e / 2] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+
+  // The same on the mixed-radix kernel: the batch's rows_in n bins from 16
+  // g.points b bytes on, two neighbouring bins a thread, of one row or
+  // across two (an odd n), as one 16-byte store; an odd last bin as 8
+  // bytes. Bin e of the span is bin k of real row q, (q, k) = divmod(e,
+  // n), walked with DivWalk, and its twiddle row (row0 + q) mod n1 with
+  // it, as ComplexTwiddleRows<true>'s store does.
+  __device__ void store(const fft_rows::MixedPlan& g, const float* re,
+                        const float* im, int b) const {
+    const int n = g.n, count = rows_in(g, b) * n, row0 = b * 2 * g.rows;
+    float* o = out + (size_t)b * g.points * 4;
+    fft_rows::DivWalk w(2 * threadIdx.x, n, 2 * fft_rows::THREADS);
+    int rq = (row0 + w.q) % n1;
+    const int dq1 = w.dq % n1;
+    for (int e = 2 * threadIdx.x; e < count; e += 2 * fft_rows::THREADS) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 1 && e + 1 == count) break;
+        const bool next_row = w.r + h == n;  // an odd n's pair
+        const int q = w.q + next_row, k = next_row ? 0 : w.r + h;
+        const int row = !next_row ? rq : rq + 1 < n1 ? rq + 1 : 0;
+        const float2 s = split(n, re, im, q, k);
+        const size_t t = (size_t)row * n + k;
+        const float wr = __ldg(tr + t), wi = __ldg(ti + t);
+        v[2 * h] = s.x * wr - s.y * wi;
+        v[2 * h + 1] = s.x * wi + s.y * wr;
+      }
+      if (e + 1 < count)
+        reinterpret_cast<float4*>(o)[e / 2] = make_float4(v[0], v[1], v[2],
+                                                          v[3]);
+      else
+        reinterpret_cast<float2*>(o)[e] = make_float2(v[0], v[1]);
+      const int q0 = w.q;
+      w.next();
+      rq += dq1 + (w.q - q0 - w.dq);  // dq or dq + 1 rows on
+      if (rq >= n1) rq -= n1;
     }
   }
 };
@@ -423,6 +507,32 @@ struct HalfRows : fft_rows::RealPairsOut {
     const float2* p = reinterpret_cast<const float2*>(buf) + 2 * c * K + k;
     const float2 v = 2 * c + 1 < rows_in<L>(b) ? p[K] : make_float2(0.f, 0.f);
     return fft_rows::hermitian_pair<L>(p[0], v, i);
+  }
+
+  // The same on the mixed-radix kernel (n = g.n any length, K = n/2 + 1
+  // bins a half row, 2 g.rows half rows a batch): a full batch is 16 g.rows
+  // K bytes, a multiple of 16, so every batch starts 16-byte aligned; its
+  // bins come by one bulk copy and, for an odd count, the issuing thread's
+  // load of the last one (bulk_load_tail), as above.
+  __host__ __device__ static int stage_bytes(const fft_rows::MixedPlan& g) {
+    return 16 * g.rows * (g.n / 2 + 1);
+  }
+  __device__ void issue(const fft_rows::MixedPlan& g, unsigned char* buf,
+                        int b, uint64_t* bar) const {
+    const int K = g.n / 2 + 1;
+    fft_rows::bulk_load_tail(
+        buf, reinterpret_cast<const float2*>(x) + (size_t)b * 2 * g.rows * K,
+        8u * rows_in(g, b) * K, bar);
+  }
+  __device__ float2 load(const fft_rows::MixedPlan& g,
+                         const unsigned char* buf, int b, int c,
+                         int i) const {
+    const int n = g.n, K = n / 2 + 1;
+    const int k = 2 * i <= n ? i : n - i;
+    const float2* p = reinterpret_cast<const float2*>(buf) + 2 * c * K + k;
+    const float2 v =
+        2 * c + 1 < rows_in(g, b) ? p[K] : make_float2(0.f, 0.f);
+    return fft_rows::hermitian_pair(n, p[0], v, i);
   }
 };
 
@@ -523,9 +633,11 @@ int dfft_stage(const float* x, const float* fr, const float* fi,
   }
 }
 
-// Kernel 5, FFT body. x: (M, n) float32, n a power of two in [8, 1024],
-// 16-byte aligned; table, schedule: ops/hopper_fft.fft_plan(n, False);
-// tr, ti: (n1, n) float32 twiddle planes; out: (M, n) complex64.
+// Kernel 5, FFT body. x: (M, n) float32, n a power of two in [8, 1024]
+// (the engine's power-of-two kernel) or 13-smooth in [8, 512] (its
+// mixed-radix kernel), 16-byte aligned; table: ops/hopper_fft.fft_plan(n,
+// False).table; schedule: ops/hopper_fft._engine_schedule(n, False); tr,
+// ti: (n1, n) float32 twiddle planes; out: (M, n) complex64.
 int dfft_rdft_tw(const float* x, const float* table, const float* tr,
                  const float* ti, float* out, int M, int n, int n1,
                  int schedule, void* stream) {
@@ -533,8 +645,10 @@ int dfft_rdft_tw(const float* x, const float* table, const float* tr,
   if (fft_rows::misaligned(x) || fft_rows::misaligned(out))
     return cudaErrorMisalignedAddress;
   const RealTwiddleRows body{{x, out, M}, tr, ti, n1};
-  return fft_rows::launch(n, schedule, body, table, 0,
-                          static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (n & (n - 1)) == 0
+             ? fft_rows::launch(n, schedule, body, table, 0, st)
+             : fft_rows::launch_mixed(n, schedule, body, table, 0, st);
 }
 
 // Kernel 4, FFT body. x: (M, n) complex64, n a power of two in [8, 1024]
@@ -644,7 +758,9 @@ int dfft_rdft(const float* x, const float* table, float* out, int M, int n,
 }
 
 // Kernel 3, FFT body. c: (M, n/2 + 1) complex64, n a power of two in [8,
-// 1024], 16-byte aligned; table, schedule: ops/hopper_fft.fft_plan(n,
+// 1024] (the engine's power-of-two kernel) or 13-smooth in [8, 512] (its
+// mixed-radix kernel), 16-byte aligned; table: ops/hopper_fft.fft_plan(n,
+// True).table; schedule: ops/hopper_fft._engine_schedule(n, True, half=
 // True); out: (M, n) float32, 16-byte aligned.
 int dfft_c2r(const float* c, const float* table, float* out, int M, int n,
              int schedule, void* stream) {
@@ -652,8 +768,10 @@ int dfft_c2r(const float* c, const float* table, float* out, int M, int n,
   if (fft_rows::misaligned(c) || fft_rows::misaligned(out))
     return cudaErrorMisalignedAddress;
   const HalfRows body{{out, M}, c};
-  return fft_rows::launch(n, schedule, body, table, 1,
-                          static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (n & (n - 1)) == 0
+             ? fft_rows::launch(n, schedule, body, table, 1, st)
+             : fft_rows::launch_mixed(n, schedule, body, table, 1, st);
 }
 
 }  // extern "C"

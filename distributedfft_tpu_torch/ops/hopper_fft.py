@@ -50,10 +50,11 @@ granularities:
 * **row FFT engine** (``csrc/fft_rows.cuh``): the body of ``rdft``
   (kernel 1), ``cdft`` (kernel 2), ``irdft`` (kernel 3), ``cdft_tw``
   (kernel 4), ``rdft_tw`` (kernel 5) and ``dec_cmatmul`` (kernel 11) on
-  rows of a power of two in [8, 1024] (``_fft_body``), and, on its
-  mixed-radix kernel, of ``cdft`` and ``cdft_tw`` on the 155 13-smooth
-  lengths in [9, 507] (``MIXED_LENGTHS``, ``_cdft_body``); other lengths
-  take the dense bodies of ``stage.cu``. It also runs the two FFT passes
+  rows of a power of two in [8, 1024], and, on its mixed-radix kernel, of
+  ``cdft``, ``irdft``, ``cdft_tw`` and ``rdft_tw`` on the 155 13-smooth
+  lengths in [9, 507] (``MIXED_LENGTHS``; kernels 1 and 11 route by
+  ``_fft_body``, kernels 2-5 by ``_cdft_body``); other lengths take the
+  dense bodies of ``stage.cu``. It also runs the two FFT passes
   of the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8), and,
   as its column kernel, ``x_c2c`` (kernel 7), ``cdft_cols`` (kernel 2
   on a non-last axis) and ``cdft_tw_cols`` (kernel 4 on a non-last split
@@ -206,17 +207,21 @@ FFT_MIN, FFT_MAX = 8, 1024
 # The engine's mixed-radix kernel (``fft_mixed_kernel`` in fft_rows.cuh):
 # the butterflies it has (``MIXED_RADICES``), the most points a batch holds
 # (``MIXED_POINTS``), threads a block (``THREADS``), the longest row
-# (``MIXED_MAX``) and the first bit of its schedule's rows field
-# (``MIXED_ROWS_SHIFT``, past 4 passes of 5 bits). It runs the 13-smooth
+# (``MIXED_MAX``), the first bit of its schedule's rows field
+# (``MIXED_ROWS_SHIFT``, past 4 passes of 5 bits), its ring of input
+# buffers (``STAGES``) and the most shared memory a block takes
+# (``MIXED_SMEM``: two blocks an SM of an H100). It runs the 13-smooth
 # lengths 2^a 3^b 5^c 7^d 11^e 13^f in [FFT_MIN, MIXED_MAX] that are not
-# powers of two (``MIXED_LENGTHS``, 155 of them: kernels 2, 4 and 6),
-# and, beside them on kernel 6's passes, the powers of two up to
+# powers of two (``MIXED_LENGTHS``, 155 of them: kernels 2, 3, 4, 5 and
+# 6), and, beside them on kernel 6's passes, the powers of two up to
 # MIXED_MAX.
 MIXED_RADICES = (16, 15, 14, 13, 12, 11, 10, 9, 8, 7, 6, 5, 4, 3, 2)
 MIXED_POINTS = 2560
 MIXED_MAX = 512
 THREADS = 256
 MIXED_ROWS_SHIFT = 20
+STAGES = 3
+MIXED_SMEM = 115712
 
 
 def _smooth(n: int, primes: Sequence[int]) -> bool:
@@ -232,12 +237,13 @@ MIXED_LENGTHS = tuple(n for n in range(FFT_MIN, MIXED_MAX + 1)
 
 
 def _fft_body(n: int) -> str:
-    """The body kernels 1, 3, 5 and 11 run on rows of n points: ``"fft"``
-    (the row FFT engine) for a power of two in [FFT_MIN, FFT_MAX], else
-    ``"tile"`` (the dense bodies of ``stage.cu`` / ``wire.cu`` with the DFT
-    or C2R planes: the tile loop of ``stage_tile.cuh``, or for kernels 1
-    and 3 on rows of a few points the row path). Kernels 2 and 4 on rows
-    route by ``_cdft_body``."""
+    """The body kernels 1 and 11 run on rows of n points: ``"fft"`` (the
+    row FFT engine's power-of-two kernel) for a power of two in [FFT_MIN,
+    FFT_MAX], else ``"tile"`` (the dense bodies of ``stage.cu`` /
+    ``wire.cu`` with the DFT or R2C planes: the tile loop of
+    ``stage_tile.cuh``, or for kernel 1 on rows of a few points the row
+    path). Kernels 2, 3, 4 and 5 on rows route by ``_cdft_body``; the
+    column, short-stage and fused bodies read this too."""
     return "fft" if FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0 else "tile"
 
 
@@ -248,11 +254,12 @@ def _engine_length(n: int) -> bool:
 
 
 def _cdft_body(n: int) -> str:
-    """The body kernels 2 (``cdft``) and 4 (``cdft_tw``) run on rows of n
-    points: ``"fft"`` (the row FFT engine: its power-of-two kernel, or its
-    mixed-radix kernel for a 13-smooth n) where ``_engine_length(n)``, else
-    ``"tile"`` (the tile loop of ``stage.cu`` with the DFT planes, or for
-    kernel 2 on rows of a few points the row path)."""
+    """The body kernels 2 (``cdft``), 3 (``irdft``), 4 (``cdft_tw``) and 5
+    (``rdft_tw``) run on rows of n points: ``"fft"`` (the row FFT engine:
+    its power-of-two kernel, or its mixed-radix kernel for a 13-smooth n)
+    where ``_engine_length(n)``, else ``"tile"`` (the tile loop of
+    ``stage.cu`` with the DFT or C2R planes, or for kernels 2 and 3 on rows
+    of a few points the row path)."""
     return "fft" if _engine_length(n) else "tile"
 
 
@@ -386,14 +393,39 @@ def _lane_use(n: int, radices: Sequence[int], rows: int) -> Tuple[int, int]:
     return len(radices) * pts, slots
 
 
-def _batch_rows(n: int, radices: Sequence[int]) -> int:
+def _stage_bytes(n: int, rows: int, half: bool = False) -> int:
+    """Bytes of one input buffer of the mixed-radix kernel on batches of
+    ``rows`` rows of n points (each Body's ``stage_bytes(g)``): 8 rows n
+    (complex rows, or twice as many real rows), or for kernel 3's half
+    spectra (``half``) 16 rows (n // 2 + 1), two half rows of n // 2 + 1
+    bins a complex row."""
+    return 16 * rows * (n // 2 + 1) if half else 8 * rows * n
+
+
+def mixed_smem(n: int, r0: int, rows: int, half: bool = False) -> int:
+    """Shared memory a block of the mixed-radix kernel takes on batches of
+    ``rows`` rows of n points, r0 the first radix (``mixed_smem`` in
+    fft_rows.cuh): the ring's barriers (128 bytes), the twiddle table's
+    two planes of n - r0 floats rounded up to 4, ``STAGES`` input buffers
+    (``_stage_bytes``) and two pairs of work planes of rows n + rows n //
+    32 floats."""
+    points = rows * n
+    tld = (n - r0 + 3) & ~3
+    return (128 + 8 * tld + STAGES * _stage_bytes(n, rows, half)
+            + 16 * (points + points // 32))
+
+
+def _batch_rows(n: int, radices: Sequence[int], half: bool = False) -> int:
     """Rows a batch of the mixed-radix kernel: the count, at most
-    ``MIXED_POINTS`` / n and with rows n even (16-byte aligned batches),
-    whose passes leave the smallest share of lane slots idle, the larger
-    count on a tie. The kernel takes it from ``mixed_schedule``."""
+    ``MIXED_POINTS`` / n, with rows n even (16-byte aligned batches) and
+    the block within ``MIXED_SMEM`` (``mixed_smem``; ``half``: kernel 3's
+    larger buffers, which cap the rows of the shortest lengths), whose
+    passes leave the smallest share of lane slots idle, the larger count
+    on a tie. The kernel takes it from ``mixed_schedule``."""
     best, best_use = 2, (0, 1)
     for rows in range(1, MIXED_POINTS // n + 1):
-        if rows * n % 2:
+        if rows * n % 2 or \
+                mixed_smem(n, radices[0], rows, half) > MIXED_SMEM:
             continue
         used, slots = _lane_use(n, radices, rows)
         if used * best_use[1] >= best_use[0] * slots:
@@ -441,20 +473,23 @@ def mixed_geometry(n: int) -> MixedGeometry:
     return MixedGeometry(rows, rows * n, 1 - used / slots)
 
 
-def _engine_schedule(n: int, inverse: bool) -> int:
+def _engine_schedule(n: int, inverse: bool, half: bool = False) -> int:
     """The schedule an engine length's rows launch with: ``fft_plan``'s for
-    a power of two (the power-of-two kernel), else ``mixed_schedule``."""
+    a power of two (the power-of-two kernel), else ``mixed_schedule``
+    (``half``: kernel 3's)."""
     return (fft_plan(n, inverse).schedule if _fft_body(n) == "fft"
-            else mixed_schedule(n, inverse))
+            else mixed_schedule(n, inverse, half))
 
 
-def mixed_schedule(n: int, inverse: bool) -> int:
+def mixed_schedule(n: int, inverse: bool, half: bool = False) -> int:
     """The packed schedule the mixed-radix kernel takes on rows of n points
     (``mixed_plan`` in fft_rows.cuh): ``fft_plan(n, inverse).schedule``
     and, from bit ``MIXED_ROWS_SHIFT`` on, the rows of a batch
-    (``_batch_rows``), so the rows that run are the ones chosen here."""
+    (``_batch_rows``; ``half`` for kernel 3's Body), so the rows that run
+    are the ones chosen here."""
     plan = fft_plan(n, inverse)
-    return plan.schedule | _batch_rows(n, plan.radices) << MIXED_ROWS_SHIFT
+    return plan.schedule | (_batch_rows(n, plan.radices, half)
+                            << MIXED_ROWS_SHIFT)
 
 
 @functools.lru_cache(maxsize=None)
@@ -713,13 +748,15 @@ def zy_fwd_mirror(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def c2r_mirror(c2: torch.Tensor, n: int) -> torch.Tensor:
     """Kernel 3's FFT body in plain PyTorch: (M, n/2 + 1) half spectra ->
     (M, n) float32, the unnormalized C2R of each row. Half rows 2c and
-    2c + 1 (an odd last row paired with zeros), their DC and Nyquist
-    imaginary parts zeroed, extended by Hermitian symmetry and packed as
-    one complex row A + iB; the engine's inverse passes; the real and
-    imaginary parts split into the two real rows."""
+    2c + 1 (an odd last row paired with zeros), the imaginary parts of
+    their DC bin and, for an even n, of their Nyquist bin n/2 zeroed (an
+    odd n has no Nyquist bin: its last bin (n - 1)/2 keeps its imaginary
+    part), extended by Hermitian symmetry and packed as one complex row A +
+    iB; the engine's inverse passes; the real and imaginary parts split
+    into the two real rows."""
     M = c2.shape[0]
     c = c2.to(torch.complex64).clone()
-    for k in (0, n // 2):
+    for k in (0, n // 2) if n % 2 == 0 else (0,):
         c[:, k] = c[:, k].real.to(torch.complex64)
     if M % 2:
         c = torch.cat([c, c.new_zeros((1, c.shape[1]))])
@@ -1459,9 +1496,10 @@ def rdft_tw(x2: torch.Tensor, n1: int) -> torch.Tensor:
     """Real rows to the four-step first stage: (M, n2) float32 -> (M, n2)
     complex64, the full n2-point DFT of each row times the twiddle row
     T[r % n1] (kernel 5, ``_rmatmul_tw_kernel``). The body is
-    ``_fft_body(n2)``: the row FFT engine for a power of two in [8, 1024],
-    else the dense tile loop of ``stage`` with the DFT planes; both count
-    as ``rmatmul_tw``."""
+    ``_cdft_body(n2)``: the row FFT engine for a power of two in [8, 1024]
+    or a 13-smooth n2 in [8, 512] (its mixed-radix kernel), else the dense
+    tile loop of ``stage`` with the DFT planes; both count as
+    ``rmatmul_tw``."""
     if x2.ndim != 2:
         raise ValueError(f"rmatmul_tw: expected 2D rows, got shape "
                          f"{tuple(x2.shape)}")
@@ -1469,7 +1507,7 @@ def rdft_tw(x2: torch.Tensor, n1: int) -> torch.Tensor:
         raise ValueError(f"rmatmul_tw: n1 = {n1} < 1")
     M, n2 = x2.shape
     dev = x2.device
-    if dev.type == "cpu" or _fft_body(n2) == "tile":
+    if dev.type == "cpu" or _cdft_body(n2) == "tile":
         return stage(x2, *_planes("dft", n2, False, dev), (n1, n2, False))
     tr, ti = _twiddle_planes(n1, n2, False, dev)
     _check_rows("rmatmul_tw", x2, torch.float32, tr, ti)
@@ -1477,7 +1515,7 @@ def rdft_tw(x2: torch.Tensor, n1: int) -> torch.Tensor:
     if M:
         _require_aligned("rmatmul_tw", x2, y)
         _launch("rmatmul_tw", "dfft_rdft_tw", x2, _fft_table(n2, False, dev),
-                tr, ti, y, M, n2, n1, fft_plan(n2, False).schedule)
+                tr, ti, y, M, n2, n1, _engine_schedule(n2, False))
     return y
 
 
@@ -1538,16 +1576,18 @@ def c2r(c2: torch.Tensor, cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
 def irdft(c2: torch.Tensor, n: int) -> torch.Tensor:
     """Half spectra to their real rows: (M, n//2+1) complex64 -> (M, n)
     float32, the unnormalized C2R of each row (kernel 3, ``_c2r_kernel``;
-    the imaginary parts of bins 0 and n/2 are ignored). The body is
-    ``_fft_body(n)``: the row FFT engine for a power of two in [8, 1024]
-    (on a CPU tensor its plain version, ``c2r_plain``), else ``c2r`` with
-    the C2R planes (the tile or row body); both count as ``c2r``."""
+    the imaginary parts of bin 0 and, for an even n, of bin n/2 are
+    ignored). The body is ``_cdft_body(n)``: the row FFT engine for a
+    power of two in [8, 1024] or a 13-smooth n in [8, 512] (its
+    mixed-radix kernel; on a CPU tensor its plain version, ``c2r_plain``),
+    else ``c2r`` with the C2R planes (the tile or row body); both count as
+    ``c2r``."""
     cpu = _check_rows("c2r", c2, torch.complex64)
     M, k = c2.shape
     if n < 1 or k != n // 2 + 1:
         raise ValueError(f"c2r: rows {tuple(c2.shape)} do not fit n = {n}")
     dev = c2.device
-    if _fft_body(n) == "tile":
+    if _cdft_body(n) == "tile":
         return c2r(c2, *_planes("c2r", n, False, dev))
     if cpu:
         return c2r_plain(c2, *_planes("c2r", n, False, dev))
@@ -1555,7 +1595,7 @@ def irdft(c2: torch.Tensor, n: int) -> torch.Tensor:
     if M:
         _require_aligned("c2r", c2, y)
         _launch("c2r", "dfft_c2r", c2, _fft_table(n, True, dev), y, M, n,
-                fft_plan(n, True).schedule)
+                _engine_schedule(n, True, half=True))
     return y
 
 

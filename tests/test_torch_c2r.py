@@ -15,9 +15,10 @@ must ignore. The mirror is held against
   interpret mode) to 5e-4, the JAX package's per-stage bound, and at 1024
   points ``pallas_fft.irfft``, which inverts the Hermitian extension there.
 
-Also the routing: ``irfft`` sends a power of two up to 1024 to one
-``irdft``, other lengths up to 512 to ``c2r`` with the planes, and a split
-length to the Hermitian extension; on a CUDA tensor ``irdft`` and
+Also the routing: ``irfft`` sends a power of two up to 1024 and every
+other length up to 512 to one ``irdft`` (on the engine at a power of two
+or a 13-smooth length, else ``c2r`` with the planes), and a split length
+to the Hermitian extension; on a CUDA tensor ``irdft`` and
 ``yz_inv`` name the entry points of their body (checked here with the
 launch recorded, not run).
 """
@@ -91,7 +92,7 @@ def test_c2r_mirror_ignores_dc_and_nyquist_imaginary_parts(n):
 @pytest.mark.parametrize("n", POW2 + [1, 2, 12, 257])
 def test_irdft_on_cpu_equals_c2r_plain(n):
     """On CPU tensors ``irdft`` is its plain version exactly, whichever
-    body ``_fft_body(n)`` names, and launches nothing."""
+    body ``_cdft_body(n)`` names, and launches nothing."""
     hf.reset_launches()
     c = torch.from_numpy(_half(5, n, n))
     assert torch.equal(hf.irdft(c, n), _plain(c, n))
@@ -135,7 +136,10 @@ def test_irfft_power_of_two_takes_one_irdft(monkeypatch, n):
 @pytest.mark.parametrize("n", [2, 4, 12, 96, 257, 320])
 def test_irfft_other_direct_lengths_take_the_planes(monkeypatch, n):
     """Any other length up to 512 also takes one ``irdft``, whose body is
-    then ``c2r`` with the C2R planes (the tile or row body)."""
+    then ``c2r`` with the C2R planes (the tile or row body); at a
+    13-smooth length (12, 96, 320) it runs the engine's mixed-radix kernel
+    instead, whose plain version on the CPU is the product with the same
+    planes, not through ``c2r``."""
     calls = _count_calls(monkeypatch, hf, "irdft", "c2r", "cdft",
                          "_fft_last")
     calls.update(_count_calls(monkeypatch, hf.mx, "_hermitian_extend"))
@@ -144,6 +148,12 @@ def test_irfft_other_direct_lengths_take_the_planes(monkeypatch, n):
     assert _rel(got, np.fft.irfft(c.astype(np.complex128), n) * n) <= 1e-5
     assert hf._fft_body(n) == "tile"
     assert calls.pop("irdft") == [((3, n // 2 + 1), n)]
+    if hf._cdft_body(n) == "fft":
+        assert n in hf.MIXED_LENGTHS and not calls.pop("c2r")
+        assert torch.equal(torch.from_numpy(got), _plain(
+            torch.from_numpy(c), n))
+        assert all(not v for v in calls.values()), calls
+        return
     ((shape, cr, ci),) = calls.pop("c2r")
     assert shape == (3, n // 2 + 1)
     want = hf._planes("c2r", n, False, CPU)
@@ -191,14 +201,16 @@ def _record_launches(monkeypatch):
     return log
 
 
-@pytest.mark.parametrize("n", POW2 + [2, 12, 96, 480])
+@pytest.mark.parametrize("n", POW2 + [2, 12, 96, 480, 375, 442])
 def test_irdft_routes_by_fft_body(monkeypatch, n):
-    """Off the CPU, ``irdft`` launches ``dfft_c2r`` (the engine) for a
-    power of two in [8, 1024], else the dense ``dfft_stage``; both count
-    as ``c2r``. No other route."""
+    """Off the CPU, ``irdft`` launches ``dfft_c2r`` (the engine: its
+    power-of-two kernel, or its mixed-radix kernel at a 13-smooth n such
+    as 12, 96, 480 and 375) where ``_cdft_body(n)`` is "fft", else the
+    dense ``dfft_stage`` (2, 442); both count as ``c2r``. No other
+    route."""
     log = _record_launches(monkeypatch)
     hf.irdft(torch.zeros((7, n // 2 + 1), dtype=torch.complex64), n)
-    entry = "dfft_c2r" if hf._fft_body(n) == "fft" else "dfft_stage"
+    entry = "dfft_c2r" if hf._cdft_body(n) == "fft" else "dfft_stage"
     assert log == [("c2r", entry)]
 
 

@@ -344,10 +344,10 @@ def test_c2r_kernel(cuda, M, n):
     assert _rel(y, hf.c2r_plain(c, *C)) <= 5e-4
 
 
-# Kernel 5's two bodies (hf._fft_body): the row FFT engine for a
+# Kernel 5's two bodies (hf._cdft_body): the row FFT engine for a
 # power-of-two n2 in [8, 1024] (M = 1, odd M, and M above one persistent
-# wave of the grid), else the tile loop (320, 206, 171). Kernel 4 also takes
-# the engine (its mixed-radix kernel) at 320.
+# wave of the grid) or a 13-smooth n2 (320: its mixed-radix kernel), else
+# the tile loop (206, 171). Kernel 4 takes the same bodies.
 TWIDDLE_ROWS = [(2, 512, 3), (2, 320, 33), (5, 206, 7), (4, 512, 2),
                 (8, 16, 5), (3, 171, 9), (1, 1024, 1), (3, 64, 5),
                 (2, 512, 2000), (2, 8, 110001), (4, 32, 33), (2, 128, 17),
@@ -424,6 +424,73 @@ def test_cdft_mixed_lengths(cuda, n, inverse):
         assert hf.ENTRIES.get("dfft_stage", 0) == ent.get("dfft_stage", 0)
         assert y.shape == (M, n) and y.dtype == torch.complex64
         ref = hf.stage_plain(x, *hf._planes("dft", n, inverse, cuda))
+        assert _rel(y, ref) <= 5e-4
+
+
+def _entry_launches(fn, entry):
+    """Run fn and return (its result, launches of entry, of dfft_stage)."""
+    ent = dict(hf.ENTRIES)
+    y = fn()
+    torch.cuda.synchronize()
+    return (y, hf.ENTRIES.get(entry, 0) - ent.get(entry, 0),
+            hf.ENTRIES.get("dfft_stage", 0) - ent.get("dfft_stage", 0))
+
+
+@pytest.mark.parametrize("M, n", [(131, 480), (2049, 375), (64, 320),
+                                  (7, 405), (1, 9), (5, 10)])
+def test_irdft_on_the_mixed_kernel(cuda, M, n):
+    """Kernel 3 on the engine's mixed-radix kernel by its entry point
+    (``dfft_c2r``, never ``dfft_stage``): half spectra with a real DC bin
+    (and at an even n a real Nyquist bin) against ``torch.fft.irfft``; at
+    an odd n (375, 405, 9) the last bin keeps its imaginary part, which
+    counts; odd and even M."""
+    c = _crandn((M, n // 2 + 1), n + M, cuda)
+    c[:, 0] = c[:, 0].real.clone()
+    if n % 2 == 0:
+        c[:, n // 2] = c[:, n // 2].real.clone()
+    y, runs, tiles = _entry_launches(lambda: hf.irdft(c, n), "dfft_c2r")
+    assert (runs, tiles) == (1, 0)
+    assert y.shape == (M, n) and y.dtype == torch.float32
+    assert _rel(y, torch.fft.irfft(c, n=n, norm="forward")) <= 5e-4
+    assert _rel(y, hf.c2r_plain(c, *hf._planes("c2r", n, False,
+                                               cuda))) <= 5e-4
+
+
+@pytest.mark.parametrize("M, n2, n1", [(262, 480, 9), (2049, 375, 2),
+                                       (64, 320, 2), (7, 405, 3),
+                                       (1, 10, 1)])
+def test_rdft_tw_on_the_mixed_kernel(cuda, M, n2, n1):
+    """Kernel 5 on the engine's mixed-radix kernel by its entry point
+    (``dfft_rdft_tw``, never ``dfft_stage``) against ``torch.fft.fft``
+    times the twiddle row r % n1; odd and even M and n2."""
+    x = _randn((M, n2), n2 + M, cuda)
+    y, runs, tiles = _entry_launches(lambda: hf.rdft_tw(x, n1),
+                                     "dfft_rdft_tw")
+    assert (runs, tiles) == (1, 0)
+    tr, ti = hf._twiddle_planes(n1, n2, False, cuda)
+    rows = torch.arange(M, device=cuda) % n1
+    want = torch.fft.fft(x) * torch.complex(tr, ti)[rows]
+    assert y.shape == (M, n2) and y.dtype == torch.complex64
+    assert _rel(y, want) <= 5e-4
+
+
+@pytest.mark.parametrize("n", hf.MIXED_LENGTHS)
+def test_kernels_3_and_5_at_every_mixed_length(cuda, n):
+    """Kernels 3 and 5 on the mixed-radix kernel at every 13-smooth length
+    in [9, 507], on an odd number of rows and on more rows than one
+    persistent wave holds, against their plain versions."""
+    for M in (37, (1 << 20) // n + 3):
+        c = _crandn((M, n // 2 + 1), n + M, cuda)
+        y, runs, tiles = _entry_launches(lambda: hf.irdft(c, n), "dfft_c2r")
+        assert (runs, tiles) == (1, 0)
+        assert _rel(y, hf.c2r_plain(c, *hf._planes("c2r", n, False,
+                                                   cuda))) <= 5e-4
+        x = _randn((M, n), n + M + 1, cuda)
+        y, runs, tiles = _entry_launches(lambda: hf.rdft_tw(x, 3),
+                                         "dfft_rdft_tw")
+        assert (runs, tiles) == (1, 0)
+        ref = hf.stage_plain(x, *hf._planes("dft", n, False, cuda),
+                             *hf._twiddle_planes(3, n, False, cuda))
         assert _rel(y, ref) <= 5e-4
 
 

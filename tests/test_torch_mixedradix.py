@@ -22,8 +22,8 @@ CPU.
   and 13-smooth Y and Z, against ``zy_fwd_plain`` and, followed by
   ``x_c2c_plain``, the JAX ``_rfftn3d_fused`` in interpret mode (5e-4).
 * The routes: ``_zy_fwd_body`` (kernel 6, engine lengths, Y even),
-  ``_zy_body`` (kernel 8, powers of two only), ``_cdft_body`` (kernels 2
-  and 4, 13-smooth) and ``_fft_body`` (kernels 1, 3, 5 and 11, powers of
+  ``_zy_body`` (kernel 8, powers of two only), ``_cdft_body`` (kernels 2,
+  3, 4 and 5, 13-smooth) and ``_fft_body`` (kernels 1 and 11, powers of
   two only), and the launches of ``zy_fwd``, ``cdft``, ``cdft_tw``, a
   4320-point axis, the 448^3 slab plan and ``chip_smoke.py``'s 256 x
   480^2, 64 x 896^2, 64 x 832^2 and 256 x 440^2 batched stacks with the
@@ -261,15 +261,17 @@ def test_zy_mirror_then_x_matches_rfftn3d_fused(shape):
     assert _rel(torch.complex(zr, zi).numpy(), want) <= 5e-4
 
 
-def test_routes():
+def test_routes(monkeypatch):
     """Kernel 6 takes the engine where Y and Z are each an engine length up
     to 512 and Y is even (448 = 8 x 8 x 7, 416, 440 and 13-smooth lengths
     among them) and keeps its dense body on an odd Y and on a length with
     a prime factor past 13 (408 = 24 x 17, 442 = 2 x 13 x 17); kernel 8
     stays on powers of two; kernels 2 and 4 take the engine on 13-smooth
     lengths up to 512 (416 = 32 x 13, 440 = 8 x 5 x 11 among them) and
-    their tile body on a length with a factor past 13; the other kernels'
-    ``_fft_body`` stays powers of two."""
+    their tile body on a length with a factor past 13, and so do kernels 3
+    (``irdft``) and 5 (``rdft_tw``), which route by ``_cdft_body`` too;
+    the other kernels' ``_fft_body`` (kernels 1 and 11, the column and
+    short-stage bodies) stays powers of two."""
     for y, z in ((480, 480), (96, 120), (480, 40), (12, 10), (512, 480),
                  (480, 512), (8, 9), (500, 375), (448, 448), (480, 448),
                  (448, 480), (416, 440), (26, 22), (14, 56), (28, 448),
@@ -295,6 +297,18 @@ def test_routes():
         assert hf._fft_body(n) == "tile"
     for n in (7, 520, 1000, 206, 408, 442, 17, 4):
         assert hf._cdft_body(n) == "tile"
+    # Kernels 3 and 5 on rows, launches recorded on "meta" tensors: the
+    # engine at 13-smooth lengths, the tile body past 13 or 512.
+    log = _record_launches(monkeypatch)
+    for n in (320, 480, 375, 416, 440, 448, 9, 507, 408, 442, 520):
+        del log[:]
+        hf.irdft(torch.zeros((3, n // 2 + 1), dtype=torch.complex64,
+                             device="meta"), n)
+        hf.rdft_tw(torch.zeros((3, n), device="meta"), 2)
+        tile = n in (408, 442, 520)
+        assert [(k, e) for k, e, _ in log] == (
+            [("c2r", "dfft_stage"), ("rmatmul_tw", "dfft_stage")] if tile
+            else [("c2r", "dfft_c2r"), ("rmatmul_tw", "dfft_rdft_tw")]), n
 
 
 def _record_launches(monkeypatch):
@@ -379,9 +393,9 @@ def test_cdft_launches(monkeypatch, n, inverse):
 # direction: (shape, launches forward, inverse as (kernel, entry) pairs).
 _DIRECT_ENGINE = (
     [("rmatmul", "dfft_stage"), ("cmatmul", "dfft_cdft")],
-    [("cmatmul", "dfft_cdft"), ("c2r", "dfft_stage")])
+    [("cmatmul", "dfft_cdft"), ("c2r", "dfft_c2r")])
 _SPLIT_ENGINE = (
-    [("rmatmul_tw", "dfft_stage"), ("cmatmul", "dfft_cdft_short"),
+    [("rmatmul_tw", "dfft_rdft_tw"), ("cmatmul", "dfft_cdft_short"),
      ("cmatmul_tw", "dfft_cdft_tw"), ("cmatmul", "dfft_cdft_short")],
     [("cmatmul_tw", "dfft_cdft_tw"), ("cmatmul", "dfft_cdft_short")] * 2)
 _BATCHED_ENGINE = {(256, 480, 480): _DIRECT_ENGINE,
@@ -406,12 +420,13 @@ def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
                                                          shape):
     """The "pallas" batched-2D plan at 256 x 480^2 and 256 x 440^2 (x moved
     last, kernel 2 on the mixed-radix kernel at 480 = 12 x 10 x 4 and 440
-    = 11 x 10 x 4; kernels 1 and 3 keep their tile bodies) and 64 x 896^2
-    and 64 x 832^2 (both axes 2 x 448 or 2 x 416: kernel 4 on the
-    mixed-radix kernel, the 2-point short stage; kernel 5's first stage
-    keeps its tile body), recorded on "meta" tensors: neither kernel 2 nor
-    kernel 4 reaches ``dfft_stage``, and the entries are the ones
-    ``chip_smoke.py``'s ``BATCHED_CARD`` counts."""
+    = 11 x 10 x 4, and the inverse's y C2R, kernel 3, on it too; kernel 1
+    keeps its tile body) and 64 x 896^2 and 64 x 832^2 (both axes 2 x 448
+    or 2 x 416: kernel 4 on the mixed-radix kernel, the 2-point short
+    stage, and the forward's first stage, kernel 5, on the mixed-radix
+    kernel), recorded on "meta" tensors: none of kernels 2-5 reaches
+    ``dfft_stage``, and the entries are the ones ``chip_smoke.py``'s
+    ``BATCHED_CARD`` counts and ``BATCHED_ENGINE`` names a direction."""
     smoke = _chip_smoke()
     from distributedfft_tpu_torch import Batched2DFFTPlan, Config
     from distributedfft_tpu_torch import SlabPartition
@@ -427,8 +442,8 @@ def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
     assert back.shape == shape
     assert (fwd, inv) == _BATCHED_ENGINE[shape]
     for pairs in (fwd, inv):
-        assert ("cmatmul", "dfft_stage") not in pairs
-        assert ("cmatmul_tw", "dfft_stage") not in pairs
+        for kernel in ("cmatmul", "cmatmul_tw", "c2r", "rmatmul_tw"):
+            assert (kernel, "dfft_stage") not in pairs
     (pid,) = [p for p, v in smoke.BATCHED_CARD.items() if v[0] == shape]
     _, _, ent_f, ent_i = smoke.BATCHED_CARD[pid][1]
     for pairs, want in ((fwd, ent_f), (inv, ent_i)):
@@ -436,11 +451,12 @@ def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
         for _, e in pairs:
             got[e] = got.get(e, 0) + 1
         assert got == want
-    kernels = smoke.BATCHED_ENGINE[pid]
-    for pairs in (fwd, inv):
+    for pairs, kernels in zip((fwd, inv), smoke.BATCHED_ENGINE[pid]):
         seen = {}
         for p in pairs:
             seen[p] = seen.get(p, 0) + 1
+        assert {k for k, e in pairs
+                if smoke.ENGINE_ENTRY.get(k) == e} == set(kernels)
         smoke.on_the_engine(seen, pid, kernels)
 
 
@@ -479,8 +495,9 @@ def test_slab_448_runs_kernel6_on_the_engine(monkeypatch):
 @pytest.mark.parametrize("fn", ["fft", "ifft", "irfft", "rfft"])
 def test_4320_axis_runs_kernel4_on_the_engine(monkeypatch, fn):
     """The convolver's 5-smooth 4320 = 9 x 480 (``good_size``): kernel 4's
-    first stage launches ``dfft_cdft_tw``, never ``dfft_stage``; kernel 5
-    (the real input of rfft) keeps its tile body."""
+    first stage launches ``dfft_cdft_tw`` and kernel 5's (the real input
+    of rfft) ``dfft_rdft_tw``, both on the mixed-radix kernel, never
+    ``dfft_stage``."""
     log = _record_launches(monkeypatch)
     if fn == "rfft":
         hf.rfft(torch.zeros((2, 4320), device="meta"), axis=-1)
@@ -491,10 +508,12 @@ def test_4320_axis_runs_kernel4_on_the_engine(monkeypatch, fn):
         x = torch.zeros((4320, 2), dtype=torch.complex64, device="meta")
         getattr(hf, fn)(x, axis=0)
     entries = [(k, e) for k, e, _ in log]
-    assert ("cmatmul_tw", "dfft_stage") not in entries
+    assert all(e != "dfft_stage" for _, e in entries)
     if fn == "rfft":
-        assert entries == [("rmatmul_tw", "dfft_stage"),
+        assert entries == [("rmatmul_tw", "dfft_rdft_tw"),
                            ("cmatmul", "dfft_cdft_short")]
+        assert log[0][2][5:] == (2 * 9, 480, 9,
+                                 hf.mixed_schedule(480, False))
     else:
         assert entries == [("cmatmul_tw", "dfft_cdft_tw"),
                            ("cmatmul", "dfft_cdft_short")]
@@ -520,6 +539,30 @@ def test_kernel_source_agrees_with_the_host_side():
     assert const("MIXED_MAX") == hf.MIXED_MAX
     assert const("THREADS") == hf.THREADS
     assert const("MIXED_ROWS_SHIFT") == hf.MIXED_ROWS_SHIFT
+    assert const("MIXED_SMEM") == hf.MIXED_SMEM
+    # Every Body the mixed-radix kernel runs sizes its input buffer by its
+    # own stage_bytes(g): 8 g.points bytes, kernel 3's half spectra 16
+    # g.rows (g.n / 2 + 1) (``hf._stage_bytes``).
+    stage_src = (pathlib.Path(hf.__file__).parent.parent / "csrc"
+                 / "stage.cu").read_text()
+    fused_src = (pathlib.Path(hf.__file__).parent.parent / "csrc"
+                 / "fused3d.cu").read_text()
+
+    def stage_bytes(text, name):
+        start = text.index(f"struct {name}")
+        return re.findall(
+            r"static int stage_bytes\(const (?:fft_rows::)?MixedPlan& g\) "
+            r"\{\s*return ([^;]+);", text[start:text.index("\n};", start)])
+
+    for text, name, want in (
+            (src, "ComplexTwiddleRows", "8 * g.points"),
+            (stage_src, "RealRowPairs", "8 * g.points"),
+            (stage_src, "HalfRows", "16 * g.rows * (g.n / 2 + 1)"),
+            (fused_src, "ZRows", "8 * g.points")):
+        assert stage_bytes(text, name) == [want], name
+    g = hf.mixed_geometry(480)
+    assert hf._stage_bytes(480, g.rows) == 8 * g.points
+    assert hf._stage_bytes(480, g.rows, half=True) == 16 * g.rows * 241
     body = re.search(r"inline bool mixed_radix\(int r\) \{(.*?)\n\}", src,
                      re.S).group(1)
     cases = {int(c) for c in re.findall(r"case (\d+):", body)}

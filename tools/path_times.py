@@ -9,7 +9,11 @@ power limit:
   points, n1 2 (the 640 split's first stage), on 155592 rows of 480, n1
   9 (the 4320 split's), and on 410880 rows of 448, 416 and 408, n1 2 (the
   896, 832 and 816 splits'), and kernel 2 (``cdft``, forward) on 131072
-  rows of 480, 448, 440 and 442, each beside its plain version;
+  rows of 480, 448, 440 and 442, kernel 3 (``irdft``) on 131072 half
+  rows to 480 and to 442 points, and kernel 5 (``rdft_tw``) on 819200
+  rows of 320 and 408, n1 2 (the 640 and 816 splits' first stage), and on
+  311040 rows of 480, n1 9 (the 4320 rfft's), each beside its plain
+  version;
 * the 480^3 and 448^3 P = 1 slab plans, forward and inverse (kernels 6,
   7 and 8);
 * the 256 x 480^2, 64 x 896^2, 64 x 832^2 and 256 x 440^2 batched-2D
@@ -45,6 +49,8 @@ ZYS = ((512, 480, 480), (512, 448, 448), (512, 442, 442))
 TW = ((410880, 320, 2), (155592, 480, 9), (410880, 448, 2),
       (410880, 416, 2), (410880, 408, 2))             # rows, n2, n1
 CDFT = ((131072, 480), (131072, 448), (131072, 440), (131072, 442))  # rows, n
+C2R = ((131072, 480), (131072, 442))                  # rows, n
+RDFT_TW = ((819200, 320, 2), (819200, 408, 2), (311040, 480, 9))  # rows, n2, n1
 STACKS = ((256, 480, 480), (64, 896, 896), (64, 832, 832), (256, 440, 440))
 
 
@@ -125,6 +131,30 @@ def one(tree):
             return hf.cdft(x, False)
 
         row[f"kernel2_{n}"] = dict(
+            rows=m, entries=entries(torch, hf, run),
+            max_rel_err=max_rel(run(), ref), ms=median_ms(torch, run))
+        del x, ref
+    for m, n in C2R:
+        c = torch.randn((m, n // 2 + 1), generator=gen, device="cuda",
+                        dtype=torch.complex64)
+        ref = hf.c2r_plain(c, *hf._planes("c2r", n, False, dev))
+
+        def run():
+            return hf.irdft(c, n)
+
+        row[f"kernel3_{n}"] = dict(
+            rows=m, entries=entries(torch, hf, run),
+            max_rel_err=max_rel(run(), ref), ms=median_ms(torch, run))
+        del c, ref
+    for m, n2, n1 in RDFT_TW:
+        x = torch.randn((m, n2), generator=gen, device="cuda")
+        ref = hf.stage_plain(x, *hf._planes("dft", n2, False, dev),
+                             *hf._twiddle_planes(n1, n2, False, dev))
+
+        def run():
+            return hf.rdft_tw(x, n1)
+
+        row[f"kernel5_{n2}_n1_{n1}"] = dict(
             rows=m, entries=entries(torch, hf, run),
             max_rel_err=max_rel(run(), ref), ms=median_ms(torch, run))
         del x, ref
