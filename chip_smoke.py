@@ -24,14 +24,16 @@ once, before any rank is spawned) and then, under
    over four ranks (9 and 10 bit for bit, NaN and Inf included); kernel
    6 at (512, 480, 480) and (512, 448, 448), kernel 4 at n2 = 320 (n1 =
    2), 480 (n1 = 9, the 8 x 4320^2 plan's x axis), 448 and 416 (n1 = 2,
-   an 896- and an 832-point axis) and kernel 2 at 480, 448 and 440 on the
-   row FFT engine's mixed-radix kernel; kernels 1, 2, 3, 4, 5, 6, 7, 8
-   and 11 also on their other body (dense or tile) at a shape the engine
-   does not take (kernel 6 at 442, kernel 4 at n2 = 408, kernel 2 at 442,
-   kernels 1 and 3 at 480);
+   an 896- and an 832-point axis), kernel 8 at (512, 480, 480) and (512,
+   448, 448), kernel 1 on 131072 rows of 480 and kernel 2 at 480, 448 and
+   440 on the row FFT engine's mixed-radix kernel (checked only: kernel 8
+   at the odd Z of (512, 250, 375), kernel 1 on 4097 rows of 375);
+   kernels 1, 2, 3, 4, 5, 6, 7, 8 and 11 also on their other body (dense
+   or tile) at a shape the engine does not take (kernels 6 and 8 at 442,
+   kernel 4 at n2 = 408, kernels 1, 2 and 3 at 442, kernel 7 at 480);
 2. runs a small cube against numpy, then the single-card slab plan at
-   512^3 (fused kernels), at 480^3 and at 448^3 (kernel 6 on the
-   mixed-radix engine, kernels 7 and 8 dense), at 1024^3 (per-axis
+   512^3 (fused kernels), at 480^3 and at 448^3 (kernels 6 and 8 on the
+   mixed-radix engine, kernel 7 dense), at 1024^3 (per-axis
    kernels 1, 2 and 3, every axis one launch of the row FFT engine, y and
    x where they lie) and at
    2048 x 256 x 2048 (x and z split four-step, 4 x 512: kernels 4, 5 and
@@ -83,8 +85,9 @@ once, before any rank is spawned) and then, under
    and its means stand beside ``plan_time``'s;
 7. runs the pencil plan: one rank on the card at 1024^3 at depths 1, 2 and
    3 (per axis: kernels 1, 2 and 3, never 6-8), then a 2 x 2 grid as four
-   ranks sharing the card over gloo (two sub-groups each): at 1024^3 the
-   reference's default exchange (Peer2Peer + Sync) and the all-to-all at
+   ranks sharing the card over gloo (two sub-groups each): at 512^3
+   (``PENCIL_FULL_N``) the reference's default exchange (Peer2Peer +
+   Sync) and the all-to-all at
    opt 1, each rank's block against torch.fft.rfftn (the ranks draw the
    reference in turn) with the exchange time of each transpose (one run
    after a warm-up each), the wire bytes and the peak memory; at 512^3
@@ -105,9 +108,10 @@ once, before any rank is spawned) and then, under
    and 256 x 440 x 440 (x on kernel 2's FFT body, the mixed-radix kernel)
    and 64 x 896 x 896 and 64 x 832 x 832 (both axes split 2 x 448 or 2 x
    416, kernel 4 on the mixed-radix kernel), the four last failing unless
-   kernels 2 and 4, and kernel 3 (the 480 and 440 inverses' y C2R) or 5
-   (the 896 and 832 forwards' first stage), ran there on the mixed-radix
-   kernel and none of kernels 2-5 on its tile body, each against
+   kernels 2 and 4, and kernels 1 and 3 (the 480 and 440 stacks' y R2C
+   and C2R) or 5 (the 896 and 832 forwards' first stage), ran there on
+   the mixed-radix kernel and none of kernels 1-5 on its tile body, each
+   against
    ``torch.fft.rfft2`` and beside "xla", with peak
    memory and a profile of each direction; ``dfft-torch-batched``
    testcases 0 and 3 at 64 x 4096^2, whole and one image at a time; then
@@ -154,7 +158,7 @@ once, before any rank is spawned) and then, under
    extended on the split axis, the guarded bf16-wire solve on a ring
    (kernels 9-11) and the roundtrip's gradient across the ranks;
 13. runs the autotune, wisdom and persistence slice (``wisdom_phase``;
-   ``wisdom_only()`` runs it alone): the 1024^3 slab plan with
+   ``wisdom_only()`` runs it alone): the 512 x 512 x 1024 slab plan with
    ``fft_backend="auto"`` (every candidate's time and error, the
    "pallas" cell on kernels 1-3, the winner against ``torch.fft``, the
    second construction racing nothing), the 8 x 4320^2 batched plan's
@@ -237,10 +241,12 @@ and any descendant they left behind (the fleets' workers and their
 followers among them). Takes about 900 s on an H100, the kernels' build
 (25-55 s), the matmul backend's phase (about 10 s), the executables'
 phase (about 60 s, most of it the host's random draws), the pencil's
-(about 170 s, most of it gloo's host-staged exchanges), the batched and
-Bluestein phases, the resilience phases, the solvers' (about 45 s), the
-wisdom phase's (about 140 s, most of it the matmul candidates of the two
-1024^3 races), the serving phase's (about 120 s, most of it the host's
+(about 170 s before its 2 x 2 full-size cube was cut to 512^3, most of it
+gloo's host-staged exchanges), the batched and Bluestein phases, the
+resilience phases, the solvers' (about 45 s), the wisdom phase's (about
+140 s before its local race was cut from 1024^3 to 512 x 512 x 1024, most
+of it the matmul candidates of the races), the serving phase's (about
+120 s, most of it the host's
 copies of 4096^2 images and 1024^3 volumes), the fleet's (about 190 s,
 most of it the workers' starts and the pipes' transfers of 512^3
 volumes), evaluation's (about 20 s) and the analysis phase's (about 30 s)
@@ -384,14 +390,13 @@ def bound(flops: float, nbytes: float):
 
 # Kernels whose body is a pure function of their shape: the row FFT engine
 # or the dense tile loop (hopper_fft._fft_body of the row length for
-# kernels 1 and 11, hopper_fft._cdft_body for kernels 2-5, which adds the
-# engine's mixed-radix kernel at 13-smooth lengths; for kernels 2 and 3 on
-# rows of at most 16 points the row path of stage.cu's launch; kernels 2
-# and 4 on columns, shape (outer, n, inner), the column kernel, "cols", or
-# for kernel 2 on 2..16 points the short-stage kernel, "short"), or, for
-# kernels 6, 7 and 8, the engine or the dense kernel
-# (hopper_fft._zy_fwd_body for kernel 6, hopper_fft._x_body,
-# hopper_fft._zy_body for kernel 8).
+# kernel 11, hopper_fft._cdft_body for kernels 1-5, which adds the
+# engine's mixed-radix kernel at 13-smooth lengths; for kernels 1, 2 and 3
+# on rows of at most 16 points the row path of stage.cu's launch; kernels
+# 2 and 4 on columns, shape (outer, n, inner), the column kernel, "cols",
+# or for kernel 2 on 2..16 points the short-stage kernel, "short"), or,
+# for kernels 6, 7 and 8, the engine or the dense kernel
+# (hopper_fft._zy_engine_body for kernels 6 and 8, hopper_fft._x_body).
 ROUTED = ("rmatmul", "cmatmul", "c2r", "rmatmul_tw", "dec_cmatmul",
           "cmatmul_tw", "zy_fwd", "x_c2c", "yz_inv")
 
@@ -424,19 +429,20 @@ def body_of(hf, k) -> str:
     if k["name"] in ROUTED:
         sh = k["shape"]
         if k["name"] == "zy_fwd":
-            body = hf._zy_fwd_body(sh["Y"], sh["Z"])
+            body = hf._zy_engine_body(sh["Y"], sh["Z"])
         elif k["name"] == "yz_inv":
-            body = hf._zy_body(sh["Y"], sh["Z"])
+            body = hf._zy_engine_body(sh["Y"], sh["Z"])
         elif k["name"] == "x_c2c":
             body = hf._x_body(sh["X"])
         elif "inner" in sh and "geometry" in sh:   # the short-stage body
             body = "short" if hf._short_body(sh["n"]) else "none"
         elif "inner" in sh:
             body = "cols" if hf._fft_body(sh["n"]) == "fft" else "none"
-        elif k["name"] in ("cmatmul", "cmatmul_tw", "c2r", "rmatmul_tw"):
+        elif k["name"] in ("rmatmul", "cmatmul", "cmatmul_tw", "c2r",
+                           "rmatmul_tw"):
             body = hf._cdft_body(sh["n"])
-            if body == "tile" and k["name"] in ("cmatmul", "c2r") and \
-                    sh["n"] <= 16:
+            if body == "tile" and k["name"] in ("rmatmul", "cmatmul",
+                                                "c2r") and sh["n"] <= 16:
                 body = "row"
         else:
             body = hf._fft_body(sh["n"])
@@ -503,18 +509,19 @@ def per_entry(pairs: dict) -> dict:
     return out
 
 
-# The FFT body of kernels 2, 3, 4 and 5 on rows (at a 13-smooth length the
-# engine's mixed-radix kernel).
-ENGINE_ENTRY = {"cmatmul": "dfft_cdft", "cmatmul_tw": "dfft_cdft_tw",
-                "c2r": "dfft_c2r", "rmatmul_tw": "dfft_rdft_tw"}
+# The FFT body of kernels 1-5 on rows (at a 13-smooth length the engine's
+# mixed-radix kernel).
+ENGINE_ENTRY = {"rmatmul": "dfft_rdft", "cmatmul": "dfft_cdft",
+                "cmatmul_tw": "dfft_cdft_tw", "c2r": "dfft_c2r",
+                "rmatmul_tw": "dfft_rdft_tw"}
 # The 4320 = 9 x 480 paths' first stages: kernels 4 and 5.
 SPLIT_ENGINE = ("cmatmul_tw", "rmatmul_tw")
 
 
 def on_the_engine(pairs: dict, what: str, kernels=SPLIT_ENGINE) -> dict:
-    """Fail unless each of ``kernels`` (kernel 2, "cmatmul", 3, "c2r", 4,
-    "cmatmul_tw", or 5, "rmatmul_tw") ran its FFT body on rows
-    (``ENGINE_ENTRY``) and none of kernels 2-5 ever ran its tile body
+    """Fail unless each of ``kernels`` (kernel 1, "rmatmul", 2, "cmatmul",
+    3, "c2r", 4, "cmatmul_tw", or 5, "rmatmul_tw") ran its FFT body on rows
+    (``ENGINE_ENTRY``) and none of kernels 1-5 ever ran its tile body
     (``dfft_stage``); returns ``entry_counts``' pairs as "kernel/entry" ->
     launches."""
     named = {f"{k}/{e}": v for (k, e), v in sorted(pairs.items())}
@@ -941,12 +948,15 @@ PENCIL_DEPTHS = {
         {"dfft_cdft_cols": 1, "dfft_c2r": 1}),
     3: (dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1), *A2A_ENTRIES),
 }
-# The full-size pencil at 1024^3 over 2 x 2: the reference's default
-# exchange (Peer2Peer + Sync on both transposes) and the all-to-all at
-# opt 1: id -> (Config fields, executable flags). Each of its times is one
-# run after a warm-up (PENCIL_FULL_REPS), and the executable runs both
-# exchanges at PENCIL_CLI_N: the depth cuts that keep the whole script
-# within its time limit.
+# The full-size pencil over 2 x 2: the reference's default exchange
+# (Peer2Peer + Sync on both transposes) and the all-to-all at opt 1: id ->
+# (Config fields, executable flags). Its cube is PENCIL_FULL_N^3 (cut from
+# 1024^3: four ranks staging every block through the host took 71 s of
+# the script there), each of its times is one run after a warm-up
+# (PENCIL_FULL_REPS), and the executable runs both exchanges at
+# PENCIL_CLI_N: the depth cuts that keep the whole script within its time
+# limit.
+PENCIL_FULL_N = N
 PENCIL_FULL_REPS = 1
 PENCIL_CLI_N = N
 _PP = {"comm_method": "Peer2Peer"}
@@ -1092,18 +1102,19 @@ def pencil_input(torch, dist, plan, n: int, rank: int):
 
 
 def pencil_full(torch, dist, dft, hf, tr, rank: int):
-    """The pencil at 1024^3 on 2 x 2 (``PENCIL_FULL``): each rank's
+    """The pencil at PENCIL_FULL_N^3 on 2 x 2 (``PENCIL_FULL``): each rank's
     launches and entry points per direction, its forward block against
     torch.fft.rfftn and its roundtrip block against the input, the times
     of each direction and of each transpose alone, the wire bytes and the
     peak memory."""
-    g = dft.GlobalSize(NBIG, NBIG, NBIG)
+    n = PENCIL_FULL_N
+    g = dft.GlobalSize(n, n, n)
     part = dft.PencilPartition(*PENCIL_GRID)
     out, xl, ref = {}, None, None
     for pid, (fields, _) in PENCIL_FULL.items():
         plan = dft.PencilFFTPlan(g, part, pencil_config(dft, fields))
         if xl is None:
-            xl, ref = pencil_input(torch, dist, plan, NBIG, rank)
+            xl, ref = pencil_input(torch, dist, plan, n, rank)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         c, back, fwd, inv, ent_f, ent_i = run_counted(torch, hf, plan, xl)
@@ -1114,7 +1125,7 @@ def pencil_full(torch, dist, dft, hf, tr, rank: int):
             fail(f"rank {rank} pencil {pid}: launches forward {fwd} "
                  f"(entries {ent_f}), inverse {inv} (entries {ent_i})")
         _, f_rel = rel_err(c, ref)
-        back /= float(NBIG ** 3)
+        back /= float(n ** 3)
         _, rt_rel = rel_err(back, xl)
         del back
         if not (f_rel <= TOL and rt_rel <= TOL):
@@ -1378,8 +1389,8 @@ def pencil_rank_main(rank: int, addr: str, outdir: str) -> None:
 # engine launch: y on rows (kernel 1, inverse kernel 3), x on kernel 2's
 # column body where it lies. At 480 and 440 points (not powers of two) x
 # moves last and runs on rows: kernel 2 on the engine's mixed-radix kernel
-# (480 = 12 x 10 x 4, 440 = 11 x 10 x 4), and the inverse's y C2R, kernel
-# 3, on it too; the forward's y keeps kernel 1's tile body. At 896 = 2 x
+# (480 = 12 x 10 x 4, 440 = 11 x 10 x 4), and the forward's y R2C, kernel
+# 1, and the inverse's y C2R, kernel 3, on it too. At 896 = 2 x
 # 448 and 832 = 2 x 416 both axes split: y forward kernel 5, x and the
 # inverse's Hermitian extension kernel 4, all on the mixed-radix kernel
 # (448 = 8 x 8 x 7, 416 = 16 x 13 x 2), each with its 2-point short
@@ -1395,7 +1406,7 @@ BATCHED_DIRECT_PATH = (dict(rmatmul=1, cmatmul=1), dict(cmatmul=1, c2r=1),
                        {"dfft_cdft_cols": 1, "dfft_c2r": 1})
 # x moved last at 480 and 440; both axes split in halves at 896 and 832.
 BATCHED_MOVED_PATH = (dict(rmatmul=1, cmatmul=1), dict(cmatmul=1, c2r=1),
-                      {"dfft_stage": 1, "dfft_cdft": 1},
+                      {"dfft_rdft": 1, "dfft_cdft": 1},
                       {"dfft_cdft": 1, "dfft_c2r": 1})
 BATCHED_HALVES_PATH = (dict(rmatmul_tw=1, cmatmul=2, cmatmul_tw=1),
                        dict(cmatmul_tw=2, cmatmul=2),
@@ -1415,15 +1426,17 @@ BATCHED_CARD = {"batched_64x4096": (BATCHED, BATCHED_SPLIT, (1,)),
                 "batched_64x896": (BATCHED_896, BATCHED_HALVES_PATH, ()),
                 "batched_64x832": (BATCHED_832, BATCHED_HALVES_PATH, ()),
                 "batched_256x440": (BATCHED_440, BATCHED_MOVED_PATH, ())}
-# The stacks whose path proves that kernels 2-5 ran on the engine's
+# The stacks whose path proves that kernels 1-5 ran on the engine's
 # mixed-radix kernel (``on_the_engine``): id -> (kernels forward, kernels
 # inverse).
-BATCHED_ENGINE = {"batched_256x480": (("cmatmul",), ("cmatmul", "c2r")),
+BATCHED_ENGINE = {"batched_256x480": (("cmatmul", "rmatmul"),
+                                      ("cmatmul", "c2r")),
                   "batched_64x896": (("cmatmul_tw", "rmatmul_tw"),
                                      ("cmatmul_tw",)),
                   "batched_64x832": (("cmatmul_tw", "rmatmul_tw"),
                                      ("cmatmul_tw",)),
-                  "batched_256x440": (("cmatmul",), ("cmatmul", "c2r"))}
+                  "batched_256x440": (("cmatmul", "rmatmul"),
+                                      ("cmatmul", "c2r"))}
 # The shard="x" renderings at 16 x 512^2 on two ranks: id -> (Config
 # fields, launches forward, inverse, entry points forward, inverse).
 # STREAMS under ALL2ALL runs x on each of its 4 pieces of the batch after
@@ -2119,10 +2132,10 @@ def stage_cases(torch, hf, dev, gen):
     wb, wx, wy = WISDOM_BATCHED               # 8 x 4320^2: 4320 = 9 x 480
     rows_4320 = wb * (wy // 2 + 1) * 9        # its x axis's first stage rows
     # Kernels 1, 2 and 3 take no F: rdft / cdft / irdft pick their body by
-    # n (the FFT body at 512 and 1024, the row body at 4; kernel 1 the tile
-    # body at 480, kernels 2 and 3 the engine's mixed-radix kernel at 480
-    # (and kernel 2 at 448 and 440 = 11 x 10 x 4) and their tile body at
-    # 442 = 2 x 13 x 17). An FFT body's bytes count no DFT matrix.
+    # n (the FFT body at 512 and 1024, the row body at 4; the engine's
+    # mixed-radix kernel at 480, kernel 2 also at 448 and 440 = 11 x 10 x
+    # 4, and their tile body at 442 = 2 x 13 x 17). An FFT body's bytes
+    # count no DFT matrix.
     k442 = 442 // 2 + 1
     m_odd = 4097                              # the check-only rows
     k375 = 375 // 2 + 1
@@ -2171,11 +2184,13 @@ def stage_cases(torch, hf, dev, gen):
              library=lambda t: torch.fft.fft(t["x"]), library_call="fft",
              flops=fft_flops(rows_zyx, N), gemm_flops=8 * rows_zyx * N * N,
              bytes=16 * rows_zyx * N),
-        # Kernel 1's tile body at 480 points (no power of two), kernel 2's
-        # FFT body on the mixed-radix kernel at 480, 448 and 440 and its
-        # tile body at 442 (a factor past 13), on as many rows as a rank's
-        # z rows of the 512^3 two-rank plan.
-        dict(name="rmatmul", variant="tile_480", body="tile",
+        # Kernel 1's FFT body on the mixed-radix kernel at 480 points (the
+        # 256 x 480^2 stack's y R2C) and, checked only, at the odd 375 on
+        # an odd number of rows, and its tile body at 442 (a factor past
+        # 13), checked only; kernel 2's FFT body on the mixed-radix kernel
+        # at 480, 448 and 440 and its tile body at 442; on as many rows as
+        # a rank's z rows of the 512^3 two-rank plan.
+        dict(name="rmatmul", variant="fft_480",
              replaces=f"{PALLAS}:182", shape=dict(M=rows_r, n=480, k=k480),
              make=lambda: dict(x=rr(rows_r, 480), F=planes("rdft", 480)),
              run=lambda t: hf.rdft(t["x"]),
@@ -2183,7 +2198,19 @@ def stage_cases(torch, hf, dev, gen):
              library=lambda t: torch.fft.rfft(t["x"]), library_call="rfft",
              flops=fft_flops(rows_r, 480, real=True),
              gemm_flops=4 * rows_r * 480 * k480,
-             bytes=4 * rows_r * 480 + 8 * rows_r * k480 + 8 * 480 * k480),
+             bytes=4 * rows_r * 480 + 8 * rows_r * k480),
+        dict(name="rmatmul", variant="odd_375", check_only=True,
+             replaces=f"{PALLAS}:182", shape=dict(M=m_odd, n=375, k=k375),
+             make=lambda: dict(x=rr(m_odd, 375), F=planes("rdft", 375)),
+             run=lambda t: hf.rdft(t["x"]),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
+             library=lambda t: torch.fft.rfft(t["x"]), library_call="rfft"),
+        dict(name="rmatmul", variant="tile_442", body="tile", check_only=True,
+             replaces=f"{PALLAS}:182", shape=dict(M=rows_r, n=442, k=k442),
+             make=lambda: dict(x=rr(rows_r, 442), F=planes("rdft", 442)),
+             run=lambda t: hf.rdft(t["x"]),
+             plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
+             library=lambda t: torch.fft.rfft(t["x"]), library_call="rfft"),
         *(dict(name="cmatmul", variant=f"fft_{n}",
                replaces=f"{PALLAS}:164", shape=dict(M=rows_r, n=n, k=n),
                make=lambda n=n: dict(x=cr(rows_r, n), F=planes("dft", n)),
@@ -2579,15 +2606,16 @@ FUSED_PATH = (dict(zy_fwd=3, x_c2c=1), dict(x_c2c=1, yz_inv=3),
                "dfft_yz_rows": 1})
 
 # The 480^3 and 448^3 fused plans, per direction: launches and entry
-# points. Kernel 6's FFT body on the engine's mixed-radix kernel (480 = 12
-# x 10 x 4, 448 = 8 x 8 x 7 on both passes), kernels 7 and 8 on their
-# dense bodies (no FFT body off the powers of two yet).
+# points. Kernels 6 and 8's FFT bodies on the engine's mixed-radix kernel
+# (480 = 12 x 10 x 4, 448 = 8 x 8 x 7 on both passes of each), kernel 7 on
+# its dense body (no column body off the powers of two yet).
 FUSED_480 = (480, 480, 480)
 FUSED_448 = (448, 448, 448)
-FUSED_MIXED_PATH = (dict(zy_fwd=3, x_c2c=1), dict(x_c2c=1, yz_inv=1),
+FUSED_MIXED_PATH = (dict(zy_fwd=3, x_c2c=1), dict(x_c2c=1, yz_inv=3),
                     {"dfft_zy_rows": 1, "dfft_zy_cols": 1,
                      "dfft_zy_planes": 1, "dfft_x_c2c": 1},
-                    {"dfft_x_c2c": 1, "dfft_yz_inv": 1})
+                    {"dfft_x_c2c": 1, "dfft_yz_scratch": 1,
+                     "dfft_yz_cols": 1, "dfft_yz_rows": 1})
 # id -> (shape, its launches and entry points).
 FUSED_SLABS = {"fused_480": (FUSED_480, FUSED_MIXED_PATH),
                "fused_448": (FUSED_448, FUSED_MIXED_PATH)}
@@ -4506,7 +4534,8 @@ def solvers_only() -> int:
 
 # -- 13. autotune, wisdom and persistence ------------------------------------
 
-WISDOM_N = NBIG                 # (a): the local race of the 1024^3 plan
+WISDOM_LOCAL = (N, N, NBIG)     # (a): the local race, cut from 1024^3 (z
+                                # 1024: still kernels 1-3 on every axis)
 WISDOM_BATCHED = (8, 4320, 4320)  # (b): the convolution's 5-smooth extent
 WISDOM_COMM_N = 256             # (c): the comm race, cut from 512^3
 WISDOM_T4_N = 128               # (d): the fraction chain over two ranks
@@ -4576,24 +4605,27 @@ def check_local_race(hf, log, what: str, kernels) -> dict:
 
 
 def wisdom_local(torch, dft, hf, obs, at, wisdom, dev, store):
-    """(a): the 1024^3 slab plan with fft_backend="auto": the race on the
-    miss, the plan against torch.fft, the second construction a hit."""
-    n = WISDOM_N
-    g = dft.GlobalSize(n, n, n)
+    """(a): the WISDOM_LOCAL slab plan with fft_backend="auto" (one card,
+    per axis: z 1024 on kernels 1 and 3, y and x on kernel 2's column
+    body): the race on the miss, the plan against torch.fft, the second
+    construction a hit."""
+    shape = WISDOM_LOCAL
+    n = "x".join(map(str, shape))
+    g = dft.GlobalSize(*shape)
     cfg = dft.Config(fft_backend="auto", wisdom_path=store)
     t0 = time.perf_counter()
     with race_log(hf, at) as log:
         plan = dft.SlabFFTPlan(g, dft.SlabPartition(1), cfg)
     race_s = time.perf_counter() - t0
-    row = check_local_race(hf, log, f"local race {n}^3", LOCAL_KERNELS)
+    row = check_local_race(hf, log, f"local race {n}", LOCAL_KERNELS)
     winner = plan.config.fft_backend
     if not row["winner"].startswith(winner):
-        fail(f"local race {n}^3: plan took {winner}, race {row['winner']}")
+        fail(f"local race {n}: plan took {winner}, race {row['winner']}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 90)
-    x = torch.rand((n, n, n), generator=gen, device=dev)
+    x = torch.rand(shape, generator=gen, device=dev)
     c, back, lf_, li, _, _ = run_counted(torch, hf, plan, x)
     _, fwd_rel = rel_err(c, torch.fft.rfftn(x))
-    _, rt_rel = rel_err(back / float(n ** 3), x)
+    _, rt_rel = rel_err(back / float(math.prod(shape)), x)
     del c, back
     cells0 = race_cells(obs)
     t1 = time.perf_counter()
@@ -4603,14 +4635,14 @@ def wisdom_local(torch, dft, hf, obs, at, wisdom, dev, store):
     want = ((expect(hf, rmatmul=1, cmatmul=2), expect(hf, cmatmul=2, c2r=1))
             if winner == "pallas" else (lf_, li))
     if not (fwd_rel <= TOL and rt_rel <= TOL):
-        fail(f"local race {n}^3: {winner} plan rel {fwd_rel:.3e} / "
+        fail(f"local race {n}: {winner} plan rel {fwd_rel:.3e} / "
              f"{rt_rel:.3e}")
     if race_cells(obs) != cells0 or again.config != plan.config:
-        fail(f"local race {n}^3: the second construction raced "
+        fail(f"local race {n}: the second construction raced "
              f"({race_cells(obs) - cells0} cells) or resolved "
              f"{again.config} != {plan.config}")
     if (lf_, li) != want or (lf2, li2) != want:
-        fail(f"local race {n}^3: {winner} plans launched {lf_}/{li} and "
+        fail(f"local race {n}: {winner} plans launched {lf_}/{li} and "
              f"{lf2}/{li2}, not {want}")
     row.update(path=f"wisdom_local_{n}", resolved=winner,
                race_seconds=race_s, hit_seconds=hit_s, forward_rel=fwd_rel,
@@ -4825,7 +4857,7 @@ def wisdom_ranks(multihost, outdir, store) -> tuple:
 
 def wisdom_cli(torch, dft, hf, at, store, store_cli):
     """(d) on one card: ``dfft-torch-reference --autotune`` at 512^3
-    records its winner (the 1024^3 race is (a)'s); ``dfft-torch-slab -comm
+    records its winner (the per-axis race is (a)'s); ``dfft-torch-slab -comm
     auto --fft-backend auto`` at 512^3 resolves and runs."""
     import functools
     from distributedfft_tpu_torch.cli import reference as cli_ref
@@ -6760,11 +6792,17 @@ def main() -> int:
                            dtype=torch.float32)
 
     x = randn(N, N, N)
-    x480 = randn(N, 480, 480)     # kernel 6 on the mixed-radix engine,
-    Z4 = 480 // 2 + 1             # kernel 8's dense body (not powers of two)
+    x480 = randn(N, 480, 480)     # kernels 6 and 8 on the mixed-radix
+    Z4 = 480 // 2 + 1             # engine (480 = 12 x 10 x 4)
     x448 = randn(N, 448, 448)     # kernel 6 on the engine at 448 = 8 x 8 x 7
     x442 = randn(N, 442, 442)     # its dense body (442 = 2 x 13 x 17)
+    Z8 = 448 // 2 + 1
+    Z2 = 442 // 2 + 1
+    Z375 = 375 // 2 + 1           # kernel 8 at an odd Z, checked only
     pr480, pi480 = randn(N, 480, Z4), randn(N, 480, Z4)
+    pr448, pi448 = randn(N, 448, Z8), randn(N, 448, Z8)
+    pr442, pi442 = randn(N, 442, Z2), randn(N, 442, Z2)
+    pr375, pi375 = randn(N, 250, Z375), randn(N, 250, Z375)
     pr, pi = randn(N, N, Zo), randn(N, N, Zo)
     fzr, fzi = hf._planes("rdft", N, False, dev)
     fyr, fyi = hf._planes("dft", N, False, dev)
@@ -6776,17 +6814,18 @@ def main() -> int:
     cr, ci = hf._planes("c2r", N, False, dev)
     pc = torch.complex(pr, pi)
     pc480 = torch.complex(pr480, pi480)
+    pc448 = torch.complex(pr448, pi448)
     X = Y = Z = N
     f480 = (hf._planes("rdft", 480, False, dev) + hf._planes("dft", 480, False,
                                                              dev))
     f448 = (hf._planes("rdft", 448, False, dev) + hf._planes("dft", 448, False,
                                                              dev))
-    Z8 = 448 // 2 + 1
     f442 = (hf._planes("rdft", 442, False, dev) + hf._planes("dft", 442, False,
                                                              dev))
-    Z2 = 442 // 2 + 1
-    i480 = (hf._planes("dft", 480, True, dev) + hf._planes("c2r", 480, False,
-                                                           dev))
+
+    def inv_planes(y, z):
+        return hf._planes("dft", y, True, dev) + hf._planes("c2r", z, False,
+                                                             dev)
     fused = [
         dict(name="zy_fwd", replaces=f"{PALLAS}:427",
              shape=dict(X=X, Y=Y, Z=Z),
@@ -6866,18 +6905,36 @@ def main() -> int:
              flops=fft_flops(X * Zo, Y) + fft_flops(X * Y, Z, real=True),
              gemm_flops=8 * X * Y * Y * Zo + 4 * X * Y * Zo * Z,
              bytes=4 * (2 * X * Y * Zo + X * Y * Z)),
-        dict(name="yz_inv", variant="dense_480", body="dense",
-             replaces=f"{PALLAS}:452",
-             shape=dict(X=X, Y=480, Z=480),
-             run=lambda: hf.yz_inv(pr480, pi480, 480),
-             plain=lambda: hf.yz_inv_plain(pr480, pi480, *i480),
-             library=lambda: torch.fft.irfft2(pc480, s=(480, 480),
-                                              norm="forward"),
-             library_call="irfft2",
-             flops=fft_flops(X * Z4, 480) + fft_flops(X * 480, 480, real=True),
-             gemm_flops=8 * X * 480 * 480 * Z4 + 4 * X * 480 * Z4 * 480,
-             bytes=4 * (2 * X * 480 * Z4 + 2 * 480 * 480 + 2 * Z4 * 480
-                        + X * 480 * 480)),
+        # Kernel 8 at 480 and 448 on the engine's mixed-radix kernel (its
+        # three passes; the 480^3 and 448^3 inverses), checked only at the
+        # odd Z of (X, 250, 375) (z-pass batches of 12 rows crossing
+        # x-planes) and on its dense body at 442 (a factor past 13).
+        *(dict(name="yz_inv", variant=f"fft_{n}", replaces=f"{PALLAS}:452",
+               shape=dict(X=X, Y=n, Z=n),
+               run=lambda a=a, b=b, n=n: hf.yz_inv(a, b, n),
+               plain=lambda a=a, b=b, n=n: hf.yz_inv_plain(
+                   a, b, *inv_planes(n, n)),
+               library=lambda c=c, n=n: torch.fft.irfft2(
+                   c, s=(n, n), norm="forward"),
+               library_call="irfft2",
+               flops=fft_flops(X * (n // 2 + 1), n)
+               + fft_flops(X * n, n, real=True),
+               gemm_flops=8 * X * n * n * (n // 2 + 1)
+               + 4 * X * n * (n // 2 + 1) * n,
+               bytes=4 * (2 * X * n * (n // 2 + 1) + X * n * n))
+          for n, a, b, c in ((480, pr480, pi480, pc480),
+                             (448, pr448, pi448, pc448))),
+        dict(name="yz_inv", variant="odd_375", check_only=True,
+             replaces=f"{PALLAS}:452", shape=dict(X=X, Y=250, Z=375),
+             run=lambda: hf.yz_inv(pr375, pi375, 375),
+             plain=lambda: hf.yz_inv_plain(pr375, pi375,
+                                           *inv_planes(250, 375))),
+        dict(name="yz_inv", variant="dense_442", body="dense",
+             check_only=True, replaces=f"{PALLAS}:452",
+             shape=dict(X=X, Y=442, Z=442),
+             run=lambda: hf.yz_inv(pr442, pi442, 442),
+             plain=lambda: hf.yz_inv_plain(pr442, pi442,
+                                           *inv_planes(442, 442))),
     ]
     for k in fused:
         k["source"] = "distributedfft_tpu_torch/csrc/fused3d.cu"
@@ -6896,6 +6953,8 @@ def main() -> int:
             fail(f"kernel {k['name']} {k['shape']} disagrees with its plain "
                  f"version: rel {k['max_rel_err']:.3e} > {TOL}")
         del got, ref
+    del pr375, pi375, pr442, pi442
+    torch.cuda.empty_cache()
 
     # -- 4. the 512^3 fused plan and a small cube against numpy --------------
     pallas = dft.Config(fft_backend="pallas")
@@ -6942,6 +7001,8 @@ def main() -> int:
 
     # -- 5. timing of the fused kernels and the 512^3 plans ------------------
     for k in fused:
+        if k.get("check_only"):
+            continue
         k["kernel_ms"] = median_ms(torch, k["run"])
         k["plain_ms"] = median_ms(torch, k["plain"])
         k["library_ms"] = median_ms(torch, k["library"])
@@ -6964,13 +7025,12 @@ def main() -> int:
          **plan_times["fused_512"],
          forward_profile=device_profile(torch, lambda: plan.exec_r2c(x)),
          inverse_profile=device_profile(torch, lambda: plan.exec_c2r(cp)))
-    del x, x480, x448, x442, pr, pi, pc, pr480, pi480, pc480, xr480, xi480, \
-        cp, cx, \
-        plan, xla
+    del x, x480, x448, x442, pr, pi, pc, pr480, pi480, pc480, pr448, pi448, \
+        pc448, xr480, xi480, cp, cx, plan, xla
     torch.cuda.empty_cache()
 
-    # -- 5b. the 480^3 and 448^3 fused plans: kernel 6 on the mixed-radix ----
-    # engine
+    # -- 5b. the 480^3 and 448^3 fused plans: kernels 6 and 8 on the ---------
+    # mixed-radix engine
     for pid in FUSED_SLABS:
         launches[pid], plan_times[pid] = fused_slab_path(torch, dft, hf, gen,
                                                          pid)
@@ -7167,7 +7227,7 @@ def main() -> int:
         with open(os.path.join(outdir, f"pencil_rank{r}.json")) as f:
             pen_ranks.append(json.load(f))
     p0 = pen_ranks[0]
-    for group, prefix in (("full", f"pencil_{NBIG}"),
+    for group, prefix in (("full", f"pencil_full_{PENCIL_FULL_N}"),
                           ("renderings", f"pencil_{N}")):
         for pid in (PENCIL_FULL if group == "full" else PENCIL_PATHS):
             row = p0[group][pid]
@@ -7178,7 +7238,8 @@ def main() -> int:
         launches[f"{name}_rank0"] = v
     for rk in pen_ranks:
         emit(phase="pencil_full", rank=rk["rank"], grid=list(PENCIL_GRID),
-             shape=[NBIG] * 3, exchange="gloo, host-staged, 4 ranks on 1 card",
+             shape=[PENCIL_FULL_N] * 3,
+             exchange="gloo, host-staged, 4 ranks on 1 card",
              seconds=rk["full_seconds"], paths=rk["full"])
     emit(phase="pencil_renderings", shape=[N] * 3, grid=list(PENCIL_GRID),
          per_rank={rk["rank"]: rk["renderings"] for rk in pen_ranks},

@@ -4,8 +4,8 @@
 // shared memory and registers; on the same design its mixed-radix kernel
 // (fft_mixed_kernel below), rows of the 155 13-smooth lengths 2^a 3^b 5^c
 // 7^d 11^e 13^f in [9, 507] that are not powers of two (the rows of
-// kernels 2, 3, 4 and 5; both passes of kernel 6, powers of two beside
-// them included); and, on the same passes and twiddle table, the column kernel
+// kernels 1-5; both passes of kernels 6 and 8, powers of two beside them
+// included); and, on the same passes and twiddle table, the column kernel
 // (kernel 7, kernel 2 on a non-last axis, kernel 4 on a non-last split
 // axis), the DFT of every column of an (outer, n, inner) array; and, on
 // the column kernel's loader, the
@@ -13,15 +13,15 @@
 // second stage of a split axis).
 //
 // Which kernel runs which body (ops/hopper_fft.py): the power-of-two
-// kernel carries kernels 1 and 11 (_fft_body), kernels 2, 3, 4 and 5 on a
-// power of two (_cdft_body) and kernels 6 and 8 when Y and Z are both
-// powers of two (_zy_body); the mixed-radix kernel carries kernels 2, 3, 4
-// and 5 on a 13-smooth length and kernel 6 on 13-smooth Y and Z, Y even
-// (_zy_fwd_body). Every other length keeps its dense or tile body. The
+// kernel carries kernel 11 (_fft_body), kernels 1-5 on a power of two
+// (_cdft_body) and kernels 6 and 8 when Y and Z are both powers of two
+// (_zy_body); the mixed-radix kernel carries kernels 1-5 on a 13-smooth
+// length and kernels 6 and 8 on 13-smooth Y and Z, Y even
+// (_zy_engine_body). Every other length keeps its dense or tile body. The
 // mixed-radix kernel is one instantiation a Body (n and the radices are
-// runtime values), so it adds six kernels to the build (kernels 2, 3, 4
-// and 5 in stage.cu, kernel 6's two passes in fused3d.cu), not one a
-// length.
+// runtime values), so it adds eight kernels to the build (kernels 1-5 in
+// stage.cu; kernel 6's two passes and kernel 8's z pass in fused3d.cu,
+// whose y pass is kernel 6's), not one a length.
 //
 // It replaces the dense DFT product of nine Pallas TPU kernels of
 // distributedfft_tpu/ops/pallas_fft.py (_dec_cmatmul_kernel :737, kernel
@@ -504,10 +504,12 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
 // 11^e 13^f that are not powers of two (ops/hopper_fft.MIXED_LENGTHS: 9
 // .. 507, 155 of them), and the powers of two of kernel 6's passes that
 // run beside them. Its Bodies: complex rows (ComplexTwiddleRows: kernel 2,
-// kernel 4 with the twiddle, kernel 6's y pass), real rows two to a
-// complex row (stage.cu's RealTwiddleRows: kernel 5; fused3d.cu's ZRows:
-// kernel 6's z pass) and half spectra two to a complex row (stage.cu's
-// HalfRows with RealPairsOut's store: kernel 3).
+// kernel 4 with the twiddle, the y passes of kernels 6 and 8), real rows
+// two to a complex row (stage.cu's RealRows and RealTwiddleRows: kernels
+// 1 and 5; fused3d.cu's ZRows: kernel 6's z pass) and half spectra two to
+// a complex row (stage.cu's HalfRows and fused3d.cu's YZRows, kernel 8's z
+// pass gathering them by every thread's cp.async, both with RealPairsOut's
+// store: kernels 3 and 8).
 //
 // The power-of-two kernel gives every thread the same RMAX points of one
 // row in every pass: T = n / RMAX threads a row, RMAX / r butterflies of a
@@ -536,7 +538,9 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
 //   MIXED_MAX already takes at most three passes.
 // - The rest is the power-of-two kernel's: a persistent grid, the ring of
 //   STAGES buffers filled by bulk copies (a batch of rows of an odd length
-//   ends off a 16-byte boundary: its last bytes come by bulk_load_tail),
+//   ends off a 16-byte boundary: its last bytes come by bulk_load_tail) or,
+//   for a Body of many small pieces (ISSUERS = THREADS), by every thread's
+//   cp.async,
 //   Stockham passes through the padded split planes, the twiddle table of
 //   fft_plan (the same layout: pass p's block at NS - radix[0]), float32
 //   arithmetic, the Body's epilogue. A batch holds at most MIXED_POINTS =
@@ -927,11 +931,13 @@ __device__ __forceinline__ void mixed_pass(int n, int points, int r0, int ns,
 }
 
 // The kernel. Body gives, besides its power-of-two methods, the same ones
-// on a MixedPlan (its issuer is one thread):
+// on a MixedPlan, and ISSUERS as the power-of-two kernel reads it (one
+// thread, a bulk copy and its expect_tx; or every thread, cp.async pieces,
+// each arriving once on the buffer's barrier):
 //   batches(g)                     number of row batches
 //   stage_bytes(g)                 bytes of one input buffer, a multiple
 //                                  of 16
-//   issue(g, buffer, b, bar)       the bulk copies of batch b
+//   issue(g, buffer, b, bar)       the copies of batch b
 //   load(g, buffer, b, row, i)     point i of the batch's complex row
 //   store(g, re, im, b)            the epilogue, all threads
 // Pass p writes work planes p mod 2; a barrier ends each pass, and one
@@ -943,6 +949,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 fft_mixed_kernel(const Body body, const MixedPlan g,
                  const float* __restrict__ table, int inverse) {
   extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int ISSUERS = Body::ISSUERS;
+  static_assert(ISSUERS == 1 || ISSUERS == THREADS, "one thread or all");
   const int n = g.n, points = g.points, r0 = g.radix[0];
   const int SB = body.stage_bytes(g);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -954,11 +962,12 @@ fft_mixed_kernel(const Body body, const MixedPlan g,
   const int pair = 2 * g.padded;
 
   const int tid = threadIdx.x;
+  const bool issuer = ISSUERS == 1 ? tid == 0 : true;
   const int nb = (int)body.batches(g);
   load_planes<THREADS>(table, n - r0, wr, wi);
-  init_ring(full, STAGES, 1);
+  init_ring(full, STAGES, ISSUERS);
   __syncthreads();
-  if (tid == 0) {
+  if (issuer) {
     for (int s = 0; s < STAGES; ++s) {
       const int b = blockIdx.x + s * gridDim.x;
       if (b < nb) body.issue(g, stages + s * SB, b, &full[s]);
@@ -982,7 +991,7 @@ fft_mixed_kernel(const Body body, const MixedPlan g,
     // Every thread has read buffer s: refill it with the batch STAGES
     // steps ahead.
     const int next = b + STAGES * gridDim.x;
-    if (tid == 0 && next < nb) {
+    if (issuer && next < nb) {
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       body.issue(g, buf, next, &full[s]);
     }
@@ -1013,7 +1022,7 @@ fft_mixed_kernel(const Body body, const MixedPlan g,
 
 // The mixed-radix kernel's shared memory a block on plan g with input
 // buffers of stage bytes (ops/hopper_fft.mixed_smem).
-inline size_t mixed_smem(const MixedPlan& g, int stage) {
+__host__ __device__ inline size_t mixed_smem(const MixedPlan& g, int stage) {
   return 128 + 8 * (size_t)g.tld + STAGES * (size_t)stage +
          16 * (size_t)g.padded;
 }

@@ -30,11 +30,19 @@
 //                                      body, X a power of two in [8, 512])
 //   x_c2c_kernel   <- _x_c2c_kernel   (the dense body, any other X)
 //   yz_inv_kernel  <- _yz_inv_kernel  (y-C2C inverse, then half-spectrum C2R;
-//                                      the dense body, for Y or Z not a
-//                                      power of two in [8, 512])
+//                                      the dense body, for a Y or Z that is
+//                                      no 13-smooth length in [8, 512], or
+//                                      an odd Y)
 //   yz_scratch_kernel, fft_rows_kernel<L, ComplexTwiddleRows<false>>
 //   then fft_rows_kernel<L, YZRows>
-//                  <- _yz_inv_kernel  (the FFT body: three launches)
+//                  <- _yz_inv_kernel  (the FFT body: three launches; Y and
+//                                      Z powers of two)
+//   yz_scratch_kernel, fft_mixed_kernel<ComplexTwiddleRows<false>>
+//   then fft_mixed_kernel<YZRows>
+//                  <- _yz_inv_kernel  (the FFT body on the engine's
+//                                      mixed-radix kernel: Y and Z
+//                                      13-smooth in [8, 512], Y even, not
+//                                      both powers of two)
 //
 // Bound on an H100 SXM at X = Y = Z = 512 (Zo = 257), float32 outside the
 // tensor cores (67 TFLOP/s) and 3.35 TB/s of HBM:
@@ -79,9 +87,11 @@
 // The three passes move three times the function's bytes (3.2 GB at
 // 512^3), so their ceiling is about a third of the bound (~0.97 ms).
 //
-// yz_inv's FFT body (Y and Z powers of two in [8, 512]) runs kernel 6's
-// passes backwards, through the same (X, Zo, Y) complex64 scratch, with the
-// same bound (1.08 GB -> 0.32 ms at 512^3) and the same ceiling:
+// yz_inv's FFT body (Y and Z powers of two in [8, 512], or 13-smooth there
+// with Y even: the engine's mixed-radix kernel on both FFT passes) runs
+// kernel 6's passes backwards, through the same (X, Zo, Y) complex64
+// scratch, with the same bound (1.08 GB -> 0.32 ms at 512^3) and the same
+// ceiling:
 //
 // - Pass 1 (yz_scratch_kernel): the two (X, Y, Zo) planes transposed into
 //   the scratch through shared memory, 8 whole plane rows per block, read
@@ -93,7 +103,9 @@
 //   gathers a batch's half rows from the scratch, for each zo one aligned
 //   piece of consecutive y (64 bytes at Z = 512), copied in 16-byte parts
 //   by every thread with cp.async; the epilogue writes whole (X, Y, Z)
-//   rows.
+//   rows. On the mixed-radix kernel a batch's pairs of rows may cross
+//   x-planes anywhere: each pair's bin is one 16-byte part, gathered the
+//   same way (YZRows' mixed overloads).
 //
 // x_c2c's FFT body (X a power of two in [8, 512]) is the column kernel of
 // fft_rows.cuh (fft_rows::Columns): the (X, Ky, Zo) data is one (1, X,
@@ -687,10 +699,32 @@ zy_planes_kernel(const float4* __restrict__ s, float* __restrict__ yr,
 // ---------------------------------------------------------------------------
 
 // Pass 1: zy_planes_kernel backwards. Block (y-tile, x) stages PLANE_ROWS
-// rows of both planes (one contiguous run each) in shared memory, then
-// writes, for each zo, the tile's PLANE_ROWS y as one aligned 64-byte piece
-// of the scratch row (x, zo); the staging reads of 4 threads a zo land in
-// 32 distinct banks.
+// rows of both planes (one contiguous run each; the last tile of a Y that
+// is not a multiple of 8 fewer: Y is even, so 2, 4 or 6) in shared memory,
+// then writes, for each zo, the tile's rows as one aligned piece of the
+// scratch row (x, zo), 64 bytes for a whole tile; the staging reads of 4
+// threads a zo land in 32 distinct banks.
+template <int R>
+__device__ __forceinline__ void scratch_tile(const float* __restrict__ er,
+                                             const float* __restrict__ ei,
+                                             float4* __restrict__ dst,
+                                             float* tr, float* ti, size_t o,
+                                             int Y, int Zo) {
+  for (int e = threadIdx.x; e < R * Zo; e += PLANE_THREADS) {
+    const int r = e / Zo, zo = e - r * Zo;
+    tr[r * PLANE_LD + zo] = er[o + e];
+    ti[r * PLANE_LD + zo] = ei[o + e];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < Zo * R / 2; e += PLANE_THREADS) {
+    const int zo = e / (R / 2), h = e % (R / 2);
+    dst[(size_t)zo * (Y / 2) + h] =
+        make_float4(tr[2 * h * PLANE_LD + zo], ti[2 * h * PLANE_LD + zo],
+                    tr[(2 * h + 1) * PLANE_LD + zo],
+                    ti[(2 * h + 1) * PLANE_LD + zo]);
+  }
+}
+
 __global__ void __launch_bounds__(PLANE_THREADS)
 yz_scratch_kernel(const float* __restrict__ er, const float* __restrict__ ei,
                   float4* __restrict__ s, int Y, int Zo) {
@@ -699,19 +733,12 @@ yz_scratch_kernel(const float* __restrict__ er, const float* __restrict__ ei,
   const int y0 = blockIdx.x * PLANE_ROWS;
   const size_t x = blockIdx.y;
   const size_t o = (x * Y + y0) * Zo;
-  for (int e = threadIdx.x; e < PLANE_ROWS * Zo; e += PLANE_THREADS) {
-    const int r = e / Zo, zo = e - r * Zo;
-    tr[r * PLANE_LD + zo] = er[o + e];
-    ti[r * PLANE_LD + zo] = ei[o + e];
-  }
-  __syncthreads();
   float4* dst = s + (x * Zo * Y + y0) / 2;
-  for (int e = threadIdx.x; e < Zo * PLANE_ROWS / 2; e += PLANE_THREADS) {
-    const int zo = e / (PLANE_ROWS / 2), h = e % (PLANE_ROWS / 2);
-    dst[(size_t)zo * (Y / 2) + h] =
-        make_float4(tr[2 * h * PLANE_LD + zo], ti[2 * h * PLANE_LD + zo],
-                    tr[(2 * h + 1) * PLANE_LD + zo],
-                    ti[(2 * h + 1) * PLANE_LD + zo]);
+  switch (Y - y0 < PLANE_ROWS ? Y - y0 : PLANE_ROWS) {
+    case 8: scratch_tile<8>(er, ei, dst, tr, ti, o, Y, Zo); break;
+    case 6: scratch_tile<6>(er, ei, dst, tr, ti, o, Y, Zo); break;
+    case 4: scratch_tile<4>(er, ei, dst, tr, ti, o, Y, Zo); break;
+    default: scratch_tile<2>(er, ei, dst, tr, ti, o, Y, Zo); break;
   }
 }
 
@@ -734,7 +761,8 @@ __host__ __device__ constexpr int ilog2(int n) {
 // counts are multiples of W (>= 8), so rows pair up.
 struct YZRows : fft_rows::RealPairsOut {
   const float* s;
-  int ylog;  // log2 Y
+  int ylog;  // log2 Y (the power-of-two kernel)
+  int Y;     // (the mixed-radix kernel)
   static constexpr int ISSUERS = fft_rows::THREADS;
 
   // log2 W.
@@ -779,6 +807,63 @@ struct YZRows : fft_rows::RealPairsOut {
     return fft_rows::hermitian_pair<L>(make_float2(v.x, v.y),
                                        make_float2(v.z, v.w), i);
   }
+
+  // The same on the mixed-radix kernel (Z = g.n any engine length up to
+  // 512, Zo = Z / 2 + 1, Y even; 2 g.rows real rows a batch, the rows of
+  // mixed_schedule(Z, True, half=True)). Y need not be a multiple of 2
+  // g.rows, so a batch's rows may cross x-planes anywhere; but a batch
+  // starts at an even row and Y is even, so complex row c, real rows (x, y)
+  // and (x, y + 1) with y even, never straddles two planes, and its bin k
+  // is one aligned 16-byte part of the scratch, (x Zo + k) Y + y complex64
+  // elements in. Part (k, c) lands in slot k P + c of the buffer: every
+  // thread copies a share with cp.async, c fastest, so a warp's copies of
+  // one zo are consecutive in the scratch (a run of up to g.rows parts
+  // within a plane) and in the buffer; the first pass's reads of
+  // neighbouring k, one row's 16-byte parts P apart, fall on distinct
+  // banks when P is odd: P = g.rows | 1 where three such buffers fit
+  // MIXED_SMEM, else g.rows (one length, 420 at 6 rows).
+  __host__ __device__ static int pitch(const fft_rows::MixedPlan& g) {
+    const int odd = g.rows | 1;
+    return fft_rows::mixed_smem(g, 16 * odd * (g.n / 2 + 1)) <=
+                   (size_t)fft_rows::MIXED_SMEM
+               ? odd
+               : g.rows;
+  }
+  __host__ __device__ static int stage_bytes(const fft_rows::MixedPlan& g) {
+    return 16 * pitch(g) * (g.n / 2 + 1);
+  }
+  __device__ void issue(const fft_rows::MixedPlan& g, unsigned char* buf,
+                        int b, uint64_t* bar) const {
+    const int zo = g.n / 2 + 1, pairs = rows_in(g, b) / 2, P = pitch(g);
+    // The batch's first real row r0 = (x0, y0): pair c is (x0, y0 + 2c)
+    // while that stays below Y, so the division runs only across a plane's
+    // end (as ZRows' store).
+    const int r0 = b * 2 * g.rows, x0 = r0 / Y, y0 = r0 - x0 * Y;
+    fft_rows::DivWalk w(threadIdx.x, pairs, fft_rows::THREADS);  // (k, c)
+    for (int e = threadIdx.x; e < pairs * zo;
+         e += fft_rows::THREADS, w.next()) {
+      const int k = w.q, c = w.r;
+      int xq = x0, y = y0 + 2 * c;
+      if (y >= Y) {
+        const int planes = y / Y;
+        xq += planes;
+        y -= planes * Y;
+      }
+      fft_rows::copy16_async(buf + 16 * (k * P + c),
+                             s + 2 * (((size_t)xq * zo + k) * Y + y));
+    }
+    fft_rows::arrive_when_copied(bar);
+  }
+  // Point i of complex row c: bin k of rows (x, y) and (x, y + 1), one
+  // 16-byte read; hermitian_pair keeps an odd Z's last imaginary bin.
+  __device__ float2 load(const fft_rows::MixedPlan& g,
+                         const unsigned char* buf, int, int c, int i) const {
+    const int n = g.n, k = 2 * i <= n ? i : n - i;
+    const float4 v =
+        *reinterpret_cast<const float4*>(buf + 16 * (k * pitch(g) + c));
+    return fft_rows::hermitian_pair(n, make_float2(v.x, v.y),
+                                    make_float2(v.z, v.w), i);
+  }
 };
 
 // Y and Z powers of two in [8, AXIS_MAX]: the FFT body's shapes.
@@ -789,8 +874,9 @@ bool zy_fft_ok(int X, int Y, int Z) {
 
 // Y and Z lengths of the engine's mixed-radix kernel (13-smooth in [8,
 // AXIS_MAX], ops/hopper_fft._engine_length), Y even, not both powers of
-// two: the FFT body on that kernel (its z pass stores two neighbouring y
-// as one vector, so a pair of rows never straddles two x-planes).
+// two: the FFT bodies of kernels 6 and 8 on that kernel (their z passes
+// store or gather two neighbouring y as one vector, so a pair of rows
+// never straddles two x-planes).
 bool zy_mixed_ok(int X, int Y, int Z) {
   auto smooth = [](int n) {
     if (n < 8 || n > AXIS_MAX) return false;
@@ -814,13 +900,12 @@ bool axes_ok(int X, int Y, int Z) {
          Z <= AXIS_MAX;
 }
 
-// The y-C2C of every row of the (X, Z/2 + 1, Y) scratch, in place (kernel
-// 8 on powers of two only).
+// The y-C2C (inverse when inverse != 0) of every row of the (X, Z/2 + 1,
+// Y) scratch, in place: kernel 6's pass B and kernel 8's pass 2.
 int scratch_cols(float* s, const float* table, int X, int Y, int Z,
                  int schedule, int inverse, void* stream) {
   const bool pow2 = zy_fft_ok(X, Y, Z);
-  if (!pow2 && (inverse || !zy_mixed_ok(X, Y, Z)))
-    return cudaErrorInvalidValue;
+  if (!pow2 && !zy_mixed_ok(X, Y, Z)) return cudaErrorInvalidValue;
   if (fft_rows::misaligned(s)) return cudaErrorMisalignedAddress;
   const fft_rows::ComplexTwiddleRows<false> body{s, nullptr, nullptr, s,
                                                  X * (Z / 2 + 1), 1};
@@ -930,9 +1015,10 @@ int dfft_yz_inv(const float* er, const float* ei, const float* fyr,
 // (X, Z/2 + 1, Y) complex64 scratch, 16-byte aligned.
 int dfft_yz_scratch(const float* er, const float* ei, float* s, int X, int Y,
                     int Z, void* stream) {
-  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
+  if (!zy_fft_ok(X, Y, Z) && !zy_mixed_ok(X, Y, Z))
+    return cudaErrorInvalidValue;
   if (fft_rows::misaligned(s)) return cudaErrorMisalignedAddress;
-  const dim3 grid(Y / PLANE_ROWS, X);
+  const dim3 grid((Y + PLANE_ROWS - 1) / PLANE_ROWS, X);
   yz_scratch_kernel<<<grid, PLANE_THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       er, ei, reinterpret_cast<float4*>(s), Y, Z / 2 + 1);
@@ -940,23 +1026,29 @@ int dfft_yz_scratch(const float* er, const float* ei, float* s, int X, int Y,
 }
 
 // yz_inv FFT body, pass 2. s: pass 1's scratch, inverse-transformed in
-// place along y; table, schedule: ops/hopper_fft.fft_plan(Y, True).
+// place along y; table: ops/hopper_fft.fft_plan(Y, True).table; schedule:
+// its .schedule when Y and Z are powers of two, else
+// ops/hopper_fft.mixed_schedule(Y, True).
 int dfft_yz_cols(float* s, const float* table, int X, int Y, int Z,
                  int schedule, void* stream) {
   return scratch_cols(s, table, X, Y, Z, schedule, 1, stream);
 }
 
 // yz_inv FFT body, pass 3. s: pass 2's (X, Z/2 + 1, Y) complex64 result,
-// 16-byte aligned; table, schedule: ops/hopper_fft.fft_plan(Z, True); out:
-// (X, Y, Z) float32, 16-byte aligned.
+// 16-byte aligned; table: ops/hopper_fft.fft_plan(Z, True).table;
+// schedule: its .schedule when Y and Z are powers of two, else
+// ops/hopper_fft.mixed_schedule(Z, True, half=True); out: (X, Y, Z)
+// float32, 16-byte aligned.
 int dfft_yz_rows(const float* s, const float* table, float* out, int X,
                  int Y, int Z, int schedule, void* stream) {
-  if (!zy_fft_ok(X, Y, Z)) return cudaErrorInvalidValue;
+  const bool pow2 = zy_fft_ok(X, Y, Z);
+  if (!pow2 && !zy_mixed_ok(X, Y, Z)) return cudaErrorInvalidValue;
   if (fft_rows::misaligned(s) || fft_rows::misaligned(out))
     return cudaErrorMisalignedAddress;
-  const YZRows body{{out, X * Y}, s, log2i(Y)};
-  return fft_rows::launch(Z, schedule, body, table, 1,
-                          static_cast<cudaStream_t>(stream));
+  const YZRows body{{out, X * Y}, s, log2i(Y), Y};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return pow2 ? fft_rows::launch(Z, schedule, body, table, 1, st)
+              : fft_rows::launch_mixed(Z, schedule, body, table, 1, st);
 }
 
 }  // extern "C"

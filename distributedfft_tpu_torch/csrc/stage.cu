@@ -37,8 +37,12 @@
 //   fft_rows_kernel<L, RealRows>
 //                            <- _rmatmul_kernel     (kernel 1, FFT body:
 //                               power-of-two n in [8, 1024])
+//   fft_mixed_kernel<RealRows>
+//                            <- _rmatmul_kernel     (kernel 1, FFT body on
+//                               the engine's mixed-radix kernel: 13-smooth
+//                               n in [9, 507], e.g. 375, 440, 480)
 //   MODE_RMATMUL             <- _rmatmul_kernel     (kernel 1, tile or row
-//                               body: any other n)
+//                               body: any other n, e.g. 442 or 520)
 //   fft_rows_kernel<L, HalfRows>
 //                            <- _c2r_kernel         (kernel 3, FFT body:
 //                               power-of-two n in [8, 1024])
@@ -140,10 +144,11 @@
 //   bins 0..n/2 (RealRows), whose rows of 8 (n/2 + 1) bytes are written as
 //   one contiguous span a batch, not row by row. Each input byte is read
 //   once, and 2.5 n log2 n flop a row are done where the dense product did
-//   4 n (n/2 + 1). Kernel 5 runs on both of the engine's kernels: on the
-//   mixed-radix one (13-smooth n2, e.g. the 640, 832, 896 and 4320 axes'
-//   320, 416, 448 and 480) its epilogue walks the batch's bins as one span
-//   with DivWalk, two a thread across row ends (an odd n2).
+//   4 n (n/2 + 1). Kernels 1 and 5 run on both of the engine's kernels: on
+//   the mixed-radix one (13-smooth n, e.g. kernel 1's 480 and 440 y rows
+//   of the batched stacks, kernel 5's 320, 416, 448 and 480 of the 640,
+//   832, 896 and 4320 axes) their epilogues walk the batch's bins as one
+//   span with DivWalk, two a thread across row ends (an odd n).
 // - Kernel 3 has an FFT body on the same engine (HalfRows), the mirror of
 //   kernel 1's: each batch of half spectra arrives by one bulk copy, the
 //   first pass packs half rows 2c and 2c + 1 as one complex row extended by
@@ -465,6 +470,32 @@ struct RealRows : RealRowPairs {
       }
     }
   }
+
+  // The same on the mixed-radix kernel (n = g.n any engine length, K = n/2
+  // + 1 bins a row, 2 g.rows real rows a batch): a full batch is 16 g.rows
+  // K bytes, a multiple of 16, so every batch starts 16-byte aligned. Its
+  // rows_in K bins are one span, two neighbouring bins a thread, of one row
+  // or across two, as one 16-byte store, an odd last bin as 8 bytes. Bin e
+  // of the span is bin k of real row q, (q, k) = divmod(e, K), walked with
+  // DivWalk (as RealTwiddleRows' mixed store walks n); split holds for an
+  // odd n.
+  __device__ void store(const fft_rows::MixedPlan& g, const float* re,
+                        const float* im, int b) const {
+    const int n = g.n, K = n / 2 + 1, count = rows_in(g, b) * K;
+    float2* o = reinterpret_cast<float2*>(out) + (size_t)b * 2 * g.rows * K;
+    fft_rows::DivWalk w(2 * threadIdx.x, K, 2 * fft_rows::THREADS);
+    for (int e = 2 * threadIdx.x; e < count;
+         e += 2 * fft_rows::THREADS, w.next()) {
+      const float2 v = split(n, re, im, w.q, w.r);
+      if (e + 1 < count) {
+        const float2 u = w.r + 1 < K ? split(n, re, im, w.q, w.r + 1)
+                                     : split(n, re, im, w.q + 1, 0);
+        reinterpret_cast<float4*>(o)[e / 2] = make_float4(v.x, v.y, u.x, u.y);
+      } else {
+        o[e] = v;
+      }
+    }
+  }
 };
 
 // Kernel 3's rows: (M, n/2 + 1) complex64 half spectra in, the
@@ -744,17 +775,21 @@ int dfft_cdft_short(const float* x, const float* roots, float* out,
                                 static_cast<cudaStream_t>(stream));
 }
 
-// Kernel 1, FFT body. x: (M, n) float32, n a power of two in [8, 1024],
-// 16-byte aligned; table, schedule: ops/hopper_fft.fft_plan(n, False);
-// out: (M, n/2 + 1) complex64, 16-byte aligned.
+// Kernel 1, FFT body. x: (M, n) float32, n a power of two in [8, 1024]
+// (the engine's power-of-two kernel) or 13-smooth in [8, 512] (its
+// mixed-radix kernel), 16-byte aligned; table: ops/hopper_fft.fft_plan(n,
+// False).table; schedule: ops/hopper_fft._engine_schedule(n, False); out:
+// (M, n/2 + 1) complex64, 16-byte aligned.
 int dfft_rdft(const float* x, const float* table, float* out, int M, int n,
               int schedule, void* stream) {
   if (M < 1) return cudaErrorInvalidValue;
   if (fft_rows::misaligned(x) || fft_rows::misaligned(out))
     return cudaErrorMisalignedAddress;
   const RealRows body{{x, out, M}};
-  return fft_rows::launch(n, schedule, body, table, 0,
-                          static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (n & (n - 1)) == 0
+             ? fft_rows::launch(n, schedule, body, table, 0, st)
+             : fft_rows::launch_mixed(n, schedule, body, table, 0, st);
 }
 
 // Kernel 3, FFT body. c: (M, n/2 + 1) complex64, n a power of two in [8,

@@ -8,14 +8,14 @@ granularities:
   more — forward ``zy_fwd`` (z-R2C then y-C2C per x-row) then
   ``x_c2c``; inverse ``x_c2c`` then ``yz_inv`` (y-C2C inverse then the
   half-spectrum z-C2R). Complex data crosses these kernels as split
-  float32 (real, imag) planes. ``zy_fwd`` picks its body by
-  ``_zy_fwd_body(Y, Z)`` and ``yz_inv`` by ``_zy_body(Y, Z)``: three
-  launches through a complex64 scratch (``zy_fwd``: the row FFT engine on
-  the z rows into the scratch, the engine on the scratch's y rows in
-  place, a transpose into the planes; ``yz_inv`` the same backwards, its
-  z pass kernel 3's C2R Body) when Y and Z are powers of two in [8, 512],
-  and for ``zy_fwd`` also when each is an engine length there with Y even
-  (the engine's mixed-radix kernel), else the dense kernel. ``x_c2c`` picks its
+  float32 (real, imag) planes. ``zy_fwd`` and ``yz_inv`` pick their body
+  by ``_zy_engine_body(Y, Z)``: three launches through a complex64 scratch
+  (``zy_fwd``: the row FFT engine on the z rows into the scratch, the
+  engine on the scratch's y rows in place, a transpose into the planes;
+  ``yz_inv`` the same backwards, its z pass kernel 3's C2R Body) when Y
+  and Z are each an engine length in [8, 512] with Y even (the engine's
+  power-of-two kernel when both are powers of two, ``_zy_body``, else its
+  mixed-radix kernel), else the dense kernel. ``x_c2c`` picks its
   body by ``_x_body(X)``: for a power of two in [8, 512] the column kernel
   of the row FFT engine, which reads kernel 6's planes and writes the
   complex64 spectrum (forward) or reads the spectrum and writes kernel 8's
@@ -51,9 +51,9 @@ granularities:
   (kernel 1), ``cdft`` (kernel 2), ``irdft`` (kernel 3), ``cdft_tw``
   (kernel 4), ``rdft_tw`` (kernel 5) and ``dec_cmatmul`` (kernel 11) on
   rows of a power of two in [8, 1024], and, on its mixed-radix kernel, of
-  ``cdft``, ``irdft``, ``cdft_tw`` and ``rdft_tw`` on the 155 13-smooth
-  lengths in [9, 507] (``MIXED_LENGTHS``; kernels 1 and 11 route by
-  ``_fft_body``, kernels 2-5 by ``_cdft_body``); other lengths take the
+  ``rdft``, ``cdft``, ``irdft``, ``cdft_tw`` and ``rdft_tw`` on the 155
+  13-smooth lengths in [9, 507] (``MIXED_LENGTHS``; kernel 11 routes by
+  ``_fft_body``, kernels 1-5 by ``_cdft_body``); other lengths take the
   dense bodies of ``stage.cu``. It also runs the two FFT passes
   of the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8), and,
   as its column kernel, ``x_c2c`` (kernel 7), ``cdft_cols`` (kernel 2
@@ -212,8 +212,8 @@ FFT_MIN, FFT_MAX = 8, 1024
 # buffers (``STAGES``) and the most shared memory a block takes
 # (``MIXED_SMEM``: two blocks an SM of an H100). It runs the 13-smooth
 # lengths 2^a 3^b 5^c 7^d 11^e 13^f in [FFT_MIN, MIXED_MAX] that are not
-# powers of two (``MIXED_LENGTHS``, 155 of them: kernels 2, 3, 4, 5 and
-# 6), and, beside them on kernel 6's passes, the powers of two up to
+# powers of two (``MIXED_LENGTHS``, 155 of them: kernels 1-6 and 8), and,
+# beside them on the passes of kernels 6 and 8, the powers of two up to
 # MIXED_MAX.
 MIXED_RADICES = (16, 15, 14, 13, 12, 11, 10, 9, 8, 7, 6, 5, 4, 3, 2)
 MIXED_POINTS = 2560
@@ -237,13 +237,11 @@ MIXED_LENGTHS = tuple(n for n in range(FFT_MIN, MIXED_MAX + 1)
 
 
 def _fft_body(n: int) -> str:
-    """The body kernels 1 and 11 run on rows of n points: ``"fft"`` (the
-    row FFT engine's power-of-two kernel) for a power of two in [FFT_MIN,
-    FFT_MAX], else ``"tile"`` (the dense bodies of ``stage.cu`` /
-    ``wire.cu`` with the DFT or R2C planes: the tile loop of
-    ``stage_tile.cuh``, or for kernel 1 on rows of a few points the row
-    path). Kernels 2, 3, 4 and 5 on rows route by ``_cdft_body``; the
-    column, short-stage and fused bodies read this too."""
+    """The body kernel 11 runs on rows of n points: ``"fft"`` (the row FFT
+    engine's power-of-two kernel) for a power of two in [FFT_MIN,
+    FFT_MAX], else ``"tile"`` (the dense body of ``wire.cu`` with the DFT
+    planes). Kernels 1-5 on rows route by ``_cdft_body``; the column,
+    short-stage and fused bodies read this too."""
     return "fft" if FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0 else "tile"
 
 
@@ -254,36 +252,37 @@ def _engine_length(n: int) -> bool:
 
 
 def _cdft_body(n: int) -> str:
-    """The body kernels 2 (``cdft``), 3 (``irdft``), 4 (``cdft_tw``) and 5
-    (``rdft_tw``) run on rows of n points: ``"fft"`` (the row FFT engine:
-    its power-of-two kernel, or its mixed-radix kernel for a 13-smooth n)
-    where ``_engine_length(n)``, else ``"tile"`` (the tile loop of
-    ``stage.cu`` with the DFT or C2R planes, or for kernels 2 and 3 on rows
-    of a few points the row path)."""
+    """The body kernels 1 (``rdft``), 2 (``cdft``), 3 (``irdft``), 4
+    (``cdft_tw``) and 5 (``rdft_tw``) run on rows of n points: ``"fft"``
+    (the row FFT engine: its power-of-two kernel, or its mixed-radix kernel
+    for a 13-smooth n) where ``_engine_length(n)``, else ``"tile"`` (the
+    tile loop of ``stage.cu`` with the R2C, DFT or C2R planes, or for
+    kernels 1, 2 and 3 on rows of a few points the row path)."""
     return "fft" if _engine_length(n) else "tile"
 
 
 def _zy_body(Y: int, Z: int) -> str:
-    """The body kernel 8 runs on (X, Y, Z), and kernel 6 when both are
-    powers of two: ``"fft"`` (two launches of the row FFT engine and a
-    transpose) when Y and Z are both powers of two in [FFT_MIN,
-    ``mx.DIRECT_MAX``], else ``"dense"`` (the dense-product
-    ``zy_fwd_kernel`` / ``yz_inv_kernel``). Kernel 6 routes by
-    ``_zy_fwd_body``."""
+    """Which of the engine's kernels the FFT bodies of kernels 6 and 8
+    (``_zy_engine_body``) run both passes on: ``"fft"`` (the power-of-two
+    kernel) when Y and Z are both powers of two in [FFT_MIN,
+    ``mx.DIRECT_MAX``], else ``"dense"`` (the mixed-radix kernel where
+    ``_zy_engine_body`` says "fft", the dense-product ``zy_fwd_kernel`` /
+    ``yz_inv_kernel`` where it says "dense")."""
     return ("fft" if all(_fft_body(n) == "fft" and n <= mx.DIRECT_MAX
                          for n in (Y, Z)) else "dense")
 
 
-def _zy_fwd_body(Y: int, Z: int) -> str:
-    """The body kernel 6 runs on (X, Y, Z): ``"fft"`` (the engine's two
-    passes and the transpose) when Y and Z are each an engine length
-    (``_engine_length``) in [FFT_MIN, ``mx.DIRECT_MAX``] and Y is even: the
-    power-of-two kernel on both passes where ``_zy_body`` says "fft", else
-    the mixed-radix kernel on both (its z pass stores the half spectra of
-    two neighbouring y as one 16-byte vector, so a pair of rows must not
-    straddle two x-planes); else ``"dense"``: an odd Y, or a length with a
-    prime factor past 13 (``fused3d.cu``'s ``zy_mixed_ok``, the same
-    predicate)."""
+def _zy_engine_body(Y: int, Z: int) -> str:
+    """The body kernels 6 (``zy_fwd``) and 8 (``yz_inv``) run on (X, Y,
+    Z): ``"fft"`` (the engine's two passes and a transpose) when Y and Z
+    are each an engine length (``_engine_length``) in [FFT_MIN,
+    ``mx.DIRECT_MAX``] and Y is even: the power-of-two kernel on both
+    passes where ``_zy_body`` says "fft", else the mixed-radix kernel on
+    both (kernel 6's z pass stores, and kernel 8's gathers, the half
+    spectra of two neighbouring y as one 16-byte vector, so a pair of rows
+    must not straddle two x-planes); else ``"dense"``: an odd Y, or a
+    length with a prime factor past 13 (``fused3d.cu``'s ``zy_mixed_ok``,
+    the same predicate)."""
     return ("fft" if Y % 2 == 0 and all(
         _engine_length(n) and n <= mx.DIRECT_MAX for n in (Y, Z))
         else "dense")
@@ -889,7 +888,7 @@ def _no_vjp(jax_kernel: str):
 def zy_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(X, Y, Z) float32 -> (X, Y, Z//2+1) planes: z-R2C then y-C2C,
     unnormalized forward (kernel 6, ``_zy_fwd_kernel``). The body is
-    ``_zy_fwd_body(Y, Z)``: on ``"fft"`` three launches through a complex64
+    ``_zy_engine_body(Y, Z)``: on ``"fft"`` three launches through a complex64
     scratch of ``_zy_scratch_shape`` (x and the scratch 16-byte aligned):
     the row FFT engine on the z rows, the engine on the scratch's y rows in
     place, the transpose into the planes (the engine's power-of-two kernel
@@ -906,7 +905,7 @@ def zy_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     Zo = Z // 2 + 1
     yr = torch.empty((X, Y, Zo), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    if _zy_fwd_body(Y, Z) == "dense":
+    if _zy_engine_body(Y, Z) == "dense":
         _launch("zy_fwd", "dfft_zy_fwd", x, fzr, fzi, fyr, fyi, yr, yi, X, Y,
                 Z)
         return yr, yi
@@ -981,12 +980,15 @@ def x_c2c(ar: torch.Tensor, ai: torch.Tensor,
 def yz_inv(er: torch.Tensor, ei: torch.Tensor, z: int) -> torch.Tensor:
     """(X, Y, z//2+1) planes -> (X, Y, z) float32: y-C2C inverse then the
     half-spectrum z-C2R, unnormalized (kernel 8, ``_yz_inv_kernel``). The
-    body is ``_zy_body(Y, z)``: on ``"fft"`` three launches through a
-    complex64 scratch of ``_zy_scratch_shape`` (it and the output 16-byte
-    aligned): the transpose of the planes into the scratch, the row FFT
-    engine's inverse on its y rows in place, kernel 3's C2R Body on the z
-    rows gathered from it; else one launch of the dense kernel. Every
-    launch counts as ``yz_inv``."""
+    body is ``_zy_engine_body(Y, z)``: on ``"fft"`` three launches through
+    a complex64 scratch of ``_zy_scratch_shape`` (it and the output
+    16-byte aligned): the transpose of the planes into the scratch, the
+    row FFT engine's inverse on its y rows in place, kernel 3's C2R Body
+    on the z rows gathered from it (the engine's power-of-two kernel when Y
+    and z are both powers of two, else its mixed-radix kernel on both
+    passes, the z pass with kernel 3's rows, ``mixed_schedule(z, True,
+    half=True)``); else one launch of the dense kernel. Every launch counts
+    as ``yz_inv``."""
     X, Y, Zo = er.shape
     if Zo != z // 2 + 1 or er.shape != ei.shape:
         raise ValueError(f"yz_inv: planes {tuple(er.shape)}, "
@@ -999,17 +1001,21 @@ def yz_inv(er: torch.Tensor, ei: torch.Tensor, z: int) -> torch.Tensor:
     if cpu:
         return yz_inv_plain(er, ei, *dense)
     y = torch.empty((X, Y, z), dtype=torch.float32, device=dev)
-    if _zy_body(Y, z) == "dense":
+    if _zy_engine_body(Y, z) == "dense":
         _launch("yz_inv", "dfft_yz_inv", er, ei, *dense, y, X, Y, z)
         return y
     s = torch.empty(_zy_scratch_shape(X, Y, z), dtype=torch.complex64,
                     device=dev)
     _require_aligned("yz_inv", s, y)
+    if _zy_body(Y, z) == "fft":     # both passes on the power-of-two kernel
+        ys, zs = fft_plan(Y, True).schedule, fft_plan(z, True).schedule
+    else:                           # both on the mixed-radix kernel
+        ys, zs = mixed_schedule(Y, True), mixed_schedule(z, True, half=True)
     _launch("yz_inv", "dfft_yz_scratch", er, ei, s, X, Y, z)
     _launch("yz_inv", "dfft_yz_cols", s, _fft_table(Y, True, dev), X, Y, z,
-            fft_plan(Y, True).schedule)
+            ys)
     _launch("yz_inv", "dfft_yz_rows", s, _fft_table(z, True, dev), y, X, Y,
-            z, fft_plan(z, True).schedule)
+            z, zs)
     return y
 
 
@@ -1472,14 +1478,15 @@ def rdft(x2: torch.Tensor) -> torch.Tensor:
     """Real rows to their half spectra: (M, n) float32 -> (M, n//2+1)
     complex64, bins 0..n/2 of each row's unnormalized DFT (kernel 1,
     ``_rmatmul_kernel`` with the R2C columns). The body is
-    ``_fft_body(n)``: the row FFT engine for a power of two in [8, 1024]
-    (on a CPU tensor its plain version, ``stage_plain``), else ``stage``
-    with the R2C planes (the tile or row body); both count as
-    ``rmatmul``."""
+    ``_cdft_body(n)``: the row FFT engine (``dfft_rdft``) for a power of
+    two in [8, 1024] (its power-of-two kernel) or a 13-smooth n in [9,
+    507] (its mixed-radix kernel, ``mixed_schedule``), on a CPU tensor its
+    plain version, ``stage_plain``; else ``stage`` with the R2C planes (the
+    tile or row body); both count as ``rmatmul``."""
     cpu = _check_rows("rmatmul", x2, torch.float32)
     M, n = x2.shape
     dev = x2.device
-    if _fft_body(n) == "tile":
+    if _cdft_body(n) == "tile":
         return stage(x2, *_planes("rdft", n, False, dev))
     if cpu:
         return stage_plain(x2, *_planes("rdft", n, False, dev))
@@ -1487,7 +1494,7 @@ def rdft(x2: torch.Tensor) -> torch.Tensor:
     if M:
         _require_aligned("rmatmul", x2, y)
         _launch("rmatmul", "dfft_rdft", x2, _fft_table(n, False, dev), y, M,
-                n, fft_plan(n, False).schedule)
+                n, _engine_schedule(n, False))
     return y
 
 

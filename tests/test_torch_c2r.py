@@ -219,12 +219,14 @@ def test_irdft_routes_by_fft_body(monkeypatch, n):
                                    (3, 480, 480), (2, 4, 64)])
 def test_yz_inv_routes_by_zy_body(monkeypatch, shape):
     """Off the CPU, ``yz_inv`` launches its three FFT-body passes when
-    ``_zy_body(Y, Z)`` is ``"fft"``, else the dense kernel once; every
-    launch counts as ``yz_inv``."""
+    ``_zy_engine_body(Y, Z)`` is ``"fft"`` (both powers of two, or engine
+    lengths with Y even: 12 x 16, 16 x 12, 480 x 480), else the dense
+    kernel once (Y = 4 is no engine length); every launch counts as
+    ``yz_inv``."""
     log = _record_launches(monkeypatch)
     X, Y, Z = shape
     half = torch.zeros((X, Y, Z // 2 + 1))
     assert hf.yz_inv(half, half, Z).shape == shape
     want = (["dfft_yz_scratch", "dfft_yz_cols", "dfft_yz_rows"]
-            if hf._zy_body(Y, Z) == "fft" else ["dfft_yz_inv"])
+            if hf._zy_engine_body(Y, Z) == "fft" else ["dfft_yz_inv"])
     assert log == [("yz_inv", fn) for fn in want]

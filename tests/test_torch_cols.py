@@ -281,9 +281,9 @@ def test_fused_plan_reaches_x_cols_when_x_body_is_fft(monkeypatch, shape):
     inv = [fn for _, fn, _ in log]
     x = "dfft_x_cols" if hf._x_body(X) == "fft" else "dfft_x_c2c"
     zy = (["dfft_zy_rows", "dfft_zy_cols", "dfft_zy_planes"]
-          if hf._zy_fwd_body(Y, Z) == "fft" else ["dfft_zy_fwd"])
+          if hf._zy_engine_body(Y, Z) == "fft" else ["dfft_zy_fwd"])
     yz = (["dfft_yz_scratch", "dfft_yz_cols", "dfft_yz_rows"]
-          if hf._zy_body(Y, Z) == "fft" else ["dfft_yz_inv"])
+          if hf._zy_engine_body(Y, Z) == "fft" else ["dfft_yz_inv"])
     assert fwd == zy + [x] and inv == [x] + yz
 
 

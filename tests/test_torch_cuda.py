@@ -32,7 +32,7 @@ SHAPES = [(2, 2, 2), (8, 8, 8), (6, 12, 15), (16, 10, 12), (3, 17, 33),
 ZY_FFT_SHAPES = [(2, 8, 8), (3, 8, 16), (5, 16, 8), (2, 32, 64),
                  (3, 64, 32), (9, 128, 16), (2, 16, 256), (4, 256, 128),
                  (3, 512, 8), (2, 8, 512), (5, 512, 512), (512, 16, 32)]
-# Kernel 6's FFT body on the engine's mixed-radix kernel (hf._zy_fwd_body:
+# Kernel 6's FFT body on the engine's mixed-radix kernel (hf._zy_engine_body:
 # Y and Z engine lengths, Y even): odd Z (rows ending off 16 bytes), a
 # power of two beside a mixed length, a Y that is not a multiple of 8 (a
 # ragged tile of the transpose), the (X, 480, 480) and (X, 448, 448) of the
@@ -43,6 +43,15 @@ ZY_MIXED_SHAPES = [(2, 96, 120), (3, 480, 40), (2, 12, 10), (3, 8, 480),
                    (4, 500, 375), (7, 480, 480), (5, 18, 512),
                    (8, 448, 448), (3, 416, 440), (2, 26, 143), (2, 22, 429),
                    (3, 28, 11)]
+# Kernel 8's FFT body on the mixed-radix kernel (hf._zy_engine_body, as
+# kernel 6): z-pass batches that cross x-planes (Y = 30, 56 and 96 are no
+# multiple of their 2 rows real rows), odd Z (39, 45, 75, 375), a Y that is
+# not a multiple of 8 (the transpose's ragged tile), the even pitch at 420,
+# 255 rows of 10, a power of two beside a mixed length, and the (512, 480,
+# 480) and (512, 448, 448) of the main paths.
+YZ_MIXED_SHAPES = [(2, 30, 39), (3, 56, 45), (2, 96, 75), (4, 30, 40),
+                   (3, 30, 420), (2, 12, 10), (5, 30, 512), (3, 480, 64),
+                   (2, 250, 375), (512, 480, 480), (512, 448, 448)]
 
 
 @pytest.fixture()
@@ -77,7 +86,7 @@ def test_zy_fwd_kernel(cuda, shape):
     yr, yi = hf.zy_fwd(x)
     torch.cuda.synchronize()
     assert hf.LAUNCHES["zy_fwd"] == before + (
-        3 if hf._zy_fwd_body(Y, Z) == "fft" else 1)
+        3 if hf._zy_engine_body(Y, Z) == "fft" else 1)
     pr, pi = hf.zy_fwd_plain(x, *hf._planes("rdft", Z, False, cuda),
                              *hf._planes("dft", Y, False, cuda))
     assert _rel(yr, pr) <= 5e-4 and _rel(yi, pi) <= 5e-4
@@ -273,11 +282,12 @@ def test_split_bodies_reject_misaligned_pointers(cuda):
         hf.cdft_tw_cols(x.reshape(1, 1024, 1), 1, False)        # n2 > 512
 
 
-@pytest.mark.parametrize("shape", SHAPES + ZY_FFT_SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + ZY_FFT_SHAPES + YZ_MIXED_SHAPES)
 def test_yz_inv_kernel(cuda, shape):
-    """Both bodies of kernel 8 (``hf._zy_body``): three launches on the FFT
-    body, one dense; random spectra, so the DC and Nyquist z-bins have
-    imaginary parts that both ignore."""
+    """Both bodies of kernel 8 (``hf._zy_engine_body``): three launches on
+    the FFT body (the power-of-two kernel or the mixed-radix one), one
+    dense; random spectra, so the DC and Nyquist z-bins have imaginary
+    parts that both ignore (an odd Z's last bin keeps its own)."""
     X, Y, Z = shape
     half = (X, Y, Z // 2 + 1)
     er, ei = _randn(half, 4, cuda), _randn(half, 5, cuda)
@@ -285,7 +295,7 @@ def test_yz_inv_kernel(cuda, shape):
     y = hf.yz_inv(er, ei, Z)
     torch.cuda.synchronize()
     assert hf.LAUNCHES["yz_inv"] == before + (
-        3 if hf._zy_body(Y, Z) == "fft" else 1)
+        3 if hf._zy_engine_body(Y, Z) == "fft" else 1)
     assert y.shape == shape and y.dtype == torch.float32
     ref = hf.yz_inv_plain(er, ei, *hf._planes("dft", Y, True, cuda),
                           *hf._planes("c2r", Z, False, cuda))
@@ -301,8 +311,8 @@ def test_pallas_plan_matches_torch_fft(cuda, shape):
     c = plan.exec_r2c(x)
     back = plan.exec_c2r(c)
     torch.cuda.synchronize()
-    zy6 = 3 if hf._zy_fwd_body(*shape[1:]) == "fft" else 1
-    zy8 = 3 if hf._zy_body(*shape[1:]) == "fft" else 1
+    zy6 = 3 if hf._zy_engine_body(*shape[1:]) == "fft" else 1
+    zy8 = 3 if hf._zy_engine_body(*shape[1:]) == "fft" else 1
     assert hf.LAUNCHES == {**dict.fromkeys(hf.LAUNCHES, 0),
                            "zy_fwd": zy6, "x_c2c": 2, "yz_inv": zy8}
     assert _rel(c, torch.fft.rfftn(x)) <= 5e-4
@@ -472,6 +482,46 @@ def test_rdft_tw_on_the_mixed_kernel(cuda, M, n2, n1):
     want = torch.fft.fft(x) * torch.complex(tr, ti)[rows]
     assert y.shape == (M, n2) and y.dtype == torch.complex64
     assert _rel(y, want) <= 5e-4
+
+
+@pytest.mark.parametrize("M, n", [(131, 480), (4097, 375), (64, 440),
+                                  (7, 405), (1, 9), (5, 10), (131072, 480)])
+def test_rdft_on_the_mixed_kernel(cuda, M, n):
+    """Kernel 1 on the engine's mixed-radix kernel by its entry point
+    (``dfft_rdft``, never ``dfft_stage``) against ``torch.fft.rfft`` and
+    its plain version; odd and even M and n (an odd n's half row of (n +
+    1)/2 bins, a batch's bins stored across row ends)."""
+    x = _randn((M, n), n + M, cuda)
+    y, runs, tiles = _entry_launches(lambda: hf.rdft(x), "dfft_rdft")
+    assert (runs, tiles) == (1, 0)
+    assert y.shape == (M, n // 2 + 1) and y.dtype == torch.complex64
+    assert _rel(y, torch.fft.rfft(x)) <= 5e-4
+    assert _rel(y, hf.stage_plain(x, *hf._planes("rdft", n, False,
+                                                 cuda))) <= 5e-4
+
+
+@pytest.mark.parametrize("n", [442, 520, 17])
+def test_rdft_tile_lengths(cuda, n):
+    """Kernel 1 at a length with a prime factor past 13, or past 512, keeps
+    its tile body (``dfft_stage`` with the R2C planes)."""
+    x = _randn((1031, n), n, cuda)
+    y, runs, tiles = _entry_launches(lambda: hf.rdft(x), "dfft_rdft")
+    assert (runs, tiles) == (0, 1)
+    assert _rel(y, hf.stage_plain(x, *hf._planes("rdft", n, False,
+                                                 cuda))) <= 5e-4
+
+
+@pytest.mark.parametrize("n", hf.MIXED_LENGTHS)
+def test_kernel1_at_every_mixed_length(cuda, n):
+    """Kernel 1 on the mixed-radix kernel at every 13-smooth length in [9,
+    507], on an odd number of rows and on more rows than one persistent
+    wave holds, against its plain version."""
+    for M in (37, (1 << 20) // n + 3):
+        x = _randn((M, n), n + M + 2, cuda)
+        y, runs, tiles = _entry_launches(lambda: hf.rdft(x), "dfft_rdft")
+        assert (runs, tiles) == (1, 0)
+        assert _rel(y, hf.stage_plain(x, *hf._planes("rdft", n, False,
+                                                     cuda))) <= 5e-4
 
 
 @pytest.mark.parametrize("n", hf.MIXED_LENGTHS)

@@ -262,10 +262,10 @@ def test_power_of_two_axes_take_one_engine_launch(monkeypatch, n, fn):
 def test_other_direct_axes_take_the_planes(monkeypatch, n, fn):
     """Any other length up to 512 also takes one ``cdft`` / ``rdft``, whose
     body is then ``stage`` with the DFT (or R2C) planes: the tile body, or
-    the row body for a few points; ``cdft`` at a 7-smooth length (12, 96,
-    320) runs the engine's mixed-radix kernel instead, whose plain version
-    on the CPU is the product with the same planes, not through
-    ``stage``."""
+    the row body for a few points; ``cdft`` and ``rdft`` at a 13-smooth
+    length (12, 96, 320) run the engine's mixed-radix kernel instead, whose
+    plain version on the CPU is the product with the same planes, not
+    through ``stage``."""
     calls = _count_calls(monkeypatch, "cdft", "rdft", "cdft_tw", "rdft_tw",
                          "stage")
     inverse = fn == "ifft"
@@ -281,7 +281,7 @@ def test_other_direct_axes_take_the_planes(monkeypatch, n, fn):
     assert hf._fft_body(n) == "tile"
     wrapper = "rdft" if fn == "rfft" else "cdft"
     assert len(calls.pop(wrapper)) == 1
-    if fn != "rfft" and hf._cdft_body(n) == "fft":
+    if hf._cdft_body(n) == "fft":
         assert n in hf.MIXED_LENGTHS and not calls.pop("stage")
         assert all(not v for v in calls.values()), calls
         return

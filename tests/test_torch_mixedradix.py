@@ -21,10 +21,11 @@ CPU.
 * Kernel 6's three passes on the kernel (``zy_fwd_mirror``) at 5-, 7-, 11-
   and 13-smooth Y and Z, against ``zy_fwd_plain`` and, followed by
   ``x_c2c_plain``, the JAX ``_rfftn3d_fused`` in interpret mode (5e-4).
-* The routes: ``_zy_fwd_body`` (kernel 6, engine lengths, Y even),
-  ``_zy_body`` (kernel 8, powers of two only), ``_cdft_body`` (kernels 2,
-  3, 4 and 5, 13-smooth) and ``_fft_body`` (kernels 1 and 11, powers of
-  two only), and the launches of ``zy_fwd``, ``cdft``, ``cdft_tw``, a
+* The routes: ``_zy_engine_body`` (kernels 6 and 8, engine lengths, Y
+  even), ``_zy_body`` (the power-of-two kernel for both of their passes:
+  powers of two only), ``_cdft_body`` (kernels 1-5, 13-smooth) and
+  ``_fft_body`` (kernel 11, powers of two only), and the launches of
+  ``zy_fwd``, ``cdft``, ``cdft_tw``, a
   4320-point axis, the 448^3 slab plan and ``chip_smoke.py``'s 256 x
   480^2, 64 x 896^2, 64 x 832^2 and 256 x 440^2 batched stacks with the
   launch patched.
@@ -237,7 +238,7 @@ def test_zy_mirror_matches_plain(shape):
     """Kernel 6's three passes at 5-, 7-, 11- and 13-smooth Y and Z (an odd
     Z, a power of two beside a mixed length, 448 = 8 x 8 x 7, 143 = 13 x
     11) against the dense products."""
-    assert hf._zy_fwd_body(*shape[1:]) == "fft"
+    assert hf._zy_engine_body(*shape[1:]) == "fft"
     x = torch.from_numpy(_real(shape, sum(shape)))
     yr, yi = hf.zy_fwd_mirror(x)
     pr, pi = _zy_plain(x)
@@ -254,7 +255,7 @@ def test_zy_mirror_then_x_matches_rfftn3d_fused(shape):
     5-smooth Y and Z, and at Y = 14 = 2 x 7, Z = 143 = 11 x 13 (radices 14,
     13 and 11)."""
     x = _real(shape, 7 + sum(shape))
-    assert hf._zy_fwd_body(*shape[1:]) == "fft"
+    assert hf._zy_engine_body(*shape[1:]) == "fft"
     yr, yi = hf.zy_fwd_mirror(torch.from_numpy(x))
     zr, zi = hf.x_c2c_plain(yr, yi, *hf._planes("dft", shape[0], False, CPU))
     want = np.asarray(pallas_fft._rfftn3d_fused(x))
@@ -262,29 +263,30 @@ def test_zy_mirror_then_x_matches_rfftn3d_fused(shape):
 
 
 def test_routes(monkeypatch):
-    """Kernel 6 takes the engine where Y and Z are each an engine length up
-    to 512 and Y is even (448 = 8 x 8 x 7, 416, 440 and 13-smooth lengths
-    among them) and keeps its dense body on an odd Y and on a length with
-    a prime factor past 13 (408 = 24 x 17, 442 = 2 x 13 x 17); kernel 8
-    stays on powers of two; kernels 2 and 4 take the engine on 13-smooth
+    """Kernels 6 and 8 take the engine where Y and Z are each an engine
+    length up to 512 and Y is even (448 = 8 x 8 x 7, 416, 440 and
+    13-smooth lengths among them), on its power-of-two kernel only where
+    ``_zy_body`` says so (both powers of two), and keep their dense body
+    on an odd Y and on a length with a prime factor past 13 (408 = 24 x
+    17, 442 = 2 x 13 x 17); kernels 2 and 4 take the engine on 13-smooth
     lengths up to 512 (416 = 32 x 13, 440 = 8 x 5 x 11 among them) and
-    their tile body on a length with a factor past 13, and so do kernels 3
-    (``irdft``) and 5 (``rdft_tw``), which route by ``_cdft_body`` too;
-    the other kernels' ``_fft_body`` (kernels 1 and 11, the column and
-    short-stage bodies) stays powers of two."""
+    their tile body on a length with a factor past 13, and so do kernels 1
+    (``rdft``), 3 (``irdft``) and 5 (``rdft_tw``), which route by
+    ``_cdft_body`` too; the other kernels' ``_fft_body`` (kernel 11, the
+    column and short-stage bodies) stays powers of two."""
     for y, z in ((480, 480), (96, 120), (480, 40), (12, 10), (512, 480),
                  (480, 512), (8, 9), (500, 375), (448, 448), (480, 448),
                  (448, 480), (416, 440), (26, 22), (14, 56), (28, 448),
                  (22, 143), (512, 11)):
-        assert hf._zy_fwd_body(y, z) == "fft", (y, z)
+        assert hf._zy_engine_body(y, z) == "fft", (y, z)
         assert hf._zy_body(y, z) == "dense", (y, z)
     for y, z in ((15, 480), (480, 7), (4, 480), (480, 2), (6, 12),
                  (514, 480), (480, 1024), (13, 448), (143, 26), (448, 17),
                  (408, 448), (448, 442), (34, 480)):
-        assert hf._zy_fwd_body(y, z) == "dense", (y, z)
-    assert hf._zy_fwd_body(512, 512) == hf._zy_body(512, 512) == "fft"
+        assert hf._zy_engine_body(y, z) == "dense", (y, z)
+    assert hf._zy_engine_body(512, 512) == hf._zy_body(512, 512) == "fft"
     assert [(y, z) for y in range(1, 600) for z in (8, 448, 507, 1024)
-            if hf._zy_fwd_body(y, z) == "fft"] == [
+            if hf._zy_engine_body(y, z) == "fft"] == [
         (y, z) for y in range(8, 513, 2) for z in (8, 448, 507)
         if hf._engine_length(y)]
     pow2 = [8, 16, 32, 64, 128, 256, 512, 1024]
@@ -329,13 +331,13 @@ def _record_launches(monkeypatch):
                                    (2, 416, 440), (2, 408, 448)])
 def test_zy_fwd_launches(monkeypatch, shape):
     """Off the CPU, ``zy_fwd`` launches the three passes where
-    ``_zy_fwd_body`` says "fft" (the schedules of Z and Y: the mixed-radix
+    ``_zy_engine_body`` says "fft" (the schedules of Z and Y: the mixed-radix
     kernel's, with the rows of a batch, unless both are powers of two),
     else the dense kernel once."""
     log = _record_launches(monkeypatch)
     X, Y, Z = shape
     hf.zy_fwd(torch.zeros(shape))
-    if hf._zy_fwd_body(Y, Z) == "dense":
+    if hf._zy_engine_body(Y, Z) == "dense":
         assert [e for _, e, _ in log] == ["dfft_zy_fwd"]
         return
     assert [(k, e) for k, e, _ in log] == [
@@ -392,7 +394,7 @@ def test_cdft_launches(monkeypatch, n, inverse):
 # chip_smoke.py's batched stacks on the mixed-radix kernel, one call a
 # direction: (shape, launches forward, inverse as (kernel, entry) pairs).
 _DIRECT_ENGINE = (
-    [("rmatmul", "dfft_stage"), ("cmatmul", "dfft_cdft")],
+    [("rmatmul", "dfft_rdft"), ("cmatmul", "dfft_cdft")],
     [("cmatmul", "dfft_cdft"), ("c2r", "dfft_c2r")])
 _SPLIT_ENGINE = (
     [("rmatmul_tw", "dfft_rdft_tw"), ("cmatmul", "dfft_cdft_short"),
@@ -420,11 +422,11 @@ def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
                                                          shape):
     """The "pallas" batched-2D plan at 256 x 480^2 and 256 x 440^2 (x moved
     last, kernel 2 on the mixed-radix kernel at 480 = 12 x 10 x 4 and 440
-    = 11 x 10 x 4, and the inverse's y C2R, kernel 3, on it too; kernel 1
-    keeps its tile body) and 64 x 896^2 and 64 x 832^2 (both axes 2 x 448
+    = 11 x 10 x 4, and the forward's y R2C, kernel 1, and the inverse's y
+    C2R, kernel 3, on it too) and 64 x 896^2 and 64 x 832^2 (both axes 2 x 448
     or 2 x 416: kernel 4 on the mixed-radix kernel, the 2-point short
     stage, and the forward's first stage, kernel 5, on the mixed-radix
-    kernel), recorded on "meta" tensors: none of kernels 2-5 reaches
+    kernel), recorded on "meta" tensors: none of kernels 1-5 reaches
     ``dfft_stage``, and the entries are the ones ``chip_smoke.py``'s
     ``BATCHED_CARD`` counts and ``BATCHED_ENGINE`` names a direction."""
     smoke = _chip_smoke()
@@ -442,7 +444,8 @@ def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
     assert back.shape == shape
     assert (fwd, inv) == _BATCHED_ENGINE[shape]
     for pairs in (fwd, inv):
-        for kernel in ("cmatmul", "cmatmul_tw", "c2r", "rmatmul_tw"):
+        for kernel in ("rmatmul", "cmatmul", "cmatmul_tw", "c2r",
+                       "rmatmul_tw"):
             assert (kernel, "dfft_stage") not in pairs
     (pid,) = [p for p, v in smoke.BATCHED_CARD.items() if v[0] == shape]
     _, _, ent_f, ent_i = smoke.BATCHED_CARD[pid][1]
@@ -464,7 +467,8 @@ def test_slab_448_runs_kernel6_on_the_engine(monkeypatch):
     """The "pallas" 448^3 slab plan on one rank (ZY_Then_X, the fused
     path), recorded on "meta" tensors: forward kernel 6's three passes on
     the mixed-radix kernel (448 = 8 x 8 x 7 on both) and kernel 7's dense
-    body, inverse kernels 7 and 8 on their dense bodies; the launches and
+    body, inverse kernel 7's dense body and kernel 8's three passes on the
+    mixed-radix kernel (its z pass with kernel 3's rows); the launches and
     entries ``chip_smoke.py``'s ``FUSED_SLABS`` counts for it."""
     smoke = _chip_smoke()
     from distributedfft_tpu_torch import Config, GlobalSize, SlabFFTPlan
@@ -484,6 +488,11 @@ def test_slab_448_runs_kernel6_on_the_engine(monkeypatch):
                                       "dfft_zy_planes", "dfft_x_c2c"]
     assert fwd[0][2][3:] == (448, 448, 448, hf.mixed_schedule(448, False))
     assert fwd[1][2][2:] == (448, 448, 448, hf.mixed_schedule(448, False))
+    assert [e for _, e, _ in inv] == ["dfft_x_c2c", "dfft_yz_scratch",
+                                      "dfft_yz_cols", "dfft_yz_rows"]
+    assert inv[2][2][2:] == (448, 448, 448, hf.mixed_schedule(448, True))
+    assert inv[3][2][3:] == (448, 448, 448,
+                             hf.mixed_schedule(448, True, half=True))
     for got, launches, entries in ((fwd, want_f, ent_f), (inv, want_i, ent_i)):
         per_kernel, per_entry = {}, {}
         for k, e, _ in got:

@@ -289,6 +289,46 @@ def test_port_kernels_are_the_sources_kernels():
     assert set(profile.PORT_KERNELS) == found
 
 
+# The Bodies each source launches the mixed-radix kernel with, as its
+# records name them (``fft_rows::fft_mixed_kernel<Body>``): kernels 1-5 in
+# stage.cu, kernel 6's two passes and kernel 8's y and z passes in
+# fused3d.cu (the y passes share ComplexTwiddleRows<false>).
+MIXED_BODIES = {
+    "stage.cu": ("(anonymous namespace)::RealRows",
+                 "fft_rows::ComplexTwiddleRows<false>",
+                 "(anonymous namespace)::HalfRows",
+                 "fft_rows::ComplexTwiddleRows<true>",
+                 "(anonymous namespace)::RealTwiddleRows"),
+    "fused3d.cu": ("(anonymous namespace)::ZRows",
+                   "fft_rows::ComplexTwiddleRows<false>",
+                   "(anonymous namespace)::YZRows")}
+
+
+@pytest.mark.parametrize("source, body", [
+    (src, b) for src, bodies in MIXED_BODIES.items() for b in bodies])
+def test_mixed_kernel_instantiations_are_port_kernels(source, body):
+    """Every instantiation of ``fft_mixed_kernel`` the sources launch,
+    kernel 8's z pass (``YZRows``) and kernel 1's rows (``RealRows``)
+    among them, is a port kernel by its record's name; its Body has the
+    mixed-radix kernel's store or inherits it."""
+    import re
+    name = (f"void fft_rows::fft_mixed_kernel<{body}>({body}, "
+            f"fft_rows::MixedPlan, float const*, int)")
+    ev = [{"ph": "X", "cat": "kernel", "name": name, "pid": 0, "tid": 7,
+           "ts": 100, "dur": 5,
+           "args": {"correlation": 1, "device": 0, "stream": 7}}]
+    planes = profile.parse_torch_trace({"traceEvents": ev})
+    assert profile.device_activity(planes)["port_kernel_records"] == 1
+    csrc = os.path.join(os.path.dirname(profile.__file__), os.pardir,
+                        "csrc")
+    with open(os.path.join(csrc, source), encoding="utf-8") as f:
+        text = f.read()
+    short = re.sub(r"^.*::|<.*>$", "", body)
+    assert re.search(rf"struct {short}\b", text) or short in (
+        "ComplexTwiddleRows",)
+    assert text.count("launch_mixed(") == len(MIXED_BODIES[source])
+
+
 @pytest.mark.parametrize("launches", ["kept", "lost"])
 def test_gpu_fixture_port_kernel_records(launches):
     """The fixture's eight port kernels are counted by their kernel

@@ -240,7 +240,7 @@ def test_stage_bytes_agree_with_the_kernel_source():
     """The kernel sizes its buffers by the Body's ``stage_bytes(g)`` and
     ``launch_mixed`` its shared memory by it (``mixed_smem``,
     ``MIXED_SMEM``, ``STAGES``), as ``hf.mixed_smem`` does; stage.cu's
-    kernels 3 and 5 dispatch on n to both of the engine's kernels."""
+    kernels 1, 3 and 5 dispatch on n to both of the engine's kernels."""
     rows_src = (CSRC / "fft_rows.cuh").read_text()
     stage_src = (CSRC / "stage.cu").read_text()
 
@@ -259,11 +259,11 @@ def test_stage_bytes_agree_with_the_kernel_source():
         "return 128 + 8 * (size_t)g.tld + STAGES * (size_t)stage + "
         "16 * (size_t)g.padded;")
 
-    # The mixed launches of stage.cu: kernels 2, 3, 4 and 5.
+    # The mixed launches of stage.cu: kernels 1, 2, 3, 4 and 5.
     launches = re.findall(r"launch_mixed\(n, schedule, body, table, "
                           r"(\w+), st\)", stage_src)
-    assert len(launches) == 4
-    for entry in ("dfft_rdft_tw", "dfft_c2r"):
+    assert len(launches) == 5
+    for entry in ("dfft_rdft_tw", "dfft_c2r", "dfft_rdft"):
         body = stage_src[stage_src.index(f"int {entry}("):]
         body = body[:body.index("\n}")]
         assert "fft_rows::launch_mixed(" in body

@@ -5,7 +5,9 @@ that a change and its parent are compared on the same card under the same
 power limit:
 
 * kernel 6 (``zy_fwd``) at (512, 480, 480), (512, 448, 448) and (512,
-  442, 442), kernel 4 (``cdft_tw``, forward) on 410880 rows of 320
+  442, 442), kernel 8 (``yz_inv``) at (512, 480, 480) and (512, 448,
+  448), kernel 1 (``rdft``) on 131072 rows of 480, kernel 4
+  (``cdft_tw``, forward) on 410880 rows of 320
   points, n1 2 (the 640 split's first stage), on 155592 rows of 480, n1
   9 (the 4320 split's), and on 410880 rows of 448, 416 and 408, n1 2 (the
   896, 832 and 816 splits'), and kernel 2 (``cdft``, forward) on 131072
@@ -15,10 +17,10 @@ power limit:
   311040 rows of 480, n1 9 (the 4320 rfft's), each beside its plain
   version;
 * the 480^3 and 448^3 P = 1 slab plans, forward and inverse (kernels 6,
-  7 and 8);
+  7 and 8), with the entry points of each direction;
 * the 256 x 480^2, 64 x 896^2, 64 x 832^2 and 256 x 440^2 batched-2D
-  plans, forward and inverse (kernel 2 at 480 and 440, kernel 4 at 448
-  and 416);
+  plans, forward and inverse (kernels 1, 2 and 3 at 480 and 440, kernel 4
+  at 448 and 416);
 * the 4320 convolution: 8 images of 4096^2 with a 225^2 kernel, "same",
   whose plan pads each axis to good_size 4320 = 9 x 480 (kernels 4 and 5
   on its first stages);
@@ -46,6 +48,8 @@ CONV = (8, 4096, 225)       # images, extent, kernel side
 BATCHED = (8, 4320, 4320)
 REPS = 5
 ZYS = ((512, 480, 480), (512, 448, 448), (512, 442, 442))
+YZS = ((512, 480, 480), (512, 448, 448))
+RDFT = ((131072, 480),)                               # rows, n
 TW = ((410880, 320, 2), (155592, 480, 9), (410880, 448, 2),
       (410880, 416, 2), (410880, 408, 2))             # rows, n2, n1
 CDFT = ((131072, 480), (131072, 448), (131072, 440), (131072, 442))  # rows, n
@@ -109,6 +113,31 @@ def one(tree):
             max_rel_err=max(max_rel(yr, pr), max_rel(yi, pi)),
             ms=median_ms(torch, lambda: hf.zy_fwd(x)))
         del x, yr, yi, pr, pi
+    for yz in YZS:
+        X, Y, Z = yz
+        er, ei = (torch.randn((X, Y, Z // 2 + 1), generator=gen,
+                              device="cuda") for _ in range(2))
+        ref = hf.yz_inv_plain(er, ei, *hf._planes("dft", Y, True, dev),
+                              *hf._planes("c2r", Z, False, dev))
+
+        def run():
+            return hf.yz_inv(er, ei, Z)
+
+        row[f"kernel8_{Y}"] = dict(
+            shape=list(yz), entries=entries(torch, hf, run),
+            max_rel_err=max_rel(run(), ref), ms=median_ms(torch, run))
+        del er, ei, ref
+    for m, n in RDFT:
+        x = torch.randn((m, n), generator=gen, device="cuda")
+        ref = hf.stage_plain(x, *hf._planes("rdft", n, False, dev))
+
+        def run():
+            return hf.rdft(x)
+
+        row[f"kernel1_{n}"] = dict(
+            rows=m, entries=entries(torch, hf, run),
+            max_rel_err=max_rel(run(), ref), ms=median_ms(torch, run))
+        del x, ref
     for m, n2, n1 in TW:
         x = torch.randn((m, n2), generator=gen, device="cuda",
                         dtype=torch.complex64)
@@ -167,7 +196,10 @@ def one(tree):
         c = plan.exec_r2c(x)
         row[f"slab{slab[0]}"] = dict(
             entries_forward=entries(torch, hf, lambda: plan.exec_r2c(x)),
+            entries_inverse=entries(torch, hf, lambda: plan.exec_c2r(c)),
             forward_vs_rfftn=max_rel(c, torch.fft.rfftn(x)),
+            roundtrip_vs_input=max_rel(plan.exec_c2r(c) / float(x.numel()),
+                                       x),
             forward_ms=median_ms(torch, lambda: plan.exec_r2c(x)),
             inverse_ms=median_ms(torch, lambda: plan.exec_c2r(c)))
         del x, c, plan
