@@ -2205,12 +2205,15 @@ def stage_cases(torch, hf, dev, gen):
              run=lambda t: hf.rdft(t["x"]),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
              library=lambda t: torch.fft.rfft(t["x"]), library_call="rfft"),
-        dict(name="rmatmul", variant="tile_442", body="tile", check_only=True,
+        dict(name="rmatmul", variant="tile_442", body="tile",
              replaces=f"{PALLAS}:182", shape=dict(M=rows_r, n=442, k=k442),
              make=lambda: dict(x=rr(rows_r, 442), F=planes("rdft", 442)),
              run=lambda t: hf.rdft(t["x"]),
              plain=lambda t: hf.stage_plain(t["x"], *t["F"]),
-             library=lambda t: torch.fft.rfft(t["x"]), library_call="rfft"),
+             library=lambda t: torch.fft.rfft(t["x"]), library_call="rfft",
+             flops=fft_flops(rows_r, 442, real=True),
+             gemm_flops=4 * rows_r * 442 * k442,
+             bytes=4 * rows_r * 442 + 8 * rows_r * k442 + 8 * 442 * k442),
         *(dict(name="cmatmul", variant=f"fft_{n}",
                replaces=f"{PALLAS}:164", shape=dict(M=rows_r, n=n, k=n),
                make=lambda n=n: dict(x=cr(rows_r, n), F=planes("dft", n)),
@@ -2608,13 +2611,13 @@ FUSED_PATH = (dict(zy_fwd=3, x_c2c=1), dict(x_c2c=1, yz_inv=3),
 # The 480^3 and 448^3 fused plans, per direction: launches and entry
 # points. Kernels 6 and 8's FFT bodies on the engine's mixed-radix kernel
 # (480 = 12 x 10 x 4, 448 = 8 x 8 x 7 on both passes of each), kernel 7 on
-# its dense body (no column body off the powers of two yet).
+# its mixed-radix column kernel (``dfft_x_mixed``); the dense bodies never.
 FUSED_480 = (480, 480, 480)
 FUSED_448 = (448, 448, 448)
 FUSED_MIXED_PATH = (dict(zy_fwd=3, x_c2c=1), dict(x_c2c=1, yz_inv=3),
                     {"dfft_zy_rows": 1, "dfft_zy_cols": 1,
-                     "dfft_zy_planes": 1, "dfft_x_c2c": 1},
-                    {"dfft_x_c2c": 1, "dfft_yz_scratch": 1,
+                     "dfft_zy_planes": 1, "dfft_x_mixed": 1},
+                    {"dfft_x_mixed": 1, "dfft_yz_scratch": 1,
                      "dfft_yz_cols": 1, "dfft_yz_rows": 1})
 # id -> (shape, its launches and entry points).
 FUSED_SLABS = {"fused_480": (FUSED_480, FUSED_MIXED_PATH),
@@ -6802,14 +6805,25 @@ def main() -> int:
     pr480, pi480 = randn(N, 480, Z4), randn(N, 480, Z4)
     pr448, pi448 = randn(N, 448, Z8), randn(N, 448, Z8)
     pr442, pi442 = randn(N, 442, Z2), randn(N, 442, Z2)
+    pc442 = torch.complex(pr442, pi442)
     pr375, pi375 = randn(N, 250, Z375), randn(N, 250, Z375)
     pr, pi = randn(N, N, Zo), randn(N, N, Zo)
     fzr, fzi = hf._planes("rdft", N, False, dev)
     fyr, fyi = hf._planes("dft", N, False, dev)
     fxr, fxi = hf._planes("dft", N, True, dev)
     fxfr, fxfi = hf._planes("dft", N, False, dev)
-    xr480, xi480 = randn(480, N, Zo), randn(480, N, Zo)   # kernel 7's dense
-    f480x = hf._planes("dft", 480, True, dev)              # body (X = 480)
+    # Kernel 7 on the mixed-radix column kernel at (480, 512, 257) beside
+    # PR 1-24's dense row there, and at the 480^3 and 448^3 plans' shapes
+    # and the ragged odd (375, 375, 188): planes and the complex64 spectrum
+    # of each, made once, so that no library call times a join. Its dense
+    # body at X = 442 (a factor past 13).
+    x7 = {}
+    for name7, X7, Ky7 in (("mixed_480_y512", 480, N), ("mixed_480", 480, 480),
+                           ("mixed_448", 448, 448), ("odd_375", 375, 375)):
+        ar7, ai7 = randn(X7, Ky7, Ky7 // 2 + 1), randn(X7, Ky7, Ky7 // 2 + 1)
+        x7[name7] = (X7, (ar7, ai7, torch.complex(ar7, ai7)))
+    xr442, xi442 = randn(442, N, Zo), randn(442, N, Zo)
+    xc442 = torch.complex(xr442, xi442)
     fyir, fyii = hf._planes("dft", N, True, dev)
     cr, ci = hf._planes("c2r", N, False, dev)
     pc = torch.complex(pr, pi)
@@ -6826,6 +6840,31 @@ def main() -> int:
     def inv_planes(y, z):
         return hf._planes("dft", y, True, dev) + hf._planes("c2r", z, False,
                                                              dev)
+
+    def x_row(variant, X7, inverse, data, check_only=False):
+        """Kernel 7's row on (X7, Ky, Zo) data (planes and their complex64
+        spectrum): the inverse's layouts (complex64 in, planes out) or the
+        forward's (planes in, complex64 out)."""
+        ar7, ai7, c7 = data
+        f7 = hf._planes("dft", X7, inverse, dev)
+        rows = ar7[0].numel()
+        if inverse:
+            calls = dict(
+                run=lambda: hf.x_cols(c7, True, complex_out=False),
+                plain=lambda: hf.x_c2c_plain(ar7, ai7, *f7),
+                library=lambda: torch.fft.ifft(c7, dim=0, norm="forward"),
+                library_call="ifft(dim=0, norm='forward')")
+        else:
+            calls = dict(
+                run=lambda: hf.x_cols((ar7, ai7), False, complex_out=True),
+                plain=lambda: torch.complex(*hf.x_c2c_plain(ar7, ai7, *f7)),
+                library=lambda: torch.fft.fft(c7, dim=0),
+                library_call="fft(dim=0)")
+        return dict(name="x_c2c", variant=variant, replaces=f"{PALLAS}:443",
+                    shape=dict(X=X7, Y=ar7.shape[1], Zo=ar7.shape[2]),
+                    check_only=check_only, flops=fft_flops(rows, X7),
+                    gemm_flops=8 * X7 * X7 * rows, bytes=16 * X7 * rows,
+                    **calls)
     fused = [
         dict(name="zy_fwd", replaces=f"{PALLAS}:427",
              shape=dict(X=X, Y=Y, Z=Z),
@@ -6867,8 +6906,9 @@ def main() -> int:
                         + 2 * X * 442 * Z2)),
         # Kernel 7 on each layout pair the fused plan launches: the
         # inverse's (the complex64 spectrum in, kernel 8's planes out) and
-        # the forward's (kernel 6's planes in, the spectrum out); the dense
-        # body at X = 480. An FFT body's bytes count no DFT matrix.
+        # the forward's (kernel 6's planes in, the spectrum out); on the
+        # mixed-radix column kernel (x_row); the dense body at X = 442. An
+        # FFT body's bytes count no DFT matrix.
         dict(name="x_c2c", replaces=f"{PALLAS}:443",
              shape=dict(X=X, Y=Y, Zo=Zo),
              run=lambda: hf.x_cols(pc, True, complex_out=False),
@@ -6885,15 +6925,20 @@ def main() -> int:
              library_call="fft(dim=0)",
              flops=fft_flops(Y * Zo, X), gemm_flops=8 * X * X * Y * Zo,
              bytes=16 * X * Y * Zo),
-        dict(name="x_c2c", variant="dense_480", body="dense",
-             replaces=f"{PALLAS}:443", shape=dict(X=480, Y=Y, Zo=Zo),
-             run=lambda: hf.x_c2c(xr480, xi480, inverse=True),
-             plain=lambda: hf.x_c2c_plain(xr480, xi480, *f480x),
-             library=lambda: torch.fft.ifft(torch.complex(xr480, xi480),
-                                            dim=0, norm="forward"),
+        *(x_row(f"{name7}_{d}", X7, d == "inverse", data,
+                check_only=name7 == "odd_375")
+          for name7, (X7, data) in x7.items()
+          for d in (("inverse",) if name7 == "mixed_480_y512"
+                    else ("inverse", "forward"))),
+        dict(name="x_c2c", variant="dense_442", body="dense",
+             replaces=f"{PALLAS}:443", shape=dict(X=442, Y=Y, Zo=Zo),
+             run=lambda: hf.x_c2c(xr442, xi442, inverse=True),
+             plain=lambda: hf.x_c2c_plain(xr442, xi442,
+                                          *hf._planes("dft", 442, True, dev)),
+             library=lambda: torch.fft.ifft(xc442, dim=0, norm="forward"),
              library_call="ifft(dim=0, norm='forward')",
-             flops=fft_flops(Y * Zo, 480), gemm_flops=8 * 480 * 480 * Y * Zo,
-             bytes=16 * 480 * Y * Zo + 8 * 480 * 480),
+             flops=fft_flops(Y * Zo, 442), gemm_flops=8 * 442 * 442 * Y * Zo,
+             bytes=16 * 442 * Y * Zo + 8 * 442 * 442),
         # Kernel 8 on random spectra: their DC and Nyquist z-bins have
         # imaginary parts, which the C2R ignores.
         dict(name="yz_inv", replaces=f"{PALLAS}:452",
@@ -6930,11 +6975,17 @@ def main() -> int:
              plain=lambda: hf.yz_inv_plain(pr375, pi375,
                                            *inv_planes(250, 375))),
         dict(name="yz_inv", variant="dense_442", body="dense",
-             check_only=True, replaces=f"{PALLAS}:452",
-             shape=dict(X=X, Y=442, Z=442),
+             replaces=f"{PALLAS}:452", shape=dict(X=X, Y=442, Z=442),
              run=lambda: hf.yz_inv(pr442, pi442, 442),
              plain=lambda: hf.yz_inv_plain(pr442, pi442,
-                                           *inv_planes(442, 442))),
+                                           *inv_planes(442, 442)),
+             library=lambda: torch.fft.irfft2(pc442, s=(442, 442),
+                                              norm="forward"),
+             library_call="irfft2",
+             flops=fft_flops(X * Z2, 442) + fft_flops(X * 442, 442, real=True),
+             gemm_flops=8 * X * 442 * 442 * Z2 + 4 * X * 442 * Z2 * 442,
+             bytes=4 * (2 * X * 442 * Z2 + 2 * 442 * 442 + 2 * Z2 * 442
+                        + X * 442 * 442)),
     ]
     for k in fused:
         k["source"] = "distributedfft_tpu_torch/csrc/fused3d.cu"
@@ -6953,7 +7004,7 @@ def main() -> int:
             fail(f"kernel {k['name']} {k['shape']} disagrees with its plain "
                  f"version: rel {k['max_rel_err']:.3e} > {TOL}")
         del got, ref
-    del pr375, pi375, pr442, pi442
+    del pr375, pi375
     torch.cuda.empty_cache()
 
     # -- 4. the 512^3 fused plan and a small cube against numpy --------------
@@ -7026,7 +7077,11 @@ def main() -> int:
          forward_profile=device_profile(torch, lambda: plan.exec_r2c(x)),
          inverse_profile=device_profile(torch, lambda: plan.exec_c2r(cp)))
     del x, x480, x448, x442, pr, pi, pc, pr480, pi480, pc480, pr448, pi448, \
-        pc448, xr480, xi480, cp, cx, plan, xla
+        pc448, pr442, pi442, pc442, x7, xr442, xi442, xc442, cp, cx, plan, \
+        xla
+    for k in fused:                  # their closures hold the inputs too
+        for f in ("run", "plain", "library"):
+            k.pop(f, None)
     torch.cuda.empty_cache()
 
     # -- 5b. the 480^3 and 448^3 fused plans: kernels 6 and 8 on the ---------

@@ -7,21 +7,23 @@
 // kernels 1-5; both passes of kernels 6 and 8, powers of two beside them
 // included); and, on the same passes and twiddle table, the column kernel
 // (kernel 7, kernel 2 on a non-last axis, kernel 4 on a non-last split
-// axis), the DFT of every column of an (outer, n, inner) array; and, on
-// the column kernel's loader, the
-// short-stage kernel (the end of this file: kernel 2 on the 2..16-point
-// second stage of a split axis).
+// axis), the DFT of every column of an (outer, n, inner) array, and its
+// mixed-radix form (fft_mixed_cols_kernel: kernel 7 on a 13-smooth X);
+// and, on the column kernel's loader, the short-stage kernel (the end of
+// this file: kernel 2 on the 2..16-point second stage of a split axis).
 //
 // Which kernel runs which body (ops/hopper_fft.py): the power-of-two
 // kernel carries kernel 11 (_fft_body), kernels 1-5 on a power of two
 // (_cdft_body) and kernels 6 and 8 when Y and Z are both powers of two
 // (_zy_body); the mixed-radix kernel carries kernels 1-5 on a 13-smooth
 // length and kernels 6 and 8 on 13-smooth Y and Z, Y even
-// (_zy_engine_body). Every other length keeps its dense or tile body. The
-// mixed-radix kernel is one instantiation a Body (n and the radices are
-// runtime values), so it adds eight kernels to the build (kernels 1-5 in
-// stage.cu; kernel 6's two passes and kernel 8's z pass in fused3d.cu,
-// whose y pass is kernel 6's), not one a length.
+// (_zy_engine_body); the column kernel carries kernel 7 on a power of two
+// and the mixed-radix column kernel on a 13-smooth X (_x_body). Every
+// other length keeps its dense or tile body. The mixed-radix kernels are
+// one instantiation a Body (n and the radices are runtime values), so
+// they add nine kernels to the build (kernels 1-5 in stage.cu; kernel 6's
+// two passes, kernel 8's z pass, whose y pass is kernel 6's, and kernel 7
+// in fused3d.cu), not one a length.
 //
 // It replaces the dense DFT product of nine Pallas TPU kernels of
 // distributedfft_tpu/ops/pallas_fft.py (_dec_cmatmul_kernel :737, kernel
@@ -588,6 +590,23 @@ inline bool mixed_radix(int r) {
   }
 }
 
+// The radices of a packed schedule's low MIXED_ROWS_SHIFT bits into radix
+// (1 past the last pass) and passes: false unless they are the kernel's,
+// at most MIXED_PASSES of them, and multiply to n.
+inline bool unpack_radices(int n, int schedule, int (&radix)[MIXED_PASSES],
+                           int& passes) {
+  int p = 0, prod = 1;
+  for (int s = schedule & ((1 << MIXED_ROWS_SHIFT) - 1); s != 0;
+       s >>= 5, ++p) {
+    if (p == MIXED_PASSES || !mixed_radix(s & 31)) return false;
+    radix[p] = s & 31;
+    prod *= s & 31;
+  }
+  passes = p;
+  for (int q = p; q < MIXED_PASSES; ++q) radix[q] = 1;
+  return prod == n;
+}
+
 // The plan on rows of n points from the packed schedule (fft_plan(n,
 // inverse).schedule: the radix of pass p in bits 5p .. 5p + 4, the rows of
 // a batch from bit MIXED_ROWS_SHIFT on, both chosen on the host:
@@ -598,17 +617,8 @@ inline bool mixed_plan(int n, int schedule, MixedPlan& g) {
   if (n < 8 || n > MIXED_MAX || schedule <= 0) return false;
   const int rows = schedule >> MIXED_ROWS_SHIFT;
   if (rows < 1 || rows * n > MIXED_POINTS || rows * n % 2) return false;
-  int p = 0, prod = 1;
-  for (int s = schedule & ((1 << MIXED_ROWS_SHIFT) - 1); s != 0;
-       s >>= 5, ++p) {
-    if (p == MIXED_PASSES || !mixed_radix(s & 31)) return false;
-    g.radix[p] = s & 31;
-    prod *= s & 31;
-  }
-  if (prod != n) return false;
+  if (!unpack_radices(n, schedule, g.radix, g.passes)) return false;
   g.n = n;
-  g.passes = p;
-  for (int q = p; q < MIXED_PASSES; ++q) g.radix[q] = 1;
   g.rows = rows;
   g.points = g.rows * n;
   g.padded = g.points + g.points / 32;
@@ -1505,8 +1515,16 @@ cudaError_t launch_cols_log2(int schedule, const Body& body,
 // (outer, n, inner) array. Its input is interleaved complex64 at in_r (in_i
 // null) or split float32 planes in_r, in_i, and so is its output (out_r,
 // out_i), which must not overlap the input unless it is the input. A batch
-// moves the kernel's N = 2^L point-rows of W columns: all n of them, or
-// (the split kernel at n = 1024) the rows row0 + step * i, i < N.
+// moves the kernel's point-rows of W columns (ColShape: the power-of-two
+// column kernel's ColGeometry<L>, the mixed-radix column kernel's plan):
+// all n of them, or (the split kernel at n = 1024) the rows row0 + step *
+// i, i < N. The methods on a ColShape are the Body; the ones on L pass
+// ColGeometry<L>'s constants to them.
+struct ColShape {
+  int rows;   // point-rows a batch moves
+  int width;  // columns a batch, W
+};
+
 struct Columns {
   const float* in_r;
   const float* in_i;
@@ -1517,13 +1535,20 @@ struct Columns {
   int inner;
 
   template <int L>
+  __host__ __device__ static constexpr ColShape shape() {
+    return ColShape{ColGeometry<L>::N, ColGeometry<L>::W};
+  }
+  __host__ __device__ int groups(int W) const { return (inner + W - 1) / W; }
+  __host__ __device__ long long batches(const ColShape& s) const {
+    return (long long)outer * groups(s.width);
+  }
+  template <int L>
   __host__ __device__ int groups() const {
-    constexpr int W = ColGeometry<L>::W;
-    return (inner + W - 1) / W;
+    return groups(ColGeometry<L>::W);
   }
   template <int L>
   __host__ __device__ long long batches_ll() const {
-    return (long long)outer * groups<L>();
+    return batches(shape<L>());
   }
   template <int L>
   __device__ int batches() const {
@@ -1531,95 +1556,110 @@ struct Columns {
   }
   // Batch b: element offset of its first strip (point 0 of column c0 of
   // outer index o, in elements of its array) and its column count.
-  template <int L>
-  __device__ size_t locate(int b, int& valid) const {
-    using G = ColGeometry<L>;
-    const int g = groups<L>(), o = b / g, c0 = (b - o * g) * G::W;
-    valid = inner - c0 < G::W ? inner - c0 : G::W;
+  __device__ __forceinline__ size_t locate(int W, int b, int& valid) const {
+    const int g = groups(W), o = b / g, c0 = (b - o * g) * W;
+    valid = inner - c0 < W ? inner - c0 : W;
     return (size_t)o * n * inner + c0;
   }
-  // Every thread: its cp.async parts of rows row0 .. row0 + N of batch b,
-  // then its arrive on bar.
-  template <int L>
-  __device__ void issue(unsigned char* buf, int b, uint64_t* bar,
-                        int row0 = 0) const {
-    using G = ColGeometry<L>;
+  // Every thread: its cp.async parts of rows row0 .. row0 + s.rows of
+  // batch b, then its arrive on bar.
+  __device__ __forceinline__ void issue(const ColShape s, unsigned char* buf,
+                                        int b, uint64_t* bar,
+                                        int row0 = 0) const {
     int valid;
-    const size_t off = locate<L>(b, valid) + (size_t)row0 * inner;
+    const size_t off = locate(s.width, b, valid) + (size_t)row0 * inner;
     if (in_i == nullptr) {
-      copy_strips(buf, in_r + 2 * off, 8 * (size_t)inner, 8 * valid, G::N,
-                  8 * G::W);
+      copy_strips(buf, in_r + 2 * off, 8 * (size_t)inner, 8 * valid, s.rows,
+                  8 * s.width);
     } else {
-      copy_strips(buf, in_r + off, 4 * (size_t)inner, 4 * valid, G::N,
-                  4 * G::W);
-      copy_strips(buf + 4 * G::POINTS, in_i + off, 4 * (size_t)inner,
-                  4 * valid, G::N, 4 * G::W);
+      copy_strips(buf, in_r + off, 4 * (size_t)inner, 4 * valid, s.rows,
+                  4 * s.width);
+      copy_strips(buf + 4 * s.rows * s.width, in_i + off, 4 * (size_t)inner,
+                  4 * valid, s.rows, 4 * s.width);
     }
     arrive_when_copied(bar);
   }
   template <int L>
-  __device__ float2 load(const unsigned char* buf, int c, int i) const {
-    using G = ColGeometry<L>;
+  __device__ void issue(unsigned char* buf, int b, uint64_t* bar,
+                        int row0 = 0) const {
+    issue(shape<L>(), buf, b, bar, row0);
+  }
+  // Point i of column c of the landed batch.
+  __device__ __forceinline__ float2 load(const ColShape s,
+                                         const unsigned char* buf, int c,
+                                         int i) const {
     if (in_i == nullptr)
-      return reinterpret_cast<const float2*>(buf)[i * G::W + c];
+      return reinterpret_cast<const float2*>(buf)[i * s.width + c];
     const float* p = reinterpret_cast<const float*>(buf);
-    return make_float2(p[i * G::W + c], p[G::POINTS + i * G::W + c]);
+    return make_float2(p[i * s.width + c],
+                       p[s.rows * s.width + i * s.width + c]);
+  }
+  template <int L>
+  __device__ float2 load(const unsigned char* buf, int c, int i) const {
+    return load(shape<L>(), buf, c, i);
   }
   // All threads: work row i of batch b to row row0 + step * i.
+  __device__ __forceinline__ void store(const ColShape s, const float2* w,
+                                        int b, int row0 = 0,
+                                        int step = 1) const {
+    int valid;
+    const size_t off = locate(s.width, b, valid) + (size_t)row0 * inner;
+    const size_t pitch = (size_t)step * inner;
+    if (out_i == nullptr) {
+      store_complex(s, out_r + 2 * off, 2 * pitch, w, valid);
+    } else {
+      store_plane<0>(s, out_r + off, pitch, w, valid);
+      store_plane<1>(s, out_i + off, pitch, w, valid);
+    }
+  }
   template <int L>
   __device__ void store(const float2* w, int b, int row0 = 0,
                         int step = 1) const {
-    int valid;
-    const size_t off = locate<L>(b, valid) + (size_t)row0 * inner;
-    const size_t pitch = (size_t)step * inner;
-    if (out_i == nullptr) {
-      store_complex<L>(out_r + 2 * off, 2 * pitch, w, valid);
-    } else {
-      store_plane<L, 0>(out_r + off, pitch, w, valid);
-      store_plane<L, 1>(out_i + off, pitch, w, valid);
-    }
+    store(shape<L>(), w, b, row0, step);
   }
 
   // valid complex64 columns of every work row to dst, rows pitch floats
   // apart: 16-byte parts of two columns where the rows allow, else 8.
-  template <int L>
-  __device__ void store_complex(float* dst, size_t pitch, const float2* w,
-                                int valid) const {
-    using G = ColGeometry<L>;
+  __device__ __forceinline__ void store_complex(const ColShape s, float* dst,
+                                                size_t pitch, const float2* w,
+                                                int valid) const {
     const unsigned a = static_cast<unsigned>(
         reinterpret_cast<uintptr_t>(dst) | 4 * pitch | 8 * valid);
     if (!(a & 15)) {
-      for_parts(G::N, valid / 2, [&](int i, int k) {
+      for_parts(s.rows, valid / 2, [&](int i, int k) {
         *reinterpret_cast<float4*>(dst + i * pitch + 4 * k) =
-            reinterpret_cast<const float4*>(w)[(i * G::W) / 2 + k];
+            reinterpret_cast<const float4*>(w)[(i * s.width) / 2 + k];
       });
     } else {
-      for_parts(G::N, valid, [&](int i, int k) {
-        *reinterpret_cast<float2*>(dst + i * pitch + 2 * k) = w[i * G::W + k];
+      for_parts(s.rows, valid, [&](int i, int k) {
+        *reinterpret_cast<float2*>(dst + i * pitch + 2 * k) =
+            w[i * s.width + k];
       });
     }
   }
   // The real (H = 0) or imaginary (H = 1) parts of valid columns of every
   // work row to the float32 plane dst, rows pitch floats apart: parts of
   // 4, 2 or 1 columns.
-  template <int L, int H>
-  __device__ void store_plane(float* dst, size_t pitch, const float2* w,
-                              int valid) const {
+  template <int H>
+  __device__ __forceinline__ void store_plane(const ColShape s, float* dst,
+                                              size_t pitch, const float2* w,
+                                              int valid) const {
     const unsigned a = static_cast<unsigned>(
         reinterpret_cast<uintptr_t>(dst) | 4 * pitch | 4 * valid);
     if (!(a & 15))
-      store_plane_by<L, H, 4>(dst, pitch, w, valid);
+      store_plane_by<H, 4>(s, dst, pitch, w, valid);
     else if (!(a & 7))
-      store_plane_by<L, H, 2>(dst, pitch, w, valid);
+      store_plane_by<H, 2>(s, dst, pitch, w, valid);
     else
-      store_plane_by<L, H, 1>(dst, pitch, w, valid);
+      store_plane_by<H, 1>(s, dst, pitch, w, valid);
   }
-  template <int L, int H, int K>
-  __device__ void store_plane_by(float* dst, size_t pitch, const float2* w,
-                                 int valid) const {
-    using G = ColGeometry<L>;
-    for_parts(G::N, valid / K, [&](int i, int k) {
-      const float2* p = w + i * G::W + K * k;
+  template <int H, int K>
+  __device__ __forceinline__ void store_plane_by(const ColShape s, float* dst,
+                                                 size_t pitch,
+                                                 const float2* w,
+                                                 int valid) const {
+    for_parts(s.rows, valid / K, [&](int i, int k) {
+      const float2* p = w + i * s.width + K * k;
       float v[K];
 #pragma unroll
       for (int h = 0; h < K; ++h) v[h] = H ? p[h].y : p[h].x;
@@ -1770,6 +1810,214 @@ cudaError_t launch_cols(int n, int schedule, const Body& body,
       return launch_cols_split(schedule, body, table, split, inverse, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The mixed-radix column kernel: the column kernel on columns of a mixed
+// length n (ops/hopper_fft.MIXED_LENGTHS, 13-smooth, not a power of two),
+// kernel 7 (_x_c2c_kernel) at X = 480, 448, 375, ... (fused3d.cu's
+// dfft_x_mixed), where its dense body computed each column's X-point DFT as
+// a product with the (X, X) DFT matrix: 8 X flop a point, 15x an FFT's at
+// 480, 7.6x cuFFT's time on (480, 512, 257) (PERF.md section 6).
+//
+// It joins the column kernel's batch to the mixed-radix kernel's passes:
+// - The batch and loads of fft_cols_kernel: W columns of one outer index a
+//   batch, each of their n point-rows a strip of W contiguous elements,
+//   copied by every thread's cp.async in the widest parts the strip allows
+//   (Columns::issue), one block of COL_THREADS threads an SM. W is the
+//   host's choice (ops/hopper_fft.mixed_cols_width, packed in the schedule
+//   above the radices): the largest power of two with W n <= COL_POINTS,
+//   so 16 at n > 256 (128-byte strips of complex64; strips of the
+//   mixed-radix kernel's rows would be 5 columns at 480, 40 bytes), up to
+//   COL_THREADS at n <= 16.
+// - The passes of fft_mixed_kernel: the plan's radices at runtime
+//   (ColPlan: one instantiation a Body serves every length), each pass
+//   dispatched on its radix to the unrolled butterflies of dft_small,
+//   twiddled from fft_plan's table, Stockham order. Butterfly (column c,
+//   j) of a radix-R pass, S = n / R of them a column, belongs to thread c
+//   + W jl with j = jl + q T, T = COL_THREADS / W threads a column: a half
+//   warp's 16 lanes read or write 16 neighbouring columns of one point,
+//   128 bytes without a bank conflict, and share each twiddle (one k).
+// - Ping-pong, not in place: each pass reads one buffer and writes another
+//   (the first reads the landed strips into a work buffer, the next ones
+//   back and forth between the work buffer and the batch's own), so a
+//   butterfly's R points leave the registers as soon as it is done and a
+//   pass needs one barrier. In place, as col_pass works, a thread would
+//   hold all its butterflies of a pass across two barriers, up to 2 x 15
+//   points: each pass alone fits 128 registers (113 at radix 15), the
+//   kernel with every radix did not (1.5 KB of stack and 3.3 KB of spill
+//   code, 0.87 ms on (480, 480, 241) against a bound of 0.265). The work
+//   buffer takes the third buffer of the ring: MIXED_COL_STAGES = 2 input
+//   buffers, one batch landing while one is transformed; three buffers of
+//   8 n W <= 64 KB and the table fit the 227 KB a block may take, four do
+//   not at 480.
+// - The epilogue and the ragged last group are Columns's: the strips
+//   stored in parts as wide as the destination allows, the columns past
+//   inner transformed from stale data and never stored.
+// Bound by bytes, as the column kernel: 16 bytes a point in and out,
+// (480, 480, 241) 0.89 GB -> 0.265 ms on an H100 SXM.
+// ---------------------------------------------------------------------------
+
+constexpr int COL_POINTS = 16 * COL_THREADS;  // most points a batch: 8192
+constexpr int MIXED_COL_STAGES = 2;           // input buffers of the ring
+
+// The plan of a launch: built on the host by col_plan from the packed
+// schedule, passed by value.
+struct ColPlan {
+  int n;        // points a column
+  int passes;
+  int radices;  // pass p's radix in bits 5p .. 5p + 4, as the schedule's
+  int width;    // columns a batch, W
+  int tld;      // floats of a table plane: n - the first radix, rounded
+                // up to 4 (16-byte aligned buffers)
+};
+
+// The plan on columns of n points from the packed schedule
+// (ops/hopper_fft.mixed_cols_schedule: fft_plan(n, inverse).schedule's
+// radices, the columns of a batch from bit MIXED_ROWS_SHIFT on); false
+// unless its radices are the mixed-radix kernel's and multiply to n in [8,
+// MIXED_MAX] and W is a power of two in [16, COL_THREADS] with W n <=
+// COL_POINTS.
+inline bool col_plan(int n, int schedule, ColPlan& g) {
+  if (n < 8 || n > MIXED_MAX || schedule <= 0) return false;
+  const int w = schedule >> MIXED_ROWS_SHIFT;
+  if (w < 16 || w > COL_THREADS || (w & (w - 1)) || w * n > COL_POINTS)
+    return false;
+  int radix[MIXED_PASSES];
+  if (!unpack_radices(n, schedule, radix, g.passes)) return false;
+  g.n = n;
+  g.radices = schedule & ((1 << MIXED_ROWS_SHIFT) - 1);
+  g.width = w;
+  g.tld = (n - radix[0] + 3) & ~3;
+  return true;
+}
+
+// The mixed-radix column kernel's shared memory a block on plan g: the
+// ring's barriers, the table's two planes, MIXED_COL_STAGES input buffers
+// and the work buffer of 8 n W bytes each (at most 200,832 bytes: W n <=
+// COL_POINTS).
+__host__ __device__ inline size_t mixed_cols_smem(const ColPlan& g) {
+  return 128 + 8 * (size_t)g.tld +
+         (MIXED_COL_STAGES + 1) * 8 * (size_t)g.n * g.width;
+}
+
+// One radix-R pass of a batch (point i of column c at out[i W + c]): the
+// thread's butterflies j = jl + q T < S = n / R of column c take points j
+// + m S from load(i), twiddled by the table's [m - 1][k] of the pass (at ns
+// - r0), k = j mod ns, when ns > 1, run the R-point DFT and write output m
+// to point (j - k) R + k + m ns of out (Stockham order, as mixed_pass).
+template <int R, class Load>
+__device__ __forceinline__ void mixed_col_pass(int n, int W, int T, int c,
+                                               int jl, int r0, int ns,
+                                               float2* __restrict__ out,
+                                               const float* __restrict__ wr,
+                                               const float* __restrict__ wi,
+                                               float sgn, Load load) {
+  const int S = n / R, off = ns - r0, dk = T % ns;
+  int k = jl % ns;
+  for (int j = jl; j < S; j += T) {
+    float2 a[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) a[m] = load(j + m * S);
+    if (ns > 1) {
+#pragma unroll
+      for (int m = 1; m < R; ++m) {
+        const int t = off + (m - 1) * ns + k;
+        a[m] = cmul(a[m], make_float2(wr[t], wi[t]));
+      }
+    }
+    dft_small<R>(a, sgn);
+    const int o = (j - k) * R + k;
+#pragma unroll
+    for (int m = 0; m < R; ++m) out[(o + m * ns) * W + c] = a[m];
+    k += dk;
+    if (k >= ns) k -= ns;
+  }
+}
+
+// The kernel. Body gives the Columns methods on a ColShape (n point-rows,
+// W columns): batches, issue (every thread's cp.async parts and its
+// arrive), load (point i of column c of the landed batch), store (the
+// epilogue from the work layout, all threads). Each pass dispatches on its
+// radix (with_radix), its radix read from the packed radices.
+template <class Body>
+__global__ void __launch_bounds__(COL_THREADS, 1)
+fft_mixed_cols_kernel(const Body body, const ColPlan g,
+                      const float* __restrict__ table, int inverse) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int NS = MIXED_COL_STAGES;
+  const int n = g.n, W = g.width, r0 = g.radices & 31;
+  const ColShape sh{n, W};
+  const int SB = 8 * n * W;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  float* wr = reinterpret_cast<float*>(smem + 128);
+  float* wi = wr + g.tld;
+  unsigned char* stages = reinterpret_cast<unsigned char*>(wi + g.tld);
+  float2* work = reinterpret_cast<float2*>(stages + NS * SB);
+
+  const int tid = threadIdx.x;
+  const int nb = (int)body.batches(sh);
+  load_planes<COL_THREADS>(table, n - r0, wr, wi);
+  init_ring(full, NS, COL_THREADS);
+  __syncthreads();
+  for (int s = 0; s < NS; ++s) {
+    const int b = blockIdx.x + s * gridDim.x;
+    if (b < nb) body.issue(sh, stages + s * SB, b, &full[s]);
+  }
+
+  const float sgn = inverse ? 1.f : -1.f;
+  const int c = tid & (W - 1), jl = tid / W, T = COL_THREADS / W;
+  int it = 0;
+  for (int b = blockIdx.x; b < nb; b += gridDim.x, ++it) {
+    const int s = it % NS;
+    unsigned char* buf = stages + s * SB;
+    mbar_wait(&full[s], (it / NS) & 1);
+    with_radix(r0, [&](auto R) {
+      mixed_col_pass<decltype(R)::value>(
+          n, W, T, c, jl, r0, 1, work, wr, wi, sgn,
+          [&body, sh, buf, c](int i) { return body.load(sh, buf, c, i); });
+    });
+    __syncthreads();
+    // Pass p reads in and writes out: the work buffer and the batch's own,
+    // in turn.
+    float2* in = work;
+    float2* out = reinterpret_cast<float2*>(buf);
+    int ns = r0;
+    for (int p = 1; p < g.passes; ++p) {
+      const int r = (g.radices >> (5 * p)) & 31;
+      with_radix(r, [&](auto R) {
+        mixed_col_pass<decltype(R)::value>(
+            n, W, T, c, jl, r0, ns, out, wr, wi, sgn,
+            [in, W, c](int i) { return in[i * W + c]; });
+      });
+      __syncthreads();
+      float2* t = in;
+      in = out;
+      out = t;
+      ns *= r;
+    }
+    body.store(sh, in, b);
+    // Every thread has read buffer s and the work buffer: refill s with
+    // the batch NS steps ahead.
+    __syncthreads();
+    const int next = b + NS * gridDim.x;
+    if (next < nb) body.issue(sh, buf, next, &full[s]);
+  }
+}
+
+// Launch the mixed-radix column kernel on columns of n points; table:
+// ops/hopper_fft.fft_plan(n, inverse)'s, schedule
+// ops/hopper_fft.mixed_cols_schedule(n, inverse)'s.
+template <class Body>
+cudaError_t launch_mixed_cols(int n, int schedule, const Body& body,
+                              const float* table, int inverse,
+                              cudaStream_t stream) {
+  ColPlan g;
+  if (!col_plan(n, schedule, g)) return cudaErrorInvalidValue;
+  return launch_persistent(fft_mixed_cols_kernel<Body>, COL_THREADS,
+                           mixed_cols_smem(g),
+                           body.batches(ColShape{g.n, g.width}), stream, body,
+                           g, table, inverse);
 }
 
 // ---------------------------------------------------------------------------

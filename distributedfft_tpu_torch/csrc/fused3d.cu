@@ -28,7 +28,13 @@
 //   fft_cols_kernel<L, Columns>
 //                  <- _x_c2c_kernel   (C2C along x, both directions; the FFT
 //                                      body, X a power of two in [8, 512])
-//   x_c2c_kernel   <- _x_c2c_kernel   (the dense body, any other X)
+//   fft_mixed_cols_kernel<Columns>
+//                  <- _x_c2c_kernel   (the FFT body on the engine's
+//                                      mixed-radix column kernel: X
+//                                      13-smooth in [9, 507], not a power
+//                                      of two)
+//   x_c2c_kernel   <- _x_c2c_kernel   (the dense body, an X with a prime
+//                                      factor past 13, or X < 8)
 //   yz_inv_kernel  <- _yz_inv_kernel  (y-C2C inverse, then half-spectrum C2R;
 //                                      the dense body, for a Y or Z that is
 //                                      no 13-smooth length in [8, 512], or
@@ -107,17 +113,18 @@
 //   x-planes anywhere: each pair's bin is one 16-byte part, gathered the
 //   same way (YZRows' mixed overloads).
 //
-// x_c2c's FFT body (X a power of two in [8, 512]) is the column kernel of
-// fft_rows.cuh (fft_rows::Columns): the (X, Ky, Zo) data is one (1, X,
-// Ky * Zo) array of columns, W = 16 columns a batch at X = 512, every
-// point-row of a batch a 64-byte strip of each float plane or a 128-byte
-// strip of complex64. It reads the planes kernel 6 writes and writes the
-// complex64 spectrum straight away (the forward), or reads the spectrum and
-// writes the planes kernel 8 reads (the inverse), so neither direction
-// spends a pass on interleaving or splitting. The dense product did 8 X
-// flop a point, about 11x an FFT's 5 log2 X at X = 512; this body does the
-// FFT's and moves each byte once: bound by bytes, 1.08 GB -> 0.32 ms at
-// 512^3.
+// x_c2c's FFT body (X a power of two in [8, 512], or 13-smooth there: the
+// engine's mixed-radix column kernel) is the column kernel of fft_rows.cuh
+// (fft_rows::Columns): the (X, Ky, Zo) data is one (1, X, Ky * Zo) array of
+// columns, W = 16 columns a batch at X = 512 and at every X past 256,
+// every point-row of a batch a 64-byte strip of each float plane or a
+// 128-byte strip of complex64. It reads the planes kernel 6 writes and
+// writes the complex64 spectrum straight away (the forward), or reads the
+// spectrum and writes the planes kernel 8 reads (the inverse), so neither
+// direction spends a pass on interleaving or splitting. The dense product
+// did 8 X flop a point, about 11x an FFT's 5 log2 X at X = 512; this body
+// does the FFT's and moves each byte once: bound by bytes, 1.08 GB -> 0.32
+// ms at 512^3.
 //
 // Every extern "C" entry point returns cudaGetLastError() after its launch.
 
@@ -996,6 +1003,19 @@ int dfft_x_cols(const float* ar, const float* ai, const float* table,
   const fft_rows::Columns body{ar, ai, zr, zi, 1, X, inner};
   return fft_rows::launch_cols(X, schedule, body, table, nullptr, inverse,
                                static_cast<cudaStream_t>(stream));
+}
+
+// x_c2c FFT body on the mixed-radix column kernel: as dfft_x_cols, X one
+// of ops/hopper_fft.MIXED_LENGTHS (13-smooth, not a power of two). table:
+// ops/hopper_fft.fft_plan(X, inverse).table; schedule:
+// ops/hopper_fft.mixed_cols_schedule(X, inverse).
+int dfft_x_mixed(const float* ar, const float* ai, const float* table,
+                 float* zr, float* zi, int X, int inner, int schedule,
+                 int inverse, void* stream) {
+  if (X < 8 || X > AXIS_MAX || inner < 1) return cudaErrorInvalidValue;
+  const fft_rows::Columns body{ar, ai, zr, zi, 1, X, inner};
+  return fft_rows::launch_mixed_cols(X, schedule, body, table, inverse,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // e (X, Y, Zo) planes; fy (Y, Y) planes; c2r (Zo, Z) f32 x2 -> out (X, Y, Z)

@@ -409,10 +409,10 @@ _TORCH_CATS = frozenset(_DEVICE_CATS + _LAUNCH_CATS + (
 # trace kept of its launch.
 PORT_KERNELS = (
     "dec_unpack_kernel", "enc_pack_kernel", "fft_cols_kernel",
-    "fft_cols_split_kernel", "fft_mixed_kernel", "fft_rows_kernel",
-    "fft_short_kernel", "stage_row_kernel", "stage_tile_kernel",
-    "x_c2c_kernel", "yz_inv_kernel", "yz_scratch_kernel", "zy_fwd_kernel",
-    "zy_planes_kernel")
+    "fft_cols_split_kernel", "fft_mixed_cols_kernel", "fft_mixed_kernel",
+    "fft_rows_kernel", "fft_short_kernel", "stage_row_kernel",
+    "stage_tile_kernel", "x_c2c_kernel", "yz_inv_kernel",
+    "yz_scratch_kernel", "zy_fwd_kernel", "zy_planes_kernel")
 _PORT_KERNEL_RE = re.compile(r"\b(?:%s)\b" % "|".join(PORT_KERNELS))
 
 

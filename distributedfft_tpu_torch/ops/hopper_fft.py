@@ -17,9 +17,10 @@ granularities:
   power-of-two kernel when both are powers of two, ``_zy_body``, else its
   mixed-radix kernel), else the dense kernel. ``x_c2c`` picks its
   body by ``_x_body(X)``: for a power of two in [8, 512] the column kernel
-  of the row FFT engine, which reads kernel 6's planes and writes the
-  complex64 spectrum (forward) or reads the spectrum and writes kernel 8's
-  planes (inverse), else the dense kernel on planes.
+  of the row FFT engine, for one of ``MIXED_LENGTHS`` its mixed-radix
+  column kernel, each reading kernel 6's planes and writing the complex64
+  spectrum (forward) or reading the spectrum and writing kernel 8's planes
+  (inverse); else the dense kernel on planes.
 * **per-axis path** (``csrc/stage.cu``): one kernel launch is one DFT
   stage along the last axis, ``y = x @ F`` on rows of interleaved complex
   (or real) data, optionally with the four-step twiddle fused into its
@@ -58,8 +59,9 @@ granularities:
   of the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8), and,
   as its column kernel, ``x_c2c`` (kernel 7), ``cdft_cols`` (kernel 2
   on a non-last axis) and ``cdft_tw_cols`` (kernel 4 on a non-last split
-  axis); its short-stage kernel, on the column kernel's loader, is
-  ``cdft_short``. ``fft_plan`` is its host side.
+  axis), and as its mixed-radix column kernel ``x_c2c`` on the
+  ``MIXED_LENGTHS``; its short-stage kernel, on the column kernel's
+  loader, is ``cdft_short``. ``fft_plan`` is its host side.
 
 Each kernel has here:
 
@@ -118,6 +120,7 @@ _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
             "dfft_zy_planes": ("fused3d", (3, 3)),
             "dfft_x_c2c": ("fused3d", (6, 2)),
             "dfft_x_cols": ("fused3d", (5, 4)),
+            "dfft_x_mixed": ("fused3d", (5, 4)),
             "dfft_yz_inv": ("fused3d", (7, 3)),
             "dfft_yz_scratch": ("fused3d", (3, 3)),
             "dfft_yz_cols": ("fused3d", (2, 4)),
@@ -289,15 +292,20 @@ def _zy_engine_body(Y: int, Z: int) -> str:
 
 
 def _x_body(X: int) -> str:
-    """The body kernel 7 runs on (X, Ky, Zo): ``"fft"`` (the column kernel
-    of the row FFT engine) for a power of two in [FFT_MIN,
-    ``mx.DIRECT_MAX``], else ``"dense"`` (the dense-product
-    ``x_c2c_kernel``). A pure function of X."""
-    return "fft" if _fft_body(X) == "fft" and X <= mx.DIRECT_MAX else "dense"
+    """The body kernel 7 runs on (X, Ky, Zo): ``"fft"`` for an engine
+    length in [FFT_MIN, ``mx.DIRECT_MAX``] (the column kernel of the row
+    FFT engine for a power of two, its mixed-radix column kernel for one of
+    ``MIXED_LENGTHS``), else ``"dense"`` (the dense-product
+    ``x_c2c_kernel``: a prime factor past 13, or X < 8). A pure function of
+    X."""
+    return "fft" if _engine_length(X) and X <= mx.DIRECT_MAX else "dense"
 
 
-# Threads a block of the column kernel (``COL_THREADS`` in fft_rows.cuh).
+# Threads a block of the column kernels (``COL_THREADS`` in fft_rows.cuh)
+# and the most points a batch of the mixed-radix column kernel holds
+# (``COL_POINTS``: 16 a thread).
 COL_THREADS = 512
+COL_POINTS = 16 * COL_THREADS
 
 
 class ColGeometry(NamedTuple):
@@ -350,6 +358,28 @@ def _cols_tables(n: int, inverse: bool, device: torch.device):
     cp = cols_plan(n, inverse)
     return (torch.from_numpy(cp.plan.table).to(device),
             None if cp.split is None else torch.from_numpy(cp.split).to(device))
+
+
+def mixed_cols_width(n: int) -> int:
+    """Columns a batch of the mixed-radix column kernel on columns of n
+    points (one of ``MIXED_LENGTHS``): the largest power of two W in [16,
+    ``COL_THREADS``] with W n <= ``COL_POINTS``, so each point-row of a
+    batch is a strip of at least 128 bytes of complex64 (W = 16 for every n
+    past 256) and three buffers of 8 W n bytes fit a block (``col_plan``
+    in fft_rows.cuh)."""
+    if n not in MIXED_LENGTHS:
+        raise ValueError(f"the mixed-radix column kernel takes one of "
+                         f"MIXED_LENGTHS, not {n}")
+    return min(COL_THREADS, 1 << ((COL_POINTS // n).bit_length() - 1))
+
+
+def mixed_cols_schedule(n: int, inverse: bool) -> int:
+    """The packed schedule the mixed-radix column kernel takes on columns
+    of n points (``col_plan`` in fft_rows.cuh): ``fft_plan(n,
+    inverse).schedule`` and, from bit ``MIXED_ROWS_SHIFT`` on, the columns
+    of a batch (``mixed_cols_width``)."""
+    return (fft_plan(n, inverse).schedule
+            | mixed_cols_width(n) << MIXED_ROWS_SHIFT)
 
 
 def _zy_scratch_shape(X: int, Y: int, Z: int) -> Tuple[int, int, int]:
@@ -653,22 +683,25 @@ def fft_rows_mirror(z: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 
 def fft_cols_mirror(x3: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """The column kernel in plain PyTorch: (outer, n, inner) complex ->
+    """The column kernels in plain PyTorch: (outer, n, inner) complex ->
     (outer, n, inner) complex64, the unnormalized DFT of every column.
-    Batches of ``cols_geometry(n).width`` columns of one outer index, the
-    last group of a ragged inner extent filled out (the kernel transforms
-    stale columns there and stores none of them), the engine's passes on
-    each column, the filled columns dropped. At n = 1024 (the split
-    kernel) the radix-2 split first: halves a and b of each column, u = a
-    + b and v = (a - b) w^i (``cols_plan``'s twiddles), the 512-point
-    passes on each, u's bins the even ones and v's the odd."""
+    Batches of ``cols_geometry(n).width`` columns of one outer index (of
+    ``mixed_cols_width(n)`` for a mixed length: the mixed-radix column
+    kernel), the last group of a ragged inner extent filled out (the kernel
+    transforms stale columns there and stores none of them), the engine's
+    passes on each column (``fft_plan(n)``'s), the filled columns dropped.
+    At n = 1024 (the split kernel) the radix-2 split first: halves a and b
+    of each column, u = a + b and v = (a - b) w^i (``cols_plan``'s
+    twiddles), the 512-point passes on each, u's bins the even ones and v's
+    the odd."""
     outer, n, inner = x3.shape
-    width = cols_geometry(n).width
+    width = (mixed_cols_width(n) if n in MIXED_LENGTHS
+             else cols_geometry(n).width)
     groups = -(-inner // width)
     x = x3.new_zeros((outer, n, groups * width), dtype=torch.complex64)
     x[..., :inner] = x3
     cols = x.reshape(outer, n, groups, width).permute(0, 2, 3, 1)
-    split = cols_plan(n, inverse).split
+    split = None if n in MIXED_LENGTHS else cols_plan(n, inverse).split
     if split is None:
         y = fft_rows_mirror(cols, inverse)
     else:
@@ -931,10 +964,12 @@ def x_cols(a, inverse: bool, complex_out: bool):
     (kernel 6's output, the fused forward) or one contiguous complex64
     tensor (the spectrum, the fused inverse), out as one complex64 tensor
     (``complex_out``) or a pair of planes (kernel 8's input). The body is
-    ``_x_body(X)``: on ``"fft"`` one launch of the column kernel
-    (``dfft_x_cols``) on the layouts as they are, else the dense kernel on
-    planes (a complex side split or joined around it). Every launch counts
-    as ``x_c2c``."""
+    ``_x_body(X)``: on ``"fft"`` one launch on the layouts as they are, of
+    the column kernel (``dfft_x_cols``) for a power of two or of the
+    mixed-radix column kernel (``dfft_x_mixed``, ``mixed_cols_schedule``)
+    for one of ``MIXED_LENGTHS``; else the dense kernel on planes (a
+    complex side split or joined around it). Every launch counts as
+    ``x_c2c``."""
     planes_in = isinstance(a, tuple)
     if planes_in:
         ar, ai = a
@@ -963,9 +998,12 @@ def x_cols(a, inverse: bool, complex_out: bool):
     else:
         outs = (torch.empty(ar.shape, dtype=torch.float32, device=dev),
                 torch.empty(ar.shape, dtype=torch.float32, device=dev))
-    _launch("x_c2c", "dfft_x_cols", ar, ai, _fft_table(X, inverse, dev),
-            *outs, X, ar[0].numel(), fft_plan(X, inverse).schedule,
-            int(inverse))
+    if X in MIXED_LENGTHS:
+        entry, schedule = "dfft_x_mixed", mixed_cols_schedule(X, inverse)
+    else:
+        entry, schedule = "dfft_x_cols", fft_plan(X, inverse).schedule
+    _launch("x_c2c", entry, ar, ai, _fft_table(X, inverse, dev), *outs, X,
+            ar[0].numel(), schedule, int(inverse))
     return outs[0] if complex_out else outs
 
 

@@ -19,8 +19,9 @@ nothing runs: ``fft`` / ``ifft`` of a contiguous tensor along a non-last
 axis the engine takes reach ``dfft_cdft_cols`` with the caller's tensor
 (no copy); a split axis runs its four-step where it lies
 (``dfft_cdft_tw_cols``, ``dfft_cdft_short``); another length, or a
-non-contiguous view, keeps the axis move; the fused plan reaches
-``dfft_x_cols`` exactly when ``_x_body(X)`` is "fft"; and the per-axis
+non-contiguous view, keeps the axis move; the fused plan reaches kernel
+7's column body (``dfft_x_cols``, or ``dfft_x_mixed`` at a mixed length)
+exactly when ``_x_body(X)`` is "fft"; and the per-axis
 plans launch the entry points ``chip_smoke.py`` expects.
 """
 
@@ -160,7 +161,8 @@ def test_cdft_cols_checks_its_arguments():
 
 def test_x_body_routing():
     for X in range(1, 1100):
-        assert hf._x_body(X) == ("fft" if X in X_POW2 else "dense"), X
+        assert hf._x_body(X) == ("fft" if X in X_POW2 or X in hf.MIXED_LENGTHS
+                                 else "dense"), X
 
 
 @pytest.mark.parametrize("shape", [(8, 8, 8), (12, 16, 15), (16, 10, 12)])
@@ -268,9 +270,11 @@ def test_non_contiguous_view_keeps_the_axis_move(monkeypatch):
 @pytest.mark.parametrize("shape", [(8, 8, 8), (12, 8, 8), (2, 16, 16),
                                    (512, 16, 32), (480, 8, 16), (64, 12, 10)])
 def test_fused_plan_reaches_x_cols_when_x_body_is_fft(monkeypatch, shape):
-    """The fused 3D transforms launch ``dfft_x_cols`` for kernel 7 when
+    """The fused 3D transforms launch kernel 7's column body when
     ``_x_body(X)`` is "fft" (planes in, complex64 out forward; complex64
-    in, planes out inverse), else the dense ``dfft_x_c2c``."""
+    in, planes out inverse): ``dfft_x_cols`` for a power of two,
+    ``dfft_x_mixed`` (the mixed-radix column kernel) for one of
+    ``MIXED_LENGTHS`` (12, 480); else the dense ``dfft_x_c2c``."""
     log = _record_launches(monkeypatch)
     X, Y, Z = shape
     c = hf.rfftn3d_fused(torch.zeros(shape))
@@ -279,7 +283,8 @@ def test_fused_plan_reaches_x_cols_when_x_body_is_fft(monkeypatch, shape):
     del log[:]
     hf.irfftn3d_fused(c, shape)
     inv = [fn for _, fn, _ in log]
-    x = "dfft_x_cols" if hf._x_body(X) == "fft" else "dfft_x_c2c"
+    x = ("dfft_x_c2c" if hf._x_body(X) == "dense" else
+         "dfft_x_mixed" if X in hf.MIXED_LENGTHS else "dfft_x_cols")
     zy = (["dfft_zy_rows", "dfft_zy_cols", "dfft_zy_planes"]
           if hf._zy_engine_body(Y, Z) == "fft" else ["dfft_zy_fwd"])
     yz = (["dfft_yz_scratch", "dfft_yz_cols", "dfft_yz_rows"]

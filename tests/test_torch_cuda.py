@@ -92,13 +92,22 @@ def test_zy_fwd_kernel(cuda, shape):
     assert _rel(yr, pr) <= 5e-4 and _rel(yi, pi) <= 5e-4
 
 
+# Kernel 7's dense body (hf._x_body "dense"): an X with a prime factor past
+# 13 (442 = 2 x 13 x 17, 17, 34, 391 = 17 x 23) or below 8, tiny and odd
+# axes, rows that are no multiple of its 64-wide tile.
+X_DENSE_SHAPES = [(2, 2, 2), (6, 12, 15), (3, 17, 33), (7, 512, 512),
+                  (17, 10, 12), (34, 129, 66), (442, 16, 9), (391, 9, 11)]
+
+
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", X_DENSE_SHAPES)
 def test_x_c2c_kernel(cuda, shape, inverse):
     X, Y, Z = shape
     ar, ai = _randn(shape, 2, cuda), _randn(shape, 3, cuda)
+    hf.reset_launches()
     zr, zi = hf.x_c2c(ar, ai, inverse)
     torch.cuda.synchronize()
+    assert hf.ENTRIES == {"dfft_x_c2c": 1}
     pr, pi = hf.x_c2c_plain(ar, ai, *hf._planes("dft", X, inverse, cuda))
     assert _rel(zr, pr) <= 5e-4 and _rel(zi, pi) <= 5e-4
 
@@ -110,19 +119,37 @@ def test_x_c2c_kernel(cuda, shape, inverse):
 X_FFT_SHAPES = [(8, 8, 8), (16, 3, 5), (32, 17, 33), (64, 9, 7),
                 (128, 10, 12), (256, 6, 11), (512, 16, 9), (512, 512, 257),
                 (8, 101, 13), (64, 2, 3)]
+# Its body on the mixed-radix column kernel (X one of hf.MIXED_LENGTHS):
+# the 480^3 and 448^3 plans' (480, 480, 241) and (448, 448, 225), the odd
+# and ragged (375, 375, 188) (inner 70,500: a last group of 4 columns),
+# every batch width (512 columns at 9 and 12 down to 16 past 256), odd
+# inner extents (8-byte and 4-byte parts), radices 11, 13, 14 and 15, and
+# (480, 512, 257) beside the dense body's old row.
+X_MIXED_SHAPES = [(480, 480, 241), (448, 448, 225), (375, 375, 188),
+                  (12, 16, 15), (480, 4, 9), (9, 101, 13), (20, 33, 17),
+                  (96, 10, 12), (120, 7, 9), (250, 6, 11), (416, 5, 7),
+                  (440, 3, 3), (504, 9, 5), (507, 12, 13), (495, 2, 9),
+                  (480, 512, 257)]
+
+
+def _x_entry(X):
+    return ("dfft_x_c2c" if hf._x_body(X) == "dense" else
+            "dfft_x_mixed" if X in hf.MIXED_LENGTHS else "dfft_x_cols")
 
 
 @pytest.mark.parametrize("layout", ["planes", "to_complex", "from_complex"])
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("shape", X_FFT_SHAPES + [(12, 16, 15), (480, 4, 9)])
+@pytest.mark.parametrize("shape", X_FFT_SHAPES + X_MIXED_SHAPES)
 def test_x_c2c_layouts(cuda, shape, inverse, layout):
     """Every layout pair of kernel 7 against ``x_c2c_plain``: planes to
     planes (``x_c2c``), planes to complex64 (the fused forward), complex64
     to planes (the fused inverse); one launch, on the body of
-    ``_x_body(X)``."""
+    ``_x_body(X)``: the column kernel for a power of two, the mixed-radix
+    column kernel for a mixed length."""
     X = shape[0]
     ar, ai = _randn(shape, 41, cuda), _randn(shape, 42, cuda)
     pr, pi = hf.x_c2c_plain(ar, ai, *hf._planes("dft", X, inverse, cuda))
+    hf.reset_launches()
     before = hf.LAUNCHES["x_c2c"]
     if layout == "planes":
         zr, zi = hf.x_c2c(ar, ai, inverse)
@@ -134,6 +161,7 @@ def test_x_c2c_layouts(cuda, shape, inverse, layout):
         zr, zi = hf.x_cols(torch.complex(ar, ai), inverse, complex_out=False)
     torch.cuda.synchronize()
     assert hf.LAUNCHES["x_c2c"] == before + 1
+    assert hf.ENTRIES == {_x_entry(X): 1}
     assert zr.shape == shape
     assert _rel(zr, pr) <= 5e-4 and _rel(zi, pi) <= 5e-4
 

@@ -466,10 +466,11 @@ def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
 def test_slab_448_runs_kernel6_on_the_engine(monkeypatch):
     """The "pallas" 448^3 slab plan on one rank (ZY_Then_X, the fused
     path), recorded on "meta" tensors: forward kernel 6's three passes on
-    the mixed-radix kernel (448 = 8 x 8 x 7 on both) and kernel 7's dense
-    body, inverse kernel 7's dense body and kernel 8's three passes on the
-    mixed-radix kernel (its z pass with kernel 3's rows); the launches and
-    entries ``chip_smoke.py``'s ``FUSED_SLABS`` counts for it."""
+    the mixed-radix kernel (448 = 8 x 8 x 7 on both) and kernel 7 on the
+    mixed-radix column kernel, inverse kernel 7 on it and kernel 8's three
+    passes on the mixed-radix kernel (its z pass with kernel 3's rows); the
+    launches and entries ``chip_smoke.py``'s ``FUSED_SLABS`` counts for
+    it."""
     smoke = _chip_smoke()
     from distributedfft_tpu_torch import Config, GlobalSize, SlabFFTPlan
     from distributedfft_tpu_torch import SlabPartition
@@ -485,10 +486,10 @@ def test_slab_448_runs_kernel6_on_the_engine(monkeypatch):
     inv = list(log)
     assert c.shape == (448, 448, 225) and back.shape == shape
     assert [e for _, e, _ in fwd] == ["dfft_zy_rows", "dfft_zy_cols",
-                                      "dfft_zy_planes", "dfft_x_c2c"]
+                                      "dfft_zy_planes", "dfft_x_mixed"]
     assert fwd[0][2][3:] == (448, 448, 448, hf.mixed_schedule(448, False))
     assert fwd[1][2][2:] == (448, 448, 448, hf.mixed_schedule(448, False))
-    assert [e for _, e, _ in inv] == ["dfft_x_c2c", "dfft_yz_scratch",
+    assert [e for _, e, _ in inv] == ["dfft_x_mixed", "dfft_yz_scratch",
                                       "dfft_yz_cols", "dfft_yz_rows"]
     assert inv[2][2][2:] == (448, 448, 448, hf.mixed_schedule(448, True))
     assert inv[3][2][3:] == (448, 448, 448,

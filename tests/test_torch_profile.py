@@ -285,7 +285,7 @@ def test_port_kernels_are_the_sources_kernels():
                     r"__global__\s+void\s+"
                     r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
                     f.read()))
-    assert len(found) == 14
+    assert len(found) == 15
     assert set(profile.PORT_KERNELS) == found
 
 

@@ -29,6 +29,7 @@ import pytest
 
 import distributedfft_tpu_torch as tdfft
 from distributedfft_tpu_torch import obs, persist
+from distributedfft_tpu_torch.ops import hopper_fft as hf
 from distributedfft_tpu_torch.persist import CheckpointMismatch, CheckpointStore
 from distributedfft_tpu_torch.resilience import circuit as rc
 from distributedfft_tpu_torch.resilience import deadline as dl
@@ -702,6 +703,9 @@ def test_data_path_split_is_recorded():
 
 
 def test_one_rank_server_is_its_own_leader():
+    # The counts are the process's: start them at 0, so that an earlier
+    # test's matmul dispatches are not counted as the server's.
+    hf.reset_launches()
     with Srv(tdfft.SlabPartition(1)) as s:
         assert s.leader and s.health()["role"] == "leader"
         rows = s.rank_counts()

@@ -5,12 +5,16 @@ that a change and its parent are compared on the same card under the same
 power limit:
 
 * kernel 6 (``zy_fwd``) at (512, 480, 480), (512, 448, 448) and (512,
-  442, 442), kernel 8 (``yz_inv``) at (512, 480, 480) and (512, 448,
-  448), kernel 1 (``rdft``) on 131072 rows of 480, kernel 4
-  (``cdft_tw``, forward) on 410880 rows of 320
-  points, n1 2 (the 640 split's first stage), on 155592 rows of 480, n1
-  9 (the 4320 split's), and on 410880 rows of 448, 416 and 408, n1 2 (the
-  896, 832 and 816 splits'), and kernel 2 (``cdft``, forward) on 131072
+  442, 442), kernel 7 (``x_cols``) at (480, 480, 241) and (448, 448, 225),
+  the 480^3 and 448^3 plans' shapes, and at (512, 512, 257), the 512^3
+  plan's (the power-of-two column kernel), on the inverse's layouts
+  (complex64 in, planes out) and the forward's (planes in, complex64
+  out), kernel 8 (``yz_inv``) at (512, 480, 480), (512, 448, 448) and
+  (512, 442, 442), kernel 1 (``rdft``) on 131072 rows of 480 and 442,
+  kernel 4 (``cdft_tw``, forward) on 410880 rows of 320 points, n1 2
+  (the 640 split's first stage), on 155592 rows of 480, n1 9 (the 4320
+  split's), and on 410880 rows of 448, 416 and 408, n1 2 (the 896, 832
+  and 816 splits'), and kernel 2 (``cdft``, forward) on 131072
   rows of 480, 448, 440 and 442, kernel 3 (``irdft``) on 131072 half
   rows to 480 and to 442 points, and kernel 5 (``rdft_tw``) on 819200
   rows of 320 and 408, n1 2 (the 640 and 816 splits' first stage), and on
@@ -48,8 +52,9 @@ CONV = (8, 4096, 225)       # images, extent, kernel side
 BATCHED = (8, 4320, 4320)
 REPS = 5
 ZYS = ((512, 480, 480), (512, 448, 448), (512, 442, 442))
-YZS = ((512, 480, 480), (512, 448, 448))
-RDFT = ((131072, 480),)                               # rows, n
+XCS = ((480, 480, 241), (448, 448, 225), (512, 512, 257))  # X, Ky, Zo
+YZS = ((512, 480, 480), (512, 448, 448), (512, 442, 442))
+RDFT = ((131072, 480), (131072, 442))                 # rows, n
 TW = ((410880, 320, 2), (155592, 480, 9), (410880, 448, 2),
       (410880, 416, 2), (410880, 408, 2))             # rows, n2, n1
 CDFT = ((131072, 480), (131072, 448), (131072, 440), (131072, 442))  # rows, n
@@ -113,6 +118,28 @@ def one(tree):
             max_rel_err=max(max_rel(yr, pr), max_rel(yi, pi)),
             ms=median_ms(torch, lambda: hf.zy_fwd(x)))
         del x, yr, yi, pr, pi
+    for xc in XCS:
+        X = xc[0]
+        ar, ai = (torch.randn(xc, generator=gen, device="cuda")
+                  for _ in range(2))
+        c = torch.complex(ar, ai)
+        for inverse in (True, False):
+            ref = hf.x_c2c_plain(ar, ai, *hf._planes("dft", X, inverse, dev))
+            if inverse:
+                def run():
+                    return hf.x_cols(c, True, complex_out=False)
+            else:
+                def run():
+                    return hf.x_cols((ar, ai), False, complex_out=True)
+            got = run()
+            if not inverse:
+                got = (got.real, got.imag)
+            row[f"kernel7_{X}_{'inverse' if inverse else 'forward'}"] = dict(
+                shape=list(xc), entries=entries(torch, hf, run),
+                max_rel_err=max(max_rel(g, r) for g, r in zip(got, ref)),
+                ms=median_ms(torch, run))
+            del ref, got
+        del ar, ai, c
     for yz in YZS:
         X, Y, Z = yz
         er, ei = (torch.randn((X, Y, Z // 2 + 1), generator=gen,
