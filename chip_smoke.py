@@ -31,13 +31,20 @@ once, before any rank is spawned) and then, under
    kernels 1, 2, 3, 4, 5, 6, 7, 8 and 11 also on their other body (dense
    or tile) at a shape the engine does not take (kernels 6 and 8 at 442,
    kernel 4 at n2 = 408, kernels 1, 2 and 3 at 442, kernel 7 at 480);
+   kernel 3 past the direct lengths: its packed body (the m = n/2-point
+   inverse of a packed spectrum on the engine) at the 2048 x 256 x 2048
+   plan's z inverse and the 64 x 896^2 and 64 x 832^2 stacks' y inverse,
+   its pack pass at the 64 x 4096^2 stack's y inverse and the 4320
+   convolution's, each row's launches on the main paths counted by its
+   entry point;
 2. runs a small cube against numpy, then the single-card slab plan at
    512^3 (fused kernels), at 480^3 and at 448^3 (kernels 6 and 8 on the
    mixed-radix engine, kernel 7 dense), at 1024^3 (per-axis
    kernels 1, 2 and 3, every axis one launch of the row FFT engine, y and
    x where they lie) and at
    2048 x 256 x 2048 (x and z split four-step, 4 x 512: kernels 4, 5 and
-   2, x where it lies): ``exec_r2c`` then
+   2, x where it lies; the z C2R one launch of kernel 3's packed body):
+   ``exec_r2c`` then
    ``exec_c2r``, checked against ``torch.fft`` and the input, with the
    launch counts of every kernel and the entry point (the body) of every
    launch, each direction counted from zero;
@@ -102,12 +109,14 @@ once, before any rank is spawned) and then, under
 
 8. runs the batched-2D plan (BASELINE config #4): on one card the
    64 x 4096 x 4096 stack under "pallas" (every 4096 axis split 8 x 512:
-   kernels 5, 4 and 2's short stage, the y C2R on the Hermitian
-   extension) as a whole and with ``batch_chunk=1`` (bit-equal to the
+   kernels 5, 4 and 2's short stage; the y C2R kernel 3's pack pass and
+   the 2048 = 4 x 512-point complex inverse) as a whole and with
+   ``batch_chunk=1`` (bit-equal to the
    whole stack), 256 x 1024 x 1024 (kernels 1, 2 and 3), 256 x 480 x 480
    and 256 x 440 x 440 (x on kernel 2's FFT body, the mixed-radix kernel)
    and 64 x 896 x 896 and 64 x 832 x 832 (both axes split 2 x 448 or 2 x
-   416, kernel 4 on the mixed-radix kernel), the four last failing unless
+   416, kernel 4 on the mixed-radix kernel, the y C2R kernel 3's packed
+   body at 448 or 416), the four last failing unless
    kernels 2 and 4, and kernels 1 and 3 (the 480 and 440 stacks' y R2C
    and C2R) or 5 (the 896 and 832 forwards' first stage), ran there on
    the mixed-radix kernel and none of kernels 1-5 on its tile body, each
@@ -405,21 +414,18 @@ def split_copy_limits(shape):
     """(forward, inverse) limits, in ms, of the device time of the aten ops
     of a single-card per-axis plan whose x and z axes split, set from the
     bytes of the copies its dispatch still makes, at ``COPY_RATE`` of the
-    HBM rate, plus ``COPY_MARGIN``. Forward: the swap of the real z input
-    (4 bytes a point read and written). Inverse: the z axis's Hermitian
-    extension (the flip of the n/2 - 1 conjugated bins, read and written;
-    the cat of the half spectrum and that tail, read, and the full
-    spectrum written), the four-step's swap of the full spectrum (read and
-    written) and its real part (8 bytes a point read, 4 written). The x
-    axis copies nothing: its four-step runs where it lies."""
+    HBM rate, plus ``COPY_MARGIN``; a direction that copies nothing is
+    held to ``COPY_LIMIT_MS``, as the 1024^3 plan is. Forward: the swap of
+    the real z input (4 bytes a point read and written). Inverse: nothing.
+    The z axis's C2R is kernel 3 on the half spectra as they lie (its
+    packed body, or its pack pass writing the four-step's first-stage
+    layout), whose complex output is the real rows, and the x axis's
+    four-step runs where it lies."""
     X, Y, Z = shape
-    rows = X * Y
-    half, tail = Z // 2 + 1, (Z + 1) // 2 - 1
-    fwd = 2 * 4 * rows * Z
-    inv = (2 * 8 * rows * tail + 8 * rows * (half + tail) + 8 * rows * Z
-           + 2 * 8 * rows * Z + 12 * rows * Z)
-    return tuple(1e3 * b / (COPY_RATE * HBM_BYTES) * COPY_MARGIN
-                 for b in (fwd, inv))
+    fwd = 2 * 4 * X * Y * Z
+    return tuple(max(COPY_LIMIT_MS,
+                     1e3 * b / (COPY_RATE * HBM_BYTES) * COPY_MARGIN)
+                 for b in (fwd, 0))
 
 
 def body_of(hf, k) -> str:
@@ -438,6 +444,9 @@ def body_of(hf, k) -> str:
             body = "short" if hf._short_body(sh["n"]) else "none"
         elif "inner" in sh:
             body = "cols" if hf._fft_body(sh["n"]) == "fft" else "none"
+        elif k["name"] == "c2r" and "m" in sh:     # past the direct lengths
+            body = ("none" if hf._direct(sh["n"]) or sh["n"] % 2
+                    else "packed" if hf._engine_length(sh["m"]) else "pack")
         elif k["name"] in ("rmatmul", "cmatmul", "cmatmul_tw", "c2r",
                            "rmatmul_tw"):
             body = hf._cdft_body(sh["n"])
@@ -551,6 +560,12 @@ def directions(plan):
     return plan.exec_r2c, plan.exec_c2r
 
 
+# The C entry points the plans of ``run_counted`` launched in this process,
+# summed: the kernels line reads the launches of a body that shares its
+# kernel's count (kernel 3's packed body and pack pass) by its entry.
+MAIN_ENTRIES: dict = {}
+
+
 def run_counted(torch, hf, plan, x, dims=None, pairs=None):
     """One forward and one inverse of ``plan`` (a pencil plan's at depth
     ``dims``), each counted from zero: (spectrum, inverse, launches
@@ -570,6 +585,9 @@ def run_counted(torch, hf, plan, x, dims=None, pairs=None):
         torch.cuda.synchronize()
     if pairs is not None:
         pairs.extend((ent_f, ent_i))
+    for seen in (ent_f, ent_i):
+        for e, v in per_entry(seen).items():
+            MAIN_ENTRIES[e] = MAIN_ENTRIES.get(e, 0) + v
     return c, back, fwd, counted(hf), per_entry(ent_f), per_entry(ent_i)
 
 
@@ -1384,23 +1402,26 @@ def pencil_rank_main(rank: int, addr: str, outdir: str) -> None:
 # forward is the R2C first stage on rows (kernel 5) and the 8-point second
 # stage storing the crop (kernel 2's short-stage body); x, where it lies,
 # kernel 4's column body then the short stage. The inverse runs x the same
-# way; the C2R of y inverts the Hermitian extension as a complex four-step
-# (kernel 4 on rows, the short stage). At 1024 points every axis is one
+# way; the C2R of y is the complex inverse of its 2048 = 4 x 512-point
+# packed spectrum: kernel 3's pack pass stores it in the four-step's
+# first-stage layout, then kernel 4 on rows and the short stage. At 1024
+# points every axis is one
 # engine launch: y on rows (kernel 1, inverse kernel 3), x on kernel 2's
 # column body where it lies. At 480 and 440 points (not powers of two) x
 # moves last and runs on rows: kernel 2 on the engine's mixed-radix kernel
 # (480 = 12 x 10 x 4, 440 = 11 x 10 x 4), and the forward's y R2C, kernel
 # 1, and the inverse's y C2R, kernel 3, on it too. At 896 = 2 x
-# 448 and 832 = 2 x 416 both axes split: y forward kernel 5, x and the
-# inverse's Hermitian extension kernel 4, all on the mixed-radix kernel
-# (448 = 8 x 8 x 7, 416 = 16 x 13 x 2), each with its 2-point short
-# stage.
+# 448 and 832 = 2 x 416 both axes split: y forward kernel 5 and x kernel
+# 4, all on the mixed-radix kernel (448 = 8 x 8 x 7, 416 = 16 x 13 x 2),
+# each with its 2-point short stage; the inverse's y C2R one launch of
+# kernel 3's packed body, the 448- or 416-point inverse of the packed
+# spectrum on the mixed-radix kernel.
 BATCHED_SPLIT = (dict(rmatmul_tw=1, cmatmul=2, cmatmul_tw=1),
-                 dict(cmatmul_tw=2, cmatmul=2),
+                 dict(cmatmul_tw=2, cmatmul=2, c2r=1),
                  {"dfft_rdft_tw": 1, "dfft_cdft_short": 2,
                   "dfft_cdft_tw_cols": 1},
                  {"dfft_cdft_tw_cols": 1, "dfft_cdft_short": 2,
-                  "dfft_cdft_tw": 1})
+                  "dfft_c2r_pack": 1, "dfft_cdft_tw": 1})
 BATCHED_DIRECT_PATH = (dict(rmatmul=1, cmatmul=1), dict(cmatmul=1, c2r=1),
                        {"dfft_rdft": 1, "dfft_cdft_cols": 1},
                        {"dfft_cdft_cols": 1, "dfft_c2r": 1})
@@ -1409,10 +1430,11 @@ BATCHED_MOVED_PATH = (dict(rmatmul=1, cmatmul=1), dict(cmatmul=1, c2r=1),
                       {"dfft_rdft": 1, "dfft_cdft": 1},
                       {"dfft_cdft": 1, "dfft_c2r": 1})
 BATCHED_HALVES_PATH = (dict(rmatmul_tw=1, cmatmul=2, cmatmul_tw=1),
-                       dict(cmatmul_tw=2, cmatmul=2),
+                       dict(cmatmul_tw=1, cmatmul=1, c2r=1),
                        {"dfft_rdft_tw": 1, "dfft_cdft_short": 2,
                         "dfft_cdft_tw": 1},
-                       {"dfft_cdft_tw": 2, "dfft_cdft_short": 2})
+                       {"dfft_cdft_tw": 1, "dfft_cdft_short": 1,
+                        "dfft_c2r_packed": 1})
 BATCHED_480 = (256, 480, 480)   # 0.24 GB of spectrum
 BATCHED_440 = (256, 440, 440)   # 0.20 GB of spectrum
 BATCHED_896 = (64, 896, 896)    # 0.21 GB of spectrum
@@ -2130,6 +2152,9 @@ def stage_cases(torch, hf, dev, gen):
     kb = NBIG // 2 + 1
     k480 = 480 // 2 + 1
     wb, wx, wy = WISDOM_BATCHED               # 8 x 4320^2: 4320 = 9 x 480
+    from distributedfft_tpu_torch.ops.bluestein import good_size
+    cb, cn, ck = CONV_SMOOTH                  # the convolution's 4320 extent:
+    cx = good_size(cn + ck - 1)               # its y C2R rows are cb cx
     rows_4320 = wb * (wy // 2 + 1) * 9        # its x axis's first stage rows
     # Kernels 1, 2 and 3 take no F: rdft / cdft / irdft pick their body by
     # n (the FFT body at 512 and 1024, the row body at 4; the engine's
@@ -2147,6 +2172,42 @@ def stage_cases(torch, hf, dev, gen):
         c = cr(m, n // 2 + 1)
         c[:, 0] = c[:, 0].real.clone()
         return c
+
+    def packed_case(variant, rows, m):
+        """Kernel 3's packed body on rows of m + 1 bins to n = 2 m: the
+        engine's m-point inverse of the packed spectrum (``dfft_c2r_packed``)."""
+        n = 2 * m
+        return dict(
+            name="c2r", variant=variant, body="packed",
+            entry="dfft_c2r_packed", replaces=f"{PALLAS}:156",
+            shape=dict(M=rows, m=m, n=n),
+            make=lambda: dict(x=cr(rows, m + 1)),
+            run=lambda t: hf.irdft_packed(t["x"], n),
+            plain=lambda t: hf.c2r_packed_plain(t["x"], n),
+            library=lambda t: torch.fft.irfft(t["x"], n=n, norm="forward"),
+            library_call="irfft(norm='forward') of the same rows",
+            flops=fft_flops(rows, m) + 12 * rows * m,
+            gemm_flops=4 * rows * (m + 1) * n,
+            bytes=8 * rows * (m + 1) + 4 * rows * n)
+
+    def pack_case(variant, rows, m):
+        """Kernel 3's pack pass on rows of m + 1 bins: the packed spectrum
+        in the first-stage layout of ``hf._split_axis(m)``
+        (``dfft_c2r_pack``); the library's time is the whole C2R's."""
+        n1 = hf._split_axis(m)[0]
+        return dict(
+            name="c2r", variant=variant, body="pack", entry="dfft_c2r_pack",
+            replaces=f"{PALLAS}:156",
+            shape=dict(M=rows, m=m, n=2 * m, n1=n1),
+            make=lambda: dict(x=cr(rows, m + 1)),
+            run=lambda t: hf.c2r_pack(t["x"], n1),
+            plain=lambda t: hf.c2r_pack_plain(t["x"], n1),
+            library=lambda t: torch.fft.irfft(t["x"], n=2 * m,
+                                              norm="forward"),
+            library_call="irfft(norm='forward') of the same rows (the whole "
+                         "C2R)",
+            flops=12 * rows * m, gemm_flops=4 * rows * (m + 1) * 2 * m,
+            bytes=8 * rows * (m + 1) + 8 * rows * m)
 
     def twiddled_fft(x, n1):
         """The library's rfft of a check-only row's full spectrum times
@@ -2339,6 +2400,17 @@ def stage_cases(torch, hf, dev, gen):
              plain=lambda t: hf.c2r_plain(t["x"], *t["C"]),
              library=lambda t: torch.fft.irfft(t["x"], n=375, norm="forward"),
              library_call="irfft(norm='forward')"),
+        # Kernel 3 past the direct lengths, on random half spectra: its
+        # packed body at the 2048 x 256 x 2048 plan's z inverse (m 1024)
+        # and the 64 x 896^2 and 64 x 832^2 stacks' y inverse (m 448 and
+        # 416, the mixed-radix kernel); its pack pass at the 64 x 4096^2
+        # stack's y inverse (m 2048 = 4 x 512) and the convolution's 4320
+        # extent (m 2160 = 5 x 432).
+        *[packed_case(f"packed_{2 * m}", rows, m)
+          for rows, m in ((sx * sy, sz // 2), (896 * 64, 448),
+                          (832 * 64, 416))],
+        *[pack_case(f"pack_{2 * m}", rows, m)
+          for rows, m in ((bb * bx, by // 2), (cb * cx, cx // 2))],
         # Kernel 4 takes no F: cdft_tw picks its body by n2 (the FFT body
         # at 512, the 2048-point axis's 4 x 512, and, on the engine's
         # mixed-radix kernel, at 320, the 640-point axis's 2 x 320, at 480,
@@ -2685,9 +2757,10 @@ def fused_slab_path(torch, dft, hf, gen, pid):
 # (inverse). The x axis runs its four-step where it lies, no copy: kernel
 # 4's column body over s with the twiddle, then the short-stage body over
 # r, storing each bin in the spectrum's layout. No dfft_stage launch.
-# The inverse C2R of the split z axis inverts the Hermitian-extended
-# spectrum as a complex transform and keeps its real part: the copies
-# that remain, with the forward's swap, set the aten limits.
+# The inverse C2R of the z axis is one launch of kernel 3's packed body,
+# the 1024-point inverse of the packed spectrum, whose complex output is
+# the real rows: the inverse copies nothing, and the forward's swap alone
+# sets an aten limit.
 PER_AXIS_PATHS = {
     "per_axis_1024": (
         (NBIG,) * 3, dict(rmatmul=1, cmatmul=2), dict(cmatmul=2, c2r=1),
@@ -2695,11 +2768,11 @@ PER_AXIS_PATHS = {
         {"dfft_cdft_cols": 2, "dfft_c2r": 1}, (COPY_LIMIT_MS, COPY_LIMIT_MS)),
     "per_axis_2048x256x2048": (
         SPLIT, dict(rmatmul_tw=1, cmatmul_tw=1, cmatmul=3),
-        dict(cmatmul_tw=2, cmatmul=3),
+        dict(cmatmul_tw=1, cmatmul=2, c2r=1),
         {"dfft_rdft_tw": 1, "dfft_cdft_short": 2, "dfft_cdft_cols": 1,
          "dfft_cdft_tw_cols": 1},
-        {"dfft_cdft_tw_cols": 1, "dfft_cdft_short": 2, "dfft_cdft_cols": 1,
-         "dfft_cdft_tw": 1}, split_copy_limits(SPLIT)),
+        {"dfft_cdft_tw_cols": 1, "dfft_cdft_short": 1, "dfft_cdft_cols": 1,
+         "dfft_c2r_packed": 1}, split_copy_limits(SPLIT)),
 }
 
 
@@ -4549,7 +4622,8 @@ WISDOM_CLI_N = N                # (d): the executables' autotune and "auto"
 CKPT_N = N                      # (f): NS-3D 512^3, 3 x 512 x 512 x 257
 CKPT_DT = 1e-3
 LOCAL_KERNELS = ("rmatmul", "cmatmul", "c2r")   # kernels 1-3
-SPLIT_KERNELS = ("cmatmul", "cmatmul_tw", "rmatmul_tw")  # 2, 4, 5: 4320
+# 2, 4, 5 and 3 (its pack pass): 4320
+SPLIT_KERNELS = ("cmatmul", "cmatmul_tw", "rmatmul_tw", "c2r")
 
 
 @contextlib.contextmanager
@@ -5805,6 +5879,9 @@ FLEET_RANK_IMAGES = SERVE_RANK_IMAGE   # shard="x" 1024^2 on worker-0: 9, 10
 FLEET_RANK_C2C = SERVE_RANK_C2C
 # Kernels each fleet's paths may launch (all others must stay at 0).
 FLEET_IMAGE_KERNELS = ("cmatmul", "cmatmul_tw", "rmatmul_tw")     # 2, 4, 5
+# The images' inverses add kernel 3: the 2048-point y C2R its packed body,
+# the 4096-point one its pack pass.
+FLEET_IMAGE_INVERSE = ("c2r",)
 FLEET_SMALL_KERNELS = ("rmatmul", "cmatmul")                     # 1, 2
 FLEET_RANK_KERNELS = ("rmatmul", "cmatmul", "c2r", "enc_pack", "dec_unpack",
                       "dec_cmatmul")                              # 1-3, 9-11
@@ -5981,7 +6058,8 @@ def fleet_serving(torch, dft, hf, dev):
             fail(f"fleet A singles: workers launched {flaunch} ({fents}), "
                  f"the in-process Server {want} ({went})")
         fleet_only_kernels("fleet A singles", flaunch,
-                           FLEET_IMAGE_KERNELS + FLEET_FUSED_KERNELS)
+                           FLEET_IMAGE_KERNELS + FLEET_IMAGE_INVERSE
+                           + FLEET_FUSED_KERNELS)
         launches["fleet_singles"] = flaunch
         emit(phase="fleet_singles", **row)
         # Capacity: eight of each image at once (a warm batch a worker),
@@ -7400,16 +7478,22 @@ def main() -> int:
         for v in every:
             if v.get("variant") and v["name"] == k["name"]:
                 row[v["variant"]] = {
-                    f: v[f] for f in ("body", "shape", "max_abs_err",
+                    f: v[f] for f in ("body", "entry", "shape", "max_abs_err",
                                       "max_rel_err", "library_rel_err",
                                       "kernel_ms", "plain_ms",
                                       "library_ms", "library_call",
                                       "library_rows_ms", "pair_ms", "bound_ms",
                                       "bound_by", "flops", "gemm_flops",
                                       "bytes") if f in v}
+                if "entry" in v:
+                    row[v["variant"]]["launches"] = MAIN_ENTRIES.get(
+                        v["entry"], 0)
         rows.append(row)
     if any(r["launches"] < 1 for r in rows):
         fail(f"a kernel never launched on the main paths: {launches}")
+    if any(v["launches"] < 1 for r in rows for v in r.values()
+           if isinstance(v, dict) and "entry" in v):
+        fail(f"a body never launched on the main paths: {MAIN_ENTRIES}")
     emit(phase="done", seconds=time.perf_counter() - t_start)
     # The matmul backend is no kernel: its numbers stand on a line of their
     # own (every plan of it launched no kernel; its dispatches counted).

@@ -18,12 +18,16 @@
 // (_zy_body); the mixed-radix kernel carries kernels 1-5 on a 13-smooth
 // length and kernels 6 and 8 on 13-smooth Y and Z, Y even
 // (_zy_engine_body); the column kernel carries kernel 7 on a power of two
-// and the mixed-radix column kernel on a 13-smooth X (_x_body). Every
-// other length keeps its dense or tile body. The mixed-radix kernels are
-// one instantiation a Body (n and the radices are runtime values), so
-// they add nine kernels to the build (kernels 1-5 in stage.cu; kernel 6's
-// two passes, kernel 8's z pass, whose y pass is kernel 6's, and kernel 7
-// in fused3d.cu), not one a length.
+// and the mixed-radix column kernel on a 13-smooth X (_x_body). Both row
+// kernels also carry kernel 3's packed body (stage.cu's PackedHalfRows:
+// the C2R of an even n past the direct lengths as the m = n/2-point
+// inverse of a packed spectrum, irdft_packed, on rows of an m either
+// kernel takes). Every other length keeps its dense or tile body. The
+// mixed-radix kernels are one instantiation a Body (n and the radices are
+// runtime values), so they add ten kernels to the build (kernels 1-5 and
+// kernel 3's packed body in stage.cu; kernel 6's two passes, kernel 8's z
+// pass, whose y pass is kernel 6's, and kernel 7 in fused3d.cu), not one a
+// length.
 //
 // It replaces the dense DFT product of nine Pallas TPU kernels of
 // distributedfft_tpu/ops/pallas_fft.py (_dec_cmatmul_kernel :737, kernel
@@ -508,10 +512,12 @@ cudaError_t launch(int n, int schedule, const Body& body, const float* table,
 // run beside them. Its Bodies: complex rows (ComplexTwiddleRows: kernel 2,
 // kernel 4 with the twiddle, the y passes of kernels 6 and 8), real rows
 // two to a complex row (stage.cu's RealRows and RealTwiddleRows: kernels
-// 1 and 5; fused3d.cu's ZRows: kernel 6's z pass) and half spectra two to
+// 1 and 5; fused3d.cu's ZRows: kernel 6's z pass), half spectra two to
 // a complex row (stage.cu's HalfRows and fused3d.cu's YZRows, kernel 8's z
 // pass gathering them by every thread's cp.async, both with RealPairsOut's
-// store: kernels 3 and 8).
+// store: kernels 3 and 8) and one half spectrum of m + 1 bins packed as a
+// complex row of m points (stage.cu's PackedHalfRows, kernel 3's packed
+// body, with ComplexTwiddleRows' store).
 //
 // The power-of-two kernel gives every thread the same RMAX points of one
 // row in every pass: T = n / RMAX threads a row, RMAX / r butterflies of a

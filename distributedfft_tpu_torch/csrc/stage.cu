@@ -52,6 +52,18 @@
 //                               n in [9, 507], e.g. 375, 440, 480)
 //   MODE_C2R                 <- _c2r_kernel         (kernel 3, tile or row
 //                               body: any other n, e.g. 442 or 257)
+//   fft_rows_kernel<L, PackedHalfRows>
+//   fft_mixed_kernel<PackedHalfRows>
+//                            <- _c2r_kernel         (kernel 3, packed body:
+//                               an even n past the direct lengths whose
+//                               half m = n/2 the engine takes, e.g. 2048,
+//                               896, 832: the m-point inverse of a packed
+//                               spectrum)
+//   c2r_pack_kernel          <- _c2r_kernel         (kernel 3, pack pass:
+//                               any other even n past them, e.g. 4096,
+//                               4320, 1042: the packed spectrum stored in
+//                               the four-step's first-stage layout of m,
+//                               which kernels 4 and 2 then invert)
 //   fft_rows_kernel<L, ComplexTwiddleRows<true>>
 //                            <- _cmatmul_tw_kernel  (kernel 4, FFT body:
 //                               power-of-two n2 in [8, 1024])
@@ -104,6 +116,10 @@
 //   kernel 2, same plan, z inverse second stage ((524288, 4, 512)):
 //                                                            17.2 GB -> 5.13 ms
 //   kernel 5, same plan, z forward (M 2097152, n = k = 512): 12.9 GB -> 3.85 ms
+//   kernel 3, packed body, same plan, z inverse (M 524288, m 1024 -> n
+//     2048; (m + 1) 8 bytes in, 4 n out a row):               8.6 GB -> 2.57 ms
+//   kernel 3, pack pass, 64 x 4096^2 y inverse (M 262144, m 2048; (m + 1)
+//     8 bytes in, 8 m out a row):                             8.6 GB -> 2.57 ms
 //
 // The dense bodies do 8 n k flop a complex row, 8 n / (5 log2 n) times an
 // FFT's work at k = n, which makes them bound by operations as written.
@@ -159,9 +175,38 @@
 //   batch's one contiguous span of rows. It reads each input byte once and
 //   does 2.5 n log2 n flop a row where the dense product did 4 n (n/2 +
 //   1). It runs on both of the engine's kernels (on the mixed-radix one a
-//   buffer holds 16 rows (n/2 + 1) bytes, stage_bytes(g)). Past 512 points
+//   buffer holds 16 rows (n/2 + 1) bytes, stage_bytes(g)). At 1024 points
 //   it also replaces, on the per-axis path, the Hermitian extension and a
 //   complex inverse of twice the bytes.
+// - Past the direct lengths an even-n C2R is an m = n/2-point complex
+//   inverse: Z[k] = E[k] + i O[k] with E[k] = X[k] + conj X[m - k] and
+//   O[k] = (X[k] - conj X[m - k]) e^{+2 pi i k / n} (packed_point; the
+//   imaginary parts of bins 0 and m dropped, as the C2R ignores them),
+//   whose unnormalized inverse is z[j] = x[2j] + i x[2j + 1]. The complex64
+//   (M, m) tensor of z is the float32 (M, n) tensor of x, so the result
+//   needs no copy. The TPU kernel had no such route: pallas_fft.irfft
+//   extends the spectrum by Hermitian symmetry (a flip, a conj and a cat)
+//   and runs a complex n-point inverse, which on the card was the
+//   extension, a swap, kernel 4 and the short stage on twice the bins, and
+//   a copy of the real part. Two bodies:
+//   - PackedHalfRows, where the engine takes m: one launch. Each row's
+//     m + 1 bins land by one bulk copy a batch (an even row count a
+//     batch, so every batch starts 16-byte aligned; an odd count of bins
+//     ends it 8 bytes off 16: bulk_load_tail), the first pass forms Z[i]
+//     from bins i and m - i of the landed row and the half-step twiddle
+//     table (ops/hopper_fft.half_roots, (2, m) planes read through L1),
+//     and ComplexTwiddleRows' epilogue stores the complex row. It reads
+//     8 (m + 1) and writes 4 n bytes a row, 5 m log2 m flop.
+//   - c2r_pack_kernel, for any other m: one pass from the half spectra to
+//     Z, each stored where the four-step's first stage reads it, a[r, s]
+//     = Z[s n1 + r] at r n2 + s (n1 = 1: natural order), through a
+//     shared-memory tile of ts s by tr <= 32 r (about 2048 points) whose
+//     pitch is odd: the reads run along k = s n1 + r and its mirror m - k,
+//     the stores along s, both coalesced, the tile's transposed reads free
+//     of bank conflicts. It reads 8 (m + 1) and writes 8 m bytes a row;
+//     the complex inverse after it is kernels 4 and 2's (or kernel 2's
+//     alone for an m that does not split), on half the bins of the
+//     extension.
 // - Wide dense stages take the tile path of stage_tile.cuh:
 //   64 x 64 output tiles, depth 16, 256 threads each holding a 4 x 4
 //   complex register tile, as x_c2c_kernel in fused3d.cu does; an operand
@@ -567,6 +612,127 @@ struct HalfRows : fft_rows::RealPairsOut {
   }
 };
 
+// Point i of the packed spectrum Z of one half row x of m + 1 bins (n =
+// 2m): E + i O, E = x[i] + conj x[m - i], O = (x[i] - conj x[m - i]) w_i,
+// w_i = e^{+2 pi i i / n} from the (2, m) planes tw. Bins 0 and m count
+// their real parts only.
+__device__ __forceinline__ float2 packed_point(const float2* x, int m, int i,
+                                               const float* tw) {
+  float2 a = x[i], b = x[m - i];
+  if (i == 0) {
+    a.y = 0.f;
+    b.y = 0.f;
+  }
+  const float2 e = make_float2(a.x + b.x, a.y - b.y);
+  const float2 o = fft_rows::cmul(make_float2(a.x - b.x, a.y + b.y),
+                                  make_float2(__ldg(tw + i), __ldg(tw + m + i)));
+  return make_float2(e.x - o.y, e.y + o.x);
+}
+
+// Kernel 3's packed body: (M, m + 1) complex64 half spectra of real rows of
+// n = 2m in, the m-point inverse of each row's packed spectrum out as (M,
+// m) complex64 in natural order (ComplexTwiddleRows' rows and epilogue, no
+// twiddle), which is the (M, n) float32 C2R. A batch is ROWS (or g.rows,
+// even) half rows of m + 1 bins, 8 ROWS (m + 1) bytes from 8 b ROWS (m + 1)
+// on: 16-byte aligned, by one bulk copy, and where an odd row count ends
+// the last batch 8 bytes off 16, the issuing thread's load of the last bin
+// (bulk_load_tail).
+struct PackedHalfRows : fft_rows::ComplexTwiddleRows<false> {
+  const float* tw;  // (2, m) float32: e^{+2 pi i k / n}
+
+  template <int L>
+  __host__ __device__ static constexpr int stage_bytes() {
+    using G = fft_rows::Geometry<L>;
+    return 8 * G::ROWS * (G::N + 1);
+  }
+  template <int L>
+  __device__ void issue(unsigned char* buf, int b, uint64_t* bar) const {
+    using G = fft_rows::Geometry<L>;
+    constexpr int K = G::N + 1;
+    fft_rows::bulk_load_tail(
+        buf, reinterpret_cast<const float2*>(x) + (size_t)b * G::ROWS * K,
+        8u * rows_in<L>(b) * K, bar);
+  }
+  template <int L>
+  __device__ float2 load(const unsigned char* buf, int, int row,
+                         int i) const {
+    constexpr int N = fft_rows::Geometry<L>::N;
+    return packed_point(reinterpret_cast<const float2*>(buf) + row * (N + 1),
+                        N, i, tw);
+  }
+
+  // The same on the mixed-radix kernel (n = g.n = m, g.rows even).
+  __host__ __device__ static int stage_bytes(const fft_rows::MixedPlan& g) {
+    return 8 * g.rows * (g.n + 1);
+  }
+  __device__ void issue(const fft_rows::MixedPlan& g, unsigned char* buf,
+                        int b, uint64_t* bar) const {
+    const int K = g.n + 1;
+    fft_rows::bulk_load_tail(
+        buf, reinterpret_cast<const float2*>(x) + (size_t)b * g.rows * K,
+        8u * rows_in(g, b) * K, bar);
+  }
+  __device__ float2 load(const fft_rows::MixedPlan& g,
+                         const unsigned char* buf, int, int row,
+                         int i) const {
+    return packed_point(
+        reinterpret_cast<const float2*>(buf) + row * (g.n + 1), g.n, i, tw);
+  }
+};
+
+// Kernel 3's pack pass. A tile is ts values of s by tr of r of one row
+// (tiles_s by tiles_r tiles a row); its points Z[s n1 + r] are formed
+// along k (neighbouring threads on neighbouring r, then s: contiguous runs
+// of the row and of its mirror), kept at [s - s0][r - r0] of a shared tile
+// of odd pitch, and stored along s, r n2 + s of the row's output.
+struct PackTiles {
+  int m, n1, n2;
+  int tr, ts, pitch;  // r and s a tile, floats2 a tile row (odd)
+  int tiles_r, tiles_s;
+};
+
+constexpr int PACK_THREADS = 256;
+constexpr int PACK_POINTS = 2048;  // about this many points a tile
+
+PackTiles pack_tiles(int m, int n1) {
+  PackTiles p;
+  p.m = m;
+  p.n1 = n1;
+  p.n2 = m / n1;
+  p.tr = n1 < 32 ? n1 : 32;
+  p.tiles_r = (n1 + p.tr - 1) / p.tr;
+  const long long pts = (long long)p.n2 * p.tr;
+  p.tiles_s = (int)((pts + PACK_POINTS - 1) / PACK_POINTS);
+  p.ts = (p.n2 + p.tiles_s - 1) / p.tiles_s;
+  p.pitch = p.tr | 1;
+  return p;
+}
+
+__global__ void __launch_bounds__(PACK_THREADS)
+c2r_pack_kernel(const float2* __restrict__ c, const float* __restrict__ tw,
+                float2* __restrict__ out, long long tiles, PackTiles p) {
+  extern __shared__ float2 tile[];
+  const int per_row = p.tiles_r * p.tiles_s;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long row = t / per_row;
+    const int rest = (int)(t - row * per_row);
+    const int s0 = (rest % p.tiles_s) * p.ts, r0 = (rest / p.tiles_s) * p.tr;
+    const int ns = p.n2 - s0 < p.ts ? p.n2 - s0 : p.ts;
+    const int nr = p.n1 - r0 < p.tr ? p.n1 - r0 : p.tr;
+    const float2* x = c + row * (p.m + 1);
+    fft_rows::DivWalk w(threadIdx.x, nr, PACK_THREADS);  // (s - s0, r - r0)
+    for (int e = threadIdx.x; e < ns * nr; e += PACK_THREADS, w.next())
+      tile[w.q * p.pitch + w.r] =
+          packed_point(x, p.m, (s0 + w.q) * p.n1 + r0 + w.r, tw);
+    __syncthreads();
+    float2* y = out + row * p.m;
+    fft_rows::DivWalk v(threadIdx.x, ns, PACK_THREADS);  // (r - r0, s - s0)
+    for (int e = threadIdx.x; e < ns * nr; e += PACK_THREADS, v.next())
+      y[(r0 + v.q) * p.n2 + s0 + v.r] = tile[v.r * p.pitch + v.q];
+    __syncthreads();
+  }
+}
+
 // Kernel 4's columns: the column kernel's n-point DFT of every column of an
 // (outer, n, inner) complex64 array (fft_rows::Columns, interleaved in and
 // out), times the four-step twiddle in the epilogue: work row k2 (bin k2)
@@ -790,6 +956,44 @@ int dfft_rdft(const float* x, const float* table, float* out, int M, int n,
   return (n & (n - 1)) == 0
              ? fft_rows::launch(n, schedule, body, table, 0, st)
              : fft_rows::launch_mixed(n, schedule, body, table, 0, st);
+}
+
+// Kernel 3, packed body. c: (M, m + 1) complex64 half spectra of real rows
+// of n = 2m, m a power of two in [8, 1024] (the engine's power-of-two
+// kernel) or 13-smooth in [9, 507] (its mixed-radix kernel, an even row
+// count a batch), 16-byte aligned; table: ops/hopper_fft.fft_plan(m,
+// True).table; tw: ops/hopper_fft.half_roots(n), (2, m) float32; schedule:
+// ops/hopper_fft._engine_schedule(m, True, packed=True); out: (M, m)
+// complex64, the (M, n) float32 C2R, 16-byte aligned.
+int dfft_c2r_packed(const float* c, const float* table, const float* tw,
+                    float* out, int M, int m, int schedule, void* stream) {
+  if (M < 1 || !tw) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(c) || fft_rows::misaligned(out))
+    return cudaErrorMisalignedAddress;
+  const bool pow2 = (m & (m - 1)) == 0;
+  if (!pow2 && ((schedule >> fft_rows::MIXED_ROWS_SHIFT) & 1))
+    return cudaErrorInvalidValue;  // an odd row count a batch
+  const PackedHalfRows body{{c, nullptr, nullptr, out, M, 1}, tw};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return pow2 ? fft_rows::launch(m, schedule, body, table, 1, st)
+              : fft_rows::launch_mixed(m, schedule, body, table, 1, st);
+}
+
+// Kernel 3, pack pass. c: (M, m + 1) complex64 half spectra of real rows of
+// n = 2m; tw: ops/hopper_fft.half_roots(n), (2, m) float32; out: (M, m)
+// complex64, the packed spectrum Z of each row with Z[s n1 + r] at r n2 +
+// s (n2 = m / n1; n1 = 1: natural order). c and out 8-byte aligned.
+int dfft_c2r_pack(const float* c, const float* tw, float* out, int M, int m,
+                  int n1, void* stream) {
+  if (M < 1 || m < 1 || n1 < 1 || m % n1 || !tw) return cudaErrorInvalidValue;
+  if (fft_rows::misaligned(c, 8) || fft_rows::misaligned(out, 8))
+    return cudaErrorMisalignedAddress;
+  const PackTiles p = pack_tiles(m, n1);
+  const long long tiles = (long long)M * p.tiles_r * p.tiles_s;
+  return fft_rows::launch_persistent(
+      c2r_pack_kernel, PACK_THREADS, (size_t)8 * p.ts * p.pitch, tiles,
+      static_cast<cudaStream_t>(stream), reinterpret_cast<const float2*>(c),
+      tw, reinterpret_cast<float2*>(out), tiles, p);
 }
 
 // Kernel 3, FFT body. c: (M, n/2 + 1) complex64, n a power of two in [8,

@@ -408,7 +408,8 @@ _TORCH_CATS = frozenset(_DEVICE_CATS + _LAUNCH_CATS + (
 # kernel record is the port's by its name, whatever the host side of the
 # trace kept of its launch.
 PORT_KERNELS = (
-    "dec_unpack_kernel", "enc_pack_kernel", "fft_cols_kernel",
+    "c2r_pack_kernel", "dec_unpack_kernel", "enc_pack_kernel",
+    "fft_cols_kernel",
     "fft_cols_split_kernel", "fft_mixed_cols_kernel", "fft_mixed_kernel",
     "fft_rows_kernel", "fft_short_kernel", "stage_row_kernel",
     "stage_tile_kernel", "x_c2c_kernel", "yz_inv_kernel",

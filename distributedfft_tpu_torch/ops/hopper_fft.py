@@ -40,9 +40,13 @@ granularities:
   non-last split axis of a contiguous complex64 tensor runs its
   four-step where it lies: ``cdft_tw_cols`` (kernel 4's column body)
   then ``cdft_short`` storing into the input's layout. ``irfft`` takes one
-  ``irdft`` (kernel 3) on the same direct lengths, else the Hermitian
-  extension and a complex inverse. This path carries every distributed
-  plan and every single-device cube the fused path does not take.
+  ``irdft`` (kernel 3) on the same direct lengths; past them an even n is
+  the complex inverse of n / 2 points of a packed spectrum: one
+  ``irdft_packed`` (kernel 3's packed body) where the engine takes n / 2,
+  else ``c2r_pack`` (kernel 3's pack pass) and the complex inverse; an odd
+  n keeps the Hermitian extension and a complex inverse. This path
+  carries every distributed plan and every single-device cube the fused
+  path does not take.
 * **fused wire** (``csrc/wire.cu``): the bf16 wire of the ring exchanges
   (``parallel/transpose.ring_transpose``) as kernels — ``enc_pack``
   encodes a travelling block, ``dec_unpack`` decodes an arrived one, and
@@ -54,7 +58,8 @@ granularities:
   rows of a power of two in [8, 1024], and, on its mixed-radix kernel, of
   ``rdft``, ``cdft``, ``irdft``, ``cdft_tw`` and ``rdft_tw`` on the 155
   13-smooth lengths in [9, 507] (``MIXED_LENGTHS``; kernel 11 routes by
-  ``_fft_body``, kernels 1-5 by ``_cdft_body``); other lengths take the
+  ``_fft_body``, kernels 1-5 by ``_cdft_body``), and of ``irdft_packed``
+  (kernel 3's packed body) on half rows of either; other lengths take the
   dense bodies of ``stage.cu``. It also runs the two FFT passes
   of the FFT bodies of ``zy_fwd`` (kernel 6) and ``yz_inv`` (kernel 8), and,
   as its column kernel, ``x_c2c`` (kernel 7), ``cdft_cols`` (kernel 2
@@ -134,6 +139,8 @@ _ENTRIES = {"dfft_zy_fwd": ("fused3d", (7, 3)),
             "dfft_cdft_short": ("stage", (3, 5, 4)),
             "dfft_rdft": ("stage", (3, 3)),
             "dfft_c2r": ("stage", (3, 3)),
+            "dfft_c2r_packed": ("stage", (4, 3)),
+            "dfft_c2r_pack": ("stage", (3, 3)),
             "dfft_enc_pack": ("wire", (2, 6)),
             "dfft_dec_unpack": ("wire", (2, 1)),
             "dfft_dec_cmatmul": ("wire", (4, 2)),
@@ -198,6 +205,21 @@ def _twiddle(n1: int, n2: int, inverse: bool,
     return torch.from_numpy(mx._twiddle_np(n1, n2, inverse, False)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def half_roots(n: int) -> np.ndarray:
+    """(2, n / 2) float32 planes of exp(+2 pi i k / n), k < n / 2, built in
+    float64: the half-step twiddle of the packing of an even-n C2R
+    (``_packed_spectrum``), which kernel 3's packed body and its pack pass
+    read. Not the n / 2-point engine table: these are roots of n."""
+    w = np.exp(2j * np.pi * np.arange(n // 2) / n)
+    return np.ascontiguousarray(np.stack([w.real, w.imag]), np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _half_roots(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(half_roots(n)).to(device)
+
+
 # ---------------------------------------------------------------------------
 # The row FFT engine of kernels 1-6, 8 and 11 (csrc/fft_rows.cuh): its
 # host side
@@ -215,9 +237,10 @@ FFT_MIN, FFT_MAX = 8, 1024
 # buffers (``STAGES``) and the most shared memory a block takes
 # (``MIXED_SMEM``: two blocks an SM of an H100). It runs the 13-smooth
 # lengths 2^a 3^b 5^c 7^d 11^e 13^f in [FFT_MIN, MIXED_MAX] that are not
-# powers of two (``MIXED_LENGTHS``, 155 of them: kernels 1-6 and 8), and,
-# beside them on the passes of kernels 6 and 8, the powers of two up to
-# MIXED_MAX.
+# powers of two (``MIXED_LENGTHS``, 155 of them: kernels 1-6 and 8 on rows,
+# kernel 3's packed body on half rows of m = n / 2 of them, and kernel 7 on
+# its column form), and, beside them on the passes of kernels 6 and 8, the
+# powers of two up to MIXED_MAX.
 MIXED_RADICES = (16, 15, 14, 13, 12, 11, 10, 9, 8, 7, 6, 5, 4, 3, 2)
 MIXED_POINTS = 2560
 MIXED_MAX = 512
@@ -260,7 +283,10 @@ def _cdft_body(n: int) -> str:
     (the row FFT engine: its power-of-two kernel, or its mixed-radix kernel
     for a 13-smooth n) where ``_engine_length(n)``, else ``"tile"`` (the
     tile loop of ``stage.cu`` with the R2C, DFT or C2R planes, or for
-    kernels 1, 2 and 3 on rows of a few points the row path)."""
+    kernels 1, 2 and 3 on rows of a few points the row path). This routes
+    the ``_direct`` lengths; past them an even-n C2R takes kernel 3's
+    packed body on rows of n / 2 (``irdft_packed``, where
+    ``_engine_length(n // 2)``) or its pack pass (``c2r_pack``)."""
     return "fft" if _engine_length(n) else "tile"
 
 
@@ -422,16 +448,21 @@ def _lane_use(n: int, radices: Sequence[int], rows: int) -> Tuple[int, int]:
     return len(radices) * pts, slots
 
 
-def _stage_bytes(n: int, rows: int, half: bool = False) -> int:
+def _stage_bytes(n: int, rows: int, half: bool = False,
+                 packed: bool = False) -> int:
     """Bytes of one input buffer of the mixed-radix kernel on batches of
     ``rows`` rows of n points (each Body's ``stage_bytes(g)``): 8 rows n
-    (complex rows, or twice as many real rows), or for kernel 3's half
+    (complex rows, or twice as many real rows), for kernel 3's half
     spectra (``half``) 16 rows (n // 2 + 1), two half rows of n // 2 + 1
-    bins a complex row."""
-    return 16 * rows * (n // 2 + 1) if half else 8 * rows * n
+    bins a complex row, or for its packed body (``packed``) 8 rows (n +
+    1), one half row of n + 1 bins a complex row of n points."""
+    if half:
+        return 16 * rows * (n // 2 + 1)
+    return 8 * rows * (n + 1) if packed else 8 * rows * n
 
 
-def mixed_smem(n: int, r0: int, rows: int, half: bool = False) -> int:
+def mixed_smem(n: int, r0: int, rows: int, half: bool = False,
+               packed: bool = False) -> int:
     """Shared memory a block of the mixed-radix kernel takes on batches of
     ``rows`` rows of n points, r0 the first radix (``mixed_smem`` in
     fft_rows.cuh): the ring's barriers (128 bytes), the twiddle table's
@@ -440,21 +471,24 @@ def mixed_smem(n: int, r0: int, rows: int, half: bool = False) -> int:
     32 floats."""
     points = rows * n
     tld = (n - r0 + 3) & ~3
-    return (128 + 8 * tld + STAGES * _stage_bytes(n, rows, half)
+    return (128 + 8 * tld + STAGES * _stage_bytes(n, rows, half, packed)
             + 16 * (points + points // 32))
 
 
-def _batch_rows(n: int, radices: Sequence[int], half: bool = False) -> int:
+def _batch_rows(n: int, radices: Sequence[int], half: bool = False,
+                packed: bool = False) -> int:
     """Rows a batch of the mixed-radix kernel: the count, at most
     ``MIXED_POINTS`` / n, with rows n even (16-byte aligned batches) and
     the block within ``MIXED_SMEM`` (``mixed_smem``; ``half``: kernel 3's
-    larger buffers, which cap the rows of the shortest lengths), whose
-    passes leave the smallest share of lane slots idle, the larger count
-    on a tie. The kernel takes it from ``mixed_schedule``."""
+    larger buffers, which cap the rows of the shortest lengths;
+    ``packed``: its packed body's rows of n + 1 bins, an even count of
+    them so that every batch starts 16-byte aligned), whose passes leave
+    the smallest share of lane slots idle, the larger count on a tie. The
+    kernel takes it from ``mixed_schedule``."""
     best, best_use = 2, (0, 1)
     for rows in range(1, MIXED_POINTS // n + 1):
-        if rows * n % 2 or \
-                mixed_smem(n, radices[0], rows, half) > MIXED_SMEM:
+        if rows * n % 2 or packed and rows % 2 or \
+                mixed_smem(n, radices[0], rows, half, packed) > MIXED_SMEM:
             continue
         used, slots = _lane_use(n, radices, rows)
         if used * best_use[1] >= best_use[0] * slots:
@@ -502,22 +536,24 @@ def mixed_geometry(n: int) -> MixedGeometry:
     return MixedGeometry(rows, rows * n, 1 - used / slots)
 
 
-def _engine_schedule(n: int, inverse: bool, half: bool = False) -> int:
+def _engine_schedule(n: int, inverse: bool, half: bool = False,
+                     packed: bool = False) -> int:
     """The schedule an engine length's rows launch with: ``fft_plan``'s for
     a power of two (the power-of-two kernel), else ``mixed_schedule``
-    (``half``: kernel 3's)."""
+    (``half``: kernel 3's; ``packed``: kernel 3's packed body's)."""
     return (fft_plan(n, inverse).schedule if _fft_body(n) == "fft"
-            else mixed_schedule(n, inverse, half))
+            else mixed_schedule(n, inverse, half, packed))
 
 
-def mixed_schedule(n: int, inverse: bool, half: bool = False) -> int:
+def mixed_schedule(n: int, inverse: bool, half: bool = False,
+                   packed: bool = False) -> int:
     """The packed schedule the mixed-radix kernel takes on rows of n points
     (``mixed_plan`` in fft_rows.cuh): ``fft_plan(n, inverse).schedule``
     and, from bit ``MIXED_ROWS_SHIFT`` on, the rows of a batch
-    (``_batch_rows``; ``half`` for kernel 3's Body), so the rows that run
-    are the ones chosen here."""
+    (``_batch_rows``; ``half`` for kernel 3's Body, ``packed`` for its
+    packed body), so the rows that run are the ones chosen here."""
     plan = fft_plan(n, inverse)
-    return plan.schedule | (_batch_rows(n, plan.radices, half)
+    return plan.schedule | (_batch_rows(n, plan.radices, half, packed)
                             << MIXED_ROWS_SHIFT)
 
 
@@ -795,6 +831,34 @@ def c2r_mirror(c2: torch.Tensor, n: int) -> torch.Tensor:
     full = mx._hermitian_extend(c, n)
     z = fft_rows_mirror(full[0::2] + 1j * full[1::2], True)
     return torch.stack([z.real, z.imag], 1).reshape(-1, n)[:M]
+
+
+def _packed_spectrum(c2: torch.Tensor) -> torch.Tensor:
+    """The half-length packing of an even-n C2R: (M, m + 1) half spectra X,
+    n = 2 m, -> (M, m) complex64 Z = E + i O, E[k] = X[k] + conj X[m - k]
+    and O[k] = (X[k] - conj X[m - k]) exp(+2 pi i k / n) (``half_roots``),
+    the imaginary parts of bins 0 and m dropped (the C2R ignores them; the
+    packing would not). The unnormalized m-point inverse DFT z of Z holds
+    the C2R x as z[j] = x[2j] + i x[2j + 1]: the complex64 (M, m) tensor of
+    z is the float32 (M, n) tensor of x. Kernel 3's packed body forms it in
+    its first pass, its pack pass stores it."""
+    m = c2.shape[1] - 1
+    x = c2.to(torch.complex64)
+    a = x[:, :m].clone()
+    b = torch.conj_physical(x.flip(-1)[:, :m])          # conj X[m - k]
+    a[:, 0] = x[:, 0].real
+    b[:, 0] = x[:, m].real
+    w = _half_roots(2 * m, c2.device)
+    return a + b + 1j * ((a - b) * torch.complex(w[0], w[1]))
+
+
+def c2r_packed_mirror(c2: torch.Tensor, n: int) -> torch.Tensor:
+    """Kernel 3's packed body in plain PyTorch: (M, n/2 + 1) half spectra
+    -> (M, n) float32, the packing (``_packed_spectrum``), the engine's
+    inverse passes on rows of m = n / 2 (``fft_rows_mirror``), the complex
+    rows read as the real ones. For tests."""
+    z = fft_rows_mirror(_packed_spectrum(c2), True)
+    return torch.view_as_real(z).reshape(c2.shape[0], n)
 
 
 def yz_inv_mirror(er: torch.Tensor, ei: torch.Tensor,
@@ -1143,6 +1207,26 @@ def c2r_plain(c2: torch.Tensor, cr: torch.Tensor,
               ci: torch.Tensor) -> torch.Tensor:
     """Kernel 3 as dense products: ``Re(c) @ CR - Im(c) @ CI``."""
     return c2.real @ cr - c2.imag @ ci
+
+
+def c2r_packed_plain(c2: torch.Tensor, n: int) -> torch.Tensor:
+    """Kernel 3's packed body in plain PyTorch: the packing in tensor ops
+    (``_packed_spectrum``), then the dense m-point inverse DFT
+    (``stage_plain`` with the planes), the complex64 (M, m) result read as
+    the float32 (M, n) rows."""
+    z = stage_plain(_packed_spectrum(c2), *_planes("dft", n // 2, True,
+                                                   c2.device))
+    return torch.view_as_real(z).reshape(c2.shape[0], n)
+
+
+def c2r_pack_plain(c2: torch.Tensor, n1: int) -> torch.Tensor:
+    """Kernel 3's pack pass in plain PyTorch: (M, m + 1) half spectra ->
+    (M, m) complex64, each row's packed spectrum Z (``_packed_spectrum``)
+    in the four-step's first-stage layout of m = n1 n2, Z[s n1 + r] at r
+    n2 + s (n1 = 1: natural order)."""
+    M, m = c2.shape[0], c2.shape[1] - 1
+    z = _packed_spectrum(c2).view(M, m // n1, n1)
+    return z.transpose(1, 2).contiguous().view(M, m)
 
 
 def _check_rows(name: str, x2: torch.Tensor, dtype: torch.dtype,
@@ -1626,7 +1710,9 @@ def irdft(c2: torch.Tensor, n: int) -> torch.Tensor:
     power of two in [8, 1024] or a 13-smooth n in [8, 512] (its
     mixed-radix kernel; on a CPU tensor its plain version, ``c2r_plain``),
     else ``c2r`` with the C2R planes (the tile or row body); both count as
-    ``c2r``."""
+    ``c2r``. ``irfft`` calls it on the ``_direct`` lengths; past them an
+    even n takes the packed route (``_c2r_packed``: ``irdft_packed`` or
+    ``c2r_pack``)."""
     cpu = _check_rows("c2r", c2, torch.complex64)
     M, k = c2.shape
     if n < 1 or k != n // 2 + 1:
@@ -1642,6 +1728,65 @@ def irdft(c2: torch.Tensor, n: int) -> torch.Tensor:
         _launch("c2r", "dfft_c2r", c2, _fft_table(n, True, dev), y, M, n,
                 _engine_schedule(n, True, half=True))
     return y
+
+
+@_no_vjp("_c2r_kernel")
+def irdft_packed(c2: torch.Tensor, n: int) -> torch.Tensor:
+    """Half spectra to their real rows by the half-length packing: (M, n/2
+    + 1) complex64 -> (M, n) float32, the unnormalized C2R of each row of
+    an even n whose half m = n / 2 the row FFT engine takes
+    (``_engine_length(m)``; the imaginary parts of bins 0 and m are
+    ignored). Kernel 3, ``_c2r_kernel``, on its packed body: one
+    ``dfft_c2r_packed`` launch counted as ``c2r``, the engine's m-point
+    inverse (its power-of-two kernel, or its mixed-radix kernel with
+    ``mixed_schedule(m, True, packed=True)``) whose first pass forms Z
+    from bins i and m - i of the landed row (``_packed_spectrum``) and
+    whose epilogue stores the complex row. The result is the complex64
+    (M, m) output viewed as float32: no copy. On a CPU tensor the plain
+    version ``c2r_packed_plain``."""
+    cpu = _check_rows("c2r", c2, torch.complex64)
+    M, k = c2.shape
+    m = n // 2
+    if n % 2 or k != m + 1 or not _engine_length(m):
+        raise ValueError(f"c2r: the packed body takes rows of n/2 + 1 bins "
+                         f"of an even n whose half is an engine length, not "
+                         f"rows {tuple(c2.shape)} to n = {n}")
+    if cpu:
+        return c2r_packed_plain(c2, n)
+    dev = c2.device
+    z = torch.empty((M, m), dtype=torch.complex64, device=dev)
+    if M:
+        _require_aligned("c2r", c2, z)
+        _launch("c2r", "dfft_c2r_packed", c2, _fft_table(m, True, dev),
+                _half_roots(n, dev), z, M, m,
+                _engine_schedule(m, True, packed=True))
+    return torch.view_as_real(z).view(M, n)
+
+
+@_no_vjp("_c2r_kernel")
+def c2r_pack(c2: torch.Tensor, n1: int) -> torch.Tensor:
+    """The pack pass of an even-n C2R whose half m = n / 2 the engine does
+    not take: (M, m + 1) complex64 half spectra -> (M, m) complex64, each
+    row's packed spectrum Z (``_packed_spectrum``) stored in the
+    four-step's first-stage layout of m = n1 n2, Z[s n1 + r] at r n2 + s
+    (n1 = 1: natural order), so that the complex m-point inverse takes it
+    as it lies. Kernel 3, ``_c2r_kernel``: one ``dfft_c2r_pack`` launch
+    counted as ``c2r``, each bin read once and Z written once through a
+    shared-memory tile. On a CPU tensor the plain version
+    ``c2r_pack_plain``."""
+    cpu = _check_rows("c2r", c2, torch.complex64)
+    M, m = c2.shape[0], c2.shape[1] - 1
+    if m < 1 or n1 < 1 or m % n1:
+        raise ValueError(f"c2r: the pack pass takes rows of m + 1 bins with "
+                         f"n1 dividing m, not rows {tuple(c2.shape)} and "
+                         f"n1 = {n1}")
+    if cpu:
+        return c2r_pack_plain(c2, n1)
+    z = torch.empty((M, m), dtype=torch.complex64, device=c2.device)
+    if M:
+        _launch("c2r", "dfft_c2r_pack", c2, _half_roots(2 * m, c2.device), z,
+                M, m, n1)
+    return z
 
 
 def _last_rows(fn, x: torch.Tensor, *args) -> torch.Tensor:
@@ -1660,6 +1805,35 @@ def _stage(x: torch.Tensor, F: Tuple[torch.Tensor, torch.Tensor],
 def _c2r_stage(c: torch.Tensor, n: int) -> torch.Tensor:
     """Half-spectrum C2R along the last axis (n//2+1 -> n, real)."""
     return _last_rows(irdft, c.to(torch.complex64), n)
+
+
+def _c2r_packed(c: torch.Tensor, n: int) -> torch.Tensor:
+    """The C2R along the last axis of contiguous complex64 (.., n/2 + 1)
+    half spectra of an even n that is not ``_direct``, unnormalized:
+    ``pallas_fft.irfft``'s function, computed as the complex inverse of m =
+    n / 2 points of the packed spectrum (``_packed_spectrum``). An engine
+    length m takes one ``irdft_packed``; any other m the pack pass
+    (``c2r_pack``), then the complex inverse: the four-step entered after
+    its swap (``_four_step_swapped``), the pack having stored its first
+    stage's layout, or, for an m that does not split (``_direct``, a
+    prime), one ``_fft_last`` on the natural order. No Hermitian
+    extension, no swap of the spectrum and no copy of the real part: the
+    complex64 result is the float32 (.., n) output."""
+    m = n // 2
+    lead = c.shape[:-1]
+    c2 = c.reshape(-1, m + 1).contiguous()
+    if _engine_length(m):
+        y = irdft_packed(c2, n)
+    else:
+        n1, n2 = ((1, m) if _direct(m) or _long_prime(m)
+                  else _split_axis(m))
+        if n1 == 1:
+            z = _fft_last(c2r_pack(c2, 1), True)
+        else:
+            z = _four_step_swapped(c2r_pack(c2, n1).view(-1, n1, n2), True,
+                                   n1, n2)
+        y = torch.view_as_real(z).view(-1, n)
+    return y.reshape(lead + (n,))
 
 
 def _swap_last(x: torch.Tensor) -> torch.Tensor:
@@ -1718,8 +1892,18 @@ def _four_step(x: torch.Tensor, inverse: bool, n1: int, n2: int,
     ``SHORT_MAX`` swaps again, runs rows of n1 and copies the bins back in
     order."""
     lead = x.shape[:-1]
+    return _four_step_swapped(_swap_last(x.reshape(lead + (n2, n1))),
+                              inverse, n1, n2, n_out)
+
+
+def _four_step_swapped(a: torch.Tensor, inverse: bool, n1: int, n2: int,
+                       n_out: Optional[int] = None) -> torch.Tensor:
+    """``_four_step`` from its first stage's layout: contiguous (.., n1,
+    n2), a[.., r, s] = x[s n1 + r] (the swap's output, or kernel 3's pack
+    pass). The caller hands ``a`` over: it is freed once the first stage
+    has read it."""
+    lead = a.shape[:-2]
     n_out = n1 * n2 if n_out is None else n_out
-    a = _swap_last(x.reshape(lead + (n2, n1)))                    # (.., n1, n2)
     c = _first_stage(a, inverse, n1, n2)
     del a
     if _short_body(n1):
@@ -1884,9 +2068,14 @@ def irfft(x: torch.Tensor, n: int, axis: int,
     c = mx._fit_axis(x.movedim(axis, -1).to(torch.complex64), -1, n // 2 + 1)
     if _direct(n):
         y = _c2r_stage(c, n)
+    elif n % 2 == 0:
+        # Kernel 3's packed body, or its pack pass and the complex inverse
+        # of n / 2 points.
+        y = _c2r_packed(c, n)
     else:
-        # No half-spectrum kernel for a split axis: invert the
-        # Hermitian-extended spectrum as a complex transform.
+        # An odd n has no half-length packing: invert the
+        # Hermitian-extended spectrum as a complex transform, as the JAX
+        # package does.
         full = mx._hermitian_extend(c, n).contiguous()
         y = _fft_last(full, True).real.contiguous()
     return mx._scaled(y, mx._inv_scale(n, norm)).movedim(-1, axis)

@@ -17,8 +17,9 @@ must ignore. The mirror is held against
 
 Also the routing: ``irfft`` sends a power of two up to 1024 and every
 other length up to 512 to one ``irdft`` (on the engine at a power of two
-or a 13-smooth length, else ``c2r`` with the planes), and a split length
-to the Hermitian extension; on a CUDA tensor ``irdft`` and
+or a 13-smooth length, else ``c2r`` with the planes), an even split
+length to kernel 3's packed route (``tests/test_torch_c2rpack.py``) and an
+odd one to the Hermitian extension; on a CUDA tensor ``irdft`` and
 ``yz_inv`` name the entry points of their body (checked here with the
 launch recorded, not run).
 """
@@ -161,17 +162,25 @@ def test_irfft_other_direct_lengths_take_the_planes(monkeypatch, n):
     assert all(not v for v in calls.values()), calls
 
 
-@pytest.mark.parametrize("n", [640, 2048])
+@pytest.mark.parametrize("n", [640, 2048, 1025])
 def test_irfft_split_lengths_keep_the_extension(monkeypatch, n):
-    """A length the per-axis path splits (640 = 2 x 320, 2048 = 4 x 512)
-    keeps the Hermitian extension and a complex inverse, as the JAX
-    package does past 512 points, and matches it."""
-    calls = _count_calls(monkeypatch, hf, "irdft", "c2r", "_fft_last")
+    """Past the direct lengths only an odd n (1025 = 5 x 205) keeps the
+    Hermitian extension and a complex inverse of n points, as the JAX
+    package does past 512 points: it has no half-length packing. An even
+    one (640 = 2 x 320, 2048 = 4 x 512) takes one ``irdft_packed``, kernel
+    3's packed body on rows of n / 2 (320 and 1024, engine lengths): no
+    extension, no complex inverse of n points. Both match the JAX
+    package's ``irfft``."""
+    calls = _count_calls(monkeypatch, hf, "irdft", "c2r", "_fft_last",
+                         "irdft_packed", "c2r_pack")
     calls.update(_count_calls(monkeypatch, hf.mx, "_hermitian_extend"))
     c = _half(3, n, n)
     got = hf.irfft(torch.from_numpy(c), n, axis=-1).numpy()
-    assert calls.pop("_hermitian_extend") == [((3, n // 2 + 1), n)]
-    assert calls.pop("_fft_last")[0] == ((3, n), True)
+    if n % 2:
+        assert calls.pop("_hermitian_extend") == [((3, n // 2 + 1), n)]
+        assert calls.pop("_fft_last")[0] == ((3, n), True)
+    else:
+        assert calls.pop("irdft_packed") == [((3, n // 2 + 1), n)]
     assert all(not v for v in calls.values()), calls
     assert _rel(got, np.asarray(pallas_fft.irfft(c, n, axis=-1))) <= 5e-4
 

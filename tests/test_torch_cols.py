@@ -310,14 +310,15 @@ _TW_COLS = ("cmatmul_tw", "dfft_cdft_tw_cols")
      {_COLS: 2, ("c2r", "dfft_c2r"): 1}),
     ((2048, 8, 2048),
      {("rmatmul_tw", "dfft_stage"): 1, _TW_COLS: 1, _COLS: 1, _SHORT: 2},
-     {_TW_COLS: 1, ("cmatmul_tw", "dfft_stage"): 1, _COLS: 1, _SHORT: 2}),
+     {_TW_COLS: 1, _COLS: 1, _SHORT: 1, ("c2r", "dfft_c2r_packed"): 1}),
 ])
 def test_per_axis_plans_launch_the_column_body(monkeypatch, shape, fwd, inv):
     """The per-axis 3D transforms: z on rows, y and x (where not split) on
     the column body in place; a split x axis's four-step where it lies
     (kernel 4's column body, the short-stage body), a split z axis's
-    second stage on the short-stage body writing the crop or the natural
-    order, so the next axis gets a contiguous tensor."""
+    second stage on the short-stage body writing the crop (forward), and
+    its C2R one launch of kernel 3's packed body on rows of 1024 (inverse),
+    so the next axis gets a contiguous tensor."""
     log = _record_launches(monkeypatch)
     c = hf.rfftn_3d(torch.zeros(shape))
     assert c.is_contiguous() and c.shape == shape[:2] + (shape[2] // 2 + 1,)

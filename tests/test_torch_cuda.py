@@ -694,6 +694,71 @@ def test_irdft_kernel(cuda, M, n):
                                                cuda))) <= 5e-4
 
 
+# Kernel 3's packed body: half rows of m + 1 bins, m an engine length
+# (powers of two, mixed lengths, an odd m), odd and even row counts (an
+# odd count ends the last batch 8 bytes off 16), more rows than one wave.
+PACKED_ROWS = [(1, 8), (7, 64), (33, 1024), (4097, 1024), (131, 448),
+               (53, 416), (2049, 320), (5, 375), (3, 480), (70001, 448)]
+
+
+@pytest.mark.parametrize("M, m", PACKED_ROWS)
+def test_packed_c2r_kernel(cuda, M, m):
+    """Kernel 3's packed body (one ``dfft_c2r_packed`` launch): random half
+    spectra (imaginary bins 0 and m, which the C2R ignores) against
+    ``c2r_packed_plain``; with bins 0 and m made real, against
+    ``torch.fft.irfft`` too."""
+    n = 2 * m
+    c = _crandn((M, m + 1), m + M, cuda)
+    y, runs, tiles = _entry_launches(lambda: hf.irdft_packed(c, n),
+                                     "dfft_c2r_packed")
+    assert (runs, tiles) == (1, 0)
+    assert y.shape == (M, n) and y.dtype == torch.float32
+    assert _rel(y, hf.c2r_packed_plain(c, n)) <= 5e-4
+    c[:, 0] = c[:, 0].real.clone()
+    c[:, m] = c[:, m].real.clone()
+    assert _rel(hf.irdft_packed(c, n),
+                torch.fft.irfft(c, n=n, norm="forward")) <= 5e-4
+
+
+@pytest.mark.parametrize("M, m, n1", [(3, 2048, 4), (1001, 2048, 4),
+                                      (7, 2160, 5), (5, 521, 1),
+                                      (2, 2880, 45), (3, 16384, 32),
+                                      (2, 32768, 64), (9, 32768, 1)])
+def test_c2r_pack_kernel(cuda, M, m, n1):
+    """Kernel 3's pack pass (one ``dfft_c2r_pack`` launch): bit for bit its
+    plain version (the same float32 operations), in each first-stage
+    layout: natural order, a short n1, a ragged tile of r (45), tiles of
+    32 r (64)."""
+    c = _crandn((M, m + 1), m + n1, cuda)
+    z, runs, _ = _entry_launches(lambda: hf.c2r_pack(c, n1), "dfft_c2r_pack")
+    assert runs == 1 and z.shape == (M, m) and z.dtype == torch.complex64
+    assert _rel(z, hf.c2r_pack_plain(c, n1)) <= 1e-6
+
+
+@pytest.mark.parametrize("n, entries", [
+    (2048, {"dfft_c2r_packed": 1}), (896, {"dfft_c2r_packed": 1}),
+    (4096, {"dfft_c2r_pack": 1, "dfft_cdft_tw": 1, "dfft_cdft_short": 1}),
+    (4320, {"dfft_c2r_pack": 1, "dfft_cdft_tw": 1, "dfft_cdft_short": 1}),
+    (4064, {"dfft_c2r_pack": 1, "dfft_stage": 1, "dfft_cdft_short": 1}),
+    (1042, {"dfft_c2r_pack": 1, "dfft_stage": 1}),
+    (16384, {"dfft_c2r_pack": 1, "dfft_cdft_tw": 1, "dfft_cdft_short": 1})])
+def test_irfft_past_the_direct_lengths(cuda, n, entries):
+    """``irfft`` of an even n past the direct lengths on the card: the
+    entries of its route, against ``torch.fft.irfft`` on half spectra with
+    real bins 0 and n / 2 (the library does not ignore their imaginary
+    parts at every size), last and non-last axis."""
+    c = _crandn((6, n // 2 + 1), n, cuda)
+    c[:, 0] = c[:, 0].real.clone()
+    c[:, n // 2] = c[:, n // 2].real.clone()
+    hf.reset_launches()
+    y = hf.irfft(c, n=n, axis=-1)
+    torch.cuda.synchronize()
+    assert dict(hf.ENTRIES) == entries
+    assert _rel(y, torch.fft.irfft(c, n=n, norm="forward")) <= 5e-4
+    yt = hf.irfft(c.t().contiguous(), n=n, axis=0)
+    assert _rel(yt, y.t()) <= 1e-6
+
+
 @pytest.mark.parametrize("shape", [(4, 6, 1024), (3, 640, 10), (1024, 2, 3),
                                    (5, 8, 1042), (8, 1, 8), (2, 8, 2048),
                                    (2048, 3, 4), (3, 1024, 2048),

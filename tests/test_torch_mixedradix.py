@@ -399,7 +399,8 @@ _DIRECT_ENGINE = (
 _SPLIT_ENGINE = (
     [("rmatmul_tw", "dfft_rdft_tw"), ("cmatmul", "dfft_cdft_short"),
      ("cmatmul_tw", "dfft_cdft_tw"), ("cmatmul", "dfft_cdft_short")],
-    [("cmatmul_tw", "dfft_cdft_tw"), ("cmatmul", "dfft_cdft_short")] * 2)
+    [("cmatmul_tw", "dfft_cdft_tw"), ("cmatmul", "dfft_cdft_short"),
+     ("c2r", "dfft_c2r_packed")])
 _BATCHED_ENGINE = {(256, 480, 480): _DIRECT_ENGINE,
                    (64, 896, 896): _SPLIT_ENGINE,
                    (64, 832, 832): _SPLIT_ENGINE,
@@ -426,7 +427,8 @@ def test_batched_stacks_run_kernels_2_and_4_on_the_engine(monkeypatch,
     C2R, kernel 3, on it too) and 64 x 896^2 and 64 x 832^2 (both axes 2 x 448
     or 2 x 416: kernel 4 on the mixed-radix kernel, the 2-point short
     stage, and the forward's first stage, kernel 5, on the mixed-radix
-    kernel), recorded on "meta" tensors: none of kernels 1-5 reaches
+    kernel; the inverse's y C2R one launch of kernel 3's packed body on
+    it, 448 or 416 points), recorded on "meta" tensors: none of kernels 1-5 reaches
     ``dfft_stage``, and the entries are the ones ``chip_smoke.py``'s
     ``BATCHED_CARD`` counts and ``BATCHED_ENGINE`` names a direction."""
     smoke = _chip_smoke()
@@ -507,7 +509,9 @@ def test_4320_axis_runs_kernel4_on_the_engine(monkeypatch, fn):
     """The convolver's 5-smooth 4320 = 9 x 480 (``good_size``): kernel 4's
     first stage launches ``dfft_cdft_tw`` and kernel 5's (the real input
     of rfft) ``dfft_rdft_tw``, both on the mixed-radix kernel, never
-    ``dfft_stage``."""
+    ``dfft_stage``; irfft's complex inverse is of 2160 = 5 x 432 points,
+    after kernel 3's pack pass, its first stage kernel 4 at 432 on the
+    mixed-radix kernel."""
     log = _record_launches(monkeypatch)
     if fn == "rfft":
         hf.rfft(torch.zeros((2, 4320), device="meta"), axis=-1)
@@ -524,6 +528,13 @@ def test_4320_axis_runs_kernel4_on_the_engine(monkeypatch, fn):
                            ("cmatmul", "dfft_cdft_short")]
         assert log[0][2][5:] == (2 * 9, 480, 9,
                                  hf.mixed_schedule(480, False))
+    elif fn == "irfft":
+        assert entries == [("c2r", "dfft_c2r_pack"),
+                           ("cmatmul_tw", "dfft_cdft_tw"),
+                           ("cmatmul", "dfft_cdft_short")]
+        assert log[0][2][3:] == (2, 2160, 5)
+        assert log[1][2][5:] == (2 * 5, 432, 5,
+                                 hf.mixed_schedule(432, True), 1)
     else:
         assert entries == [("cmatmul_tw", "dfft_cdft_tw"),
                            ("cmatmul", "dfft_cdft_short")]

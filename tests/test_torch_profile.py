@@ -285,20 +285,22 @@ def test_port_kernels_are_the_sources_kernels():
                     r"__global__\s+void\s+"
                     r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
                     f.read()))
-    assert len(found) == 15
+    assert len(found) == 16
     assert set(profile.PORT_KERNELS) == found
 
 
 # The Bodies each source launches the mixed-radix kernel with, as its
-# records name them (``fft_rows::fft_mixed_kernel<Body>``): kernels 1-5 in
-# stage.cu, kernel 6's two passes and kernel 8's y and z passes in
-# fused3d.cu (the y passes share ComplexTwiddleRows<false>).
+# records name them (``fft_rows::fft_mixed_kernel<Body>``): kernels 1-5 and
+# kernel 3's packed body in stage.cu, kernel 6's two passes and kernel 8's
+# y and z passes in fused3d.cu (the y passes share
+# ComplexTwiddleRows<false>).
 MIXED_BODIES = {
     "stage.cu": ("(anonymous namespace)::RealRows",
                  "fft_rows::ComplexTwiddleRows<false>",
                  "(anonymous namespace)::HalfRows",
                  "fft_rows::ComplexTwiddleRows<true>",
-                 "(anonymous namespace)::RealTwiddleRows"),
+                 "(anonymous namespace)::RealTwiddleRows",
+                 "(anonymous namespace)::PackedHalfRows"),
     "fused3d.cu": ("(anonymous namespace)::ZRows",
                    "fft_rows::ComplexTwiddleRows<false>",
                    "(anonymous namespace)::YZRows")}

@@ -267,6 +267,8 @@ def _record_launches(monkeypatch):
 _TW_COLS = ("cmatmul_tw", "dfft_cdft_tw_cols")
 _SHORT = ("cmatmul", "dfft_cdft_short")
 _TW = ("cmatmul_tw", "dfft_cdft_tw")
+_PACKED = ("c2r", "dfft_c2r_packed")
+_PACK = ("c2r", "dfft_c2r_pack")
 
 
 @pytest.mark.parametrize("call, want", [
@@ -281,7 +283,12 @@ _TW = ("cmatmul_tw", "dfft_cdft_tw")
     (("fft", (3, 2048), -1), [_TW, _SHORT]),
     (("ifft", (2, 6144), -1), [_TW, _SHORT]),
     (("rfft", (3, 2048), -1), [("rmatmul_tw", "dfft_rdft_tw"), _SHORT]),
-    (("irfft", (3, 1025), -1), [_TW, _SHORT]),
+    # irfft of an even n: the complex inverse of n / 2 points, one launch
+    # of kernel 3's packed body where the engine takes n / 2 (2048), else
+    # its pack pass and the four-step of n / 2 entered after its swap
+    # (4096 = 2 x 4 x 512).
+    (("irfft", (3, 1025), -1), [_PACKED]),
+    (("irfft", (3, 2049), -1), [_PACK, _TW, _SHORT]),
     # A non-last split axis that moves: n2 = 320 (its first stage on the
     # engine's mixed-radix kernel), a prime n2 = 521 (its direct stage,
     # then the twiddle as a product), a non-contiguous view, rfft of a
@@ -314,8 +321,9 @@ def test_split_axis_routes(monkeypatch, call, want):
         x = torch.zeros(shape, dtype=torch.complex64, device="meta")
         y = getattr(hf, fn)(x, axis=axis)
     assert [(k, e) for k, e, _ in log] == want
-    n = (2 * (shape[-1] - 1)) if fn == "irfft" else shape[axis]
-    n1, n2 = hf._split_axis(n)
+    # irfft: the complex inverse's n / 2 points, split when not direct.
+    n = shape[-1] - 1 if fn == "irfft" else shape[axis]
+    n1, n2 = hf._split_axis(n) if not hf._direct(n) else (1, n)
     if hf._short_body(n1):
         assert log[-1][:2] == _SHORT
         assert ("cmatmul", "dfft_stage") not in [(k, e) for k, e, _ in log[1:]]
@@ -407,4 +415,4 @@ def test_per_axis_plans_launch_what_chip_smoke_expects(monkeypatch, pid):
     assert "dfft_stage" not in ent_f and "dfft_stage" not in ent_i
     if pid == "per_axis_2048x256x2048":
         assert limits == cs.split_copy_limits(shape)
-        assert 5.5 < limits[0] < 5.7 and 36 < limits[1] < 37
+        assert 5.5 < limits[0] < 5.7 and limits[1] == cs.COPY_LIMIT_MS

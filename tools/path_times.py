@@ -28,7 +28,19 @@ power limit:
 * the 4320 convolution: 8 images of 4096^2 with a 225^2 kernel, "same",
   whose plan pads each axis to good_size 4320 = 9 x 480 (kernels 4 and 5
   on its first stages);
-* the 8 x 4320^2 batched-2D plan, forward and inverse.
+* the 8 x 4320^2 batched-2D plan, forward and inverse;
+* the C2R past the direct lengths (``hf.irfft`` along the last axis) on
+  524288 half rows to 2048 points (the 2048 x 256 x 2048 plan's z),
+  262144 to 4096 (the 64 x 4096^2 stack's y), 57344 to 896, 53248 to 832
+  (the 64 x 896^2 and 64 x 832^2 stacks' y) and 34560 to 4320 (the 4320
+  convolution's y), each with its entry points, beside
+  ``torch.fft.irfft`` on the same rows, the bound of kernel 3's body on
+  them (bytes: 8 (n/2 + 1) in, 4 n out: the packed body's real rows, or
+  the pack pass's n/2 complex) and, where the tree has it, that body's
+  own time;
+* the 2048 x 256 x 2048 per-axis slab plan and the 64 x 4096^2, 64 x
+  896^2 and 64 x 832^2 batched stacks, forward and inverse, with the
+  entry points of each direction.
 
     python3 tools/path_times.py TREE_A TREE_B     # e.g. build/parent .
     python3 tools/path_times.py --one TREE        # one tree, one process
@@ -60,7 +72,12 @@ TW = ((410880, 320, 2), (155592, 480, 9), (410880, 448, 2),
 CDFT = ((131072, 480), (131072, 448), (131072, 440), (131072, 442))  # rows, n
 C2R = ((131072, 480), (131072, 442))                  # rows, n
 RDFT_TW = ((819200, 320, 2), (819200, 408, 2), (311040, 480, 9))  # rows, n2, n1
-STACKS = ((256, 480, 480), (64, 896, 896), (64, 832, 832), (256, 440, 440))
+STACKS = ((256, 480, 480), (64, 896, 896), (64, 832, 832), (256, 440, 440),
+          (64, 4096, 4096))
+SPLIT = (2048, 256, 2048)
+C2R_SPLIT = ((524288, 2048), (262144, 4096), (57344, 896), (53248, 832),
+             (34560, 4320))                           # rows, n
+HBM = 3.35e12
 
 
 def median_ms(torch, fn, reps=REPS):
@@ -216,6 +233,48 @@ def one(tree):
         del x, ref
     torch.cuda.empty_cache()
 
+    for m, n in C2R_SPLIT:
+        k = n // 2 + 1
+        c = torch.randn((m, k), generator=gen, device="cuda",
+                        dtype=torch.complex64)
+        c[:, 0] = c[:, 0].real.clone()      # the library keeps these
+        c[:, -1] = c[:, -1].real.clone()    # imaginary parts at some sizes
+        ref = torch.fft.irfft(c, n=n, norm="forward")
+
+        def run():
+            return hf.irfft(c, n=n, axis=-1)
+
+        packed = hf._engine_length(n // 2)
+        r = dict(rows=m, entries=entries(torch, hf, run),
+                 max_rel_err=max_rel(run(), ref), ms=median_ms(torch, run),
+                 irfft_ms=median_ms(torch, lambda: torch.fft.irfft(
+                     c, n=n, norm="forward")),
+                 body_bound_ms=1e3 * m * (8 * k + 4 * n) / HBM)
+        if hasattr(hf, "irdft_packed"):     # the body alone, where it exists
+            if packed:
+                r["body_ms"] = median_ms(torch, lambda: hf.irdft_packed(c, n))
+            else:
+                n1 = hf._split_axis(n // 2)[0]
+                r["body_ms"] = median_ms(torch, lambda: hf.c2r_pack(c, n1))
+        row[f"c2r_{n}"] = r
+        del c, ref
+        torch.cuda.empty_cache()
+
+    x = torch.randn(SPLIT, generator=gen, device="cuda")
+    plan = dft.SlabFFTPlan(dft.GlobalSize(*SPLIT), dft.SlabPartition(1),
+                           pallas)
+    c = plan.exec_r2c(x)
+    row["slab{}x{}x{}".format(*SPLIT)] = dict(
+        entries_forward=entries(torch, hf, lambda: plan.exec_r2c(x)),
+        entries_inverse=entries(torch, hf, lambda: plan.exec_c2r(c)),
+        forward_vs_rfftn=max_rel(c, torch.fft.rfftn(x)),
+        roundtrip_vs_input=max_rel(plan.exec_c2r(c) / float(x.numel()), x),
+        forward_ms=median_ms(torch, lambda: plan.exec_r2c(x)),
+        inverse_ms=median_ms(torch, lambda: plan.exec_c2r(c)),
+        irfftn_ms=median_ms(torch, lambda: torch.fft.irfftn(c, s=SPLIT)))
+    del x, c, plan
+    torch.cuda.empty_cache()
+
     for slab in SLABS:
         x = torch.randn(slab, generator=gen, device="cuda")
         plan = dft.SlabFFTPlan(dft.GlobalSize(*slab), dft.SlabPartition(1),
@@ -249,8 +308,12 @@ def one(tree):
             entries_forward=entries(torch, hf, lambda: p.exec_forward(x)),
             entries_inverse=entries(torch, hf, lambda: p.exec_inverse(spec)),
             forward_vs_rfft2=max_rel(spec, torch.fft.rfft2(x)),
+            roundtrip_vs_input=max_rel(
+                p.exec_inverse(spec) / float(shape[1] * shape[2]), x),
             forward_ms=median_ms(torch, lambda: p.exec_forward(x)),
-            inverse_ms=median_ms(torch, lambda: p.exec_inverse(spec)))
+            inverse_ms=median_ms(torch, lambda: p.exec_inverse(spec)),
+            irfft2_ms=median_ms(torch, lambda: torch.fft.irfft2(
+                spec, s=shape[1:])))
         del x, p, spec
         torch.cuda.empty_cache()
     print(json.dumps(row), flush=True)
